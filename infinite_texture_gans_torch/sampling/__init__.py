@@ -1,0 +1,1 @@
+"""sampling of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,168 @@
+"""Infinite-canvas generation engine (halo-cache raster scan).
+
+Port of ``infinite_texture_gans_tpu/sampling/infinite.py``. The canvas is
+generated sub-image by sub-image in raster order; each local-padding conv
+site carries its halo cache (``ops/padding.py``) from step to step, so the
+result equals one pass of the generator over the whole canvas
+(:func:`generate_one_pass`, the correctness definition). The reference's
+``lax.scan`` over rows and columns becomes a Python loop over a dict of
+``SiteState`` tensors. Each group of canvas rows is overlap-trimmed and
+painted into a canvas on the device (re-generated right patch-columns and
+bottom patch-rows are dropped, the reference's crop protocol), and the
+finished canvas crosses to the host in one copy.
+"""
+
+from __future__ import annotations
+
+from math import ceil
+from typing import Optional
+
+import numpy as np
+import torch
+
+from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
+from infinite_texture_gans_torch.ops.padding import (
+    GridPos,
+    finalize_row,
+    init_halo_state,
+    rotate_rows,
+)
+from infinite_texture_gans_torch.sampling import latents
+
+
+def canvas_geometry(out_h: int, out_w: int, patch_res: int, gh: int, gw: int):
+    """Steps and total patch counts for a target resolution."""
+    steps_h = max(1, ceil((out_h / patch_res - 1) / (gh - 1)))
+    steps_w = max(1, ceil((out_w / patch_res - 1) / (gw - 1)))
+    total_h = steps_h * (gh - 1) + 1
+    total_w = steps_w * (gw - 1) + 1
+    return steps_h, steps_w, total_h, total_w
+
+
+def dispatch_groups(steps_h: int, gh: int, P: int, row_group: int):
+    """Row-group schedule: (r0, n_rows, kept_rows) triples. Every canvas row
+    but the last keeps its top (gh-1)*P rows (its bottom patch-row is
+    re-generated by the next row); the last row keeps all gh*P and forms a
+    group of its own."""
+    body = steps_h - 1
+    groups = [
+        (g0, min(row_group, body - g0), (gh - 1) * P)
+        for g0 in range(0, body, max(1, row_group))
+    ]
+    groups.append((steps_h - 1, 1, gh * P))
+    return groups
+
+
+def _to_uint8(x: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] float -> uint8 with the save mapping (x*0.5+0.5)*255 + 0.5,
+    clipped and truncated, in float32 (bf16 would break byte identity)."""
+    x = x.float()
+    return torch.clamp((x * 0.5 + 0.5) * 255.0 + 0.5, 0, 255).to(torch.uint8)
+
+
+def _trim_rows(subs_g: torch.Tensor, kept_rows: int, kept_cols: int, as_uint8: bool = False):
+    """Overlap trimming of a group of sub-images.
+    subs_g (n_rows, steps_w, N, gh*P, gw*P, C) ->
+    main (n_rows, steps_w, N, kept_rows, kept_cols, C) and the last column's
+    right part tail (n_rows, N, kept_rows, gw*P - kept_cols, C)."""
+    main = subs_g[:, :, :, :kept_rows, :kept_cols]
+    tail = subs_g[:, -1, :, :kept_rows, kept_cols:]
+    if as_uint8:
+        main, tail = _to_uint8(main), _to_uint8(tail)
+    return main, tail
+
+
+def _assemble_band(subs_g: torch.Tensor, kept_rows: int, kept_cols: int, as_uint8: bool):
+    """Trim one group of canvas rows and lay it out as a contiguous band
+    (N, n_rows * kept_rows, canvas_w, C)."""
+    main, tail = _trim_rows(subs_g, kept_rows, kept_cols, as_uint8)
+    n, steps_w, N, kr, kc, C = main.shape
+    band_main = main.permute(2, 0, 3, 1, 4, 5).reshape(N, n * kr, steps_w * kc, C)
+    band_tail = tail.permute(1, 0, 2, 3, 4).reshape(N, n * kr, -1, C)
+    return torch.cat([band_main, band_tail], dim=2)
+
+
+@torch.no_grad()
+def generate_canvas(
+    gen: ResidualPatchGenerator,
+    generator: Optional[torch.Generator] = None,
+    output_resolution_height: int = 384,
+    output_resolution_width: int = 384,
+    num_images: int = 1,
+    z_full: Optional[torch.Tensor] = None,
+    progress: bool = False,
+    row_group: Optional[int] = None,
+    wire: str = "f32",
+) -> np.ndarray:
+    """Raster-scan patch-by-patch generation of an (out_h, out_w) canvas on
+    the generator's device.
+
+    Returns a host array (N, out_h, out_w, img_ch): float32 in [-1, 1] for
+    ``wire='f32'``, uint8 for ``wire='u8'`` (quantised on the device).
+    ``z_full`` may be passed (e.g. to compare with the one-pass oracle);
+    otherwise it is drawn with ``generator`` (a torch.Generator on the
+    generator's device, or None for the global one). ``row_group``: canvas
+    rows painted per band (None: all body rows in one band); it bounds how
+    many sub-images are held on the device at once.
+    """
+    if wire not in ("f32", "u8"):
+        raise ValueError(f"wire must be 'f32' or 'u8', got {wire!r}")
+    device = next(gen.parameters()).device
+    P = gen.patch_resolution
+    gh, gw, base = gen.num_patches_h, gen.num_patches_w, gen.base_res
+    steps_h, steps_w, tot_h, tot_w = canvas_geometry(
+        output_resolution_height, output_resolution_width, P, gh, gw
+    )
+    if z_full is None:
+        z_full = latents.build_z_full(
+            generator, num_images, gen.z_dim, base, tot_h, tot_w, device=device
+        )
+    z_full = z_full.to(device)
+    halo = init_halo_state(
+        gen.site_specs(), num_images, gh, gw, tot_w, dtype=gen.dtype, device=device
+    )
+
+    as_uint8 = wire == "u8"
+    canvas = torch.zeros(
+        (num_images, tot_h * P, tot_w * P, gen.img_ch),
+        dtype=torch.uint8 if as_uint8 else torch.float32,
+        device=device,
+    )
+    row_stride = (gh - 1) * P
+    for r0, n, kept_rows in dispatch_groups(steps_h, gh, P, row_group or steps_h):
+        rows = []
+        for r in range(r0, r0 + n):
+            strip = latents.row_strips(z_full, r, base, gh)
+            subs = []
+            for c in range(steps_w):
+                c0 = c * (gw - 1) * base
+                z_sub = strip[:, :, c0 : c0 + gw * base + latents.Z_PAD]
+                out, halo = gen(z_sub, halo=halo, pos=GridPos(c, r == 0, c == 0))
+                subs.append(out)
+            halo = {
+                name: rotate_rows(finalize_row(s, gen.outer_padding))
+                for name, s in halo.items()
+            }
+            rows.append(torch.stack(subs))
+        band = _assemble_band(torch.stack(rows), kept_rows, (gw - 1) * P, as_uint8)
+        canvas[:, r0 * row_stride : r0 * row_stride + band.shape[1]] = band.to(canvas.dtype)
+        if progress:
+            print(f"  rows {r0 + 1}-{r0 + n}/{steps_h} ({steps_w} sub-images each)", flush=True)
+
+    out = canvas[:, :output_resolution_height, :output_resolution_width]
+    return out.cpu().numpy()
+
+
+@torch.no_grad()
+def generate_one_pass(
+    gen: ResidualPatchGenerator,
+    z_full: torch.Tensor,
+    total_patches_h: int = 3,
+    total_patches_w: int = 3,
+) -> torch.Tensor:
+    """One-pass oracle: the generator run once over the whole canvas grid,
+    what the patch-by-patch engine must reproduce. Returns (N, H, W, C) on
+    the generator's device, in the generator's dtype."""
+    device = next(gen.parameters()).device
+    out, _ = gen(z_full.to(device), grid=(total_patches_h, total_patches_w))
+    return out
