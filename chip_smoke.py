@@ -8,13 +8,18 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    ``infinite_texture_gans_torch/csrc`` with nvcc.
 2. Holds each kernel (K1-K4) against its plain PyTorch version at the
    flagship's shapes, in float32 with TF32 off and in bfloat16.
+   The shapes are those of one 384^2 sub-image (the raster path) and, for
+   K1, K3 and K4, those of the 768^2 one-pass grid too.
 3. Loads the trained flagship checkpoint ``examples/241_300ep_ema.ckpt``:
    - float32, 768^2: the one-pass oracle (a main path: K1, K3, K4, launch
      counts read), then the raster engine against it;
    - bfloat16 (the checkpoint's compute type), 1024^2 through
      ``generate_canvas(wire='u8')`` (the main path: K2, K3, K4, launch
      counts read and held to 7/3/3 per sub-image), its seam ratio, and
-     its warm wall time.
+     its warm wall time;
+   - on the first canvas's latents: the seam ratio of the one pass and of
+     sub-images generated without the halo cache (which set the raster's
+     seam limit), and, attention gate zeroed, the bf16 raster canvas held to the bf16 one pass.
 4. Times each kernel (CUDA events) beside its bound, its plain version and
    one PyTorch library call that computes the same function.
 5. Prints the ``kernels`` JSON line, the card line, and last
@@ -52,15 +57,38 @@ BF16_TOL = 2.0**-7
 # sub-image than on the whole canvas (float32 rounding, ~1e-6 relative)
 # carried through 13 convs; 5e-3 on the [-1, 1] image.
 CANVAS_TOL = 5e-3
-# seam ratio far above the reference's 0.851-0.926 band means a broken
-# halo protocol (a seam-free canvas sits near or below 1)
-SEAM_RATIO_MAX = 1.5
+# the same in bfloat16 on the u8 canvas: where cuDNN's choices round a
+# block 1-3 output one bf16 ulp apart, the difference is carried through
+# 13 convs and reaches the image as a few bf16 ulps, each about one u8
+# level near +-1 (a bf16 ulp there is 2^-8 of the [-1, 1] range's half)
+CANVAS_U8_TOL = 4
+# seam ratio of the raster canvas (trained attention gate) against the one
+# pass and a broken halo on the same latents: on an H100 (flagship, seed
+# 21) the working halo read 0.0005 from the one pass and the broken one 6.4
+# above it, so a tenth of that gap leaves a wide margin on both sides
+SEAM_GAP_SHARE = 0.1
 
-# The flagship tail per 384^2 sub-image (N = 1): (C, Co, H = W).
-CONV3 = [(104, 52, 96), (52, 52, 96), (52, 26, 192), (26, 26, 192),
-         (26, 13, 384), (13, 13, 384), (13, 3, 384)]
-CONV1 = [(104, 52, 96), (52, 26, 192), (26, 13, 384)]
-UP2 = [(104, 48), (52, 96), (26, 192)]
+# The flagship the checks are sized for: G_ch 52, n_layers_G 6, base_res 4
+# (patch 128, sub-image 3 x 3 patches = 384^2).
+FLAGSHIP = dict(G_ch=52, n_layers_G=6, base_res=4)
+GRID = 3
+
+
+def tail_shapes(plan, base, gh, gw):
+    """The channels-major tail's kernel shapes (N = 1) for a merged grid of
+    gh x gw patches: conv3x3 (C, Co, H, W), conv1x1 (C, Co, H, W) and the
+    upsample's input (C, H, W), from blocks 4 on (the eval gate: i > 3,
+    cin <= 128, which holds for every flagship block from 4 on)."""
+    conv3, conv1, up2 = [], [], []
+    for i, (cin, cout) in enumerate(plan, start=1):
+        if i <= 3:
+            continue
+        h, w = gh * base * 2 ** (i - 1), gw * base * 2 ** (i - 1)
+        up2.append((cin, h // 2, w // 2))
+        conv3 += [(cin, cout, h, w), (cout, cout, h, w)]
+        conv1.append((cin, cout, h, w))
+    conv3.append((plan[-1][1], 3, h, w))
+    return conv3, conv1, up2
 
 KERNELS = {
     "conv3x3_chw": ("K1", "conv3x3_chw.cu", 344),
@@ -101,14 +129,17 @@ def main() -> int:
     import torch.nn.functional as F
 
     from infinite_texture_gans_torch.config import generator_kwargs
-    from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
+    from infinite_texture_gans_torch.models.generator import (
+        ResidualPatchGenerator,
+        generator_channel_plan,
+    )
     from infinite_texture_gans_torch.ops import _build, kernels
     from infinite_texture_gans_torch.sampling.infinite import (
         canvas_geometry,
         generate_canvas,
         generate_one_pass,
     )
-    from infinite_texture_gans_torch.sampling.latents import build_z_full
+    from infinite_texture_gans_torch.sampling.latents import build_z_full, slice_sub_z
     from infinite_texture_gans_torch.train.checkpoint import (
         load_checkpoint,
         load_generator_from_checkpoint,
@@ -174,6 +205,9 @@ def main() -> int:
         sync()
         return start.elapsed_time(end) / iters
 
+    stats = {k: dict(err=0.0, ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                     nbytes=0.0, flops=0.0) for k in KERNELS}
+
     def compare(name, shape, got, ref, exact=False):
         sync()
         err = float((got.float() - ref.float()).abs().max())
@@ -185,27 +219,24 @@ def main() -> int:
               f"(of max|ref| {top:.3e}) limit {limit:.3e}")
         if not err <= limit:
             fail(f"{name} {shape} {got.dtype}: max abs err {err} > {limit}")
-        return err
+        stats[name]["err"] = max(stats[name]["err"], err)
 
     # -- 2. kernels against their plain versions --------------------------
     def randn(g, *shape):
         return torch.randn(*shape, device=dev, generator=g)
 
-    def conv3_inputs(c, co, hw, dtype, seed):
+    def conv3_inputs(c, co, h, w, dtype, seed):
         g = torch.Generator(device=dev).manual_seed(seed)
-        x = randn(g, 1, c, hw, hw).to(dtype)
-        w = randn(g, co, c, 3, 3) * (9 * c) ** -0.5
+        x = randn(g, 1, c, h, w).to(dtype)
+        wt = randn(g, co, c, 3, 3) * (9 * c) ** -0.5
         b = 0.1 * randn(g, co)
         sc = 1 + 0.1 * randn(g, c)
         sh = 0.1 * randn(g, c)
-        top = torch.relu(randn(g, 1, c, hw + 2)).to(dtype)
-        left = torch.relu(randn(g, 1, c, hw)).to(dtype)
-        return x, w, b, sc, sh, top, left
+        top = torch.relu(randn(g, 1, c, w + 2)).to(dtype)
+        left = torch.relu(randn(g, 1, c, h)).to(dtype)
+        return x, wt, b, sc, sh, top, left
 
-    stats = {k: dict(err=0.0, ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                     nbytes=0.0, flops=0.0) for k in KERNELS}
-
-    def account(name, shape_s, err, kernel_fn, plain_fn, lib_fn, nbytes, flops):
+    def account(name, shape_s, kernel_fn, plain_fn, lib_fn, nbytes, flops):
         """Time the kernel, its plain version and the library call (bf16,
         device time from CUDA-graph replay) and add them to the kernel's
         per-sub-image sums."""
@@ -213,7 +244,6 @@ def main() -> int:
         eager = eager_ms(kernel_fn)
         b = bound_ms(nbytes, flops)
         s = stats[name]
-        s["err"] = max(s["err"], err)
         s["ms"] += ms
         s["eager_ms"] += eager
         s["plain_ms"] += plain
@@ -232,73 +262,85 @@ def main() -> int:
           "compute in f32 and round the output once, so an output may sit one bf16 ulp "
           "(2^-8 relative) apart; two allowed")
     print("[tolerance] upsample2_chw: bit-equal (a copy)")
+    plan = generator_channel_plan(FLAGSHIP["G_ch"], FLAGSHIP["n_layers_G"])
+    base, patch = FLAGSHIP["base_res"], FLAGSHIP["base_res"] * 2 ** (FLAGSHIP["n_layers_G"] - 1)
+    _, _, th768, tw768 = canvas_geometry(768, 768, patch, GRID, GRID)
+    # K2, K3, K4 on the raster path: one sub-image (checked and timed); K1,
+    # K3, K4 on the one-pass path: the 768^2 canvas's whole grid (checked)
+    shape_sets = [("sub-image", tail_shapes(plan, base, GRID, GRID), True),
+                  (f"one-pass {th768}x{tw768}", tail_shapes(plan, base, th768, tw768), False)]
     t0 = time.perf_counter()
-    for i, (c, co, hw) in enumerate(CONV3):
-        for dtype in (torch.float32, torch.bfloat16):
-            x, w, b, sc, sh, top, left = conv3_inputs(c, co, hw, dtype, i)
-            shape_s = f"{c}->{co} @{hw}^2"
-            e1 = e2 = 0.0
-            for outer in ("replicate", "constant"):
-                e1 = max(e1, compare("conv3x3_chw", f"{shape_s} {outer}",
-                             kernels.conv3x3_chw(x, w, b, sc, sh, True, outer),
-                             kernels.conv3x3_chw_plain(x, w, b, sc, sh, True, outer)))
-                e2 = max(e2, compare("chw_halo_step", f"{shape_s} {outer}",
-                             kernels.conv3x3_chw_halo(x, w, b, sc, sh, True, outer, top, left),
-                             kernels.conv3x3_chw_halo_plain(x, w, b, sc, sh, True, outer, top, left)))
-            if dtype != torch.bfloat16:
-                continue
-            es = x.element_size()
-            act_bytes = (c + co) * hw * hw * es + (co * c * 9 + co + 2 * c) * 4
-            flops = 2.0 * co * c * 9 * hw * hw
-            a_pad = F.pad(kernels.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
-            wl, bl = w.to(dtype), b.to(dtype)
-            account("conv3x3_chw", shape_s, e1,
-                    lambda: kernels.conv3x3_chw(x, w, b, sc, sh, True),
-                    lambda: kernels.conv3x3_chw_plain(x, w, b, sc, sh, True),
-                    lambda: F.conv2d(a_pad, wl, bl), act_bytes, flops)
-            halo_bytes = act_bytes + (2 * hw + 2) * c * es
-            account("chw_halo_step", shape_s, e2,
-                    lambda: kernels.conv3x3_chw_halo(x, w, b, sc, sh, True, "replicate", top, left),
-                    lambda: kernels.conv3x3_chw_halo_plain(x, w, b, sc, sh, True, "replicate", top, left),
-                    lambda: F.conv2d(a_pad, wl, bl), halo_bytes, flops)
+    for where, (conv3, conv1, up2), timed in shape_sets:
+        for i, (c, co, h, w) in enumerate(conv3):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, wt, b, sc, sh, top, left = conv3_inputs(c, co, h, w, dtype, i)
+                shape_s = f"{c}->{co} @{h}x{w}"
+                for outer in ("replicate", "constant"):
+                    compare("conv3x3_chw", f"{where} {shape_s} {outer}",
+                            kernels.conv3x3_chw(x, wt, b, sc, sh, True, outer),
+                            kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True, outer))
+                    if timed:
+                        compare("chw_halo_step", f"{where} {shape_s} {outer}",
+                                kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, outer, top, left),
+                                kernels.conv3x3_chw_halo_plain(x, wt, b, sc, sh, True, outer,
+                                                               top, left))
+                if not timed or dtype != torch.bfloat16:
+                    continue
+                es = x.element_size()
+                act_bytes = (c + co) * h * w * es + (co * c * 9 + co + 2 * c) * 4
+                flops = 2.0 * co * c * 9 * h * w
+                a_pad = F.pad(kernels.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
+                wl, bl = wt.to(dtype), b.to(dtype)
+                account("conv3x3_chw", shape_s,
+                        lambda: kernels.conv3x3_chw(x, wt, b, sc, sh, True),
+                        lambda: kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True),
+                        lambda: F.conv2d(a_pad, wl, bl), act_bytes, flops)
+                halo_bytes = act_bytes + (h + w + 2) * c * es
+                account("chw_halo_step", shape_s,
+                        lambda: kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate",
+                                                         top, left),
+                        lambda: kernels.conv3x3_chw_halo_plain(x, wt, b, sc, sh, True,
+                                                               "replicate", top, left),
+                        lambda: F.conv2d(a_pad, wl, bl), halo_bytes, flops)
 
-    for i, (c, co, hw) in enumerate(CONV1):
-        for dtype in (torch.float32, torch.bfloat16):
-            g = torch.Generator(device=dev).manual_seed(100 + i)
-            x = randn(g, 1, c, hw, hw).to(dtype)
-            w = randn(g, co, c, 1, 1) * c ** -0.5
-            b = 0.1 * randn(g, co)
-            res = randn(g, 1, co, hw, hw).to(dtype)
-            shape_s = f"{c}->{co} @{hw}^2"
-            compare("conv1x1_chw", shape_s, kernels.conv1x1_chw(x, w, b),
-                    kernels.conv1x1_chw_plain(x, w, b))
-            e3 = compare("conv1x1_chw", f"{shape_s} +res", kernels.conv1x1_chw_add(x, w, b, res),
-                         kernels.conv1x1_chw_plain(x, w, b, res))
-            if dtype != torch.bfloat16:
-                continue
-            es = x.element_size()
-            nbytes = (c + 2 * co) * hw * hw * es + (co * c + co) * 4
-            flops = 2.0 * co * c * hw * hw + 2.0 * co * hw * hw
-            wl, bl = w.to(dtype), b.to(dtype)
-            account("conv1x1_chw", shape_s, e3,
-                    lambda: kernels.conv1x1_chw_add(x, w, b, res),
-                    lambda: kernels.conv1x1_chw_plain(x, w, b, res),
-                    lambda: torch.add(F.conv2d(x, wl, bl), res), nbytes, flops)
+        for i, (c, co, h, w) in enumerate(conv1):
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.Generator(device=dev).manual_seed(100 + i)
+                x = randn(g, 1, c, h, w).to(dtype)
+                wt = randn(g, co, c, 1, 1) * c ** -0.5
+                b = 0.1 * randn(g, co)
+                res = randn(g, 1, co, h, w).to(dtype)
+                shape_s = f"{c}->{co} @{h}x{w}"
+                compare("conv1x1_chw", f"{where} {shape_s}", kernels.conv1x1_chw(x, wt, b),
+                        kernels.conv1x1_chw_plain(x, wt, b))
+                compare("conv1x1_chw", f"{where} {shape_s} +res",
+                        kernels.conv1x1_chw_add(x, wt, b, res),
+                        kernels.conv1x1_chw_plain(x, wt, b, res))
+                if not timed or dtype != torch.bfloat16:
+                    continue
+                es = x.element_size()
+                nbytes = (c + 2 * co) * h * w * es + (co * c + co) * 4
+                flops = 2.0 * co * c * h * w + 2.0 * co * h * w
+                wl, bl = wt.to(dtype), b.to(dtype)
+                account("conv1x1_chw", shape_s,
+                        lambda: kernels.conv1x1_chw_add(x, wt, b, res),
+                        lambda: kernels.conv1x1_chw_plain(x, wt, b, res),
+                        lambda: torch.add(F.conv2d(x, wl, bl), res), nbytes, flops)
 
-    for i, (c, hw) in enumerate(UP2):
-        for dtype in (torch.float32, torch.bfloat16):
-            g = torch.Generator(device=dev).manual_seed(200 + i)
-            x = randn(g, 1, c, hw, hw).to(dtype)
-            shape_s = f"(1, {c}, {hw}, {hw})"
-            e4 = compare("upsample2_chw", shape_s, kernels.upsample2_chw(x),
-                         kernels.upsample2_chw_plain(x), exact=True)
-            if dtype != torch.bfloat16:
-                continue
-            nbytes = 5.0 * c * hw * hw * x.element_size()
-            account("upsample2_chw", shape_s, e4,
-                    lambda: kernels.upsample2_chw(x),
-                    lambda: kernels.upsample2_chw_plain(x),
-                    lambda: F.interpolate(x, scale_factor=2, mode="nearest"), nbytes, 0.0)
+        for i, (c, h, w) in enumerate(up2):
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.Generator(device=dev).manual_seed(200 + i)
+                x = randn(g, 1, c, h, w).to(dtype)
+                shape_s = f"(1, {c}, {h}, {w})"
+                compare("upsample2_chw", f"{where} {shape_s}", kernels.upsample2_chw(x),
+                        kernels.upsample2_chw_plain(x), exact=True)
+                if not timed or dtype != torch.bfloat16:
+                    continue
+                nbytes = 5.0 * c * h * w * x.element_size()
+                account("upsample2_chw", shape_s,
+                        lambda: kernels.upsample2_chw(x),
+                        lambda: kernels.upsample2_chw_plain(x),
+                        lambda: F.interpolate(x, scale_factor=2, mode="nearest"), nbytes, 0.0)
     print(f"[phase 2] kernel checks and timings in {time.perf_counter() - t0:.1f} s")
 
     # -- 3. the flagship checkpoint through the port ------------------------
@@ -307,14 +349,15 @@ def main() -> int:
     gen, args = load_generator_from_checkpoint(str(CKPT), device=dev, ckpt=ckpt)
     print(f"[load] G_ch {args.G_ch} z_dim {args.z_dim} n_layers_G {args.n_layers_G} "
           f"attention {args.attention} dtype {gen.dtype} patch {gen.patch_resolution}")
-    kw = {**generator_kwargs(args), "num_patches_h": 3, "num_patches_w": 3,
-          "dtype": torch.float32}
+    if (gen.plan, gen.base_res, gen.num_patches_h, gen.num_patches_w) != (plan, base, GRID, GRID):
+        fail("the checkpoint's generator is not the flagship the kernel checks were sized for")
+    kw = {**generator_kwargs(args), "dtype": torch.float32}
     gen32 = ResidualPatchGenerator(**kw)
     gen32.load_state_dict(gen.state_dict(), strict=True)
     gen32 = gen32.to(dev).eval()
     P = gen.patch_resolution
 
-    _, _, th, tw = canvas_geometry(768, 768, P, 3, 3)
+    th, tw = th768, tw768
     z768 = build_z_full(torch.Generator(device=dev).manual_seed(0), 1, gen.z_dim,
                         gen.base_res, th, tw, device=dev)
     sync()
@@ -346,7 +389,7 @@ def main() -> int:
         fail(f"raster canvas differs from the one-pass oracle by {err0}")
     del gen32, one, raster, one0, raster0
 
-    steps_h, steps_w, _, _ = canvas_geometry(1024, 1024, P, 3, 3)
+    steps_h, steps_w, th1k, tw1k = canvas_geometry(1024, 1024, P, GRID, GRID)
     n_sub = steps_h * steps_w
     sync()
     kernels.reset_launches()
@@ -380,8 +423,6 @@ def main() -> int:
     print(f"[quality] seam ratio 1024^2 (u8 canvas, width 1), seeds 21-24: "
           f"{', '.join(f'{r:.4f}' for r in ratios)} (mean {statistics.mean(ratios):.4f}); "
           "the JAX reference's band is 0.851-0.926 over its 3 seeds")
-    if not max(ratios) <= SEAM_RATIO_MAX:
-        fail(f"seam ratio {max(ratios)} > {SEAM_RATIO_MAX}: halo protocol broken")
     print(f"[time] canvas 1024^2 bf16 u8 wall: cold {cold_s:.4f} s, warm "
           f"{', '.join(f'{w:.4f}' for w in walls)} s (median {statistics.median(walls):.4f} s) "
           f"[{card}]")
@@ -410,6 +451,46 @@ def main() -> int:
             print(f"[trace]   {ms_:9.3f} ms {n_:6d}x  {name[:110]}")
     else:
         print("[trace] device time: not measured (the profiler recorded no device events)")
+
+    # Seed 21's latents once more, drawn as generate_canvas drew them: the
+    # same canvas through the one-pass oracle (no sub-image edges) and with
+    # the halo cache left out (a broken halo protocol); then, attention gate
+    # zeroed, the raster canvas held to the one pass.
+    def to_u8(x):
+        return torch.clamp((x.float() * 0.5 + 0.5) * 255.0 + 0.5, 0, 255).to(torch.uint8).cpu().numpy()
+
+    z21 = build_z_full(torch.Generator(device=dev).manual_seed(21), 1, gen.z_dim, gen.base_res,
+                       th1k, tw1k, device=dev)
+    if not np.array_equal(generate_canvas(gen, None, 1024, 1024, z_full=z21, wire="u8"), img):
+        fail("seed 21's z_full does not reproduce the counted canvas")
+    one21 = to_u8(generate_one_pass(gen, z21, th1k, tw1k)[:, :1024, :1024])
+    stride, size = (GRID - 1) * P, GRID * P
+    tiles = torch.zeros(1, th1k * P, tw1k * P, 3, device=dev)
+    with torch.no_grad():
+        for r in range(steps_h):
+            for c in range(steps_w):
+                sub, _ = gen(slice_sub_z(z21, r, c, gen.base_res, GRID, GRID))
+                tiles[:, r * stride : r * stride + size, c * stride : c * stride + size] = sub.float()
+    tiles = to_u8(tiles[:, :1024, :1024])
+    r_one, r_broken = seam_ratio(one21), seam_ratio(tiles)
+    seam_limit = r_one + SEAM_GAP_SHARE * (r_broken - r_one)
+    print(f"[quality] seam ratio 1024^2, seed 21's latents: raster {ratios[0]:.4f}, one pass "
+          f"{r_one:.4f} (no sub-image edges), sub-images without the halo cache "
+          f"{r_broken:.4f} (a broken halo); limit {seam_limit:.4f} ({SEAM_GAP_SHARE:g} of the "
+          "way from the one pass to the broken halo)")
+    if not ratios[0] <= seam_limit:
+        fail(f"seam ratio {ratios[0]} > {seam_limit}: the raster canvas shows sub-image seams")
+    with torch.no_grad():
+        gen.attention.attn.gamma.zero_()
+    one0 = generate_one_pass(gen, z21, th1k, tw1k)[:, :1024, :1024]
+    raster0 = generate_canvas(gen, None, 1024, 1024, z_full=z21, wire="f32")
+    err_f = float(np.abs(raster0 - one0.float().cpu().numpy()).max())
+    d = np.abs(to_u8(torch.from_numpy(raster0)).astype(np.int16) - to_u8(one0).astype(np.int16))
+    print(f"[canvas bf16 1024^2, gate zeroed] raster vs one-pass: max abs {err_f:.3e} on "
+          f"[-1, 1]; u8: max {int(d.max())} levels, {np.count_nonzero(d)} of {d.size} values "
+          f"differ; limit {CANVAS_U8_TOL} levels (bf16 ulps from cuDNN's choices in blocks 1-3)")
+    if not d.max() <= CANVAS_U8_TOL:
+        fail(f"bf16 raster canvas differs from the one-pass oracle by {d.max()} u8 levels")
     print(f"[phase 3] checkpoint phases in {time.perf_counter() - t0:.1f} s")
 
     # -- 4/5. report ----------------------------------------------------------

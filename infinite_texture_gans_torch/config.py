@@ -28,7 +28,6 @@ GENERATOR_DEFAULTS: Dict[str, Any] = {
     "num_patches_height": 3,
     "outer_padding": "replicate",
     "compute_dtype": "float32",
-    "chw_tail": "auto",
     "fuse_up": "auto",
 }
 
@@ -39,7 +38,14 @@ def dict_to_args(d: Dict[str, Any]) -> argparse.Namespace:
 
 
 def generator_kwargs(args: argparse.Namespace) -> Dict[str, Any]:
-    """Constructor kwargs for ResidualPatchGenerator from a config namespace."""
+    """Constructor kwargs for ResidualPatchGenerator from a config namespace.
+
+    The stored ``chw_tail`` is the reference's TPU placement flag and is not
+    read: the port's generator picks its tail itself. ``fuse_up`` 'auto' and
+    'off' differ only in training; 'all' (the fused eval up-conv) is not
+    ported yet and is refused."""
+    if args.fuse_up == "all":
+        raise NotImplementedError("fuse_up='all' is not ported yet; use 'auto'")
     return dict(
         z_dim=args.z_dim,
         G_ch=args.G_ch,
@@ -55,6 +61,4 @@ def generator_kwargs(args: argparse.Namespace) -> Dict[str, Any]:
         num_patches_h=args.num_patches_height,
         num_patches_w=args.num_patches_width,
         dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32,
-        chw_tail=args.chw_tail,
-        fuse_up=args.fuse_up,
     )

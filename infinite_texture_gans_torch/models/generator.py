@@ -8,8 +8,8 @@ NHWC grids; from the first block that passes the channels-major gate on,
 the tail runs on (N, C, H, W) through the CUDA kernels of ``ops/kernels.py``
 and the output returns to NHWC.
 
-Not ported yet (raise): zeros padding mode, SSM norm, ``fuse_up='all'``,
-spectral norm and the training forward.
+Not ported yet (raise): zeros padding mode, SSM norm, spectral norm and
+the training forward (``fuse_up='all'`` is refused by ``config.py``).
 """
 
 from __future__ import annotations
@@ -62,10 +62,11 @@ def generator_site_specs(G_ch: int = 52, base_res: int = 4, n_layers_G: int = 6)
 class ResidualPatchGenerator(nn.Module):
     """See module docstring. Constructor arguments follow the reference's
     fields. ``dtype`` is the compute type (parameters stay float32).
-    ``chw_tail``: 'auto' and 'on' run eval blocks with ``i > 3`` and
-    ``cin <= 128`` channels-major on any device; 'off' keeps every block
-    NHWC. The boundary is the reference's TPU-measured eval gate, a starting
-    point to re-measure on the GPU.
+    ``chw_tail``: 'auto' runs eval blocks with ``i > 3`` and ``cin <= 128``
+    channels-major on any device (the boundary is the reference's
+    TPU-measured eval gate, a starting point to re-measure on the GPU);
+    'off' keeps every block NHWC, for comparison with the reference's XLA
+    path on the CPU only: on a CUDA tensor the tail runs the kernels.
 
     ``forward(z, halo=None, pos=None, grid=None)``: z merged
     (N, gh*base_res+2, gw*base_res+2, z_dim) in local mode; returns (merged
@@ -77,17 +78,14 @@ class ResidualPatchGenerator(nn.Module):
                  leak: float = 0.0, SN: bool = False, type_norm: str = "BN",
                  padding_mode: str = "local", outer_padding: str = "replicate",
                  num_patches_h: int = 3, num_patches_w: int = 3,
-                 dtype: torch.dtype = torch.float32, chw_tail: str = "auto",
-                 fuse_up: str = "auto"):
+                 dtype: torch.dtype = torch.float32, chw_tail: str = "auto"):
         super().__init__()
         if type_norm != "BN":
             raise NotImplementedError(f"type_norm={type_norm!r}: only 'BN' is ported yet")
-        if fuse_up not in ("auto", "off"):
-            raise NotImplementedError(f"fuse_up={fuse_up!r}: only 'auto' and 'off' are ported yet")
         if SN:
             raise NotImplementedError("spectral norm is not ported yet; rebuild with SN=False")
-        if chw_tail not in ("auto", "on", "off"):
-            raise ValueError(f"chw_tail must be 'auto', 'on' or 'off', got {chw_tail!r}")
+        if chw_tail not in ("auto", "off"):
+            raise ValueError(f"chw_tail must be 'auto' or 'off', got {chw_tail!r}")
         if padding_mode != "local":
             raise NotImplementedError(f"padding_mode={padding_mode!r}: only 'local' is ported yet")
         if dtype not in (torch.float32, torch.bfloat16):
@@ -124,6 +122,8 @@ class ResidualPatchGenerator(nn.Module):
         e.g. to run the whole canvas as one grid (the one-pass oracle)."""
         if self.training:
             raise RuntimeError("only the eval forward is ported; call .eval() first")
+        if self.chw_tail == "off" and z.is_cuda:
+            raise ValueError("chw_tail='off' is a CPU reference path; a CUDA generator runs the tail kernels")
         grid = grid or (self.num_patches_h, self.num_patches_w)
         act = activation_fn(self.leak)
         halo_out: Dict[str, SiteState] = {}

@@ -17,6 +17,7 @@ from infinite_texture_gans_tpu.sampling import latents as jax_latents
 from infinite_texture_gans_tpu.sampling.infinite import (
     generate_canvas as jax_generate_canvas,
 )
+from infinite_texture_gans_torch.config import dict_to_args, generator_kwargs
 from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
 from infinite_texture_gans_torch.ops import kernels
 from infinite_texture_gans_torch.sampling import latents
@@ -104,7 +105,10 @@ def test_rejects_unported_options():
     with pytest.raises(NotImplementedError):
         ResidualPatchGenerator(**SMALL, type_norm="SSM")
     with pytest.raises(NotImplementedError):
-        ResidualPatchGenerator(**SMALL, fuse_up="all")
+        generator_kwargs(dict_to_args({"fuse_up": "all"}))
+    assert "fuse_up" not in generator_kwargs(dict_to_args({"fuse_up": "off"}))
+    with pytest.raises(ValueError):  # 'auto' already runs the tail on any device
+        ResidualPatchGenerator(**SMALL, chw_tail="on")
     with pytest.raises(RuntimeError):  # training forward not ported
         ResidualPatchGenerator(**SMALL)(torch.zeros(1, 14, 14, 16))
 

@@ -98,6 +98,12 @@ def test_upsample_kernel_bit_equal(cuda, dtype):
     assert torch.equal(tk.upsample2_chw(x), tk.upsample2_chw_plain(x))
 
 
+def test_tail_off_refuses_cuda(cuda):
+    gen = ResidualPatchGenerator(z_dim=16, G_ch=8, n_layers_G=4, chw_tail="off").to(cuda).eval()
+    with pytest.raises(ValueError):
+        gen(torch.zeros(1, 14, 14, 16, device=cuda))
+
+
 def test_raster_canvas_on_card_equals_one_pass(cuda):
     gen = ResidualPatchGenerator(z_dim=16, G_ch=8, n_layers_G=4, attention=True)
     g = torch.Generator(device="cpu").manual_seed(2)
