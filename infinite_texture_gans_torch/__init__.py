@@ -4,11 +4,13 @@ A second package beside ``infinite_texture_gans_tpu`` (the JAX reference,
 which this package never imports). The module layout mirrors the reference
 so each module's counterpart is easy to find: ``ops/`` (grid, padding,
 convolutions and the hand-written CUDA kernels of ``csrc/``), ``models/``,
-``sampling/``, ``train/checkpoint.py``, ``config.py`` and ``sample.py``.
+``sampling/``, ``data/``, ``train/``, ``config.py`` and ``sample.py``.
 
-This package currently ports the generation path: a trained checkpoint is
-loaded, rebuilt as an eval-mode generator and run through the halo-cache
-raster engine. Entry points run on ``cuda`` unless the caller passes
+This package ports the generation path (a trained checkpoint is loaded,
+rebuilt as an eval-mode generator and run through the halo-cache raster
+engine) and the Experiment-1 training step with ``--fuse_up off``
+(``train/train_loop.py``, which writes checkpoints in the reference's
+format). Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper takes its plain PyTorch
 version.
 """

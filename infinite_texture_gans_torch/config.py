@@ -1,9 +1,12 @@
-"""The part of the config system needed to rebuild a generator.
+"""Flags: the training parser and the model constructors' keyword arguments.
 
-Port of ``dict_to_args`` and ``generator_kwargs`` from
-``infinite_texture_gans_tpu/config.py``: a checkpoint stores the training
-flags (``meta.args``); flags it lacks take the defaults below, which are the
-reference parser's defaults for the same flags.
+Port of ``prepare_parser``, ``dict_to_args``, ``generator_kwargs`` and
+``discriminator_kwargs`` from ``infinite_texture_gans_tpu/config.py``. A
+checkpoint stores the training flags (``meta.args``); flags it lacks take
+the defaults below, which are the reference parser's defaults for the same
+flags. The training parser keeps the reference's flag names; its
+``--fuse_up`` defaults to 'off' (the subpixel-fused up-conv kernels are
+not ported yet) and ``--device`` to 'cuda'.
 """
 
 from __future__ import annotations
@@ -31,21 +34,107 @@ GENERATOR_DEFAULTS: Dict[str, Any] = {
     "fuse_up": "auto",
 }
 
+FUSE_UP_MISSING = (
+    "--fuse_up auto trains the subpixel-fused up-conv, whose kernels (K9: "
+    "pallas_conv.py _upconv3x3_fwd/_dx/_dw; K10: upsample2_chw_add_p) are not "
+    "ported yet; train with --fuse_up off"
+)
+
+
+def prepare_parser() -> argparse.ArgumentParser:
+    """The training flags (the reference's names and defaults, except
+    ``--fuse_up`` and the port's ``--device``). Flags of the reference that
+    the port does not act on yet are refused by :func:`check_train_args`."""
+    p = argparse.ArgumentParser(description="Train the texture GAN (PyTorch port).")
+    a = p.add_argument
+    # data
+    a("--data", type=str, default="single_image", help="type of data (single_image)")
+    a("--data_path", type=str, default="datasets/241.jpg", help="data path")
+    a("--data_ext", type=str, default="jpg", help="data extension: jpg, png or txt")
+    a("--center_crop", type=int, default=None, help="center cropping")
+    a("--random_crop", type=int, default=None, help="random cropping")
+    a("--sampling", type=int, default=8000, help="virtual dataset length per epoch")
+    # models
+    a("--D_model", type=str, default="patch_GAN", help="discriminator model (patch_GAN)")
+    a("--attention", action="store_true", default=False, help="attention in the generator")
+    a("--img_ch", type=int, default=3, help="image channels")
+    a("--G_ch", type=int, default=52, help="base channel multiplier for G")
+    a("--D_ch", type=int, default=64, help="base channel multiplier for D")
+    a("--leak_G", type=float, default=0, help="leaky relu slope in G, 0 uses ReLU")
+    a("--z_dim", type=int, default=128, help="latent dimension")
+    a("--spec_norm_D", default=False, action="store_true", help="spectral normalization in D")
+    a("--spec_norm_G", default=False, action="store_true", help="spectral normalization in G")
+    a("--n_layers_D", type=int, default=4, help="number of layers in D")
+    a("--n_layers_G", type=int, default=6, help="number of layers in G")
+    a("--norm_layer_D", type=str, default=None, help="normalization layer in D (None only)")
+    a("--base_res", type=int, default=4, help="base resolution for G")
+    a("--padding_mode", type=str, default="zeros", help="padding in G (local)")
+    a("--type_norm_G", type=str, default="BN", help="normalization in G (BN)")
+    # optimizers
+    a("--lr_G", type=float, default=2e-4, help="G learning rate")
+    a("--lr_D", type=float, default=2e-4, help="D learning rate")
+    a("--beta1", type=float, default=0, help="Adam beta1")
+    a("--beta2", type=float, default=0.999, help="Adam beta2")
+    a("--batch_size", type=int, default=64, help="discriminator batch size")
+    # training
+    a("--loss", type=str, default="standard", help="standard or hinge")
+    a("--disc_iters", type=int, default=1, help="D updates per G update (1)")
+    a("--epochs", type=int, default=1, help="number of epochs")
+    a("--saving_rate", type=int, default=30, help="save a checkpoint every saving_rate epochs")
+    a("--ema", action="store_true", default=False, help="keep an EMA of G's weights")
+    a("--ema_decay", type=float, default=0.999, help="EMA decay rate")
+    a("--decay_lr", type=str, default=None, help="learning-rate decay: exp or step")
+    a("--seed", type=int, default=None, help="None for a random seed")
+    a("--smooth", default=False, action="store_true", help="smooth the real labels (0.9)")
+    # patch generation
+    a("--num_images", type=int, default=8, help="fake grids per step")
+    a("--num_patches_width", type=int, default=3, help="patches along the width")
+    a("--num_patches_height", type=int, default=3, help="patches along the height")
+    a("--outer_padding", type=str, default="replicate", help="replicate or constant (zeros)")
+    a("--fname", type=str, default="models_cp", help="folder to save checkpoints")
+    a("--compute_dtype", type=str, default="float32", help="float32 or bfloat16")
+    a("--fuse_up", type=str, default="off", choices=["auto", "off"],
+      help="subpixel-fused upsample+conv in the tail blocks. Default 'off': the "
+           "fused kernels (K9, K10) are not ported yet, and 'auto' raises")
+    a("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    return p
+
+
+def check_train_args(args: argparse.Namespace) -> None:
+    """Refuse the training options the port does not implement yet."""
+    if args.fuse_up != "off":
+        raise NotImplementedError(FUSE_UP_MISSING)
+    unported = {
+        "data": ("single_image",), "D_model": ("patch_GAN",), "loss": ("standard", "hinge"),
+        "disc_iters": (1,), "padding_mode": ("local",), "type_norm_G": ("BN",),
+        "norm_layer_D": (None,), "spec_norm_G": (False,),
+    }
+    for flag, allowed in unported.items():
+        if getattr(args, flag) not in allowed:
+            raise NotImplementedError(f"--{flag} {getattr(args, flag)!r}: the port trains with {allowed}")
+
 
 def dict_to_args(d: Dict[str, Any]) -> argparse.Namespace:
     """Namespace from a checkpoint-stored config, defaults filled in."""
     return argparse.Namespace(**{**GENERATOR_DEFAULTS, **d})
 
 
-def generator_kwargs(args: argparse.Namespace) -> Dict[str, Any]:
+def _dtype(args) -> torch.dtype:
+    return torch.bfloat16 if getattr(args, "compute_dtype", "float32") == "bfloat16" else torch.float32
+
+
+def generator_kwargs(args: argparse.Namespace, train: bool = False) -> Dict[str, Any]:
     """Constructor kwargs for ResidualPatchGenerator from a config namespace.
 
     The stored ``chw_tail`` is the reference's TPU placement flag and is not
-    read: the port's generator picks its tail itself. ``fuse_up`` 'auto' and
-    'off' differ only in training; 'all' (the fused eval up-conv) is not
-    ported yet and is refused."""
+    read: the port's generator picks its tail itself. At eval ``fuse_up``
+    'auto' and 'off' are the same; 'all' (the fused eval up-conv) is not
+    ported yet and is refused. In training (``train``) only 'off' is
+    ported."""
     if args.fuse_up == "all":
         raise NotImplementedError("fuse_up='all' is not ported yet; use 'auto'")
+    if train and args.fuse_up != "off":
+        raise NotImplementedError(FUSE_UP_MISSING)
     return dict(
         z_dim=args.z_dim,
         G_ch=args.G_ch,
@@ -60,5 +149,10 @@ def generator_kwargs(args: argparse.Namespace) -> Dict[str, Any]:
         outer_padding=args.outer_padding,
         num_patches_h=args.num_patches_height,
         num_patches_w=args.num_patches_width,
-        dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32,
+        dtype=_dtype(args),
     )
+
+
+def discriminator_kwargs(args: argparse.Namespace) -> Dict[str, Any]:
+    return dict(base_ch=args.D_ch, n_layers_D=args.n_layers_D, img_ch=args.img_ch,
+                SN=args.spec_norm_D, norm_layer=args.norm_layer_D, dtype=_dtype(args))

@@ -1,4 +1,4 @@
-// Shared helpers for the channels-major generator-tail kernels.
+// Shared helpers for the channels-major generator-tail and stem kernels.
 //
 // Every kernel takes float32 or bfloat16 activations (flag `bf16`), keeps its
 // arithmetic in float32, and stores in the activation type. Weights, biases
@@ -44,5 +44,41 @@ __device__ __forceinline__ float round_to(float v) {
 }
 
 inline int last_error() { return static_cast<int>(cudaGetLastError()); }
+
+// act(scale * x + shift) rounded to the storage type T: the post-norm value
+// the 3x3 conv kernels read (no FMA contraction, so every kernel that
+// recomputes it gets the same bits).
+template <typename T>
+__device__ __forceinline__ float prenorm(float v, float scale, float shift, int relu) {
+  float a = __fadd_rn(__fmul_rn(v, scale), shift);
+  if (relu) a = fmaxf(a, 0.f);
+  return round_to<T>(a);
+}
+
+// Sums v[k] over all threads of the block and adds the totals atomically:
+// v[k] to out0[k] and v[N + k] to out1[k], for k < valid. `red` is shared
+// memory of (threads / 32) * 2N floats. Every thread of the block calls it.
+template <int N>
+__device__ __forceinline__ void block_sum2_atomic(float (&v)[2 * N], float* red, float* out0,
+                                                  float* out1, int valid) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nwarps = (blockDim.x * blockDim.y) / 32;
+#pragma unroll
+  for (int k = 0; k < 2 * N; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
+  }
+  if ((tid & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < 2 * N; ++k) red[(tid >> 5) * 2 * N + k] = v[k];
+  }
+  __syncthreads();
+  if (tid < 2 * N && tid % N < valid) {
+    float s = 0.f;
+    for (int w = 0; w < nwarps; ++w) s += red[w * 2 * N + tid];
+    atomicAdd(tid < N ? out0 + tid : out1 + (tid - N), s);
+  }
+  __syncthreads();
+}
 
 }  // namespace itg

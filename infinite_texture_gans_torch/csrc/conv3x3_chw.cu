@@ -2,16 +2,22 @@
 // channels-major (N, C, H, W) activations: the generator tail's conv.
 //
 // Replaces two TPU kernels with one CUDA kernel:
-//   K1 infinite_texture_gans_tpu/ops/pallas_conv.py:_conv3x3_chw_fwd (:344,
+//   K1 infinite_texture_gans_tpu/ops/pallas_conv.py:_conv3x3_chw_fwd (:395,
 //      kernel _conv_kernel :275), the one-pass form, and
 //   K2 infinite_texture_gans_tpu/ops/pallas_conv.py:_conv3x3_chw_fwd_halo
-//      (:482, kernel _conv_halo_kernel :421), the raster-engine form whose
+//      (:539, kernel _conv_halo_kernel :421), the raster-engine form whose
 //      top row and left column come, already post-norm, from the halo cache.
 // y = conv3x3(border(act(scale * x + shift))) + b. The border is the input's
 // own edge (replicate) or zeros, except where the caller passes `top`
 // (N, C, W + 2: the padded row above, corners included) or `left` (N, C, H:
 // the padded column to the left); those are post-norm and used as they are.
 // The bottom row and right column are always the own edge.
+// With `s1`/`s2` (K5, the training forward of conv3x3_chw_stats and
+// conv3x3_chw_p, pallas_conv.py:987/:1086 through the same :395 call) the
+// kernel also adds the float32 per-channel sums of the STORED y and y^2
+// (after rounding to the storage type) into s1/s2, which the wrapper zeroes:
+// a warp-shuffle and shared-memory reduction per block, then one atomicAdd
+// per block and channel, so the sums' order varies from run to run.
 //
 // What bounds it on the H100: at the flagship shapes (C -> Co of 104 -> 52
 // at 96^2 down to 13 -> 3 at 384^2) the work is 2 * 9 * C * Co FLOPs per
@@ -87,10 +93,11 @@ __global__ void __launch_bounds__(kThreads)
 conv3x3_chw_kernel(const T* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias, const float* __restrict__ scale,
                    const float* __restrict__ shift, const T* __restrict__ top,
-                   const T* __restrict__ left, T* __restrict__ y, int C, int H,
-                   int W, int Co, int relu, int zeros) {
+                   const T* __restrict__ left, T* __restrict__ y, float* __restrict__ s1,
+                   float* __restrict__ s2, int C, int H, int W, int Co, int relu, int zeros) {
   __shared__ float s_in[kChunk][kTileH + 2][kTileW + 2];
   __shared__ __align__(16) float s_w[kChunk][9][TCO];
+  __shared__ float s_red[kThreads / 32][2 * TCO];
 
   const int n = blockIdx.z;
   const int tiles_w = (W + kTileW - 1) / kTileW;
@@ -147,55 +154,73 @@ conv3x3_chw_kernel(const T* __restrict__ x, const float* __restrict__ w,
 
   const int oy = ty0 + ty;
   const int ox = tx0 + tx;
-  if (oy < H && ox < W) {
+  const bool inside = oy < H && ox < W;
+#pragma unroll
+  for (int k = 0; k < TCO; ++k) {
+    const int co = co0 + k;
+    float stored = 0.f;
+    if (inside && co < Co) {
+      const T out = from_f32<T>(acc[k] + bias[co]);
+      y[((static_cast<size_t>(n) * Co + co) * H + oy) * W + ox] = out;
+      stored = to_f32<T>(out);
+    }
+    acc[k] = stored;
+  }
+  if (s1) {  // the same for every thread of the launch
+    float v[2 * TCO];
 #pragma unroll
     for (int k = 0; k < TCO; ++k) {
-      const int co = co0 + k;
-      if (co < Co) {
-        y[((static_cast<size_t>(n) * Co + co) * H + oy) * W + ox] = from_f32<T>(acc[k] + bias[co]);
-      }
+      v[k] = acc[k];
+      v[TCO + k] = acc[k] * acc[k];
     }
+    itg::block_sum2_atomic<TCO>(v, &s_red[0][0], s1 + co0, s2 + co0, min(TCO, Co - co0));
   }
 }
 
 template <typename T, int TCO>
 int launch(const void* x, const float* w, const float* b, const float* scale,
-           const float* shift, const void* top, const void* left, void* y, int n,
-           int c, int h, int width, int co, int relu, int zeros, cudaStream_t stream) {
+           const float* shift, const void* top, const void* left, void* y, float* s1,
+           float* s2, int n, int c, int h, int width, int co, int relu, int zeros,
+           cudaStream_t stream) {
   const int tiles = ((width + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH);
   const dim3 grid(tiles, (co + TCO - 1) / TCO, n);
   const dim3 block(kTileW, kTileH);
   conv3x3_chw_kernel<T, TCO><<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), w, b, scale, shift, static_cast<const T*>(top),
-      static_cast<const T*>(left), static_cast<T*>(y), c, h, width, co, relu, zeros);
+      static_cast<const T*>(left), static_cast<T*>(y), s1, s2, c, h, width, co, relu, zeros);
   return itg::last_error();
 }
 
 template <typename T>
 int dispatch(const void* x, const float* w, const float* b, const float* scale,
-             const float* shift, const void* top, const void* left, void* y, int n,
-             int c, int h, int width, int co, int relu, int zeros, cudaStream_t stream) {
-  if (co <= 4) return launch<T, 4>(x, w, b, scale, shift, top, left, y, n, c, h, width, co, relu, zeros, stream);
-  if (co <= 8) return launch<T, 8>(x, w, b, scale, shift, top, left, y, n, c, h, width, co, relu, zeros, stream);
-  return launch<T, 16>(x, w, b, scale, shift, top, left, y, n, c, h, width, co, relu, zeros, stream);
+             const float* shift, const void* top, const void* left, void* y, float* s1,
+             float* s2, int n, int c, int h, int width, int co, int relu, int zeros,
+             cudaStream_t stream) {
+  if (co <= 4) return launch<T, 4>(x, w, b, scale, shift, top, left, y, s1, s2, n, c, h, width, co, relu, zeros, stream);
+  if (co <= 8) return launch<T, 8>(x, w, b, scale, shift, top, left, y, s1, s2, n, c, h, width, co, relu, zeros, stream);
+  return launch<T, 16>(x, w, b, scale, shift, top, left, y, s1, s2, n, c, h, width, co, relu, zeros, stream);
 }
 
 }  // namespace
 
 // x, top, left, y: activation type (float32, or bfloat16 when bf16 != 0).
 // w (Co, C, 3, 3), b (Co), scale (C), shift (C): float32. top/left may be
-// null. Returns cudaGetLastError() after the launch.
+// null. s1/s2 (Co) float32, zeroed by the caller, or null for no stats.
+// Returns cudaGetLastError() after the launch.
 extern "C" int itg_conv3x3_chw(const void* x, const void* w, const void* b,
                                const void* scale, const void* shift, const void* top,
-                               const void* left, void* y, int n, int c, int h, int width,
-                               int co, int relu, int zeros, int bf16, void* stream) {
+                               const void* left, void* y, void* s1, void* s2, int n, int c,
+                               int h, int width, int co, int relu, int zeros, int bf16,
+                               void* stream) {
   const auto* wf = static_cast<const float*>(w);
   const auto* bf = static_cast<const float*>(b);
   const auto* sc = static_cast<const float*>(scale);
   const auto* sh = static_cast<const float*>(shift);
+  auto* a = static_cast<float*>(s1);
+  auto* q = static_cast<float*>(s2);
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return dispatch<__nv_bfloat16>(x, wf, bf, sc, sh, top, left, y, n, c, h, width, co, relu, zeros, st);
+    return dispatch<__nv_bfloat16>(x, wf, bf, sc, sh, top, left, y, a, q, n, c, h, width, co, relu, zeros, st);
   }
-  return dispatch<float>(x, wf, bf, sc, sh, top, left, y, n, c, h, width, co, relu, zeros, st);
+  return dispatch<float>(x, wf, bf, sc, sh, top, left, y, a, q, n, c, h, width, co, relu, zeros, st);
 }

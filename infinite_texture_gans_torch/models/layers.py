@@ -1,20 +1,23 @@
-"""Generator building blocks (eval forward).
+"""Generator building blocks.
 
-Port of ``infinite_texture_gans_tpu/models/layers.py`` for the eval-mode BN
-generator: ``activation_fn``, ``BNFold``, ``ConvLP``, ``Attention``,
-``PatchAttention`` and ``ResBlockGenerator`` (BN branch). Submodule and
-parameter names follow the reference's flax paths (``conv1.conv.weight``,
-``bn1.scale``, ``bn1.mean`` ...), so ``weights.from_jax_variables`` maps a
-flax tree onto them leaf by leaf.
+Port of ``infinite_texture_gans_tpu/models/layers.py`` for the BN
+generator, eval and train: ``activation_fn``, ``BNFold`` (which also serves
+as the NHWC ``nn.BatchNorm``), ``ConvLP``, ``Attention``,
+``PatchAttention`` and ``ResBlockGenerator`` (BN branch, unfused). Submodule
+and parameter names follow the reference's flax paths
+(``conv1.conv.weight``, ``bn1.scale``, ``bn1.mean`` ...), so
+``weights.from_jax_variables`` maps a flax tree onto them leaf by leaf.
 
 Two layouts, as in the reference: merged-grid NHWC for the wide blocks, and
 channels-major (N, C, H, W) for the small-channel tail, where the BN fold
-and ReLU run inside the conv kernels of ``ops/kernels.py``.
+and ReLU run inside the conv kernels of ``ops/kernels.py``. In training the
+tail's BatchNorms take their batch moments from the producing kernel's
+per-channel sums (``stats`` = (Σy, Σy², count)), as the reference's do.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,20 +30,31 @@ from infinite_texture_gans_torch.ops.padding import GridPos, SiteState, halo_pad
 
 
 def activation_fn(leak: float) -> Callable[[torch.Tensor], torch.Tensor]:
-    """LeakyReLU(leak) if leak > 0 else ReLU."""
+    """LeakyReLU(leak) if leak > 0 else ReLU. ReLU's gradient,
+    where(y > 0, g, 0), is the reference's ``_relu_saved_y`` rule."""
     if leak > 0:
         return lambda x: F.leaky_relu(x, leak)
     return torch.relu
 
 
+# (Σy, Σy², count) of a producer's stored output: a BatchNorm's batch moments
+Stats = Tuple[torch.Tensor, torch.Tensor, int]
+
+
 class BNFold(nn.Module):
-    """Eval-mode BatchNorm (epsilon 1e-5) with the reference's variable
+    """BatchNorm (momentum 0.9, epsilon 1e-5) with the reference's variable
     names: parameters ``scale``/``bias``, running statistics ``mean``/``var``
-    as buffers. ``forward`` normalises NHWC activations; :meth:`fold` returns
+    as buffers.
+
+    ``forward`` normalises NHWC activations like flax's ``nn.BatchNorm``:
+    batch moments (variance clipped at 0) and a running-stat update in train
+    mode, the running statistics in eval. :meth:`fold` (eval) and
+    :meth:`train_fold` (train, the reference's ``BNFold`` :121-170) return
     the per-channel float32 ``(scale, shift)`` that the channels-major conv
     kernels apply themselves."""
 
     epsilon = 1e-5
+    momentum = 0.9
 
     def __init__(self, channels: int):
         super().__init__()
@@ -50,12 +64,43 @@ class BNFold(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def fold(self) -> tuple[torch.Tensor, torch.Tensor]:
-        inv = torch.rsqrt(self.var.float() + self.epsilon) * self.scale.float()
-        return inv, self.bias.float() - self.mean.float() * inv
+        return self._affine(self.mean.float(), self.var.float())
+
+    def _affine(self, m: torch.Tensor, v: torch.Tensor):
+        inv = torch.rsqrt(v + self.epsilon) * self.scale.float()
+        return inv, self.bias.float() - m * inv
+
+    def _update_running(self, m: torch.Tensor, v: torch.Tensor) -> None:
+        with torch.no_grad():
+            self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * m)
+            self.var.copy_(self.momentum * self.var + (1 - self.momentum) * v)
+
+    def train_fold(self, x_chw: torch.Tensor, stats: Optional[Stats]):
+        """Train-mode fold of a channels-major input: batch moments from the
+        producer's ``stats`` (which may come from before a nearest-2x
+        upsample: mean and E[x²] are unchanged by it) or, without them, from
+        ``x_chw`` itself; updates the running statistics."""
+        if stats is not None:
+            s1, s2, cnt = stats
+            m = s1 / cnt
+            v = s2 / cnt - m * m
+        else:
+            xf = x_chw.float()
+            m = xf.mean(dim=(0, 2, 3))
+            v = (xf * xf).mean(dim=(0, 2, 3)) - m * m
+        self._update_running(m, v)
+        return self._affine(m, v)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var.float() + self.epsilon) * self.scale.float()
-        y = (x.float() - self.mean.float()) * mul + self.bias.float()
+        if self.training:
+            xf = x.float()
+            m = xf.mean(dim=(0, 1, 2))
+            v = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - m * m, min=0.0)
+            self._update_running(m, v)
+        else:
+            m, v = self.mean.float(), self.var.float()
+        mul = torch.rsqrt(v + self.epsilon) * self.scale.float()
+        y = (x.float() - m) * mul + self.bias.float()
         return y.to(x.dtype)
 
 
@@ -140,7 +185,8 @@ class PatchAttention(nn.Module):
 class ResBlockGenerator(nn.Module):
     """Pre-activation generator residual block, BN norm (reference
     ``ResBlockGenerator``): BN-act-convLP-BN-act-convLP with a 1x1 shortcut
-    when the channel count changes."""
+    when the channel count changes. ``forward`` is the eval block (with the
+    raster engine's halo sites); :meth:`forward_train` the train block."""
 
     def __init__(self, in_features: int, features: int, leak: float = 0.0,
                  outer_padding: str = "replicate"):
@@ -170,3 +216,33 @@ class ResBlockGenerator(nn.Module):
         out, halo2 = self.conv2(act(self.bn2(out)), halo2, pos, grid=grid)
         sc = self.conv3(x) if self.conv3 is not None else x
         return out + sc, halo1, halo2
+
+    def forward_train(self, x: torch.Tensor, *, grid: tuple[int, int] = (3, 3),
+                      chw: bool = False, in_stats: Optional[Stats] = None):
+        """Train-mode block (batch statistics, running-stat updates).
+        Returns (y, stats of y or None).
+
+        Channels-major (the reference's unfused tail branch, :637-673): bn1
+        folds from ``in_stats``, conv1 (K5) also returns the sums bn2 folds
+        from, and the shortcut conv + residual add (K3) returns the block
+        output's sums for the next BatchNorm. NHWC (:683-719): flax-style
+        train-mode BatchNorms and XLA-style convs; no stats."""
+        if chw:
+            n = x.shape[0]
+            outer = self.conv1.outer_padding
+            sc1, sh1 = self.bn1.train_fold(x, in_stats)
+            w1, b1 = self.conv1.conv.weight, self.conv1.conv.bias
+            out, s1, s2 = kernels.conv3x3_chw(x, w1, b1, sc1, sh1, True, outer, want_stats=True)
+            sc2, sh2 = self.bn2.train_fold(out, (s1, s2, n * out.shape[2] * out.shape[3]))
+            w2, b2 = self.conv2.conv.weight, self.conv2.conv.bias
+            out = kernels.conv3x3_chw(out, w2, b2, sc2, sh2, True, outer)
+            if self.conv3 is None:
+                return out + x, None
+            y, s1, s2 = kernels.conv1x1_chw_add(x, self.conv3.weight, self.conv3.bias, out,
+                                                want_stats=True)
+            return y, (s1, s2, n * y.shape[2] * y.shape[3])
+        act = activation_fn(self.leak)
+        out, _ = self.conv1(act(self.bn1(x)), grid=grid)
+        out, _ = self.conv2(act(self.bn2(out)), grid=grid)
+        sc = self.conv3(x) if self.conv3 is not None else x
+        return out + sc, None

@@ -36,12 +36,28 @@ FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
-    # x, w, b, scale, shift, top, left, y, n, c, h, w, co, relu, zeros, bf16, stream
-    "itg_conv3x3_chw": [_P] * 8 + [_I] * 8 + [_P],
-    # x, w, b, res, y, n, c, hw, co, bf16, stream
-    "itg_conv1x1_chw": [_P] * 5 + [_I] * 5 + [_P],
+    # x, w, b, scale, shift, top, left, y, s1, s2, n, c, h, w, co, relu, zeros, bf16, stream
+    "itg_conv3x3_chw": [_P] * 10 + [_I] * 8 + [_P],
+    # x, g, w, scale, shift, dx, dscale, dshift, n, c, h, w, co, relu, zeros, bf16, stream
+    "itg_conv3x3_chw_dx": [_P] * 8 + [_I] * 8 + [_P],
+    # x, g, scale, shift, dw, db, n, c, h, w, co, relu, zeros, bf16, stream
+    "itg_conv3x3_chw_dw": [_P] * 6 + [_I] * 8 + [_P],
+    # g, y, alpha, beta2, out, planes, c, hw, bf16, stream
+    "itg_bn_corr": [_P] * 5 + [_I] * 4 + [_P],
+    # x, w, b, res, y, s1, s2, n, c, hw, co, bf16, stream
+    "itg_conv1x1_chw": [_P] * 7 + [_I] * 5 + [_P],
+    # x, g, dw, db, n, c, hw, co, bf16, stream
+    "itg_conv1x1_chw_dw": [_P] * 4 + [_I] * 5 + [_P],
     # x, y, planes, h, w, bf16, stream
     "itg_upsample2_chw": [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+    # g, dx, planes, h, w (of dx), bf16, stream
+    "itg_upsample2_chw_bwd": [_P, _P] + [_I] * 4 + [_P],
+    # x, w, b, y, n, c, h, w, co, bf16, stream
+    "itg_stem_fwd": [_P] * 4 + [_I] * 6 + [_P],
+    # x, g, dw, db, n, c, h, w, co, bf16, stream
+    "itg_stem_dw": [_P] * 4 + [_I] * 6 + [_P],
+    # g, w, dx, n, c, h, w, co, bf16, stream
+    "itg_stem_dx": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 

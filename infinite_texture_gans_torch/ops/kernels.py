@@ -1,25 +1,42 @@
-"""The generator tail's kernels: wrappers, plain versions and launch counts.
+"""The channels-major kernels: wrappers, plain versions and launch counts.
 
-Counterpart of ``infinite_texture_gans_tpu/ops/pallas_conv.py`` for the eval
-forward. Four functions of the reference reach a Pallas kernel on the
-generation path; each has a hand-written CUDA kernel in ``csrc/``:
+Counterpart of ``infinite_texture_gans_tpu/ops/pallas_conv.py``. Every
+function of the reference that reaches a Pallas kernel on the generation
+path or on the Experiment-1 training step (``--fuse_up off``) has a
+hand-written CUDA kernel in ``csrc/``:
 
-- K1 ``conv3x3_chw``: replaces pallas_conv.py:344 ``_conv3x3_chw_fwd``
-  (csrc/conv3x3_chw.cu);
+- K1/K5 ``conv3x3_chw`` (forward, with the optional per-channel Σy, Σy²
+  of ``conv3x3_chw_stats`` / ``conv3x3_chw_p``): replaces pallas_conv.py:395
+  ``_conv3x3_chw_fwd`` (csrc/conv3x3_chw.cu);
 - K2 ``chw_halo_step``, whose kernel wrapper is ``conv3x3_chw_halo``:
-  replaces pallas_conv.py:482 ``_conv3x3_chw_fwd_halo`` (the same
+  replaces pallas_conv.py:539 ``_conv3x3_chw_fwd_halo`` (the same
   csrc/conv3x3_chw.cu, given the cached borders);
-- K3 ``conv1x1_chw`` / ``conv1x1_chw_add``: replaces pallas_conv.py:2276
-  ``_conv1x1_chw_fwd`` (csrc/conv1x1_chw.cu);
-- K4 ``upsample2_chw``: replaces pallas_conv.py:2535 ``_up2_fwd_call``
-  (csrc/upsample2_chw.cu).
+- K6 ``conv3x3_chw_dx``: pallas_conv.py:775 ``_conv3x3_chw_dx``; K7
+  ``conv3x3_chw_dw``: :888 ``_conv3x3_chw_dw``; K8 ``bn_corr``: :1061
+  ``_bn_corr`` (csrc/conv3x3_chw_bwd.cu);
+- K3 ``conv1x1_chw`` / ``conv1x1_chw_add`` (optionally with stats, the
+  ``conv1x1_chw_add_stats`` / ``conv1x1_chw_add_p`` forms): replaces
+  pallas_conv.py:2311 ``_conv1x1_chw_fwd``; its dW ``conv1x1_chw_dw``:
+  :2361 ``_conv1x1_chw_dw`` (csrc/conv1x1_chw.cu);
+- K4 ``upsample2_chw``: pallas_conv.py:2540 ``_up2_fwd_call``; its adjoint
+  ``upsample2_chw_bwd``: :2560 ``_up2_bwd_call`` (csrc/upsample2_chw.cu);
+- K13 ``conv4x4s2_stem_chw``: the discriminator's conv0, forward
+  ``stem_fwd`` :2769 ``_stem_fwd_call``, ``stem_dw`` :2840 ``_stem_dw_call``,
+  ``stem_dx`` :2977 ``_stem_dx_call`` (csrc/stem4x4s2.cu).
+
+The port carries no lane padding, so the reference's padded-carry forms
+(K11 ``conv1x1_chw_add_p``, K12 ``upsample2_chw_p``, ``conv3x3_chw_p``) are
+the plain forms at ``w_true == width``.
 
 Activations are channels-major (N, C, H, W), float32 or bfloat16; the
 kernels compute in float32 and store in the activation type. Weights are
-OIHW. Every wrapper checks device, dtype, shape and contiguity. For a CPU
-tensor it runs the plain PyTorch version beside it; for a CUDA tensor it
-launches its kernel on the current stream, raises if the launch reports an
-error, and adds one to its entry in :data:`LAUNCHES`.
+OIHW float32. Every wrapper checks device, dtype, shape and contiguity. For
+a CPU tensor it runs the plain PyTorch version beside it; for a CUDA tensor
+it launches its kernel on the current stream, raises if the launch reports
+an error, and adds one to its entry in :data:`LAUNCHES`. The differentiable
+functions (``conv3x3_chw``, ``conv1x1_chw(_add)``, ``upsample2_chw``,
+``conv4x4s2_stem_chw``) are ``torch.autograd.Function``s whose backward
+calls the backward wrappers, skipping the inputs autograd does not need.
 """
 
 from __future__ import annotations
@@ -32,7 +49,20 @@ import torch.nn.functional as F
 from infinite_texture_gans_torch.ops.padding import GridPos, SiteState
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"conv3x3_chw": 0, "chw_halo_step": 0, "conv1x1_chw": 0, "upsample2_chw": 0}
+LAUNCHES = {
+    "conv3x3_chw": 0,
+    "chw_halo_step": 0,
+    "conv3x3_chw_dx": 0,
+    "conv3x3_chw_dw": 0,
+    "bn_corr": 0,
+    "conv1x1_chw": 0,
+    "conv1x1_chw_dw": 0,
+    "upsample2_chw": 0,
+    "upsample2_chw_bwd": 0,
+    "stem_fwd": 0,
+    "stem_dw": 0,
+    "stem_dx": 0,
+}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -70,6 +100,11 @@ def _check_param(name: str, t: torch.Tensor, shape: tuple) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)} != expected {tuple(shape)}")
 
 
+def _check_same_dtype(name: str, t: torch.Tensor, ref: torch.Tensor) -> None:
+    if t.dtype != ref.dtype:
+        raise TypeError(f"{name} dtype {t.dtype} != {ref.dtype}")
+
+
 def _check_padding(outer_padding: str) -> bool:
     if outer_padding not in ("replicate", "constant"):
         raise ValueError(f"outer_padding must be 'replicate' or 'constant', got {outer_padding!r}")
@@ -95,6 +130,23 @@ def _lib():
     return library()
 
 
+def _bf16(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _zeros_f32(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(n, dtype=torch.float32, device=like.device)
+
+
+def _chan(v: torch.Tensor) -> torch.Tensor:
+    """(C,) -> (1, C, 1, 1) float32, for broadcasting over (N, C, H, W)."""
+    return v.float().reshape(1, -1, 1, 1)
+
+
 def prenorm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, relu: bool) -> torch.Tensor:
     """act(scale * x + shift) per channel (dim 1), in float32, rounded to
     x's dtype: the post-norm values the conv kernels read and the halo cache
@@ -106,8 +158,15 @@ def prenorm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, relu: boo
     return a.to(x.dtype)
 
 
+def _stats_plain(y: torch.Tensor):
+    """Per-channel Σy and Σy² (float32) of the stored output, over (N, H, W)."""
+    yf = y.float()
+    return yf.sum(dim=(0, 2, 3)), (yf * yf).sum(dim=(0, 2, 3))
+
+
 # ---------------------------------------------------------------------------
-# K1 / K2: BN fold -> ReLU -> border -> 3x3 conv (csrc/conv3x3_chw.cu)
+# K1 / K2 / K5: BN fold -> ReLU -> border -> 3x3 conv (+ stats)
+# (csrc/conv3x3_chw.cu)
 
 
 def _check_conv3x3(x, w, b, scale, shift) -> None:
@@ -122,46 +181,89 @@ def _check_conv3x3(x, w, b, scale, shift) -> None:
     _check_param("shift", shift, (c,))
 
 
-def _launch_conv3x3(x, w, b, scale, shift, relu, zeros, top, left) -> torch.Tensor:
+def _launch_conv3x3(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
     n, c, h, wd = x.shape
     co = w.shape[0]
     y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
+    s1 = s2 = None
+    if want_stats:
+        s1, s2 = _zeros_f32(co, x), _zeros_f32(co, x)
     wf, bf, sc, sh = _f32(w), _f32(b), _f32(scale), _f32(shift)
     with torch.cuda.device(x.device):
         rc = _lib().itg_conv3x3_chw(
             x.data_ptr(), wf.data_ptr(), bf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
-            top.data_ptr() if top is not None else None,
-            left.data_ptr() if left is not None else None,
-            y.data_ptr(), n, c, h, wd, co, int(relu), int(zeros),
-            int(x.dtype == torch.bfloat16), _stream(x),
+            _ptr(top), _ptr(left), y.data_ptr(), _ptr(s1), _ptr(s2),
+            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
         )
     _raise_on(rc, "conv3x3_chw")
-    return y
+    return y, s1, s2
 
 
-def conv3x3_chw(x, w, b, scale, shift, relu: bool = True,
-                outer_padding: str = "replicate") -> torch.Tensor:
-    """K1: y = conv3x3(pad1(act(scale*x + shift))) + b on (N, C, H, W).
-
-    w (Co, C, 3, 3); b (Co,); scale/shift (C,) are a folded eval BatchNorm
-    (ones/zeros and relu=False for a plain padded conv). The outer pad is
-    replicate or zeros ('constant') and is applied post-norm."""
+def _conv3x3_fwd(x, w, b, scale, shift, relu, outer_padding, want_stats):
     zeros = _check_padding(outer_padding)
     _check_conv3x3(x, w, b, scale, shift)
     if not _on_cuda(x, w, b, scale, shift):
-        return conv3x3_chw_plain(x, w, b, scale, shift, relu, outer_padding)
-    y = _launch_conv3x3(x, w, b, scale, shift, relu, zeros, None, None)
+        out = conv3x3_chw_plain(x, w, b, scale, shift, relu, outer_padding, want_stats)
+        return out if want_stats else (out, None, None)
+    out = _launch_conv3x3(x, w, b, scale, shift, relu, zeros, None, None, want_stats)
     LAUNCHES["conv3x3_chw"] += 1
-    return y
+    return out
+
+
+class _Conv3x3Chw(torch.autograd.Function):
+    """K1/K5 forward; backward K8 (when the stats have cotangents), K6, K7."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, scale, shift, relu, outer_padding, want_stats):
+        ctx.set_materialize_grads(False)
+        y, s1, s2 = _conv3x3_fwd(x, w, b, scale, shift, relu, outer_padding, want_stats)
+        ctx.relu, ctx.outer_padding, ctx.want_stats = relu, outer_padding, want_stats
+        ctx.save_for_backward(x, w, scale, shift, y if want_stats else None)
+        return (y, s1, s2) if want_stats else y
+
+    @staticmethod
+    def backward(ctx, g, gs1=None, gs2=None):
+        x, w, scale, shift, y = ctx.saved_tensors
+        if g is None:
+            g = torch.zeros((x.shape[0], w.shape[0]) + x.shape[2:], dtype=x.dtype, device=x.device)
+        if ctx.want_stats and (gs1 is not None or gs2 is not None):
+            co = w.shape[0]
+            alpha = gs1 if gs1 is not None else _zeros_f32(co, g)
+            beta2 = 2.0 * gs2 if gs2 is not None else _zeros_f32(co, g)
+            g = bn_corr(g.contiguous(), y, alpha, beta2)
+        g = g.contiguous()
+        need = ctx.needs_input_grad
+        dx = dw = db = dsc = dsh = None
+        if need[0] or need[3] or need[4]:
+            dx, dsc, dsh = conv3x3_chw_dx(x, g, w, scale, shift, ctx.relu, ctx.outer_padding)
+        if need[1] or need[2]:
+            dw, db = conv3x3_chw_dw(x, g, scale, shift, ctx.relu, ctx.outer_padding)
+        return dx, dw, db, dsc, dsh, None, None, None
+
+
+def conv3x3_chw(x, w, b, scale, shift, relu: bool = True,
+                outer_padding: str = "replicate", want_stats: bool = False):
+    """K1: y = conv3x3(pad1(act(scale*x + shift))) + b on (N, C, H, W).
+
+    w (Co, C, 3, 3); b (Co,); scale/shift (C,) are a folded BatchNorm
+    (ones/zeros and relu=False for a plain padded conv). The outer pad is
+    replicate or zeros ('constant') and is applied post-norm. With
+    ``want_stats`` (K5) returns (y, Σy, Σy²), the float32 per-channel sums
+    of the stored y over (N, H, W): the next BatchNorm's batch moments.
+    Differentiable in x, w, b, scale, shift and through the stats."""
+    return _Conv3x3Chw.apply(x, w, b, scale, shift, relu, outer_padding, want_stats)
 
 
 def conv3x3_chw_plain(x, w, b, scale, shift, relu: bool = True,
-                      outer_padding: str = "replicate") -> torch.Tensor:
+                      outer_padding: str = "replicate", want_stats: bool = False):
     """Plain PyTorch version of :func:`conv3x3_chw` (F.pad + F.conv2d)."""
     a = prenorm(x, scale, shift, relu).float()
     mode = "replicate" if outer_padding == "replicate" else "constant"
     a = F.pad(a, (1, 1, 1, 1), mode=mode)
-    return F.conv2d(a, w.float(), b.float()).to(x.dtype)
+    y = F.conv2d(a, w.float(), b.float()).to(x.dtype)
+    if want_stats:
+        return (y, *_stats_plain(y))
+    return y
 
 
 def conv3x3_chw_halo(x, w, b, scale, shift, relu: bool, outer_padding: str,
@@ -175,14 +277,13 @@ def conv3x3_chw_halo(x, w, b, scale, shift, relu: bool, outer_padding: str,
     n, c, h, wd = x.shape
     if top is not None:
         _check_act("top", top, (n, c, wd + 2))
+        _check_same_dtype("top", top, x)
     if left is not None:
         _check_act("left", left, (n, c, h))
-    for name, t in (("top", top), ("left", left)):
-        if t is not None and t.dtype != x.dtype:
-            raise TypeError(f"{name} dtype {t.dtype} != x dtype {x.dtype}")
+        _check_same_dtype("left", left, x)
     if not _on_cuda(x, w, b, scale, shift, top, left):
         return conv3x3_chw_halo_plain(x, w, b, scale, shift, relu, outer_padding, top, left)
-    y = _launch_conv3x3(x, w, b, scale, shift, relu, zeros, top, left)
+    y, _, _ = _launch_conv3x3(x, w, b, scale, shift, relu, zeros, top, left)
     LAUNCHES["chw_halo_step"] += 1
     return y
 
@@ -246,10 +347,150 @@ def chw_halo_step(x, w, b, scale, shift, relu: bool, outer_padding: str,
 
 
 # ---------------------------------------------------------------------------
-# K3: 1x1 conv + bias (+ residual) (csrc/conv1x1_chw.cu)
+# K6 / K7 / K8: the 3x3 conv's backward (csrc/conv3x3_chw_bwd.cu)
 
 
-def _conv1x1(x, w, b, res):
+def _check_bwd(x, g, co, scale, shift):
+    if x.dim() != 4 or g.dim() != 4:
+        raise ValueError(f"x, g: expected (N, C, H, W), got {tuple(x.shape)}, {tuple(g.shape)}")
+    n, c, h, wd = x.shape
+    _check_act("x", x, (n, c, h, wd))
+    _check_act("g", g, (n, co, h, wd))
+    _check_same_dtype("g", g, x)
+    _check_param("scale", scale, (c,))
+    _check_param("shift", shift, (c,))
+
+
+def conv3x3_chw_dx(x, g, w, scale, shift, relu: bool, outer_padding: str):
+    """K6: the input-side gradient of :func:`conv3x3_chw`.
+
+    ``g`` (N, Co, H, W) is the cotangent of y. da = conv3x3ᵀ(g) on the
+    padded grid, with the gradient that lands on the padded border folded
+    back onto the edge rows and columns (replicate; corners twice) or
+    dropped (zeros); da is masked by the ReLU of ``scale*x + shift``.
+    Returns (dx = da·scale in x's dtype, d(scale) = Σ da·x, d(shift) = Σ da),
+    the sums in float32 over (N, H, W)."""
+    zeros = _check_padding(outer_padding)
+    co = w.shape[0]
+    _check_bwd(x, g, co, scale, shift)
+    _check_param("w", w, (co, x.shape[1], 3, 3))
+    if not _on_cuda(x, g, w, scale, shift):
+        return conv3x3_chw_dx_plain(x, g, w, scale, shift, relu, outer_padding)
+    n, c, h, wd = x.shape
+    dx = torch.empty_like(x)
+    dsc, dsh = _zeros_f32(c, x), _zeros_f32(c, x)
+    wf, sc, sh = _f32(w), _f32(scale), _f32(shift)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_conv3x3_chw_dx(
+            x.data_ptr(), g.data_ptr(), wf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+            dx.data_ptr(), dsc.data_ptr(), dsh.data_ptr(),
+            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
+        )
+    _raise_on(rc, "conv3x3_chw_dx")
+    LAUNCHES["conv3x3_chw_dx"] += 1
+    return dx, dsc, dsh
+
+
+def _fold_border(d: torch.Tensor) -> torch.Tensor:
+    """(N, C, H+2, W+2) gradient of a replicate-padded array -> (N, C, H, W):
+    the border rows and columns add onto the edge they copy."""
+    d = d.clone()
+    d[..., 1] += d[..., 0]
+    d[..., -2] += d[..., -1]
+    d[..., 1, :] += d[..., 0, :]
+    d[..., -2, :] += d[..., -1, :]
+    return d[..., 1:-1, 1:-1]
+
+
+def conv3x3_chw_dx_plain(x, g, w, scale, shift, relu: bool, outer_padding: str):
+    """Plain PyTorch version of :func:`conv3x3_chw_dx`
+    (F.conv_transpose2d, then the border fold)."""
+    dpad = F.conv_transpose2d(g.float(), w.float())  # (N, C, H+2, W+2)
+    if outer_padding == "replicate":
+        da = _fold_border(dpad)
+    else:
+        da = dpad[..., 1:-1, 1:-1]
+    xf = x.float()
+    if relu:
+        da = da * ((xf * _chan(scale) + _chan(shift)) > 0)
+    dx = (da * _chan(scale)).to(x.dtype)
+    return dx, (da * xf).sum(dim=(0, 2, 3)), da.sum(dim=(0, 2, 3))
+
+
+def conv3x3_chw_dw(x, g, scale, shift, relu: bool, outer_padding: str):
+    """K7: the weight-side gradient of :func:`conv3x3_chw`:
+    dW[o, c, ky, kx] = Σ g[o] · A[c] shifted by the tap, where A is the
+    padded post-norm input the forward read, and db = Σ g; float32 sums
+    over (N, H, W). Returns (dW (Co, C, 3, 3), db (Co,))."""
+    zeros = _check_padding(outer_padding)
+    co = g.shape[1]
+    _check_bwd(x, g, co, scale, shift)
+    if not _on_cuda(x, g, scale, shift):
+        return conv3x3_chw_dw_plain(x, g, scale, shift, relu, outer_padding)
+    n, c, h, wd = x.shape
+    dw = torch.zeros((co, c, 3, 3), dtype=torch.float32, device=x.device)
+    db = _zeros_f32(co, x)
+    sc, sh = _f32(scale), _f32(shift)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_conv3x3_chw_dw(
+            x.data_ptr(), g.data_ptr(), sc.data_ptr(), sh.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
+        )
+    _raise_on(rc, "conv3x3_chw_dw")
+    LAUNCHES["conv3x3_chw_dw"] += 1
+    return dw, db
+
+
+def conv3x3_chw_dw_plain(x, g, scale, shift, relu: bool, outer_padding: str):
+    """Plain PyTorch version of :func:`conv3x3_chw_dw` (one einsum per tap)."""
+    a = prenorm(x, scale, shift, relu).float()
+    mode = "replicate" if outer_padding == "replicate" else "constant"
+    a = F.pad(a, (1, 1, 1, 1), mode=mode)
+    gf = g.float()
+    h, wd = x.shape[2:]
+    taps = [torch.einsum("nohw,nchw->oc", gf, a[:, :, ky : ky + h, kx : kx + wd])
+            for ky in range(3) for kx in range(3)]
+    dw = torch.stack(taps, dim=-1).reshape(g.shape[1], x.shape[1], 3, 3)
+    return dw, gf.sum(dim=(0, 2, 3))
+
+
+def bn_corr(g, y, alpha, beta2):
+    """K8: g + (alpha[c] + beta2[c]·y) in float32, stored in g's dtype: the
+    cotangents of a producer's BN statistics (alpha = dL/dΣy, beta2 =
+    2·dL/dΣy²) folded into the gradient of its output y."""
+    if g.dim() != 4:
+        raise ValueError(f"g: expected (N, C, H, W), got shape {tuple(g.shape)}")
+    c = g.shape[1]
+    _check_act("g", g, tuple(g.shape))
+    _check_act("y", y, tuple(g.shape))
+    _check_same_dtype("y", y, g)
+    _check_param("alpha", alpha, (c,))
+    _check_param("beta2", beta2, (c,))
+    if not _on_cuda(g, y, alpha, beta2):
+        return bn_corr_plain(g, y, alpha, beta2)
+    n, _, h, wd = g.shape
+    out = torch.empty_like(g)
+    a, b2 = _f32(alpha), _f32(beta2)
+    with torch.cuda.device(g.device):
+        rc = _lib().itg_bn_corr(
+            g.data_ptr(), y.data_ptr(), a.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            n * c, c, h * wd, _bf16(g), _stream(g),
+        )
+    _raise_on(rc, "bn_corr")
+    LAUNCHES["bn_corr"] += 1
+    return out
+
+
+def bn_corr_plain(g, y, alpha, beta2):
+    """Plain PyTorch version of :func:`bn_corr`."""
+    return (g.float() + (_chan(alpha) + _chan(beta2) * y.float())).to(g.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K3: 1x1 conv + bias (+ residual) (+ stats), and its dW (csrc/conv1x1_chw.cu)
+
+
+def _conv1x1_fwd(x, w, b, res, want_stats):
     if x.dim() != 4:
         raise ValueError(f"x: expected (N, C, H, W), got shape {tuple(x.shape)}")
     n, c, h, wd = x.shape
@@ -259,51 +500,125 @@ def _conv1x1(x, w, b, res):
     _check_param("b", b, (co,))
     if res is not None:
         _check_act("res", res, (n, co, h, wd))
-        if res.dtype != x.dtype:
-            raise TypeError(f"res dtype {res.dtype} != x dtype {x.dtype}")
+        _check_same_dtype("res", res, x)
     if c > 768:
         raise ValueError(f"conv1x1_chw: C={c} exceeds the kernel's 768-channel limit")
     if not _on_cuda(x, w, b, res):
-        return conv1x1_chw_plain(x, w, b, res)
+        out = conv1x1_chw_plain(x, w, b, res, want_stats)
+        return out if want_stats else (out, None, None)
     y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
+    s1 = s2 = None
+    if want_stats:
+        s1, s2 = _zeros_f32(co, x), _zeros_f32(co, x)
     wf, bf = _f32(w.reshape(co, c)), _f32(b)
     with torch.cuda.device(x.device):
         rc = _lib().itg_conv1x1_chw(
-            x.data_ptr(), wf.data_ptr(), bf.data_ptr(),
-            res.data_ptr() if res is not None else None, y.data_ptr(),
-            n, c, h * wd, co, int(x.dtype == torch.bfloat16), _stream(x),
+            x.data_ptr(), wf.data_ptr(), bf.data_ptr(), _ptr(res), y.data_ptr(),
+            _ptr(s1), _ptr(s2), n, c, h * wd, co, _bf16(x), _stream(x),
         )
     _raise_on(rc, "conv1x1_chw")
     LAUNCHES["conv1x1_chw"] += 1
-    return y
+    return y, s1, s2
+
+
+class _Conv1x1Chw(torch.autograd.Function):
+    """K3 forward (+ stats); backward K8, dx by K3 with Wᵀ, dW by K3-dW."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, res, want_stats):
+        ctx.set_materialize_grads(False)
+        y, s1, s2 = _conv1x1_fwd(x, w, b, res, want_stats)
+        ctx.want_stats = want_stats
+        ctx.save_for_backward(x, w, y if want_stats else None)
+        return (y, s1, s2) if want_stats else y
+
+    @staticmethod
+    def backward(ctx, g, gs1=None, gs2=None):
+        x, w, y = ctx.saved_tensors
+        co, c = w.shape[0], x.shape[1]
+        if g is None:
+            g = torch.zeros((x.shape[0], co) + x.shape[2:], dtype=x.dtype, device=x.device)
+        if ctx.want_stats and (gs1 is not None or gs2 is not None):
+            alpha = gs1 if gs1 is not None else _zeros_f32(co, g)
+            beta2 = 2.0 * gs2 if gs2 is not None else _zeros_f32(co, g)
+            g = bn_corr(g.contiguous(), y, alpha, beta2)
+        g = g.contiguous()
+        need = ctx.needs_input_grad
+        dx = dw = db = None
+        if need[0]:
+            # the forward kernel with transposed weights and no bias, as the
+            # reference's _conv1x1_bwd_rule does
+            wt = w.reshape(co, c).t()
+            dx, _, _ = _conv1x1_fwd(g, wt, torch.zeros(c, dtype=torch.float32, device=g.device),
+                                    None, False)
+        if need[1] or need[2]:
+            dwm, db = conv1x1_chw_dw(x, g)
+            dw = dwm.reshape(w.shape)
+        return dx, dw, db, (g if need[3] else None), None
 
 
 def conv1x1_chw(x, w, b) -> torch.Tensor:
     """K3: y = W x + b per pixel on (N, C, H, W); w (Co, C, 1, 1) or (Co, C)."""
-    return _conv1x1(x, w, b, None)
+    return _Conv1x1Chw.apply(x, w, b, None, False)
 
 
-def conv1x1_chw_add(x, w, b, res) -> torch.Tensor:
+def conv1x1_chw_add(x, w, b, res, want_stats: bool = False):
     """K3 with the residual add fused: y = W x + b + res (the ResBlock
-    shortcut plus ``out + shortcut``)."""
-    return _conv1x1(x, w, b, res)
+    shortcut plus ``out + shortcut``). With ``want_stats`` returns
+    (y, Σy, Σy²) like :func:`conv3x3_chw`."""
+    return _Conv1x1Chw.apply(x, w, b, res, want_stats)
 
 
-def conv1x1_chw_plain(x, w, b, res=None) -> torch.Tensor:
+def conv1x1_chw_plain(x, w, b, res=None, want_stats: bool = False):
     """Plain PyTorch version of :func:`conv1x1_chw` / :func:`conv1x1_chw_add`."""
     co, c = w.shape[0], x.shape[1]
     y = F.conv2d(x.float(), w.float().reshape(co, c, 1, 1), b.float())
     if res is not None:
         y = y + res.float()
-    return y.to(x.dtype)
+    y = y.to(x.dtype)
+    if want_stats:
+        return (y, *_stats_plain(y))
+    return y
+
+
+def conv1x1_chw_dw(x, g):
+    """K3-dW: dW[o, c] = Σ g[o]·x[c] and db[o] = Σ g[o], float32 sums over
+    (N, H, W). Returns (dW (Co, C), db (Co,))."""
+    if x.dim() != 4 or g.dim() != 4:
+        raise ValueError(f"x, g: expected (N, C, H, W), got {tuple(x.shape)}, {tuple(g.shape)}")
+    n, c, h, wd = x.shape
+    co = g.shape[1]
+    _check_act("x", x, (n, c, h, wd))
+    _check_act("g", g, (n, co, h, wd))
+    _check_same_dtype("g", g, x)
+    if c * co > 4096 or c + co > 96:
+        raise ValueError(f"conv1x1_chw_dw: C={c}, Co={co} exceed the kernel's limits "
+                         "(C*Co <= 4096, C+Co <= 96)")
+    if not _on_cuda(x, g):
+        return conv1x1_chw_dw_plain(x, g)
+    dw = torch.zeros((co, c), dtype=torch.float32, device=x.device)
+    db = _zeros_f32(co, x)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_conv1x1_chw_dw(
+            x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            n, c, h * wd, co, _bf16(x), _stream(x),
+        )
+    _raise_on(rc, "conv1x1_chw_dw")
+    LAUNCHES["conv1x1_chw_dw"] += 1
+    return dw, db
+
+
+def conv1x1_chw_dw_plain(x, g):
+    """Plain PyTorch version of :func:`conv1x1_chw_dw`."""
+    gf = g.float()
+    return torch.einsum("nohw,nchw->oc", gf, x.float()), gf.sum(dim=(0, 2, 3))
 
 
 # ---------------------------------------------------------------------------
-# K4: nearest-2x upsample (csrc/upsample2_chw.cu)
+# K4: nearest-2x upsample and its adjoint (csrc/upsample2_chw.cu)
 
 
-def upsample2_chw(x: torch.Tensor) -> torch.Tensor:
-    """K4: y[n, c, 2i+a, 2j+b] = x[n, c, i, j] on (N, C, H, W)."""
+def _upsample2_fwd(x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 4:
         raise ValueError(f"x: expected (N, C, H, W), got shape {tuple(x.shape)}")
     _check_act("x", x, tuple(x.shape))
@@ -312,15 +627,183 @@ def upsample2_chw(x: torch.Tensor) -> torch.Tensor:
     n, c, h, wd = x.shape
     y = torch.empty((n, c, 2 * h, 2 * wd), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        rc = _lib().itg_upsample2_chw(
-            x.data_ptr(), y.data_ptr(), n * c, h, wd,
-            int(x.dtype == torch.bfloat16), _stream(x),
-        )
+        rc = _lib().itg_upsample2_chw(x.data_ptr(), y.data_ptr(), n * c, h, wd, _bf16(x), _stream(x))
     _raise_on(rc, "upsample2_chw")
     LAUNCHES["upsample2_chw"] += 1
     return y
 
 
+class _Upsample2Chw(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _upsample2_fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return upsample2_chw_bwd(g.contiguous())
+
+
+def upsample2_chw(x: torch.Tensor) -> torch.Tensor:
+    """K4: y[n, c, 2i+a, 2j+b] = x[n, c, i, j] on (N, C, H, W);
+    differentiable (backward :func:`upsample2_chw_bwd`)."""
+    return _Upsample2Chw.apply(x)
+
+
 def upsample2_chw_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`upsample2_chw`."""
     return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
+def upsample2_chw_bwd(g: torch.Tensor) -> torch.Tensor:
+    """K4's adjoint: dx[i, j] = (g[2i, 2j] + g[2i, 2j+1]) + (g[2i+1, 2j] +
+    g[2i+1, 2j+1]), summed in float32 in that order (the reference's
+    column pair-sum, then row pair-sum) and stored in g's dtype."""
+    if g.dim() != 4 or g.shape[2] % 2 or g.shape[3] % 2:
+        raise ValueError(f"g: expected (N, C, 2H, 2W), got shape {tuple(g.shape)}")
+    _check_act("g", g, tuple(g.shape))
+    if not _on_cuda(g):
+        return upsample2_chw_bwd_plain(g)
+    n, c, h2, w2 = g.shape
+    dx = torch.empty((n, c, h2 // 2, w2 // 2), dtype=g.dtype, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = _lib().itg_upsample2_chw_bwd(g.data_ptr(), dx.data_ptr(), n * c, h2 // 2, w2 // 2,
+                                          _bf16(g), _stream(g))
+    _raise_on(rc, "upsample2_chw_bwd")
+    LAUNCHES["upsample2_chw_bwd"] += 1
+    return dx
+
+
+def upsample2_chw_bwd_plain(g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`upsample2_chw_bwd`."""
+    gf = g.float()
+    top = gf[:, :, 0::2, 0::2] + gf[:, :, 0::2, 1::2]
+    bot = gf[:, :, 1::2, 0::2] + gf[:, :, 1::2, 1::2]
+    return (top + bot).to(g.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K13: the discriminator stem, 4x4 / stride 2 / zero pad 1 (csrc/stem4x4s2.cu)
+
+
+def _check_stem(x, w):
+    if x.dim() != 4:
+        raise ValueError(f"x: expected (N, C, H, W), got shape {tuple(x.shape)}")
+    n, c, h, wd = x.shape
+    _check_act("x", x, (n, c, h, wd))
+    if h % 2 or wd % 2:
+        raise ValueError(f"stem: H and W must be even, got {h}x{wd}")
+    if c > 4:
+        raise ValueError(f"stem: C={c} exceeds the kernel's 4-channel limit")
+    _check_param("w", w, (w.shape[0], c, 4, 4))
+
+
+def stem_fwd(x, w, b):
+    """K13 forward: y = conv4x4/s2/pad1(x) + b with x channels-major
+    (N, C, H, W) and y NHWC (N, H/2, W/2, Co), in x's dtype."""
+    _check_stem(x, w)
+    co = w.shape[0]
+    _check_param("b", b, (co,))
+    if not _on_cuda(x, w, b):
+        return stem_fwd_plain(x, w, b)
+    n, c, h, wd = x.shape
+    y = torch.empty((n, h // 2, wd // 2, co), dtype=x.dtype, device=x.device)
+    wf, bf = _f32(w), _f32(b)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_stem_fwd(x.data_ptr(), wf.data_ptr(), bf.data_ptr(), y.data_ptr(),
+                                 n, c, h, wd, co, _bf16(x), _stream(x))
+    _raise_on(rc, "stem_fwd")
+    LAUNCHES["stem_fwd"] += 1
+    return y
+
+
+def stem_fwd_plain(x, w, b):
+    """Plain PyTorch version of :func:`stem_fwd`."""
+    y = F.conv2d(x.float(), w.float(), b.float(), stride=2, padding=1)
+    return y.permute(0, 2, 3, 1).contiguous().to(x.dtype)
+
+
+def stem_dw(x, g):
+    """K13 dW: dW[o, c, ky, kx] = Σ g[n, i, j, o]·x[n, c, 2i+ky-1, 2j+kx-1]
+    (zero outside the image) and db = Σ g, float32 sums. ``g`` NHWC."""
+    _check_stem(x, torch.empty(g.shape[-1], x.shape[1], 4, 4))
+    n, c, h, wd = x.shape
+    co = g.shape[-1]
+    _check_act("g", g, (n, h // 2, wd // 2, co))
+    _check_same_dtype("g", g, x)
+    if not _on_cuda(x, g):
+        return stem_dw_plain(x, g)
+    dw = torch.zeros((co, c, 4, 4), dtype=torch.float32, device=x.device)
+    db = _zeros_f32(co, x)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_stem_dw(x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                                n, c, h, wd, co, _bf16(x), _stream(x))
+    _raise_on(rc, "stem_dw")
+    LAUNCHES["stem_dw"] += 1
+    return dw, db
+
+
+def stem_dw_plain(x, g):
+    """Plain PyTorch version of :func:`stem_dw` (one einsum per tap)."""
+    xp = F.pad(x.float(), (1, 1, 1, 1))
+    gf = g.float()
+    h2, w2 = g.shape[1:3]
+    taps = [torch.einsum("nhwo,nchw->oc", gf, xp[:, :, ky : ky + 2 * h2 : 2, kx : kx + 2 * w2 : 2])
+            for ky in range(4) for kx in range(4)]
+    dw = torch.stack(taps, dim=-1).reshape(g.shape[-1], x.shape[1], 4, 4)
+    return dw, gf.sum(dim=(0, 1, 2))
+
+
+def stem_dx(g, w):
+    """K13 dx: the image-side gradient, channels-major (N, C, 2·H2, 2·W2)
+    in g's dtype, from the NHWC cotangent ``g`` (N, H2, W2, Co)."""
+    if g.dim() != 4:
+        raise ValueError(f"g: expected (N, H2, W2, Co), got shape {tuple(g.shape)}")
+    n, h2, w2, co = g.shape
+    _check_act("g", g, (n, h2, w2, co))
+    c = w.shape[1]
+    _check_param("w", w, (co, c, 4, 4))
+    if c > 4:
+        raise ValueError(f"stem: C={c} exceeds the kernel's 4-channel limit")
+    if not _on_cuda(g, w):
+        return stem_dx_plain(g, w)
+    dx = torch.empty((n, c, 2 * h2, 2 * w2), dtype=g.dtype, device=g.device)
+    wf = _f32(w)
+    with torch.cuda.device(g.device):
+        rc = _lib().itg_stem_dx(g.data_ptr(), wf.data_ptr(), dx.data_ptr(),
+                                n, c, 2 * h2, 2 * w2, co, _bf16(g), _stream(g))
+    _raise_on(rc, "stem_dx")
+    LAUNCHES["stem_dx"] += 1
+    return dx
+
+
+def stem_dx_plain(g, w):
+    """Plain PyTorch version of :func:`stem_dx` (F.conv_transpose2d)."""
+    gc = g.float().permute(0, 3, 1, 2)
+    return F.conv_transpose2d(gc, w.float(), stride=2, padding=1).to(g.dtype)
+
+
+class _StemChw(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return stem_fwd(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        need = ctx.needs_input_grad
+        dx = dw = db = None
+        if need[0]:
+            dx = stem_dx(g, w)
+        if need[1] or need[2]:
+            dw, db = stem_dw(x, g)
+        return dx, dw, db
+
+
+def conv4x4s2_stem_chw(x, w, b):
+    """K13: the discriminator's conv0 on a channels-major image,
+    (N, C, H, W) -> NHWC (N, H/2, W/2, Co); w (Co, C, 4, 4) is the
+    (spectrally normalised) kernel. Differentiable: dx by :func:`stem_dx`,
+    dW/db by :func:`stem_dw`, each only when autograd needs it."""
+    return _StemChw.apply(x, w, b)

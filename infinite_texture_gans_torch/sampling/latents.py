@@ -37,6 +37,14 @@ def build_z_full(
     return torch.randn(shape, generator=generator, device=device)
 
 
+def build_train_z(generator: Optional[torch.Generator], num_images: int, z_dim: int,
+                  base_res: int, gh: int, gw: int, device="cuda") -> torch.Tensor:
+    """Training latent (N, gh*base+2, gw*base+2, z_dim), standard normal:
+    the reference's ``build_train_z``. ``generator`` must live on
+    ``device``."""
+    return build_z_full(generator, num_images, z_dim, base_res, gh, gw, device=device)
+
+
 def slice_sub_z(z_full: torch.Tensor, r: int, c: int, base_res: int, gh: int, gw: int):
     """Overlapping sub-image latent window for canvas step (r, c): offset
     (r*(gh-1)*base, c*(gw-1)*base), size (gh*base+2, gw*base+2)."""

@@ -1,15 +1,19 @@
-"""Read framework ``.ckpt`` checkpoints and rebuild the generator.
+"""Write and read framework ``.ckpt`` checkpoints; rebuild the generator.
 
-Port of the loading half of ``infinite_texture_gans_tpu/train/checkpoint.py``.
-File layout (docs/CHECKPOINT.md): ``MAGIC``, a little-endian u64 length, the
-JSON metadata (``meta.args`` holds the training flags), then the flax
-msgpack body, read by the port's own decoder (``train/msgpack.py``). The
-reference ``.pth`` import is not ported yet.
+Port of ``save_checkpoint`` (:35-56), ``load_checkpoint`` and
+``load_generator_from_checkpoint`` of
+``infinite_texture_gans_tpu/train/checkpoint.py``. File layout
+(docs/CHECKPOINT.md): ``MAGIC``, a little-endian u64 length, the JSON
+metadata (``meta.args`` holds the training flags), then the flax msgpack
+body, written and read by the port's own encoder and decoder
+(``train/msgpack.py``), so checkpoints cross between the two packages in
+both directions. The reference ``.pth`` import is not ported yet.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import struct
 from typing import Any, Dict, Optional
 
@@ -20,6 +24,21 @@ from infinite_texture_gans_torch.train import msgpack
 from infinite_texture_gans_torch.weights import from_jax_variables
 
 MAGIC = b"ITGTPU1\n"
+
+
+def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
+    """``payload``: nested dicts of arrays (numpy arrays, numpy scalars or
+    tensors) plus JSON-serialisable metadata under 'meta'; the reference's
+    ``save_checkpoint`` format."""
+    body = {k: v for k, v in payload.items() if k != "meta"}
+    meta_blob = json.dumps(payload.get("meta", {})).encode()
+    blob = msgpack.packb(body)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(MAGIC)
+        f.write(struct.pack("<Q", len(meta_blob)))
+        f.write(meta_blob)
+        f.write(blob)
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

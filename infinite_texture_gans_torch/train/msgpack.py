@@ -1,11 +1,14 @@
-"""Pure-Python decoder for the msgpack subset that flax.serialization writes.
+"""Pure-Python encoder and decoder for the msgpack subset that
+flax.serialization writes.
 
-The ``.ckpt`` body is a flax msgpack blob (docs/CHECKPOINT.md). This decoder
-reads maps, arrays, strings, binaries, integers, floats, nil and booleans,
+The ``.ckpt`` body is a flax msgpack blob (docs/CHECKPOINT.md). The format
+has maps, arrays, strings, binaries, integers, floats, nil and booleans,
 and flax's extension types 1 (ndarray: a packed ``(shape, dtype name,
-bytes)`` triple) and 3 (numpy scalar, same payload). Arrays come back as
-numpy arrays, except bfloat16 (numpy has no such type), which comes back as
-a ``torch.bfloat16`` tensor read through uint16.
+bytes)`` triple) and 3 (numpy scalar, same payload). The decoder returns
+arrays as numpy arrays, except bfloat16 (numpy has no such type), which
+comes back as a ``torch.bfloat16`` tensor read through uint16. The encoder
+(:func:`packb`) takes numpy arrays, numpy scalars and CPU tensors as array
+leaves, so what it writes loads with ``flax.serialization.msgpack_restore``.
 """
 
 from __future__ import annotations
@@ -119,3 +122,109 @@ def _ext(code: int, payload: bytes):
     if code == _EXT_NPSCALAR:
         return _ndarray(payload)[()]
     raise ValueError(f"unsupported msgpack extension type {code}")
+
+
+# ---------------------------------------------------------------------------
+# encoder
+
+
+def packb(obj) -> bytes:
+    """Encode ``obj`` (nested dicts with string keys, lists, tuples, str,
+    bytes, int, float, bool, None and array leaves) as msgpack."""
+    out = bytearray()
+    _encode(obj, out)
+    return bytes(out)
+
+
+def _head(out: bytearray, n: int, fix: int, fix_max: int, codes) -> None:
+    """A length header: the fix form (``fix | n``) up to ``fix_max``, else
+    the 8/16/32-bit form from ``codes`` (None where the form does not
+    exist)."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    for code, nbytes in zip(codes, (1, 2, 4)):
+        if code is not None and n < (1 << (8 * nbytes)):
+            out.append(code)
+            out += n.to_bytes(nbytes, "big")
+            return
+    raise ValueError(f"msgpack object of length {n} is too long")
+
+
+def _array_payload(a: np.ndarray) -> bytes:
+    return packb((list(a.shape), a.dtype.name, np.ascontiguousarray(a).tobytes()))
+
+
+def _tensor_payload(t: torch.Tensor) -> bytes:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return packb((list(t.shape), "bfloat16", t.view(torch.uint16).numpy().tobytes()))
+    return _array_payload(t.numpy())
+
+
+def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        out.append(fixext[n])
+    else:
+        _head(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code)
+    out += payload
+
+
+def _encode(obj, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, torch.Tensor):
+        _pack_ext(out, _EXT_NDARRAY, _tensor_payload(obj))
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _array_payload(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _array_payload(np.asarray(obj)))
+    elif isinstance(obj, int):
+        _int(obj, out)
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _head(out, len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(obj, (bytes, bytearray)):
+        _head(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, dict):
+        _head(out, len(obj), 0x80, 15, (None, 0xDE, 0xDF))
+        for key, value in obj.items():
+            _encode(key, out)
+            _encode(value, out)
+    elif isinstance(obj, (list, tuple)):
+        _head(out, len(obj), 0x90, 15, (None, 0xDC, 0xDD))
+        for value in obj:
+            _encode(value, out)
+    else:
+        raise TypeError(f"cannot encode {type(obj).__name__} as msgpack")
+
+
+def _int(v: int, out: bytearray) -> None:
+    if 0 <= v <= 0x7F:
+        out.append(v)
+    elif -32 <= v < 0:
+        out.append(v & 0xFF)
+    elif v >= 0:
+        for code, nbytes in ((0xCC, 1), (0xCD, 2), (0xCE, 4), (0xCF, 8)):
+            if v < (1 << (8 * nbytes)):
+                out.append(code)
+                out += v.to_bytes(nbytes, "big")
+                return
+        raise ValueError(f"integer {v} does not fit msgpack")
+    else:
+        for code, nbytes in ((0xD0, 1), (0xD1, 2), (0xD2, 4), (0xD3, 8)):
+            if v >= -(1 << (8 * nbytes - 1)):
+                out.append(code)
+                out += v.to_bytes(nbytes, "big", signed=True)
+                return
+        raise ValueError(f"integer {v} does not fit msgpack")

@@ -1,10 +1,12 @@
-"""Carry a generator's weights from the flax variable tree to the port.
+"""Carry weights between the flax variable tree and the port's modules.
 
 The port's module names follow the flax paths, so the walk is mechanical:
 ``params/block4/conv1/conv/kernel`` becomes ``block4.conv1.conv.weight``
 (HWIO -> OIHW), BN ``scale``/``bias`` stay parameters under the same names,
-``batch_stats`` ``mean``/``var`` become buffers, and the attention ``gamma``
-scalar carries over. The result loads with ``strict=True``.
+``batch_stats`` ``mean``/``var`` become buffers, the attention ``gamma``
+scalar carries over, and the ``spectral`` power-iteration vectors ``u``/``v``
+become the SN convs' buffers (the port keeps ``v`` in the reference's
+order). :func:`to_jax_variables` is the inverse, for the checkpoint writer.
 """
 
 from __future__ import annotations
@@ -14,9 +16,8 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-# The SN power-iteration vectors: an eval generator is rebuilt with SN off
-# (as the reference rebuilds it), so they have no module to load into.
-_IGNORED_COLLECTIONS = ("spectral",)
+# state-dict leaf name -> variable collection, for the leaves not in 'params'
+_COLLECTION_OF = {"mean": "batch_stats", "var": "batch_stats", "u": "spectral", "v": "spectral"}
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -36,15 +37,18 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def from_jax_variables(variables: Mapping[str, Mapping]) -> Dict[str, torch.Tensor]:
-    """flax ``{'params': ..., 'batch_stats': ...}`` (numpy arrays or
-    tensors) -> a state dict for the port's ResidualPatchGenerator. Each
-    leaf yields exactly one entry."""
+def from_jax_variables(variables: Mapping[str, Mapping], *, spectral: bool = False
+                       ) -> Dict[str, torch.Tensor]:
+    """flax ``{'params': ..., 'batch_stats': ..., 'spectral': ...}`` (numpy
+    arrays or tensors) -> a state dict for the port's module. Each leaf
+    yields exactly one entry. ``spectral``: keep the SN vectors (a
+    discriminator, or a generator trained with SN); without it they are
+    dropped, as for a generator rebuilt with SN off."""
     state: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
-        if collection in _IGNORED_COLLECTIONS:
+        if collection == "spectral" and not spectral:
             continue
-        if collection not in ("params", "batch_stats"):
+        if collection not in ("params", "batch_stats", "spectral"):
             raise ValueError(f"unexpected variable collection {collection!r}")
         for path, leaf in _leaves(tree):
             *modules, name = path
@@ -57,3 +61,23 @@ def from_jax_variables(variables: Mapping[str, Mapping]) -> Dict[str, torch.Tens
                 raise ValueError(f"two leaves map to {key!r}")
             state[key] = t.contiguous()
     return state
+
+
+def to_jax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, Any]]:
+    """The inverse of :func:`from_jax_variables`: a module's state dict ->
+    ``{'params': ..., 'batch_stats': ..., 'spectral': ...}`` nested dicts of
+    numpy arrays (float32; OIHW weights back to HWIO kernels). Collections
+    without leaves are left out."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for key, t in state.items():
+        *modules, name = key.split(".")
+        collection = _COLLECTION_OF.get(name, "params")
+        a = t.detach().cpu()
+        if name == "weight":
+            name = "kernel"
+            a = a.permute(2, 3, 1, 0) if a.dim() == 4 else a.t()
+        node = out.setdefault(collection, {})
+        for m in modules:
+            node = node.setdefault(m, {})
+        node[name] = a.float().numpy().copy()
+    return out

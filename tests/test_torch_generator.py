@@ -109,8 +109,10 @@ def test_rejects_unported_options():
     assert "fuse_up" not in generator_kwargs(dict_to_args({"fuse_up": "off"}))
     with pytest.raises(ValueError):  # 'auto' already runs the tail on any device
         ResidualPatchGenerator(**SMALL, chw_tail="on")
-    with pytest.raises(RuntimeError):  # training forward not ported
-        ResidualPatchGenerator(**SMALL)(torch.zeros(1, 14, 14, 16))
+    with pytest.raises(ValueError):  # the halo engine is eval-only
+        ResidualPatchGenerator(**SMALL)(torch.zeros(1, 14, 14, 16), halo={})
+    with pytest.raises(NotImplementedError):  # the fused training up-conv (K9, K10)
+        generator_kwargs(dict_to_args({"fuse_up": "auto"}), train=True)
 
 
 def _canvas_vs_one_pass(gen, out_h, out_w, seed=7):

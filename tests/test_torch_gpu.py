@@ -119,3 +119,141 @@ def test_raster_canvas_on_card_equals_one_pass(cuda):
     assert tk.LAUNCHES["chw_halo_step"] == 2 * 3 * 3  # 2 sites + final, 2x3 steps
     oracle = generate_one_pass(gen, z, th, tw)[:, :160, :224].cpu().numpy()
     np.testing.assert_allclose(canvas, oracle, atol=5e-4, rtol=0)
+
+
+# --- training kernels (K5 stats, K6, K7, K8, K3 stats and dW, K4 adjoint, K13)
+# The sums (Σy, Σy², d(scale), d(shift), dW, db) are float32 reductions in
+# another order (and atomics in a run-dependent one): relative 1e-4 of the
+# largest reference entry.
+SUM_TOL = 1e-4
+
+TRAIN_SHAPES = [(2, 11, 19, 13, 45), (1, 26, 13, 40, 37)]  # n, c, co, h, w
+
+
+def _assert_sum_close(got, ref):
+    scale = max(1e-6, float(ref.float().abs().max()))
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= SUM_TOL * scale, (err, SUM_TOL * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_conv3x3_train_kernels_match_plain(cuda, dtype, outer, shape):
+    n, c, co, h, w = shape
+    x, wt, b, sc, sh = _inputs(cuda, dtype, n=n, c=c, co=co, h=h, w=w)
+    g = torch.randn(n, co, h, w, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    tk.reset_launches()
+    y, s1, s2 = tk.conv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+    y_ref, s1_ref, s2_ref = tk.conv3x3_chw_plain(x, wt, b, sc, sh, True, outer, want_stats=True)
+    _assert_close(y, y_ref)
+    # the stats are taken of the stored y: hold them to the plain sums of the kernel's own y
+    _assert_sum_close(s1, y.float().sum(dim=(0, 2, 3)))
+    _assert_sum_close(s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
+    dx, dsc, dsh = tk.conv3x3_chw_dx(x, g, wt, sc, sh, True, outer)
+    dx_ref, dsc_ref, dsh_ref = tk.conv3x3_chw_dx_plain(x, g, wt, sc, sh, True, outer)
+    _assert_close(dx, dx_ref)
+    _assert_sum_close(dsc, dsc_ref)
+    _assert_sum_close(dsh, dsh_ref)
+    dw, db = tk.conv3x3_chw_dw(x, g, sc, sh, True, outer)
+    dw_ref, db_ref = tk.conv3x3_chw_dw_plain(x, g, sc, sh, True, outer)
+    _assert_sum_close(dw, dw_ref)
+    _assert_sum_close(db, db_ref)
+    alpha, beta2 = torch.randn(co, device=cuda), torch.randn(co, device=cuda)
+    _assert_close(tk.bn_corr(g, y, alpha, beta2), tk.bn_corr_plain(g, y, alpha, beta2))
+    assert {k: tk.LAUNCHES[k] for k in ("conv3x3_chw", "conv3x3_chw_dx", "conv3x3_chw_dw", "bn_corr")} \
+        == {"conv3x3_chw": 1, "conv3x3_chw_dx": 1, "conv3x3_chw_dw": 1, "bn_corr": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_conv1x1_train_kernels_match_plain(cuda, dtype, shape):
+    n, c, co, h, w = shape
+    x, _, _, _, _ = _inputs(cuda, dtype, n=n, c=c, h=h, w=w)
+    gen = torch.Generator().manual_seed(4)
+    wt = torch.randn(co, c, 1, 1, generator=gen).to(cuda)
+    b = torch.randn(co, generator=gen).to(cuda)
+    res = torch.randn(n, co, h, w, generator=gen).to(cuda, dtype)
+    g = torch.randn(n, co, h, w, generator=gen).to(cuda, dtype)
+    y, s1, s2 = tk.conv1x1_chw_add(x, wt, b, res, want_stats=True)
+    _assert_close(y, tk.conv1x1_chw_plain(x, wt, b, res))
+    _assert_sum_close(s1, y.float().sum(dim=(0, 2, 3)))
+    _assert_sum_close(s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
+    dw, db = tk.conv1x1_chw_dw(x, g)
+    dw_ref, db_ref = tk.conv1x1_chw_dw_plain(x, g)
+    _assert_sum_close(dw, dw_ref)
+    _assert_sum_close(db, db_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 5, 14, 34), (1, 26, 48, 96)])
+def test_upsample_adjoint_bit_equal(cuda, dtype, shape):
+    g = torch.randn(*shape, device=cuda).to(dtype)
+    assert torch.equal(tk.upsample2_chw_bwd(g), tk.upsample2_chw_bwd_plain(g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 20, 70, 64), (1, 3, 48, 36, 96)])  # n, c, h, w, co
+def test_stem_kernels_match_plain(cuda, dtype, shape):
+    n, c, h, w, co = shape
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(n, c, h, w, generator=gen).to(cuda, dtype)
+    wt = (0.2 * torch.randn(co, c, 4, 4, generator=gen)).to(cuda)
+    b = torch.randn(co, generator=gen).to(cuda)
+    g = torch.randn(n, h // 2, w // 2, co, generator=gen).to(cuda, dtype)
+    tk.reset_launches()
+    _assert_close(tk.stem_fwd(x, wt, b), tk.stem_fwd_plain(x, wt, b))
+    _assert_close(tk.stem_dx(g, wt), tk.stem_dx_plain(g, wt))
+    dw, db = tk.stem_dw(x, g)
+    dw_ref, db_ref = tk.stem_dw_plain(x, g)
+    _assert_sum_close(dw, dw_ref)
+    _assert_sum_close(db, db_ref)
+    assert (tk.LAUNCHES["stem_fwd"], tk.LAUNCHES["stem_dx"], tk.LAUNCHES["stem_dw"]) == (1, 1, 1)
+
+
+def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    """A tiny fused step on the card with the kernels against the same step
+    on the card with the tail's and the stem's plain versions swapped in
+    (cuDNN runs the NHWC layers in both), float32 with TF32 off; the losses
+    also against the CPU step."""
+    from infinite_texture_gans_torch.config import prepare_parser
+    from infinite_texture_gans_torch.train.train_step import create_train_state, train_step
+
+    args = prepare_parser().parse_args(
+        ["--G_ch", "8", "--D_ch", "8", "--z_dim", "16", "--n_layers_G", "4", "--n_layers_D", "2",
+         "--padding_mode", "local", "--attention", "--spec_norm_D", "--ema", "--num_images", "2"])
+    gen = torch.Generator().manual_seed(6)
+    real = torch.rand(4, 48, 48, 3, generator=gen) * 2 - 1
+    z = torch.randn(2, 14, 14, 16, generator=gen)
+    twins = {"conv3x3_chw": tk.conv3x3_chw_plain, "conv1x1_chw": tk.conv1x1_chw_plain,
+             "conv1x1_chw_add": tk.conv1x1_chw_plain, "upsample2_chw": tk.upsample2_chw_plain,
+             "conv4x4s2_stem_chw": tk.stem_fwd_plain}
+    out = {}
+    for run in ("cpu", "cuda", "cuda plain"):
+        dev = run.split()[0]
+        st = create_train_state(args, 4, dev, seed=1)
+        tk.reset_launches()
+        with monkeypatch.context() as mp:
+            if run == "cuda plain":
+                for name, fn in twins.items():
+                    mp.setattr(tk, name, fn)
+            m = train_step(st, real.to(dev), z.to(dev), smooth=True, use_ema=True)
+        out[run] = (m, {n: p.grad.cpu() for n, p in st.G.named_parameters()},
+                    {n: p.grad.cpu() for n, p in st.D.named_parameters()}, dict(tk.LAUNCHES))
+    for ref_run in ("cpu", "cuda plain"):
+        for k, ref in out[ref_run][0].items():
+            assert abs(float(out["cuda"][0][k]) - float(ref)) <= 1e-4 * abs(float(ref)), (ref_run, k)
+    for i in (1, 2):
+        # a leaf below 1e-6 of the model's largest gradient is rounding noise
+        # (zero in exact arithmetic: a bias that reaches only train-mode
+        # BatchNorms): held to 1e-3 of the model's largest gradient
+        want = out["cuda plain"][i]
+        top = max(float(r.abs().max()) for r in want.values())
+        for name, ref in want.items():
+            scale = float(ref.abs().max())
+            scale = top if scale < 1e-6 * top else scale
+            assert float((out["cuda"][i][name] - ref).abs().max()) <= 1e-3 * scale, name
+    assert not any(out["cuda plain"][3].values())
+    launches = out["cuda"][3]
+    assert launches["stem_fwd"] == 2 and launches["stem_dw"] == 1 and launches["stem_dx"] == 1
+    assert launches["conv3x3_chw_dx"] == launches["conv3x3_chw_dw"] == 3  # block4 conv1/conv2, final
