@@ -11,10 +11,15 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    384^2 sub-image (the raster path) and, for K1, K3 and K4, the 768^2
    one-pass grid too.
 3. Holds each training kernel (K5 stats, K6, K7, K8, K3 stats and dW, K4's
-   adjoint, the K13 stem trio) against its plain version at every shape of
-   the Experiment-1 step (N = 8 fake 384^2 grids, tail blocks 5-6), f32 and
-   bf16, both outer paddings; times each (CUDA-graph replay) beside its
-   bound, its plain version and one PyTorch library call.
+   adjoint, the K13 stem trio, and the fused up-conv K9 forward with and
+   without stats, dx, dW and its residual join K10 with and without stats)
+   against its plain version at every shape of the Experiment-1 step (N = 8
+   fake 384^2 grids, tail blocks 5-6) under both tails: ``--fuse_up off``
+   and ``auto``, whose half-res shortcut (K3 and its dx form, K3-dW) and
+   K10 adjoint (K4-bwd) run at shapes of their own; f32 and bf16, both
+   outer paddings. Times each (CUDA-graph replay) beside its bound, its
+   plain version and one PyTorch library call, summed per step for each
+   tail, and holds the timed calls per step to the tail's launch counts.
 4. Loads the trained flagship checkpoint ``examples/241_300ep_ema.ckpt``:
    - float32, 768^2: the one-pass oracle (a main path, launch counts
      read), then the raster engine against it;
@@ -25,15 +30,18 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
      sub-images generated without the halo cache (which set the raster's
      seam limit), and, attention gate zeroed, the bf16 raster canvas held to
      the bf16 one pass.
-5. Step parity: at full Experiment-1 width in float32 (TF32 off), one
-   fused training step from a fixed state with the kernels, and the same
-   step with the tail and the stem on their plain versions; losses and
-   gradients must agree.
-6. Training run: 30 bf16 steps of the Experiment-1 recipe
-   (``--fuse_up off``) on ``datasets/241.jpg`` through the train CLI's
-   ``train``; exact launch counts per step, warm steps/s, the device's busy
-   share (torch.profiler), then the written ``.ckpt`` reloaded through the
-   sampling loader and rendered to a 384^2 canvas.
+5. Step parity: at full Experiment-1 width in float32 (TF32 off), under
+   ``--fuse_up auto`` and ``off``, one fused training step from a fixed
+   state with the kernels, and the same step with the tail and the stem on
+   their plain versions; losses and gradients must agree. Then the fused
+   step against the unfused one from the same state and crops, both on the
+   kernels.
+6. Training runs: 30 bf16 steps of the Experiment-1 recipe on
+   ``datasets/241.jpg`` through the train CLI's ``train``, under
+   ``--fuse_up auto`` (the default) and then ``off``; exact launch counts
+   per step, warm steps/s, the device's busy share (torch.profiler), then
+   the written ``.ckpt`` reloaded through the sampling loader and rendered
+   to a 384^2 canvas.
 7. Prints the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -120,6 +128,7 @@ def exp1_shapes(plan, base):
     conv3.append((plan[-1][1], 3, h, w, False))
     return conv3, conv1, up2
 
+
 # kernel -> (tag, CUDA source, pallas_call line in ops/pallas_conv.py)
 KERNELS = {
     "conv3x3_chw": ("K1/K5", "conv3x3_chw.cu", 395),
@@ -131,26 +140,28 @@ KERNELS = {
     "conv1x1_chw_dw": ("K3-dW", "conv1x1_chw.cu", 2361),
     "upsample2_chw": ("K4", "upsample2_chw.cu", 2540),
     "upsample2_chw_bwd": ("K4-bwd", "upsample2_chw.cu", 2560),
+    "upconv3x3_chw": ("K9", "upconv3x3_chw.cu", 1457),
+    "upconv3x3_chw_dx": ("K9-dx", "upconv3x3_chw.cu", 1642),
+    "upconv3x3_chw_dw": ("K9-dW", "upconv3x3_chw.cu", 1777),
+    "upsample2_chw_add": ("K10", "upsample2_chw.cu", 2199),
     "stem_fwd": ("K13", "stem4x4s2.cu", 2769),
     "stem_dw": ("K13-dW", "stem4x4s2.cu", 2840),
     "stem_dx": ("K13-dx", "stem4x4s2.cu", 2977),
 }
-# kernels on the generation paths (timed per 384^2 sub-image) and on the
-# training step (timed per step)
+# kernels on the generation paths (timed per 384^2 sub-image); those of the
+# training step (timed per step) are the ones STEP_LAUNCHES counts
 GEN_KERNELS = ("conv3x3_chw", "chw_halo_step", "conv1x1_chw", "upsample2_chw")
-TRAIN_KERNELS = ("conv3x3_chw", "conv3x3_chw_dx", "conv3x3_chw_dw", "bn_corr", "conv1x1_chw",
-                 "conv1x1_chw_dw", "upsample2_chw", "upsample2_chw_bwd", "stem_fwd", "stem_dw",
-                 "stem_dx")
 
-# The Experiment-1 step (README quick start, --fuse_up off): N = 8 fake
-# 384^2 grids, tail blocks 5 (52 -> 26 at 192^2) and 6 (26 -> 13 at 384^2).
+# The Experiment-1 step (README quick start; --fuse_up auto, the default):
+# N = 8 fake 384^2 grids, tail blocks 5 (52 -> 26 at 192^2) and 6 (26 -> 13
+# at 384^2).
 EXP1_N = 8
 EXP1_BATCH = 64
 EXP1_ARGS = ["--data_path", str(ROOT / "datasets" / "241.jpg"), "--random_crop", "192",
              "--G_ch", "52", "--D_ch", "64", "--z_dim", "128", "--n_layers_G", "6",
              "--n_layers_D", "4", "--attention", "--padding_mode", "local", "--type_norm_G", "BN",
              "--spec_norm_D", "--smooth", "--ema", "--compute_dtype", "bfloat16",
-             "--fuse_up", "off", "--batch_size", str(EXP1_BATCH), "--num_images", str(EXP1_N)]
+             "--batch_size", str(EXP1_BATCH), "--num_images", str(EXP1_N)]
 TRAIN_STEPS = 30
 WARM_STEPS = 20  # steps/s is the median over the last WARM_STEPS steps
 TRACED_STEPS = 3
@@ -158,11 +169,24 @@ TRACED_STEPS = 3
 # versions (differentiable PyTorch) that step parity swaps in for them
 PLAIN_TWINS = {"conv3x3_chw": "conv3x3_chw_plain", "conv1x1_chw": "conv1x1_chw_plain",
                "conv1x1_chw_add": "conv1x1_chw_plain", "upsample2_chw": "upsample2_chw_plain",
+               "upconv3x3_chw": "upconv3x3_chw_plain",
+               "upsample2_chw_add": "upsample2_chw_add_plain",
                "conv4x4s2_stem_chw": "stem_fwd_plain"}
-# exact kernel launches of one Experiment-1 step (fuse_up off)
-STEP_LAUNCHES = {"conv3x3_chw": 5, "chw_halo_step": 0, "conv3x3_chw_dx": 5, "conv3x3_chw_dw": 5,
-                 "bn_corr": 4, "conv1x1_chw": 4, "conv1x1_chw_dw": 2, "upsample2_chw": 2,
-                 "upsample2_chw_bwd": 2, "stem_fwd": 2, "stem_dw": 1, "stem_dx": 1}
+# exact kernel launches of one Experiment-1 step under each --fuse_up. Fused
+# (blocks 5 and 6): forward K9, conv2 (K1), the half-res shortcut (K3), K10
+# per block and the final conv (K1); backward K8 at each stats producer,
+# K6/K7 for conv2 and the final conv, K9 dx/dW, the shortcut's dx (K3 with
+# Wᵀ) and dW, K4's adjoint for K10; no K4 forward. The default tail first.
+STEP_LAUNCHES = {
+    "auto": {**dict.fromkeys(KERNELS, 0), "conv3x3_chw": 3, "conv3x3_chw_dx": 3,
+             "conv3x3_chw_dw": 3, "bn_corr": 4, "conv1x1_chw": 4, "conv1x1_chw_dw": 2,
+             "upsample2_chw_bwd": 2, "upconv3x3_chw": 2, "upconv3x3_chw_dx": 2,
+             "upconv3x3_chw_dw": 2, "upsample2_chw_add": 2, "stem_fwd": 2, "stem_dw": 1,
+             "stem_dx": 1},
+    "off": {**dict.fromkeys(KERNELS, 0), "conv3x3_chw": 5, "conv3x3_chw_dx": 5,
+            "conv3x3_chw_dw": 5, "bn_corr": 4, "conv1x1_chw": 4, "conv1x1_chw_dw": 2,
+            "upsample2_chw": 2, "upsample2_chw_bwd": 2, "stem_fwd": 2, "stem_dw": 1, "stem_dx": 1},
+}
 # float32 reductions (Σy, Σy², d(scale), d(shift), dW, db) in another order,
 # partly by atomics: 1e-4 of the largest reference entry
 SUM_TOL = 1e-4
@@ -174,6 +198,14 @@ SUM_TOL = 1e-4
 STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
 NOISE_SHARE = 1e-6
+# fused against unfused step (kernels both, f32): each gradient leaf's
+# norm-relative deviation at most max(FUSE_FLOOR, FUSE_FLOOR_SCALE x) that
+# leaf's kernels-vs-plain deviation under --fuse_up off, the reference's
+# calibrated criterion (tests/test_upconv.py:214-232); a rounding-noise leaf
+# (below NOISE_SHARE of the model's largest gradient) is held as step parity
+# holds it
+FUSE_FLOOR = 2e-3
+FUSE_FLOOR_SCALE = 1.5
 
 
 def fail(msg: str):
@@ -223,10 +255,11 @@ def plain_tail():
             setattr(kernels, k, fn)
 
 
-def step_parity(dev, argv, want_launches, sync) -> None:
+def step_parity(dev, argv, want_launches, sync):
     """One fused step from a fixed state with the kernels, and the same step
     with the tail's and the stem's plain versions: the losses and every
-    gradient leaf must agree; the kernel run must launch ``want_launches``."""
+    gradient leaf must agree; the kernel run must launch ``want_launches``.
+    Returns {'kernels' | 'plain': (losses, G grads, D grads, launches)}."""
     import torch
 
     from infinite_texture_gans_torch.config import prepare_parser
@@ -255,9 +288,9 @@ def step_parity(dev, argv, want_launches, sync) -> None:
                       dict(kernels.LAUNCHES))
         del st
     (lk, gk, dk, nk), (lp, gp, dp, n_plain) = runs["kernels"], runs["plain"]
-    print(f"[step parity] {args.compute_dtype}, G_ch {args.G_ch}, D_ch {args.D_ch}, "
-          f"{args.num_images} fakes + {args.batch_size} real {args.random_crop}^2 crops; "
-          f"launches with kernels {json.dumps(nk)}")
+    print(f"[step parity] --fuse_up {args.fuse_up}, {args.compute_dtype}, G_ch {args.G_ch}, "
+          f"D_ch {args.D_ch}, {args.num_images} fakes + {args.batch_size} real "
+          f"{args.random_crop}^2 crops; launches with kernels {json.dumps(nk)}")
     if nk != want_launches or any(n_plain.values()):
         fail(f"step parity launches: kernels {nk} (want {want_launches}), plain {n_plain} (want 0)")
     for k, ref in lp.items():
@@ -279,6 +312,45 @@ def step_parity(dev, argv, want_launches, sync) -> None:
         print(f"[step parity] {model} gradients, {len(want)} leaves: worst {worst[1]} at "
               f"{worst[0]:.3e} of its largest reference value (limit {STEP_GRAD_TOL:g}; a leaf "
               f"under {NOISE_SHARE:g} of the model's largest gradient is held to that largest)")
+    return runs
+
+
+def fused_vs_unfused(auto, off) -> None:
+    """The fused step (``--fuse_up auto``) against the unfused one, both on
+    the kernels, from the same state, crops and latents (``step_parity``'s
+    runs): losses within STEP_LOSS_TOL; each gradient leaf's norm-relative
+    deviation within max(FUSE_FLOOR, FUSE_FLOOR_SCALE x) the same leaf's
+    kernels-vs-plain deviation under ``off``."""
+    (la, ga, da, _), (lo, go, do, _), (_, gp, dp, _) = auto["kernels"], off["kernels"], off["plain"]
+    for k, ref in lo.items():
+        rel = abs(la[k] - ref) / max(abs(ref), 1e-30)
+        print(f"[fused vs unfused] {k}: auto {la[k]:.7f} off {ref:.7f} rel {rel:.3e} "
+              f"limit {STEP_LOSS_TOL:g}")
+        if not rel <= STEP_LOSS_TOL:
+            fail(f"fused vs unfused step: {k} {la[k]} vs {ref}")
+    for model, fused, unfused, plain in (("G", ga, go, gp), ("D", da, do, dp)):
+        top = max(float(r.abs().max()) for r in unfused.values())
+        worst, noise = (0.0, "", 0.0, 0.0), 0
+        for name, ref in unfused.items():
+            if float(ref.abs().max()) < NOISE_SHARE * top:
+                noise += 1
+                share = float((fused[name] - ref).abs().max()) / top
+                if not share <= STEP_GRAD_TOL:
+                    fail(f"fused vs unfused: noise leaf {name} differs by {share:.3e} of the "
+                         f"largest gradient")
+                continue
+            norm = float(ref.norm()) + 1e-12
+            dev_ = float((fused[name] - ref).norm()) / norm
+            floor = float((ref - plain[name]).norm()) / norm
+            limit = max(FUSE_FLOOR, FUSE_FLOOR_SCALE * floor)
+            worst = max(worst, (dev_ / limit, name, dev_, limit))
+            if not dev_ <= limit:
+                fail(f"fused vs unfused: gradient {name} deviates {dev_:.3e} (norm-relative) "
+                     f"> {limit:.3e} (kernels-vs-plain floor {floor:.3e})")
+        print(f"[fused vs unfused] {model} gradients, {len(unfused)} leaves ({noise} rounding-noise "
+              f"leaves held to {STEP_GRAD_TOL:g} of the largest gradient): closest to its limit "
+              f"{worst[1]}, norm-relative deviation {worst[2]:.3e} against max({FUSE_FLOOR:g}, "
+              f"{FUSE_FLOOR_SCALE:g} x its kernels-vs-plain deviation) = {worst[3]:.3e}")
 
 
 def training_run(dev, argv, steps, want_launches, sync, card, out_dir):
@@ -286,7 +358,8 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir):
     kernel launches of every step held to ``want_launches``, finite losses,
     moved parameters, the warm step time, a traced window's device busy
     share, and the written checkpoint rendered to a 384^2 canvas. Returns the
-    run's launch counts."""
+    run's launch counts, its warm step time (s) and its device busy time per
+    traced step (ms, or None where the profiler recorded no device time)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -345,7 +418,7 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir):
     times = [t for t, _, _ in step_log]
     step_s = [b - a for a, b in zip(times[:-1], times[1:])][-WARM_STEPS:]
     warm = statistics.median(step_s)
-    print(f"[time] train step: median of the last {len(step_s)} steps {warm * 1e3:.2f} ms "
+    print(f"[time] train step (--fuse_up {args.fuse_up}): median of the last {len(step_s)} steps {warm * 1e3:.2f} ms "
           f"({1.0 / warm:.3f} steps/s), min {min(step_s) * 1e3:.2f} ms, max "
           f"{max(step_s) * 1e3:.2f} ms; the whole run with set-up and checkpoints "
           f"{time.perf_counter() - t_train:.1f} s [{card}]")
@@ -365,9 +438,10 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir):
         sync()
         traced_s = time.perf_counter() - t1
     by_name, busy = device_busy_ms(prof)
+    per_step = None
     if busy > 0:
         per_step = busy / TRACED_STEPS
-        print(f"[trace] {TRACED_STEPS} train steps, traced wall {traced_s:.4f} s, device busy "
+        print(f"[trace] --fuse_up {args.fuse_up}: {TRACED_STEPS} train steps, traced wall {traced_s:.4f} s, device busy "
               f"{busy / 1e3:.4f} s ({100 * busy / 1e3 / traced_s:.1f}% of the traced wall); "
               f"{per_step:.2f} ms per step, {100 * per_step / (warm * 1e3):.1f}% of the untraced "
               f"warm step [{card}]")
@@ -388,7 +462,7 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir):
           f"{canvas.shape} {canvas.dtype}, std {canvas.std():.3f}")
     if canvas.shape != (1, 384, 384, 3) or canvas.dtype != np.uint8 or not canvas.std() > 0:
         fail(f"canvas from the trained checkpoint: {canvas.shape} {canvas.dtype} std {canvas.std()}")
-    return launches
+    return launches, warm, per_step
 
 
 def main() -> int:
@@ -484,10 +558,10 @@ def main() -> int:
 
     def table():
         return {k: dict(err=None, sum_err=0.0, ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                        library_ms=0.0, nbytes=0.0, flops=0.0) for k in KERNELS}
+                        library_ms=0.0, nbytes=0.0, flops=0.0, calls=0) for k in KERNELS}
 
-    stats = table()   # per 384^2 sub-image (generation)
-    tstats = table()  # per Experiment-1 training step
+    stats = table()  # per 384^2 sub-image (generation)
+    tstats = {fuse: table() for fuse in STEP_LAUNCHES}  # per Experiment-1 step, each tail
 
     def compare(name, shape, got, ref, exact=False):
         sync()
@@ -529,27 +603,28 @@ def main() -> int:
         left = torch.relu(randn(g, 1, c, h)).to(dtype)
         return x, wt, b, sc, sh, top, left
 
-    def account(name, shape_s, kernel_fn, plain_fn, lib_fn, nbytes, flops, into=None, count=1):
+    def account(name, shape_s, kernel_fn, plain_fn, lib_fn, nbytes, flops, tails=(), count=1):
         """Time the kernel, its plain version and the library call (bf16,
         device time from CUDA-graph replay, per call) and add ``count`` calls
-        to the kernel's sums in ``into`` (per sub-image by default)."""
+        to the kernel's sums: per sub-image without ``tails``, else per step
+        of each training tail named (a shape both tails run goes into both)."""
         ms, plain, lib = device_ms(kernel_fn), device_ms(plain_fn), device_ms(lib_fn)
         eager = eager_ms(kernel_fn)
         b = bound_ms(nbytes, flops)
-        s = (stats if into is None else into)[name]
-        s["ms"] += count * ms
-        s["eager_ms"] += count * eager
-        s["plain_ms"] += count * plain
-        s["library_ms"] += count * lib
-        s["nbytes"] += count * nbytes
-        s["flops"] += count * flops
-        s["bound_ms"] += count * b
+        for s in [tstats[t][name] for t in tails] or [stats[name]]:
+            s["ms"] += count * ms
+            s["eager_ms"] += count * eager
+            s["plain_ms"] += count * plain
+            s["library_ms"] += count * lib
+            s["nbytes"] += count * nbytes
+            s["flops"] += count * flops
+            s["bound_ms"] += count * b
+            s["calls"] += count
         by = "bytes" if nbytes / PEAK_BYTES_PER_S >= flops / PEAK_BF16_FLOP_PER_S else "operations"
+        per = f", x{count} per step under --fuse_up {' and '.join(tails)}" if tails else ""
         print(f"[time] {name} {shape_s}: kernel {ms:.4f} ms (eager call {eager:.4f} ms), "
-              f"bound {b:.4f} ms ({by}), plain {plain:.4f} ms, library {lib:.4f} ms, "
-              f"x{count} per step  [{card}]" if into is not None else
-              f"[time] {name} {shape_s}: kernel {ms:.4f} ms (eager call {eager:.4f} ms), "
-              f"bound {b:.4f} ms ({by}), plain {plain:.4f} ms, library {lib:.4f} ms  [{card}]")
+              f"bound {b:.4f} ms ({by}), plain {plain:.4f} ms, library {lib:.4f} ms{per}  "
+              f"[{card}]")
 
     print(f"[tolerance] f32 (TF32 off): max abs err <= {F32_TOL:g} * max(1, max|ref|): kernel "
           "and cuDNN sum up to 936 products in other orders, and cuDNN may use Winograd "
@@ -685,29 +760,35 @@ def main() -> int:
             flops = 2.0 * act * co * c * 9
             a_pad = F.pad(kernels.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
             wl, bl = wt.to(dtype), b.to(dtype)
+            # a block's conv1 (the stats producer) runs only unfused: under
+            # auto K9 takes its place; conv2 and the final conv run in both
+            tails = ("off",) if with_stats else ("auto", "off")
             account("conv3x3_chw", shape_s,
                     lambda: kernels.conv3x3_chw(x, wt, b, sc, sh, True, want_stats=with_stats),
                     lambda: kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True, want_stats=with_stats),
                     lambda: F.conv2d(a_pad, wl, bl), act * (c + co) * es + pbytes + 2 * c * 4,
-                    flops, into=tstats)
+                    flops, tails=tails)
             account("conv3x3_chw_dx", shape_s,
                     lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                     lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
                     lambda: torch.nn.grad.conv2d_input(x.shape, wl, gy, padding=1),
-                    act * (2 * c + co) * es + pbytes + 4 * c * 4, flops, into=tstats)
+                    act * (2 * c + co) * es + pbytes + 4 * c * 4, flops, tails=tails)
             account("conv3x3_chw_dw", shape_s,
                     lambda: kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
                     lambda: kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
                     lambda: torch.nn.grad.conv2d_weight(a_pad, wl.shape, gy),
-                    act * (c + co) * es + pbytes + 2 * c * 4, flops, into=tstats)
+                    act * (c + co) * es + pbytes + 2 * c * 4, flops, tails=tails)
             if with_stats:
+                # two stats producers per block, each (N, Co, H, W) in both
+                # tails: conv1 (K5 or K9) and the block's output (K3 or K10)
                 ab = alpha.reshape(1, -1, 1, 1).to(dtype)
                 b2b = beta2.reshape(1, -1, 1, 1).to(dtype)
                 account("bn_corr", f"({n}, {co}, {h}x{w})",
                         lambda: kernels.bn_corr(gy, y, alpha, beta2),
                         lambda: kernels.bn_corr_plain(gy, y, alpha, beta2),
                         lambda: torch.addcmul(gy + ab, y, b2b),
-                        3 * act * co * es + 2 * co * 4, 3.0 * act * co, into=tstats, count=2)
+                        3 * act * co * es + 2 * co * 4, 3.0 * act * co, tails=("auto", "off"),
+                        count=2)
         for i, (c, co, h, w) in enumerate(conv1_t):
             g_ = torch.Generator(device=dev).manual_seed(400 + i)
             x = randn(g_, n, c, h, w).to(dtype)
@@ -738,16 +819,16 @@ def main() -> int:
                     lambda: kernels.conv1x1_chw_plain(x, wt, b, res, want_stats=True),
                     lambda: torch.add(F.conv2d(x, wl, bl), res),
                     act * (c + 2 * co) * es + (co * c + 3 * co) * 4, 2.0 * act * co * c,
-                    into=tstats)
+                    tails=("off",))
             account("conv1x1_chw", f"dx form ({n}, {co}->{c}, {h}x{w})",
                     lambda: kernels.conv1x1_chw(gy, wT, zc),
                     lambda: kernels.conv1x1_chw_plain(gy, wT, zc),
                     lambda: F.conv2d(gy, wTl), act * (c + co) * es + (co * c + c) * 4,
-                    2.0 * act * co * c, into=tstats)
+                    2.0 * act * co * c, tails=("off",))
             account("conv1x1_chw_dw", shape_s, lambda: kernels.conv1x1_chw_dw(x, gy),
                     lambda: kernels.conv1x1_chw_dw_plain(x, gy),
                     lambda: torch.nn.grad.conv2d_weight(x, wl.shape, gy),
-                    act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, into=tstats)
+                    act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("off",))
         for i, (c, h, w) in enumerate(up2_t):
             g_ = torch.Generator(device=dev).manual_seed(500 + i)
             x = randn(g_, n, c, h, w).to(dtype)
@@ -762,12 +843,12 @@ def main() -> int:
             account("upsample2_chw", shape_s, lambda: kernels.upsample2_chw(x),
                     lambda: kernels.upsample2_chw_plain(x),
                     lambda: F.interpolate(x, scale_factor=2, mode="nearest"),
-                    5.0 * n * c * h * w * es, 0.0, into=tstats)
+                    5.0 * n * c * h * w * es, 0.0, tails=("off",))
             account("upsample2_chw_bwd", f"({n}, {c}, {2 * h}, {2 * w})",
                     lambda: kernels.upsample2_chw_bwd(gy),
                     lambda: kernels.upsample2_chw_bwd_plain(gy),
                     lambda: F.avg_pool2d(gy, 2, divisor_override=1),
-                    5.0 * n * c * h * w * es, 3.0 * n * c * h * w, into=tstats)
+                    5.0 * n * c * h * w * es, 3.0 * n * c * h * w, tails=("off",))
         hs = conv3_t[-1][2]
         co = 64
         g_ = torch.Generator(device=dev).manual_seed(600)
@@ -791,16 +872,138 @@ def main() -> int:
             account("stem_fwd", shape_s, lambda: kernels.stem_fwd(x, wt, b),
                     lambda: kernels.stem_fwd_plain(x, wt, b),
                     lambda: F.conv2d(x, wl, bl, stride=2, padding=1), nbytes, flops,
-                    into=tstats, count=2)
+                    tails=("auto", "off"), count=2)
             account("stem_dw", shape_s, lambda: kernels.stem_dw(x, gy),
                     lambda: kernels.stem_dw_plain(x, gy),
                     lambda: torch.nn.grad.conv2d_weight(x, wl.shape, g_nchw, stride=2, padding=1),
-                    nbytes, flops, into=tstats)
+                    nbytes, flops, tails=("auto", "off"))
             account("stem_dx", shape_s, lambda: kernels.stem_dx(gy, wt),
                     lambda: kernels.stem_dx_plain(gy, wt),
                     lambda: torch.nn.grad.conv2d_input(x.shape, wl, g_nchw, stride=2, padding=1),
-                    nbytes, flops, into=tstats)
-    print(f"[phase 3] training-kernel checks and timings in {time.perf_counter() - t0:.1f} s")
+                    nbytes, flops, tails=("auto", "off"))
+    # The fused blocks under --fuse_up auto: the unfused conv1 entries at half
+    # resolution. K9 and K10, and the kernels that run there at shapes of
+    # their own: the half-res shortcut (K3 with no residual and no stats),
+    # its dx form and dW, and K4's adjoint of K10's (N, Co, 2H, 2W) gradient.
+    print("[tolerance] upconv3x3_chw (K9) against its plain version, the unfused pair "
+          "upsample2 + conv3x3: the combined 2x2 kernels regroup float32 additions (~1e-6 "
+          "relative), inside the f32/bf16 limits above; K9's sums as K5's; upsample2_chw_add "
+          "(K10) bit-equal (one rounded add on both sides), its sums as K5's")
+    for dtype in (torch.float32, torch.bfloat16):
+        timed = dtype == torch.bfloat16
+        es = 2 if timed else 4
+        for i, (c, co, h, w) in enumerate((c, co, h // 2, w // 2) for c, co, h, w in conv1_t):
+            g_ = torch.Generator(device=dev).manual_seed(700 + i)
+            x = randn(g_, n, c, h, w).to(dtype)
+            wt = randn(g_, co, c, 3, 3) * (9 * c) ** -0.5
+            b = 0.1 * randn(g_, co)
+            sc = 1 + 0.1 * randn(g_, c)
+            sh = 0.1 * randn(g_, c)
+            gy = randn(g_, n, co, 2 * h, 2 * w).to(dtype)
+            s_half = randn(g_, n, co, h, w).to(dtype)
+            res = randn(g_, n, co, 2 * h, 2 * w).to(dtype)
+            w3 = randn(g_, co, c, 1, 1) * c ** -0.5
+            b3 = 0.1 * randn(g_, co)
+            w3T = w3.reshape(co, c).t().contiguous()
+            zc = torch.zeros(c, device=dev)
+            shape_s = f"({n}, {c}->{co}, {h}x{w} -> {2 * h}x{2 * w})"
+            half_s = f"({n}, {c}->{co}, {h}x{w})"
+            half_t = f"({n}, {co}->{c}, {h}x{w})"
+            up_s = f"({n}, {co}, {2 * h}, {2 * w})"
+            compare("conv1x1_chw", f"train auto shortcut {half_s}", kernels.conv1x1_chw(x, w3, b3),
+                    kernels.conv1x1_chw_plain(x, w3, b3))
+            compare("conv1x1_chw", f"train auto dx form {half_t}",
+                    kernels.conv1x1_chw(s_half, w3T, zc), kernels.conv1x1_chw_plain(s_half, w3T, zc))
+            dw, db = kernels.conv1x1_chw_dw(x, s_half)
+            dw_r, db_r = kernels.conv1x1_chw_dw_plain(x, s_half)
+            compare_sum("conv1x1_chw_dw", f"dW train auto {half_s}", dw, dw_r)
+            compare_sum("conv1x1_chw_dw", f"db train auto {half_s}", db, db_r)
+            compare("upsample2_chw_bwd", f"train auto {up_s}", kernels.upsample2_chw_bwd(gy),
+                    kernels.upsample2_chw_bwd_plain(gy), exact=True)
+            for outer in ("replicate", "constant"):
+                tag = f"{shape_s} {outer}"
+                y_ref = kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, outer)
+                compare("upconv3x3_chw", f"train {tag}",
+                        kernels.upconv3x3_chw(x, wt, b, sc, sh, True, outer), y_ref)
+                y, s1, s2 = kernels.upconv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+                compare("upconv3x3_chw", f"train {tag} +stats", y, y_ref)
+                compare_sum("upconv3x3_chw", f"Σy {tag}", s1, y.float().sum(dim=(0, 2, 3)))
+                compare_sum("upconv3x3_chw", f"Σy² {tag}", s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
+                del y_ref, y
+                dx, dsc, dsh = kernels.upconv3x3_chw_dx(x, gy, wt, sc, sh, True, outer)
+                dx_r, dsc_r, dsh_r = kernels.upconv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, outer)
+                compare("upconv3x3_chw_dx", tag, dx, dx_r)
+                compare_sum("upconv3x3_chw_dx", f"d(scale) {tag}", dsc, dsc_r)
+                compare_sum("upconv3x3_chw_dx", f"d(shift) {tag}", dsh, dsh_r)
+                dw, db = kernels.upconv3x3_chw_dw(x, gy, sc, sh, True, outer)
+                dw_r, db_r = kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, True, outer)
+                compare_sum("upconv3x3_chw_dw", f"dW {tag}", dw, dw_r)
+                compare_sum("upconv3x3_chw_dw", f"db {tag}", db, db_r)
+            k10_s = f"({n}, {co}, {h}x{w}) + ({n}, {co}, {2 * h}x{2 * w})"
+            y_ref = kernels.upsample2_chw_add_plain(s_half, res)
+            compare("upsample2_chw_add", k10_s, kernels.upsample2_chw_add(s_half, res), y_ref,
+                    exact=True)
+            y, s1, s2 = kernels.upsample2_chw_add(s_half, res, want_stats=True)
+            compare("upsample2_chw_add", f"{k10_s} +stats", y, y_ref, exact=True)
+            compare_sum("upsample2_chw_add", f"Σy {k10_s}", s1, y.float().sum(dim=(0, 2, 3)))
+            compare_sum("upsample2_chw_add", f"Σy² {k10_s}", s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
+            del y_ref, y
+            if not timed:
+                continue
+            act = n * h * w  # half-res pixels
+            wbytes = (co * c * 9 + co + 2 * c) * 4
+            flops = 2.0 * act * co * c * 16  # four phases of 2x2 taps
+            a_half = kernels.prenorm(x, sc, sh, True)
+            a_up = F.pad(kernels.upsample2_chw_plain(a_half), (1, 1, 1, 1), mode="replicate")
+            wl, bl = wt.to(dtype), b.to(dtype)
+            wt4 = kernels._upconv_dx_weights(wt).transpose(0, 1).contiguous().to(dtype)
+            account("upconv3x3_chw", f"{shape_s} +stats",
+                    lambda: kernels.upconv3x3_chw(x, wt, b, sc, sh, True, want_stats=True),
+                    lambda: kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, want_stats=True),
+                    lambda: F.conv2d(F.interpolate(a_half, scale_factor=2, mode="nearest"), wl, bl,
+                                     padding=1),
+                    act * (c + 4 * co) * es + wbytes + 2 * co * 4, flops, tails=("auto",))
+            account("upconv3x3_chw_dx", shape_s,
+                    lambda: kernels.upconv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
+                    lambda: kernels.upconv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
+                    lambda: F.conv2d(gy, wt4, stride=2, padding=1),
+                    act * (2 * c + 4 * co) * es + wbytes + 2 * c * 4, flops, tails=("auto",))
+            account("upconv3x3_chw_dw", shape_s,
+                    lambda: kernels.upconv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
+                    lambda: kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
+                    lambda: torch.nn.grad.conv2d_weight(a_up, wl.shape, gy),
+                    act * (c + 4 * co) * es + wbytes, flops, tails=("auto",))
+            account("upsample2_chw_add", f"{k10_s} +stats",
+                    lambda: kernels.upsample2_chw_add(s_half, res, want_stats=True),
+                    lambda: kernels.upsample2_chw_add_plain(s_half, res, want_stats=True),
+                    lambda: torch.add(F.interpolate(s_half, scale_factor=2, mode="nearest"), res),
+                    9 * act * co * es + 2 * co * 4, 3.0 * 4 * act * co, tails=("auto",))
+            w3l, b3l, w3Tl = w3.to(dtype), b3.to(dtype), w3T.reshape(c, co, 1, 1).to(dtype)
+            account("conv1x1_chw", f"shortcut {half_s}", lambda: kernels.conv1x1_chw(x, w3, b3),
+                    lambda: kernels.conv1x1_chw_plain(x, w3, b3), lambda: F.conv2d(x, w3l, b3l),
+                    act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("auto",))
+            account("conv1x1_chw", f"dx form {half_t}", lambda: kernels.conv1x1_chw(s_half, w3T, zc),
+                    lambda: kernels.conv1x1_chw_plain(s_half, w3T, zc),
+                    lambda: F.conv2d(s_half, w3Tl), act * (c + co) * es + (co * c + c) * 4,
+                    2.0 * act * co * c, tails=("auto",))
+            account("conv1x1_chw_dw", half_s, lambda: kernels.conv1x1_chw_dw(x, s_half),
+                    lambda: kernels.conv1x1_chw_dw_plain(x, s_half),
+                    lambda: torch.nn.grad.conv2d_weight(x, w3l.shape, s_half),
+                    act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("auto",))
+            account("upsample2_chw_bwd", up_s, lambda: kernels.upsample2_chw_bwd(gy),
+                    lambda: kernels.upsample2_chw_bwd_plain(gy),
+                    lambda: F.avg_pool2d(gy, 2, divisor_override=1), 5.0 * act * co * es,
+                    3.0 * act * co, tails=("auto",))
+    print("[library] K9 forward: F.interpolate then F.conv2d (two calls, zero padding); K9 dx: "
+          "F.conv2d of g with the 4x4 phase-combined kernels at stride 2 (no border folds, no "
+          "ReLU mask); K9 dW: conv2d_weight on the materialised padded upsample; K10: "
+          "F.interpolate then add (two calls, no stats)")
+    for fuse, want in STEP_LAUNCHES.items():
+        timed_calls = {k: s["calls"] for k, s in tstats[fuse].items()}
+        if timed_calls != want:
+            fail(f"phase 3 timed {timed_calls} calls per --fuse_up {fuse} step, not {want}")
+    print(f"[phase 3] training-kernel checks and timings in {time.perf_counter() - t0:.1f} s; "
+          "the timed calls per step match each tail's launch counts")
 
     # -- 4. the flagship checkpoint through the port ------------------------
     t0 = time.perf_counter()
@@ -950,33 +1153,43 @@ def main() -> int:
 
     # -- 5. step parity: kernels against plain versions, full width, f32 ------
     t0 = time.perf_counter()
-    step_parity(dev, EXP1_ARGS + ["--compute_dtype", "float32"], STEP_LAUNCHES, sync)
+    parity = {fuse: step_parity(dev, EXP1_ARGS + ["--compute_dtype", "float32", "--fuse_up", fuse],
+                                STEP_LAUNCHES[fuse], sync)
+              for fuse in ("auto", "off")}
+    fused_vs_unfused(parity["auto"], parity["off"])
+    del parity
     print(f"[phase 5] step parity in {time.perf_counter() - t0:.1f} s")
 
-    # -- 6. training run: the train CLI's loop, bf16 ---------------------------
+    # -- 6. training runs: the train CLI's loop, bf16 --------------------------
     t0 = time.perf_counter()
-    train_launches = training_run(dev, EXP1_ARGS, TRAIN_STEPS, STEP_LAUNCHES, sync, card,
-                                  ROOT / "build" / "smoke_train")
-    print(f"[phase 6] training run in {time.perf_counter() - t0:.1f} s")
+    runs = {fuse: training_run(dev, EXP1_ARGS + ["--fuse_up", fuse], TRAIN_STEPS,
+                               STEP_LAUNCHES[fuse], sync, card, ROOT / "build" / f"smoke_train_{fuse}")
+            for fuse in ("auto", "off")}
+    for fuse, (_, warm, busy) in runs.items():
+        share = f"{busy:.2f} ms, {100 * busy / (warm * 1e3):.1f}%" if busy else "not measured"
+        print(f"[train] --fuse_up {fuse}: warm step {warm * 1e3:.2f} ms ({1.0 / warm:.3f} "
+              f"steps/s), device busy per traced step {share} [{card}]")
+    print(f"[phase 6] training runs in {time.perf_counter() - t0:.1f} s")
 
     # -- 7. report ------------------------------------------------------------
     launches = {"conv3x3_chw": one_pass_launches["conv3x3_chw"]}
     for k in ("chw_halo_step", "conv1x1_chw", "upsample2_chw"):
         launches[k] = raster_launches[k]
     rows = []
-    for path, names, table_, counts, per in (
-            ("generation", GEN_KERNELS, stats, launches, "per 384^2 sub-image"),
-            ("train", TRAIN_KERNELS, tstats, train_launches, "per Experiment-1 step")):
+    paths = [("generation", "", GEN_KERNELS, stats, launches, "per 384^2 sub-image")]
+    paths += [(f"train --fuse_up {fuse}", f":train_{fuse}", [k for k, v in want.items() if v],
+               tstats[fuse], runs[fuse][0], "per Experiment-1 step")
+              for fuse, want in STEP_LAUNCHES.items()]
+    for path, suffix, names, table_, counts, per in paths:
         for name in names:
             tag, src, line = KERNELS[name]
             s = table_[name]
             dom = "bytes" if s["nbytes"] / PEAK_BYTES_PER_S >= s["flops"] / PEAK_BF16_FLOP_PER_S else "operations"
-            shared = path == "train" and name in GEN_KERNELS
             # the largest error over the kernel's value checks (its reductions'
             # where it has no value output: K7, K3-dW, stem dW)
             err, sum_err = stats[name]["err"], stats[name]["sum_err"]
             rows.append({
-                "name": f"{name}:train" if shared else name, "path": path, "route": "cuda",
+                "name": name + suffix, "path": path, "route": "cuda",
                 "source": f"infinite_texture_gans_torch/csrc/{src}",
                 "replaces": f"infinite_texture_gans_tpu/ops/pallas_conv.py:{line}",
                 "launches": counts[name], "max_abs_err": err if err is not None else sum_err,

@@ -8,9 +8,10 @@ convolutions and the hand-written CUDA kernels of ``csrc/``), ``models/``,
 
 This package ports the generation path (a trained checkpoint is loaded,
 rebuilt as an eval-mode generator and run through the halo-cache raster
-engine) and the Experiment-1 training step with ``--fuse_up off``
-(``train/train_loop.py``, which writes checkpoints in the reference's
-format). Entry points run on ``cuda`` unless the caller passes
+engine) and the Experiment-1 training step (``train/train_loop.py``, which
+writes checkpoints in the reference's format), whose train CLI defaults to
+the reference's ``--fuse_up auto`` (the subpixel-fused up-conv tail) and
+also takes ``off``. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper takes its plain PyTorch
 version.
 """

@@ -4,9 +4,9 @@ Port of ``prepare_parser``, ``dict_to_args``, ``generator_kwargs`` and
 ``discriminator_kwargs`` from ``infinite_texture_gans_tpu/config.py``. A
 checkpoint stores the training flags (``meta.args``); flags it lacks take
 the defaults below, which are the reference parser's defaults for the same
-flags. The training parser keeps the reference's flag names; its
-``--fuse_up`` defaults to 'off' (the subpixel-fused up-conv kernels are
-not ported yet) and ``--device`` to 'cuda'.
+flags. The training parser keeps the reference's flag names and defaults
+(``--fuse_up auto`` trains the subpixel-fused up-conv tail) and adds
+``--device`` ('cuda' by default).
 """
 
 from __future__ import annotations
@@ -34,16 +34,9 @@ GENERATOR_DEFAULTS: Dict[str, Any] = {
     "fuse_up": "auto",
 }
 
-FUSE_UP_MISSING = (
-    "--fuse_up auto trains the subpixel-fused up-conv, whose kernels (K9: "
-    "pallas_conv.py _upconv3x3_fwd/_dx/_dw; K10: upsample2_chw_add_p) are not "
-    "ported yet; train with --fuse_up off"
-)
-
-
 def prepare_parser() -> argparse.ArgumentParser:
-    """The training flags (the reference's names and defaults, except
-    ``--fuse_up`` and the port's ``--device``). Flags of the reference that
+    """The training flags (the reference's names and defaults, and the
+    port's ``--device``). Flags of the reference that
     the port does not act on yet are refused by :func:`check_train_args`."""
     p = argparse.ArgumentParser(description="Train the texture GAN (PyTorch port).")
     a = p.add_argument
@@ -93,17 +86,15 @@ def prepare_parser() -> argparse.ArgumentParser:
     a("--outer_padding", type=str, default="replicate", help="replicate or constant (zeros)")
     a("--fname", type=str, default="models_cp", help="folder to save checkpoints")
     a("--compute_dtype", type=str, default="float32", help="float32 or bfloat16")
-    a("--fuse_up", type=str, default="off", choices=["auto", "off"],
-      help="subpixel-fused upsample+conv in the tail blocks. Default 'off': the "
-           "fused kernels (K9, K10) are not ported yet, and 'auto' raises")
+    a("--fuse_up", type=str, default="auto", choices=["auto", "off"],
+      help="subpixel-fused upsample+conv in the tail blocks while training: "
+           "'auto' fuses (K9, K10), 'off' upsamples first")
     a("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
 
 
 def check_train_args(args: argparse.Namespace) -> None:
     """Refuse the training options the port does not implement yet."""
-    if args.fuse_up != "off":
-        raise NotImplementedError(FUSE_UP_MISSING)
     unported = {
         "data": ("single_image",), "D_model": ("patch_GAN",), "loss": ("standard", "hinge"),
         "disc_iters": (1,), "padding_mode": ("local",), "type_norm_G": ("BN",),
@@ -123,18 +114,18 @@ def _dtype(args) -> torch.dtype:
     return torch.bfloat16 if getattr(args, "compute_dtype", "float32") == "bfloat16" else torch.float32
 
 
-def generator_kwargs(args: argparse.Namespace, train: bool = False) -> Dict[str, Any]:
+def generator_kwargs(args: argparse.Namespace) -> Dict[str, Any]:
     """Constructor kwargs for ResidualPatchGenerator from a config namespace.
 
     The stored ``chw_tail`` is the reference's TPU placement flag and is not
-    read: the port's generator picks its tail itself. At eval ``fuse_up``
-    'auto' and 'off' are the same; 'all' (the fused eval up-conv) is not
-    ported yet and is refused. In training (``train``) only 'off' is
-    ported."""
-    if args.fuse_up == "all":
-        raise NotImplementedError("fuse_up='all' is not ported yet; use 'auto'")
-    if train and args.fuse_up != "off":
-        raise NotImplementedError(FUSE_UP_MISSING)
+    read: the port's generator picks its tail itself. ``fuse_up`` 'auto' or
+    'off' selects the training tail (at eval both run unfused); 'all' (the
+    fused eval up-conv, K14 ``chw_upconv_halo_step``) is not ported yet and
+    is refused."""
+    if args.fuse_up not in ("auto", "off"):
+        raise NotImplementedError(
+            f"fuse_up={args.fuse_up!r}: the fused eval up-conv (K14 chw_upconv_halo_step) "
+            "is not ported yet; use 'auto' or 'off'")
     return dict(
         z_dim=args.z_dim,
         G_ch=args.G_ch,
@@ -150,6 +141,7 @@ def generator_kwargs(args: argparse.Namespace, train: bool = False) -> Dict[str,
         num_patches_h=args.num_patches_height,
         num_patches_w=args.num_patches_width,
         dtype=_dtype(args),
+        fuse_up=args.fuse_up,
     )
 
 

@@ -8,12 +8,14 @@ the first block that passes the channels-major gate on, the tail runs on
 (N, C, H, W) through the CUDA kernels of ``ops/kernels.py``.
 
 In train mode (``.train()``) the forward is the reference's ``train=True``
-path with ``fuse_up='off'`` (:189-397): batch statistics and running-stat
-updates, the tail's BatchNorm moments threaded from kernel to kernel, and
-with ``out_chw`` the image stays channels-major for the discriminator's
-stem. Not ported yet (raise): zeros padding mode, SSM norm, spectral norm,
-the subpixel-fused up-conv (``fuse_up`` 'auto'/'all' in training, refused
-by ``config.py``).
+path (:189-397): batch statistics and running-stat updates, the tail's
+BatchNorm moments threaded from kernel to kernel, and with ``out_chw`` the
+image stays channels-major for the discriminator's stem. Under
+``fuse_up='auto'`` (the default, as in the reference) every channels-major
+block but block 1 takes its input at half resolution and runs the
+subpixel-fused up-conv (K9, K10); ``'off'`` upsamples first. At eval both
+run the unfused tail. Not ported yet (raise): zeros padding mode, SSM norm,
+spectral norm, ``fuse_up='all'`` (the fused eval up-conv).
 """
 
 from __future__ import annotations
@@ -71,7 +73,9 @@ class ResidualPatchGenerator(nn.Module):
     boundaries are the reference's TPU-measured gates, a starting point to
     re-measure on the GPU); 'off' keeps every block NHWC, for comparison with
     the reference's XLA path on the CPU only: on a CUDA tensor the tail runs
-    the kernels.
+    the kernels. ``fuse_up``: 'auto' fuses every channels-major training
+    block but block 1 with the upsample before it (K9, K10), 'off' does not;
+    eval never fuses.
 
     ``forward(z, halo=None, pos=None, grid=None, out_chw=False)``: z merged
     (N, gh*base_res+2, gw*base_res+2, z_dim) in local mode; returns (merged
@@ -84,7 +88,8 @@ class ResidualPatchGenerator(nn.Module):
                  leak: float = 0.0, SN: bool = False, type_norm: str = "BN",
                  padding_mode: str = "local", outer_padding: str = "replicate",
                  num_patches_h: int = 3, num_patches_w: int = 3,
-                 dtype: torch.dtype = torch.float32, chw_tail: str = "auto"):
+                 dtype: torch.dtype = torch.float32, chw_tail: str = "auto",
+                 fuse_up: str = "auto"):
         super().__init__()
         if type_norm != "BN":
             raise NotImplementedError(f"type_norm={type_norm!r}: only 'BN' is ported yet")
@@ -92,6 +97,8 @@ class ResidualPatchGenerator(nn.Module):
             raise NotImplementedError("spectral norm is not ported yet; rebuild with SN=False")
         if chw_tail not in ("auto", "off"):
             raise ValueError(f"chw_tail must be 'auto' or 'off', got {chw_tail!r}")
+        if fuse_up not in ("auto", "off"):
+            raise ValueError(f"fuse_up must be 'auto' or 'off', got {fuse_up!r}")
         if padding_mode != "local":
             raise NotImplementedError(f"padding_mode={padding_mode!r}: only 'local' is ported yet")
         if dtype not in (torch.float32, torch.bfloat16):
@@ -100,7 +107,7 @@ class ResidualPatchGenerator(nn.Module):
         self.n_layers_G, self.img_ch, self.leak = n_layers_G, img_ch, leak
         self.outer_padding = outer_padding
         self.num_patches_h, self.num_patches_w = num_patches_h, num_patches_w
-        self.dtype, self.chw_tail = dtype, chw_tail
+        self.dtype, self.chw_tail, self.fuse_up = dtype, chw_tail, fuse_up
 
         self.start = ConvLP(z_dim, G_ch * 8, outer_padding, pre_padded=True)
         self.plan = generator_channel_plan(G_ch, n_layers_G)
@@ -179,7 +186,9 @@ class ResidualPatchGenerator(nn.Module):
         return out, (halo_out if halo is not None else None)
 
     def _forward_train(self, z: torch.Tensor, grid: tuple[int, int], out_chw: bool):
-        """The reference's ``train=True`` forward with the unfused tail."""
+        """The reference's ``train=True`` forward. A channels-major block
+        ``i > 1`` fuses with its upsample unless ``fuse_up`` is 'off' (the
+        reference's ``fuse``, :276-289, with stats and no halo)."""
         act = activation_fn(self.leak)
         h, _ = self.start(z.to(self.dtype), grid=grid)
         is_chw = False
@@ -193,10 +202,11 @@ class ResidualPatchGenerator(nn.Module):
                          h.shape[0] * h.shape[1] * h.shape[2])
                 h = h.permute(0, 3, 1, 2).contiguous()
                 is_chw = True
-            if i > 1:
+            fuse = is_chw and i > 1 and self.fuse_up != "off"
+            if i > 1 and not fuse:
                 h = kernels.upsample2_chw(h) if is_chw else upsample_nearest(h, 2)
             h, out_stats = getattr(self, f"block{i}").forward_train(
-                h, grid=grid, chw=is_chw, in_stats=stats if is_chw else None)
+                h, grid=grid, chw=is_chw, in_stats=stats if is_chw else None, fuse_up=fuse)
             stats = out_stats if is_chw else None
             if i == 3 and self.attention is not None:
                 h = self.attention(h, grid)

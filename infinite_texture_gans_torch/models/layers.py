@@ -3,7 +3,8 @@
 Port of ``infinite_texture_gans_tpu/models/layers.py`` for the BN
 generator, eval and train: ``activation_fn``, ``BNFold`` (which also serves
 as the NHWC ``nn.BatchNorm``), ``ConvLP``, ``Attention``,
-``PatchAttention`` and ``ResBlockGenerator`` (BN branch, unfused). Submodule
+``PatchAttention`` and ``ResBlockGenerator`` (BN branch; in training also
+the subpixel-fused up-conv branch of ``--fuse_up auto``). Submodule
 and parameter names follow the reference's flax paths
 (``conv1.conv.weight``, ``bn1.scale``, ``bn1.mean`` ...), so
 ``weights.from_jax_variables`` maps a flax tree onto them leaf by leaf.
@@ -218,24 +219,35 @@ class ResBlockGenerator(nn.Module):
         return out + sc, halo1, halo2
 
     def forward_train(self, x: torch.Tensor, *, grid: tuple[int, int] = (3, 3),
-                      chw: bool = False, in_stats: Optional[Stats] = None):
+                      chw: bool = False, in_stats: Optional[Stats] = None,
+                      fuse_up: bool = False):
         """Train-mode block (batch statistics, running-stat updates).
         Returns (y, stats of y or None).
 
         Channels-major (the reference's unfused tail branch, :637-673): bn1
         folds from ``in_stats``, conv1 (K5) also returns the sums bn2 folds
         from, and the shortcut conv + residual add (K3) returns the block
-        output's sums for the next BatchNorm. NHWC (:683-719): flax-style
-        train-mode BatchNorms and XLA-style convs; no stats."""
+        output's sums for the next BatchNorm. With ``fuse_up`` (the fused
+        branch, :586-636) ``x`` arrives at half resolution: upsample -> bn1
+        -> ReLU -> conv1 run as one K9 launch, the 1x1 shortcut runs at half
+        resolution (it commutes with the upsample) and K10 joins its
+        upsample with the residual. NHWC (:683-719): flax-style train-mode
+        BatchNorms and XLA-style convs; no stats."""
         if chw:
             n = x.shape[0]
             outer = self.conv1.outer_padding
             sc1, sh1 = self.bn1.train_fold(x, in_stats)
             w1, b1 = self.conv1.conv.weight, self.conv1.conv.bias
-            out, s1, s2 = kernels.conv3x3_chw(x, w1, b1, sc1, sh1, True, outer, want_stats=True)
+            conv1 = kernels.upconv3x3_chw if fuse_up else kernels.conv3x3_chw
+            out, s1, s2 = conv1(x, w1, b1, sc1, sh1, True, outer, want_stats=True)
             sc2, sh2 = self.bn2.train_fold(out, (s1, s2, n * out.shape[2] * out.shape[3]))
             w2, b2 = self.conv2.conv.weight, self.conv2.conv.bias
             out = kernels.conv3x3_chw(out, w2, b2, sc2, sh2, True, outer)
+            if fuse_up:
+                s_half = x if self.conv3 is None else kernels.conv1x1_chw(
+                    x, self.conv3.weight, self.conv3.bias)
+                y, s1, s2 = kernels.upsample2_chw_add(s_half, out, want_stats=True)
+                return y, (s1, s2, n * y.shape[2] * y.shape[3])
             if self.conv3 is None:
                 return out + x, None
             y, s1, s2 = kernels.conv1x1_chw_add(x, self.conv3.weight, self.conv3.bias, out,

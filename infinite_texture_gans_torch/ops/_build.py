@@ -52,6 +52,14 @@ SIGNATURES = {
     "itg_upsample2_chw": [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
     # g, dx, planes, h, w (of dx), bf16, stream
     "itg_upsample2_chw_bwd": [_P, _P] + [_I] * 4 + [_P],
+    # x, res, y, s1, s2, planes, c, h, w (of x), bf16, stream
+    "itg_upsample2_chw_add": [_P] * 5 + [_I] * 5 + [_P],
+    # x, wc, b, scale, shift, y, s1, s2, n, c, h, w (of x), co, relu, zeros, bf16, stream
+    "itg_upconv3x3_chw": [_P] * 8 + [_I] * 8 + [_P],
+    # x, g, wt, scale, shift, dx, dscale, dshift, n, c, h, w (of x), co, relu, zeros, bf16, stream
+    "itg_upconv3x3_chw_dx": [_P] * 8 + [_I] * 8 + [_P],
+    # x, g, scale, shift, dwc, db, n, c, h, w (of x), co, relu, zeros, bf16, stream
+    "itg_upconv3x3_chw_dw": [_P] * 6 + [_I] * 8 + [_P],
     # x, w, b, y, n, c, h, w, co, bf16, stream
     "itg_stem_fwd": [_P] * 4 + [_I] * 6 + [_P],
     # x, g, dw, db, n, c, h, w, co, bf16, stream

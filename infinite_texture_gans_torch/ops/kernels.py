@@ -2,8 +2,8 @@
 
 Counterpart of ``infinite_texture_gans_tpu/ops/pallas_conv.py``. Every
 function of the reference that reaches a Pallas kernel on the generation
-path or on the Experiment-1 training step (``--fuse_up off``) has a
-hand-written CUDA kernel in ``csrc/``:
+path or on the Experiment-1 training step (``--fuse_up auto`` and ``off``)
+has a hand-written CUDA kernel in ``csrc/``:
 
 - K1/K5 ``conv3x3_chw`` (forward, with the optional per-channel Σy, Σy²
   of ``conv3x3_chw_stats`` / ``conv3x3_chw_p``): replaces pallas_conv.py:395
@@ -20,13 +20,20 @@ hand-written CUDA kernel in ``csrc/``:
   :2361 ``_conv1x1_chw_dw`` (csrc/conv1x1_chw.cu);
 - K4 ``upsample2_chw``: pallas_conv.py:2540 ``_up2_fwd_call``; its adjoint
   ``upsample2_chw_bwd``: :2560 ``_up2_bwd_call`` (csrc/upsample2_chw.cu);
+- K9 ``upconv3x3_chw``, the subpixel-fused upsample -> BN fold -> ReLU ->
+  3x3 conv of ``upconv3x3_chw_p`` (optionally with stats): forward :1457
+  ``_upconv3x3_fwd``, ``upconv3x3_chw_dx`` :1642 ``_upconv3x3_dx``,
+  ``upconv3x3_chw_dw`` :1777 ``_upconv3x3_dw`` (csrc/upconv3x3_chw.cu);
+- K10 ``upsample2_chw_add``: :2199 ``upsample2_chw_add_p``, the fused
+  block's up2(shortcut) + residual (+ stats) (csrc/upsample2_chw.cu);
 - K13 ``conv4x4s2_stem_chw``: the discriminator's conv0, forward
   ``stem_fwd`` :2769 ``_stem_fwd_call``, ``stem_dw`` :2840 ``_stem_dw_call``,
   ``stem_dx`` :2977 ``_stem_dx_call`` (csrc/stem4x4s2.cu).
 
 The port carries no lane padding, so the reference's padded-carry forms
-(K11 ``conv1x1_chw_add_p``, K12 ``upsample2_chw_p``, ``conv3x3_chw_p``) are
-the plain forms at ``w_true == width``.
+(K11 ``conv1x1_chw_add_p``, ``conv1x1_chw_p``, K12 ``upsample2_chw_p``,
+``conv3x3_chw_p``) are the plain forms at ``w_true == width``, and K9/K10
+take unpadded widths.
 
 Activations are channels-major (N, C, H, W), float32 or bfloat16; the
 kernels compute in float32 and store in the activation type. Weights are
@@ -34,8 +41,9 @@ OIHW float32. Every wrapper checks device, dtype, shape and contiguity. For
 a CPU tensor it runs the plain PyTorch version beside it; for a CUDA tensor
 it launches its kernel on the current stream, raises if the launch reports
 an error, and adds one to its entry in :data:`LAUNCHES`. The differentiable
-functions (``conv3x3_chw``, ``conv1x1_chw(_add)``, ``upsample2_chw``,
-``conv4x4s2_stem_chw``) are ``torch.autograd.Function``s whose backward
+functions (``conv3x3_chw``, ``upconv3x3_chw``, ``conv1x1_chw(_add)``,
+``upsample2_chw``, ``upsample2_chw_add``, ``conv4x4s2_stem_chw``) are
+``torch.autograd.Function``s whose backward
 calls the backward wrappers, skipping the inputs autograd does not need.
 """
 
@@ -59,6 +67,10 @@ LAUNCHES = {
     "conv1x1_chw_dw": 0,
     "upsample2_chw": 0,
     "upsample2_chw_bwd": 0,
+    "upconv3x3_chw": 0,
+    "upconv3x3_chw_dx": 0,
+    "upconv3x3_chw_dw": 0,
+    "upsample2_chw_add": 0,
     "stem_fwd": 0,
     "stem_dw": 0,
     "stem_dx": 0,
@@ -164,6 +176,17 @@ def _stats_plain(y: torch.Tensor):
     return yf.sum(dim=(0, 2, 3)), (yf * yf).sum(dim=(0, 2, 3))
 
 
+def _with_stats_ct(g: torch.Tensor, y: torch.Tensor, gs1, gs2) -> torch.Tensor:
+    """The cotangent ``g`` of a producer's output ``y`` with the cotangents
+    of its stats (Σy, Σy²) folded in by K8 where there are any."""
+    if gs1 is None and gs2 is None:
+        return g.contiguous()
+    co = g.shape[1]
+    alpha = gs1 if gs1 is not None else _zeros_f32(co, g)
+    beta2 = 2.0 * gs2 if gs2 is not None else _zeros_f32(co, g)
+    return bn_corr(g.contiguous(), y, alpha, beta2)
+
+
 # ---------------------------------------------------------------------------
 # K1 / K2 / K5: BN fold -> ReLU -> border -> 3x3 conv (+ stats)
 # (csrc/conv3x3_chw.cu)
@@ -224,14 +247,9 @@ class _Conv3x3Chw(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, gs1=None, gs2=None):
         x, w, scale, shift, y = ctx.saved_tensors
-        if g is None:
-            g = torch.zeros((x.shape[0], w.shape[0]) + x.shape[2:], dtype=x.dtype, device=x.device)
-        if ctx.want_stats and (gs1 is not None or gs2 is not None):
-            co = w.shape[0]
-            alpha = gs1 if gs1 is not None else _zeros_f32(co, g)
-            beta2 = 2.0 * gs2 if gs2 is not None else _zeros_f32(co, g)
-            g = bn_corr(g.contiguous(), y, alpha, beta2)
-        g = g.contiguous()
+        if g is None:  # only the stats have cotangents
+            g = torch.zeros_like(y)
+        g = _with_stats_ct(g, y, gs1, gs2) if ctx.want_stats else g.contiguous()
         need = ctx.needs_input_grad
         dx = dw = db = dsc = dsh = None
         if need[0] or need[3] or need[4]:
@@ -350,12 +368,13 @@ def chw_halo_step(x, w, b, scale, shift, relu: bool, outer_padding: str,
 # K6 / K7 / K8: the 3x3 conv's backward (csrc/conv3x3_chw_bwd.cu)
 
 
-def _check_bwd(x, g, co, scale, shift):
+def _check_bwd(x, g, co, scale, shift, up: int = 1):
+    """x (N, C, H, W) and its conv's cotangent g (N, Co, up·H, up·W)."""
     if x.dim() != 4 or g.dim() != 4:
         raise ValueError(f"x, g: expected (N, C, H, W), got {tuple(x.shape)}, {tuple(g.shape)}")
     n, c, h, wd = x.shape
     _check_act("x", x, (n, c, h, wd))
-    _check_act("g", g, (n, co, h, wd))
+    _check_act("g", g, (n, co, up * h, up * wd))
     _check_same_dtype("g", g, x)
     _check_param("scale", scale, (c,))
     _check_param("shift", shift, (c,))
@@ -536,13 +555,9 @@ class _Conv1x1Chw(torch.autograd.Function):
     def backward(ctx, g, gs1=None, gs2=None):
         x, w, y = ctx.saved_tensors
         co, c = w.shape[0], x.shape[1]
-        if g is None:
-            g = torch.zeros((x.shape[0], co) + x.shape[2:], dtype=x.dtype, device=x.device)
-        if ctx.want_stats and (gs1 is not None or gs2 is not None):
-            alpha = gs1 if gs1 is not None else _zeros_f32(co, g)
-            beta2 = 2.0 * gs2 if gs2 is not None else _zeros_f32(co, g)
-            g = bn_corr(g.contiguous(), y, alpha, beta2)
-        g = g.contiguous()
+        if g is None:  # only the stats have cotangents
+            g = torch.zeros_like(y)
+        g = _with_stats_ct(g, y, gs1, gs2) if ctx.want_stats else g.contiguous()
         need = ctx.needs_input_grad
         dx = dw = db = None
         if need[0]:
@@ -679,6 +694,264 @@ def upsample2_chw_bwd_plain(g: torch.Tensor) -> torch.Tensor:
     top = gf[:, :, 0::2, 0::2] + gf[:, :, 0::2, 1::2]
     bot = gf[:, :, 1::2, 0::2] + gf[:, :, 1::2, 1::2]
     return (top + bot).to(g.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K9: nearest-2x -> BN fold -> ReLU -> border -> 3x3 conv as one
+# half-resolution pass, and its backward (csrc/upconv3x3_chw.cu); K10: the
+# fused block's up2(shortcut) + residual (+ stats) (csrc/upsample2_chw.cu)
+
+# The phase algebra (the reference's _upconv_selectors, pallas_conv.py:1254):
+# output row 2i + d reads half-res rows i - 1 + d + t, t in {0, 1}, through
+# the combined row taps K0 | K1 + K2 (d = 0) and K0 + K1 | K2 (d = 1); the
+# same on columns. Built from slices and adds of the weights on their own
+# device, so that a wrapper copies nothing from the host (and can be
+# captured in a CUDA graph).
+
+
+def _combine(w: torch.Tensor, axis: int) -> torch.Tensor:
+    """A 3-tap axis -> the 4 slots (d, t) = (0, 0), (0, 1), (1, 0), (1, 1)."""
+    k0, k1, k2 = w.unbind(axis)
+    return torch.stack([k0, k1 + k2, k0 + k1, k2], dim=axis)
+
+
+def _uncombine(d: torch.Tensor, axis: int) -> torch.Tensor:
+    """The transpose of :func:`_combine`: 4 slots -> 3 taps."""
+    s0, s1, s2, s3 = d.unbind(axis)
+    return torch.stack([s0 + s2, s1 + s2, s1 + s3], dim=axis)
+
+
+def _upconv_phase_weights(w: torch.Tensor) -> torch.Tensor:
+    """(Co, C, 3, 3) -> (Co, C, 16) float32: the four output phases' combined
+    2x2 kernels, tap index ((di*2 + dj)*2 + r)*2 + s, which the forward
+    kernel reads."""
+    co, c = w.shape[:2]
+    wc = _combine(_combine(w.detach().float(), 2), 3)  # (Co, C, (di, r), (dj, s))
+    return wc.reshape(co, c, 2, 2, 2, 2).permute(0, 1, 2, 4, 3, 5).reshape(co, c, 16).contiguous()
+
+
+def _upconv_dx_weights(w: torch.Tensor) -> torch.Tensor:
+    """(Co, C, 3, 3) -> (Co, C, 4, 4) float32 wt with dA[p, q] =
+    Σ_o Σ_uv wt[o, :, u, v]·g[o, 2p-1+u, 2q-1+v]: the stride-2 transposed
+    form the dx kernel gathers with (full-res row 2p-1+u reaches half-res
+    row p through the taps K2, K1 + K2, K0 + K1, K0 for u = 0..3)."""
+    def taps4(a, axis):
+        k0, k1, k2 = a.unbind(axis)
+        return torch.stack([k2, k1 + k2, k0 + k1, k0], dim=axis)
+
+    return taps4(taps4(w.detach().float(), 2), 3).contiguous()
+
+
+def _upconv_unpack_dw(dwc: torch.Tensor) -> torch.Tensor:
+    """(Co, C, 16) per-phase-tap weight gradients -> (Co, C, 3, 3): the
+    transpose of :func:`_upconv_phase_weights`."""
+    co, c = dwc.shape[:2]
+    d = dwc.reshape(co, c, 2, 2, 2, 2).permute(0, 1, 2, 4, 3, 5).reshape(co, c, 4, 4)
+    return _uncombine(_uncombine(d, 2), 3)
+
+
+def _upconv_fwd(x, w, b, scale, shift, relu, outer_padding, want_stats):
+    zeros = _check_padding(outer_padding)
+    _check_conv3x3(x, w, b, scale, shift)
+    if not _on_cuda(x, w, b, scale, shift):
+        out = upconv3x3_chw_plain(x, w, b, scale, shift, relu, outer_padding, want_stats)
+        return out if want_stats else (out, None, None)
+    n, c, h, wd = x.shape
+    co = w.shape[0]
+    y = torch.empty((n, co, 2 * h, 2 * wd), dtype=x.dtype, device=x.device)
+    s1 = s2 = None
+    if want_stats:
+        s1, s2 = _zeros_f32(co, x), _zeros_f32(co, x)
+    wc, bf, sc, sh = _upconv_phase_weights(w), _f32(b), _f32(scale), _f32(shift)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_upconv3x3_chw(
+            x.data_ptr(), wc.data_ptr(), bf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+            y.data_ptr(), _ptr(s1), _ptr(s2),
+            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
+        )
+    _raise_on(rc, "upconv3x3_chw")
+    LAUNCHES["upconv3x3_chw"] += 1
+    return y, s1, s2
+
+
+class _UpConv3x3Chw(torch.autograd.Function):
+    """K9 forward (+ stats); backward K8 (when the stats have cotangents),
+    K9 dx, K9 dW."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, scale, shift, relu, outer_padding, want_stats):
+        ctx.set_materialize_grads(False)
+        y, s1, s2 = _upconv_fwd(x, w, b, scale, shift, relu, outer_padding, want_stats)
+        ctx.relu, ctx.outer_padding, ctx.want_stats = relu, outer_padding, want_stats
+        ctx.save_for_backward(x, w, scale, shift, y if want_stats else None)
+        return (y, s1, s2) if want_stats else y
+
+    @staticmethod
+    def backward(ctx, g, gs1=None, gs2=None):
+        x, w, scale, shift, y = ctx.saved_tensors
+        if g is None:  # only the stats have cotangents
+            g = torch.zeros_like(y)
+        g = _with_stats_ct(g, y, gs1, gs2) if ctx.want_stats else g.contiguous()
+        need = ctx.needs_input_grad
+        dx = dw = db = dsc = dsh = None
+        if need[0] or need[3] or need[4]:
+            dx, dsc, dsh = upconv3x3_chw_dx(x, g, w, scale, shift, ctx.relu, ctx.outer_padding)
+        if need[1] or need[2]:
+            dw, db = upconv3x3_chw_dw(x, g, scale, shift, ctx.relu, ctx.outer_padding)
+        return dx, dw, db, dsc, dsh, None, None, None
+
+
+def upconv3x3_chw(x, w, b, scale, shift, relu: bool = True,
+                  outer_padding: str = "replicate", want_stats: bool = False):
+    """K9: y = conv3x3(pad1(up2(act(scale*x + shift)))) + b, x (N, C, H, W)
+    at half resolution -> y (N, Co, 2H, 2W), run as four half-resolution
+    phase convs with combined 2x2 kernels (the reference's
+    ``upconv3x3_chw_p``). Arguments as :func:`conv3x3_chw`; the outer pad is
+    replicate or zeros, post-norm. With ``want_stats`` returns (y, Σy, Σy²)
+    of the stored y. Differentiable in x, w, b, scale, shift and through the
+    stats. Equals :func:`upconv3x3_chw_plain` up to the regrouped float
+    additions of the combined kernels."""
+    return _UpConv3x3Chw.apply(x, w, b, scale, shift, relu, outer_padding, want_stats)
+
+
+def upconv3x3_chw_plain(x, w, b, scale, shift, relu: bool = True,
+                        outer_padding: str = "replicate", want_stats: bool = False):
+    """Plain PyTorch version of :func:`upconv3x3_chw`: the unfused pair,
+    :func:`upsample2_chw_plain` then :func:`conv3x3_chw_plain` (independent
+    of the phase algebra)."""
+    return conv3x3_chw_plain(upsample2_chw_plain(x), w, b, scale, shift, relu, outer_padding,
+                             want_stats)
+
+
+def upconv3x3_chw_dx(x, g, w, scale, shift, relu: bool, outer_padding: str):
+    """K9 dx: the input-side gradient of :func:`upconv3x3_chw` from ``g``
+    (N, Co, 2H, 2W). da is the transposed conv of g summed over each 2x2
+    child block, with the replicate border folds (corners twice) on the
+    half-res slab or none (zeros), masked by the ReLU of ``scale*x + shift``.
+    Returns (dx = da·scale in x's dtype, d(scale) = Σ da·x, d(shift) = Σ da),
+    the sums in float32 over (N, H, W)."""
+    zeros = _check_padding(outer_padding)
+    co = w.shape[0]
+    _check_bwd(x, g, co, scale, shift, up=2)
+    _check_param("w", w, (co, x.shape[1], 3, 3))
+    if not _on_cuda(x, g, w, scale, shift):
+        return upconv3x3_chw_dx_plain(x, g, w, scale, shift, relu, outer_padding)
+    n, c, h, wd = x.shape
+    dx = torch.empty_like(x)
+    dsc, dsh = _zeros_f32(c, x), _zeros_f32(c, x)
+    wt, sc, sh = _upconv_dx_weights(w), _f32(scale), _f32(shift)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_upconv3x3_chw_dx(
+            x.data_ptr(), g.data_ptr(), wt.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+            dx.data_ptr(), dsc.data_ptr(), dsh.data_ptr(),
+            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
+        )
+    _raise_on(rc, "upconv3x3_chw_dx")
+    LAUNCHES["upconv3x3_chw_dx"] += 1
+    return dx, dsc, dsh
+
+
+def upconv3x3_chw_dx_plain(x, g, w, scale, shift, relu: bool, outer_padding: str):
+    """Plain PyTorch version of :func:`upconv3x3_chw_dx`: the pair's
+    :func:`conv3x3_chw_dx_plain` on up2(x) in float32, then
+    :func:`upsample2_chw_bwd_plain`, rounded once to x's dtype."""
+    dx, dsc, dsh = conv3x3_chw_dx_plain(upsample2_chw_plain(x).float(), g, w, scale, shift, relu,
+                                        outer_padding)
+    return upsample2_chw_bwd_plain(dx).to(x.dtype), dsc, dsh
+
+
+def upconv3x3_chw_dw(x, g, scale, shift, relu: bool, outer_padding: str):
+    """K9 dW: dW (Co, C, 3, 3) and db (Co,) of :func:`upconv3x3_chw`, float32
+    sums over (N, 2H, 2W). The kernel sums per phase tap (Co, C, 16) from the
+    half-res slab; the wrapper folds them back to the 3x3 taps."""
+    zeros = _check_padding(outer_padding)
+    co = g.shape[1]
+    _check_bwd(x, g, co, scale, shift, up=2)
+    if not _on_cuda(x, g, scale, shift):
+        return upconv3x3_chw_dw_plain(x, g, scale, shift, relu, outer_padding)
+    n, c, h, wd = x.shape
+    dwc = torch.zeros((co, c, 16), dtype=torch.float32, device=x.device)
+    db = _zeros_f32(co, x)
+    sc, sh = _f32(scale), _f32(shift)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_upconv3x3_chw_dw(
+            x.data_ptr(), g.data_ptr(), sc.data_ptr(), sh.data_ptr(), dwc.data_ptr(),
+            db.data_ptr(), n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
+        )
+    _raise_on(rc, "upconv3x3_chw_dw")
+    LAUNCHES["upconv3x3_chw_dw"] += 1
+    return _upconv_unpack_dw(dwc), db
+
+
+def upconv3x3_chw_dw_plain(x, g, scale, shift, relu: bool, outer_padding: str):
+    """Plain PyTorch version of :func:`upconv3x3_chw_dw`: the pair's
+    :func:`conv3x3_chw_dw_plain` on up2(x)."""
+    return conv3x3_chw_dw_plain(upsample2_chw_plain(x), g, scale, shift, relu, outer_padding)
+
+
+def _up2add_fwd(x, res, want_stats):
+    if x.dim() != 4:
+        raise ValueError(f"x: expected (N, C, H, W), got shape {tuple(x.shape)}")
+    n, c, h, wd = x.shape
+    _check_act("x", x, (n, c, h, wd))
+    _check_act("res", res, (n, c, 2 * h, 2 * wd))
+    _check_same_dtype("res", res, x)
+    if not _on_cuda(x, res):
+        out = upsample2_chw_add_plain(x, res, want_stats)
+        return out if want_stats else (out, None, None)
+    y = torch.empty_like(res)
+    s1 = s2 = None
+    if want_stats:
+        s1, s2 = _zeros_f32(c, x), _zeros_f32(c, x)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_upsample2_chw_add(
+            x.data_ptr(), res.data_ptr(), y.data_ptr(), _ptr(s1), _ptr(s2),
+            n * c, c, h, wd, _bf16(x), _stream(x),
+        )
+    _raise_on(rc, "upsample2_chw_add")
+    LAUNCHES["upsample2_chw_add"] += 1
+    return y, s1, s2
+
+
+class _Upsample2ChwAdd(torch.autograd.Function):
+    """K10 forward (+ stats); backward K8 (when the stats have cotangents),
+    then dx by K4's adjoint and dres = the corrected cotangent (the
+    reference's _up2add_bwd_rule)."""
+
+    @staticmethod
+    def forward(ctx, x, res, want_stats):
+        ctx.set_materialize_grads(False)
+        y, s1, s2 = _up2add_fwd(x, res, want_stats)
+        ctx.want_stats = want_stats
+        ctx.save_for_backward(y if want_stats else None)
+        return (y, s1, s2) if want_stats else y
+
+    @staticmethod
+    def backward(ctx, g, gs1=None, gs2=None):
+        (y,) = ctx.saved_tensors
+        if g is None:  # only the stats have cotangents
+            g = torch.zeros_like(y)
+        g = _with_stats_ct(g, y, gs1, gs2) if ctx.want_stats else g.contiguous()
+        need = ctx.needs_input_grad
+        return (upsample2_chw_bwd(g) if need[0] else None), (g if need[1] else None), None
+
+
+def upsample2_chw_add(x, res, want_stats: bool = False):
+    """K10: y = up2(x) + res, x (N, C, H, W), res (N, C, 2H, 2W) of the same
+    dtype: the fused up-conv block's upsampled half-res shortcut joined with
+    its residual. With ``want_stats`` returns (y, Σy, Σy²) of the stored y.
+    The reference's ``upsample2_chw_add_p`` also fills the 128-lane pad
+    columns of a padded carry; the port has no padding, so there is no fill.
+    Differentiable in x and res and through the stats."""
+    return _Upsample2ChwAdd.apply(x, res, want_stats)
+
+
+def upsample2_chw_add_plain(x, res, want_stats: bool = False):
+    """Plain PyTorch version of :func:`upsample2_chw_add`."""
+    y = upsample2_chw_plain(x) + res
+    if want_stats:
+        return (y, *_stats_plain(y))
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -78,7 +78,7 @@ def create_train_state(args: argparse.Namespace, steps_per_epoch: int, device,
     ``device`` in train mode; Adam states; an EMA snapshot when ``--ema``."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        G = ResidualPatchGenerator(**generator_kwargs(args, train=True))
+        G = ResidualPatchGenerator(**generator_kwargs(args))
         D = PatchDiscriminator(**discriminator_kwargs(args))
     G, D = G.to(device).train(), D.to(device).train()
     opt_G, opt_D = make_optimizers(G, D, args)

@@ -106,13 +106,13 @@ def test_rejects_unported_options():
         ResidualPatchGenerator(**SMALL, type_norm="SSM")
     with pytest.raises(NotImplementedError):
         generator_kwargs(dict_to_args({"fuse_up": "all"}))
-    assert "fuse_up" not in generator_kwargs(dict_to_args({"fuse_up": "off"}))
+    assert generator_kwargs(dict_to_args({"fuse_up": "off"}))["fuse_up"] == "off"
     with pytest.raises(ValueError):  # 'auto' already runs the tail on any device
         ResidualPatchGenerator(**SMALL, chw_tail="on")
     with pytest.raises(ValueError):  # the halo engine is eval-only
         ResidualPatchGenerator(**SMALL)(torch.zeros(1, 14, 14, 16), halo={})
-    with pytest.raises(NotImplementedError):  # the fused training up-conv (K9, K10)
-        generator_kwargs(dict_to_args({"fuse_up": "auto"}), train=True)
+    with pytest.raises(ValueError):  # the fused eval up-conv (K14)
+        ResidualPatchGenerator(**SMALL, fuse_up="all")
 
 
 def _canvas_vs_one_pass(gen, out_h, out_w, seed=7):

@@ -211,7 +211,59 @@ def test_stem_kernels_match_plain(cuda, dtype, shape):
     assert (tk.LAUNCHES["stem_fwd"], tk.LAUNCHES["stem_dx"], tk.LAUNCHES["stem_dw"]) == (1, 1, 1)
 
 
-def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
+# --- the fused up-conv (K9 forward, dx, dW) and its residual join (K10) ----
+# half-res shapes n, c, co, h, w; the small odd ones put every replicate fold
+# (corners included) into one tile, and h = 1 folds top and bottom onto the
+# same row
+UPCONV_SHAPES = [(2, 11, 19, 13, 45), (1, 26, 13, 20, 37), (2, 5, 3, 5, 7), (1, 3, 2, 1, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("shape", UPCONV_SHAPES)
+def test_upconv_kernels_match_plain(cuda, dtype, outer, shape):
+    n, c, co, h, w = shape
+    x, wt, b, sc, sh = _inputs(cuda, dtype, n=n, c=c, co=co, h=h, w=w)
+    g = torch.randn(n, co, 2 * h, 2 * w, generator=torch.Generator().manual_seed(7)).to(cuda, dtype)
+    tk.reset_launches()
+    y_ref = tk.upconv3x3_chw_plain(x, wt, b, sc, sh, True, outer)
+    _assert_close(tk.upconv3x3_chw(x, wt, b, sc, sh, True, outer), y_ref)
+    y, s1, s2 = tk.upconv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+    _assert_close(y, y_ref)
+    _assert_sum_close(s1, y.float().sum(dim=(0, 2, 3)))
+    _assert_sum_close(s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
+    dx, dsc, dsh = tk.upconv3x3_chw_dx(x, g, wt, sc, sh, True, outer)
+    dx_ref, dsc_ref, dsh_ref = tk.upconv3x3_chw_dx_plain(x, g, wt, sc, sh, True, outer)
+    _assert_close(dx, dx_ref)
+    _assert_sum_close(dsc, dsc_ref)
+    _assert_sum_close(dsh, dsh_ref)
+    dw, db = tk.upconv3x3_chw_dw(x, g, sc, sh, True, outer)
+    dw_ref, db_ref = tk.upconv3x3_chw_dw_plain(x, g, sc, sh, True, outer)
+    _assert_sum_close(dw, dw_ref)
+    _assert_sum_close(db, db_ref)
+    assert {k: tk.LAUNCHES[k] for k in ("upconv3x3_chw", "upconv3x3_chw_dx", "upconv3x3_chw_dw")} \
+        == {"upconv3x3_chw": 2, "upconv3x3_chw_dx": 1, "upconv3x3_chw_dw": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 5, 7, 9), (1, 26, 48, 96), (1, 3, 1, 3)])
+def test_upsample2_add_kernel_matches_plain(cuda, dtype, shape):
+    """K10's y is one rounded float32 add on both sides: bit-equal."""
+    n, c, h, w = shape
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(n, c, h, w, generator=gen).to(cuda, dtype)
+    res = torch.randn(n, c, 2 * h, 2 * w, generator=gen).to(cuda, dtype)
+    tk.reset_launches()
+    assert torch.equal(tk.upsample2_chw_add(x, res), tk.upsample2_chw_add_plain(x, res))
+    y, s1, s2 = tk.upsample2_chw_add(x, res, want_stats=True)
+    assert torch.equal(y, tk.upsample2_chw_add_plain(x, res))
+    _assert_sum_close(s1, y.float().sum(dim=(0, 2, 3)))
+    _assert_sum_close(s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
+    assert tk.LAUNCHES["upsample2_chw_add"] == 2
+
+
+@pytest.mark.parametrize("fuse_up", ["auto", "off"])
+def test_train_step_on_card_matches_cpu(cuda, monkeypatch, fuse_up):
     """A tiny fused step on the card with the kernels against the same step
     on the card with the tail's and the stem's plain versions swapped in
     (cuDNN runs the NHWC layers in both), float32 with TF32 off; the losses
@@ -221,12 +273,15 @@ def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
 
     args = prepare_parser().parse_args(
         ["--G_ch", "8", "--D_ch", "8", "--z_dim", "16", "--n_layers_G", "4", "--n_layers_D", "2",
-         "--padding_mode", "local", "--attention", "--spec_norm_D", "--ema", "--num_images", "2"])
+         "--padding_mode", "local", "--attention", "--spec_norm_D", "--ema", "--num_images", "2",
+         "--fuse_up", fuse_up])
     gen = torch.Generator().manual_seed(6)
     real = torch.rand(4, 48, 48, 3, generator=gen) * 2 - 1
     z = torch.randn(2, 14, 14, 16, generator=gen)
     twins = {"conv3x3_chw": tk.conv3x3_chw_plain, "conv1x1_chw": tk.conv1x1_chw_plain,
              "conv1x1_chw_add": tk.conv1x1_chw_plain, "upsample2_chw": tk.upsample2_chw_plain,
+             "upconv3x3_chw": tk.upconv3x3_chw_plain,
+             "upsample2_chw_add": tk.upsample2_chw_add_plain,
              "conv4x4s2_stem_chw": tk.stem_fwd_plain}
     out = {}
     for run in ("cpu", "cuda", "cuda plain"):
@@ -256,4 +311,10 @@ def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
     assert not any(out["cuda plain"][3].values())
     launches = out["cuda"][3]
     assert launches["stem_fwd"] == 2 and launches["stem_dw"] == 1 and launches["stem_dx"] == 1
-    assert launches["conv3x3_chw_dx"] == launches["conv3x3_chw_dw"] == 3  # block4 conv1/conv2, final
+    if fuse_up == "off":  # block4 conv1/conv2, final
+        assert launches["conv3x3_chw_dx"] == launches["conv3x3_chw_dw"] == 3
+        assert launches["upconv3x3_chw"] == launches["upsample2_chw_add"] == 0
+    else:  # block4 fuses: conv1 is K9, the shortcut joins through K10
+        assert launches["conv3x3_chw_dx"] == launches["conv3x3_chw_dw"] == 2
+        assert (launches["upconv3x3_chw"], launches["upconv3x3_chw_dx"], launches["upconv3x3_chw_dw"],
+                launches["upsample2_chw_add"], launches["upsample2_chw"]) == (1, 1, 1, 1, 0)

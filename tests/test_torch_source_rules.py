@@ -61,7 +61,8 @@ def test_cuda_sources_target_sm90a():
 
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.FLAGS
     names = {p.stem for p in _build.CSRC.glob("*.cu")}
-    assert names == {"conv3x3_chw", "conv3x3_chw_bwd", "conv1x1_chw", "upsample2_chw", "stem4x4s2"}
+    assert names == {"conv3x3_chw", "conv3x3_chw_bwd", "conv1x1_chw", "upsample2_chw", "stem4x4s2",
+                     "upconv3x3_chw"}
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
         assert "pallas_conv.py" in text and "bound" in text, src.name

@@ -2,9 +2,11 @@
 reference on the CPU in float32, at the reference tests' tiny widths
 (tests/test_train.py: G_ch 8, n_layers_G 4, so block 4 runs on the
 channels-major tail; D_ch 8, n_layers_D 2 with spectral norm). The JAX side
-runs its Pallas tail in interpret mode (``chw_tail='on', fuse_up='off'``).
-Weights cross through ``weights.from_jax_variables``; inputs are numpy
-arrays drawn from a seed."""
+runs its Pallas tail in interpret mode (``chw_tail='on'``), the generator
+with ``fuse_up`` 'off' (upsample, then block 4's conv) and 'auto' (block 4
+through the fused up-conv K9 and its residual join K10). Weights cross
+through ``weights.from_jax_variables``; inputs are numpy arrays drawn from
+a seed."""
 
 import jax
 import jax.numpy as jnp
@@ -26,9 +28,9 @@ def _tree(v):
     return jax.tree_util.tree_map(np.asarray, jax.device_get(dict(v)))
 
 
-@pytest.fixture(scope="module")
-def g_case():
-    gen = JaxG(type_norm="BN", padding_mode="local", chw_tail="on", fuse_up="off", **TINY_G)
+@pytest.fixture(scope="module", params=["off", "auto"])
+def g_case(request):
+    gen = JaxG(type_norm="BN", padding_mode="local", chw_tail="on", fuse_up=request.param, **TINY_G)
     z0 = jnp.zeros((1, 14, 14, 16))
     v = _tree(jax.jit(lambda z: gen.init(jax.random.key(0), z, train=True))(z0))
     rng = np.random.default_rng(3)
@@ -47,7 +49,7 @@ def test_generator_train_forward_matches_jax(g_case):
     gen, v, z = g_case
     assert gen.emits_chw()
     (img, _), new = gen.apply(v, jnp.asarray(z), train=True, out_chw=True, mutable=["batch_stats"])
-    port = ResidualPatchGenerator(**TINY_G)
+    port = ResidualPatchGenerator(fuse_up=gen.fuse_up, **TINY_G)
     port.load_state_dict(from_jax_variables(v), strict=True)
     port.train()
     assert port.emits_chw()
@@ -64,7 +66,7 @@ def test_generator_train_forward_matches_jax(g_case):
 def test_generator_train_nhwc_output_matches_chw(g_case):
     """out_chw only changes the layout of the same image."""
     gen, v, z = g_case
-    port = ResidualPatchGenerator(**TINY_G)
+    port = ResidualPatchGenerator(fuse_up=gen.fuse_up, **TINY_G)
     port.load_state_dict(from_jax_variables(v), strict=True)
     a, _ = port.train()(torch.from_numpy(z), out_chw=True)
     port.load_state_dict(from_jax_variables(v), strict=True)

@@ -5,8 +5,9 @@ directions, and the train CLI.
 The step: the reference tests' tiny recipe (tests/test_train.py
 ``tiny_args``: G_ch 8, D_ch 8, n_layers_G 4, n_layers_D 2, 48² crops,
 2 fake grids) with spectral norm in D, ``--smooth``, EMA, and the JAX
-generator's channels-major tail in interpret mode (``chw_tail='on',
-fuse_up='off'``), so that the fake reaches D through the stem kernel.
+generator's channels-major tail in interpret mode (``chw_tail='on'``), so
+that the fake reaches D through the stem kernel, once with each
+``--fuse_up``: 'off' and 'auto' (the fused up-conv K9 and K10 in block 4).
 Both sides start from the same parameters (carried by
 ``weights.from_jax_variables``), see the same crops and the JAX step's own
 latents.
@@ -71,10 +72,10 @@ def _noise_leaves(grads):
     return top, {k for k, v in grads.items() if float(v.abs().max()) < NOISE * top}
 
 
-def run_step_case():
+def run_step_case(fuse_up):
     """Both steps from the same state; returns what the tests compare."""
-    jargs = jax_parser().parse_args(TINY)
-    jargs.chw_tail, jargs.fuse_up = "on", "off"
+    jargs = jax_parser().parse_args(TINY + ["--fuse_up", fuse_up])
+    jargs.chw_tail = "on"
     G, D = JaxG(**jax_g_kwargs(jargs)), JaxD(**jax_d_kwargs(jargs))
     assert G.emits_chw()
     state, tx_G, tx_D = jax_create(G, D, jargs, jax.random.key(0), 2)
@@ -89,8 +90,9 @@ def run_step_case():
     zk, _ = jax.random.split(jax.random.split(key, 1)[0])
     z = np.array(build_train_z(zk, 2, 16, 4, 3, 3))
 
-    targs = prepare_parser().parse_args(TINY + ["--device", "cpu"])
+    targs = prepare_parser().parse_args(TINY + ["--device", "cpu", "--fuse_up", fuse_up])
     st = create_train_state(targs, 2, "cpu", seed=0)
+    assert st.G.fuse_up == fuse_up
     st.G.load_state_dict(from_jax_variables({"params": init["params_G"], **init["aux_G"]}), strict=True)
     st.D.load_state_dict(from_jax_variables({"params": init["params_D"], **init["aux_D"]}, spectral=True),
                          strict=True)
@@ -101,9 +103,9 @@ def run_step_case():
                 before=before)
 
 
-@pytest.fixture(scope="module")
-def step_case():
-    return run_step_case()
+@pytest.fixture(scope="module", params=["off", "auto"])
+def step_case(request):
+    return run_step_case(request.param)
 
 
 def test_step_losses_match(step_case):
@@ -238,9 +240,15 @@ def test_train_cli_writes_checkpoint_that_samples(tmp_path):
     assert img.shape == (80, 72, 3) and img.std() > 0
 
 
-def test_fuse_up_auto_is_refused():
-    from infinite_texture_gans_torch.config import check_train_args
+def test_fuse_up_defaults_to_auto_and_refuses_all():
+    """The train CLI's default is the reference's --fuse_up auto, which
+    the port trains; 'all' (the fused eval up-conv, K14) is refused."""
+    from infinite_texture_gans_torch.config import check_train_args, generator_kwargs
 
-    args = prepare_parser().parse_args(TINY + ["--fuse_up", "auto"])
-    with pytest.raises(NotImplementedError, match="K9"):
-        check_train_args(args)
+    args = prepare_parser().parse_args(TINY)
+    assert args.fuse_up == "auto" == jax_parser().parse_args([]).fuse_up
+    check_train_args(args)
+    assert generator_kwargs(args)["fuse_up"] == "auto"
+    args.fuse_up = "all"
+    with pytest.raises(NotImplementedError, match="K14"):
+        generator_kwargs(args)
