@@ -27,6 +27,7 @@ GENERATOR_DEFAULTS: Dict[str, Any] = {
     "base_res": 4,
     "padding_mode": "zeros",
     "type_norm_G": "BN",
+    "map_dim": 1,
     "num_patches_width": 3,
     "num_patches_height": 3,
     "outer_padding": "replicate",
@@ -62,7 +63,8 @@ def prepare_parser() -> argparse.ArgumentParser:
     a("--norm_layer_D", type=str, default=None, help="normalization layer in D (None only)")
     a("--base_res", type=int, default=4, help="base resolution for G")
     a("--padding_mode", type=str, default="zeros", help="padding in G (local)")
-    a("--type_norm_G", type=str, default="BN", help="normalization in G (BN)")
+    a("--type_norm_G", type=str, default="BN", help="normalization in G: BN or SSM")
+    a("--map_dim", type=int, default=1, help="channels of the SSM modulation maps")
     # optimizers
     a("--lr_G", type=float, default=2e-4, help="G learning rate")
     a("--lr_D", type=float, default=2e-4, help="D learning rate")
@@ -97,7 +99,7 @@ def check_train_args(args: argparse.Namespace) -> None:
     """Refuse the training options the port does not implement yet."""
     unported = {
         "data": ("single_image",), "D_model": ("patch_GAN",), "loss": ("standard", "hinge"),
-        "disc_iters": (1,), "padding_mode": ("local",), "type_norm_G": ("BN",),
+        "disc_iters": (1,), "padding_mode": ("local",), "type_norm_G": ("BN", "SSM"),
         "norm_layer_D": (None,), "spec_norm_G": (False,),
     }
     for flag, allowed in unported.items():
@@ -136,6 +138,7 @@ def generator_kwargs(args: argparse.Namespace) -> Dict[str, Any]:
         leak=args.leak_G,
         SN=args.spec_norm_G,
         type_norm=args.type_norm_G,
+        map_dim=args.map_dim,
         padding_mode=args.padding_mode,
         outer_padding=args.outer_padding,
         num_patches_h=args.num_patches_height,

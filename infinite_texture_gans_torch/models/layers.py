@@ -1,19 +1,22 @@
 """Generator building blocks.
 
-Port of ``infinite_texture_gans_tpu/models/layers.py`` for the BN
-generator, eval and train: ``activation_fn``, ``BNFold`` (which also serves
-as the NHWC ``nn.BatchNorm``), ``ConvLP``, ``Attention``,
-``PatchAttention`` and ``ResBlockGenerator`` (BN branch; in training also
-the subpixel-fused up-conv branch of ``--fuse_up auto``). Submodule
-and parameter names follow the reference's flax paths
-(``conv1.conv.weight``, ``bn1.scale``, ``bn1.mean`` ...), so
+Port of ``infinite_texture_gans_tpu/models/layers.py`` for the BN and SSM
+generators, eval and train: ``activation_fn``, ``StatsBN`` (the
+parameter-free BatchNorm), ``BNFold`` (which also serves as the NHWC
+``nn.BatchNorm``), ``StochasticSpatialModulation``, ``ConvLP``,
+``Attention``, ``PatchAttention`` and ``ResBlockGenerator`` (BN and SSM
+branches; in training also the subpixel-fused up-conv branch of
+``--fuse_up auto``, BN only). Submodule and parameter names follow the
+reference's flax paths (``conv1.conv.weight``, ``bn1.scale``, ``bn1.mean``,
+``bn1.bn.mean``, ``bn1.mlp_shared.weight`` ...), so
 ``weights.from_jax_variables`` maps a flax tree onto them leaf by leaf.
 
 Two layouts, as in the reference: merged-grid NHWC for the wide blocks, and
 channels-major (N, C, H, W) for the small-channel tail, where the BN fold
-and ReLU run inside the conv kernels of ``ops/kernels.py``. In training the
-tail's BatchNorms take their batch moments from the producing kernel's
-per-channel sums (``stats`` = (Σy, Σy², count)), as the reference's do.
+and ReLU run inside the conv kernels of ``ops/kernels.py`` and the SSM
+gamma|beta come from K15 (``ops/ssm.py``). In training the tail's norms
+take their batch moments from the producing kernel's per-channel sums
+(``stats`` = (Σy, Σy², count)), as the reference's do.
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from infinite_texture_gans_torch.ops import kernels
-from infinite_texture_gans_torch.ops.conv import conv1x1, conv3x3
+from infinite_texture_gans_torch.ops import kernels, ssm
+from infinite_texture_gans_torch.ops.conv import conv1x1, conv3x3, ssm_embed_init_
 from infinite_texture_gans_torch.ops.grid import grid_to_patches, patches_to_grid
 from infinite_texture_gans_torch.ops.padding import GridPos, SiteState, halo_pad_step, local_pad
 
@@ -42,42 +45,32 @@ def activation_fn(leak: float) -> Callable[[torch.Tensor], torch.Tensor]:
 Stats = Tuple[torch.Tensor, torch.Tensor, int]
 
 
-class BNFold(nn.Module):
-    """BatchNorm (momentum 0.9, epsilon 1e-5) with the reference's variable
-    names: parameters ``scale``/``bias``, running statistics ``mean``/``var``
-    as buffers.
-
-    ``forward`` normalises NHWC activations like flax's ``nn.BatchNorm``:
-    batch moments (variance clipped at 0) and a running-stat update in train
-    mode, the running statistics in eval. :meth:`fold` (eval) and
-    :meth:`train_fold` (train, the reference's ``BNFold`` :121-170) return
-    the per-channel float32 ``(scale, shift)`` that the channels-major conv
-    kernels apply themselves."""
+class StatsBN(nn.Module):
+    """Parameter-free BatchNorm (momentum 0.9, epsilon 1e-5) with the
+    reference's variable names: running statistics ``mean``/``var`` as
+    buffers, no affine parameters. The NHWC ``forward`` is flax's
+    ``nn.BatchNorm(use_scale=False, use_bias=False)`` (batch moments with the
+    variance clipped at 0 and a running-stat update in train mode, the
+    running statistics in eval); :meth:`chw` is the reference's ``_StatsBN``
+    (:414-453) on channels-major input, whose train-mode moments come from a
+    producer's ``stats`` where given. The SSM norm's ``bn``, and the base of
+    :class:`BNFold`."""
 
     epsilon = 1e-5
     momentum = 0.9
 
     def __init__(self, channels: int):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
-
-    def fold(self) -> tuple[torch.Tensor, torch.Tensor]:
-        return self._affine(self.mean.float(), self.var.float())
-
-    def _affine(self, m: torch.Tensor, v: torch.Tensor):
-        inv = torch.rsqrt(v + self.epsilon) * self.scale.float()
-        return inv, self.bias.float() - m * inv
 
     def _update_running(self, m: torch.Tensor, v: torch.Tensor) -> None:
         with torch.no_grad():
             self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * m)
             self.var.copy_(self.momentum * self.var + (1 - self.momentum) * v)
 
-    def train_fold(self, x_chw: torch.Tensor, stats: Optional[Stats]):
-        """Train-mode fold of a channels-major input: batch moments from the
+    def train_moments(self, x_chw: torch.Tensor, stats: Optional[Stats]):
+        """Train-mode (mean, var) of a channels-major input, float32: from the
         producer's ``stats`` (which may come from before a nearest-2x
         upsample: mean and E[x²] are unchanged by it) or, without them, from
         ``x_chw`` itself; updates the running statistics."""
@@ -90,19 +83,106 @@ class BNFold(nn.Module):
             m = xf.mean(dim=(0, 2, 3))
             v = (xf * xf).mean(dim=(0, 2, 3)) - m * m
         self._update_running(m, v)
-        return self._affine(m, v)
+        return m, v
+
+    def _nhwc_moments(self, x: torch.Tensor):
+        if not self.training:
+            return self.mean.float(), self.var.float()
+        xf = x.float()
+        m = xf.mean(dim=(0, 1, 2))
+        v = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - m * m, min=0.0)
+        self._update_running(m, v)
+        return m, v
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        m, v = self._nhwc_moments(x)
+        return ((x.float() - m) * torch.rsqrt(v + self.epsilon)).to(x.dtype)
+
+    def chw(self, x_chw: torch.Tensor, stats: Optional[Stats] = None) -> torch.Tensor:
+        """(x - mean) / sqrt(var + eps) per channel (dim 1) in float32,
+        rounded to x's dtype."""
         if self.training:
-            xf = x.float()
-            m = xf.mean(dim=(0, 1, 2))
-            v = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - m * m, min=0.0)
-            self._update_running(m, v)
+            m, v = self.train_moments(x_chw, stats)
         else:
             m, v = self.mean.float(), self.var.float()
+        inv = torch.rsqrt(v + self.epsilon)
+        return ((x_chw.float() - m.reshape(1, -1, 1, 1)) * inv.reshape(1, -1, 1, 1)).to(x_chw.dtype)
+
+
+class BNFold(StatsBN):
+    """BatchNorm (momentum 0.9, epsilon 1e-5) with the reference's variable
+    names: parameters ``scale``/``bias``, running statistics ``mean``/``var``
+    as buffers.
+
+    ``forward`` normalises NHWC activations like flax's ``nn.BatchNorm``:
+    batch moments (variance clipped at 0) and a running-stat update in train
+    mode, the running statistics in eval. :meth:`fold` (eval) and
+    :meth:`train_fold` (train, the reference's ``BNFold`` :121-170) return
+    the per-channel float32 ``(scale, shift)`` that the channels-major conv
+    kernels apply themselves."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels)
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def fold(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self._affine(self.mean.float(), self.var.float())
+
+    def _affine(self, m: torch.Tensor, v: torch.Tensor):
+        inv = torch.rsqrt(v + self.epsilon) * self.scale.float()
+        return inv, self.bias.float() - m * inv
+
+    def train_fold(self, x_chw: torch.Tensor, stats: Optional[Stats]):
+        """Train-mode fold of a channels-major input (moments as
+        :meth:`StatsBN.train_moments`); updates the running statistics."""
+        return self._affine(*self.train_moments(x_chw, stats))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        m, v = self._nhwc_moments(x)
         mul = torch.rsqrt(v + self.epsilon) * self.scale.float()
         y = (x.float() - m) * mul + self.bias.float()
         return y.to(x.dtype)
+
+
+class StochasticSpatialModulation(nn.Module):
+    """The SSM norm (reference ``StochasticSpatialModulation`` :302-411):
+    parameter-free BatchNorm ``bn``, then a per-pixel (1 + gamma)·BN(x) +
+    beta whose gamma|beta come from the layer's random map through
+    ``mlp_shared`` (3x3 valid, map_dim -> 128), ReLU and ``embed`` (3x3
+    valid, 128 -> 2C, the reference's init quirk: :func:`ssm_embed_init_`).
+    The map arrives 4 px oversized (local padding: both convs are valid).
+
+    ``forward`` is the NHWC branch (:380-394): x (N, H, W, C), maps (N, H+4,
+    W+4, md); the reference's convs cast its float32 maps to the compute
+    dtype, and so do these (x's dtype). :meth:`chw` is the channels-major
+    branch (:339, :374-379): x (N, C, H, W), the maps permuted to (N, md,
+    H+4, W+4) and cast to x's dtype, through K15 (``ops/ssm.py``)."""
+
+    def __init__(self, channels: int, map_dim: int, hidden: int = 128):
+        super().__init__()
+        self.channels = channels
+        self.bn = StatsBN(channels)
+        self.mlp_shared = conv3x3(map_dim, hidden, padding=0)
+        self.embed = conv3x3(hidden, 2 * channels, padding=0)
+        ssm_embed_init_(self.embed.weight, channels)
+
+    def forward(self, x: torch.Tensor, maps: torch.Tensor) -> torch.Tensor:
+        out = self.bn(x)
+        actv = torch.relu(self.mlp_shared(maps.to(x.dtype)))
+        gamma, beta = self.embed(actv).split(self.channels, dim=-1)
+        return (1 + gamma) * out + beta
+
+    def chw(self, x: torch.Tensor, maps: torch.Tensor, stats: Optional[Stats] = None) -> torch.Tensor:
+        out = self.bn.chw(x, stats)
+        m = maps.detach().permute(0, 3, 1, 2).to(x.dtype).contiguous()
+        if tuple(m.shape[2:]) != (x.shape[2] + 4, x.shape[3] + 4):
+            raise ValueError(f"maps {tuple(maps.shape)} are not 4 px larger than x {tuple(x.shape)}")
+        embed = ssm.ssm_embed(m, self.mlp_shared.weight, self.mlp_shared.bias,
+                              self.embed.weight, self.embed.bias)
+        gamma, beta = embed.split(self.channels, dim=1)
+        # the channel slices can hand their strides on; the kernels take contiguous x
+        return ((1 + gamma) * out + beta).contiguous()
 
 
 class ConvLP(nn.Module):
@@ -183,78 +263,121 @@ class PatchAttention(nn.Module):
         return patches_to_grid(self.attn(grid_to_patches(x, gh, gw)), gh, gw)
 
 
+def identity_fold(x: torch.Tensor):
+    """The conv kernels' BN fold that leaves x as it is, then the ReLU: the
+    SSM blocks modulate outside the kernels (the reference's ``(ones, zeros,
+    False)`` after its own ReLU, the same values and gradient)."""
+    c = x.shape[1]
+    return (torch.ones(c, device=x.device), torch.zeros(c, device=x.device), True)
+
+
 class ResBlockGenerator(nn.Module):
-    """Pre-activation generator residual block, BN norm (reference
-    ``ResBlockGenerator``): BN-act-convLP-BN-act-convLP with a 1x1 shortcut
-    when the channel count changes. ``forward`` is the eval block (with the
-    raster engine's halo sites); :meth:`forward_train` the train block."""
+    """Pre-activation generator residual block (reference
+    ``ResBlockGenerator`` :501-719): norm-act-convLP-norm-act-convLP with a
+    1x1 shortcut when the channel count changes. The norm is BN
+    (:class:`BNFold`) or SSM (:class:`StochasticSpatialModulation`, which
+    also gives the shortcut its own ``bn3`` and takes the layer's ``maps``).
+    ``forward`` is the eval block (with the raster engine's halo sites);
+    :meth:`forward_train` the train block."""
 
     def __init__(self, in_features: int, features: int, leak: float = 0.0,
-                 outer_padding: str = "replicate"):
+                 outer_padding: str = "replicate", type_norm: str = "BN", map_dim: int = 1):
         super().__init__()
         self.leak = leak
-        self.bn1 = BNFold(in_features)
+        self.ssm = type_norm == "SSM"
+        learnable_sc = in_features != features
+        if self.ssm:
+            self.bn1 = StochasticSpatialModulation(in_features, map_dim)
+            self.bn2 = StochasticSpatialModulation(features, map_dim)
+            self.bn3 = StochasticSpatialModulation(in_features, map_dim) if learnable_sc else None
+        else:
+            self.bn1 = BNFold(in_features)
+            self.bn2 = BNFold(features)
         self.conv1 = ConvLP(in_features, features, outer_padding)
-        self.bn2 = BNFold(features)
         self.conv2 = ConvLP(features, features, outer_padding)
-        self.conv3 = conv1x1(in_features, features) if in_features != features else None
+        self.conv3 = conv1x1(in_features, features) if learnable_sc else None
+
+    def _norm(self, bn: nn.Module, x: torch.Tensor, maps: Optional[torch.Tensor]) -> torch.Tensor:
+        return bn(x, maps) if self.ssm else bn(x)
+
+    def _forward_nhwc(self, x, maps, halo1, halo2, pos, grid):
+        act = activation_fn(self.leak)
+        out, halo1 = self.conv1(act(self._norm(self.bn1, x, maps)), halo1, pos, grid=grid)
+        out, halo2 = self.conv2(act(self._norm(self.bn2, out, maps)), halo2, pos, grid=grid)
+        sc = x
+        if self.conv3 is not None:
+            sc = self.conv3(self.bn3(x, maps) if self.ssm else x)
+        return out + sc, halo1, halo2
 
     def forward(self, x: torch.Tensor, halo1: Optional[SiteState] = None,
                 halo2: Optional[SiteState] = None, pos: Optional[GridPos] = None, *,
-                grid: tuple[int, int] = (3, 3), chw: bool = False):
-        if chw:
-            # channels-major tail (the generator gates it to leak 0): the BN
-            # folds and ReLUs run inside the conv kernels, the shortcut conv
-            # and the residual add in one K3 launch
+                grid: tuple[int, int] = (3, 3), chw: bool = False,
+                maps: Optional[torch.Tensor] = None):
+        if not chw:
+            return self._forward_nhwc(x, maps, halo1, halo2, pos, grid)
+        # channels-major tail (the generator gates it to leak 0). BN: the
+        # folds and ReLUs run inside the conv kernels. SSM (:562-585): the
+        # modulation runs outside them (its gamma|beta from K15), the conv
+        # takes the identity fold. The shortcut conv and the residual add
+        # run in one K3 launch.
+        if self.ssm:
+            a = self.bn1.chw(x, maps)
+            out, halo1 = self.conv1(a, halo1, pos, grid=grid, chw_fold=identity_fold(a))
+            a = self.bn2.chw(out, maps)
+            out, halo2 = self.conv2(a, halo2, pos, grid=grid, chw_fold=identity_fold(a))
+        else:
             out, halo1 = self.conv1(x, halo1, pos, grid=grid, chw_fold=(*self.bn1.fold(), True))
             out, halo2 = self.conv2(out, halo2, pos, grid=grid, chw_fold=(*self.bn2.fold(), True))
-            if self.conv3 is None:
-                return out + x, halo1, halo2
-            y = kernels.conv1x1_chw_add(x, self.conv3.weight, self.conv3.bias, out)
-            return y, halo1, halo2
-        act = activation_fn(self.leak)
-        out, halo1 = self.conv1(act(self.bn1(x)), halo1, pos, grid=grid)
-        out, halo2 = self.conv2(act(self.bn2(out)), halo2, pos, grid=grid)
-        sc = self.conv3(x) if self.conv3 is not None else x
-        return out + sc, halo1, halo2
+        if self.conv3 is None:
+            return out + x, halo1, halo2
+        sc = self.bn3.chw(x, maps) if self.ssm else x
+        y = kernels.conv1x1_chw_add(sc, self.conv3.weight, self.conv3.bias, out)
+        return y, halo1, halo2
 
     def forward_train(self, x: torch.Tensor, *, grid: tuple[int, int] = (3, 3),
                       chw: bool = False, in_stats: Optional[Stats] = None,
-                      fuse_up: bool = False):
+                      fuse_up: bool = False, maps: Optional[torch.Tensor] = None):
         """Train-mode block (batch statistics, running-stat updates).
         Returns (y, stats of y or None).
 
         Channels-major (the reference's unfused tail branch, :637-673): bn1
         folds from ``in_stats``, conv1 (K5) also returns the sums bn2 folds
         from, and the shortcut conv + residual add (K3) returns the block
-        output's sums for the next BatchNorm. With ``fuse_up`` (the fused
-        branch, :586-636) ``x`` arrives at half resolution: upsample -> bn1
-        -> ReLU -> conv1 run as one K9 launch, the 1x1 shortcut runs at half
-        resolution (it commutes with the upsample) and K10 joins its
-        upsample with the residual. NHWC (:683-719): flax-style train-mode
-        BatchNorms and XLA-style convs; no stats."""
-        if chw:
-            n = x.shape[0]
-            outer = self.conv1.outer_padding
+        output's sums for the next BatchNorm. SSM (:562-585, :653-674): the
+        same order with the SSM norms (bn1 and the shortcut's bn3 take
+        ``in_stats``, bn2 conv1's sums) and identity-folded convs. With
+        ``fuse_up`` (the fused BN branch, :586-636) ``x`` arrives at half
+        resolution: upsample -> bn1 -> ReLU -> conv1 run as one K9 launch,
+        the 1x1 shortcut runs at half resolution (it commutes with the
+        upsample) and K10 joins its upsample with the residual. NHWC
+        (:676-719): flax-style train-mode norms and XLA-style convs; no
+        stats."""
+        if not chw:
+            return self._forward_nhwc(x, maps, None, None, None, grid)[0], None
+        n = x.shape[0]
+        outer = self.conv1.outer_padding
+        w1, b1 = self.conv1.conv.weight, self.conv1.conv.bias
+        w2, b2 = self.conv2.conv.weight, self.conv2.conv.bias
+        if self.ssm:
+            a = self.bn1.chw(x, maps, in_stats)
+            out, s1, s2 = kernels.conv3x3_chw(a, w1, b1, *identity_fold(a), outer, want_stats=True)
+            a = self.bn2.chw(out, maps, (s1, s2, n * out.shape[2] * out.shape[3]))
+            out = kernels.conv3x3_chw(a, w2, b2, *identity_fold(a), outer)
+            sc = self.bn3.chw(x, maps, in_stats) if self.conv3 is not None else x
+        else:
             sc1, sh1 = self.bn1.train_fold(x, in_stats)
-            w1, b1 = self.conv1.conv.weight, self.conv1.conv.bias
             conv1 = kernels.upconv3x3_chw if fuse_up else kernels.conv3x3_chw
             out, s1, s2 = conv1(x, w1, b1, sc1, sh1, True, outer, want_stats=True)
             sc2, sh2 = self.bn2.train_fold(out, (s1, s2, n * out.shape[2] * out.shape[3]))
-            w2, b2 = self.conv2.conv.weight, self.conv2.conv.bias
             out = kernels.conv3x3_chw(out, w2, b2, sc2, sh2, True, outer)
+            sc = x
             if fuse_up:
                 s_half = x if self.conv3 is None else kernels.conv1x1_chw(
                     x, self.conv3.weight, self.conv3.bias)
                 y, s1, s2 = kernels.upsample2_chw_add(s_half, out, want_stats=True)
                 return y, (s1, s2, n * y.shape[2] * y.shape[3])
-            if self.conv3 is None:
-                return out + x, None
-            y, s1, s2 = kernels.conv1x1_chw_add(x, self.conv3.weight, self.conv3.bias, out,
-                                                want_stats=True)
-            return y, (s1, s2, n * y.shape[2] * y.shape[3])
-        act = activation_fn(self.leak)
-        out, _ = self.conv1(act(self.bn1(x)), grid=grid)
-        out, _ = self.conv2(act(self.bn2(out)), grid=grid)
-        sc = self.conv3(x) if self.conv3 is not None else x
-        return out + sc, None
+        if self.conv3 is None:
+            return out + x, None
+        y, s1, s2 = kernels.conv1x1_chw_add(sc, self.conv3.weight, self.conv3.bias, out,
+                                            want_stats=True)
+        return y, (s1, s2, n * y.shape[2] * y.shape[3])

@@ -66,6 +66,10 @@ SIGNATURES = {
     "itg_stem_dw": [_P] * 4 + [_I] * 6 + [_P],
     # g, w, dx, n, c, h, w, co, bf16, stream
     "itg_stem_dx": [_P] * 3 + [_I] * 6 + [_P],
+    # maps, w1, b1, w2c, b2, y, n, md, hid, h, w, co, bf16, stream
+    "itg_ssm_embed_fwd": [_P] * 6 + [_I] * 7 + [_P],
+    # maps, w1, b1, w2o, g, dw2, db2, dw1, db1, n, md, hid, h, w, co, bf16, stream
+    "itg_ssm_embed_bwd": [_P] * 9 + [_I] * 7 + [_P],
 }
 
 

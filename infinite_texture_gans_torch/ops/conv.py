@@ -1,7 +1,8 @@
 """Convolution primitive on NHWC tensors, with spectral normalisation.
 
 Port of ``infinite_texture_gans_tpu/ops/conv.py``: ``spectral_normalize``,
-``sn_kernel`` and ``Conv`` (:33-163). The reference stores HWIO kernels;
+``sn_kernel`` and ``Conv`` (:33-163), and the SSM embed's init
+(``models/layers.py:283-299``). The reference stores HWIO kernels;
 here the weight is a PyTorch OIHW parameter (``weights.from_jax_variables``
 transposes), and the NHWC activation is viewed as channels-last NCHW, so
 ``F.conv2d`` reads it without a copy. The generator's NHWC blocks, the start
@@ -93,6 +94,21 @@ class Conv(nn.Module):
         b = self.bias.to(x.dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.strides, self.padding)
         return y.permute(0, 2, 3, 1)
+
+
+def ssm_embed_init_(weight: torch.Tensor, in_channel: int) -> torch.Tensor:
+    """The SSM embed init of the reference (``models/layers.py:283-299``,
+    its quirk kept): on the (2C, hidden, 3, 3) weight, the input-channel
+    slice ``[:, :min(C, hidden)]`` is initialised orthogonally and every
+    other input channel is zero (the slice was meant to split gamma from
+    beta, but cuts input channels). PyTorch's draws, not jax.random's."""
+    cut = min(in_channel, weight.shape[1])
+    sub = torch.empty(weight.shape[0], cut, *weight.shape[2:])
+    nn.init.orthogonal_(sub)
+    with torch.no_grad():
+        weight.zero_()
+        weight[:, :cut] = sub
+    return weight
 
 
 def conv3x3(in_features: int, features: int, padding: int = 1) -> Conv:

@@ -2,7 +2,7 @@
 
 Counterpart of ``infinite_texture_gans_tpu/ops/pallas_conv.py``. Every
 function of the reference that reaches a Pallas kernel on the generation
-path or on the Experiment-1 training step (``--fuse_up auto`` and ``off``)
+path or on the training step (``--fuse_up auto`` and ``off``, BN and SSM)
 has a hand-written CUDA kernel in ``csrc/``:
 
 - K1/K5 ``conv3x3_chw`` (forward, with the optional per-channel Σy, Σy²
@@ -29,6 +29,10 @@ has a hand-written CUDA kernel in ``csrc/``:
 - K13 ``conv4x4s2_stem_chw``: the discriminator's conv0, forward
   ``stem_fwd`` :2769 ``_stem_fwd_call``, ``stem_dw`` :2840 ``_stem_dw_call``,
   ``stem_dx`` :2977 ``_stem_dx_call`` (csrc/stem4x4s2.cu).
+
+The SSM embed chain K15 (``pallas_ssm.py:343/:392``) lives in
+``ops/ssm.py`` (csrc/ssm_embed_chw.cu); its launches count here too, under
+``ssm_embed`` and ``ssm_embed_bwd``.
 
 The port carries no lane padding, so the reference's padded-carry forms
 (K11 ``conv1x1_chw_add_p``, ``conv1x1_chw_p``, K12 ``upsample2_chw_p``,
@@ -74,6 +78,9 @@ LAUNCHES = {
     "stem_fwd": 0,
     "stem_dw": 0,
     "stem_dx": 0,
+    # K15, the SSM embed chain (ops/ssm.py)
+    "ssm_embed": 0,
+    "ssm_embed_bwd": 0,
 }
 
 _DTYPES = (torch.float32, torch.bfloat16)

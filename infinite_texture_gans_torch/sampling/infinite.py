@@ -9,13 +9,14 @@ result equals one pass of the generator over the whole canvas
 ``SiteState`` tensors. Each group of canvas rows is overlap-trimmed and
 painted into a canvas on the device (re-generated right patch-columns and
 bottom patch-rows are dropped, the reference's crop protocol), and the
-finished canvas crosses to the host in one copy.
+finished canvas crosses to the host in one copy. An SSM generator's maps
+are windowed like z, one window per layer.
 """
 
 from __future__ import annotations
 
 from math import ceil
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -90,6 +91,7 @@ def generate_canvas(
     output_resolution_width: int = 384,
     num_images: int = 1,
     z_full: Optional[torch.Tensor] = None,
+    maps_full: Optional[List[torch.Tensor]] = None,
     progress: bool = False,
     row_group: Optional[int] = None,
     wire: str = "f32",
@@ -99,9 +101,10 @@ def generate_canvas(
 
     Returns a host array (N, out_h, out_w, img_ch): float32 in [-1, 1] for
     ``wire='f32'``, uint8 for ``wire='u8'`` (quantised on the device).
-    ``z_full`` may be passed (e.g. to compare with the one-pass oracle);
-    otherwise it is drawn with ``generator`` (a torch.Generator on the
-    generator's device, or None for the global one). ``row_group``: canvas
+    ``z_full`` (and for an SSM generator ``maps_full``, one map per layer)
+    may be passed (e.g. to compare with the one-pass oracle); otherwise they
+    are drawn with ``generator`` (a torch.Generator on the generator's
+    device, or None for the global one), z first. ``row_group``: canvas
     rows painted per band (None: all body rows in one band); it bounds how
     many sub-images are held on the device at once.
     """
@@ -118,6 +121,11 @@ def generate_canvas(
             generator, num_images, gen.z_dim, base, tot_h, tot_w, device=device
         )
     z_full = z_full.to(device)
+    if gen.type_norm == "SSM":
+        if maps_full is None:
+            maps_full = latents.build_maps_full(generator, num_images, gen.map_dim, gen.n_layers_G,
+                                                base, tot_h, tot_w, device=device)
+        maps_full = [m.to(device) for m in maps_full]
     halo = init_halo_state(
         gen.site_specs(), num_images, gh, gw, tot_w, dtype=gen.dtype, device=device
     )
@@ -132,12 +140,17 @@ def generate_canvas(
     for r0, n, kept_rows in dispatch_groups(steps_h, gh, P, row_group or steps_h):
         rows = []
         for r in range(r0, r0 + n):
-            strip = latents.row_strips(z_full, r, base, gh)
+            strip, map_strips = latents.row_strips(z_full, maps_full, r, base, gh)
             subs = []
             for c in range(steps_w):
                 c0 = c * (gw - 1) * base
                 z_sub = strip[:, :, c0 : c0 + gw * base + latents.Z_PAD]
-                out, halo = gen(z_sub, halo=halo, pos=GridPos(c, r == 0, c == 0))
+                maps_sub = None
+                if map_strips is not None:
+                    maps_sub = [m[:, :, c * (gw - 1) * (2**i) * base :
+                                  c * (gw - 1) * (2**i) * base + gw * (2**i) * base + latents.MAP_PAD]
+                                for i, m in enumerate(map_strips)]
+                out, halo = gen(z_sub, maps_sub, halo=halo, pos=GridPos(c, r == 0, c == 0))
                 subs.append(out)
             halo = {
                 name: rotate_rows(finalize_row(s, gen.outer_padding))
@@ -159,10 +172,13 @@ def generate_one_pass(
     z_full: torch.Tensor,
     total_patches_h: int = 3,
     total_patches_w: int = 3,
+    maps_full: Optional[List[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One-pass oracle: the generator run once over the whole canvas grid,
-    what the patch-by-patch engine must reproduce. Returns (N, H, W, C) on
-    the generator's device, in the generator's dtype."""
+    what the patch-by-patch engine must reproduce (``maps_full``: an SSM
+    generator's full-canvas maps). Returns (N, H, W, C) on the generator's
+    device, in the generator's dtype."""
     device = next(gen.parameters()).device
-    out, _ = gen(z_full.to(device), grid=(total_patches_h, total_patches_w))
+    maps = None if maps_full is None else [m.to(device) for m in maps_full]
+    out, _ = gen(z_full.to(device), maps, grid=(total_patches_h, total_patches_w))
     return out

@@ -3,12 +3,13 @@
 
 Port of ``infinite_texture_gans_tpu/train/train_loop.py: train`` in its
 per-step form: epochs of ``ceil(--sampling / --batch_size)`` steps, each
-step a batch of random crops drawn on the device and one fused G + D step
+step a batch of random crops, the latents (and an SSM generator's maps)
+drawn on the device and one fused G + D step
 (``train_step.py``), the epoch's mean losses printed and kept, and a
 ``.ckpt`` every ``--saving_rate`` epochs and at the end (plus
 ``<epochs>__ema.ckpt`` with ``--ema``), in the reference's format.
-Crops and latents come from one ``torch.Generator`` seeded with the run's
-seed (other numbers than the reference's ``jax.random`` keys).
+Crops, latents and maps come from one ``torch.Generator`` seeded with the
+run's seed (other numbers than the reference's ``jax.random`` keys).
 
 Not ported yet: the superstep (K steps per dispatch), the host prefetcher,
 meshes, multi-image data, resume and the loss plot. Runs on ``cuda`` unless
@@ -29,7 +30,7 @@ import torch
 from infinite_texture_gans_torch import resolve_device
 from infinite_texture_gans_torch.config import check_train_args, prepare_parser
 from infinite_texture_gans_torch.data.datasets import DeviceCropSampler, SingleImageDataset
-from infinite_texture_gans_torch.sampling.latents import build_train_z
+from infinite_texture_gans_torch.sampling.latents import build_train_maps, build_train_z
 from infinite_texture_gans_torch.train.checkpoint import save_checkpoint
 from infinite_texture_gans_torch.train.train_step import (
     TrainState,
@@ -95,7 +96,11 @@ def train(args: argparse.Namespace,
             real = sampler.sample(rng, args.batch_size)
             z = build_train_z(rng, args.num_images, G.z_dim, G.base_res,
                               G.num_patches_h, G.num_patches_w, device=device)
-            m = train_step(state, real, z, loss_type=args.loss, smooth=args.smooth,
+            maps = None
+            if G.type_norm == "SSM":
+                maps = build_train_maps(rng, args.num_images, G.map_dim, G.n_layers_G, G.base_res,
+                                        G.num_patches_h, G.num_patches_w, device=device)
+            m = train_step(state, real, z, maps, loss_type=args.loss, smooth=args.smooth,
                            ema_decay=args.ema_decay, use_ema=args.ema)
             d_sum = d_sum + m["d_loss_fake"] * args.num_images + m["d_loss_real"] * args.batch_size
             g_sum = g_sum + m["g_loss"] * args.num_images

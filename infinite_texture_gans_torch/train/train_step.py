@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import argparse
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -90,13 +90,15 @@ def create_train_state(args: argparse.Namespace, steps_per_epoch: int, device,
                       lr_schedule(args.lr_D, args.decay_lr, steps_per_epoch), ema)
 
 
-def train_step(state: TrainState, real_x: torch.Tensor, z: torch.Tensor, *,
-               loss_type: str = "standard", smooth: bool = False, ema_decay: float = 0.999,
+def train_step(state: TrainState, real_x: torch.Tensor, z: torch.Tensor,
+               maps: Optional[List[torch.Tensor]] = None, *, loss_type: str = "standard",
+               smooth: bool = False, ema_decay: float = 0.999,
                use_ema: bool = False) -> Dict[str, torch.Tensor]:
-    """One fused step on ``real_x`` (B, H, W, C) in [-1, 1] and the latent
-    ``z`` (the reference's ``build_train_z``). Updates ``state`` in place;
-    returns the three losses (0-d float32 tensors on the device). The
-    parameters keep this step's gradients in ``.grad``."""
+    """One fused step on ``real_x`` (B, H, W, C) in [-1, 1], the latent
+    ``z`` (the reference's ``build_train_z``) and, for an SSM generator, its
+    maps (``build_train_maps``). Updates ``state`` in place; returns the
+    three losses (0-d float32 tensors on the device). The parameters keep
+    this step's gradients in ``.grad``."""
     G, D = state.G, state.D
     label_t = 0.9 if smooth else 1.0
     wire = G.emits_chw() and G.img_ch == 3
@@ -106,7 +108,7 @@ def train_step(state: TrainState, real_x: torch.Tensor, z: torch.Tensor, *,
         for group in opt.param_groups:
             group["lr"] = lr_at(sched, state.step)
 
-    fake, _ = G(z, out_chw=wire)
+    fake, _ = G(z, maps, out_chw=wire)
 
     rl = D(real_x, update_sn=True)
     fl = D(fake.detach(), update_sn=True, chw_in=wire)

@@ -69,9 +69,9 @@ def test_latent_windows_match_jax():
             np.asarray(jax_latents.slice_sub_z(jnp.asarray(z), r, c, 4, 3, 3)),
         )
         strip, _ = jax_latents.row_strips(jnp.asarray(z), None, r, 4, 3)
-        np.testing.assert_array_equal(
-            latents.row_strips(torch.from_numpy(z), r, 4, 3).numpy(), np.asarray(strip)
-        )
+        got, no_maps = latents.row_strips(torch.from_numpy(z), None, r, 4, 3)
+        assert no_maps is None
+        np.testing.assert_array_equal(got.numpy(), np.asarray(strip))
     g = torch.Generator().manual_seed(0)
     assert latents.build_z_full(g, 2, 16, 4, 3, 5, device="cpu").shape == (2, 14, 22, 16)
 
@@ -102,8 +102,8 @@ def test_one_pass_matches_jax(small_tree, jax_tail, port_tail):
 
 
 def test_rejects_unported_options():
-    with pytest.raises(NotImplementedError):
-        ResidualPatchGenerator(**SMALL, type_norm="SSM")
+    with pytest.raises(NotImplementedError):  # zeros padding mode (SSM is ported)
+        ResidualPatchGenerator(**SMALL, padding_mode="zeros")
     with pytest.raises(NotImplementedError):
         generator_kwargs(dict_to_args({"fuse_up": "all"}))
     assert generator_kwargs(dict_to_args({"fuse_up": "off"}))["fuse_up"] == "off"

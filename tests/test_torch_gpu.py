@@ -318,3 +318,120 @@ def test_train_step_on_card_matches_cpu(cuda, monkeypatch, fuse_up):
         assert launches["conv3x3_chw_dx"] == launches["conv3x3_chw_dw"] == 2
         assert (launches["upconv3x3_chw"], launches["upconv3x3_chw_dx"], launches["upconv3x3_chw_dw"],
                 launches["upsample2_chw_add"], launches["upsample2_chw"]) == (1, 1, 1, 1, 0)
+
+
+# --- the SSM embed chain K15 (forward, backward) and the SSM generator -----
+# shapes n, md, h, w, hid, co: the models' hid 128 with H and W that are no
+# multiple of 8 or of the kernels' tiles, md 1 and 3, and tiny odd ones
+SSM_SHAPES = [(2, 1, 13, 45, 128, 19), (1, 3, 20, 37, 128, 104), (2, 3, 5, 7, 32, 8),
+              (1, 1, 1, 3, 16, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSM_SHAPES)
+def test_ssm_embed_kernels_match_plain(cuda, dtype, shape):
+    from infinite_texture_gans_torch.ops import ssm
+
+    n, md, h, w, hid, co = shape
+    gen = torch.Generator().manual_seed(9)
+    maps = torch.randn(n, md, h + 4, w + 4, generator=gen).to(cuda, dtype)
+    w1 = (torch.randn(hid, md, 3, 3, generator=gen) / (3 * md**0.5)).to(cuda)
+    b1 = (0.1 * torch.randn(hid, generator=gen)).to(cuda)
+    w2 = (torch.randn(co, hid, 3, 3, generator=gen) / (3 * hid**0.5)).to(cuda)
+    b2 = (0.1 * torch.randn(co, generator=gen)).to(cuda)
+    g = torch.randn(n, co, h, w, generator=gen).to(cuda, dtype)
+    tk.reset_launches()
+    _assert_close(ssm.ssm_embed(maps, w1, b1, w2, b2), ssm.ssm_embed_plain(maps, w1, b1, w2, b2))
+    for got, ref in zip(ssm.ssm_embed_bwd(maps, w1, b1, w2, g), ssm.ssm_embed_bwd_plain(maps, w1, b1, w2, g)):
+        _assert_sum_close(got, ref)
+    assert (tk.LAUNCHES["ssm_embed"], tk.LAUNCHES["ssm_embed_bwd"]) == (1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_embed_window_bit_equal(cuda, dtype):
+    """Each K15 output sums its products in one fixed order, so a window of
+    the maps gives the same bits as the same window of the whole output."""
+    from infinite_texture_gans_torch.ops import ssm
+
+    gen = torch.Generator().manual_seed(10)
+    maps = torch.randn(1, 1, 100 + 4, 150 + 4, generator=gen).to(cuda, dtype)
+    w1 = (torch.randn(128, 1, 3, 3, generator=gen) / 3).to(cuda)
+    b1 = (0.1 * torch.randn(128, generator=gen)).to(cuda)
+    w2 = (torch.randn(52, 128, 3, 3, generator=gen) / 34).to(cuda)
+    b2 = (0.1 * torch.randn(52, generator=gen)).to(cuda)
+    full = ssm.ssm_embed(maps, w1, b1, w2, b2)
+    for r0, c0, h, w in ((0, 0, 37, 61), (13, 29, 64, 96), (36, 54, 64, 96)):
+        win = ssm.ssm_embed(maps[..., r0 : r0 + h + 4, c0 : c0 + w + 4].contiguous(), w1, b1, w2, b2)
+        assert torch.equal(win, full[..., r0 : r0 + h, c0 : c0 + w]), (r0, c0)
+
+
+def _ssm_gen(cuda, gamma=0.0):
+    gen = ResidualPatchGenerator(z_dim=16, G_ch=8, n_layers_G=4, attention=True, type_norm="SSM", map_dim=2)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    with torch.no_grad():
+        for p in gen.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=g))
+        gen.attention.attn.gamma.fill_(gamma)
+    return gen.to(cuda).eval(), g
+
+
+def test_ssm_raster_canvas_on_card_equals_one_pass(cuda):
+    """K15 sums each output in one fixed order, so the raster's channels-
+    major SSM sites give the one pass's bits; the limit covers cuDNN's
+    algorithm choices in the NHWC blocks."""
+    from infinite_texture_gans_torch.sampling import latents
+
+    gen, g = _ssm_gen(cuda)
+    _, _, th, tw = canvas_geometry(160, 224, gen.patch_resolution, 3, 3)
+    z = torch.randn(1, th * 4 + 2, tw * 4 + 2, 16, generator=g)
+    maps = latents.build_maps_full(g, 1, 2, 4, 4, th, tw, device="cpu")
+    tk.reset_launches()
+    canvas = generate_canvas(gen, None, 160, 224, z_full=z, maps_full=maps)
+    assert tk.LAUNCHES["ssm_embed"] == 3 * 2 * 3  # block 4's three SSM sites, 2x3 steps
+    assert tk.LAUNCHES["chw_halo_step"] == 3 * 2 * 3
+    oracle = generate_one_pass(gen, z, th, tw, maps_full=maps)[:, :160, :224].cpu().numpy()
+    np.testing.assert_allclose(canvas, oracle, atol=5e-4, rtol=0)
+
+
+def test_ssm_train_step_on_card_matches_plain(cuda, monkeypatch):
+    """A tiny SSM step on the card with the kernels against the same step
+    with the tail's, K15's and the stem's plain versions, float32 with TF32
+    off."""
+    from infinite_texture_gans_torch.config import prepare_parser
+    from infinite_texture_gans_torch.ops import ssm
+    from infinite_texture_gans_torch.sampling.latents import build_train_maps
+    from infinite_texture_gans_torch.train.train_step import create_train_state, train_step
+
+    args = prepare_parser().parse_args(
+        ["--G_ch", "8", "--D_ch", "8", "--z_dim", "16", "--n_layers_G", "4", "--n_layers_D", "2",
+         "--padding_mode", "local", "--attention", "--spec_norm_D", "--num_images", "2",
+         "--type_norm_G", "SSM", "--map_dim", "2"])
+    gen = torch.Generator().manual_seed(6)
+    real = torch.rand(4, 48, 48, 3, generator=gen) * 2 - 1
+    z = torch.randn(2, 14, 14, 16, generator=gen)
+    maps = build_train_maps(gen, 2, 2, 4, 4, 3, 3, device="cpu")
+    out = {}
+    for run in ("cuda", "cuda plain"):
+        st = create_train_state(args, 4, cuda, seed=1)
+        tk.reset_launches()
+        with monkeypatch.context() as mp:
+            if run == "cuda plain":
+                for name in ("conv3x3_chw", "conv1x1_chw_add", "upsample2_chw"):
+                    mp.setattr(tk, name, getattr(tk, name.replace("_add", "") + "_plain"))
+                mp.setattr(tk, "conv4x4s2_stem_chw", tk.stem_fwd_plain)
+                mp.setattr(ssm, "ssm_embed", ssm.ssm_embed_plain)
+            m = train_step(st, real.to(cuda), z.to(cuda), [a.to(cuda) for a in maps], smooth=True)
+        out[run] = (m, {n: p.grad.cpu() for n, p in st.G.named_parameters()}, dict(tk.LAUNCHES))
+    for k, ref in out["cuda plain"][0].items():
+        assert abs(float(out["cuda"][0][k]) - float(ref)) <= 1e-4 * abs(float(ref)), k
+    want = out["cuda plain"][1]
+    top = max(float(r.abs().max()) for r in want.values())
+    for name, ref in want.items():
+        scale = float(ref.abs().max())
+        scale = top if scale < 1e-6 * top else scale
+        assert float((out["cuda"][1][name] - ref).abs().max()) <= 1e-3 * scale, name
+    assert not any(out["cuda plain"][2].values())
+    launches = out["cuda"][2]
+    # block 4's bn1, bn2, bn3; conv1 (stats), conv2, final; SSM never fuses
+    assert (launches["ssm_embed"], launches["ssm_embed_bwd"], launches["conv3x3_chw"]) == (3, 3, 3)
+    assert (launches["bn_corr"], launches["upsample2_chw"], launches["upconv3x3_chw"]) == (1, 1, 0)

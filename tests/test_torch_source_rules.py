@@ -15,7 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "infinite_texture_gans_tpu")
 
 
 def _port_sources():
-    return sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "step_parity_study.py"]
 
 
 def _imported_roots(path: Path):
@@ -34,7 +34,7 @@ def test_source_imports_no_jax(path):
 
 
 def test_package_imports_without_cuda_or_jax():
-    """Importing every module of the port (and chip_smoke) loads no JAX
+    """Importing every module of the port (and the card scripts) loads no JAX
     module, builds nothing and needs no card."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -42,7 +42,7 @@ def test_package_imports_without_cuda_or_jax():
         "import infinite_texture_gans_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, step_parity_study\n"
         f"bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "from infinite_texture_gans_torch.ops import _build\n"
@@ -62,7 +62,8 @@ def test_cuda_sources_target_sm90a():
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.FLAGS
     names = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert names == {"conv3x3_chw", "conv3x3_chw_bwd", "conv1x1_chw", "upsample2_chw", "stem4x4s2",
-                     "upconv3x3_chw"}
+                     "upconv3x3_chw", "ssm_embed_chw"}
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
-        assert "pallas_conv.py" in text and "bound" in text, src.name
+        site = "pallas_ssm.py" if src.stem == "ssm_embed_chw" else "pallas_conv.py"
+        assert site in text and "bound" in text, src.name
