@@ -11,6 +11,14 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    and of the SSM recipe at eval (blocks 4-5, identity-folded convs): one
    sub-image (the raster path; 384^2 and 192^2, timed) and, for K1, K3 and
    K4, the 768^2 one-pass grid too.
+2b. ``--fuse_up all`` at eval: K14 (K9's forward with the raster's cached
+   half-res borders) against its plain version at the flagship's three
+   fused conv1 sites of a 384^2 sub-image (blocks 4-6: 104 -> 52 at 48^2
+   half resolution, 52 -> 26 at 96^2, 26 -> 13 at 192^2) with no cache, a
+   top row, a left column and both; K9 (no stats), the half-res shortcut K3
+   and K10 (no stats) there and at the 768^2 one pass's grid; f32 and bf16,
+   both paddings; timed into the ``:gen_all`` rows with K1/K2 at the conv2
+   and final sites.
 3. Holds each training kernel (K5 stats, K6, K7, K8, K3 stats and dW, K4's
    adjoint, the K13 stem trio, and the fused up-conv K9 forward with and
    without stats, dx, dW and its residual join K10 with and without stats)
@@ -41,6 +49,13 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
      sub-images generated without the halo cache (which set the raster's
      seam limit), and, attention gate zeroed, the bf16 raster canvas held to
      the bf16 one pass.
+4b. The same generation phase for a freshly loaded flagship with
+   ``fuse_up='all'`` (one pass: K9 3, K1 4, K3 3, K10 3; per sub-image K14
+   3, K2 4, K3 3, K10 3); its canvases against the unfused engine's on the
+   same latents, gate zeroed (f32 768^2 held to the reference test's
+   tolerance, bf16 1024^2 in u8 levels); a 4096^2 canvas streamed into a
+   PNG (``sampling/stream.py``) and held byte-equal to the in-memory u8
+   canvas, both walls.
 5. Step parity: at full Experiment-1 width in float32 (TF32 off), under
    ``--fuse_up auto`` and ``off``, one fused training step from a fixed
    state with the kernels, and the same step with the tail and the stem on
@@ -60,8 +75,10 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    canvas K15 384, K2 320, K3 128, K4 128; the bf16 raster against the
    bf16 one pass is reported, not held: see CANVAS_U8_TOL); the sample CLI
    renders a PNG from the checkpoint.
-8. Prints the ``kernels`` JSON line (``:gen_ssm`` rows for K15, K1, K2, K3
-   and K4 per 192^2 SSM sub-image, and a ``:train_ssm`` row for every kernel
+8. Prints the ``kernels`` JSON line (``:gen_all`` rows for K1, K9, K14, K2,
+   K3 and K10 per 384^2 sub-image under ``--fuse_up all``, ``:gen_ssm`` rows
+   for K15, K1, K2, K3 and K4 per 192^2 SSM sub-image, and a ``:train_ssm``
+   row for every kernel
    of the SSM step among them), the card line, and last ``{"ok": true,
    "device": {...}}``.
 
@@ -137,6 +154,15 @@ def tail_shapes(plan, base, gh, gw):
     return conv3, conv1, up2
 
 
+def fused_shapes(plan, base, gh, gw):
+    """The fused blocks' shapes under ``--fuse_up all`` (N = 1) for a merged
+    grid of gh x gw patches: (C, Co, H/2, W/2), the half-resolution input
+    of each tail block (blocks 4 on: every one is past block 1, so each
+    fuses)."""
+    return [(cin, cout, gh * base * 2 ** (i - 2), gw * base * 2 ** (i - 2))
+            for i, (cin, cout) in enumerate(plan, start=1) if i > 3]
+
+
 def exp1_shapes(plan, base):
     """The Experiment-1 step's tail shapes (N = EXP1_N): conv3x3 (C, Co, H, W,
     with stats), conv1x1 (C, Co, H, W) and the upsample's input (C, H, W),
@@ -167,6 +193,7 @@ KERNELS = {
     "upconv3x3_chw": ("K9", "upconv3x3_chw.cu", "pallas_conv.py:1457"),
     "upconv3x3_chw_dx": ("K9-dx", "upconv3x3_chw.cu", "pallas_conv.py:1642"),
     "upconv3x3_chw_dw": ("K9-dW", "upconv3x3_chw.cu", "pallas_conv.py:1777"),
+    "chw_upconv_halo_step": ("K14", "upconv3x3_chw.cu", "pallas_conv.py:2019"),
     "upsample2_chw_add": ("K10", "upsample2_chw.cu", "pallas_conv.py:2199"),
     "stem_fwd": ("K13", "stem4x4s2.cu", "pallas_conv.py:2769"),
     "stem_dw": ("K13-dW", "stem4x4s2.cu", "pallas_conv.py:2840"),
@@ -182,7 +209,21 @@ GEN_KERNELS = ("conv3x3_chw", "chw_halo_step", "conv1x1_chw", "upsample2_chw")
 # folds inside K2) and the SSM recipe's at eval (blocks 4-5: K15 at bn1, bn2
 # and the shortcut's bn3 of each, identity-folded K2)
 GEN_PER_SUB = {"flagship": {"chw_halo_step": 7, "conv1x1_chw": 3, "upsample2_chw": 3},
-               "SSM": {"ssm_embed": 6, "chw_halo_step": 5, "conv1x1_chw": 2, "upsample2_chw": 2}}
+               "SSM": {"ssm_embed": 6, "chw_halo_step": 5, "conv1x1_chw": 2, "upsample2_chw": 2},
+               # --fuse_up all: blocks 4-6 fuse; K14 at their conv1, K2 at conv2
+               # and the final conv, the half-res shortcut K3 and K10's join
+               "all": {"chw_upconv_halo_step": 3, "chw_halo_step": 4, "conv1x1_chw": 3,
+                       "upsample2_chw_add": 3}}
+# the --fuse_up all generation path's kernels (K1 and K9 on the one pass, the
+# rest on the raster) and its one-pass launches
+GEN_ALL_KERNELS = ("conv3x3_chw", "upconv3x3_chw", "chw_upconv_halo_step", "chw_halo_step",
+                   "conv1x1_chw", "upsample2_chw_add")
+ALL_ONE_PASS = {"upconv3x3_chw": 3, "conv3x3_chw": 4, "conv1x1_chw": 3, "upsample2_chw_add": 3}
+# 'all' against the unfused engine, f32 canvas: the reference test's own
+# tolerance (tests/test_upconv.py:345; the fused kernels regroup additions)
+FUSE_ALL_ATOL, FUSE_ALL_RTOL = 5e-4, 1e-3
+# the streamed canvas (one side in pixels): 16 x 16 sub-images of 384^2
+STREAM_SIZE = 4096
 
 # The Experiment-1 step (README quick start; --fuse_up auto, the default):
 # N = 8 fake 384^2 grids, tail blocks 5 (52 -> 26 at 192^2) and 6 (26 -> 13
@@ -782,6 +823,81 @@ def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, 
     return one_launches, raster_launches, statistics.median(walls)
 
 
+def fuse_all_vs_unfused(dev, gen_all, args, gen_unfused, sync) -> None:
+    """The flagship under --fuse_up all against the unfused engine on the
+    same latents, attention gate zeroed in both: float32 768^2 held to the
+    reference test's tolerance, bf16 1024^2 reported in u8 levels."""
+    import numpy as np
+    import torch
+
+    from infinite_texture_gans_torch.config import generator_kwargs
+    from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
+    from infinite_texture_gans_torch.sampling.infinite import canvas_geometry, generate_canvas
+    from infinite_texture_gans_torch.sampling.latents import build_z_full
+
+    with torch.no_grad():
+        for g in (gen_all, gen_unfused):
+            g.attention.attn.gamma.zero_()
+    twins = []
+    for g in (gen_all, gen_unfused):
+        t = ResidualPatchGenerator(**{**generator_kwargs(args), "fuse_up": g.fuse_up,
+                                      "dtype": torch.float32})
+        t.load_state_dict(g.state_dict(), strict=True)
+        twins.append(t.to(dev).eval())
+    _, _, th, tw = canvas_geometry(768, 768, gen_all.patch_resolution, GRID, GRID)
+    z = build_z_full(torch.Generator(device=dev).manual_seed(5), 1, gen_all.z_dim, gen_all.base_res,
+                     th, tw, device=dev)
+    fused, unfused = (generate_canvas(t, None, 768, 768, z_full=z) for t in twins)
+    sync()
+    d = np.abs(fused - unfused)
+    excess = float((d - (FUSE_ALL_ATOL + FUSE_ALL_RTOL * np.abs(unfused))).max())
+    print(f"[canvas fuse_up all vs unfused, f32 768^2, gate zeroed] max abs {d.max():.3e}, mean abs "
+          f"{d.mean():.3e}; limit atol {FUSE_ALL_ATOL:g} + rtol {FUSE_ALL_RTOL:g} (the reference "
+          "test's: the combined 2x2 kernels regroup float32 additions)")
+    if not excess <= 0:
+        fail(f"the --fuse_up all canvas differs from the unfused one by {d.max()} (f32)")
+    del twins
+    fused, unfused = (generate_canvas(g, torch.Generator(device=dev).manual_seed(21), 1024, 1024,
+                                      wire="u8").astype(np.int16) for g in (gen_all, gen_unfused))
+    d = np.abs(fused - unfused)
+    print(f"[canvas fuse_up all vs unfused, bf16 1024^2 u8, gate zeroed] max {int(d.max())} levels, "
+          f"{np.count_nonzero(d)} of {d.size} values differ (reported: bf16 roundings of "
+          "regrouped sums carried through the tail)")
+
+
+def stream_phase(dev, gen, card, sync) -> None:
+    """A STREAM_SIZE^2 bf16 canvas under --fuse_up all through
+    ``generate_canvas_streamed`` into a PNG under build/, decoded with zlib
+    and held byte-equal to ``generate_canvas(wire='u8')`` of the same seed;
+    both walls."""
+    import numpy as np
+    import torch
+
+    from infinite_texture_gans_torch.sampling.infinite import generate_canvas
+    from infinite_texture_gans_torch.sampling.stream import generate_canvas_streamed, read_png
+
+    png = ROOT / "build" / "smoke_stream_all.png"
+    png.parent.mkdir(exist_ok=True)
+    size = STREAM_SIZE
+    sync()
+    t1 = time.perf_counter()
+    generate_canvas_streamed(gen, torch.Generator(device=dev).manual_seed(31), size, size, str(png))
+    sync()
+    stream_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    mem = generate_canvas(gen, torch.Generator(device=dev).manual_seed(31), size, size, wire="u8")
+    sync()
+    mem_s = time.perf_counter() - t1
+    got = read_png(str(png))
+    nbytes = png.stat().st_size
+    png.unlink()
+    print(f"[stream] fuse_up all {size}^2 bf16: streamed PNG {stream_s:.4f} s wall ({nbytes} bytes, "
+          f"encoding included), in-memory u8 canvas {mem_s:.4f} s wall (no encoding) [{card}]")
+    if got.shape != mem.shape[1:] or not np.array_equal(got, mem[0]):
+        fail(f"the streamed {size}^2 PNG differs from the in-memory u8 canvas")
+    print(f"[stream] the decoded PNG equals the in-memory canvas byte for byte ({got.shape})")
+
+
 def main() -> int:
     import torch
 
@@ -867,6 +983,7 @@ def main() -> int:
                         library_ms=0.0, nbytes=0.0, flops=0.0, calls=0) for k in KERNELS}
 
     stats = table()  # per 384^2 sub-image (generation)
+    astats = table()  # per 384^2 sub-image (generation under --fuse_up all)
     gstats = table()  # per 192^2 SSM sub-image (SSM generation)
     tstats = {tail: table() for tail in STEP_LAUNCHES}  # per training step, each tail
 
@@ -911,16 +1028,18 @@ def main() -> int:
         return x, wt, b, sc, sh, top, left
 
     def account(name, shape_s, kernel_fn, plain_fn, lib_fn, nbytes, flops, tails=(), count=1,
-                into=None):
+                into=None, also=None):
         """Time the kernel, its plain version and the library call (bf16,
         device time from CUDA-graph replay, per call) and add ``count`` calls
         to the kernel's sums: per sub-image without ``tails`` (in ``into``,
-        the flagship's table by default), else per step of each training
-        tail named (a shape both tails run goes into both)."""
+        the flagship's table by default, and in ``also`` where another path
+        runs the same shape), else per step of each training tail named (a
+        shape both tails run goes into both)."""
         ms, plain, lib = device_ms(kernel_fn), device_ms(plain_fn), device_ms(lib_fn)
         eager = eager_ms(kernel_fn)
         b = bound_ms(nbytes, flops)
-        for s in [tstats[t][name] for t in tails] or [(into or stats)[name]]:
+        targets = [tstats[t][name] for t in tails] or [(into or stats)[name]]
+        for s in targets + ([also[name]] if also is not None else []):
             s["ms"] += count * ms
             s["eager_ms"] += count * eager
             s["plain_ms"] += count * plain
@@ -981,17 +1100,21 @@ def main() -> int:
                 flops = 2.0 * co * c * 9 * h * w
                 a_pad = F.pad(kernels.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
                 wl, bl = wt.to(dtype), b.to(dtype)
+                # under --fuse_up all the flagship's conv2 and final sites
+                # stay (K1 on the one pass, K2 on the raster); every conv1
+                # of the tail fuses (phase 2b)
+                also = astats if into is stats and (i % 2 or i == len(conv3) - 1) else None
                 account("conv3x3_chw", shape_s,
                         lambda: kernels.conv3x3_chw(x, wt, b, sc, sh, True),
                         lambda: kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True),
-                        lambda: F.conv2d(a_pad, wl, bl), act_bytes, flops, into=into)
+                        lambda: F.conv2d(a_pad, wl, bl), act_bytes, flops, into=into, also=also)
                 halo_bytes = act_bytes + (h + w + 2) * c * es
                 account("chw_halo_step", shape_s,
                         lambda: kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate",
                                                          top, left),
                         lambda: kernels.conv3x3_chw_halo_plain(x, wt, b, sc, sh, True,
                                                                "replicate", top, left),
-                        lambda: F.conv2d(a_pad, wl, bl), halo_bytes, flops, into=into)
+                        lambda: F.conv2d(a_pad, wl, bl), halo_bytes, flops, into=into, also=also)
 
         for i, (c, co, h, w) in enumerate(conv1):
             for dtype in (torch.float32, torch.bfloat16):
@@ -1033,6 +1156,87 @@ def main() -> int:
                         lambda: F.interpolate(x, scale_factor=2, mode="nearest"), nbytes, 0.0,
                         into=into)
     print(f"[phase 2] kernel checks and timings in {time.perf_counter() - t0:.1f} s")
+
+    # -- 2b. the --fuse_up all eval kernels: K14 at the flagship's three fused
+    # conv1 sites of a 384^2 sub-image in four border cases, and K9 (no
+    # stats), the half-res shortcut K3 and K10 (no stats) there (timed into
+    # ``astats``) and at the 768^2 one pass's grid (checked)
+    t0 = time.perf_counter()
+    print("[tolerance] chw_upconv_halo_step (K14) against its plain version (the bordered "
+          "post-norm half-res slab, nearest-2x, F.conv2d; no phase algebra): the f32/bf16 limits "
+          "above, as K9's; K10 bit-equal")
+    _, _, th7, tw7 = canvas_geometry(768, 768, base * 2 ** (len(plan) - 1), GRID, GRID)
+    borders = {"no cache": (False, False), "top only": (True, False), "left only": (False, True),
+               "top and left": (True, True)}
+    for where, shapes, timed in (("sub-image", fused_shapes(plan, base, GRID, GRID), True),
+                                 (f"one-pass {th7}x{tw7}", fused_shapes(plan, base, th7, tw7), False)):
+        for i, (c, co, h, w) in enumerate(shapes):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, wt, b, sc, sh, top, left = conv3_inputs(c, co, h, w, dtype, 1000 + i)
+                g_ = torch.Generator(device=dev).manual_seed(1100 + i)
+                w3 = randn(g_, co, c, 1, 1) * c ** -0.5
+                b3 = 0.1 * randn(g_, co)
+                s_half = randn(g_, 1, co, h, w).to(dtype)
+                res = randn(g_, 1, co, 2 * h, 2 * w).to(dtype)
+                shape_s = f"{c}->{co} @{h}x{w} -> {2 * h}x{2 * w}"
+                for outer in ("replicate", "constant"):
+                    if timed:
+                        for case, (t_, l_) in borders.items():
+                            tb, lb = (top if t_ else None), (left if l_ else None)
+                            compare("chw_upconv_halo_step", f"all {where} {shape_s} {outer} {case}",
+                                    kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, tb, lb),
+                                    kernels.upconv3x3_chw_halo_plain(x, wt, b, sc, sh, True, outer,
+                                                                     tb, lb))
+                    compare("upconv3x3_chw", f"all {where} {shape_s} {outer}",
+                            kernels.upconv3x3_chw(x, wt, b, sc, sh, True, outer),
+                            kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, outer))
+                compare("conv1x1_chw", f"all {where} shortcut {c}->{co} @{h}x{w}",
+                        kernels.conv1x1_chw(x, w3, b3), kernels.conv1x1_chw_plain(x, w3, b3))
+                k10_s = f"(1, {co}, {h}x{w}) + (1, {co}, {2 * h}x{2 * w})"
+                compare("upsample2_chw_add", f"all {where} {k10_s}",
+                        kernels.upsample2_chw_add(s_half, res),
+                        kernels.upsample2_chw_add_plain(s_half, res), exact=True)
+                if not timed or dtype != torch.bfloat16:
+                    continue
+                es = x.element_size()
+                wbytes = (co * c * 9 + co + 2 * c) * 4
+                flops = 2.0 * co * c * 16 * h * w  # four phases of 2x2 taps
+                io = (c + 4 * co) * h * w * es
+                wl, bl, w3l, b3l = wt.to(dtype), b.to(dtype), w3.to(dtype), b3.to(dtype)
+                slab = kernels._halo_padded(x, sc, sh, True, "replicate", top, left)
+                a_half = kernels.prenorm(x, sc, sh, True)
+                account("chw_upconv_halo_step", shape_s,
+                        lambda: kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate",
+                                                           top, left),
+                        lambda: kernels.upconv3x3_chw_halo_plain(x, wt, b, sc, sh, True,
+                                                                 "replicate", top, left),
+                        lambda: F.conv2d(F.interpolate(slab, scale_factor=2, mode="nearest")
+                                         [..., 1:-1, 1:-1], wl, bl),
+                        io + (h + w + 2) * c * es + wbytes, flops, into=astats)
+                account("upconv3x3_chw", shape_s,
+                        lambda: kernels.upconv3x3_chw(x, wt, b, sc, sh, True),
+                        lambda: kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True),
+                        lambda: F.conv2d(F.interpolate(a_half, scale_factor=2, mode="nearest"), wl,
+                                         bl, padding=1), io + wbytes, flops, into=astats)
+                account("conv1x1_chw", f"shortcut {c}->{co} @{h}x{w}",
+                        lambda: kernels.conv1x1_chw(x, w3, b3),
+                        lambda: kernels.conv1x1_chw_plain(x, w3, b3), lambda: F.conv2d(x, w3l, b3l),
+                        (c + co) * h * w * es + (co * c + co) * 4, 2.0 * co * c * h * w, into=astats)
+                account("upsample2_chw_add", k10_s, lambda: kernels.upsample2_chw_add(s_half, res),
+                        lambda: kernels.upsample2_chw_add_plain(s_half, res),
+                        lambda: torch.add(F.interpolate(s_half, scale_factor=2, mode="nearest"), res),
+                        9 * co * h * w * es, 4.0 * co * h * w, into=astats)
+    print("[library] K14: F.interpolate of the bordered post-norm half-res slab, one full-res ring "
+          "cropped, then F.conv2d (two calls); K9 (eval): F.interpolate then F.conv2d, zero "
+          "padding; K10 (eval): F.interpolate then add")
+    # the timed calls per sub-image are the 'all' raster's launches (K1 and
+    # K9, timed at the sub-image's shapes, run on the one pass instead)
+    want = {**dict.fromkeys(KERNELS, 0), **GEN_PER_SUB["all"]}
+    timed_calls = {k: 0 if k in ("conv3x3_chw", "upconv3x3_chw") else s_["calls"]
+                   for k, s_ in astats.items()}
+    if timed_calls != want or astats["upconv3x3_chw"]["calls"] != ALL_ONE_PASS["upconv3x3_chw"]:
+        fail(f"phase 2b timed {timed_calls} --fuse_up all calls per sub-image, not {want}")
+    print(f"[phase 2b] --fuse_up all kernel checks and timings in {time.perf_counter() - t0:.1f} s")
 
     # -- 3. training kernels against their plain versions, Experiment-1 shapes
     t0 = time.perf_counter()
@@ -1549,6 +1753,23 @@ def main() -> int:
         dev, gen, args, "flagship", {"conv3x3_chw": 7, "conv1x1_chw": 3, "upsample2_chw": 3},
         GEN_PER_SUB["flagship"], 16, card, sync)
     print(f"[phase 4] checkpoint phases in {time.perf_counter() - t0:.1f} s")
+    del gen
+
+    # -- 4b. --fuse_up all: a freshly loaded flagship through the fused eval
+    # engines (K9 on the one pass, K14 with half-res conv1 caches in the
+    # raster), then against the unfused engine, then streamed
+    t0 = time.perf_counter()
+    gen, args = load_generator_from_checkpoint(str(CKPT), device=dev, ckpt=ckpt, fuse_up="all")
+    if args.fuse_up != "all" or gen.eval_fuse_blocks() != {4, 5, 6}:
+        fail(f"--fuse_up all fuses blocks {sorted(gen.eval_fuse_blocks())}, not 4-6")
+    all_one_pass, all_raster, _ = generation_phase(
+        dev, gen, args, "flagship --fuse_up all", ALL_ONE_PASS, GEN_PER_SUB["all"], 16, card, sync)
+    fuse_all_vs_unfused(dev, gen, args, load_generator_from_checkpoint(
+        str(CKPT), device=dev, ckpt=ckpt)[0], sync)
+    del gen
+    gen, _ = load_generator_from_checkpoint(str(CKPT), device=dev, ckpt=ckpt, fuse_up="all")
+    stream_phase(dev, gen, card, sync)
+    print(f"[phase 4b] --fuse_up all generation in {time.perf_counter() - t0:.1f} s")
     del gen, ckpt
 
     # -- 5. step parity: kernels against plain versions, full width, f32 ------
@@ -1601,13 +1822,18 @@ def main() -> int:
     print(f"[phase 7] SSM generation in {time.perf_counter() - t0:.1f} s")
 
     # -- 8. report ------------------------------------------------------------
-    # K1 runs on the one pass, the other generation kernels on the raster
-    gen_launches = {label: {k: (one if k == "conv3x3_chw" else raster)[k] for k in KERNELS}
+    # K1 (and under --fuse_up all K9) runs on the one pass, the other
+    # generation kernels on the raster
+    gen_launches = {label: {k: (one if k in ("conv3x3_chw", "upconv3x3_chw") else raster)[k]
+                            for k in KERNELS}
                     for label, one, raster in (("flagship", one_pass_launches, raster_launches),
+                                               ("all", all_one_pass, all_raster),
                                                ("SSM", ssm_one_pass, ssm_raster))}
     rows = []
     paths = [("generation", "", GEN_KERNELS, stats, gen_launches["flagship"],
               "per 384^2 sub-image"),
+             ("generation --fuse_up all", ":gen_all", GEN_ALL_KERNELS, astats,
+              gen_launches["all"], "per 384^2 sub-image under --fuse_up all"),
              ("generation SSM", ":gen_ssm", ("ssm_embed",) + GEN_KERNELS, gstats,
               gen_launches["SSM"], "per 192^2 SSM sub-image")]
     paths += [(TRAIN_PATHS[tail][0], f":train_{tail}", [k for k, v in want.items() if v],

@@ -8,7 +8,8 @@ convolutions and the hand-written CUDA kernels of ``csrc/``), ``models/``,
 
 This package ports the generation path (a trained checkpoint is loaded,
 rebuilt as an eval-mode generator and run through the halo-cache raster
-engine) and the Experiment-1 training step (``train/train_loop.py``, which
+engine, in memory or streamed into a PNG, fused under the sample CLI's
+``--fuse_up all``) and the training step (``train/train_loop.py``, which
 writes checkpoints in the reference's format), whose train CLI defaults to
 the reference's ``--fuse_up auto`` (the subpixel-fused up-conv tail) and
 also takes ``off``. Entry points run on ``cuda`` unless the caller passes

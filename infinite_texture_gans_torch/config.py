@@ -121,13 +121,11 @@ def generator_kwargs(args: argparse.Namespace) -> Dict[str, Any]:
 
     The stored ``chw_tail`` is the reference's TPU placement flag and is not
     read: the port's generator picks its tail itself. ``fuse_up`` 'auto' or
-    'off' selects the training tail (at eval both run unfused); 'all' (the
-    fused eval up-conv, K14 ``chw_upconv_halo_step``) is not ported yet and
-    is refused."""
-    if args.fuse_up not in ("auto", "off"):
-        raise NotImplementedError(
-            f"fuse_up={args.fuse_up!r}: the fused eval up-conv (K14 chw_upconv_halo_step) "
-            "is not ported yet; use 'auto' or 'off'")
+    'off' selects the training tail (at eval both run unfused); 'all' trains
+    as 'auto' and also fuses the eval tail (K9 on the one pass, K14
+    ``chw_upconv_halo_step`` in the raster engine). The train CLI offers
+    'auto' and 'off', as the reference's does; the sample CLI's
+    ``--fuse_up`` sets 'all'."""
     return dict(
         z_dim=args.z_dim,
         G_ch=args.G_ch,

@@ -1,12 +1,21 @@
-// The subpixel-fused up-conv of the generator's training tail, forward and
-// backward, on channels-major activations: x (N, C, H, W) at HALF
-// resolution, y (N, Co, 2H, 2W).
+// The subpixel-fused up-conv of the generator's tail, forward and backward,
+// on channels-major activations: x (N, C, H, W) at HALF resolution, y (N, Co,
+// 2H, 2W).
 //
-// Replaces three TPU kernels of infinite_texture_gans_tpu/ops/pallas_conv.py
-// (K9, upconv3x3_chw_p :1804):
+// Replaces four TPU kernels of infinite_texture_gans_tpu/ops/pallas_conv.py
+// (K9, upconv3x3_chw_p :1804; K14, chw_upconv_halo_step :2032):
 //   forward _upconv3x3_fwd (:1457, kernel _upconv_kernel :1366):
 //      y = conv3x3(pad1(up2(act(scale * x + shift)))) + b, with the optional
 //      float32 per-channel sums of the STORED y and y^2 (as K5);
+//   K14 _upconv3x3_fwd_halo (:2019, kernel _upconv_halo_kernel :1879): the
+//      same forward inside the raster engine (--fuse_up all at eval), whose
+//      half-res top row (C, W + 2, corners included) and left column (C, H)
+//      come post-norm from the halo cache. The full-res halo row of the
+//      unfused site is the half-res one doubled, so the border is assembled
+//      on the half-res slab exactly as K2 assembles it (conv3x3_chw.cu). One
+//      kernel body serves K9 and K14: every output sums its (channel, phase
+//      tap) products in one order wherever its tile lies, so the raster
+//      gives the one pass's bits;
 //   dx _upconv3x3_dx (:1642, kernel _updx_kernel :1491): dx, d(scale),
 //      d(shift) of the forward;
 //   dW _upconv3x3_dw (:1777, kernel _updw_kernel :1673): dW and db.
@@ -24,14 +33,16 @@
 // conv's multiply-adds and never stores the 4x upsampled activation.
 //
 // What bounds them on the H100: at the Experiment-1 shapes (52 -> 26 at a
-// 96^2 half resolution, 26 -> 13 at 192^2, N = 8) the work is 2 * 16 * C * Co
-// FLOPs per half-res pixel against 2 * (C + 4 Co) bytes in bf16, so the
-// dense bound is bytes. These first kernels run on the CUDA cores in
-// float32 and are bound by FMA issue and shared-memory traffic.
+// 96^2 half resolution, 26 -> 13 at 192^2, N = 8) and the flagship's eval
+// shapes (104 -> 52 at 48^2 ... 26 -> 13 at 192^2, N = 1) the work is
+// 2 * 16 * C * Co FLOPs per half-res pixel against 2 * (C + 4 Co) bytes in
+// bf16, so the dense bound is bytes. These first kernels run on the CUDA
+// cores in float32 and are bound by FMA issue and shared-memory traffic.
 // What the designs do about it:
-//   forward: K1's scheme at half resolution. A block normalises a 32 x 8
-//      half-res tile of 8 input channels, with its one-pixel border, into
-//      shared memory; each thread reads its 3 x 3 window once and feeds all
+//   forward (K9 and K14): K1's scheme at half resolution. A block normalises
+//      a 32 x 8 half-res tile of 8 input channels, with its one-pixel border
+//      (K14: the cached cells where given), into shared memory; each thread
+//      reads its 3 x 3 window once and feeds all
 //      four phases of up to 16 output channels (16 * TCO FMAs per staged
 //      window) from float4 weight broadcasts; it writes its 2 x 2 output
 //      block and, with stats, adds the block's sums with one atomicAdd per
@@ -61,20 +72,37 @@ constexpr int kThreads = 256;
 constexpr int kTileW = 32;  // half-res tile of the forward and dx
 constexpr int kTileH = 8;
 
-// Post-norm value of the half-res slab at row r in [-1, H], column j in
-// [-1, W]: the own edge (replicate) or zero outside; rows and columns past
-// those (ragged tiles) only feed outputs that are never stored.
+// The half-res input of one image and its border.
 template <typename T>
-__device__ __forceinline__ float slab(const T* x, const float* scale, const float* shift, int c,
-                                      int r, int j, int H, int W, int relu, int zeros) {
-  if (zeros) {
-    if (r < 0 || r >= H || j < 0 || j >= W) return 0.f;
+struct Slab {
+  const T* x;     // (C, H, W), raw
+  const T* top;   // (C, W + 2) post-norm row -1, corners included, or nullptr
+  const T* left;  // (C, H) post-norm column -1, or nullptr
+  const float* scale;
+  const float* shift;
+  int C, H, W, relu, zeros;
+};
+
+// Post-norm value of the padded half-res slab at row r in [-1, H], column j
+// in [-1, W]: K2's border (conv3x3_chw.cu: padded). Row -1 comes from `top`
+// and column -1 from `left` where given; every other border cell is the own
+// edge (replicate) or zero. Rows and columns past those (ragged tiles) are
+// clamped and only feed outputs that are never stored.
+template <typename T>
+__device__ __forceinline__ float slab(const Slab<T>& s, int c, int r, int j) {
+  r = min(r, s.H);
+  j = min(j, s.W);
+  if (r < 0 && s.top) return to_f32<T>(s.top[static_cast<size_t>(c) * (s.W + 2) + j + 1]);
+  if (s.zeros) {
+    if (r < 0 || r >= s.H || j >= s.W) return 0.f;
+    if (j < 0) return s.left ? to_f32<T>(s.left[static_cast<size_t>(c) * s.H + r]) : 0.f;
   } else {
-    r = min(max(r, 0), H - 1);
-    j = min(max(j, 0), W - 1);
+    r = min(max(r, 0), s.H - 1);
+    if (j < 0 && s.left) return to_f32<T>(s.left[static_cast<size_t>(c) * s.H + r]);
+    j = min(max(j, 0), s.W - 1);
   }
-  return itg::prenorm<T>(to_f32<T>(x[(static_cast<size_t>(c) * H + r) * W + j]), scale[c],
-                         shift[c], relu);
+  return itg::prenorm<T>(to_f32<T>(s.x[(static_cast<size_t>(c) * s.H + r) * s.W + j]), s.scale[c],
+                         s.shift[c], s.relu);
 }
 
 // ---------------------------------------------------------------------------
@@ -87,7 +115,8 @@ template <typename T, int TCO>
 __global__ void __launch_bounds__(kThreads)
 upconv_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wc,
                   const float* __restrict__ bias, const float* __restrict__ scale,
-                  const float* __restrict__ shift, T* __restrict__ y, float* __restrict__ s1,
+                  const float* __restrict__ shift, const T* __restrict__ top,
+                  const T* __restrict__ left, T* __restrict__ y, float* __restrict__ s1,
                   float* __restrict__ s2, int C, int H, int W, int Co, int relu, int zeros) {
   __shared__ float s_in[kChunk][kTileH + 2][kTileW + 2];
   __shared__ __align__(16) float s_w[kChunk][16][TCO];
@@ -101,7 +130,10 @@ upconv_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wc,
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int tid = ty * kTileW + tx;
-  const T* xn = x + static_cast<size_t>(n) * C * H * W;
+  const Slab<T> src{x + static_cast<size_t>(n) * C * H * W,
+                    top ? top + static_cast<size_t>(n) * C * (W + 2) : nullptr,
+                    left ? left + static_cast<size_t>(n) * C * H : nullptr,
+                    scale, shift, C, H, W, relu, zeros};
 
   float acc[4][TCO];
 #pragma unroll
@@ -116,8 +148,7 @@ upconv_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wc,
       const int r = (i % kTile) / (kTileW + 2);
       const int j = (i % kTile) % (kTileW + 2);
       const int c = c0 + cc;
-      s_in[cc][r][j] = c < C ? slab(xn, scale, shift, c, ty0 + r - 1, tx0 + j - 1, H, W, relu, zeros)
-                             : 0.f;
+      s_in[cc][r][j] = c < C ? slab(src, c, ty0 + r - 1, tx0 + j - 1) : 0.f;
     }
     for (int i = tid; i < kChunk * 16 * TCO; i += kThreads) {
       const int cc = i / (16 * TCO);
@@ -184,24 +215,26 @@ upconv_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wc,
 
 template <typename T, int TCO>
 int launch_fwd(const void* x, const float* wc, const float* b, const float* scale,
-               const float* shift, void* y, float* s1, float* s2, int n, int c, int h, int width,
-               int co, int relu, int zeros, cudaStream_t stream) {
+               const float* shift, const void* top, const void* left, void* y, float* s1,
+               float* s2, int n, int c, int h, int width, int co, int relu, int zeros,
+               cudaStream_t stream) {
   const int tiles = ((width + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH);
   const dim3 grid(tiles, (co + TCO - 1) / TCO, n);
   const dim3 block(kTileW, kTileH);
   upconv_fwd_kernel<T, TCO><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), wc, b, scale, shift, static_cast<T*>(y), s1, s2, c, h, width, co,
-      relu, zeros);
+      static_cast<const T*>(x), wc, b, scale, shift, static_cast<const T*>(top),
+      static_cast<const T*>(left), static_cast<T*>(y), s1, s2, c, h, width, co, relu, zeros);
   return itg::last_error();
 }
 
 template <typename T>
 int dispatch_fwd(const void* x, const float* wc, const float* b, const float* scale,
-                 const float* shift, void* y, float* s1, float* s2, int n, int c, int h,
-                 int width, int co, int relu, int zeros, cudaStream_t stream) {
-  if (co <= 4) return launch_fwd<T, 4>(x, wc, b, scale, shift, y, s1, s2, n, c, h, width, co, relu, zeros, stream);
-  if (co <= 8) return launch_fwd<T, 8>(x, wc, b, scale, shift, y, s1, s2, n, c, h, width, co, relu, zeros, stream);
-  return launch_fwd<T, 16>(x, wc, b, scale, shift, y, s1, s2, n, c, h, width, co, relu, zeros, stream);
+                 const float* shift, const void* top, const void* left, void* y, float* s1,
+                 float* s2, int n, int c, int h, int width, int co, int relu, int zeros,
+                 cudaStream_t stream) {
+  if (co <= 4) return launch_fwd<T, 4>(x, wc, b, scale, shift, top, left, y, s1, s2, n, c, h, width, co, relu, zeros, stream);
+  if (co <= 8) return launch_fwd<T, 8>(x, wc, b, scale, shift, top, left, y, s1, s2, n, c, h, width, co, relu, zeros, stream);
+  return launch_fwd<T, 16>(x, wc, b, scale, shift, top, left, y, s1, s2, n, c, h, width, co, relu, zeros, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -398,15 +431,15 @@ upconv_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
     const int n = t / tiles_img;
     const int ty0 = ((t % tiles_img) / tiles_w) * kDwTH;
     const int tx0 = ((t % tiles_img) % tiles_w) * kDwTW;
-    const T* xn = x + static_cast<size_t>(n) * C * H * W;
+    const Slab<T> src{x + static_cast<size_t>(n) * C * H * W, nullptr, nullptr, scale, shift,
+                      C, H, W, relu, zeros};
     constexpr int kCells = (kDwTH + 2) * kDwRow;
     for (int idx = tid; idx < kDwTC * kCells; idx += kThreads) {
       const int ch = idx / kCells;
       const int r = (idx % kCells) / kDwRow;
       const int s = (idx % kCells) % kDwRow;
       const int cg = c0 + ch;
-      s_a[ch * kDwPlane + r * kDwRow + s] =
-          cg < C ? slab(xn, scale, shift, cg, ty0 + r - 1, tx0 + s - 1, H, W, relu, zeros) : 0.f;
+      s_a[ch * kDwPlane + r * kDwRow + s] = cg < C ? slab(src, cg, ty0 + r - 1, tx0 + s - 1) : 0.f;
     }
     for (int idx = tid; idx < kDwTO * 4 * kDwTH * kDwTW; idx += kThreads) {
       const int oc = idx / (4 * kDwTH * kDwTW);
@@ -487,12 +520,14 @@ int launch_dw(const void* x, const void* g, const float* scale, const float* shi
 // x (N, C, H, W) half-res, y (N, Co, 2H, 2W): activation type (float32, or
 // bfloat16 when bf16 != 0). wc (Co, C, 16): the combined phase kernels,
 // index ((di * 2 + dj) * 2 + r) * 2 + s; b (Co), scale/shift (C): float32.
-// s1/s2 (Co) float32, zeroed by the caller, or null for no stats. Returns
+// top (N, C, W + 2) and left (N, C, H): the post-norm half-res border from
+// the halo cache in the activation type (K14), or null (K9). s1/s2 (Co)
+// float32, zeroed by the caller, or null for no stats. Returns
 // cudaGetLastError() after the launch.
 extern "C" int itg_upconv3x3_chw(const void* x, const void* wc, const void* b, const void* scale,
-                                 const void* shift, void* y, void* s1, void* s2, int n, int c,
-                                 int h, int width, int co, int relu, int zeros, int bf16,
-                                 void* stream) {
+                                 const void* shift, const void* top, const void* left, void* y,
+                                 void* s1, void* s2, int n, int c, int h, int width, int co,
+                                 int relu, int zeros, int bf16, void* stream) {
   const auto* w = static_cast<const float*>(wc);
   const auto* bf = static_cast<const float*>(b);
   const auto* sc = static_cast<const float*>(scale);
@@ -500,8 +535,10 @@ extern "C" int itg_upconv3x3_chw(const void* x, const void* wc, const void* b, c
   auto* a = static_cast<float*>(s1);
   auto* q = static_cast<float*>(s2);
   auto st = static_cast<cudaStream_t>(stream);
-  if (bf16) return dispatch_fwd<__nv_bfloat16>(x, w, bf, sc, sh, y, a, q, n, c, h, width, co, relu, zeros, st);
-  return dispatch_fwd<float>(x, w, bf, sc, sh, y, a, q, n, c, h, width, co, relu, zeros, st);
+  if (bf16) {
+    return dispatch_fwd<__nv_bfloat16>(x, w, bf, sc, sh, top, left, y, a, q, n, c, h, width, co, relu, zeros, st);
+  }
+  return dispatch_fwd<float>(x, w, bf, sc, sh, top, left, y, a, q, n, c, h, width, co, relu, zeros, st);
 }
 
 // x (N, C, H, W), g (N, Co, 2H, 2W), dx (N, C, H, W): activation type.

@@ -12,13 +12,15 @@ In train mode (``.train()``) the forward is the reference's ``train=True``
 path (:189-397): batch statistics and running-stat updates, the tail's
 norm moments threaded from kernel to kernel, and with ``out_chw`` the image
 stays channels-major for the discriminator's stem. Under ``fuse_up='auto'``
-(the default, as in the reference) every channels-major BN block but block 1
-takes its input at half resolution and runs the subpixel-fused up-conv (K9,
-K10); ``'off'`` upsamples first, and SSM always does (the reference fuses
-BN only). At eval both run the unfused tail. An SSM generator takes one
-random map per block (``maps``, see :class:`ResidualPatchGenerator`). Not
-ported yet (raise): zeros padding mode, spectral norm, ``fuse_up='all'``
-(the fused eval up-conv).
+(the default, as in the reference) and ``'all'`` every channels-major BN
+block but block 1 takes its input at half resolution and runs the
+subpixel-fused up-conv (K9, K10); ``'off'`` upsamples first, and SSM always
+does (the reference fuses BN only). At eval only ``'all'`` fuses
+(:meth:`ResidualPatchGenerator.eval_fuse_blocks`): the one pass runs K9, the
+raster engine K14 with half-resolution conv1 halo sites. An SSM generator
+takes one random map per block (``maps``, see
+:class:`ResidualPatchGenerator`). Not ported yet (raise): zeros padding
+mode, spectral norm.
 """
 
 from __future__ import annotations
@@ -56,14 +58,18 @@ def generator_channel_plan(G_ch: int, n_layers_G: int) -> List[tuple[int, int]]:
     return plan
 
 
-def generator_site_specs(G_ch: int = 52, base_res: int = 4, n_layers_G: int = 6) -> List[SiteSpec]:
+def generator_site_specs(G_ch: int = 52, base_res: int = 4, n_layers_G: int = 6,
+                         fused_blocks: frozenset = frozenset()) -> List[SiteSpec]:
     """Halo site inventory in forward-call order: two per residual block
-    plus the final conv (the start conv's input z arrives pre-padded)."""
+    plus the final conv (the start conv's input z arrives pre-padded). The
+    conv1 site of a block in ``fused_blocks`` (``fuse_up='all'`` at eval)
+    caches its halo at half resolution (``ops/kernels.py:
+    chw_upconv_halo_step``)."""
     specs: List[SiteSpec] = []
     plan = generator_channel_plan(G_ch, n_layers_G)
     for i, (cin, cout) in enumerate(plan, start=1):
         res = base_res * (2 ** (i - 1))
-        specs.append(SiteSpec(f"block{i}.conv1", res, cin))
+        specs.append(SiteSpec(f"block{i}.conv1", res // 2 if i in fused_blocks else res, cin))
         specs.append(SiteSpec(f"block{i}.conv2", res, cout))
     specs.append(SiteSpec("final", base_res * (2 ** (n_layers_G - 1)), plan[-1][1]))
     return specs
@@ -78,8 +84,9 @@ class ResidualPatchGenerator(nn.Module):
     re-measure on the GPU); 'off' keeps every block NHWC, for comparison with
     the reference's XLA path on the CPU only: on a CUDA tensor the tail runs
     the kernels. ``fuse_up``: 'auto' fuses every channels-major training
-    block but block 1 with the upsample before it (K9, K10), 'off' does not;
-    eval never fuses, and neither does SSM (the reference fuses BN only).
+    block but block 1 with the upsample before it (K9, K10), 'all' does so
+    at eval too (K9 on the one pass, K14 in the raster engine), 'off' never
+    does; neither does SSM (the reference fuses BN only).
     ``type_norm``: 'BN' or 'SSM' (the stochastic spatial modulation, whose
     ``map_dim``-channel random maps the caller passes); an SSM generator has
     no final norm.
@@ -106,8 +113,8 @@ class ResidualPatchGenerator(nn.Module):
             raise NotImplementedError("spectral norm is not ported yet; rebuild with SN=False")
         if chw_tail not in ("auto", "off"):
             raise ValueError(f"chw_tail must be 'auto' or 'off', got {chw_tail!r}")
-        if fuse_up not in ("auto", "off"):
-            raise ValueError(f"fuse_up must be 'auto' or 'off', got {fuse_up!r}")
+        if fuse_up not in ("auto", "all", "off"):
+            raise ValueError(f"fuse_up must be 'auto', 'all' or 'off', got {fuse_up!r}")
         if padding_mode != "local":
             raise NotImplementedError(f"padding_mode={padding_mode!r}: only 'local' is ported yet")
         if dtype not in (torch.float32, torch.bfloat16):
@@ -136,6 +143,21 @@ class ResidualPatchGenerator(nn.Module):
         return (self.leak == 0 and self.chw_tail != "off" and i > 3
                 and cin <= (128 if wide else 64))
 
+    def eval_fuse_blocks(self) -> frozenset:
+        """The blocks whose upsample -> BN -> ReLU -> conv1 runs
+        subpixel-fused at eval (``fuse_up='all'``, BN only): every
+        channels-major block but block 1, under the wide eval gate. It
+        decides both the eval forward and which conv1 halo sites are cached
+        at half resolution, so the two never disagree."""
+        if self.fuse_up != "all" or self.type_norm != "BN":
+            return frozenset()
+        fused, is_chw = set(), False
+        for i, (cin, _) in enumerate(self.plan, start=1):
+            is_chw = is_chw or self.chw_gate(i, cin)
+            if is_chw and i > 1:
+                fused.add(i)
+        return frozenset(fused)
+
     def emits_chw(self) -> bool:
         """True when the train forward runs a channels-major tail, so that
         ``out_chw=True`` hands the image over with no transpose (the train
@@ -147,7 +169,8 @@ class ResidualPatchGenerator(nn.Module):
         return (2 ** (self.n_layers_G - 1)) * self.base_res
 
     def site_specs(self) -> List[SiteSpec]:
-        return generator_site_specs(self.G_ch, self.base_res, self.n_layers_G)
+        return generator_site_specs(self.G_ch, self.base_res, self.n_layers_G,
+                                    fused_blocks=self.eval_fuse_blocks())
 
     def _block_maps(self, maps: Optional[Sequence[torch.Tensor]]) -> List[Optional[torch.Tensor]]:
         if self.type_norm != "SSM":
@@ -191,16 +214,17 @@ class ResidualPatchGenerator(nn.Module):
 
         h, _ = self.start(z.to(self.dtype), grid=grid)
         is_chw = False
+        fused = self.eval_fuse_blocks()
         for i, (cin, _) in enumerate(self.plan, start=1):
             if not is_chw and self.chw_gate(i, cin):
                 h = h.permute(0, 3, 1, 2).contiguous()
                 is_chw = True
-            if i > 1:
+            if i > 1 and i not in fused:
                 h = kernels.upsample2_chw(h) if is_chw else upsample_nearest(h, 2)
             name = f"block{i}"
             h, h1, h2 = getattr(self, name)(
                 h, site(f"{name}.conv1"), site(f"{name}.conv2"), pos, grid=grid, chw=is_chw,
-                maps=block_maps[i - 1],
+                maps=block_maps[i - 1], fuse_up=i in fused,
             )
             if halo is not None:
                 halo_out[f"{name}.conv1"] = h1

@@ -5,8 +5,8 @@ generators, eval and train: ``activation_fn``, ``StatsBN`` (the
 parameter-free BatchNorm), ``BNFold`` (which also serves as the NHWC
 ``nn.BatchNorm``), ``StochasticSpatialModulation``, ``ConvLP``,
 ``Attention``, ``PatchAttention`` and ``ResBlockGenerator`` (BN and SSM
-branches; in training also the subpixel-fused up-conv branch of
-``--fuse_up auto``, BN only). Submodule and parameter names follow the
+branches, and the subpixel-fused up-conv branch of BN blocks: in training
+under ``--fuse_up auto``, at eval under ``all``). Submodule and parameter names follow the
 reference's flax paths (``conv1.conv.weight``, ``bn1.scale``, ``bn1.mean``,
 ``bn1.bn.mean``, ``bn1.mlp_shared.weight`` ...), so
 ``weights.from_jax_variables`` maps a flax tree onto them leaf by leaf.
@@ -191,7 +191,11 @@ class ConvLP(nn.Module):
     at patch-by-patch inference. ``pre_padded`` (the start conv): the input
     already carries a 1px halo of real values. With
     ``chw_fold=(scale, shift, relu)`` the input is channels-major and the BN
-    fold + activation run inside the K1/K2 kernels.
+    fold + activation run inside the K1/K2 kernels. With ``fuse_up`` too
+    (the reference's ``fuse_up_w_true``, :215-234) the channels-major input
+    is at half resolution and the nearest-2x upsample runs inside the
+    kernel: K14 at a raster step (the site's cache is at half resolution),
+    K9 without a halo site.
     """
 
     def __init__(self, in_features: int, features: int,
@@ -203,11 +207,17 @@ class ConvLP(nn.Module):
 
     def forward(self, x: torch.Tensor, halo: Optional[SiteState] = None,
                 pos: Optional[GridPos] = None, *, grid: tuple[int, int] = (3, 3),
-                chw_fold=None):
+                chw_fold=None, fuse_up: bool = False):
         gh, gw = grid
         if chw_fold is not None:
             scale, shift, relu = chw_fold
             w, b = self.conv.weight, self.conv.bias
+            if fuse_up:
+                if halo is not None:
+                    return kernels.chw_upconv_halo_step(
+                        x, w, b, scale, shift, relu, self.outer_padding, halo, pos, gh, gw
+                    )
+                return kernels.upconv3x3_chw(x, w, b, scale, shift, relu, self.outer_padding), halo
             if halo is not None:
                 return kernels.chw_halo_step(
                     x, w, b, scale, shift, relu, self.outer_padding, halo, pos, gh, gw
@@ -312,7 +322,7 @@ class ResBlockGenerator(nn.Module):
     def forward(self, x: torch.Tensor, halo1: Optional[SiteState] = None,
                 halo2: Optional[SiteState] = None, pos: Optional[GridPos] = None, *,
                 grid: tuple[int, int] = (3, 3), chw: bool = False,
-                maps: Optional[torch.Tensor] = None):
+                maps: Optional[torch.Tensor] = None, fuse_up: bool = False):
         if not chw:
             return self._forward_nhwc(x, maps, halo1, halo2, pos, grid)
         # channels-major tail (the generator gates it to leak 0). BN: the
@@ -325,6 +335,19 @@ class ResBlockGenerator(nn.Module):
             out, halo1 = self.conv1(a, halo1, pos, grid=grid, chw_fold=identity_fold(a))
             a = self.bn2.chw(out, maps)
             out, halo2 = self.conv2(a, halo2, pos, grid=grid, chw_fold=identity_fold(a))
+        elif fuse_up:
+            # the fused BN branch at eval (``fuse_up='all'``, :586-636): x
+            # at half resolution; upsample -> bn1 -> ReLU -> conv1 in one
+            # K14 (raster) or K9 (one pass) launch, the 1x1 shortcut at half
+            # resolution, and K10 joins its upsample with the residual on
+            # both engines (the reference's raster adds up2(s) in XLA: the
+            # same sum, rounded once)
+            out, halo1 = self.conv1(x, halo1, pos, grid=grid, chw_fold=(*self.bn1.fold(), True),
+                                    fuse_up=True)
+            out, halo2 = self.conv2(out, halo2, pos, grid=grid, chw_fold=(*self.bn2.fold(), True))
+            s_half = x if self.conv3 is None else kernels.conv1x1_chw(
+                x, self.conv3.weight, self.conv3.bias)
+            return kernels.upsample2_chw_add(s_half, out), halo1, halo2
         else:
             out, halo1 = self.conv1(x, halo1, pos, grid=grid, chw_fold=(*self.bn1.fold(), True))
             out, halo2 = self.conv2(out, halo2, pos, grid=grid, chw_fold=(*self.bn2.fold(), True))

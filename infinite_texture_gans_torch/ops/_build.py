@@ -54,8 +54,9 @@ SIGNATURES = {
     "itg_upsample2_chw_bwd": [_P, _P] + [_I] * 4 + [_P],
     # x, res, y, s1, s2, planes, c, h, w (of x), bf16, stream
     "itg_upsample2_chw_add": [_P] * 5 + [_I] * 5 + [_P],
-    # x, wc, b, scale, shift, y, s1, s2, n, c, h, w (of x), co, relu, zeros, bf16, stream
-    "itg_upconv3x3_chw": [_P] * 8 + [_I] * 8 + [_P],
+    # x, wc, b, scale, shift, top, left, y, s1, s2, n, c, h, w (of x), co, relu, zeros, bf16,
+    # stream
+    "itg_upconv3x3_chw": [_P] * 10 + [_I] * 8 + [_P],
     # x, g, wt, scale, shift, dx, dscale, dshift, n, c, h, w (of x), co, relu, zeros, bf16, stream
     "itg_upconv3x3_chw_dx": [_P] * 8 + [_I] * 8 + [_P],
     # x, g, scale, shift, dwc, db, n, c, h, w (of x), co, relu, zeros, bf16, stream

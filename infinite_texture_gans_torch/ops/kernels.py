@@ -1,9 +1,9 @@
 """The channels-major kernels: wrappers, plain versions and launch counts.
 
 Counterpart of ``infinite_texture_gans_tpu/ops/pallas_conv.py``. Every
-function of the reference that reaches a Pallas kernel on the generation
-path or on the training step (``--fuse_up auto`` and ``off``, BN and SSM)
-has a hand-written CUDA kernel in ``csrc/``:
+function of the reference that reaches a Pallas kernel (generation under
+every ``--fuse_up``, the training step under ``auto`` and ``off``, BN and
+SSM) has a hand-written CUDA kernel in ``csrc/``:
 
 - K1/K5 ``conv3x3_chw`` (forward, with the optional per-channel Σy, Σy²
   of ``conv3x3_chw_stats`` / ``conv3x3_chw_p``): replaces pallas_conv.py:395
@@ -24,6 +24,10 @@ has a hand-written CUDA kernel in ``csrc/``:
   3x3 conv of ``upconv3x3_chw_p`` (optionally with stats): forward :1457
   ``_upconv3x3_fwd``, ``upconv3x3_chw_dx`` :1642 ``_upconv3x3_dx``,
   ``upconv3x3_chw_dw`` :1777 ``_upconv3x3_dw`` (csrc/upconv3x3_chw.cu);
+- K14 ``chw_upconv_halo_step``, whose kernel wrapper is
+  ``upconv3x3_chw_halo``: K9's forward in the raster engine under
+  ``--fuse_up all``, replaces :2019 ``_upconv3x3_fwd_halo`` (the same
+  csrc/upconv3x3_chw.cu, given the cached half-res borders);
 - K10 ``upsample2_chw_add``: :2199 ``upsample2_chw_add_p``, the fused
   block's up2(shortcut) + residual (+ stats) (csrc/upsample2_chw.cu);
 - K13 ``conv4x4s2_stem_chw``: the discriminator's conv0, forward
@@ -74,6 +78,7 @@ LAUNCHES = {
     "upconv3x3_chw": 0,
     "upconv3x3_chw_dx": 0,
     "upconv3x3_chw_dw": 0,
+    "chw_upconv_halo_step": 0,
     "upsample2_chw_add": 0,
     "stem_fwd": 0,
     "stem_dw": 0,
@@ -211,6 +216,18 @@ def _check_conv3x3(x, w, b, scale, shift) -> None:
     _check_param("shift", shift, (c,))
 
 
+def _check_borders(x, top: Optional[torch.Tensor], left: Optional[torch.Tensor]) -> None:
+    """The raster engine's cached borders of x (N, C, H, W): top (N, C, W+2),
+    left (N, C, H), each in x's dtype, or None."""
+    n, c, h, wd = x.shape
+    if top is not None:
+        _check_act("top", top, (n, c, wd + 2))
+        _check_same_dtype("top", top, x)
+    if left is not None:
+        _check_act("left", left, (n, c, h))
+        _check_same_dtype("left", left, x)
+
+
 def _launch_conv3x3(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
     n, c, h, wd = x.shape
     co = w.shape[0]
@@ -299,13 +316,7 @@ def conv3x3_chw_halo(x, w, b, scale, shift, relu: bool, outer_padding: str,
     (replicate) or zero."""
     zeros = _check_padding(outer_padding)
     _check_conv3x3(x, w, b, scale, shift)
-    n, c, h, wd = x.shape
-    if top is not None:
-        _check_act("top", top, (n, c, wd + 2))
-        _check_same_dtype("top", top, x)
-    if left is not None:
-        _check_act("left", left, (n, c, h))
-        _check_same_dtype("left", left, x)
+    _check_borders(x, top, left)
     if not _on_cuda(x, w, b, scale, shift, top, left):
         return conv3x3_chw_halo_plain(x, w, b, scale, shift, relu, outer_padding, top, left)
     y, _, _ = _launch_conv3x3(x, w, b, scale, shift, relu, zeros, top, left)
@@ -313,11 +324,11 @@ def conv3x3_chw_halo(x, w, b, scale, shift, relu: bool, outer_padding: str,
     return y
 
 
-def conv3x3_chw_halo_plain(x, w, b, scale, shift, relu: bool, outer_padding: str,
-                           top: Optional[torch.Tensor], left: Optional[torch.Tensor]):
-    """Plain PyTorch version of :func:`conv3x3_chw_halo` (the border
-    assembly of ``ops/padding.py: halo_pad_step`` on post-norm values, then
-    F.conv2d)."""
+def _halo_padded(x, scale, shift, relu: bool, outer_padding: str,
+                 top: Optional[torch.Tensor], left: Optional[torch.Tensor]) -> torch.Tensor:
+    """The post-norm input with its one-pixel border, (N, C, H+2, W+2) in
+    x's dtype: the border assembly of ``ops/padding.py: halo_pad_step``, the
+    top row and left column from the cache where given."""
     a = prenorm(x, scale, shift, relu)
     zeros = outer_padding == "constant"
     edge = torch.zeros_like(a[..., :1])
@@ -328,7 +339,14 @@ def conv3x3_chw_halo_plain(x, w, b, scale, shift, relu: bool, outer_padding: str
     mid = torch.cat([left_col, a, edge if zeros else a[..., -1:]], dim=3)
     row = torch.zeros_like(mid[:, :, :1])
     top_row = top.unsqueeze(2) if top is not None else (row if zeros else mid[:, :, :1])
-    padded = torch.cat([top_row, mid, row if zeros else mid[:, :, -1:]], dim=2)
+    return torch.cat([top_row, mid, row if zeros else mid[:, :, -1:]], dim=2)
+
+
+def conv3x3_chw_halo_plain(x, w, b, scale, shift, relu: bool, outer_padding: str,
+                           top: Optional[torch.Tensor], left: Optional[torch.Tensor]):
+    """Plain PyTorch version of :func:`conv3x3_chw_halo` (the bordered
+    post-norm input, then F.conv2d)."""
+    padded = _halo_padded(x, scale, shift, relu, outer_padding, top, left)
     return F.conv2d(padded.float(), w.float(), b.float()).to(x.dtype)
 
 
@@ -356,19 +374,25 @@ def chw_halo_step(x, w, b, scale, shift, relu: bool, outer_padding: str,
     kernel); ``site`` is the engine's NHWC-format halo cache and holds
     post-norm values, as the NHWC path's (ops/padding.py) does. Returns
     (y, updated SiteState); ``row_write`` is updated in place."""
-    hm, wm = x.shape[2:]
-    hp, wp = hm // gh, wm // gw
     top, left = halo_borders(x, site, pos, gw)
     y = conv3x3_chw_halo(x, w, b, scale, shift, relu, outer_padding, top, left)
+    return y, _halo_update(x, scale, shift, relu, site, pos, gh, gw)
 
-    # cache updates (post-norm, NHWC buffer format)
+
+def _halo_update(x, scale, shift, relu: bool, site: SiteState, pos: GridPos, gh: int,
+                 gw: int) -> SiteState:
+    """The cache update of one raster step (post-norm, NHWC buffer format):
+    ``v`` from merged column (gw-1)*Wp - 1 of ``x`` (N, C, Hm, Wm), and merged
+    row (gh-1)*Hp - 1 written into ``row_write`` in place."""
+    hm, wm = x.shape[2:]
+    hp, wp = hm // gh, wm // gw
     col = x[:, :, :, (gw - 1) * wp - 1 : (gw - 1) * wp]  # (N, C, Hm, 1)
     v_new = prenorm(col, scale, shift, relu).permute(0, 2, 3, 1).to(site.v.dtype)
     row = x[:, :, (gh - 1) * hp - 1, :]  # (N, C, Wm)
     row_pn = prenorm(row, scale, shift, relu).permute(0, 2, 1)  # (N, Wm, C)
     offset = (gw - 1) * wp * pos.col
     site.row_write[:, 0, offset + 1 : offset + 1 + wm, :] = row_pn.to(site.row_write.dtype)
-    return y, SiteState(v=v_new, row_read=site.row_read, row_write=site.row_write)
+    return SiteState(v=v_new, row_read=site.row_read, row_write=site.row_write)
 
 
 # ---------------------------------------------------------------------------
@@ -757,12 +781,7 @@ def _upconv_unpack_dw(dwc: torch.Tensor) -> torch.Tensor:
     return _uncombine(_uncombine(d, 2), 3)
 
 
-def _upconv_fwd(x, w, b, scale, shift, relu, outer_padding, want_stats):
-    zeros = _check_padding(outer_padding)
-    _check_conv3x3(x, w, b, scale, shift)
-    if not _on_cuda(x, w, b, scale, shift):
-        out = upconv3x3_chw_plain(x, w, b, scale, shift, relu, outer_padding, want_stats)
-        return out if want_stats else (out, None, None)
+def _launch_upconv(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
     n, c, h, wd = x.shape
     co = w.shape[0]
     y = torch.empty((n, co, 2 * h, 2 * wd), dtype=x.dtype, device=x.device)
@@ -773,12 +792,22 @@ def _upconv_fwd(x, w, b, scale, shift, relu, outer_padding, want_stats):
     with torch.cuda.device(x.device):
         rc = _lib().itg_upconv3x3_chw(
             x.data_ptr(), wc.data_ptr(), bf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
-            y.data_ptr(), _ptr(s1), _ptr(s2),
+            _ptr(top), _ptr(left), y.data_ptr(), _ptr(s1), _ptr(s2),
             n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
         )
     _raise_on(rc, "upconv3x3_chw")
-    LAUNCHES["upconv3x3_chw"] += 1
     return y, s1, s2
+
+
+def _upconv_fwd(x, w, b, scale, shift, relu, outer_padding, want_stats):
+    zeros = _check_padding(outer_padding)
+    _check_conv3x3(x, w, b, scale, shift)
+    if not _on_cuda(x, w, b, scale, shift):
+        out = upconv3x3_chw_plain(x, w, b, scale, shift, relu, outer_padding, want_stats)
+        return out if want_stats else (out, None, None)
+    out = _launch_upconv(x, w, b, scale, shift, relu, zeros, None, None, want_stats)
+    LAUNCHES["upconv3x3_chw"] += 1
+    return out
 
 
 class _UpConv3x3Chw(torch.autograd.Function):
@@ -828,6 +857,50 @@ def upconv3x3_chw_plain(x, w, b, scale, shift, relu: bool = True,
     of the phase algebra)."""
     return conv3x3_chw_plain(upsample2_chw_plain(x), w, b, scale, shift, relu, outer_padding,
                              want_stats)
+
+
+def upconv3x3_chw_halo(x, w, b, scale, shift, relu: bool, outer_padding: str,
+                       top: Optional[torch.Tensor], left: Optional[torch.Tensor]):
+    """K14's kernel: :func:`upconv3x3_chw` (no stats) whose padded half-res
+    input takes its top row (N, C, Wh+2, corners included) and left column
+    (N, C, Hh) post-norm from the caller where given; every other border
+    cell is the own edge (replicate) or zero. x (N, C, Hh, Wh) raw at half
+    resolution -> y (N, Co, 2Hh, 2Wh)."""
+    zeros = _check_padding(outer_padding)
+    _check_conv3x3(x, w, b, scale, shift)
+    _check_borders(x, top, left)
+    if not _on_cuda(x, w, b, scale, shift, top, left):
+        return upconv3x3_chw_halo_plain(x, w, b, scale, shift, relu, outer_padding, top, left)
+    y, _, _ = _launch_upconv(x, w, b, scale, shift, relu, zeros, top, left)
+    LAUNCHES["chw_upconv_halo_step"] += 1
+    return y
+
+
+def upconv3x3_chw_halo_plain(x, w, b, scale, shift, relu: bool, outer_padding: str,
+                             top: Optional[torch.Tensor], left: Optional[torch.Tensor]):
+    """Plain PyTorch version of :func:`upconv3x3_chw_halo`, independent of
+    the phase algebra: the bordered post-norm half-res slab, nearest-2x,
+    one full-res ring cropped (the full-res border is the half-res one
+    doubled), then F.conv2d in float32."""
+    padded = _halo_padded(x, scale, shift, relu, outer_padding, top, left)
+    up = upsample2_chw_plain(padded)[..., 1:-1, 1:-1]
+    return F.conv2d(up.float(), w.float(), b.float()).to(x.dtype)
+
+
+def chw_upconv_halo_step(x, w, b, scale, shift, relu: bool, outer_padding: str,
+                         site: SiteState, pos: GridPos, gh: int, gw: int):
+    """K14: one raster step of a fused up-conv block's conv1 (``--fuse_up
+    all``): nearest-2x -> BN fold -> ReLU -> local-padded 3x3 conv of the
+    raw half-res input ``x`` (N, C, Hm, Wm). The site's halo cache holds
+    post-norm values at HALF resolution (the fused block's conv1 site spec
+    is halved, ``models/generator.py: generator_site_specs``): the unfused
+    site's full-res halo row and column are these doubled, so the borders
+    and the cache update are :func:`chw_halo_step`'s on the half-res grid.
+    Returns (y (N, Co, 2Hm, 2Wm), updated SiteState); ``row_write`` is
+    updated in place."""
+    top, left = halo_borders(x, site, pos, gw)
+    y = upconv3x3_chw_halo(x, w, b, scale, shift, relu, outer_padding, top, left)
+    return y, _halo_update(x, scale, shift, relu, site, pos, gh, gw)
 
 
 def upconv3x3_chw_dx(x, g, w, scale, shift, relu: bool, outer_padding: str):

@@ -3,26 +3,27 @@
 Port of ``infinite_texture_gans_tpu/sample.py`` for local-padding
 checkpoints: loads a framework ``.ckpt``, rebuilds the generator from the
 config stored in it, generates the canvas with the halo-cache raster engine
-(uint8 wire) and writes PNG files next to the checkpoint. Runs on ``cuda``
-unless ``--device cpu`` is given.
+(uint8 wire) and writes PNG files next to the checkpoint; ``--stream``
+writes one canvas straight into its PNG (``sampling/stream.py``), and
+``--fuse_up all`` runs the fused eval tail (K9 on the one pass, K14 in the
+raster engine). Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import struct
-import zlib
 
 import numpy as np
 import torch
 
 from infinite_texture_gans_torch import resolve_device
 from infinite_texture_gans_torch.sampling.infinite import generate_canvas
+from infinite_texture_gans_torch.sampling.stream import StreamingPNGWriter, generate_canvas_streamed
 from infinite_texture_gans_torch.train.checkpoint import load_generator_from_checkpoint
 
 # Flags of the reference CLI whose engines are not ported yet.
-NOT_PORTED = ("stream", "mesh", "diag_lanes", "tiles", "export_pth")
+NOT_PORTED = ("mesh", "diag_lanes", "tiles", "export_pth")
 
 
 def prepare_sample_parser() -> argparse.ArgumentParser:
@@ -37,7 +38,12 @@ def prepare_sample_parser() -> argparse.ArgumentParser:
     p.add_argument("--row_group", type=int, default=None,
                    help="canvas rows held on the device at once (default: all)")
     p.add_argument("--device", type=str, default="cuda")
-    p.add_argument("--stream", action="store_true", help="not ported yet")
+    p.add_argument("--stream", action="store_true",
+                   help="stream one canvas straight into its PNG: O(band) host memory")
+    p.add_argument("--fuse_up", type=str, default="auto", choices=["auto", "all", "off"],
+                   help="'all' fuses every channels-major block's upsample -> BN -> ReLU -> "
+                        "conv1 at eval (half-res halo caches); 'auto' and 'off' run the "
+                        "unfused eval tail")
     p.add_argument("--tiles", action="store_true", help="not ported yet")
     p.add_argument("--mesh", type=str, default=None, help="not ported yet")
     p.add_argument("--diag_lanes", type=int, default=None, help="not ported yet")
@@ -45,23 +51,13 @@ def prepare_sample_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _png_chunk(kind: bytes, data: bytes) -> bytes:
-    body = kind + data
-    return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
-
-
 def write_png(path: str, img: np.ndarray) -> None:
     """(H, W, C) uint8 with C in {1, 3} -> 8-bit grayscale or RGB PNG."""
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (1, 3):
         raise ValueError(f"expected (H, W, 1|3) uint8, got {img.shape} {img.dtype}")
-    h, w, c = img.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 0, 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(_png_chunk(b"IHDR", ihdr))
-        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(_png_chunk(b"IEND", b""))
+    writer = StreamingPNGWriter(path, img.shape[0], img.shape[1], img.shape[2], compress_level=6)
+    writer.write_rows(img)
+    writer.close()
 
 
 def save_batch(imgs: np.ndarray, saving_path: str) -> None:
@@ -80,10 +76,24 @@ def main(argv=None) -> None:
         if getattr(args_sample, flag):
             raise SystemExit(f"--{flag} is not ported to the PyTorch package yet")
     device = resolve_device(args_sample.device)
-    gen, args = load_generator_from_checkpoint(args_sample.model_path, device=device)
+    gen, args = load_generator_from_checkpoint(args_sample.model_path, device=device,
+                                               fuse_up=args_sample.fuse_up)
     print(args)
     seed = args_sample.seed if args_sample.seed is not None else 0
     rng = torch.Generator(device=device).manual_seed(seed)
+    name = args_sample.output_name
+    if not name.endswith(".png"):
+        name += ".png"
+    path = os.path.join(os.path.dirname(args_sample.model_path), name)
+    if args_sample.stream:
+        if args_sample.batch > 1:
+            print("Warning: --stream writes one PNG; generating a single image")
+        generate_canvas_streamed(
+            gen, rng, args_sample.output_resolution_height, args_sample.output_resolution_width,
+            path, progress=True, row_group=args_sample.row_group or 4,
+        )
+        print("The image is saved as:", path)
+        return
     img_u8 = generate_canvas(
         gen,
         rng,
@@ -94,10 +104,7 @@ def main(argv=None) -> None:
         row_group=args_sample.row_group,
         wire="u8",
     )
-    name = args_sample.output_name
-    if not name.endswith(".png"):
-        name += ".png"
-    save_batch(img_u8, os.path.join(os.path.dirname(args_sample.model_path), name))
+    save_batch(img_u8, path)
 
 
 if __name__ == "__main__":

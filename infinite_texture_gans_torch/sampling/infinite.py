@@ -10,7 +10,8 @@ result equals one pass of the generator over the whole canvas
 painted into a canvas on the device (re-generated right patch-columns and
 bottom patch-rows are dropped, the reference's crop protocol), and the
 finished canvas crosses to the host in one copy. An SSM generator's maps
-are windowed like z, one window per layer.
+are windowed like z, one window per layer. :func:`raster_bands` is the scan
+itself; ``sampling/stream.py`` streams its bands into a PNG instead.
 """
 
 from __future__ import annotations
@@ -83,6 +84,68 @@ def _assemble_band(subs_g: torch.Tensor, kept_rows: int, kept_cols: int, as_uint
     return torch.cat([band_main, band_tail], dim=2)
 
 
+def canvas_latents(gen: ResidualPatchGenerator, generator: Optional[torch.Generator],
+                   out_h: int, out_w: int, num_images: int = 1,
+                   z_full: Optional[torch.Tensor] = None,
+                   maps_full: Optional[List[torch.Tensor]] = None):
+    """The geometry of an (out_h, out_w) canvas and its latents on the
+    generator's device: (steps_h, steps_w, tot_h, tot_w), z_full and, for an
+    SSM generator, maps_full. What is not passed is drawn with
+    ``generator`` (on the generator's device, or None for the global one),
+    z first."""
+    device = next(gen.parameters()).device
+    base = gen.base_res
+    geometry = canvas_geometry(out_h, out_w, gen.patch_resolution, gen.num_patches_h,
+                               gen.num_patches_w)
+    _, _, tot_h, tot_w = geometry
+    if z_full is None:
+        z_full = latents.build_z_full(generator, num_images, gen.z_dim, base, tot_h, tot_w,
+                                      device=device)
+    z_full = z_full.to(device)
+    if gen.type_norm == "SSM":
+        if maps_full is None:
+            maps_full = latents.build_maps_full(generator, num_images, gen.map_dim, gen.n_layers_G,
+                                                base, tot_h, tot_w, device=device)
+        maps_full = [m.to(device) for m in maps_full]
+    return geometry, z_full, maps_full
+
+
+def raster_bands(gen: ResidualPatchGenerator, z_full: torch.Tensor,
+                 maps_full: Optional[List[torch.Tensor]], steps_h: int, steps_w: int,
+                 row_group: int, as_uint8: bool):
+    """The raster scan, one group of canvas rows at a time (``dispatch_groups``):
+    yields (r0, n, band): canvas rows r0 .. r0+n-1 of sub-images, laid out
+    as band (N, rows, tot_w*P, C) on the device, their kept pixel rows
+    (uint8 with ``as_uint8``) from canvas pixel row ``r0 * (gh-1) * P`` on. The halo cache lives from the first group to
+    the last."""
+    P = gen.patch_resolution
+    gh, gw, base = gen.num_patches_h, gen.num_patches_w, gen.base_res
+    tot_w = steps_w * (gw - 1) + 1
+    halo = init_halo_state(gen.site_specs(), z_full.shape[0], gh, gw, tot_w, dtype=gen.dtype,
+                           device=z_full.device)
+    for r0, n, kept_rows in dispatch_groups(steps_h, gh, P, row_group):
+        rows = []
+        for r in range(r0, r0 + n):
+            strip, map_strips = latents.row_strips(z_full, maps_full, r, base, gh)
+            subs = []
+            for c in range(steps_w):
+                c0 = c * (gw - 1) * base
+                z_sub = strip[:, :, c0 : c0 + gw * base + latents.Z_PAD]
+                maps_sub = None
+                if map_strips is not None:
+                    maps_sub = [m[:, :, c * (gw - 1) * (2**i) * base :
+                                  c * (gw - 1) * (2**i) * base + gw * (2**i) * base + latents.MAP_PAD]
+                                for i, m in enumerate(map_strips)]
+                out, halo = gen(z_sub, maps_sub, halo=halo, pos=GridPos(c, r == 0, c == 0))
+                subs.append(out)
+            halo = {
+                name: rotate_rows(finalize_row(s, gen.outer_padding))
+                for name, s in halo.items()
+            }
+            rows.append(torch.stack(subs))
+        yield r0, n, _assemble_band(torch.stack(rows), kept_rows, (gw - 1) * P, as_uint8)
+
+
 @torch.no_grad()
 def generate_canvas(
     gen: ResidualPatchGenerator,
@@ -110,54 +173,19 @@ def generate_canvas(
     """
     if wire not in ("f32", "u8"):
         raise ValueError(f"wire must be 'f32' or 'u8', got {wire!r}")
-    device = next(gen.parameters()).device
-    P = gen.patch_resolution
-    gh, gw, base = gen.num_patches_h, gen.num_patches_w, gen.base_res
-    steps_h, steps_w, tot_h, tot_w = canvas_geometry(
-        output_resolution_height, output_resolution_width, P, gh, gw
-    )
-    if z_full is None:
-        z_full = latents.build_z_full(
-            generator, num_images, gen.z_dim, base, tot_h, tot_w, device=device
-        )
-    z_full = z_full.to(device)
-    if gen.type_norm == "SSM":
-        if maps_full is None:
-            maps_full = latents.build_maps_full(generator, num_images, gen.map_dim, gen.n_layers_G,
-                                                base, tot_h, tot_w, device=device)
-        maps_full = [m.to(device) for m in maps_full]
-    halo = init_halo_state(
-        gen.site_specs(), num_images, gh, gw, tot_w, dtype=gen.dtype, device=device
-    )
-
+    (steps_h, steps_w, tot_h, tot_w), z_full, maps_full = canvas_latents(
+        gen, generator, output_resolution_height, output_resolution_width, num_images, z_full,
+        maps_full)
+    P, gh = gen.patch_resolution, gen.num_patches_h
     as_uint8 = wire == "u8"
     canvas = torch.zeros(
-        (num_images, tot_h * P, tot_w * P, gen.img_ch),
+        (z_full.shape[0], tot_h * P, tot_w * P, gen.img_ch),
         dtype=torch.uint8 if as_uint8 else torch.float32,
-        device=device,
+        device=z_full.device,
     )
     row_stride = (gh - 1) * P
-    for r0, n, kept_rows in dispatch_groups(steps_h, gh, P, row_group or steps_h):
-        rows = []
-        for r in range(r0, r0 + n):
-            strip, map_strips = latents.row_strips(z_full, maps_full, r, base, gh)
-            subs = []
-            for c in range(steps_w):
-                c0 = c * (gw - 1) * base
-                z_sub = strip[:, :, c0 : c0 + gw * base + latents.Z_PAD]
-                maps_sub = None
-                if map_strips is not None:
-                    maps_sub = [m[:, :, c * (gw - 1) * (2**i) * base :
-                                  c * (gw - 1) * (2**i) * base + gw * (2**i) * base + latents.MAP_PAD]
-                                for i, m in enumerate(map_strips)]
-                out, halo = gen(z_sub, maps_sub, halo=halo, pos=GridPos(c, r == 0, c == 0))
-                subs.append(out)
-            halo = {
-                name: rotate_rows(finalize_row(s, gen.outer_padding))
-                for name, s in halo.items()
-            }
-            rows.append(torch.stack(subs))
-        band = _assemble_band(torch.stack(rows), kept_rows, (gw - 1) * P, as_uint8)
+    for r0, n, band in raster_bands(gen, z_full, maps_full, steps_h, steps_w,
+                                    row_group or steps_h, as_uint8):
         canvas[:, r0 * row_stride : r0 * row_stride + band.shape[1]] = band.to(canvas.dtype)
         if progress:
             print(f"  rows {r0 + 1}-{r0 + n}/{steps_h} ({steps_w} sub-images each)", flush=True)

@@ -58,17 +58,21 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 def load_generator_from_checkpoint(
     path: str, ema: Optional[bool] = None, *, device="cuda",
-    ckpt: Optional[Dict[str, Any]] = None,
+    ckpt: Optional[Dict[str, Any]] = None, fuse_up: Optional[str] = None,
 ):
     """Rebuild the eval generator from a checkpoint's stored config (SN off,
     3x3 grid, as the reference does) and load its weights.
 
     ``ema``: use the stored EMA snapshot when the checkpoint has one.
+    ``fuse_up`` overrides the stored one ('all': the fused eval tail, as
+    the reference's sample CLI clones the generator with its flag).
     Returns (generator in eval mode on ``device``, args namespace)."""
     dev = resolve_device(device)
     if ckpt is None:
         ckpt = load_checkpoint(path)
     args = dict_to_args(ckpt["meta"]["args"])
+    if fuse_up is not None:
+        args.fuse_up = fuse_up
     kwargs = generator_kwargs(args)
     kwargs.update(SN=False, num_patches_h=3, num_patches_w=3)
     gen = ResidualPatchGenerator(**kwargs)

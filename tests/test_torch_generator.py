@@ -104,15 +104,16 @@ def test_one_pass_matches_jax(small_tree, jax_tail, port_tail):
 def test_rejects_unported_options():
     with pytest.raises(NotImplementedError):  # zeros padding mode (SSM is ported)
         ResidualPatchGenerator(**SMALL, padding_mode="zeros")
-    with pytest.raises(NotImplementedError):
-        generator_kwargs(dict_to_args({"fuse_up": "all"}))
+    # the fused eval up-conv (K14) is ported: 'all' is accepted
+    assert generator_kwargs(dict_to_args({"fuse_up": "all"}))["fuse_up"] == "all"
+    assert ResidualPatchGenerator(**SMALL, fuse_up="all").eval_fuse_blocks() == {4}
     assert generator_kwargs(dict_to_args({"fuse_up": "off"}))["fuse_up"] == "off"
     with pytest.raises(ValueError):  # 'auto' already runs the tail on any device
         ResidualPatchGenerator(**SMALL, chw_tail="on")
     with pytest.raises(ValueError):  # the halo engine is eval-only
         ResidualPatchGenerator(**SMALL)(torch.zeros(1, 14, 14, 16), halo={})
-    with pytest.raises(ValueError):  # the fused eval up-conv (K14)
-        ResidualPatchGenerator(**SMALL, fuse_up="all")
+    with pytest.raises(ValueError):
+        ResidualPatchGenerator(**SMALL, fuse_up="eval")
 
 
 def _canvas_vs_one_pass(gen, out_h, out_w, seed=7):

@@ -262,6 +262,77 @@ def test_upsample2_add_kernel_matches_plain(cuda, dtype, shape):
     assert tk.LAUNCHES["upsample2_chw_add"] == 2
 
 
+# --- K14: K9's forward with the raster engine's cached half-res borders ----
+# half-res shapes n, c, co, h, w: a small ragged one (h, w no multiple of the
+# 32 x 8 tile) and the flagship's block-4 site of a 384^2 sub-image
+UPCONV_HALO_SHAPES = [(1, 7, 5, 11, 37), (1, 104, 52, 48, 48)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("borders", ["none", "top", "left", "both"])
+@pytest.mark.parametrize("shape", UPCONV_HALO_SHAPES)
+def test_upconv_halo_kernel_matches_plain(cuda, dtype, outer, borders, shape):
+    n, c, co, h, w = shape
+    x, wt, b, sc, sh = _inputs(cuda, dtype, n=n, c=c, co=co, h=h, w=w)
+    gen = torch.Generator().manual_seed(11)
+    top = torch.relu(torch.randn(n, c, w + 2, generator=gen)).to(cuda, dtype)
+    left = torch.relu(torch.randn(n, c, h, generator=gen)).to(cuda, dtype)
+    top = top if borders in ("top", "both") else None
+    left = left if borders in ("left", "both") else None
+    tk.reset_launches()
+    y = tk.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, top, left)
+    assert (tk.LAUNCHES["chw_upconv_halo_step"], tk.LAUNCHES["upconv3x3_chw"]) == (1, 0)
+    _assert_close(y, tk.upconv3x3_chw_halo_plain(x, wt, b, sc, sh, True, outer, top, left))
+    if borders == "none":  # one kernel body: K9's bits
+        assert torch.equal(y, tk.upconv3x3_chw(x, wt, b, sc, sh, True, outer))
+
+
+def _fuse_all_gen(cuda, dtype=torch.float32):
+    gen = ResidualPatchGenerator(z_dim=16, G_ch=8, n_layers_G=4, attention=True, fuse_up="all",
+                                 dtype=dtype)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    with torch.no_grad():
+        for p in gen.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=g))
+        gen.attention.attn.gamma.zero_()
+    return gen.to(cuda).eval(), g
+
+
+def test_fuse_all_raster_canvas_on_card_equals_one_pass(cuda):
+    """--fuse_up all (block 4 fuses): K14 with half-res conv1 caches in the
+    raster, K9 on the one pass. One kernel body sums each output in one
+    order wherever its tile lies; the limit covers cuDNN's choices in the
+    NHWC blocks."""
+    gen, g = _fuse_all_gen(cuda)
+    _, _, th, tw = canvas_geometry(160, 224, gen.patch_resolution, 3, 3)
+    z = torch.randn(1, th * 4 + 2, tw * 4 + 2, 16, generator=g)
+    tk.reset_launches()
+    canvas = generate_canvas(gen, None, 160, 224, z_full=z)
+    steps = 2 * 3
+    assert {k: v for k, v in tk.LAUNCHES.items() if v} == {
+        "chw_upconv_halo_step": steps, "chw_halo_step": 2 * steps, "conv1x1_chw": steps,
+        "upsample2_chw_add": steps}
+    tk.reset_launches()
+    oracle = generate_one_pass(gen, z, th, tw)[:, :160, :224].cpu().numpy()
+    assert {k: v for k, v in tk.LAUNCHES.items() if v} == {
+        "upconv3x3_chw": 1, "conv3x3_chw": 2, "conv1x1_chw": 1, "upsample2_chw_add": 1}
+    np.testing.assert_allclose(canvas, oracle, atol=5e-4, rtol=0)
+
+
+def test_fuse_all_streamed_png_on_card_equals_in_memory(cuda, tmp_path):
+    """bf16 under --fuse_up all: the streamed PNG (pinned copies fenced by
+    events, one band per canvas row) is the in-memory u8 canvas, byte for
+    byte."""
+    from infinite_texture_gans_torch.sampling.stream import generate_canvas_streamed, read_png
+
+    gen, _ = _fuse_all_gen(cuda, torch.bfloat16)
+    want = generate_canvas(gen, torch.Generator(device=cuda).manual_seed(3), 290, 200, wire="u8")[0]
+    path = generate_canvas_streamed(gen, torch.Generator(device=cuda).manual_seed(3), 290, 200,
+                                    str(tmp_path / "s.png"), row_group=1)
+    np.testing.assert_array_equal(read_png(path), want)
+
+
 @pytest.mark.parametrize("fuse_up", ["auto", "off"])
 def test_train_step_on_card_matches_cpu(cuda, monkeypatch, fuse_up):
     """A tiny fused step on the card with the kernels against the same step

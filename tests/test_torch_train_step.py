@@ -242,13 +242,17 @@ def test_train_cli_writes_checkpoint_that_samples(tmp_path):
 
 def test_fuse_up_defaults_to_auto_and_refuses_all():
     """The train CLI's default is the reference's --fuse_up auto, which
-    the port trains; 'all' (the fused eval up-conv, K14) is refused."""
+    the port trains; its parser refuses 'all' as the reference's does,
+    while the model kwargs take it (a stored config or the sample CLI's
+    --fuse_up all: the fused eval up-conv, K14)."""
     from infinite_texture_gans_torch.config import check_train_args, generator_kwargs
 
     args = prepare_parser().parse_args(TINY)
     assert args.fuse_up == "auto" == jax_parser().parse_args([]).fuse_up
     check_train_args(args)
     assert generator_kwargs(args)["fuse_up"] == "auto"
+    for parser in (prepare_parser, jax_parser):
+        with pytest.raises(SystemExit):
+            parser().parse_args(["--fuse_up", "all"])
     args.fuse_up = "all"
-    with pytest.raises(NotImplementedError, match="K14"):
-        generator_kwargs(args)
+    assert generator_kwargs(args)["fuse_up"] == "all"
