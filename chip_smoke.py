@@ -33,9 +33,15 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    --n_layers_D 3 --random_crop 128``, map_dim 1, bf16): the SSM embed
    chain K15, forward and backward, against its plain versions at every
    SSM site's shape (training: N = 8, C = 52 and 26 at 192^2; eval: N = 1,
-   C = 104 and 52 at 96^2, 52 and 26 at 192^2), f32 and bf16, timed beside
-   its bound (operations: it is the first compute-bound kernel), its plain
-   version and the cuDNN calls for the same chain; and K1/K5, K6, K7 (the
+   C = 104 and 52 at 96^2, 52 and 26 at 192^2), on both of its routes:
+   bf16 on the tensor-core kernels (the forward within the bf16 limit, the
+   backward's sums within the sums' limit of the plain version that applies
+   the route's roundings, which planted faults must fail, two backward
+   calls bit-equal) and f32 on the CUDA-core kernels (the f32 limits), the window
+   compare bit-equal on both; timed beside its bound (operations: it is the
+   compute-bound kernel), its plain version and the cuDNN calls for the
+   same chain, the f32 route at the training shapes into rows of its own
+   (``:f32_parity``, launches from the f32 SSM step parity); and K1/K5, K6, K7 (the
    identity fold), K8, K3 (+ its dx form), K3-dW, K4, K4-bwd and the stem
    at the SSM step's own shapes, summed per SSM step.
 4. Loads the trained flagship checkpoint ``examples/241_300ep_ema.ckpt``
@@ -100,9 +106,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "examples" / "241_300ep_ema.ckpt"
 
-# NVIDIA H100 SXM data sheet: HBM rate and dense bf16 tensor-core rate.
+# NVIDIA H100 SXM data sheet: HBM rate, dense bf16 tensor-core rate and the
+# float32 rate outside the tensor cores (the bound of K15's f32 route).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_F32_FLOP_PER_S = 67e12
 
 # float32 with TF32 off: kernel and cuDNN sum up to 9 * 104 = 936 products
 # in other orders, and cuDNN may pick Winograd transforms (~1e-5 relative);
@@ -198,9 +206,15 @@ KERNELS = {
     "stem_fwd": ("K13", "stem4x4s2.cu", "pallas_conv.py:2769"),
     "stem_dw": ("K13-dW", "stem4x4s2.cu", "pallas_conv.py:2840"),
     "stem_dx": ("K13-dx", "stem4x4s2.cu", "pallas_conv.py:2977"),
-    "ssm_embed": ("K15", "ssm_embed_chw.cu", "pallas_ssm.py:343"),
-    "ssm_embed_bwd": ("K15-bwd", "ssm_embed_chw.cu", "pallas_ssm.py:392"),
+    "ssm_embed": ("K15", "ssm_embed_tc.cu", "pallas_ssm.py:343"),
+    "ssm_embed_bwd": ("K15-bwd", "ssm_embed_tc.cu", "pallas_ssm.py:392"),
 }
+# K15's two routes (ops/ssm.py): the main paths run bf16 on the tensor-core
+# kernels above; float32 (step parity, the f32 raster) keeps the CUDA-core
+# kernels, reported in rows of their own: kernel -> (C entry point, source)
+K15_F32_ROUTE = {"ssm_embed": ("itg_ssm_embed_fwd", "ssm_embed_chw.cu"),
+                 "ssm_embed_bwd": ("itg_ssm_embed_bwd", "ssm_embed_chw.cu")}
+K15_TC_ENTRY = {"ssm_embed": "itg_ssm_embed_tc_fwd", "ssm_embed_bwd": "itg_ssm_embed_tc_bwd"}
 # kernels on the generation paths (timed per sub-image: K1 on the one pass,
 # the rest on the raster); those of the training step (timed per step) are
 # the ones STEP_LAUNCHES counts
@@ -287,6 +301,12 @@ TRAIN_PATHS = {"auto": ("train --fuse_up auto", "per Experiment-1 step"),
 # float32 reductions (Σy, Σy², d(scale), d(shift), dW, db) in another order,
 # partly by atomics: 1e-4 of the largest reference entry
 SUM_TOL = 1e-4
+# K15's bf16 dW1 and db1 sum d_pre, which the route rounds to bf16: where the
+# kernel's float32 d_act and the plain version's float64 one straddle a
+# rounding midpoint, the two round a bf16 step apart; those steps read up to
+# 2.2e-4 of max|ref| on an H100 (tests/test_torch_gpu.py at SSM_SHAPES),
+# 1.02e-4 at the training shape. A planted dW1 x 1.01 is 20 times this.
+DPRE_TOL = 5e-4
 # step parity (f32, TF32 off): losses relative 1e-4; each gradient leaf's
 # largest deviation within STEP_GRAD_TOL of its largest value. The float32
 # step itself sits far from exact arithmetic on the leaves upstream of the
@@ -342,8 +362,8 @@ def to_u8(x):
     return torch.clamp((x.float() * 0.5 + 0.5) * 255.0 + 0.5, 0, 255).to(torch.uint8).cpu().numpy()
 
 
-def bound_ms(nbytes: float, flops: float) -> float:
-    return max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOP_PER_S) * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOP_PER_S) -> float:
+    return max(nbytes / PEAK_BYTES_PER_S, flops / peak) * 1e3
 
 
 def device_busy_ms(prof):
@@ -985,9 +1005,10 @@ def main() -> int:
     stats = table()  # per 384^2 sub-image (generation)
     astats = table()  # per 384^2 sub-image (generation under --fuse_up all)
     gstats = table()  # per 192^2 SSM sub-image (SSM generation)
+    fstats = table()  # K15's float32 route, per SSM step at the training shapes
     tstats = {tail: table() for tail in STEP_LAUNCHES}  # per training step, each tail
 
-    def compare(name, shape, got, ref, exact=False):
+    def compare(name, shape, got, ref, exact=False, into=None):
         sync()
         err = float((got.float() - ref.float()).abs().max())
         top = float(ref.float().abs().max())
@@ -998,19 +1019,19 @@ def main() -> int:
               f"(of max|ref| {top:.3e}) limit {limit:.3e}")
         if not err <= limit:
             fail(f"{name} {shape} {got.dtype}: max abs err {err} > {limit}")
-        stats[name]["err"] = max(stats[name]["err"] or 0.0, err)
+        (into or stats)[name]["err"] = max((into or stats)[name]["err"] or 0.0, err)
 
-    def compare_sum(name, shape, got, ref):
-        """A float32 reduction: within SUM_TOL of the largest reference entry."""
+    def compare_sum(name, shape, got, ref, into=None, tol=SUM_TOL):
+        """A float32 reduction: within ``tol`` of the largest reference entry."""
         sync()
         err = float((got.float() - ref.float()).abs().max())
         top = float(ref.float().abs().max())
-        limit = SUM_TOL * max(top, 1e-30)
+        limit = tol * max(top, 1e-30)
         print(f"[check] {name} sums {shape}: max_abs_err {err:.3e} (of max|ref| {top:.3e}) "
               f"limit {limit:.3e}")
         if not err <= limit:
             fail(f"{name} {shape} sums: max abs err {err} > {limit}")
-        stats[name]["sum_err"] = max(stats[name]["sum_err"], err)
+        (into or stats)[name]["sum_err"] = max((into or stats)[name]["sum_err"], err)
 
     # -- 2. kernels against their plain versions --------------------------
     def randn(g, *shape):
@@ -1028,7 +1049,7 @@ def main() -> int:
         return x, wt, b, sc, sh, top, left
 
     def account(name, shape_s, kernel_fn, plain_fn, lib_fn, nbytes, flops, tails=(), count=1,
-                into=None, also=None):
+                into=None, also=None, peak=PEAK_BF16_FLOP_PER_S):
         """Time the kernel, its plain version and the library call (bf16,
         device time from CUDA-graph replay, per call) and add ``count`` calls
         to the kernel's sums: per sub-image without ``tails`` (in ``into``,
@@ -1037,7 +1058,7 @@ def main() -> int:
         shape both tails run goes into both)."""
         ms, plain, lib = device_ms(kernel_fn), device_ms(plain_fn), device_ms(lib_fn)
         eager = eager_ms(kernel_fn)
-        b = bound_ms(nbytes, flops)
+        b = bound_ms(nbytes, flops, peak)
         targets = [tstats[t][name] for t in tails] or [(into or stats)[name]]
         for s in targets + ([also[name]] if also is not None else []):
             s["ms"] += count * ms
@@ -1048,7 +1069,7 @@ def main() -> int:
             s["flops"] += count * flops
             s["bound_ms"] += count * b
             s["calls"] += count
-        by = "bytes" if nbytes / PEAK_BYTES_PER_S >= flops / PEAK_BF16_FLOP_PER_S else "operations"
+        by = "bytes" if nbytes / PEAK_BYTES_PER_S >= flops / peak else "operations"
         per = f", x{count} per step of {' and '.join(TRAIN_PATHS[t][0] for t in tails)}" if tails else ""
         print(f"[time] {name} {shape_s}: kernel {ms:.4f} ms (eager call {eager:.4f} ms), "
               f"bound {b:.4f} ms ({by}), plain {plain:.4f} ms, library {lib:.4f} ms{per}  "
@@ -1529,19 +1550,27 @@ def main() -> int:
     # N = 8 at 192^2; eval, N = 1 at 96^2 and 192^2), and the tail kernels at
     # the SSM step's shapes (block 5, 52 -> 26 at 192^2, identity folds)
     t0 = time.perf_counter()
-    print("[tolerance] ssm_embed (K15): as the f32/bf16 limits above (each output sums 1152 "
-          "stage-2 products, the kernel and cuDNN in other orders; in bf16 both read the same "
-          "rounded maps, compute in f32 and round once); a window of the maps bit-equal to the "
-          "same window of the whole output (one fixed summation order); ssm_embed_bwd's dW2, "
-          "db2, dW1, db1 as the sums above")
+    print("[tolerance] ssm_embed (K15): f32 (CUDA cores) as the f32 limits above; bf16 "
+          "(tensor cores, which round the hidden activation and w2 to bf16) the bf16 limit above; "
+          "a window of the maps bit-equal to the same window of the whole output (one fixed "
+          "summation order), both routes")
+    print("[tolerance] ssm_embed_bwd (K15): f32 dW2, db2, dW1, db1 as the sums above; bf16 "
+          "(tensor cores) the same limits against ssm.ssm_embed_bwd_tc_plain, the plain version "
+          "with the route's roundings (its float32 pre-activation; the hidden activation, w2 and "
+          "d_pre to bf16), but dW1 and "
+          f"db1 within {DPRE_TOL:g} x max|ref| (d_pre entries a bf16 step apart where float32 and "
+          "float64 sums straddle a rounding midpoint), and a planted "
+          "dW1 x 1.01 and dW1/dW2 with dy and dx swapped must fail it; two bf16 calls bit-equal "
+          "(fixed-order partial sums)")
     hid, n = 128, SSM_N
     # (N, C, H = W, path, calls per step or sub-image): bn1 and the shortcut's
     # bn3 modulate C channels, bn2 C/2
     k15_shapes = [(n, 52, 192, "train", 2), (n, 26, 192, "train", 1), (1, 104, 96, "gen", 2),
                   (1, 52, 96, "gen", 1), (1, 52, 192, "gen", 2), (1, 26, 192, "gen", 1)]
     for dtype in (torch.float32, torch.bfloat16):
-        timed = dtype == torch.bfloat16
-        es = 2 if timed else 4
+        tc = dtype == torch.bfloat16
+        es = 2 if tc else 4
+        route = "tensor cores" if tc else "CUDA cores"
         for i, (nk, c, h, path, count) in enumerate(k15_shapes):
             g_ = torch.Generator(device=dev).manual_seed(800 + i)
             maps = randn(g_, nk, 1, h + 4, h + 4).to(dtype)
@@ -1550,30 +1579,60 @@ def main() -> int:
             w2 = randn(g_, 2 * c, hid, 3, 3) * (9 * hid) ** -0.5
             b2 = 0.1 * randn(g_, 2 * c)
             shape_s = f"({nk}, 1 -> {hid} -> {2 * c}, {h}x{h})"
-            y = ssm.ssm_embed(maps, w1, b1, w2, b2)
-            compare("ssm_embed", f"{path} {shape_s}", y, ssm.ssm_embed_plain(maps, w1, b1, w2, b2))
             train = path == "train"
+            gy = randn(g_, nk, 2 * c, h, h).to(dtype) if train else None
+            y = ssm.ssm_embed(maps, w1, b1, w2, b2)
+            y_ref = ssm.ssm_embed_plain(maps, w1, b1, w2, b2)
+            rt = None if tc else fstats  # the f32 route's errors go to its own rows
+            compare("ssm_embed", f"{path} {shape_s} [{route}]", y, y_ref, into=rt)
             if not train:
                 # a raster sub-image's window of the maps: the one pass's bits
                 r0, c0 = h // 3, h // 2
                 win = maps[..., r0 : r0 + h // 2 + 4, c0 : c0 + h // 2 + 4].contiguous()
-                compare("ssm_embed", f"{path} {shape_s} window", ssm.ssm_embed(win, w1, b1, w2, b2),
-                        y[..., r0 : r0 + h // 2, c0 : c0 + h // 2], exact=True)
+                compare("ssm_embed", f"{path} {shape_s} window [{route}]",
+                        ssm.ssm_embed(win, w1, b1, w2, b2),
+                        y[..., r0 : r0 + h // 2, c0 : c0 + h // 2], exact=True, into=rt)
             if train:
-                gy = randn(g_, nk, 2 * c, h, h).to(dtype)
                 got = ssm.ssm_embed_bwd(maps, w1, b1, w2, gy)
-                ref = ssm.ssm_embed_bwd_plain(maps, w1, b1, w2, gy)
-                for part, a_, r_ in zip(("dW2", "db2", "dW1", "db1"), got, ref):
-                    compare_sum("ssm_embed_bwd", f"{part} {shape_s}", a_, r_)
-            if not timed:
+                plain = ssm.ssm_embed_bwd_tc_plain if tc else ssm.ssm_embed_bwd_plain
+                ref = plain(maps, w1, b1, w2, gy)
+                tols = (SUM_TOL, SUM_TOL) + (DPRE_TOL if tc else SUM_TOL,) * 2
+                for part, a_, r_, tol in zip(("dW2", "db2", "dW1", "db1"), got, ref, tols):
+                    compare_sum("ssm_embed_bwd", f"{part} {shape_s} [{route}]", a_, r_, into=rt,
+                                tol=tol)
+                if tc:
+                    # what the roundings move: the unrounded plain version's sums
+                    moved = [float((a_ - r_).abs().max() / r_.abs().max()) for a_, r_ in
+                             zip(got, ssm.ssm_embed_bwd_plain(maps, w1, b1, w2, gy))]
+                    print(f"[check] ssm_embed_bwd {shape_s} [tensor cores]: against the plain "
+                          f"version without the roundings, max abs err / max|ref| dW2 {moved[0]:.3e} "
+                          f"db2 {moved[1]:.3e} dW1 {moved[2]:.3e} db1 {moved[3]:.3e} (reported)")
+                    for fault, bad, r_, tol in (("dW1 x 1.01", got[2] * 1.01, ref[2], DPRE_TOL),
+                                                ("dW1 dy<->dx", got[2].transpose(2, 3), ref[2], DPRE_TOL),
+                                                ("dW2 dy<->dx", got[0].transpose(2, 3), ref[0], SUM_TOL)):
+                        ratio = float((bad - r_).abs().max()) / (tol * float(r_.abs().max()))
+                        print(f"[check] ssm_embed_bwd {shape_s} [tensor cores]: planted {fault}: "
+                              f"max abs err / limit {ratio:.2f} (must exceed 1)")
+                        if not ratio > 1.0:
+                            fail(f"ssm_embed_bwd {shape_s}: the check passes a planted {fault}")
+                    again = ssm.ssm_embed_bwd(maps, w1, b1, w2, gy)
+                    same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+                    print(f"[check] ssm_embed_bwd {shape_s} [tensor cores]: two calls "
+                          f"{'bit-equal' if same else 'differ'}")
+                    if not same:
+                        fail(f"ssm_embed_bwd {shape_s}: two bf16 calls differ")
+            if not (tc or train):
                 continue
             pix, hpix = nk * h * h, nk * (h + 2) ** 2
             fl1, fl2 = 2.0 * hpix * hid * 9, 2.0 * pix * 2 * c * hid * 9  # stage 1, stage 2
             wbytes = (hid * 9 + hid + 2 * c * hid * 9 + 2 * c) * 4
             io_bytes = nk * (h + 4) ** 2 * es + pix * 2 * c * es
             w1l, b1l, w2l, b2l = w1.to(dtype), b1.to(dtype), w2.to(dtype), b2.to(dtype)
-            where = dict(tails=("ssm",)) if train else dict(into=gstats)
-            account("ssm_embed", shape_s, lambda: ssm.ssm_embed(maps, w1, b1, w2, b2),
+            if tc:
+                where = dict(tails=("ssm",)) if train else dict(into=gstats)
+            else:  # the f32 route, at the training shapes, per SSM step
+                where = dict(into=fstats, peak=PEAK_F32_FLOP_PER_S)
+            account("ssm_embed", f"{shape_s} [{route}]", lambda: ssm.ssm_embed(maps, w1, b1, w2, b2),
                     lambda: ssm.ssm_embed_plain(maps, w1, b1, w2, b2),
                     lambda: F.conv2d(torch.relu(F.conv2d(maps, w1l, b1l)), w2l, b2l),
                     io_bytes + wbytes, fl1 + fl2, count=count, **where)
@@ -1585,7 +1644,8 @@ def main() -> int:
                     d_act = torch.nn.grad.conv2d_input(a_lib.shape, w2l, gy)
                     torch.nn.grad.conv2d_weight(maps, w1l.shape, d_act)
 
-                account("ssm_embed_bwd", shape_s, lambda: ssm.ssm_embed_bwd(maps, w1, b1, w2, gy),
+                account("ssm_embed_bwd", f"{shape_s} [{route}]",
+                        lambda: ssm.ssm_embed_bwd(maps, w1, b1, w2, gy),
                         lambda: ssm.ssm_embed_bwd_plain(maps, w1, b1, w2, gy), lib_bwd,
                         io_bytes + 2 * wbytes, 2 * fl1 + 2 * fl2, count=count, **where)
     print("[library] K15 forward: F.conv2d -> ReLU -> F.conv2d (three calls); K15 backward: "
@@ -1779,16 +1839,28 @@ def main() -> int:
               for fuse in ("auto", "off")}
     fused_vs_unfused(parity["auto"], parity["off"])
     del parity
+    ssm.ROUTE_LAUNCHES.update(dict.fromkeys(ssm.ROUTE_LAUNCHES, 0))
     step_parity(dev, SSM_ARGS + ["--compute_dtype", "float32"], STEP_LAUNCHES["ssm"], sync)
+    f32_route = dict(ssm.ROUTE_LAUNCHES)
+    if f32_route["itg_ssm_embed_tc_fwd"] or f32_route["itg_ssm_embed_tc_bwd"] or not (
+            f32_route["itg_ssm_embed_fwd"] and f32_route["itg_ssm_embed_bwd"]):
+        fail(f"the f32 SSM step parity took K15's launches {f32_route}, not the CUDA-core route's")
+    print(f"[route] f32 SSM step parity: K15 launches by entry point {f32_route}")
     print(f"[phase 5] step parity in {time.perf_counter() - t0:.1f} s")
 
     # -- 6. training runs: the train CLI's loop, bf16 --------------------------
     t0 = time.perf_counter()
     recipes = {"auto": EXP1_ARGS + ["--fuse_up", "auto"], "off": EXP1_ARGS + ["--fuse_up", "off"],
                "ssm": SSM_ARGS}
+    ssm.ROUTE_LAUNCHES.update(dict.fromkeys(ssm.ROUTE_LAUNCHES, 0))
     runs = {tail: training_run(dev, argv, TRAIN_STEPS, STEP_LAUNCHES[tail], sync, card,
                                ROOT / "build" / f"smoke_train_{tail}")
             for tail, argv in recipes.items()}
+    bf16_route = dict(ssm.ROUTE_LAUNCHES)
+    if bf16_route["itg_ssm_embed_fwd"] or bf16_route["itg_ssm_embed_bwd"] or min(
+            bf16_route["itg_ssm_embed_tc_fwd"], bf16_route["itg_ssm_embed_tc_bwd"]) < 3 * TRAIN_STEPS:
+        fail(f"the bf16 training runs took K15's launches {bf16_route}, not the tensor-core route's")
+    print(f"[route] bf16 training runs: K15 launches by entry point {bf16_route}")
     for tail, (_, warm, busy) in runs.items():
         share = f"{busy:.2f} ms, {100 * busy / (warm * 1e3):.1f}%" if busy else "not measured"
         print(f"[train] {TRAIN_PATHS[tail][0]}: warm step {warm * 1e3:.2f} ms ({1.0 / warm:.3f} "
@@ -1849,6 +1921,8 @@ def main() -> int:
             err, sum_err = stats[name]["err"], stats[name]["sum_err"]
             rows.append({
                 "name": name + suffix, "path": path, "route": "cuda",
+                **({"dtype": "bfloat16", "cores": "tensor", "entry": K15_TC_ENTRY[name]}
+                   if name in K15_TC_ENTRY else {}),
                 "source": f"infinite_texture_gans_torch/csrc/{src}",
                 "replaces": f"infinite_texture_gans_tpu/ops/{site}",
                 "launches": counts[name], "max_abs_err": err if err is not None else sum_err,
@@ -1861,6 +1935,25 @@ def main() -> int:
                   f"{s['bound_ms']:.4f} ms ({dom}), plain "
                   f"{s['plain_ms']:.4f} ms, library {s['library_ms']:.4f} ms, launches "
                   f"{counts[name]} on the {path} path [{card}]")
+    # K15's float32 route (CUDA cores): its launches in the f32 SSM step parity,
+    # its times at the training shapes, per SSM step
+    for name, (entry, src) in K15_F32_ROUTE.items():
+        tag, _, site = KERNELS[name]
+        s = fstats[name]
+        dom = "bytes" if s["nbytes"] / PEAK_BYTES_PER_S >= s["flops"] / PEAK_F32_FLOP_PER_S else "operations"
+        rows.append({
+            "name": f"{name}:f32_parity", "path": "step parity SSM (float32)", "route": "cuda",
+            "dtype": "float32", "cores": "cuda", "entry": entry,
+            "source": f"infinite_texture_gans_torch/csrc/{src}",
+            "replaces": f"infinite_texture_gans_tpu/ops/{site}", "launches": f32_route[entry],
+            "max_abs_err": s["err"] if s["err"] is not None else s["sum_err"],
+            "max_abs_err_sums": s["sum_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": dom, "library_ms": s["library_ms"],
+        })
+        print(f"[kernel] {tag} {name} float32 route ({src}, CUDA cores): per SSM step (f32, sum "
+              f"over its shapes) {s['ms']:.4f} ms device vs bound {s['bound_ms']:.4f} ms ({dom}, "
+              f"f32 at 67 TFLOP/s), plain {s['plain_ms']:.4f} ms, library {s['library_ms']:.4f} ms, "
+              f"launches {f32_route[entry]} in the f32 SSM step parity [{card}]")
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,9 +1,10 @@
-// The SSM embed chain on channels-major arrays, forward and backward: the
-// per-pixel gamma|beta of StochasticSpatialModulation,
+// The SSM embed chain on channels-major arrays, forward and backward, for
+// float32 activations (bfloat16 takes ssm_embed_tc.cu): the per-pixel
+// gamma|beta of StochasticSpatialModulation,
 //   y = conv3x3_valid(ReLU(conv3x3_valid(maps, w1) + b1), w2) + b2,
-// maps (N, md, H + 4, W + 4) in the activation type, w1 (hid, md, 3, 3),
-// w2 (Co, hid, 3, 3) and the biases float32, y (N, Co, H, W) in the maps'
-// type (Co = 2C gamma|beta channels, hid = 128 in the models).
+// maps (N, md, H + 4, W + 4), w1 (hid, md, 3, 3), w2 (Co, hid, 3, 3), the
+// biases and y (N, Co, H, W) float32 (Co = 2C gamma|beta channels, hid = 128
+// in the models).
 //
 // Replaces the TPU kernels of infinite_texture_gans_tpu/ops/pallas_ssm.py:
 //   K15 forward  ssm_embed_fwd_call (:343, kernel _ssm_fwd_kernel :189);
@@ -14,11 +15,11 @@
 // no adjoint of one.
 //
 // What bounds it on the H100: stage 2 (hid -> Co over 9 taps) is 2 * 9 * hid
-// * Co FLOPs per output pixel against 2 * (md + Co) bytes in bf16, some 2000
-// FLOPs per byte at the models' shapes: operations bound it, on the tensor
-// cores (an implicit GEMM with M = pixels, N = Co, K = 9 * hid). These first
-// kernels run on the CUDA cores in float32, so FMA issue and shared-memory
-// traffic bound them, far above that bound. What the design does about it:
+// * Co FLOPs per output pixel against 4 * (md + Co) bytes in float32, some
+// 1000 FLOPs per byte at the models' shapes: operations bound it, here the
+// CUDA cores' float32 rate (these kernels round nothing but the output: the
+// exactness route of step parity). FMA issue and shared-memory traffic bound
+// them above that. What the design does about it:
 // - The 128-channel hidden activation never reaches device memory (as in
 //   the TPU kernel): every kernel recomputes it per tile, with its halo, from
 //   the maps (9 * md FMAs a value, a few per cent of stage 2's work) through
@@ -45,7 +46,7 @@
 //   run to run.
 // The Mosaic-specific parts of the TPU kernels (128-lane padding and its edge
 // fill, row-stacked partial matmuls, 8-row chunk reads) have no counterpart
-// here; wgmma tiles are later work.
+// here.
 #include "common.cuh"
 
 namespace {
@@ -500,41 +501,29 @@ int dispatch_bwd(const void* maps, const float* w1, const float* b1, const float
 
 }  // namespace
 
-// maps (N, md, h + 4, w + 4) and y (N, co, h, w) in the activation type
-// (float32, or bfloat16 when bf16 != 0); w1 (hid, md, 3, 3), b1 (hid),
+// maps (N, md, h + 4, w + 4), y (N, co, h, w), w1 (hid, md, 3, 3), b1 (hid),
 // w2c (hid, 3, 3, co) = w2 permuted, b2 (co): float32. Returns
 // cudaGetLastError() after the launch.
 extern "C" int itg_ssm_embed_fwd(const void* maps, const void* w1, const void* b1,
                                  const void* w2c, const void* b2, void* y, int n, int md,
-                                 int hid, int h, int w, int co, int bf16, void* stream) {
-  const auto* w1f = static_cast<const float*>(w1);
-  const auto* b1f = static_cast<const float*>(b1);
-  const auto* w2f = static_cast<const float*>(w2c);
-  const auto* b2f = static_cast<const float*>(b2);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (bf16) return dispatch_fwd<__nv_bfloat16>(maps, w1f, b1f, w2f, b2f, y, n, md, hid, h, w, co, st);
-  return dispatch_fwd<float>(maps, w1f, b1f, w2f, b2f, y, n, md, hid, h, w, co, st);
+                                 int hid, int h, int w, int co, void* stream) {
+  return dispatch_fwd<float>(maps, static_cast<const float*>(w1), static_cast<const float*>(b1),
+                             static_cast<const float*>(w2c), static_cast<const float*>(b2), y, n,
+                             md, hid, h, w, co, static_cast<cudaStream_t>(stream));
 }
 
-// maps as the forward's, g (N, co, h, w) in the same type; w1, b1 float32,
-// w2o (co, 3, 3, hid) = w2 permuted. dw2 (co, hid, 3, 3), db2 (co),
-// dw1 (hid, md, 3, 3), db1 (hid): float32, zeroed by the caller. md is
-// bounded by the shared memory of the first launch (64 KB + 2448 B a map
-// channel). Two launches; returns the first CUDA error.
+// maps as the forward's, g (N, co, h, w) float32; w1, b1 float32, w2o (co,
+// 3, 3, hid) = w2 permuted. dw2 (co, hid, 3, 3), db2 (co), dw1 (hid, md, 3,
+// 3), db1 (hid): float32, zeroed by the caller. md is bounded by the shared
+// memory of the first launch (64 KB + 2448 B a map channel). Two launches;
+// returns the first CUDA error.
 extern "C" int itg_ssm_embed_bwd(const void* maps, const void* w1, const void* b1,
                                  const void* w2o, const void* g, void* dw2, void* db2, void* dw1,
-                                 void* db1, int n, int md, int hid, int h, int w, int co, int bf16,
+                                 void* db1, int n, int md, int hid, int h, int w, int co,
                                  void* stream) {
-  const auto* w1f = static_cast<const float*>(w1);
-  const auto* b1f = static_cast<const float*>(b1);
-  const auto* w2f = static_cast<const float*>(w2o);
-  auto* a = static_cast<float*>(dw2);
-  auto* b = static_cast<float*>(db2);
-  auto* c = static_cast<float*>(dw1);
-  auto* d = static_cast<float*>(db1);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return dispatch_bwd<__nv_bfloat16>(maps, w1f, b1f, w2f, g, a, b, c, d, n, md, hid, h, w, co, st);
-  }
-  return dispatch_bwd<float>(maps, w1f, b1f, w2f, g, a, b, c, d, n, md, hid, h, w, co, st);
+  return dispatch_bwd<float>(maps, static_cast<const float*>(w1), static_cast<const float*>(b1),
+                             static_cast<const float*>(w2o), g, static_cast<float*>(dw2),
+                             static_cast<float*>(db2), static_cast<float*>(dw1),
+                             static_cast<float*>(db1), n, md, hid, h, w, co,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -8,18 +8,35 @@ map through two valid 3x3 convs with a ReLU between (reference
     maps (N, md, H+4, W+4) -> conv3x3(w1, b1) -> ReLU -> conv3x3(w2, b2)
                            -> (N, 2C, H, W)
 
-- :func:`ssm_embed` (forward, csrc/ssm_embed_chw.cu): replaces
-  pallas_ssm.py:343 ``ssm_embed_fwd_call``;
-- :func:`ssm_embed_bwd` (dW2, db2, dW1, db1; the same source, two
-  launches): replaces pallas_ssm.py:392 ``ssm_embed_bwd_call``.
+- :func:`ssm_embed` (forward): replaces pallas_ssm.py:343
+  ``ssm_embed_fwd_call``;
+- :func:`ssm_embed_bwd` (dW2, db2, dW1, db1): replaces pallas_ssm.py:392
+  ``ssm_embed_bwd_call``.
 
-The maps are random latents with no trainable producer, so their cotangent
-is zero by contract (pallas_ssm.py:472-475) and is not computed. The
-reference's default backward (``bwd_impl='xla'``) was chosen by TPU
-measurement; it differentiates the same chain, so the port's kernel backward
-gives the same numbers. The kernels compute in float32 and store the output
-in the maps' dtype; weights are OIHW float32. The launches count in
-``kernels.LAUNCHES`` under ``ssm_embed`` and ``ssm_embed_bwd``, one per call.
+The route on the card depends on the maps' dtype alone, with no fallback:
+
+- **bfloat16** takes the tensor-core kernels of ``csrc/ssm_embed_tc.cu``
+  (``itg_ssm_embed_tc_fwd``, ``itg_ssm_embed_tc_bwd``): implicit GEMMs on
+  Hopper's wgmma with bf16 operands and float32 sums. As in the reference kernel,
+  the hidden activation and d_pre are rounded to bf16 (pallas_ssm.py:143-147,
+  :295) and w2 is cast to it (:490-493); stage 1 keeps float32 weights.
+  The backward sums its partials in a fixed order, so two calls give the
+  same bits. A call these kernels cannot launch raises. Their backward's
+  plain version is :func:`ssm_embed_bwd_tc_plain`, which applies the same
+  roundings.
+- **float32** takes the CUDA-core kernels of ``csrc/ssm_embed_chw.cu``
+  (``itg_ssm_embed_fwd``, ``itg_ssm_embed_bwd``), which round nothing but the
+  output: the exactness route of step parity and the f32 raster.
+- CPU tensors take the plain versions.
+
+``ROUTE_LAUNCHES`` counts the launches of each C entry point. The maps are
+random latents with no trainable producer, so their cotangent is zero by
+contract (pallas_ssm.py:472-475) and is not computed. The reference's
+default backward (``bwd_impl='xla'``) was chosen by TPU measurement; it
+differentiates the same chain, so the port's kernel backward gives the same
+numbers. Weights are OIHW float32; the output has the maps' dtype. The
+launches count in ``kernels.LAUNCHES`` under ``ssm_embed`` and
+``ssm_embed_bwd``, one per call whatever the route.
 """
 
 from __future__ import annotations
@@ -29,7 +46,6 @@ import torch.nn.functional as F
 
 from infinite_texture_gans_torch.ops import kernels
 from infinite_texture_gans_torch.ops.kernels import (
-    _bf16,
     _check_act,
     _check_param,
     _f32,
@@ -62,18 +78,101 @@ def ssm_embed_plain(maps, w1, b1, w2, b2):
     return F.conv2d(a, w2.float(), b2.float()).to(maps.dtype)
 
 
+# launches per C entry point: the bf16 tensor-core route and the f32 CUDA-core one
+ROUTE_LAUNCHES = {"itg_ssm_embed_tc_fwd": 0, "itg_ssm_embed_tc_bwd": 0,
+                  "itg_ssm_embed_fwd": 0, "itg_ssm_embed_bwd": 0}
+
+# The tensor-core kernels' tiling, as csrc/ssm_embed_tc.cu has it: forward
+# output blocks of NT x 8 channels (one template per NT: 56 and 104 take the
+# models' Co of 52, 104 and 208, zero weights pad any other), 32 hidden
+# channels per forward chunk, 16 per dW2 block, 16 output channels per d_act
+# chunk, 128 hidden channels per d_act block, 8 x 16 pixels per backward tile.
+TC_NT = (7, 13)
+TC_KC, TC_WC, TC_OC, TC_HB = 32, 16, 16, 128
+TC_TILE = (8, 16)
+# blocks the backward's launches aim for: two per SM of a 132-SM H100. A
+# constant, not the card's count, so the partials (and the bits) depend on
+# the shapes alone.
+TC_BLOCKS = 264
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tc_plan(co: int) -> tuple[int, int]:
+    """(NT, blocks): the output-channel block of NT x 8 channels that pads
+    Co least, the wider on a tie, and the number of such blocks."""
+    return min(((nt, _cdiv(co, 8 * nt)) for nt in TC_NT),
+               key=lambda p: (p[1] * p[0] * 8, p[1]))
+
+
+def tc_shares(n: int, h: int, w: int, hid: int, co: int) -> tuple[int, int]:
+    """The backward's fixed shares of tiles: (S1 for d_act on the (H+2) x
+    (W+2) hidden grid, S2 for dW2 on the H x W output grid, whose blocks
+    take 16 hidden channels and 64 output channels, or 128 past Co 64)."""
+    th, tw = TC_TILE
+    tiles1 = n * _cdiv(h + 2, th) * _cdiv(w + 2, tw)
+    tiles2 = n * _cdiv(h, th) * _cdiv(w, tw)
+    oblocks = _cdiv(co, 64 if co <= 64 else 128)
+    s1 = min(tiles1, max(1, TC_BLOCKS // _cdiv(hid, TC_HB)))
+    s2 = min(tiles2, max(1, TC_BLOCKS // (_cdiv(hid, TC_WC) * oblocks)))
+    return s1, s2
+
+
+def pack_w2_fwd(w2: torch.Tensor) -> torch.Tensor:
+    """w2 (Co, hid, 3, 3) -> bf16 (blocks, hid chunks, 9, 2, NT, 2, 8, 8): w2
+    as wgmma's K-major B core matrices, w2[o, c, tap] at [o // NB][c // 32]
+    [tap][(c % 32) // 16][(o % NB) // 8][(c % 16) // 8][o % 8][c % 8], NB =
+    8 NT, zero past Co and hid."""
+    co, hid = w2.shape[:2]
+    nt, ncb = tc_plan(co)
+    nch = _cdiv(hid, TC_KC)
+    w = F.pad(w2.detach().reshape(co, hid, 9), (0, 0, 0, nch * TC_KC - hid, 0, ncb * 8 * nt - co))
+    w = w.view(ncb, nt, 8, nch, 2, 2, 8, 9)  # o -> (block, ng, oi), c -> (chunk, ks, kh, ci)
+    return w.permute(0, 3, 7, 4, 1, 5, 2, 6).to(torch.bfloat16, memory_format=torch.contiguous_format)
+
+
+def pack_w2_dact(w2: torch.Tensor) -> torch.Tensor:
+    """w2 (Co, hid, 3, 3) -> bf16 (hid blocks, Co chunks, 9, 16, 2, 8, 8): the
+    flipped taps of the transposed conv as wgmma's K-major B core matrices,
+    w2[o, c, 2 - sy, 2 - sx] at [c // 128][o // 16][sy * 3 + sx][(c % 128) // 8]
+    [(o % 16) // 8][c % 8][o % 8], zero past Co and hid."""
+    co, hid = w2.shape[:2]
+    noc, nhb = _cdiv(co, TC_OC), _cdiv(hid, TC_HB)
+    w = w2.detach().reshape(co, hid, 9).flip(2)  # tap 3 sy + sx takes 8 - (3 sy + sx)
+    w = F.pad(w, (0, 0, 0, nhb * TC_HB - hid, 0, noc * TC_OC - co))
+    w = w.view(noc, 2, 8, nhb, TC_HB // 8, 8, 9)  # o -> (chunk, kh, oi), c -> (block, cg, ci)
+    return w.permute(3, 0, 6, 4, 1, 5, 2).to(torch.bfloat16, memory_format=torch.contiguous_format)
+
+
+def _launch(entry: str, *args) -> int:
+    rc = getattr(_lib(), entry)(*args)
+    if rc == 0:
+        ROUTE_LAUNCHES[entry] += 1
+    return rc
+
+
 def _fwd(maps, w1, b1, w2, b2):
     n, md, hid, co, h, w = _check(maps, w1, b1, w2)
     _check_param("b2", b2, (co,))
     if not _on_cuda(maps, w1, b1, w2, b2):
         return ssm_embed_plain(maps, w1, b1, w2, b2)
     y = torch.empty((n, co, h, w), dtype=maps.dtype, device=maps.device)
-    w2c = w2.detach().float().permute(1, 2, 3, 0).contiguous()  # (hid, 3, 3, Co)
     with torch.cuda.device(maps.device):
-        rc = _lib().itg_ssm_embed_fwd(
-            maps.data_ptr(), _f32(w1).data_ptr(), _f32(b1).data_ptr(), w2c.data_ptr(),
-            _f32(b2).data_ptr(), y.data_ptr(), n, md, hid, h, w, co, _bf16(maps), _stream(maps),
-        )
+        if maps.dtype == torch.bfloat16:
+            rc = _launch(
+                "itg_ssm_embed_tc_fwd", maps.data_ptr(), _f32(w1).data_ptr(),
+                _f32(b1).data_ptr(), pack_w2_fwd(w2).data_ptr(), _f32(b2).data_ptr(),
+                y.data_ptr(), n, md, hid, h, w, co, tc_plan(co)[0], _stream(maps),
+            )
+        else:
+            w2c = w2.detach().float().permute(1, 2, 3, 0).contiguous()  # (hid, 3, 3, Co)
+            rc = _launch(
+                "itg_ssm_embed_fwd", maps.data_ptr(), _f32(w1).data_ptr(), _f32(b1).data_ptr(),
+                w2c.data_ptr(), _f32(b2).data_ptr(), y.data_ptr(), n, md, hid, h, w, co,
+                _stream(maps),
+            )
     _raise_on(rc, "ssm_embed")
     kernels.LAUNCHES["ssm_embed"] += 1
     return y
@@ -92,17 +191,30 @@ def ssm_embed_bwd(maps, w1, b1, w2, g):
         raise TypeError(f"g dtype {g.dtype} != maps dtype {maps.dtype}")
     if not _on_cuda(maps, w1, b1, w2, g):
         return ssm_embed_bwd_plain(maps, w1, b1, w2, g)
-    dw2 = torch.zeros((co, hid, 3, 3), dtype=torch.float32, device=maps.device)
-    db2 = torch.zeros(co, dtype=torch.float32, device=maps.device)
-    dw1 = torch.zeros((hid, md, 3, 3), dtype=torch.float32, device=maps.device)
-    db1 = torch.zeros(hid, dtype=torch.float32, device=maps.device)
-    w2o = w2.detach().float().permute(0, 2, 3, 1).contiguous()  # (Co, 3, 3, hid)
-    with torch.cuda.device(maps.device):
-        rc = _lib().itg_ssm_embed_bwd(
-            maps.data_ptr(), _f32(w1).data_ptr(), _f32(b1).data_ptr(), w2o.data_ptr(),
-            g.data_ptr(), dw2.data_ptr(), db2.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-            n, md, hid, h, w, co, _bf16(maps), _stream(maps),
-        )
+    dev = maps.device
+    dw2 = torch.zeros((co, hid, 3, 3), dtype=torch.float32, device=dev)
+    db2 = torch.zeros(co, dtype=torch.float32, device=dev)
+    dw1 = torch.zeros((hid, md, 3, 3), dtype=torch.float32, device=dev)
+    db1 = torch.zeros(hid, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        if maps.dtype == torch.bfloat16:
+            s1, s2 = tc_shares(n, h, w, hid, co)
+            part1 = torch.empty((s1, hid, 9 * md + 1), dtype=torch.float32, device=dev)
+            part2 = torch.empty((s2, co, hid, 9), dtype=torch.float32, device=dev)
+            partb2 = torch.empty((s2, co), dtype=torch.float32, device=dev)
+            rc = _launch(
+                "itg_ssm_embed_tc_bwd", maps.data_ptr(), _f32(w1).data_ptr(), _f32(b1).data_ptr(),
+                pack_w2_dact(w2).data_ptr(), g.data_ptr(), part1.data_ptr(), part2.data_ptr(),
+                partb2.data_ptr(), dw2.data_ptr(), db2.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+                n, md, hid, h, w, co, s1, s2, _stream(maps),
+            )
+        else:
+            w2o = w2.detach().float().permute(0, 2, 3, 1).contiguous()  # (Co, 3, 3, hid)
+            rc = _launch(
+                "itg_ssm_embed_bwd", maps.data_ptr(), _f32(w1).data_ptr(), _f32(b1).data_ptr(),
+                w2o.data_ptr(), g.data_ptr(), dw2.data_ptr(), db2.data_ptr(), dw1.data_ptr(),
+                db1.data_ptr(), n, md, hid, h, w, co, _stream(maps),
+            )
     _raise_on(rc, "ssm_embed_bwd")
     kernels.LAUNCHES["ssm_embed_bwd"] += 1
     return dw2, db2, dw1, db1
@@ -118,6 +230,41 @@ def ssm_embed_bwd_plain(maps, w1, b1, w2, g):
         y = F.conv2d(a, params[2], b2)
         dw1, db1, dw2, db2 = torch.autograd.grad(y, (*params, b2), g.float())
     return dw2, db2, dw1, db1
+
+
+def _pre_f32(maps, w1, b1):
+    """The bf16 route's float32 pre-activation, summed as its kernels sum it
+    (``hidden_pre_at`` in csrc/ssm_embed_tc.cu): one fma per (map channel,
+    tap) in that order, then the bias. Each step is exact in float64 and
+    rounded once to float32, as an fma is."""
+    m, w = maps.detach().double(), w1.detach().double()
+    n, md, hm, wm = m.shape
+    acc = torch.zeros((n, w.shape[0], hm - 2, wm - 2), dtype=torch.float32, device=m.device)
+    for k in range(md):
+        for dy in range(3):
+            for dx in range(3):
+                tap = m[:, k : k + 1, dy : dy + hm - 2, dx : dx + wm - 2]
+                acc = (acc.double() + tap * w[:, k, dy, dx].view(1, -1, 1, 1)).float()
+    return (acc.double() + b1.detach().double().view(1, -1, 1, 1)).float()
+
+
+def ssm_embed_bwd_tc_plain(maps, w1, b1, w2, g):
+    """Plain version of the bf16 tensor-core route of :func:`ssm_embed_bwd`:
+    its chain with the route's roundings, in float64 between them, returned
+    as float32. The pre-activation is the route's float32 one
+    (:func:`_pre_f32`), so the rounded hidden activation and the ReLU mask
+    are the kernels' own; the hidden activation, w2 and d_pre are rounded
+    to bf16 (pallas_ssm.py:143-147, :490-493, :295), and db1 sums the
+    rounded d_pre that dW1 takes. Without the roundings the sums move by
+    about 2^-9 of their size, far more than a float32 reduction does."""
+    r = lambda t: t.to(torch.bfloat16).double()  # noqa: E731
+    m, gd = maps.detach().double(), g.detach().double()
+    pre = _pre_f32(maps, w1, b1)
+    a = r(torch.relu(pre))
+    dw2 = torch.nn.grad.conv2d_weight(a, w2.shape, gd)
+    d_pre = r(torch.nn.grad.conv2d_input(a.shape, r(w2.detach()), gd) * (pre > 0))
+    dw1 = torch.nn.grad.conv2d_weight(m, w1.shape, d_pre)
+    return tuple(t.float() for t in (dw2, gd.sum(dim=(0, 2, 3)), dw1, d_pre.sum(dim=(0, 2, 3))))
 
 
 class _SsmEmbed(torch.autograd.Function):

@@ -18,6 +18,8 @@ from infinite_texture_gans_torch.config import generator_kwargs
 from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
 from infinite_texture_gans_torch.sampling.infinite import generate_canvas
 from infinite_texture_gans_torch.train import checkpoint, msgpack
+from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
+
 
 FLAGSHIP = os.path.join(os.path.dirname(__file__), "..", "examples", "241_300ep_ema.ckpt")
 

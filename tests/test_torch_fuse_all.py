@@ -37,6 +37,7 @@ from infinite_texture_gans_torch.sampling.stream import (
 )
 from infinite_texture_gans_torch.train import checkpoint
 from infinite_texture_gans_torch.weights import from_jax_variables
+from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
 
 # port against JAX: the tolerance of tests/test_halo.py (f32 sums taken in
 # another order), the port-vs-JAX tolerance of the other port tests
@@ -48,17 +49,6 @@ STEP_ATOL = 2e-5
 FUSE_ATOL, FUSE_RTOL = 5e-4, 1e-3
 
 TINY = dict(z_dim=16, G_ch=8, base_res=4, n_layers_G=5, attention=False, img_ch=3)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    """Two intra-op threads for this module's PyTorch work: the test run
-    puts several workers on one host, and PyTorch's default of one thread
-    per core then oversubscribes it many times over."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _jax_gen(cfg=TINY, **kw):

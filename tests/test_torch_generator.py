@@ -27,6 +27,8 @@ from infinite_texture_gans_torch.sampling.infinite import (
     generate_one_pass,
 )
 from infinite_texture_gans_torch.weights import from_jax_variables
+from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
+
 
 # the tolerance of tests/test_halo.py: f32 sums taken in another order
 ATOL, RTOL = 2e-4, 1e-4

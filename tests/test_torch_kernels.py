@@ -14,6 +14,8 @@ from infinite_texture_gans_tpu.ops import pallas_conv as pc
 from infinite_texture_gans_torch.ops import kernels as tk
 from infinite_texture_gans_torch.ops import padding as tpad
 from infinite_texture_gans_torch.models.layers import ConvLP
+from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
+
 
 # the tolerance of tests/test_halo.py: f32 sums taken in another order
 ATOL, RTOL = 2e-4, 1e-4

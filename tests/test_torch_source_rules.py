@@ -8,6 +8,8 @@ import sys
 from pathlib import Path
 
 import pytest
+from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "infinite_texture_gans_torch"
@@ -62,8 +64,8 @@ def test_cuda_sources_target_sm90a():
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.FLAGS
     names = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert names == {"conv3x3_chw", "conv3x3_chw_bwd", "conv1x1_chw", "upsample2_chw", "stem4x4s2",
-                     "upconv3x3_chw", "ssm_embed_chw"}
+                     "upconv3x3_chw", "ssm_embed_chw", "ssm_embed_tc"}
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
-        site = "pallas_ssm.py" if src.stem == "ssm_embed_chw" else "pallas_conv.py"
+        site = "pallas_ssm.py" if src.stem.startswith("ssm_embed") else "pallas_conv.py"
         assert site in text and "bound" in text, src.name

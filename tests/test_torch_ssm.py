@@ -57,6 +57,7 @@ from infinite_texture_gans_torch.train.train_step import (
     train_step,
 )
 from infinite_texture_gans_torch.weights import from_jax_variables
+from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
 
 
 def _np(tree):
@@ -174,6 +175,81 @@ def _port(cfg, tree, **kw):
     gen = ResidualPatchGenerator(type_norm="SSM", **cfg, **kw)
     gen.load_state_dict(from_jax_variables(tree), strict=True)
     return gen
+
+
+# --- K15's bf16 tensor-core route: what the wrapper hands the kernels ------
+
+
+@pytest.mark.parametrize("co,hid", [(104, 128), (52, 128), (208, 128), (19, 16), (3, 40)])
+def test_k15_tc_weight_packings(co, hid):
+    """The packed w2 layouts that csrc/ssm_embed_tc.cu reads, entry by entry
+    against w2, with zeros past Co and hid."""
+    w2 = torch.from_numpy(np.random.default_rng(3).standard_normal((co, hid, 3, 3), dtype=np.float32))
+    w2b = w2.to(torch.bfloat16)
+    nt, ncb = ssm.tc_plan(co)
+    nb = 8 * nt
+    fwd = ssm.pack_w2_fwd(w2)
+    assert fwd.dtype == torch.bfloat16 and fwd.shape == (ncb, -(-hid // 32), 9, 2, nt, 2, 8, 8)
+    o, c, tap = np.meshgrid(np.arange(co), np.arange(hid), np.arange(9), indexing="ij")
+    got = fwd[o // nb, c // 32, tap, (c % 32) // 16, (o % nb) // 8, (c % 16) // 8, o % 8, c % 8]
+    assert torch.equal(got, w2b.reshape(co, hid, 9)[o, c, tap])
+    assert int(fwd.count_nonzero()) == int(w2b.count_nonzero())  # zeros elsewhere
+    dact = ssm.pack_w2_dact(w2)
+    assert dact.shape == (-(-hid // 128), -(-co // 16), 9, 16, 2, 8, 8)
+    sy, sx = tap // 3, tap % 3
+    got = dact[c // 128, o // 16, tap, (c % 128) // 8, (o % 16) // 8, c % 8, o % 8]
+    assert torch.equal(got, w2b[o, c, 2 - sy, 2 - sx])
+    assert int(dact.count_nonzero()) == int(w2b.count_nonzero())
+
+
+def test_k15_tc_plan_and_shares():
+    """Output blocks pad Co least (the models' 52, 104 and 208 not at all);
+    the backward's shares depend on the shapes alone and never exceed the
+    tiles."""
+    assert [ssm.tc_plan(co) for co in (52, 104, 208, 3, 60)] == [(7, 1), (13, 1), (13, 2), (7, 1), (13, 1)]
+    for co in range(1, 260):
+        nt, ncb = ssm.tc_plan(co)
+        assert nt in ssm.TC_NT and (ncb - 1) * 8 * nt < co <= ncb * 8 * nt
+    assert ssm.tc_shares(8, 192, 192, 128, 104) == (264, 33)
+    assert ssm.tc_shares(1, 1, 3, 16, 3) == (1, 1)
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 16, 20, 32, 24), (1, 3, 8, 13, 16, 5)])
+def test_k15_tc_plain_matches_jax_bf16_kernel(shape):
+    """The bf16 route's plain backward, which the card checks hold its
+    kernel to, against JAX's Pallas backward (``bwd_impl='pallas'``) in
+    bf16: the same roundings of the hidden activation, w2 and d_pre. The
+    inputs are small dyadic numbers, so that stage 1 (which JAX rounds to
+    bf16 before the bias) and d_act are exact and both sides round the same
+    values. dW2, db2 and dW1 agree to float32's summation order, and the
+    plain version without the roundings does not; db1 sums the rounded
+    d_pre, JAX's kernel the unrounded one, so they differ by at most the
+    rounding, 2^-8 of sum |d_pre|."""
+    n, md, H, W, hid, co = shape
+    rng = np.random.default_rng(6)
+    dyadic = lambda shp, k, d: (rng.integers(-k, k + 1, shp) / d).astype(np.float32)  # noqa: E731
+    maps, g = dyadic((n, md, H + 4, W + 4), 2, 2), dyadic((n, co, H, W), 4, 4)
+    k1, b1 = dyadic((3, 3, md, hid), 2, 4), dyadic((hid,), 2, 8)
+    k2, b2 = dyadic((3, 3, hid, co), 8, 8), dyadic((co,), 2, 8)
+    bf = jnp.bfloat16
+    y, vjp = jax.vjp(lambda *w: ssm_embed_chw_p(jnp.asarray(maps, bf), *w, W, 128, "pallas"),
+                     *map(jnp.asarray, (k1, b1, k2, b2)))
+    g_pad = np.zeros(y.shape, np.float32)
+    g_pad[..., :W] = g
+    dk1, db1, dk2, db2 = (np.asarray(t, np.float64) for t in vjp(jnp.asarray(g_pad, bf)))
+    ref = {"dW2": dk2.transpose(3, 2, 0, 1), "db2": db2, "dW1": dk1.transpose(3, 2, 0, 1)}
+    args = (_t(maps).to(torch.bfloat16), _oihw(k1), _t(b1), _oihw(k2), _t(g).to(torch.bfloat16))
+    got = dict(zip(("dW2", "db2", "dW1", "db1"), ssm.ssm_embed_bwd_tc_plain(*args)))
+    unrounded = ssm.ssm_embed_bwd_plain(*args)[2].double().numpy()
+    for name, want in ref.items():
+        err = float(np.abs(got[name].double().numpy() - want).max())
+        assert err <= 1e-5 * float(np.abs(want).max()), (name, err)
+    assert float(np.abs(unrounded - ref["dW1"]).max()) > 1e-4 * float(np.abs(ref["dW1"]).max())
+    m, w2 = torch.from_numpy(maps).double(), _oihw(k2).double()
+    pre = torch.nn.functional.conv2d(m, _oihw(k1).double(), _t(b1).double())
+    d_pre = torch.nn.grad.conv2d_input(pre.shape, w2, _t(g).double()) * (pre > 0)
+    limit = 2.0**-8 * d_pre.abs().sum(dim=(0, 2, 3)).numpy()
+    assert bool((np.abs(got["db1"].double().numpy() - db1) <= limit * (1 + 1e-6)).all())
 
 
 @pytest.fixture(scope="module")

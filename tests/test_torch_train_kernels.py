@@ -18,6 +18,8 @@ from infinite_texture_gans_tpu.ops import conv as jconv
 from infinite_texture_gans_tpu.ops import pallas_conv as pc
 from infinite_texture_gans_torch.ops import conv as tconv
 from infinite_texture_gans_torch.ops import kernels as tk
+from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
+
 
 OUT_TOL, GRAD_TOL = 1e-5, 1e-4
 

@@ -20,6 +20,8 @@ from infinite_texture_gans_torch.models.discriminator import PatchDiscriminator
 from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
 from infinite_texture_gans_torch.ops import kernels
 from infinite_texture_gans_torch.weights import from_jax_variables
+from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
+
 
 TINY_G = dict(z_dim=16, G_ch=8, base_res=4, n_layers_G=4, attention=True, img_ch=3)
 

@@ -48,6 +48,8 @@ from infinite_texture_gans_torch.train import checkpoint as port_ckpt
 from infinite_texture_gans_torch.train import train_loop
 from infinite_texture_gans_torch.train.train_step import create_train_state, train_step
 from infinite_texture_gans_torch.weights import from_jax_variables
+from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
+
 
 TINY = ["--G_ch", "8", "--D_ch", "8", "--z_dim", "16", "--n_layers_G", "4", "--n_layers_D", "2",
         "--padding_mode", "local", "--attention", "--batch_size", "4", "--num_images", "2",

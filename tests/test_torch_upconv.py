@@ -25,6 +25,8 @@ import torch.nn.functional as F
 from infinite_texture_gans_tpu.ops import pallas_conv as pc
 from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
 from infinite_texture_gans_torch.ops import kernels as tk
+from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
+
 
 OUT_TOL, GRAD_TOL = 1e-5, 1e-4
 W_TRUE = 24  # half-res valid width; the reference's carry is 128 lanes wide
