@@ -26,9 +26,17 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    fake 384^2 grids, tail blocks 5-6) under both tails: ``--fuse_up off``
    and ``auto``, whose half-res shortcut (K3 and its dx form, K3-dW) and
    K10 adjoint (K4-bwd) run at shapes of their own; f32 and bf16, both
-   outer paddings. Times each (CUDA-graph replay) beside its bound, its
-   plain version and one PyTorch library call, summed per step for each
-   tail, and holds the timed calls per step to the tail's launch counts.
+   outer paddings. K6 and K9 dx route by dtype: bf16 on the tensor-core
+   kernels of ``csrc/chw_dx_tc.cu``, held to the plain versions with the
+   route's rounded weights (``*_tc_plain``; the unrounded one's distance
+   reported), two calls bit-equal, and at two shapes each three planted
+   faults (the top fold dropped, one input channel's weights x 1.01, ky and
+   kx swapped) must fail that check; f32 on the CUDA-core kernels, timed
+   into rows of their own (``:f32_<path>``), and the CUDA-core kernel timed
+   in bf16 beside the tensor-core one. Times each (CUDA-graph replay) beside
+   its bound, its plain version and one PyTorch library call, summed per
+   step for each tail, and holds the timed calls per step to the tail's
+   launch counts.
 3b. The SSM recipe (README: ``12.jpg``, ``--type_norm SSM --n_layers_G 5
    --n_layers_D 3 --random_crop 128``, map_dim 1, bf16): the SSM embed
    chain K15, forward and backward, against its plain versions at every
@@ -43,7 +51,8 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    same chain, the f32 route at the training shapes into rows of its own
    (``:f32_parity``, launches from the f32 SSM step parity); and K1/K5, K6, K7 (the
    identity fold), K8, K3 (+ its dx form), K3-dW, K4, K4-bwd and the stem
-   at the SSM step's own shapes, summed per SSM step.
+   at the SSM step's own shapes, summed per SSM step (K6 on both routes, as
+   in phase 3).
 4. Loads the trained flagship checkpoint ``examples/241_300ep_ema.ckpt``
    and runs the generation phase (``generation_phase``):
    - float32, 768^2: the one-pass oracle (a main path, launch counts
@@ -68,14 +77,17 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    their plain versions; losses and each gradient leaf must agree (its
    largest deviation against its largest value). Then the fused step
    against the unfused one from the same state and crops, both on the
-   kernels. The same step parity for the SSM recipe (K15 included).
+   kernels. The same step parity for the SSM recipe (K15 included). Each
+   f32 step parity runs K6 and K9 dx on their CUDA-core entry points only
+   (``[route]``).
    ``step_parity_study.py`` measures the limits' spread and planted faults.
 6. Training runs: 30 bf16 steps each through the train CLI's ``train``:
    the Experiment-1 recipe on ``datasets/241.jpg`` under ``--fuse_up auto``
    (the default) and ``off``, then the SSM recipe on ``datasets/12.jpg``;
    exact launch counts per step, warm steps/s, the device's busy share
    (torch.profiler), then the written ``.ckpt`` reloaded through the
-   sampling loader and rendered to a 384^2 canvas.
+   sampling loader and rendered to a 384^2 canvas. Each bf16 run launches
+   K6 and K9 dx on their tensor-core entry points only (``[route]``).
 7. SSM generation from the SSM run's EMA checkpoint through the same
    generation phase (one-pass launches K15 6, K1 5, K3 2, K4 2; per 1024^2
    canvas K15 384, K2 320, K3 128, K4 128; the bf16 raster against the
@@ -191,7 +203,7 @@ def exp1_shapes(plan, base):
 KERNELS = {
     "conv3x3_chw": ("K1/K5", "conv3x3_chw.cu", "pallas_conv.py:395"),
     "chw_halo_step": ("K2", "conv3x3_chw.cu", "pallas_conv.py:539"),
-    "conv3x3_chw_dx": ("K6", "conv3x3_chw_bwd.cu", "pallas_conv.py:775"),
+    "conv3x3_chw_dx": ("K6", "chw_dx_tc.cu", "pallas_conv.py:775"),
     "conv3x3_chw_dw": ("K7", "conv3x3_chw_bwd.cu", "pallas_conv.py:888"),
     "bn_corr": ("K8", "conv3x3_chw_bwd.cu", "pallas_conv.py:1061"),
     "conv1x1_chw": ("K3", "conv1x1_chw.cu", "pallas_conv.py:2311"),
@@ -199,7 +211,7 @@ KERNELS = {
     "upsample2_chw": ("K4", "upsample2_chw.cu", "pallas_conv.py:2540"),
     "upsample2_chw_bwd": ("K4-bwd", "upsample2_chw.cu", "pallas_conv.py:2560"),
     "upconv3x3_chw": ("K9", "upconv3x3_chw.cu", "pallas_conv.py:1457"),
-    "upconv3x3_chw_dx": ("K9-dx", "upconv3x3_chw.cu", "pallas_conv.py:1642"),
+    "upconv3x3_chw_dx": ("K9-dx", "chw_dx_tc.cu", "pallas_conv.py:1642"),
     "upconv3x3_chw_dw": ("K9-dW", "upconv3x3_chw.cu", "pallas_conv.py:1777"),
     "chw_upconv_halo_step": ("K14", "upconv3x3_chw.cu", "pallas_conv.py:2019"),
     "upsample2_chw_add": ("K10", "upsample2_chw.cu", "pallas_conv.py:2199"),
@@ -209,12 +221,20 @@ KERNELS = {
     "ssm_embed": ("K15", "ssm_embed_tc.cu", "pallas_ssm.py:343"),
     "ssm_embed_bwd": ("K15-bwd", "ssm_embed_tc.cu", "pallas_ssm.py:392"),
 }
-# K15's two routes (ops/ssm.py): the main paths run bf16 on the tensor-core
-# kernels above; float32 (step parity, the f32 raster) keeps the CUDA-core
-# kernels, reported in rows of their own: kernel -> (C entry point, source)
-K15_F32_ROUTE = {"ssm_embed": ("itg_ssm_embed_fwd", "ssm_embed_chw.cu"),
-                 "ssm_embed_bwd": ("itg_ssm_embed_bwd", "ssm_embed_chw.cu")}
-K15_TC_ENTRY = {"ssm_embed": "itg_ssm_embed_tc_fwd", "ssm_embed_bwd": "itg_ssm_embed_tc_bwd"}
+# The kernels with two routes (K15: ops/ssm.py; K6 and K9 dx: ops/kernels.py):
+# the main paths run bf16 on the tensor-core kernels above; float32 (step
+# parity, the f32 raster) keeps the CUDA-core kernels, reported in rows of
+# their own: kernel -> (C entry point, source)
+F32_ROUTE = {"ssm_embed": ("itg_ssm_embed_fwd", "ssm_embed_chw.cu"),
+             "ssm_embed_bwd": ("itg_ssm_embed_bwd", "ssm_embed_chw.cu"),
+             "conv3x3_chw_dx": ("itg_conv3x3_chw_dx", "conv3x3_chw_bwd.cu"),
+             "upconv3x3_chw_dx": ("itg_upconv3x3_chw_dx", "upconv3x3_chw.cu")}
+TC_ENTRY = {"ssm_embed": "itg_ssm_embed_tc_fwd", "ssm_embed_bwd": "itg_ssm_embed_tc_bwd",
+            "conv3x3_chw_dx": "itg_conv3x3_chw_dx_tc", "upconv3x3_chw_dx": "itg_upconv3x3_chw_dx_tc"}
+# K6 and K9 dx: their bf16 rows also carry the CUDA-core kernel's time in
+# bf16 (the design the tensor-core one replaced, timed in the same run), and
+# their f32 route has a row for each training path
+DX_KERNELS = ("conv3x3_chw_dx", "upconv3x3_chw_dx")
 # kernels on the generation paths (timed per sub-image: K1 on the one pass,
 # the rest on the raster); those of the training step (timed per step) are
 # the ones STEP_LAUNCHES counts
@@ -1000,20 +1020,23 @@ def main() -> int:
 
     def table():
         return {k: dict(err=None, sum_err=0.0, ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                        library_ms=0.0, nbytes=0.0, flops=0.0, calls=0) for k in KERNELS}
+                        library_ms=0.0, cuda_cores_ms=0.0, nbytes=0.0, flops=0.0, calls=0)
+                for k in KERNELS}
 
     stats = table()  # per 384^2 sub-image (generation)
     astats = table()  # per 384^2 sub-image (generation under --fuse_up all)
     gstats = table()  # per 192^2 SSM sub-image (SSM generation)
     fstats = table()  # K15's float32 route, per SSM step at the training shapes
     tstats = {tail: table() for tail in STEP_LAUNCHES}  # per training step, each tail
+    dstats = {tail: table() for tail in STEP_LAUNCHES}  # K6 / K9 dx f32 route, per step
 
-    def compare(name, shape, got, ref, exact=False, into=None):
+    def compare(name, shape, got, ref, exact=False, into=None, floor=1.0):
+        """Values within the dtype's limit of max(floor, max|ref|)."""
         sync()
         err = float((got.float() - ref.float()).abs().max())
         top = float(ref.float().abs().max())
         tol = 0.0 if exact else (F32_TOL if got.dtype == torch.float32 else BF16_TOL)
-        limit = tol * max(1.0, top)
+        limit = tol * max(floor, top)
         print(f"[check] {name} {str(got.dtype).replace('torch.', '')} {shape}: "
               f"max_abs_err {err:.3e} max_rel_err {err / max(top, 1e-12):.3e} "
               f"(of max|ref| {top:.3e}) limit {limit:.3e}")
@@ -1049,31 +1072,88 @@ def main() -> int:
         return x, wt, b, sc, sh, top, left
 
     def account(name, shape_s, kernel_fn, plain_fn, lib_fn, nbytes, flops, tails=(), count=1,
-                into=None, also=None, peak=PEAK_BF16_FLOP_PER_S):
+                into=None, also=None, peak=PEAK_BF16_FLOP_PER_S, old_fn=None, f32_route=False):
         """Time the kernel, its plain version and the library call (bf16,
         device time from CUDA-graph replay, per call) and add ``count`` calls
         to the kernel's sums: per sub-image without ``tails`` (in ``into``,
         the flagship's table by default, and in ``also`` where another path
         runs the same shape), else per step of each training tail named (a
-        shape both tails run goes into both)."""
+        shape both tails run goes into both; with ``f32_route``, into the
+        K6 / K9 dx f32 route's tables). ``old_fn``: the same function on the
+        CUDA-core kernel that the tensor-core one replaced, timed beside it."""
         ms, plain, lib = device_ms(kernel_fn), device_ms(plain_fn), device_ms(lib_fn)
+        old = device_ms(old_fn) if old_fn is not None else 0.0
         eager = eager_ms(kernel_fn)
         b = bound_ms(nbytes, flops, peak)
-        targets = [tstats[t][name] for t in tails] or [(into or stats)[name]]
+        targets = [(dstats if f32_route else tstats)[t][name] for t in tails] or [(into or stats)[name]]
         for s in targets + ([also[name]] if also is not None else []):
             s["ms"] += count * ms
             s["eager_ms"] += count * eager
             s["plain_ms"] += count * plain
             s["library_ms"] += count * lib
+            s["cuda_cores_ms"] += count * old
             s["nbytes"] += count * nbytes
             s["flops"] += count * flops
             s["bound_ms"] += count * b
             s["calls"] += count
         by = "bytes" if nbytes / PEAK_BYTES_PER_S >= flops / peak else "operations"
         per = f", x{count} per step of {' and '.join(TRAIN_PATHS[t][0] for t in tails)}" if tails else ""
+        was = f", the CUDA-core kernel {old:.4f} ms" if old_fn is not None else ""
         print(f"[time] {name} {shape_s}: kernel {ms:.4f} ms (eager call {eager:.4f} ms), "
-              f"bound {b:.4f} ms ({by}), plain {plain:.4f} ms, library {lib:.4f} ms{per}  "
+              f"bound {b:.4f} ms ({by}), plain {plain:.4f} ms, library {lib:.4f} ms{was}{per}  "
               f"[{card}]")
+
+    def check_dx(name, tag, x, gy, wt, sc, sh, outer, plant=False):
+        """K6 or K9 dx (``name``) against its plain version. bf16 runs the
+        tensor cores: dx within BF16_TOL of max|ref| and the sums within
+        SUM_TOL of the plain version with the route's rounded weights
+        (``*_tc_plain``), the unrounded one's distance reported, two calls
+        bit-equal, and with ``plant`` (replicate padding) three planted
+        faults must fail that check. f32 runs the CUDA cores, held to the
+        plain version."""
+        k = getattr(kernels, name)
+        tc = x.dtype == torch.bfloat16
+        route = "tensor cores" if tc else "CUDA cores"
+        got = k(x, gy, wt, sc, sh, True, outer)
+        ref = getattr(kernels, name + ("_tc_plain" if tc else "_plain"))(x, gy, wt, sc, sh, True,
+                                                                         outer)
+        compare(name, f"{tag} [{route}]", got[0], ref[0], floor=0.0 if tc else 1.0)
+        compare_sum(name, f"d(scale) {tag} [{route}]", got[1], ref[1])
+        compare_sum(name, f"d(shift) {tag} [{route}]", got[2], ref[2])
+        if not tc:
+            return
+        unrounded = getattr(kernels, name + "_plain")(x, gy, wt, sc, sh, True, outer)
+        moved = [float((a.float() - r.float()).abs().max() / r.float().abs().max())
+                 for a, r in zip(got, unrounded)]
+        print(f"[check] {name} {tag} [tensor cores]: against the plain version without the "
+              f"weights' rounding, max abs err / max|ref| dx {moved[0]:.3e} d(scale) "
+              f"{moved[1]:.3e} d(shift) {moved[2]:.3e} (reported)")
+        again = k(x, gy, wt, sc, sh, True, outer)
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        print(f"[check] {name} {tag} [tensor cores]: two calls {'bit-equal' if same else 'differ'}")
+        if not same:
+            fail(f"{name} {tag}: two bf16 calls differ")
+        if not plant or outer != "replicate":
+            return
+
+        def ratio(bad):  # the worst of the check's three errors over their limits
+            lims = (BF16_TOL, SUM_TOL, SUM_TOL)
+            return max(float((a.float() - r.float()).abs().max()) / (t * float(r.float().abs().max()))
+                       for a, r, t in zip(bad, ref, lims))
+
+        no_top = got[0].clone()
+        no_top[..., 0, 1:-1] = k(x, gy, wt, sc, sh, True, "constant")[0][..., 0, 1:-1]
+        w_ch = wt.clone()
+        w_ch[:, int(ref[1].abs().argmax())] *= 1.01
+        for fault, bad in (("top fold dropped", (no_top, got[1], got[2])),
+                           ("one input channel's weights x 1.01",
+                            k(x, gy, w_ch, sc, sh, True, outer)),
+                           ("ky<->kx", k(x, gy, wt.transpose(2, 3).contiguous(), sc, sh, True, outer))):
+            r_ = ratio(bad)
+            print(f"[check] {name} {tag} [tensor cores]: planted {fault}: max abs err / limit "
+                  f"{r_:.2f} (must exceed 1)")
+            if not r_ > 1.0:
+                fail(f"{name} {tag}: the check passes a planted {fault}")
 
     print(f"[tolerance] f32 (TF32 off): max abs err <= {F32_TOL:g} * max(1, max|ref|): kernel "
           "and cuDNN sum up to 936 products in other orders, and cuDNN may use Winograd "
@@ -1266,6 +1346,10 @@ def main() -> int:
     print(f"[tolerance] sums (Σy, Σy², d(scale), d(shift), dW, db): max abs err <= {SUM_TOL:g} * "
           "max|ref|: float32 reductions in another order, partly by atomics; K5's sums are held "
           "to the sums of the kernel's own stored y; K4's adjoint bit-equal")
+    print(f"[tolerance] K6 / K9 dx, bf16 (tensor cores, which round the weights, for K9 the "
+          f"combined 4x4 ones, to bf16): dx max abs err <= {BF16_TOL:g} * max|ref| and the sums as "
+          "above, against the plain version with that rounding (*_tc_plain); two calls bit-equal "
+          "(fixed-order partial sums); f32 (CUDA cores) as before")
     for dtype in (torch.float32, torch.bfloat16):
         timed = dtype == torch.bfloat16
         es = 2 if timed else 4
@@ -1286,11 +1370,8 @@ def main() -> int:
                         y, kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True, outer))
                 compare_sum("conv3x3_chw", f"Σy {tag}", s1, y.float().sum(dim=(0, 2, 3)))
                 compare_sum("conv3x3_chw", f"Σy² {tag}", s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
-                dx, dsc, dsh = kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, outer)
-                dx_r, dsc_r, dsh_r = kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, outer)
-                compare("conv3x3_chw_dx", tag, dx, dx_r)
-                compare_sum("conv3x3_chw_dx", f"d(scale) {tag}", dsc, dsc_r)
-                compare_sum("conv3x3_chw_dx", f"d(shift) {tag}", dsh, dsh_r)
+                # planted faults at the block's two 192^2 shapes
+                check_dx("conv3x3_chw_dx", tag, x, gy, wt, sc, sh, outer, plant=i < 2)
                 dw, db = kernels.conv3x3_chw_dw(x, gy, sc, sh, True, outer)
                 dw_r, db_r = kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, outer)
                 compare_sum("conv3x3_chw_dw", f"dW {tag}", dw, dw_r)
@@ -1298,26 +1379,35 @@ def main() -> int:
                 if with_stats:
                     compare("bn_corr", tag, kernels.bn_corr(gy, y, alpha, beta2),
                             kernels.bn_corr_plain(gy, y, alpha, beta2))
-            if not timed:
-                continue
             act = n * h * w
             pbytes = (co * c * 9 + co) * 4
             flops = 2.0 * act * co * c * 9
-            a_pad = F.pad(kernels.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
-            wl, bl = wt.to(dtype), b.to(dtype)
+            dx_bytes = act * (2 * c + co) * es + pbytes + 4 * c * 4
             # a block's conv1 (the stats producer) runs only unfused: under
             # auto K9 takes its place; conv2 and the final conv run in both
             tails = ("off",) if with_stats else ("auto", "off")
+            if not timed:  # K6's f32 route (CUDA cores), in rows of its own
+                account("conv3x3_chw_dx", f"{shape_s} [CUDA cores, f32]",
+                        lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
+                        lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
+                        lambda: torch.nn.grad.conv2d_input(x.shape, wt, gy, padding=1),
+                        dx_bytes, flops, tails=tails, peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                continue
+            a_pad = F.pad(kernels.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
+            wl, bl = wt.to(dtype), b.to(dtype)
+            w32 = kernels._f32(wt)
             account("conv3x3_chw", shape_s,
                     lambda: kernels.conv3x3_chw(x, wt, b, sc, sh, True, want_stats=with_stats),
                     lambda: kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True, want_stats=with_stats),
                     lambda: F.conv2d(a_pad, wl, bl), act * (c + co) * es + pbytes + 2 * c * 4,
                     flops, tails=tails)
-            account("conv3x3_chw_dx", shape_s,
+            account("conv3x3_chw_dx", f"{shape_s} [tensor cores]",
                     lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                     lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
                     lambda: torch.nn.grad.conv2d_input(x.shape, wl, gy, padding=1),
-                    act * (2 * c + co) * es + pbytes + 4 * c * 4, flops, tails=tails)
+                    dx_bytes, flops, tails=tails,
+                    old_fn=lambda: kernels._dx_cuda_cores("itg_conv3x3_chw_dx", x, gy, w32, sc, sh,
+                                                          True, False))
             account("conv3x3_chw_dw", shape_s,
                     lambda: kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
                     lambda: kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
@@ -1475,11 +1565,7 @@ def main() -> int:
                 compare_sum("upconv3x3_chw", f"Σy {tag}", s1, y.float().sum(dim=(0, 2, 3)))
                 compare_sum("upconv3x3_chw", f"Σy² {tag}", s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
                 del y_ref, y
-                dx, dsc, dsh = kernels.upconv3x3_chw_dx(x, gy, wt, sc, sh, True, outer)
-                dx_r, dsc_r, dsh_r = kernels.upconv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, outer)
-                compare("upconv3x3_chw_dx", tag, dx, dx_r)
-                compare_sum("upconv3x3_chw_dx", f"d(scale) {tag}", dsc, dsc_r)
-                compare_sum("upconv3x3_chw_dx", f"d(shift) {tag}", dsh, dsh_r)
+                check_dx("upconv3x3_chw_dx", tag, x, gy, wt, sc, sh, outer, plant=True)
                 dw, db = kernels.upconv3x3_chw_dw(x, gy, sc, sh, True, outer)
                 dw_r, db_r = kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, True, outer)
                 compare_sum("upconv3x3_chw_dw", f"dW {tag}", dw, dw_r)
@@ -1493,26 +1579,36 @@ def main() -> int:
             compare_sum("upsample2_chw_add", f"Σy {k10_s}", s1, y.float().sum(dim=(0, 2, 3)))
             compare_sum("upsample2_chw_add", f"Σy² {k10_s}", s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
             del y_ref, y
-            if not timed:
-                continue
             act = n * h * w  # half-res pixels
             wbytes = (co * c * 9 + co + 2 * c) * 4
             flops = 2.0 * act * co * c * 16  # four phases of 2x2 taps
+            dx_bytes = act * (2 * c + 4 * co) * es + wbytes + 2 * c * 4
+            wt4 = kernels._upconv_dx_weights(wt)
+            if not timed:  # K9 dx's f32 route (CUDA cores), in rows of its own
+                account("upconv3x3_chw_dx", f"{shape_s} [CUDA cores, f32]",
+                        lambda: kernels.upconv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
+                        lambda: kernels.upconv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
+                        lambda: F.conv2d(gy, wt4.transpose(0, 1).contiguous(), stride=2, padding=1),
+                        dx_bytes, flops, tails=("auto",), peak=PEAK_F32_FLOP_PER_S,
+                        f32_route=True)
+                continue
             a_half = kernels.prenorm(x, sc, sh, True)
             a_up = F.pad(kernels.upsample2_chw_plain(a_half), (1, 1, 1, 1), mode="replicate")
             wl, bl = wt.to(dtype), b.to(dtype)
-            wt4 = kernels._upconv_dx_weights(wt).transpose(0, 1).contiguous().to(dtype)
+            wt4l = wt4.transpose(0, 1).contiguous().to(dtype)
             account("upconv3x3_chw", f"{shape_s} +stats",
                     lambda: kernels.upconv3x3_chw(x, wt, b, sc, sh, True, want_stats=True),
                     lambda: kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, want_stats=True),
                     lambda: F.conv2d(F.interpolate(a_half, scale_factor=2, mode="nearest"), wl, bl,
                                      padding=1),
                     act * (c + 4 * co) * es + wbytes + 2 * co * 4, flops, tails=("auto",))
-            account("upconv3x3_chw_dx", shape_s,
+            account("upconv3x3_chw_dx", f"{shape_s} [tensor cores]",
                     lambda: kernels.upconv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                     lambda: kernels.upconv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
-                    lambda: F.conv2d(gy, wt4, stride=2, padding=1),
-                    act * (2 * c + 4 * co) * es + wbytes + 2 * c * 4, flops, tails=("auto",))
+                    lambda: F.conv2d(gy, wt4l, stride=2, padding=1), dx_bytes, flops,
+                    tails=("auto",),
+                    old_fn=lambda: kernels._dx_cuda_cores("itg_upconv3x3_chw_dx", x, gy, wt4, sc, sh,
+                                                          True, False))
             account("upconv3x3_chw_dw", shape_s,
                     lambda: kernels.upconv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
                     lambda: kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
@@ -1669,10 +1765,7 @@ def main() -> int:
             compare("conv3x3_chw", tag, y, kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True))
             compare_sum("conv3x3_chw", f"Σy {tag}", s1, y.float().sum(dim=(0, 2, 3)))
             compare_sum("conv3x3_chw", f"Σy² {tag}", s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
-            dx, dsc, dsh = kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate")
-            dx_r, dsc_r, dsh_r = kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate")
-            compare("conv3x3_chw_dx", tag, dx, dx_r)
-            compare_sum("conv3x3_chw_dx", f"d(shift) {tag}", dsh, dsh_r)
+            check_dx("conv3x3_chw_dx", tag, x, gy, wt, sc, sh, "replicate")
             dw, db = kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate")
             dw_r, db_r = kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate")
             compare_sum("conv3x3_chw_dw", f"dW {tag}", dw, dw_r)
@@ -1680,24 +1773,33 @@ def main() -> int:
             if with_stats:
                 compare("bn_corr", tag, kernels.bn_corr(gy, y, alpha, beta2),
                         kernels.bn_corr_plain(gy, y, alpha, beta2))
-            if not timed:
-                continue
             act = n * h * w
             pbytes = (co * c * 9 + co) * 4
             flops = 2.0 * act * co * c * 9
+            dx_bytes = act * (2 * c + co) * es + pbytes + 4 * c * 4
+            shape_s = f"({n}, {c}->{co}, {h}x{w})"
+            if not timed:  # K6's f32 route (CUDA cores), in rows of its own
+                account("conv3x3_chw_dx", f"{shape_s} [CUDA cores, f32]",
+                        lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
+                        lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
+                        lambda: torch.nn.grad.conv2d_input(x.shape, wt, gy, padding=1),
+                        dx_bytes, flops, tails=("ssm",), peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                continue
             a_pad = F.pad(torch.relu(x), (1, 1, 1, 1), mode="replicate")
             wl, bl = wt.to(dtype), b.to(dtype)
-            shape_s = f"({n}, {c}->{co}, {h}x{w})"
+            w32 = kernels._f32(wt)
             account("conv3x3_chw", shape_s,
                     lambda: kernels.conv3x3_chw(x, wt, b, sc, sh, True, want_stats=with_stats),
                     lambda: kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True, want_stats=with_stats),
                     lambda: F.conv2d(a_pad, wl, bl), act * (c + co) * es + pbytes + 2 * c * 4,
                     flops, tails=("ssm",))
-            account("conv3x3_chw_dx", shape_s,
+            account("conv3x3_chw_dx", f"{shape_s} [tensor cores]",
                     lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                     lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
                     lambda: torch.nn.grad.conv2d_input(x.shape, wl, gy, padding=1),
-                    act * (2 * c + co) * es + pbytes + 4 * c * 4, flops, tails=("ssm",))
+                    dx_bytes, flops, tails=("ssm",),
+                    old_fn=lambda: kernels._dx_cuda_cores("itg_conv3x3_chw_dx", x, gy, w32, sc, sh,
+                                                          True, False))
             account("conv3x3_chw_dw", shape_s,
                     lambda: kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
                     lambda: kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
@@ -1791,6 +1893,9 @@ def main() -> int:
         timed_calls = {k: s["calls"] for k, s in tstats[tail].items()}
         if timed_calls != want:
             fail(f"phases 3/3b timed {timed_calls} calls per {TRAIN_PATHS[tail][0]} step, not {want}")
+        f32_calls = {k: dstats[tail][k]["calls"] for k in DX_KERNELS}
+        if f32_calls != {k: want[k] for k in DX_KERNELS}:
+            fail(f"phases 3/3b timed the f32 dx route {f32_calls} per {TRAIN_PATHS[tail][0]} step")
     # generation: the timed calls per sub-image are the raster's launches
     # (K1, timed at the sub-image's shapes, runs on the one pass instead)
     for label, table_ in (("flagship", stats), ("SSM", gstats)):
@@ -1834,14 +1939,28 @@ def main() -> int:
 
     # -- 5. step parity: kernels against plain versions, full width, f32 ------
     t0 = time.perf_counter()
-    parity = {fuse: step_parity(dev, EXP1_ARGS + ["--compute_dtype", "float32", "--fuse_up", fuse],
-                                STEP_LAUNCHES[fuse], sync)
-              for fuse in ("auto", "off")}
+    dx_f32 = {}  # K6 / K9 dx launches by entry point in each f32 step parity
+
+    def parity_run(tail, argv):
+        kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
+        out = step_parity(dev, argv + ["--compute_dtype", "float32"], STEP_LAUNCHES[tail], sync)
+        dx_f32[tail] = dict(kernels.ROUTE_LAUNCHES)
+        return out
+
+    parity = {fuse: parity_run(fuse, EXP1_ARGS + ["--fuse_up", fuse]) for fuse in ("auto", "off")}
     fused_vs_unfused(parity["auto"], parity["off"])
     del parity
     ssm.ROUTE_LAUNCHES.update(dict.fromkeys(ssm.ROUTE_LAUNCHES, 0))
-    step_parity(dev, SSM_ARGS + ["--compute_dtype", "float32"], STEP_LAUNCHES["ssm"], sync)
+    parity_run("ssm", SSM_ARGS)
     f32_route = dict(ssm.ROUTE_LAUNCHES)
+    for tail, counts in dx_f32.items():
+        want = {TC_ENTRY[k]: 0 for k in DX_KERNELS} | {F32_ROUTE[k][0]: STEP_LAUNCHES[tail][k]
+                                                       for k in DX_KERNELS}
+        if counts != want:
+            fail(f"the f32 step parity ({TRAIN_PATHS[tail][0]}) took the dx launches {counts}, "
+                 f"not {want}")
+        print(f"[route] f32 step parity, {TRAIN_PATHS[tail][0]}: K6 / K9 dx launches by entry "
+              f"point {counts}")
     if f32_route["itg_ssm_embed_tc_fwd"] or f32_route["itg_ssm_embed_tc_bwd"] or not (
             f32_route["itg_ssm_embed_fwd"] and f32_route["itg_ssm_embed_bwd"]):
         fail(f"the f32 SSM step parity took K15's launches {f32_route}, not the CUDA-core route's")
@@ -1853,10 +1972,22 @@ def main() -> int:
     recipes = {"auto": EXP1_ARGS + ["--fuse_up", "auto"], "off": EXP1_ARGS + ["--fuse_up", "off"],
                "ssm": SSM_ARGS}
     ssm.ROUTE_LAUNCHES.update(dict.fromkeys(ssm.ROUTE_LAUNCHES, 0))
-    runs = {tail: training_run(dev, argv, TRAIN_STEPS, STEP_LAUNCHES[tail], sync, card,
-                               ROOT / "build" / f"smoke_train_{tail}")
-            for tail, argv in recipes.items()}
+    runs, dx_bf16 = {}, {}
+    for tail, argv in recipes.items():
+        kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
+        runs[tail] = training_run(dev, argv, TRAIN_STEPS, STEP_LAUNCHES[tail], sync, card,
+                                  ROOT / "build" / f"smoke_train_{tail}")
+        dx_bf16[tail] = dict(kernels.ROUTE_LAUNCHES)
     bf16_route = dict(ssm.ROUTE_LAUNCHES)
+    for tail, counts in dx_bf16.items():
+        # the run's steps and its traced steps
+        want = {F32_ROUTE[k][0]: 0 for k in DX_KERNELS} | {
+            TC_ENTRY[k]: (TRAIN_STEPS + TRACED_STEPS) * STEP_LAUNCHES[tail][k] for k in DX_KERNELS}
+        if counts != want:
+            fail(f"the bf16 training run ({TRAIN_PATHS[tail][0]}) took the dx launches {counts}, "
+                 f"not {want}")
+        print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}: K6 / K9 dx launches by entry "
+              f"point {counts} (CUDA-core dx kernels: 0)")
     if bf16_route["itg_ssm_embed_fwd"] or bf16_route["itg_ssm_embed_bwd"] or min(
             bf16_route["itg_ssm_embed_tc_fwd"], bf16_route["itg_ssm_embed_tc_bwd"]) < 3 * TRAIN_STEPS:
         fail(f"the bf16 training runs took K15's launches {bf16_route}, not the tensor-core route's")
@@ -1921,8 +2052,9 @@ def main() -> int:
             err, sum_err = stats[name]["err"], stats[name]["sum_err"]
             rows.append({
                 "name": name + suffix, "path": path, "route": "cuda",
-                **({"dtype": "bfloat16", "cores": "tensor", "entry": K15_TC_ENTRY[name]}
-                   if name in K15_TC_ENTRY else {}),
+                **({"dtype": "bfloat16", "cores": "tensor", "entry": TC_ENTRY[name]}
+                   if name in TC_ENTRY else {}),
+                **({"cuda_cores_ms": s["cuda_cores_ms"]} if name in DX_KERNELS else {}),
                 "source": f"infinite_texture_gans_torch/csrc/{src}",
                 "replaces": f"infinite_texture_gans_tpu/ops/{site}",
                 "launches": counts[name], "max_abs_err": err if err is not None else sum_err,
@@ -1930,30 +2062,39 @@ def main() -> int:
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": dom,
                 "library_ms": s["library_ms"],
             })
+            was = (f", the CUDA-core kernel it replaced {s['cuda_cores_ms']:.4f} ms"
+                   if name in DX_KERNELS else "")
             print(f"[kernel] {tag} {name}: {per} (bf16, sum over its shapes) "
                   f"{s['ms']:.4f} ms device (eager calls {s['eager_ms']:.4f} ms) vs bound "
                   f"{s['bound_ms']:.4f} ms ({dom}), plain "
-                  f"{s['plain_ms']:.4f} ms, library {s['library_ms']:.4f} ms, launches "
+                  f"{s['plain_ms']:.4f} ms, library {s['library_ms']:.4f} ms{was}, launches "
                   f"{counts[name]} on the {path} path [{card}]")
-    # K15's float32 route (CUDA cores): its launches in the f32 SSM step parity,
-    # its times at the training shapes, per SSM step
-    for name, (entry, src) in K15_F32_ROUTE.items():
+    # the float32 routes (CUDA cores): K15's launches in the f32 SSM step
+    # parity and its times at the training shapes, per SSM step; K6's and K9
+    # dx's launches in each path's f32 step parity and their times per step
+    f32_rows = [(name, ":f32_parity", "step parity SSM (float32)", fstats[name], f32_route,
+                 "per SSM step") for name in ("ssm_embed", "ssm_embed_bwd")]
+    f32_rows += [(name, f":f32_{tail}", f"step parity {TRAIN_PATHS[tail][0]} (float32)",
+                  dstats[tail][name], dx_f32[tail], TRAIN_PATHS[tail][1])
+                 for name in DX_KERNELS for tail, want in STEP_LAUNCHES.items() if want[name]]
+    for name, suffix, path, s, route_counts, per in f32_rows:
+        entry, src = F32_ROUTE[name]
         tag, _, site = KERNELS[name]
-        s = fstats[name]
         dom = "bytes" if s["nbytes"] / PEAK_BYTES_PER_S >= s["flops"] / PEAK_F32_FLOP_PER_S else "operations"
+        err = stats[name] if name in DX_KERNELS else s
         rows.append({
-            "name": f"{name}:f32_parity", "path": "step parity SSM (float32)", "route": "cuda",
+            "name": name + suffix, "path": path, "route": "cuda",
             "dtype": "float32", "cores": "cuda", "entry": entry,
             "source": f"infinite_texture_gans_torch/csrc/{src}",
-            "replaces": f"infinite_texture_gans_tpu/ops/{site}", "launches": f32_route[entry],
-            "max_abs_err": s["err"] if s["err"] is not None else s["sum_err"],
-            "max_abs_err_sums": s["sum_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "replaces": f"infinite_texture_gans_tpu/ops/{site}", "launches": route_counts[entry],
+            "max_abs_err": err["err"] if err["err"] is not None else err["sum_err"],
+            "max_abs_err_sums": err["sum_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": dom, "library_ms": s["library_ms"],
         })
-        print(f"[kernel] {tag} {name} float32 route ({src}, CUDA cores): per SSM step (f32, sum "
+        print(f"[kernel] {tag} {name} float32 route ({src}, CUDA cores): {per} (f32, sum "
               f"over its shapes) {s['ms']:.4f} ms device vs bound {s['bound_ms']:.4f} ms ({dom}, "
               f"f32 at 67 TFLOP/s), plain {s['plain_ms']:.4f} ms, library {s['library_ms']:.4f} ms, "
-              f"launches {f32_route[entry]} in the f32 SSM step parity [{card}]")
+              f"launches {route_counts[entry]} in the {path} [{card}]")
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -42,6 +42,10 @@ SIGNATURES = {
     "itg_conv3x3_chw_dx": [_P] * 8 + [_I] * 8 + [_P],
     # x, g, scale, shift, dw, db, n, c, h, w, co, relu, zeros, bf16, stream
     "itg_conv3x3_chw_dw": [_P] * 6 + [_I] * 8 + [_P],
+    # x, g, w, scale, shift, wp, dx, part, dscale, dshift, n, c, h, w, co, relu, zeros, nt, no,
+    # cap, stream (bf16 only; the same for the up-conv's dx, h and w of x)
+    "itg_conv3x3_chw_dx_tc": [_P] * 10 + [_I] * 10 + [_P],
+    "itg_upconv3x3_chw_dx_tc": [_P] * 10 + [_I] * 10 + [_P],
     # g, y, alpha, beta2, out, planes, c, hw, bf16, stream
     "itg_bn_corr": [_P] * 5 + [_I] * 4 + [_P],
     # x, w, b, res, y, s1, s2, n, c, hw, co, bf16, stream

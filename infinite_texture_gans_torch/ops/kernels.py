@@ -13,7 +13,7 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
   csrc/conv3x3_chw.cu, given the cached borders);
 - K6 ``conv3x3_chw_dx``: pallas_conv.py:775 ``_conv3x3_chw_dx``; K7
   ``conv3x3_chw_dw``: :888 ``_conv3x3_chw_dw``; K8 ``bn_corr``: :1061
-  ``_bn_corr`` (csrc/conv3x3_chw_bwd.cu);
+  ``_bn_corr`` (csrc/conv3x3_chw_bwd.cu; K6 in bf16: csrc/chw_dx_tc.cu);
 - K3 ``conv1x1_chw`` / ``conv1x1_chw_add`` (optionally with stats, the
   ``conv1x1_chw_add_stats`` / ``conv1x1_chw_add_p`` forms): replaces
   pallas_conv.py:2311 ``_conv1x1_chw_fwd``; its dW ``conv1x1_chw_dw``:
@@ -23,7 +23,8 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
 - K9 ``upconv3x3_chw``, the subpixel-fused upsample -> BN fold -> ReLU ->
   3x3 conv of ``upconv3x3_chw_p`` (optionally with stats): forward :1457
   ``_upconv3x3_fwd``, ``upconv3x3_chw_dx`` :1642 ``_upconv3x3_dx``,
-  ``upconv3x3_chw_dw`` :1777 ``_upconv3x3_dw`` (csrc/upconv3x3_chw.cu);
+  ``upconv3x3_chw_dw`` :1777 ``_upconv3x3_dw`` (csrc/upconv3x3_chw.cu; the
+  dx in bf16: csrc/chw_dx_tc.cu);
 - K14 ``chw_upconv_halo_step``, whose kernel wrapper is
   ``upconv3x3_chw_halo``: K9's forward in the raster engine under
   ``--fuse_up all``, replaces :2019 ``_upconv3x3_fwd_halo`` (the same
@@ -37,6 +38,16 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
 The SSM embed chain K15 (``pallas_ssm.py:343/:392``) lives in
 ``ops/ssm.py`` (csrc/ssm_embed_chw.cu); its launches count here too, under
 ``ssm_embed`` and ``ssm_embed_bwd``.
+
+The two input-side gradients K6 and K9 dx route by the activations' dtype,
+as K15 does, with no fallback: bfloat16 takes one tensor-core kernel body
+(``csrc/chw_dx_tc.cu``, entry points ``itg_conv3x3_chw_dx_tc`` and
+``itg_upconv3x3_chw_dx_tc``: implicit GEMMs on mma.sync, the weights rounded
+to bf16 as the reference rounds them, pallas_conv.py:971 and :1637-1639;
+their plain versions ``conv3x3_chw_dx_tc_plain`` and
+``upconv3x3_chw_dx_tc_plain`` apply the same rounding), float32 keeps the
+CUDA-core kernels (``itg_conv3x3_chw_dx``, ``itg_upconv3x3_chw_dx``).
+:data:`ROUTE_LAUNCHES` counts the launches of each entry point.
 
 The port carries no lane padding, so the reference's padded-carry forms
 (K11 ``conv1x1_chw_add_p``, ``conv1x1_chw_p``, K12 ``upsample2_chw_p``,
@@ -87,6 +98,11 @@ LAUNCHES = {
     "ssm_embed": 0,
     "ssm_embed_bwd": 0,
 }
+
+# launches per C entry point of K6 and K9 dx: the bf16 tensor-core route and
+# the f32 CUDA-core one (not cleared by reset_launches)
+ROUTE_LAUNCHES = {"itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
+                  "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -411,6 +427,86 @@ def _check_bwd(x, g, co, scale, shift, up: int = 1):
     _check_param("shift", shift, (c,))
 
 
+# The tensor-core route's tiling (csrc/chw_dx_tc.cu): N = the input channels
+# padded to NT x 8, K = (tap, output channel) with the output channels padded
+# to NO x 8 per tap; one template per NT and NO. At most DX_TC_MAX_BLOCKS
+# persistent blocks write per-block partial sums.
+DX_TC_NT = (1, 2, 4, 7, 8)
+DX_TC_NO = (1, 2, 4)
+DX_TC_MAX_BLOCKS = 1024
+
+
+def dx_tc_plan(c: int, co: int) -> tuple[int, int]:
+    """(NT, NO) of the tensor-core dx kernels for C input and Co output
+    channels: the fewest 8-channel groups of DX_TC_NT and DX_TC_NO that hold
+    them. Raises for C > 64 or Co > 32 (every training shape of the models'
+    channels-major tail, cin <= 64, is inside)."""
+    nt = next((t for t in DX_TC_NT if 8 * t >= c), None)
+    no = next((o for o in DX_TC_NO if 8 * o >= co), None)
+    if nt is None or no is None:
+        raise ValueError(f"the tensor-core dx kernels take C <= {8 * DX_TC_NT[-1]} and "
+                         f"Co <= {8 * DX_TC_NO[-1]}, got C={c}, Co={co}")
+    return nt, no
+
+
+def pack_dx_weights(w: torch.Tensor, up: bool) -> torch.Tensor:
+    """Plain version of the tensor-core dx kernels' weight packing (which
+    their C entry points run on the card): w (Co, C, 3, 3) -> bf16 (8 NT, T,
+    T, 8 NO), the B operand, wp[c, u, v, o] = w4[o, c, u, v] zero past C and
+    Co, where w4 is K6's flipped 3x3 kernel (T = 3: the transposed conv's
+    taps (2 - ky, 2 - kx)) or, with ``up``, K9 dx's combined 4x4 one
+    (:func:`_upconv_dx_weights`, combined in float32 and then rounded)."""
+    co, c = w.shape[:2]
+    nt, no = dx_tc_plan(c, co)
+    w4 = _upconv_dx_weights(w) if up else w.detach().float().flip((2, 3))
+    w4 = F.pad(w4, (0, 0, 0, 0, 0, 8 * nt - c, 0, 8 * no - co))
+    return w4.permute(1, 2, 3, 0).to(torch.bfloat16, memory_format=torch.contiguous_format)
+
+
+def _dx_cuda_cores(entry: str, x, g, wf, scale, shift, relu: bool, zeros: bool):
+    """K6 (``itg_conv3x3_chw_dx``, wf (Co, C, 3, 3)) or K9 dx
+    (``itg_upconv3x3_chw_dx``, wf (Co, C, 4, 4)) on the CUDA cores: the
+    float32 route (the C functions take bf16 too)."""
+    n, c, h, wd = x.shape
+    dx = torch.empty_like(x)
+    dsc, dsh = _zeros_f32(c, x), _zeros_f32(c, x)
+    sc, sh = _f32(scale), _f32(shift)
+    with torch.cuda.device(x.device):
+        rc = getattr(_lib(), entry)(
+            x.data_ptr(), g.data_ptr(), wf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+            dx.data_ptr(), dsc.data_ptr(), dsh.data_ptr(),
+            n, c, h, wd, wf.shape[0], int(relu), int(zeros), _bf16(x), _stream(x),
+        )
+    _raise_on(rc, entry)
+    ROUTE_LAUNCHES[entry] += 1
+    return dx, dsc, dsh
+
+
+def _dx_tensor_cores(entry: str, x, g, w, scale, shift, relu: bool, zeros: bool):
+    """K6 (``itg_conv3x3_chw_dx_tc``) or K9 dx (``itg_upconv3x3_chw_dx_tc``)
+    on the tensor cores, bf16, from the (Co, C, 3, 3) float32 weights (the
+    entry point packs them, as :func:`pack_dx_weights` does)."""
+    n, c, h, wd = x.shape
+    co = w.shape[0]
+    nt, no = dx_tc_plan(c, co)
+    taps = 4 if entry == "itg_upconv3x3_chw_dx_tc" else 3
+    dx = torch.empty_like(x)
+    dsc = torch.empty(c, dtype=torch.float32, device=x.device)
+    dsh = torch.empty_like(dsc)
+    wp = torch.empty((8 * nt, taps, taps, 8 * no), dtype=torch.bfloat16, device=x.device)
+    part = torch.empty((DX_TC_MAX_BLOCKS, 2, c), dtype=torch.float32, device=x.device)
+    wf, sc, sh = _f32(w), _f32(scale), _f32(shift)
+    with torch.cuda.device(x.device):
+        rc = getattr(_lib(), entry)(
+            x.data_ptr(), g.data_ptr(), wf.data_ptr(), sc.data_ptr(), sh.data_ptr(), wp.data_ptr(),
+            dx.data_ptr(), part.data_ptr(), dsc.data_ptr(), dsh.data_ptr(),
+            n, c, h, wd, co, int(relu), int(zeros), nt, no, DX_TC_MAX_BLOCKS, _stream(x),
+        )
+    _raise_on(rc, entry)
+    ROUTE_LAUNCHES[entry] += 1
+    return dx, dsc, dsh
+
+
 def conv3x3_chw_dx(x, g, w, scale, shift, relu: bool, outer_padding: str):
     """K6: the input-side gradient of :func:`conv3x3_chw`.
 
@@ -419,26 +515,21 @@ def conv3x3_chw_dx(x, g, w, scale, shift, relu: bool, outer_padding: str):
     back onto the edge rows and columns (replicate; corners twice) or
     dropped (zeros); da is masked by the ReLU of ``scale*x + shift``.
     Returns (dx = da·scale in x's dtype, d(scale) = Σ da·x, d(shift) = Σ da),
-    the sums in float32 over (N, H, W)."""
+    the sums in float32 over (N, H, W). On the card bf16 takes the
+    tensor-core kernel (the weights rounded to bf16: its plain version is
+    :func:`conv3x3_chw_dx_tc_plain`), float32 the CUDA-core one."""
     zeros = _check_padding(outer_padding)
     co = w.shape[0]
     _check_bwd(x, g, co, scale, shift)
     _check_param("w", w, (co, x.shape[1], 3, 3))
     if not _on_cuda(x, g, w, scale, shift):
         return conv3x3_chw_dx_plain(x, g, w, scale, shift, relu, outer_padding)
-    n, c, h, wd = x.shape
-    dx = torch.empty_like(x)
-    dsc, dsh = _zeros_f32(c, x), _zeros_f32(c, x)
-    wf, sc, sh = _f32(w), _f32(scale), _f32(shift)
-    with torch.cuda.device(x.device):
-        rc = _lib().itg_conv3x3_chw_dx(
-            x.data_ptr(), g.data_ptr(), wf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
-            dx.data_ptr(), dsc.data_ptr(), dsh.data_ptr(),
-            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
-        )
-    _raise_on(rc, "conv3x3_chw_dx")
+    if x.dtype == torch.bfloat16:
+        out = _dx_tensor_cores("itg_conv3x3_chw_dx_tc", x, g, w, scale, shift, relu, zeros)
+    else:
+        out = _dx_cuda_cores("itg_conv3x3_chw_dx", x, g, _f32(w), scale, shift, relu, zeros)
     LAUNCHES["conv3x3_chw_dx"] += 1
-    return dx, dsc, dsh
+    return out
 
 
 def _fold_border(d: torch.Tensor) -> torch.Tensor:
@@ -452,10 +543,10 @@ def _fold_border(d: torch.Tensor) -> torch.Tensor:
     return d[..., 1:-1, 1:-1]
 
 
-def conv3x3_chw_dx_plain(x, g, w, scale, shift, relu: bool, outer_padding: str):
-    """Plain PyTorch version of :func:`conv3x3_chw_dx`
-    (F.conv_transpose2d, then the border fold)."""
-    dpad = F.conv_transpose2d(g.float(), w.float())  # (N, C, H+2, W+2)
+def _dx_from_padded(dpad, x, scale, shift, relu: bool, outer_padding: str):
+    """The dx kernels' epilogue on the float32 gradient of the padded
+    post-norm input, dpad (N, C, H+2, W+2): the border folded (replicate) or
+    dropped (zeros), the ReLU mask, dx = da·scale in x's dtype, Σ da·x, Σ da."""
     if outer_padding == "replicate":
         da = _fold_border(dpad)
     else:
@@ -465,6 +556,21 @@ def conv3x3_chw_dx_plain(x, g, w, scale, shift, relu: bool, outer_padding: str):
         da = da * ((xf * _chan(scale) + _chan(shift)) > 0)
     dx = (da * _chan(scale)).to(x.dtype)
     return dx, (da * xf).sum(dim=(0, 2, 3)), da.sum(dim=(0, 2, 3))
+
+
+def conv3x3_chw_dx_plain(x, g, w, scale, shift, relu: bool, outer_padding: str):
+    """Plain PyTorch version of :func:`conv3x3_chw_dx`
+    (F.conv_transpose2d, then the border fold)."""
+    dpad = F.conv_transpose2d(g.float(), w.float())  # (N, C, H+2, W+2)
+    return _dx_from_padded(dpad, x, scale, shift, relu, outer_padding)
+
+
+def conv3x3_chw_dx_tc_plain(x, g, w, scale, shift, relu: bool, outer_padding: str):
+    """Plain version of K6's bf16 tensor-core route: :func:`conv3x3_chw_dx_plain`
+    with the weights rounded to bf16 (the reference's bf16 rounding,
+    pallas_conv.py:971), float32 sums."""
+    return conv3x3_chw_dx_plain(x, g, w.detach().to(torch.bfloat16), scale, shift, relu,
+                                outer_padding)
 
 
 def conv3x3_chw_dw(x, g, scale, shift, relu: bool, outer_padding: str):
@@ -909,26 +1015,22 @@ def upconv3x3_chw_dx(x, g, w, scale, shift, relu: bool, outer_padding: str):
     child block, with the replicate border folds (corners twice) on the
     half-res slab or none (zeros), masked by the ReLU of ``scale*x + shift``.
     Returns (dx = da·scale in x's dtype, d(scale) = Σ da·x, d(shift) = Σ da),
-    the sums in float32 over (N, H, W)."""
+    the sums in float32 over (N, H, W). On the card bf16 takes the
+    tensor-core kernel (the combined 4x4 weights rounded to bf16: its plain
+    version is :func:`upconv3x3_chw_dx_tc_plain`), float32 the CUDA-core one."""
     zeros = _check_padding(outer_padding)
     co = w.shape[0]
     _check_bwd(x, g, co, scale, shift, up=2)
     _check_param("w", w, (co, x.shape[1], 3, 3))
     if not _on_cuda(x, g, w, scale, shift):
         return upconv3x3_chw_dx_plain(x, g, w, scale, shift, relu, outer_padding)
-    n, c, h, wd = x.shape
-    dx = torch.empty_like(x)
-    dsc, dsh = _zeros_f32(c, x), _zeros_f32(c, x)
-    wt, sc, sh = _upconv_dx_weights(w), _f32(scale), _f32(shift)
-    with torch.cuda.device(x.device):
-        rc = _lib().itg_upconv3x3_chw_dx(
-            x.data_ptr(), g.data_ptr(), wt.data_ptr(), sc.data_ptr(), sh.data_ptr(),
-            dx.data_ptr(), dsc.data_ptr(), dsh.data_ptr(),
-            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
-        )
-    _raise_on(rc, "upconv3x3_chw_dx")
+    if x.dtype == torch.bfloat16:
+        out = _dx_tensor_cores("itg_upconv3x3_chw_dx_tc", x, g, w, scale, shift, relu, zeros)
+    else:
+        out = _dx_cuda_cores("itg_upconv3x3_chw_dx", x, g, _upconv_dx_weights(w), scale, shift,
+                             relu, zeros)
     LAUNCHES["upconv3x3_chw_dx"] += 1
-    return dx, dsc, dsh
+    return out
 
 
 def upconv3x3_chw_dx_plain(x, g, w, scale, shift, relu: bool, outer_padding: str):
@@ -938,6 +1040,17 @@ def upconv3x3_chw_dx_plain(x, g, w, scale, shift, relu: bool, outer_padding: str
     dx, dsc, dsh = conv3x3_chw_dx_plain(upsample2_chw_plain(x).float(), g, w, scale, shift, relu,
                                         outer_padding)
     return upsample2_chw_bwd_plain(dx).to(x.dtype), dsc, dsh
+
+
+def upconv3x3_chw_dx_tc_plain(x, g, w, scale, shift, relu: bool, outer_padding: str):
+    """Plain version of K9 dx's bf16 tensor-core route: the phase form the
+    kernel computes, the stride-2 conv of g with the combined 4x4 weights
+    rounded to bf16 after combining (pallas_conv.py:1637-1639) on the padded
+    half-res grid, then :func:`conv3x3_chw_dx_plain`'s border fold, mask and
+    sums, in float32."""
+    wt = _upconv_dx_weights(w).to(torch.bfloat16).float()
+    dpad = F.conv2d(g.float(), wt.transpose(0, 1), stride=2, padding=3)  # (N, C, H+2, W+2)
+    return _dx_from_padded(dpad, x, scale, shift, relu, outer_padding)
 
 
 def upconv3x3_chw_dw(x, g, scale, shift, relu: bool, outer_padding: str):

@@ -127,13 +127,38 @@ def test_raster_canvas_on_card_equals_one_pass(cuda):
 # largest reference entry.
 SUM_TOL = 1e-4
 
-TRAIN_SHAPES = [(2, 11, 19, 13, 45), (1, 26, 13, 40, 37)]  # n, c, co, h, w
+TRAIN_SHAPES = [(2, 11, 19, 13, 45), (1, 26, 13, 40, 37), (2, 13, 3, 23, 70)]  # n, c, co, h, w
 
 
 def _assert_sum_close(got, ref, tol=SUM_TOL):
     scale = max(1e-6, float(ref.float().abs().max()))
     err = float((got.float() - ref.float()).abs().max())
     assert err <= tol * scale, (err, tol * scale)
+
+
+# K6 and K9 dx in bf16 run on the tensor cores, whose weights (for K9 the
+# combined 4x4 ones) are rounded to bf16 as the reference rounds them: they
+# are held to the plain versions with that rounding (``*_tc_plain``), dx
+# within 2^-7 of max|ref| (an output one bf16 ulp apart either way), the
+# float32 sums within SUM_TOL. f32 runs the CUDA-core kernels, held to the
+# plain versions as before.
+def _dx_plain(kind, dtype):
+    tc = dtype == torch.bfloat16
+    if kind == "conv":
+        return tk.conv3x3_chw_dx_tc_plain if tc else tk.conv3x3_chw_dx_plain
+    return tk.upconv3x3_chw_dx_tc_plain if tc else tk.upconv3x3_chw_dx_plain
+
+
+def _assert_dx_close(got, ref):
+    dx, dsc, dsh = got
+    dx_ref, dsc_ref, dsh_ref = ref
+    if dx.dtype == torch.bfloat16:
+        err = float((dx.float() - dx_ref.float()).abs().max())
+        assert err <= BF16_TOL * float(dx_ref.float().abs().max()), err
+    else:
+        _assert_close(dx, dx_ref)
+    _assert_sum_close(dsc, dsc_ref)
+    _assert_sum_close(dsh, dsh_ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -150,11 +175,8 @@ def test_conv3x3_train_kernels_match_plain(cuda, dtype, outer, shape):
     # the stats are taken of the stored y: hold them to the plain sums of the kernel's own y
     _assert_sum_close(s1, y.float().sum(dim=(0, 2, 3)))
     _assert_sum_close(s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
-    dx, dsc, dsh = tk.conv3x3_chw_dx(x, g, wt, sc, sh, True, outer)
-    dx_ref, dsc_ref, dsh_ref = tk.conv3x3_chw_dx_plain(x, g, wt, sc, sh, True, outer)
-    _assert_close(dx, dx_ref)
-    _assert_sum_close(dsc, dsc_ref)
-    _assert_sum_close(dsh, dsh_ref)
+    _assert_dx_close(tk.conv3x3_chw_dx(x, g, wt, sc, sh, True, outer),
+                     _dx_plain("conv", dtype)(x, g, wt, sc, sh, True, outer))
     dw, db = tk.conv3x3_chw_dw(x, g, sc, sh, True, outer)
     dw_ref, db_ref = tk.conv3x3_chw_dw_plain(x, g, sc, sh, True, outer)
     _assert_sum_close(dw, dw_ref)
@@ -232,17 +254,111 @@ def test_upconv_kernels_match_plain(cuda, dtype, outer, shape):
     _assert_close(y, y_ref)
     _assert_sum_close(s1, y.float().sum(dim=(0, 2, 3)))
     _assert_sum_close(s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
-    dx, dsc, dsh = tk.upconv3x3_chw_dx(x, g, wt, sc, sh, True, outer)
-    dx_ref, dsc_ref, dsh_ref = tk.upconv3x3_chw_dx_plain(x, g, wt, sc, sh, True, outer)
-    _assert_close(dx, dx_ref)
-    _assert_sum_close(dsc, dsc_ref)
-    _assert_sum_close(dsh, dsh_ref)
+    _assert_dx_close(tk.upconv3x3_chw_dx(x, g, wt, sc, sh, True, outer),
+                     _dx_plain("upconv", dtype)(x, g, wt, sc, sh, True, outer))
     dw, db = tk.upconv3x3_chw_dw(x, g, sc, sh, True, outer)
     dw_ref, db_ref = tk.upconv3x3_chw_dw_plain(x, g, sc, sh, True, outer)
     _assert_sum_close(dw, dw_ref)
     _assert_sum_close(db, db_ref)
     assert {k: tk.LAUNCHES[k] for k in ("upconv3x3_chw", "upconv3x3_chw_dx", "upconv3x3_chw_dw")} \
         == {"upconv3x3_chw": 2, "upconv3x3_chw_dx": 1, "upconv3x3_chw_dw": 1}
+
+
+def _dx_case(cuda, kind, shape, seed=12):
+    """bf16 inputs of K6 (``kind`` 'conv', g at x's size) or K9 dx ('upconv',
+    g at twice it)."""
+    n, c, co, h, w = shape
+    up = 1 if kind == "conv" else 2
+    x, wt, _, sc, sh = _inputs(cuda, torch.bfloat16, n=n, c=c, co=co, h=h, w=w, seed=seed)
+    g = torch.randn(n, co, up * h, up * w, generator=torch.Generator().manual_seed(seed)).to(
+        cuda, torch.bfloat16)
+    return x, g, wt, sc, sh
+
+
+def _dx_kernel(kind):
+    return tk.conv3x3_chw_dx if kind == "conv" else tk.upconv3x3_chw_dx
+
+
+# the dx kernels' shapes n, c, co, h, w: a ragged one and a main-path one
+# (K6: the SSM step's final conv; K9: block 5 of the Experiment-1 step)
+DX_SHAPES = {"conv": [(2, 11, 19, 13, 45), (2, 26, 3, 96, 96)],
+             "upconv": [(1, 26, 13, 20, 37), (2, 52, 26, 48, 48)]}
+
+
+@pytest.mark.parametrize("kind", ["conv", "upconv"])
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("case", [0, 1])
+def test_dx_tc_bits_repeat(cuda, kind, outer, case):
+    """The tensor-core dx kernels sum their per-block partials in a fixed
+    order, with no atomics: two calls give the same bits."""
+    x, g, wt, sc, sh = _dx_case(cuda, kind, DX_SHAPES[kind][case])
+    first = _dx_kernel(kind)(x, g, wt, sc, sh, True, outer)
+    second = _dx_kernel(kind)(x, g, wt, sc, sh, True, outer)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["conv", "upconv"])
+@pytest.mark.parametrize("case", [0, 1])
+def test_dx_tc_check_catches_planted_faults(cuda, kind, case):
+    """The bf16 check above fails on a dx kernel that is slightly wrong: its
+    top border's fold dropped (the first row's interior columns taken from
+    the zeros-padding call, which differs there by exactly that fold), one
+    input channel's weights x 1.01 (the channel of the largest d(scale)), or
+    ky and kx swapped."""
+    x, g, wt, sc, sh = _dx_case(cuda, kind, DX_SHAPES[kind][case])
+    k, ref = _dx_kernel(kind), _dx_plain(kind, torch.bfloat16)(x, g, wt, sc, sh, True, "replicate")
+    got = k(x, g, wt, sc, sh, True, "replicate")
+    _assert_dx_close(got, ref)
+    no_top = got[0].clone()
+    no_top[..., 0, 1:-1] = k(x, g, wt, sc, sh, True, "constant")[0][..., 0, 1:-1]
+    w_ch = wt.clone()
+    w_ch[:, int(ref[1].abs().argmax())] *= 1.01
+    for bad in ((no_top, got[1], got[2]), k(x, g, w_ch, sc, sh, True, "replicate"),
+                k(x, g, wt.transpose(2, 3).contiguous(), sc, sh, True, "replicate")):
+        with pytest.raises(AssertionError):
+            _assert_dx_close(bad, ref)
+
+
+@pytest.mark.parametrize("kind", ["conv", "upconv"])
+@pytest.mark.parametrize("c,co", [(11, 19), (52, 26), (13, 3)])
+def test_dx_tc_packs_weights_as_plain(cuda, kind, c, co):
+    """The entry point's first launch writes the B operand (its wp scratch)
+    bit for bit as ``pack_dx_weights``: K6's flipped taps, K9 dx's 4x4 form
+    combined in float32 in the reference's order and then rounded."""
+    x, g, wt, sc, sh = _dx_case(cuda, kind, (1, c, co, 8, 16))
+    nt, no = tk.dx_tc_plan(c, co)
+    taps = 3 if kind == "conv" else 4
+    wp = torch.full((8 * nt, taps, taps, 8 * no), float("nan"), device=cuda).to(torch.bfloat16)
+    part = torch.empty((tk.DX_TC_MAX_BLOCKS, 2, c), device=cuda)
+    dx, dsc, dsh = torch.empty_like(x), torch.empty(c, device=cuda), torch.empty(c, device=cuda)
+    entry = "itg_conv3x3_chw_dx_tc" if kind == "conv" else "itg_upconv3x3_chw_dx_tc"
+    rc = getattr(tk._lib(), entry)(
+        x.data_ptr(), g.data_ptr(), wt.data_ptr(), sc.data_ptr(), sh.data_ptr(), wp.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), dsc.data_ptr(), dsh.data_ptr(), 1, c, 8, 16, co, 1, 0, nt,
+        no, tk.DX_TC_MAX_BLOCKS, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(wp.cpu(), tk.pack_dx_weights(wt.cpu(), up=kind == "upconv"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dx_routes_by_dtype(cuda, dtype):
+    """bf16 calls of K6 and K9 dx launch the tensor-core entry points, f32
+    calls the CUDA-core ones; each counts one launch per call."""
+    for k in tk.ROUTE_LAUNCHES:
+        tk.ROUTE_LAUNCHES[k] = 0
+    tk.reset_launches()
+    for kind in ("conv", "upconv"):
+        x, g, wt, sc, sh = (t.to(dtype) if t.dtype == torch.bfloat16 else t
+                            for t in _dx_case(cuda, kind, DX_SHAPES[kind][0]))
+        _dx_kernel(kind)(x, g, wt, sc, sh, True, "replicate")
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert tk.ROUTE_LAUNCHES == {"itg_conv3x3_chw_dx_tc": int(tc), "itg_conv3x3_chw_dx": int(not tc),
+                                 "itg_upconv3x3_chw_dx_tc": int(tc),
+                                 "itg_upconv3x3_chw_dx": int(not tc)}
+    assert (tk.LAUNCHES["conv3x3_chw_dx"], tk.LAUNCHES["upconv3x3_chw_dx"]) == (1, 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
