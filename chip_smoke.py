@@ -31,10 +31,16 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    route's rounded weights (``*_tc_plain``; the unrounded one's distance
    reported), two calls bit-equal, and at two shapes each three planted
    faults (the top fold dropped, one input channel's weights x 1.01, ky and
-   kx swapped) must fail that check; f32 on the CUDA-core kernels, timed
-   into rows of their own (``:f32_<path>``), and the CUDA-core kernel timed
-   in bf16 beside the tensor-core one. Times each (CUDA-graph replay) beside
-   its bound, its plain version and one PyTorch library call, summed per
+   kx swapped) must fail that check. K7 routes the same way: bf16 on the
+   tensor-core kernel of ``csrc/chw_dw_tc.cu``, held to the plain version
+   itself (its operands are bf16 values, so it needs no rounded twin) at
+   the sums' limit, two calls bit-equal, and at two shapes three planted
+   faults (one input channel's dW x 1.01, ky and kx swapped, the replicate
+   ring taken as zeros) must fail that check. The f32 routes run on the
+   CUDA-core kernels, timed into rows of their own (``:f32_<path>``), and
+   each CUDA-core kernel is timed in bf16 beside the tensor-core one. Times
+   each (CUDA-graph replay) beside its bound, its plain version and one
+   PyTorch library call, summed per
    step for each tail, and holds the timed calls per step to the tail's
    launch counts.
 3b. The SSM recipe (README: ``12.jpg``, ``--type_norm SSM --n_layers_G 5
@@ -78,8 +84,8 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    largest deviation against its largest value). Then the fused step
    against the unfused one from the same state and crops, both on the
    kernels. The same step parity for the SSM recipe (K15 included). Each
-   f32 step parity runs K6 and K9 dx on their CUDA-core entry points only
-   (``[route]``).
+   f32 step parity runs K6, K7 and K9 dx on their CUDA-core entry points
+   only (``[route]``).
    ``step_parity_study.py`` measures the limits' spread and planted faults.
 6. Training runs: 30 bf16 steps each through the train CLI's ``train``:
    the Experiment-1 recipe on ``datasets/241.jpg`` under ``--fuse_up auto``
@@ -87,7 +93,7 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    exact launch counts per step, warm steps/s, the device's busy share
    (torch.profiler), then the written ``.ckpt`` reloaded through the
    sampling loader and rendered to a 384^2 canvas. Each bf16 run launches
-   K6 and K9 dx on their tensor-core entry points only (``[route]``).
+   K6, K7 and K9 dx on their tensor-core entry points only (``[route]``).
 7. SSM generation from the SSM run's EMA checkpoint through the same
    generation phase (one-pass launches K15 6, K1 5, K3 2, K4 2; per 1024^2
    canvas K15 384, K2 320, K3 128, K4 128; the bf16 raster against the
@@ -204,7 +210,7 @@ KERNELS = {
     "conv3x3_chw": ("K1/K5", "conv3x3_chw.cu", "pallas_conv.py:395"),
     "chw_halo_step": ("K2", "conv3x3_chw.cu", "pallas_conv.py:539"),
     "conv3x3_chw_dx": ("K6", "chw_dx_tc.cu", "pallas_conv.py:775"),
-    "conv3x3_chw_dw": ("K7", "conv3x3_chw_bwd.cu", "pallas_conv.py:888"),
+    "conv3x3_chw_dw": ("K7", "chw_dw_tc.cu", "pallas_conv.py:888"),
     "bn_corr": ("K8", "conv3x3_chw_bwd.cu", "pallas_conv.py:1061"),
     "conv1x1_chw": ("K3", "conv1x1_chw.cu", "pallas_conv.py:2311"),
     "conv1x1_chw_dw": ("K3-dW", "conv1x1_chw.cu", "pallas_conv.py:2361"),
@@ -221,20 +227,23 @@ KERNELS = {
     "ssm_embed": ("K15", "ssm_embed_tc.cu", "pallas_ssm.py:343"),
     "ssm_embed_bwd": ("K15-bwd", "ssm_embed_tc.cu", "pallas_ssm.py:392"),
 }
-# The kernels with two routes (K15: ops/ssm.py; K6 and K9 dx: ops/kernels.py):
-# the main paths run bf16 on the tensor-core kernels above; float32 (step
-# parity, the f32 raster) keeps the CUDA-core kernels, reported in rows of
-# their own: kernel -> (C entry point, source)
+# The kernels with two routes (K15: ops/ssm.py; K6, K7 and K9 dx:
+# ops/kernels.py): the main paths run bf16 on the tensor-core kernels above;
+# float32 (step parity, the f32 raster) keeps the CUDA-core kernels, reported
+# in rows of their own: kernel -> (C entry point, source)
 F32_ROUTE = {"ssm_embed": ("itg_ssm_embed_fwd", "ssm_embed_chw.cu"),
              "ssm_embed_bwd": ("itg_ssm_embed_bwd", "ssm_embed_chw.cu"),
              "conv3x3_chw_dx": ("itg_conv3x3_chw_dx", "conv3x3_chw_bwd.cu"),
+             "conv3x3_chw_dw": ("itg_conv3x3_chw_dw", "conv3x3_chw_bwd.cu"),
              "upconv3x3_chw_dx": ("itg_upconv3x3_chw_dx", "upconv3x3_chw.cu")}
 TC_ENTRY = {"ssm_embed": "itg_ssm_embed_tc_fwd", "ssm_embed_bwd": "itg_ssm_embed_tc_bwd",
-            "conv3x3_chw_dx": "itg_conv3x3_chw_dx_tc", "upconv3x3_chw_dx": "itg_upconv3x3_chw_dx_tc"}
-# K6 and K9 dx: their bf16 rows also carry the CUDA-core kernel's time in
-# bf16 (the design the tensor-core one replaced, timed in the same run), and
-# their f32 route has a row for each training path
-DX_KERNELS = ("conv3x3_chw_dx", "upconv3x3_chw_dx")
+            "conv3x3_chw_dx": "itg_conv3x3_chw_dx_tc", "conv3x3_chw_dw": "itg_conv3x3_chw_dw_tc",
+            "upconv3x3_chw_dx": "itg_upconv3x3_chw_dx_tc"}
+# K6, K7 and K9 dx (ops/kernels.py's ROUTE_LAUNCHES): their bf16 rows also
+# carry the CUDA-core kernel's time in bf16 (the design the tensor-core one
+# replaced, timed in the same run), and their f32 route has a row for each
+# training path
+ROUTED = ("conv3x3_chw_dx", "conv3x3_chw_dw", "upconv3x3_chw_dx")
 # kernels on the generation paths (timed per sub-image: K1 on the one pass,
 # the rest on the raster); those of the training step (timed per step) are
 # the ones STEP_LAUNCHES counts
@@ -1028,7 +1037,7 @@ def main() -> int:
     gstats = table()  # per 192^2 SSM sub-image (SSM generation)
     fstats = table()  # K15's float32 route, per SSM step at the training shapes
     tstats = {tail: table() for tail in STEP_LAUNCHES}  # per training step, each tail
-    dstats = {tail: table() for tail in STEP_LAUNCHES}  # K6 / K9 dx f32 route, per step
+    dstats = {tail: table() for tail in STEP_LAUNCHES}  # K6 / K7 / K9 dx f32 route, per step
 
     def compare(name, shape, got, ref, exact=False, into=None, floor=1.0):
         """Values within the dtype's limit of max(floor, max|ref|)."""
@@ -1079,7 +1088,7 @@ def main() -> int:
         the flagship's table by default, and in ``also`` where another path
         runs the same shape), else per step of each training tail named (a
         shape both tails run goes into both; with ``f32_route``, into the
-        K6 / K9 dx f32 route's tables). ``old_fn``: the same function on the
+        K6 / K7 / K9 dx f32 route's tables). ``old_fn``: the same function on the
         CUDA-core kernel that the tensor-core one replaced, timed beside it."""
         ms, plain, lib = device_ms(kernel_fn), device_ms(plain_fn), device_ms(lib_fn)
         old = device_ms(old_fn) if old_fn is not None else 0.0
@@ -1154,6 +1163,45 @@ def main() -> int:
                   f"{r_:.2f} (must exceed 1)")
             if not r_ > 1.0:
                 fail(f"{name} {tag}: the check passes a planted {fault}")
+
+    def check_dw(tag, x, gy, sc, sh, outer, plant=False):
+        """K7 against its plain version: dW and db within SUM_TOL of the
+        plain version on both routes (bf16 on the tensor cores: its operands
+        are bf16 values, so the plain version computes its function); bf16
+        two calls bit-equal and, with ``plant`` (replicate padding), three
+        planted faults must fail that check."""
+        tc = x.dtype == torch.bfloat16
+        route = "tensor cores" if tc else "CUDA cores"
+        got = kernels.conv3x3_chw_dw(x, gy, sc, sh, True, outer)
+        ref = kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, outer)
+        compare_sum("conv3x3_chw_dw", f"dW {tag} [{route}]", got[0], ref[0])
+        compare_sum("conv3x3_chw_dw", f"db {tag} [{route}]", got[1], ref[1])
+        if not tc:
+            return
+        again = kernels.conv3x3_chw_dw(x, gy, sc, sh, True, outer)
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        print(f"[check] conv3x3_chw_dw {tag} [tensor cores]: two calls "
+              f"{'bit-equal' if same else 'differ'}")
+        if not same:
+            fail(f"conv3x3_chw_dw {tag}: two bf16 calls differ")
+        if not plant or outer != "replicate":
+            return
+
+        def ratio(bad):  # the worse of the check's two errors over their limits
+            return max(float((a - r).abs().max()) / (SUM_TOL * float(r.abs().max()))
+                       for a, r in zip(bad, ref))
+
+        one = got[0].clone()
+        one[:, int(ref[0].abs().amax(dim=(0, 2, 3)).argmax())] *= 1.01
+        for fault, bad in (("one input channel's dW x 1.01", (one, got[1])),
+                           ("ky<->kx", (got[0].transpose(2, 3), got[1])),
+                           ("replicate ring as zeros",
+                            kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "constant"))):
+            r_ = ratio(bad)
+            print(f"[check] conv3x3_chw_dw {tag} [tensor cores]: planted {fault}: max abs err / "
+                  f"limit {r_:.2f} (must exceed 1)")
+            if not r_ > 1.0:
+                fail(f"conv3x3_chw_dw {tag}: the check passes a planted {fault}")
 
     print(f"[tolerance] f32 (TF32 off): max abs err <= {F32_TOL:g} * max(1, max|ref|): kernel "
           "and cuDNN sum up to 936 products in other orders, and cuDNN may use Winograd "
@@ -1346,6 +1394,9 @@ def main() -> int:
     print(f"[tolerance] sums (Σy, Σy², d(scale), d(shift), dW, db): max abs err <= {SUM_TOL:g} * "
           "max|ref|: float32 reductions in another order, partly by atomics; K5's sums are held "
           "to the sums of the kernel's own stored y; K4's adjoint bit-equal")
+    print("[tolerance] K7, bf16 (tensor cores): dW and db as the sums above, against the plain "
+          "version itself (both operands are bf16 values, every product exact in float32); two "
+          "calls bit-equal (fixed-order partial sums, no atomics)")
     print(f"[tolerance] K6 / K9 dx, bf16 (tensor cores, which round the weights, for K9 the "
           f"combined 4x4 ones, to bf16): dx max abs err <= {BF16_TOL:g} * max|ref| and the sums as "
           "above, against the plain version with that rounding (*_tc_plain); two calls bit-equal "
@@ -1372,10 +1423,7 @@ def main() -> int:
                 compare_sum("conv3x3_chw", f"Σy² {tag}", s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
                 # planted faults at the block's two 192^2 shapes
                 check_dx("conv3x3_chw_dx", tag, x, gy, wt, sc, sh, outer, plant=i < 2)
-                dw, db = kernels.conv3x3_chw_dw(x, gy, sc, sh, True, outer)
-                dw_r, db_r = kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, outer)
-                compare_sum("conv3x3_chw_dw", f"dW {tag}", dw, dw_r)
-                compare_sum("conv3x3_chw_dw", f"db {tag}", db, db_r)
+                check_dw(tag, x, gy, sc, sh, outer, plant=i < 2)
                 if with_stats:
                     compare("bn_corr", tag, kernels.bn_corr(gy, y, alpha, beta2),
                             kernels.bn_corr_plain(gy, y, alpha, beta2))
@@ -1386,14 +1434,20 @@ def main() -> int:
             # a block's conv1 (the stats producer) runs only unfused: under
             # auto K9 takes its place; conv2 and the final conv run in both
             tails = ("off",) if with_stats else ("auto", "off")
-            if not timed:  # K6's f32 route (CUDA cores), in rows of its own
+            a_pad = F.pad(kernels.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
+            if not timed:  # K6's and K7's f32 routes (CUDA cores), in rows of their own
                 account("conv3x3_chw_dx", f"{shape_s} [CUDA cores, f32]",
                         lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: torch.nn.grad.conv2d_input(x.shape, wt, gy, padding=1),
                         dx_bytes, flops, tails=tails, peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                account("conv3x3_chw_dw", f"{shape_s} [CUDA cores, f32]",
+                        lambda: kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
+                        lambda: kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
+                        lambda: torch.nn.grad.conv2d_weight(a_pad, wt.shape, gy),
+                        act * (c + co) * es + pbytes + 2 * c * 4, flops, tails=tails,
+                        peak=PEAK_F32_FLOP_PER_S, f32_route=True)
                 continue
-            a_pad = F.pad(kernels.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
             wl, bl = wt.to(dtype), b.to(dtype)
             w32 = kernels._f32(wt)
             account("conv3x3_chw", shape_s,
@@ -1408,11 +1462,12 @@ def main() -> int:
                     dx_bytes, flops, tails=tails,
                     old_fn=lambda: kernels._dx_cuda_cores("itg_conv3x3_chw_dx", x, gy, w32, sc, sh,
                                                           True, False))
-            account("conv3x3_chw_dw", shape_s,
+            account("conv3x3_chw_dw", f"{shape_s} [tensor cores]",
                     lambda: kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
                     lambda: kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
                     lambda: torch.nn.grad.conv2d_weight(a_pad, wl.shape, gy),
-                    act * (c + co) * es + pbytes + 2 * c * 4, flops, tails=tails)
+                    act * (c + co) * es + pbytes + 2 * c * 4, flops, tails=tails,
+                    old_fn=lambda: kernels._dw_cuda_cores(x, gy, sc, sh, True, False))
             if with_stats:
                 # two stats producers per block, each (N, Co, H, W) in both
                 # tails: conv1 (K5 or K9) and the block's output (K3 or K10)
@@ -1766,10 +1821,7 @@ def main() -> int:
             compare_sum("conv3x3_chw", f"Σy {tag}", s1, y.float().sum(dim=(0, 2, 3)))
             compare_sum("conv3x3_chw", f"Σy² {tag}", s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
             check_dx("conv3x3_chw_dx", tag, x, gy, wt, sc, sh, "replicate")
-            dw, db = kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate")
-            dw_r, db_r = kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate")
-            compare_sum("conv3x3_chw_dw", f"dW {tag}", dw, dw_r)
-            compare_sum("conv3x3_chw_dw", f"db {tag}", db, db_r)
+            check_dw(tag, x, gy, sc, sh, "replicate")
             if with_stats:
                 compare("bn_corr", tag, kernels.bn_corr(gy, y, alpha, beta2),
                         kernels.bn_corr_plain(gy, y, alpha, beta2))
@@ -1778,14 +1830,20 @@ def main() -> int:
             flops = 2.0 * act * co * c * 9
             dx_bytes = act * (2 * c + co) * es + pbytes + 4 * c * 4
             shape_s = f"({n}, {c}->{co}, {h}x{w})"
-            if not timed:  # K6's f32 route (CUDA cores), in rows of its own
+            a_pad = F.pad(torch.relu(x), (1, 1, 1, 1), mode="replicate")
+            if not timed:  # K6's and K7's f32 routes (CUDA cores), in rows of their own
                 account("conv3x3_chw_dx", f"{shape_s} [CUDA cores, f32]",
                         lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: torch.nn.grad.conv2d_input(x.shape, wt, gy, padding=1),
                         dx_bytes, flops, tails=("ssm",), peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                account("conv3x3_chw_dw", f"{shape_s} [CUDA cores, f32]",
+                        lambda: kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
+                        lambda: kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
+                        lambda: torch.nn.grad.conv2d_weight(a_pad, wt.shape, gy),
+                        act * (c + co) * es + pbytes + 2 * c * 4, flops, tails=("ssm",),
+                        peak=PEAK_F32_FLOP_PER_S, f32_route=True)
                 continue
-            a_pad = F.pad(torch.relu(x), (1, 1, 1, 1), mode="replicate")
             wl, bl = wt.to(dtype), b.to(dtype)
             w32 = kernels._f32(wt)
             account("conv3x3_chw", shape_s,
@@ -1800,11 +1858,12 @@ def main() -> int:
                     dx_bytes, flops, tails=("ssm",),
                     old_fn=lambda: kernels._dx_cuda_cores("itg_conv3x3_chw_dx", x, gy, w32, sc, sh,
                                                           True, False))
-            account("conv3x3_chw_dw", shape_s,
+            account("conv3x3_chw_dw", f"{shape_s} [tensor cores]",
                     lambda: kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
                     lambda: kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
                     lambda: torch.nn.grad.conv2d_weight(a_pad, wl.shape, gy),
-                    act * (c + co) * es + pbytes + 2 * c * 4, flops, tails=("ssm",))
+                    act * (c + co) * es + pbytes + 2 * c * 4, flops, tails=("ssm",),
+                    old_fn=lambda: kernels._dw_cuda_cores(x, gy, sc, sh, True, False))
             if with_stats:
                 ab = alpha.reshape(1, -1, 1, 1).to(dtype)
                 b2b = beta2.reshape(1, -1, 1, 1).to(dtype)
@@ -1893,9 +1952,10 @@ def main() -> int:
         timed_calls = {k: s["calls"] for k, s in tstats[tail].items()}
         if timed_calls != want:
             fail(f"phases 3/3b timed {timed_calls} calls per {TRAIN_PATHS[tail][0]} step, not {want}")
-        f32_calls = {k: dstats[tail][k]["calls"] for k in DX_KERNELS}
-        if f32_calls != {k: want[k] for k in DX_KERNELS}:
-            fail(f"phases 3/3b timed the f32 dx route {f32_calls} per {TRAIN_PATHS[tail][0]} step")
+        f32_calls = {k: dstats[tail][k]["calls"] for k in ROUTED}
+        if f32_calls != {k: want[k] for k in ROUTED}:
+            fail(f"phases 3/3b timed the f32 routes of K6 / K7 / K9 dx {f32_calls} per "
+                 f"{TRAIN_PATHS[tail][0]} step")
     # generation: the timed calls per sub-image are the raster's launches
     # (K1, timed at the sub-image's shapes, runs on the one pass instead)
     for label, table_ in (("flagship", stats), ("SSM", gstats)):
@@ -1939,7 +1999,7 @@ def main() -> int:
 
     # -- 5. step parity: kernels against plain versions, full width, f32 ------
     t0 = time.perf_counter()
-    dx_f32 = {}  # K6 / K9 dx launches by entry point in each f32 step parity
+    dx_f32 = {}  # K6 / K7 / K9 dx launches by entry point in each f32 step parity
 
     def parity_run(tail, argv):
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
@@ -1954,12 +2014,12 @@ def main() -> int:
     parity_run("ssm", SSM_ARGS)
     f32_route = dict(ssm.ROUTE_LAUNCHES)
     for tail, counts in dx_f32.items():
-        want = {TC_ENTRY[k]: 0 for k in DX_KERNELS} | {F32_ROUTE[k][0]: STEP_LAUNCHES[tail][k]
-                                                       for k in DX_KERNELS}
+        want = {TC_ENTRY[k]: 0 for k in ROUTED} | {F32_ROUTE[k][0]: STEP_LAUNCHES[tail][k]
+                                                   for k in ROUTED}
         if counts != want:
-            fail(f"the f32 step parity ({TRAIN_PATHS[tail][0]}) took the dx launches {counts}, "
-                 f"not {want}")
-        print(f"[route] f32 step parity, {TRAIN_PATHS[tail][0]}: K6 / K9 dx launches by entry "
+            fail(f"the f32 step parity ({TRAIN_PATHS[tail][0]}) took the K6 / K7 / K9 dx launches "
+                 f"{counts}, not {want}")
+        print(f"[route] f32 step parity, {TRAIN_PATHS[tail][0]}: K6 / K7 / K9 dx launches by entry "
               f"point {counts}")
     if f32_route["itg_ssm_embed_tc_fwd"] or f32_route["itg_ssm_embed_tc_bwd"] or not (
             f32_route["itg_ssm_embed_fwd"] and f32_route["itg_ssm_embed_bwd"]):
@@ -1981,13 +2041,13 @@ def main() -> int:
     bf16_route = dict(ssm.ROUTE_LAUNCHES)
     for tail, counts in dx_bf16.items():
         # the run's steps and its traced steps
-        want = {F32_ROUTE[k][0]: 0 for k in DX_KERNELS} | {
-            TC_ENTRY[k]: (TRAIN_STEPS + TRACED_STEPS) * STEP_LAUNCHES[tail][k] for k in DX_KERNELS}
+        want = {F32_ROUTE[k][0]: 0 for k in ROUTED} | {
+            TC_ENTRY[k]: (TRAIN_STEPS + TRACED_STEPS) * STEP_LAUNCHES[tail][k] for k in ROUTED}
         if counts != want:
-            fail(f"the bf16 training run ({TRAIN_PATHS[tail][0]}) took the dx launches {counts}, "
-                 f"not {want}")
-        print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}: K6 / K9 dx launches by entry "
-              f"point {counts} (CUDA-core dx kernels: 0)")
+            fail(f"the bf16 training run ({TRAIN_PATHS[tail][0]}) took the K6 / K7 / K9 dx launches "
+                 f"{counts}, not {want}")
+        print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}: K6 / K7 / K9 dx launches by entry "
+              f"point {counts} (CUDA-core kernels: 0)")
     if bf16_route["itg_ssm_embed_fwd"] or bf16_route["itg_ssm_embed_bwd"] or min(
             bf16_route["itg_ssm_embed_tc_fwd"], bf16_route["itg_ssm_embed_tc_bwd"]) < 3 * TRAIN_STEPS:
         fail(f"the bf16 training runs took K15's launches {bf16_route}, not the tensor-core route's")
@@ -2054,7 +2114,7 @@ def main() -> int:
                 "name": name + suffix, "path": path, "route": "cuda",
                 **({"dtype": "bfloat16", "cores": "tensor", "entry": TC_ENTRY[name]}
                    if name in TC_ENTRY else {}),
-                **({"cuda_cores_ms": s["cuda_cores_ms"]} if name in DX_KERNELS else {}),
+                **({"cuda_cores_ms": s["cuda_cores_ms"]} if name in ROUTED else {}),
                 "source": f"infinite_texture_gans_torch/csrc/{src}",
                 "replaces": f"infinite_texture_gans_tpu/ops/{site}",
                 "launches": counts[name], "max_abs_err": err if err is not None else sum_err,
@@ -2063,7 +2123,7 @@ def main() -> int:
                 "library_ms": s["library_ms"],
             })
             was = (f", the CUDA-core kernel it replaced {s['cuda_cores_ms']:.4f} ms"
-                   if name in DX_KERNELS else "")
+                   if name in ROUTED else "")
             print(f"[kernel] {tag} {name}: {per} (bf16, sum over its shapes) "
                   f"{s['ms']:.4f} ms device (eager calls {s['eager_ms']:.4f} ms) vs bound "
                   f"{s['bound_ms']:.4f} ms ({dom}), plain "
@@ -2076,12 +2136,12 @@ def main() -> int:
                  "per SSM step") for name in ("ssm_embed", "ssm_embed_bwd")]
     f32_rows += [(name, f":f32_{tail}", f"step parity {TRAIN_PATHS[tail][0]} (float32)",
                   dstats[tail][name], dx_f32[tail], TRAIN_PATHS[tail][1])
-                 for name in DX_KERNELS for tail, want in STEP_LAUNCHES.items() if want[name]]
+                 for name in ROUTED for tail, want in STEP_LAUNCHES.items() if want[name]]
     for name, suffix, path, s, route_counts, per in f32_rows:
         entry, src = F32_ROUTE[name]
         tag, _, site = KERNELS[name]
         dom = "bytes" if s["nbytes"] / PEAK_BYTES_PER_S >= s["flops"] / PEAK_F32_FLOP_PER_S else "operations"
-        err = stats[name] if name in DX_KERNELS else s
+        err = stats[name] if name in ROUTED else s
         rows.append({
             "name": name + suffix, "path": path, "route": "cuda",
             "dtype": "float32", "cores": "cuda", "entry": entry,

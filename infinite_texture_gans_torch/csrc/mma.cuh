@@ -1,6 +1,7 @@
 // Tensor-core helpers for sm_90a: warpgroup wgmma and warp-level mma.sync
 // m16n8k16 (bf16 operands, float32 accumulators), ldmatrix fragment loads
-// from shared memory and 16-byte cp.async copies.
+// from shared memory, 16-byte cp.async copies, TMA tensor copies and
+// mbarriers.
 //
 // Fragments of mma.m16n8k16.row.col (g = lane / 4, t = lane % 4):
 //   A (16 x 16, rows m, columns k): a[0] (g, 2t..2t+1), a[1] (g + 8, 2t..),
@@ -24,6 +25,16 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The same, each 8 x 8 matrix transposed on the way: thread (g, t) gets
+// elements (2t, g) and (2t + 1, g) of its matrix, where row r is the 16-byte
+// row at lane r's address. A tile stored with K along the rows (one row per
+// K index) then arrives as mma's A or B fragment.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
@@ -62,6 +73,52 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- TMA (cp.async.bulk.tensor) and mbarriers ------------------------------
+// An mbarrier in shared memory counts arrivals and the bytes of the copies
+// that complete on it; a wait on phase parity P returns once phase P is done.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+// Makes the initialised mbarriers visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` more bytes of copies this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses before later
+// async-proxy (TMA) ones.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A box of a 4-D tensor map (a CUtensorMap kernel parameter) at
+// coordinates c0 (innermost) .. c3 into shared memory (128-byte aligned);
+// out-of-range elements read as zeros. Completes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, "
+      "%3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(tmap), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // Two float32 values rounded to bf16 and packed, the first in the low half.

@@ -42,6 +42,9 @@ SIGNATURES = {
     "itg_conv3x3_chw_dx": [_P] * 8 + [_I] * 8 + [_P],
     # x, g, scale, shift, dw, db, n, c, h, w, co, relu, zeros, bf16, stream
     "itg_conv3x3_chw_dw": [_P] * 6 + [_I] * 8 + [_P],
+    # x, g, scale, shift, part, dw, db, n, c, h, w, co, relu, zeros, mt, no, cap, stream (bf16
+    # only)
+    "itg_conv3x3_chw_dw_tc": [_P] * 7 + [_I] * 10 + [_P],
     # x, g, w, scale, shift, wp, dx, part, dscale, dshift, n, c, h, w, co, relu, zeros, nt, no,
     # cap, stream (bf16 only; the same for the up-conv's dx, h and w of x)
     "itg_conv3x3_chw_dx_tc": [_P] * 10 + [_I] * 10 + [_P],

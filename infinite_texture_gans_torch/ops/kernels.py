@@ -13,7 +13,8 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
   csrc/conv3x3_chw.cu, given the cached borders);
 - K6 ``conv3x3_chw_dx``: pallas_conv.py:775 ``_conv3x3_chw_dx``; K7
   ``conv3x3_chw_dw``: :888 ``_conv3x3_chw_dw``; K8 ``bn_corr``: :1061
-  ``_bn_corr`` (csrc/conv3x3_chw_bwd.cu; K6 in bf16: csrc/chw_dx_tc.cu);
+  ``_bn_corr`` (csrc/conv3x3_chw_bwd.cu; K6 in bf16: csrc/chw_dx_tc.cu, K7
+  in bf16: csrc/chw_dw_tc.cu);
 - K3 ``conv1x1_chw`` / ``conv1x1_chw_add`` (optionally with stats, the
   ``conv1x1_chw_add_stats`` / ``conv1x1_chw_add_p`` forms): replaces
   pallas_conv.py:2311 ``_conv1x1_chw_fwd``; its dW ``conv1x1_chw_dw``:
@@ -46,8 +47,12 @@ as K15 does, with no fallback: bfloat16 takes one tensor-core kernel body
 to bf16 as the reference rounds them, pallas_conv.py:971 and :1637-1639;
 their plain versions ``conv3x3_chw_dx_tc_plain`` and
 ``upconv3x3_chw_dx_tc_plain`` apply the same rounding), float32 keeps the
-CUDA-core kernels (``itg_conv3x3_chw_dx``, ``itg_upconv3x3_chw_dx``).
-:data:`ROUTE_LAUNCHES` counts the launches of each entry point.
+CUDA-core kernels (``itg_conv3x3_chw_dx``, ``itg_upconv3x3_chw_dx``). K7
+routes the same way: bfloat16 takes ``itg_conv3x3_chw_dw_tc`` (mma.sync on
+pixel-major staged post-norm tiles, fixed-order partial sums; its operands
+are bf16 values, so it needs no rounded plain version), float32
+``itg_conv3x3_chw_dw``. :data:`ROUTE_LAUNCHES` counts the launches of each
+entry point.
 
 The port carries no lane padding, so the reference's padded-carry forms
 (K11 ``conv1x1_chw_add_p``, ``conv1x1_chw_p``, K12 ``upsample2_chw_p``,
@@ -68,6 +73,7 @@ calls the backward wrappers, skipping the inputs autograd does not need.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -99,9 +105,10 @@ LAUNCHES = {
     "ssm_embed_bwd": 0,
 }
 
-# launches per C entry point of K6 and K9 dx: the bf16 tensor-core route and
-# the f32 CUDA-core one (not cleared by reset_launches)
+# launches per C entry point of K6, K7 and K9 dx: the bf16 tensor-core route
+# and the f32 CUDA-core one (not cleared by reset_launches)
 ROUTE_LAUNCHES = {"itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
+                  "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
                   "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -573,17 +580,40 @@ def conv3x3_chw_dx_tc_plain(x, g, w, scale, shift, relu: bool, outer_padding: st
                                 outer_padding)
 
 
-def conv3x3_chw_dw(x, g, scale, shift, relu: bool, outer_padding: str):
-    """K7: the weight-side gradient of :func:`conv3x3_chw`:
-    dW[o, c, ky, kx] = Σ g[o] · A[c] shifted by the tap, where A is the
-    padded post-norm input the forward read, and db = Σ g; float32 sums
-    over (N, H, W). Returns (dW (Co, C, 3, 3), db (Co,))."""
-    zeros = _check_padding(outer_padding)
-    co = g.shape[1]
-    _check_bwd(x, g, co, scale, shift)
-    if not _on_cuda(x, g, scale, shift):
-        return conv3x3_chw_dw_plain(x, g, scale, shift, relu, outer_padding)
+# The tensor-core dW route's tiling (csrc/chw_dw_tc.cu): M = the input
+# channels padded to MT x 16, N = the output channels padded to NO x 8; one
+# template per MT and NO. Its persistent blocks (at most DW_TC_BLOCKS_PER_SM
+# per SM, as its shared memory and registers hold them) write per-block
+# partial sums.
+DW_TC_MT = (1, 2, 4)
+DW_TC_NO = (1, 2, 4)
+DW_TC_BLOCKS_PER_SM = 2
+
+
+def dw_tc_plan(c: int, co: int) -> tuple[int, int]:
+    """(MT, NO) of the tensor-core dW kernel for C input and Co output
+    channels: the fewest 16-channel tiles of DW_TC_MT and 8-channel tiles of
+    DW_TC_NO that hold them. Raises for C > 64 or Co > 32, the dx route's
+    limits (every training shape of the models' channels-major tail is
+    inside)."""
+    mt = next((t for t in DW_TC_MT if 16 * t >= c), None)
+    no = next((o for o in DW_TC_NO if 8 * o >= co), None)
+    if mt is None or no is None:
+        raise ValueError(f"the tensor-core dW kernel takes C <= {16 * DW_TC_MT[-1]} and "
+                         f"Co <= {8 * DW_TC_NO[-1]}, got C={c}, Co={co}")
+    return mt, no
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _dw_cuda_cores(x, g, scale, shift, relu: bool, zeros: bool):
+    """K7 on the CUDA cores (``itg_conv3x3_chw_dw``): the float32 route (the
+    C function takes bf16 too)."""
     n, c, h, wd = x.shape
+    co = g.shape[1]
     dw = torch.zeros((co, c, 3, 3), dtype=torch.float32, device=x.device)
     db = _zeros_f32(co, x)
     sc, sh = _f32(scale), _f32(shift)
@@ -592,9 +622,54 @@ def conv3x3_chw_dw(x, g, scale, shift, relu: bool, outer_padding: str):
             x.data_ptr(), g.data_ptr(), sc.data_ptr(), sh.data_ptr(), dw.data_ptr(), db.data_ptr(),
             n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
         )
-    _raise_on(rc, "conv3x3_chw_dw")
-    LAUNCHES["conv3x3_chw_dw"] += 1
+    _raise_on(rc, "itg_conv3x3_chw_dw")
+    ROUTE_LAUNCHES["itg_conv3x3_chw_dw"] += 1
     return dw, db
+
+
+def _dw_tensor_cores(x, g, scale, shift, relu: bool, zeros: bool):
+    """K7 on the tensor cores (``itg_conv3x3_chw_dw_tc``), bf16: persistent
+    blocks write float32 partials, a second launch sums them in one order."""
+    n, c, h, wd = x.shape
+    co = g.shape[1]
+    mt, no = dw_tc_plan(c, co)
+    cap = DW_TC_BLOCKS_PER_SM * _sm_count(x.device.index)
+    dw = torch.empty((co, c, 3, 3), dtype=torch.float32, device=x.device)
+    db = torch.empty(co, dtype=torch.float32, device=x.device)
+    # per block: the C fragments of 9 MT (tap, m16 tile) pairs x NO n8 tiles,
+    # then db (8 NO)
+    part = torch.empty((cap, 9 * mt * no * 128 + 8 * no), dtype=torch.float32, device=x.device)
+    sc, sh = _f32(scale), _f32(shift)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_conv3x3_chw_dw_tc(
+            x.data_ptr(), g.data_ptr(), sc.data_ptr(), sh.data_ptr(), part.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), n, c, h, wd, co, int(relu), int(zeros), mt, no, cap,
+            _stream(x),
+        )
+    _raise_on(rc, "itg_conv3x3_chw_dw_tc")
+    ROUTE_LAUNCHES["itg_conv3x3_chw_dw_tc"] += 1
+    return dw, db
+
+
+def conv3x3_chw_dw(x, g, scale, shift, relu: bool, outer_padding: str):
+    """K7: the weight-side gradient of :func:`conv3x3_chw`:
+    dW[o, c, ky, kx] = Σ g[o] · A[c] shifted by the tap, where A is the
+    padded post-norm input the forward read, and db = Σ g; float32 sums
+    over (N, H, W). Returns (dW (Co, C, 3, 3), db (Co,)). On the card bf16
+    takes the tensor-core kernel (both operands are bf16 values, so its
+    plain version is :func:`conv3x3_chw_dw_plain` itself), float32 the
+    CUDA-core one."""
+    zeros = _check_padding(outer_padding)
+    co = g.shape[1]
+    _check_bwd(x, g, co, scale, shift)
+    if not _on_cuda(x, g, scale, shift):
+        return conv3x3_chw_dw_plain(x, g, scale, shift, relu, outer_padding)
+    if x.dtype == torch.bfloat16:
+        out = _dw_tensor_cores(x, g, scale, shift, relu, zeros)
+    else:
+        out = _dw_cuda_cores(x, g, scale, shift, relu, zeros)
+    LAUNCHES["conv3x3_chw_dw"] += 1
+    return out
 
 
 def conv3x3_chw_dw_plain(x, g, scale, shift, relu: bool, outer_padding: str):

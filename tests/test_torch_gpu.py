@@ -356,9 +356,105 @@ def test_dx_routes_by_dtype(cuda, dtype):
     torch.cuda.synchronize()
     tc = dtype == torch.bfloat16
     assert tk.ROUTE_LAUNCHES == {"itg_conv3x3_chw_dx_tc": int(tc), "itg_conv3x3_chw_dx": int(not tc),
+                                 "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
                                  "itg_upconv3x3_chw_dx_tc": int(tc),
                                  "itg_upconv3x3_chw_dx": int(not tc)}
     assert (tk.LAUNCHES["conv3x3_chw_dx"], tk.LAUNCHES["upconv3x3_chw_dx"]) == (1, 1)
+
+
+# --- K7 (conv3x3_chw_dw) on the tensor cores, bf16 -------------------------
+# n, c, co, h, w: every training shape of the channels-major tail (auto:
+# 26 -> 26 at 192^2, 13 -> 13 and 13 -> 3 at 384^2; off adds 52 -> 26 at 192^2
+# and 26 -> 13 at 384^2; SSM: 52 -> 26, 26 -> 26 and 26 -> 3 at 192^2), then a
+# ragged one (w no multiple of 8: element loads), the plan's widest (C = 64,
+# Co = 32) and a C that fills its m16 tile
+DW_SHAPES = [(8, 26, 26, 192, 192), (8, 13, 13, 384, 384), (8, 13, 3, 384, 384),
+             (8, 52, 26, 192, 192), (8, 26, 13, 384, 384), (8, 26, 3, 192, 192),
+             (2, 11, 19, 13, 45), (1, 64, 32, 20, 64), (3, 16, 8, 9, 40)]
+
+
+def _dw_case(cuda, shape, seed=21):
+    """bf16 x and g of K7 at ``shape`` (n, c, co, h, w), float32 scale/shift."""
+    n, c, co, h, w = shape
+    x, _, _, sc, sh = _inputs(cuda, torch.bfloat16, n=n, c=c, co=co, h=h, w=w, seed=seed)
+    g = torch.randn(n, co, h, w, generator=torch.Generator().manual_seed(seed)).to(
+        cuda, torch.bfloat16)
+    return x, g, sc, sh
+
+
+def _assert_dw_close(got, ref):
+    _assert_sum_close(got[0], ref[0])
+    _assert_sum_close(got[1], ref[1])
+
+
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_dw_tc_matches_plain(cuda, outer, shape):
+    """bf16 K7 runs the tensor-core kernel and computes the plain version's
+    function (both operands are bf16 values): dW and db within SUM_TOL."""
+    x, g, sc, sh = _dw_case(cuda, shape)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    got = tk.conv3x3_chw_dw(x, g, sc, sh, True, outer)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_conv3x3_chw_dw_tc"], tk.ROUTE_LAUNCHES["itg_conv3x3_chw_dw"]) \
+        == (1, 0)
+    _assert_dw_close(got, tk.conv3x3_chw_dw_plain(x, g, sc, sh, True, outer))
+
+
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("case", [0, 6])
+def test_dw_tc_bits_repeat(cuda, outer, case):
+    """Fixed-order partial sums and no atomics: two calls give the same bits."""
+    x, g, sc, sh = _dw_case(cuda, DW_SHAPES[case])
+    first = tk.conv3x3_chw_dw(x, g, sc, sh, True, outer)
+    second = tk.conv3x3_chw_dw(x, g, sc, sh, True, outer)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [0, 2, 6])
+def test_dw_tc_check_catches_planted_faults(cuda, case):
+    """The check above fails on a dW that is slightly wrong: one input
+    channel's dW x 1.01 (the channel of the largest entry), ky and kx
+    swapped, or the replicate ring taken as zeros."""
+    x, g, sc, sh = _dw_case(cuda, DW_SHAPES[case])
+    ref = tk.conv3x3_chw_dw_plain(x, g, sc, sh, True, "replicate")
+    dw, db = tk.conv3x3_chw_dw(x, g, sc, sh, True, "replicate")
+    _assert_dw_close((dw, db), ref)
+    one = dw.clone()
+    c_max = int(ref[0].abs().amax(dim=(0, 2, 3)).argmax())
+    one[:, c_max] *= 1.01
+    for bad in ((one, db), (dw.transpose(2, 3), db),
+                tk.conv3x3_chw_dw(x, g, sc, sh, True, "constant")):
+        with pytest.raises(AssertionError):
+            _assert_dw_close(bad, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_routes_by_dtype(cuda, dtype):
+    """bf16 calls of K7 launch the tensor-core entry point, f32 calls the
+    CUDA-core one; each counts one launch per call."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    tk.reset_launches()
+    x, g, sc, sh = _dw_case(cuda, DW_SHAPES[6])
+    tk.conv3x3_chw_dw(x.to(dtype), g.to(dtype), sc, sh, True, "replicate")
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert tk.ROUTE_LAUNCHES == {"itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
+                                 "itg_conv3x3_chw_dw_tc": int(tc), "itg_conv3x3_chw_dw": int(not tc),
+                                 "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0}
+    assert tk.LAUNCHES["conv3x3_chw_dw"] == 1
+
+
+def test_dw_tc_refuses_wider(cuda):
+    """A bf16 call outside the route's plan raises, naming the limit; nothing
+    falls back to the CUDA-core kernel."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    for shape in ((1, 65, 3, 8, 16), (1, 13, 33, 8, 16)):
+        x, g, sc, sh = _dw_case(cuda, shape)
+        with pytest.raises(ValueError, match="tensor-core dW kernel"):
+            tk.conv3x3_chw_dw(x, g, sc, sh, True, "replicate")
+    assert tk.ROUTE_LAUNCHES["itg_conv3x3_chw_dw"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
