@@ -10,7 +10,15 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    in float32 with TF32 off and in bfloat16, at the shapes of the flagship
    and of the SSM recipe at eval (blocks 4-5, identity-folded convs): one
    sub-image (the raster path; 384^2 and 192^2, timed) and, for K1, K3 and
-   K4, the 768^2 one-pass grid too.
+   K4, the 768^2 one-pass grid too. K1 (with K5's sums) and K2 route by
+   dtype: bf16 on the tensor-core kernel of ``csrc/chw_fwd_tc.cu``, held to
+   the plain versions with the route's rounded weights (``*_tc_plain``;
+   the unrounded one's distance reported), K2 in its four border cases,
+   two calls bit-equal, and at the flagship sub-image's first and last conv
+   four planted faults (ky and kx swapped, the replicate ring as zeros, K2
+   ignoring its cached top row, one channel's Σy² x 1.01) must fail those
+   checks; f32 on the CUDA-core kernel of ``csrc/conv3x3_chw.cu``. The conv2 and final sites of
+   ``--fuse_up all`` (phase 2b) are the flagship's shapes checked here.
 2b. ``--fuse_up all`` at eval: K14 (K9's forward with the raster's cached
    half-res borders) against its plain version at the flagship's three
    fused conv1 sites of a 384^2 sub-image (blocks 4-6: 104 -> 52 at 48^2
@@ -26,8 +34,9 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    fake 384^2 grids, tail blocks 5-6) under both tails: ``--fuse_up off``
    and ``auto``, whose half-res shortcut (K3 and its dx form, K3-dW) and
    K10 adjoint (K4-bwd) run at shapes of their own; f32 and bf16, both
-   outer paddings. K6 and K9 dx route by dtype: bf16 on the tensor-core
-   kernels of ``csrc/chw_dx_tc.cu``, held to the plain versions with the
+   outer paddings. K1/K5 is checked as in phase 2 (no K2 in training). K6
+   and K9 dx route by dtype: bf16 on the tensor-core kernels of
+   ``csrc/chw_dx_tc.cu``, held to the plain versions with the
    route's rounded weights (``*_tc_plain``; the unrounded one's distance
    reported), two calls bit-equal, and at two shapes each three planted
    faults (the top fold dropped, one input channel's weights x 1.01, ky and
@@ -36,9 +45,10 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    itself (its operands are bf16 values, so it needs no rounded twin) at
    the sums' limit, two calls bit-equal, and at two shapes three planted
    faults (one input channel's dW x 1.01, ky and kx swapped, the replicate
-   ring taken as zeros) must fail that check. The f32 routes run on the
-   CUDA-core kernels, timed into rows of their own (``:f32_<path>``), and
-   each CUDA-core kernel is timed in bf16 beside the tensor-core one. Times
+   ring taken as zeros) must fail that check. The f32 routes (K1, K6, K7,
+   K9 dx) run on the CUDA-core kernels, timed into rows of their own
+   (``:f32_<path>``), and each CUDA-core kernel is timed in bf16 beside the
+   tensor-core one. Times
    each (CUDA-graph replay) beside its bound, its plain version and one
    PyTorch library call, summed per
    step for each tail, and holds the timed calls per step to the tail's
@@ -57,8 +67,8 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    same chain, the f32 route at the training shapes into rows of its own
    (``:f32_parity``, launches from the f32 SSM step parity); and K1/K5, K6, K7 (the
    identity fold), K8, K3 (+ its dx form), K3-dW, K4, K4-bwd and the stem
-   at the SSM step's own shapes, summed per SSM step (K6 on both routes, as
-   in phase 3).
+   at the SSM step's own shapes, summed per SSM step (K1, K6 and K7 on both
+   routes, as in phase 3).
 4. Loads the trained flagship checkpoint ``examples/241_300ep_ema.ckpt``
    and runs the generation phase (``generation_phase``):
    - float32, 768^2: the one-pass oracle (a main path, launch counts
@@ -69,14 +79,17 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    - on the first canvas's latents: the seam ratio of the one pass and of
      sub-images generated without the halo cache (which set the raster's
      seam limit), and, attention gate zeroed, the bf16 raster canvas held to
-     the bf16 one pass.
+     the bf16 one pass;
+   - ``[route]``: the f32 one pass and canvases launch K1/K2 on the CUDA
+     cores only, every bf16 canvas on the tensor cores only (the counted
+     raster exactly its K2 launches).
 4b. The same generation phase for a freshly loaded flagship with
    ``fuse_up='all'`` (one pass: K9 3, K1 4, K3 3, K10 3; per sub-image K14
    3, K2 4, K3 3, K10 3); its canvases against the unfused engine's on the
    same latents, gate zeroed (f32 768^2 held to the reference test's
    tolerance, bf16 1024^2 in u8 levels); a 4096^2 canvas streamed into a
    PNG (``sampling/stream.py``) and held byte-equal to the in-memory u8
-   canvas, both walls.
+   canvas, both walls; K1/K2's ``[route]`` as in phase 4.
 5. Step parity: at full Experiment-1 width in float32 (TF32 off), under
    ``--fuse_up auto`` and ``off``, one fused training step from a fixed
    state with the kernels, and the same step with the tail and the stem on
@@ -84,8 +97,8 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    largest deviation against its largest value). Then the fused step
    against the unfused one from the same state and crops, both on the
    kernels. The same step parity for the SSM recipe (K15 included). Each
-   f32 step parity runs K6, K7 and K9 dx on their CUDA-core entry points
-   only (``[route]``).
+   f32 step parity runs K1, K6, K7 and K9 dx on their CUDA-core entry
+   points only (``[route]``).
    ``step_parity_study.py`` measures the limits' spread and planted faults.
 6. Training runs: 30 bf16 steps each through the train CLI's ``train``:
    the Experiment-1 recipe on ``datasets/241.jpg`` under ``--fuse_up auto``
@@ -93,7 +106,8 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    exact launch counts per step, warm steps/s, the device's busy share
    (torch.profiler), then the written ``.ckpt`` reloaded through the
    sampling loader and rendered to a 384^2 canvas. Each bf16 run launches
-   K6, K7 and K9 dx on their tensor-core entry points only (``[route]``).
+   K1/K2, K6, K7 and K9 dx on their tensor-core entry points only
+   (``[route]``).
 7. SSM generation from the SSM run's EMA checkpoint through the same
    generation phase (one-pass launches K15 6, K1 5, K3 2, K4 2; per 1024^2
    canvas K15 384, K2 320, K3 128, K4 128; the bf16 raster against the
@@ -207,8 +221,8 @@ def exp1_shapes(plan, base):
 
 # kernel -> (tag, CUDA source, pallas_call site in infinite_texture_gans_tpu/ops/)
 KERNELS = {
-    "conv3x3_chw": ("K1/K5", "conv3x3_chw.cu", "pallas_conv.py:395"),
-    "chw_halo_step": ("K2", "conv3x3_chw.cu", "pallas_conv.py:539"),
+    "conv3x3_chw": ("K1/K5", "chw_fwd_tc.cu", "pallas_conv.py:395"),
+    "chw_halo_step": ("K2", "chw_fwd_tc.cu", "pallas_conv.py:539"),
     "conv3x3_chw_dx": ("K6", "chw_dx_tc.cu", "pallas_conv.py:775"),
     "conv3x3_chw_dw": ("K7", "chw_dw_tc.cu", "pallas_conv.py:888"),
     "bn_corr": ("K8", "conv3x3_chw_bwd.cu", "pallas_conv.py:1061"),
@@ -227,23 +241,29 @@ KERNELS = {
     "ssm_embed": ("K15", "ssm_embed_tc.cu", "pallas_ssm.py:343"),
     "ssm_embed_bwd": ("K15-bwd", "ssm_embed_tc.cu", "pallas_ssm.py:392"),
 }
-# The kernels with two routes (K15: ops/ssm.py; K6, K7 and K9 dx:
+# The kernels with two routes (K15: ops/ssm.py; K1/K2, K6, K7 and K9 dx:
 # ops/kernels.py): the main paths run bf16 on the tensor-core kernels above;
 # float32 (step parity, the f32 raster) keeps the CUDA-core kernels, reported
 # in rows of their own: kernel -> (C entry point, source)
-F32_ROUTE = {"ssm_embed": ("itg_ssm_embed_fwd", "ssm_embed_chw.cu"),
+F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
+             "chw_halo_step": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
+             "ssm_embed": ("itg_ssm_embed_fwd", "ssm_embed_chw.cu"),
              "ssm_embed_bwd": ("itg_ssm_embed_bwd", "ssm_embed_chw.cu"),
              "conv3x3_chw_dx": ("itg_conv3x3_chw_dx", "conv3x3_chw_bwd.cu"),
              "conv3x3_chw_dw": ("itg_conv3x3_chw_dw", "conv3x3_chw_bwd.cu"),
              "upconv3x3_chw_dx": ("itg_upconv3x3_chw_dx", "upconv3x3_chw.cu")}
-TC_ENTRY = {"ssm_embed": "itg_ssm_embed_tc_fwd", "ssm_embed_bwd": "itg_ssm_embed_tc_bwd",
+TC_ENTRY = {"conv3x3_chw": "itg_conv3x3_chw_tc", "chw_halo_step": "itg_conv3x3_chw_tc",
+            "ssm_embed": "itg_ssm_embed_tc_fwd", "ssm_embed_bwd": "itg_ssm_embed_tc_bwd",
             "conv3x3_chw_dx": "itg_conv3x3_chw_dx_tc", "conv3x3_chw_dw": "itg_conv3x3_chw_dw_tc",
             "upconv3x3_chw_dx": "itg_upconv3x3_chw_dx_tc"}
-# K6, K7 and K9 dx (ops/kernels.py's ROUTE_LAUNCHES): their bf16 rows also
-# carry the CUDA-core kernel's time in bf16 (the design the tensor-core one
-# replaced, timed in the same run), and their f32 route has a row for each
-# training path
-ROUTED = ("conv3x3_chw_dx", "conv3x3_chw_dw", "upconv3x3_chw_dx")
+# K1/K2, K6, K7 and K9 dx (ops/kernels.py's ROUTE_LAUNCHES): their bf16 rows
+# also carry the CUDA-core kernel's time in bf16 (the design the tensor-core
+# one replaced, timed in the same run), and their f32 route has a row for each
+# training path (K2 runs only at eval: none)
+ROUTED = ("conv3x3_chw", "chw_halo_step", "conv3x3_chw_dx", "conv3x3_chw_dw", "upconv3x3_chw_dx")
+# K2's four border cases: (top row cached, left column cached)
+BORDERS = {"no cache": (False, False), "top only": (True, False), "left only": (False, True),
+           "top and left": (True, True)}
 # kernels on the generation paths (timed per sub-image: K1 on the one pass,
 # the rest on the raster); those of the training step (timed per step) are
 # the ones STEP_LAUNCHES counts
@@ -364,6 +384,34 @@ FUSE_FLOOR_SCALE = 1.5
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def route_want(per_kernel: dict, tc: bool) -> dict:
+    """The launches by C entry point (ops/kernels.py: ROUTE_LAUNCHES) of
+    ``per_kernel`` launches of the ROUTED kernels on one route: the
+    tensor-core entry points (``tc``) or the CUDA-core ones, the other
+    route's 0 (K1 and K2 share their entry points)."""
+    want = {}
+    for k in ROUTED:
+        on, off = (TC_ENTRY[k], F32_ROUTE[k][0]) if tc else (F32_ROUTE[k][0], TC_ENTRY[k])
+        want[on] = want.get(on, 0) + per_kernel[k]
+        want.setdefault(off, 0)
+    return want
+
+
+def fwd_route(label: str, tc: bool, want=None) -> None:
+    """K1 and K2's launches by C entry point since the last call, which then
+    start again from 0: the bf16 route's (``tc``) or the float32 one's
+    only, at least one (or exactly ``want``)."""
+    from infinite_texture_gans_torch.ops import kernels
+
+    on, off = (TC_ENTRY["conv3x3_chw"], F32_ROUTE["conv3x3_chw"][0])[:: 1 if tc else -1]
+    counts = {e: kernels.ROUTE_LAUNCHES[e] for e in (on, off)}
+    kernels.ROUTE_LAUNCHES.update(dict.fromkeys(counts, 0))
+    print(f"[route] {label}: K1 / K2 launches by entry point {counts}"
+          + ("" if want is None else f" (want {want} on {on})"))
+    if counts[off] or not counts[on] or (want is not None and counts[on] != want):
+        fail(f"{label}: K1 / K2 took the launches {counts}, not {on}'s only")
 
 
 def card_line() -> str:
@@ -595,7 +643,10 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir):
     moved parameters, the warm step time, a traced window's device busy
     share, and the written checkpoint rendered to a 384^2 canvas. Returns the
     run's launch counts, its warm step time (s) and its device busy time per
-    traced step (ms, or None where the profiler recorded no device time)."""
+    traced step (ms, or None where the profiler recorded no device time)
+    and its steps' launches by C entry point (ops/kernels.py:
+    ROUTE_LAUNCHES, read before the canvas, whose K1 / K2 launches are
+    checked on their own)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -687,6 +738,8 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir):
     else:
         print("[trace] train step device time: not measured (no device events recorded)")
     del state
+    routed = dict(kernels.ROUTE_LAUNCHES)
+    kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
 
     ck = load_checkpoint(str(out_dir / "1_1.ckpt"))
     if ck["meta"]["epoch"] != 1 or int(ck["opt_G"]["0"]["count"]) != steps:
@@ -698,7 +751,8 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir):
           f"{canvas.shape} {canvas.dtype}, std {canvas.std():.3f}")
     if canvas.shape != (1, 384, 384, 3) or canvas.dtype != np.uint8 or not canvas.std() > 0:
         fail(f"canvas from the trained checkpoint: {canvas.shape} {canvas.dtype} std {canvas.std()}")
-    return launches, warm, per_step
+    fwd_route(f"the {label} checkpoint's 384^2 canvas", tc=args.compute_dtype == "bfloat16")
+    return launches, warm, per_step, routed
 
 
 def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, card, sync,
@@ -755,10 +809,12 @@ def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, 
     z, maps = draw(0, th, tw)
     sync()
     kernels.reset_launches()
+    kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
     one = generate_one_pass(gen32, z, th, tw, maps_full=maps)
     sync()
     one_launches = dict(kernels.LAUNCHES)
     print(f"[path one_pass {label}] f32 {th}x{tw} patches, launches {json.dumps(one_launches)}")
+    fwd_route(f"{label} one pass f32 {th}x{tw} patches", False, one_launches["conv3x3_chw"])
     want = {**dict.fromkeys(kernels.LAUNCHES, 0), **one_pass_want}
     if one_launches != want:
         fail(f"{label} one-pass launches {one_launches} != {want}")
@@ -780,6 +836,7 @@ def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, 
           "than on the whole canvas)")
     if not err0 <= CANVAS_TOL:
         fail(f"{label} raster canvas differs from the one-pass oracle by {err0}")
+    fwd_route(f"{label} f32 768^2 raster canvases and one pass", False)
     del gen32, one, one0
 
     steps_h, steps_w, th1k, tw1k = canvas_geometry(1024, 1024, P, GRID, GRID)
@@ -793,6 +850,8 @@ def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, 
     raster_launches = dict(kernels.LAUNCHES)
     print(f"[path raster {label}] bf16 1024^2, {steps_h}x{steps_w} sub-images, launches "
           f"{json.dumps(raster_launches)}")
+    fwd_route(f"{label} raster bf16 1024^2", True,
+              raster_launches["chw_halo_step"] + raster_launches["conv3x3_chw"])
     want = {**dict.fromkeys(kernels.LAUNCHES, 0), **{k: v * n_sub for k, v in per_sub.items()}}
     if n_sub != n_sub_want or raster_launches != want:
         fail(f"{label} raster launches {raster_launches} != {want} for {n_sub} sub-images")
@@ -869,6 +928,7 @@ def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, 
           "cuDNN's choices in the NHWC blocks)")
     if u8_tol is not None and not d.max() <= u8_tol:
         fail(f"{label} bf16 raster canvas differs from the one-pass oracle by {d.max()} u8 levels")
+    fwd_route(f"{label} bf16 canvases, one pass and sub-images", True)
     return one_launches, raster_launches, statistics.median(walls)
 
 
@@ -881,9 +941,11 @@ def fuse_all_vs_unfused(dev, gen_all, args, gen_unfused, sync) -> None:
 
     from infinite_texture_gans_torch.config import generator_kwargs
     from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
+    from infinite_texture_gans_torch.ops import kernels
     from infinite_texture_gans_torch.sampling.infinite import canvas_geometry, generate_canvas
     from infinite_texture_gans_torch.sampling.latents import build_z_full
 
+    kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
     with torch.no_grad():
         for g in (gen_all, gen_unfused):
             g.attention.attn.gamma.zero_()
@@ -905,6 +967,7 @@ def fuse_all_vs_unfused(dev, gen_all, args, gen_unfused, sync) -> None:
           "test's: the combined 2x2 kernels regroup float32 additions)")
     if not excess <= 0:
         fail(f"the --fuse_up all canvas differs from the unfused one by {d.max()} (f32)")
+    fwd_route("fuse_up all and unfused f32 768^2 canvases", False)
     del twins
     fused, unfused = (generate_canvas(g, torch.Generator(device=dev).manual_seed(21), 1024, 1024,
                                       wire="u8").astype(np.int16) for g in (gen_all, gen_unfused))
@@ -912,6 +975,7 @@ def fuse_all_vs_unfused(dev, gen_all, args, gen_unfused, sync) -> None:
     print(f"[canvas fuse_up all vs unfused, bf16 1024^2 u8, gate zeroed] max {int(d.max())} levels, "
           f"{np.count_nonzero(d)} of {d.size} values differ (reported: bf16 roundings of "
           "regrouped sums carried through the tail)")
+    fwd_route("fuse_up all and unfused bf16 1024^2 canvases", True)
 
 
 def stream_phase(dev, gen, card, sync) -> None:
@@ -922,9 +986,11 @@ def stream_phase(dev, gen, card, sync) -> None:
     import numpy as np
     import torch
 
+    from infinite_texture_gans_torch.ops import kernels
     from infinite_texture_gans_torch.sampling.infinite import generate_canvas
     from infinite_texture_gans_torch.sampling.stream import generate_canvas_streamed, read_png
 
+    kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
     png = ROOT / "build" / "smoke_stream_all.png"
     png.parent.mkdir(exist_ok=True)
     size = STREAM_SIZE
@@ -945,6 +1011,7 @@ def stream_phase(dev, gen, card, sync) -> None:
     if got.shape != mem.shape[1:] or not np.array_equal(got, mem[0]):
         fail(f"the streamed {size}^2 PNG differs from the in-memory u8 canvas")
     print(f"[stream] the decoded PNG equals the in-memory canvas byte for byte ({got.shape})")
+    fwd_route(f"fuse_up all streamed and in-memory bf16 {size}^2 canvases", True)
 
 
 def main() -> int:
@@ -1037,7 +1104,7 @@ def main() -> int:
     gstats = table()  # per 192^2 SSM sub-image (SSM generation)
     fstats = table()  # K15's float32 route, per SSM step at the training shapes
     tstats = {tail: table() for tail in STEP_LAUNCHES}  # per training step, each tail
-    dstats = {tail: table() for tail in STEP_LAUNCHES}  # K6 / K7 / K9 dx f32 route, per step
+    dstats = {tail: table() for tail in STEP_LAUNCHES}  # K1 / K6 / K7 / K9 dx f32 route, per step
 
     def compare(name, shape, got, ref, exact=False, into=None, floor=1.0):
         """Values within the dtype's limit of max(floor, max|ref|)."""
@@ -1088,7 +1155,7 @@ def main() -> int:
         the flagship's table by default, and in ``also`` where another path
         runs the same shape), else per step of each training tail named (a
         shape both tails run goes into both; with ``f32_route``, into the
-        K6 / K7 / K9 dx f32 route's tables). ``old_fn``: the same function on the
+        K1 / K6 / K7 / K9 dx f32 route's tables). ``old_fn``: the same function on the
         CUDA-core kernel that the tensor-core one replaced, timed beside it."""
         ms, plain, lib = device_ms(kernel_fn), device_ms(plain_fn), device_ms(lib_fn)
         old = device_ms(old_fn) if old_fn is not None else 0.0
@@ -1203,6 +1270,73 @@ def main() -> int:
             if not r_ > 1.0:
                 fail(f"conv3x3_chw_dw {tag}: the check passes a planted {fault}")
 
+    def check_fwd(where, shape_s, x, wt, b, sc, sh, top, left, outer, halo=True, plant=False):
+        """K1 with K5's sums and, with ``halo``, K2 in its four border cases
+        against their plain versions; returns K1's y. bf16 runs the tensor
+        cores: y within BF16_TOL of max|ref| of the plain version with the
+        route's rounded weights (``*_tc_plain``), the unrounded one's
+        distance reported, the sums within SUM_TOL of the plain sums of the
+        stored y, two calls bit-equal, and with ``plant`` (replicate padding)
+        four planted faults must fail those checks. f32 runs the CUDA
+        cores, held to the plain versions."""
+        tc = x.dtype == torch.bfloat16
+        tag = f"{where} {shape_s} {outer} [{'tensor cores' if tc else 'CUDA cores'}]"
+        plain = kernels.conv3x3_chw_tc_plain if tc else kernels.conv3x3_chw_plain
+        halo_plain = kernels.conv3x3_chw_halo_tc_plain if tc else kernels.conv3x3_chw_halo_plain
+        floor = 0.0 if tc else 1.0
+        ref = plain(x, wt, b, sc, sh, True, outer)
+        y, s1, s2 = kernels.conv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+        compare("conv3x3_chw", tag, y, ref, floor=floor)
+        s1_ref, s2_ref = y.float().sum(dim=(0, 2, 3)), (y.float() ** 2).sum(dim=(0, 2, 3))
+        compare_sum("conv3x3_chw", f"Σy {tag}", s1, s1_ref)
+        compare_sum("conv3x3_chw", f"Σy² {tag}", s2, s2_ref)
+        for case, (t_, l_) in BORDERS.items() if halo else ():
+            tb, lb = (top if t_ else None), (left if l_ else None)
+            compare("chw_halo_step", f"{tag} {case}",
+                    kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, outer, tb, lb),
+                    halo_plain(x, wt, b, sc, sh, True, outer, tb, lb), floor=floor)
+        if not tc:
+            return y
+        unrounded = kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True, outer).float()
+        moved = float((y.float() - unrounded).abs().max() / unrounded.abs().max())
+        print(f"[check] conv3x3_chw {tag}: against the plain version without the weights' "
+              f"rounding, max abs err / max|ref| {moved:.3e} (reported)")
+        again = kernels.conv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+        same = all(torch.equal(a, b_) for a, b_ in zip((y, s1, s2), again))
+        if halo:
+            same = same and torch.equal(
+                kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, outer, top, left),
+                kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, outer, top, left))
+        print(f"[check] conv3x3_chw {tag}: two calls {'bit-equal' if same else 'differ'}"
+              f"{' (y, Σy, Σy² and K2 with both borders)' if halo else ' (y, Σy, Σy²)'}")
+        if not same:
+            fail(f"conv3x3_chw {tag}: two bf16 calls differ")
+        if not plant or outer != "replicate":
+            return y
+
+        def ratio(bad, r, tol=BF16_TOL):  # max abs err over the check's limit
+            r = r.float()
+            return float((bad.float() - r).abs().max()) / (tol * float(r.abs().max()))
+
+        s2_bad = s2.clone()
+        s2_bad[int(s2.abs().argmax())] *= 1.01
+        halo_ref = halo_plain(x, wt, b, sc, sh, True, outer, top, left)
+        for fault, r_ in (
+                ("ky<->kx in the weights",
+                 ratio(kernels.conv3x3_chw(x, wt.transpose(2, 3).contiguous(), b, sc, sh, True,
+                                           outer), ref)),
+                ("the replicate ring taken as zeros",
+                 ratio(kernels.conv3x3_chw(x, wt, b, sc, sh, True, "constant"), ref)),
+                ("K2 ignoring its cached top row (the own edge in its place)",
+                 ratio(kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, outer, None, left),
+                       halo_ref)),
+                ("one channel's Σy² x 1.01", ratio(s2_bad, s2_ref, SUM_TOL))):
+            print(f"[check] conv3x3_chw {tag}: planted {fault}: max abs err / limit {r_:.2f} "
+                  "(must exceed 1)")
+            if not r_ > 1.0:
+                fail(f"conv3x3_chw {tag}: the check passes a planted {fault}")
+        return y
+
     print(f"[tolerance] f32 (TF32 off): max abs err <= {F32_TOL:g} * max(1, max|ref|): kernel "
           "and cuDNN sum up to 936 products in other orders, and cuDNN may use Winograd "
           "(~1e-5 relative)")
@@ -1210,6 +1344,10 @@ def main() -> int:
           "compute in f32 and round the output once, so an output may sit one bf16 ulp "
           "(2^-8 relative) apart; two allowed")
     print("[tolerance] upsample2_chw: bit-equal (a copy)")
+    print(f"[tolerance] K1 / K2, bf16 (tensor cores, which round the weights to bf16): y max abs "
+          f"err <= {BF16_TOL:g} * max|ref| of the plain version with that rounding (*_tc_plain), "
+          f"K5's Σy, Σy² <= {SUM_TOL:g} * max|ref| of the plain sums of the stored y; two calls "
+          "bit-equal (fixed-order sums, no atomics); f32 (CUDA cores) as above")
     plan = generator_channel_plan(FLAGSHIP["G_ch"], FLAGSHIP["n_layers_G"])
     base = FLAGSHIP["base_res"]
     # the SSM recipe's generator at eval: blocks 4 (104 -> 52 at 96^2) and 5
@@ -1233,15 +1371,11 @@ def main() -> int:
                 if ident:
                     sc, sh = torch.ones(c, device=dev), torch.zeros(c, device=dev)
                 shape_s = f"{c}->{co} @{h}x{w}"
+                # K2 runs on the raster's sub-images; planted faults at the
+                # flagship sub-image's first and last conv
                 for outer in ("replicate", "constant"):
-                    compare("conv3x3_chw", f"{where} {shape_s} {outer}",
-                            kernels.conv3x3_chw(x, wt, b, sc, sh, True, outer),
-                            kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True, outer))
-                    if timed:
-                        compare("chw_halo_step", f"{where} {shape_s} {outer}",
-                                kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, outer, top, left),
-                                kernels.conv3x3_chw_halo_plain(x, wt, b, sc, sh, True, outer,
-                                                               top, left))
+                    check_fwd(where, shape_s, x, wt, b, sc, sh, top, left, outer, halo=timed,
+                              plant=timed and into is stats and i in (0, len(conv3) - 1))
                 if not timed or dtype != torch.bfloat16:
                     continue
                 es = x.element_size()
@@ -1255,15 +1389,19 @@ def main() -> int:
                 also = astats if into is stats and (i % 2 or i == len(conv3) - 1) else None
                 account("conv3x3_chw", shape_s,
                         lambda: kernels.conv3x3_chw(x, wt, b, sc, sh, True),
-                        lambda: kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True),
-                        lambda: F.conv2d(a_pad, wl, bl), act_bytes, flops, into=into, also=also)
+                        lambda: kernels.conv3x3_chw_tc_plain(x, wt, b, sc, sh, True),
+                        lambda: F.conv2d(a_pad, wl, bl), act_bytes, flops, into=into, also=also,
+                        old_fn=lambda: kernels._fwd_cuda_cores(x, wt, b, sc, sh, True, False, None,
+                                                               None))
                 halo_bytes = act_bytes + (h + w + 2) * c * es
                 account("chw_halo_step", shape_s,
                         lambda: kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate",
                                                          top, left),
-                        lambda: kernels.conv3x3_chw_halo_plain(x, wt, b, sc, sh, True,
-                                                               "replicate", top, left),
-                        lambda: F.conv2d(a_pad, wl, bl), halo_bytes, flops, into=into, also=also)
+                        lambda: kernels.conv3x3_chw_halo_tc_plain(x, wt, b, sc, sh, True,
+                                                                  "replicate", top, left),
+                        lambda: F.conv2d(a_pad, wl, bl), halo_bytes, flops, into=into, also=also,
+                        old_fn=lambda: kernels._fwd_cuda_cores(x, wt, b, sc, sh, True, False, top,
+                                                               left))
 
         for i, (c, co, h, w) in enumerate(conv1):
             for dtype in (torch.float32, torch.bfloat16):
@@ -1315,8 +1453,6 @@ def main() -> int:
           "post-norm half-res slab, nearest-2x, F.conv2d; no phase algebra): the f32/bf16 limits "
           "above, as K9's; K10 bit-equal")
     _, _, th7, tw7 = canvas_geometry(768, 768, base * 2 ** (len(plan) - 1), GRID, GRID)
-    borders = {"no cache": (False, False), "top only": (True, False), "left only": (False, True),
-               "top and left": (True, True)}
     for where, shapes, timed in (("sub-image", fused_shapes(plan, base, GRID, GRID), True),
                                  (f"one-pass {th7}x{tw7}", fused_shapes(plan, base, th7, tw7), False)):
         for i, (c, co, h, w) in enumerate(shapes):
@@ -1330,7 +1466,7 @@ def main() -> int:
                 shape_s = f"{c}->{co} @{h}x{w} -> {2 * h}x{2 * w}"
                 for outer in ("replicate", "constant"):
                     if timed:
-                        for case, (t_, l_) in borders.items():
+                        for case, (t_, l_) in BORDERS.items():
                             tb, lb = (top if t_ else None), (left if l_ else None)
                             compare("chw_upconv_halo_step", f"all {where} {shape_s} {outer} {case}",
                                     kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, tb, lb),
@@ -1416,11 +1552,7 @@ def main() -> int:
             shape_s = f"({n}, {c}->{co}, {h}x{w})"
             for outer in ("replicate", "constant"):
                 tag = f"{shape_s} {outer}"
-                y, s1, s2 = kernels.conv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
-                compare("conv3x3_chw", f"train {tag}",
-                        y, kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True, outer))
-                compare_sum("conv3x3_chw", f"Σy {tag}", s1, y.float().sum(dim=(0, 2, 3)))
-                compare_sum("conv3x3_chw", f"Σy² {tag}", s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
+                y = check_fwd("train", shape_s, x, wt, b, sc, sh, None, None, outer, halo=False)
                 # planted faults at the block's two 192^2 shapes
                 check_dx("conv3x3_chw_dx", tag, x, gy, wt, sc, sh, outer, plant=i < 2)
                 check_dw(tag, x, gy, sc, sh, outer, plant=i < 2)
@@ -1435,7 +1567,13 @@ def main() -> int:
             # auto K9 takes its place; conv2 and the final conv run in both
             tails = ("off",) if with_stats else ("auto", "off")
             a_pad = F.pad(kernels.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
-            if not timed:  # K6's and K7's f32 routes (CUDA cores), in rows of their own
+            if not timed:  # K1's, K6's and K7's f32 routes (CUDA cores), in rows of their own
+                account("conv3x3_chw", f"{shape_s} [CUDA cores, f32]",
+                        lambda: kernels.conv3x3_chw(x, wt, b, sc, sh, True, want_stats=with_stats),
+                        lambda: kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True,
+                                                          want_stats=with_stats),
+                        lambda: F.conv2d(a_pad, wt, b), act * (c + co) * es + pbytes + 2 * c * 4,
+                        flops, tails=tails, peak=PEAK_F32_FLOP_PER_S, f32_route=True)
                 account("conv3x3_chw_dx", f"{shape_s} [CUDA cores, f32]",
                         lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
@@ -1450,11 +1588,14 @@ def main() -> int:
                 continue
             wl, bl = wt.to(dtype), b.to(dtype)
             w32 = kernels._f32(wt)
-            account("conv3x3_chw", shape_s,
+            account("conv3x3_chw", f"{shape_s} [tensor cores]",
                     lambda: kernels.conv3x3_chw(x, wt, b, sc, sh, True, want_stats=with_stats),
-                    lambda: kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True, want_stats=with_stats),
+                    lambda: kernels.conv3x3_chw_tc_plain(x, wt, b, sc, sh, True,
+                                                         want_stats=with_stats),
                     lambda: F.conv2d(a_pad, wl, bl), act * (c + co) * es + pbytes + 2 * c * 4,
-                    flops, tails=tails)
+                    flops, tails=tails,
+                    old_fn=lambda: kernels._fwd_cuda_cores(x, wt, b, sc, sh, True, False, None, None,
+                                                           with_stats))
             account("conv3x3_chw_dx", f"{shape_s} [tensor cores]",
                     lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                     lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
@@ -1816,10 +1957,8 @@ def main() -> int:
             gy = randn(g_, n, co, h, w).to(dtype)
             alpha, beta2 = 1e-3 * randn(g_, co), 1e-4 * randn(g_, co)
             tag = f"ssm ({n}, {c}->{co}, {h}x{w}) identity fold"
-            y, s1, s2 = kernels.conv3x3_chw(x, wt, b, sc, sh, True, want_stats=True)
-            compare("conv3x3_chw", tag, y, kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True))
-            compare_sum("conv3x3_chw", f"Σy {tag}", s1, y.float().sum(dim=(0, 2, 3)))
-            compare_sum("conv3x3_chw", f"Σy² {tag}", s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
+            y = check_fwd("ssm", f"({n}, {c}->{co}, {h}x{w}) identity fold", x, wt, b, sc, sh,
+                          None, None, "replicate", halo=False)
             check_dx("conv3x3_chw_dx", tag, x, gy, wt, sc, sh, "replicate")
             check_dw(tag, x, gy, sc, sh, "replicate")
             if with_stats:
@@ -1831,7 +1970,13 @@ def main() -> int:
             dx_bytes = act * (2 * c + co) * es + pbytes + 4 * c * 4
             shape_s = f"({n}, {c}->{co}, {h}x{w})"
             a_pad = F.pad(torch.relu(x), (1, 1, 1, 1), mode="replicate")
-            if not timed:  # K6's and K7's f32 routes (CUDA cores), in rows of their own
+            if not timed:  # K1's, K6's and K7's f32 routes (CUDA cores), in rows of their own
+                account("conv3x3_chw", f"{shape_s} [CUDA cores, f32]",
+                        lambda: kernels.conv3x3_chw(x, wt, b, sc, sh, True, want_stats=with_stats),
+                        lambda: kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True,
+                                                          want_stats=with_stats),
+                        lambda: F.conv2d(a_pad, wt, b), act * (c + co) * es + pbytes + 2 * c * 4,
+                        flops, tails=("ssm",), peak=PEAK_F32_FLOP_PER_S, f32_route=True)
                 account("conv3x3_chw_dx", f"{shape_s} [CUDA cores, f32]",
                         lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
@@ -1846,11 +1991,14 @@ def main() -> int:
                 continue
             wl, bl = wt.to(dtype), b.to(dtype)
             w32 = kernels._f32(wt)
-            account("conv3x3_chw", shape_s,
+            account("conv3x3_chw", f"{shape_s} [tensor cores]",
                     lambda: kernels.conv3x3_chw(x, wt, b, sc, sh, True, want_stats=with_stats),
-                    lambda: kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True, want_stats=with_stats),
+                    lambda: kernels.conv3x3_chw_tc_plain(x, wt, b, sc, sh, True,
+                                                         want_stats=with_stats),
                     lambda: F.conv2d(a_pad, wl, bl), act * (c + co) * es + pbytes + 2 * c * 4,
-                    flops, tails=("ssm",))
+                    flops, tails=("ssm",),
+                    old_fn=lambda: kernels._fwd_cuda_cores(x, wt, b, sc, sh, True, False, None, None,
+                                                           with_stats))
             account("conv3x3_chw_dx", f"{shape_s} [tensor cores]",
                     lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                     lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
@@ -1954,7 +2102,7 @@ def main() -> int:
             fail(f"phases 3/3b timed {timed_calls} calls per {TRAIN_PATHS[tail][0]} step, not {want}")
         f32_calls = {k: dstats[tail][k]["calls"] for k in ROUTED}
         if f32_calls != {k: want[k] for k in ROUTED}:
-            fail(f"phases 3/3b timed the f32 routes of K6 / K7 / K9 dx {f32_calls} per "
+            fail(f"phases 3/3b timed the f32 routes of K1 / K6 / K7 / K9 dx {f32_calls} per "
                  f"{TRAIN_PATHS[tail][0]} step")
     # generation: the timed calls per sub-image are the raster's launches
     # (K1, timed at the sub-image's shapes, runs on the one pass instead)
@@ -1999,7 +2147,7 @@ def main() -> int:
 
     # -- 5. step parity: kernels against plain versions, full width, f32 ------
     t0 = time.perf_counter()
-    dx_f32 = {}  # K6 / K7 / K9 dx launches by entry point in each f32 step parity
+    dx_f32 = {}  # K1 / K6 / K7 / K9 dx launches by entry point in each f32 step parity
 
     def parity_run(tail, argv):
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
@@ -2014,13 +2162,12 @@ def main() -> int:
     parity_run("ssm", SSM_ARGS)
     f32_route = dict(ssm.ROUTE_LAUNCHES)
     for tail, counts in dx_f32.items():
-        want = {TC_ENTRY[k]: 0 for k in ROUTED} | {F32_ROUTE[k][0]: STEP_LAUNCHES[tail][k]
-                                                   for k in ROUTED}
+        want = route_want(STEP_LAUNCHES[tail], tc=False)
         if counts != want:
-            fail(f"the f32 step parity ({TRAIN_PATHS[tail][0]}) took the K6 / K7 / K9 dx launches "
-                 f"{counts}, not {want}")
-        print(f"[route] f32 step parity, {TRAIN_PATHS[tail][0]}: K6 / K7 / K9 dx launches by entry "
-              f"point {counts}")
+            fail(f"the f32 step parity ({TRAIN_PATHS[tail][0]}) took the K1 / K6 / K7 / K9 dx "
+                 f"launches {counts}, not {want}")
+        print(f"[route] f32 step parity, {TRAIN_PATHS[tail][0]}: K1 / K6 / K7 / K9 dx launches by "
+              f"entry point {counts}")
     if f32_route["itg_ssm_embed_tc_fwd"] or f32_route["itg_ssm_embed_tc_bwd"] or not (
             f32_route["itg_ssm_embed_fwd"] and f32_route["itg_ssm_embed_bwd"]):
         fail(f"the f32 SSM step parity took K15's launches {f32_route}, not the CUDA-core route's")
@@ -2035,19 +2182,19 @@ def main() -> int:
     runs, dx_bf16 = {}, {}
     for tail, argv in recipes.items():
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
-        runs[tail] = training_run(dev, argv, TRAIN_STEPS, STEP_LAUNCHES[tail], sync, card,
-                                  ROOT / "build" / f"smoke_train_{tail}")
-        dx_bf16[tail] = dict(kernels.ROUTE_LAUNCHES)
+        out = training_run(dev, argv, TRAIN_STEPS, STEP_LAUNCHES[tail], sync, card,
+                           ROOT / "build" / f"smoke_train_{tail}")
+        runs[tail], dx_bf16[tail] = out[:3], out[3]
     bf16_route = dict(ssm.ROUTE_LAUNCHES)
     for tail, counts in dx_bf16.items():
         # the run's steps and its traced steps
-        want = {F32_ROUTE[k][0]: 0 for k in ROUTED} | {
-            TC_ENTRY[k]: (TRAIN_STEPS + TRACED_STEPS) * STEP_LAUNCHES[tail][k] for k in ROUTED}
+        want = route_want({k: (TRAIN_STEPS + TRACED_STEPS) * v
+                           for k, v in STEP_LAUNCHES[tail].items()}, tc=True)
         if counts != want:
-            fail(f"the bf16 training run ({TRAIN_PATHS[tail][0]}) took the K6 / K7 / K9 dx launches "
-                 f"{counts}, not {want}")
-        print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}: K6 / K7 / K9 dx launches by entry "
-              f"point {counts} (CUDA-core kernels: 0)")
+            fail(f"the bf16 training run ({TRAIN_PATHS[tail][0]}) took the K1 / K2 / K6 / K7 / K9 "
+                 f"dx launches {counts}, not {want}")
+        print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}: K1 / K2 / K6 / K7 / K9 dx "
+              f"launches by entry point {counts} (CUDA-core kernels: 0)")
     if bf16_route["itg_ssm_embed_fwd"] or bf16_route["itg_ssm_embed_bwd"] or min(
             bf16_route["itg_ssm_embed_tc_fwd"], bf16_route["itg_ssm_embed_tc_bwd"]) < 3 * TRAIN_STEPS:
         fail(f"the bf16 training runs took K15's launches {bf16_route}, not the tensor-core route's")

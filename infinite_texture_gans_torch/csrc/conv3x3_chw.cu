@@ -18,13 +18,19 @@
 // (after rounding to the storage type) into s1/s2, which the wrapper zeroes:
 // a warp-shuffle and shared-memory reduction per block, then one atomicAdd
 // per block and channel, so the sums' order varies from run to run.
+// The two routes (ops/kernels.py routes by the activations' dtype): this
+// kernel serves float32 activations (step parity, the float32 canvases);
+// bfloat16 ones take the tensor-core kernel of chw_fwd_tc.cu
+// (itg_conv3x3_chw_tc: mma.sync, weights rounded to bf16, fixed-order
+// sums). The bf16 path here stays callable and is timed beside that one.
 //
 // What bounds it on the H100: at the flagship shapes (C -> Co of 104 -> 52
 // at 96^2 down to 13 -> 3 at 384^2) the work is 2 * 9 * C * Co FLOPs per
 // output pixel against 2 * (C + Co) bytes in bf16, so the dense bound is
-// operations on the tensor cores. This first kernel does not use them: it is
-// a direct convolution on the CUDA cores in float32, so it is bound by FMA
-// issue and by shared-memory traffic, well above the tensor-core bound.
+// operations on the tensor cores. This kernel does not use them: it is a
+// direct convolution on the CUDA cores in float32, so it is bound by FMA
+// issue and by shared-memory traffic, well above the tensor-core bound
+// (float32 peaks at 67 TFLOP/s outside the tensor cores).
 // What the design does about it: a block computes a 32 x 8 output tile for
 // up to 16 output channels; each input channel chunk is loaded once into
 // shared memory with the BN fold, ReLU and the border applied on the way in
@@ -33,7 +39,7 @@
 // broadcasts, and every thread keeps its output channels in registers, so
 // each staged input value feeds 9 * TCO FMAs. The Mosaic-specific parts of
 // the TPU kernel (128-lane padding, row-stacked partial matmuls, 8-row
-// chunk specs) have no counterpart here. wgmma/TMA tiles are later work.
+// chunk specs) have no counterpart here.
 #include "common.cuh"
 
 namespace {

@@ -38,6 +38,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, w, b, scale, shift, top, left, y, s1, s2, n, c, h, w, co, relu, zeros, bf16, stream
     "itg_conv3x3_chw": [_P] * 10 + [_I] * 8 + [_P],
+    # x, w, b, scale, shift, top, left, wp, y, part, s1, s2, n, c, h, w, co, relu, zeros, nc, no,
+    # stream (bf16 only)
+    "itg_conv3x3_chw_tc": [_P] * 12 + [_I] * 9 + [_P],
     # x, g, w, scale, shift, dx, dscale, dshift, n, c, h, w, co, relu, zeros, bf16, stream
     "itg_conv3x3_chw_dx": [_P] * 8 + [_I] * 8 + [_P],
     # x, g, scale, shift, dw, db, n, c, h, w, co, relu, zeros, bf16, stream

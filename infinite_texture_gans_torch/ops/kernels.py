@@ -7,10 +7,10 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
 
 - K1/K5 ``conv3x3_chw`` (forward, with the optional per-channel Σy, Σy²
   of ``conv3x3_chw_stats`` / ``conv3x3_chw_p``): replaces pallas_conv.py:395
-  ``_conv3x3_chw_fwd`` (csrc/conv3x3_chw.cu);
+  ``_conv3x3_chw_fwd`` (csrc/conv3x3_chw.cu; in bf16: csrc/chw_fwd_tc.cu);
 - K2 ``chw_halo_step``, whose kernel wrapper is ``conv3x3_chw_halo``:
-  replaces pallas_conv.py:539 ``_conv3x3_chw_fwd_halo`` (the same
-  csrc/conv3x3_chw.cu, given the cached borders);
+  replaces pallas_conv.py:539 ``_conv3x3_chw_fwd_halo`` (the same two
+  sources, given the cached borders);
 - K6 ``conv3x3_chw_dx``: pallas_conv.py:775 ``_conv3x3_chw_dx``; K7
   ``conv3x3_chw_dw``: :888 ``_conv3x3_chw_dw``; K8 ``bn_corr``: :1061
   ``_bn_corr`` (csrc/conv3x3_chw_bwd.cu; K6 in bf16: csrc/chw_dx_tc.cu, K7
@@ -40,8 +40,15 @@ The SSM embed chain K15 (``pallas_ssm.py:343/:392``) lives in
 ``ops/ssm.py`` (csrc/ssm_embed_chw.cu); its launches count here too, under
 ``ssm_embed`` and ``ssm_embed_bwd``.
 
-The two input-side gradients K6 and K9 dx route by the activations' dtype,
-as K15 does, with no fallback: bfloat16 takes one tensor-core kernel body
+K1 and K2 route by the activations' dtype, with no fallback: bfloat16 takes
+one tensor-core kernel body for both (``csrc/chw_fwd_tc.cu``, entry point
+``itg_conv3x3_chw_tc``: an implicit GEMM on mma.sync with every output
+channel in one block, the weights rounded to bf16 as the reference rounds
+them, pallas_conv.py:615/:949/:999/:1093, K5's sums in a fixed order; its
+plain versions ``conv3x3_chw_tc_plain`` and ``conv3x3_chw_halo_tc_plain``
+apply the same rounding), float32 keeps the CUDA-core kernel
+(``itg_conv3x3_chw``). The two input-side gradients K6 and K9 dx route by
+the activations' dtype the same way: bfloat16 takes one tensor-core kernel body
 (``csrc/chw_dx_tc.cu``, entry points ``itg_conv3x3_chw_dx_tc`` and
 ``itg_upconv3x3_chw_dx_tc``: implicit GEMMs on mma.sync, the weights rounded
 to bf16 as the reference rounds them, pallas_conv.py:971 and :1637-1639;
@@ -105,9 +112,10 @@ LAUNCHES = {
     "ssm_embed_bwd": 0,
 }
 
-# launches per C entry point of K6, K7 and K9 dx: the bf16 tensor-core route
-# and the f32 CUDA-core one (not cleared by reset_launches)
-ROUTE_LAUNCHES = {"itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
+# launches per C entry point of K1/K2, K6, K7 and K9 dx: the bf16 tensor-core
+# route and the f32 CUDA-core one (not cleared by reset_launches)
+ROUTE_LAUNCHES = {"itg_conv3x3_chw_tc": 0, "itg_conv3x3_chw": 0,
+                  "itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
                   "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
                   "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0}
 
@@ -224,7 +232,7 @@ def _with_stats_ct(g: torch.Tensor, y: torch.Tensor, gs1, gs2) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # K1 / K2 / K5: BN fold -> ReLU -> border -> 3x3 conv (+ stats)
-# (csrc/conv3x3_chw.cu)
+# (bf16: csrc/chw_fwd_tc.cu; f32: csrc/conv3x3_chw.cu)
 
 
 def _check_conv3x3(x, w, b, scale, shift) -> None:
@@ -251,7 +259,45 @@ def _check_borders(x, top: Optional[torch.Tensor], left: Optional[torch.Tensor])
         _check_same_dtype("left", left, x)
 
 
-def _launch_conv3x3(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
+# The tensor-core route's tiling (csrc/chw_fwd_tc.cu): M = a tile of 8 (or
+# 4, as the entry point picks from the shape) rows x 32 output pixels, N =
+# the output channels padded to NO x 8 (one template per NO), K = (tap,
+# input channel) with the input channels padded to NC x 8 per tap (NC up to
+# 16). With stats, each of at most FWD_TC_MAX_BLOCKS persistent blocks (the
+# C file's kMaxBlocks) writes its partial sums.
+FWD_TC_NO = (1, 2, 4, 7, 8)
+FWD_TC_MAX_NC = 16
+FWD_TC_MAX_BLOCKS = 1024
+
+
+def fwd_tc_plan(c: int, co: int) -> tuple[int, int]:
+    """(NC, NO) of the tensor-core forward for C input and Co output
+    channels: the fewest 8-channel groups that hold C, and the fewest of
+    FWD_TC_NO that hold Co. Raises for C > 128 or Co > 64 (every shape the
+    models' eval gate admits, cin <= 128 with cout <= G_ch <= 64, is
+    inside)."""
+    nc = -(-c // 8)
+    no = next((o for o in FWD_TC_NO if 8 * o >= co), None)
+    if nc > FWD_TC_MAX_NC or no is None:
+        raise ValueError(f"the tensor-core conv3x3 forward takes C <= {8 * FWD_TC_MAX_NC} and "
+                         f"Co <= {8 * FWD_TC_NO[-1]}, got C={c}, Co={co}")
+    return nc, no
+
+
+def pack_fwd_weights(w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the tensor-core forward's weight packing (which its
+    C entry point runs on the card): w (Co, C, 3, 3) -> bf16 (8 NO, 3, 3,
+    8 NC), the B operand, wp[o, ky, kx, c] = w[o, c, ky, kx] rounded to
+    bf16, zero past Co and C."""
+    co, c = w.shape[:2]
+    nc, no = fwd_tc_plan(c, co)
+    wp = F.pad(w.detach().float(), (0, 0, 0, 0, 0, 8 * nc - c, 0, 8 * no - co))
+    return wp.permute(0, 2, 3, 1).to(torch.bfloat16, memory_format=torch.contiguous_format)
+
+
+def _fwd_cuda_cores(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
+    """K1/K2 (/K5) on the CUDA cores (``itg_conv3x3_chw``): the float32 route
+    (the C function takes bf16 too)."""
     n, c, h, wd = x.shape
     co = w.shape[0]
     y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
@@ -265,8 +311,43 @@ def _launch_conv3x3(x, w, b, scale, shift, relu, zeros, top, left, want_stats=Fa
             _ptr(top), _ptr(left), y.data_ptr(), _ptr(s1), _ptr(s2),
             n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
         )
-    _raise_on(rc, "conv3x3_chw")
+    _raise_on(rc, "itg_conv3x3_chw")
+    ROUTE_LAUNCHES["itg_conv3x3_chw"] += 1
     return y, s1, s2
+
+
+def _fwd_tensor_cores(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
+    """K1/K2 (/K5) on the tensor cores (``itg_conv3x3_chw_tc``), bf16: the
+    entry point packs the weights (as :func:`pack_fwd_weights`), runs the
+    persistent kernel and, with stats, sums the per-block partials in one
+    order."""
+    n, c, h, wd = x.shape
+    co = w.shape[0]
+    nc, no = fwd_tc_plan(c, co)
+    y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
+    wp = torch.empty((8 * no, 3, 3, 8 * nc), dtype=torch.bfloat16, device=x.device)
+    part = s1 = s2 = None
+    if want_stats:
+        part = torch.empty((FWD_TC_MAX_BLOCKS, 2, co), dtype=torch.float32, device=x.device)
+        s1 = torch.empty(co, dtype=torch.float32, device=x.device)
+        s2 = torch.empty_like(s1)
+    wf, bf, sc, sh = _f32(w), _f32(b), _f32(scale), _f32(shift)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_conv3x3_chw_tc(
+            x.data_ptr(), wf.data_ptr(), bf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+            _ptr(top), _ptr(left), wp.data_ptr(), y.data_ptr(), _ptr(part), _ptr(s1), _ptr(s2),
+            n, c, h, wd, co, int(relu), int(zeros), nc, no, _stream(x),
+        )
+    _raise_on(rc, "itg_conv3x3_chw_tc")
+    ROUTE_LAUNCHES["itg_conv3x3_chw_tc"] += 1
+    return y, s1, s2
+
+
+def _launch_conv3x3(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
+    """K1/K2 (/K5) on the card, routed by dtype: bf16 on the tensor cores,
+    float32 on the CUDA cores."""
+    route = _fwd_tensor_cores if x.dtype == torch.bfloat16 else _fwd_cuda_cores
+    return route(x, w, b, scale, shift, relu, zeros, top, left, want_stats)
 
 
 def _conv3x3_fwd(x, w, b, scale, shift, relu, outer_padding, want_stats):
@@ -315,7 +396,10 @@ def conv3x3_chw(x, w, b, scale, shift, relu: bool = True,
     replicate or zeros ('constant') and is applied post-norm. With
     ``want_stats`` (K5) returns (y, Σy, Σy²), the float32 per-channel sums
     of the stored y over (N, H, W): the next BatchNorm's batch moments.
-    Differentiable in x, w, b, scale, shift and through the stats."""
+    Differentiable in x, w, b, scale, shift and through the stats. On the
+    card bf16 takes the tensor-core kernel (the weights rounded to bf16: its
+    plain version is :func:`conv3x3_chw_tc_plain`), float32 the CUDA-core
+    one."""
     return _Conv3x3Chw.apply(x, w, b, scale, shift, relu, outer_padding, want_stats)
 
 
@@ -331,12 +415,22 @@ def conv3x3_chw_plain(x, w, b, scale, shift, relu: bool = True,
     return y
 
 
+def conv3x3_chw_tc_plain(x, w, b, scale, shift, relu: bool = True,
+                         outer_padding: str = "replicate", want_stats: bool = False):
+    """Plain version of K1's bf16 tensor-core route: :func:`conv3x3_chw_plain`
+    with the weights rounded to bf16 (the reference's bf16 rounding,
+    pallas_conv.py:615), float32 sums."""
+    return conv3x3_chw_plain(x, w.detach().to(torch.bfloat16), b, scale, shift, relu,
+                             outer_padding, want_stats)
+
+
 def conv3x3_chw_halo(x, w, b, scale, shift, relu: bool, outer_padding: str,
                      top: Optional[torch.Tensor], left: Optional[torch.Tensor]):
     """K2's kernel: :func:`conv3x3_chw` whose padded input takes its top row
     (N, C, W+2, corners included) and left column (N, C, H) post-norm from
     the caller where given; every other border cell is the own edge
-    (replicate) or zero."""
+    (replicate) or zero. Routed as :func:`conv3x3_chw` (bf16's plain
+    version: :func:`conv3x3_chw_halo_tc_plain`)."""
     zeros = _check_padding(outer_padding)
     _check_conv3x3(x, w, b, scale, shift)
     _check_borders(x, top, left)
@@ -371,6 +465,14 @@ def conv3x3_chw_halo_plain(x, w, b, scale, shift, relu: bool, outer_padding: str
     post-norm input, then F.conv2d)."""
     padded = _halo_padded(x, scale, shift, relu, outer_padding, top, left)
     return F.conv2d(padded.float(), w.float(), b.float()).to(x.dtype)
+
+
+def conv3x3_chw_halo_tc_plain(x, w, b, scale, shift, relu: bool, outer_padding: str,
+                              top: Optional[torch.Tensor], left: Optional[torch.Tensor]):
+    """Plain version of K2's bf16 tensor-core route:
+    :func:`conv3x3_chw_halo_plain` with the weights rounded to bf16."""
+    return conv3x3_chw_halo_plain(x, w.detach().to(torch.bfloat16), b, scale, shift, relu,
+                                  outer_padding, top, left)
 
 
 def halo_borders(x: torch.Tensor, site: SiteState, pos: GridPos, gw: int):

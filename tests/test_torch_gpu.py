@@ -355,7 +355,8 @@ def test_dx_routes_by_dtype(cuda, dtype):
         _dx_kernel(kind)(x, g, wt, sc, sh, True, "replicate")
     torch.cuda.synchronize()
     tc = dtype == torch.bfloat16
-    assert tk.ROUTE_LAUNCHES == {"itg_conv3x3_chw_dx_tc": int(tc), "itg_conv3x3_chw_dx": int(not tc),
+    assert tk.ROUTE_LAUNCHES == {"itg_conv3x3_chw_tc": 0, "itg_conv3x3_chw": 0,
+                                 "itg_conv3x3_chw_dx_tc": int(tc), "itg_conv3x3_chw_dx": int(not tc),
                                  "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
                                  "itg_upconv3x3_chw_dx_tc": int(tc),
                                  "itg_upconv3x3_chw_dx": int(not tc)}
@@ -440,7 +441,8 @@ def test_dw_routes_by_dtype(cuda, dtype):
     tk.conv3x3_chw_dw(x.to(dtype), g.to(dtype), sc, sh, True, "replicate")
     torch.cuda.synchronize()
     tc = dtype == torch.bfloat16
-    assert tk.ROUTE_LAUNCHES == {"itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
+    assert tk.ROUTE_LAUNCHES == {"itg_conv3x3_chw_tc": 0, "itg_conv3x3_chw": 0,
+                                 "itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
                                  "itg_conv3x3_chw_dw_tc": int(tc), "itg_conv3x3_chw_dw": int(not tc),
                                  "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0}
     assert tk.LAUNCHES["conv3x3_chw_dw"] == 1
@@ -455,6 +457,191 @@ def test_dw_tc_refuses_wider(cuda):
         with pytest.raises(ValueError, match="tensor-core dW kernel"):
             tk.conv3x3_chw_dw(x, g, sc, sh, True, "replicate")
     assert tk.ROUTE_LAUNCHES["itg_conv3x3_chw_dw"] == 0
+
+
+# --- K1 / K2 (/ K5) on the tensor cores, bf16 -------------------------------
+# n, c, co, h, w: every main-path shape (flagship eval at N = 1: blocks 4-6
+# and the final conv; the SSM eval's final conv; the Experiment-1 and SSM
+# steps at N = 8, 52 -> 26 and 26 -> 13 with stats), then ragged ones (5 x 7,
+# 1 x 3, W no multiple of 8) and the plan's widest (C = 128, Co = 64, which
+# takes 4-row tiles).
+FWD_SHAPES = [(1, 104, 52, 96, 96), (1, 52, 52, 96, 96), (1, 52, 26, 192, 192),
+              (1, 26, 26, 192, 192), (1, 26, 13, 384, 384), (1, 13, 13, 384, 384),
+              (1, 13, 3, 384, 384), (1, 26, 3, 192, 192), (8, 52, 26, 192, 192),
+              (8, 26, 26, 192, 192), (8, 26, 13, 384, 384), (8, 13, 13, 384, 384),
+              (8, 13, 3, 384, 384), (2, 11, 19, 5, 7), (1, 5, 3, 1, 3), (2, 13, 3, 23, 70),
+              (1, 128, 64, 20, 40)]
+FWD_BORDERS = {"none": (False, False), "top": (True, False), "left": (False, True),
+               "both": (True, True)}
+
+
+def _fwd_case(cuda, shape, seed=31):
+    """bf16 x and the cached borders (post-norm values: ReLU'd, rounded) of
+    K1/K2 at ``shape`` (n, c, co, h, w); float32 weights, bias, fold."""
+    n, c, co, h, w = shape
+    x, wt, b, sc, sh = _inputs(cuda, torch.bfloat16, n=n, c=c, co=co, h=h, w=w, seed=seed)
+    wt = wt * (9 * c) ** -0.5 / 0.3  # unit-variance outputs at every width
+    g = torch.Generator().manual_seed(seed + 1)
+    top = torch.relu(torch.randn(n, c, w + 2, generator=g)).to(cuda, torch.bfloat16)
+    left = torch.relu(torch.randn(n, c, h, generator=g)).to(cuda, torch.bfloat16)
+    return x, wt, b, sc, sh, top, left
+
+
+def _assert_fwd_close(got, ref):
+    """y within 2^-7 of max|ref| of the plain version with the route's
+    rounded weights (an output one bf16 ulp apart either way)."""
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= BF16_TOL * float(ref.float().abs().max()), err
+
+
+def _assert_stats_close(y, s1, s2):
+    """K5's sums are of the stored y: within SUM_TOL of its plain sums."""
+    _assert_sum_close(s1, y.float().sum(dim=(0, 2, 3)))
+    _assert_sum_close(s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
+
+
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("shape", FWD_SHAPES)
+def test_fwd_tc_matches_plain(cuda, outer, shape):
+    """bf16 K1 runs the tensor-core kernel, with and without K5's sums, held
+    to the plain version with the route's rounded weights."""
+    x, wt, b, sc, sh, _, _ = _fwd_case(cuda, shape)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    ref = tk.conv3x3_chw_tc_plain(x, wt, b, sc, sh, True, outer)
+    y = tk.conv3x3_chw(x, wt, b, sc, sh, True, outer)
+    y2, s1, s2 = tk.conv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_conv3x3_chw_tc"], tk.ROUTE_LAUNCHES["itg_conv3x3_chw"]) == (2, 0)
+    _assert_fwd_close(y, ref)
+    assert torch.equal(y, y2)
+    _assert_stats_close(y2, s1, s2)
+
+
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("borders", list(FWD_BORDERS))
+@pytest.mark.parametrize("shape", [FWD_SHAPES[i] for i in (0, 2, 6, 7, 13, 14, 15)])
+def test_fwd_tc_halo_matches_plain(cuda, outer, borders, shape):
+    """bf16 K2 (the same kernel given the cached top row and left column) in
+    its four border cases, held to its plain version with rounded weights."""
+    x, wt, b, sc, sh, top, left = _fwd_case(cuda, shape)
+    t_, l_ = FWD_BORDERS[borders]
+    tb, lb = (top if t_ else None), (left if l_ else None)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    y = tk.conv3x3_chw_halo(x, wt, b, sc, sh, True, outer, tb, lb)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_conv3x3_chw_tc"], tk.ROUTE_LAUNCHES["itg_conv3x3_chw"]) == (1, 0)
+    _assert_fwd_close(y, tk.conv3x3_chw_halo_tc_plain(x, wt, b, sc, sh, True, outer, tb, lb))
+
+
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("case", [0, 8, 13, 15])
+def test_fwd_tc_bits_repeat(cuda, outer, case):
+    """Fixed-order sums and no atomics: two calls give the same y, Σy and
+    Σy²; and an image's y does not depend on the batch around it, which sets
+    the tile height (4 rows where 8-row tiles would be fewer than the blocks
+    the card holds at once, as at 96^2 and 192^2 for one image; 8 rows for
+    eight of them there): each output sums in one order wherever its tile
+    lies."""
+    x, wt, b, sc, sh, top, left = _fwd_case(cuda, FWD_SHAPES[case])
+    first = tk.conv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+    second = tk.conv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    one = [t[:1] for t in (x, top, left)]
+    eight = [t.expand(8, *t.shape[1:]).contiguous() for t in one]
+    alone = tk.conv3x3_chw_halo(one[0], wt, b, sc, sh, True, outer, one[1], one[2])
+    batch = tk.conv3x3_chw_halo(eight[0], wt, b, sc, sh, True, outer, eight[1], eight[2])
+    assert all(torch.equal(batch[i], alone[0]) for i in range(8))
+
+
+@pytest.mark.parametrize("shape", [(1, 52, 26, 40, 72), (1, 13, 3, 37, 45)])
+def test_fwd_tc_window_bit_equal(cuda, shape):
+    """K2 on an interior window of x, given the top row and left column that
+    K1's padded post-norm input holds there, equals K1's output bit for bit
+    on the window's pixels away from its bottom row and right column (which
+    K2 pads from the window's own edge)."""
+    x, wt, b, sc, sh, _, _ = _fwd_case(cuda, shape)
+    r0, c0, hw, ww = 5, 16, 17, 24
+    y = tk.conv3x3_chw(x, wt, b, sc, sh, True, "replicate")
+    padded = torch.nn.functional.pad(tk.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
+    top = padded[:, :, r0, c0 : c0 + ww + 2].contiguous()
+    left = padded[:, :, r0 + 1 : r0 + 1 + hw, c0].contiguous()
+    win = x[:, :, r0 : r0 + hw, c0 : c0 + ww].contiguous()
+    y_win = tk.conv3x3_chw_halo(win, wt, b, sc, sh, True, "replicate", top, left)
+    assert torch.equal(y_win[..., :-1, :-1], y[..., r0 : r0 + hw - 1, c0 : c0 + ww - 1])
+
+
+@pytest.mark.parametrize("case", [2, 8])
+def test_fwd_tc_check_catches_planted_faults(cuda, case):
+    """The bf16 checks above fail on a forward that is slightly wrong: ky and
+    kx swapped in the weights, the replicate ring taken as zeros, K2 ignoring
+    its cached top row (the own edge in its place), or one channel's Σy² x
+    1.01 (the channel of the largest)."""
+    x, wt, b, sc, sh, top, left = _fwd_case(cuda, FWD_SHAPES[case])
+    ref = tk.conv3x3_chw_tc_plain(x, wt, b, sc, sh, True, "replicate")
+    y, s1, s2 = tk.conv3x3_chw(x, wt, b, sc, sh, True, "replicate", want_stats=True)
+    _assert_fwd_close(y, ref)
+    _assert_stats_close(y, s1, s2)
+    for bad in (tk.conv3x3_chw(x, wt.transpose(2, 3).contiguous(), b, sc, sh, True, "replicate"),
+                tk.conv3x3_chw(x, wt, b, sc, sh, True, "constant")):
+        with pytest.raises(AssertionError):
+            _assert_fwd_close(bad, ref)
+    halo_ref = tk.conv3x3_chw_halo_tc_plain(x, wt, b, sc, sh, True, "replicate", top, left)
+    _assert_fwd_close(tk.conv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate", top, left), halo_ref)
+    with pytest.raises(AssertionError):
+        _assert_fwd_close(tk.conv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate", None, left),
+                          halo_ref)
+    s2_bad = s2.clone()
+    s2_bad[int(s2.abs().argmax())] *= 1.01
+    with pytest.raises(AssertionError):
+        _assert_stats_close(y, s1, s2_bad)
+
+
+@pytest.mark.parametrize("c,co", [(104, 52), (13, 3), (128, 64), (11, 19)])
+def test_fwd_tc_packs_weights_as_plain(cuda, c, co):
+    """The entry point's first launch writes the B operand (its wp scratch)
+    bit for bit as ``pack_fwd_weights``."""
+    x, wt, b, sc, sh, _, _ = _fwd_case(cuda, (1, c, co, 8, 16))
+    nc, no = tk.fwd_tc_plan(c, co)
+    wp = torch.full((8 * no, 3, 3, 8 * nc), float("nan"), device=cuda).to(torch.bfloat16)
+    y = torch.empty((1, co, 8, 16), dtype=torch.bfloat16, device=cuda)
+    rc = tk._lib().itg_conv3x3_chw_tc(
+        x.data_ptr(), wt.data_ptr(), b.data_ptr(), sc.data_ptr(), sh.data_ptr(), None, None,
+        wp.data_ptr(), y.data_ptr(), None, None, None, 1, c, 8, 16, co, 1, 0, nc, no,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(wp.cpu(), tk.pack_fwd_weights(wt.cpu()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_routes_by_dtype(cuda, dtype):
+    """bf16 calls of K1 and K2 launch the tensor-core entry point, f32 calls
+    the CUDA-core one; each counts one launch per call."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    tk.reset_launches()
+    x, wt, b, sc, sh, top, left = _fwd_case(cuda, FWD_SHAPES[13])
+    x, top, left = x.to(dtype), top.to(dtype), left.to(dtype)
+    tk.conv3x3_chw(x, wt, b, sc, sh, True, "replicate")
+    tk.conv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate", top, left)
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert tk.ROUTE_LAUNCHES == {"itg_conv3x3_chw_tc": 2 * tc, "itg_conv3x3_chw": 2 * (not tc),
+                                 "itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
+                                 "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
+                                 "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0}
+    assert (tk.LAUNCHES["conv3x3_chw"], tk.LAUNCHES["chw_halo_step"]) == (1, 1)
+
+
+def test_fwd_tc_refuses_wider(cuda):
+    """A bf16 call outside the route's plan raises, naming the limit; nothing
+    falls back to the CUDA-core kernel."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    for shape in ((1, 129, 3, 8, 16), (1, 13, 65, 8, 16)):
+        x, wt, b, sc, sh, _, _ = _fwd_case(cuda, shape)
+        with pytest.raises(ValueError, match="tensor-core conv3x3 forward"):
+            tk.conv3x3_chw(x, wt, b, sc, sh, True, "replicate")
+    assert tk.ROUTE_LAUNCHES["itg_conv3x3_chw"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
