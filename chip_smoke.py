@@ -45,10 +45,19 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    itself (its operands are bf16 values, so it needs no rounded twin) at
    the sums' limit, two calls bit-equal, and at two shapes three planted
    faults (one input channel's dW x 1.01, ky and kx swapped, the replicate
-   ring taken as zeros) must fail that check. The f32 routes (K1, K6, K7,
-   K9 dx) run on the CUDA-core kernels, timed into rows of their own
-   (``:f32_<path>``), and each CUDA-core kernel is timed in bf16 beside the
-   tensor-core one. Times
+   ring taken as zeros) must fail that check. K13's forward routes the
+   same way: bf16 on the tensor-core kernel of ``csrc/stem_fwd_tc.cu``,
+   held to ``stem_fwd_tc_plain`` (w and b rounded to bf16), two calls
+   bit-equal, and four planted faults (ky and kx swapped, the bias
+   dropped, the zero border read as the edge pixel, one k16 step skipped)
+   must read at least STEM_PLANT times that check's limit; its library
+   call is ``F.conv2d`` writing NHWC (channels_last weights), with NCHW
+   and NCHW-then-permute printed beside it (the same at the SSM step's
+   shapes, phase 3b). K4 (one 16-byte vector body for both dtypes) is
+   held bit-equal at every path's shapes. The f32 routes (K1, K6, K7,
+   K9 dx, K13's forward) run on the CUDA-core kernels, timed into rows of
+   their own (``:f32_<path>``), and each CUDA-core kernel is timed in
+   bf16 beside the tensor-core one. Times
    each (CUDA-graph replay) beside its bound, its plain version and one
    PyTorch library call, summed per
    step for each tail, and holds the timed calls per step to the tail's
@@ -97,7 +106,7 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    largest deviation against its largest value). Then the fused step
    against the unfused one from the same state and crops, both on the
    kernels. The same step parity for the SSM recipe (K15 included). Each
-   f32 step parity runs K1, K6, K7 and K9 dx on their CUDA-core entry
+   f32 step parity runs K1, K6, K7, K9 dx and K13's forward on their CUDA-core entry
    points only (``[route]``).
    ``step_parity_study.py`` measures the limits' spread and planted faults.
 6. Training runs: 30 bf16 steps each through the train CLI's ``train``:
@@ -106,7 +115,7 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    exact launch counts per step, warm steps/s, the device's busy share
    (torch.profiler), then the written ``.ckpt`` reloaded through the
    sampling loader and rendered to a 384^2 canvas. Each bf16 run launches
-   K1/K2, K6, K7 and K9 dx on their tensor-core entry points only
+   K1/K2, K6, K7, K9 dx and K13's forward on their tensor-core entry points only
    (``[route]``).
 7. SSM generation from the SSM run's EMA checkpoint through the same
    generation phase (one-pass launches K15 6, K1 5, K3 2, K4 2; per 1024^2
@@ -235,14 +244,14 @@ KERNELS = {
     "upconv3x3_chw_dw": ("K9-dW", "upconv3x3_chw.cu", "pallas_conv.py:1777"),
     "chw_upconv_halo_step": ("K14", "upconv3x3_chw.cu", "pallas_conv.py:2019"),
     "upsample2_chw_add": ("K10", "upsample2_chw.cu", "pallas_conv.py:2199"),
-    "stem_fwd": ("K13", "stem4x4s2.cu", "pallas_conv.py:2769"),
+    "stem_fwd": ("K13", "stem_fwd_tc.cu", "pallas_conv.py:2769"),
     "stem_dw": ("K13-dW", "stem4x4s2.cu", "pallas_conv.py:2840"),
     "stem_dx": ("K13-dx", "stem4x4s2.cu", "pallas_conv.py:2977"),
     "ssm_embed": ("K15", "ssm_embed_tc.cu", "pallas_ssm.py:343"),
     "ssm_embed_bwd": ("K15-bwd", "ssm_embed_tc.cu", "pallas_ssm.py:392"),
 }
-# The kernels with two routes (K15: ops/ssm.py; K1/K2, K6, K7 and K9 dx:
-# ops/kernels.py): the main paths run bf16 on the tensor-core kernels above;
+# The kernels with two routes (K15: ops/ssm.py; K1/K2, K6, K7, K9 dx and K13's
+# forward: ops/kernels.py): the main paths run bf16 on the tensor-core kernels above;
 # float32 (step parity, the f32 raster) keeps the CUDA-core kernels, reported
 # in rows of their own: kernel -> (C entry point, source)
 F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
@@ -251,16 +260,18 @@ F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
              "ssm_embed_bwd": ("itg_ssm_embed_bwd", "ssm_embed_chw.cu"),
              "conv3x3_chw_dx": ("itg_conv3x3_chw_dx", "conv3x3_chw_bwd.cu"),
              "conv3x3_chw_dw": ("itg_conv3x3_chw_dw", "conv3x3_chw_bwd.cu"),
-             "upconv3x3_chw_dx": ("itg_upconv3x3_chw_dx", "upconv3x3_chw.cu")}
+             "upconv3x3_chw_dx": ("itg_upconv3x3_chw_dx", "upconv3x3_chw.cu"),
+             "stem_fwd": ("itg_stem_fwd", "stem4x4s2.cu")}
 TC_ENTRY = {"conv3x3_chw": "itg_conv3x3_chw_tc", "chw_halo_step": "itg_conv3x3_chw_tc",
             "ssm_embed": "itg_ssm_embed_tc_fwd", "ssm_embed_bwd": "itg_ssm_embed_tc_bwd",
             "conv3x3_chw_dx": "itg_conv3x3_chw_dx_tc", "conv3x3_chw_dw": "itg_conv3x3_chw_dw_tc",
-            "upconv3x3_chw_dx": "itg_upconv3x3_chw_dx_tc"}
-# K1/K2, K6, K7 and K9 dx (ops/kernels.py's ROUTE_LAUNCHES): their bf16 rows
-# also carry the CUDA-core kernel's time in bf16 (the design the tensor-core
-# one replaced, timed in the same run), and their f32 route has a row for each
-# training path (K2 runs only at eval: none)
-ROUTED = ("conv3x3_chw", "chw_halo_step", "conv3x3_chw_dx", "conv3x3_chw_dw", "upconv3x3_chw_dx")
+            "upconv3x3_chw_dx": "itg_upconv3x3_chw_dx_tc", "stem_fwd": "itg_stem_fwd_tc"}
+# K1/K2, K6, K7, K9 dx and K13's forward (ops/kernels.py's ROUTE_LAUNCHES):
+# their bf16 rows also carry the CUDA-core kernel's time in bf16 (the design
+# the tensor-core one replaced, timed in the same run), and their f32 route
+# has a row for each training path (K2 runs only at eval: none)
+ROUTED = ("conv3x3_chw", "chw_halo_step", "conv3x3_chw_dx", "conv3x3_chw_dw", "upconv3x3_chw_dx",
+          "stem_fwd")
 # K2's four border cases: (top row cached, left column cached)
 BORDERS = {"no cache": (False, False), "top only": (True, False), "left only": (False, True),
            "top and left": (True, True)}
@@ -380,6 +391,9 @@ NOISE_SHARE = 1e-6
 # holds it
 FUSE_FLOOR = 2e-3
 FUSE_FLOOR_SCALE = 1.5
+# K13's bf16 forward: each planted fault must read at least this many times
+# the check's limit (BF16_TOL of max|ref|)
+STEM_PLANT = 10.0
 
 
 def fail(msg: str):
@@ -1104,7 +1118,7 @@ def main() -> int:
     gstats = table()  # per 192^2 SSM sub-image (SSM generation)
     fstats = table()  # K15's float32 route, per SSM step at the training shapes
     tstats = {tail: table() for tail in STEP_LAUNCHES}  # per training step, each tail
-    dstats = {tail: table() for tail in STEP_LAUNCHES}  # K1 / K6 / K7 / K9 dx f32 route, per step
+    dstats = {tail: table() for tail in STEP_LAUNCHES}  # K1 / K6 / K7 / K9 dx / K13 f32 route, per step
 
     def compare(name, shape, got, ref, exact=False, into=None, floor=1.0):
         """Values within the dtype's limit of max(floor, max|ref|)."""
@@ -1155,7 +1169,7 @@ def main() -> int:
         the flagship's table by default, and in ``also`` where another path
         runs the same shape), else per step of each training tail named (a
         shape both tails run goes into both; with ``f32_route``, into the
-        K1 / K6 / K7 / K9 dx f32 route's tables). ``old_fn``: the same function on the
+        K1 / K6 / K7 / K9 dx / K13 f32 route's tables). ``old_fn``: the same function on the
         CUDA-core kernel that the tensor-core one replaced, timed beside it."""
         ms, plain, lib = device_ms(kernel_fn), device_ms(plain_fn), device_ms(lib_fn)
         old = device_ms(old_fn) if old_fn is not None else 0.0
@@ -1337,6 +1351,74 @@ def main() -> int:
                 fail(f"conv3x3_chw {tag}: the check passes a planted {fault}")
         return y
 
+    def check_stem(tag, x, wt, b):
+        """K13's forward against its plain version. bf16 runs the tensor
+        cores: y within BF16_TOL of max|ref| of the plain version with w and
+        b rounded to bf16 (``stem_fwd_tc_plain``), the unrounded one's
+        distance reported, two calls bit-equal, and four planted faults must
+        read at least STEM_PLANT times that limit. f32 runs the CUDA cores,
+        held to the plain version."""
+        tc = x.dtype == torch.bfloat16
+        tag = f"{tag} [{'tensor cores' if tc else 'CUDA cores'}]"
+        y = kernels.stem_fwd(x, wt, b)
+        ref = (kernels.stem_fwd_tc_plain if tc else kernels.stem_fwd_plain)(x, wt, b)
+        compare("stem_fwd", tag, y, ref, floor=0.0 if tc else 1.0)
+        if not tc:
+            return
+        unrounded = kernels.stem_fwd_plain(x, wt, b).float()
+        moved = float((y.float() - unrounded).abs().max() / unrounded.abs().max())
+        print(f"[check] stem_fwd {tag}: against the plain version without the rounding of w and "
+              f"b, max abs err / max|ref| {moved:.3e} (reported)")
+        same = torch.equal(y, kernels.stem_fwd(x, wt, b))
+        print(f"[check] stem_fwd {tag}: two calls {'bit-equal' if same else 'differ'}")
+        if not same:
+            fail(f"stem_fwd {tag}: two bf16 calls differ")
+        limit = BF16_TOL * float(ref.float().abs().max())
+        skip = wt.clone()
+        skip[:, 0] = 0.0
+        edge = kernels.stem_fwd(F.pad(x, (2, 2, 2, 2), mode="replicate"), wt, b)[:, 1:-1, 1:-1]
+        for fault, bad in (("ky<->kx", kernels.stem_fwd(x, wt.transpose(2, 3).contiguous(), b)),
+                           ("the bias dropped", kernels.stem_fwd(x, wt, torch.zeros_like(b))),
+                           ("the zero border read as the edge pixel", edge),
+                           ("one k16 step (input channel 0's taps) skipped",
+                            kernels.stem_fwd(x, skip, b))):
+            r_ = float((bad.float() - ref.float()).abs().max()) / limit
+            print(f"[check] stem_fwd {tag}: planted {fault}: max abs err / limit {r_:.2f} (must "
+                  f"reach {STEM_PLANT:g})")
+            if not r_ >= STEM_PLANT:
+                fail(f"stem_fwd {tag}: a planted {fault} reads only {r_:.2f}x the limit")
+
+    def time_stem(shape_s, x, wt, b, nbytes, flops, tails):
+        """K13's forward, twice per step of each tail in ``tails``: bf16 on
+        the tensor cores (its CUDA-core kernel in bf16 timed beside it),
+        float32 on the CUDA cores into the f32 route's rows. library_ms is
+        F.conv2d with the weights channels_last, so that cuDNN writes NHWC as
+        K13 does; F.conv2d writing NCHW, and the same then permuted to NHWC,
+        are printed beside it."""
+        tc = x.dtype == torch.bfloat16
+        wl, bl = wt.to(x.dtype), b.to(x.dtype)
+        wcl = wl.contiguous(memory_format=torch.channels_last)
+
+        def nhwc():
+            return F.conv2d(x, wcl, bl, stride=2, padding=1)
+
+        if not nhwc().is_contiguous(memory_format=torch.channels_last):
+            fail(f"stem_fwd {shape_s}: F.conv2d with channels_last weights did not write NHWC")
+        if tc:
+            account("stem_fwd", f"{shape_s} [tensor cores]", lambda: kernels.stem_fwd(x, wt, b),
+                    lambda: kernels.stem_fwd_tc_plain(x, wt, b), nhwc, nbytes, flops, tails=tails,
+                    count=2, old_fn=lambda: kernels._stem_fwd_cuda_cores(x, wt, b))
+        else:
+            account("stem_fwd", f"{shape_s} [CUDA cores, f32]", lambda: kernels.stem_fwd(x, wt, b),
+                    lambda: kernels.stem_fwd_plain(x, wt, b), nhwc, nbytes, flops, tails=tails,
+                    count=2, peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+        nchw = device_ms(lambda: F.conv2d(x, wl, bl, stride=2, padding=1))
+        permuted = device_ms(lambda: F.conv2d(x, wl, bl, stride=2, padding=1)
+                             .permute(0, 2, 3, 1).contiguous())
+        print(f"[library] stem_fwd {shape_s} {str(x.dtype).replace('torch.', '')}: F.conv2d with "
+              f"channels_last weights, NHWC out (library_ms) {device_ms(nhwc):.4f} ms; NCHW out "
+              f"{nchw:.4f} ms; NCHW then permuted to NHWC {permuted:.4f} ms  [{card}]")
+
     print(f"[tolerance] f32 (TF32 off): max abs err <= {F32_TOL:g} * max(1, max|ref|): kernel "
           "and cuDNN sum up to 936 products in other orders, and cuDNN may use Winograd "
           "(~1e-5 relative)")
@@ -1344,6 +1426,10 @@ def main() -> int:
           "compute in f32 and round the output once, so an output may sit one bf16 ulp "
           "(2^-8 relative) apart; two allowed")
     print("[tolerance] upsample2_chw: bit-equal (a copy)")
+    print(f"[tolerance] K13 forward, bf16 (tensor cores, which round w and b to bf16): y max abs "
+          f"err <= {BF16_TOL:g} * max|ref| of the plain version with that rounding "
+          f"(stem_fwd_tc_plain); two calls bit-equal; planted faults >= {STEM_PLANT:g}x that "
+          "limit; f32 (CUDA cores) as above")
     print(f"[tolerance] K1 / K2, bf16 (tensor cores, which round the weights to bf16): y max abs "
           f"err <= {BF16_TOL:g} * max|ref| of the plain version with that rounding (*_tc_plain), "
           f"K5's Σy, Σy² <= {SUM_TOL:g} * max|ref| of the plain sums of the stored y; two calls "
@@ -1685,25 +1771,22 @@ def main() -> int:
         g_ = torch.Generator(device=dev).manual_seed(600)
         x = randn(g_, n, 3, hs, hs).to(dtype)
         wt = randn(g_, co, 3, 4, 4) * 48 ** -0.5
-        b = 0.1 * randn(g_, co)
+        b = randn(g_, co)  # unit scale: a dropped bias reads well above the bf16 limit
         gy = randn(g_, n, hs // 2, hs // 2, co).to(dtype)
         shape_s = f"({n}, 3, {hs}x{hs}) -> ({n}, {hs // 2}, {hs // 2}, {co})"
-        compare("stem_fwd", shape_s, kernels.stem_fwd(x, wt, b), kernels.stem_fwd_plain(x, wt, b))
+        check_stem(f"train {shape_s}", x, wt, b)
         compare("stem_dx", shape_s, kernels.stem_dx(gy, wt), kernels.stem_dx_plain(gy, wt))
         dw, db = kernels.stem_dw(x, gy)
         dw_r, db_r = kernels.stem_dw_plain(x, gy)
         compare_sum("stem_dw", f"dW {shape_s}", dw, dw_r)
         compare_sum("stem_dw", f"db {shape_s}", db, db_r)
+        act = n * (hs // 2) ** 2
+        flops = 2.0 * act * co * 48
+        nbytes = (n * 3 * hs * hs + act * co) * es + (co * 48 + co) * 4
+        time_stem(shape_s, x, wt, b, nbytes, flops, ("auto", "off"))
         if timed:
-            act = n * (hs // 2) ** 2
-            flops = 2.0 * act * co * 48
-            nbytes = (n * 3 * hs * hs + act * co) * es + (co * 48 + co) * 4
-            wl, bl = wt.to(dtype), b.to(dtype)
+            wl = wt.to(dtype)
             g_nchw = gy.permute(0, 3, 1, 2)
-            account("stem_fwd", shape_s, lambda: kernels.stem_fwd(x, wt, b),
-                    lambda: kernels.stem_fwd_plain(x, wt, b),
-                    lambda: F.conv2d(x, wl, bl, stride=2, padding=1), nbytes, flops,
-                    tails=("auto", "off"), count=2)
             account("stem_dw", shape_s, lambda: kernels.stem_dw(x, gy),
                     lambda: kernels.stem_dw_plain(x, gy),
                     lambda: torch.nn.grad.conv2d_weight(x, wl.shape, g_nchw, stride=2, padding=1),
@@ -2035,7 +2118,7 @@ def main() -> int:
         g_up = randn(g_, n, c, h, h).to(dtype)
         xs = randn(g_, n, 3, h, h).to(dtype)
         ws = randn(g_, 64, 3, 4, 4) * 48 ** -0.5
-        bs = 0.1 * randn(g_, 64)
+        bs = randn(g_, 64)  # unit scale: a dropped bias reads well above the bf16 limit
         gs = randn(g_, n, h // 2, h // 2, 64).to(dtype)
         tag = f"ssm ({n}, {c}->{co}, {h}x{h})"
         y, s1, s2 = kernels.conv1x1_chw_add(x, wt, b, res, want_stats=True)
@@ -2051,11 +2134,15 @@ def main() -> int:
         compare("upsample2_chw_bwd", f"ssm ({n}, {c}, {h}, {h})", kernels.upsample2_chw_bwd(g_up),
                 kernels.upsample2_chw_bwd_plain(g_up), exact=True)
         stem_s = f"ssm ({n}, 3, {h}x{h}) -> ({n}, {h // 2}, {h // 2}, 64)"
-        compare("stem_fwd", stem_s, kernels.stem_fwd(xs, ws, bs), kernels.stem_fwd_plain(xs, ws, bs))
+        check_stem(stem_s, xs, ws, bs)
         compare("stem_dx", stem_s, kernels.stem_dx(gs, ws), kernels.stem_dx_plain(gs, ws))
         dw, db = kernels.stem_dw(xs, gs)
         dw_r, db_r = kernels.stem_dw_plain(xs, gs)
         compare_sum("stem_dw", f"dW {stem_s}", dw, dw_r)
+        sact = n * (h // 2) ** 2
+        sflops = 2.0 * sact * 64 * 48
+        sbytes = (n * 3 * h * h + sact * 64) * es + (64 * 48 + 64) * 4
+        time_stem(stem_s, xs, ws, bs, sbytes, sflops, ("ssm",))
         if not timed:
             continue
         act = n * h * h
@@ -2082,14 +2169,7 @@ def main() -> int:
                 lambda: kernels.upsample2_chw_bwd_plain(g_up),
                 lambda: F.avg_pool2d(g_up, 2, divisor_override=1), 5.0 * act // 4 * c * es,
                 3.0 * act // 4 * c, tails=("ssm",))
-        sact = n * (h // 2) ** 2
-        sflops = 2.0 * sact * 64 * 48
-        sbytes = (n * 3 * h * h + sact * 64) * es + (64 * 48 + 64) * 4
-        wsl, bsl, gs_nchw = ws.to(dtype), bs.to(dtype), gs.permute(0, 3, 1, 2)
-        account("stem_fwd", stem_s, lambda: kernels.stem_fwd(xs, ws, bs),
-                lambda: kernels.stem_fwd_plain(xs, ws, bs),
-                lambda: F.conv2d(xs, wsl, bsl, stride=2, padding=1), sbytes, sflops,
-                tails=("ssm",), count=2)
+        wsl, gs_nchw = ws.to(dtype), gs.permute(0, 3, 1, 2)
         account("stem_dw", stem_s, lambda: kernels.stem_dw(xs, gs), lambda: kernels.stem_dw_plain(xs, gs),
                 lambda: torch.nn.grad.conv2d_weight(xs, wsl.shape, gs_nchw, stride=2, padding=1),
                 sbytes, sflops, tails=("ssm",))
@@ -2102,7 +2182,7 @@ def main() -> int:
             fail(f"phases 3/3b timed {timed_calls} calls per {TRAIN_PATHS[tail][0]} step, not {want}")
         f32_calls = {k: dstats[tail][k]["calls"] for k in ROUTED}
         if f32_calls != {k: want[k] for k in ROUTED}:
-            fail(f"phases 3/3b timed the f32 routes of K1 / K6 / K7 / K9 dx {f32_calls} per "
+            fail(f"phases 3/3b timed the f32 routes of K1 / K6 / K7 / K9 dx / K13 {f32_calls} per "
                  f"{TRAIN_PATHS[tail][0]} step")
     # generation: the timed calls per sub-image are the raster's launches
     # (K1, timed at the sub-image's shapes, runs on the one pass instead)
@@ -2147,7 +2227,7 @@ def main() -> int:
 
     # -- 5. step parity: kernels against plain versions, full width, f32 ------
     t0 = time.perf_counter()
-    dx_f32 = {}  # K1 / K6 / K7 / K9 dx launches by entry point in each f32 step parity
+    dx_f32 = {}  # K1 / K6 / K7 / K9 dx / K13 launches by entry point in each f32 step parity
 
     def parity_run(tail, argv):
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
@@ -2164,9 +2244,9 @@ def main() -> int:
     for tail, counts in dx_f32.items():
         want = route_want(STEP_LAUNCHES[tail], tc=False)
         if counts != want:
-            fail(f"the f32 step parity ({TRAIN_PATHS[tail][0]}) took the K1 / K6 / K7 / K9 dx "
+            fail(f"the f32 step parity ({TRAIN_PATHS[tail][0]}) took the K1 / K6 / K7 / K9 dx / K13 "
                  f"launches {counts}, not {want}")
-        print(f"[route] f32 step parity, {TRAIN_PATHS[tail][0]}: K1 / K6 / K7 / K9 dx launches by "
+        print(f"[route] f32 step parity, {TRAIN_PATHS[tail][0]}: K1 / K6 / K7 / K9 dx / K13 launches by "
               f"entry point {counts}")
     if f32_route["itg_ssm_embed_tc_fwd"] or f32_route["itg_ssm_embed_tc_bwd"] or not (
             f32_route["itg_ssm_embed_fwd"] and f32_route["itg_ssm_embed_bwd"]):
@@ -2193,7 +2273,7 @@ def main() -> int:
         if counts != want:
             fail(f"the bf16 training run ({TRAIN_PATHS[tail][0]}) took the K1 / K2 / K6 / K7 / K9 "
                  f"dx launches {counts}, not {want}")
-        print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}: K1 / K2 / K6 / K7 / K9 dx "
+        print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}: K1 / K2 / K6 / K7 / K9 dx / K13 "
               f"launches by entry point {counts} (CUDA-core kernels: 0)")
     if bf16_route["itg_ssm_embed_fwd"] or bf16_route["itg_ssm_embed_bwd"] or min(
             bf16_route["itg_ssm_embed_tc_fwd"], bf16_route["itg_ssm_embed_tc_bwd"]) < 3 * TRAIN_STEPS:

@@ -11,12 +11,24 @@
 //
 // What bounds it on the H100: it does no arithmetic; it reads each input
 // element once and writes it four times, so the bound is bytes.
-// What the design does about it: one thread per output element in a
-// grid-stride loop, so consecutive threads store consecutive addresses
-// (coalesced writes, the larger stream) and neighbouring thread pairs read
-// the same input element, which the cache serves. The TPU kernel needed a
-// 0/1 interleave matmul because Mosaic has no lane interleave; a plain
-// gather has no such limit here. Values are copied bit for bit. The adjoint
+// What the design does about it: one thread takes one 16-byte vector of an
+// input row (8 bf16 or 4 float32 values), duplicates each value in
+// registers (byte permutes) and stores two 16-byte vectors to output row 2i
+// and the same two to row 2i + 1: one load and four stores of 16 bytes, so
+// the instructions per byte are few and every access is a full 16-byte
+// one. Neighbouring lanes swap their vectors first, so that each store
+// instruction covers whole 32-byte sectors, not half of every other one. The grid is 2-D, rows of all planes along x and vectors of a row
+// along y; a block's shape follows the row length (a row's vectors along
+// threadIdx.x, as many rows as fill 256 threads along threadIdx.y), and
+// at small shapes (N = 1 eval, a 48^2 input) fewer rows a block, so that
+// at least kMinBlocks blocks cover the SMs. Index arithmetic is 32-bit
+// within a row, with no division; a row's base is one 64-bit multiply. A
+// row whose input or output rows are not 16-byte aligned (W not a multiple
+// of the vector, or a view with a storage offset) and a ragged last vector
+// are copied element by element by the same threads in the same launch.
+// The TPU kernel needed a 0/1 interleave matmul because Mosaic has no lane
+// interleave; a byte permute has no such limit here. Values are copied bit
+// for bit (the kernel moves the elements' bits, never converts). The adjoint
 // reads four values and writes one, bytes-bound too: one thread per output
 // element, a 2-D grid (pixel blocks x planes) so that the index arithmetic
 // is 32-bit with one division per thread, and each thread reads its 2x2
@@ -38,30 +50,116 @@
 namespace {
 
 constexpr int kThreads = 256;
+// the fewest blocks a forward launch aims for where its rows allow: four
+// per SM of an H100
+constexpr int kMinBlocks = 4 * 132;
 
-template <typename T>
+// 16 bytes of 2-byte values x0..x7 -> (x0 x0 x1 x1 x2 x2 x3 x3), (x4 x4 ..
+// x7 x7); of 4-byte values x0..x3 -> (x0 x0 x1 x1), (x2 x2 x3 x3).
+template <int kBytes>
+__device__ __forceinline__ void duplicate(const uint4& v, uint4& lo, uint4& hi);
+
+template <>
+__device__ __forceinline__ void duplicate<2>(const uint4& v, uint4& lo, uint4& hi) {
+  lo = make_uint4(__byte_perm(v.x, 0, 0x1010), __byte_perm(v.x, 0, 0x3232),
+                  __byte_perm(v.y, 0, 0x1010), __byte_perm(v.y, 0, 0x3232));
+  hi = make_uint4(__byte_perm(v.z, 0, 0x1010), __byte_perm(v.z, 0, 0x3232),
+                  __byte_perm(v.w, 0, 0x1010), __byte_perm(v.w, 0, 0x3232));
+}
+
+template <>
+__device__ __forceinline__ void duplicate<4>(const uint4& v, uint4& lo, uint4& hi) {
+  lo = make_uint4(v.x, v.x, v.y, v.y);
+  hi = make_uint4(v.z, v.z, v.w, v.w);
+}
+
+// B: the element's bits (uint16_t for bf16, uint32_t for float32). Thread
+// (x, y) of block (bx, by) copies vector by * blockDim.x + x of rows bx *
+// blockDim.y + y, + gridDim.x * blockDim.y, ... With blockDim.x even, lanes
+// 2k and 2k + 1 hold neighbouring vectors of one row, whose output is four
+// neighbouring 16-byte chunks per output row: the lanes swap vectors (one
+// shuffle of 16 bytes) and the even lane stores chunks 0 and 2, the odd one
+// 1 and 3, so that each store instruction writes whole 32-byte sectors (a
+// lane's own two chunks would fill half of two sectors each).
+template <typename B>
 __global__ void __launch_bounds__(kThreads)
-upsample2_chw_kernel(const T* __restrict__ x, T* __restrict__ y, long long planes, int H, int W) {
-  const int W2 = 2 * W;
-  const int H2 = 2 * H;
-  const long long total = planes * H2 * W2;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < total;
-       i += static_cast<long long>(gridDim.x) * kThreads) {
-    const int ox = static_cast<int>(i % W2);
-    const long long t = i / W2;
-    const int oy = static_cast<int>(t % H2);
-    const long long p = t / H2;
-    y[i] = x[(p * H + (oy >> 1)) * W + (ox >> 1)];
+upsample2_chw_kernel(const B* __restrict__ x, B* __restrict__ y, int rows, int W) {
+  constexpr int V = 16 / sizeof(B);
+  const int j = (blockIdx.y * blockDim.x + threadIdx.x) * V;
+  const int n = W - j < V ? (W - j > 0 ? W - j : 0) : V;
+  const int odd = threadIdx.x & 1;
+  const bool paired = (blockDim.x & 1) == 0;
+  const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
+  const unsigned pair = 3u << (lane & 30);
+  const int step = gridDim.x * blockDim.y;
+  for (int r = blockIdx.x * blockDim.y + threadIdx.y; r < rows; r += step) {
+    const B* src = x + static_cast<size_t>(r) * W;
+    B* top = y + static_cast<size_t>(r) * 4 * W;
+    B* bot = top + 2 * W;
+    const bool aligned = ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(top) |
+                           reinterpret_cast<uintptr_t>(bot)) & 15) == 0;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (aligned && n == V) v = *reinterpret_cast<const uint4*>(src + j);
+    if (paired) {
+      uint4 p;
+      p.x = __shfl_xor_sync(pair, v.x, 1);
+      p.y = __shfl_xor_sync(pair, v.y, 1);
+      p.z = __shfl_xor_sync(pair, v.z, 1);
+      p.w = __shfl_xor_sync(pair, v.w, 1);
+      const int je = j - odd * V;  // the even lane's vector
+      if (aligned && je + 2 * V <= W) {
+        uint4 lo, hi, plo, phi;
+        duplicate<sizeof(B)>(v, lo, hi);
+        duplicate<sizeof(B)>(p, plo, phi);
+        const uint4 first = odd ? phi : lo;   // chunk 1 (odd) or 0 (even)
+        const uint4 second = odd ? hi : plo;  // chunk 3 (odd) or 2 (even)
+        uint4* t4 = reinterpret_cast<uint4*>(top + 2 * je) + odd;
+        uint4* b4 = reinterpret_cast<uint4*>(bot + 2 * je) + odd;
+        t4[0] = first;
+        b4[0] = first;
+        t4[2] = second;
+        b4[2] = second;
+        continue;
+      }
+    }
+    if (aligned && n == V) {
+      uint4 lo, hi;
+      duplicate<sizeof(B)>(v, lo, hi);
+      reinterpret_cast<uint4*>(top + 2 * j)[0] = lo;
+      reinterpret_cast<uint4*>(top + 2 * j)[1] = hi;
+      reinterpret_cast<uint4*>(bot + 2 * j)[0] = lo;
+      reinterpret_cast<uint4*>(bot + 2 * j)[1] = hi;
+    } else {
+      for (int e = 0; e < n; ++e) {
+        const B val = src[j + e];
+        top[2 * (j + e)] = val;
+        top[2 * (j + e) + 1] = val;
+        bot[2 * (j + e)] = val;
+        bot[2 * (j + e) + 1] = val;
+      }
+    }
   }
 }
 
-template <typename T>
+template <typename B>
 int launch(const void* x, void* y, long long planes, int h, int w, cudaStream_t stream) {
-  const long long total = planes * 4LL * h * w;
-  const long long want = (total + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < (1LL << 20) ? want : (1LL << 20));
-  upsample2_chw_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), planes, h, w);
+  constexpr int V = 16 / sizeof(B);
+  const long long rows = planes * h;
+  if (rows <= 0 || w <= 0) return 0;
+  if (rows >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const int nvec = (w + V - 1) / V;
+  const int even = nvec + (nvec & 1);  // lanes pair up within a row
+  const int bx = even < kThreads ? even : kThreads;
+  const int gy = (nvec + bx - 1) / bx;
+  // rows a block: as many as fill kThreads, fewer where that would leave
+  // fewer than kMinBlocks blocks
+  const long long xblocks = (kMinBlocks + gy - 1) / gy;
+  const long long fill = (rows + xblocks - 1) / xblocks;
+  const int by = static_cast<int>(fill < kThreads / bx ? fill : kThreads / bx);
+  const long long gx = (rows + by - 1) / by;
+  upsample2_chw_kernel<B><<<dim3(static_cast<unsigned>(gx < (1 << 20) ? gx : (1 << 20)), gy),
+                            dim3(bx, by), 0, stream>>>(
+      static_cast<const B*>(x), static_cast<B*>(y), static_cast<int>(rows), w);
   return itg::last_error();
 }
 
@@ -139,12 +237,13 @@ int launch_add(const void* x, const void* res, void* y, float* s1, float* s2, in
 }  // namespace
 
 // x (planes = N * C, H, W) -> y (planes, 2H, 2W), 4-byte elements (float32)
-// or 2-byte elements (bfloat16, when bf16 != 0). Returns cudaGetLastError().
+// or 2-byte elements (bfloat16, when bf16 != 0); planes * H < 2^31. Returns
+// cudaGetLastError() (cudaErrorInvalidValue for more rows).
 extern "C" int itg_upsample2_chw(const void* x, void* y, long long planes, int h, int w,
                                  int bf16, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<__nv_bfloat16>(x, y, planes, h, w, st);
-  return launch<float>(x, y, planes, h, w, st);
+  if (bf16) return launch<uint16_t>(x, y, planes, h, w, st);
+  return launch<uint32_t>(x, y, planes, h, w, st);
 }
 
 // g (planes, 2H, 2W) -> dx (planes, H, W), float32 or bfloat16 (bf16 != 0);

@@ -73,6 +73,8 @@ SIGNATURES = {
     "itg_upconv3x3_chw_dw": [_P] * 6 + [_I] * 8 + [_P],
     # x, w, b, y, n, c, h, w, co, bf16, stream
     "itg_stem_fwd": [_P] * 4 + [_I] * 6 + [_P],
+    # x, w, b, y, n, c, h, w, co, stream (bf16 only)
+    "itg_stem_fwd_tc": [_P] * 4 + [_I] * 5 + [_P],
     # x, g, dw, db, n, c, h, w, co, bf16, stream
     "itg_stem_dw": [_P] * 4 + [_I] * 6 + [_P],
     # g, w, dx, n, c, h, w, co, bf16, stream

@@ -34,7 +34,8 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
   block's up2(shortcut) + residual (+ stats) (csrc/upsample2_chw.cu);
 - K13 ``conv4x4s2_stem_chw``: the discriminator's conv0, forward
   ``stem_fwd`` :2769 ``_stem_fwd_call``, ``stem_dw`` :2840 ``_stem_dw_call``,
-  ``stem_dx`` :2977 ``_stem_dx_call`` (csrc/stem4x4s2.cu).
+  ``stem_dx`` :2977 ``_stem_dx_call`` (csrc/stem4x4s2.cu; the forward in
+  bf16: csrc/stem_fwd_tc.cu).
 
 The SSM embed chain K15 (``pallas_ssm.py:343/:392``) lives in
 ``ops/ssm.py`` (csrc/ssm_embed_chw.cu); its launches count here too, under
@@ -58,8 +59,12 @@ CUDA-core kernels (``itg_conv3x3_chw_dx``, ``itg_upconv3x3_chw_dx``). K7
 routes the same way: bfloat16 takes ``itg_conv3x3_chw_dw_tc`` (mma.sync on
 pixel-major staged post-norm tiles, fixed-order partial sums; its operands
 are bf16 values, so it needs no rounded plain version), float32
-``itg_conv3x3_chw_dw``. :data:`ROUTE_LAUNCHES` counts the launches of each
-entry point.
+``itg_conv3x3_chw_dw``. K13's forward routes the same way: bfloat16 takes
+``itg_stem_fwd_tc`` (an implicit GEMM on mma.sync straight from the staged
+image rows, NHWC rows written 16 bytes a lane; the weights and bias rounded
+to bf16 as the reference rounds them, pallas_conv.py:3041/:3045, its plain
+version ``stem_fwd_tc_plain``), float32 ``itg_stem_fwd``.
+:data:`ROUTE_LAUNCHES` counts the launches of each entry point.
 
 The port carries no lane padding, so the reference's padded-carry forms
 (K11 ``conv1x1_chw_add_p``, ``conv1x1_chw_p``, K12 ``upsample2_chw_p``,
@@ -112,12 +117,14 @@ LAUNCHES = {
     "ssm_embed_bwd": 0,
 }
 
-# launches per C entry point of K1/K2, K6, K7 and K9 dx: the bf16 tensor-core
-# route and the f32 CUDA-core one (not cleared by reset_launches)
+# launches per C entry point of K1/K2, K6, K7, K9 dx and K13's forward: the
+# bf16 tensor-core route and the f32 CUDA-core one (not cleared by
+# reset_launches)
 ROUTE_LAUNCHES = {"itg_conv3x3_chw_tc": 0, "itg_conv3x3_chw": 0,
                   "itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
                   "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
-                  "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0}
+                  "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0,
+                  "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -1325,7 +1332,8 @@ def upsample2_chw_add_plain(x, res, want_stats: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# K13: the discriminator stem, 4x4 / stride 2 / zero pad 1 (csrc/stem4x4s2.cu)
+# K13: the discriminator stem, 4x4 / stride 2 / zero pad 1 (csrc/stem4x4s2.cu;
+# the bf16 forward: csrc/stem_fwd_tc.cu)
 
 
 def _check_stem(x, w):
@@ -1340,21 +1348,74 @@ def _check_stem(x, w):
     _check_param("w", w, (w.shape[0], c, 4, 4))
 
 
-def stem_fwd(x, w, b):
-    """K13 forward: y = conv4x4/s2/pad1(x) + b with x channels-major
-    (N, C, H, W) and y NHWC (N, H/2, W/2, Co), in x's dtype."""
-    _check_stem(x, w)
-    co = w.shape[0]
-    _check_param("b", b, (co,))
-    if not _on_cuda(x, w, b):
-        return stem_fwd_plain(x, w, b)
+# The tensor-core route (csrc/stem_fwd_tc.cu): N = every output channel in
+# 8-channel groups, K = one k16 step (the 4 x 4 taps) per input channel.
+STEM_TC_MAX_CO = 128
+
+
+def stem_tc_plan(c: int, co: int) -> int:
+    """The number of 8-channel groups (NO) of the tensor-core stem forward
+    for C input and Co output channels. Raises for C outside 1..4, or Co
+    not a multiple of 8 or above STEM_TC_MAX_CO (the discriminator's stem,
+    3 -> D_ch, is inside for D_ch a multiple of 8 up to 128)."""
+    if not 1 <= c <= 4 or co % 8 or not 8 <= co <= STEM_TC_MAX_CO:
+        raise ValueError(f"the tensor-core stem forward takes 1 <= C <= 4 and Co a multiple of "
+                         f"8 up to {STEM_TC_MAX_CO}, got C={c}, Co={co}")
+    return co // 8
+
+
+def pack_stem_weights(w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the tensor-core stem's B operand, which each block
+    of the kernel builds in shared memory: w (Co, C, 4, 4) -> bf16 (Co,
+    16 C), row o holding w[o, c, ky, kx] at column 16 c + 4 ky + kx."""
+    co, c = w.shape[:2]
+    stem_tc_plan(c, co)
+    return w.detach().float().reshape(co, 16 * c).to(torch.bfloat16)
+
+
+def _stem_fwd_cuda_cores(x, w, b):
+    """K13's forward on the CUDA cores (``itg_stem_fwd``): the float32 route
+    (the C function takes bf16 too)."""
     n, c, h, wd = x.shape
+    co = w.shape[0]
     y = torch.empty((n, h // 2, wd // 2, co), dtype=x.dtype, device=x.device)
     wf, bf = _f32(w), _f32(b)
     with torch.cuda.device(x.device):
         rc = _lib().itg_stem_fwd(x.data_ptr(), wf.data_ptr(), bf.data_ptr(), y.data_ptr(),
                                  n, c, h, wd, co, _bf16(x), _stream(x))
-    _raise_on(rc, "stem_fwd")
+    _raise_on(rc, "itg_stem_fwd")
+    ROUTE_LAUNCHES["itg_stem_fwd"] += 1
+    return y
+
+
+def _stem_fwd_tensor_cores(x, w, b):
+    """K13's forward on the tensor cores (``itg_stem_fwd_tc``), bf16: the
+    kernel rounds w and b to bf16 (as :func:`pack_stem_weights`)."""
+    n, c, h, wd = x.shape
+    co = w.shape[0]
+    stem_tc_plan(c, co)
+    y = torch.empty((n, h // 2, wd // 2, co), dtype=x.dtype, device=x.device)
+    wf, bf = _f32(w), _f32(b)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_stem_fwd_tc(x.data_ptr(), wf.data_ptr(), bf.data_ptr(), y.data_ptr(),
+                                    n, c, h, wd, co, _stream(x))
+    _raise_on(rc, "itg_stem_fwd_tc")
+    ROUTE_LAUNCHES["itg_stem_fwd_tc"] += 1
+    return y
+
+
+def stem_fwd(x, w, b):
+    """K13 forward: y = conv4x4/s2/pad1(x) + b with x channels-major
+    (N, C, H, W) and y NHWC (N, H/2, W/2, Co), in x's dtype. On the card
+    bf16 takes the tensor-core kernel (w and b rounded to bf16: its plain
+    version is :func:`stem_fwd_tc_plain`), float32 the CUDA-core one."""
+    _check_stem(x, w)
+    co = w.shape[0]
+    _check_param("b", b, (co,))
+    if not _on_cuda(x, w, b):
+        return stem_fwd_plain(x, w, b)
+    route = _stem_fwd_tensor_cores if x.dtype == torch.bfloat16 else _stem_fwd_cuda_cores
+    y = route(x, w, b)
     LAUNCHES["stem_fwd"] += 1
     return y
 
@@ -1363,6 +1424,15 @@ def stem_fwd_plain(x, w, b):
     """Plain PyTorch version of :func:`stem_fwd`."""
     y = F.conv2d(x.float(), w.float(), b.float(), stride=2, padding=1)
     return y.permute(0, 2, 3, 1).contiguous().to(x.dtype)
+
+
+def stem_fwd_tc_plain(x, w, b):
+    """Plain version of K13's bf16 tensor-core route: :func:`stem_fwd_plain`
+    with w and b rounded to bf16 first (the products of bf16 values are
+    exact in float32; the sums are float32, y is rounded once)."""
+    wr = w.detach().to(torch.bfloat16).float()
+    br = b.detach().to(torch.bfloat16).float()
+    return stem_fwd_plain(x, wr, br)
 
 
 def stem_dw(x, g):

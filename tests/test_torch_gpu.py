@@ -92,9 +92,34 @@ def test_conv1x1_kernel_matches_plain(cuda, dtype, with_res):
     _assert_close(y, tk.conv1x1_chw_plain(x, w, b, res))
 
 
+# K4's shapes: ragged widths (W % 8 != 0: every row, or some rows, copied
+# element by element), the flagship's eval blocks 4-6 at N = 1, the SSM
+# eval's, and the Experiment-1 / SSM steps' N = 8 ones
+UP2_SHAPES = [(2, 5, 7, 33), (2, 3, 4, 5), (1, 7, 3, 35), (3, 2, 5, 9), (1, 104, 48, 48),
+              (1, 52, 96, 96), (1, 26, 192, 192), (8, 52, 96, 96), (8, 26, 192, 192)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_upsample_kernel_bit_equal(cuda, dtype):
-    x = torch.randn(2, 5, 7, 33, device=cuda).to(dtype)
+@pytest.mark.parametrize("shape", UP2_SHAPES)
+def test_upsample_kernel_bit_equal(cuda, dtype, shape):
+    """K4 copies bit for bit (16-byte vectors, element by element where a
+    row is ragged or unaligned), one launch a call."""
+    x = torch.randn(*shape, device=cuda).to(dtype)
+    tk.reset_launches()
+    y = tk.upsample2_chw(x)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["upsample2_chw"] == 1
+    assert torch.equal(y, tk.upsample2_chw_plain(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 4, 6, 16), (2, 3, 5, 35), (8, 26, 24, 24)])
+def test_upsample_kernel_bit_equal_on_offset_view(cuda, dtype, shape):
+    """A contiguous view one element into its storage: no row is 16-byte
+    aligned, so the kernel copies element by element, still bit for bit."""
+    n = int(np.prod(shape))
+    x = torch.randn(n + 1, device=cuda).to(dtype)[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16
     assert torch.equal(tk.upsample2_chw(x), tk.upsample2_chw_plain(x))
 
 
@@ -224,13 +249,108 @@ def test_stem_kernels_match_plain(cuda, dtype, shape):
     b = torch.randn(co, generator=gen).to(cuda)
     g = torch.randn(n, h // 2, w // 2, co, generator=gen).to(cuda, dtype)
     tk.reset_launches()
-    _assert_close(tk.stem_fwd(x, wt, b), tk.stem_fwd_plain(x, wt, b))
+    fwd_plain = tk.stem_fwd_tc_plain if dtype == torch.bfloat16 else tk.stem_fwd_plain
+    _assert_close(tk.stem_fwd(x, wt, b), fwd_plain(x, wt, b))
     _assert_close(tk.stem_dx(g, wt), tk.stem_dx_plain(g, wt))
     dw, db = tk.stem_dw(x, g)
     dw_ref, db_ref = tk.stem_dw_plain(x, g)
     _assert_sum_close(dw, dw_ref)
     _assert_sum_close(db, db_ref)
     assert (tk.LAUNCHES["stem_fwd"], tk.LAUNCHES["stem_dx"], tk.LAUNCHES["stem_dw"]) == (1, 1, 1)
+
+
+# --- K13's forward on the tensor cores, bf16 ---------------------------------
+# n, c, h, w, co: the Experiment-1 and SSM steps' stems (N = 8, 384^2 and
+# 192^2 -> 64), then Co 8 and 128, odd W/2 and H/2 not a multiple of the
+# 4-row tile, W not a multiple of 8 (the element-wise staging), C 1 and 4
+STEM_SHAPES = [(8, 3, 384, 384, 64), (8, 3, 192, 192, 64), (2, 3, 22, 30, 8),
+               (1, 3, 38, 70, 128), (2, 3, 18, 26, 64), (1, 1, 16, 48, 16), (3, 4, 10, 34, 24)]
+
+
+def _stem_case(cuda, shape, seed=41):
+    """bf16 x, float32 weights (unit-variance outputs) and bias at ``shape``
+    (n, c, h, w, co)."""
+    n, c, h, w, co = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, c, h, w, generator=g).to(cuda, torch.bfloat16)
+    wt = (torch.randn(co, c, 4, 4, generator=g) * (16 * c) ** -0.5).to(cuda)
+    b = torch.randn(co, generator=g).to(cuda)
+    return x, wt, b
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+def test_stem_tc_matches_plain(cuda, shape):
+    """bf16 K13 forward runs the tensor-core kernel, held to the plain
+    version with w and b rounded to bf16 (an output one bf16 ulp apart
+    either way); two calls give the same bits."""
+    x, wt, b = _stem_case(cuda, shape)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    y = tk.stem_fwd(x, wt, b)
+    again = tk.stem_fwd(x, wt, b)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_stem_fwd_tc"], tk.ROUTE_LAUNCHES["itg_stem_fwd"]) == (2, 0)
+    _assert_fwd_close(y, tk.stem_fwd_tc_plain(x, wt, b))
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("shape", [STEM_SHAPES[1], STEM_SHAPES[4]])
+def test_stem_tc_on_offset_view(cuda, shape):
+    """x one element into its storage (not 16-byte aligned): the kernel
+    stages element by element and gives the aligned copy's bits."""
+    x, wt, b = _stem_case(cuda, shape)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16
+    assert torch.equal(tk.stem_fwd(view, wt, b), tk.stem_fwd(x, wt, b))
+
+
+@pytest.mark.parametrize("shape", [STEM_SHAPES[1], STEM_SHAPES[2]])
+def test_stem_tc_check_catches_planted_faults(cuda, shape):
+    """The bf16 check above fails on a stem that is slightly wrong: ky and
+    kx swapped, the bias dropped, the zero border read as the edge pixel,
+    one k16 step (an input channel's 16 taps) skipped."""
+    x, wt, b = _stem_case(cuda, shape)
+    ref = tk.stem_fwd_tc_plain(x, wt, b)
+    _assert_fwd_close(tk.stem_fwd(x, wt, b), ref)
+    edge = tk.stem_fwd(torch.nn.functional.pad(x, (2, 2, 2, 2), mode="replicate"), wt, b)
+    skip = wt.clone()
+    skip[:, 0] = 0
+    for bad in (tk.stem_fwd(x, wt.transpose(2, 3).contiguous(), b),
+                tk.stem_fwd(x, wt, torch.zeros_like(b)), edge[:, 1:-1, 1:-1].contiguous(),
+                tk.stem_fwd(x, skip, b)):
+        with pytest.raises(AssertionError):
+            _assert_fwd_close(bad, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_fwd_routes_by_dtype(cuda, dtype):
+    """bf16 calls of K13's forward launch the tensor-core entry point, f32
+    calls the CUDA-core one; each counts one launch per call; dx and dW
+    are not routed."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    tk.reset_launches()
+    x, wt, b = _stem_case(cuda, STEM_SHAPES[2])
+    x = x.to(dtype).requires_grad_()
+    wt.requires_grad_()
+    y = tk.conv4x4s2_stem_chw(x, wt, b)
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert tk.ROUTE_LAUNCHES == {**dict.fromkeys(tk.ROUTE_LAUNCHES, 0),
+                                 "itg_stem_fwd_tc": int(tc), "itg_stem_fwd": int(not tc)}
+    assert (tk.LAUNCHES["stem_fwd"], tk.LAUNCHES["stem_dx"], tk.LAUNCHES["stem_dw"]) == (1, 1, 1)
+
+
+def test_stem_tc_refuses_outside_plan(cuda):
+    """A bf16 stem outside the route's plan raises, naming the limit; nothing
+    falls back to the CUDA-core kernel."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    for co in (12, 136):
+        x, wt, b = _stem_case(cuda, (1, 3, 8, 16, co))
+        with pytest.raises(ValueError, match="tensor-core stem forward"):
+            tk.stem_fwd(x, wt, b)
+    assert tk.ROUTE_LAUNCHES["itg_stem_fwd"] == 0
 
 
 # --- the fused up-conv (K9 forward, dx, dW) and its residual join (K10) ----
@@ -359,7 +479,8 @@ def test_dx_routes_by_dtype(cuda, dtype):
                                  "itg_conv3x3_chw_dx_tc": int(tc), "itg_conv3x3_chw_dx": int(not tc),
                                  "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
                                  "itg_upconv3x3_chw_dx_tc": int(tc),
-                                 "itg_upconv3x3_chw_dx": int(not tc)}
+                                 "itg_upconv3x3_chw_dx": int(not tc),
+                                 "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0}
     assert (tk.LAUNCHES["conv3x3_chw_dx"], tk.LAUNCHES["upconv3x3_chw_dx"]) == (1, 1)
 
 
@@ -444,7 +565,8 @@ def test_dw_routes_by_dtype(cuda, dtype):
     assert tk.ROUTE_LAUNCHES == {"itg_conv3x3_chw_tc": 0, "itg_conv3x3_chw": 0,
                                  "itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
                                  "itg_conv3x3_chw_dw_tc": int(tc), "itg_conv3x3_chw_dw": int(not tc),
-                                 "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0}
+                                 "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0,
+                                 "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0}
     assert tk.LAUNCHES["conv3x3_chw_dw"] == 1
 
 
@@ -629,7 +751,8 @@ def test_fwd_routes_by_dtype(cuda, dtype):
     assert tk.ROUTE_LAUNCHES == {"itg_conv3x3_chw_tc": 2 * tc, "itg_conv3x3_chw": 2 * (not tc),
                                  "itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
                                  "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
-                                 "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0}
+                                 "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0,
+                                 "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0}
     assert (tk.LAUNCHES["conv3x3_chw"], tk.LAUNCHES["chw_halo_step"]) == (1, 1)
 
 

@@ -1,0 +1,111 @@
+"""The plain side of K13's bf16 tensor-core forward (``stem_fwd`` on
+``itg_stem_fwd_tc``), on the CPU: the route's plan, the weight packing the
+kernel reads, and the plain version with the route's roundings
+(``stem_fwd_tc_plain``) against the JAX reference's ``conv4x4s2_stem_chw``
+in bfloat16 (its Pallas kernel in interpret mode, which rounds the weights
+and the bias to the activation type before the kernel, pallas_conv.py:3041
+and :3045). Inputs are numpy arrays drawn from a seed.
+
+Tolerance against JAX: both multiply bf16 values exactly into float32 and
+round y once to bf16; only the order of the float32 sums differs, so an
+output may sit one bf16 ulp (2^-8 relative) apart either way: 2^-7 of
+max|ref|, two ulps."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from infinite_texture_gans_tpu.ops import pallas_conv as pc
+from infinite_texture_gans_torch.ops import kernels as tk
+from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
+
+BF16_TOL = 2.0**-7
+
+
+def _case(seed, n, c, h, w, co):
+    """x (n, c, h, w), HWIO weights (unit-variance outputs) and bias,
+    float32 numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, c, h, w)).astype(np.float32)
+    k = (rng.standard_normal((4, 4, c, co)) * (16 * c) ** -0.5).astype(np.float32)
+    b = rng.standard_normal(co).astype(np.float32)
+    return x, k, b
+
+
+def _oihw(k):
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(k, (3, 2, 0, 1))))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 8), (1, 3, 12, 20, 16), (2, 3, 16, 24, 64)])
+def test_stem_tc_plain_matches_jax_bf16(shape):
+    """``stem_fwd_tc_plain`` against the reference's stem in bf16, given the
+    same bf16 image and the unrounded float32 weights and bias (each side
+    rounds them to bf16 itself)."""
+    xa, ka, ba = _case(7, *shape)
+    xj = jnp.asarray(xa).astype(jnp.bfloat16)
+    ref = np.asarray(pc.conv4x4s2_stem_chw(xj, jnp.asarray(ka), jnp.asarray(ba)).astype(jnp.float32))
+    x = torch.from_numpy(xa).to(torch.bfloat16)
+    got = tk.stem_fwd_tc_plain(x, _oihw(ka), torch.from_numpy(ba))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape
+    err = float(np.abs(got.float().numpy() - ref).max())
+    assert err <= BF16_TOL * float(np.abs(ref).max()), err
+
+
+def test_stem_tc_plain_rounds_weights_and_bias():
+    """The route's plain version differs from the plain version exactly by
+    rounding w and b to bf16: the same on bf16-representable ones, apart
+    on others."""
+    xa, ka, ba = _case(8, 2, 3, 12, 16, 8)
+    x = torch.from_numpy(xa).to(torch.bfloat16)
+    w, b = _oihw(ka), torch.from_numpy(ba)
+    wr, br = w.to(torch.bfloat16).float(), b.to(torch.bfloat16).float()
+    assert torch.equal(tk.stem_fwd_tc_plain(x, w, b), tk.stem_fwd_plain(x, wr, br))
+    exact = tk.stem_fwd_plain(x.float(), wr, br)
+    rounded = tk.stem_fwd_tc_plain(x.float(), w, b)
+    unrounded = tk.stem_fwd_plain(x.float(), w, b)
+    assert torch.allclose(rounded, exact, rtol=0, atol=1e-5)
+    assert not torch.allclose(rounded, unrounded, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("c,co", [(3, 64), (1, 8), (4, 128), (3, 24)])
+def test_pack_stem_weights_reproduces_conv(c, co):
+    """The B operand in the kernel's order (row o, column 16 c + 4 ky + kx,
+    bf16) times an explicit im2col of the zero-padded stride-2 windows in
+    the same column order is F.conv2d with the bf16-rounded weights, in
+    float32."""
+    xa, ka, _ = _case(9, 2, c, 10, 14, co)
+    x, w = torch.from_numpy(xa), _oihw(ka)
+    wp = tk.pack_stem_weights(w)
+    assert wp.dtype == torch.bfloat16 and tuple(wp.shape) == (co, 16 * c)
+    cols = F.unfold(x, kernel_size=4, padding=1, stride=2)  # (n, c * 16, h2 * w2)
+    y = torch.einsum("ok,nkp->nop", wp.float(), cols).reshape(2, co, 5, 7)
+    ref = F.conv2d(x, w.to(torch.bfloat16).float(), stride=2, padding=1)
+    assert torch.allclose(y, ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(wp[:, 16 * (c - 1) + 4 * 2 + 1], w[:, c - 1, 2, 1].to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("c,co", [(3, 12), (3, 136), (3, 0), (5, 64), (0, 64)])
+def test_stem_tc_plan_raises_outside_range(c, co):
+    with pytest.raises(ValueError, match="tensor-core stem forward"):
+        tk.stem_tc_plan(c, co)
+
+
+@pytest.mark.parametrize("c,co,no", [(3, 64, 8), (1, 8, 1), (4, 128, 16), (3, 24, 3)])
+def test_stem_tc_plan_groups(c, co, no):
+    assert tk.stem_tc_plan(c, co) == no
+
+
+def test_stem_fwd_on_cpu_takes_plain_version():
+    """A CPU tensor runs the plain version, in either dtype, and counts no
+    launch on either route."""
+    xa, ka, ba = _case(10, 1, 3, 8, 12, 16)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    tk.reset_launches()
+    w, b = _oihw(ka), torch.from_numpy(ba)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(xa).to(dtype)
+        assert torch.equal(tk.stem_fwd(x, w, b), tk.stem_fwd_plain(x, w, b))
+    assert tk.LAUNCHES["stem_fwd"] == 0
+    assert tk.ROUTE_LAUNCHES["itg_stem_fwd_tc"] == tk.ROUTE_LAUNCHES["itg_stem_fwd"] == 0
