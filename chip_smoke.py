@@ -239,10 +239,10 @@ KERNELS = {
     "conv1x1_chw_dw": ("K3-dW", "conv1x1_chw.cu", "pallas_conv.py:2361"),
     "upsample2_chw": ("K4", "upsample2_chw.cu", "pallas_conv.py:2540"),
     "upsample2_chw_bwd": ("K4-bwd", "upsample2_chw.cu", "pallas_conv.py:2560"),
-    "upconv3x3_chw": ("K9", "upconv3x3_chw.cu", "pallas_conv.py:1457"),
+    "upconv3x3_chw": ("K9", "upconv_fwd_tc.cu", "pallas_conv.py:1457"),
     "upconv3x3_chw_dx": ("K9-dx", "chw_dx_tc.cu", "pallas_conv.py:1642"),
     "upconv3x3_chw_dw": ("K9-dW", "upconv3x3_chw.cu", "pallas_conv.py:1777"),
-    "chw_upconv_halo_step": ("K14", "upconv3x3_chw.cu", "pallas_conv.py:2019"),
+    "chw_upconv_halo_step": ("K14", "upconv_fwd_tc.cu", "pallas_conv.py:2019"),
     "upsample2_chw_add": ("K10", "upsample2_chw.cu", "pallas_conv.py:2199"),
     "stem_fwd": ("K13", "stem_fwd_tc.cu", "pallas_conv.py:2769"),
     "stem_dw": ("K13-dW", "stem4x4s2.cu", "pallas_conv.py:2840"),
@@ -250,8 +250,8 @@ KERNELS = {
     "ssm_embed": ("K15", "ssm_embed_tc.cu", "pallas_ssm.py:343"),
     "ssm_embed_bwd": ("K15-bwd", "ssm_embed_tc.cu", "pallas_ssm.py:392"),
 }
-# The kernels with two routes (K15: ops/ssm.py; K1/K2, K6, K7, K9 dx and K13's
-# forward: ops/kernels.py): the main paths run bf16 on the tensor-core kernels above;
+# The kernels with two routes (K15: ops/ssm.py; K1/K2, K6, K7, K9/K14's forward, K9 dx
+# and K13's forward: ops/kernels.py): the main paths run bf16 on the tensor-core kernels above;
 # float32 (step parity, the f32 raster) keeps the CUDA-core kernels, reported
 # in rows of their own: kernel -> (C entry point, source)
 F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
@@ -261,17 +261,21 @@ F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
              "conv3x3_chw_dx": ("itg_conv3x3_chw_dx", "conv3x3_chw_bwd.cu"),
              "conv3x3_chw_dw": ("itg_conv3x3_chw_dw", "conv3x3_chw_bwd.cu"),
              "upconv3x3_chw_dx": ("itg_upconv3x3_chw_dx", "upconv3x3_chw.cu"),
-             "stem_fwd": ("itg_stem_fwd", "stem4x4s2.cu")}
+             "stem_fwd": ("itg_stem_fwd", "stem4x4s2.cu"),
+             "upconv3x3_chw": ("itg_upconv3x3_chw", "upconv3x3_chw.cu"),
+             "chw_upconv_halo_step": ("itg_upconv3x3_chw", "upconv3x3_chw.cu")}
 TC_ENTRY = {"conv3x3_chw": "itg_conv3x3_chw_tc", "chw_halo_step": "itg_conv3x3_chw_tc",
             "ssm_embed": "itg_ssm_embed_tc_fwd", "ssm_embed_bwd": "itg_ssm_embed_tc_bwd",
             "conv3x3_chw_dx": "itg_conv3x3_chw_dx_tc", "conv3x3_chw_dw": "itg_conv3x3_chw_dw_tc",
-            "upconv3x3_chw_dx": "itg_upconv3x3_chw_dx_tc", "stem_fwd": "itg_stem_fwd_tc"}
-# K1/K2, K6, K7, K9 dx and K13's forward (ops/kernels.py's ROUTE_LAUNCHES):
-# their bf16 rows also carry the CUDA-core kernel's time in bf16 (the design
-# the tensor-core one replaced, timed in the same run), and their f32 route
-# has a row for each training path (K2 runs only at eval: none)
+            "upconv3x3_chw_dx": "itg_upconv3x3_chw_dx_tc", "stem_fwd": "itg_stem_fwd_tc",
+            "upconv3x3_chw": "itg_upconv3x3_chw_tc", "chw_upconv_halo_step": "itg_upconv3x3_chw_tc"}
+# K1/K2, K6, K7, K9 dx, K13's forward and K9/K14's forward (ops/kernels.py's
+# ROUTE_LAUNCHES): their bf16 rows also carry the CUDA-core kernel's time in
+# bf16 (the design the tensor-core one replaced, timed in the same run), and
+# their f32 route has a row for each training path (K2 and K14 run only at
+# eval: none)
 ROUTED = ("conv3x3_chw", "chw_halo_step", "conv3x3_chw_dx", "conv3x3_chw_dw", "upconv3x3_chw_dx",
-          "stem_fwd")
+          "stem_fwd", "upconv3x3_chw", "chw_upconv_halo_step")
 # K2's four border cases: (top row cached, left column cached)
 BORDERS = {"no cache": (False, False), "top only": (True, False), "left only": (False, True),
            "top and left": (True, True)}
@@ -394,6 +398,11 @@ FUSE_FLOOR_SCALE = 1.5
 # K13's bf16 forward: each planted fault must read at least this many times
 # the check's limit (BF16_TOL of max|ref|)
 STEM_PLANT = 10.0
+# K13's forward at output widths that are no multiple of 8 or above 128
+# (--D_ch), held to its plain version beside the flagship's 64
+STEM_ANY_CO = (4, 12, 100, 136, 256)
+# K9/K14's bf16 forward: the same for its planted faults
+UP_PLANT = 10.0
 
 
 def fail(msg: str):
@@ -404,7 +413,7 @@ def route_want(per_kernel: dict, tc: bool) -> dict:
     """The launches by C entry point (ops/kernels.py: ROUTE_LAUNCHES) of
     ``per_kernel`` launches of the ROUTED kernels on one route: the
     tensor-core entry points (``tc``) or the CUDA-core ones, the other
-    route's 0 (K1 and K2 share their entry points)."""
+    route's 0 (K1 and K2 share their entry points, as K9 and K14 do)."""
     want = {}
     for k in ROUTED:
         on, off = (TC_ENTRY[k], F32_ROUTE[k][0]) if tc else (F32_ROUTE[k][0], TC_ENTRY[k])
@@ -413,19 +422,23 @@ def route_want(per_kernel: dict, tc: bool) -> dict:
     return want
 
 
-def fwd_route(label: str, tc: bool, want=None) -> None:
-    """K1 and K2's launches by C entry point since the last call, which then
-    start again from 0: the bf16 route's (``tc``) or the float32 one's
-    only, at least one (or exactly ``want``)."""
+def fwd_route(label: str, tc: bool, want=None, up_want=None) -> None:
+    """K1 / K2's and K9 / K14's launches by C entry point since the last
+    call, which then start again from 0: the bf16 route's (``tc``) or the
+    float32 one's only; K1 / K2 at least once (or exactly ``want``), K9 /
+    K14 exactly ``up_want`` where it is given."""
     from infinite_texture_gans_torch.ops import kernels
 
-    on, off = (TC_ENTRY["conv3x3_chw"], F32_ROUTE["conv3x3_chw"][0])[:: 1 if tc else -1]
-    counts = {e: kernels.ROUTE_LAUNCHES[e] for e in (on, off)}
-    kernels.ROUTE_LAUNCHES.update(dict.fromkeys(counts, 0))
-    print(f"[route] {label}: K1 / K2 launches by entry point {counts}"
-          + ("" if want is None else f" (want {want} on {on})"))
-    if counts[off] or not counts[on] or (want is not None and counts[on] != want):
-        fail(f"{label}: K1 / K2 took the launches {counts}, not {on}'s only")
+    for tag, kernel, need, at_least_one in (("K1 / K2", "conv3x3_chw", want, True),
+                                            ("K9 / K14", "upconv3x3_chw", up_want, False)):
+        on, off = (TC_ENTRY[kernel], F32_ROUTE[kernel][0])[:: 1 if tc else -1]
+        counts = {e: kernels.ROUTE_LAUNCHES[e] for e in (on, off)}
+        kernels.ROUTE_LAUNCHES.update(dict.fromkeys(counts, 0))
+        print(f"[route] {label}: {tag} launches by entry point {counts}"
+              + ("" if need is None else f" (want {need} on {on})"))
+        if counts[off] or (at_least_one and not counts[on]) or (
+                need is not None and counts[on] != need):
+            fail(f"{label}: {tag} took the launches {counts}, not {on}'s only")
 
 
 def card_line() -> str:
@@ -828,7 +841,8 @@ def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, 
     sync()
     one_launches = dict(kernels.LAUNCHES)
     print(f"[path one_pass {label}] f32 {th}x{tw} patches, launches {json.dumps(one_launches)}")
-    fwd_route(f"{label} one pass f32 {th}x{tw} patches", False, one_launches["conv3x3_chw"])
+    fwd_route(f"{label} one pass f32 {th}x{tw} patches", False, one_launches["conv3x3_chw"],
+              one_launches["upconv3x3_chw"])
     want = {**dict.fromkeys(kernels.LAUNCHES, 0), **one_pass_want}
     if one_launches != want:
         fail(f"{label} one-pass launches {one_launches} != {want}")
@@ -865,7 +879,8 @@ def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, 
     print(f"[path raster {label}] bf16 1024^2, {steps_h}x{steps_w} sub-images, launches "
           f"{json.dumps(raster_launches)}")
     fwd_route(f"{label} raster bf16 1024^2", True,
-              raster_launches["chw_halo_step"] + raster_launches["conv3x3_chw"])
+              raster_launches["chw_halo_step"] + raster_launches["conv3x3_chw"],
+              raster_launches["chw_upconv_halo_step"] + raster_launches["upconv3x3_chw"])
     want = {**dict.fromkeys(kernels.LAUNCHES, 0), **{k: v * n_sub for k, v in per_sub.items()}}
     if n_sub != n_sub_want or raster_launches != want:
         fail(f"{label} raster launches {raster_launches} != {want} for {n_sub} sub-images")
@@ -1150,11 +1165,11 @@ def main() -> int:
     def randn(g, *shape):
         return torch.randn(*shape, device=dev, generator=g)
 
-    def conv3_inputs(c, co, h, w, dtype, seed):
+    def conv3_inputs(c, co, h, w, dtype, seed, bias=0.1):
         g = torch.Generator(device=dev).manual_seed(seed)
         x = randn(g, 1, c, h, w).to(dtype)
         wt = randn(g, co, c, 3, 3) * (9 * c) ** -0.5
-        b = 0.1 * randn(g, co)
+        b = bias * randn(g, co)
         sc = 1 + 0.1 * randn(g, c)
         sh = 0.1 * randn(g, c)
         top = torch.relu(randn(g, 1, c, w + 2)).to(dtype)
@@ -1351,6 +1366,75 @@ def main() -> int:
                 fail(f"conv3x3_chw {tag}: the check passes a planted {fault}")
         return y
 
+    def check_up(where, shape_s, x, wt, b, sc, sh, top, left, outer, halo=True, with_stats=False,
+                 plant=False):
+        """K9's forward (with its sums where ``with_stats``) and, with
+        ``halo``, K14 in its four border cases against their plain versions.
+        bf16 runs the tensor cores: y within BF16_TOL of max|ref| of the plain
+        version with the combined weights rounded to bf16 (``*_tc_plain``), the
+        unrounded one's distance reported, the sums within SUM_TOL of the plain
+        sums of the stored y, two calls bit-equal (y, the sums, the call
+        without sums, K14), and with ``plant`` (replicate padding) four planted
+        faults (three without ``halo``) must read at least UP_PLANT times the
+        limit. f32 runs the CUDA cores, held to the plain versions."""
+        tc = x.dtype == torch.bfloat16
+        tag = f"{where} {shape_s} {outer} [{'tensor cores' if tc else 'CUDA cores'}]"
+        plain = kernels.upconv3x3_chw_tc_plain if tc else kernels.upconv3x3_chw_plain
+        halo_plain = kernels.upconv3x3_chw_halo_tc_plain if tc else kernels.upconv3x3_chw_halo_plain
+        floor = 0.0 if tc else 1.0
+        ref = plain(x, wt, b, sc, sh, True, outer)
+        y, s1, s2 = kernels.upconv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+        compare("upconv3x3_chw", tag, y, ref, floor=floor)
+        if with_stats:
+            compare_sum("upconv3x3_chw", f"Σy {tag}", s1, y.float().sum(dim=(0, 2, 3)))
+            compare_sum("upconv3x3_chw", f"Σy² {tag}", s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
+        for case, (t_, l_) in BORDERS.items() if halo else ():
+            tb, lb = (top if t_ else None), (left if l_ else None)
+            compare("chw_upconv_halo_step", f"{tag} {case}",
+                    kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, tb, lb),
+                    halo_plain(x, wt, b, sc, sh, True, outer, tb, lb), floor=floor)
+        if not tc:
+            return
+        unrounded = kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, outer).float()
+        moved = float((y.float() - unrounded).abs().max() / unrounded.abs().max())
+        print(f"[check] upconv3x3_chw {tag}: against the plain version without the combined "
+              f"weights' rounding, max abs err / max|ref| {moved:.3e} (reported)")
+        again = kernels.upconv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+        same = all(torch.equal(a, b_) for a, b_ in zip((y, s1, s2), again))
+        same = same and torch.equal(y, kernels.upconv3x3_chw(x, wt, b, sc, sh, True, outer))
+        if halo:
+            same = same and torch.equal(
+                kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, top, left),
+                kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, top, left))
+        print(f"[check] upconv3x3_chw {tag}: two calls {'bit-equal' if same else 'differ'} (y, "
+              f"Σy, Σy², y without the sums{', K14 with both borders' if halo else ''})")
+        if not same:
+            fail(f"upconv3x3_chw {tag}: two bf16 calls differ")
+        if not plant or outer != "replicate":
+            return
+        c, co, h, w = x.shape[1], wt.shape[0], x.shape[2], x.shape[3]
+        a_pad = F.pad(kernels.prenorm(x, sc, sh, True).float(), (1, 1, 1, 1), mode="replicate")
+        wc = kernels._upconv_phase_weights(wt).to(torch.bfloat16).float().reshape(co, c, 2, 2, 2, 2)
+        skipped = y.float()
+        skipped[..., 0::2, 0::2] -= F.conv2d(a_pad[:, :, 1 : h + 1, 1 : w + 1],
+                                             wc[:, :, 0, 0, 1, 1, None, None])
+        plants = [("ky<->kx (phases (0, 1) and (1, 0) swap taps)",
+                   kernels.upconv3x3_chw(x, wt.transpose(2, 3).contiguous(), b, sc, sh, True, outer),
+                   ref),
+                  ("slot (1, 1) of phase (0, 0) skipped", skipped, ref),
+                  ("the bias dropped",
+                   kernels.upconv3x3_chw(x, wt, torch.zeros_like(b), sc, sh, True, outer), ref)]
+        if halo:
+            plants.append(("K14 reading its cached top row as the own edge",
+                           kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, None, left),
+                           halo_plain(x, wt, b, sc, sh, True, outer, top, left)))
+        for fault, bad, r in plants:
+            r_ = float((bad.float() - r.float()).abs().max()) / (BF16_TOL * float(r.float().abs().max()))
+            print(f"[check] upconv3x3_chw {tag}: planted {fault}: max abs err / limit {r_:.2f} "
+                  f"(must reach {UP_PLANT:g})")
+            if not r_ >= UP_PLANT:
+                fail(f"upconv3x3_chw {tag}: a planted {fault} reads only {r_:.2f}x the limit")
+
     def check_stem(tag, x, wt, b):
         """K13's forward against its plain version. bf16 runs the tensor
         cores: y within BF16_TOL of max|ref| of the plain version with w and
@@ -1430,6 +1514,11 @@ def main() -> int:
           f"err <= {BF16_TOL:g} * max|ref| of the plain version with that rounding "
           f"(stem_fwd_tc_plain); two calls bit-equal; planted faults >= {STEM_PLANT:g}x that "
           "limit; f32 (CUDA cores) as above")
+    print(f"[tolerance] K9 / K14, bf16 (tensor cores, which round the combined 2x2 phase weights "
+          f"to bf16): y max abs err <= {BF16_TOL:g} * max|ref| of the plain version with that "
+          f"rounding (*_tc_plain), K9's Σy, Σy² <= {SUM_TOL:g} * max|ref| of the plain sums of the "
+          f"stored y; two calls bit-equal (fixed-order sums, no atomics); planted faults >= "
+          f"{UP_PLANT:g}x the limit; f32 (CUDA cores) as above")
     print(f"[tolerance] K1 / K2, bf16 (tensor cores, which round the weights to bf16): y max abs "
           f"err <= {BF16_TOL:g} * max|ref| of the plain version with that rounding (*_tc_plain), "
           f"K5's Σy, Σy² <= {SUM_TOL:g} * max|ref| of the plain sums of the stored y; two calls "
@@ -1536,31 +1625,26 @@ def main() -> int:
     # ``astats``) and at the 768^2 one pass's grid (checked)
     t0 = time.perf_counter()
     print("[tolerance] chw_upconv_halo_step (K14) against its plain version (the bordered "
-          "post-norm half-res slab, nearest-2x, F.conv2d; no phase algebra): the f32/bf16 limits "
-          "above, as K9's; K10 bit-equal")
+          "post-norm half-res slab, nearest-2x, F.conv2d; in bf16 plus the combined weights' "
+          "rounding): the f32/bf16 limits above, as K9's; K10 bit-equal")
     _, _, th7, tw7 = canvas_geometry(768, 768, base * 2 ** (len(plan) - 1), GRID, GRID)
     for where, shapes, timed in (("sub-image", fused_shapes(plan, base, GRID, GRID), True),
                                  (f"one-pass {th7}x{tw7}", fused_shapes(plan, base, th7, tw7), False)):
         for i, (c, co, h, w) in enumerate(shapes):
             for dtype in (torch.float32, torch.bfloat16):
-                x, wt, b, sc, sh, top, left = conv3_inputs(c, co, h, w, dtype, 1000 + i)
+                # K9's bias at unit scale: a dropped one reads well above the bf16 limit
+                x, wt, b, sc, sh, top, left = conv3_inputs(c, co, h, w, dtype, 1000 + i, bias=1.0)
                 g_ = torch.Generator(device=dev).manual_seed(1100 + i)
                 w3 = randn(g_, co, c, 1, 1) * c ** -0.5
                 b3 = 0.1 * randn(g_, co)
                 s_half = randn(g_, 1, co, h, w).to(dtype)
                 res = randn(g_, 1, co, 2 * h, 2 * w).to(dtype)
                 shape_s = f"{c}->{co} @{h}x{w} -> {2 * h}x{2 * w}"
+                # K14 runs on the raster's sub-images; planted faults at the
+                # sub-image's first and last fused site
                 for outer in ("replicate", "constant"):
-                    if timed:
-                        for case, (t_, l_) in BORDERS.items():
-                            tb, lb = (top if t_ else None), (left if l_ else None)
-                            compare("chw_upconv_halo_step", f"all {where} {shape_s} {outer} {case}",
-                                    kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, tb, lb),
-                                    kernels.upconv3x3_chw_halo_plain(x, wt, b, sc, sh, True, outer,
-                                                                     tb, lb))
-                    compare("upconv3x3_chw", f"all {where} {shape_s} {outer}",
-                            kernels.upconv3x3_chw(x, wt, b, sc, sh, True, outer),
-                            kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, outer))
+                    check_up(f"all {where}", shape_s, x, wt, b, sc, sh, top, left, outer, halo=timed,
+                             plant=timed and i in (0, len(shapes) - 1))
                 compare("conv1x1_chw", f"all {where} shortcut {c}->{co} @{h}x{w}",
                         kernels.conv1x1_chw(x, w3, b3), kernels.conv1x1_chw_plain(x, w3, b3))
                 k10_s = f"(1, {co}, {h}x{w}) + (1, {co}, {2 * h}x{2 * w})"
@@ -1579,16 +1663,20 @@ def main() -> int:
                 account("chw_upconv_halo_step", shape_s,
                         lambda: kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate",
                                                            top, left),
-                        lambda: kernels.upconv3x3_chw_halo_plain(x, wt, b, sc, sh, True,
-                                                                 "replicate", top, left),
+                        lambda: kernels.upconv3x3_chw_halo_tc_plain(x, wt, b, sc, sh, True,
+                                                                    "replicate", top, left),
                         lambda: F.conv2d(F.interpolate(slab, scale_factor=2, mode="nearest")
                                          [..., 1:-1, 1:-1], wl, bl),
-                        io + (h + w + 2) * c * es + wbytes, flops, into=astats)
+                        io + (h + w + 2) * c * es + wbytes, flops, into=astats,
+                        old_fn=lambda: kernels._upconv_cuda_cores(x, wt, b, sc, sh, True, False, top,
+                                                                  left))
                 account("upconv3x3_chw", shape_s,
                         lambda: kernels.upconv3x3_chw(x, wt, b, sc, sh, True),
-                        lambda: kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True),
+                        lambda: kernels.upconv3x3_chw_tc_plain(x, wt, b, sc, sh, True),
                         lambda: F.conv2d(F.interpolate(a_half, scale_factor=2, mode="nearest"), wl,
-                                         bl, padding=1), io + wbytes, flops, into=astats)
+                                         bl, padding=1), io + wbytes, flops, into=astats,
+                        old_fn=lambda: kernels._upconv_cuda_cores(x, wt, b, sc, sh, True, False, None,
+                                                                  None))
                 account("conv1x1_chw", f"shortcut {c}->{co} @{h}x{w}",
                         lambda: kernels.conv1x1_chw(x, w3, b3),
                         lambda: kernels.conv1x1_chw_plain(x, w3, b3), lambda: F.conv2d(x, w3l, b3l),
@@ -1775,6 +1863,12 @@ def main() -> int:
         gy = randn(g_, n, hs // 2, hs // 2, co).to(dtype)
         shape_s = f"({n}, 3, {hs}x{hs}) -> ({n}, {hs // 2}, {hs // 2}, {co})"
         check_stem(f"train {shape_s}", x, wt, b)
+        for co_ in STEM_ANY_CO if timed else ():
+            g_s = torch.Generator(device=dev).manual_seed(610 + co_)
+            w_s, b_s = randn(g_s, co_, 3, 4, 4) * 48 ** -0.5, randn(g_s, co_)
+            compare("stem_fwd", f"--D_ch {co_}: (2, 3, {hs}x{hs}) -> (2, {hs // 2}, {hs // 2}, {co_}) "
+                    "[tensor cores]", kernels.stem_fwd(x[:2], w_s, b_s),
+                    kernels.stem_fwd_tc_plain(x[:2], w_s, b_s), floor=0.0)
         compare("stem_dx", shape_s, kernels.stem_dx(gy, wt), kernels.stem_dx_plain(gy, wt))
         dw, db = kernels.stem_dw(x, gy)
         dw_r, db_r = kernels.stem_dw_plain(x, gy)
@@ -1800,9 +1894,10 @@ def main() -> int:
     # their own: the half-res shortcut (K3 with no residual and no stats),
     # its dx form and dW, and K4's adjoint of K10's (N, Co, 2H, 2W) gradient.
     print("[tolerance] upconv3x3_chw (K9) against its plain version, the unfused pair "
-          "upsample2 + conv3x3: the combined 2x2 kernels regroup float32 additions (~1e-6 "
-          "relative), inside the f32/bf16 limits above; K9's sums as K5's; upsample2_chw_add "
-          "(K10) bit-equal (one rounded add on both sides), its sums as K5's")
+          "upsample2 + conv3x3 (in bf16 plus the combined weights' rounding): the combined 2x2 "
+          "kernels regroup float32 additions (~1e-6 relative), inside the f32/bf16 limits above; "
+          "K9's sums as K5's; upsample2_chw_add (K10) bit-equal (one rounded add on both sides), "
+          "its sums as K5's")
     for dtype in (torch.float32, torch.bfloat16):
         timed = dtype == torch.bfloat16
         es = 2 if timed else 4
@@ -1810,7 +1905,7 @@ def main() -> int:
             g_ = torch.Generator(device=dev).manual_seed(700 + i)
             x = randn(g_, n, c, h, w).to(dtype)
             wt = randn(g_, co, c, 3, 3) * (9 * c) ** -0.5
-            b = 0.1 * randn(g_, co)
+            b = randn(g_, co)  # unit scale: a dropped bias reads well above the bf16 limit
             sc = 1 + 0.1 * randn(g_, c)
             sh = 0.1 * randn(g_, c)
             gy = randn(g_, n, co, 2 * h, 2 * w).to(dtype)
@@ -1836,14 +1931,8 @@ def main() -> int:
                     kernels.upsample2_chw_bwd_plain(gy), exact=True)
             for outer in ("replicate", "constant"):
                 tag = f"{shape_s} {outer}"
-                y_ref = kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, outer)
-                compare("upconv3x3_chw", f"train {tag}",
-                        kernels.upconv3x3_chw(x, wt, b, sc, sh, True, outer), y_ref)
-                y, s1, s2 = kernels.upconv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
-                compare("upconv3x3_chw", f"train {tag} +stats", y, y_ref)
-                compare_sum("upconv3x3_chw", f"Σy {tag}", s1, y.float().sum(dim=(0, 2, 3)))
-                compare_sum("upconv3x3_chw", f"Σy² {tag}", s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
-                del y_ref, y
+                check_up("train", shape_s, x, wt, b, sc, sh, None, None, outer, halo=False,
+                         with_stats=True, plant=i == 0)
                 check_dx("upconv3x3_chw_dx", tag, x, gy, wt, sc, sh, outer, plant=True)
                 dw, db = kernels.upconv3x3_chw_dw(x, gy, sc, sh, True, outer)
                 dw_r, db_r = kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, True, outer)
@@ -1863,7 +1952,15 @@ def main() -> int:
             flops = 2.0 * act * co * c * 16  # four phases of 2x2 taps
             dx_bytes = act * (2 * c + 4 * co) * es + wbytes + 2 * c * 4
             wt4 = kernels._upconv_dx_weights(wt)
-            if not timed:  # K9 dx's f32 route (CUDA cores), in rows of its own
+            a_half = kernels.prenorm(x, sc, sh, True)
+            if not timed:  # K9's and K9 dx's f32 routes (CUDA cores), in rows of their own
+                account("upconv3x3_chw", f"{shape_s} +stats [CUDA cores, f32]",
+                        lambda: kernels.upconv3x3_chw(x, wt, b, sc, sh, True, want_stats=True),
+                        lambda: kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, want_stats=True),
+                        lambda: F.conv2d(F.interpolate(a_half, scale_factor=2, mode="nearest"), wt,
+                                         b, padding=1),
+                        act * (c + 4 * co) * es + wbytes + 2 * co * 4, flops, tails=("auto",),
+                        peak=PEAK_F32_FLOP_PER_S, f32_route=True)
                 account("upconv3x3_chw_dx", f"{shape_s} [CUDA cores, f32]",
                         lambda: kernels.upconv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: kernels.upconv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
@@ -1871,16 +1968,17 @@ def main() -> int:
                         dx_bytes, flops, tails=("auto",), peak=PEAK_F32_FLOP_PER_S,
                         f32_route=True)
                 continue
-            a_half = kernels.prenorm(x, sc, sh, True)
             a_up = F.pad(kernels.upsample2_chw_plain(a_half), (1, 1, 1, 1), mode="replicate")
             wl, bl = wt.to(dtype), b.to(dtype)
             wt4l = wt4.transpose(0, 1).contiguous().to(dtype)
-            account("upconv3x3_chw", f"{shape_s} +stats",
+            account("upconv3x3_chw", f"{shape_s} +stats [tensor cores]",
                     lambda: kernels.upconv3x3_chw(x, wt, b, sc, sh, True, want_stats=True),
-                    lambda: kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, want_stats=True),
+                    lambda: kernels.upconv3x3_chw_tc_plain(x, wt, b, sc, sh, True, want_stats=True),
                     lambda: F.conv2d(F.interpolate(a_half, scale_factor=2, mode="nearest"), wl, bl,
                                      padding=1),
-                    act * (c + 4 * co) * es + wbytes + 2 * co * 4, flops, tails=("auto",))
+                    act * (c + 4 * co) * es + wbytes + 2 * co * 4, flops, tails=("auto",),
+                    old_fn=lambda: kernels._upconv_cuda_cores(x, wt, b, sc, sh, True, False, None,
+                                                              None, True))
             account("upconv3x3_chw_dx", f"{shape_s} [tensor cores]",
                     lambda: kernels.upconv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                     lambda: kernels.upconv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),

@@ -66,21 +66,21 @@
 //   owns a channel per round), written as float32 partials, and a last
 //   launch sums the partials in one fixed order. No atomics: two calls give
 //   the same bits.
-#include "common.cuh"
-#include "mma.cuh"
+#include "chw_fwd_tc.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using itg::aligned16;
+using itg::bf16_bits_to_f32;
+using itg::kRSL;
+using itg::kTW;
 using itg::ldmatrix_x2;
 using itg::ldmatrix_x4;
 using itg::mma_bf16;
 using itg::smem_addr;
+using itg::word;
 
-constexpr int kTW = 32;       // output columns per tile: a warp's two m16 tiles
-constexpr int kCC = kTW + 2;  // staged columns
-constexpr int kRSL = kCC + 1;  // pixel slots per staged row (odd: the 16-byte stores
-                               // of eight consecutive rows hit distinct banks)
 constexpr int kYR = kTW;      // bf16 per y-tile row (64 bytes: the epilogue's
                               // 16-byte reads of two rows hit distinct banks)
 constexpr size_t kSmemPerBlock = 232448;  // the shared memory a block may take on an H100
@@ -129,16 +129,6 @@ struct FwdArgs {
   int N, C, H, W, Co, relu, zeros, nc;
 };
 
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-__device__ __forceinline__ float bf16_bits_to_f32(uint32_t b) { return __uint_as_float(b << 16); }
-
 // Registers a thread needs: NO n8 tiles of accumulators for two m16 tiles.
 template <int NO>
 constexpr int kMinBlocks = NO <= 4 ? 3 : 2;
@@ -146,7 +136,7 @@ constexpr int kMinBlocks = NO <= 4 ? 3 : 2;
 // Grid (blocks), 32 TH threads, dynamic shared memory geo(NC, NO, TH).smem.
 template <int NO, int TH>
 __global__ void __launch_bounds__(256, (kMinBlocks<NO>)) chw_fwd_tc_kernel(const FwdArgs a) {
-  constexpr int Cop = 8 * NO, kRows = TH + 2, nthreads = 32 * TH;
+  constexpr int Cop = 8 * NO, nthreads = 32 * TH;
   const int nc = a.nc, Cp = 8 * nc;
   const Geo g = geo(nc, NO, TH);
   const int OS = g.os, KS = g.ks, WS = g.ws, YC = g.yc;
@@ -205,144 +195,14 @@ __global__ void __launch_bounds__(256, (kMinBlocks<NO>)) chw_fwd_tc_kernel(const
   constexpr int lanes_per_ch = 4 * TH;
   const int esub = lane / lanes_per_ch;
   const int er = (lane % lanes_per_ch) >> 2, ek = lane & 3;
-  const int chunks = nc * kRows * (kTW / 8), halo = nc * kRows * 2;
+  const itg::StageSrc src{a.x, a.top, a.left, C, H, W, a.relu, a.zeros};
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int n = tile / (tiles_h * tiles_w);
     const int h0 = ((tile / tiles_w) % tiles_h) * TH;
     const int w0 = (tile % tiles_w) * kTW;
-    const uint16_t* xn = a.x + static_cast<size_t>(n) * C * plane;
 
-    // -- A, staged row r, slot cc: padded pixel (p, q) = (h0 + r, w0 + cc), x
-    // pixel (p - 1, q - 1). A unit is 8 channels of an interior chunk (slots
-    // 1 + 8 k .. 8 + 8 k; consecutive threads on consecutive rows) and, for
-    // the first `halo` units, of a halo column's pixel (slot 0 or kCC - 1);
-    // all of a unit's loads go out before any is used. A padded row's source
-    // is decided once: the cached top row, x row p - 1 (or the edge row it
-    // replicates), or zero. A chunk takes eight 16-byte loads where it lies
-    // inside an aligned x row, else a gather of its 64 values (the cached
-    // top row, the replicate ring's column, ragged widths); then the fold,
-    // ReLU and rounding in registers, a transpose to pixels by byte
-    // permutes, eight 16-byte stores. Pixels past the padded image (ragged
-    // tiles, read only by outputs never stored) are zero.
-    for (int u = tid; u < chunks; u += nthreads) {
-      // the halo pixel: the cached top row, the cached left column, x (or
-      // the edge it replicates), or zero
-      uint32_t hbits[8];
-      int hdst = -1;
-      bool hnorm = false;
-      if (u < halo) {
-        const int r = u % kRows, cc = (u / kRows) % 2 ? kCC - 1 : 0, og = u / (2 * kRows);
-        const int p = h0 + r, q = w0 + cc;
-        const uint16_t* src = nullptr;
-        size_t cstride = 0;
-        if (p <= H + 1 && q <= W + 1) {
-          if (p == 0 && a.top) {
-            src = a.top + static_cast<size_t>(n) * C * (W + 2) + q;
-            cstride = W + 2;
-          } else if (!(a.zeros && (p == 0 || p == H + 1))) {
-            const int xr = min(max(p - 1, 0), H - 1);
-            if (q == 0 && a.left) {
-              src = a.left + static_cast<size_t>(n) * C * H + xr;
-              cstride = H;
-            } else if (!(a.zeros && (q == 0 || q == W + 1))) {
-              src = xn + static_cast<size_t>(xr) * W + min(max(q - 1, 0), W - 1);
-              cstride = plane;
-              hnorm = true;
-            }
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          hbits[e] = src && 8 * og + e < C ? __ldg(src + (8 * og + e) * cstride) : 0u;
-        }
-        hdst = (r * kRSL + cc) * OS + 8 * og;
-      }
-      const int r = u % kRows, k = (u / kRows) % (kTW / 8), og = u / (kRows * (kTW / 8));
-      const int p = h0 + r, j0 = w0 + 8 * k;
-      const bool top_row = p == 0 && a.top;
-      const bool x_row = !top_row && p <= H + 1 && !(a.zeros && (p == 0 || p == H + 1));
-      uint4 in[8];  // channel e: the chunk's 8 pixels
-#pragma unroll
-      for (int e = 0; e < 8; ++e) in[e] = make_uint4(0u, 0u, 0u, 0u);
-      uint32_t keep[4] = {~0u, ~0u, ~0u, ~0u};  // the pixels that hold a value
-      const uint16_t* row = x_row ? xn + static_cast<size_t>(min(max(p - 1, 0), H - 1)) * W
-                                  : a.top + static_cast<size_t>(n) * C * (W + 2);
-      if (x_row && xvec && j0 + 8 <= W) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int c = 8 * og + e;
-          if (c < C) in[e] = __ldg(reinterpret_cast<const uint4*>(row + c * plane + j0));
-        }
-      } else if (x_row || top_row) {
-        // the last padded column with a value: the replicate ring W + 1 (the
-        // top row holds it too), W where the ring is zeros
-        const int last = x_row && a.zeros ? W : W + 1;
-        const size_t cstride = x_row ? plane : W + 2;
-        uint32_t v[8][4];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int c = 8 * og + e;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            uint32_t w = 0;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int q = j0 + 1 + 2 * i + h;
-              const int col = x_row ? min(q - 1, W - 1) : q;
-              if (c < C && q <= last) w |= static_cast<uint32_t>(__ldg(row + c * cstride + col)) << (16 * h);
-            }
-            v[e][i] = w;
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e) in[e] = make_uint4(v[e][0], v[e][1], v[e][2], v[e][3]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          keep[i] = (j0 + 1 + 2 * i <= last ? 0xffffu : 0u) | (j0 + 2 + 2 * i <= last ? 0xffff0000u : 0u);
-        }
-      }
-      if (x_row) {  // zero past C (scale and shift 0 there) and past the last column
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float sc = s_sc[8 * og + e], sh = s_sh[8 * og + e];
-          uint32_t w4[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const uint32_t w = word(in[e], i);
-            float lo = __fadd_rn(__fmul_rn(bf16_bits_to_f32(w & 0xffffu), sc), sh);
-            float hi = __fadd_rn(__fmul_rn(bf16_bits_to_f32(w >> 16), sc), sh);
-            if (a.relu) lo = fmaxf(lo, 0.f), hi = fmaxf(hi, 0.f);
-            w4[i] = itg::pack_bf16x2(lo, hi) & keep[i];
-          }
-          in[e] = make_uint4(w4[0], w4[1], w4[2], w4[3]);
-        }
-      }
-      uint16_t* dst = s_a + (r * kRSL + 1 + 8 * k) * OS + 8 * og;
-#pragma unroll
-      for (int px = 0; px < 8; ++px) {
-        const uint32_t sel = (px & 1) ? 0x7632u : 0x5410u;
-        *reinterpret_cast<uint4*>(dst + px * OS) =
-            make_uint4(__byte_perm(word(in[0], px / 2), word(in[1], px / 2), sel),
-                       __byte_perm(word(in[2], px / 2), word(in[3], px / 2), sel),
-                       __byte_perm(word(in[4], px / 2), word(in[5], px / 2), sel),
-                       __byte_perm(word(in[6], px / 2), word(in[7], px / 2), sel));
-      }
-      if (hdst >= 0) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int c = 8 * (u / (2 * kRows)) + e;
-          if (hnorm) {
-            float f = __fadd_rn(__fmul_rn(bf16_bits_to_f32(hbits[e]), s_sc[c]), s_sh[c]);
-            if (a.relu) f = fmaxf(f, 0.f);
-            hbits[e] = c < C ? __bfloat16_as_ushort(__float2bfloat16_rn(f)) : 0u;
-          }
-        }
-        *reinterpret_cast<uint4*>(s_a + hdst) =
-            make_uint4(hbits[0] | (hbits[1] << 16), hbits[2] | (hbits[3] << 16),
-                       hbits[4] | (hbits[5] << 16), hbits[6] | (hbits[7] << 16));
-      }
-    }
+    itg::stage_tile<TH>(src, n, h0, w0, nc, OS, xvec, s_sc, s_sh, s_a);
     itg::cp_async_wait_all();
     __syncthreads();
 
@@ -477,36 +337,6 @@ __global__ void chw_fwd_tc_pack_kernel(const float* __restrict__ w, bf16* __rest
   wp[i] = __float2bfloat16_rn(val);
 }
 
-// Σy[o] and Σy²[o] (entry e = blockIdx.x of 2 Co): the blocks' partials
-// summed in one fixed order, thread t taking the blocks t, t + 256, ...,
-// then a fixed tree over the threads.
-constexpr int kReduceThreads = 256;
-
-__global__ void __launch_bounds__(kReduceThreads)
-chw_fwd_tc_reduce_kernel(const float* __restrict__ part, float* __restrict__ s1,
-                         float* __restrict__ s2, int blocks, int Co) {
-  __shared__ float s_w[kReduceThreads / 32];
-  const int e = blockIdx.x, t = threadIdx.x;
-  float v = 0.f;
-  for (int b = t; b < blocks; b += kReduceThreads) {
-    v = __fadd_rn(v, part[static_cast<size_t>(b) * 2 * Co + e]);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, o));
-  if ((t & 31) == 0) s_w[t >> 5] = v;
-  __syncthreads();
-  if (t == 0) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kReduceThreads / 32; ++w) sum = __fadd_rn(sum, s_w[w]);
-    if (e < Co) {
-      s1[e] = sum;
-    } else {
-      s2[e - Co] = sum;
-    }
-  }
-}
-
 int sm_count() {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -549,8 +379,8 @@ int launch(const FwdArgs& a, long held, const float* w, float* s1, float* s2, cu
   chw_fwd_tc_kernel<NO, TH><<<static_cast<int>(blocks), 32 * TH, geo(a.nc, NO, TH).smem, st>>>(a);
   if (int rc = itg::last_error()) return rc;
   if (!a.part) return 0;
-  chw_fwd_tc_reduce_kernel<<<2 * a.Co, kReduceThreads, 0, st>>>(a.part, s1, s2,
-                                                               static_cast<int>(blocks), a.Co);
+  itg::sum_partials<<<2 * a.Co, itg::kReduceThreads, 0, st>>>(a.part, s1, s2,
+                                                              static_cast<int>(blocks), a.Co);
   return itg::last_error();
 }
 

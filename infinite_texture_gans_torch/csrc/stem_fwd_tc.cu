@@ -20,9 +20,10 @@
 // y, 13.4 us at 3.35 TB/s. The design:
 // - Implicit GEMM on warp-level mma.sync m16n8k16 (bf16 operands, float32
 //   sums): M = output pixels of a row segment (a warp owns one output row of
-//   the tile as two m16 tiles of 16 pixels), N = every output channel (Co =
-//   8 NO, in chunks of 64 so the accumulators stay 64 registers), K = 16 C,
-//   one k16 step per input channel with k = ky * 4 + kx.
+//   the tile as two m16 tiles of 16 pixels), N = every output channel (Co
+//   padded to 8 NO with zero weight rows, walked in chunks of 64 so the
+//   accumulators stay 64 registers, any Co up to kMaxCo), K = 16 C, one k16
+//   step per input channel with k = ky * 4 + kx.
 // - A straight from the staged input rows, no im2col: a lane's k pairs (2t,
 //   2t + 1) and (2t + 8, 2t + 9) are the taps kx in {0, 1} or {2, 3} of row
 //   ky = t / 2 or 2 + t / 2; with the staging origin at column 2 j0 - 1 they
@@ -44,10 +45,13 @@
 //   weight row is 8 C + 4 words, so B's 8 rows x 4 k lanes hit distinct
 //   banks.
 // - Epilogue: float32 sum + bias, rounded to bf16, staged as the tile's NHWC
-//   rows in shared memory (a pixel's Co + 8 values, conflict-free for the
-//   fragments' 8 pixels x 4 channel pairs), then written with 16-byte
-//   stores, consecutive lanes on consecutive addresses: a row segment of 32
-//   pixels x Co is contiguous in NHWC.
+//   rows in shared memory (a pixel's 8 NO + 8 values, or 8 NO + 16 for odd
+//   NO: an odd number of 16-byte units, conflict-free for the fragments' 8
+//   pixels x 4 channel pairs), then written with 16-byte stores,
+//   consecutive lanes on consecutive addresses: a row segment of 32 pixels
+//   x Co is contiguous in NHWC. Where Co is not a multiple of 8 (a row's
+//   16-byte units would straddle pixels), the same staged tile is written
+//   element by element, only the Co valid channels of each pixel.
 // - Bits: each y sums its C k16 steps in one fixed order; no atomics and no
 //   split K, so two calls give the same bits.
 // The TPU kernel's 0/1 column-selection matmul (`mp`), its 128-lane width
@@ -71,6 +75,8 @@ constexpr int kChunks = 2 * kTJ / 8 + 2;    // 16-byte chunks per staged row
 constexpr int kFront = 8;                   // staged slots before the origin column
 constexpr int kRowStride = 96;              // bf16 slots per staged row (48 words)
 constexpr int kNChunk = 8;                  // n8 tiles per pass over the channels
+constexpr int kMaxCo = 512;  // the widest Co whose block fits in shared memory at
+                             // C = 4 (ops/kernels.py: STEM_TC_MAX_CO)
 
 struct StemArgs {
   const uint16_t* x;
@@ -81,17 +87,21 @@ struct StemArgs {
   int vec;  // 16-byte staging: W % 8 == 0 and x 16-byte aligned
 };
 
-// Shared memory: y's tile (kTR x kTJ pixels of Co + 8 bf16), the weights
-// (Co rows of 8 C + 4 words), the bias (Co floats), the input rows (C x
-// kRows x kRowStride bf16).
-__host__ __device__ constexpr size_t out_bytes(int co) {
-  return static_cast<size_t>(kTR) * kTJ * (co + 8) * 2;
+// bf16 per staged output pixel for NO groups of 8 channels: an odd number
+// of 16-byte units.
+__host__ __device__ constexpr int out_stride(int no) { return 8 * (no + 1 + (no & 1)); }
+
+// Shared memory for NO groups: y's tile (kTR x kTJ pixels of out_stride
+// bf16), the weights (8 NO rows of 8 C + 4 words, zero past Co), the bias
+// (8 NO floats), the input rows (C x kRows x kRowStride bf16).
+__host__ __device__ constexpr size_t out_bytes(int no) {
+  return static_cast<size_t>(kTR) * kTJ * out_stride(no) * 2;
 }
 
 template <int C>
-__host__ __device__ constexpr size_t smem_bytes(int co) {
-  return out_bytes(co) + static_cast<size_t>(co) * (8 * C + 4) * 4 + static_cast<size_t>(co) * 4 +
-         static_cast<size_t>(C) * kRows * kRowStride * 2;
+__host__ __device__ constexpr size_t smem_bytes(int no) {
+  return out_bytes(no) + static_cast<size_t>(8 * no) * (8 * C + 4) * 4 +
+         static_cast<size_t>(8 * no) * 4 + static_cast<size_t>(C) * kRows * kRowStride * 2;
 }
 
 // Chunks of 16 bytes a thread loads per tile in the vector mode.
@@ -166,12 +176,13 @@ __global__ void __launch_bounds__(kThreads, 3) stem_fwd_tc_kernel(StemArgs a) {
   constexpr int kPer = chunks_per_thread<C>();
   constexpr int kQ = C * kRows * kChunks;
   const int Co = a.Co;
-  const int NO = Co / 8;
-  const int ostride = Co + 8;  // bf16 per staged output pixel
+  const int NO = (Co + 7) / 8;
+  const int Cop = 8 * NO;
+  const int ostride = out_stride(NO);
   uint16_t* s_out = reinterpret_cast<uint16_t*>(smem);
-  uint32_t* s_w = reinterpret_cast<uint32_t*>(smem + out_bytes(Co));
-  float* s_b = reinterpret_cast<float*>(s_w + Co * kW);
-  uint16_t* s_in = reinterpret_cast<uint16_t*>(s_b + Co);
+  uint32_t* s_w = reinterpret_cast<uint32_t*>(smem + out_bytes(NO));
+  float* s_b = reinterpret_cast<float*>(s_w + Cop * kW);
+  uint16_t* s_in = reinterpret_cast<uint16_t*>(s_b + Cop);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -185,13 +196,15 @@ __global__ void __launch_bounds__(kThreads, 3) stem_fwd_tc_kernel(StemArgs a) {
   long tt = blockIdx.x;
   if (tt >= tiles) return;
 
-  for (int idx = threadIdx.x; idx < Co * 8 * C; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < Cop * 8 * C; idx += kThreads) {
     const int o = idx / (8 * C);
     const int k2 = idx - o * 8 * C;
     const float* src = a.w + static_cast<size_t>(o) * 16 * C + 2 * k2;
-    s_w[o * kW + k2] = pack_bf16x2(src[0], src[1]);
+    s_w[o * kW + k2] = o < Co ? pack_bf16x2(src[0], src[1]) : 0u;
   }
-  for (int o = threadIdx.x; o < Co; o += kThreads) s_b[o] = itg::round_to<bf16>(a.b[o]);
+  for (int o = threadIdx.x; o < Cop; o += kThreads) {
+    s_b[o] = o < Co ? itg::round_to<bf16>(a.b[o]) : 0.f;
+  }
 
   uint4 pre[kPer];
   Tile tl = tile_at(tt, it_n, jt_n);
@@ -287,18 +300,25 @@ __global__ void __launch_bounds__(kThreads, 3) stem_fwd_tc_kernel(StemArgs a) {
         stage_scalar<C>(a, nx, s_in);
       }
     }
-    // y: each tile row's valid pixels x Co are one contiguous NHWC run
+    // y: each tile row's valid pixels x Co are one contiguous NHWC run,
+    // 16 bytes a lane where Co keeps the units whole, else a value a lane
     const int valid = min(kTJ, W2 - tl.j0);
-    const int units = valid * NO;  // 16-byte units a row
     for (int rr = 0; rr < kTR; ++rr) {
       const int i = tl.i0 + rr;
       if (i >= H2) break;
-      uint4* dst = reinterpret_cast<uint4*>(
-          a.y + ((static_cast<size_t>(tl.n) * H2 + i) * W2 + tl.j0) * Co);
-      for (int u = threadIdx.x; u < units; u += kThreads) {
-        const int p = u / NO;
-        const int q = u - p * NO;
-        dst[u] = *reinterpret_cast<const uint4*>(s_out + (rr * kTJ + p) * ostride + 8 * q);
+      uint16_t* row = a.y + ((static_cast<size_t>(tl.n) * H2 + i) * W2 + tl.j0) * Co;
+      const uint16_t* src = s_out + rr * kTJ * ostride;
+      if (Co % 8 == 0) {
+        uint4* dst = reinterpret_cast<uint4*>(row);
+        for (int u = threadIdx.x; u < valid * NO; u += kThreads) {
+          const int p = u / NO;
+          dst[u] = *reinterpret_cast<const uint4*>(src + p * ostride + 8 * (u - p * NO));
+        }
+      } else {
+        for (int u = threadIdx.x; u < valid * Co; u += kThreads) {
+          const int p = u / Co;
+          row[u] = src[p * ostride + u - p * Co];
+        }
       }
     }
     __syncthreads();  // y's tile read; the next tile's input rows staged
@@ -318,7 +338,7 @@ int sm_count() {
 template <int C>
 int launch(const StemArgs& a, cudaStream_t st) {
   const auto kernel = stem_fwd_tc_kernel<C>;
-  const size_t smem = smem_bytes<C>(a.Co);
+  const size_t smem = smem_bytes<C>((a.Co + 7) / 8);
   if (cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem))) {
     return static_cast<int>(e);
@@ -341,12 +361,12 @@ int launch(const StemArgs& a, cudaStream_t st) {
 
 // K13's forward on the tensor cores. x (n, c, h, w) bfloat16, 1 <= c <= 4,
 // h and w even; w (co, c, 4, 4) and b (co) float32 (rounded to bf16 by the
-// kernel); y (n, h/2, w/2, co) bfloat16; co a multiple of 8, at most 128.
-// One launch; returns cudaGetLastError() (cudaErrorInvalidValue for a shape
-// the kernel does not take).
+// kernel); y (n, h/2, w/2, co) bfloat16; 1 <= co <= kMaxCo. One launch;
+// returns cudaGetLastError() (cudaErrorInvalidValue for a shape the kernel
+// does not take).
 extern "C" int itg_stem_fwd_tc(const void* x, const void* w, const void* b, void* y, int n, int c,
                                int h, int width, int co, void* stream) {
-  if (h % 2 || width % 2 || co % 8 || co < 8 || co > 128) {
+  if (h % 2 || width % 2 || co < 1 || co > kMaxCo) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int vec = width % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;

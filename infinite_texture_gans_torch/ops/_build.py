@@ -67,6 +67,9 @@ SIGNATURES = {
     # x, wc, b, scale, shift, top, left, y, s1, s2, n, c, h, w (of x), co, relu, zeros, bf16,
     # stream
     "itg_upconv3x3_chw": [_P] * 10 + [_I] * 8 + [_P],
+    # x, w, b, scale, shift, top, left, wp, y, part, s1, s2, n, c, h, w (of x), co, relu, zeros,
+    # nc, no, stream (bf16 only)
+    "itg_upconv3x3_chw_tc": [_P] * 12 + [_I] * 9 + [_P],
     # x, g, wt, scale, shift, dx, dscale, dshift, n, c, h, w (of x), co, relu, zeros, bf16, stream
     "itg_upconv3x3_chw_dx": [_P] * 8 + [_I] * 8 + [_P],
     # x, g, scale, shift, dwc, db, n, c, h, w (of x), co, relu, zeros, bf16, stream

@@ -25,11 +25,12 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
   3x3 conv of ``upconv3x3_chw_p`` (optionally with stats): forward :1457
   ``_upconv3x3_fwd``, ``upconv3x3_chw_dx`` :1642 ``_upconv3x3_dx``,
   ``upconv3x3_chw_dw`` :1777 ``_upconv3x3_dw`` (csrc/upconv3x3_chw.cu; the
-  dx in bf16: csrc/chw_dx_tc.cu);
+  forward in bf16: csrc/upconv_fwd_tc.cu; the dx in bf16:
+  csrc/chw_dx_tc.cu);
 - K14 ``chw_upconv_halo_step``, whose kernel wrapper is
   ``upconv3x3_chw_halo``: K9's forward in the raster engine under
-  ``--fuse_up all``, replaces :2019 ``_upconv3x3_fwd_halo`` (the same
-  csrc/upconv3x3_chw.cu, given the cached half-res borders);
+  ``--fuse_up all``, replaces :2019 ``_upconv3x3_fwd_halo`` (the same two
+  sources, given the cached half-res borders);
 - K10 ``upsample2_chw_add``: :2199 ``upsample2_chw_add_p``, the fused
   block's up2(shortcut) + residual (+ stats) (csrc/upsample2_chw.cu);
 - K13 ``conv4x4s2_stem_chw``: the discriminator's conv0, forward
@@ -48,7 +49,14 @@ channel in one block, the weights rounded to bf16 as the reference rounds
 them, pallas_conv.py:615/:949/:999/:1093, K5's sums in a fixed order; its
 plain versions ``conv3x3_chw_tc_plain`` and ``conv3x3_chw_halo_tc_plain``
 apply the same rounding), float32 keeps the CUDA-core kernel
-(``itg_conv3x3_chw``). The two input-side gradients K6 and K9 dx route by
+(``itg_conv3x3_chw``). K9's forward and K14 route the same way: bfloat16
+takes one tensor-core body for both (``csrc/upconv_fwd_tc.cu``, entry point
+``itg_upconv3x3_chw_tc``: K1's implicit GEMM at half resolution, four phase
+B operands with the combined 2x2 weights rounded to bf16 as the reference
+rounds them, pallas_conv.py:1819/:2094, the phase row a grid axis, whole
+full-res rows stored, the sums in a fixed order; plain versions
+``upconv3x3_chw_tc_plain`` and ``upconv3x3_chw_halo_tc_plain``), float32
+``itg_upconv3x3_chw``. The two input-side gradients K6 and K9 dx route by
 the activations' dtype the same way: bfloat16 takes one tensor-core kernel body
 (``csrc/chw_dx_tc.cu``, entry points ``itg_conv3x3_chw_dx_tc`` and
 ``itg_upconv3x3_chw_dx_tc``: implicit GEMMs on mma.sync, the weights rounded
@@ -117,12 +125,13 @@ LAUNCHES = {
     "ssm_embed_bwd": 0,
 }
 
-# launches per C entry point of K1/K2, K6, K7, K9 dx and K13's forward: the
-# bf16 tensor-core route and the f32 CUDA-core one (not cleared by
-# reset_launches)
+# launches per C entry point of K1/K2, K6, K7, K9/K14's forward, K9 dx and
+# K13's forward: the bf16 tensor-core route and the f32 CUDA-core one (not
+# cleared by reset_launches)
 ROUTE_LAUNCHES = {"itg_conv3x3_chw_tc": 0, "itg_conv3x3_chw": 0,
                   "itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
                   "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
+                  "itg_upconv3x3_chw_tc": 0, "itg_upconv3x3_chw": 0,
                   "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0,
                   "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0}
 
@@ -277,18 +286,22 @@ FWD_TC_MAX_NC = 16
 FWD_TC_MAX_BLOCKS = 1024
 
 
+def _tc_plan(c: int, co: int, what: str) -> tuple[int, int]:
+    nc = -(-c // 8)
+    no = next((o for o in FWD_TC_NO if 8 * o >= co), None)
+    if nc > FWD_TC_MAX_NC or no is None:
+        raise ValueError(f"the tensor-core {what} takes C <= {8 * FWD_TC_MAX_NC} and "
+                         f"Co <= {8 * FWD_TC_NO[-1]}, got C={c}, Co={co}")
+    return nc, no
+
+
 def fwd_tc_plan(c: int, co: int) -> tuple[int, int]:
     """(NC, NO) of the tensor-core forward for C input and Co output
     channels: the fewest 8-channel groups that hold C, and the fewest of
     FWD_TC_NO that hold Co. Raises for C > 128 or Co > 64 (every shape the
     models' eval gate admits, cin <= 128 with cout <= G_ch <= 64, is
     inside)."""
-    nc = -(-c // 8)
-    no = next((o for o in FWD_TC_NO if 8 * o >= co), None)
-    if nc > FWD_TC_MAX_NC or no is None:
-        raise ValueError(f"the tensor-core conv3x3 forward takes C <= {8 * FWD_TC_MAX_NC} and "
-                         f"Co <= {8 * FWD_TC_NO[-1]}, got C={c}, Co={co}")
-    return nc, no
+    return _tc_plan(c, co, "conv3x3 forward")
 
 
 def pack_fwd_weights(w: torch.Tensor) -> torch.Tensor:
@@ -323,30 +336,37 @@ def _fwd_cuda_cores(x, w, b, scale, shift, relu, zeros, top, left, want_stats=Fa
     return y, s1, s2
 
 
-def _fwd_tensor_cores(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
+def _fwd_tensor_cores(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False,
+                      up=False):
     """K1/K2 (/K5) on the tensor cores (``itg_conv3x3_chw_tc``), bf16: the
     entry point packs the weights (as :func:`pack_fwd_weights`), runs the
     persistent kernel and, with stats, sums the per-block partials in one
-    order."""
+    order. With ``up``, K9/K14 the same way (``itg_upconv3x3_chw_tc``,
+    :func:`pack_upconv_weights`): x at half resolution, y (N, Co, 2H, 2W)."""
     n, c, h, wd = x.shape
     co = w.shape[0]
-    nc, no = fwd_tc_plan(c, co)
-    y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
-    wp = torch.empty((8 * no, 3, 3, 8 * nc), dtype=torch.bfloat16, device=x.device)
+    if up:
+        entry, (nc, no), s = "itg_upconv3x3_chw_tc", upconv_tc_plan(c, co), 2
+        wp_shape, rows = (4, 8 * no, 4, 8 * nc), UPCONV_TC_MAX_BLOCKS
+    else:
+        entry, (nc, no), s = "itg_conv3x3_chw_tc", fwd_tc_plan(c, co), 1
+        wp_shape, rows = (8 * no, 3, 3, 8 * nc), FWD_TC_MAX_BLOCKS
+    y = torch.empty((n, co, s * h, s * wd), dtype=x.dtype, device=x.device)
+    wp = torch.empty(wp_shape, dtype=torch.bfloat16, device=x.device)
     part = s1 = s2 = None
     if want_stats:
-        part = torch.empty((FWD_TC_MAX_BLOCKS, 2, co), dtype=torch.float32, device=x.device)
+        part = torch.empty((rows, 2, co), dtype=torch.float32, device=x.device)
         s1 = torch.empty(co, dtype=torch.float32, device=x.device)
         s2 = torch.empty_like(s1)
     wf, bf, sc, sh = _f32(w), _f32(b), _f32(scale), _f32(shift)
     with torch.cuda.device(x.device):
-        rc = _lib().itg_conv3x3_chw_tc(
+        rc = getattr(_lib(), entry)(
             x.data_ptr(), wf.data_ptr(), bf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
             _ptr(top), _ptr(left), wp.data_ptr(), y.data_ptr(), _ptr(part), _ptr(s1), _ptr(s2),
             n, c, h, wd, co, int(relu), int(zeros), nc, no, _stream(x),
         )
-    _raise_on(rc, "itg_conv3x3_chw_tc")
-    ROUTE_LAUNCHES["itg_conv3x3_chw_tc"] += 1
+    _raise_on(rc, entry)
+    ROUTE_LAUNCHES[entry] += 1
     return y, s1, s2
 
 
@@ -1071,7 +1091,37 @@ def _upconv_unpack_dw(dwc: torch.Tensor) -> torch.Tensor:
     return _uncombine(_uncombine(d, 2), 3)
 
 
-def _launch_upconv(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
+# K9 / K14's tensor-core route (csrc/upconv_fwd_tc.cu): K1's tiling at half
+# resolution, the phase row a grid axis; per phase, K = the four slots x
+# the input channels padded to NC x 8; N = the output channels padded to
+# NO x 8. With stats, each of at most UPCONV_TC_MAX_BLOCKS blocks (the C
+# file's kMaxBlocks) writes its partial sums.
+UPCONV_TC_MAX_BLOCKS = 1024
+
+
+def upconv_tc_plan(c: int, co: int) -> tuple[int, int]:
+    """(NC, NO) of the tensor-core up-conv forward (K9, K14) for C input and
+    Co output channels, as :func:`fwd_tc_plan`. Raises for C > 128 or Co >
+    64 (the tail gates keep every fused block inside)."""
+    return _tc_plan(c, co, "up-conv forward")
+
+
+def pack_upconv_weights(w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the tensor-core up-conv's weight packing (which its
+    C entry point runs on the card): w (Co, C, 3, 3) -> bf16 (4, 8 NO, 4,
+    8 NC), the B operands, wp[p, o, slot, c] = phase p's combined 2x2
+    kernel (:func:`_upconv_phase_weights`, float32) rounded to bf16, zero
+    past Co and C."""
+    co, c = w.shape[:2]
+    nc, no = upconv_tc_plan(c, co)
+    wc = F.pad(_upconv_phase_weights(w).reshape(co, c, 4, 4),
+               (0, 0, 0, 0, 0, 8 * nc - c, 0, 8 * no - co))
+    return wc.permute(2, 0, 3, 1).to(torch.bfloat16, memory_format=torch.contiguous_format)
+
+
+def _upconv_cuda_cores(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
+    """K9/K14 on the CUDA cores (``itg_upconv3x3_chw``): the float32 route
+    (the C function takes bf16 too)."""
     n, c, h, wd = x.shape
     co = w.shape[0]
     y = torch.empty((n, co, 2 * h, 2 * wd), dtype=x.dtype, device=x.device)
@@ -1085,8 +1135,18 @@ def _launch_upconv(x, w, b, scale, shift, relu, zeros, top, left, want_stats=Fal
             _ptr(top), _ptr(left), y.data_ptr(), _ptr(s1), _ptr(s2),
             n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
         )
-    _raise_on(rc, "upconv3x3_chw")
+    _raise_on(rc, "itg_upconv3x3_chw")
+    ROUTE_LAUNCHES["itg_upconv3x3_chw"] += 1
     return y, s1, s2
+
+
+def _launch_upconv(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
+    """K9/K14 on the card, routed by dtype: bf16 on the tensor cores, float32
+    on the CUDA cores."""
+    if x.dtype == torch.bfloat16:
+        return _fwd_tensor_cores(x, w, b, scale, shift, relu, zeros, top, left, want_stats,
+                                 up=True)
+    return _upconv_cuda_cores(x, w, b, scale, shift, relu, zeros, top, left, want_stats)
 
 
 def _upconv_fwd(x, w, b, scale, shift, relu, outer_padding, want_stats):
@@ -1136,7 +1196,10 @@ def upconv3x3_chw(x, w, b, scale, shift, relu: bool = True,
     replicate or zeros, post-norm. With ``want_stats`` returns (y, Σy, Σy²)
     of the stored y. Differentiable in x, w, b, scale, shift and through the
     stats. Equals :func:`upconv3x3_chw_plain` up to the regrouped float
-    additions of the combined kernels."""
+    additions of the combined kernels. On the card bf16 takes the
+    tensor-core kernel (the combined weights rounded to bf16: its plain
+    version is :func:`upconv3x3_chw_tc_plain`), float32 the CUDA-core
+    one."""
     return _UpConv3x3Chw.apply(x, w, b, scale, shift, relu, outer_padding, want_stats)
 
 
@@ -1149,13 +1212,52 @@ def upconv3x3_chw_plain(x, w, b, scale, shift, relu: bool = True,
                              want_stats)
 
 
+def _upconv_rounding(a_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """What the bf16 route's rounding of the combined phase weights adds to
+    y: each phase's 2x2 conv of the padded post-norm half-res slab ``a_pad``
+    (N, C, H+2, W+2, float32) with bf16(wc) - wc, float32 (N, Co, 2H, 2W);
+    zero where every combined weight is a bf16 value."""
+    co, c = w.shape[:2]
+    wc = _upconv_phase_weights(w)
+    d = (wc.to(torch.bfloat16).float() - wc).reshape(co, c, 2, 2, 2, 2)
+    n, _, hp, wp = a_pad.shape
+    h, wd = hp - 2, wp - 2
+    y = a_pad.new_zeros(n, co, 2 * h, 2 * wd)
+    for di in range(2):
+        for dj in range(2):
+            # phase (di, dj) reads slab rows i - 1 + di + r: padded rows i + di + r
+            y[:, :, di::2, dj::2] = F.conv2d(a_pad[:, :, di:di + h + 1, dj:dj + wd + 1],
+                                             d[:, :, di, dj])
+    return y
+
+
+def upconv3x3_chw_tc_plain(x, w, b, scale, shift, relu: bool = True,
+                           outer_padding: str = "replicate", want_stats: bool = False):
+    """Plain version of K9's bf16 tensor-core route: the combined phase
+    weights rounded to bf16 after combining (the reference's bf16 rounding,
+    pallas_conv.py:1819), float32 sums, y rounded once. Written as
+    :func:`upconv3x3_chw_plain`'s float32 conv plus :func:`_upconv_rounding`
+    (the phase form is that conv with the combined weights), so that on
+    combined weights that are bf16 values it is the plain version bit for
+    bit."""
+    mode = "replicate" if outer_padding == "replicate" else "constant"
+    a_up = F.pad(prenorm(upsample2_chw_plain(x), scale, shift, relu).float(), (1, 1, 1, 1),
+                 mode=mode)
+    a_pad = F.pad(prenorm(x, scale, shift, relu).float(), (1, 1, 1, 1), mode=mode)
+    y = (F.conv2d(a_up, w.float(), b.float()) + _upconv_rounding(a_pad, w)).to(x.dtype)
+    if want_stats:
+        return (y, *_stats_plain(y))
+    return y
+
+
 def upconv3x3_chw_halo(x, w, b, scale, shift, relu: bool, outer_padding: str,
                        top: Optional[torch.Tensor], left: Optional[torch.Tensor]):
     """K14's kernel: :func:`upconv3x3_chw` (no stats) whose padded half-res
     input takes its top row (N, C, Wh+2, corners included) and left column
     (N, C, Hh) post-norm from the caller where given; every other border
     cell is the own edge (replicate) or zero. x (N, C, Hh, Wh) raw at half
-    resolution -> y (N, Co, 2Hh, 2Wh)."""
+    resolution -> y (N, Co, 2Hh, 2Wh). Routed as :func:`upconv3x3_chw`
+    (bf16's plain version: :func:`upconv3x3_chw_halo_tc_plain`)."""
     zeros = _check_padding(outer_padding)
     _check_conv3x3(x, w, b, scale, shift)
     _check_borders(x, top, left)
@@ -1175,6 +1277,18 @@ def upconv3x3_chw_halo_plain(x, w, b, scale, shift, relu: bool, outer_padding: s
     padded = _halo_padded(x, scale, shift, relu, outer_padding, top, left)
     up = upsample2_chw_plain(padded)[..., 1:-1, 1:-1]
     return F.conv2d(up.float(), w.float(), b.float()).to(x.dtype)
+
+
+def upconv3x3_chw_halo_tc_plain(x, w, b, scale, shift, relu: bool, outer_padding: str,
+                                top: Optional[torch.Tensor], left: Optional[torch.Tensor]):
+    """Plain version of K14's bf16 tensor-core route:
+    :func:`upconv3x3_chw_halo_plain` plus :func:`_upconv_rounding` on the
+    same bordered slab (the combined weights rounded to bf16,
+    pallas_conv.py:2094)."""
+    padded = _halo_padded(x, scale, shift, relu, outer_padding, top, left)
+    up = upsample2_chw_plain(padded)[..., 1:-1, 1:-1]
+    y = F.conv2d(up.float(), w.float(), b.float()) + _upconv_rounding(padded.float(), w)
+    return y.to(x.dtype)
 
 
 def chw_upconv_halo_step(x, w, b, scale, shift, relu: bool, outer_padding: str,
@@ -1348,29 +1462,34 @@ def _check_stem(x, w):
     _check_param("w", w, (w.shape[0], c, 4, 4))
 
 
-# The tensor-core route (csrc/stem_fwd_tc.cu): N = every output channel in
-# 8-channel groups, K = one k16 step (the 4 x 4 taps) per input channel.
-STEM_TC_MAX_CO = 128
+# The tensor-core route (csrc/stem_fwd_tc.cu): N = every output channel,
+# padded to 8-channel groups with zero weight rows, K = one k16 step (the
+# 4 x 4 taps) per input channel. STEM_TC_MAX_CO is the C file's kMaxCo: the
+# widest Co whose block (the NHWC output tile, the weights) fits in a
+# block's shared memory at C = 4.
+STEM_TC_MAX_CO = 512
 
 
 def stem_tc_plan(c: int, co: int) -> int:
-    """The number of 8-channel groups (NO) of the tensor-core stem forward
-    for C input and Co output channels. Raises for C outside 1..4, or Co
-    not a multiple of 8 or above STEM_TC_MAX_CO (the discriminator's stem,
-    3 -> D_ch, is inside for D_ch a multiple of 8 up to 128)."""
-    if not 1 <= c <= 4 or co % 8 or not 8 <= co <= STEM_TC_MAX_CO:
-        raise ValueError(f"the tensor-core stem forward takes 1 <= C <= 4 and Co a multiple of "
-                         f"8 up to {STEM_TC_MAX_CO}, got C={c}, Co={co}")
-    return co // 8
+    """The number of 8-channel groups (NO, Co padded up to 8 NO) of the
+    tensor-core stem forward for C input and Co output channels. Raises for
+    C outside 1..4 or Co outside 1..STEM_TC_MAX_CO (a block's shared
+    memory)."""
+    if not 1 <= c <= 4 or not 1 <= co <= STEM_TC_MAX_CO:
+        raise ValueError(f"the tensor-core stem forward takes 1 <= C <= 4 and 1 <= Co <= "
+                         f"{STEM_TC_MAX_CO} (a block's shared memory), got C={c}, Co={co}")
+    return -(-co // 8)
 
 
 def pack_stem_weights(w: torch.Tensor) -> torch.Tensor:
     """Plain version of the tensor-core stem's B operand, which each block
-    of the kernel builds in shared memory: w (Co, C, 4, 4) -> bf16 (Co,
-    16 C), row o holding w[o, c, ky, kx] at column 16 c + 4 ky + kx."""
+    of the kernel builds in shared memory: w (Co, C, 4, 4) -> bf16 (8 NO,
+    16 C), row o holding w[o, c, ky, kx] at column 16 c + 4 ky + kx, zero
+    past Co."""
     co, c = w.shape[:2]
-    stem_tc_plan(c, co)
-    return w.detach().float().reshape(co, 16 * c).to(torch.bfloat16)
+    no = stem_tc_plan(c, co)
+    wp = F.pad(w.detach().float().reshape(co, 16 * c), (0, 0, 0, 8 * no - co))
+    return wp.to(torch.bfloat16)
 
 
 def _stem_fwd_cuda_cores(x, w, b):

@@ -342,15 +342,53 @@ def test_stem_fwd_routes_by_dtype(cuda, dtype):
     assert (tk.LAUNCHES["stem_fwd"], tk.LAUNCHES["stem_dx"], tk.LAUNCHES["stem_dw"]) == (1, 1, 1)
 
 
-def test_stem_tc_refuses_outside_plan(cuda):
-    """A bf16 stem outside the route's plan raises, naming the limit; nothing
-    falls back to the CUDA-core kernel."""
+@pytest.mark.parametrize("co", [4, 12, 100, 136, 256])
+def test_stem_tc_any_co_matches_plain(cuda, co):
+    """Any --D_ch: Co padded to 8-channel groups with zero weight rows,
+    walked in chunks of 64 past 128, and only the valid channels stored
+    (element by element where Co is no multiple of 8); held to
+    ``stem_fwd_tc_plain``, on the tensor cores alone, two calls bit-equal."""
+    x, wt, b = _stem_case(cuda, (2, 3, 22, 70, co))
     tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
-    for co in (12, 136):
-        x, wt, b = _stem_case(cuda, (1, 3, 8, 16, co))
-        with pytest.raises(ValueError, match="tensor-core stem forward"):
-            tk.stem_fwd(x, wt, b)
+    y = tk.stem_fwd(x, wt, b)
+    again = tk.stem_fwd(x, wt, b)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_stem_fwd_tc"], tk.ROUTE_LAUNCHES["itg_stem_fwd"]) == (2, 0)
+    assert y.shape == (2, 11, 35, co)
+    _assert_fwd_close(y, tk.stem_fwd_tc_plain(x, wt, b))
+    assert torch.equal(y, again)
+
+
+def test_stem_tc_refuses_wider(cuda):
+    """A bf16 stem wider than a block's shared memory holds raises, naming
+    the limit; nothing falls back to the CUDA-core kernel."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    x, wt, b = _stem_case(cuda, (1, 3, 8, 16, tk.STEM_TC_MAX_CO + 1))
+    with pytest.raises(ValueError, match="tensor-core stem forward"):
+        tk.stem_fwd(x, wt, b)
     assert tk.ROUTE_LAUNCHES["itg_stem_fwd"] == 0
+
+
+def test_train_step_bf16_any_d_ch_on_card(cuda):
+    """A tiny bf16 training step with --D_ch 100 (no multiple of 8): D's
+    stem runs the tensor-core forward on every fake and real batch, and the
+    losses are finite."""
+    from infinite_texture_gans_torch.config import prepare_parser
+    from infinite_texture_gans_torch.train.train_step import create_train_state, train_step
+
+    args = prepare_parser().parse_args(
+        ["--G_ch", "8", "--D_ch", "100", "--z_dim", "16", "--n_layers_G", "4", "--n_layers_D", "2",
+         "--padding_mode", "local", "--attention", "--spec_norm_D", "--ema", "--num_images", "2",
+         "--compute_dtype", "bfloat16"])
+    gen = torch.Generator().manual_seed(6)
+    real = (torch.rand(4, 48, 48, 3, generator=gen) * 2 - 1).to(cuda)
+    z = torch.randn(2, 14, 14, 16, generator=gen).to(cuda)
+    st = create_train_state(args, 4, cuda, seed=1)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    metrics = train_step(st, real, z, smooth=True, use_ema=True)
+    torch.cuda.synchronize()
+    assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+    assert (tk.ROUTE_LAUNCHES["itg_stem_fwd_tc"], tk.ROUTE_LAUNCHES["itg_stem_fwd"]) == (2, 0)
 
 
 # --- the fused up-conv (K9 forward, dx, dW) and its residual join (K10) ----
@@ -368,7 +406,9 @@ def test_upconv_kernels_match_plain(cuda, dtype, outer, shape):
     x, wt, b, sc, sh = _inputs(cuda, dtype, n=n, c=c, co=co, h=h, w=w)
     g = torch.randn(n, co, 2 * h, 2 * w, generator=torch.Generator().manual_seed(7)).to(cuda, dtype)
     tk.reset_launches()
-    y_ref = tk.upconv3x3_chw_plain(x, wt, b, sc, sh, True, outer)
+    # bf16 runs the tensor-core route, whose combined weights are rounded
+    plain = tk.upconv3x3_chw_tc_plain if dtype == torch.bfloat16 else tk.upconv3x3_chw_plain
+    y_ref = plain(x, wt, b, sc, sh, True, outer)
     _assert_close(tk.upconv3x3_chw(x, wt, b, sc, sh, True, outer), y_ref)
     y, s1, s2 = tk.upconv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
     _assert_close(y, y_ref)
@@ -478,6 +518,7 @@ def test_dx_routes_by_dtype(cuda, dtype):
     assert tk.ROUTE_LAUNCHES == {"itg_conv3x3_chw_tc": 0, "itg_conv3x3_chw": 0,
                                  "itg_conv3x3_chw_dx_tc": int(tc), "itg_conv3x3_chw_dx": int(not tc),
                                  "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
+                                 "itg_upconv3x3_chw_tc": 0, "itg_upconv3x3_chw": 0,
                                  "itg_upconv3x3_chw_dx_tc": int(tc),
                                  "itg_upconv3x3_chw_dx": int(not tc),
                                  "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0}
@@ -565,6 +606,7 @@ def test_dw_routes_by_dtype(cuda, dtype):
     assert tk.ROUTE_LAUNCHES == {"itg_conv3x3_chw_tc": 0, "itg_conv3x3_chw": 0,
                                  "itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
                                  "itg_conv3x3_chw_dw_tc": int(tc), "itg_conv3x3_chw_dw": int(not tc),
+                                 "itg_upconv3x3_chw_tc": 0, "itg_upconv3x3_chw": 0,
                                  "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0,
                                  "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0}
     assert tk.LAUNCHES["conv3x3_chw_dw"] == 1
@@ -751,6 +793,7 @@ def test_fwd_routes_by_dtype(cuda, dtype):
     assert tk.ROUTE_LAUNCHES == {"itg_conv3x3_chw_tc": 2 * tc, "itg_conv3x3_chw": 2 * (not tc),
                                  "itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
                                  "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
+                                 "itg_upconv3x3_chw_tc": 0, "itg_upconv3x3_chw": 0,
                                  "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0,
                                  "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0}
     assert (tk.LAUNCHES["conv3x3_chw"], tk.LAUNCHES["chw_halo_step"]) == (1, 1)
@@ -805,9 +848,202 @@ def test_upconv_halo_kernel_matches_plain(cuda, dtype, outer, borders, shape):
     tk.reset_launches()
     y = tk.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, top, left)
     assert (tk.LAUNCHES["chw_upconv_halo_step"], tk.LAUNCHES["upconv3x3_chw"]) == (1, 0)
-    _assert_close(y, tk.upconv3x3_chw_halo_plain(x, wt, b, sc, sh, True, outer, top, left))
+    plain = (tk.upconv3x3_chw_halo_tc_plain if dtype == torch.bfloat16
+             else tk.upconv3x3_chw_halo_plain)
+    _assert_close(y, plain(x, wt, b, sc, sh, True, outer, top, left))
     if borders == "none":  # one kernel body: K9's bits
         assert torch.equal(y, tk.upconv3x3_chw(x, wt, b, sc, sh, True, outer))
+
+
+# --- K9's forward and K14 on the tensor cores, bf16 ------------------------
+# half-res n, c, co, h, w: every main-path shape (the flagship's fused
+# blocks 4-6 at eval, N = 1; the Experiment-1 step's blocks 5-6, N = 8),
+# then ragged ones (h, w no multiple of the tile; 2w no multiple of 8, whose
+# rows store element by element; 1 x 3) and the plan's widest (C = 128, Co =
+# 64, 4-row tiles only). Inputs from _fwd_case: unit-variance outputs and a
+# unit-scale bias (a dropped one reads well above the bf16 limit).
+UPTC_SHAPES = [(1, 104, 52, 48, 48), (1, 52, 26, 96, 96), (1, 26, 13, 192, 192),
+               (8, 52, 26, 96, 96), (8, 26, 13, 192, 192), (2, 11, 19, 5, 7), (1, 5, 3, 1, 3),
+               (2, 13, 19, 23, 35), (1, 128, 64, 10, 20)]
+# each planted fault must read at least this many times the check's limit
+UPTC_PLANT = 10.0
+
+
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("shape", UPTC_SHAPES)
+def test_upconv_tc_matches_plain(cuda, outer, shape):
+    """bf16 K9 runs the tensor-core kernel, with and without its sums, held
+    to the plain version with the combined weights rounded; the sums are of
+    the stored y."""
+    x, wt, b, sc, sh, _, _ = _fwd_case(cuda, shape)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    ref = tk.upconv3x3_chw_tc_plain(x, wt, b, sc, sh, True, outer)
+    y = tk.upconv3x3_chw(x, wt, b, sc, sh, True, outer)
+    y2, s1, s2 = tk.upconv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_upconv3x3_chw_tc"], tk.ROUTE_LAUNCHES["itg_upconv3x3_chw"]) == (2, 0)
+    _assert_fwd_close(y, ref)
+    assert torch.equal(y, y2)
+    _assert_stats_close(y2, s1, s2)
+
+
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("borders", list(FWD_BORDERS))
+@pytest.mark.parametrize("shape", [UPTC_SHAPES[i] for i in (0, 2, 5, 6, 7)])
+def test_upconv_tc_halo_matches_plain(cuda, outer, borders, shape):
+    """bf16 K14 (the same kernel given the cached half-res top row and left
+    column) in its four border cases, held to its rounded plain version;
+    with no cache it gives K9's bits."""
+    x, wt, b, sc, sh, top, left = _fwd_case(cuda, shape)
+    t_, l_ = FWD_BORDERS[borders]
+    tb, lb = (top if t_ else None), (left if l_ else None)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    y = tk.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, tb, lb)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_upconv3x3_chw_tc"], tk.ROUTE_LAUNCHES["itg_upconv3x3_chw"]) == (1, 0)
+    _assert_fwd_close(y, tk.upconv3x3_chw_halo_tc_plain(x, wt, b, sc, sh, True, outer, tb, lb))
+    if borders == "none":
+        assert torch.equal(y, tk.upconv3x3_chw(x, wt, b, sc, sh, True, outer))
+
+
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("case", [0, 2, 4, 7])
+def test_upconv_tc_bits_repeat(cuda, outer, case):
+    """Fixed-order sums and no atomics: two calls give the same y, Σy and
+    Σy²; and an image's y does not depend on the batch around it, which sets
+    the tile height (4 rows for one image at every flagship shape, 8 rows
+    for eight at the training shapes): each output sums in one order
+    wherever its tile lies."""
+    x, wt, b, sc, sh, top, left = _fwd_case(cuda, UPTC_SHAPES[case])
+    first = tk.upconv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+    second = tk.upconv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    one = [t[:1] for t in (x, top, left)]
+    eight = [t.expand(8, *t.shape[1:]).contiguous() for t in one]
+    alone = tk.upconv3x3_chw_halo(one[0], wt, b, sc, sh, True, outer, one[1], one[2])
+    batch = tk.upconv3x3_chw_halo(eight[0], wt, b, sc, sh, True, outer, eight[1], eight[2])
+    assert all(torch.equal(batch[i], alone[0]) for i in range(8))
+
+
+@pytest.mark.parametrize("shape", [(1, 52, 26, 40, 72), (1, 13, 3, 37, 45)])
+def test_upconv_tc_window_bit_equal(cuda, shape):
+    """K14 on an interior half-res window of x, given the top row and left
+    column that K9's padded post-norm half-res input holds there, equals
+    K9's output bit for bit on the window's pixels away from its bottom row
+    and right column (which K14 pads from the window's own edge): the
+    raster gives the one pass's bits."""
+    x, wt, b, sc, sh, _, _ = _fwd_case(cuda, shape)
+    r0, c0, hw, ww = 5, 16, 17, 24
+    y = tk.upconv3x3_chw(x, wt, b, sc, sh, True, "replicate")
+    padded = torch.nn.functional.pad(tk.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
+    top = padded[:, :, r0, c0 : c0 + ww + 2].contiguous()
+    left = padded[:, :, r0 + 1 : r0 + 1 + hw, c0].contiguous()
+    win = x[:, :, r0 : r0 + hw, c0 : c0 + ww].contiguous()
+    y_win = tk.upconv3x3_chw_halo(win, wt, b, sc, sh, True, "replicate", top, left)
+    assert torch.equal(y_win[..., :-2, :-2],
+                       y[..., 2 * r0 : 2 * (r0 + hw) - 2, 2 * c0 : 2 * (c0 + ww) - 2])
+
+
+@pytest.mark.parametrize("shape", [UPTC_SHAPES[1], UPTC_SHAPES[7]])
+def test_upconv_tc_on_offset_view(cuda, shape):
+    """x one element into its storage (not 16-byte aligned): the kernel
+    stages element by element and gives the aligned copy's bits."""
+    x, wt, b, sc, sh, top, left = _fwd_case(cuda, shape)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16
+    for outer in ("replicate", "constant"):
+        assert torch.equal(tk.upconv3x3_chw(view, wt, b, sc, sh, True, outer),
+                           tk.upconv3x3_chw(x, wt, b, sc, sh, True, outer))
+        assert torch.equal(tk.upconv3x3_chw_halo(view, wt, b, sc, sh, True, outer, top, left),
+                           tk.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, top, left))
+
+
+def _plant_ratio(bad, ref):
+    """max abs err over the bf16 check's limit (BF16_TOL of max|ref|)."""
+    err = float((bad.float() - ref.float()).abs().max())
+    return err / (BF16_TOL * float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("case", [0, 3, 5])
+def test_upconv_tc_check_catches_planted_faults(cuda, case):
+    """The bf16 check fails, by at least UPTC_PLANT times its limit, on a
+    forward that is slightly wrong: phases (0, 1) and (1, 0) swapping taps
+    (ky and kx swapped in the weights), one slot of phase (0, 0) skipped
+    (its products taken out of the kernel's y), K14 reading its cached top
+    row's cells as the own edge, the bias dropped."""
+    x, wt, b, sc, sh, top, left = _fwd_case(cuda, UPTC_SHAPES[case])
+    n, c, co, h, w = UPTC_SHAPES[case]
+    ref = tk.upconv3x3_chw_tc_plain(x, wt, b, sc, sh, True, "replicate")
+    y = tk.upconv3x3_chw(x, wt, b, sc, sh, True, "replicate")
+    _assert_fwd_close(y, ref)
+    halo_ref = tk.upconv3x3_chw_halo_tc_plain(x, wt, b, sc, sh, True, "replicate", top, left)
+    _assert_fwd_close(tk.upconv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate", top, left),
+                      halo_ref)
+    a_pad = torch.nn.functional.pad(tk.prenorm(x, sc, sh, True).float(), (1, 1, 1, 1),
+                                    mode="replicate")
+    wc = tk._upconv_phase_weights(wt).to(torch.bfloat16).float().reshape(co, c, 2, 2, 2, 2)
+    skipped = y.float()
+    skipped[..., 0::2, 0::2] -= torch.nn.functional.conv2d(
+        a_pad[:, :, 1 : h + 1, 1 : w + 1], wc[:, :, 0, 0, 1, 1, None, None])
+    for fault, bad, r in (
+            ("ky<->kx", tk.upconv3x3_chw(x, wt.transpose(2, 3).contiguous(), b, sc, sh, True,
+                                         "replicate"), ref),
+            ("slot (1, 1) of phase (0, 0) skipped", skipped, ref),
+            ("the cached top row read as the own edge",
+             tk.upconv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate", None, left), halo_ref),
+            ("the bias dropped", tk.upconv3x3_chw(x, wt, torch.zeros_like(b), sc, sh, True,
+                                                  "replicate"), ref)):
+        assert _plant_ratio(bad, r) >= UPTC_PLANT, fault
+
+
+@pytest.mark.parametrize("c,co", [(104, 52), (13, 3), (128, 64), (11, 19)])
+def test_upconv_tc_packs_weights_as_plain(cuda, c, co):
+    """The entry point's first launch writes the B operands (its wp scratch)
+    bit for bit as ``pack_upconv_weights``: the combined phase weights in
+    float32 in the plain version's order, then rounded."""
+    x, wt, b, sc, sh, _, _ = _fwd_case(cuda, (1, c, co, 8, 16))
+    nc, no = tk.upconv_tc_plan(c, co)
+    wp = torch.full((4, 8 * no, 4, 8 * nc), float("nan"), device=cuda).to(torch.bfloat16)
+    y = torch.empty((1, co, 16, 32), dtype=torch.bfloat16, device=cuda)
+    rc = tk._lib().itg_upconv3x3_chw_tc(
+        x.data_ptr(), wt.data_ptr(), b.data_ptr(), sc.data_ptr(), sh.data_ptr(), None, None,
+        wp.data_ptr(), y.data_ptr(), None, None, None, 1, c, 8, 16, co, 1, 0, nc, no,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(wp.cpu(), tk.pack_upconv_weights(wt.cpu()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upconv_routes_by_dtype(cuda, dtype):
+    """bf16 calls of K9's forward and K14 launch the tensor-core entry
+    point, f32 calls the CUDA-core one; each counts one launch per call."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    tk.reset_launches()
+    x, wt, b, sc, sh, top, left = _fwd_case(cuda, UPTC_SHAPES[5])
+    x, top, left = x.to(dtype), top.to(dtype), left.to(dtype)
+    tk.upconv3x3_chw(x, wt, b, sc, sh, True, "replicate")
+    tk.upconv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate", top, left)
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert tk.ROUTE_LAUNCHES == {**dict.fromkeys(tk.ROUTE_LAUNCHES, 0),
+                                 "itg_upconv3x3_chw_tc": 2 * tc,
+                                 "itg_upconv3x3_chw": 2 * (not tc)}
+    assert (tk.LAUNCHES["upconv3x3_chw"], tk.LAUNCHES["chw_upconv_halo_step"]) == (1, 1)
+
+
+def test_upconv_tc_refuses_wider(cuda):
+    """A bf16 call outside the route's plan raises, naming the limit; nothing
+    falls back to the CUDA-core kernel."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    for shape in ((1, 129, 3, 8, 16), (1, 13, 65, 8, 16)):
+        x, wt, b, sc, sh, _, _ = _fwd_case(cuda, shape)
+        with pytest.raises(ValueError, match="tensor-core up-conv forward"):
+            tk.upconv3x3_chw(x, wt, b, sc, sh, True, "replicate")
+    assert tk.ROUTE_LAUNCHES["itg_upconv3x3_chw"] == 0
 
 
 def _fuse_all_gen(cuda, dtype=torch.float32):

@@ -11,6 +11,9 @@ round y once to bf16; only the order of the float32 sums differs, so an
 output may sit one bf16 ulp (2^-8 relative) apart either way: 2^-7 of
 max|ref|, two ulps."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,7 +41,8 @@ def _oihw(k):
     return torch.from_numpy(np.ascontiguousarray(np.transpose(k, (3, 2, 0, 1))))
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 8), (1, 3, 12, 20, 16), (2, 3, 16, 24, 64)])
+@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 8), (1, 3, 12, 20, 16), (2, 3, 16, 24, 64),
+                                   (2, 3, 12, 16, 12), (1, 3, 8, 12, 136)])
 def test_stem_tc_plain_matches_jax_bf16(shape):
     """``stem_fwd_tc_plain`` against the reference's stem in bf16, given the
     same bf16 image and the unrounded float32 weights and bias (each side
@@ -69,32 +73,44 @@ def test_stem_tc_plain_rounds_weights_and_bias():
     assert not torch.allclose(rounded, unrounded, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("c,co", [(3, 64), (1, 8), (4, 128), (3, 24)])
+@pytest.mark.parametrize("c,co", [(3, 64), (1, 8), (4, 128), (3, 24), (3, 12), (2, 100)])
 def test_pack_stem_weights_reproduces_conv(c, co):
     """The B operand in the kernel's order (row o, column 16 c + 4 ky + kx,
-    bf16) times an explicit im2col of the zero-padded stride-2 windows in
-    the same column order is F.conv2d with the bf16-rounded weights, in
-    float32."""
+    bf16; Co padded to 8 NO with zero rows) times an explicit im2col of the
+    zero-padded stride-2 windows in the same column order is F.conv2d with
+    the bf16-rounded weights, in float32."""
     xa, ka, _ = _case(9, 2, c, 10, 14, co)
     x, w = torch.from_numpy(xa), _oihw(ka)
     wp = tk.pack_stem_weights(w)
-    assert wp.dtype == torch.bfloat16 and tuple(wp.shape) == (co, 16 * c)
+    cop = 8 * tk.stem_tc_plan(c, co)
+    assert wp.dtype == torch.bfloat16 and tuple(wp.shape) == (cop, 16 * c)
+    assert not wp[co:].any()
     cols = F.unfold(x, kernel_size=4, padding=1, stride=2)  # (n, c * 16, h2 * w2)
-    y = torch.einsum("ok,nkp->nop", wp.float(), cols).reshape(2, co, 5, 7)
+    y = torch.einsum("ok,nkp->nop", wp[:co].float(), cols).reshape(2, co, 5, 7)
     ref = F.conv2d(x, w.to(torch.bfloat16).float(), stride=2, padding=1)
     assert torch.allclose(y, ref, rtol=1e-5, atol=1e-5)
-    assert torch.equal(wp[:, 16 * (c - 1) + 4 * 2 + 1], w[:, c - 1, 2, 1].to(torch.bfloat16))
+    assert torch.equal(wp[:co, 16 * (c - 1) + 4 * 2 + 1], w[:, c - 1, 2, 1].to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("c,co", [(3, 12), (3, 136), (3, 0), (5, 64), (0, 64)])
+@pytest.mark.parametrize("c,co", [(3, 0), (5, 64), (0, 64), (3, 513)])
 def test_stem_tc_plan_raises_outside_range(c, co):
     with pytest.raises(ValueError, match="tensor-core stem forward"):
         tk.stem_tc_plan(c, co)
 
 
-@pytest.mark.parametrize("c,co,no", [(3, 64, 8), (1, 8, 1), (4, 128, 16), (3, 24, 3)])
+@pytest.mark.parametrize("c,co,no", [(3, 64, 8), (1, 8, 1), (4, 128, 16), (3, 24, 3), (3, 12, 2),
+                                     (3, 136, 17), (3, 100, 13), (4, 512, 64), (3, 1, 1)])
 def test_stem_tc_plan_groups(c, co, no):
+    """Any Co plans: padded up to 8 NO output channels (zero weight rows)."""
     assert tk.stem_tc_plan(c, co) == no
+
+
+def test_stem_tc_max_co_matches_kernel():
+    """STEM_TC_MAX_CO is the C file's kMaxCo, the limit its entry point
+    holds."""
+    src = (Path(tk.__file__).parents[1] / "csrc" / "stem_fwd_tc.cu").read_text()
+    found = re.search(r"constexpr int kMaxCo = (\d+);", src)
+    assert found and int(found.group(1)) == tk.STEM_TC_MAX_CO
 
 
 def test_stem_fwd_on_cpu_takes_plain_version():
