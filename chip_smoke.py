@@ -17,16 +17,24 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    two calls bit-equal, and at the flagship sub-image's first and last conv
    four planted faults (ky and kx swapped, the replicate ring as zeros, K2
    ignoring its cached top row, one channel's Σy² x 1.01) must fail those
-   checks; f32 on the CUDA-core kernel of ``csrc/conv3x3_chw.cu``. The conv2 and final sites of
+   checks; f32 on the CUDA-core kernel of ``csrc/conv3x3_chw.cu``. K3 routes the
+   same way: bf16 on the tensor-core kernel of ``csrc/conv1x1_tc.cu``, held
+   to ``conv1x1_chw_tc_plain`` (W and b rounded to bf16; each y also within
+   its own limit, ``k3_limits``), two calls bit-equal, and at each sub-image's
+   first shortcut four planted faults (one input channel's weights x 1.01,
+   the bias dropped, the residual dropped, one k16 step skipped) must read
+   at least K3_PLANT times their limits (``check_1x1``); f32 on the
+   CUDA-core kernel of ``csrc/conv1x1_chw.cu``. The conv2 and final sites of
    ``--fuse_up all`` (phase 2b) are the flagship's shapes checked here.
 2b. ``--fuse_up all`` at eval: K14 (K9's forward with the raster's cached
    half-res borders) against its plain version at the flagship's three
    fused conv1 sites of a 384^2 sub-image (blocks 4-6: 104 -> 52 at 48^2
    half resolution, 52 -> 26 at 96^2, 26 -> 13 at 192^2) with no cache, a
    top row, a left column and both; K9 (no stats), the half-res shortcut K3
-   and K10 (no stats) there and at the 768^2 one pass's grid; f32 and bf16,
-   both paddings; timed into the ``:gen_all`` rows with K1/K2 at the conv2
-   and final sites.
+   and K10 (no stats) there and at the 768^2 one pass's grid (K3 as in
+   phase 2, with planted faults at the first site); f32 and bf16, both
+   paddings; timed into the ``:gen_all`` rows with K1/K2 at the conv2 and
+   final sites.
 3. Holds each training kernel (K5 stats, K6, K7, K8, K3 stats and dW, K4's
    adjoint, the K13 stem trio, and the fused up-conv K9 forward with and
    without stats, dx, dW and its residual join K10 with and without stats)
@@ -53,10 +61,17 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    must read at least STEM_PLANT times that check's limit; its library
    call is ``F.conv2d`` writing NHWC (channels_last weights), with NCHW
    and NCHW-then-permute printed beside it (the same at the SSM step's
-   shapes, phase 3b). K4 (one 16-byte vector body for both dtypes) is
+   shapes, phase 3b). K3 (with the residual and the sums, and its dx form)
+   is checked as in phase 2 (``check_1x1``, five planted faults with the
+   sums' at block 5's shapes), and K3-dW routes by dtype too: bf16 on the
+   tensor-core kernel of ``csrc/conv1x1_tc.cu``, held to the plain version
+   itself at the sums' limit, two calls bit-equal, and three planted faults
+   (one input channel's dW x 1.01, the last pixel tile of each image
+   dropped, db from one image only) must read at least K3_PLANT times the
+   limit (``check_1x1_dw``). K4 (one 16-byte vector body for both dtypes) is
    held bit-equal at every path's shapes. The f32 routes (K1, K6, K7,
-   K9 dx, K13's forward) run on the CUDA-core kernels, timed into rows of
-   their own (``:f32_<path>``), and each CUDA-core kernel is timed in
+   K9 dx, K13's forward, K3, K3-dW) run on the CUDA-core kernels, timed into
+   rows of their own (``:f32_<path>``), and each CUDA-core kernel is timed in
    bf16 beside the tensor-core one. Times
    each (CUDA-graph replay) beside its bound, its plain version and one
    PyTorch library call, summed per
@@ -77,7 +92,7 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    (``:f32_parity``, launches from the f32 SSM step parity); and K1/K5, K6, K7 (the
    identity fold), K8, K3 (+ its dx form), K3-dW, K4, K4-bwd and the stem
    at the SSM step's own shapes, summed per SSM step (K1, K6 and K7 on both
-   routes, as in phase 3).
+   routes, as in phase 3; K3 and K3-dW checked with planted faults as there).
 4. Loads the trained flagship checkpoint ``examples/241_300ep_ema.ckpt``
    and runs the generation phase (``generation_phase``):
    - float32, 768^2: the one-pass oracle (a main path, launch counts
@@ -89,9 +104,9 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
      sub-images generated without the halo cache (which set the raster's
      seam limit), and, attention gate zeroed, the bf16 raster canvas held to
      the bf16 one pass;
-   - ``[route]``: the f32 one pass and canvases launch K1/K2 on the CUDA
-     cores only, every bf16 canvas on the tensor cores only (the counted
-     raster exactly its K2 launches).
+   - ``[route]``: the f32 one pass and canvases launch K1/K2 and K3 on the
+     CUDA cores only, every bf16 canvas on the tensor cores only (the
+     counted raster exactly its K2 and K3 launches), and no K3-dW.
 4b. The same generation phase for a freshly loaded flagship with
    ``fuse_up='all'`` (one pass: K9 3, K1 4, K3 3, K10 3; per sub-image K14
    3, K2 4, K3 3, K10 3); its canvases against the unfused engine's on the
@@ -106,8 +121,8 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    largest deviation against its largest value). Then the fused step
    against the unfused one from the same state and crops, both on the
    kernels. The same step parity for the SSM recipe (K15 included). Each
-   f32 step parity runs K1, K6, K7, K9 dx and K13's forward on their CUDA-core entry
-   points only (``[route]``).
+   f32 step parity runs K1, K6, K7, K9 dx, K13's forward, K3 and K3-dW on their
+   CUDA-core entry points only (``[route]``).
    ``step_parity_study.py`` measures the limits' spread and planted faults.
 6. Training runs: 30 bf16 steps each through the train CLI's ``train``:
    the Experiment-1 recipe on ``datasets/241.jpg`` under ``--fuse_up auto``
@@ -115,8 +130,8 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    exact launch counts per step, warm steps/s, the device's busy share
    (torch.profiler), then the written ``.ckpt`` reloaded through the
    sampling loader and rendered to a 384^2 canvas. Each bf16 run launches
-   K1/K2, K6, K7, K9 dx and K13's forward on their tensor-core entry points only
-   (``[route]``).
+   K1/K2, K6, K7, K9 dx, K13's forward, K3 and K3-dW on their tensor-core
+   entry points only (``[route]``).
 7. SSM generation from the SSM run's EMA checkpoint through the same
    generation phase (one-pass launches K15 6, K1 5, K3 2, K4 2; per 1024^2
    canvas K15 384, K2 320, K3 128, K4 128; the bf16 raster against the
@@ -235,8 +250,8 @@ KERNELS = {
     "conv3x3_chw_dx": ("K6", "chw_dx_tc.cu", "pallas_conv.py:775"),
     "conv3x3_chw_dw": ("K7", "chw_dw_tc.cu", "pallas_conv.py:888"),
     "bn_corr": ("K8", "conv3x3_chw_bwd.cu", "pallas_conv.py:1061"),
-    "conv1x1_chw": ("K3", "conv1x1_chw.cu", "pallas_conv.py:2311"),
-    "conv1x1_chw_dw": ("K3-dW", "conv1x1_chw.cu", "pallas_conv.py:2361"),
+    "conv1x1_chw": ("K3", "conv1x1_tc.cu", "pallas_conv.py:2311"),
+    "conv1x1_chw_dw": ("K3-dW", "conv1x1_tc.cu", "pallas_conv.py:2361"),
     "upsample2_chw": ("K4", "upsample2_chw.cu", "pallas_conv.py:2540"),
     "upsample2_chw_bwd": ("K4-bwd", "upsample2_chw.cu", "pallas_conv.py:2560"),
     "upconv3x3_chw": ("K9", "upconv_fwd_tc.cu", "pallas_conv.py:1457"),
@@ -250,8 +265,9 @@ KERNELS = {
     "ssm_embed": ("K15", "ssm_embed_tc.cu", "pallas_ssm.py:343"),
     "ssm_embed_bwd": ("K15-bwd", "ssm_embed_tc.cu", "pallas_ssm.py:392"),
 }
-# The kernels with two routes (K15: ops/ssm.py; K1/K2, K6, K7, K9/K14's forward, K9 dx
-# and K13's forward: ops/kernels.py): the main paths run bf16 on the tensor-core kernels above;
+# The kernels with two routes (K15: ops/ssm.py; K1/K2, K6, K7, K9/K14's forward, K9 dx,
+# K13's forward, K3 and K3-dW: ops/kernels.py): the main paths run bf16 on the tensor-core
+# kernels above;
 # float32 (step parity, the f32 raster) keeps the CUDA-core kernels, reported
 # in rows of their own: kernel -> (C entry point, source)
 F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
@@ -263,19 +279,22 @@ F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
              "upconv3x3_chw_dx": ("itg_upconv3x3_chw_dx", "upconv3x3_chw.cu"),
              "stem_fwd": ("itg_stem_fwd", "stem4x4s2.cu"),
              "upconv3x3_chw": ("itg_upconv3x3_chw", "upconv3x3_chw.cu"),
-             "chw_upconv_halo_step": ("itg_upconv3x3_chw", "upconv3x3_chw.cu")}
+             "chw_upconv_halo_step": ("itg_upconv3x3_chw", "upconv3x3_chw.cu"),
+             "conv1x1_chw": ("itg_conv1x1_chw", "conv1x1_chw.cu"),
+             "conv1x1_chw_dw": ("itg_conv1x1_chw_dw", "conv1x1_chw.cu")}
 TC_ENTRY = {"conv3x3_chw": "itg_conv3x3_chw_tc", "chw_halo_step": "itg_conv3x3_chw_tc",
             "ssm_embed": "itg_ssm_embed_tc_fwd", "ssm_embed_bwd": "itg_ssm_embed_tc_bwd",
             "conv3x3_chw_dx": "itg_conv3x3_chw_dx_tc", "conv3x3_chw_dw": "itg_conv3x3_chw_dw_tc",
             "upconv3x3_chw_dx": "itg_upconv3x3_chw_dx_tc", "stem_fwd": "itg_stem_fwd_tc",
-            "upconv3x3_chw": "itg_upconv3x3_chw_tc", "chw_upconv_halo_step": "itg_upconv3x3_chw_tc"}
-# K1/K2, K6, K7, K9 dx, K13's forward and K9/K14's forward (ops/kernels.py's
-# ROUTE_LAUNCHES): their bf16 rows also carry the CUDA-core kernel's time in
-# bf16 (the design the tensor-core one replaced, timed in the same run), and
-# their f32 route has a row for each training path (K2 and K14 run only at
-# eval: none)
+            "upconv3x3_chw": "itg_upconv3x3_chw_tc", "chw_upconv_halo_step": "itg_upconv3x3_chw_tc",
+            "conv1x1_chw": "itg_conv1x1_chw_tc", "conv1x1_chw_dw": "itg_conv1x1_chw_dw_tc"}
+# K1/K2, K6, K7, K9 dx, K13's forward, K9/K14's forward, K3 and K3-dW
+# (ops/kernels.py's ROUTE_LAUNCHES): their bf16 rows also carry the CUDA-core
+# kernel's time in bf16 (the design the tensor-core one replaced, timed in the
+# same run), and their f32 route has a row for each training path (K2 and
+# K14 run only at eval: none)
 ROUTED = ("conv3x3_chw", "chw_halo_step", "conv3x3_chw_dx", "conv3x3_chw_dw", "upconv3x3_chw_dx",
-          "stem_fwd", "upconv3x3_chw", "chw_upconv_halo_step")
+          "stem_fwd", "upconv3x3_chw", "chw_upconv_halo_step", "conv1x1_chw", "conv1x1_chw_dw")
 # K2's four border cases: (top row cached, left column cached)
 BORDERS = {"no cache": (False, False), "top only": (True, False), "left only": (False, True),
            "top and left": (True, True)}
@@ -403,6 +422,13 @@ STEM_PLANT = 10.0
 STEM_ANY_CO = (4, 12, 100, 136, 256)
 # K9/K14's bf16 forward: the same for its planted faults
 UP_PLANT = 10.0
+# K3's and K3-dW's bf16 routes: the same for their planted faults, each
+# against the limit of the check it must fail (K3's y: each output's own
+# limit, k3_limits; the sums and dW/db: SUM_TOL of max|ref|)
+K3_PLANT = 10.0
+# the tensor-core dW's pixel tile (csrc/conv1x1_tc.cu: kDwTP): a planted
+# fault drops the last one of each image
+DW1X1_TILE = 256
 
 
 def fail(msg: str):
@@ -422,15 +448,18 @@ def route_want(per_kernel: dict, tc: bool) -> dict:
     return want
 
 
-def fwd_route(label: str, tc: bool, want=None, up_want=None) -> None:
-    """K1 / K2's and K9 / K14's launches by C entry point since the last
-    call, which then start again from 0: the bf16 route's (``tc``) or the
-    float32 one's only; K1 / K2 at least once (or exactly ``want``), K9 /
-    K14 exactly ``up_want`` where it is given."""
+def fwd_route(label: str, tc: bool, want=None, up_want=None, k3_want=None) -> None:
+    """The eval kernels' launches by C entry point since the last call, which
+    then start again from 0: the bf16 route's (``tc``) or the float32 one's
+    only; K1 / K2 and K3 at least once (or exactly ``want`` and
+    ``k3_want``), K9 / K14 exactly ``up_want`` where it is given, K3-dW
+    none."""
     from infinite_texture_gans_torch.ops import kernels
 
     for tag, kernel, need, at_least_one in (("K1 / K2", "conv3x3_chw", want, True),
-                                            ("K9 / K14", "upconv3x3_chw", up_want, False)):
+                                            ("K9 / K14", "upconv3x3_chw", up_want, False),
+                                            ("K3", "conv1x1_chw", k3_want, True),
+                                            ("K3-dW", "conv1x1_chw_dw", 0, False)):
         on, off = (TC_ENTRY[kernel], F32_ROUTE[kernel][0])[:: 1 if tc else -1]
         counts = {e: kernels.ROUTE_LAUNCHES[e] for e in (on, off)}
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(counts, 0))
@@ -468,6 +497,24 @@ def to_u8(x):
 
 def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOP_PER_S) -> float:
     return max(nbytes / PEAK_BYTES_PER_S, flops / peak) * 1e3
+
+
+def k3_limits(x, wt, b, res, ref):
+    """Each bf16 K3 output's own limit: one bf16 step of its reference value
+    (2^-7 of it, a rounding either way) and a bound on the float32 sums'
+    reorder, 4 (C + 2) 2^-24 of the sum of the magnitudes of its terms
+    (kernel and plain version add the same exact products of bf16 values,
+    the bias and the residual in other orders; the tensor cores'
+    accumulation may round toward zero)."""
+    import torch
+    import torch.nn.functional as F
+
+    co, c = wt.shape[0], x.shape[1]
+    w16 = wt.detach().reshape(co, c, 1, 1).to(torch.bfloat16).float().abs()
+    mag = F.conv2d(x.float().abs(), w16) + b.to(torch.bfloat16).float().abs().reshape(1, -1, 1, 1)
+    if res is not None:
+        mag = mag + res.float().abs()
+    return 2.0**-7 * ref.float().abs() + 4 * (c + 2) * 2.0**-24 * mag
 
 
 def device_busy_ms(prof):
@@ -842,7 +889,7 @@ def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, 
     one_launches = dict(kernels.LAUNCHES)
     print(f"[path one_pass {label}] f32 {th}x{tw} patches, launches {json.dumps(one_launches)}")
     fwd_route(f"{label} one pass f32 {th}x{tw} patches", False, one_launches["conv3x3_chw"],
-              one_launches["upconv3x3_chw"])
+              one_launches["upconv3x3_chw"], one_launches["conv1x1_chw"])
     want = {**dict.fromkeys(kernels.LAUNCHES, 0), **one_pass_want}
     if one_launches != want:
         fail(f"{label} one-pass launches {one_launches} != {want}")
@@ -880,7 +927,8 @@ def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, 
           f"{json.dumps(raster_launches)}")
     fwd_route(f"{label} raster bf16 1024^2", True,
               raster_launches["chw_halo_step"] + raster_launches["conv3x3_chw"],
-              raster_launches["chw_upconv_halo_step"] + raster_launches["upconv3x3_chw"])
+              raster_launches["chw_upconv_halo_step"] + raster_launches["upconv3x3_chw"],
+              raster_launches["conv1x1_chw"])
     want = {**dict.fromkeys(kernels.LAUNCHES, 0), **{k: v * n_sub for k, v in per_sub.items()}}
     if n_sub != n_sub_want or raster_launches != want:
         fail(f"{label} raster launches {raster_launches} != {want} for {n_sub} sub-images")
@@ -1133,7 +1181,8 @@ def main() -> int:
     gstats = table()  # per 192^2 SSM sub-image (SSM generation)
     fstats = table()  # K15's float32 route, per SSM step at the training shapes
     tstats = {tail: table() for tail in STEP_LAUNCHES}  # per training step, each tail
-    dstats = {tail: table() for tail in STEP_LAUNCHES}  # K1 / K6 / K7 / K9 dx / K13 f32 route, per step
+    # the f32 routes of K1 / K6 / K7 / K9 dx / K13 / K3 / K3-dW, per step
+    dstats = {tail: table() for tail in STEP_LAUNCHES}
 
     def compare(name, shape, got, ref, exact=False, into=None, floor=1.0):
         """Values within the dtype's limit of max(floor, max|ref|)."""
@@ -1184,8 +1233,9 @@ def main() -> int:
         the flagship's table by default, and in ``also`` where another path
         runs the same shape), else per step of each training tail named (a
         shape both tails run goes into both; with ``f32_route``, into the
-        K1 / K6 / K7 / K9 dx / K13 f32 route's tables). ``old_fn``: the same function on the
-        CUDA-core kernel that the tensor-core one replaced, timed beside it."""
+        K1 / K6 / K7 / K9 dx / K13 / K3 / K3-dW f32 route's tables).
+        ``old_fn``: the same function on the CUDA-core kernel that the
+        tensor-core one replaced, timed beside it."""
         ms, plain, lib = device_ms(kernel_fn), device_ms(plain_fn), device_ms(lib_fn)
         old = device_ms(old_fn) if old_fn is not None else 0.0
         eager = eager_ms(kernel_fn)
@@ -1472,6 +1522,117 @@ def main() -> int:
             if not r_ >= STEM_PLANT:
                 fail(f"stem_fwd {tag}: a planted {fault} reads only {r_:.2f}x the limit")
 
+    def check_1x1(where, shape_s, x, wt, b, res=None, stats=False, plant=False):
+        """K3 (``conv1x1_chw_add``; without ``res`` the plain shortcut or the
+        dx form) against its plain version. bf16 runs the tensor cores: y
+        within BF16_TOL of max|ref| of the plain version with W and b rounded
+        to bf16 (``conv1x1_chw_tc_plain``) and each y within its own limit
+        (``k3_limits``), the unrounded one's distance reported, with ``stats``
+        the sums within SUM_TOL of the plain sums of the stored y, two calls
+        bit-equal, and with ``plant`` up to five planted faults (one input
+        channel's weights x 1.01, the bias dropped, the residual dropped,
+        one k16 step skipped, one channel's Σy² x 1.01) must read at least
+        K3_PLANT times their limits. f32 runs the CUDA cores, held to the
+        plain version."""
+        tc = x.dtype == torch.bfloat16
+        tag = (f"{where} {shape_s}{' +res' if res is not None else ''}{' +stats' if stats else ''} "
+               f"[{'tensor cores' if tc else 'CUDA cores'}]")
+        out = kernels.conv1x1_chw_add(x, wt, b, res, want_stats=stats)
+        got = out if stats else (out,)
+        y = got[0]
+        ref = (kernels.conv1x1_chw_tc_plain if tc else kernels.conv1x1_chw_plain)(x, wt, b, res)
+        compare("conv1x1_chw", tag, y, ref, floor=0.0 if tc else 1.0)
+        if stats:
+            s2_ref = (y.float() ** 2).sum(dim=(0, 2, 3))
+            compare_sum("conv1x1_chw", f"Σy {tag}", got[1], y.float().sum(dim=(0, 2, 3)))
+            compare_sum("conv1x1_chw", f"Σy² {tag}", got[2], s2_ref)
+        if not tc:
+            return
+        lim = k3_limits(x, wt, b, res, ref)
+
+        def ratio(bad):  # the worst output's error over its own limit
+            return float(((bad.float() - ref.float()).abs() / lim).max())
+
+        worst = ratio(y)
+        print(f"[check] conv1x1_chw {tag}: each y within its own limit (a bf16 step of its "
+              f"reference value + the f32 reorder bound): worst err / limit {worst:.3f}")
+        if not worst <= 1.0:
+            fail(f"conv1x1_chw {tag}: an output is {worst:.3f}x its own limit")
+        unrounded = kernels.conv1x1_chw_plain(x, wt, b, res).float()
+        moved = float((y.float() - unrounded).abs().max() / unrounded.abs().max())
+        print(f"[check] conv1x1_chw {tag}: against the plain version without the rounding of W "
+              f"and b, max abs err / max|ref| {moved:.3e} (reported)")
+        again = kernels.conv1x1_chw_add(x, wt, b, res, want_stats=stats)
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again if stats else (again,)))
+        print(f"[check] conv1x1_chw {tag}: two calls {'bit-equal' if same else 'differ'}")
+        if not same:
+            fail(f"conv1x1_chw {tag}: two bf16 calls differ")
+        if not plant:
+            return
+        w_ch = wt.clone()
+        w_ch[:, int(wt.reshape(wt.shape[0], -1).abs().amax(dim=0).argmax())] *= 1.01
+        skip = wt.clone()
+        skip[:, :16] = 0
+        plants = [("one input channel's weights x 1.01 (the column of the largest weight)",
+                   ratio(kernels.conv1x1_chw_add(x, w_ch, b, res))),
+                  ("the bias dropped", ratio(kernels.conv1x1_chw_add(x, wt, 0 * b, res))),
+                  ("one k16 step (input channels 0-15) skipped",
+                   ratio(kernels.conv1x1_chw_add(x, skip, b, res)))]
+        if res is not None:
+            plants.append(("the residual dropped", ratio(kernels.conv1x1_chw(x, wt, b))))
+        if stats:
+            s2_bad = got[2].clone()
+            s2_bad[int(s2_bad.abs().argmax())] *= 1.01
+            plants.append(("one channel's Σy² x 1.01", float((s2_bad - s2_ref).abs().max())
+                           / (SUM_TOL * float(s2_ref.abs().max()))))
+        for fault, r_ in plants:
+            print(f"[check] conv1x1_chw {tag}: planted {fault}: max err / limit {r_:.2f} (must "
+                  f"reach {K3_PLANT:g})")
+            if not r_ >= K3_PLANT:
+                fail(f"conv1x1_chw {tag}: a planted {fault} reads only {r_:.2f}x the limit")
+
+    def check_1x1_dw(tag, x, gy, plant=False):
+        """K3-dW against its plain version: dW and db within SUM_TOL of the
+        plain version on both routes (bf16 on the tensor cores: its operands
+        are bf16 values, so the plain version computes its function); bf16
+        two calls bit-equal and, with ``plant``, three planted faults (one
+        input channel's dW x 1.01, the last pixel tile of each image dropped,
+        db taken from one image only) must read at least K3_PLANT times the
+        limit."""
+        tc = x.dtype == torch.bfloat16
+        tag = f"{tag} [{'tensor cores' if tc else 'CUDA cores'}]"
+        got = kernels.conv1x1_chw_dw(x, gy)
+        ref = kernels.conv1x1_chw_dw_plain(x, gy)
+        compare_sum("conv1x1_chw_dw", f"dW {tag}", got[0], ref[0])
+        compare_sum("conv1x1_chw_dw", f"db {tag}", got[1], ref[1])
+        if not tc:
+            return
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, kernels.conv1x1_chw_dw(x, gy)))
+        print(f"[check] conv1x1_chw_dw {tag}: two calls {'bit-equal' if same else 'differ'}")
+        if not same:
+            fail(f"conv1x1_chw_dw {tag}: two bf16 calls differ")
+        if not plant:
+            return
+
+        def ratio(bad):  # the worse of dW's and db's errors over their limits
+            return max(float((a - r).abs().max()) / (SUM_TOL * float(r.abs().max()))
+                       for a, r in zip(bad, ref))
+
+        one = got[0].clone()
+        one[:, int(ref[0].abs().amax(dim=0).argmax())] *= 1.01
+        keep = (x.shape[2] * x.shape[3] - 1) // DW1X1_TILE * DW1X1_TILE
+        xf, gf = x.flatten(2)[..., :keep].float(), gy.flatten(2)[..., :keep].float()
+        for fault, bad in (("one input channel's dW x 1.01", (one, got[1])),
+                           ("the last pixel tile of each image dropped",
+                            (torch.einsum("nop,ncp->oc", gf, xf), gf.sum(dim=(0, 2)))),
+                           ("db taken from one image only",
+                            (got[0], gy[:1].float().sum(dim=(0, 2, 3))))):
+            r_ = ratio(bad)
+            print(f"[check] conv1x1_chw_dw {tag}: planted {fault}: max abs err / limit {r_:.2f} "
+                  f"(must reach {K3_PLANT:g})")
+            if not r_ >= K3_PLANT:
+                fail(f"conv1x1_chw_dw {tag}: a planted {fault} reads only {r_:.2f}x the limit")
+
     def time_stem(shape_s, x, wt, b, nbytes, flops, tails):
         """K13's forward, twice per step of each tail in ``tails``: bf16 on
         the tensor cores (its CUDA-core kernel in bf16 timed beside it),
@@ -1519,6 +1680,12 @@ def main() -> int:
           f"rounding (*_tc_plain), K9's Σy, Σy² <= {SUM_TOL:g} * max|ref| of the plain sums of the "
           f"stored y; two calls bit-equal (fixed-order sums, no atomics); planted faults >= "
           f"{UP_PLANT:g}x the limit; f32 (CUDA cores) as above")
+    print(f"[tolerance] K3, bf16 (tensor cores, which round W and b to bf16): y max abs err <= "
+          f"{BF16_TOL:g} * max|ref| of the plain version with that rounding (conv1x1_chw_tc_plain), "
+          "and each y within its own limit, 2^-7 of its reference value + 4 (C + 2) 2^-24 of the "
+          "sum of its terms' magnitudes (a bf16 step either way; the f32 sums' reorder); Σy, Σy² <= "
+          f"{SUM_TOL:g} * max|ref| of the plain sums of the stored y; two calls bit-equal (fixed-order "
+          f"sums, no atomics); planted faults >= {K3_PLANT:g}x their limits; f32 (CUDA cores) as above")
     print(f"[tolerance] K1 / K2, bf16 (tensor cores, which round the weights to bf16): y max abs "
           f"err <= {BF16_TOL:g} * max|ref| of the plain version with that rounding (*_tc_plain), "
           f"K5's Σy, Σy² <= {SUM_TOL:g} * max|ref| of the plain sums of the stored y; two calls "
@@ -1586,11 +1753,9 @@ def main() -> int:
                 b = 0.1 * randn(g, co)
                 res = randn(g, 1, co, h, w).to(dtype)
                 shape_s = f"{c}->{co} @{h}x{w}"
-                compare("conv1x1_chw", f"{where} {shape_s}", kernels.conv1x1_chw(x, wt, b),
-                        kernels.conv1x1_chw_plain(x, wt, b))
-                compare("conv1x1_chw", f"{where} {shape_s} +res",
-                        kernels.conv1x1_chw_add(x, wt, b, res),
-                        kernels.conv1x1_chw_plain(x, wt, b, res))
+                # planted faults at each sub-image's first shortcut
+                check_1x1(where, shape_s, x, wt, b)
+                check_1x1(where, shape_s, x, wt, b, res, plant=timed and i == 0)
                 if not timed or dtype != torch.bfloat16:
                     continue
                 es = x.element_size()
@@ -1599,8 +1764,9 @@ def main() -> int:
                 wl, bl = wt.to(dtype), b.to(dtype)
                 account("conv1x1_chw", shape_s,
                         lambda: kernels.conv1x1_chw_add(x, wt, b, res),
-                        lambda: kernels.conv1x1_chw_plain(x, wt, b, res),
-                        lambda: torch.add(F.conv2d(x, wl, bl), res), nbytes, flops, into=into)
+                        lambda: kernels.conv1x1_chw_tc_plain(x, wt, b, res),
+                        lambda: torch.add(F.conv2d(x, wl, bl), res), nbytes, flops, into=into,
+                        old_fn=lambda: kernels._conv1x1_cuda_cores(x, wt, b, res))
 
         for i, (c, h, w) in enumerate(up2):
             for dtype in (torch.float32, torch.bfloat16):
@@ -1645,8 +1811,8 @@ def main() -> int:
                 for outer in ("replicate", "constant"):
                     check_up(f"all {where}", shape_s, x, wt, b, sc, sh, top, left, outer, halo=timed,
                              plant=timed and i in (0, len(shapes) - 1))
-                compare("conv1x1_chw", f"all {where} shortcut {c}->{co} @{h}x{w}",
-                        kernels.conv1x1_chw(x, w3, b3), kernels.conv1x1_chw_plain(x, w3, b3))
+                check_1x1(f"all {where} shortcut", f"{c}->{co} @{h}x{w}", x, w3, b3,
+                          plant=timed and i == 0)
                 k10_s = f"(1, {co}, {h}x{w}) + (1, {co}, {2 * h}x{2 * w})"
                 compare("upsample2_chw_add", f"all {where} {k10_s}",
                         kernels.upsample2_chw_add(s_half, res),
@@ -1679,8 +1845,9 @@ def main() -> int:
                                                                   None))
                 account("conv1x1_chw", f"shortcut {c}->{co} @{h}x{w}",
                         lambda: kernels.conv1x1_chw(x, w3, b3),
-                        lambda: kernels.conv1x1_chw_plain(x, w3, b3), lambda: F.conv2d(x, w3l, b3l),
-                        (c + co) * h * w * es + (co * c + co) * 4, 2.0 * co * c * h * w, into=astats)
+                        lambda: kernels.conv1x1_chw_tc_plain(x, w3, b3), lambda: F.conv2d(x, w3l, b3l),
+                        (c + co) * h * w * es + (co * c + co) * 4, 2.0 * co * c * h * w, into=astats,
+                        old_fn=lambda: kernels._conv1x1_cuda_cores(x, w3, b3, None))
                 account("upsample2_chw_add", k10_s, lambda: kernels.upsample2_chw_add(s_half, res),
                         lambda: kernels.upsample2_chw_add_plain(s_half, res),
                         lambda: torch.add(F.interpolate(s_half, scale_factor=2, mode="nearest"), res),
@@ -1704,6 +1871,9 @@ def main() -> int:
     print(f"[tolerance] sums (Σy, Σy², d(scale), d(shift), dW, db): max abs err <= {SUM_TOL:g} * "
           "max|ref|: float32 reductions in another order, partly by atomics; K5's sums are held "
           "to the sums of the kernel's own stored y; K4's adjoint bit-equal")
+    print("[tolerance] K3-dW, bf16 (tensor cores): dW and db as the sums above, against the plain "
+          "version itself (both operands are bf16 values); two calls bit-equal (fixed-order partial "
+          f"sums, no atomics); planted faults >= {K3_PLANT:g}x the limit")
     print("[tolerance] K7, bf16 (tensor cores): dW and db as the sums above, against the plain "
           "version itself (both operands are bf16 values, every product exact in float32); two "
           "calls bit-equal (fixed-order partial sums, no atomics)")
@@ -1804,36 +1974,36 @@ def main() -> int:
             wT = wt.reshape(co, c).t().contiguous()
             zc = torch.zeros(c, device=dev)
             shape_s = f"({n}, {c}->{co}, {h}x{w})"
-            y, s1, s2 = kernels.conv1x1_chw_add(x, wt, b, res, want_stats=True)
-            compare("conv1x1_chw", f"train {shape_s} +res", y,
-                    kernels.conv1x1_chw_plain(x, wt, b, res))
-            compare_sum("conv1x1_chw", f"Σy {shape_s}", s1, y.float().sum(dim=(0, 2, 3)))
-            compare_sum("conv1x1_chw", f"Σy² {shape_s}", s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
-            compare("conv1x1_chw", f"dx form {shape_s}", kernels.conv1x1_chw(gy, wT, zc),
-                    kernels.conv1x1_chw_plain(gy, wT, zc))
-            dw, db = kernels.conv1x1_chw_dw(x, gy)
-            dw_r, db_r = kernels.conv1x1_chw_dw_plain(x, gy)
-            compare_sum("conv1x1_chw_dw", f"dW {shape_s}", dw, dw_r)
-            compare_sum("conv1x1_chw_dw", f"db {shape_s}", db, db_r)
-            if not timed:
-                continue
+            # planted faults at block 5's shapes (52 -> 26 at 192^2)
+            check_1x1("train", shape_s, x, wt, b, res, stats=True, plant=i == 0)
+            check_1x1("train dx form", f"({n}, {co}->{c}, {h}x{w})", gy, wT, zc)
+            check_1x1_dw(f"train {shape_s}", x, gy, plant=i == 0)
             act = n * h * w
             wl, bl, wTl = wt.to(dtype), b.to(dtype), wT.reshape(c, co, 1, 1).to(dtype)
-            account("conv1x1_chw", f"{shape_s} +res +stats",
+            f32 = {} if timed else dict(peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+            route = "tensor cores" if timed else "CUDA cores, f32"
+            account("conv1x1_chw", f"{shape_s} +res +stats [{route}]",
                     lambda: kernels.conv1x1_chw_add(x, wt, b, res, want_stats=True),
-                    lambda: kernels.conv1x1_chw_plain(x, wt, b, res, want_stats=True),
+                    lambda: (kernels.conv1x1_chw_tc_plain if timed else kernels.conv1x1_chw_plain)(
+                        x, wt, b, res, want_stats=True),
                     lambda: torch.add(F.conv2d(x, wl, bl), res),
                     act * (c + 2 * co) * es + (co * c + 3 * co) * 4, 2.0 * act * co * c,
-                    tails=("off",))
-            account("conv1x1_chw", f"dx form ({n}, {co}->{c}, {h}x{w})",
+                    tails=("off",), **f32,
+                    old_fn=(lambda: kernels._conv1x1_cuda_cores(x, wt, b, res, True)) if timed
+                    else None)
+            account("conv1x1_chw", f"dx form ({n}, {co}->{c}, {h}x{w}) [{route}]",
                     lambda: kernels.conv1x1_chw(gy, wT, zc),
-                    lambda: kernels.conv1x1_chw_plain(gy, wT, zc),
+                    lambda: (kernels.conv1x1_chw_tc_plain if timed else kernels.conv1x1_chw_plain)(
+                        gy, wT, zc),
                     lambda: F.conv2d(gy, wTl), act * (c + co) * es + (co * c + c) * 4,
-                    2.0 * act * co * c, tails=("off",))
-            account("conv1x1_chw_dw", shape_s, lambda: kernels.conv1x1_chw_dw(x, gy),
+                    2.0 * act * co * c, tails=("off",), **f32,
+                    old_fn=(lambda: kernels._conv1x1_cuda_cores(gy, wT, zc, None)) if timed
+                    else None)
+            account("conv1x1_chw_dw", f"{shape_s} [{route}]", lambda: kernels.conv1x1_chw_dw(x, gy),
                     lambda: kernels.conv1x1_chw_dw_plain(x, gy),
                     lambda: torch.nn.grad.conv2d_weight(x, wl.shape, gy),
-                    act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("off",))
+                    act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("off",),
+                    **f32, old_fn=(lambda: kernels._conv1x1_dw_cuda_cores(x, gy)) if timed else None)
         for i, (c, h, w) in enumerate(up2_t):
             g_ = torch.Generator(device=dev).manual_seed(500 + i)
             x = randn(g_, n, c, h, w).to(dtype)
@@ -1919,14 +2089,9 @@ def main() -> int:
             half_s = f"({n}, {c}->{co}, {h}x{w})"
             half_t = f"({n}, {co}->{c}, {h}x{w})"
             up_s = f"({n}, {co}, {2 * h}, {2 * w})"
-            compare("conv1x1_chw", f"train auto shortcut {half_s}", kernels.conv1x1_chw(x, w3, b3),
-                    kernels.conv1x1_chw_plain(x, w3, b3))
-            compare("conv1x1_chw", f"train auto dx form {half_t}",
-                    kernels.conv1x1_chw(s_half, w3T, zc), kernels.conv1x1_chw_plain(s_half, w3T, zc))
-            dw, db = kernels.conv1x1_chw_dw(x, s_half)
-            dw_r, db_r = kernels.conv1x1_chw_dw_plain(x, s_half)
-            compare_sum("conv1x1_chw_dw", f"dW train auto {half_s}", dw, dw_r)
-            compare_sum("conv1x1_chw_dw", f"db train auto {half_s}", db, db_r)
+            check_1x1("train auto shortcut", half_s, x, w3, b3, plant=i == 0)
+            check_1x1("train auto dx form", half_t, s_half, w3T, zc)
+            check_1x1_dw(f"train auto {half_s}", x, s_half, plant=i == 0)
             compare("upsample2_chw_bwd", f"train auto {up_s}", kernels.upsample2_chw_bwd(gy),
                     kernels.upsample2_chw_bwd_plain(gy), exact=True)
             for outer in ("replicate", "constant"):
@@ -1953,7 +2118,23 @@ def main() -> int:
             dx_bytes = act * (2 * c + 4 * co) * es + wbytes + 2 * c * 4
             wt4 = kernels._upconv_dx_weights(wt)
             a_half = kernels.prenorm(x, sc, sh, True)
-            if not timed:  # K9's and K9 dx's f32 routes (CUDA cores), in rows of their own
+            w3l, b3l, w3Tl = w3.to(dtype), b3.to(dtype), w3T.reshape(c, co, 1, 1).to(dtype)
+            if not timed:  # the f32 routes (CUDA cores) of K9, K9 dx, K3 and K3-dW: rows of their own
+                f32 = dict(tails=("auto",), peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                account("conv1x1_chw", f"shortcut {half_s} [CUDA cores, f32]",
+                        lambda: kernels.conv1x1_chw(x, w3, b3),
+                        lambda: kernels.conv1x1_chw_plain(x, w3, b3), lambda: F.conv2d(x, w3l, b3l),
+                        act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, **f32)
+                account("conv1x1_chw", f"dx form {half_t} [CUDA cores, f32]",
+                        lambda: kernels.conv1x1_chw(s_half, w3T, zc),
+                        lambda: kernels.conv1x1_chw_plain(s_half, w3T, zc),
+                        lambda: F.conv2d(s_half, w3Tl), act * (c + co) * es + (co * c + c) * 4,
+                        2.0 * act * co * c, **f32)
+                account("conv1x1_chw_dw", f"{half_s} [CUDA cores, f32]",
+                        lambda: kernels.conv1x1_chw_dw(x, s_half),
+                        lambda: kernels.conv1x1_chw_dw_plain(x, s_half),
+                        lambda: torch.nn.grad.conv2d_weight(x, w3l.shape, s_half),
+                        act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, **f32)
                 account("upconv3x3_chw", f"{shape_s} +stats [CUDA cores, f32]",
                         lambda: kernels.upconv3x3_chw(x, wt, b, sc, sh, True, want_stats=True),
                         lambda: kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, want_stats=True),
@@ -1996,18 +2177,23 @@ def main() -> int:
                     lambda: kernels.upsample2_chw_add_plain(s_half, res, want_stats=True),
                     lambda: torch.add(F.interpolate(s_half, scale_factor=2, mode="nearest"), res),
                     9 * act * co * es + 2 * co * 4, 3.0 * 4 * act * co, tails=("auto",))
-            w3l, b3l, w3Tl = w3.to(dtype), b3.to(dtype), w3T.reshape(c, co, 1, 1).to(dtype)
-            account("conv1x1_chw", f"shortcut {half_s}", lambda: kernels.conv1x1_chw(x, w3, b3),
-                    lambda: kernels.conv1x1_chw_plain(x, w3, b3), lambda: F.conv2d(x, w3l, b3l),
-                    act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("auto",))
-            account("conv1x1_chw", f"dx form {half_t}", lambda: kernels.conv1x1_chw(s_half, w3T, zc),
-                    lambda: kernels.conv1x1_chw_plain(s_half, w3T, zc),
+            account("conv1x1_chw", f"shortcut {half_s} [tensor cores]",
+                    lambda: kernels.conv1x1_chw(x, w3, b3),
+                    lambda: kernels.conv1x1_chw_tc_plain(x, w3, b3), lambda: F.conv2d(x, w3l, b3l),
+                    act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("auto",),
+                    old_fn=lambda: kernels._conv1x1_cuda_cores(x, w3, b3, None))
+            account("conv1x1_chw", f"dx form {half_t} [tensor cores]",
+                    lambda: kernels.conv1x1_chw(s_half, w3T, zc),
+                    lambda: kernels.conv1x1_chw_tc_plain(s_half, w3T, zc),
                     lambda: F.conv2d(s_half, w3Tl), act * (c + co) * es + (co * c + c) * 4,
-                    2.0 * act * co * c, tails=("auto",))
-            account("conv1x1_chw_dw", half_s, lambda: kernels.conv1x1_chw_dw(x, s_half),
+                    2.0 * act * co * c, tails=("auto",),
+                    old_fn=lambda: kernels._conv1x1_cuda_cores(s_half, w3T, zc, None))
+            account("conv1x1_chw_dw", f"{half_s} [tensor cores]",
+                    lambda: kernels.conv1x1_chw_dw(x, s_half),
                     lambda: kernels.conv1x1_chw_dw_plain(x, s_half),
                     lambda: torch.nn.grad.conv2d_weight(x, w3l.shape, s_half),
-                    act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("auto",))
+                    act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("auto",),
+                    old_fn=lambda: kernels._conv1x1_dw_cuda_cores(x, s_half))
             account("upsample2_chw_bwd", up_s, lambda: kernels.upsample2_chw_bwd(gy),
                     lambda: kernels.upsample2_chw_bwd_plain(gy),
                     lambda: F.avg_pool2d(gy, 2, divisor_override=1), 5.0 * act * co * es,
@@ -2218,15 +2404,10 @@ def main() -> int:
         ws = randn(g_, 64, 3, 4, 4) * 48 ** -0.5
         bs = randn(g_, 64)  # unit scale: a dropped bias reads well above the bf16 limit
         gs = randn(g_, n, h // 2, h // 2, 64).to(dtype)
-        tag = f"ssm ({n}, {c}->{co}, {h}x{h})"
-        y, s1, s2 = kernels.conv1x1_chw_add(x, wt, b, res, want_stats=True)
-        compare("conv1x1_chw", f"{tag} +res", y, kernels.conv1x1_chw_plain(x, wt, b, res))
-        compare_sum("conv1x1_chw", f"Σy {tag}", s1, y.float().sum(dim=(0, 2, 3)))
-        compare("conv1x1_chw", f"dx form {tag}", kernels.conv1x1_chw(gy, wT, zc),
-                kernels.conv1x1_chw_plain(gy, wT, zc))
-        dw, db = kernels.conv1x1_chw_dw(x, gy)
-        dw_r, db_r = kernels.conv1x1_chw_dw_plain(x, gy)
-        compare_sum("conv1x1_chw_dw", f"dW {tag}", dw, dw_r)
+        tag = f"({n}, {c}->{co}, {h}x{h})"
+        check_1x1("ssm", tag, x, wt, b, res, stats=True, plant=True)
+        check_1x1("ssm dx form", f"({n}, {co}->{c}, {h}x{h})", gy, wT, zc)
+        check_1x1_dw(f"ssm {tag}", x, gy, plant=True)
         compare("upsample2_chw", f"ssm ({n}, {c}, {h // 2}, {h // 2})", kernels.upsample2_chw(x_half),
                 kernels.upsample2_chw_plain(x_half), exact=True)
         compare("upsample2_chw_bwd", f"ssm ({n}, {c}, {h}, {h})", kernels.upsample2_chw_bwd(g_up),
@@ -2241,24 +2422,34 @@ def main() -> int:
         sflops = 2.0 * sact * 64 * 48
         sbytes = (n * 3 * h * h + sact * 64) * es + (64 * 48 + 64) * 4
         time_stem(stem_s, xs, ws, bs, sbytes, sflops, ("ssm",))
-        if not timed:
-            continue
         act = n * h * h
         wl, bl, wTl = wt.to(dtype), b.to(dtype), wT.reshape(c, co, 1, 1).to(dtype)
         shape_s = f"({n}, {c}->{co}, {h}x{h})"
-        account("conv1x1_chw", f"{shape_s} +res +stats",
+        # K3's and K3-dW's f32 routes (CUDA cores) into rows of their own
+        f32 = {} if timed else dict(peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+        route = "tensor cores" if timed else "CUDA cores, f32"
+        account("conv1x1_chw", f"{shape_s} +res +stats [{route}]",
                 lambda: kernels.conv1x1_chw_add(x, wt, b, res, want_stats=True),
-                lambda: kernels.conv1x1_chw_plain(x, wt, b, res, want_stats=True),
+                lambda: (kernels.conv1x1_chw_tc_plain if timed else kernels.conv1x1_chw_plain)(
+                    x, wt, b, res, want_stats=True),
                 lambda: torch.add(F.conv2d(x, wl, bl), res),
-                act * (c + 2 * co) * es + (co * c + 3 * co) * 4, 2.0 * act * co * c, tails=("ssm",))
-        account("conv1x1_chw", f"dx form ({n}, {co}->{c}, {h}x{h})",
-                lambda: kernels.conv1x1_chw(gy, wT, zc), lambda: kernels.conv1x1_chw_plain(gy, wT, zc),
+                act * (c + 2 * co) * es + (co * c + 3 * co) * 4, 2.0 * act * co * c, tails=("ssm",),
+                **f32,
+                old_fn=(lambda: kernels._conv1x1_cuda_cores(x, wt, b, res, True)) if timed else None)
+        account("conv1x1_chw", f"dx form ({n}, {co}->{c}, {h}x{h}) [{route}]",
+                lambda: kernels.conv1x1_chw(gy, wT, zc),
+                lambda: (kernels.conv1x1_chw_tc_plain if timed else kernels.conv1x1_chw_plain)(
+                    gy, wT, zc),
                 lambda: F.conv2d(gy, wTl), act * (c + co) * es + (co * c + c) * 4,
-                2.0 * act * co * c, tails=("ssm",))
-        account("conv1x1_chw_dw", shape_s, lambda: kernels.conv1x1_chw_dw(x, gy),
+                2.0 * act * co * c, tails=("ssm",), **f32,
+                old_fn=(lambda: kernels._conv1x1_cuda_cores(gy, wT, zc, None)) if timed else None)
+        account("conv1x1_chw_dw", f"{shape_s} [{route}]", lambda: kernels.conv1x1_chw_dw(x, gy),
                 lambda: kernels.conv1x1_chw_dw_plain(x, gy),
                 lambda: torch.nn.grad.conv2d_weight(x, wl.shape, gy),
-                act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("ssm",))
+                act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("ssm",), **f32,
+                old_fn=(lambda: kernels._conv1x1_dw_cuda_cores(x, gy)) if timed else None)
+        if not timed:
+            continue
         account("upsample2_chw", f"({n}, {c}, {h // 2}, {h // 2})", lambda: kernels.upsample2_chw(x_half),
                 lambda: kernels.upsample2_chw_plain(x_half),
                 lambda: F.interpolate(x_half, scale_factor=2, mode="nearest"),
@@ -2280,7 +2471,8 @@ def main() -> int:
             fail(f"phases 3/3b timed {timed_calls} calls per {TRAIN_PATHS[tail][0]} step, not {want}")
         f32_calls = {k: dstats[tail][k]["calls"] for k in ROUTED}
         if f32_calls != {k: want[k] for k in ROUTED}:
-            fail(f"phases 3/3b timed the f32 routes of K1 / K6 / K7 / K9 dx / K13 {f32_calls} per "
+            fail(f"phases 3/3b timed the f32 routes of K1 / K6 / K7 / K9 dx / K13 / K3 / K3-dW "
+                 f"{f32_calls} per "
                  f"{TRAIN_PATHS[tail][0]} step")
     # generation: the timed calls per sub-image are the raster's launches
     # (K1, timed at the sub-image's shapes, runs on the one pass instead)
@@ -2325,7 +2517,8 @@ def main() -> int:
 
     # -- 5. step parity: kernels against plain versions, full width, f32 ------
     t0 = time.perf_counter()
-    dx_f32 = {}  # K1 / K6 / K7 / K9 dx / K13 launches by entry point in each f32 step parity
+    # K1 / K6 / K7 / K9 dx / K13 / K3 / K3-dW launches by entry point in each f32 step parity
+    dx_f32 = {}
 
     def parity_run(tail, argv):
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
@@ -2342,10 +2535,10 @@ def main() -> int:
     for tail, counts in dx_f32.items():
         want = route_want(STEP_LAUNCHES[tail], tc=False)
         if counts != want:
-            fail(f"the f32 step parity ({TRAIN_PATHS[tail][0]}) took the K1 / K6 / K7 / K9 dx / K13 "
-                 f"launches {counts}, not {want}")
-        print(f"[route] f32 step parity, {TRAIN_PATHS[tail][0]}: K1 / K6 / K7 / K9 dx / K13 launches by "
-              f"entry point {counts}")
+            fail(f"the f32 step parity ({TRAIN_PATHS[tail][0]}) took the K1 / K6 / K7 / K9 dx / "
+                 f"K13 / K3 / K3-dW launches {counts}, not {want}")
+        print(f"[route] f32 step parity, {TRAIN_PATHS[tail][0]}: K1 / K6 / K7 / K9 dx / K13 / K3 / "
+              f"K3-dW launches by entry point {counts}")
     if f32_route["itg_ssm_embed_tc_fwd"] or f32_route["itg_ssm_embed_tc_bwd"] or not (
             f32_route["itg_ssm_embed_fwd"] and f32_route["itg_ssm_embed_bwd"]):
         fail(f"the f32 SSM step parity took K15's launches {f32_route}, not the CUDA-core route's")
@@ -2370,9 +2563,9 @@ def main() -> int:
                            for k, v in STEP_LAUNCHES[tail].items()}, tc=True)
         if counts != want:
             fail(f"the bf16 training run ({TRAIN_PATHS[tail][0]}) took the K1 / K2 / K6 / K7 / K9 "
-                 f"dx launches {counts}, not {want}")
-        print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}: K1 / K2 / K6 / K7 / K9 dx / K13 "
-              f"launches by entry point {counts} (CUDA-core kernels: 0)")
+                 f"dx / K13 / K3 / K3-dW launches {counts}, not {want}")
+        print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}: K1 / K2 / K6 / K7 / K9 dx / K13 / "
+              f"K3 / K3-dW launches by entry point {counts} (CUDA-core kernels: 0)")
     if bf16_route["itg_ssm_embed_fwd"] or bf16_route["itg_ssm_embed_bwd"] or min(
             bf16_route["itg_ssm_embed_tc_fwd"], bf16_route["itg_ssm_embed_tc_bwd"]) < 3 * TRAIN_STEPS:
         fail(f"the bf16 training runs took K15's launches {bf16_route}, not the tensor-core route's")

@@ -632,13 +632,6 @@ chw_dw_tc_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
   }
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 132;
-}
-
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -699,7 +692,7 @@ int launch(DwArgs a, float* dw, float* db, int cap, cudaStream_t st) {
     return static_cast<int>(e);
   }
   const long tiles = static_cast<long>(a.N) * ((a.H + kTH - 1) / kTH) * ((a.W + kTW - 1) / kTW);
-  long blocks = static_cast<long>(per_sm > 0 ? per_sm : 1) * sm_count();
+  long blocks = static_cast<long>(per_sm > 0 ? per_sm : 1) * itg::sm_count();
   blocks = blocks < tiles ? blocks : tiles;
   blocks = blocks < cap ? blocks : cap;
   kernel<<<static_cast<int>(blocks), kThreads, smem, st>>>(a, tmap);

@@ -507,13 +507,6 @@ chw_dx_tc_reduce_kernel(const float* __restrict__ part, float* __restrict__ dsc,
   }
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 132;
-}
-
 // One call: the weights packed, the persistent grid (as many blocks as the
 // SMs hold, at most one per tile and at most `cap`, the partials' rows), then
 // the sums.
@@ -540,7 +533,7 @@ int launch(DxArgs a, const float* w, float* dsc, float* dsh, int cap, cudaStream
   a.sc = !a.zeros && a.W % kTW == kTW - 8 ? 8 : 0;
   const long tiles = static_cast<long>(a.N) * ((a.H + 2 + a.sr + G::TH - 1) / G::TH) *
                      ((a.W + 9 + a.sc + kTW - 1) / kTW);
-  long blocks = static_cast<long>(per_sm > 0 ? per_sm : 1) * sm_count();
+  long blocks = static_cast<long>(per_sm > 0 ? per_sm : 1) * itg::sm_count();
   blocks = blocks < tiles ? blocks : tiles;
   blocks = blocks < cap ? blocks : cap;
   kernel<<<static_cast<int>(blocks), G::kThreads, smem, st>>>(a);

@@ -337,13 +337,6 @@ __global__ void chw_fwd_tc_pack_kernel(const float* __restrict__ w, bf16* __rest
   wp[i] = __float2bfloat16_rn(val);
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 132;
-}
-
 template <int TH>
 long tiles(const FwdArgs& a) {
   return static_cast<long>(a.N) * ((a.H + TH - 1) / TH) * ((a.W + kTW - 1) / kTW);
@@ -362,7 +355,7 @@ int resident(const FwdArgs& a, long* held) {
   if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * TH, smem)) {
     return static_cast<int>(e);
   }
-  *held = static_cast<long>(per_sm > 0 ? per_sm : 1) * sm_count();
+  *held = static_cast<long>(per_sm > 0 ? per_sm : 1) * itg::sm_count();
   return 0;
 }
 

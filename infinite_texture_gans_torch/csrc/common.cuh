@@ -45,6 +45,14 @@ __device__ __forceinline__ float round_to(float v) {
 
 inline int last_error() { return static_cast<int>(cudaGetLastError()); }
 
+// The current device's SM count (read per call: the caller may switch cards).
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 132;
+}
+
 // act(scale * x + shift) rounded to the storage type T: the post-norm value
 // the 3x3 conv kernels read (no FMA contraction, so every kernel that
 // recomputes it gets the same bits).

@@ -18,6 +18,11 @@
 // the flagship 104 -> 52: well under the ridge, so the bound is bytes. The
 // dW reduction reads x and g once (2 * (C + Co) bytes per pixel) for
 // 2 * C * Co FLOPs: bytes again at these widths.
+// Since the tensor-core redesign (conv1x1_tc.cu), bfloat16 activations take
+// that file's kernels and this one is the float32 route: step parity's
+// exactness route, which sums in float32 with float32 weights. Its C
+// functions still take bf16 (the design the tensor-core kernels replaced,
+// timed beside them by chip_smoke.py).
 // What the design does about it: the forward runs one thread per pixel,
 // walks the C input channels with coalesced loads along the pixel axis,
 // reads the block's (C, TCO) weight slice from shared memory as float4

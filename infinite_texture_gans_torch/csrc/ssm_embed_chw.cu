@@ -460,14 +460,6 @@ int dispatch_fwd(const void* maps, const float* w1, const float* b1, const float
   }
 }
 
-// The current device's SM count (read per call: the caller may switch cards).
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 132;
-}
-
 template <typename T>
 int dispatch_bwd(const void* maps, const float* w1, const float* b1, const float* w2o,
                  const void* g, float* dw2, float* db2, float* dw1, float* db1, int n, int md,
@@ -492,7 +484,7 @@ int dispatch_bwd(const void* maps, const float* w1, const float* b1, const float
   const int gx = (co + kTC - 1) / kTC;
   const int gy = (hid + kTC - 1) / kTC;
   const int n_tiles = n * ((h + kWRows - 1) / kWRows) * ((w + kTileW - 1) / kTileW);
-  const int want = (3 * sm_count() + gx * gy - 1) / (gx * gy);
+  const int want = (3 * itg::sm_count() + gx * gy - 1) / (gx * gy);
   const int split = want < n_tiles ? want : n_tiles;
   ssm_bwd_w2_kernel<T><<<dim3(gx, gy, split), kThreads, 0, stream>>>(
       m, w1, b1, gt, dw2, db2, n, md, hid, h, w, co);

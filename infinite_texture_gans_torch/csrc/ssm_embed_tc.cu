@@ -740,14 +740,6 @@ int launch_fwd_th(const bf16* maps, const float* w1, const float* b1, const bf16
   return itg::last_error();
 }
 
-// The current device's SM count (read per call: the caller may switch cards).
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 132;
-}
-
 // 16-row tiles, or 8-row ones where 16-row tiles would give fewer blocks
 // than SMs (the raster's 96^2 sub-images). Each output sums in the same
 // order under either, so the choice changes no bit.
@@ -757,7 +749,7 @@ int launch_fwd(const bf16* maps, const float* w1, const float* b1, const bf16* w
                cudaStream_t stream) {
   const long blocks = static_cast<long>((h + 15) / 16) * ((w + kFW - 1) / kFW) *
                       ((co + NT * 8 - 1) / (NT * 8)) * n;
-  if (blocks < sm_count()) {
+  if (blocks < itg::sm_count()) {
     return launch_fwd_th<NT, 8>(maps, w1, b1, w2p, b2, y, n, md, hid, h, w, co, stream);
   }
   return launch_fwd_th<NT, 16>(maps, w1, b1, w2p, b2, y, n, md, hid, h, w, co, stream);

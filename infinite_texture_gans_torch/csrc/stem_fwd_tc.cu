@@ -326,13 +326,6 @@ __global__ void __launch_bounds__(kThreads, 3) stem_fwd_tc_kernel(StemArgs a) {
   }
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 132;
-}
-
 // One persistent launch: at most the blocks the card holds at once, the
 // tiles spread evenly over them.
 template <int C>
@@ -347,7 +340,7 @@ int launch(const StemArgs& a, cudaStream_t st) {
   if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) {
     return static_cast<int>(e);
   }
-  const long held = static_cast<long>(per_sm > 0 ? per_sm : 1) * sm_count();
+  const long held = static_cast<long>(per_sm > 0 ? per_sm : 1) * itg::sm_count();
   const long tiles = static_cast<long>(a.N) * ((a.H / 2 + kTR - 1) / kTR) *
                      ((a.W / 2 + kTJ - 1) / kTJ);
   if (tiles == 0) return 0;

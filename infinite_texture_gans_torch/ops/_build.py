@@ -58,6 +58,10 @@ SIGNATURES = {
     "itg_conv1x1_chw": [_P] * 7 + [_I] * 5 + [_P],
     # x, g, dw, db, n, c, hw, co, bf16, stream
     "itg_conv1x1_chw_dw": [_P] * 4 + [_I] * 5 + [_P],
+    # x, w, b, res, wp, y, part, s1, s2, n, c, hw, co, stream (bf16 only)
+    "itg_conv1x1_chw_tc": [_P] * 9 + [_I] * 4 + [_P],
+    # x, g, part, dw, db, n, c, hw, co, mt, no, cap, stream (bf16 only)
+    "itg_conv1x1_chw_dw_tc": [_P] * 5 + [_I] * 7 + [_P],
     # x, y, planes, h, w, bf16, stream
     "itg_upsample2_chw": [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
     # g, dx, planes, h, w (of dx), bf16, stream

@@ -16,9 +16,10 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
   ``_bn_corr`` (csrc/conv3x3_chw_bwd.cu; K6 in bf16: csrc/chw_dx_tc.cu, K7
   in bf16: csrc/chw_dw_tc.cu);
 - K3 ``conv1x1_chw`` / ``conv1x1_chw_add`` (optionally with stats, the
-  ``conv1x1_chw_add_stats`` / ``conv1x1_chw_add_p`` forms): replaces
-  pallas_conv.py:2311 ``_conv1x1_chw_fwd``; its dW ``conv1x1_chw_dw``:
-  :2361 ``_conv1x1_chw_dw`` (csrc/conv1x1_chw.cu);
+  ``conv1x1_chw_add_stats`` / ``conv1x1_chw_add_p`` forms, and the dx form
+  with Wᵀ): replaces pallas_conv.py:2311 ``_conv1x1_chw_fwd``; its dW
+  ``conv1x1_chw_dw``: :2361 ``_conv1x1_chw_dw`` (csrc/conv1x1_chw.cu; both
+  in bf16: csrc/conv1x1_tc.cu);
 - K4 ``upsample2_chw``: pallas_conv.py:2540 ``_up2_fwd_call``; its adjoint
   ``upsample2_chw_bwd``: :2560 ``_up2_bwd_call`` (csrc/upsample2_chw.cu);
 - K9 ``upconv3x3_chw``, the subpixel-fused upsample -> BN fold -> ReLU ->
@@ -71,8 +72,17 @@ are bf16 values, so it needs no rounded plain version), float32
 ``itg_stem_fwd_tc`` (an implicit GEMM on mma.sync straight from the staged
 image rows, NHWC rows written 16 bytes a lane; the weights and bias rounded
 to bf16 as the reference rounds them, pallas_conv.py:3041/:3045, its plain
-version ``stem_fwd_tc_plain``), float32 ``itg_stem_fwd``.
-:data:`ROUTE_LAUNCHES` counts the launches of each entry point.
+version ``stem_fwd_tc_plain``), float32 ``itg_stem_fwd``. K3 (forward,
+with its residual and stats, and its dx form) and K3-dW route the same way:
+bfloat16 takes ``itg_conv1x1_chw_tc`` (mma.sync on the channels-major x
+slab read through ldmatrix.trans, every output channel up to 64 in one
+block, W and b rounded to bf16 as the reference rounds them,
+pallas_conv.py:2389-2390; its plain version ``conv1x1_chw_tc_plain``) and
+``itg_conv1x1_chw_dw_tc`` (mma.sync on channels-major x and g tiles as they
+lie in device memory, fixed-order partial sums; its operands are bf16
+values, so its plain version is ``conv1x1_chw_dw_plain`` itself), float32
+``itg_conv1x1_chw`` and ``itg_conv1x1_chw_dw``, the exactness route of step
+parity. :data:`ROUTE_LAUNCHES` counts the launches of each entry point.
 
 The port carries no lane padding, so the reference's padded-carry forms
 (K11 ``conv1x1_chw_add_p``, ``conv1x1_chw_p``, K12 ``upsample2_chw_p``,
@@ -125,15 +135,17 @@ LAUNCHES = {
     "ssm_embed_bwd": 0,
 }
 
-# launches per C entry point of K1/K2, K6, K7, K9/K14's forward, K9 dx and
-# K13's forward: the bf16 tensor-core route and the f32 CUDA-core one (not
-# cleared by reset_launches)
+# launches per C entry point of K1/K2, K6, K7, K9/K14's forward, K9 dx,
+# K13's forward, K3 and K3-dW: the bf16 tensor-core route and the f32
+# CUDA-core one (not cleared by reset_launches)
 ROUTE_LAUNCHES = {"itg_conv3x3_chw_tc": 0, "itg_conv3x3_chw": 0,
                   "itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
                   "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
                   "itg_upconv3x3_chw_tc": 0, "itg_upconv3x3_chw": 0,
                   "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0,
-                  "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0}
+                  "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0,
+                  "itg_conv1x1_chw_tc": 0, "itg_conv1x1_chw": 0,
+                  "itg_conv1x1_chw_dw_tc": 0, "itg_conv1x1_chw_dw": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -847,7 +859,84 @@ def bn_corr_plain(g, y, alpha, beta2):
 
 
 # ---------------------------------------------------------------------------
-# K3: 1x1 conv + bias (+ residual) (+ stats), and its dW (csrc/conv1x1_chw.cu)
+# K3: 1x1 conv + bias (+ residual) (+ stats), and its dW
+# (bf16: csrc/conv1x1_tc.cu; f32: csrc/conv1x1_chw.cu)
+
+
+# The tensor-core forward's plan (csrc/conv1x1_tc.cu): K = the input
+# channels padded to 16 KS (C <= CONV1X1_TC_MAX_C, the C file's kMaxC), N =
+# the output channels padded to 8 NO (at most 64 a block, a grid axis past
+# that). With stats, each of at most CONV1X1_TC_MAX_BLOCKS blocks along the
+# pixels (the C file's kMaxBlocks) writes its partial sums.
+CONV1X1_TC_MAX_C = 768
+CONV1X1_TC_MAX_BLOCKS = 1024
+
+
+def conv1x1_tc_plan(c: int, co: int) -> tuple[int, int]:
+    """(KS, NO) of the tensor-core 1x1 conv for C input and Co output
+    channels: the fewest 16-channel k16 steps that hold C and 8-channel
+    groups that hold Co. Raises for C > 768, the CUDA-core kernel's limit
+    too (any Co)."""
+    if not 1 <= c <= CONV1X1_TC_MAX_C or co < 1:
+        raise ValueError(f"conv1x1_chw: C={c} exceeds the kernel's {CONV1X1_TC_MAX_C}-channel "
+                         f"limit (or Co={co} < 1)")
+    return -(-c // 16), -(-co // 8)
+
+
+def pack_conv1x1_weights(w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the B operand the tensor-core 1x1 conv stages (and
+    writes out where its entry point is given ``wp``): w (Co, C) or (Co, C,
+    1, 1) -> bf16 (8 NO, 16 KS), wp[o, c] = w[o, c] rounded to bf16, zero
+    past Co and C."""
+    co = w.shape[0]
+    wm = w.detach().float().reshape(co, -1)
+    ks, no = conv1x1_tc_plan(wm.shape[1], co)
+    wp = F.pad(wm, (0, 16 * ks - wm.shape[1], 0, 8 * no - co))
+    return wp.to(torch.bfloat16).contiguous()
+
+
+def _conv1x1_cuda_cores(x, w, b, res, want_stats=False):
+    """K3 on the CUDA cores (``itg_conv1x1_chw``): the float32 route (the C
+    function takes bf16 too). w (Co, C) or (Co, C, 1, 1)."""
+    n, c, h, wd = x.shape
+    co = w.shape[0]
+    y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
+    s1 = s2 = None
+    if want_stats:
+        s1, s2 = _zeros_f32(co, x), _zeros_f32(co, x)
+    wf, bf = _f32(w.reshape(co, c)), _f32(b)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_conv1x1_chw(
+            x.data_ptr(), wf.data_ptr(), bf.data_ptr(), _ptr(res), y.data_ptr(),
+            _ptr(s1), _ptr(s2), n, c, h * wd, co, _bf16(x), _stream(x),
+        )
+    _raise_on(rc, "itg_conv1x1_chw")
+    ROUTE_LAUNCHES["itg_conv1x1_chw"] += 1
+    return y, s1, s2
+
+
+def _conv1x1_tensor_cores(x, w, b, res, want_stats=False):
+    """K3 on the tensor cores (``itg_conv1x1_chw_tc``), bf16: W and b rounded
+    to bf16 in the kernel (:func:`pack_conv1x1_weights`), float32 sums, y
+    rounded once; with stats, per-block partial sums added in one order by a
+    second launch."""
+    n, c, h, wd = x.shape
+    co = w.shape[0]
+    y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
+    part = s1 = s2 = None
+    if want_stats:
+        part = torch.empty((CONV1X1_TC_MAX_BLOCKS, 2, co), dtype=torch.float32, device=x.device)
+        s1 = torch.empty(co, dtype=torch.float32, device=x.device)
+        s2 = torch.empty_like(s1)
+    wf, bf = _f32(w.reshape(co, c)), _f32(b)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_conv1x1_chw_tc(
+            x.data_ptr(), wf.data_ptr(), bf.data_ptr(), _ptr(res), None, y.data_ptr(),
+            _ptr(part), _ptr(s1), _ptr(s2), n, c, h * wd, co, _stream(x),
+        )
+    _raise_on(rc, "itg_conv1x1_chw_tc")
+    ROUTE_LAUNCHES["itg_conv1x1_chw_tc"] += 1
+    return y, s1, s2
 
 
 def _conv1x1_fwd(x, w, b, res, want_stats):
@@ -861,28 +950,21 @@ def _conv1x1_fwd(x, w, b, res, want_stats):
     if res is not None:
         _check_act("res", res, (n, co, h, wd))
         _check_same_dtype("res", res, x)
-    if c > 768:
-        raise ValueError(f"conv1x1_chw: C={c} exceeds the kernel's 768-channel limit")
+    conv1x1_tc_plan(c, co)
     if not _on_cuda(x, w, b, res):
         out = conv1x1_chw_plain(x, w, b, res, want_stats)
         return out if want_stats else (out, None, None)
-    y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
-    s1 = s2 = None
-    if want_stats:
-        s1, s2 = _zeros_f32(co, x), _zeros_f32(co, x)
-    wf, bf = _f32(w.reshape(co, c)), _f32(b)
-    with torch.cuda.device(x.device):
-        rc = _lib().itg_conv1x1_chw(
-            x.data_ptr(), wf.data_ptr(), bf.data_ptr(), _ptr(res), y.data_ptr(),
-            _ptr(s1), _ptr(s2), n, c, h * wd, co, _bf16(x), _stream(x),
-        )
-    _raise_on(rc, "conv1x1_chw")
+    route = _conv1x1_tensor_cores if x.dtype == torch.bfloat16 else _conv1x1_cuda_cores
+    out = route(x, w, b, res, want_stats)
     LAUNCHES["conv1x1_chw"] += 1
-    return y, s1, s2
+    return out
 
 
 class _Conv1x1Chw(torch.autograd.Function):
-    """K3 forward (+ stats); backward K8, dx by K3 with Wᵀ, dW by K3-dW."""
+    """K3 forward (+ stats); backward K8 (when the stats have cotangents), dx
+    by K3 with Wᵀ and a zero bias, dW by K3-dW; each routed by dtype as the
+    forward (bf16: the tensor cores, Wᵀ rounded to bf16 there as the
+    reference rounds it)."""
 
     @staticmethod
     def forward(ctx, x, w, b, res, want_stats):
@@ -914,14 +996,17 @@ class _Conv1x1Chw(torch.autograd.Function):
 
 
 def conv1x1_chw(x, w, b) -> torch.Tensor:
-    """K3: y = W x + b per pixel on (N, C, H, W); w (Co, C, 1, 1) or (Co, C)."""
+    """K3: y = W x + b per pixel on (N, C, H, W); w (Co, C, 1, 1) or (Co, C).
+    On the card bf16 takes the tensor-core kernel (W and b rounded to bf16:
+    its plain version is :func:`conv1x1_chw_tc_plain`), float32 the
+    CUDA-core one."""
     return _Conv1x1Chw.apply(x, w, b, None, False)
 
 
 def conv1x1_chw_add(x, w, b, res, want_stats: bool = False):
     """K3 with the residual add fused: y = W x + b + res (the ResBlock
     shortcut plus ``out + shortcut``). With ``want_stats`` returns
-    (y, Σy, Σy²) like :func:`conv3x3_chw`."""
+    (y, Σy, Σy²) like :func:`conv3x3_chw`. Routed as :func:`conv1x1_chw`."""
     return _Conv1x1Chw.apply(x, w, b, res, want_stats)
 
 
@@ -937,21 +1022,41 @@ def conv1x1_chw_plain(x, w, b, res=None, want_stats: bool = False):
     return y
 
 
-def conv1x1_chw_dw(x, g):
-    """K3-dW: dW[o, c] = Σ g[o]·x[c] and db[o] = Σ g[o], float32 sums over
-    (N, H, W). Returns (dW (Co, C), db (Co,))."""
-    if x.dim() != 4 or g.dim() != 4:
-        raise ValueError(f"x, g: expected (N, C, H, W), got {tuple(x.shape)}, {tuple(g.shape)}")
-    n, c, h, wd = x.shape
-    co = g.shape[1]
-    _check_act("x", x, (n, c, h, wd))
-    _check_act("g", g, (n, co, h, wd))
-    _check_same_dtype("g", g, x)
-    if c * co > 4096 or c + co > 96:
+def conv1x1_chw_tc_plain(x, w, b, res=None, want_stats: bool = False):
+    """Plain version of K3's bf16 tensor-core route: :func:`conv1x1_chw_plain`
+    with W and b rounded to bf16 (the reference's bf16 rounding,
+    pallas_conv.py:2389-2390), float32 sums, y rounded once."""
+    return conv1x1_chw_plain(x, w.detach().to(torch.bfloat16), b.detach().to(torch.bfloat16),
+                             res, want_stats)
+
+
+# The tensor-core dW's plan (csrc/conv1x1_tc.cu): M = the input channels
+# padded to 16 MT, N = the output channels padded to 8 NO, one template per
+# (MT, NO) pair that C + Co <= 96 allows. Its persistent blocks (at most
+# CONV1X1_DW_TC_BLOCKS_PER_SM per SM) write per-block partial sums.
+CONV1X1_DW_TC_MT = (1, 2, 4, 6)
+CONV1X1_DW_TC_NO = (1, 2, 4, 8, 12)
+CONV1X1_DW_TC_BLOCKS_PER_SM = 2
+
+
+def conv1x1_dw_tc_plan(c: int, co: int) -> tuple[int, int]:
+    """(MT, NO) of the tensor-core dW for C input and Co output channels:
+    the fewest 16-channel tiles of CONV1X1_DW_TC_MT and 8-channel tiles of
+    CONV1X1_DW_TC_NO that hold them. Raises outside C * Co <= 4096 and C + Co
+    <= 96, the CUDA-core kernel's limits too."""
+    if c < 1 or co < 1 or c * co > 4096 or c + co > 96:
         raise ValueError(f"conv1x1_chw_dw: C={c}, Co={co} exceed the kernel's limits "
                          "(C*Co <= 4096, C+Co <= 96)")
-    if not _on_cuda(x, g):
-        return conv1x1_chw_dw_plain(x, g)
+    mt = next(t for t in CONV1X1_DW_TC_MT if 16 * t >= c)
+    no = next(o for o in CONV1X1_DW_TC_NO if 8 * o >= co)
+    return mt, no
+
+
+def _conv1x1_dw_cuda_cores(x, g):
+    """K3-dW on the CUDA cores (``itg_conv1x1_chw_dw``): the float32 route
+    (the C function takes bf16 too)."""
+    n, c, h, wd = x.shape
+    co = g.shape[1]
     dw = torch.zeros((co, c), dtype=torch.float32, device=x.device)
     db = _zeros_f32(co, x)
     with torch.cuda.device(x.device):
@@ -959,9 +1064,54 @@ def conv1x1_chw_dw(x, g):
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
             n, c, h * wd, co, _bf16(x), _stream(x),
         )
-    _raise_on(rc, "conv1x1_chw_dw")
-    LAUNCHES["conv1x1_chw_dw"] += 1
+    _raise_on(rc, "itg_conv1x1_chw_dw")
+    ROUTE_LAUNCHES["itg_conv1x1_chw_dw"] += 1
     return dw, db
+
+
+def _conv1x1_dw_tensor_cores(x, g):
+    """K3-dW on the tensor cores (``itg_conv1x1_chw_dw_tc``), bf16:
+    persistent blocks write float32 partials, a second launch sums them in
+    one order."""
+    n, c, h, wd = x.shape
+    co = g.shape[1]
+    mt, no = conv1x1_dw_tc_plan(c, co)
+    cap = CONV1X1_DW_TC_BLOCKS_PER_SM * _sm_count(x.device.index)
+    dw = torch.empty((co, c), dtype=torch.float32, device=x.device)
+    db = torch.empty(co, dtype=torch.float32, device=x.device)
+    # per block: the C fragments of MT x NO m16n8 tiles, then db (8 NO)
+    part = torch.empty((cap, 128 * mt * no + 8 * no), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_conv1x1_chw_dw_tc(
+            x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            n, c, h * wd, co, mt, no, cap, _stream(x),
+        )
+    _raise_on(rc, "itg_conv1x1_chw_dw_tc")
+    ROUTE_LAUNCHES["itg_conv1x1_chw_dw_tc"] += 1
+    return dw, db
+
+
+def conv1x1_chw_dw(x, g):
+    """K3-dW: dW[o, c] = Σ g[o]·x[c] and db[o] = Σ g[o], float32 sums over
+    (N, H, W). Returns (dW (Co, C), db (Co,)). On the card bf16 takes the
+    tensor-core kernel (both operands are bf16 values, so its plain version
+    is :func:`conv1x1_chw_dw_plain` itself), float32 the CUDA-core one."""
+    if x.dim() != 4 or g.dim() != 4:
+        raise ValueError(f"x, g: expected (N, C, H, W), got {tuple(x.shape)}, {tuple(g.shape)}")
+    n, c, h, wd = x.shape
+    co = g.shape[1]
+    _check_act("x", x, (n, c, h, wd))
+    _check_act("g", g, (n, co, h, wd))
+    _check_same_dtype("g", g, x)
+    conv1x1_dw_tc_plan(c, co)
+    if not _on_cuda(x, g):
+        return conv1x1_chw_dw_plain(x, g)
+    if x.dtype == torch.bfloat16:
+        out = _conv1x1_dw_tensor_cores(x, g)
+    else:
+        out = _conv1x1_dw_cuda_cores(x, g)
+    LAUNCHES["conv1x1_chw_dw"] += 1
+    return out
 
 
 def conv1x1_chw_dw_plain(x, g):

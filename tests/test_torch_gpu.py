@@ -84,12 +84,16 @@ def test_halo_kernel_matches_plain(cuda, dtype, outer, first_row, first_col, col
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_res", [False, True])
 def test_conv1x1_kernel_matches_plain(cuda, dtype, with_res):
+    """K3 against its plain version: bf16 (the tensor cores) the one with W
+    and b rounded to bf16, the route's function; f32 (the CUDA cores) the
+    plain version itself."""
     x, _, _, _, _ = _inputs(cuda, dtype, c=37, h=9, w=31)
     w = torch.randn(21, 37, 1, 1, device=cuda)
     b = torch.randn(21, device=cuda)
     res = torch.randn(2, 21, 9, 31, device=cuda).to(dtype) if with_res else None
     y = tk.conv1x1_chw_add(x, w, b, res) if with_res else tk.conv1x1_chw(x, w, b)
-    _assert_close(y, tk.conv1x1_chw_plain(x, w, b, res))
+    plain = tk.conv1x1_chw_tc_plain if dtype == torch.bfloat16 else tk.conv1x1_chw_plain
+    _assert_close(y, plain(x, w, b, res))
 
 
 # K4's shapes: ragged widths (W % 8 != 0: every row, or some rows, copied
@@ -223,7 +227,8 @@ def test_conv1x1_train_kernels_match_plain(cuda, dtype, shape):
     res = torch.randn(n, co, h, w, generator=gen).to(cuda, dtype)
     g = torch.randn(n, co, h, w, generator=gen).to(cuda, dtype)
     y, s1, s2 = tk.conv1x1_chw_add(x, wt, b, res, want_stats=True)
-    _assert_close(y, tk.conv1x1_chw_plain(x, wt, b, res))
+    plain = tk.conv1x1_chw_tc_plain if dtype == torch.bfloat16 else tk.conv1x1_chw_plain
+    _assert_close(y, plain(x, wt, b, res))
     _assert_sum_close(s1, y.float().sum(dim=(0, 2, 3)))
     _assert_sum_close(s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
     dw, db = tk.conv1x1_chw_dw(x, g)
@@ -521,7 +526,9 @@ def test_dx_routes_by_dtype(cuda, dtype):
                                  "itg_upconv3x3_chw_tc": 0, "itg_upconv3x3_chw": 0,
                                  "itg_upconv3x3_chw_dx_tc": int(tc),
                                  "itg_upconv3x3_chw_dx": int(not tc),
-                                 "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0}
+                                 "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0,
+                                 "itg_conv1x1_chw_tc": 0, "itg_conv1x1_chw": 0,
+                                 "itg_conv1x1_chw_dw_tc": 0, "itg_conv1x1_chw_dw": 0}
     assert (tk.LAUNCHES["conv3x3_chw_dx"], tk.LAUNCHES["upconv3x3_chw_dx"]) == (1, 1)
 
 
@@ -608,7 +615,9 @@ def test_dw_routes_by_dtype(cuda, dtype):
                                  "itg_conv3x3_chw_dw_tc": int(tc), "itg_conv3x3_chw_dw": int(not tc),
                                  "itg_upconv3x3_chw_tc": 0, "itg_upconv3x3_chw": 0,
                                  "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0,
-                                 "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0}
+                                 "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0,
+                                 "itg_conv1x1_chw_tc": 0, "itg_conv1x1_chw": 0,
+                                 "itg_conv1x1_chw_dw_tc": 0, "itg_conv1x1_chw_dw": 0}
     assert tk.LAUNCHES["conv3x3_chw_dw"] == 1
 
 
@@ -795,7 +804,9 @@ def test_fwd_routes_by_dtype(cuda, dtype):
                                  "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
                                  "itg_upconv3x3_chw_tc": 0, "itg_upconv3x3_chw": 0,
                                  "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0,
-                                 "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0}
+                                 "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0,
+                                 "itg_conv1x1_chw_tc": 0, "itg_conv1x1_chw": 0,
+                                 "itg_conv1x1_chw_dw_tc": 0, "itg_conv1x1_chw_dw": 0}
     assert (tk.LAUNCHES["conv3x3_chw"], tk.LAUNCHES["chw_halo_step"]) == (1, 1)
 
 
@@ -1336,3 +1347,239 @@ def test_ssm_train_step_on_card_matches_plain(cuda, monkeypatch):
     # block 4's bn1, bn2, bn3; conv1 (stats), conv2, final; SSM never fuses
     assert (launches["ssm_embed"], launches["ssm_embed_bwd"], launches["conv3x3_chw"]) == (3, 3, 3)
     assert (launches["bn_corr"], launches["upsample2_chw"], launches["upconv3x3_chw"]) == (1, 1, 0)
+
+
+# --- K3 and K3-dW on the tensor cores, bf16 ---------------------------------
+# n, c, co, h, w: the main path's K3 shapes (eval at N = 1: BN blocks 4-6,
+# the `all` half-res shortcut, SSM blocks 4-5; the steps at N = 8, the
+# shortcut and its dx form), ragged ones (C and Co no multiples of 8, HW no
+# multiple of a tile or of 8), more than 64 output channels (a second block
+# along Co) and the widest C (768).
+CONV1X1_SHAPES = [(1, 104, 52, 96, 96), (1, 52, 26, 192, 192), (1, 26, 13, 384, 384),
+                  (1, 104, 52, 48, 48), (1, 52, 26, 96, 96), (1, 26, 13, 192, 192),
+                  (8, 52, 26, 96, 96), (8, 26, 52, 96, 96), (8, 26, 13, 192, 192),
+                  (8, 13, 26, 192, 192), (8, 52, 26, 192, 192), (8, 26, 52, 192, 192),
+                  (8, 26, 13, 384, 384), (2, 37, 21, 9, 31), (2, 11, 19, 5, 7), (1, 5, 3, 1, 3),
+                  (3, 13, 70, 10, 40), (2, 130, 9, 12, 20), (1, 768, 100, 8, 24)]
+# the dW's: the main path's (N = 8), ragged ones, and C + Co = 96 (the
+# CUDA-core kernel's widest) in each plan that takes it
+CONV1X1_DW_SHAPES = [(8, 52, 26, 96, 96), (8, 26, 13, 192, 192), (8, 52, 26, 192, 192),
+                     (8, 26, 13, 384, 384), (2, 37, 21, 9, 31), (2, 11, 19, 5, 7),
+                     (1, 5, 3, 1, 3), (3, 13, 3, 23, 70), (2, 48, 48, 20, 30),
+                     (2, 64, 32, 16, 16), (2, 95, 1, 9, 40), (2, 1, 95, 9, 40),
+                     (2, 33, 63, 17, 17), (2, 70, 26, 24, 24), (2, 20, 76, 13, 50)]
+
+
+def _conv1x1_case(cuda, shape, seed=41, bias=1.0):
+    """bf16 x and res (n, co, h, w), float32 W (co, c) at unit output
+    variance and b (unit scale: a dropped bias reads above the limit)."""
+    n, c, co, h, w = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, c, h, w, generator=g).to(cuda, torch.bfloat16)
+    wt = (torch.randn(co, c, generator=g) * c ** -0.5).to(cuda)
+    b = (bias * torch.randn(co, generator=g)).to(cuda)
+    res = torch.randn(n, co, h, w, generator=g).to(cuda, torch.bfloat16)
+    return x, wt, b, res
+
+
+def _conv1x1_elem_limit(x, wt, b, res, ref):
+    """Each y's limit: one bf16 step of the reference value (2^-7 of it,
+    covering a rounding either way) and a bound on the float32 sums' reorder,
+    4 (C + 2) 2^-24 of Σ|terms| (kernel and plain version add the same exact
+    products, the bias and the residual in other orders; the tensor cores'
+    accumulation may round toward zero)."""
+    c = x.shape[1]
+    mag = torch.nn.functional.conv2d(x.float().abs(), wt.abs().to(torch.bfloat16).float()
+                                     .reshape(wt.shape[0], c, 1, 1))
+    mag = mag + b.to(torch.bfloat16).float().abs().reshape(1, -1, 1, 1)
+    if res is not None:
+        mag = mag + res.float().abs()
+    return 2.0**-7 * ref.float().abs() + 4 * (c + 2) * 2.0**-24 * mag
+
+
+def _assert_conv1x1_close(y, x, wt, b, res):
+    """bf16 K3 against the plain version with W and b rounded to bf16: within
+    2^-7 of max|ref|, and each y within its own limit (_conv1x1_elem_limit)."""
+    ref = tk.conv1x1_chw_tc_plain(x, wt, b, res)
+    _assert_fwd_close(y, ref)
+    err = (y.float() - ref.float()).abs()
+    assert bool((err <= _conv1x1_elem_limit(x, wt, b, res, ref)).all()), float(err.max())
+
+
+@pytest.mark.parametrize("variant", ["plain", "res", "res_stats"])
+@pytest.mark.parametrize("shape", CONV1X1_SHAPES)
+def test_conv1x1_tc_matches_plain(cuda, variant, shape):
+    """bf16 K3 runs the tensor-core kernel (without and with the residual,
+    with the sums of the stored y), held to the rounded plain version."""
+    x, wt, b, res = _conv1x1_case(cuda, shape)
+    res = None if variant == "plain" else res
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    if variant == "res_stats":
+        y, s1, s2 = tk.conv1x1_chw_add(x, wt, b, res, want_stats=True)
+    else:
+        y = tk.conv1x1_chw_add(x, wt, b, res) if res is not None else tk.conv1x1_chw(x, wt, b)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_conv1x1_chw_tc"], tk.ROUTE_LAUNCHES["itg_conv1x1_chw"]) == (1, 0)
+    _assert_conv1x1_close(y, x, wt, b, res)
+    if variant == "res_stats":
+        _assert_stats_close(y, s1, s2)
+
+
+@pytest.mark.parametrize("case", [0, 3, 6, 13, 17])
+def test_conv1x1_tc_bits_repeat(cuda, case):
+    """Fixed-order sums and no atomics: two calls give the same y, Σy and
+    Σy²; and a pixel's y does not depend on the tiling (the tile size follows
+    the shape): a window of x, or one image alone, gives the same bits as the
+    whole batch there."""
+    x, wt, b, res = _conv1x1_case(cuda, CONV1X1_SHAPES[case])
+    first = tk.conv1x1_chw_add(x, wt, b, res, want_stats=True)
+    second = tk.conv1x1_chw_add(x, wt, b, res, want_stats=True)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    h, w = x.shape[2:]
+    win = (slice(None), slice(None), slice(h // 3, h // 3 + max(1, h // 2)),
+           slice(w // 4, w // 4 + max(1, w // 2)))
+    y_win = tk.conv1x1_chw_add(x[win].contiguous(), wt, b, res[win].contiguous())
+    assert torch.equal(y_win, first[0][win])
+    eight = [t[:1].expand(8, *t.shape[1:]).contiguous() for t in (x, res)]
+    batch = tk.conv1x1_chw_add(eight[0], wt, b, eight[1])
+    alone = tk.conv1x1_chw_add(x[:1].contiguous(), wt, b, res[:1].contiguous())
+    assert all(torch.equal(batch[i], alone[0]) for i in range(8))
+
+
+@pytest.mark.parametrize("case", [3, 8])
+def test_conv1x1_tc_check_catches_planted_faults(cuda, case):
+    """The checks above fail on a K3 that is slightly wrong: one input
+    channel's weights x 1.01 (the column of the largest weight), the bias
+    dropped, the residual dropped, one k16 step (input channels 0-15)
+    skipped, or one channel's Σy² x 1.01."""
+    x, wt, b, res = _conv1x1_case(cuda, CONV1X1_SHAPES[case])
+    y, s1, s2 = tk.conv1x1_chw_add(x, wt, b, res, want_stats=True)
+    _assert_conv1x1_close(y, x, wt, b, res)
+    w_ch = wt.clone()
+    w_ch[:, int(wt.abs().amax(dim=0).argmax())] *= 1.01
+    skip = wt.clone()
+    skip[:, :16] = 0
+    for bad in (tk.conv1x1_chw_add(x, w_ch, b, res), tk.conv1x1_chw_add(x, wt, 0 * b, res),
+                tk.conv1x1_chw(x, wt, b), tk.conv1x1_chw_add(x, skip, b, res)):
+        with pytest.raises(AssertionError):
+            _assert_conv1x1_close(bad, x, wt, b, res)
+    s2_bad = s2.clone()
+    s2_bad[int(s2.abs().argmax())] *= 1.01
+    with pytest.raises(AssertionError):
+        _assert_stats_close(y, s1, s2_bad)
+
+
+@pytest.mark.parametrize("c,co", [(104, 52), (13, 3), (37, 21), (768, 100), (26, 52)])
+def test_conv1x1_tc_packs_weights_as_plain(cuda, c, co):
+    """The B operand the kernel stages (written to wp) is
+    ``pack_conv1x1_weights`` bit for bit."""
+    x, wt, b, _ = _conv1x1_case(cuda, (1, c, co, 4, 16))
+    ks, no = tk.conv1x1_tc_plan(c, co)
+    wp = torch.full((8 * no, 16 * ks), float("nan"), device=cuda).to(torch.bfloat16)
+    y = torch.empty((1, co, 4, 16), dtype=torch.bfloat16, device=cuda)
+    rc = tk._lib().itg_conv1x1_chw_tc(
+        x.data_ptr(), wt.data_ptr(), b.data_ptr(), None, wp.data_ptr(), y.data_ptr(), None, None,
+        None, 1, c, 64, co, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(wp.cpu(), tk.pack_conv1x1_weights(wt.cpu()))
+    _assert_conv1x1_close(y, x, wt, b, None)
+
+
+def _conv1x1_dw_case(cuda, shape, seed=43):
+    n, c, co, h, w = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, c, h, w, generator=g).to(cuda, torch.bfloat16)
+    gy = torch.randn(n, co, h, w, generator=g).to(cuda, torch.bfloat16)
+    return x, gy
+
+
+def _assert_1x1_dw_close(got, ref):
+    _assert_sum_close(got[0], ref[0])
+    _assert_sum_close(got[1], ref[1])
+
+
+@pytest.mark.parametrize("shape", CONV1X1_DW_SHAPES)
+def test_conv1x1_dw_tc_matches_plain(cuda, shape):
+    """bf16 K3-dW runs the tensor-core kernel and computes the plain
+    version's function (both operands are bf16 values): dW and db within
+    SUM_TOL."""
+    x, gy = _conv1x1_dw_case(cuda, shape)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    got = tk.conv1x1_chw_dw(x, gy)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_conv1x1_chw_dw_tc"], tk.ROUTE_LAUNCHES["itg_conv1x1_chw_dw"]) \
+        == (1, 0)
+    _assert_1x1_dw_close(got, tk.conv1x1_chw_dw_plain(x, gy))
+
+
+@pytest.mark.parametrize("case", [0, 2, 4, 8])
+def test_conv1x1_dw_tc_bits_repeat(cuda, case):
+    """Fixed-order partial sums and no atomics: two calls give the same bits."""
+    x, gy = _conv1x1_dw_case(cuda, CONV1X1_DW_SHAPES[case])
+    first = tk.conv1x1_chw_dw(x, gy)
+    second = tk.conv1x1_chw_dw(x, gy)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _drop_last_tile(x, gy, tile=256):
+    """The plain dW and db without the last pixel tile of each image (the
+    ragged one where H W is no multiple of the tile)."""
+    hw = x.shape[2] * x.shape[3]
+    keep = (hw - 1) // tile * tile
+    xf, gf = x.flatten(2)[..., :keep], gy.flatten(2)[..., :keep]
+    return (torch.einsum("nop,ncp->oc", gf.float(), xf.float()), gf.float().sum(dim=(0, 2)))
+
+
+@pytest.mark.parametrize("case", [0, 4, 13])
+def test_conv1x1_dw_tc_check_catches_planted_faults(cuda, case):
+    """The check above fails on a dW that is slightly wrong: one input
+    channel's dW x 1.01 (the channel of the largest entry), the last pixel
+    tile of each image dropped, or db taken from one image only."""
+    x, gy = _conv1x1_dw_case(cuda, CONV1X1_DW_SHAPES[case])
+    ref = tk.conv1x1_chw_dw_plain(x, gy)
+    dw, db = tk.conv1x1_chw_dw(x, gy)
+    _assert_1x1_dw_close((dw, db), ref)
+    one = dw.clone()
+    one[:, int(ref[0].abs().amax(dim=0).argmax())] *= 1.01
+    for bad in ((one, db), _drop_last_tile(x, gy), (dw, gy[:1].float().sum(dim=(0, 2, 3)))):
+        with pytest.raises(AssertionError):
+            _assert_1x1_dw_close(bad, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1x1_routes_by_dtype(cuda, dtype):
+    """bf16 calls of K3 (and its dx form) and K3-dW launch the tensor-core
+    entry points, f32 calls the CUDA-core ones; each counts one launch per
+    call."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    tk.reset_launches()
+    x, wt, b, res = _conv1x1_case(cuda, CONV1X1_SHAPES[14])
+    x, res = x.to(dtype).requires_grad_(), res.to(dtype)
+    wt = wt.requires_grad_()
+    y = tk.conv1x1_chw_add(x, wt, b, res)
+    torch.autograd.grad(y.float().sum(), (x, wt))
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert tk.ROUTE_LAUNCHES == {**dict.fromkeys(tk.ROUTE_LAUNCHES, 0),
+                                 "itg_conv1x1_chw_tc": 2 * tc, "itg_conv1x1_chw": 2 * (not tc),
+                                 "itg_conv1x1_chw_dw_tc": int(tc),
+                                 "itg_conv1x1_chw_dw": int(not tc)}
+    assert (tk.LAUNCHES["conv1x1_chw"], tk.LAUNCHES["conv1x1_chw_dw"]) == (2, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1x1_refuses_wider(cuda, dtype):
+    """A call outside the kernels' limits raises, naming them, on both
+    routes; nothing is launched."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    x, wt, b, _ = _conv1x1_case(cuda, (1, 769, 3, 4, 8))
+    with pytest.raises(ValueError, match="768-channel limit"):
+        tk.conv1x1_chw(x.to(dtype), wt, b)
+    for shape in ((1, 65, 64, 4, 8), (1, 90, 7, 4, 8)):
+        x, gy = _conv1x1_dw_case(cuda, shape)
+        with pytest.raises(ValueError, match=r"C\*Co <= 4096, C\+Co <= 96"):
+            tk.conv1x1_chw_dw(x.to(dtype), gy.to(dtype))
+    assert not any(v for k, v in tk.ROUTE_LAUNCHES.items() if "conv1x1" in k)
