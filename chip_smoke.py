@@ -68,9 +68,19 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    itself at the sums' limit, two calls bit-equal, and three planted faults
    (one input channel's dW x 1.01, the last pixel tile of each image
    dropped, db from one image only) must read at least K3_PLANT times the
-   limit (``check_1x1_dw``). K4 (one 16-byte vector body for both dtypes) is
+   limit (``check_1x1_dw``). K9 dW and K13 dW route by dtype too: bf16 on
+   the tensor-core kernels of ``csrc/upconv_dw_tc.cu`` and
+   ``csrc/stem_dw_tc.cu``, held to the plain versions themselves at the
+   sums' limit (both operands are bf16 values) at every Exp-1 and SSM
+   shape, both paddings, and K13 dW also at the STEM_ANY_CO widths; two
+   calls bit-equal; four planted faults each (one input channel's dW x
+   1.01, ky and kx swapped, the replicate ring as zeros or the zero border
+   as the edge pixel, db from the even full-res rows or one image) must
+   read at least DW_PLANT times the limit (``check_wgrad``); the K9 dW row
+   includes the wrapper's fold to 3x3, and the entry point alone is
+   printed. K4 (one 16-byte vector body for both dtypes) is
    held bit-equal at every path's shapes. The f32 routes (K1, K6, K7,
-   K9 dx, K13's forward, K3, K3-dW) run on the CUDA-core kernels, timed into
+   K9 dx, K9 dW, K13's forward and dW, K3, K3-dW) run on the CUDA-core kernels, timed into
    rows of their own (``:f32_<path>``), and each CUDA-core kernel is timed in
    bf16 beside the tensor-core one. Times
    each (CUDA-graph replay) beside its bound, its plain version and one
@@ -106,7 +116,8 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
      the bf16 one pass;
    - ``[route]``: the f32 one pass and canvases launch K1/K2 and K3 on the
      CUDA cores only, every bf16 canvas on the tensor cores only (the
-     counted raster exactly its K2 and K3 launches), and no K3-dW.
+     counted raster exactly its K2 and K3 launches), and no K3-dW, K9 dW
+     or K13 dW.
 4b. The same generation phase for a freshly loaded flagship with
    ``fuse_up='all'`` (one pass: K9 3, K1 4, K3 3, K10 3; per sub-image K14
    3, K2 4, K3 3, K10 3); its canvases against the unfused engine's on the
@@ -121,8 +132,8 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    largest deviation against its largest value). Then the fused step
    against the unfused one from the same state and crops, both on the
    kernels. The same step parity for the SSM recipe (K15 included). Each
-   f32 step parity runs K1, K6, K7, K9 dx, K13's forward, K3 and K3-dW on their
-   CUDA-core entry points only (``[route]``).
+   f32 step parity runs K1, K6, K7, K9's forward, dx and dW, K13's forward
+   and dW, K3 and K3-dW on their CUDA-core entry points only (``[route]``).
    ``step_parity_study.py`` measures the limits' spread and planted faults.
 6. Training runs: 30 bf16 steps each through the train CLI's ``train``:
    the Experiment-1 recipe on ``datasets/241.jpg`` under ``--fuse_up auto``
@@ -130,8 +141,8 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    exact launch counts per step, warm steps/s, the device's busy share
    (torch.profiler), then the written ``.ckpt`` reloaded through the
    sampling loader and rendered to a 384^2 canvas. Each bf16 run launches
-   K1/K2, K6, K7, K9 dx, K13's forward, K3 and K3-dW on their tensor-core
-   entry points only (``[route]``).
+   K1/K2, K6, K7, K9's forward, dx and dW, K13's forward and dW, K3 and
+   K3-dW on their tensor-core entry points only (``[route]``).
 7. SSM generation from the SSM run's EMA checkpoint through the same
    generation phase (one-pass launches K15 6, K1 5, K3 2, K4 2; per 1024^2
    canvas K15 384, K2 320, K3 128, K4 128; the bf16 raster against the
@@ -256,18 +267,18 @@ KERNELS = {
     "upsample2_chw_bwd": ("K4-bwd", "upsample2_chw.cu", "pallas_conv.py:2560"),
     "upconv3x3_chw": ("K9", "upconv_fwd_tc.cu", "pallas_conv.py:1457"),
     "upconv3x3_chw_dx": ("K9-dx", "chw_dx_tc.cu", "pallas_conv.py:1642"),
-    "upconv3x3_chw_dw": ("K9-dW", "upconv3x3_chw.cu", "pallas_conv.py:1777"),
+    "upconv3x3_chw_dw": ("K9-dW", "upconv_dw_tc.cu", "pallas_conv.py:1777"),
     "chw_upconv_halo_step": ("K14", "upconv_fwd_tc.cu", "pallas_conv.py:2019"),
     "upsample2_chw_add": ("K10", "upsample2_chw.cu", "pallas_conv.py:2199"),
     "stem_fwd": ("K13", "stem_fwd_tc.cu", "pallas_conv.py:2769"),
-    "stem_dw": ("K13-dW", "stem4x4s2.cu", "pallas_conv.py:2840"),
+    "stem_dw": ("K13-dW", "stem_dw_tc.cu", "pallas_conv.py:2840"),
     "stem_dx": ("K13-dx", "stem4x4s2.cu", "pallas_conv.py:2977"),
     "ssm_embed": ("K15", "ssm_embed_tc.cu", "pallas_ssm.py:343"),
     "ssm_embed_bwd": ("K15-bwd", "ssm_embed_tc.cu", "pallas_ssm.py:392"),
 }
 # The kernels with two routes (K15: ops/ssm.py; K1/K2, K6, K7, K9/K14's forward, K9 dx,
-# K13's forward, K3 and K3-dW: ops/kernels.py): the main paths run bf16 on the tensor-core
-# kernels above;
+# K9 dW, K13's forward, K13 dW, K3 and K3-dW: ops/kernels.py): the main paths run bf16 on
+# the tensor-core kernels above;
 # float32 (step parity, the f32 raster) keeps the CUDA-core kernels, reported
 # in rows of their own: kernel -> (C entry point, source)
 F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
@@ -277,7 +288,9 @@ F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
              "conv3x3_chw_dx": ("itg_conv3x3_chw_dx", "conv3x3_chw_bwd.cu"),
              "conv3x3_chw_dw": ("itg_conv3x3_chw_dw", "conv3x3_chw_bwd.cu"),
              "upconv3x3_chw_dx": ("itg_upconv3x3_chw_dx", "upconv3x3_chw.cu"),
+             "upconv3x3_chw_dw": ("itg_upconv3x3_chw_dw", "upconv3x3_chw.cu"),
              "stem_fwd": ("itg_stem_fwd", "stem4x4s2.cu"),
+             "stem_dw": ("itg_stem_dw", "stem4x4s2.cu"),
              "upconv3x3_chw": ("itg_upconv3x3_chw", "upconv3x3_chw.cu"),
              "chw_upconv_halo_step": ("itg_upconv3x3_chw", "upconv3x3_chw.cu"),
              "conv1x1_chw": ("itg_conv1x1_chw", "conv1x1_chw.cu"),
@@ -286,15 +299,17 @@ TC_ENTRY = {"conv3x3_chw": "itg_conv3x3_chw_tc", "chw_halo_step": "itg_conv3x3_c
             "ssm_embed": "itg_ssm_embed_tc_fwd", "ssm_embed_bwd": "itg_ssm_embed_tc_bwd",
             "conv3x3_chw_dx": "itg_conv3x3_chw_dx_tc", "conv3x3_chw_dw": "itg_conv3x3_chw_dw_tc",
             "upconv3x3_chw_dx": "itg_upconv3x3_chw_dx_tc", "stem_fwd": "itg_stem_fwd_tc",
+            "upconv3x3_chw_dw": "itg_upconv3x3_chw_dw_tc", "stem_dw": "itg_stem_dw_tc",
             "upconv3x3_chw": "itg_upconv3x3_chw_tc", "chw_upconv_halo_step": "itg_upconv3x3_chw_tc",
             "conv1x1_chw": "itg_conv1x1_chw_tc", "conv1x1_chw_dw": "itg_conv1x1_chw_dw_tc"}
-# K1/K2, K6, K7, K9 dx, K13's forward, K9/K14's forward, K3 and K3-dW
-# (ops/kernels.py's ROUTE_LAUNCHES): their bf16 rows also carry the CUDA-core
+# K1/K2, K6, K7, K9 dx, K9 dW, K13's forward, K13 dW, K9/K14's forward, K3 and
+# K3-dW (ops/kernels.py's ROUTE_LAUNCHES): their bf16 rows also carry the CUDA-core
 # kernel's time in bf16 (the design the tensor-core one replaced, timed in the
 # same run), and their f32 route has a row for each training path (K2 and
 # K14 run only at eval: none)
 ROUTED = ("conv3x3_chw", "chw_halo_step", "conv3x3_chw_dx", "conv3x3_chw_dw", "upconv3x3_chw_dx",
-          "stem_fwd", "upconv3x3_chw", "chw_upconv_halo_step", "conv1x1_chw", "conv1x1_chw_dw")
+          "stem_fwd", "upconv3x3_chw", "chw_upconv_halo_step", "conv1x1_chw", "conv1x1_chw_dw",
+          "upconv3x3_chw_dw", "stem_dw")
 # K2's four border cases: (top row cached, left column cached)
 BORDERS = {"no cache": (False, False), "top only": (True, False), "left only": (False, True),
            "top and left": (True, True)}
@@ -429,6 +444,9 @@ K3_PLANT = 10.0
 # the tensor-core dW's pixel tile (csrc/conv1x1_tc.cu: kDwTP): a planted
 # fault drops the last one of each image
 DW1X1_TILE = 256
+# K9 dW's and K13 dW's bf16 routes: each planted fault must read at least this
+# many times the check's limit (SUM_TOL of max|ref|)
+DW_PLANT = 10.0
 
 
 def fail(msg: str):
@@ -452,14 +470,16 @@ def fwd_route(label: str, tc: bool, want=None, up_want=None, k3_want=None) -> No
     """The eval kernels' launches by C entry point since the last call, which
     then start again from 0: the bf16 route's (``tc``) or the float32 one's
     only; K1 / K2 and K3 at least once (or exactly ``want`` and
-    ``k3_want``), K9 / K14 exactly ``up_want`` where it is given, K3-dW
-    none."""
+    ``k3_want``), K9 / K14 exactly ``up_want`` where it is given, K3-dW,
+    K9 dW and K13 dW none."""
     from infinite_texture_gans_torch.ops import kernels
 
     for tag, kernel, need, at_least_one in (("K1 / K2", "conv3x3_chw", want, True),
                                             ("K9 / K14", "upconv3x3_chw", up_want, False),
                                             ("K3", "conv1x1_chw", k3_want, True),
-                                            ("K3-dW", "conv1x1_chw_dw", 0, False)):
+                                            ("K3-dW", "conv1x1_chw_dw", 0, False),
+                                            ("K9 dW", "upconv3x3_chw_dw", 0, False),
+                                            ("K13 dW", "stem_dw", 0, False)):
         on, off = (TC_ENTRY[kernel], F32_ROUTE[kernel][0])[:: 1 if tc else -1]
         counts = {e: kernels.ROUTE_LAUNCHES[e] for e in (on, off)}
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(counts, 0))
@@ -1181,7 +1201,7 @@ def main() -> int:
     gstats = table()  # per 192^2 SSM sub-image (SSM generation)
     fstats = table()  # K15's float32 route, per SSM step at the training shapes
     tstats = {tail: table() for tail in STEP_LAUNCHES}  # per training step, each tail
-    # the f32 routes of K1 / K6 / K7 / K9 dx / K13 / K3 / K3-dW, per step
+    # the routed kernels' f32 routes (ROUTED), per step
     dstats = {tail: table() for tail in STEP_LAUNCHES}
 
     def compare(name, shape, got, ref, exact=False, into=None, floor=1.0):
@@ -1233,7 +1253,7 @@ def main() -> int:
         the flagship's table by default, and in ``also`` where another path
         runs the same shape), else per step of each training tail named (a
         shape both tails run goes into both; with ``f32_route``, into the
-        K1 / K6 / K7 / K9 dx / K13 / K3 / K3-dW f32 route's tables).
+        f32 routes' tables of the ROUTED kernels).
         ``old_fn``: the same function on the CUDA-core kernel that the
         tensor-core one replaced, timed beside it."""
         ms, plain, lib = device_ms(kernel_fn), device_ms(plain_fn), device_ms(lib_fn)
@@ -1632,6 +1652,63 @@ def main() -> int:
                   f"(must reach {K3_PLANT:g})")
             if not r_ >= K3_PLANT:
                 fail(f"conv1x1_chw_dw {tag}: a planted {fault} reads only {r_:.2f}x the limit")
+
+    def check_wgrad(name, tag, args, faults=None):
+        """K9 dW or K13 dW (``name``) on ``args`` against its plain version:
+        dW and db within SUM_TOL of the plain version on both routes (bf16 on
+        the tensor cores: its operands are bf16 values, so the plain version
+        computes its function); bf16 two calls bit-equal and, with
+        ``faults`` (got, ref -> {fault: (dW, db)}), each planted fault must
+        read at least DW_PLANT times the limit."""
+        k = getattr(kernels, name)
+        tc = args[0].dtype == torch.bfloat16
+        tag = f"{tag} [{'tensor cores' if tc else 'CUDA cores'}]"
+        got = k(*args)
+        ref = getattr(kernels, name + "_plain")(*args)
+        compare_sum(name, f"dW {tag}", got[0], ref[0])
+        compare_sum(name, f"db {tag}", got[1], ref[1])
+        if not tc:
+            return
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, k(*args)))
+        print(f"[check] {name} {tag}: two calls {'bit-equal' if same else 'differ'}")
+        if not same:
+            fail(f"{name} {tag}: two bf16 calls differ")
+        if faults is None:
+            return
+        one = got[0].clone()
+        one[:, int(ref[0].abs().amax(dim=(0, 2, 3)).argmax())] *= 1.01
+        planted = {"one input channel's dW x 1.01": (one, got[1]),
+                   "ky<->kx": (got[0].transpose(2, 3), got[1]), **faults(got, ref)}
+        for fault, bad in planted.items():
+            r_ = max(float((a - r).abs().max()) / (SUM_TOL * float(r.abs().max()))
+                     for a, r in zip(bad, ref))
+            print(f"[check] {name} {tag}: planted {fault}: max abs err / limit {r_:.2f} (must "
+                  f"reach {DW_PLANT:g})")
+            if not r_ >= DW_PLANT:
+                fail(f"{name} {tag}: a planted {fault} reads only {r_:.2f}x the limit")
+
+    def check_updw(tag, x, gy, sc, sh, outer, plant=False):
+        """K9 dW (check_wgrad); with ``plant`` (replicate padding) also the
+        replicate ring taken as zeros and db from the even full-res rows."""
+        def faults(got, ref):
+            return {"replicate ring as zeros":
+                    kernels.upconv3x3_chw_dw(x, gy, sc, sh, True, "constant"),
+                    "db from the even full-res rows only":
+                    (got[0], gy[:, :, ::2].float().sum(dim=(0, 2, 3)))}
+
+        check_wgrad("upconv3x3_chw_dw", tag, (x, gy, sc, sh, True, outer),
+                    faults if plant and outer == "replicate" else None)
+
+    def check_stem_dw(tag, x, gy, plant=False):
+        """K13 dW (check_wgrad); with ``plant`` also the zero border read as
+        the edge pixel and db from one image only."""
+        def faults(got, ref):
+            edge = kernels.stem_dw(F.pad(x, (2, 2, 2, 2), mode="replicate"),
+                                   F.pad(gy, (0, 0, 1, 1, 1, 1)))
+            return {"the zero border read as the edge pixel": edge,
+                    "db from one image only": (got[0], gy[:1].float().sum(dim=(0, 1, 2)))}
+
+        check_wgrad("stem_dw", tag, (x, gy), faults if plant else None)
 
     def time_stem(shape_s, x, wt, b, nbytes, flops, tails):
         """K13's forward, twice per step of each tail in ``tails``: bf16 on
@@ -2039,22 +2116,27 @@ def main() -> int:
             compare("stem_fwd", f"--D_ch {co_}: (2, 3, {hs}x{hs}) -> (2, {hs // 2}, {hs // 2}, {co_}) "
                     "[tensor cores]", kernels.stem_fwd(x[:2], w_s, b_s),
                     kernels.stem_fwd_tc_plain(x[:2], w_s, b_s), floor=0.0)
+            check_stem_dw(f"--D_ch {co_}: (2, 3, {hs}x{hs}) -> (2, {hs // 2}, {hs // 2}, {co_})",
+                          x[:2], randn(g_s, 2, hs // 2, hs // 2, co_).to(dtype))
         compare("stem_dx", shape_s, kernels.stem_dx(gy, wt), kernels.stem_dx_plain(gy, wt))
-        dw, db = kernels.stem_dw(x, gy)
-        dw_r, db_r = kernels.stem_dw_plain(x, gy)
-        compare_sum("stem_dw", f"dW {shape_s}", dw, dw_r)
-        compare_sum("stem_dw", f"db {shape_s}", db, db_r)
+        check_stem_dw(f"train {shape_s}", x, gy, plant=True)
         act = n * (hs // 2) ** 2
         flops = 2.0 * act * co * 48
         nbytes = (n * 3 * hs * hs + act * co) * es + (co * 48 + co) * 4
         time_stem(shape_s, x, wt, b, nbytes, flops, ("auto", "off"))
-        if timed:
-            wl = wt.to(dtype)
-            g_nchw = gy.permute(0, 3, 1, 2)
-            account("stem_dw", shape_s, lambda: kernels.stem_dw(x, gy),
+        wl = wt.to(dtype)
+        g_nchw = gy.permute(0, 3, 1, 2)
+        if not timed:  # K13 dW's f32 route (CUDA cores), in rows of its own
+            account("stem_dw", f"{shape_s} [CUDA cores, f32]", lambda: kernels.stem_dw(x, gy),
                     lambda: kernels.stem_dw_plain(x, gy),
                     lambda: torch.nn.grad.conv2d_weight(x, wl.shape, g_nchw, stride=2, padding=1),
-                    nbytes, flops, tails=("auto", "off"))
+                    nbytes, flops, tails=("auto", "off"), peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+        else:
+            account("stem_dw", f"{shape_s} [tensor cores]", lambda: kernels.stem_dw(x, gy),
+                    lambda: kernels.stem_dw_plain(x, gy),
+                    lambda: torch.nn.grad.conv2d_weight(x, wl.shape, g_nchw, stride=2, padding=1),
+                    nbytes, flops, tails=("auto", "off"),
+                    old_fn=lambda: kernels._stem_dw_cuda_cores(x, gy))
             account("stem_dx", shape_s, lambda: kernels.stem_dx(gy, wt),
                     lambda: kernels.stem_dx_plain(gy, wt),
                     lambda: torch.nn.grad.conv2d_input(x.shape, wl, g_nchw, stride=2, padding=1),
@@ -2099,10 +2181,7 @@ def main() -> int:
                 check_up("train", shape_s, x, wt, b, sc, sh, None, None, outer, halo=False,
                          with_stats=True, plant=i == 0)
                 check_dx("upconv3x3_chw_dx", tag, x, gy, wt, sc, sh, outer, plant=True)
-                dw, db = kernels.upconv3x3_chw_dw(x, gy, sc, sh, True, outer)
-                dw_r, db_r = kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, True, outer)
-                compare_sum("upconv3x3_chw_dw", f"dW {tag}", dw, dw_r)
-                compare_sum("upconv3x3_chw_dw", f"db {tag}", db, db_r)
+                check_updw(tag, x, gy, sc, sh, outer, plant=True)
             k10_s = f"({n}, {co}, {h}x{w}) + ({n}, {co}, {2 * h}x{2 * w})"
             y_ref = kernels.upsample2_chw_add_plain(s_half, res)
             compare("upsample2_chw_add", k10_s, kernels.upsample2_chw_add(s_half, res), y_ref,
@@ -2118,6 +2197,7 @@ def main() -> int:
             dx_bytes = act * (2 * c + 4 * co) * es + wbytes + 2 * c * 4
             wt4 = kernels._upconv_dx_weights(wt)
             a_half = kernels.prenorm(x, sc, sh, True)
+            a_up = F.pad(kernels.upsample2_chw_plain(a_half), (1, 1, 1, 1), mode="replicate")
             w3l, b3l, w3Tl = w3.to(dtype), b3.to(dtype), w3T.reshape(c, co, 1, 1).to(dtype)
             if not timed:  # the f32 routes (CUDA cores) of K9, K9 dx, K3 and K3-dW: rows of their own
                 f32 = dict(tails=("auto",), peak=PEAK_F32_FLOP_PER_S, f32_route=True)
@@ -2148,8 +2228,13 @@ def main() -> int:
                         lambda: F.conv2d(gy, wt4.transpose(0, 1).contiguous(), stride=2, padding=1),
                         dx_bytes, flops, tails=("auto",), peak=PEAK_F32_FLOP_PER_S,
                         f32_route=True)
+                account("upconv3x3_chw_dw", f"{shape_s} [CUDA cores, f32]",
+                        lambda: kernels.upconv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
+                        lambda: kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
+                        lambda: torch.nn.grad.conv2d_weight(a_up, wt.shape, gy),
+                        act * (c + 4 * co) * es + wbytes, flops, tails=("auto",),
+                        peak=PEAK_F32_FLOP_PER_S, f32_route=True)
                 continue
-            a_up = F.pad(kernels.upsample2_chw_plain(a_half), (1, 1, 1, 1), mode="replicate")
             wl, bl = wt.to(dtype), b.to(dtype)
             wt4l = wt4.transpose(0, 1).contiguous().to(dtype)
             account("upconv3x3_chw", f"{shape_s} +stats [tensor cores]",
@@ -2167,11 +2252,15 @@ def main() -> int:
                     tails=("auto",),
                     old_fn=lambda: kernels._dx_cuda_cores("itg_upconv3x3_chw_dx", x, gy, wt4, sc, sh,
                                                           True, False))
-            account("upconv3x3_chw_dw", shape_s,
+            account("upconv3x3_chw_dw", f"{shape_s} [tensor cores]",
                     lambda: kernels.upconv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
                     lambda: kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
                     lambda: torch.nn.grad.conv2d_weight(a_up, wl.shape, gy),
-                    act * (c + 4 * co) * es + wbytes, flops, tails=("auto",))
+                    act * (c + 4 * co) * es + wbytes, flops, tails=("auto",),
+                    old_fn=lambda: kernels._upconv_dw_cuda_cores(x, gy, sc, sh, True, False))
+            entry = device_ms(lambda: kernels._upconv_dw_tensor_cores(x, gy, sc, sh, True, False))
+            print(f"[time] upconv3x3_chw_dw {shape_s}: the entry point alone (kernel and "
+                  f"reduce launch, without the wrapper's fold to 3x3) {entry:.4f} ms  [{card}]")
             account("upsample2_chw_add", f"{k10_s} +stats",
                     lambda: kernels.upsample2_chw_add(s_half, res, want_stats=True),
                     lambda: kernels.upsample2_chw_add_plain(s_half, res, want_stats=True),
@@ -2415,9 +2504,7 @@ def main() -> int:
         stem_s = f"ssm ({n}, 3, {h}x{h}) -> ({n}, {h // 2}, {h // 2}, 64)"
         check_stem(stem_s, xs, ws, bs)
         compare("stem_dx", stem_s, kernels.stem_dx(gs, ws), kernels.stem_dx_plain(gs, ws))
-        dw, db = kernels.stem_dw(xs, gs)
-        dw_r, db_r = kernels.stem_dw_plain(xs, gs)
-        compare_sum("stem_dw", f"dW {stem_s}", dw, dw_r)
+        check_stem_dw(stem_s, xs, gs, plant=True)
         sact = n * (h // 2) ** 2
         sflops = 2.0 * sact * 64 * 48
         sbytes = (n * 3 * h * h + sact * 64) * es + (64 * 48 + 64) * 4
@@ -2448,7 +2535,13 @@ def main() -> int:
                 lambda: torch.nn.grad.conv2d_weight(x, wl.shape, gy),
                 act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("ssm",), **f32,
                 old_fn=(lambda: kernels._conv1x1_dw_cuda_cores(x, gy)) if timed else None)
-        if not timed:
+        wsl, gs_nchw = ws.to(dtype), gs.permute(0, 3, 1, 2)
+        if not timed:  # K13 dW's f32 route (CUDA cores), in a row of its own
+            account("stem_dw", f"{stem_s} [CUDA cores, f32]", lambda: kernels.stem_dw(xs, gs),
+                    lambda: kernels.stem_dw_plain(xs, gs),
+                    lambda: torch.nn.grad.conv2d_weight(xs, wsl.shape, gs_nchw, stride=2,
+                                                        padding=1),
+                    sbytes, sflops, tails=("ssm",), peak=PEAK_F32_FLOP_PER_S, f32_route=True)
             continue
         account("upsample2_chw", f"({n}, {c}, {h // 2}, {h // 2})", lambda: kernels.upsample2_chw(x_half),
                 lambda: kernels.upsample2_chw_plain(x_half),
@@ -2458,10 +2551,10 @@ def main() -> int:
                 lambda: kernels.upsample2_chw_bwd_plain(g_up),
                 lambda: F.avg_pool2d(g_up, 2, divisor_override=1), 5.0 * act // 4 * c * es,
                 3.0 * act // 4 * c, tails=("ssm",))
-        wsl, gs_nchw = ws.to(dtype), gs.permute(0, 3, 1, 2)
-        account("stem_dw", stem_s, lambda: kernels.stem_dw(xs, gs), lambda: kernels.stem_dw_plain(xs, gs),
+        account("stem_dw", f"{stem_s} [tensor cores]", lambda: kernels.stem_dw(xs, gs),
+                lambda: kernels.stem_dw_plain(xs, gs),
                 lambda: torch.nn.grad.conv2d_weight(xs, wsl.shape, gs_nchw, stride=2, padding=1),
-                sbytes, sflops, tails=("ssm",))
+                sbytes, sflops, tails=("ssm",), old_fn=lambda: kernels._stem_dw_cuda_cores(xs, gs))
         account("stem_dx", stem_s, lambda: kernels.stem_dx(gs, ws), lambda: kernels.stem_dx_plain(gs, ws),
                 lambda: torch.nn.grad.conv2d_input(xs.shape, wsl, gs_nchw, stride=2, padding=1),
                 sbytes, sflops, tails=("ssm",))
@@ -2471,8 +2564,7 @@ def main() -> int:
             fail(f"phases 3/3b timed {timed_calls} calls per {TRAIN_PATHS[tail][0]} step, not {want}")
         f32_calls = {k: dstats[tail][k]["calls"] for k in ROUTED}
         if f32_calls != {k: want[k] for k in ROUTED}:
-            fail(f"phases 3/3b timed the f32 routes of K1 / K6 / K7 / K9 dx / K13 / K3 / K3-dW "
-                 f"{f32_calls} per "
+            fail(f"phases 3/3b timed the routed kernels' f32 routes {f32_calls} per "
                  f"{TRAIN_PATHS[tail][0]} step")
     # generation: the timed calls per sub-image are the raster's launches
     # (K1, timed at the sub-image's shapes, runs on the one pass instead)
@@ -2517,7 +2609,7 @@ def main() -> int:
 
     # -- 5. step parity: kernels against plain versions, full width, f32 ------
     t0 = time.perf_counter()
-    # K1 / K6 / K7 / K9 dx / K13 / K3 / K3-dW launches by entry point in each f32 step parity
+    # the routed kernels' launches by entry point in each f32 step parity
     dx_f32 = {}
 
     def parity_run(tail, argv):
@@ -2535,10 +2627,10 @@ def main() -> int:
     for tail, counts in dx_f32.items():
         want = route_want(STEP_LAUNCHES[tail], tc=False)
         if counts != want:
-            fail(f"the f32 step parity ({TRAIN_PATHS[tail][0]}) took the K1 / K6 / K7 / K9 dx / "
-                 f"K13 / K3 / K3-dW launches {counts}, not {want}")
-        print(f"[route] f32 step parity, {TRAIN_PATHS[tail][0]}: K1 / K6 / K7 / K9 dx / K13 / K3 / "
-              f"K3-dW launches by entry point {counts}")
+            fail(f"the f32 step parity ({TRAIN_PATHS[tail][0]}) took the routed kernels' "
+                 f"launches {counts}, not {want}")
+        print(f"[route] f32 step parity, {TRAIN_PATHS[tail][0]}: the routed kernels' (K1, K6, K7, "
+              f"K9, K9 dx, K9 dW, K13, K13 dW, K3, K3-dW) launches by entry point {counts}")
     if f32_route["itg_ssm_embed_tc_fwd"] or f32_route["itg_ssm_embed_tc_bwd"] or not (
             f32_route["itg_ssm_embed_fwd"] and f32_route["itg_ssm_embed_bwd"]):
         fail(f"the f32 SSM step parity took K15's launches {f32_route}, not the CUDA-core route's")
@@ -2562,10 +2654,11 @@ def main() -> int:
         want = route_want({k: (TRAIN_STEPS + TRACED_STEPS) * v
                            for k, v in STEP_LAUNCHES[tail].items()}, tc=True)
         if counts != want:
-            fail(f"the bf16 training run ({TRAIN_PATHS[tail][0]}) took the K1 / K2 / K6 / K7 / K9 "
-                 f"dx / K13 / K3 / K3-dW launches {counts}, not {want}")
-        print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}: K1 / K2 / K6 / K7 / K9 dx / K13 / "
-              f"K3 / K3-dW launches by entry point {counts} (CUDA-core kernels: 0)")
+            fail(f"the bf16 training run ({TRAIN_PATHS[tail][0]}) took the routed kernels' "
+                 f"launches {counts}, not {want}")
+        print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}: the routed kernels' (K1, K6, "
+              f"K7, K9, K9 dx, K9 dW, K13, K13 dW, K3, K3-dW) launches by entry point {counts} "
+              "(CUDA-core kernels: 0)")
     if bf16_route["itg_ssm_embed_fwd"] or bf16_route["itg_ssm_embed_bwd"] or min(
             bf16_route["itg_ssm_embed_tc_fwd"], bf16_route["itg_ssm_embed_tc_bwd"]) < 3 * TRAIN_STEPS:
         fail(f"the bf16 training runs took K15's launches {bf16_route}, not the tensor-core route's")

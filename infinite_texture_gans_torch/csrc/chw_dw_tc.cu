@@ -64,12 +64,9 @@
 //   No atomics: two calls give the same bits.
 // - db is summed from the staged g tile by 8 threads per output channel, in
 //   a fixed order, and rides along in the partials.
-// The stride-2 weight gradient of the up-conv (K9 dW) could take the same
-// body with the half-res slab staged once per phase; it is not done here.
-#include <cuda.h>
-
-#include "common.cuh"
-#include "mma.cuh"
+// The stride-2 weight gradient of the up-conv (K9 dW) takes this design at
+// half resolution, with four B operands: upconv_dw_tc.cu.
+#include "chw_dw_tc.cuh"
 
 namespace {
 
@@ -79,54 +76,28 @@ using itg::ldmatrix_x4;
 using itg::ldmatrix_x4_trans;
 using itg::mma_bf16;
 using itg::smem_addr;
+using itg::dw::aligned16;
+using itg::dw::bf16_hi;
+using itg::dw::bf16_lo;
+using itg::dw::blocks_for;
+using itg::dw::DwArgs;
+using itg::dw::kAP;
+using itg::dw::kThreads;
+using itg::dw::kTW;
+using itg::dw::kWarps;
+using itg::dw::load_cols;
+using itg::dw::pick_stages;
+using itg::dw::smem_for;
+using itg::dw::Tile;
+using itg::dw::word;
 
 constexpr int kTH = 8;             // output rows per tile
-constexpr int kTW = 32;            // output columns per tile: two k16 steps per row
 constexpr int kSteps = kTH * kTW / 16;
-constexpr int kAR = kTH + 2;       // staged rows (the taps' halo)
-constexpr int kAC = kTW + 2;       // staged columns
-constexpr int kAP = kAC + 1;       // pixel slots per staged row (odd)
-// a raw x row in shared memory: x columns w0 - 8 .. w0 + kTW + 7 (a TMA box
-// starts on a 16-byte boundary), of which the tile reads w0 - 1 .. w0 + kTW;
-// raw column j is pixel slot j - 7
-constexpr int kRW = kTW + 16;
 constexpr int kGS = kTH * kTW + 8;  // bf16 per staged g row (an odd number of 16-byte units)
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
 // floats of a block's partial: the C fragments of every (tap, m16 tile) pair
 // and n8 tile in fragment order, then db (8 NO)
 __host__ __device__ constexpr int part_entries(int mt, int no) {
   return 9 * mt * no * 128 + 8 * no;
-}
-
-// the shared memory of an H100 SM; 1 KB of it per block is reserved
-constexpr size_t kSmemPerSM = 233472;
-constexpr int kMaxStages = 6;
-
-// A block's shared memory with `stages` stages of copies in flight and `a`
-// bytes for A outside them, and the blocks an SM holds of it.
-constexpr size_t smem_for(int stages, size_t stage, size_t a, size_t red, size_t fixed) {
-  const size_t s = stages * stage + a;
-  return (s > red ? s : red) + fixed;
-}
-
-constexpr int blocks_for(int stages, size_t stage, size_t a, size_t red, size_t fixed) {
-  return static_cast<int>(kSmemPerSM / (smem_for(stages, stage, a, red, fixed) + 1024));
-}
-
-// The stage count: two blocks an SM (128 registers a thread) where the
-// shared memory holds them, else one; then as many stages (2 to 6) as fit.
-// A second block overlaps one block's staging with the other's products,
-// which more stages of one block do not: on an H100 two blocks of 2 stages
-// ran faster than one of 5 at every shape where both fit.
-constexpr int pick_stages(size_t stage, size_t a, size_t red, size_t fixed) {
-  int best = 2, best_blocks = 0;
-  for (int s = 2; s <= kMaxStages; ++s) {
-    int b = blocks_for(s, stage, a, red, fixed);
-    b = b > 2 ? 2 : b;
-    if (b >= best_blocks && b > 0) best = s, best_blocks = b;
-  }
-  return best;
 }
 
 // The configuration of MT m16 tiles of input channels and NO n8 tiles of
@@ -135,6 +106,7 @@ template <int MT, int NO>
 struct Cfg {
   static constexpr int Cp = 16 * MT;
   static constexpr int AS = Cp + 8;  // bf16 per staged pixel: Cp / 8 + 1 units, odd
+  using A = itg::dw::Slab<kTH, Cp, AS>;
   static constexpr int P = 9 * MT;   // (tap, m16 tile) pairs
   static constexpr int PG = P * NO <= 16 ? 1
                             : (P + 1) / 2 * NO <= 16 ? 2
@@ -143,12 +115,13 @@ struct Cfg {
   static constexpr int PP = (P + PG - 1) / PG;  // pairs per warp (the last may be short)
   static constexpr int KS = kWarps / PG;        // k-slices
   static constexpr int Cop = 8 * NO;
-  static constexpr size_t a_bytes = sizeof(bf16) * kAR * kAP * AS;
-  static constexpr size_t box_bytes = sizeof(bf16) * Cp * kAR * kRW;  // a tile's raw x
+  static constexpr size_t a_bytes = A::a_bytes;
+  static constexpr size_t box_bytes = A::box_bytes;  // a tile's raw x
   static constexpr size_t g_bytes = sizeof(bf16) * Cop * kGS;
   static constexpr size_t red_bytes = sizeof(float) * PG * PP * NO * 4 * 32;
   // scale | shift, then an mbarrier per stage
-  static constexpr size_t fixed_bytes = sizeof(float) * 2 * Cp + sizeof(uint64_t) * kMaxStages;
+  static constexpr size_t fixed_bytes =
+      sizeof(float) * 2 * Cp + sizeof(uint64_t) * itg::dw::kMaxStages;
   // A in a buffer of its own, or in place of its tile's raw x (a second
   // barrier a tile: every raw value is read before A is written), which
   // only pays where it fits a second block an SM (C <= 32, Co > 16)
@@ -170,79 +143,18 @@ struct Cfg {
       blocks_for(kStages, stage_bytes, a_apart, red_bytes, fixed_bytes) >= 2 ? 2 : 1;
 };
 
-struct DwArgs {
-  const bf16* x;       // (N, C, H, W)
-  const bf16* g;       // (N, Co, H, W)
-  const float* scale;  // (C)
-  const float* shift;  // (C)
-  float* part;         // (gridDim.x, part_entries): per-block dW fragments | db
-  int N, C, H, W, Co, relu, zeros;
-  int tma;             // x's raw tiles by TMA (else element loads)
-};
-
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// act(scale * v + shift) before the rounding to bf16 (the packing rounds).
-__device__ __forceinline__ float pre(float v, float sc, float sh, int relu) {
-  const float a = __fadd_rn(__fmul_rn(v, sc), sh);
-  return relu ? fmaxf(a, 0.f) : a;
-}
-
-// Tile `tile`'s image and corner: image n, output rows h0 .., columns w0 ..
-struct Tile {
-  int n, h0, w0;
-};
-
-__device__ __forceinline__ Tile tile_at(int tile, int tiles_h, int tiles_w) {
-  return {tile / (tiles_h * tiles_w), ((tile / tiles_w) % tiles_h) * kTH, (tile % tiles_w) * kTW};
-}
-
-// Element loads of x columns xc .. xc + len - 1 of a row (zero outside
-// [0, W) or where !ok) into dst.
-__device__ __forceinline__ void load_cols(bf16* dst, const bf16* row, int xc, int len, int W,
-                                          bool ok) {
-  for (int q = 0; q < len; ++q) {
-    dst[q] = ok && xc + q >= 0 && xc + q < W ? row[xc + q] : __float2bfloat16_rn(0.f);
-  }
-}
-
 // Starts the copies of tile t into one stage of shared memory: its raw x
-// (Cp channels x kAR rows x kRW columns, x columns w0 - 8 .., rows h0 - 1
-// ..; zeros outside the image and past C) as one TMA box completing on
-// `bar`, or by element loads where x's rows are not 16-byte aligned; and its
-// g (Cop rows of the kTH x kTW pixels, row-major; zeros outside the image
-// and past Co) by 16-byte cp.async (element loads where unaligned), as one
-// cp.async group. Consecutive threads take consecutive pieces of a row.
-template <int Cp, int Cop>
+// (Slab::start_copy) and its g (Cop rows of the kTH x kTW pixels, row-major;
+// zeros outside the image and past Co) by 16-byte cp.async (element loads
+// where unaligned), as one cp.async group. Consecutive threads take
+// consecutive pieces of a row.
+template <int MT, int NO>
 __device__ __forceinline__ void start_copies(const DwArgs& a, const void* tmap, const Tile& t,
                                              bf16* s_raw, bf16* s_g, uint64_t* bar, bool gvec) {
-  const int C = a.C, H = a.H, W = a.W, Co = a.Co;
+  constexpr int Cop = Cfg<MT, NO>::Cop;
+  const int H = a.H, W = a.W, Co = a.Co;
   const size_t plane = static_cast<size_t>(H) * W;
-  if (a.tma) {
-    if (threadIdx.x == 0) {
-      itg::fence_proxy_async();  // the stage's earlier reads come before the copy's writes
-      itg::mbar_expect_tx(bar, sizeof(bf16) * Cp * kAR * kRW);  // the box, zeros included
-      itg::tma_load_4d(s_raw, tmap, bar, t.w0 - 8, t.h0 - 1, 0, t.n);
-    }
-  } else {
-    const bf16* xn = a.x + static_cast<size_t>(t.n) * C * plane;
-    for (int u = threadIdx.x; u < Cp * kAR * (kRW / 8); u += kThreads) {
-      const int k = u % (kRW / 8), r = (u / (kRW / 8)) % kAR, c = u / (kRW / 8 * kAR);
-      const int xr = t.h0 + r - 1;
-      const bool ok = c < C && xr >= 0 && xr < H;
-      load_cols(s_raw + (c * kAR + r) * kRW + 8 * k,
-                xn + c * plane + static_cast<size_t>(ok ? xr : 0) * W, t.w0 - 8 + 8 * k, 8, W, ok);
-    }
-  }
+  Cfg<MT, NO>::A::start_copy(a, tmap, t, s_raw, bar);
   const bf16* gn = a.g + static_cast<size_t>(t.n) * Co * plane;
   for (int u = threadIdx.x; u < Cop * kTH * (kTW / 8); u += kThreads) {
     const int k8 = u % (kTW / 8), r = (u / (kTW / 8)) % kTH, o = u / (kTH * kTW / 8);
@@ -262,19 +174,20 @@ __device__ __forceinline__ void start_copies(const DwArgs& a, const void* tmap, 
 }
 
 // Grid (blocks), kThreads threads, dynamic shared memory Cfg::smem:
-// [kStages x (raw x: Cp x kAR x kRW bf16, g: Cop rows of kGS bf16)][A: kAR
-// x kAP pixels of AS bf16, unless kInPlace puts each tile's A over its raw
-// x] (the k-slices' sums reuse the space at the end)[scale | shift: 2 Cp
-// floats][an mbarrier per stage]. A ring of
+// [kStages x (raw x: Cp x (kTH + 2) x kRW bf16, g: Cop rows of kGS bf16)][A:
+// kTH + 2 rows of kAP pixels of AS bf16, unless kInPlace puts each tile's A
+// over its raw x] (the k-slices' sums reuse the space at the end)[scale |
+// shift: 2 Cp floats][an mbarrier per stage]. A ring of
 // kStages stages keeps kStages - 1 tiles' copies in flight: per tile, the
 // raw x that landed is turned into A (BN fold, ReLU, bf16, pixel-major),
 // the stage then takes a later tile's copies, and the ring, db and the
 // products of this tile run while they fly. tmap: x (N, C, H, W) as a 4-D
-// tensor map with box (kRW, kAR, Cp, 1), where a.tma.
+// tensor map with box (kRW, kTH + 2, Cp, 1), where a.tma.
 template <int MT, int NO>
 __global__ void __launch_bounds__(kThreads, (Cfg<MT, NO>::kMinBlocks))
 chw_dw_tc_kernel(const DwArgs a, const __grid_constant__ CUtensorMap tmap) {
   using K = Cfg<MT, NO>;
+  using A = typename K::A;
   constexpr int AS = K::AS, Cp = K::Cp, Cop = K::Cop, PP = K::PP, PG = K::PG, KS = K::KS;
   constexpr int S = K::kStages;
   static_assert(K::raw_bytes % 128 == 0 && K::stage_bytes % 128 == 0,
@@ -299,7 +212,7 @@ chw_dw_tc_kernel(const DwArgs a, const __grid_constant__ CUtensorMap tmap) {
   // this block's tiles blockIdx.x + gridDim.x i, i < mine
   const int mine = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
   auto tile_of = [&](int i) {
-    return tile_at(blockIdx.x + static_cast<int>(gridDim.x) * i, tiles_h, tiles_w);
+    return itg::dw::tile_at<kTH>(blockIdx.x + static_cast<int>(gridDim.x) * i, tiles_h, tiles_w);
   };
 
   for (int i = tid; i < Cp; i += kThreads) {
@@ -314,7 +227,7 @@ chw_dw_tc_kernel(const DwArgs a, const __grid_constant__ CUtensorMap tmap) {
 #pragma unroll
   for (int i = 0; i < S - 1; ++i) {
     if (i < mine) {
-      start_copies<Cp, Cop>(a, tmap_p, tile_of(i), raw_of(i), g_of(i), s_bar + i % S, gvec);
+      start_copies<MT, NO>(a, tmap_p, tile_of(i), raw_of(i), g_of(i), s_bar + i % S, gvec);
     } else {
       itg::cp_async_commit();  // an empty group keeps the count
     }
@@ -360,96 +273,33 @@ chw_dw_tc_kernel(const DwArgs a, const __grid_constant__ CUtensorMap tmap) {
     itg::cp_async_wait_group<S - 2>();
     __syncthreads();  // this tile's copies landed; the last tile's products are done
 
-    // -- A: staged row r is padded row h0 + r (x row h0 + r - 1), slot s is
-    // padded column w0 + s (x column w0 + s - 1, raw column s + 7). A unit is
-    // 8 channels of one row: 8 columns (slots 8 k + 1 .., raw 8 (k + 1) ..),
-    // or one halo column (slot 0 or kTW + 1); consecutive threads on
-    // consecutive rows. The fold, ReLU and rounding in registers, one pixel's
-    // 8 channels per 16-byte store; zero outside the image (the replicate
-    // ring is filled below). With A in place of the raw tile every unit of
-    // the thread is read before a barrier and stored after it.
-    constexpr int kInner = (Cp / 8) * (kTW / 8) * kAR;
-    constexpr int kUnits = kInner + (Cp / 8) * 2 * kAR;
-    constexpr int kPerThread = (kUnits + kThreads - 1) / kThreads;
-    uint4 px_out[K::kInPlace ? kPerThread : 1][8];
-    auto unit = [&](int u, int& r, int& part, int& og) {  // unit u's row, part, channel group
-      const bool inner = u < kInner;
-      const int v = inner ? u : u - kInner;
-      const int parts = inner ? kTW / 8 : 2;
-      r = v % kAR, part = (v / kAR) % parts, og = v / (kAR * parts);
-      return inner;
-    };
-    auto store = [&](int u, const uint4 (&px)[8]) {
-      int r, part, og;
-      const bool inner = unit(u, r, part, og);
-      bf16* dst = s_a + 8 * og;
-      if (inner) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          *reinterpret_cast<uint4*>(dst + (r * kAP + 8 * part + 1 + i) * AS) = px[i];
-        }
-      } else {
-        *reinterpret_cast<uint4*>(dst + (r * kAP + (part ? kAC - 1 : 0)) * AS) = px[0];
-      }
-    };
-#pragma unroll
-    for (int qq = 0; qq < kPerThread; ++qq) {
-      const int u = tid + qq * kThreads;
-      if (u >= kUnits) break;
-      const int q = K::kInPlace ? qq : 0;
-      int r, part, og;
-      const bool inner = unit(u, r, part, og);
-      const bool row_in = h0 + r - 1 >= 0 && h0 + r - 1 < H;
-      const bf16* src = s_raw + (8 * og * kAR + r) * kRW;
-      const float* sc = s_sc + 8 * og;
-      const float* sh = s_sh + 8 * og;
-      if (inner) {
-        src += 8 * (part + 1);
-        uint32_t o[8][4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const uint4 lo = *reinterpret_cast<const uint4*>(src + 2 * k * kAR * kRW);
-          const uint4 hi = *reinterpret_cast<const uint4*>(src + (2 * k + 1) * kAR * kRW);
-          const float sc0 = sc[2 * k], sc1 = sc[2 * k + 1], sh0 = sh[2 * k], sh1 = sh[2 * k + 1];
-#pragma unroll
-          for (int px = 0; px < 8; ++px) {
-            const uint32_t wl = word(lo, px / 2), wh = word(hi, px / 2);
-            const float v0 = (px & 1) ? bf16_hi(wl) : bf16_lo(wl);
-            const float v1 = (px & 1) ? bf16_hi(wh) : bf16_lo(wh);
-            o[px][k] = itg::pack_bf16x2(pre(v0, sc0, sh0, a.relu), pre(v1, sc1, sh1, a.relu));
-          }
-        }
-        const int xc0 = w0 + 8 * part;  // x column of slot 8 part + 1
-#pragma unroll
-        for (int px = 0; px < 8; ++px) {
-          // channels past C hold zeros with scale = shift = 0: act(0) = 0
-          px_out[q][px] = row_in && xc0 + px < W
-                              ? make_uint4(o[px][0], o[px][1], o[px][2], o[px][3])
-                              : make_uint4(0u, 0u, 0u, 0u);
-        }
-      } else {
-        // part 0: slot 0 (x column w0 - 1, raw column 7); part 1: slot kTW + 1
-        // (x column w0 + kTW, raw column kTW + 8)
-        const int xc = part ? w0 + kTW : w0 - 1;
-        src += part ? kTW + 8 : 7;
-        uint32_t o[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float v0 = __bfloat162float(src[2 * k * kAR * kRW]);
-          const float v1 = __bfloat162float(src[(2 * k + 1) * kAR * kRW]);
-          o[k] = itg::pack_bf16x2(pre(v0, sc[2 * k], sh[2 * k], a.relu),
-                                  pre(v1, sc[2 * k + 1], sh[2 * k + 1], a.relu));
-        }
-        px_out[q][0] = row_in && xc >= 0 && xc < W ? make_uint4(o[0], o[1], o[2], o[3])
-                                                   : make_uint4(0u, 0u, 0u, 0u);
-      }
-      if constexpr (!K::kInPlace) store(u, px_out[0]);
-    }
+    // -- A (Slab::load and store): one unit, 8 channels of a staged row, at a
+    // time. With A in place of the raw tile every unit of the thread is read
+    // before a barrier and stored after it.
+    constexpr int kPerThread = (A::kUnits + kThreads - 1) / kThreads;
     if constexpr (K::kInPlace) {
+      uint4 px[kPerThread][8];
+#pragma unroll
+      for (int q = 0; q < kPerThread; ++q) {
+        const int u = tid + q * kThreads;
+        if (u < A::kUnits) {
+          A::load(u, s_raw, s_sc, s_sh, h0, w0, H, W, a.relu,
+                  [&](int i, const uint4& v) { px[q][i] = v; });
+        }
+      }
       __syncthreads();  // the raw tile is read: A takes its place
 #pragma unroll
       for (int q = 0; q < kPerThread; ++q) {
-        if (tid + q * kThreads < kUnits) store(tid + q * kThreads, px_out[q]);
+        const int u = tid + q * kThreads;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {  // a halo unit has pixel 0 only
+          if (u < A::kUnits && (i == 0 || u < A::kInner)) A::store(u, i, px[q][i], s_a);
+        }
+      }
+    } else {
+      for (int u = tid; u < A::kUnits; u += kThreads) {
+        A::load(u, s_raw, s_sc, s_sh, h0, w0, H, W, a.relu,
+                [&](int i, const uint4& v) { A::store(u, i, v, s_a); });
       }
     }
     __syncthreads();  // A is staged
@@ -457,40 +307,14 @@ chw_dw_tc_kernel(const DwArgs a, const __grid_constant__ CUtensorMap tmap) {
     // -- a later tile's copies (into the stage of the tile before this one,
     // whose products are done), in flight during this tile's products
     if (it + S - 1 < mine) {
-      start_copies<Cp, Cop>(a, tmap_p, tile_of(it + S - 1), raw_of(it + S - 1),
-                            g_of(it + S - 1), s_bar + (it + S - 1) % S, gvec);
+      start_copies<MT, NO>(a, tmap_p, tile_of(it + S - 1), raw_of(it + S - 1),
+                           g_of(it + S - 1), s_bar + (it + S - 1) % S, gvec);
     } else {
       itg::cp_async_commit();
     }
 
-    // -- the replicate ring inside this tile: padded column 0 and W + 1 take
-    // columns 1 and W, then padded rows 0 and H + 1 take rows 1 and H
-    if (!a.zeros) {
-      const int sl = w0 == 0 ? 0 : -1, sr = W + 1 - w0 < kAC ? W + 1 - w0 : -1;
-      const int rt = h0 == 0 ? 0 : -1, rb = H + 1 - h0 < kAR ? H + 1 - h0 : -1;
-      if (sl >= 0 || sr >= 0) {
-        for (int u = tid; u < 2 * kAR * (Cp / 8); u += kThreads) {
-          const int og = u % (Cp / 8), r = (u / (Cp / 8)) % kAR, side = u / (kAR * Cp / 8);
-          const int s = side ? sr : sl;
-          if (s < 0) continue;
-          const int from = side ? s - 1 : s + 1;
-          *reinterpret_cast<uint4*>(s_a + (r * kAP + s) * AS + 8 * og) =
-              *reinterpret_cast<const uint4*>(s_a + (r * kAP + from) * AS + 8 * og);
-        }
-        __syncthreads();
-      }
-      if (rt >= 0 || rb >= 0) {
-        for (int u = tid; u < 2 * kAC * (Cp / 8); u += kThreads) {
-          const int og = u % (Cp / 8), s = (u / (Cp / 8)) % kAC, side = u / (kAC * Cp / 8);
-          const int r = side ? rb : rt;
-          if (r < 0) continue;
-          const int from = side ? r - 1 : r + 1;
-          *reinterpret_cast<uint4*>(s_a + (r * kAP + s) * AS + 8 * og) =
-              *reinterpret_cast<const uint4*>(s_a + (from * kAP + s) * AS + 8 * og);
-        }
-        __syncthreads();
-      }
-    }
+    // -- the replicate ring inside this tile
+    if (!a.zeros) A::ring(s_a, h0, w0, H, W);
 
     // this thread's writes of A come before a later TMA copy into its buffer
     itg::fence_proxy_async();
@@ -632,54 +456,13 @@ chw_dw_tc_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
-// (no link against libcuda); null where it is not available.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &q);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                 : nullptr;
-  }();
-  return fn;
-}
-
 // One call: x's tensor map (where its rows are 16-byte aligned), the
 // persistent grid (as many blocks as the SMs hold, at most one per tile and
 // at most `cap`, the partials' rows), then the sums.
 template <int MT, int NO>
 int launch(DwArgs a, float* dw, float* db, int cap, cudaStream_t st) {
-  constexpr int Cp = Cfg<MT, NO>::Cp;
   CUtensorMap tmap{};
-  a.tma = a.W % 8 == 0 && (reinterpret_cast<uintptr_t>(a.x) & 15) == 0;
-  if (a.tma) {
-    const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(a.W), static_cast<cuuint64_t>(a.H),
-                                static_cast<cuuint64_t>(a.C), static_cast<cuuint64_t>(a.N)};
-    const cuuint64_t row = sizeof(bf16) * static_cast<cuuint64_t>(a.W);
-    const cuuint64_t strides[3] = {row, row * a.H, row * a.H * a.C};  // bytes, dims 1..3
-    const cuuint32_t box[4] = {kRW, kAR, Cp, 1};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    if (encode(&tmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(a.x), dims, strides,
-               box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
-        CUDA_SUCCESS) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
+  if (int rc = itg::dw::x_tensor_map(a, kTH + 2, Cfg<MT, NO>::Cp, &tmap)) return rc;
   const auto kernel = chw_dw_tc_kernel<MT, NO>;
   constexpr size_t smem = Cfg<MT, NO>::smem;
   if (cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

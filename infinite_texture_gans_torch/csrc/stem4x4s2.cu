@@ -26,7 +26,8 @@
 //       memory (zero border), each thread keeps its output channel's
 //       16 * C weights in registers and writes NHWC with neighbouring
 //       threads on neighbouring channels (coalesced stores).
-//   dW: each thread owns one output channel and one column tap kx, so its
+//   dW (the float32 route; bf16 runs on the tensor cores in stem_dw_tc.cu):
+//       each thread owns one output channel and one column tap kx, so its
 //       4 * C accumulators (ky, c) stay in registers over all the row
 //       segments its block visits; g's NHWC rows load coalesced along the
 //       channels, the staged image values are read as warp broadcasts, and

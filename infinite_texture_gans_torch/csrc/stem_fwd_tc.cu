@@ -11,7 +11,7 @@
 // _stem_fwd_call (:2761, pallas_call :2769, kernel _stem_kernel :2683),
 // reached through conv4x4s2_stem_chw (:3086) -> _stem_impl_chw (:3028).
 // Float32 keeps the CUDA-core kernel of stem4x4s2.cu, which also holds the
-// stem's dW and dx.
+// stem's dx and its float32 dW (bf16 dW: stem_dw_tc.cu).
 //
 // What bounds it on the H100: 2 * 16 * C * Co FLOPs per output pixel against
 // 4 C input and 2 Co output bytes (Co = 64: 6,144 FLOPs for 140 bytes, 44
@@ -58,6 +58,7 @@
 // padding and its 8-row height padding have no counterpart.
 #include "common.cuh"
 #include "mma.cuh"
+#include "stem_tc.cuh"
 
 namespace {
 
@@ -67,11 +68,14 @@ using itg::pack_bf16x2;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTR = kWarps;                 // output rows per tile, a warp each
-constexpr int kTJ = 32;                     // output pixels per tile row: two m16 tiles
-constexpr int kRows = 2 * kTR + 2;          // staged input rows per channel
+using itg::stem::kChunks;  // 16-byte chunks per staged row
+using itg::stem::kRows;    // staged input rows per channel
+using itg::stem::kTJ;      // output pixels per tile row: two m16 tiles
+using itg::stem::kTR;      // output rows per tile, a warp each
+using itg::stem::Tile;
+using itg::stem::tile_at;
+static_assert(kTR == kWarps, "a warp takes one output row of the tile");
 constexpr int kCols = 2 * kTJ + 2;          // staged input columns used
-constexpr int kChunks = 2 * kTJ / 8 + 2;    // 16-byte chunks per staged row
 constexpr int kFront = 8;                   // staged slots before the origin column
 constexpr int kRowStride = 96;              // bf16 slots per staged row (48 words)
 constexpr int kNChunk = 8;                  // n8 tiles per pass over the channels
@@ -108,32 +112,6 @@ __host__ __device__ constexpr size_t smem_bytes(int no) {
 template <int C>
 __host__ __device__ constexpr int chunks_per_thread() {
   return (C * kRows * kChunks + kThreads - 1) / kThreads;
-}
-
-struct Tile {
-  int n, i0, j0;
-};
-
-__device__ __forceinline__ Tile tile_at(long t, int it_n, int jt_n) {
-  const int jt = static_cast<int>(t % jt_n);
-  const long rest = t / jt_n;
-  return {static_cast<int>(rest / it_n), static_cast<int>(rest % it_n) * kTR, jt * kTJ};
-}
-
-// The 16-byte chunk q of tile `tl` (channel, staged row, chunk of the row),
-// zero outside the image. Chunk k of a staged row holds the input columns
-// 2 j0 - 8 + 8k .. + 7, a multiple of 8, so with W % 8 == 0 it lies wholly
-// inside or wholly outside the row.
-template <int C>
-__device__ __forceinline__ uint4 load_chunk(const StemArgs& a, const Tile& tl, int q) {
-  const int c = q / (kRows * kChunks);
-  const int rr = (q / kChunks) % kRows;
-  const int k = q % kChunks;
-  const int gr = 2 * tl.i0 - 1 + rr;
-  const int gc = 2 * tl.j0 - 8 + 8 * k;
-  if (gr < 0 || gr >= a.H || gc < 0 || gc >= a.W) return make_uint4(0, 0, 0, 0);
-  const uint16_t* src = a.x + ((static_cast<size_t>(tl.n) * C + c) * a.H + gr) * a.W + gc;
-  return *reinterpret_cast<const uint4*>(src);
 }
 
 // Chunk k's values e0..e7 go to staged slots 8k + 1 .. 8k + 8 (slot kFront
@@ -212,7 +190,7 @@ __global__ void __launch_bounds__(kThreads, 3) stem_fwd_tc_kernel(StemArgs a) {
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int q = threadIdx.x + u * kThreads;
-      if (q < kQ) store_chunk(s_in, q, load_chunk<C>(a, tl, q));
+      if (q < kQ) store_chunk(s_in, q, itg::stem::load_chunk<C>(a.x, a.H, a.W, tl, q));
     }
   } else {
     stage_scalar<C>(a, tl, s_in);
@@ -226,7 +204,7 @@ __global__ void __launch_bounds__(kThreads, 3) stem_fwd_tc_kernel(StemArgs a) {
 #pragma unroll
       for (int u = 0; u < kPer; ++u) {
         const int q = threadIdx.x + u * kThreads;
-        if (q < kQ) pre[u] = load_chunk<C>(a, nx, q);
+        if (q < kQ) pre[u] = itg::stem::load_chunk<C>(a.x, a.H, a.W, nx, q);
       }
     }
 

@@ -54,11 +54,13 @@
 //      slab's edge also adds the cells of the padded border that copy it
 //      (corners twice), whose g rows lie in the same staged tile. The ReLU
 //      mask is recomputed from scale * x + shift with the forward's rounding.
-//   dW: K7's scheme with 16 phase taps: one thread owns one (o, c) pair;
-//      a block stages the post-norm half-res slab of 32 channels over an
-//      8 x 16 tile with its border and g of 8 output channels over the
-//      16 x 32 full-res tile, slides a 3 x 3 window along each half-res row
-//      (3 shared loads per 16 FMAs), walks many tiles and adds its sums once.
+//   dW (the float32 route; bf16 runs on the tensor cores in
+//      upconv_dw_tc.cu): K7's scheme with 16 phase taps: one thread owns
+//      one (o, c) pair; a block stages the post-norm half-res slab of 32
+//      channels over an 8 x 16 tile with its border and g of 8 output
+//      channels over the 16 x 32 full-res tile, slides a 3 x 3 window along
+//      each half-res row (3 shared loads per 16 FMAs), walks many tiles and
+//      adds its sums once.
 // The TPU kernels' E-matrix interleaves, row stacks and lane padding have no
 // counterpart here.
 #include "common.cuh"

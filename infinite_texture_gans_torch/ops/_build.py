@@ -78,12 +78,17 @@ SIGNATURES = {
     "itg_upconv3x3_chw_dx": [_P] * 8 + [_I] * 8 + [_P],
     # x, g, scale, shift, dwc, db, n, c, h, w (of x), co, relu, zeros, bf16, stream
     "itg_upconv3x3_chw_dw": [_P] * 6 + [_I] * 8 + [_P],
+    # x, g, scale, shift, part, dwc, db, n, c, h, w (of x), co, relu, zeros, mt, no, cap,
+    # stream (bf16 only)
+    "itg_upconv3x3_chw_dw_tc": [_P] * 7 + [_I] * 10 + [_P],
     # x, w, b, y, n, c, h, w, co, bf16, stream
     "itg_stem_fwd": [_P] * 4 + [_I] * 6 + [_P],
     # x, w, b, y, n, c, h, w, co, stream (bf16 only)
     "itg_stem_fwd_tc": [_P] * 4 + [_I] * 5 + [_P],
     # x, g, dw, db, n, c, h, w, co, bf16, stream
     "itg_stem_dw": [_P] * 4 + [_I] * 6 + [_P],
+    # x, g, part, dw, db, n, c, h, w, co, cap, stream (bf16 only)
+    "itg_stem_dw_tc": [_P] * 5 + [_I] * 6 + [_P],
     # g, w, dx, n, c, h, w, co, bf16, stream
     "itg_stem_dx": [_P] * 3 + [_I] * 6 + [_P],
     # maps, w1, b1, w2c, b2, y, n, md, hid, h, w, co, stream (float32 only)

@@ -27,7 +27,7 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
   ``_upconv3x3_fwd``, ``upconv3x3_chw_dx`` :1642 ``_upconv3x3_dx``,
   ``upconv3x3_chw_dw`` :1777 ``_upconv3x3_dw`` (csrc/upconv3x3_chw.cu; the
   forward in bf16: csrc/upconv_fwd_tc.cu; the dx in bf16:
-  csrc/chw_dx_tc.cu);
+  csrc/chw_dx_tc.cu; the dW in bf16: csrc/upconv_dw_tc.cu);
 - K14 ``chw_upconv_halo_step``, whose kernel wrapper is
   ``upconv3x3_chw_halo``: K9's forward in the raster engine under
   ``--fuse_up all``, replaces :2019 ``_upconv3x3_fwd_halo`` (the same two
@@ -37,7 +37,7 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
 - K13 ``conv4x4s2_stem_chw``: the discriminator's conv0, forward
   ``stem_fwd`` :2769 ``_stem_fwd_call``, ``stem_dw`` :2840 ``_stem_dw_call``,
   ``stem_dx`` :2977 ``_stem_dx_call`` (csrc/stem4x4s2.cu; the forward in
-  bf16: csrc/stem_fwd_tc.cu).
+  bf16: csrc/stem_fwd_tc.cu; the dW in bf16: csrc/stem_dw_tc.cu).
 
 The SSM embed chain K15 (``pallas_ssm.py:343/:392``) lives in
 ``ops/ssm.py`` (csrc/ssm_embed_chw.cu); its launches count here too, under
@@ -72,7 +72,17 @@ are bf16 values, so it needs no rounded plain version), float32
 ``itg_stem_fwd_tc`` (an implicit GEMM on mma.sync straight from the staged
 image rows, NHWC rows written 16 bytes a lane; the weights and bias rounded
 to bf16 as the reference rounds them, pallas_conv.py:3041/:3045, its plain
-version ``stem_fwd_tc_plain``), float32 ``itg_stem_fwd``. K3 (forward,
+version ``stem_fwd_tc_plain``), float32 ``itg_stem_fwd``. The two weight
+gradients K9 dW and K13 dW route the same way: bfloat16 takes
+``itg_upconv3x3_chw_dw_tc`` (csrc/upconv_dw_tc.cu: K7's body at half
+resolution, the 16 phase taps as row addresses of one staged post-norm
+slab, g's full-res rows split by column parity into four B operands) and
+``itg_stem_dw_tc`` (csrc/stem_dw_tc.cu: one GEMM of the 16 C taps by the
+output channels over the pixels, B straight from g's NHWC rows, A from
+stride-2 shifted copies of the image rows), both with fixed-order
+per-block partials and no atomics; their operands are bf16 values, so
+their plain versions are ``upconv3x3_chw_dw_plain`` and ``stem_dw_plain``
+themselves; float32 ``itg_upconv3x3_chw_dw`` and ``itg_stem_dw``. K3 (forward,
 with its residual and stats, and its dx form) and K3-dW route the same way:
 bfloat16 takes ``itg_conv1x1_chw_tc`` (mma.sync on the channels-major x
 slab read through ldmatrix.trans, every output channel up to 64 in one
@@ -136,14 +146,16 @@ LAUNCHES = {
 }
 
 # launches per C entry point of K1/K2, K6, K7, K9/K14's forward, K9 dx,
-# K13's forward, K3 and K3-dW: the bf16 tensor-core route and the f32
-# CUDA-core one (not cleared by reset_launches)
+# K9 dW, K13's forward, K13 dW, K3 and K3-dW: the bf16 tensor-core route and
+# the f32 CUDA-core one (not cleared by reset_launches)
 ROUTE_LAUNCHES = {"itg_conv3x3_chw_tc": 0, "itg_conv3x3_chw": 0,
                   "itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
                   "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
                   "itg_upconv3x3_chw_tc": 0, "itg_upconv3x3_chw": 0,
                   "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0,
+                  "itg_upconv3x3_chw_dw_tc": 0, "itg_upconv3x3_chw_dw": 0,
                   "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0,
+                  "itg_stem_dw_tc": 0, "itg_stem_dw": 0,
                   "itg_conv1x1_chw_tc": 0, "itg_conv1x1_chw": 0,
                   "itg_conv1x1_chw_dw_tc": 0, "itg_conv1x1_chw_dw": 0}
 
@@ -731,18 +743,22 @@ DW_TC_NO = (1, 2, 4)
 DW_TC_BLOCKS_PER_SM = 2
 
 
+def _dw_tiles(c: int, co: int, what: str) -> tuple[int, int]:
+    mt = next((t for t in DW_TC_MT if 16 * t >= c), None)
+    no = next((o for o in DW_TC_NO if 8 * o >= co), None)
+    if mt is None or no is None:
+        raise ValueError(f"the tensor-core {what} takes C <= {16 * DW_TC_MT[-1]} and "
+                         f"Co <= {8 * DW_TC_NO[-1]}, got C={c}, Co={co}")
+    return mt, no
+
+
 def dw_tc_plan(c: int, co: int) -> tuple[int, int]:
     """(MT, NO) of the tensor-core dW kernel for C input and Co output
     channels: the fewest 16-channel tiles of DW_TC_MT and 8-channel tiles of
     DW_TC_NO that hold them. Raises for C > 64 or Co > 32, the dx route's
     limits (every training shape of the models' channels-major tail is
     inside)."""
-    mt = next((t for t in DW_TC_MT if 16 * t >= c), None)
-    no = next((o for o in DW_TC_NO if 8 * o >= co), None)
-    if mt is None or no is None:
-        raise ValueError(f"the tensor-core dW kernel takes C <= {16 * DW_TC_MT[-1]} and "
-                         f"Co <= {8 * DW_TC_NO[-1]}, got C={c}, Co={co}")
-    return mt, no
+    return _dw_tiles(c, co, "dW kernel")
 
 
 @functools.cache
@@ -1501,16 +1517,37 @@ def upconv3x3_chw_dx_tc_plain(x, g, w, scale, shift, relu: bool, outer_padding: 
     return _dx_from_padded(dpad, x, scale, shift, relu, outer_padding)
 
 
-def upconv3x3_chw_dw(x, g, scale, shift, relu: bool, outer_padding: str):
-    """K9 dW: dW (Co, C, 3, 3) and db (Co,) of :func:`upconv3x3_chw`, float32
-    sums over (N, 2H, 2W). The kernel sums per phase tap (Co, C, 16) from the
-    half-res slab; the wrapper folds them back to the 3x3 taps."""
-    zeros = _check_padding(outer_padding)
-    co = g.shape[1]
-    _check_bwd(x, g, co, scale, shift, up=2)
-    if not _on_cuda(x, g, scale, shift):
-        return upconv3x3_chw_dw_plain(x, g, scale, shift, relu, outer_padding)
+# K9 dW's tensor-core route (csrc/upconv_dw_tc.cu): K7's tiling at half
+# resolution, M = the input channels padded to MT x 16, N = the output
+# channels padded to NO x 8, one template per MT and NO. A block keeps both
+# phase rows where all 16 phase taps of every m16 tile fit its 8 warps (MT x
+# NO <= 8), else the phase row di is a grid axis (the C file's phase_rows).
+# Its persistent blocks (at most UPCONV_DW_TC_BLOCKS_PER_SM per SM and
+# phase row) write per-block partial sums.
+UPCONV_DW_TC_BLOCKS_PER_SM = 2
+
+
+def upconv_dw_tc_plan(c: int, co: int) -> tuple[int, int, int]:
+    """(MT, NO, PH) of the tensor-core K9 dW kernel for C input and Co
+    output channels: K7's tiles (:func:`dw_tc_plan`) and the phase rows a
+    block takes (2 where MT x NO <= 8, else 1). Raises for C > 64 or Co > 32
+    (every training shape of the fused up-conv is inside)."""
+    mt, no = _dw_tiles(c, co, "up-conv dW kernel")
+    return mt, no, 2 if mt * no <= 8 else 1
+
+
+def upconv_dw_tc_part_entries(mt: int, no: int, ph: int) -> int:
+    """Floats of one block's partial (the C file's part_entries): the C
+    fragments of 2 PH MT (phase, m16 tile) pairs x 4 taps x NO n8 tiles in
+    fragment order, then db (8 NO)."""
+    return 2 * ph * mt * 4 * no * 128 + 8 * no
+
+
+def _upconv_dw_cuda_cores(x, g, scale, shift, relu: bool, zeros: bool):
+    """K9 dW on the CUDA cores (``itg_upconv3x3_chw_dw``): the float32 route
+    (the C function takes bf16 too); dwc (Co, C, 16) per phase tap, db."""
     n, c, h, wd = x.shape
+    co = g.shape[1]
     dwc = torch.zeros((co, c, 16), dtype=torch.float32, device=x.device)
     db = _zeros_f32(co, x)
     sc, sh = _f32(scale), _f32(shift)
@@ -1519,7 +1556,49 @@ def upconv3x3_chw_dw(x, g, scale, shift, relu: bool, outer_padding: str):
             x.data_ptr(), g.data_ptr(), sc.data_ptr(), sh.data_ptr(), dwc.data_ptr(),
             db.data_ptr(), n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
         )
-    _raise_on(rc, "upconv3x3_chw_dw")
+    _raise_on(rc, "itg_upconv3x3_chw_dw")
+    ROUTE_LAUNCHES["itg_upconv3x3_chw_dw"] += 1
+    return dwc, db
+
+
+def _upconv_dw_tensor_cores(x, g, scale, shift, relu: bool, zeros: bool):
+    """K9 dW on the tensor cores (``itg_upconv3x3_chw_dw_tc``), bf16:
+    persistent blocks write float32 partials, a second launch sums them in
+    one order; dwc (Co, C, 16) per phase tap, db."""
+    n, c, h, wd = x.shape
+    co = g.shape[1]
+    mt, no, ph = upconv_dw_tc_plan(c, co)
+    cap = UPCONV_DW_TC_BLOCKS_PER_SM * _sm_count(x.device.index)
+    dwc = torch.empty((co, c, 16), dtype=torch.float32, device=x.device)
+    db = torch.empty(co, dtype=torch.float32, device=x.device)
+    part = torch.empty((2 // ph * cap, upconv_dw_tc_part_entries(mt, no, ph)),
+                       dtype=torch.float32, device=x.device)
+    sc, sh = _f32(scale), _f32(shift)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_upconv3x3_chw_dw_tc(
+            x.data_ptr(), g.data_ptr(), sc.data_ptr(), sh.data_ptr(), part.data_ptr(),
+            dwc.data_ptr(), db.data_ptr(), n, c, h, wd, co, int(relu), int(zeros), mt, no, cap,
+            _stream(x),
+        )
+    _raise_on(rc, "itg_upconv3x3_chw_dw_tc")
+    ROUTE_LAUNCHES["itg_upconv3x3_chw_dw_tc"] += 1
+    return dwc, db
+
+
+def upconv3x3_chw_dw(x, g, scale, shift, relu: bool, outer_padding: str):
+    """K9 dW: dW (Co, C, 3, 3) and db (Co,) of :func:`upconv3x3_chw`, float32
+    sums over (N, 2H, 2W). The kernel sums per phase tap (Co, C, 16) from the
+    half-res slab; the wrapper folds them back to the 3x3 taps. On the card
+    bf16 takes the tensor-core kernel (both operands are bf16 values, so its
+    plain version is :func:`upconv3x3_chw_dw_plain` itself), float32 the
+    CUDA-core one."""
+    zeros = _check_padding(outer_padding)
+    co = g.shape[1]
+    _check_bwd(x, g, co, scale, shift, up=2)
+    if not _on_cuda(x, g, scale, shift):
+        return upconv3x3_chw_dw_plain(x, g, scale, shift, relu, outer_padding)
+    route = _upconv_dw_tensor_cores if x.dtype == torch.bfloat16 else _upconv_dw_cuda_cores
+    dwc, db = route(x, g, scale, shift, relu, zeros)
     LAUNCHES["upconv3x3_chw_dw"] += 1
     return _upconv_unpack_dw(dwc), db
 
@@ -1704,9 +1783,65 @@ def stem_fwd_tc_plain(x, w, b):
     return stem_fwd_plain(x, wr, br)
 
 
+# K13 dW's tensor-core route (csrc/stem_dw_tc.cu): M = the 16 C taps (an m16
+# tile per input channel), N = the output channels, up to STEM_DW_TC_CO_BLOCK
+# per block (more split across the grid), K = the pixels. Its persistent
+# blocks (at most STEM_DW_TC_BLOCKS_PER_SM per SM) write per-block partial
+# sums in dW's own layout.
+STEM_DW_TC_CO_BLOCK = 64
+STEM_DW_TC_BLOCKS_PER_SM = 3
+
+
+def stem_dw_tc_plan(c: int, co: int) -> int:
+    """The number of STEM_DW_TC_CO_BLOCK-channel chunks (the grid's second
+    axis) of the tensor-core stem dW for C input and Co output channels.
+    Raises for C outside 1..4 or Co outside 1..STEM_TC_MAX_CO (the forward's
+    --D_ch limit)."""
+    if not 1 <= c <= 4 or not 1 <= co <= STEM_TC_MAX_CO:
+        raise ValueError(f"the tensor-core stem dW takes 1 <= C <= 4 and 1 <= Co <= "
+                         f"{STEM_TC_MAX_CO}, got C={c}, Co={co}")
+    return -(-co // STEM_DW_TC_CO_BLOCK)
+
+
+def _stem_dw_cuda_cores(x, g):
+    """K13 dW on the CUDA cores (``itg_stem_dw``): the float32 route (the C
+    function takes bf16 too)."""
+    n, c, h, wd = x.shape
+    co = g.shape[-1]
+    dw = torch.zeros((co, c, 4, 4), dtype=torch.float32, device=x.device)
+    db = _zeros_f32(co, x)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_stem_dw(x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                                n, c, h, wd, co, _bf16(x), _stream(x))
+    _raise_on(rc, "itg_stem_dw")
+    ROUTE_LAUNCHES["itg_stem_dw"] += 1
+    return dw, db
+
+
+def _stem_dw_tensor_cores(x, g):
+    """K13 dW on the tensor cores (``itg_stem_dw_tc``), bf16: persistent
+    blocks write float32 partials, a second launch sums them in one order."""
+    n, c, h, wd = x.shape
+    co = g.shape[-1]
+    stem_dw_tc_plan(c, co)
+    cap = STEM_DW_TC_BLOCKS_PER_SM * _sm_count(x.device.index)
+    dw = torch.empty((co, c, 4, 4), dtype=torch.float32, device=x.device)
+    db = torch.empty(co, dtype=torch.float32, device=x.device)
+    part = torch.empty((cap, co * (16 * c + 1)), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_stem_dw_tc(x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                                   db.data_ptr(), n, c, h, wd, co, cap, _stream(x))
+    _raise_on(rc, "itg_stem_dw_tc")
+    ROUTE_LAUNCHES["itg_stem_dw_tc"] += 1
+    return dw, db
+
+
 def stem_dw(x, g):
     """K13 dW: dW[o, c, ky, kx] = Σ g[n, i, j, o]·x[n, c, 2i+ky-1, 2j+kx-1]
-    (zero outside the image) and db = Σ g, float32 sums. ``g`` NHWC."""
+    (zero outside the image) and db = Σ g, float32 sums. ``g`` NHWC. On the
+    card bf16 takes the tensor-core kernel (both operands are bf16 values,
+    so its plain version is :func:`stem_dw_plain` itself), float32 the
+    CUDA-core one."""
     _check_stem(x, torch.empty(g.shape[-1], x.shape[1], 4, 4))
     n, c, h, wd = x.shape
     co = g.shape[-1]
@@ -1714,14 +1849,10 @@ def stem_dw(x, g):
     _check_same_dtype("g", g, x)
     if not _on_cuda(x, g):
         return stem_dw_plain(x, g)
-    dw = torch.zeros((co, c, 4, 4), dtype=torch.float32, device=x.device)
-    db = _zeros_f32(co, x)
-    with torch.cuda.device(x.device):
-        rc = _lib().itg_stem_dw(x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                                n, c, h, wd, co, _bf16(x), _stream(x))
-    _raise_on(rc, "stem_dw")
+    route = _stem_dw_tensor_cores if x.dtype == torch.bfloat16 else _stem_dw_cuda_cores
+    out = route(x, g)
     LAUNCHES["stem_dw"] += 1
-    return dw, db
+    return out
 
 
 def stem_dw_plain(x, g):

@@ -330,9 +330,9 @@ def test_stem_tc_check_catches_planted_faults(cuda, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_stem_fwd_routes_by_dtype(cuda, dtype):
-    """bf16 calls of K13's forward launch the tensor-core entry point, f32
-    calls the CUDA-core one; each counts one launch per call; dx and dW
-    are not routed."""
+    """bf16 calls of K13's forward and dW launch their tensor-core entry
+    points, f32 calls the CUDA-core ones; each counts one launch per call;
+    dx is not routed."""
     tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
     tk.reset_launches()
     x, wt, b = _stem_case(cuda, STEM_SHAPES[2])
@@ -343,7 +343,8 @@ def test_stem_fwd_routes_by_dtype(cuda, dtype):
     torch.cuda.synchronize()
     tc = dtype == torch.bfloat16
     assert tk.ROUTE_LAUNCHES == {**dict.fromkeys(tk.ROUTE_LAUNCHES, 0),
-                                 "itg_stem_fwd_tc": int(tc), "itg_stem_fwd": int(not tc)}
+                                 "itg_stem_fwd_tc": int(tc), "itg_stem_fwd": int(not tc),
+                                 "itg_stem_dw_tc": int(tc), "itg_stem_dw": int(not tc)}
     assert (tk.LAUNCHES["stem_fwd"], tk.LAUNCHES["stem_dx"], tk.LAUNCHES["stem_dw"]) == (1, 1, 1)
 
 
@@ -376,8 +377,8 @@ def test_stem_tc_refuses_wider(cuda):
 
 def test_train_step_bf16_any_d_ch_on_card(cuda):
     """A tiny bf16 training step with --D_ch 100 (no multiple of 8): D's
-    stem runs the tensor-core forward on every fake and real batch, and the
-    losses are finite."""
+    stem runs the tensor-core forward on every fake and real batch and the
+    tensor-core dW once, and the losses are finite."""
     from infinite_texture_gans_torch.config import prepare_parser
     from infinite_texture_gans_torch.train.train_step import create_train_state, train_step
 
@@ -394,6 +395,7 @@ def test_train_step_bf16_any_d_ch_on_card(cuda):
     torch.cuda.synchronize()
     assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
     assert (tk.ROUTE_LAUNCHES["itg_stem_fwd_tc"], tk.ROUTE_LAUNCHES["itg_stem_fwd"]) == (2, 0)
+    assert (tk.ROUTE_LAUNCHES["itg_stem_dw_tc"], tk.ROUTE_LAUNCHES["itg_stem_dw"]) == (1, 0)
 
 
 # --- the fused up-conv (K9 forward, dx, dW) and its residual join (K10) ----
@@ -526,7 +528,9 @@ def test_dx_routes_by_dtype(cuda, dtype):
                                  "itg_upconv3x3_chw_tc": 0, "itg_upconv3x3_chw": 0,
                                  "itg_upconv3x3_chw_dx_tc": int(tc),
                                  "itg_upconv3x3_chw_dx": int(not tc),
+                                 "itg_upconv3x3_chw_dw_tc": 0, "itg_upconv3x3_chw_dw": 0,
                                  "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0,
+                                 "itg_stem_dw_tc": 0, "itg_stem_dw": 0,
                                  "itg_conv1x1_chw_tc": 0, "itg_conv1x1_chw": 0,
                                  "itg_conv1x1_chw_dw_tc": 0, "itg_conv1x1_chw_dw": 0}
     assert (tk.LAUNCHES["conv3x3_chw_dx"], tk.LAUNCHES["upconv3x3_chw_dx"]) == (1, 1)
@@ -615,7 +619,9 @@ def test_dw_routes_by_dtype(cuda, dtype):
                                  "itg_conv3x3_chw_dw_tc": int(tc), "itg_conv3x3_chw_dw": int(not tc),
                                  "itg_upconv3x3_chw_tc": 0, "itg_upconv3x3_chw": 0,
                                  "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0,
+                                 "itg_upconv3x3_chw_dw_tc": 0, "itg_upconv3x3_chw_dw": 0,
                                  "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0,
+                                 "itg_stem_dw_tc": 0, "itg_stem_dw": 0,
                                  "itg_conv1x1_chw_tc": 0, "itg_conv1x1_chw": 0,
                                  "itg_conv1x1_chw_dw_tc": 0, "itg_conv1x1_chw_dw": 0}
     assert tk.LAUNCHES["conv3x3_chw_dw"] == 1
@@ -630,6 +636,217 @@ def test_dw_tc_refuses_wider(cuda):
         with pytest.raises(ValueError, match="tensor-core dW kernel"):
             tk.conv3x3_chw_dw(x, g, sc, sh, True, "replicate")
     assert tk.ROUTE_LAUNCHES["itg_conv3x3_chw_dw"] == 0
+
+
+# --- K9 dW and K13 dW on the tensor cores, bf16 ------------------------------
+# K9 dW, half-res n, c, co, h, w: the Experiment-1 `auto` step's two fused
+# blocks (N = 8, 52 -> 26 at 96^2, 26 -> 13 at 192^2), then ragged ones (W
+# no multiple of 8 or of the 32-column tile, h = 1 folding both rings onto
+# one row) and the plan's widest (C = 64, Co = 32, phase rows on the grid)
+UPDW_SHAPES = [(8, 52, 26, 96, 96), (8, 26, 13, 192, 192), (2, 11, 19, 13, 45),
+               (1, 64, 32, 10, 40), (3, 13, 3, 5, 7), (1, 3, 2, 1, 3), (2, 26, 13, 9, 36)]
+
+
+def _updw_case(cuda, shape, seed=31):
+    """bf16 x (half-res) and g (full-res) of K9 dW at ``shape`` (n, c, co, h,
+    w), float32 scale/shift."""
+    n, c, co, h, w = shape
+    x, _, _, sc, sh = _inputs(cuda, torch.bfloat16, n=n, c=c, co=co, h=h, w=w, seed=seed)
+    g = torch.randn(n, co, 2 * h, 2 * w, generator=torch.Generator().manual_seed(seed)).to(
+        cuda, torch.bfloat16)
+    return x, g, sc, sh
+
+
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("shape", UPDW_SHAPES)
+def test_upconv_dw_tc_matches_plain(cuda, outer, shape):
+    """bf16 K9 dW runs the tensor-core kernel and computes the plain
+    version's function (both operands are bf16 values): dW and db within
+    SUM_TOL."""
+    x, g, sc, sh = _updw_case(cuda, shape)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    got = tk.upconv3x3_chw_dw(x, g, sc, sh, True, outer)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_upconv3x3_chw_dw_tc"],
+            tk.ROUTE_LAUNCHES["itg_upconv3x3_chw_dw"]) == (1, 0)
+    _assert_dw_close(got, tk.upconv3x3_chw_dw_plain(x, g, sc, sh, True, outer))
+
+
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_upconv_dw_tc_bits_repeat(cuda, outer, case):
+    """Fixed-order partial sums and no atomics: two calls give the same bits."""
+    x, g, sc, sh = _updw_case(cuda, UPDW_SHAPES[case])
+    first = tk.upconv3x3_chw_dw(x, g, sc, sh, True, outer)
+    second = tk.upconv3x3_chw_dw(x, g, sc, sh, True, outer)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [1, 6])
+def test_upconv_dw_tc_on_offset_view(cuda, case):
+    """x and g one element into their storage (not 16-byte aligned): the
+    kernel stages both element by element and gives the aligned copies'
+    bits."""
+    x, g, sc, sh = _updw_case(cuda, UPDW_SHAPES[case])
+    views = []
+    for t in (x, g):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        views.append(view)
+    got = tk.upconv3x3_chw_dw(*views, sc, sh, True, "replicate")
+    for a, b in zip(got, tk.upconv3x3_chw_dw(x, g, sc, sh, True, "replicate")):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_upconv_dw_tc_check_catches_planted_faults(cuda, case):
+    """The check above fails on a K9 dW that is slightly wrong: one input
+    channel's dW x 1.01 (the channel of the largest entry), ky and kx
+    swapped, the replicate ring taken as zeros, or db from the even full-res
+    rows only."""
+    x, g, sc, sh = _updw_case(cuda, UPDW_SHAPES[case])
+    ref = tk.upconv3x3_chw_dw_plain(x, g, sc, sh, True, "replicate")
+    dw, db = tk.upconv3x3_chw_dw(x, g, sc, sh, True, "replicate")
+    _assert_dw_close((dw, db), ref)
+    one = dw.clone()
+    one[:, int(ref[0].abs().amax(dim=(0, 2, 3)).argmax())] *= 1.01
+    for bad in ((one, db), (dw.transpose(2, 3), db),
+                tk.upconv3x3_chw_dw(x, g, sc, sh, True, "constant"),
+                (dw, g[:, :, ::2].float().sum(dim=(0, 2, 3)))):
+        with pytest.raises(AssertionError):
+            _assert_dw_close(bad, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upconv_dw_routes_by_dtype(cuda, dtype):
+    """bf16 calls of K9 dW launch the tensor-core entry point, f32 calls the
+    CUDA-core one; each counts one launch per call."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    tk.reset_launches()
+    x, g, sc, sh = _updw_case(cuda, UPDW_SHAPES[2])
+    tk.upconv3x3_chw_dw(x.to(dtype), g.to(dtype), sc, sh, True, "replicate")
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert tk.ROUTE_LAUNCHES == {**dict.fromkeys(tk.ROUTE_LAUNCHES, 0),
+                                 "itg_upconv3x3_chw_dw_tc": int(tc),
+                                 "itg_upconv3x3_chw_dw": int(not tc)}
+    assert tk.LAUNCHES["upconv3x3_chw_dw"] == 1
+
+
+def test_upconv_dw_tc_refuses_wider(cuda):
+    """A bf16 call outside the route's plan raises, naming the limit; nothing
+    falls back to the CUDA-core kernel."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    for shape in ((1, 65, 3, 4, 8), (1, 13, 33, 4, 8)):
+        x, g, sc, sh = _updw_case(cuda, shape)
+        with pytest.raises(ValueError, match="tensor-core up-conv dW kernel"):
+            tk.upconv3x3_chw_dw(x, g, sc, sh, True, "replicate")
+    assert tk.ROUTE_LAUNCHES["itg_upconv3x3_chw_dw"] == 0
+
+
+# K13 dW, n, c, h, w, co: the Experiment-1 and SSM steps' stems (N = 8, 384^2
+# and 192^2 -> 64), then --D_ch 8, 128, 100 and 12 (no multiple of 8: g
+# staged element by element), odd W/2 and H/2 not a multiple of the 4-row
+# tile, W not a multiple of 8 (x staged element by element), C 1 and 4
+STEMDW_SHAPES = [(8, 3, 384, 384, 64), (8, 3, 192, 192, 64), (2, 3, 22, 30, 8),
+                 (1, 3, 38, 70, 128), (2, 3, 18, 26, 100), (1, 1, 16, 48, 16), (3, 4, 10, 34, 24),
+                 (2, 3, 22, 70, 12), (1, 3, 16, 40, 512)]
+
+
+def _stemdw_case(cuda, shape, seed=51):
+    """bf16 x (n, c, h, w) and NHWC g (n, h/2, w/2, co) at ``shape``."""
+    n, c, h, w, co = shape
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, c, h, w, generator=gen).to(cuda, torch.bfloat16)
+    g = torch.randn(n, h // 2, w // 2, co, generator=gen).to(cuda, torch.bfloat16)
+    return x, g
+
+
+@pytest.mark.parametrize("shape", STEMDW_SHAPES)
+def test_stem_dw_tc_matches_plain(cuda, shape):
+    """bf16 K13 dW runs the tensor-core kernel and computes the plain
+    version's function (both operands are bf16 values): dW and db within
+    SUM_TOL, for any --D_ch up to the forward's limit."""
+    x, g = _stemdw_case(cuda, shape)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    got = tk.stem_dw(x, g)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_stem_dw_tc"], tk.ROUTE_LAUNCHES["itg_stem_dw"]) == (1, 0)
+    _assert_dw_close(got, tk.stem_dw_plain(x, g))
+
+
+@pytest.mark.parametrize("case", [0, 4, 8])
+def test_stem_dw_tc_bits_repeat(cuda, case):
+    """Fixed-order partial sums and no atomics: two calls give the same bits."""
+    x, g = _stemdw_case(cuda, STEMDW_SHAPES[case])
+    first, second = tk.stem_dw(x, g), tk.stem_dw(x, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [1, 3])
+def test_stem_dw_tc_on_offset_view(cuda, case):
+    """x and g one element into their storage (not 16-byte aligned): the
+    kernel stages both element by element and gives the aligned copies'
+    bits."""
+    x, g = _stemdw_case(cuda, STEMDW_SHAPES[case])
+    views = []
+    for t in (x, g):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        views.append(view)
+    for a, b in zip(tk.stem_dw(*views), tk.stem_dw(x, g)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [1, 4])
+def test_stem_dw_tc_check_catches_planted_faults(cuda, case):
+    """The check above fails on a K13 dW that is slightly wrong: one input
+    channel's dW x 1.01 (the channel of the largest entry), ky and kx
+    swapped, the zero border read as the edge pixel, or db from one image
+    only."""
+    x, g = _stemdw_case(cuda, STEMDW_SHAPES[case])
+    ref = tk.stem_dw_plain(x, g)
+    dw, db = tk.stem_dw(x, g)
+    _assert_dw_close((dw, db), ref)
+    one = dw.clone()
+    one[:, int(ref[0].abs().amax(dim=(0, 2, 3)).argmax())] *= 1.01
+    edge = tk.stem_dw(torch.nn.functional.pad(x, (2, 2, 2, 2), mode="replicate"),
+                      torch.nn.functional.pad(g, (0, 0, 1, 1, 1, 1)))
+    for bad in ((one, db), (dw.transpose(2, 3), db), edge,
+                (dw, g[:1].float().sum(dim=(0, 1, 2)))):
+        with pytest.raises(AssertionError):
+            _assert_dw_close(bad, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_dw_routes_by_dtype(cuda, dtype):
+    """bf16 calls of K13 dW launch the tensor-core entry point, f32 calls
+    the CUDA-core one; each counts one launch per call."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    tk.reset_launches()
+    x, g = _stemdw_case(cuda, STEMDW_SHAPES[2])
+    tk.stem_dw(x.to(dtype), g.to(dtype))
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert tk.ROUTE_LAUNCHES == {**dict.fromkeys(tk.ROUTE_LAUNCHES, 0),
+                                 "itg_stem_dw_tc": int(tc), "itg_stem_dw": int(not tc)}
+    assert tk.LAUNCHES["stem_dw"] == 1
+
+
+def test_stem_dw_tc_refuses_wider(cuda):
+    """A bf16 stem dW wider than the route's limit raises, naming it;
+    nothing falls back to the CUDA-core kernel."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    x, g = _stemdw_case(cuda, (1, 3, 8, 16, tk.STEM_TC_MAX_CO + 1))
+    with pytest.raises(ValueError, match="tensor-core stem dW"):
+        tk.stem_dw(x, g)
+    assert tk.ROUTE_LAUNCHES["itg_stem_dw"] == 0
 
 
 # --- K1 / K2 (/ K5) on the tensor cores, bf16 -------------------------------
@@ -804,7 +1021,9 @@ def test_fwd_routes_by_dtype(cuda, dtype):
                                  "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
                                  "itg_upconv3x3_chw_tc": 0, "itg_upconv3x3_chw": 0,
                                  "itg_upconv3x3_chw_dx_tc": 0, "itg_upconv3x3_chw_dx": 0,
+                                 "itg_upconv3x3_chw_dw_tc": 0, "itg_upconv3x3_chw_dw": 0,
                                  "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0,
+                                 "itg_stem_dw_tc": 0, "itg_stem_dw": 0,
                                  "itg_conv1x1_chw_tc": 0, "itg_conv1x1_chw": 0,
                                  "itg_conv1x1_chw_dw_tc": 0, "itg_conv1x1_chw_dw": 0}
     assert (tk.LAUNCHES["conv3x3_chw"], tk.LAUNCHES["chw_halo_step"]) == (1, 1)

@@ -1,19 +1,30 @@
-"""The plain side of K13's bf16 tensor-core forward (``stem_fwd`` on
-``itg_stem_fwd_tc``), on the CPU: the route's plan, the weight packing the
-kernel reads, and the plain version with the route's roundings
-(``stem_fwd_tc_plain``) against the JAX reference's ``conv4x4s2_stem_chw``
-in bfloat16 (its Pallas kernel in interpret mode, which rounds the weights
-and the bias to the activation type before the kernel, pallas_conv.py:3041
-and :3045). Inputs are numpy arrays drawn from a seed.
+"""The plain side of K13's bf16 tensor-core routes, on the CPU.
 
-Tolerance against JAX: both multiply bf16 values exactly into float32 and
-round y once to bf16; only the order of the float32 sums differs, so an
-output may sit one bf16 ulp (2^-8 relative) apart either way: 2^-7 of
-max|ref|, two ulps."""
+The forward (``stem_fwd`` on ``itg_stem_fwd_tc``): the route's plan, the
+weight packing the kernel reads, and the plain version with the route's
+roundings (``stem_fwd_tc_plain``) against the JAX reference's
+``conv4x4s2_stem_chw`` in bfloat16 (its Pallas kernel in interpret mode,
+which rounds the weights and the bias to the activation type before the
+kernel, pallas_conv.py:3041 and :3045). Tolerance against JAX: both
+multiply bf16 values exactly into float32 and round y once to bf16; only
+the order of the float32 sums differs, so an output may sit one bf16 ulp
+(2^-8 relative) apart either way: 2^-7 of max|ref|, two ulps.
+
+The weight gradient (``stem_dw`` on ``itg_stem_dw_tc``): the route's plan
+and its refusal outside its limits, the claim that it needs no rounded
+plain version (``stem_dw_plain`` on bf16 tensors against a float64 im2col
+product of the same bf16 operands, 1e-6 of max|ref|), and the plain version
+against the reference's VJP of ``conv4x4s2_stem_chw`` in float32 on a bf16
+grid (x and g small integers times 2^-4, so every product is exact in
+float32): 1e-4 of the largest reference entry (SUM_TOL), at Co 64 and at a
+Co that is no multiple of 8.
+
+Inputs are numpy arrays drawn from a seed."""
 
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +36,8 @@ from infinite_texture_gans_torch.ops import kernels as tk
 from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
 
 BF16_TOL = 2.0**-7
+EXACT_TOL = 1e-6
+SUM_TOL = 1e-4
 
 
 def _case(seed, n, c, h, w, co):
@@ -125,3 +138,87 @@ def test_stem_fwd_on_cpu_takes_plain_version():
         assert torch.equal(tk.stem_fwd(x, w, b), tk.stem_fwd_plain(x, w, b))
     assert tk.LAUNCHES["stem_fwd"] == 0
     assert tk.ROUTE_LAUNCHES["itg_stem_fwd_tc"] == tk.ROUTE_LAUNCHES["itg_stem_fwd"] == 0
+
+
+def _dw_close(got, ref, tol, name):
+    got = got.detach().double().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    ref = np.asarray(ref, dtype=np.float64)
+    assert got.shape == ref.shape, (name, got.shape, ref.shape)
+    err = float(np.abs(got - ref).max())
+    limit = tol * float(np.abs(ref).max())
+    assert err <= limit, (name, err, limit)
+
+
+@pytest.mark.parametrize("c,co,chunks", [(3, 64, 1), (1, 8, 1), (4, 128, 2), (3, 12, 1),
+                                         (3, 100, 2), (4, 512, 8), (3, 65, 2), (3, 1, 1)])
+def test_stem_dw_tc_plan(c, co, chunks):
+    """Any Co up to the forward's limit plans: 64-channel chunks across the
+    grid, the last one zero-padded."""
+    assert tk.stem_dw_tc_plan(c, co) == chunks
+
+
+@pytest.mark.parametrize("c,co", [(3, 0), (5, 64), (0, 64), (3, 513)])
+def test_stem_dw_tc_plan_raises_outside_range(c, co):
+    with pytest.raises(ValueError, match="tensor-core stem dW takes 1 <= C <= 4 and 1 <= Co <= 512"):
+        tk.stem_dw_tc_plan(c, co)
+
+
+def test_stem_dw_tc_limits_match_kernel():
+    """The plan's limit and chunk are the C file's kMaxCo and kCoBlock."""
+    src = (Path(tk.__file__).parents[1] / "csrc" / "stem_dw_tc.cu").read_text()
+    max_co = re.search(r"constexpr int kMaxCo = (\d+);", src)
+    block = re.search(r"constexpr int kCoBlock = (\d+);", src)
+    assert max_co and int(max_co.group(1)) == tk.STEM_TC_MAX_CO
+    assert block and int(block.group(1)) == tk.STEM_DW_TC_CO_BLOCK
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 12, 20, 64), (1, 3, 10, 14, 12), (2, 1, 8, 10, 100),
+                                   (1, 4, 6, 18, 8)])
+def test_stem_dw_plain_bf16_is_exact_product_sum(shape):
+    """stem_dw_plain on bf16 tensors against a float64 im2col product of the
+    same bf16 operands: the route needs no rounding twin."""
+    n, c, h, w, co = shape
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.standard_normal((n, c, h, w)).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.standard_normal((n, h // 2, w // 2, co)).astype(np.float32)).bfloat16()
+    dw, db = tk.stem_dw_plain(x, g)
+    cols = F.unfold(x.double(), kernel_size=4, padding=1, stride=2)  # (n, c * 16, h2 * w2)
+    ref = torch.einsum("nkl,nlo->ok", cols, g.double().reshape(n, -1, co)).reshape(co, c, 4, 4)
+    assert dw.dtype == db.dtype == torch.float32
+    _dw_close(dw, ref, EXACT_TOL, "dW")
+    _dw_close(db, g.double().sum(dim=(0, 1, 2)), EXACT_TOL, "db")
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 16, 24, 64), (1, 3, 12, 16, 12)])
+def test_stem_dw_plain_bf16_matches_jax(shape):
+    """K13 dW: dW and db of the reference's conv4x4s2_stem_chw VJP (float32,
+    interpret mode) against the plain version on bf16 tensors of the same
+    grid values."""
+    n, c, h, w, co = shape
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = (rng.integers(-16, 17, (n, c, h, w)) / 16).astype(np.float32)
+    g = (rng.integers(-16, 17, (n, h // 2, w // 2, co)) / 16).astype(np.float32)
+    k = np.zeros((4, 4, c, co), np.float32)
+    b = np.zeros((co,), np.float32)
+    _, vjp = jax.vjp(lambda k_, b_: pc.conv4x4s2_stem_chw(jnp.asarray(x), k_, b_),
+                     jnp.asarray(k), jnp.asarray(b))
+    jdk, jdb = vjp(jnp.asarray(g))
+    dw, db = tk.stem_dw_plain(torch.from_numpy(x).bfloat16(), torch.from_numpy(g).bfloat16())
+    _dw_close(dw, np.transpose(np.asarray(jdk), (3, 2, 0, 1)), SUM_TOL, "dW")
+    _dw_close(db, jdb, SUM_TOL, "db")
+
+
+def test_stem_dw_on_cpu_takes_plain_version():
+    """A CPU tensor runs the plain version, in either dtype, and counts no
+    launch on either route."""
+    rng = np.random.default_rng(11)
+    xa = rng.standard_normal((1, 3, 8, 12)).astype(np.float32)
+    ga = rng.standard_normal((1, 4, 6, 12)).astype(np.float32)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    tk.reset_launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g = torch.from_numpy(xa).to(dtype), torch.from_numpy(ga).to(dtype)
+        got, ref = tk.stem_dw(x, g), tk.stem_dw_plain(x, g)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, ref))
+    assert tk.LAUNCHES["stem_dw"] == 0
+    assert tk.ROUTE_LAUNCHES["itg_stem_dw_tc"] == tk.ROUTE_LAUNCHES["itg_stem_dw"] == 0
