@@ -78,9 +78,18 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    as the edge pixel, db from the even full-res rows or one image) must
    read at least DW_PLANT times the limit (``check_wgrad``); the K9 dW row
    includes the wrapper's fold to 3x3, and the entry point alone is
-   printed. K4 (one 16-byte vector body for both dtypes) is
+   printed. K13 dx routes by dtype too: bf16 on the tensor-core kernel of
+   ``csrc/stem_dx_tc.cu``, held to ``stem_dx_tc_plain`` (w rounded to
+   bf16; the unrounded plain version's distance reported) at the Exp-1 and
+   SSM shapes and the STEM_ANY_CO widths, two calls bit-equal, and three
+   planted faults (ky and kx swapped, one k16 step skipped, g's zero border
+   read as the edge pixel) must read at least STEM_PLANT times that check's
+   limit (``check_stem_dx``). K8 (16-byte vectors) is held bit-equal to its
+   plain version at every path's shapes, at an odd HW and on a g one element
+   into its storage, and a planted fault must break the equality
+   (``check_bn_corr_edges``). K4 (one 16-byte vector body for both dtypes) is
    held bit-equal at every path's shapes. The f32 routes (K1, K6, K7,
-   K9 dx, K9 dW, K13's forward and dW, K3, K3-dW) run on the CUDA-core kernels, timed into
+   K9 dx, K9 dW, K13's forward, dW and dx, K3, K3-dW) run on the CUDA-core kernels, timed into
    rows of their own (``:f32_<path>``), and each CUDA-core kernel is timed in
    bf16 beside the tensor-core one. Times
    each (CUDA-graph replay) beside its bound, its plain version and one
@@ -132,8 +141,9 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    largest deviation against its largest value). Then the fused step
    against the unfused one from the same state and crops, both on the
    kernels. The same step parity for the SSM recipe (K15 included). Each
-   f32 step parity runs K1, K6, K7, K9's forward, dx and dW, K13's forward
-   and dW, K3 and K3-dW on their CUDA-core entry points only (``[route]``).
+   f32 step parity runs K1, K6, K7, K9's forward, dx and dW, K13's forward,
+   dW and dx, K3 and K3-dW on their CUDA-core entry points only
+   (``[route]``).
    ``step_parity_study.py`` measures the limits' spread and planted faults.
 6. Training runs: 30 bf16 steps each through the train CLI's ``train``:
    the Experiment-1 recipe on ``datasets/241.jpg`` under ``--fuse_up auto``
@@ -141,8 +151,8 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    exact launch counts per step, warm steps/s, the device's busy share
    (torch.profiler), then the written ``.ckpt`` reloaded through the
    sampling loader and rendered to a 384^2 canvas. Each bf16 run launches
-   K1/K2, K6, K7, K9's forward, dx and dW, K13's forward and dW, K3 and
-   K3-dW on their tensor-core entry points only (``[route]``).
+   K1/K2, K6, K7, K9's forward, dx and dW, K13's forward, dW and dx, K3
+   and K3-dW on their tensor-core entry points only (``[route]``).
 7. SSM generation from the SSM run's EMA checkpoint through the same
    generation phase (one-pass launches K15 6, K1 5, K3 2, K4 2; per 1024^2
    canvas K15 384, K2 320, K3 128, K4 128; the bf16 raster against the
@@ -272,12 +282,12 @@ KERNELS = {
     "upsample2_chw_add": ("K10", "upsample2_chw.cu", "pallas_conv.py:2199"),
     "stem_fwd": ("K13", "stem_fwd_tc.cu", "pallas_conv.py:2769"),
     "stem_dw": ("K13-dW", "stem_dw_tc.cu", "pallas_conv.py:2840"),
-    "stem_dx": ("K13-dx", "stem4x4s2.cu", "pallas_conv.py:2977"),
+    "stem_dx": ("K13-dx", "stem_dx_tc.cu", "pallas_conv.py:2977"),
     "ssm_embed": ("K15", "ssm_embed_tc.cu", "pallas_ssm.py:343"),
     "ssm_embed_bwd": ("K15-bwd", "ssm_embed_tc.cu", "pallas_ssm.py:392"),
 }
 # The kernels with two routes (K15: ops/ssm.py; K1/K2, K6, K7, K9/K14's forward, K9 dx,
-# K9 dW, K13's forward, K13 dW, K3 and K3-dW: ops/kernels.py): the main paths run bf16 on
+# K9 dW, K13's forward, K13 dW, K13 dx, K3 and K3-dW: ops/kernels.py): the main paths run bf16 on
 # the tensor-core kernels above;
 # float32 (step parity, the f32 raster) keeps the CUDA-core kernels, reported
 # in rows of their own: kernel -> (C entry point, source)
@@ -291,6 +301,7 @@ F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
              "upconv3x3_chw_dw": ("itg_upconv3x3_chw_dw", "upconv3x3_chw.cu"),
              "stem_fwd": ("itg_stem_fwd", "stem4x4s2.cu"),
              "stem_dw": ("itg_stem_dw", "stem4x4s2.cu"),
+             "stem_dx": ("itg_stem_dx", "stem4x4s2.cu"),
              "upconv3x3_chw": ("itg_upconv3x3_chw", "upconv3x3_chw.cu"),
              "chw_upconv_halo_step": ("itg_upconv3x3_chw", "upconv3x3_chw.cu"),
              "conv1x1_chw": ("itg_conv1x1_chw", "conv1x1_chw.cu"),
@@ -301,15 +312,16 @@ TC_ENTRY = {"conv3x3_chw": "itg_conv3x3_chw_tc", "chw_halo_step": "itg_conv3x3_c
             "upconv3x3_chw_dx": "itg_upconv3x3_chw_dx_tc", "stem_fwd": "itg_stem_fwd_tc",
             "upconv3x3_chw_dw": "itg_upconv3x3_chw_dw_tc", "stem_dw": "itg_stem_dw_tc",
             "upconv3x3_chw": "itg_upconv3x3_chw_tc", "chw_upconv_halo_step": "itg_upconv3x3_chw_tc",
-            "conv1x1_chw": "itg_conv1x1_chw_tc", "conv1x1_chw_dw": "itg_conv1x1_chw_dw_tc"}
-# K1/K2, K6, K7, K9 dx, K9 dW, K13's forward, K13 dW, K9/K14's forward, K3 and
-# K3-dW (ops/kernels.py's ROUTE_LAUNCHES): their bf16 rows also carry the CUDA-core
+            "conv1x1_chw": "itg_conv1x1_chw_tc", "conv1x1_chw_dw": "itg_conv1x1_chw_dw_tc",
+            "stem_dx": "itg_stem_dx_tc"}
+# K1/K2, K6, K7, K9 dx, K9 dW, K13's forward, K13 dW, K13 dx, K9/K14's forward, K3
+# and K3-dW (ops/kernels.py's ROUTE_LAUNCHES): their bf16 rows also carry the CUDA-core
 # kernel's time in bf16 (the design the tensor-core one replaced, timed in the
 # same run), and their f32 route has a row for each training path (K2 and
 # K14 run only at eval: none)
 ROUTED = ("conv3x3_chw", "chw_halo_step", "conv3x3_chw_dx", "conv3x3_chw_dw", "upconv3x3_chw_dx",
           "stem_fwd", "upconv3x3_chw", "chw_upconv_halo_step", "conv1x1_chw", "conv1x1_chw_dw",
-          "upconv3x3_chw_dw", "stem_dw")
+          "upconv3x3_chw_dw", "stem_dw", "stem_dx")
 # K2's four border cases: (top row cached, left column cached)
 BORDERS = {"no cache": (False, False), "top only": (True, False), "left only": (False, True),
            "top and left": (True, True)}
@@ -429,11 +441,11 @@ NOISE_SHARE = 1e-6
 # holds it
 FUSE_FLOOR = 2e-3
 FUSE_FLOOR_SCALE = 1.5
-# K13's bf16 forward: each planted fault must read at least this many times
+# K13's bf16 forward and dx: each planted fault must read at least this many times
 # the check's limit (BF16_TOL of max|ref|)
 STEM_PLANT = 10.0
-# K13's forward at output widths that are no multiple of 8 or above 128
-# (--D_ch), held to its plain version beside the flagship's 64
+# K13's forward, dW and dx at output widths that are no multiple of 8 or
+# above 128 (--D_ch), held to their plain versions beside the flagship's 64
 STEM_ANY_CO = (4, 12, 100, 136, 256)
 # K9/K14's bf16 forward: the same for its planted faults
 UP_PLANT = 10.0
@@ -471,7 +483,7 @@ def fwd_route(label: str, tc: bool, want=None, up_want=None, k3_want=None) -> No
     then start again from 0: the bf16 route's (``tc``) or the float32 one's
     only; K1 / K2 and K3 at least once (or exactly ``want`` and
     ``k3_want``), K9 / K14 exactly ``up_want`` where it is given, K3-dW,
-    K9 dW and K13 dW none."""
+    K9 dW, K13 dW and K13 dx none."""
     from infinite_texture_gans_torch.ops import kernels
 
     for tag, kernel, need, at_least_one in (("K1 / K2", "conv3x3_chw", want, True),
@@ -479,7 +491,8 @@ def fwd_route(label: str, tc: bool, want=None, up_want=None, k3_want=None) -> No
                                             ("K3", "conv1x1_chw", k3_want, True),
                                             ("K3-dW", "conv1x1_chw_dw", 0, False),
                                             ("K9 dW", "upconv3x3_chw_dw", 0, False),
-                                            ("K13 dW", "stem_dw", 0, False)):
+                                            ("K13 dW", "stem_dw", 0, False),
+                                            ("K13 dx", "stem_dx", 0, False)):
         on, off = (TC_ENTRY[kernel], F32_ROUTE[kernel][0])[:: 1 if tc else -1]
         counts = {e: kernels.ROUTE_LAUNCHES[e] for e in (on, off)}
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(counts, 0))
@@ -1710,6 +1723,69 @@ def main() -> int:
 
         check_wgrad("stem_dw", tag, (x, gy), faults if plant else None)
 
+    def check_stem_dx(tag, gy, wt, plant=False):
+        """K13 dx against its plain version. bf16 runs the tensor cores: dx
+        within BF16_TOL of max|ref| of the plain version with w rounded to
+        bf16 (``stem_dx_tc_plain``; the unrounded one's distance reported),
+        two calls bit-equal, and with ``plant`` three planted faults (ky and
+        kx swapped, one k16 step of output channels skipped, g's zero border
+        read as the edge pixel) must read at least STEM_PLANT times that
+        limit. f32 runs the CUDA cores, held to the plain version."""
+        got = kernels.stem_dx(gy, wt)
+        if gy.dtype != torch.bfloat16:
+            compare("stem_dx", f"{tag} [CUDA cores]", got, kernels.stem_dx_plain(gy, wt))
+            return
+        ref = kernels.stem_dx_tc_plain(gy, wt)
+        compare("stem_dx", f"{tag} [tensor cores]", got, ref, floor=0.0)
+        unrounded = float((got.float() - kernels.stem_dx_plain(gy, wt).float()).abs().max())
+        same = torch.equal(got, kernels.stem_dx(gy, wt))
+        print(f"[check] stem_dx {tag} [tensor cores]: against stem_dx_plain (w unrounded) max abs "
+              f"err {unrounded:.3e} (reported); two calls {'bit-equal' if same else 'differ'}")
+        if not same:
+            fail(f"stem_dx {tag}: two bf16 calls differ")
+        if not plant:
+            return
+        limit = BF16_TOL * float(ref.float().abs().max())
+        skip = wt.clone()
+        skip[:16] = 0
+        g_edge = F.pad(gy.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate")
+        planted = {"ky<->kx": kernels.stem_dx(gy, wt.transpose(2, 3).contiguous()),
+                   "one k16 step (16 output channels) skipped": kernels.stem_dx(gy, skip),
+                   "g's zero border read as the edge pixel": kernels.stem_dx(
+                       g_edge.permute(0, 2, 3, 1).contiguous(), wt)[:, :, 2:-2, 2:-2]}
+        for fault, bad in planted.items():
+            r_ = float((bad.float() - ref.float()).abs().max()) / limit
+            print(f"[check] stem_dx {tag}: planted {fault}: max abs err / limit {r_:.2f} (must "
+                  f"reach {STEM_PLANT:g})")
+            if not r_ >= STEM_PLANT:
+                fail(f"stem_dx {tag}: a planted {fault} reads only {r_:.2f}x the limit")
+
+    def check_bn_corr_edges(dtype):
+        """K8 bit-equal to its plain version where its 16-byte vectors do not
+        tile a plane: an odd HW (every other plane starts mid-vector: the
+        scalar head and tail) and g one element into its storage (its planes
+        at other offsets within 16 bytes than y's and out's); a planted fault
+        (the neighbouring channel's alpha and beta2) must break the
+        equality."""
+        g_ = torch.Generator(device=dev).manual_seed(350)
+        shape = (EXP1_N, 13, 191, 193)
+        gy, y = randn(g_, *shape).to(dtype), randn(g_, *shape).to(dtype)
+        alpha, beta2 = 0.1 * randn(g_, 13), 0.1 * randn(g_, 13)  # moves every bf16 output
+        ref = kernels.bn_corr_plain(gy, y, alpha, beta2)
+        compare("bn_corr", f"odd HW {shape}", kernels.bn_corr(gy, y, alpha, beta2), ref,
+                exact=True)
+        view = torch.empty(gy.numel() + 1, dtype=dtype, device=dev)[1:].view(shape)
+        view.copy_(gy)
+        compare("bn_corr", f"g one element into its storage {shape}",
+                kernels.bn_corr(view, y, alpha, beta2), ref, exact=True)
+        bad = float((kernels.bn_corr(gy, y, alpha.roll(1), beta2.roll(1)).float()
+                     - ref.float()).abs().max())
+        print(f"[check] bn_corr {str(dtype).replace('torch.', '')}: planted fault (the "
+              f"neighbouring channel's alpha and beta2): max abs err {bad:.3e} (must exceed 0)")
+        if not bad > 0:
+            fail("bn_corr: a planted fault (the neighbouring channel's alpha and beta2) passes "
+                 "the bit-equal check")
+
     def time_stem(shape_s, x, wt, b, nbytes, flops, tails):
         """K13's forward, twice per step of each tail in ``tails``: bf16 on
         the tensor cores (its CUDA-core kernel in bf16 timed beside it),
@@ -1948,6 +2024,12 @@ def main() -> int:
     print(f"[tolerance] sums (Σy, Σy², d(scale), d(shift), dW, db): max abs err <= {SUM_TOL:g} * "
           "max|ref|: float32 reductions in another order, partly by atomics; K5's sums are held "
           "to the sums of the kernel's own stored y; K4's adjoint bit-equal")
+    print(f"[tolerance] K13 dx, bf16 (tensor cores, which round w to bf16): dx max abs err <= "
+          f"{BF16_TOL:g} * max|ref| of the plain version with that rounding (stem_dx_tc_plain); two "
+          f"calls bit-equal (one summation order, no atomics); planted faults >= {STEM_PLANT:g}x "
+          "that limit; f32 (CUDA cores) as above")
+    print("[tolerance] K8 (bn_corr): bit-equal to its plain version (the same float32 operations, "
+          "one rounding at the store), also at an odd HW and on a g one element into its storage")
     print("[tolerance] K3-dW, bf16 (tensor cores): dW and db as the sums above, against the plain "
           "version itself (both operands are bf16 values); two calls bit-equal (fixed-order partial "
           f"sums, no atomics); planted faults >= {K3_PLANT:g}x the limit")
@@ -1961,6 +2043,7 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         timed = dtype == torch.bfloat16
         es = 2 if timed else 4
+        check_bn_corr_edges(dtype)
         for i, (c, co, h, w, with_stats) in enumerate(conv3_t):
             g_ = torch.Generator(device=dev).manual_seed(300 + i)
             x = randn(g_, n, c, h, w).to(dtype)
@@ -1979,7 +2062,7 @@ def main() -> int:
                 check_dw(tag, x, gy, sc, sh, outer, plant=i < 2)
                 if with_stats:
                     compare("bn_corr", tag, kernels.bn_corr(gy, y, alpha, beta2),
-                            kernels.bn_corr_plain(gy, y, alpha, beta2))
+                            kernels.bn_corr_plain(gy, y, alpha, beta2), exact=True)
             act = n * h * w
             pbytes = (co * c * 9 + co) * 4
             flops = 2.0 * act * co * c * 9
@@ -2116,9 +2199,12 @@ def main() -> int:
             compare("stem_fwd", f"--D_ch {co_}: (2, 3, {hs}x{hs}) -> (2, {hs // 2}, {hs // 2}, {co_}) "
                     "[tensor cores]", kernels.stem_fwd(x[:2], w_s, b_s),
                     kernels.stem_fwd_tc_plain(x[:2], w_s, b_s), floor=0.0)
+            gy_s = randn(g_s, 2, hs // 2, hs // 2, co_).to(dtype)
             check_stem_dw(f"--D_ch {co_}: (2, 3, {hs}x{hs}) -> (2, {hs // 2}, {hs // 2}, {co_})",
-                          x[:2], randn(g_s, 2, hs // 2, hs // 2, co_).to(dtype))
-        compare("stem_dx", shape_s, kernels.stem_dx(gy, wt), kernels.stem_dx_plain(gy, wt))
+                          x[:2], gy_s)
+            check_stem_dx(f"--D_ch {co_}: (2, {hs // 2}, {hs // 2}, {co_}) -> (2, 3, {hs}x{hs})",
+                          gy_s, w_s)
+        check_stem_dx(f"train {shape_s}", gy, wt, plant=True)
         check_stem_dw(f"train {shape_s}", x, gy, plant=True)
         act = n * (hs // 2) ** 2
         flops = 2.0 * act * co * 48
@@ -2126,10 +2212,14 @@ def main() -> int:
         time_stem(shape_s, x, wt, b, nbytes, flops, ("auto", "off"))
         wl = wt.to(dtype)
         g_nchw = gy.permute(0, 3, 1, 2)
-        if not timed:  # K13 dW's f32 route (CUDA cores), in rows of its own
+        if not timed:  # K13 dW's and dx's f32 routes (CUDA cores), in rows of their own
             account("stem_dw", f"{shape_s} [CUDA cores, f32]", lambda: kernels.stem_dw(x, gy),
                     lambda: kernels.stem_dw_plain(x, gy),
                     lambda: torch.nn.grad.conv2d_weight(x, wl.shape, g_nchw, stride=2, padding=1),
+                    nbytes, flops, tails=("auto", "off"), peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+            account("stem_dx", f"{shape_s} [CUDA cores, f32]", lambda: kernels.stem_dx(gy, wt),
+                    lambda: kernels.stem_dx_plain(gy, wt),
+                    lambda: torch.nn.grad.conv2d_input(x.shape, wl, g_nchw, stride=2, padding=1),
                     nbytes, flops, tails=("auto", "off"), peak=PEAK_F32_FLOP_PER_S, f32_route=True)
         else:
             account("stem_dw", f"{shape_s} [tensor cores]", lambda: kernels.stem_dw(x, gy),
@@ -2137,10 +2227,11 @@ def main() -> int:
                     lambda: torch.nn.grad.conv2d_weight(x, wl.shape, g_nchw, stride=2, padding=1),
                     nbytes, flops, tails=("auto", "off"),
                     old_fn=lambda: kernels._stem_dw_cuda_cores(x, gy))
-            account("stem_dx", shape_s, lambda: kernels.stem_dx(gy, wt),
-                    lambda: kernels.stem_dx_plain(gy, wt),
+            account("stem_dx", f"{shape_s} [tensor cores]", lambda: kernels.stem_dx(gy, wt),
+                    lambda: kernels.stem_dx_tc_plain(gy, wt),
                     lambda: torch.nn.grad.conv2d_input(x.shape, wl, g_nchw, stride=2, padding=1),
-                    nbytes, flops, tails=("auto", "off"))
+                    nbytes, flops, tails=("auto", "off"),
+                    old_fn=lambda: kernels._stem_dx_cuda_cores(gy, wt))
     # The fused blocks under --fuse_up auto: the unfused conv1 entries at half
     # resolution. K9 and K10, and the kernels that run there at shapes of
     # their own: the half-res shortcut (K3 with no residual and no stats),
@@ -2419,7 +2510,7 @@ def main() -> int:
             check_dw(tag, x, gy, sc, sh, "replicate")
             if with_stats:
                 compare("bn_corr", tag, kernels.bn_corr(gy, y, alpha, beta2),
-                        kernels.bn_corr_plain(gy, y, alpha, beta2))
+                        kernels.bn_corr_plain(gy, y, alpha, beta2), exact=True)
             act = n * h * w
             pbytes = (co * c * 9 + co) * 4
             flops = 2.0 * act * co * c * 9
@@ -2503,7 +2594,7 @@ def main() -> int:
                 kernels.upsample2_chw_bwd_plain(g_up), exact=True)
         stem_s = f"ssm ({n}, 3, {h}x{h}) -> ({n}, {h // 2}, {h // 2}, 64)"
         check_stem(stem_s, xs, ws, bs)
-        compare("stem_dx", stem_s, kernels.stem_dx(gs, ws), kernels.stem_dx_plain(gs, ws))
+        check_stem_dx(stem_s, gs, ws, plant=True)
         check_stem_dw(stem_s, xs, gs, plant=True)
         sact = n * (h // 2) ** 2
         sflops = 2.0 * sact * 64 * 48
@@ -2536,11 +2627,16 @@ def main() -> int:
                 act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("ssm",), **f32,
                 old_fn=(lambda: kernels._conv1x1_dw_cuda_cores(x, gy)) if timed else None)
         wsl, gs_nchw = ws.to(dtype), gs.permute(0, 3, 1, 2)
-        if not timed:  # K13 dW's f32 route (CUDA cores), in a row of its own
+        if not timed:  # K13 dW's and dx's f32 routes (CUDA cores), in rows of their own
             account("stem_dw", f"{stem_s} [CUDA cores, f32]", lambda: kernels.stem_dw(xs, gs),
                     lambda: kernels.stem_dw_plain(xs, gs),
                     lambda: torch.nn.grad.conv2d_weight(xs, wsl.shape, gs_nchw, stride=2,
                                                         padding=1),
+                    sbytes, sflops, tails=("ssm",), peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+            account("stem_dx", f"{stem_s} [CUDA cores, f32]", lambda: kernels.stem_dx(gs, ws),
+                    lambda: kernels.stem_dx_plain(gs, ws),
+                    lambda: torch.nn.grad.conv2d_input(xs.shape, wsl, gs_nchw, stride=2,
+                                                       padding=1),
                     sbytes, sflops, tails=("ssm",), peak=PEAK_F32_FLOP_PER_S, f32_route=True)
             continue
         account("upsample2_chw", f"({n}, {c}, {h // 2}, {h // 2})", lambda: kernels.upsample2_chw(x_half),
@@ -2555,9 +2651,10 @@ def main() -> int:
                 lambda: kernels.stem_dw_plain(xs, gs),
                 lambda: torch.nn.grad.conv2d_weight(xs, wsl.shape, gs_nchw, stride=2, padding=1),
                 sbytes, sflops, tails=("ssm",), old_fn=lambda: kernels._stem_dw_cuda_cores(xs, gs))
-        account("stem_dx", stem_s, lambda: kernels.stem_dx(gs, ws), lambda: kernels.stem_dx_plain(gs, ws),
+        account("stem_dx", f"{stem_s} [tensor cores]", lambda: kernels.stem_dx(gs, ws),
+                lambda: kernels.stem_dx_tc_plain(gs, ws),
                 lambda: torch.nn.grad.conv2d_input(xs.shape, wsl, gs_nchw, stride=2, padding=1),
-                sbytes, sflops, tails=("ssm",))
+                sbytes, sflops, tails=("ssm",), old_fn=lambda: kernels._stem_dx_cuda_cores(gs, ws))
     for tail, want in STEP_LAUNCHES.items():
         timed_calls = {k: s["calls"] for k, s in tstats[tail].items()}
         if timed_calls != want:
@@ -2630,7 +2727,7 @@ def main() -> int:
             fail(f"the f32 step parity ({TRAIN_PATHS[tail][0]}) took the routed kernels' "
                  f"launches {counts}, not {want}")
         print(f"[route] f32 step parity, {TRAIN_PATHS[tail][0]}: the routed kernels' (K1, K6, K7, "
-              f"K9, K9 dx, K9 dW, K13, K13 dW, K3, K3-dW) launches by entry point {counts}")
+              f"K9, K9 dx, K9 dW, K13, K13 dW, K13 dx, K3, K3-dW) launches by entry point {counts}")
     if f32_route["itg_ssm_embed_tc_fwd"] or f32_route["itg_ssm_embed_tc_bwd"] or not (
             f32_route["itg_ssm_embed_fwd"] and f32_route["itg_ssm_embed_bwd"]):
         fail(f"the f32 SSM step parity took K15's launches {f32_route}, not the CUDA-core route's")
@@ -2657,7 +2754,7 @@ def main() -> int:
             fail(f"the bf16 training run ({TRAIN_PATHS[tail][0]}) took the routed kernels' "
                  f"launches {counts}, not {want}")
         print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}: the routed kernels' (K1, K6, "
-              f"K7, K9, K9 dx, K9 dW, K13, K13 dW, K3, K3-dW) launches by entry point {counts} "
+              f"K7, K9, K9 dx, K9 dW, K13, K13 dW, K13 dx, K3, K3-dW) launches by entry point {counts} "
               "(CUDA-core kernels: 0)")
     if bf16_route["itg_ssm_embed_fwd"] or bf16_route["itg_ssm_embed_bwd"] or min(
             bf16_route["itg_ssm_embed_tc_fwd"], bf16_route["itg_ssm_embed_tc_bwd"]) < 3 * TRAIN_STEPS:

@@ -17,9 +17,10 @@
 //
 // What bounds them on the H100: K6 and K7 do the forward's 2 * 9 * C * Co
 // FLOPs per pixel (operations on the tensor cores at the dense bound, as
-// the forward); K8 reads two arrays and writes one (bytes). These first
-// kernels run on the CUDA cores in float32, so K6/K7 are bound by FMA throughput
-// and shared-memory traffic, far above the tensor-core bound.
+// the forward); K8 reads two arrays and writes one (bytes). K6/K7 here run
+// on the CUDA cores in float32 (the f32 route; bf16 takes chw_dx_tc.cu and
+// chw_dw_tc.cu), so they are bound by FMA throughput and shared-memory
+// traffic, far above the tensor-core bound.
 // What the designs do about it:
 //   K6 is the forward's scheme turned around: a block computes a 32 x 8
 //      tile of da for up to 16 input channels; each chunk of 8 output
@@ -35,11 +36,22 @@
 //      channel, hit distinct banks) and g of 8 output channels, slides a
 //      3 x 3 register window along each row (3 shared loads for 9 FMAs),
 //      walks many tiles, and adds its 9 sums to the zeroed dW once.
-//   K8 is one thread per element on a (pixels, planes) grid, 32-bit index
-//      arithmetic, the per-channel values read once per thread.
+//   K8 moves 16-byte vectors (8 bf16 or 4 float32 values of each array per
+//      load and store), kCorrVecs of them in flight per thread (all loads
+//      issued before any arithmetic). A grid sized to the card walks
+//      (plane, vector): blockIdx.y strides over the planes, loading the
+//      plane's alpha and beta2 once, and blockIdx.x with the threads covers
+//      the plane's vectors. A plane whose start is not 16-byte aligned (HW
+//      no multiple of the vector, or a pointer with a storage offset) takes
+//      a scalar head up to g's first 16-byte boundary and a scalar tail, in
+//      the same launch; if g, y and out sit at different offsets within 16
+//      bytes, each thread reads its vectors' elements one by one. The
+//      arithmetic is the plain version's, one rounding at the store
+//      (__fmul_rn, then __fadd_rn twice), so the result is bit-equal to it.
 // The TPU kernels' packed partial-matmul weights, row stacks and lane
 // padding (the masked pad columns) have no counterpart here.
 #include "common.cuh"
+#include "mma.cuh"  // pack_bf16x2
 
 namespace {
 
@@ -332,25 +344,125 @@ int launch_dw(const void* x, const void* g, const float* scale, const float* shi
 // ---------------------------------------------------------------------------
 // K8: g + (alpha + beta2 * y)
 
+constexpr int kCorrVecs = 2;  // 16-byte vectors of each array in flight per thread
+constexpr int kCorrBlocksPerSm = 8;
+
+// g + (alpha + beta2 * y), one rounding per float32 operation
+__device__ __forceinline__ float corr(float g, float y, float a, float b2) {
+  return __fadd_rn(g, __fadd_rn(a, __fmul_rn(b2, y)));
+}
+
+template <typename T>
+__device__ __forceinline__ T corr_one(T g, T y, float a, float b2) {
+  return from_f32<T>(corr(to_f32<T>(g), to_f32<T>(y), a, b2));
+}
+
+// The values of a 16-byte vector as float32, and back (bf16: rounded to
+// nearest even; a bf16 value is the high half of its float32).
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+
+__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+  using itg::pack_bf16x2;
+  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]), pack_bf16x2(f[4], f[5]),
+                    pack_bf16x2(f[6], f[7]));
+}
+
+__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+
+// Grid (ceil(HW / V / (kThreads kCorrVecs)), planes or fewer): block (bx,
+// by) takes vectors bx kThreads kCorrVecs + u kThreads + threadIdx.x (u <
+// kCorrVecs) of planes by, by + gridDim.y, ...; the blocks with bx = 0 also
+// take each plane's scalar head and tail.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bn_corr_kernel(const T* __restrict__ g, const T* __restrict__ y, const float* __restrict__ alpha,
                const float* __restrict__ beta2, T* __restrict__ out, int planes, int C, int HW) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= HW) return;
+  constexpr int V = 16 / sizeof(T);
   for (int plane = blockIdx.y; plane < planes; plane += gridDim.y) {
     const int c = plane % C;
-    const size_t off = static_cast<size_t>(plane) * HW + p;
-    const float corr = __fadd_rn(alpha[c], __fmul_rn(beta2[c], to_f32<T>(y[off])));
-    out[off] = from_f32<T>(__fadd_rn(to_f32<T>(g[off]), corr));
+    const float a = alpha[c], b2 = beta2[c];
+    const size_t base = static_cast<size_t>(plane) * HW;
+    const T* gp = g + base;
+    const T* yp = y + base;
+    T* op = out + base;
+    const uintptr_t mis = reinterpret_cast<uintptr_t>(gp) & 15;
+    const bool vec = (reinterpret_cast<uintptr_t>(yp) & 15) == mis &&
+                     (reinterpret_cast<uintptr_t>(op) & 15) == mis;
+    const int head = vec ? min(static_cast<int>(((16 - mis) & 15) / sizeof(T)), HW) : 0;
+    const int nvec = (HW - head) / V;
+    const int tail = head + nvec * V;
+    if (blockIdx.x == 0) {
+      for (int e = threadIdx.x; e < head; e += kThreads) op[e] = corr_one(gp[e], yp[e], a, b2);
+      for (int e = tail + threadIdx.x; e < HW; e += kThreads) op[e] = corr_one(gp[e], yp[e], a, b2);
+    }
+    const int v0 = blockIdx.x * kThreads * kCorrVecs + threadIdx.x;
+    if (vec) {
+      const uint4* g4 = reinterpret_cast<const uint4*>(gp + head);
+      const uint4* y4 = reinterpret_cast<const uint4*>(yp + head);
+      uint4* o4 = reinterpret_cast<uint4*>(op + head);
+      uint4 gv[kCorrVecs], yv[kCorrVecs];
+#pragma unroll
+      for (int u = 0; u < kCorrVecs; ++u) {
+        const int v = v0 + u * kThreads;
+        if (v < nvec) {
+          gv[u] = g4[v];
+          yv[u] = y4[v];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kCorrVecs; ++u) {
+        const int v = v0 + u * kThreads;
+        if (v < nvec) {
+          float gf[V], yf[V];
+          unpack(gv[u], gf);
+          unpack(yv[u], yf);
+#pragma unroll
+          for (int e = 0; e < V; ++e) gf[e] = corr(gf[e], yf[e], a, b2);
+          o4[v] = pack(gf);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kCorrVecs; ++u) {
+        const int v = v0 + u * kThreads;
+        if (v < nvec) {
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            op[v * V + e] = corr_one(gp[v * V + e], yp[v * V + e], a, b2);
+          }
+        }
+      }
+    }
   }
 }
 
 template <typename T>
 int launch_corr(const void* g, const void* y, const float* alpha, const float* beta2, void* out,
                 int planes, int c, int hw, cudaStream_t stream) {
-  const dim3 grid((hw + kThreads - 1) / kThreads, planes < 65535 ? planes : 65535);
-  bn_corr_kernel<T><<<grid, kThreads, 0, stream>>>(
+  if (planes < 1 || c < 1 || hw < 1) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int V = 16 / sizeof(T);
+  const int per_block = kThreads * kCorrVecs;
+  const int bx = hw / V > per_block ? (hw / V + per_block - 1) / per_block : 1;
+  const int want = kCorrBlocksPerSm * itg::sm_count() / bx;
+  const int gy = want < 1 ? 1 : (want < planes ? want : planes);  // want <= 8 x the SMs
+  bn_corr_kernel<T><<<dim3(bx, gy), kThreads, 0, stream>>>(
       static_cast<const T*>(g), static_cast<const T*>(y), alpha, beta2, static_cast<T*>(out),
       planes, c, hw);
   return itg::last_error();

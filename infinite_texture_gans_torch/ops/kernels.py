@@ -37,7 +37,8 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
 - K13 ``conv4x4s2_stem_chw``: the discriminator's conv0, forward
   ``stem_fwd`` :2769 ``_stem_fwd_call``, ``stem_dw`` :2840 ``_stem_dw_call``,
   ``stem_dx`` :2977 ``_stem_dx_call`` (csrc/stem4x4s2.cu; the forward in
-  bf16: csrc/stem_fwd_tc.cu; the dW in bf16: csrc/stem_dw_tc.cu).
+  bf16: csrc/stem_fwd_tc.cu; the dW in bf16: csrc/stem_dw_tc.cu; the dx in
+  bf16: csrc/stem_dx_tc.cu).
 
 The SSM embed chain K15 (``pallas_ssm.py:343/:392``) lives in
 ``ops/ssm.py`` (csrc/ssm_embed_chw.cu); its launches count here too, under
@@ -82,7 +83,12 @@ output channels over the pixels, B straight from g's NHWC rows, A from
 stride-2 shifted copies of the image rows), both with fixed-order
 per-block partials and no atomics; their operands are bf16 values, so
 their plain versions are ``upconv3x3_chw_dw_plain`` and ``stem_dw_plain``
-themselves; float32 ``itg_upconv3x3_chw_dw`` and ``itg_stem_dw``. K3 (forward,
+themselves; float32 ``itg_upconv3x3_chw_dw`` and ``itg_stem_dw``. K13 dx
+routes the same way: bfloat16 takes ``itg_stem_dx_tc`` (csrc/stem_dx_tc.cu:
+one mma.sync accumulator for the four sub-pixel phases of dx, each of the 9
+shifts of g a row address of one staged tile, the weights rounded to bf16 as
+the reference rounds them, pallas_conv.py:3071, by a pack launch; its plain
+version ``stem_dx_tc_plain``), float32 ``itg_stem_dx``. K3 (forward,
 with its residual and stats, and its dx form) and K3-dW route the same way:
 bfloat16 takes ``itg_conv1x1_chw_tc`` (mma.sync on the channels-major x
 slab read through ldmatrix.trans, every output channel up to 64 in one
@@ -146,8 +152,8 @@ LAUNCHES = {
 }
 
 # launches per C entry point of K1/K2, K6, K7, K9/K14's forward, K9 dx,
-# K9 dW, K13's forward, K13 dW, K3 and K3-dW: the bf16 tensor-core route and
-# the f32 CUDA-core one (not cleared by reset_launches)
+# K9 dW, K13's forward, K13 dW, K13 dx, K3 and K3-dW: the bf16 tensor-core
+# route and the f32 CUDA-core one (not cleared by reset_launches)
 ROUTE_LAUNCHES = {"itg_conv3x3_chw_tc": 0, "itg_conv3x3_chw": 0,
                   "itg_conv3x3_chw_dx_tc": 0, "itg_conv3x3_chw_dx": 0,
                   "itg_conv3x3_chw_dw_tc": 0, "itg_conv3x3_chw_dw": 0,
@@ -156,6 +162,7 @@ ROUTE_LAUNCHES = {"itg_conv3x3_chw_tc": 0, "itg_conv3x3_chw": 0,
                   "itg_upconv3x3_chw_dw_tc": 0, "itg_upconv3x3_chw_dw": 0,
                   "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0,
                   "itg_stem_dw_tc": 0, "itg_stem_dw": 0,
+                  "itg_stem_dx_tc": 0, "itg_stem_dx": 0,
                   "itg_conv1x1_chw_tc": 0, "itg_conv1x1_chw": 0,
                   "itg_conv1x1_chw_dw_tc": 0, "itg_conv1x1_chw_dw": 0}
 
@@ -1676,7 +1683,8 @@ def upsample2_chw_add_plain(x, res, want_stats: bool = False):
 
 # ---------------------------------------------------------------------------
 # K13: the discriminator stem, 4x4 / stride 2 / zero pad 1 (csrc/stem4x4s2.cu;
-# the bf16 forward: csrc/stem_fwd_tc.cu)
+# in bf16 the forward: csrc/stem_fwd_tc.cu, dW: csrc/stem_dw_tc.cu, dx:
+# csrc/stem_dx_tc.cu)
 
 
 def _check_stem(x, w):
@@ -1866,9 +1874,87 @@ def stem_dw_plain(x, g):
     return dw, gf.sum(dim=(0, 1, 2))
 
 
+# K13 dx's tensor-core route (csrc/stem_dx_tc.cu): dx row r = 2p + py and
+# column s = 2q + px; M = 16 phase columns q of one phase row p, N = (py, px,
+# c) with c padded to 4 (two n8 tiles, one per py), K = the output channels,
+# STEM_DX_TC_CO_CHUNK a stage. Each of the 9 shifts (di, dj) of g is a row
+# address of one staged tile; its pack launch writes the 12 B operands
+# (:func:`pack_stem_dx_weights`).
+STEM_DX_TC_CO_CHUNK = 32
+
+
+def stem_dx_tc_plan(c: int, co: int) -> int:
+    """The number of STEM_DX_TC_CO_CHUNK-channel chunks of g (Co padded up
+    with zero weights) of the tensor-core stem dx for C input and Co output
+    channels. Raises for C outside 1..4 or Co outside 1..STEM_TC_MAX_CO (the
+    forward's --D_ch limit)."""
+    if not 1 <= c <= 4 or not 1 <= co <= STEM_TC_MAX_CO:
+        raise ValueError(f"the tensor-core stem dx takes 1 <= C <= 4 and 1 <= Co <= "
+                         f"{STEM_TC_MAX_CO}, got C={c}, Co={co}")
+    return -(-co // STEM_DX_TC_CO_CHUNK)
+
+
+def pack_stem_dx_weights(w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the tensor-core stem dx's weight packing (which its C
+    entry point runs on the card): w (Co, C, 4, 4) -> bf16 (12, 8, Co padded
+    to STEM_DX_TC_CO_CHUNK), the B operand u = 6 py + 3 a + dj + 1 of the dx
+    row parity py, the g row shift di = py - 1 + a and column shift dj, row
+    n = 4 px + c: w[o, c, 3 - py - 2a, px + 1 - 2 dj] where that column tap
+    lies in 0..3, zero elsewhere and past C and Co."""
+    co, c = w.shape[:2]
+    cop = STEM_DX_TC_CO_CHUNK * stem_dx_tc_plan(c, co)
+    wf = w.detach().float()
+    wp = torch.zeros((12, 8, cop), dtype=torch.float32, device=w.device)
+    for py in range(2):
+        for a in range(2):
+            for dj in (-1, 0, 1):
+                for px in range(2):
+                    kx = px + 1 - 2 * dj
+                    if 0 <= kx < 4:
+                        u, ky = 6 * py + 3 * a + dj + 1, 3 - py - 2 * a
+                        wp[u, 4 * px : 4 * px + c, :co] = wf[:, :, ky, kx].t()
+    return wp.to(torch.bfloat16)
+
+
+def _stem_dx_cuda_cores(g, w):
+    """K13 dx on the CUDA cores (``itg_stem_dx``): the float32 route (the C
+    function takes bf16 too, with w unrounded)."""
+    n, h2, w2, co = g.shape
+    c = w.shape[1]
+    dx = torch.empty((n, c, 2 * h2, 2 * w2), dtype=g.dtype, device=g.device)
+    wf = _f32(w)
+    with torch.cuda.device(g.device):
+        rc = _lib().itg_stem_dx(g.data_ptr(), wf.data_ptr(), dx.data_ptr(),
+                                n, c, 2 * h2, 2 * w2, co, _bf16(g), _stream(g))
+    _raise_on(rc, "itg_stem_dx")
+    ROUTE_LAUNCHES["itg_stem_dx"] += 1
+    return dx
+
+
+def _stem_dx_tensor_cores(g, w):
+    """K13 dx on the tensor cores (``itg_stem_dx_tc``), bf16: the entry point
+    packs w (rounded to bf16, as :func:`pack_stem_dx_weights`), then runs the
+    kernel."""
+    n, h2, w2, co = g.shape
+    c = w.shape[1]
+    chunks = stem_dx_tc_plan(c, co)
+    dx = torch.empty((n, c, 2 * h2, 2 * w2), dtype=g.dtype, device=g.device)
+    wp = torch.empty((12, 8, STEM_DX_TC_CO_CHUNK * chunks), dtype=torch.bfloat16,
+                     device=g.device)
+    wf = _f32(w)
+    with torch.cuda.device(g.device):
+        rc = _lib().itg_stem_dx_tc(g.data_ptr(), wf.data_ptr(), wp.data_ptr(), dx.data_ptr(),
+                                   n, c, 2 * h2, 2 * w2, co, _stream(g))
+    _raise_on(rc, "itg_stem_dx_tc")
+    ROUTE_LAUNCHES["itg_stem_dx_tc"] += 1
+    return dx
+
+
 def stem_dx(g, w):
     """K13 dx: the image-side gradient, channels-major (N, C, 2·H2, 2·W2)
-    in g's dtype, from the NHWC cotangent ``g`` (N, H2, W2, Co)."""
+    in g's dtype, from the NHWC cotangent ``g`` (N, H2, W2, Co). On the card
+    bf16 takes the tensor-core kernel (w rounded to bf16: its plain version
+    is :func:`stem_dx_tc_plain`), float32 the CUDA-core one."""
     if g.dim() != 4:
         raise ValueError(f"g: expected (N, H2, W2, Co), got shape {tuple(g.shape)}")
     n, h2, w2, co = g.shape
@@ -1879,12 +1965,8 @@ def stem_dx(g, w):
         raise ValueError(f"stem: C={c} exceeds the kernel's 4-channel limit")
     if not _on_cuda(g, w):
         return stem_dx_plain(g, w)
-    dx = torch.empty((n, c, 2 * h2, 2 * w2), dtype=g.dtype, device=g.device)
-    wf = _f32(w)
-    with torch.cuda.device(g.device):
-        rc = _lib().itg_stem_dx(g.data_ptr(), wf.data_ptr(), dx.data_ptr(),
-                                n, c, 2 * h2, 2 * w2, co, _bf16(g), _stream(g))
-    _raise_on(rc, "stem_dx")
+    route = _stem_dx_tensor_cores if g.dtype == torch.bfloat16 else _stem_dx_cuda_cores
+    dx = route(g, w)
     LAUNCHES["stem_dx"] += 1
     return dx
 
@@ -1893,6 +1975,13 @@ def stem_dx_plain(g, w):
     """Plain PyTorch version of :func:`stem_dx` (F.conv_transpose2d)."""
     gc = g.float().permute(0, 3, 1, 2)
     return F.conv_transpose2d(gc, w.float(), stride=2, padding=1).to(g.dtype)
+
+
+def stem_dx_tc_plain(g, w):
+    """Plain version of K13 dx's bf16 tensor-core route: :func:`stem_dx_plain`
+    with w rounded to bf16 first (the products of bf16 values are exact in
+    float32; the sums are float32, dx is rounded once)."""
+    return stem_dx_plain(g, w.detach().to(torch.bfloat16).float())
 
 
 class _StemChw(torch.autograd.Function):

@@ -255,8 +255,9 @@ def test_stem_kernels_match_plain(cuda, dtype, shape):
     g = torch.randn(n, h // 2, w // 2, co, generator=gen).to(cuda, dtype)
     tk.reset_launches()
     fwd_plain = tk.stem_fwd_tc_plain if dtype == torch.bfloat16 else tk.stem_fwd_plain
+    dx_plain = tk.stem_dx_tc_plain if dtype == torch.bfloat16 else tk.stem_dx_plain
     _assert_close(tk.stem_fwd(x, wt, b), fwd_plain(x, wt, b))
-    _assert_close(tk.stem_dx(g, wt), tk.stem_dx_plain(g, wt))
+    _assert_close(tk.stem_dx(g, wt), dx_plain(g, wt))
     dw, db = tk.stem_dw(x, g)
     dw_ref, db_ref = tk.stem_dw_plain(x, g)
     _assert_sum_close(dw, dw_ref)
@@ -330,9 +331,8 @@ def test_stem_tc_check_catches_planted_faults(cuda, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_stem_fwd_routes_by_dtype(cuda, dtype):
-    """bf16 calls of K13's forward and dW launch their tensor-core entry
-    points, f32 calls the CUDA-core ones; each counts one launch per call;
-    dx is not routed."""
+    """bf16 calls of K13's forward, dW and dx launch their tensor-core entry
+    points, f32 calls the CUDA-core ones; each counts one launch per call."""
     tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
     tk.reset_launches()
     x, wt, b = _stem_case(cuda, STEM_SHAPES[2])
@@ -344,7 +344,8 @@ def test_stem_fwd_routes_by_dtype(cuda, dtype):
     tc = dtype == torch.bfloat16
     assert tk.ROUTE_LAUNCHES == {**dict.fromkeys(tk.ROUTE_LAUNCHES, 0),
                                  "itg_stem_fwd_tc": int(tc), "itg_stem_fwd": int(not tc),
-                                 "itg_stem_dw_tc": int(tc), "itg_stem_dw": int(not tc)}
+                                 "itg_stem_dw_tc": int(tc), "itg_stem_dw": int(not tc),
+                                 "itg_stem_dx_tc": int(tc), "itg_stem_dx": int(not tc)}
     assert (tk.LAUNCHES["stem_fwd"], tk.LAUNCHES["stem_dx"], tk.LAUNCHES["stem_dw"]) == (1, 1, 1)
 
 
@@ -396,6 +397,7 @@ def test_train_step_bf16_any_d_ch_on_card(cuda):
     assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
     assert (tk.ROUTE_LAUNCHES["itg_stem_fwd_tc"], tk.ROUTE_LAUNCHES["itg_stem_fwd"]) == (2, 0)
     assert (tk.ROUTE_LAUNCHES["itg_stem_dw_tc"], tk.ROUTE_LAUNCHES["itg_stem_dw"]) == (1, 0)
+    assert (tk.ROUTE_LAUNCHES["itg_stem_dx_tc"], tk.ROUTE_LAUNCHES["itg_stem_dx"]) == (1, 0)
 
 
 # --- the fused up-conv (K9 forward, dx, dW) and its residual join (K10) ----
@@ -531,6 +533,7 @@ def test_dx_routes_by_dtype(cuda, dtype):
                                  "itg_upconv3x3_chw_dw_tc": 0, "itg_upconv3x3_chw_dw": 0,
                                  "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0,
                                  "itg_stem_dw_tc": 0, "itg_stem_dw": 0,
+                                 "itg_stem_dx_tc": 0, "itg_stem_dx": 0,
                                  "itg_conv1x1_chw_tc": 0, "itg_conv1x1_chw": 0,
                                  "itg_conv1x1_chw_dw_tc": 0, "itg_conv1x1_chw_dw": 0}
     assert (tk.LAUNCHES["conv3x3_chw_dx"], tk.LAUNCHES["upconv3x3_chw_dx"]) == (1, 1)
@@ -622,6 +625,7 @@ def test_dw_routes_by_dtype(cuda, dtype):
                                  "itg_upconv3x3_chw_dw_tc": 0, "itg_upconv3x3_chw_dw": 0,
                                  "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0,
                                  "itg_stem_dw_tc": 0, "itg_stem_dw": 0,
+                                 "itg_stem_dx_tc": 0, "itg_stem_dx": 0,
                                  "itg_conv1x1_chw_tc": 0, "itg_conv1x1_chw": 0,
                                  "itg_conv1x1_chw_dw_tc": 0, "itg_conv1x1_chw_dw": 0}
     assert tk.LAUNCHES["conv3x3_chw_dw"] == 1
@@ -849,6 +853,164 @@ def test_stem_dw_tc_refuses_wider(cuda):
     assert tk.ROUTE_LAUNCHES["itg_stem_dw"] == 0
 
 
+# K13 dx, n, c, h2, w2, co (g's NHWC shape; dx is (n, c, 2 h2, 2 w2)): the
+# Experiment-1 and SSM steps' stems (N = 8, 192^2 and 96^2 x 64), then
+# --D_ch 8, 128, 100 and 12 (no multiple of 8: g staged element by element),
+# h2 no multiple of the 8-row tile and w2 odd (W no multiple of 8: dx stored
+# element by element), C 1 and 4, the widest Co
+STEMDX_SHAPES = [(8, 3, 192, 192, 64), (8, 3, 96, 96, 64), (2, 3, 11, 15, 8),
+                 (1, 3, 19, 35, 128), (2, 3, 9, 13, 100), (1, 1, 8, 24, 16), (3, 4, 5, 17, 24),
+                 (2, 3, 11, 35, 12), (1, 3, 8, 20, 512)]
+
+
+def _stemdx_case(cuda, shape, seed=61):
+    """bf16 NHWC g (n, h2, w2, co) and float32 weights (co, c, 4, 4) at
+    ``shape``."""
+    n, c, h2, w2, co = shape
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.randn(n, h2, w2, co, generator=gen).to(cuda, torch.bfloat16)
+    wt = (torch.randn(co, c, 4, 4, generator=gen) * co ** -0.5).to(cuda)
+    return g, wt
+
+
+@pytest.mark.parametrize("shape", STEMDX_SHAPES)
+def test_stem_dx_tc_matches_plain(cuda, shape):
+    """bf16 K13 dx runs the tensor-core kernel, held to the plain version
+    with w rounded to bf16 (a dx one bf16 ulp apart either way), for any
+    --D_ch up to the forward's limit; two calls give the same bits."""
+    g, wt = _stemdx_case(cuda, shape)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    dx = tk.stem_dx(g, wt)
+    again = tk.stem_dx(g, wt)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_stem_dx_tc"], tk.ROUTE_LAUNCHES["itg_stem_dx"]) == (2, 0)
+    n, c, h2, w2, _ = shape
+    assert dx.shape == (n, c, 2 * h2, 2 * w2)
+    _assert_fwd_close(dx, tk.stem_dx_tc_plain(g, wt))
+    assert torch.equal(dx, again)
+
+
+@pytest.mark.parametrize("case", [1, 3])
+def test_stem_dx_tc_on_offset_view(cuda, case):
+    """g one element into its storage (not 16-byte aligned): the kernel
+    stages it element by element and gives the aligned copy's bits."""
+    g, wt = _stemdx_case(cuda, STEMDX_SHAPES[case])
+    flat = torch.empty(g.numel() + 1, dtype=g.dtype, device=cuda)
+    view = flat[1:].view(g.shape)
+    view.copy_(g)
+    assert view.data_ptr() % 16
+    assert torch.equal(tk.stem_dx(view, wt), tk.stem_dx(g, wt))
+
+
+@pytest.mark.parametrize("case", [1, 2])
+def test_stem_dx_tc_check_catches_planted_faults(cuda, case):
+    """The check above fails on a K13 dx that is slightly wrong: ky and kx
+    swapped, one k16 step (16 output channels) skipped, or g's zero border
+    read as the edge pixel."""
+    g, wt = _stemdx_case(cuda, STEMDX_SHAPES[case])
+    ref = tk.stem_dx_tc_plain(g, wt)
+    _assert_fwd_close(tk.stem_dx(g, wt), ref)
+    skip = wt.clone()
+    skip[: min(16, wt.shape[0] - 1)] = 0
+    g_edge = torch.nn.functional.pad(g.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate")
+    edge = tk.stem_dx(g_edge.permute(0, 2, 3, 1).contiguous(), wt)[:, :, 2:-2, 2:-2]
+    for bad in (tk.stem_dx(g, wt.transpose(2, 3).contiguous()), tk.stem_dx(g, skip), edge):
+        with pytest.raises(AssertionError):
+            _assert_fwd_close(bad, ref)
+
+
+@pytest.mark.parametrize("c,co", [(3, 64), (1, 12), (4, 100)])
+def test_stem_dx_tc_packs_weights_as_plain(cuda, c, co):
+    """The entry point's pack launch writes pack_stem_dx_weights' B operands
+    bit for bit (bf16 rounding, zero taps, Co padding)."""
+    g, wt = _stemdx_case(cuda, (1, c, 4, 16, co))
+    chunks = tk.stem_dx_tc_plan(c, co)
+    wp = torch.full((12, 8, tk.STEM_DX_TC_CO_CHUNK * chunks), float("nan"),
+                    dtype=torch.bfloat16, device=cuda)
+    dx = torch.empty((1, c, 8, 32), dtype=torch.bfloat16, device=cuda)
+    rc = tk._lib().itg_stem_dx_tc(g.data_ptr(), wt.data_ptr(), wp.data_ptr(), dx.data_ptr(), 1,
+                                  c, 8, 32, co, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(wp.cpu(), tk.pack_stem_dx_weights(wt.cpu()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_dx_routes_by_dtype(cuda, dtype):
+    """bf16 calls of K13 dx launch the tensor-core entry point, f32 calls
+    the CUDA-core one; each counts one launch per call."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    tk.reset_launches()
+    g, wt = _stemdx_case(cuda, STEMDX_SHAPES[2])
+    tk.stem_dx(g.to(dtype), wt)
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert tk.ROUTE_LAUNCHES == {**dict.fromkeys(tk.ROUTE_LAUNCHES, 0),
+                                 "itg_stem_dx_tc": int(tc), "itg_stem_dx": int(not tc)}
+    assert tk.LAUNCHES["stem_dx"] == 1
+
+
+def test_stem_dx_tc_refuses_wider(cuda):
+    """A bf16 stem dx wider than the route's limit raises, naming it;
+    nothing falls back to the CUDA-core kernel."""
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    g, wt = _stemdx_case(cuda, (1, 3, 4, 8, tk.STEM_TC_MAX_CO + 1))
+    with pytest.raises(ValueError, match="tensor-core stem dx"):
+        tk.stem_dx(g, wt)
+    assert tk.ROUTE_LAUNCHES["itg_stem_dx"] == 0
+
+
+# --- K8 (bn_corr): 16-byte vectors, bit-equal to the plain version ----------
+# n, c, h, w: the Experiment-1 step's stats producers (26 channels at 192^2,
+# 13 at 384^2), then an odd HW (every other plane starts mid-vector: the
+# scalar head and tail) and a plane shorter than one vector
+BN_CORR_SHAPES = [(8, 26, 192, 192), (8, 13, 384, 384), (2, 5, 7, 9), (3, 2, 1, 3)]
+
+
+def _bn_corr_case(cuda, dtype, shape, seed=71):
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.randn(*shape, generator=gen).to(cuda, dtype)
+    y = torch.randn(*shape, generator=gen).to(cuda, dtype)
+    # a correction of a tenth of g's scale, so that it moves every bf16 output
+    alpha = (0.1 * torch.randn(shape[1], generator=gen)).to(cuda)
+    beta2 = (0.1 * torch.randn(shape[1], generator=gen)).to(cuda)
+    return g, y, alpha, beta2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_CORR_SHAPES)
+def test_bn_corr_bit_equal(cuda, dtype, shape):
+    """K8 repeats the plain version's float32 operations and its one
+    rounding: bit-equal, one launch a call."""
+    args = _bn_corr_case(cuda, dtype, shape)
+    tk.reset_launches()
+    assert torch.equal(tk.bn_corr(*args), tk.bn_corr_plain(*args))
+    assert tk.LAUNCHES["bn_corr"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", [0, 1])
+def test_bn_corr_bit_equal_on_offset_view(cuda, dtype, which):
+    """g (or y) one element into its storage: the planes' vectors start at
+    other offsets than out's, and the kernel still gives the plain version's
+    bits."""
+    args = list(_bn_corr_case(cuda, dtype, BN_CORR_SHAPES[0]))
+    flat = torch.empty(args[which].numel() + 1, dtype=dtype, device=cuda)
+    view = flat[1:].view(args[which].shape)
+    view.copy_(args[which])
+    assert view.data_ptr() % 16
+    args[which] = view
+    assert torch.equal(tk.bn_corr(*args), tk.bn_corr_plain(*args))
+
+
+def test_bn_corr_check_catches_planted_fault(cuda):
+    """The bit-equal check fails on a K8 whose channel index is off by one
+    (alpha and beta2 of the neighbouring channel)."""
+    g, y, alpha, beta2 = _bn_corr_case(cuda, torch.bfloat16, BN_CORR_SHAPES[2])
+    bad = tk.bn_corr(g, y, alpha.roll(1), beta2.roll(1))
+    assert not torch.equal(bad, tk.bn_corr_plain(g, y, alpha, beta2))
+
+
 # --- K1 / K2 (/ K5) on the tensor cores, bf16 -------------------------------
 # n, c, co, h, w: every main-path shape (flagship eval at N = 1: blocks 4-6
 # and the final conv; the SSM eval's final conv; the Experiment-1 and SSM
@@ -1024,6 +1186,7 @@ def test_fwd_routes_by_dtype(cuda, dtype):
                                  "itg_upconv3x3_chw_dw_tc": 0, "itg_upconv3x3_chw_dw": 0,
                                  "itg_stem_fwd_tc": 0, "itg_stem_fwd": 0,
                                  "itg_stem_dw_tc": 0, "itg_stem_dw": 0,
+                                 "itg_stem_dx_tc": 0, "itg_stem_dx": 0,
                                  "itg_conv1x1_chw_tc": 0, "itg_conv1x1_chw": 0,
                                  "itg_conv1x1_chw_dw_tc": 0, "itg_conv1x1_chw_dw": 0}
     assert (tk.LAUNCHES["conv3x3_chw"], tk.LAUNCHES["chw_halo_step"]) == (1, 1)

@@ -66,7 +66,7 @@ def test_cuda_sources_target_sm90a():
     assert names == {"conv3x3_chw", "conv3x3_chw_bwd", "conv1x1_chw", "upsample2_chw", "stem4x4s2",
                      "upconv3x3_chw", "ssm_embed_chw", "ssm_embed_tc", "chw_dx_tc", "chw_dw_tc",
                      "chw_fwd_tc", "stem_fwd_tc", "upconv_fwd_tc", "conv1x1_tc", "upconv_dw_tc",
-                     "stem_dw_tc"}
+                     "stem_dw_tc", "stem_dx_tc"}
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
         site = "pallas_ssm.py" if src.stem.startswith("ssm_embed") else "pallas_conv.py"

@@ -19,6 +19,19 @@ grid (x and g small integers times 2^-4, so every product is exact in
 float32): 1e-4 of the largest reference entry (SUM_TOL), at Co 64 and at a
 Co that is no multiple of 8.
 
+The input gradient (``stem_dx`` on ``itg_stem_dx_tc``): the route's plan
+and its refusal outside its limits, the B operands its pack launch writes
+(``pack_stem_dx_weights``) summed over the 9 shifts of g into the four
+sub-pixel phases, the plain version with the route's rounding
+(``stem_dx_tc_plain``) against the reference's VJP of
+``conv4x4s2_stem_chw`` in bfloat16, and ``stem_dx_plain`` in bf16 on a grid
+where every product and sum is exact. Tolerance against JAX: the reference
+rounds each tap's sum over Co to bf16 before it adds the (at most 2 x 2)
+taps of a pixel (pallas_conv.py:2905), the port rounds dx once; each
+rounding is at most half a bf16 ulp (2^-8 of the value), so the two sit
+a few such steps apart: 2^-7 of max|ref| (BF16_TOL), read at 4.7e-3 and
+4.8e-3 at these shapes.
+
 Inputs are numpy arrays drawn from a seed."""
 
 import re
@@ -222,3 +235,120 @@ def test_stem_dw_on_cpu_takes_plain_version():
         assert all(torch.equal(a, b_) for a, b_ in zip(got, ref))
     assert tk.LAUNCHES["stem_dw"] == 0
     assert tk.ROUTE_LAUNCHES["itg_stem_dw_tc"] == tk.ROUTE_LAUNCHES["itg_stem_dw"] == 0
+
+
+def _dx_case(seed, n, c, h2, w2, co):
+    """NHWC g (n, h2, w2, co) and HWIO weights (unit-variance taps), float32
+    numpy."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((n, h2, w2, co)).astype(np.float32)
+    k = (rng.standard_normal((4, 4, c, co)) * co ** -0.5).astype(np.float32)
+    return g, k
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 8, 8, 8), (1, 3, 6, 10, 12)])
+def test_stem_dx_tc_plain_matches_jax_bf16(shape):
+    """K13 dx: ``stem_dx_tc_plain`` against the reference's VJP of
+    conv4x4s2_stem_chw in bf16 (its Pallas kernels in interpret mode), given
+    the same bf16 cotangent and the unrounded float32 weights (each side
+    rounds them to bf16 itself); Co 8 and a Co that is no multiple of 8."""
+    n, c, h2, w2, co = shape
+    ga, ka = _dx_case(12, n, c, h2, w2, co)
+    x = jnp.zeros((n, c, 2 * h2, 2 * w2), jnp.bfloat16)
+    _, vjp = jax.vjp(lambda x_: pc.conv4x4s2_stem_chw(x_, jnp.asarray(ka), jnp.zeros(co)), x)
+    (jdx,) = vjp(jnp.asarray(ga).astype(jnp.bfloat16))
+    ref = np.asarray(jdx.astype(jnp.float32))
+    got = tk.stem_dx_tc_plain(torch.from_numpy(ga).to(torch.bfloat16), _oihw(ka))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape
+    err = float(np.abs(got.float().numpy() - ref).max())
+    assert err <= BF16_TOL * float(np.abs(ref).max()), err
+
+
+@pytest.mark.parametrize("c,co", [(3, 8), (1, 12), (4, 24)])
+def test_stem_dx_plain_bf16_is_exact(c, co):
+    """``stem_dx_plain`` in bf16 on a grid where every product and sum is
+    exact in float32 and every dx value in bf16 (g in {-2..2}/4, w in
+    {-2..2}/8): equal to a float64 F.conv_transpose2d."""
+    rng = np.random.default_rng(c * co)
+    g = torch.from_numpy(rng.integers(-2, 3, (2, 5, 7, co)) / 4.0)
+    w = torch.from_numpy(rng.integers(-2, 3, (co, c, 4, 4)) / 8.0)
+    got = tk.stem_dx_plain(g.to(torch.bfloat16), w.float())
+    ref = F.conv_transpose2d(g.permute(0, 3, 1, 2), w, stride=2, padding=1)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (2, c, 10, 14)
+    assert torch.equal(got.double(), ref)
+
+
+def test_stem_dx_tc_plain_rounds_weights():
+    """The route's plain version differs from the plain version exactly by
+    rounding w to bf16."""
+    ga, ka = _dx_case(13, 2, 3, 4, 6, 16)
+    g, w = torch.from_numpy(ga), _oihw(ka)
+    wr = w.to(torch.bfloat16).float()
+    assert torch.equal(tk.stem_dx_tc_plain(g.bfloat16(), w), tk.stem_dx_plain(g.bfloat16(), wr))
+    assert torch.allclose(tk.stem_dx_tc_plain(g, w), tk.stem_dx_plain(g, wr), rtol=0, atol=1e-5)
+    assert not torch.allclose(tk.stem_dx_tc_plain(g, w), tk.stem_dx_plain(g, w), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("c,co,chunks", [(3, 64, 2), (1, 8, 1), (4, 128, 4), (3, 12, 1),
+                                         (3, 100, 4), (4, 512, 16), (3, 33, 2), (3, 1, 1)])
+def test_stem_dx_tc_plan(c, co, chunks):
+    """Any Co up to the forward's limit plans: 32-channel chunks of g, the
+    last one zero-padded."""
+    assert tk.stem_dx_tc_plan(c, co) == chunks
+
+
+@pytest.mark.parametrize("c,co", [(3, 0), (5, 64), (0, 64), (3, 513)])
+def test_stem_dx_tc_plan_raises_outside_range(c, co):
+    with pytest.raises(ValueError, match="tensor-core stem dx takes 1 <= C <= 4 and 1 <= Co <= 512"):
+        tk.stem_dx_tc_plan(c, co)
+
+
+def test_stem_dx_tc_limits_match_kernel():
+    """The plan's limit and chunk are the C file's kMaxCo and kKC."""
+    src = (Path(tk.__file__).parents[1] / "csrc" / "stem_dx_tc.cu").read_text()
+    max_co = re.search(r"constexpr int kMaxCo = (\d+);", src)
+    chunk = re.search(r"constexpr int kKC = (\d+);", src)
+    assert max_co and int(max_co.group(1)) == tk.STEM_TC_MAX_CO
+    assert chunk and int(chunk.group(1)) == tk.STEM_DX_TC_CO_CHUNK
+
+
+@pytest.mark.parametrize("c,co", [(3, 64), (1, 8), (4, 12), (3, 100)])
+def test_pack_stem_dx_weights_reproduces_conv_transpose(c, co):
+    """The 12 B operands in the kernel's order (u = 6 py + 3 a + dj + 1, row
+    4 px + c, bf16, Co padded to 32 with zeros), each times g shifted by (di
+    = py - 1 + a, dj) on the zero-bordered grid and added into the phase (py,
+    px) of dx, are F.conv_transpose2d with the bf16-rounded weights."""
+    ga, ka = _dx_case(14, 2, c, 5, 7, co)
+    g, w = torch.from_numpy(ga), _oihw(ka)
+    wp = tk.pack_stem_dx_weights(w)
+    cop = tk.STEM_DX_TC_CO_CHUNK * tk.stem_dx_tc_plan(c, co)
+    assert wp.dtype == torch.bfloat16 and tuple(wp.shape) == (12, 8, cop)
+    assert not wp[:, :, co:].any() and not wp[:, 4 * np.arange(2)[:, None] + np.arange(c, 4)].any()
+    gz = F.pad(g, (0, 0, 1, 1, 1, 1))
+    dx = torch.zeros(2, c, 10, 14)
+    for py in range(2):
+        for a in range(2):
+            di = py - 1 + a
+            for dj in (-1, 0, 1):
+                part = torch.einsum("nhwo,ko->nkhw", gz[:, 1 + di : 6 + di, 1 + dj : 8 + dj],
+                                    wp[6 * py + 3 * a + dj + 1, :, :co].float())
+                for px in range(2):
+                    dx[:, :, py::2, px::2] += part[:, 4 * px : 4 * px + c]
+    ref = F.conv_transpose2d(g.permute(0, 3, 1, 2), w.to(torch.bfloat16).float(), stride=2,
+                             padding=1)
+    assert torch.allclose(dx, ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(wp[7, 4 + c - 1, :co], w[:, c - 1, 2, 2].to(torch.bfloat16))
+
+
+def test_stem_dx_on_cpu_takes_plain_version():
+    """A CPU tensor runs the plain version, in either dtype, and counts no
+    launch on either route."""
+    ga, ka = _dx_case(15, 1, 3, 4, 6, 12)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    tk.reset_launches()
+    w = _oihw(ka)
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.from_numpy(ga).to(dtype)
+        assert torch.equal(tk.stem_dx(g, w), tk.stem_dx_plain(g, w))
+    assert tk.LAUNCHES["stem_dx"] == 0
+    assert tk.ROUTE_LAUNCHES["itg_stem_dx_tc"] == tk.ROUTE_LAUNCHES["itg_stem_dx"] == 0

@@ -134,6 +134,25 @@ def test_bn_corr_matches_jax(n_cols):
     _close(tk.bn_corr(_t(g), _t(y), _t(alpha), _t(beta2)), ref, OUT_TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(8, 12), (7, 9)])
+def test_bn_corr_plain_rounds_once(dtype, hw):
+    """K8's arithmetic, which its kernel repeats bit for bit: beta2[c]·y,
+    then + alpha[c], then g + that, each a float32 operation rounded to
+    nearest, and one rounding to the activation type at the store; at an
+    even and an odd HW (the kernel's scalar head and tail)."""
+    rng = np.random.default_rng(sum(hw))
+    g, y = (torch.from_numpy(rng.standard_normal((2, 3, *hw)).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    alpha, beta2 = (rng.standard_normal(3).astype(np.float32) for _ in range(2))
+    gf, yf = g.float().numpy(), y.float().numpy()
+    a4, b4 = alpha.reshape(1, 3, 1, 1), beta2.reshape(1, 3, 1, 1)
+    want = gf + (a4 + b4 * yf)  # float32 numpy, rounded per operation
+    got = tk.bn_corr(g, y, torch.from_numpy(alpha), torch.from_numpy(beta2))
+    assert got.dtype == dtype
+    assert torch.equal(got, torch.from_numpy(want).to(dtype))
+
+
 @pytest.mark.parametrize("shape", [(2, 3, 16, 16), (1, 3, 12, 20)])
 def test_stem_chw_fwd_and_vjp_match_jax(shape):
     """K13: forward, dW/db and dx of conv4x4s2_stem_chw."""
