@@ -88,7 +88,13 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    plain version at every path's shapes, at an odd HW and on a g one element
    into its storage, and a planted fault must break the equality
    (``check_bn_corr_edges``). K4 (one 16-byte vector body for both dtypes) is
-   held bit-equal at every path's shapes. The f32 routes (K1, K6, K7,
+   held bit-equal at every path's shapes. K10 (16-byte vectors, its sums as
+   fixed-order partials) is held bit-equal at every path's shapes, its sums
+   to float32 sums of its stored y there and to float64 ones (UP2ADD_SUM_TOL)
+   at the Exp-1 shapes, an odd W, a W of 1 and on an x or res one element
+   into its storage; two calls with stats give the same bits, and planted
+   faults (one y element one step off, one block's partial lost) must fail
+   those checks (``check_up2add_edges``). The f32 routes (K1, K6, K7,
    K9 dx, K9 dW, K13's forward, dW and dx, K3, K3-dW) run on the CUDA-core kernels, timed into
    rows of their own (``:f32_<path>``), and each CUDA-core kernel is timed in
    bf16 beside the tensor-core one. Times
@@ -441,6 +447,24 @@ NOISE_SHARE = 1e-6
 # holds it
 FUSE_FLOOR = 2e-3
 FUSE_FLOOR_SCALE = 1.5
+# K10's Σy and Σy² against float64 sums of the stored y: float32 adds in one
+# fixed order, at most ~90 deep (64 values a thread at the widest plan, a
+# tree over the block's threads, then the N x chunks partials), so each
+# sits within 90 x 2^-24 ~ 5.4e-6 of Σ|y| (Σy² for the squares) of the
+# exact sum; 1e-5 leaves a factor of two. A planted lost partial must read this many times
+# that limit.
+UP2ADD_SUM_TOL = 1e-5
+UP2ADD_PLANT = 10.0
+# K10's design before its redesign (one thread per half-res pixel, 2-byte
+# accesses, atomic sums), bf16, CUDA-graph replay, per call at each timed
+# shape: the mean of two runs of that tree's own chip_smoke.py on one
+# NVIDIA H100 80GB HBM3 at 700 W, in the call that timed this design
+# beside it (PERF.md section 6)
+K10_PARENT_MS = {"(1, 52, 48x48) + (1, 52, 96x96)": 0.00285,
+                 "(1, 26, 96x96) + (1, 26, 192x192)": 0.00355,
+                 "(1, 13, 192x192) + (1, 13, 384x384)": 0.0048,
+                 "(8, 26, 96x96) + (8, 26, 192x192) +stats": 0.0220,
+                 "(8, 13, 192x192) + (8, 13, 384x384) +stats": 0.04255}
 # K13's bf16 forward and dx: each planted fault must read at least this many times
 # the check's limit (BF16_TOL of max|ref|)
 STEM_PLANT = 10.0
@@ -1259,7 +1283,8 @@ def main() -> int:
         return x, wt, b, sc, sh, top, left
 
     def account(name, shape_s, kernel_fn, plain_fn, lib_fn, nbytes, flops, tails=(), count=1,
-                into=None, also=None, peak=PEAK_BF16_FLOP_PER_S, old_fn=None, f32_route=False):
+                into=None, also=None, peak=PEAK_BF16_FLOP_PER_S, old_fn=None, f32_route=False,
+                parent_ms=None):
         """Time the kernel, its plain version and the library call (bf16,
         device time from CUDA-graph replay, per call) and add ``count`` calls
         to the kernel's sums: per sub-image without ``tails`` (in ``into``,
@@ -1268,7 +1293,9 @@ def main() -> int:
         shape both tails run goes into both; with ``f32_route``, into the
         f32 routes' tables of the ROUTED kernels).
         ``old_fn``: the same function on the CUDA-core kernel that the
-        tensor-core one replaced, timed beside it."""
+        tensor-core one replaced, timed beside it. ``parent_ms``: the time
+        the design this one replaced took at the same shape (recorded, not
+        timed here), printed beside it."""
         ms, plain, lib = device_ms(kernel_fn), device_ms(plain_fn), device_ms(lib_fn)
         old = device_ms(old_fn) if old_fn is not None else 0.0
         eager = eager_ms(kernel_fn)
@@ -1287,6 +1314,8 @@ def main() -> int:
         by = "bytes" if nbytes / PEAK_BYTES_PER_S >= flops / peak else "operations"
         per = f", x{count} per step of {' and '.join(TRAIN_PATHS[t][0] for t in tails)}" if tails else ""
         was = f", the CUDA-core kernel {old:.4f} ms" if old_fn is not None else ""
+        if parent_ms is not None:
+            was += f", the design it replaced {parent_ms:.4f} ms (recorded: {ms / parent_ms:.2f}x)"
         print(f"[time] {name} {shape_s}: kernel {ms:.4f} ms (eager call {eager:.4f} ms), "
               f"bound {b:.4f} ms ({by}), plain {plain:.4f} ms, library {lib:.4f} ms{was}{per}  "
               f"[{card}]")
@@ -1786,6 +1815,72 @@ def main() -> int:
             fail("bn_corr: a planted fault (the neighbouring channel's alpha and beta2) passes "
                  "the bit-equal check")
 
+    def up2add_sums_ratio(y, s1, s2):
+        """K10's Σy and Σy² against float64 sums of the stored y: the worse
+        of the two errors over its limit (UP2ADD_SUM_TOL of Σ|y| or Σy²)."""
+        yd = y.double()
+        return max(float(((got.double() - v.sum(dim=(0, 2, 3))).abs()
+                          / (UP2ADD_SUM_TOL * v.abs().sum(dim=(0, 2, 3)))).max())
+                   for got, v in ((s1, yd), (s2, yd * yd)))
+
+    def check_up2add_edges(dtype):
+        """K10 where its 16-byte vectors do not tile a row: an odd W (rows at
+        every offset within 16 bytes), a W of 1, x and res one element into
+        their storage; y bit-equal to the plain version and the sums within
+        UP2ADD_SUM_TOL of float64 sums of the stored y, there and at the
+        Experiment-1 shapes; two calls with stats bit-equal; and planted
+        faults (one y element one step of its type off, one (image, row
+        chunk) partial of one channel lost) must fail those checks, the
+        second at UP2ADD_PLANT times its limit or more."""
+        name = "upsample2_chw_add"
+        dt = str(dtype).replace("torch.", "")
+        g_ = torch.Generator(device=dev).manual_seed(360)
+        # the residual shifted by one: a chunk's sum sits far from zero, as an
+        # activation's mean does
+        cases = [(f"{what} {shape}", randn(g_, *shape).to(dtype),
+                  (1 + randn(g_, *shape[:2], 2 * shape[2], 2 * shape[3])).to(dtype))
+                 for what, shape in (("odd W", (2, 5, 7, 47)), ("W of 1", (2, 3, 5, 1)),
+                                     ("Exp-1 block 5", (EXP1_N, 26, 96, 96)),
+                                     ("Exp-1 block 6", (EXP1_N, 13, 192, 192)))]
+        x, res = cases[0][1:]
+        for which in (0, 1):
+            src = (x, res)[which]
+            view = torch.empty(src.numel() + 1, dtype=dtype, device=dev)[1:].view(src.shape)
+            view.copy_(src)
+            args = (view, res) if which == 0 else (x, view)
+            cases.append((f"{('x', 'res')[which]} one element into its storage", *args))
+        for what, x, res in cases:
+            y, s1, s2 = kernels.upsample2_chw_add(x, res, want_stats=True)
+            compare(name, what, y, kernels.upsample2_chw_add_plain(x, res), exact=True)
+            r = up2add_sums_ratio(y, s1, s2)
+            print(f"[check] {name} {dt} sums {what}: {r:.3f}x the float64 limit")
+            if not r <= 1.0:
+                fail(f"{name} {what} {dt}: sums {r:.3f}x the float64 limit")
+        what, x, res = cases[3]
+        first = kernels.upsample2_chw_add(x, res, want_stats=True)
+        again = kernels.upsample2_chw_add(x, res, want_stats=True)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail(f"{name} {what} {dt}: two calls with stats differ")
+        print(f"[check] {name} {dt} {what}: two calls with stats bit-equal")
+        y, s1, s2 = first
+        ref = kernels.upsample2_chw_add_plain(x, res)
+        bad = y.clone()
+        bits = bad.view(torch.int16 if dtype == torch.bfloat16 else torch.int32).view(-1)
+        bits[12345] += 1  # the next value of the type
+        err = float((bad.float() - ref.float()).abs().max())
+        plan = kernels.upsample2_add_plan(*x.shape, x.element_size(),
+                                           kernels._sm_count(x.device.index))
+        rows = y[-1, 5, 2 * plan.chunk : 4 * plan.chunk].double()  # last image, chunk 1, channel 5
+        lost1, lost2 = s1.clone(), s2.clone()
+        lost1[5] -= float(rows.sum())
+        lost2[5] -= float((rows * rows).sum())
+        r1, r2 = up2add_sums_ratio(y, lost1, s2), up2add_sums_ratio(y, s1, lost2)
+        print(f"[check] {name} {dt} {what}: planted faults: one y element one step off "
+              f"max abs err {err:.3e} (limit 0); one partial lost: Σy {r1:.1f}x, Σy² {r2:.1f}x "
+              f"the limit")
+        if not (err > 0 and min(r1, r2) >= UP2ADD_PLANT):
+            fail(f"{name} {dt}: a planted fault passes (y err {err}, sums {r1:.2f}x, {r2:.2f}x)")
+
     def time_stem(shape_s, x, wt, b, nbytes, flops, tails):
         """K13's forward, twice per step of each tail in ``tails``: bf16 on
         the tensor cores (its CUDA-core kernel in bf16 timed beside it),
@@ -2004,7 +2099,8 @@ def main() -> int:
                 account("upsample2_chw_add", k10_s, lambda: kernels.upsample2_chw_add(s_half, res),
                         lambda: kernels.upsample2_chw_add_plain(s_half, res),
                         lambda: torch.add(F.interpolate(s_half, scale_factor=2, mode="nearest"), res),
-                        9 * co * h * w * es, 4.0 * co * h * w, into=astats)
+                        9 * co * h * w * es, 4.0 * co * h * w, into=astats,
+                        parent_ms=K10_PARENT_MS.get(k10_s))
     print("[library] K14: F.interpolate of the bordered post-norm half-res slab, one full-res ring "
           "cropped, then F.conv2d (two calls); K9 (eval): F.interpolate then F.conv2d, zero "
           "padding; K10 (eval): F.interpolate then add")
@@ -2044,6 +2140,7 @@ def main() -> int:
         timed = dtype == torch.bfloat16
         es = 2 if timed else 4
         check_bn_corr_edges(dtype)
+        check_up2add_edges(dtype)
         for i, (c, co, h, w, with_stats) in enumerate(conv3_t):
             g_ = torch.Generator(device=dev).manual_seed(300 + i)
             x = randn(g_, n, c, h, w).to(dtype)
@@ -2356,7 +2453,8 @@ def main() -> int:
                     lambda: kernels.upsample2_chw_add(s_half, res, want_stats=True),
                     lambda: kernels.upsample2_chw_add_plain(s_half, res, want_stats=True),
                     lambda: torch.add(F.interpolate(s_half, scale_factor=2, mode="nearest"), res),
-                    9 * act * co * es + 2 * co * 4, 3.0 * 4 * act * co, tails=("auto",))
+                    9 * act * co * es + 2 * co * 4, 3.0 * 4 * act * co, tails=("auto",),
+                    parent_ms=K10_PARENT_MS.get(f"{k10_s} +stats"))
             account("conv1x1_chw", f"shortcut {half_s} [tensor cores]",
                     lambda: kernels.conv1x1_chw(x, w3, b3),
                     lambda: kernels.conv1x1_chw_tc_plain(x, w3, b3), lambda: F.conv2d(x, w3l, b3l),

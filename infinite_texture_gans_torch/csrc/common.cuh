@@ -43,6 +43,41 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f32<T>(from_f32<T>(v));
 }
 
+// Two float32 values rounded to bf16 and packed, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The values of a 16-byte vector as float32 (8 bf16 or 4 float32), and back
+// (bf16: rounded to nearest even; a bf16 value is the high half of its
+// float32).
+__device__ __forceinline__ void unpack_vec(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void unpack_vec(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+
+__device__ __forceinline__ uint4 pack_vec(const float (&f)[8]) {
+  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]), pack_bf16x2(f[4], f[5]),
+                    pack_bf16x2(f[6], f[7]));
+}
+
+__device__ __forceinline__ uint4 pack_vec(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+
 inline int last_error() { return static_cast<int>(cudaGetLastError()); }
 
 // The current device's SM count (read per call: the caller may switch cards).

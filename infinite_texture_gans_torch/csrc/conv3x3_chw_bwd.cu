@@ -51,7 +51,6 @@
 // The TPU kernels' packed partial-matmul weights, row stacks and lane
 // padding (the masked pad columns) have no counterpart here.
 #include "common.cuh"
-#include "mma.cuh"  // pack_bf16x2
 
 namespace {
 
@@ -357,35 +356,6 @@ __device__ __forceinline__ T corr_one(T g, T y, float a, float b2) {
   return from_f32<T>(corr(to_f32<T>(g), to_f32<T>(y), a, b2));
 }
 
-// The values of a 16-byte vector as float32, and back (bf16: rounded to
-// nearest even; a bf16 value is the high half of its float32).
-__device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
-  f[0] = __uint_as_float(v.x);
-  f[1] = __uint_as_float(v.y);
-  f[2] = __uint_as_float(v.z);
-  f[3] = __uint_as_float(v.w);
-}
-
-__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
-  using itg::pack_bf16x2;
-  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]), pack_bf16x2(f[4], f[5]),
-                    pack_bf16x2(f[6], f[7]));
-}
-
-__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                    __float_as_uint(f[3]));
-}
-
 // Grid (ceil(HW / V / (kThreads kCorrVecs)), planes or fewer): block (bx,
 // by) takes vectors bx kThreads kCorrVecs + u kThreads + threadIdx.x (u <
 // kCorrVecs) of planes by, by + gridDim.y, ...; the blocks with bx = 0 also
@@ -431,11 +401,11 @@ bn_corr_kernel(const T* __restrict__ g, const T* __restrict__ y, const float* __
         const int v = v0 + u * kThreads;
         if (v < nvec) {
           float gf[V], yf[V];
-          unpack(gv[u], gf);
-          unpack(yv[u], yf);
+          itg::unpack_vec(gv[u], gf);
+          itg::unpack_vec(yv[u], yf);
 #pragma unroll
           for (int e = 0; e < V; ++e) gf[e] = corr(gf[e], yf[e], a, b2);
-          o4[v] = pack(gf);
+          o4[v] = itg::pack_vec(gf);
         }
       }
     } else {

@@ -17,6 +17,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "common.cuh"  // pack_bf16x2
+
 namespace itg {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -119,12 +121,6 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap, uint64_
       "%3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
       "l"(tmap), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
       : "memory");
-}
-
-// Two float32 values rounded to bf16 and packed, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ---- warpgroup MMA (wgmma) -------------------------------------------------

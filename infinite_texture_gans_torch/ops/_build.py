@@ -66,8 +66,8 @@ SIGNATURES = {
     "itg_upsample2_chw": [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
     # g, dx, planes, h, w (of dx), bf16, stream
     "itg_upsample2_chw_bwd": [_P, _P] + [_I] * 4 + [_P],
-    # x, res, y, s1, s2, planes, c, h, w (of x), bf16, stream
-    "itg_upsample2_chw_add": [_P] * 5 + [_I] * 5 + [_P],
+    # x, res, y, part, s1, s2, planes, c, h, w (of x), bx, by, rows, chunk, bf16, stream
+    "itg_upsample2_chw_add": [_P] * 6 + [_I] * 9 + [_P],
     # x, wc, b, scale, shift, top, left, y, s1, s2, n, c, h, w (of x), co, relu, zeros, bf16,
     # stream
     "itg_upconv3x3_chw": [_P] * 10 + [_I] * 8 + [_P],

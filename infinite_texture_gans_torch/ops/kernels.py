@@ -120,7 +120,7 @@ calls the backward wrappers, skipping the inputs autograd does not need.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -1616,6 +1616,52 @@ def upconv3x3_chw_dw_plain(x, g, scale, shift, relu: bool, outer_padding: str):
     return conv3x3_chw_dw_plain(upsample2_chw_plain(x), g, scale, shift, relu, outer_padding)
 
 
+# K10's plan (csrc/upsample2_chw.cu): a thread takes one 16-byte vector of
+# an x row (its pair's four output chunks shared with the neighbouring
+# lane, so a row's vectors lie along threadIdx.x, an even count), one x row
+# at a time, or two where whole blocks of two rows a thread still leave
+# UP2ADD_BLOCKS_PER_SM blocks an SM. A block takes a chunk of one plane's
+# rows, at most UP2ADD_THREADS threads (the C file's kAddThreads); chunks
+# are cut as small as that many blocks need (down to one row: blocks of a
+# few threads at N = 1). On an H100 many small blocks moved the bytes
+# faster than fewer large ones (k10_plan_study.py).
+UP2ADD_THREADS = 64
+UP2ADD_BLOCKS_PER_SM = 8
+
+
+class Up2AddPlan(NamedTuple):
+    bx: int  # threads along a row's vectors (even)
+    by: int  # threads along the rows
+    rows: int  # x rows a thread takes at once (1 or 2)
+    chunk: int  # x rows a block takes
+    grid: tuple  # (row chunks, planes or at most 65535: the blocks loop over the rest)
+    part_rows: int  # rows of the (part_rows, 2C) float32 partials with stats: N x row chunks
+
+
+def upsample2_add_plan(n: int, c: int, h: int, w: int, elem_bytes: int = 2, sms: int = 132,
+                       threads: int = UP2ADD_THREADS,
+                       blocks_per_sm: int = UP2ADD_BLOCKS_PER_SM) -> Up2AddPlan:
+    """K10's launch for x (N, C, H, W) of ``elem_bytes``-byte elements on a
+    card of ``sms`` SMs: the block (at most ``threads``), the rows a thread
+    takes at once, the x rows of a block, the grid (at least
+    ``blocks_per_sm`` blocks an SM where the rows allow) and the rows of
+    the stats' partials. Raises for an empty x or H * W >= 2^29 (the
+    kernel's 32-bit plane indices)."""
+    if min(n, c, h, w) < 1 or h * w >= 1 << 29:
+        raise ValueError(f"upsample2_chw_add takes 1 <= N, C, H, W and H * W < 2^29, "
+                         f"got {(n, c, h, w)}")
+    nvec = -(-w // (16 // elem_bytes))
+    bx = min(nvec + nvec % 2, threads)
+    by_max = threads // bx
+    fill = n * c * h // (blocks_per_sm * sms)  # x rows a block may take
+    rows = 2 if fill >= 2 * by_max else 1
+    chunk = min(2 * by_max if rows == 2 else max(1, min(by_max, fill)), h)
+    chunks = -(-h // chunk)
+    chunk = -(-h // chunks)  # the same chunks, balanced
+    return Up2AddPlan(bx, -(-chunk // rows), rows, chunk, (chunks, min(n * c, 65535)),
+                      n * chunks)
+
+
 def _up2add_fwd(x, res, want_stats):
     if x.dim() != 4:
         raise ValueError(f"x: expected (N, C, H, W), got shape {tuple(x.shape)}")
@@ -1626,14 +1672,17 @@ def _up2add_fwd(x, res, want_stats):
     if not _on_cuda(x, res):
         out = upsample2_chw_add_plain(x, res, want_stats)
         return out if want_stats else (out, None, None)
+    plan = upsample2_add_plan(n, c, h, wd, x.element_size(), _sm_count(x.device.index))
     y = torch.empty_like(res)
-    s1 = s2 = None
+    part = s1 = s2 = None
     if want_stats:
-        s1, s2 = _zeros_f32(c, x), _zeros_f32(c, x)
+        part = torch.empty((plan.part_rows, 2 * c), dtype=torch.float32, device=x.device)
+        s1 = torch.empty(c, dtype=torch.float32, device=x.device)
+        s2 = torch.empty_like(s1)
     with torch.cuda.device(x.device):
         rc = _lib().itg_upsample2_chw_add(
-            x.data_ptr(), res.data_ptr(), y.data_ptr(), _ptr(s1), _ptr(s2),
-            n * c, c, h, wd, _bf16(x), _stream(x),
+            x.data_ptr(), res.data_ptr(), y.data_ptr(), _ptr(part), _ptr(s1), _ptr(s2),
+            n * c, c, h, wd, plan.bx, plan.by, plan.rows, plan.chunk, _bf16(x), _stream(x),
         )
     _raise_on(rc, "upsample2_chw_add")
     LAUNCHES["upsample2_chw_add"] += 1
@@ -1669,7 +1718,16 @@ def upsample2_chw_add(x, res, want_stats: bool = False):
     its residual. With ``want_stats`` returns (y, Σy, Σy²) of the stored y.
     The reference's ``upsample2_chw_add_p`` also fills the 128-lane pad
     columns of a padded carry; the port has no padding, so there is no fill.
-    Differentiable in x and res and through the stats."""
+    Differentiable in x and res and through the stats.
+
+    On the card one launch moves 16-byte vectors (x once, res and y in
+    whole 32-byte sectors; element by element where a row is ragged or
+    unaligned) over the grid of :func:`upsample2_add_plan`, adding in
+    float32 with one rounding at the store, so y is bit-equal to
+    :func:`upsample2_chw_add_plain`. With stats each block writes its sums
+    of the stored y and y² (one fixed order) as partials, and a second
+    launch adds them in one fixed order: two calls give the same bits, and
+    no atomics."""
     return _Upsample2ChwAdd.apply(x, res, want_stats)
 
 

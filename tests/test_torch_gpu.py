@@ -1203,14 +1203,45 @@ def test_fwd_tc_refuses_wider(cuda):
     assert tk.ROUTE_LAUNCHES["itg_conv3x3_chw"] == 0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 5, 7, 9), (1, 26, 48, 96), (1, 3, 1, 3)])
-def test_upsample2_add_kernel_matches_plain(cuda, dtype, shape):
-    """K10's y is one rounded float32 add on both sides: bit-equal."""
+# K10's x shapes (N, C, H, W): small ragged ones, the Experiment-1 step's
+# two (N = 8, blocks 5 and 6), the --fuse_up all sub-image's three (N = 1,
+# blocks 4-6: the plan's small blocks), an odd W (rows at every offset
+# within 16 bytes) and a W of 1 (element by element only)
+UP2ADD_SHAPES = [(2, 5, 7, 9), (1, 26, 48, 96), (1, 3, 1, 3), (8, 26, 96, 96), (8, 13, 192, 192),
+                 (1, 52, 48, 48), (1, 26, 96, 96), (1, 13, 192, 192), (2, 5, 7, 47), (2, 3, 5, 1)]
+# Σy and Σy² against float64 sums of the stored y: the kernel sums float32
+# values in one fixed order, at most ~90 deep (64 values a thread at the
+# widest plan, a tree over the block's threads, then over the N x chunks
+# partials), so each sum sits within 90 x 2^-24 ~ 5.4e-6 of Σ|y| (Σy² for
+# the squares) of the exact one: 1e-5 of it leaves a factor of two.
+UP2ADD_SUM_TOL = 1e-5
+
+
+def _up2add_case(cuda, dtype, shape, seed=8):
     n, c, h, w = shape
-    gen = torch.Generator().manual_seed(8)
+    gen = torch.Generator().manual_seed(seed)
     x = torch.randn(n, c, h, w, generator=gen).to(cuda, dtype)
     res = torch.randn(n, c, 2 * h, 2 * w, generator=gen).to(cuda, dtype)
+    return x, res
+
+
+def _up2add_sums_ratio(y, s1, s2):
+    """The larger of Σy's and Σy²'s worst errors against float64 sums of
+    the stored y, each over its limit (UP2ADD_SUM_TOL of Σ|y| or Σy²)."""
+    yd = y.double()
+    ratios = []
+    for got, terms in ((s1, yd), (s2, yd * yd)):
+        err = (got.double() - terms.sum(dim=(0, 2, 3))).abs()
+        ratios.append(float((err / (UP2ADD_SUM_TOL * terms.abs().sum(dim=(0, 2, 3)))).max()))
+    return max(ratios)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", UP2ADD_SHAPES)
+def test_upsample2_add_kernel_matches_plain(cuda, dtype, shape):
+    """K10's y is one rounded float32 add on both sides: bit-equal, with and
+    without stats; one entry-point call (1 and 2 device launches) each."""
+    x, res = _up2add_case(cuda, dtype, shape)
     tk.reset_launches()
     assert torch.equal(tk.upsample2_chw_add(x, res), tk.upsample2_chw_add_plain(x, res))
     y, s1, s2 = tk.upsample2_chw_add(x, res, want_stats=True)
@@ -1218,6 +1249,68 @@ def test_upsample2_add_kernel_matches_plain(cuda, dtype, shape):
     _assert_sum_close(s1, y.float().sum(dim=(0, 2, 3)))
     _assert_sum_close(s2, (y.float() ** 2).sum(dim=(0, 2, 3)))
     assert tk.LAUNCHES["upsample2_chw_add"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", [0, 1])
+def test_upsample2_add_kernel_on_offset_view(cuda, dtype, which):
+    """x (or res) a contiguous view one element into its storage: no x (or
+    res) row is 16-byte aligned, so those rows go element by element; y and
+    the sums still come out as the plain version's."""
+    args = list(_up2add_case(cuda, dtype, (2, 13, 24, 48)))
+    flat = torch.empty(args[which].numel() + 1, dtype=dtype, device=cuda)
+    view = flat[1:].view(args[which].shape)
+    view.copy_(args[which])
+    assert view.is_contiguous() and view.data_ptr() % 16
+    args[which] = view
+    y, s1, s2 = tk.upsample2_chw_add(*args, want_stats=True)
+    assert torch.equal(y, tk.upsample2_chw_add_plain(*args))
+    assert _up2add_sums_ratio(y, s1, s2) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 26, 96, 96), (8, 13, 192, 192), (2, 5, 7, 47)])
+def test_upsample2_add_stats_repeatable(cuda, dtype, shape):
+    """Fixed-order partials and no atomics: two calls give the same bits
+    for y, Σy and Σy²."""
+    x, res = _up2add_case(cuda, dtype, shape)
+    first = tk.upsample2_chw_add(x, res, want_stats=True)
+    second = tk.upsample2_chw_add(x, res, want_stats=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", UP2ADD_SHAPES)
+def test_upsample2_add_stats_match_float64(cuda, dtype, shape):
+    """Σy and Σy² within UP2ADD_SUM_TOL of float64 sums of the stored y."""
+    x, res = _up2add_case(cuda, dtype, shape)
+    y, s1, s2 = tk.upsample2_chw_add(x, res, want_stats=True)
+    assert _up2add_sums_ratio(y, s1, s2) <= 1.0
+
+
+def test_upsample2_add_check_catches_planted_faults(cuda):
+    """The checks above fail on one output element one bf16 step off (the
+    bit-equal check) and on sums that lost one block's partial (the
+    float64 check): the rows of one (image, row chunk) of one channel, as
+    the plan cuts them. The residual is shifted by one, so that a chunk's
+    sum is far from zero, as a real activation's mean is."""
+    shape = (8, 13, 192, 192)
+    x, res = _up2add_case(cuda, torch.bfloat16, shape)
+    res += 1.0
+    y, s1, s2 = tk.upsample2_chw_add(x, res, want_stats=True)
+    assert torch.equal(y, tk.upsample2_chw_add_plain(x, res))
+    assert _up2add_sums_ratio(y, s1, s2) <= 1.0
+    bad = y.clone()
+    bad.view(torch.int16).view(-1)[12345] += 1  # the next bf16 value
+    assert not torch.equal(bad, tk.upsample2_chw_add_plain(x, res))
+    plan = tk.upsample2_add_plan(*shape, 2, tk._sm_count(y.device.index))
+    rows = y[3, 5, 2 * plan.chunk : 4 * plan.chunk].double()  # image 3, chunk 1, channel 5
+    lost1, lost2 = s1.clone(), s2.clone()
+    lost1[5] -= float(rows.sum())
+    lost2[5] -= float((rows * rows).sum())
+    assert _up2add_sums_ratio(y, lost1, s2) > 10.0
+    assert _up2add_sums_ratio(y, s1, lost2) > 10.0
 
 
 # --- K14: K9's forward with the raster engine's cached half-res borders ----

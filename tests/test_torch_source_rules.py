@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "infinite_texture_gans_tpu")
 
 
 def _port_sources():
-    return sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "step_parity_study.py"]
+    return sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "step_parity_study.py",
+                                            ROOT / "k10_plan_study.py"]
 
 
 def _imported_roots(path: Path):
@@ -44,7 +45,7 @@ def test_package_imports_without_cuda_or_jax():
         "import infinite_texture_gans_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, step_parity_study\n"
+        "import chip_smoke, step_parity_study, k10_plan_study\n"
         f"bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "from infinite_texture_gans_torch.ops import _build\n"
@@ -71,3 +72,10 @@ def test_cuda_sources_target_sm90a():
         text = src.read_text()
         site = "pallas_ssm.py" if src.stem.startswith("ssm_embed") else "pallas_conv.py"
         assert site in text and "bound" in text, src.name
+
+
+def test_upsample2_source_has_no_atomics():
+    """K4, K4's adjoint and K10 sum in fixed orders: two calls give the same
+    bits (K10's statistics by per-block partials and a last launch)."""
+    text = (PACKAGE / "csrc" / "upsample2_chw.cu").read_text()
+    assert "atomicAdd" not in text and "block_sum2_atomic" not in text

@@ -131,6 +131,54 @@ def test_upsample2_add_fwd_and_vjp_match_jax(fill, want_stats):
     _close(dres, np.asarray(rdres)[..., :wt], GRAD_TOL, "dres")
 
 
+# K10's x shapes on the main paths: the Experiment-1 step's (N = 8, blocks
+# 5 and 6) and the --fuse_up all sub-image's (N = 1, blocks 4-6)
+UP2ADD_PATH_SHAPES = [(8, 26, 96, 96), (8, 13, 192, 192), (1, 52, 48, 48), (1, 26, 96, 96),
+                      (1, 13, 192, 192)]
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("shape", UP2ADD_PATH_SHAPES + [(2, 5, 7, 47), (2, 3, 5, 1),
+                                                        (1, 70001, 1, 3)])
+def test_upsample2_add_plan(shape, elem_bytes):
+    """K10's plan, walked as csrc/upsample2_chw.cu walks it: every plane,
+    x row and row vector is taken exactly once; the partials are one row
+    per (image, row chunk); on the main paths the launch has at least
+    UP2ADD_BLOCKS_PER_SM (eight) blocks per SM of an H100, and everywhere
+    as many as the rows allow."""
+    n, c, h, w = shape
+    sms = 132
+    plan = tk.upsample2_add_plan(n, c, h, w, elem_bytes, sms)
+    chunks, gy = plan.grid
+    assert plan.bx % 2 == 0 and plan.bx * plan.by <= tk.UP2ADD_THREADS and plan.rows in (1, 2)
+    assert plan.part_rows == n * chunks
+    planes = np.zeros(n * c, int)
+    for py in range(gy):
+        planes[py :: gy] += 1
+    rows = np.zeros(h, int)
+    for cx in range(chunks):
+        r1 = min((cx + 1) * plan.chunk, h)
+        for ty in range(plan.by):
+            for i0 in range(cx * plan.chunk + ty, r1, plan.rows * plan.by):
+                for i in range(i0, min(i0 + plan.rows * plan.by, r1), plan.by):
+                    rows[i] += 1
+    nvec = -(-w // (16 // elem_bytes))
+    vecs = np.zeros(nvec + nvec % 2, int)
+    for tx in range(plan.bx):
+        vecs[tx :: plan.bx] += 1
+    assert (planes == 1).all() and (rows == 1).all() and (vecs == 1).all()
+    blocks = chunks * gy
+    assert blocks >= min(tk.UP2ADD_BLOCKS_PER_SM * sms, n * c * h)
+    if shape in UP2ADD_PATH_SHAPES:
+        assert blocks >= tk.UP2ADD_BLOCKS_PER_SM * sms
+
+
+def test_upsample2_add_plan_refuses_outside_kernel():
+    for shape in ((0, 3, 4, 4), (1, 1, 1 << 15, 1 << 14)):
+        with pytest.raises(ValueError, match="upsample2_chw_add takes"):
+            tk.upsample2_add_plan(*shape)
+
+
 @pytest.mark.parametrize("outer", ["replicate", "constant"])
 @pytest.mark.parametrize("shape", [(2, 5, 4, 5, 7), (1, 3, 2, 1, 3)])  # n, c, co, h, w
 def test_upconv_phase_weights_reproduce_the_pair(outer, shape):
