@@ -132,7 +132,16 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    - ``[route]``: the f32 one pass and canvases launch K1/K2 and K3 on the
      CUDA cores only, every bf16 canvas on the tensor cores only (the
      counted raster exactly its K2 and K3 launches), and no K3-dW, K9 dW
-     or K13 dW.
+     or K13 dW;
+   - the raster runs as it runs for users, a CUDA graph replay per canvas
+     row once its kind has come up (``RasterRow``), and against its eager
+     form (``graphs=False``): the f32 768^2 canvas equal, the bf16 1024^2
+     u8 canvas byte-equal, the same launches per canvas cold (eager warm-up
+     rows, the rest's capture at its second row), second (the first row's
+     capture) and warm (replays only); both forms' cold, second and warm walls and
+     traced busy shares; two planted faults (replays without the row's new latent
+     strip; graphs that do not write the halo cache back) must break the
+     byte equality (flagship only).
 4b. The same generation phase for a freshly loaded flagship with
    ``fuse_up='all'`` (one pass: K9 3, K1 4, K3 3, K10 3; per sub-image K14
    3, K2 4, K3 3, K10 3); its canvases against the unfused engine's on the
@@ -151,12 +160,26 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    dW and dx, K3 and K3-dW on their CUDA-core entry points only
    (``[route]``).
    ``step_parity_study.py`` measures the limits' spread and planted faults.
+   Then the train loop's dispatched step (``StepDispatch``), GRAPH_STEPS
+   steps from one state and one generator state, eagerly and as the train
+   loop runs it (WARMUP_STEPS eager warm-up steps on a side stream, then
+   replays of the captured step), under ``auto``, ``off`` and SSM
+   (``graph_parity``): both runs start the first replayed step from the
+   eager run's state; in f32 that step is held to step parity's gates and
+   the last reported beside a second eager run (the f32 CUDA-core kernels
+   sum with atomics); in bf16 every loss, gradient, parameter and buffer
+   bit-equal; the same launches; under ``auto`` a planted fault (every
+   replay draws the first replay's crops and latents) must break them.
 6. Training runs: 30 bf16 steps each through the train CLI's ``train``:
    the Experiment-1 recipe on ``datasets/241.jpg`` under ``--fuse_up auto``
-   (the default) and ``off``, then the SSM recipe on ``datasets/12.jpg``;
-   exact launch counts per step, warm steps/s, the device's busy share
-   (torch.profiler), then the written ``.ckpt`` reloaded through the
-   sampling loader and rendered to a 384^2 canvas. Each bf16 run launches
+   (the default) and ``off``, then the SSM recipe on ``datasets/12.jpg``,
+   each in both dispatch forms: the CLI default ``--steps_per_dispatch 0``
+   (two eager warm-up steps, then replays of a captured CUDA graph of the
+   step) and ``--steps_per_dispatch 1`` (eager); exact launch counts per
+   step, warm steps/s, the device's busy share over the run's last
+   TRACED_STEPS steps (torch.profiler), the peak device memory, then the
+   written ``.ckpt`` reloaded through the sampling loader and rendered to
+   a 384^2 canvas. Each bf16 run launches
    K1/K2, K6, K7, K9's forward, dx and dW, K13's forward, dW and dx, K3
    and K3-dW on their tensor-core entry points only (``[route]``).
 7. SSM generation from the SSM run's EMA checkpoint through the same
@@ -368,6 +391,7 @@ EXP1_ARGS = ["--data_path", str(ROOT / "datasets" / "241.jpg"), "--random_crop",
 TRAIN_STEPS = 30
 WARM_STEPS = 20  # steps/s is the median over the last WARM_STEPS steps
 TRACED_STEPS = 3
+GRAPH_STEPS = 6  # steps of phase 5's graph parity: the warm-up, then 4 replays
 # The README's SSM recipe (Exp-3 style; benchmarks/trace_step.py's
 # BENCH_RECIPE=ssm): the Experiment-1 flags with --type_norm_G SSM, map_dim
 # 1, n_layers_G 5 (64^2 patches, 192^2 grids), n_layers_D 3, 128^2 crops of
@@ -768,22 +792,186 @@ def fused_vs_unfused(auto, off) -> None:
               f"{FUSE_FLOOR_SCALE:g} x its kernels-vs-plain deviation) = {worst[3]:.3e}")
 
 
-def training_run(dev, argv, steps, want_launches, sync, card, out_dir):
-    """``steps`` steps of the train CLI's loop (one epoch) with the exact
-    kernel launches of every step held to ``want_launches``, finite losses,
-    moved parameters, the warm step time, a traced window's device busy
-    share, and the written checkpoint rendered to a 384^2 canvas. Returns the
-    run's launch counts, its warm step time (s) and its device busy time per
-    traced step (ms, or None where the profiler recorded no device time)
-    and its steps' launches by C entry point (ops/kernels.py:
-    ROUTE_LAUNCHES, read before the canvas, whose K1 / K2 launches are
-    checked on their own)."""
+def train_tensors(st):
+    """Every tensor of a train state that a step reads and writes, by name:
+    both models' parameters and buffers, both Adam states and the EMA."""
+    out = {f"{model}.{k}": v for model, module in (("G", st.G), ("D", st.D))
+           for k, v in module.state_dict().items()}
+    for model, module, opt in (("G", st.G, st.opt_G), ("D", st.D, st.opt_D)):
+        for n, p in module.named_parameters():
+            out.update({f"adam.{model}.{n}.{k}": v for k, v in opt.state[p].items()})
+    out.update({f"ema.{k}": v for k, v in (st.ema or {}).items()})
+    return out
+
+
+def dispatch_run(dev, args, graphed, sync, start=None, plant=False):
+    """GRAPH_STEPS steps of the train loop's ``StepDispatch`` from the fixed
+    state (seed 11) and crop / latent generator (seed 7): eager, or
+    ``graphed`` as the train loop runs it (WARMUP_STEPS eager warm-up
+    steps on a side stream, then the captured step replayed). Before step
+    WARMUP_STEPS + 1 (the first replay) the state and the generator are
+    set to ``start`` (another run's ``start``; the f32 warm-up steps
+    differ from run to run) in place. ``plant``: the generator is set back
+    before every later replay, so all replays draw the first one's crops
+    and latents. Returns {'start': the state and generator state before
+    that step, 'losses': per step, 'grads1' / 'grads': that step's / the
+    last step's gradients by model ({'G': {leaf: grad}, 'D': ...}),
+    'state': parameters and buffers after the run, 'launches': kernel
+    launches, 'routes': the routed kernels' launches by entry point}."""
+    import torch
+
+    from infinite_texture_gans_torch.data.datasets import DeviceCropSampler, SingleImageDataset
+    from infinite_texture_gans_torch.ops import kernels, ssm
+    from infinite_texture_gans_torch.train.train_step import (
+        WARMUP_STEPS,
+        StepDispatch,
+        create_train_state,
+    )
+
+    st = create_train_state(args, GRAPH_STEPS, dev, seed=11)
+    sampler = DeviceCropSampler(SingleImageDataset(args.data_path, args.data_ext, None,
+                                                   args.random_crop, 64), dev)
+    rng = torch.Generator(device=dev).manual_seed(7)
+    dispatch = StepDispatch(st, sampler, rng, args, graphed=graphed)
+    dispatch.set_lr()
+    sync()
+    kernels.reset_launches()
+    for counter in (kernels.ROUTE_LAUNCHES, ssm.ROUTE_LAUNCHES):
+        counter.update(dict.fromkeys(counter, 0))
+
+    def grads():
+        return {model: {f"{model}.{n}": p.grad.detach().float().clone()
+                        for n, p in module.named_parameters()}
+                for model, module in (("G", st.G), ("D", st.D))}
+
+    out = {"losses": []}
+    for i in range(GRAPH_STEPS):
+        if i == WARMUP_STEPS:
+            sync()
+            if start is not None:
+                with torch.no_grad():
+                    for k, v in train_tensors(st).items():
+                        v.copy_(start["tensors"][k])
+                rng.set_state(start["rng"])
+            out["start"] = {"tensors": {k: v.clone() for k, v in train_tensors(st).items()},
+                            "rng": rng.get_state()}
+        elif plant and i > WARMUP_STEPS:
+            rng.set_state(out["start"]["rng"])
+        out["losses"].append({k: float(v) for k, v in dispatch.step().items()})
+        if i == WARMUP_STEPS:
+            out["grads1"] = grads()
+    sync()
+    out["grads"] = grads()
+    out["state"] = {f"{model}.{k}": v.detach().clone()
+                    for model, module in (("G", st.G), ("D", st.D))
+                    for k, v in module.state_dict().items()}
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["routes"] = {**kernels.ROUTE_LAUNCHES, **ssm.ROUTE_LAUNCHES}
+    return out
+
+
+def graph_parity_gap(ref, got, lo, hi, grads):
+    """``got``'s run against ``ref``'s (``dispatch_run``) over steps ``lo``
+    to ``hi`` - 1 (from 0): (largest loss deviation relative to the
+    reference loss, (the largest gradient deviation over its limit under step
+    parity's rule, that deviation, its leaf) for the ``grads`` gradients,
+    the gradient leaves outside their limits, whether every loss, gradient,
+    parameter and buffer is bit-equal)."""
+    import torch
+
+    loss_rel = max(abs(g[k] - e[k]) / max(abs(e[k]), 1e-30)
+                   for e, g in zip(ref["losses"][lo:hi], got["losses"][lo:hi]) for k in e)
+    worst, bad = (0.0, 0.0, ""), []
+    for model in ("G", "D"):
+        for name, (share, _, noise) in leaf_deviations(got[grads][model],
+                                                       ref[grads][model]).items():
+            limit = NOISE_TOL if noise else STEP_GRAD_TOL
+            worst = max(worst, (share / limit, share, name))
+            if not share <= limit:
+                bad.append(name)
+    bits = (ref["losses"] == got["losses"]
+            and all(torch.equal(got["grads"][m][k], v) for m in ref["grads"]
+                    for k, v in ref["grads"][m].items())
+            and all(torch.equal(got["state"][k], v) for k, v in ref["state"].items()))
+    return loss_rel, worst, bad, bits
+
+
+def graph_parity(dev, label, argv, sync, plant: bool) -> None:
+    """The train loop's dispatched step, eagerly and as the train loop runs
+    it (WARMUP_STEPS eager warm-up steps, then CUDA graph replays), from one
+    state and one generator state, GRAPH_STEPS steps each, every run
+    starting the first replayed step from the eager run's state:
+
+    - float32, TF32 off: that step's losses within STEP_LOSS_TOL and its
+      gradients within step parity's limits (STEP_GRAD_TOL of the
+      leaf's largest value; a rounding-noise leaf NOISE_TOL of the model's
+      largest gradient); the later steps are reported beside a second
+      eager run, since the float32 CUDA-core kernels sum with atomics and
+      the training amplifies their order from step to step;
+    - bfloat16 (the recipes' dtype, whose kernels sum in a fixed order):
+      every loss, the last step's gradients and every parameter and buffer
+      bit-equal; with ``plant``, replays that all draw the first replay's
+      crops and latents must break that and fail the gates;
+    - both: the same launches by kernel and by entry point."""
+    from infinite_texture_gans_torch.config import prepare_parser
+    from infinite_texture_gans_torch.train.train_step import WARMUP_STEPS
+
+    first_replay = WARMUP_STEPS + 1
+    for dtype in ("float32", "bfloat16"):
+        args = prepare_parser().parse_args(argv + ["--compute_dtype", dtype, "--device", "cuda"])
+        eager = dispatch_run(dev, args, False, sync)
+        start = eager["start"]
+        runs = {"graphed": dispatch_run(dev, args, True, sync, start)}
+        if dtype == "float32":
+            runs["eager again"] = dispatch_run(dev, args, False, sync, start)
+        elif plant:
+            runs["planted fault (every replay draws the first replay's crops and latents)"] = \
+                dispatch_run(dev, args, True, sync, start, plant=True)
+        for what, run in runs.items():
+            if run["launches"] != eager["launches"] or run["routes"] != eager["routes"]:
+                fail(f"{label} {dtype}: {what} launches {run['launches']} {run['routes']} != "
+                     f"eager {eager['launches']} {eager['routes']}")
+            first = graph_parity_gap(eager, run, WARMUP_STEPS, first_replay, "grads1")
+            last = graph_parity_gap(eager, run, WARMUP_STEPS, GRAPH_STEPS, "grads")
+            print(f"[graph parity] {label}, {dtype}, {what} vs eager: step {first_replay} (the "
+                  f"first replay, from one state) losses max rel {first[0]:.3e} (limit "
+                  f"{STEP_LOSS_TOL:g}), gradients largest deviation {first[1][1]:.3e} "
+                  f"({first[1][2]}), {len(first[2])} leaves over their limits; steps "
+                  f"{first_replay}-{GRAPH_STEPS} ({GRAPH_STEPS - WARMUP_STEPS} replays) losses "
+                  f"{last[0]:.3e}, last gradients {last[1][1]:.3e} ({last[1][2]}); bit-equal "
+                  f"over all {GRAPH_STEPS} steps: {last[3]}")
+            passed = first[0] <= STEP_LOSS_TOL and not first[2]
+            if what.startswith("planted"):
+                if last[3] or (passed and last[0] <= STEP_LOSS_TOL and not last[2]):
+                    fail(f"{label}: the planted fault (replays on the first replay's draws) passed")
+            elif dtype == "bfloat16" and not last[3]:
+                fail(f"{label}: the bf16 graphed steps are not bit-equal to the eager ones")
+            elif not passed:
+                fail(f"{label} {dtype}: the {what} step differs from the eager one (losses "
+                     f"{first[0]:.3e}, gradients over their limits {first[2]})")
+    print(f"[graph parity] {label}: launches in {GRAPH_STEPS} bf16 steps, graphed as eager: "
+          f"{json.dumps(eager['launches'])}")
+
+
+def training_run(dev, argv, steps, want_launches, sync, card, out_dir, spd):
+    """``steps`` steps of the train CLI's loop (one epoch) under
+    ``--steps_per_dispatch spd`` ('0': the CLI default, on the card replays
+    of a captured CUDA graph of the step; '1': eager per-step dispatch),
+    with the exact kernel launches of every step held to ``want_launches``,
+    finite losses, moved parameters, the warm step time (the median of the
+    WARM_STEPS steps before the traced window), the device busy share of
+    the run's last TRACED_STEPS steps (torch.profiler, started and stopped
+    between steps), the peak device memory, and the written checkpoint
+    rendered to a 384^2 canvas. Returns the run's launch counts, its warm
+    step time (s), its device busy time per traced step (ms, or None where
+    the profiler recorded no device time), its steps' launches by C entry
+    point (ops/kernels.py: ROUTE_LAUNCHES, read before the canvas, whose K1
+    / K2 launches are checked on their own) and its peak memory (bytes)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from infinite_texture_gans_torch.config import prepare_parser
-    from infinite_texture_gans_torch.data.datasets import DeviceCropSampler, SingleImageDataset
     from infinite_texture_gans_torch.ops import kernels
     from infinite_texture_gans_torch.sampling.infinite import generate_canvas
     from infinite_texture_gans_torch.train import train_loop
@@ -791,23 +979,37 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir):
         load_checkpoint,
         load_generator_from_checkpoint,
     )
-    from infinite_texture_gans_torch.train.train_step import create_train_state, train_step
+    from infinite_texture_gans_torch.train.train_step import create_train_state
 
     args = prepare_parser().parse_args(argv + [
         "--sampling", str(int(argv[argv.index("--batch_size") + 1]) * steps), "--epochs", "1",
-        "--saving_rate", "1", "--seed", "5", "--fname", str(out_dir), "--device", dev.type])
-    label = f"{args.type_norm_G} --fuse_up {args.fuse_up}"
+        "--saving_rate", "1", "--seed", "5", "--fname", str(out_dir), "--device", dev.type,
+        "--steps_per_dispatch", spd])
+    form = "graphed" if spd == "0" else "eager"
+    label = f"{args.type_norm_G} --fuse_up {args.fuse_up}, {form}"
     step_log = []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    traced = []
 
     def on_step(epoch, i, metrics):
         losses = {k: float(v) for k, v in metrics.items()}  # synchronises
-        step_log.append((time.perf_counter(), dict(kernels.LAUNCHES), losses))
+        now = time.perf_counter()
+        step_log.append((now, dict(kernels.LAUNCHES), losses))
+        if i == steps - TRACED_STEPS - 1:
+            prof.start()
+            traced.append(now)
+        elif i == steps - 1:
+            sync()
+            traced.append(time.perf_counter())
+            prof.stop()
 
     sync()
     kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t_train = time.perf_counter()
     state, _, _ = train_loop.train(args, step_callback=on_step)
     sync()
+    peak = torch.cuda.max_memory_allocated()
     launches = dict(kernels.LAUNCHES)
     print(f"[path train] {steps} {args.compute_dtype} steps ({label}), "
           f"launches {json.dumps(launches)}")
@@ -818,11 +1020,13 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir):
         per_step = {k: counts[k] - prev[k] for k in counts}
         prev = counts
         if per_step != want_launches:
-            fail(f"step {i} launched {per_step}, not {want_launches}")
+            fail(f"{label}: step {i} launched {per_step}, not {want_launches}")
         if not all(math.isfinite(v) for v in losses.values()):
-            fail(f"step {i} losses {losses} are not finite")
-    print(f"[path train] launches in each of the {steps} steps: {json.dumps(want_launches)}")
-    print(f"[train] losses after step 1 {step_log[0][2]}, after step {steps} {step_log[-1][2]}")
+            fail(f"{label}: step {i} losses {losses} are not finite")
+    print(f"[path train] {label}: launches in each of the {steps} steps: "
+          f"{json.dumps(want_launches)}")
+    print(f"[train] {label}: losses after step 1 {step_log[0][2]}, after step {steps} "
+          f"{step_log[-1][2]}")
     init = create_train_state(args, 1, "cpu", seed=args.seed)
     for model, before, after in (("G", init.G, state.G), ("D", init.D, state.D)):
         now = after.state_dict()
@@ -832,43 +1036,29 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir):
               f"moved; unchanged: {still}")
         if any(leaves[k].dim() == 4 for k in still):
             fail(f"{model} conv weights did not move: {still}")
-    del init
+    del init, state
     times = [t for t, _, _ in step_log]
-    step_s = [b - a for a, b in zip(times[:-1], times[1:])][-WARM_STEPS:]
+    step_s = [b - a for a, b in zip(times[:-1], times[1:])][:-TRACED_STEPS][-WARM_STEPS:]
     warm = statistics.median(step_s)
-    print(f"[time] train step ({label}): median of the last {len(step_s)} steps {warm * 1e3:.2f} ms "
-          f"({1.0 / warm:.3f} steps/s), min {min(step_s) * 1e3:.2f} ms, max "
+    print(f"[time] train step ({label}): median of {len(step_s)} steps before the traced window "
+          f"{warm * 1e3:.2f} ms ({1.0 / warm:.3f} steps/s), min {min(step_s) * 1e3:.2f} ms, max "
           f"{max(step_s) * 1e3:.2f} ms; the whole run with set-up and checkpoints "
-          f"{time.perf_counter() - t_train:.1f} s [{card}]")
-
-    sampler = DeviceCropSampler(SingleImageDataset(args.data_path, args.data_ext, None,
-                                                   args.random_crop, 64), dev)
-    rng = torch.Generator(device=dev).manual_seed(9)
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    with profile(activities=acts) as prof:
-        sync()
-        t1 = time.perf_counter()
-        for _ in range(TRACED_STEPS):
-            real = sampler.sample(rng, args.batch_size)
-            z, maps = draw_train_inputs(rng, args, dev)
-            train_step(state, real, z, maps, loss_type=args.loss, smooth=args.smooth,
-                       use_ema=args.ema)
-        sync()
-        traced_s = time.perf_counter() - t1
+          f"{time.perf_counter() - t_train:.1f} s; peak device memory {peak / 2**30:.3f} GiB "
+          f"[{card}]")
+    traced_s = traced[1] - traced[0]
     by_name, busy = device_busy_ms(prof)
     per_step = None
     if busy > 0:
         per_step = busy / TRACED_STEPS
-        print(f"[trace] {label}: {TRACED_STEPS} train steps, traced wall {traced_s:.4f} s, device busy "
-              f"{busy / 1e3:.4f} s ({100 * busy / 1e3 / traced_s:.1f}% of the traced wall); "
-              f"{per_step:.2f} ms per step, {100 * per_step / (warm * 1e3):.1f}% of the untraced "
-              f"warm step [{card}]")
+        print(f"[trace] {label}: the run's last {TRACED_STEPS} steps, traced wall {traced_s:.4f} s, "
+              f"device busy {busy / 1e3:.4f} s ({100 * busy / 1e3 / traced_s:.1f}% of the traced "
+              f"wall); {per_step:.2f} ms per step, {100 * per_step / (warm * 1e3):.1f}% of the "
+              f"untraced warm step [{card}]")
         for name, (ms_, n_) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
             print(f"[trace]   {ms_ / TRACED_STEPS:9.3f} ms/step {n_ / TRACED_STEPS:6.1f}x  "
                   f"{name[:100]}")
     else:
-        print("[trace] train step device time: not measured (no device events recorded)")
-    del state
+        print(f"[trace] {label}: train step device time: not measured (no device events recorded)")
     routed = dict(kernels.ROUTE_LAUNCHES)
     kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
 
@@ -883,11 +1073,11 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir):
     if canvas.shape != (1, 384, 384, 3) or canvas.dtype != np.uint8 or not canvas.std() > 0:
         fail(f"canvas from the trained checkpoint: {canvas.shape} {canvas.dtype} std {canvas.std()}")
     fwd_route(f"the {label} checkpoint's 384^2 canvas", tc=args.compute_dtype == "bfloat16")
-    return launches, warm, per_step, routed
+    return launches, warm, per_step, routed, peak
 
 
 def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, card, sync,
-                     u8_tol=CANVAS_U8_TOL):
+                     u8_tol=CANVAS_U8_TOL, plant_faults=False):
     """One checkpoint's generator ``gen`` (bf16) through the generation
     paths; an SSM generator's maps are drawn with its latents.
 
@@ -901,7 +1091,15 @@ def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, 
     - on seed 21's latents: the seam ratio of the one pass and of sub-images
       without the halo cache, which set the raster's seam limit; then, gate
       zeroed, the bf16 raster held to the bf16 one pass in u8 levels (to
-      ``u8_tol``; reported only where it is None).
+      ``u8_tol``; reported only where it is None);
+    - the raster as CUDA graph replays (the default) against its eager form
+      (``graphs=False``): the f32 768^2 canvas equal, the bf16 1024^2 u8
+      canvas byte-equal, the same launches per canvas (cold: eager warm-up
+      rows and the capture of the rest; second: the first row's capture;
+      warm: replays only), both forms' cold, second and warm walls and
+      traced busy shares; with ``plant_faults`` two planted faults
+      (replays without the row's new strip; graphs that do not write the
+      halo cache back) must break the byte equality.
 
     Returns (one-pass launches, raster launches, median warm wall s)."""
     import numpy as np
@@ -952,8 +1150,14 @@ def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, 
         fail(f"{label} one-pass launches {one_launches} != {want}")
     if not bool(torch.isfinite(one).all()) or one.shape != (1, th * P, tw * P, 3):
         fail(f"{label} one-pass output {tuple(one.shape)} not finite or of the wrong shape")
-    d = np.abs(generate_canvas(gen32, None, 768, 768, z_full=z, maps_full=maps)
-               - one[:, :768, :768].cpu().numpy())
+    graphed768 = generate_canvas(gen32, None, 768, 768, z_full=z, maps_full=maps)
+    eager768 = generate_canvas(gen32, None, 768, 768, z_full=z, maps_full=maps, graphs=False)
+    n_diff = int(np.count_nonzero(graphed768 != eager768))
+    print(f"[graph canvas {label} f32 768^2] graph replays vs eager rows: {n_diff} of "
+          f"{graphed768.size} values differ (want 0)")
+    if n_diff:
+        fail(f"{label}: the graphed f32 768^2 canvas differs from the eager one")
+    d = np.abs(graphed768 - one[:, :768, :768].cpu().numpy())
     print(f"[canvas {label} f32 768^2, trained attention gate] raster vs one-pass: max abs "
           f"{d.max():.3e}, mean abs {d.mean():.3e} (the gate spreads sub-image edge padding into "
           "the cached halo: PARITY.md)")
@@ -992,38 +1196,68 @@ def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, 
     # the flagship is trained; the SSM run's 30 steps leave a faint texture
     if img.shape != (1, 1024, 1024, 3) or img.dtype != np.uint8 or not img.std() > (0 if ssm else 1):
         fail(f"{label} canvas {img.shape} {img.dtype} std {img.std()}")
-    ratios, walls = [seam_ratio(img, P)], []
-    for seed in (22, 23, 24):
-        sync()
-        t1 = time.perf_counter()
-        more = generate_canvas(gen, torch.Generator(device=dev).manual_seed(seed), 1024, 1024,
-                               wire="u8")
-        sync()
-        walls.append(time.perf_counter() - t1)
-        ratios.append(seam_ratio(more, P))
+    # the eager form of the same canvas (graphs=False): launches and bytes
+    sync()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    eager = generate_canvas(gen, torch.Generator(device=dev).manual_seed(21), 1024, 1024,
+                            wire="u8", graphs=False)
+    sync()
+    eager_cold_s = time.perf_counter() - t1
+    n_diff = int(np.count_nonzero(eager != img))
+    print(f"[graph canvas {label} bf16 1024^2 u8] graph replays vs eager rows: {n_diff} of "
+          f"{img.size} values differ (want 0); eager launches {json.dumps(dict(kernels.LAUNCHES))}")
+    if n_diff or dict(kernels.LAUNCHES) != want:
+        fail(f"{label}: the graphed canvas or its launches differ from the eager one's")
+    # a second canvas (seed 25; graphed: the first row's capture), then
+    # three warm ones (seeds 22-24; graphed: replays only)
+    ratios, walls = [seam_ratio(img, P)], {"graphed": [], "eager": []}
+    for form in walls:
+        kernels.reset_launches()
+        for seed in (25, 22, 23, 24):
+            sync()
+            t1 = time.perf_counter()
+            more = generate_canvas(gen, torch.Generator(device=dev).manual_seed(seed), 1024, 1024,
+                                   wire="u8", graphs=form == "graphed")
+            sync()
+            walls[form].append(time.perf_counter() - t1)
+            if form == "graphed" and seed != 25:
+                ratios.append(seam_ratio(more, P))
+        if dict(kernels.LAUNCHES) != {k: 4 * v for k, v in want.items()}:
+            fail(f"{label}: four more {form} canvases launched {dict(kernels.LAUNCHES)}, not "
+                 f"four times {want}")
     print(f"[quality] {label} seam ratio 1024^2 (u8 canvas, width 1), seeds 21-24: "
           f"{', '.join(f'{r:.4f}' for r in ratios)} (mean {statistics.mean(ratios):.4f})")
-    print(f"[time] {label} canvas 1024^2 bf16 u8 wall: cold {cold_s:.4f} s, warm "
-          f"{', '.join(f'{w:.4f}' for w in walls)} s (median {statistics.median(walls):.4f} s) "
-          f"[{card}]")
-
-    # one traced canvas: device busy time by kernel (torch.profiler, CUPTI)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sync()
-        t1 = time.perf_counter()
-        generate_canvas(gen, torch.Generator(device=dev).manual_seed(21), 1024, 1024, wire="u8")
-        sync()
-        traced_s = time.perf_counter() - t1
-    by_name, busy = device_busy_ms(prof)
-    if busy > 0:
-        print(f"[trace] {label} canvas 1024^2 bf16 traced wall {traced_s:.4f} s, device busy "
-              f"{busy / 1e3:.4f} s ({100 * busy / 1e3 / traced_s:.1f}% of the traced wall) "
+    for form, cold in (("graphed", cold_s), ("eager", eager_cold_s)):
+        second, warm = walls[form][0], walls[form][1:]
+        print(f"[time] {label} canvas 1024^2 bf16 u8 wall, {form}: cold {cold:.4f} s"
+              f"{' (eager warm-up rows, the rest captured)' if form == 'graphed' else ''}, second "
+              f"{second:.4f} s{' (the first row captured)' if form == 'graphed' else ''}, warm "
+              f"{', '.join(f'{w:.4f}' for w in warm)} s (median {statistics.median(warm):.4f} s) "
               f"[{card}]")
-        for name, (ms_, n_) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-            print(f"[trace]   {ms_:9.3f} ms {n_:6d}x  {name[:110]}")
-    else:
-        print(f"[trace] {label} canvas device time: not measured (the profiler recorded no "
-              "device events)")
+        walls[form] = warm
+
+    # one traced canvas of each form: device busy time by kernel (torch.profiler, CUPTI)
+    for form in walls:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sync()
+            t1 = time.perf_counter()
+            generate_canvas(gen, torch.Generator(device=dev).manual_seed(21), 1024, 1024,
+                            wire="u8", graphs=form == "graphed")
+            sync()
+            traced_s = time.perf_counter() - t1
+        by_name, busy = device_busy_ms(prof)
+        if busy > 0:
+            print(f"[trace] {label} canvas 1024^2 bf16, {form}: traced wall {traced_s:.4f} s, "
+                  f"device busy {busy / 1e3:.4f} s ({100 * busy / 1e3 / traced_s:.1f}% of the "
+                  f"traced wall) [{card}]")
+            for name, (ms_, n_) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+                print(f"[trace]   {ms_:9.3f} ms {n_:6d}x  {name[:110]}")
+        else:
+            print(f"[trace] {label} canvas, {form}: device time not measured (the profiler "
+                  "recorded no device events)")
+    if plant_faults:
+        raster_faults_caught(dev, gen, eager, sync)
 
     # seed 21's latents once more, drawn as generate_canvas drew them: the
     # same canvas through the one-pass oracle (no sub-image edges) and with
@@ -1063,7 +1297,53 @@ def generation_phase(dev, gen, args, label, one_pass_want, per_sub, n_sub_want, 
     if u8_tol is not None and not d.max() <= u8_tol:
         fail(f"{label} bf16 raster canvas differs from the one-pass oracle by {d.max()} u8 levels")
     fwd_route(f"{label} bf16 canvases, one pass and sub-images", True)
-    return one_launches, raster_launches, statistics.median(walls)
+    return one_launches, raster_launches, statistics.median(walls["graphed"])
+
+
+def raster_faults_caught(dev, gen, eager, sync) -> None:
+    """Two planted faults of the graphed raster must break its byte
+    equality with ``eager`` (seed 21's eager 1024^2 u8 canvas): replays
+    that run without the row's new latent strip copied in, and graphs
+    captured without the halo cache's write-back. The generator's graphs
+    are captured anew afterwards."""
+    import numpy as np
+    import torch
+
+    from infinite_texture_gans_torch.sampling.infinite import RasterRow, generate_canvas
+
+    def render():
+        return generate_canvas(gen, torch.Generator(device=dev).manual_seed(21), 1024, 1024,
+                               wire="u8")
+
+    load, store = RasterRow.load, RasterRow._store_halo
+
+    def store_outside_capture(self, halo):
+        if not torch.cuda.is_current_stream_capturing():
+            store(self, halo)
+
+    for fault, attr, planted in (("replays without the row's new strip", "load",
+                                  lambda self, strip, maps: None),
+                                 ("graphs that do not write the halo cache back", "_store_halo",
+                                  store_outside_capture)):
+        gen.raster_rows.clear()
+        if attr == "load":
+            for _ in range(2):  # warm-up rows and captures
+                render()
+        setattr(RasterRow, attr, planted)
+        try:
+            if attr == "_store_halo":
+                for _ in range(2):  # warm-up rows and captures under the fault
+                    render()
+            bad = render()  # replays only
+        finally:
+            RasterRow.load, RasterRow._store_halo = load, store
+            gen.raster_rows.clear()
+        sync()
+        n_diff = int(np.count_nonzero(bad != eager))
+        print(f"[graph canvas] planted fault ({fault}): {n_diff} of {eager.size} values differ "
+              f"from the eager canvas; caught: {n_diff > 0}")
+        if not n_diff:
+            fail(f"the planted raster fault ({fault}) passed the byte-equality check")
 
 
 def fuse_all_vs_unfused(dev, gen_all, args, gen_unfused, sync) -> None:
@@ -2781,7 +3061,7 @@ def main() -> int:
         fail("the checkpoint's generator is not the flagship the kernel checks were sized for")
     one_pass_launches, raster_launches, _ = generation_phase(
         dev, gen, args, "flagship", {"conv3x3_chw": 7, "conv1x1_chw": 3, "upsample2_chw": 3},
-        GEN_PER_SUB["flagship"], 16, card, sync)
+        GEN_PER_SUB["flagship"], 16, card, sync, plant_faults=True)
     print(f"[phase 4] checkpoint phases in {time.perf_counter() - t0:.1f} s")
     del gen
 
@@ -2830,38 +3110,44 @@ def main() -> int:
             f32_route["itg_ssm_embed_fwd"] and f32_route["itg_ssm_embed_bwd"]):
         fail(f"the f32 SSM step parity took K15's launches {f32_route}, not the CUDA-core route's")
     print(f"[route] f32 SSM step parity: K15 launches by entry point {f32_route}")
+    for tail, argv in (("auto", EXP1_ARGS + ["--fuse_up", "auto"]),
+                       ("off", EXP1_ARGS + ["--fuse_up", "off"]), ("ssm", SSM_ARGS)):
+        graph_parity(dev, TRAIN_PATHS[tail][0], argv, sync, plant=tail == "auto")
     print(f"[phase 5] step parity in {time.perf_counter() - t0:.1f} s")
 
-    # -- 6. training runs: the train CLI's loop, bf16 --------------------------
+    # -- 6. training runs: the train CLI's loop, bf16, graphed (the CLI
+    # default) and eager, each form's runs in turn
     t0 = time.perf_counter()
     recipes = {"auto": EXP1_ARGS + ["--fuse_up", "auto"], "off": EXP1_ARGS + ["--fuse_up", "off"],
                "ssm": SSM_ARGS}
+    forms = {"graphed": ("0", ""), "eager": ("1", "_eager")}
     ssm.ROUTE_LAUNCHES.update(dict.fromkeys(ssm.ROUTE_LAUNCHES, 0))
     runs, dx_bf16 = {}, {}
     for tail, argv in recipes.items():
-        kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
-        out = training_run(dev, argv, TRAIN_STEPS, STEP_LAUNCHES[tail], sync, card,
-                           ROOT / "build" / f"smoke_train_{tail}")
-        runs[tail], dx_bf16[tail] = out[:3], out[3]
+        for form, (spd, suffix) in forms.items():
+            kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
+            out = training_run(dev, argv, TRAIN_STEPS, STEP_LAUNCHES[tail], sync, card,
+                               ROOT / "build" / f"smoke_train_{tail}{suffix}", spd)
+            runs[tail, form], dx_bf16[tail, form] = out[:3] + out[4:], out[3]
     bf16_route = dict(ssm.ROUTE_LAUNCHES)
-    for tail, counts in dx_bf16.items():
-        # the run's steps and its traced steps
-        want = route_want({k: (TRAIN_STEPS + TRACED_STEPS) * v
-                           for k, v in STEP_LAUNCHES[tail].items()}, tc=True)
+    for (tail, form), counts in dx_bf16.items():
+        want = route_want({k: TRAIN_STEPS * v for k, v in STEP_LAUNCHES[tail].items()}, tc=True)
         if counts != want:
-            fail(f"the bf16 training run ({TRAIN_PATHS[tail][0]}) took the routed kernels' "
-                 f"launches {counts}, not {want}")
-        print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}: the routed kernels' (K1, K6, "
-              f"K7, K9, K9 dx, K9 dW, K13, K13 dW, K13 dx, K3, K3-dW) launches by entry point {counts} "
-              "(CUDA-core kernels: 0)")
+            fail(f"the bf16 training run ({TRAIN_PATHS[tail][0]}, {form}) took the routed "
+                 f"kernels' launches {counts}, not {want}")
+        print(f"[route] bf16 training run, {TRAIN_PATHS[tail][0]}, {form}: the routed kernels' "
+              f"(K1, K6, K7, K9, K9 dx, K9 dW, K13, K13 dW, K13 dx, K3, K3-dW) launches by entry "
+              f"point {counts} (CUDA-core kernels: 0)")
     if bf16_route["itg_ssm_embed_fwd"] or bf16_route["itg_ssm_embed_bwd"] or min(
-            bf16_route["itg_ssm_embed_tc_fwd"], bf16_route["itg_ssm_embed_tc_bwd"]) < 3 * TRAIN_STEPS:
+            bf16_route["itg_ssm_embed_tc_fwd"], bf16_route["itg_ssm_embed_tc_bwd"]) < 6 * TRAIN_STEPS:
         fail(f"the bf16 training runs took K15's launches {bf16_route}, not the tensor-core route's")
     print(f"[route] bf16 training runs: K15 launches by entry point {bf16_route}")
-    for tail, (_, warm, busy) in runs.items():
+    for (tail, form), (_, warm, busy, peak) in runs.items():
         share = f"{busy:.2f} ms, {100 * busy / (warm * 1e3):.1f}%" if busy else "not measured"
-        print(f"[train] {TRAIN_PATHS[tail][0]}: warm step {warm * 1e3:.2f} ms ({1.0 / warm:.3f} "
-              f"steps/s), device busy per traced step {share} [{card}]")
+        print(f"[train] {TRAIN_PATHS[tail][0]}, {form}: warm step {warm * 1e3:.2f} ms "
+              f"({1.0 / warm:.3f} steps/s), device busy per traced step {share}, peak device "
+              f"memory {peak / 2**30:.3f} GiB [{card}]")
+    runs = {tail: runs[tail, "graphed"] for tail in recipes}  # the main path's launches
     print(f"[phase 6] training runs in {time.perf_counter() - t0:.1f} s")
 
     # -- 7. SSM generation from the SSM run's EMA checkpoint ----------------

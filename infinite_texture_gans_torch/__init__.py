@@ -12,9 +12,11 @@ engine, in memory or streamed into a PNG, fused under the sample CLI's
 ``--fuse_up all``) and the training step (``train/train_loop.py``, which
 writes checkpoints in the reference's format), whose train CLI defaults to
 the reference's ``--fuse_up auto`` (the subpixel-fused up-conv tail) and
-also takes ``off``. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; on the CPU every kernel wrapper takes its plain PyTorch
-version.
+also takes ``off``. On the card both paths issue CUDA graphs
+(``ops/graphs.py``): the train loop replays a captured step, the raster
+engine a captured canvas row of each kind met more than once. Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``; on the CPU every kernel wrapper takes its
+plain PyTorch version, and both paths run eagerly.
 """
 
 from __future__ import annotations

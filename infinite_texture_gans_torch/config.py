@@ -5,8 +5,10 @@ Port of ``prepare_parser``, ``dict_to_args``, ``generator_kwargs`` and
 checkpoint stores the training flags (``meta.args``); flags it lacks take
 the defaults below, which are the reference parser's defaults for the same
 flags. The training parser keeps the reference's flag names and defaults
-(``--fuse_up auto`` trains the subpixel-fused up-conv tail) and adds
-``--device`` ('cuda' by default).
+(``--fuse_up auto`` trains the subpixel-fused up-conv tail,
+``--steps_per_dispatch 0`` dispatches K steps at a time, on the card as
+replays of a captured CUDA graph) and adds ``--device`` ('cuda' by
+default).
 """
 
 from __future__ import annotations
@@ -37,8 +39,10 @@ GENERATOR_DEFAULTS: Dict[str, Any] = {
 
 def prepare_parser() -> argparse.ArgumentParser:
     """The training flags (the reference's names and defaults, and the
-    port's ``--device``). Flags of the reference that
-    the port does not act on yet are refused by :func:`check_train_args`."""
+    port's ``--device``). Flags of the reference that the port does not act
+    on yet are refused by :func:`check_train_args`; ``--leak_D``,
+    ``--padding_size`` and ``--conv_reduction`` are stored and not used, as
+    in the reference's patch models."""
     p = argparse.ArgumentParser(description="Train the texture GAN (PyTorch port).")
     a = p.add_argument
     # data
@@ -55,6 +59,8 @@ def prepare_parser() -> argparse.ArgumentParser:
     a("--G_ch", type=int, default=52, help="base channel multiplier for G")
     a("--D_ch", type=int, default=64, help="base channel multiplier for D")
     a("--leak_G", type=float, default=0, help="leaky relu slope in G, 0 uses ReLU")
+    a("--leak_D", type=float, default=0,
+      help="leaky relu slope in D (stored; the patch D's slope is 0.2)")
     a("--z_dim", type=int, default=128, help="latent dimension")
     a("--spec_norm_D", default=False, action="store_true", help="spectral normalization in D")
     a("--spec_norm_G", default=False, action="store_true", help="spectral normalization in G")
@@ -86,17 +92,39 @@ def prepare_parser() -> argparse.ArgumentParser:
     a("--num_patches_width", type=int, default=3, help="patches along the width")
     a("--num_patches_height", type=int, default=3, help="patches along the height")
     a("--outer_padding", type=str, default="replicate", help="replicate or constant (zeros)")
+    a("--padding_size", type=int, default=1, help="local padding size (stored)")
+    a("--conv_reduction", type=int, default=2,
+      help="spatial reduction after the convolution (stored)")
+    # devices
+    a("--num_gpus", type=int, default=1, help="number of devices (1)")
+    a("--dev_num", type=int, default=0, help="card index: --device cuda runs on cuda:<dev_num>")
+    a("--gpu_list", nargs="+", default=None, type=int,
+      help="device indices when num_gpus > 1 (one device)")
+    a("--num_workers", type=int, default=0,
+      help="data loader workers (ignored: crops are drawn on the device)")
     a("--fname", type=str, default="models_cp", help="folder to save checkpoints")
     a("--compute_dtype", type=str, default="float32", help="float32 or bfloat16")
+    a("--chw_tail", type=str, default="auto",
+      help="channels-major kernels for the generator's small-channel tail: auto (or on) "
+           "runs them, off keeps every block NHWC (a CPU reference path)")
     a("--fuse_up", type=str, default="auto", choices=["auto", "off"],
       help="subpixel-fused upsample+conv in the tail blocks while training: "
            "'auto' fuses (K9, K10), 'off' upsamples first")
+    a("--profile_dir", type=str, default=None,
+      help="if set, write a torch.profiler trace of steps 0-4 here "
+           "(forces --steps_per_dispatch 1 so the trace stays small)")
+    a("--steps_per_dispatch", type=int, default=0,
+      help="train steps per dispatch (the crops drawn on the device): 0 = auto (the "
+           "largest divisor of steps-per-epoch <= 128, or chunks of 128 and a remainder); "
+           "1 disables. On the card a dispatch of K > 1 replays a captured CUDA graph of "
+           "the step; the same numerics as per-step dispatch")
     a("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
 
 
 def check_train_args(args: argparse.Namespace) -> None:
-    """Refuse the training options the port does not implement yet."""
+    """Refuse the training options the port does not implement yet, and
+    ``--chw_tail off`` (a CPU reference path) on the card."""
     unported = {
         "data": ("single_image",), "D_model": ("patch_GAN",), "loss": ("standard", "hinge"),
         "disc_iters": (1,), "padding_mode": ("local",), "type_norm_G": ("BN", "SSM"),
@@ -105,6 +133,19 @@ def check_train_args(args: argparse.Namespace) -> None:
     for flag, allowed in unported.items():
         if getattr(args, flag) not in allowed:
             raise NotImplementedError(f"--{flag} {getattr(args, flag)!r}: the port trains with {allowed}")
+    if args.num_gpus > 1 or len(args.gpu_list or ()) > 1:
+        raise NotImplementedError(
+            f"--num_gpus {args.num_gpus} / --gpu_list {args.gpu_list}: data-parallel training "
+            "(the reference's parallel/) is not ported yet; the port trains on one device")
+    if args.chw_tail == "off" and args.device != "cpu":
+        raise ValueError(f"--chw_tail off is a CPU reference path; a {args.device} generator "
+                         "runs the tail kernels")
+
+
+def train_device(args: argparse.Namespace) -> str:
+    """The training device: ``--device``, with ``cuda`` taken as
+    ``cuda:<dev_num>``."""
+    return f"cuda:{args.dev_num}" if args.device == "cuda" else args.device
 
 
 def dict_to_args(d: Dict[str, Any]) -> argparse.Namespace:
@@ -119,13 +160,14 @@ def _dtype(args) -> torch.dtype:
 def generator_kwargs(args: argparse.Namespace) -> Dict[str, Any]:
     """Constructor kwargs for ResidualPatchGenerator from a config namespace.
 
-    The stored ``chw_tail`` is the reference's TPU placement flag and is not
-    read: the port's generator picks its tail itself. ``fuse_up`` 'auto' or
+    ``chw_tail`` ('auto', 'on' taken as 'auto', or 'off': every block NHWC,
+    a CPU reference path) selects the generator's tail. ``fuse_up`` 'auto' or
     'off' selects the training tail (at eval both run unfused); 'all' trains
     as 'auto' and also fuses the eval tail (K9 on the one pass, K14
     ``chw_upconv_halo_step`` in the raster engine). The train CLI offers
     'auto' and 'off', as the reference's does; the sample CLI's
     ``--fuse_up`` sets 'all'."""
+    tail = getattr(args, "chw_tail", "auto")
     return dict(
         z_dim=args.z_dim,
         G_ch=args.G_ch,
@@ -143,6 +185,7 @@ def generator_kwargs(args: argparse.Namespace) -> Dict[str, Any]:
         num_patches_w=args.num_patches_width,
         dtype=_dtype(args),
         fuse_up=args.fuse_up,
+        chw_tail={"on": "auto"}.get(tail, tail),
     )
 
 

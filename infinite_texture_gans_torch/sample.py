@@ -3,8 +3,11 @@
 Port of ``infinite_texture_gans_tpu/sample.py`` for local-padding
 checkpoints: loads a framework ``.ckpt``, rebuilds the generator from the
 config stored in it, generates the canvas with the halo-cache raster engine
-(uint8 wire) and writes PNG files next to the checkpoint; ``--stream``
-writes one canvas straight into its PNG (``sampling/stream.py``), and
+(uint8 wire; on the card a canvas row whose kind came up before is one
+CUDA graph replay) and writes the images next to the checkpoint under the
+name given (a ``.png`` through the port's PNG writer, any other suffix
+through PIL, as the reference saves); ``--stream`` writes one canvas straight into a PNG
+(``sampling/stream.py``; ``.png`` is added to a name without it), and
 ``--fuse_up all`` runs the fused eval tail (K9 on the one pass, K14 in the
 raster engine). Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -31,8 +34,9 @@ def prepare_sample_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_path", type=str, required=True)
     p.add_argument("--output_resolution_height", type=int, default=384)
     p.add_argument("--output_resolution_width", type=int, default=384)
-    p.add_argument("--output_name", type=str, default="241_generated.png",
-                   help="PNG file name, written next to the checkpoint")
+    p.add_argument("--output_name", type=str, default="241_generated.jpg",
+                   help="image file name, written next to the checkpoint; its suffix picks "
+                        "the format")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--batch", type=int, default=1, help="number of canvases")
     p.add_argument("--row_group", type=int, default=None,
@@ -60,13 +64,25 @@ def write_png(path: str, img: np.ndarray) -> None:
     writer.close()
 
 
+def save_image(img: np.ndarray, path: str) -> None:
+    """(H, W, C) uint8 -> the file at ``path``: :func:`write_png` for a
+    ``.png`` name, PIL for any other suffix (the reference's
+    ``save_image``, which saves a one-channel image as grayscale)."""
+    if path.lower().endswith(".png"):
+        write_png(path, img)
+        return
+    from PIL import Image
+
+    Image.fromarray(img[:, :, 0] if img.shape[-1] == 1 else img).save(path)
+
+
 def save_batch(imgs: np.ndarray, saving_path: str) -> None:
     """Save every canvas: the first at the requested name, the rest as
     ``<stem>_k<ext>``."""
     stem, ext = os.path.splitext(saving_path)
     for k in range(imgs.shape[0]):
         path = saving_path if k == 0 else f"{stem}_{k}{ext}"
-        write_png(path, imgs[k])
+        save_image(imgs[k], path)
         print("The image is saved as:", path)
 
 
@@ -81,11 +97,10 @@ def main(argv=None) -> None:
     print(args)
     seed = args_sample.seed if args_sample.seed is not None else 0
     rng = torch.Generator(device=device).manual_seed(seed)
-    name = args_sample.output_name
-    if not name.endswith(".png"):
-        name += ".png"
-    path = os.path.join(os.path.dirname(args_sample.model_path), name)
+    path = os.path.join(os.path.dirname(args_sample.model_path), args_sample.output_name)
     if args_sample.stream:
+        if not path.endswith(".png"):
+            path += ".png"
         if args_sample.batch > 1:
             print("Warning: --stream writes one PNG; generating a single image")
         generate_canvas_streamed(

@@ -6,7 +6,8 @@ writes each group of canvas rows straight into a PNG instead:
 
 * the raster scan is ``sampling/infinite.py: raster_bands`` (the same
   latents, halo cache and trim, so the pixels are ``generate_canvas(wire=
-  'u8')``'s byte for byte);
+  'u8')``'s byte for byte; on the card a canvas row is one CUDA graph
+  replay once its kind of row has come up twice);
 * each band's kept uint8 rows start their device-to-host copy into a pinned
   host buffer at once (``non_blocking``, fenced by a CUDA event: the
   reference's ``copy_to_host_async``), and one encoder thread waits on the

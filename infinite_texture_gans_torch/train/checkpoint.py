@@ -74,7 +74,10 @@ def load_generator_from_checkpoint(
     if fuse_up is not None:
         args.fuse_up = fuse_up
     kwargs = generator_kwargs(args)
-    kwargs.update(SN=False, num_patches_h=3, num_patches_w=3)
+    # the eval tail is the port's choice: a stored --chw_tail off (a CPU
+    # reference path in the port, a TPU placement in the reference) would
+    # refuse the card
+    kwargs.update(SN=False, num_patches_h=3, num_patches_w=3, chw_tail="auto")
     gen = ResidualPatchGenerator(**kwargs)
     if ema and ckpt.get("ema"):
         variables = {"params": ckpt["ema"]["params"], "batch_stats": ckpt["ema"]["batch_stats"]}

@@ -117,7 +117,7 @@ def test_sample_cli_writes_png(tmp_path):
 
     ckpt = str(tmp_path / "tiny.ckpt")
     _tiny_checkpoint(ckpt)
-    sample.main(["--model_path", ckpt, "--device", "cpu", "--output_name", "out",
+    sample.main(["--model_path", ckpt, "--device", "cpu", "--output_name", "out.png",
                  "--output_resolution_height", "100", "--output_resolution_width", "70",
                  "--seed", "3", "--batch", "2"])
     imgs = [np.asarray(Image.open(tmp_path / n)) for n in ("out.png", "out_1.png")]

@@ -2058,3 +2058,107 @@ def test_conv1x1_refuses_wider(cuda, dtype):
         with pytest.raises(ValueError, match=r"C\*Co <= 4096, C\+Co <= 96"):
             tk.conv1x1_chw_dw(x.to(dtype), gy.to(dtype))
     assert not any(v for k, v in tk.ROUTE_LAUNCHES.items() if "conv1x1" in k)
+
+
+# --- CUDA graphs: the train loop's step and the raster's canvas rows ------
+
+
+def _launch_counts():
+    from infinite_texture_gans_torch.ops import ssm
+
+    return dict(tk.LAUNCHES), dict(tk.ROUTE_LAUNCHES), dict(ssm.ROUTE_LAUNCHES)
+
+
+def _reset_counts():
+    from infinite_texture_gans_torch.ops import ssm
+
+    tk.reset_launches()
+    for counter in (tk.ROUTE_LAUNCHES, ssm.ROUTE_LAUNCHES):
+        counter.update(dict.fromkeys(counter, 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["BN", "all", "SSM"])
+def test_graphed_canvas_equals_eager(cuda, kind, dtype):
+    """The raster as CUDA graph replays paints the eager canvas byte for
+    byte, with the same launches, for row groups of all and 1: a cold
+    canvas (5 rows: both kinds' eager warm-up rows, the capture of the
+    rest), a second (the capture of the first row) and a warm one
+    (replays only). A one-row canvas captures nothing; a second one
+    captures its row."""
+    gen = ResidualPatchGenerator(z_dim=16, G_ch=8, n_layers_G=4, attention=True, dtype=dtype,
+                                 type_norm="SSM" if kind == "SSM" else "BN", map_dim=2,
+                                 fuse_up="all" if kind == "all" else "auto")
+    g = torch.Generator(device="cpu").manual_seed(4)
+    with torch.no_grad():
+        for p in gen.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=g))
+    gen = gen.to(cuda).eval()
+    for rg in (None, 1):
+        for wire in ("u8", "f32"):
+            out = {}
+            for form in ("eager", "cold", "second", "warm"):
+                _reset_counts()
+                out[form] = (generate_canvas(gen, torch.Generator(device=cuda).manual_seed(5), 290,
+                                             200, row_group=rg, wire=wire,
+                                             graphs=form != "eager"), _launch_counts())
+                if form == "cold":
+                    assert set(gen.raster_rows[(1, 3)].graphs) == {False}
+            for form in ("cold", "second", "warm"):
+                np.testing.assert_array_equal(out[form][0], out["eager"][0], err_msg=form)
+                assert out[form][1] == out["eager"][1], form
+            assert set(gen.raster_rows[(1, 3)].graphs) == {False, True}
+            gen.raster_rows.clear()
+    for captured in (set(), {True}):  # one row of 3 sub-images: captured the second time
+        generate_canvas(gen, torch.Generator(device=cuda).manual_seed(5), 64, 200)
+        assert set(gen.raster_rows[(1, 3)].graphs) == captured
+
+
+def _graph_args(tmp_path, recipe):
+    from PIL import Image
+
+    from infinite_texture_gans_torch.config import prepare_parser
+
+    tex = tmp_path / "tex.png"
+    rng = np.random.default_rng(3)
+    Image.fromarray(rng.integers(0, 256, (56, 64, 3), dtype=np.uint8)).save(tex)
+    flags = {"auto": [], "off": ["--fuse_up", "off"], "SSM": ["--type_norm_G", "SSM",
+                                                              "--map_dim", "2"]}[recipe]
+    return prepare_parser().parse_args(
+        ["--G_ch", "8", "--D_ch", "8", "--z_dim", "16", "--n_layers_G", "4", "--n_layers_D", "2",
+         "--padding_mode", "local", "--attention", "--spec_norm_D", "--ema", "--smooth",
+         "--num_images", "2", "--batch_size", "4", "--random_crop", "48", "--data_path", str(tex),
+         "--data_ext", "png", "--sampling", "24", "--epochs", "1", "--saving_rate", "1",
+         "--seed", "2", "--fname", str(tmp_path / "cp"), "--device", "cuda"] + flags)
+
+
+@pytest.mark.parametrize("recipe", ["auto", "off", "SSM"])
+def test_graphed_train_equals_eager(cuda, tmp_path, recipe):
+    """The train loop with its default dispatch (6 steps: two eager warm-up
+    steps, a capture, replays) against one step per dispatch, from one
+    seed, in bf16 (whose kernels sum in a fixed order): every step's
+    losses, the last step's gradients and every parameter and buffer
+    bit-equal; the same launches in every step, by kernel and by entry
+    point."""
+    from infinite_texture_gans_torch.ops import ssm
+    from infinite_texture_gans_torch.train import train_loop
+
+    runs = {}
+    for spd in (1, 0):
+        args = _graph_args(tmp_path, recipe)
+        args.steps_per_dispatch, args.compute_dtype = spd, "bfloat16"
+        log = []
+        _reset_counts()
+        state, _, _ = train_loop.train(args, step_callback=lambda e, i, m: log.append(
+            ({k: float(v) for k, v in m.items()}, dict(tk.LAUNCHES))))
+        torch.cuda.synchronize()
+        leaves = {f"{m}.{n}.grad": p.grad for m, module in (("G", state.G), ("D", state.D))
+                  for n, p in module.named_parameters()}
+        leaves.update({f"{m}.{k}": v for m, module in (("G", state.G), ("D", state.D))
+                       for k, v in module.state_dict().items()})
+        runs[spd] = (log, leaves, dict(tk.ROUTE_LAUNCHES), dict(ssm.ROUTE_LAUNCHES))
+    assert len(runs[0][0]) == 6
+    assert runs[0][0] == runs[1][0]  # losses and cumulative launches, step by step
+    assert runs[0][2:] == runs[1][2:]
+    for name, ref in runs[1][1].items():
+        assert torch.equal(runs[0][1][name], ref), name

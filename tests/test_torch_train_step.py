@@ -7,7 +7,9 @@ The step: the reference tests' tiny recipe (tests/test_train.py
 2 fake grids) with spectral norm in D, ``--smooth``, EMA, and the JAX
 generator's channels-major tail in interpret mode (``chw_tail='on'``), so
 that the fake reaches D through the stem kernel, once with each
-``--fuse_up``: 'off' and 'auto' (the fused up-conv K9 and K10 in block 4).
+``--fuse_up``: 'off' and 'auto' (the fused up-conv K9 and K10 in block 4);
+and once with ``--chw_tail off`` on both sides (every block NHWC, the fake
+handed to D as NHWC).
 Both sides start from the same parameters (carried by
 ``weights.from_jax_variables``), see the same crops and the JAX step's own
 latents.
@@ -74,12 +76,12 @@ def _noise_leaves(grads):
     return top, {k for k, v in grads.items() if float(v.abs().max()) < NOISE * top}
 
 
-def run_step_case(fuse_up):
+def run_step_case(fuse_up, chw_tail="on"):
     """Both steps from the same state; returns what the tests compare."""
-    jargs = jax_parser().parse_args(TINY + ["--fuse_up", fuse_up])
-    jargs.chw_tail = "on"
+    flags = ["--fuse_up", fuse_up, "--chw_tail", chw_tail]
+    jargs = jax_parser().parse_args(TINY + flags)
     G, D = JaxG(**jax_g_kwargs(jargs)), JaxD(**jax_d_kwargs(jargs))
-    assert G.emits_chw()
+    assert G.emits_chw() == (chw_tail == "on")
     state, tx_G, tx_D = jax_create(G, D, jargs, jax.random.key(0), 2)
     init = _np({"params_G": state.params_G, "aux_G": state.aux_G, "params_D": state.params_D,
                 "aux_D": state.aux_D, "ema": state.ema})
@@ -92,9 +94,9 @@ def run_step_case(fuse_up):
     zk, _ = jax.random.split(jax.random.split(key, 1)[0])
     z = np.array(build_train_z(zk, 2, 16, 4, 3, 3))
 
-    targs = prepare_parser().parse_args(TINY + ["--device", "cpu", "--fuse_up", fuse_up])
+    targs = prepare_parser().parse_args(TINY + ["--device", "cpu"] + flags)
     st = create_train_state(targs, 2, "cpu", seed=0)
-    assert st.G.fuse_up == fuse_up
+    assert st.G.fuse_up == fuse_up and st.G.emits_chw() == (chw_tail == "on")
     st.G.load_state_dict(from_jax_variables({"params": init["params_G"], **init["aux_G"]}), strict=True)
     st.D.load_state_dict(from_jax_variables({"params": init["params_D"], **init["aux_D"]}, spectral=True),
                          strict=True)
@@ -105,9 +107,10 @@ def run_step_case(fuse_up):
                 before=before)
 
 
-@pytest.fixture(scope="module", params=["off", "auto"])
+@pytest.fixture(scope="module", params=[("off", "on"), ("auto", "on"), ("auto", "off")],
+                ids=["off", "auto", "tail_off"])
 def step_case(request):
-    return run_step_case(request.param)
+    return run_step_case(*request.param)
 
 
 def test_step_losses_match(step_case):
