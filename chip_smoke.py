@@ -187,7 +187,24 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    canvas K15 384, K2 320, K3 128, K4 128; the bf16 raster against the
    bf16 one pass is reported, not held: see CANVAS_U8_TOL); the sample CLI
    renders a PNG from the checkpoint.
-8. Prints the ``kernels`` JSON line (``:gen_all`` rows for K1, K9, K14, K2,
+8. Resume (``resume_phase``): the Experiment-1 ``--fuse_up auto`` recipe at
+   full width with RESUME_STEPS steps an epoch, graphed, through ``train``:
+   a 2-epoch leg without ``--seed``, two uninterrupted 4-epoch runs with the
+   seed it drew, and a fresh ``train`` resumed from the leg's ``2_2.ckpt``
+   without ``--seed``; the restored seed, the loss histories and the final
+   G, D, Adam and EMA tensors (bit-equal where the two uninterrupted runs
+   are, else within STEP_GRAD_TOL), the launches of the resumed epochs, and
+   a planted fault (the resume without the per-epoch reseed) that must
+   fail; the epoch walls with a save in flight and without, and each
+   save's time on the worker thread.
+9. Zeros padding, the parsers' default (``zeros_phase``): the graphed steps
+   against eager ones (``graph_parity``: bf16 bit-equal; f32 reported), 30
+   graphed bf16 steps through ``train`` (warm wall, busy share, peak
+   memory), the sample CLI on the
+   run's EMA checkpoint (a 1024^2 one pass, a 4096^2 ``--tiles`` canvas,
+   both walls), and in f32 at 2048^2 the tiled canvas's first tile against
+   the one pass; none of it may launch one of the port's kernels.
+10. Prints the ``kernels`` JSON line (``:gen_all`` rows for K1, K9, K14, K2,
    K3 and K10 per 384^2 sub-image under ``--fuse_up all``, ``:gen_ssm`` rows
    for K15, K1, K2, K3 and K4 per 192^2 SSM sub-image, and a ``:train_ssm``
    row for every kernel
@@ -392,6 +409,24 @@ TRAIN_STEPS = 30
 WARM_STEPS = 20  # steps/s is the median over the last WARM_STEPS steps
 TRACED_STEPS = 3
 GRAPH_STEPS = 6  # steps of phase 5's graph parity: the warm-up, then 4 replays
+# Phase 8 (resume): the Experiment-1 --fuse_up auto recipe with a --sampling
+# of RESUME_STEPS steps an epoch, graphed (the CLI's default dispatch: two
+# eager warm-up steps, a capture, replays), a save every second epoch;
+# RESUME_EPOCHS epochs uninterrupted against half of them and a resumed half
+RESUME_STEPS = 4
+RESUME_EPOCHS = 4
+# Phase 9: the Experiment-1 recipe under the parsers' default --padding_mode
+# (zeros: pad-1 convs, one 128^2 patch per fake, every block NHWC), and the
+# sample CLI's canvases of its checkpoint: one pass, and --tiles (tile 32,
+# pad 16 latent pixels); the tiled canvas's first tile against the one pass
+# in f32 at ZEROS_F32^2 within the reference test's tolerance
+# (tests/test_tiled.py:32: atol and rtol 1e-4)
+ZEROS_ARGS = EXP1_ARGS[:EXP1_ARGS.index("--padding_mode")] + \
+    EXP1_ARGS[EXP1_ARGS.index("--padding_mode") + 2:]
+ZEROS_CANVAS = 1024
+ZEROS_TILED = 4096
+ZEROS_F32 = 2048
+TILE_TOL = 1e-4
 # The README's SSM recipe (Exp-3 style; benchmarks/trace_step.py's
 # BENCH_RECIPE=ssm): the Experiment-1 flags with --type_norm_G SSM, map_dim
 # 1, n_layers_G 5 (64^2 patches, 192^2 grids), n_layers_D 3, 128^2 crops of
@@ -896,7 +931,7 @@ def graph_parity_gap(ref, got, lo, hi, grads):
     return loss_rel, worst, bad, bits
 
 
-def graph_parity(dev, label, argv, sync, plant: bool) -> None:
+def graph_parity(dev, label, argv, sync, plant: bool, f32_held: bool = True) -> None:
     """The train loop's dispatched step, eagerly and as the train loop runs
     it (WARMUP_STEPS eager warm-up steps, then CUDA graph replays), from one
     state and one generator state, GRAPH_STEPS steps each, every run
@@ -912,7 +947,13 @@ def graph_parity(dev, label, argv, sync, plant: bool) -> None:
       every loss, the last step's gradients and every parameter and buffer
       bit-equal; with ``plant``, replays that all draw the first replay's
       crops and latents must break that and fail the gates;
-    - both: the same launches by kernel and by entry point."""
+    - both: the same launches by kernel and by entry point.
+
+    ``f32_held=False`` reports the float32 comparison without holding it:
+    the zeros path's float32 steps are cuDNN's throughout, whose weight
+    gradients two eager runs do not reproduce to step parity's gates at the
+    biases of block 3 (on an H100 80GB HBM3 at 700 W, this script's phase 9
+    read 4.9e-3 of the leaf's largest value eager against eager)."""
     from infinite_texture_gans_torch.config import prepare_parser
     from infinite_texture_gans_torch.train.train_step import WARMUP_STEPS
 
@@ -946,14 +987,17 @@ def graph_parity(dev, label, argv, sync, plant: bool) -> None:
                     fail(f"{label}: the planted fault (replays on the first replay's draws) passed")
             elif dtype == "bfloat16" and not last[3]:
                 fail(f"{label}: the bf16 graphed steps are not bit-equal to the eager ones")
-            elif not passed:
+            elif not passed and f32_held:
                 fail(f"{label} {dtype}: the {what} step differs from the eager one (losses "
                      f"{first[0]:.3e}, gradients over their limits {first[2]})")
+            elif not passed:
+                print(f"[graph parity] {label}, {dtype}, {what}: reported, not held "
+                      f"(f32_held=False): leaves over step parity's limits {first[2]}")
     print(f"[graph parity] {label}: launches in {GRAPH_STEPS} bf16 steps, graphed as eager: "
           f"{json.dumps(eager['launches'])}")
 
 
-def training_run(dev, argv, steps, want_launches, sync, card, out_dir, spd):
+def training_run(dev, argv, steps, want_launches, sync, card, out_dir, spd, render=True):
     """``steps`` steps of the train CLI's loop (one epoch) under
     ``--steps_per_dispatch spd`` ('0': the CLI default, on the card replays
     of a captured CUDA graph of the step; '1': eager per-step dispatch),
@@ -961,8 +1005,8 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir, spd):
     finite losses, moved parameters, the warm step time (the median of the
     WARM_STEPS steps before the traced window), the device busy share of
     the run's last TRACED_STEPS steps (torch.profiler, started and stopped
-    between steps), the peak device memory, and the written checkpoint
-    rendered to a 384^2 canvas. Returns the run's launch counts, its warm
+    between steps), the peak device memory, and (``render``) the written
+    checkpoint rendered to a 384^2 canvas by the raster engine. Returns the run's launch counts, its warm
     step time (s), its device busy time per traced step (ms, or None where
     the profiler recorded no device time), its steps' launches by C entry
     point (ops/kernels.py: ROUTE_LAUNCHES, read before the canvas, whose K1
@@ -986,7 +1030,8 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir, spd):
         "--saving_rate", "1", "--seed", "5", "--fname", str(out_dir), "--device", dev.type,
         "--steps_per_dispatch", spd])
     form = "graphed" if spd == "0" else "eager"
-    label = f"{args.type_norm_G} --fuse_up {args.fuse_up}, {form}"
+    zeros = " --padding_mode zeros" if args.padding_mode == "zeros" else ""
+    label = f"{args.type_norm_G} --fuse_up {args.fuse_up}{zeros}, {form}"
     step_log = []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     traced = []
@@ -1065,6 +1110,8 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir, spd):
     ck = load_checkpoint(str(out_dir / "1_1.ckpt"))
     if ck["meta"]["epoch"] != 1 or int(ck["opt_G"]["0"]["count"]) != steps:
         fail(f"checkpoint epoch {ck['meta']['epoch']}, opt count {ck['opt_G']['0']['count']}")
+    if not render:
+        return launches, warm, per_step, routed, peak
     trained, _ = load_generator_from_checkpoint(str(out_dir / "1__ema.ckpt"), device=dev)
     canvas = generate_canvas(trained, torch.Generator(device=dev).manual_seed(3), 384, 384,
                              wire="u8")
@@ -1426,6 +1473,253 @@ def stream_phase(dev, gen, card, sync) -> None:
         fail(f"the streamed {size}^2 PNG differs from the in-memory u8 canvas")
     print(f"[stream] the decoded PNG equals the in-memory canvas byte for byte ({got.shape})")
     fwd_route(f"fuse_up all streamed and in-memory bf16 {size}^2 canvases", True)
+
+
+def resume_phase(dev, sync, card) -> None:
+    """Phase 8: resume at full width, graphed, through the train CLI's
+    ``train``. A 2-epoch leg without ``--seed`` (it draws one), two
+    uninterrupted RESUME_EPOCHS-epoch runs with that seed, then a fresh
+    ``train`` resumed from the leg's ``2_2.ckpt`` without ``--seed``. Fails
+    unless the resumed run restored the leg's seed; its loss histories and
+    final G, D, Adam and EMA tensors equal the uninterrupted run's (bit for
+    bit where the two uninterrupted runs are bit-equal, else within
+    STEP_GRAD_TOL of each tensor's largest value and of each loss); its
+    launches equal the uninterrupted run's over the same epochs; and a
+    planted fault (the resume without the per-epoch reseed) fails that same
+    check. Reports the epoch walls with a save in flight and without, and
+    each save's time on the worker thread and at submit."""
+    import shutil
+
+    import torch
+
+    from infinite_texture_gans_torch.config import prepare_parser
+    from infinite_texture_gans_torch.ops import kernels, ssm
+    from infinite_texture_gans_torch.train import train_loop
+    from infinite_texture_gans_torch.train.checkpoint import AsyncCheckpointer, load_checkpoint
+
+    root = ROOT / "build" / "smoke_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    counters = (kernels.LAUNCHES, kernels.ROUTE_LAUNCHES, ssm.ROUTE_LAUNCHES)
+
+    class TimedSaver(AsyncCheckpointer):
+        """The loop's checkpointer, timing each submit on the main thread."""
+
+        def __init__(self):
+            super().__init__()
+            self.submit_seconds = []
+
+        def submit(self, path, payload):
+            t = time.perf_counter()
+            super().submit(path, payload)
+            self.submit_seconds.append(time.perf_counter() - t)
+
+    def run(name, epochs, seed=None, resume=None):
+        argv = EXP1_ARGS + ["--fuse_up", "auto", "--sampling", str(EXP1_BATCH * RESUME_STEPS),
+                            "--saving_rate", "2", "--epochs", str(epochs), "--device", dev.type,
+                            "--fname", str(root / name)]
+        argv += (["--seed", str(seed)] if seed is not None else []) + (
+            ["--resume", resume] if resume else [])
+        args = prepare_parser().parse_args(argv)
+        marks, saver = [], TimedSaver()
+
+        def on_step(epoch, i, m):
+            float(m["g_loss"])  # synchronises
+            marks.append((epoch, time.perf_counter(), [dict(c) for c in counters]))
+
+        sync()
+        for c in counters:
+            c.update(dict.fromkeys(c, 0))
+        t0 = time.perf_counter()
+        state, g, d = train_loop.train(args, step_callback=on_step, saver=saver)
+        sync()
+        return {"args": args, "tensors": train_tensors(state), "losses": (g, d),
+                "marks": marks, "saver": saver, "t0": t0, "wall": time.perf_counter() - t0}
+
+    def gap(ref, got):
+        """(bit-equal, (largest deviation of a tensor over its largest value,
+        its name), largest loss deviation over the loss)."""
+        bits = ref["losses"] == got["losses"] and all(
+            torch.equal(got["tensors"][k], v) for k, v in ref["tensors"].items())
+        worst = max((float((got["tensors"][k].float() - v.float()).abs().max())
+                     / max(float(v.float().abs().max()), 1e-30), k)
+                    for k, v in ref["tensors"].items())
+        loss = max(abs(b - a) / max(abs(a), 1e-30)
+                   for la, lb in zip(ref["losses"], got["losses"]) for a, b in zip(la, lb))
+        return bits, worst, loss
+
+    half = run("half", RESUME_EPOCHS // 2)
+    leg = root / "half" / f"{RESUME_EPOCHS // 2}_{RESUME_EPOCHS // 2}.ckpt"
+    drawn = load_checkpoint(str(leg))["meta"]["seed"]
+    full = run("full", RESUME_EPOCHS, drawn)
+    again = run("full_again", RESUME_EPOCHS, drawn)
+    resumed = run("resumed", RESUME_EPOCHS, resume=str(leg))
+    print(f"[resume] the first leg drew seed {drawn}; the resumed run (no --seed) restored "
+          f"{resumed['args'].seed}")
+    if resumed["args"].seed != drawn:
+        fail(f"the resumed run took seed {resumed['args'].seed}, not the first leg's {drawn}")
+    keep = train_loop.reseed_epoch
+    train_loop.reseed_epoch = lambda rng, seed, epoch: None
+    try:
+        planted = run("planted", RESUME_EPOCHS, resume=str(leg))
+    finally:
+        train_loop.reseed_epoch = keep
+
+    bits_mode, twin, twin_loss = gap(full, again)
+    rule = "bit-equal" if bits_mode else (f"within {STEP_GRAD_TOL:g} of each tensor's largest "
+                                          "value and of each loss")
+    print(f"[resume] two uninterrupted runs: bit-equal {bits_mode}, largest tensor deviation "
+          f"{twin[0]:.3e} ({twin[1]}), losses {twin_loss:.3e}; the resume is held {rule}")
+    for what, got in (("resumed", resumed), ("planted fault (no per-epoch reseed)", planted)):
+        bits, worst, loss = gap(full, got)
+        held = bits if bits_mode else (worst[0] <= STEP_GRAD_TOL and loss <= STEP_GRAD_TOL)
+        print(f"[resume] {what} vs uninterrupted over {RESUME_EPOCHS} epochs of {RESUME_STEPS} "
+              f"steps: bit-equal {bits}, largest tensor deviation {worst[0]:.3e} ({worst[1]}), "
+              f"losses {loss:.3e}; held: {held}")
+        print(f"[resume]   G losses {got['losses'][0]}")
+        if what == "resumed" and not held:
+            fail(f"the resumed run differs from the uninterrupted one ({rule} required)")
+        if what != "resumed" and held:
+            fail("the planted fault (a resume without the per-epoch reseed) passed")
+    print(f"[resume]   uninterrupted G losses {full['losses'][0]}")
+    at_half = [m for m in full["marks"] if m[0] == RESUME_EPOCHS // 2 - 1][-1][2]
+    last = full["marks"][-1][2]
+    want = [{k: c[k] - h[k] for k in c} for c, h in zip(last, at_half)]
+    if resumed["marks"][-1][2] != want:
+        fail(f"the resumed run launched {resumed['marks'][-1][2]}, not the uninterrupted run's "
+             f"{want} over the same epochs")
+    print(f"[resume] launches of the resumed {RESUME_EPOCHS // 2} epochs equal the uninterrupted "
+          f"run's over them: {json.dumps(want[0])}")
+
+    for label, r in (("uninterrupted", full), ("uninterrupted, again", again)):
+        ends = {e: t for e, t, _ in r["marks"]}  # each epoch's last step
+        steps = {e: [] for e in ends}
+        prev = None
+        for e, t, _ in r["marks"]:
+            if prev is not None:
+                steps[e].append(t - prev)
+            prev = t
+        walls = {e: ends[e] - ends[e - 1] for e in ends if e > 0}
+        saves = ", ".join(f"{Path(p).name} {w:.3f} s" for p, w in r["saver"].save_seconds)
+        submits = ", ".join(f"{w * 1e3:.2f} ms" for w in r["saver"].submit_seconds)
+        print(f"[resume] {label}: epoch walls (from the previous epoch's last step; steps synced "
+              f"one by one) " + ", ".join(f"epoch {e + 1} {w * 1e3:.2f} ms" for e, w in walls.items())
+              + f"; epoch 2 has no save in flight, epoch 3 starts with the {RESUME_EPOCHS}_2.ckpt "
+              f"save submitted; median step of epoch 2 "
+              f"{statistics.median(steps[1]) * 1e3:.2f} ms, of epoch 3 "
+              f"{statistics.median(steps[2]) * 1e3:.2f} ms [{card}]")
+        print(f"[resume] {label}: saves on the worker thread: {saves}; submits on the main thread "
+              f"(clone + event): {submits}; the whole run {r['wall']:.2f} s [{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def zeros_phase(dev, sync, card) -> None:
+    """Phase 9: the Experiment-1 recipe under the parsers' default
+    ``--padding_mode`` (zeros). The graphed steps against eager ones from one
+    state (``graph_parity``: bf16 bit-equal; f32 reported, since two eager
+    f32 runs of this all-cuDNN step differ too), then 30 bf16 steps through ``train``, graphed; then the sample
+    CLI on its EMA checkpoint: a ZEROS_CANVAS^2 canvas as one pass and a
+    ZEROS_TILED^2 one with ``--tiles``, each timed through the CLI and warm
+    through ``sample_from_gen``; then, in f32 at ZEROS_F32^2, the tiled
+    canvas's first tile against the one pass (TILE_TOL). Fails if any of it
+    launches one of the port's kernels (the reference's gate keeps this path
+    off its Pallas kernels), if a loss is not finite, or if a check fails."""
+    import numpy as np
+    import torch
+
+    from infinite_texture_gans_torch import sample
+    from infinite_texture_gans_torch.ops import kernels, ssm
+    from infinite_texture_gans_torch.sampling.stream import read_png
+    from infinite_texture_gans_torch.sampling.tiled import sample_from_gen, tile_process
+    from infinite_texture_gans_torch.train.checkpoint import (
+        load_checkpoint,
+        load_generator_from_checkpoint,
+    )
+
+    counters = (kernels.LAUNCHES, kernels.ROUTE_LAUNCHES, ssm.ROUTE_LAUNCHES)
+
+    def reset():
+        for c in counters:
+            c.update(dict.fromkeys(c, 0))
+
+    def no_launches(what, extra=()):
+        got = {k: v for c in (*counters, *extra) for k, v in c.items() if v}
+        print(f"[zeros] {what}: the port's kernel launches {got or 0}")
+        if got:
+            fail(f"{what} launched the port's kernels {got}; the zeros path runs none")
+
+    reset()
+    graph_parity(dev, "train zeros", ZEROS_ARGS, sync, plant=False, f32_held=False)
+    no_launches("graph parity (f32 and bf16, eager and graphed)")
+    out_dir = ROOT / "build" / "smoke_train_zeros"
+    reset()
+    _, warm, busy, routed, peak = training_run(dev, ZEROS_ARGS, TRAIN_STEPS,
+                                               dict.fromkeys(KERNELS, 0), sync, card, out_dir,
+                                               "0", render=False)
+    no_launches(f"{TRAIN_STEPS} graphed bf16 steps", (routed,))
+    share = f"{busy:.2f} ms, {100 * busy / (warm * 1e3):.1f}%" if busy else "not measured"
+    print(f"[zeros] train zeros, graphed: warm step {warm * 1e3:.2f} ms ({1.0 / warm:.3f} "
+          f"steps/s), device busy per traced step {share}, peak device memory "
+          f"{peak / 2**30:.3f} GiB [{card}]")
+
+    ema = out_dir / "1__ema.ckpt"
+    gen, args = load_generator_from_checkpoint(str(ema), device=dev)
+    scale = 2 ** (gen.n_layers_G - 1)
+    if (args.padding_mode, gen.dtype, gen.emits_chw()) != ("zeros", torch.bfloat16, False):
+        fail(f"the zeros run's generator: {args.padding_mode} {gen.dtype} chw {gen.emits_chw()}")
+    for size, tiles in ((ZEROS_CANVAS, False), (ZEROS_TILED, True)):
+        label = f"{size}^2 {'--tiles' if tiles else 'one pass'}"
+        png = out_dir / f"zeros_{size}{'_tiles' if tiles else ''}.png"
+        reset()
+        sync()
+        t = time.perf_counter()
+        sample.main(["--model_path", str(ema), "--output_resolution_height", str(size),
+                     "--output_resolution_width", str(size), "--output_name", png.name,
+                     "--seed", "1", "--device", dev.type] + (["--tiles"] if tiles else []))
+        sync()
+        cli = time.perf_counter() - t
+        if not png.exists() or png.stat().st_size == 0:
+            fail(f"the sample CLI wrote no {png}")
+        if size == ZEROS_CANVAS and read_png(str(png)).shape != (size, size, 3):
+            fail(f"the {label} PNG is not {size}^2 RGB")
+        nbytes = png.stat().st_size
+        png.unlink()
+        walls = []
+        for _ in range(3):
+            sync()
+            t = time.perf_counter()
+            img = sample_from_gen(gen, torch.Generator(device=dev).manual_seed(1),
+                                  base_res=size // scale, tiles=tiles)
+            sync()
+            walls.append(time.perf_counter() - t)
+        if img.shape != (1, size, size, 3) or not bool(torch.isfinite(img).all()) or not float(
+                img.abs().max()) <= 1.0 or not float(img.std()) > 0:
+            fail(f"the {label} canvas: {tuple(img.shape)}, finite {bool(torch.isfinite(img).all())}")
+        no_launches(f"the {label} canvases")
+        print(f"[zeros] canvas {label}, bf16: through the sample CLI {cli:.4f} s wall (checkpoint "
+              f"load and {nbytes}-byte PNG included); the engine warm {statistics.median(walls):.4f} "
+              f"s (median of 3: {', '.join(f'{w:.4f}' for w in walls)}) [{card}]")
+    del gen, img
+
+    ck = load_checkpoint(str(ema))
+    ck["meta"]["args"]["compute_dtype"] = "float32"
+    gen32, _ = load_generator_from_checkpoint(str(ema), device=dev, ckpt=ck)
+    lat = ZEROS_F32 // scale
+    z = torch.randn((1, lat, lat, gen32.z_dim), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    reset()
+    with torch.no_grad():
+        one = gen32(z)[0].float()
+    tiled = tile_process(gen32, z, scale=scale, tile_size=32, tile_pad=16)
+    no_launches(f"the f32 {ZEROS_F32}^2 one pass and tiled canvas")
+    n = 16 * scale  # the first tile's interior (tests/test_tiled.py:32)
+    a, b = one[:, :n, :n], tiled[:, :n, :n]
+    err = float((a - b).abs().max())
+    over = float(((a - b).abs() - TILE_TOL * b.abs()).max())
+    print(f"[zeros] f32 {ZEROS_F32}^2: the tiled canvas's first tile ({n}^2) against the one pass "
+          f"max abs err {err:.3e} (limit {TILE_TOL:g} + {TILE_TOL:g} x |ref|); the whole canvas "
+          f"max abs err {float((one - tiled).abs().max()):.3e} (the tiles' seams)")
+    if not over <= TILE_TOL:
+        fail(f"the tiled {ZEROS_F32}^2 canvas's first tile differs from the one pass by {err}")
 
 
 def main() -> int:
@@ -3176,7 +3470,17 @@ def main() -> int:
           f"{ssm_ckpt.name}")
     print(f"[phase 7] SSM generation in {time.perf_counter() - t0:.1f} s")
 
-    # -- 8. report ------------------------------------------------------------
+    # -- 8. resume at full width, graphed ----------------------------------
+    t0 = time.perf_counter()
+    resume_phase(dev, sync, card)
+    print(f"[phase 8] resume in {time.perf_counter() - t0:.1f} s")
+
+    # -- 9. zeros padding (the parsers' default) and the tiled engine -------
+    t0 = time.perf_counter()
+    zeros_phase(dev, sync, card)
+    print(f"[phase 9] zeros padding in {time.perf_counter() - t0:.1f} s")
+
+    # -- 10. report -----------------------------------------------------------
     # K1 (and under --fuse_up all K9) runs on the one pass, the other
     # generation kernels on the raster
     gen_launches = {label: {k: (one if k in ("conv3x3_chw", "upconv3x3_chw") else raster)[k]

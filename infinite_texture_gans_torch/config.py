@@ -68,7 +68,8 @@ def prepare_parser() -> argparse.ArgumentParser:
     a("--n_layers_G", type=int, default=6, help="number of layers in G")
     a("--norm_layer_D", type=str, default=None, help="normalization layer in D (None only)")
     a("--base_res", type=int, default=4, help="base resolution for G")
-    a("--padding_mode", type=str, default="zeros", help="padding in G (local)")
+    a("--padding_mode", type=str, default="zeros",
+      help="padding in G: zeros (pad-1 convs, one patch per image) or local")
     a("--type_norm_G", type=str, default="BN", help="normalization in G: BN or SSM")
     a("--map_dim", type=int, default=1, help="channels of the SSM modulation maps")
     # optimizers
@@ -85,7 +86,10 @@ def prepare_parser() -> argparse.ArgumentParser:
     a("--ema", action="store_true", default=False, help="keep an EMA of G's weights")
     a("--ema_decay", type=float, default=0.999, help="EMA decay rate")
     a("--decay_lr", type=str, default=None, help="learning-rate decay: exp or step")
-    a("--seed", type=int, default=None, help="None for a random seed")
+    a("--seed", type=int, default=None,
+      help="None for a random seed (with --resume: the checkpoint's seed)")
+    a("--resume", type=str, default=None,
+      help="path to a full .ckpt to resume training from (params, optimizer, EMA, epoch)")
     a("--smooth", default=False, action="store_true", help="smooth the real labels (0.9)")
     # patch generation
     a("--num_images", type=int, default=8, help="fake grids per step")
@@ -127,7 +131,7 @@ def check_train_args(args: argparse.Namespace) -> None:
     ``--chw_tail off`` (a CPU reference path) on the card."""
     unported = {
         "data": ("single_image",), "D_model": ("patch_GAN",), "loss": ("standard", "hinge"),
-        "disc_iters": (1,), "padding_mode": ("local",), "type_norm_G": ("BN", "SSM"),
+        "disc_iters": (1,), "padding_mode": ("local", "zeros"), "type_norm_G": ("BN", "SSM"),
         "norm_layer_D": (None,), "spec_norm_G": (False,),
     }
     for flag, allowed in unported.items():

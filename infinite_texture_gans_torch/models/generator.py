@@ -19,8 +19,11 @@ does (the reference fuses BN only). At eval only ``'all'`` fuses
 (:meth:`ResidualPatchGenerator.eval_fuse_blocks`): the one pass runs K9, the
 raster engine K14 with half-resolution conv1 halo sites. An SSM generator
 takes one random map per block (``maps``, see
-:class:`ResidualPatchGenerator`). Not ported yet (raise): zeros padding
-mode, spectral norm.
+:class:`ResidualPatchGenerator`). Under ``padding_mode='zeros'`` (the
+reference's default) every block runs NHWC with pad-1 convs, one patch per
+image, attention on a 1x1 grid: the channels-major gate needs local padding
+and no spectral norm, as the reference's does, so that path launches none of
+the port's kernels. Not ported yet (raises): spectral norm.
 """
 
 from __future__ import annotations
@@ -96,7 +99,10 @@ class ResidualPatchGenerator(nn.Module):
     ``maps`` is a list of n_layers_G NHWC maps, maps[i] (N, gh*r+4, gw*r+4,
     map_dim) with r = 2^i * base_res (block i+1 reads maps[i]); returns
     (merged image (N, gh*P, gw*P, img_ch) in [-1, 1], or (N, img_ch, gh*P,
-    gw*P) with ``out_chw``; halo dict or None).
+    gw*P) with ``out_chw``; halo dict or None). In zeros mode z is (N, h, w,
+    z_dim) (``base_res`` square in training; any size at sampling), maps[i]
+    (N, 2^i*h, 2^i*w, map_dim), and the image (N, h*S, w*S, img_ch) with
+    S = 2^(n_layers_G-1); the halo engine needs local padding.
     """
 
     def __init__(self, z_dim: int = 128, G_ch: int = 52, base_res: int = 4,
@@ -115,33 +121,37 @@ class ResidualPatchGenerator(nn.Module):
             raise ValueError(f"chw_tail must be 'auto' or 'off', got {chw_tail!r}")
         if fuse_up not in ("auto", "all", "off"):
             raise ValueError(f"fuse_up must be 'auto', 'all' or 'off', got {fuse_up!r}")
-        if padding_mode != "local":
-            raise NotImplementedError(f"padding_mode={padding_mode!r}: only 'local' is ported yet")
+        if padding_mode not in ("local", "zeros"):
+            raise ValueError(f"padding_mode must be 'local' or 'zeros', got {padding_mode!r}")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.z_dim, self.G_ch, self.base_res = z_dim, G_ch, base_res
         self.n_layers_G, self.img_ch, self.leak = n_layers_G, img_ch, leak
         self.type_norm, self.map_dim = type_norm, map_dim
+        self.padding_mode, self.SN = padding_mode, SN
         self.outer_padding = outer_padding
         self.num_patches_h, self.num_patches_w = num_patches_h, num_patches_w
         self.dtype, self.chw_tail, self.fuse_up = dtype, chw_tail, fuse_up
 
-        self.start = ConvLP(z_dim, G_ch * 8, outer_padding, pre_padded=True)
+        self.start = ConvLP(z_dim, G_ch * 8, outer_padding, pre_padded=True,
+                            padding_mode=padding_mode)
         self.plan = generator_channel_plan(G_ch, n_layers_G)
         for i, (cin, cout) in enumerate(self.plan, start=1):
             self.add_module(f"block{i}", ResBlockGenerator(cin, cout, leak, outer_padding,
-                                                           type_norm, map_dim))
+                                                           type_norm, map_dim, padding_mode))
         self.attention = PatchAttention(G_ch * 2) if attention else None
         # SSM mode has no final norm (reference generator.py:339-351, :376-381)
         self.bn = BNFold(self.plan[-1][1]) if type_norm == "BN" else None
-        self.final = ConvLP(self.plan[-1][1], img_ch, outer_padding)
+        self.final = ConvLP(self.plan[-1][1], img_ch, outer_padding, padding_mode=padding_mode)
 
     def chw_gate(self, i: int, cin: int, wide: bool = True) -> bool:
-        """Block ``i`` (input channels ``cin``) runs channels-major iff True.
-        ``i > 3``: the per-patch attention after block3 needs NHWC. ``wide``
-        (eval) extends the tail to cin <= 128; training keeps cin <= 64."""
-        return (self.leak == 0 and self.chw_tail != "off" and i > 3
-                and cin <= (128 if wide else 64))
+        """Block ``i`` (input channels ``cin``) runs channels-major iff True:
+        the reference's gate (:150-152), local padding, no spectral norm,
+        leak 0. ``i > 3``: the per-patch attention after block3 needs NHWC.
+        ``wide`` (eval) extends the tail to cin <= 128; training keeps
+        cin <= 64."""
+        return (self.padding_mode == "local" and not self.SN and self.leak == 0
+                and self.chw_tail != "off" and i > 3 and cin <= (128 if wide else 64))
 
     def eval_fuse_blocks(self) -> frozenset:
         """The blocks whose upsample -> BN -> ReLU -> conv1 runs
@@ -198,9 +208,14 @@ class ResidualPatchGenerator(nn.Module):
                 halo: Optional[Dict[str, SiteState]] = None, pos: Optional[GridPos] = None,
                 grid: Optional[tuple[int, int]] = None, out_chw: bool = False):
         """``grid`` overrides (num_patches_h, num_patches_w), e.g. to run the
-        whole canvas as one grid (the one-pass oracle)."""
+        whole canvas as one grid (the one-pass oracle); in zeros mode each
+        image is one patch, so the attention's grid is 1x1."""
         if self.chw_tail == "off" and z.is_cuda:
             raise ValueError("chw_tail='off' is a CPU reference path; a CUDA generator runs the tail kernels")
+        if self.padding_mode == "zeros":
+            if halo is not None:
+                raise ValueError("the halo engine needs padding_mode='local'")
+            grid = (1, 1)
         grid = grid or (self.num_patches_h, self.num_patches_w)
         block_maps = self._block_maps(maps)
         if self.training:

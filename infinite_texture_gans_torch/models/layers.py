@@ -11,6 +11,10 @@ reference's flax paths (``conv1.conv.weight``, ``bn1.scale``, ``bn1.mean``,
 ``bn1.bn.mean``, ``bn1.mlp_shared.weight`` ...), so
 ``weights.from_jax_variables`` maps a flax tree onto them leaf by leaf.
 
+``padding_mode='zeros'`` (the reference's default, :189, :264, :313, :350,
+:512-714) pads every 3x3 conv of a patch with one ring of zeros, the SSM
+embed's two convs included: no grid merge, no halo, all NHWC.
+
 Two layouts, as in the reference: merged-grid NHWC for the wide blocks, and
 channels-major (N, C, H, W) for the small-channel tail, where the BN fold
 and ReLU run inside the conv kernels of ``ops/kernels.py`` and the SSM
@@ -151,7 +155,8 @@ class StochasticSpatialModulation(nn.Module):
     beta whose gamma|beta come from the layer's random map through
     ``mlp_shared`` (3x3 valid, map_dim -> 128), ReLU and ``embed`` (3x3
     valid, 128 -> 2C, the reference's init quirk: :func:`ssm_embed_init_`).
-    The map arrives 4 px oversized (local padding: both convs are valid).
+    The map arrives 4 px oversized (local padding: both convs are valid);
+    in zeros mode it is x's size and both convs pad one ring of zeros.
 
     ``forward`` is the NHWC branch (:380-394): x (N, H, W, C), maps (N, H+4,
     W+4, md); the reference's convs cast its float32 maps to the compute
@@ -159,12 +164,14 @@ class StochasticSpatialModulation(nn.Module):
     branch (:339, :374-379): x (N, C, H, W), the maps permuted to (N, md,
     H+4, W+4) and cast to x's dtype, through K15 (``ops/ssm.py``)."""
 
-    def __init__(self, channels: int, map_dim: int, hidden: int = 128):
+    def __init__(self, channels: int, map_dim: int, hidden: int = 128,
+                 padding_mode: str = "local"):
         super().__init__()
         self.channels = channels
         self.bn = StatsBN(channels)
-        self.mlp_shared = conv3x3(map_dim, hidden, padding=0)
-        self.embed = conv3x3(hidden, 2 * channels, padding=0)
+        p = 1 if padding_mode == "zeros" else 0
+        self.mlp_shared = conv3x3(map_dim, hidden, padding=p)
+        self.embed = conv3x3(hidden, 2 * channels, padding=p)
         ssm_embed_init_(self.embed.weight, channels)
 
     def forward(self, x: torch.Tensor, maps: torch.Tensor) -> torch.Tensor:
@@ -186,10 +193,12 @@ class StochasticSpatialModulation(nn.Module):
 
 
 class ConvLP(nn.Module):
-    """3x3 conv with local padding (reference ``conv2d_lp``, 'local' mode):
-    outer edge/zero padding of the merged grid in one pass, the halo cache
-    at patch-by-patch inference. ``pre_padded`` (the start conv): the input
-    already carries a 1px halo of real values. With
+    """3x3 conv with local or zero padding (reference ``conv2d_lp``).
+    'local': outer edge/zero padding of the merged grid in one pass, the
+    halo cache at patch-by-patch inference; ``pre_padded`` (the start
+    conv): the input already carries a 1px halo of real values. 'zeros':
+    an ordinary pad-1 conv of each image (``pre_padded`` and the halo do
+    not apply). With
     ``chw_fold=(scale, shift, relu)`` the input is channels-major and the BN
     fold + activation run inside the K1/K2 kernels. With ``fuse_up`` too
     (the reference's ``fuse_up_w_true``, :215-234) the channels-major input
@@ -199,11 +208,13 @@ class ConvLP(nn.Module):
     """
 
     def __init__(self, in_features: int, features: int,
-                 outer_padding: str = "replicate", pre_padded: bool = False):
+                 outer_padding: str = "replicate", pre_padded: bool = False,
+                 padding_mode: str = "local"):
         super().__init__()
         self.outer_padding = outer_padding
         self.pre_padded = pre_padded
-        self.conv = conv3x3(in_features, features, padding=0)
+        self.zeros = padding_mode == "zeros"
+        self.conv = conv3x3(in_features, features, padding=1 if self.zeros else 0)
 
     def forward(self, x: torch.Tensor, halo: Optional[SiteState] = None,
                 pos: Optional[GridPos] = None, *, grid: tuple[int, int] = (3, 3),
@@ -223,6 +234,8 @@ class ConvLP(nn.Module):
                     x, w, b, scale, shift, relu, self.outer_padding, halo, pos, gh, gw
                 )
             return kernels.conv3x3_chw(x, w, b, scale, shift, relu, self.outer_padding), halo
+        if self.zeros:
+            return self.conv(x), halo
         if self.pre_padded:
             padded = x
         elif halo is None:
@@ -291,20 +304,22 @@ class ResBlockGenerator(nn.Module):
     :meth:`forward_train` the train block."""
 
     def __init__(self, in_features: int, features: int, leak: float = 0.0,
-                 outer_padding: str = "replicate", type_norm: str = "BN", map_dim: int = 1):
+                 outer_padding: str = "replicate", type_norm: str = "BN", map_dim: int = 1,
+                 padding_mode: str = "local"):
         super().__init__()
         self.leak = leak
         self.ssm = type_norm == "SSM"
         learnable_sc = in_features != features
         if self.ssm:
-            self.bn1 = StochasticSpatialModulation(in_features, map_dim)
-            self.bn2 = StochasticSpatialModulation(features, map_dim)
-            self.bn3 = StochasticSpatialModulation(in_features, map_dim) if learnable_sc else None
+            ssm_ = lambda c: StochasticSpatialModulation(c, map_dim, padding_mode=padding_mode)  # noqa: E731
+            self.bn1 = ssm_(in_features)
+            self.bn2 = ssm_(features)
+            self.bn3 = ssm_(in_features) if learnable_sc else None
         else:
             self.bn1 = BNFold(in_features)
             self.bn2 = BNFold(features)
-        self.conv1 = ConvLP(in_features, features, outer_padding)
-        self.conv2 = ConvLP(features, features, outer_padding)
+        self.conv1 = ConvLP(in_features, features, outer_padding, padding_mode=padding_mode)
+        self.conv2 = ConvLP(features, features, outer_padding, padding_mode=padding_mode)
         self.conv3 = conv1x1(in_features, features) if learnable_sc else None
 
     def _norm(self, bn: nn.Module, x: torch.Tensor, maps: Optional[torch.Tensor]) -> torch.Tensor:

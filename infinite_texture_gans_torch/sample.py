@@ -1,15 +1,19 @@
 """Inference CLI: ``python -m infinite_texture_gans_torch.sample``.
 
-Port of ``infinite_texture_gans_tpu/sample.py`` for local-padding
-checkpoints: loads a framework ``.ckpt``, rebuilds the generator from the
-config stored in it, generates the canvas with the halo-cache raster engine
+Port of ``infinite_texture_gans_tpu/sample.py``: loads a framework
+``.ckpt``, rebuilds the generator from the config stored in it. A
+local-padding checkpoint generates the canvas with the halo-cache raster engine
 (uint8 wire; on the card a canvas row whose kind came up before is one
 CUDA graph replay) and writes the images next to the checkpoint under the
 name given (a ``.png`` through the port's PNG writer, any other suffix
 through PIL, as the reference saves); ``--stream`` writes one canvas straight into a PNG
 (``sampling/stream.py``; ``.png`` is added to a name without it), and
 ``--fuse_up all`` runs the fused eval tail (K9 on the one pass, K14 in the
-raster engine). Runs on ``cuda`` unless ``--device cpu`` is given.
+raster engine). A zeros-padding checkpoint (the reference's branch,
+:196-214) runs one pass on a latent of ``output_resolution_height / S``
+squared (S = 2^(n_layers_G-1)), or ``--tiles`` (``sampling/tiled.py``);
+``--stream`` then renders in memory. Runs on ``cuda`` unless ``--device
+cpu`` is given.
 """
 
 from __future__ import annotations
@@ -21,12 +25,13 @@ import numpy as np
 import torch
 
 from infinite_texture_gans_torch import resolve_device
-from infinite_texture_gans_torch.sampling.infinite import generate_canvas
+from infinite_texture_gans_torch.sampling.infinite import _to_uint8, generate_canvas
 from infinite_texture_gans_torch.sampling.stream import StreamingPNGWriter, generate_canvas_streamed
+from infinite_texture_gans_torch.sampling.tiled import sample_from_gen
 from infinite_texture_gans_torch.train.checkpoint import load_generator_from_checkpoint
 
 # Flags of the reference CLI whose engines are not ported yet.
-NOT_PORTED = ("mesh", "diag_lanes", "tiles", "export_pth")
+NOT_PORTED = ("mesh", "diag_lanes", "export_pth")
 
 
 def prepare_sample_parser() -> argparse.ArgumentParser:
@@ -48,7 +53,8 @@ def prepare_sample_parser() -> argparse.ArgumentParser:
                    help="'all' fuses every channels-major block's upsample -> BN -> ReLU -> "
                         "conv1 at eval (half-res halo caches); 'auto' and 'off' run the "
                         "unfused eval tail")
-    p.add_argument("--tiles", action="store_true", help="not ported yet")
+    p.add_argument("--tiles", action="store_true",
+                   help="zeros-padding checkpoints: tiled inference (tile 32, pad 16)")
     p.add_argument("--mesh", type=str, default=None, help="not ported yet")
     p.add_argument("--diag_lanes", type=int, default=None, help="not ported yet")
     p.add_argument("--export_pth", type=str, default=None, help="not ported yet")
@@ -98,6 +104,16 @@ def main(argv=None) -> None:
     seed = args_sample.seed if args_sample.seed is not None else 0
     rng = torch.Generator(device=device).manual_seed(seed)
     path = os.path.join(os.path.dirname(args_sample.model_path), args_sample.output_name)
+    if args.padding_mode != "local":
+        if args_sample.stream:
+            print("Warning: --stream requires a local-padding checkpoint; the zeros-padding "
+                  "path generates in memory instead")
+        img = sample_from_gen(gen, rng, num_images=args_sample.batch,
+                              base_res=args_sample.output_resolution_height // (
+                                  2 ** (gen.n_layers_G - 1)),
+                              tiles=args_sample.tiles)
+        save_batch(_to_uint8(img).cpu().numpy(), path)
+        return
     if args_sample.stream:
         if not path.endswith(".png"):
             path += ".png"

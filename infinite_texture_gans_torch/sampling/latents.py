@@ -4,7 +4,9 @@ Port of ``infinite_texture_gans_tpu/sampling/latents.py``. The full-canvas
 latent and maps are materialised once; sub-image inputs are overlapping
 views of them, so re-generated boundary patches see identical inputs across
 generation steps. The z pad is 2 (one valid 3x3 conv consumes it), the map
-pad 4 (the SSM embed's two valid convs). Everything is drawn with an
+pad 4 (the SSM embed's two valid convs). A zeros-padding generator takes
+one patch per image instead: the training draws' ``padding_mode='zeros'``
+(the reference's ``train_step.py:256-275``). Everything is drawn with an
 explicit ``torch.Generator`` on an explicit device; its numbers differ from
 ``jax.random``'s for the same seed, so tests pass ``z_full``/``maps_full``
 in.
@@ -41,10 +43,15 @@ def build_z_full(
 
 
 def build_train_z(generator: Optional[torch.Generator], num_images: int, z_dim: int,
-                  base_res: int, gh: int, gw: int, device="cuda") -> torch.Tensor:
-    """Training latent (N, gh*base+2, gw*base+2, z_dim), standard normal:
-    the reference's ``build_train_z``. ``generator`` must live on
+                  base_res: int, gh: int, gw: int, device="cuda",
+                  padding_mode: str = "local") -> torch.Tensor:
+    """Training latent, standard normal: (N, gh*base+2, gw*base+2, z_dim),
+    the reference's ``build_train_z``; with ``padding_mode='zeros'`` one
+    patch's (N, base, base, z_dim). ``generator`` must live on
     ``device``."""
+    if padding_mode == "zeros":
+        return torch.randn((num_images, base_res, base_res, z_dim), generator=generator,
+                           device=device)
     return build_z_full(generator, num_images, z_dim, base_res, gh, gw, device=device)
 
 
@@ -64,10 +71,14 @@ def build_maps_full(generator: Optional[torch.Generator], num_images: int, map_d
 
 def build_train_maps(generator: Optional[torch.Generator], num_images: int, map_dim: int,
                      n_layers_G: int, base_res: int, gh: int, gw: int,
-                     device="cuda") -> List[torch.Tensor]:
+                     device="cuda", padding_mode: str = "local") -> List[torch.Tensor]:
     """Training-time merged SSM maps, one per layer, 4 px oversized: the
-    reference's ``build_train_maps``. ``generator`` must live on
-    ``device``."""
+    reference's ``build_train_maps``; with ``padding_mode='zeros'`` one
+    patch's, maps[i] (N, 2^i*base, 2^i*base, map_dim). ``generator`` must
+    live on ``device``."""
+    if padding_mode == "zeros":
+        return [torch.randn((num_images, (2**i) * base_res, (2**i) * base_res, map_dim),
+                            generator=generator, device=device) for i in range(n_layers_G)]
     return build_maps_full(generator, num_images, map_dim, n_layers_G, base_res, gh, gw,
                            device=device)
 

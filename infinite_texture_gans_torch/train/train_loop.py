@@ -6,9 +6,19 @@ Port of ``infinite_texture_gans_tpu/train/train_loop.py: train``: epochs of
 crops, the latents (and an SSM generator's maps) drawn on the device and
 one fused G + D step (``train_step.py``), the epoch's mean losses printed
 and kept, and a ``.ckpt`` every ``--saving_rate`` epochs and at the end
-(plus ``<epochs>__ema.ckpt`` with ``--ema``), in the reference's format.
-Crops, latents and maps come from one ``torch.Generator`` seeded with the
-run's seed (other numbers than the reference's ``jax.random`` keys).
+(plus ``<epochs>__ema.ckpt`` with ``--ema``), in the reference's format,
+written by one ``AsyncCheckpointer`` while the steps go on, and
+``<epochs>_losses.png`` at the end (where matplotlib is installed).
+Crops, latents and maps come from one ``torch.Generator``, reseeded in
+place at the start of every epoch from (seed, epoch) (:func:`reseed_epoch`,
+the reference's ``fold_in(root_key(seed), epoch)``; other numbers than its
+``jax.random`` keys), so a run resumed at epoch k draws what the
+uninterrupted run drew there.
+
+``--resume PATH`` restores the train state in place
+(``checkpoint.restore_train_state``: parameters, statistics, both Adam
+states, the EMA and the step count), the loss histories and, without
+``--seed``, the run's seed, and runs the epochs from the stored one on.
 
 Steps are dispatched in chunks of K, the reference's superstep plan
 (``--steps_per_dispatch``: 0 plans K itself, 1 dispatches step by step):
@@ -18,9 +28,8 @@ never crosses an epoch, so the learning rates are written between chunks.
 ``--profile_dir`` writes a ``torch.profiler`` trace of the first epoch's
 steps 0-4, dispatched one by one.
 
-Not ported yet: the host prefetcher, meshes, multi-image data, resume and
-the loss plot. Runs on ``cuda`` (``cuda:<dev_num>``) unless ``--device
-cpu`` is given.
+Not ported yet: meshes and multi-image data. Runs on ``cuda``
+(``cuda:<dev_num>``) unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -32,12 +41,17 @@ import random
 import time
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from infinite_texture_gans_torch import resolve_device
 from infinite_texture_gans_torch.config import check_train_args, prepare_parser, train_device
 from infinite_texture_gans_torch.data.datasets import DeviceCropSampler, SingleImageDataset
-from infinite_texture_gans_torch.train.checkpoint import save_checkpoint
+from infinite_texture_gans_torch.train.checkpoint import (
+    AsyncCheckpointer,
+    load_checkpoint,
+    restore_train_state,
+)
 from infinite_texture_gans_torch.train.train_step import (
     StepDispatch,
     TrainState,
@@ -46,7 +60,7 @@ from infinite_texture_gans_torch.train.train_step import (
     dispatch_plan,
     optimizer_tree,
 )
-from infinite_texture_gans_torch.weights import to_jax_variables
+from infinite_texture_gans_torch.weights import jax_tree
 
 PROFILED_STEPS = 5  # --profile_dir traces the first epoch's steps 0-4
 
@@ -60,31 +74,83 @@ def prepare_filename(args: argparse.Namespace) -> str:
     return filename
 
 
+def reseed_epoch(rng: torch.Generator, seed: int, epoch: int) -> None:
+    """Reseed the run's generator in place for epoch ``epoch`` from (seed,
+    epoch) alone, so a resumed run draws what the uninterrupted run drew.
+    It stays the same object: a captured step holds it (``ops/graphs.py``),
+    and a replay reads its seed and offset when it runs."""
+    rng.manual_seed(int(np.random.SeedSequence([seed % 2**64, epoch]).generate_state(
+        1, np.uint64)[0]))
+
+
 def checkpoint_payload(state: TrainState, args: argparse.Namespace, epoch: int, seed: int,
                        G_losses, D_losses) -> Dict:
     """The reference's full training checkpoint: both models' variables,
-    both optimizer states, the EMA snapshot and the metadata."""
+    both optimizer states, the EMA snapshot and the metadata. The arrays are
+    tensors on the state's device (``AsyncCheckpointer`` snapshots them;
+    ``save_checkpoint`` takes them as they are)."""
     scheduled = args.decay_lr in ("exp", "step")
     return {
         "meta": {"epoch": epoch, "args": dict(vars(args)), "seed": seed,
                  "Gloss": list(G_losses), "Dloss": list(D_losses)},
-        "netG_variables": to_jax_variables(state.G.state_dict()),
-        "netD_variables": to_jax_variables(state.D.state_dict()),
+        "netG_variables": jax_tree(state.G.state_dict()),
+        "netD_variables": jax_tree(state.D.state_dict()),
         "opt_G": optimizer_tree(state.G, state.opt_G, state.step, scheduled),
         "opt_D": optimizer_tree(state.D, state.opt_D, state.step, scheduled),
-        "ema": to_jax_variables(state.ema) if state.ema is not None else {},
+        "ema": jax_tree(state.ema) if state.ema is not None else {},
     }
 
 
+def ema_payload(state: TrainState, args: argparse.Namespace) -> Dict:
+    """``<epochs>__ema.ckpt``: the EMA generator alone, as the reference
+    writes it."""
+    ema = jax_tree(state.ema)
+    return {"meta": {"args": dict(vars(args))},
+            "netG_variables": {"params": ema["params"], "batch_stats": ema["batch_stats"]}}
+
+
+def plot_losses(G_losses, D_losses, filename: str) -> None:
+    """``<prefix>losses.png`` (the reference's ``_plot_losses``); skipped
+    where matplotlib is not installed, as there."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return
+    fig = plt.figure(figsize=(10, 5))
+    plt.title("Generator and Discriminator Loss During Training")
+    plt.plot(G_losses, label="G")
+    plt.plot(D_losses, label="D")
+    plt.xlabel("iterations")
+    plt.ylabel("Loss")
+    plt.legend()
+    fig.savefig(filename + "losses.png")
+    plt.close(fig)
+
+
 def train(args: argparse.Namespace,
-          step_callback: Optional[Callable[[int, int, Dict[str, torch.Tensor]], None]] = None):
+          step_callback: Optional[Callable[[int, int, Dict[str, torch.Tensor]], None]] = None,
+          saver: Optional[AsyncCheckpointer] = None):
     """Run the training; returns (state, G_losses, D_losses).
     ``step_callback(epoch, i, metrics)`` runs after every step; ``metrics``
-    holds the step's losses until the next step overwrites them."""
+    holds the step's losses until the next step overwrites them. ``saver``
+    writes the checkpoints (a new ``AsyncCheckpointer`` by default); every
+    save is on disk when ``train`` returns or raises."""
     check_train_args(args)
     device = resolve_device(train_device(args))
     if args.num_workers:
         print("Warning: --num_workers is ignored: single-image batches are sampled on the device")
+    # a resumed run draws the uninterrupted run's epochs only with its seed
+    resume_ckpt = None
+    if getattr(args, "resume", None):
+        resume_ckpt = load_checkpoint(args.resume)
+        ckpt_seed = resume_ckpt.get("meta", {}).get("seed")
+        if args.seed is None and ckpt_seed is not None:
+            args.seed = int(ckpt_seed)
+            print(f"--resume: restored the run's seed {args.seed} from the checkpoint "
+                  "(deterministic resume; pass --seed to override)")
     seed = args.seed if args.seed is not None else random.randint(1, 10000)
     print("Random Seed: ", seed)
     print(args)
@@ -96,6 +162,14 @@ def train(args: argparse.Namespace,
     plan = dispatch_plan(steps_per_epoch, 128 if spd == 0 else spd)
     chunks = dispatch_chunks(steps_per_epoch, plan)
     state = create_train_state(args, steps_per_epoch, device, seed)
+    G_losses, D_losses = [], []
+    start_epoch = 0
+    if resume_ckpt is not None:
+        start_epoch = restore_train_state(state, resume_ckpt, steps_per_epoch)
+        G_losses = list(resume_ckpt["meta"].get("Gloss", []))
+        D_losses = list(resume_ckpt["meta"].get("Dloss", []))
+        del resume_ckpt
+        print(f"Resumed from {args.resume} at epoch {start_epoch}")
     print("# Params. G: ", sum(p.numel() for p in state.G.parameters()))
     print("# Params. D: ", sum(p.numel() for p in state.D.parameters()))
     graphed = device.type == "cuda" and plan[0] > 1
@@ -103,10 +177,9 @@ def train(args: argparse.Namespace,
         print(f"steps per dispatch: {plan[0]}"
               + (f" (+ one {plan[1]}-step remainder chunk)" if plan[1] else "")
               + (", replays of a captured CUDA graph of the step" if graphed else ""))
-    dispatch = StepDispatch(state, DeviceCropSampler(dataset, device),
-                            torch.Generator(device=device).manual_seed(seed), args,
-                            graphed=graphed)
-    G_losses, D_losses = [], []
+    rng = torch.Generator(device=device)
+    dispatch = StepDispatch(state, DeviceCropSampler(dataset, device), rng, args, graphed=graphed)
+    saver = saver if saver is not None else AsyncCheckpointer()
     filename = prepare_filename(args)
     profiler = None
     if args.profile_dir:
@@ -117,45 +190,54 @@ def train(args: argparse.Namespace,
         profiler = torch.profiler.profile(activities=acts)
     start = time.time()
     print("Starting Training Loop...")
-    for epoch in range(args.epochs):
-        # the epoch's losses stay on the device until its end (no per-step sync)
-        dispatch.begin_epoch()
-        if profiler is not None:  # the first epoch: stopped at its step 4 or end
-            profiler.start()
-        i = 0
-        for k in chunks:
-            dispatch.set_lr()
-            for _ in range(k):
-                m = dispatch.step()
-                if step_callback is not None:
-                    step_callback(epoch, i, m)
-                i += 1
-                if profiler is not None and (i == PROFILED_STEPS or i == steps_per_epoch):
-                    if device.type == "cuda":
-                        torch.cuda.synchronize(device)
-                    profiler.stop()
-                    trace = os.path.join(args.profile_dir, f"train_steps_0-{i - 1}.json")
-                    profiler.export_chrome_trace(trace)
-                    print("Profiler trace written to", trace)
-                    profiler = None
-        d_run = float(dispatch.d_sum) / (args.batch_size * steps_per_epoch)
-        g_run = float(dispatch.g_sum) / (args.num_images * steps_per_epoch)
-        elapsed = time.time() - start
-        print("[%d/%d]\tLoss_D: %.4f\tLoss_G: %.4f, elapsed_time = %.4f min (%.2f steps/s)"
-              % (epoch + 1, args.epochs, d_run, g_run, elapsed / 60,
-                 (epoch + 1) * steps_per_epoch / elapsed))
-        G_losses.append(g_run)
-        D_losses.append(d_run)
-        last = epoch + 1 == args.epochs
-        if args.saving_rate is not None and ((epoch + 1) % args.saving_rate == 0 or last):
-            save_checkpoint(filename + f"{epoch + 1}.ckpt",
-                            checkpoint_payload(state, args, epoch + 1, seed, G_losses, D_losses))
-        if last and args.ema:
-            ema = to_jax_variables(state.ema)
-            save_checkpoint(filename + "_ema.ckpt", {
-                "meta": {"args": dict(vars(args))},
-                "netG_variables": {"params": ema["params"], "batch_stats": ema["batch_stats"]},
-            })
+    try:
+        for epoch in range(start_epoch, args.epochs):
+            reseed_epoch(rng, seed, epoch)
+            # the epoch's losses stay on the device until its end (no per-step sync)
+            dispatch.begin_epoch()
+            if profiler is not None:  # the first epoch run: stopped at its step 4 or end
+                profiler.start()
+            i = 0
+            for k in chunks:
+                dispatch.set_lr()
+                for _ in range(k):
+                    m = dispatch.step()
+                    if step_callback is not None:
+                        step_callback(epoch, i, m)
+                    i += 1
+                    if profiler is not None and (i == PROFILED_STEPS or i == steps_per_epoch):
+                        if device.type == "cuda":
+                            torch.cuda.synchronize(device)
+                        profiler.stop()
+                        trace = os.path.join(args.profile_dir, f"train_steps_0-{i - 1}.json")
+                        profiler.export_chrome_trace(trace)
+                        print("Profiler trace written to", trace)
+                        profiler = None
+            d_run = float(dispatch.d_sum) / (args.batch_size * steps_per_epoch)
+            g_run = float(dispatch.g_sum) / (args.num_images * steps_per_epoch)
+            elapsed = time.time() - start
+            print("[%d/%d]\tLoss_D: %.4f\tLoss_G: %.4f, elapsed_time = %.4f min (%.2f steps/s)"
+                  % (epoch + 1, args.epochs, d_run, g_run, elapsed / 60,
+                     (epoch + 1 - start_epoch) * steps_per_epoch / elapsed))
+            G_losses.append(g_run)
+            D_losses.append(d_run)
+            last = epoch + 1 == args.epochs
+            if args.saving_rate is not None and ((epoch + 1) % args.saving_rate == 0 or last):
+                saver.submit(filename + f"{epoch + 1}.ckpt",
+                             checkpoint_payload(state, args, epoch + 1, seed, G_losses, D_losses))
+            if last:
+                if args.ema:
+                    saver.submit(filename + "_ema.ckpt", ema_payload(state, args))
+                plot_losses(G_losses, D_losses, filename)
+    except BaseException:
+        # drain the saves in flight so no file is left half written; the
+        # drain's own error never masks the first one
+        try:
+            saver.wait()
+        except Exception:
+            pass
+        raise
+    saver.wait()
     return state, G_losses, D_losses
 
 

@@ -44,7 +44,7 @@ from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
 from infinite_texture_gans_torch.ops.graphs import CountedGraph, on_side_stream
 from infinite_texture_gans_torch.sampling.latents import build_train_maps, build_train_z
 from infinite_texture_gans_torch.train import losses as L
-from infinite_texture_gans_torch.weights import to_jax_variables
+from infinite_texture_gans_torch.weights import jax_tree
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -272,11 +272,12 @@ class StepDispatch:
         real = self.sampler.sample(self.rng, a.batch_size)
         dev = real.device
         z = build_train_z(self.rng, a.num_images, G.z_dim, G.base_res, G.num_patches_h,
-                          G.num_patches_w, device=dev)
+                          G.num_patches_w, device=dev, padding_mode=G.padding_mode)
         maps = None
         if G.type_norm == "SSM":
             maps = build_train_maps(self.rng, a.num_images, G.map_dim, G.n_layers_G, G.base_res,
-                                    G.num_patches_h, G.num_patches_w, device=dev)
+                                    G.num_patches_h, G.num_patches_w, device=dev,
+                                    padding_mode=G.padding_mode)
         m = fused_step(self.state, real, z, maps, loss_type=a.loss, smooth=a.smooth,
                        ema_decay=a.ema_decay, use_ema=a.ema)
         self.d_sum.add_(m["d_loss_fake"] * a.num_images).add_(m["d_loss_real"] * a.batch_size)
@@ -306,12 +307,14 @@ def optimizer_tree(module: torch.nn.Module, opt: torch.optim.Adam, step: int,
                    scheduled: bool) -> Dict:
     """Adam's state as the reference's checkpoint holds ``optax.adam``'s:
     ``{'0': {'count', 'mu', 'nu'}, '1': {} or {'count'}}`` (the second entry
-    is the learning-rate transform, which keeps a count when scheduled)."""
+    is the learning-rate transform, which keeps a count when scheduled).
+    The moments stay tensors on their device (``weights.jax_tree``);
+    ``checkpoint.restore_train_state`` is the inverse."""
     mu, nu = {}, {}
     for name, p in module.named_parameters():
         mu[name] = opt.state[p]["exp_avg"]
         nu[name] = opt.state[p]["exp_avg_sq"]
     count = np.asarray(step, np.int32)
-    return {"0": {"count": count, "mu": to_jax_variables(mu).get("params", {}),
-                  "nu": to_jax_variables(nu).get("params", {})},
+    return {"0": {"count": count, "mu": jax_tree(mu).get("params", {}),
+                  "nu": jax_tree(nu).get("params", {})},
             "1": {"count": count} if scheduled else {}}

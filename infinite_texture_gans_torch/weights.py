@@ -6,7 +6,8 @@ The port's module names follow the flax paths, so the walk is mechanical:
 ``batch_stats`` ``mean``/``var`` become buffers, the attention ``gamma``
 scalar carries over, and the ``spectral`` power-iteration vectors ``u``/``v``
 become the SN convs' buffers (the port keeps ``v`` in the reference's
-order). :func:`to_jax_variables` is the inverse, for the checkpoint writer.
+order). :func:`jax_tree` and :func:`to_jax_variables` are the inverse, for
+the checkpoint writer.
 """
 
 from __future__ import annotations
@@ -63,21 +64,33 @@ def from_jax_variables(variables: Mapping[str, Mapping], *, spectral: bool = Fal
     return state
 
 
-def to_jax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, Any]]:
-    """The inverse of :func:`from_jax_variables`: a module's state dict ->
-    ``{'params': ..., 'batch_stats': ..., 'spectral': ...}`` nested dicts of
-    numpy arrays (float32; OIHW weights back to HWIO kernels). Collections
-    without leaves are left out."""
+def jax_tree(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, Any]]:
+    """The inverse of :func:`from_jax_variables` on the tensors' own device:
+    a module's state dict -> ``{'params': ..., 'batch_stats': ...,
+    'spectral': ...}`` nested dicts of float32 tensors (OIHW weights viewed
+    as HWIO kernels; nothing is copied to the host). Collections without
+    leaves are left out."""
     out: Dict[str, Dict[str, Any]] = {}
     for key, t in state.items():
         *modules, name = key.split(".")
         collection = _COLLECTION_OF.get(name, "params")
-        a = t.detach().cpu()
+        a = t.detach()
         if name == "weight":
             name = "kernel"
             a = a.permute(2, 3, 1, 0) if a.dim() == 4 else a.t()
         node = out.setdefault(collection, {})
         for m in modules:
             node = node.setdefault(m, {})
-        node[name] = a.float().numpy().copy()
+        node[name] = a.float()
     return out
+
+
+def map_leaves(tree: Mapping, fn) -> Dict[str, Any]:
+    """``tree`` with ``fn`` applied to every leaf that is not a mapping."""
+    return {k: map_leaves(v, fn) if isinstance(v, Mapping) else fn(v) for k, v in tree.items()}
+
+
+def to_jax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, Any]]:
+    """:func:`jax_tree` as numpy arrays on the host, for the checkpoint
+    writer."""
+    return map_leaves(jax_tree(state), lambda a: a.cpu().numpy().copy())

@@ -104,8 +104,13 @@ def test_one_pass_matches_jax(small_tree, jax_tail, port_tail):
 
 
 def test_rejects_unported_options():
-    with pytest.raises(NotImplementedError):  # zeros padding mode (SSM is ported)
-        ResidualPatchGenerator(**SMALL, padding_mode="zeros")
+    with pytest.raises(NotImplementedError):  # spectral norm in G (zeros padding is ported)
+        ResidualPatchGenerator(**SMALL, SN=True)
+    with pytest.raises(ValueError):
+        ResidualPatchGenerator(**SMALL, padding_mode="reflect")
+    # zeros padding runs every block NHWC, as the reference's gate has it
+    zeros = ResidualPatchGenerator(**SMALL, padding_mode="zeros")
+    assert not zeros.emits_chw() and zeros.eval_fuse_blocks() == frozenset()
     # the fused eval up-conv (K14) is ported: 'all' is accepted
     assert generator_kwargs(dict_to_args({"fuse_up": "all"}))["fuse_up"] == "all"
     assert ResidualPatchGenerator(**SMALL, fuse_up="all").eval_fuse_blocks() == {4}

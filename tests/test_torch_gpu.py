@@ -2162,3 +2162,125 @@ def test_graphed_train_equals_eager(cuda, tmp_path, recipe):
     assert runs[0][2:] == runs[1][2:]
     for name, ref in runs[1][1].items():
         assert torch.equal(runs[0][1][name], ref), name
+
+
+def _train_tensors(state):
+    """Every tensor of a train state a resume restores, by name."""
+    out = {f"{m}.{k}": v for m, module in (("G", state.G), ("D", state.D))
+           for k, v in module.state_dict().items()}
+    for m, module, opt in (("G", state.G, state.opt_G), ("D", state.D, state.opt_D)):
+        for n, p in module.named_parameters():
+            out.update({f"adam.{m}.{n}.{k}": v for k, v in opt.state[p].items()})
+    out.update({f"ema.{k}": v for k, v in state.ema.items()})
+    return out
+
+
+def test_graphed_resume_equals_uninterrupted(cuda, tmp_path):
+    """A graphed bf16 run of 2 epochs (4 steps each: two eager warm-up steps,
+    a capture, replays), resumed in a fresh ``train`` from ``2_2.ckpt``
+    without ``--seed``, ends where the uninterrupted 4-epoch graphed run
+    ends: the same loss histories and every parameter, buffer, Adam and EMA
+    tensor bit-equal (bf16 kernels sum in a fixed order), and the same
+    launches as the uninterrupted run's last 2 epochs. The per-epoch
+    ``manual_seed`` of the generator that the captured step holds reaches
+    its replays."""
+    from infinite_texture_gans_torch.ops import ssm
+    from infinite_texture_gans_torch.train import checkpoint, train_loop
+
+    def run(name, epochs, seed, resume=None):
+        (tmp_path / name).mkdir()
+        args = _graph_args(tmp_path / name, "auto")
+        args.compute_dtype, args.sampling, args.saving_rate = "bfloat16", 16, 2
+        args.epochs, args.seed, args.resume = epochs, seed, resume
+        marks = []
+        _reset_counts()
+        state, g, d = train_loop.train(args, step_callback=lambda e, i, m: marks.append(
+            (e, dict(tk.LAUNCHES), dict(tk.ROUTE_LAUNCHES), dict(ssm.ROUTE_LAUNCHES))))
+        torch.cuda.synchronize()
+        return args, state, g, d, marks
+
+    run("half", 2, None)
+    drawn = checkpoint.load_checkpoint(str(tmp_path / "half" / "cp" / "2_2.ckpt"))["meta"]["seed"]
+    full = run("full", 4, drawn)
+    resumed = run("resumed", 4, None, str(tmp_path / "half" / "cp" / "2_2.ckpt"))
+    assert resumed[0].seed == drawn
+    assert (resumed[2], resumed[3]) == (full[2], full[3]) and len(full[2]) == 4
+    got = _train_tensors(resumed[1])
+    for k, v in _train_tensors(full[1]).items():
+        assert torch.equal(got[k], v), k
+    # launches of epochs 3-4: the uninterrupted run's from the end of epoch 2 on
+    at2 = [m for m in full[4] if m[0] == 1][-1]
+    for a, b, c in zip(full[4][-1][1:], at2[1:], resumed[4][-1][1:]):
+        assert {k: a[k] - b[k] for k in a} == c
+
+
+def test_save_in_flight_during_capture(cuda, tmp_path, monkeypatch):
+    """A save whose device-to-host copy runs while the main thread captures
+    the step: the worker's copy (on its own stream) neither breaks the
+    capture nor lands in the graph, and the file holds the tensors as they
+    were at submit. Then the train loop where an epoch is shorter than the
+    warm-up (2 steps an epoch, ``--saving_rate 1``), so the epoch-1 save is
+    in flight while epoch 2 captures its step: each file holds the state of
+    its epoch."""
+    import threading
+
+    from infinite_texture_gans_torch.ops.graphs import CountedGraph
+    from infinite_texture_gans_torch.train import checkpoint, train_loop
+
+    capturing, copied = threading.Event(), threading.Event()
+
+    class Held(checkpoint.AsyncCheckpointer):
+        @staticmethod
+        def _to_host(payload, event, stream):
+            assert capturing.wait(60)
+            out = checkpoint.AsyncCheckpointer._to_host(payload, event, stream)
+            copied.set()
+            return out
+
+    big = torch.arange(1 << 22, device=cuda, dtype=torch.float32)
+    saver = Held()
+    saver.submit(str(tmp_path / "held.ckpt"), {"meta": {"k": 1}, "x": big})
+    big.add_(1.0)  # after submit: the file keeps the snapshot
+    x = torch.ones(1 << 20, device=cuda)
+    graph = CountedGraph()
+
+    def body():
+        y = x * 2
+        capturing.set()
+        assert copied.wait(60)  # the worker copied while this capture was open
+        return y + 1
+
+    with torch.cuda.device(cuda):
+        y = graph.capture(body)
+    saver.wait()
+    x.fill_(3.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.full_like(x, 7.0))
+    got = checkpoint.load_checkpoint(str(tmp_path / "held.ckpt"))
+    np.testing.assert_array_equal(got["x"], np.arange(1 << 22, dtype=np.float32))
+
+    from infinite_texture_gans_torch.weights import from_jax_variables
+
+    args = _graph_args(tmp_path, "auto")
+    args.compute_dtype, args.sampling, args.epochs, args.steps_per_dispatch = "bfloat16", 8, 3, 0
+    states, snaps = [], {}
+    create = train_loop.create_train_state
+    monkeypatch.setattr(train_loop, "create_train_state",
+                        lambda *a, **kw: states.append(create(*a, **kw)) or states[0])
+
+    def on_step(epoch, i, m):
+        if i == 1:  # an epoch's last step: the state its save holds
+            torch.cuda.synchronize()
+            snaps[epoch] = {f"{name}.{k}": v.detach().cpu().clone()
+                            for name, module in (("G", states[0].G), ("D", states[0].D))
+                            for k, v in module.state_dict().items()}
+
+    train_loop.train(args, step_callback=on_step)
+    for epoch in range(3):
+        ck = checkpoint.load_checkpoint(str(tmp_path / "cp" / f"3_{epoch + 1}.ckpt"))
+        assert ck["meta"]["epoch"] == epoch + 1
+        assert int(ck["opt_G"]["0"]["count"]) == 2 * (epoch + 1)
+        for name in ("G", "D"):
+            for k, v in from_jax_variables(ck[f"net{name}_variables"], spectral=True).items():
+                assert torch.equal(v, snaps[epoch][f"{name}.{k}"]), (epoch, name, k)

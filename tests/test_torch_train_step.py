@@ -28,6 +28,7 @@ in its first step, whatever the sign of the noise). Gradients of the
 reference come from its Adam state: with beta1 = 0, Adam's first moment
 after one step is the gradient itself."""
 
+import importlib.util
 import os
 
 import jax
@@ -50,6 +51,9 @@ from infinite_texture_gans_torch.train import checkpoint as port_ckpt
 from infinite_texture_gans_torch.train import train_loop
 from infinite_texture_gans_torch.train.train_step import create_train_state, train_step
 from infinite_texture_gans_torch.weights import from_jax_variables
+from _torch_step_check import jax_grads
+from _torch_step_check import noise_leaves as _noise_leaves
+from _torch_step_check import np_tree as _np
 from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
 
 
@@ -59,21 +63,8 @@ TINY = ["--G_ch", "8", "--D_ch", "8", "--z_dim", "16", "--n_layers_G", "4", "--n
 LR = 2e-4
 
 
-def _np(tree):
-    return jax.tree_util.tree_map(lambda a: np.array(a), jax.device_get(tree))
-
-
-NOISE = 1e-6  # a gradient below this share of the model's largest is rounding noise
-
-
 def _grads(step_case, model):
-    opt = step_case["new"].opt_G if model == "G" else step_case["new"].opt_D
-    return from_jax_variables({"params": _np(opt[0].mu)})
-
-
-def _noise_leaves(grads):
-    top = max(float(v.abs().max()) for v in grads.values())
-    return top, {k for k, v in grads.items() if float(v.abs().max()) < NOISE * top}
+    return jax_grads(step_case["new"], model)
 
 
 def run_step_case(fuse_up, chw_tail="on"):
@@ -235,7 +226,9 @@ def test_train_cli_writes_checkpoint_that_samples(tmp_path):
     train_loop.main(TINY + ["--data_path", str(tmp_path / "tex.png"), "--data_ext", "png",
                             "--device", "cpu", "--seed", "3", "--epochs", "1", "--saving_rate", "1",
                             "--fname", str(out)])
-    assert sorted(os.listdir(out)) == ["1_1.ckpt", "1__ema.ckpt"]
+    # the loss plot where matplotlib is installed, as the reference writes it
+    plot = ["1_losses.png"] if importlib.util.find_spec("matplotlib") else []
+    assert sorted(os.listdir(out)) == ["1_1.ckpt", "1__ema.ckpt"] + plot
     ck = port_ckpt.load_checkpoint(str(out / "1_1.ckpt"))
     assert ck["meta"]["epoch"] == 1 and len(ck["meta"]["Gloss"]) == 1
     assert int(ck["opt_G"]["0"]["count"]) == 2  # sampling 8 / batch 4
