@@ -204,7 +204,17 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    run's EMA checkpoint (a 1024^2 one pass, a 4096^2 ``--tiles`` canvas,
    both walls), and in f32 at 2048^2 the tiled canvas's first tile against
    the one pass; none of it may launch one of the port's kernels.
-10. Prints the ``kernels`` JSON line (``:gen_all`` rows for K1, K9, K14, K2,
+10. The training options (``options_phase``) at full Experiment-1 width,
+   ``--fuse_up auto``: ``--loss wgan --gp_weight 10 --disc_iters 5``,
+   ``--norm_layer_D batch --disc_iters 2``, ``--norm_layer_D instance`` and
+   ``--spec_norm_G --spec_norm_D``: graphed steps against eager ones
+   (``graph_parity``; bf16 bit-equal, the exact launches of each step, a
+   planted fault under WGAN-GP: every replay reusing the first replay's
+   penalty weights), the f32 WGAN-GP step against its plain versions, 30
+   graphed bf16 steps through ``train`` for WGAN-GP and for SN in G (warm
+   wall, busy share, peak memory), and the SN run's EMA checkpoint through
+   the sample CLI to a 1024^2 PNG with phase 4's launches per canvas.
+11. Prints the ``kernels`` JSON line (``:gen_all`` rows for K1, K9, K14, K2,
    K3 and K10 per 384^2 sub-image under ``--fuse_up all``, ``:gen_ssm`` rows
    for K15, K1, K2, K3 and K4 per 192^2 SSM sub-image, and a ``:train_ssm``
    row for every kernel
@@ -427,6 +437,29 @@ ZEROS_CANVAS = 1024
 ZEROS_TILED = 4096
 ZEROS_F32 = 2048
 TILE_TOL = 1e-4
+# Phase 10: the training options on the Experiment-1 recipe (--fuse_up auto,
+# full width): WGAN-GP with the paper's n_critic and penalty weight
+# (Gulrajani et al. 2017: 5 critic updates a G update, lambda 10), D
+# BatchNorm with 2 D updates a step, D InstanceNorm, and spectral norm in G
+# (with the recipe's own in D); the SN run's EMA checkpoint rendered at
+# OPTION_CANVAS^2 through the sample CLI
+OPTION_RECIPES = {"wgan": ["--loss", "wgan", "--gp_weight", "10", "--disc_iters", "5"],
+                  "batch": ["--norm_layer_D", "batch", "--disc_iters", "2"],
+                  "instance": ["--norm_layer_D", "instance"],
+                  "sn": ["--spec_norm_G", "--spec_norm_D"]}
+# the options' parser defaults (a step parity or training line names the others)
+OPTION_DEFAULTS = {"loss": "standard", "disc_iters": 1, "norm_layer_D": None,
+                   "spec_norm_G": False}
+OPTION_CANVAS = 1024
+# the option recipes whose f32 graph parity is reported, not held: G's
+# gradient through D's batch or per-image statistics carries the f32
+# kernels' atomic order far past step parity's gate (on an H100 80GB HBM3 at
+# 700 W this script's first graphed step read 1.07e-2 and 1.65e-2 of a
+# leaf's largest value from eager under the batch recipe, an eager run
+# 2.63e-2 from another, and 1.16e-2 under the instance recipe, at the conv
+# biases before G's train-mode norms; on the CPU JAX's own f32 step of the
+# batch recipe reads 3% from its f64 one, tests/test_torch_train_options.py)
+F32_REPORTED = ("batch", "instance")
 # The README's SSM recipe (Exp-3 style; benchmarks/trace_step.py's
 # BENCH_RECIPE=ssm): the Experiment-1 flags with --type_norm_G SSM, map_dim
 # 1, n_layers_G 5 (64^2 patches, 192^2 grids), n_layers_D 3, 128^2 crops of
@@ -497,6 +530,18 @@ DPRE_TOL = 5e-4
 STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 5e-3
 NOISE_TOL = 1e-3
+# The same for the WGAN-GP recipe of phase 10 (five critic updates before
+# the G update, each moving D by Adam's near-sign steps, amplify the f32
+# kernels' atomic order): on an H100 80GB HBM3 at 700 W
+# (step_parity_study.py WGAN) the kernels read 5.0e-4 (losses) and 1.77e-2
+# (G's largest leaf deviation) from themselves, 1.35e-4 and 1.19e-2 from the
+# plain versions, and the plain versions 5.5e-3 and 4.67e-2 from a CPU
+# float64 step; K6 without the top border's fold reads 1.21e-1. This
+# script's phase 10 then read 5.3e-4 and 2.55e-2 kernels against plain. The
+# gates sit at about twice the largest of those readings, the planted fault
+# 2.4x over the gradients' gate.
+WGAN_STEP_LOSS_TOL = 1e-3
+WGAN_STEP_GRAD_TOL = 5e-2
 NOISE_SHARE = 1e-6
 # fused against unfused step (kernels both, f32): each gradient leaf's
 # norm-relative deviation at most max(FUSE_FLOOR, FUSE_FLOOR_SCALE x) that
@@ -542,6 +587,13 @@ DW1X1_TILE = 256
 # K9 dW's and K13 dW's bf16 routes: each planted fault must read at least this
 # many times the check's limit (SUM_TOL of max|ref|)
 DW_PLANT = 10.0
+
+
+def option_flags(args) -> str:
+    """The training options of ``args`` that differ from their defaults,
+    as flags (a line's label)."""
+    return "".join(f" --{f} {getattr(args, f)}" for f, default in OPTION_DEFAULTS.items()
+                   if getattr(args, f) != default)
 
 
 def fail(msg: str):
@@ -666,37 +718,27 @@ def plain_tail():
             setattr(mod, k, fn)
 
 
-def draw_train_inputs(gen, args, dev):
-    """The train loop's latent and, for SSM, maps, drawn from ``gen``."""
-    from infinite_texture_gans_torch.sampling.latents import build_train_maps, build_train_z
-
-    z = build_train_z(gen, args.num_images, args.z_dim, args.base_res, args.num_patches_height,
-                      args.num_patches_width, device=dev)
-    maps = None
-    if args.type_norm_G == "SSM":
-        maps = build_train_maps(gen, args.num_images, args.map_dim, args.n_layers_G, args.base_res,
-                                args.num_patches_height, args.num_patches_width, device=dev)
-    return z, maps
-
-
 def parity_inputs(dev, argv):
-    """Step parity's flags, real crops, latent and maps: drawn from seed 7."""
+    """Step parity's flags, real crops and each D iteration's draws (latent,
+    maps, the penalty's weights: ``train_step.Draw``), drawn from seed 7 in
+    the train loop's order."""
     import torch
 
     from infinite_texture_gans_torch.config import prepare_parser
     from infinite_texture_gans_torch.data.datasets import DeviceCropSampler, SingleImageDataset
+    from infinite_texture_gans_torch.train.train_step import draw_iterations
 
     args = prepare_parser().parse_args(argv)
     data = SingleImageDataset(args.data_path, args.data_ext, None, args.random_crop, 64)
     gen = torch.Generator(device=dev).manual_seed(7)
     real = DeviceCropSampler(data, dev).sample(gen, args.batch_size)
-    z, maps = draw_train_inputs(gen, args, dev)
-    return args, real, z, maps
+    return args, real, draw_iterations(gen, args, dev)
 
 
-def run_step(dev, args, real, z, maps, sync, patch=contextlib.nullcontext, reference=False):
-    """One train step from the fixed state (seed 11) on the given inputs,
-    under the context ``patch`` (``plain_tail`` for the plain versions).
+def run_step(dev, args, real, draws, sync, patch=contextlib.nullcontext, reference=False):
+    """One train step from the fixed state (seed 11) on the given inputs
+    (``parity_inputs``), under the context ``patch`` (``plain_tail`` for the
+    plain versions).
     ``reference``: the step in float64 on the CPU with every block NHWC
     (``chw_tail='off'``; the kernels' plain versions compute in float32),
     the exact arithmetic the others are measured against. Returns (losses,
@@ -718,13 +760,17 @@ def run_step(dev, args, real, z, maps, sync, patch=contextlib.nullcontext, refer
         st.G.chw_tail = "off"
         st.opt_G, st.opt_D = make_optimizers(st.G, st.D, args)
         st.ema = {k: v.detach().clone() for k, v in st.G.state_dict().items()}
-        cpu = lambda t: t.detach().to("cpu", torch.float64)  # noqa: E731
-        real, z = cpu(real), cpu(z)
-        maps = None if maps is None else [cpu(m) for m in maps]
+        cpu = lambda t: None if t is None else t.detach().to("cpu", torch.float64)  # noqa: E731
+        real = cpu(real)
+        draws = [d._replace(z=cpu(d.z), maps=None if d.maps is None else [cpu(m) for m in d.maps],
+                            eps=cpu(d.eps)) for d in draws]
     sync()
     kernels.reset_launches()
     with patch():
-        m = train_step(st, real, z, maps, smooth=args.smooth, use_ema=args.ema)
+        m = train_step(st, real, [d.z for d in draws],
+                       None if draws[0].maps is None else [d.maps for d in draws],
+                       eps=[d.eps for d in draws], loss_type=args.loss, smooth=args.smooth,
+                       gp_weight=args.gp_weight, use_ema=args.ema)
     sync()
     grads = {model: {f"{model}.{n}": p.grad.to(dev, torch.float32)
                      for n, p in module.named_parameters()}
@@ -748,20 +794,21 @@ def leaf_deviations(got, want):
     return out
 
 
-def step_parity(dev, argv, want_launches, sync):
+def step_parity(dev, argv, want_launches, sync, loss_tol=STEP_LOSS_TOL,
+                grad_tol=STEP_GRAD_TOL):
     """One fused step from a fixed state with the kernels, and the same step
     with the tail's and the stem's plain versions: the losses and every
-    gradient leaf must agree (STEP_LOSS_TOL; each leaf's largest deviation
-    within STEP_GRAD_TOL of its largest value, a rounding-noise leaf within
+    gradient leaf must agree (``loss_tol``; each leaf's largest deviation
+    within ``grad_tol`` of its largest value, a rounding-noise leaf within
     NOISE_TOL of the model's largest gradient); the kernel run must launch
     ``want_launches``. Returns {'kernels' | 'plain': (losses, G grads,
     D grads, launches)}."""
-    args, real, z, maps = parity_inputs(dev, argv)
-    runs = {"kernels": run_step(dev, args, real, z, maps, sync),
-            "plain": run_step(dev, args, real, z, maps, sync, plain_tail)}
+    args, real, draws = parity_inputs(dev, argv)
+    runs = {"kernels": run_step(dev, args, real, draws, sync),
+            "plain": run_step(dev, args, real, draws, sync, plain_tail)}
     (lk, gk, dk, nk), (lp, gp, dp, n_plain) = runs["kernels"], runs["plain"]
-    print(f"[step parity] {args.type_norm_G} --fuse_up {args.fuse_up}, {args.compute_dtype}, "
-          f"G_ch {args.G_ch}, n_layers_G {args.n_layers_G}, "
+    print(f"[step parity] {args.type_norm_G} --fuse_up {args.fuse_up}{option_flags(args)}, "
+          f"{args.compute_dtype}, G_ch {args.G_ch}, n_layers_G {args.n_layers_G}, "
           f"D_ch {args.D_ch}, {args.num_images} fakes + {args.batch_size} real "
           f"{args.random_crop}^2 crops; launches with kernels {json.dumps(nk)}")
     if nk != want_launches or any(n_plain.values()):
@@ -769,20 +816,20 @@ def step_parity(dev, argv, want_launches, sync):
     for k, ref in lp.items():
         rel = abs(lk[k] - ref) / max(abs(ref), 1e-30)
         print(f"[step parity] {k}: kernels {lk[k]:.7f} plain {ref:.7f} rel {rel:.3e} "
-              f"limit {STEP_LOSS_TOL:g}")
-        if not (math.isfinite(lk[k]) and rel <= STEP_LOSS_TOL):
+              f"limit {loss_tol:g}")
+        if not (math.isfinite(lk[k]) and rel <= loss_tol):
             fail(f"step parity: {k} {lk[k]} vs plain {ref}")
     for model, got, want in (("G", gk, gp), ("D", dk, dp)):
         devs = leaf_deviations(got, want)
         for name, (share, _, noise) in devs.items():
-            if not share <= (NOISE_TOL if noise else STEP_GRAD_TOL):
+            if not share <= (NOISE_TOL if noise else grad_tol):
                 fail(f"step parity: gradient {name} differs by {share:.3e} of "
                      f"{'the largest gradient' if noise else 'its largest value'}")
         signal = {k: v for k, v in devs.items() if not v[2]}
         worst = max(signal, key=lambda k: signal[k][0])
         worst_norm = max(signal, key=lambda k: signal[k][1])
         print(f"[step parity] {model} gradients, {len(want)} leaves: worst {worst} at "
-              f"{signal[worst][0]:.3e} of its largest value (limit {STEP_GRAD_TOL:g}); largest "
+              f"{signal[worst][0]:.3e} of its largest value (limit {grad_tol:g}); largest "
               f"norm-relative deviation {signal[worst_norm][1]:.3e} ({worst_norm}); "
               f"{len(devs) - len(signal)} rounding-noise leaves within {NOISE_TOL:g} of the "
               "model's largest gradient")
@@ -839,16 +886,19 @@ def train_tensors(st):
     return out
 
 
-def dispatch_run(dev, args, graphed, sync, start=None, plant=False):
+def dispatch_run(dev, args, graphed, sync, start=None, plant=None):
     """GRAPH_STEPS steps of the train loop's ``StepDispatch`` from the fixed
     state (seed 11) and crop / latent generator (seed 7): eager, or
     ``graphed`` as the train loop runs it (WARMUP_STEPS eager warm-up
     steps on a side stream, then the captured step replayed). Before step
     WARMUP_STEPS + 1 (the first replay) the state and the generator are
     set to ``start`` (another run's ``start``; the f32 warm-up steps
-    differ from run to run) in place. ``plant``: the generator is set back
-    before every later replay, so all replays draw the first one's crops
-    and latents. Returns {'start': the state and generator state before
+    differ from run to run) in place. ``plant`` 'draws': the generator is
+    set back before every later replay, so all replays draw the first one's
+    crops and latents; 'eps': the captured step reads the penalty's weights
+    from a buffer filled before the capture with the first replay's (its
+    draws still made, so the crops and latents stay fresh), so every replay
+    reuses them. Returns {'start': the state and generator state before
     that step, 'losses': per step, 'grads1' / 'grads': that step's / the
     last step's gradients by model ({'G': {leaf: grad}, 'D': ...}),
     'state': parameters and buffers after the run, 'launches': kernel
@@ -890,7 +940,9 @@ def dispatch_run(dev, args, graphed, sync, start=None, plant=False):
                 rng.set_state(start["rng"])
             out["start"] = {"tensors": {k: v.clone() for k, v in train_tensors(st).items()},
                             "rng": rng.get_state()}
-        elif plant and i > WARMUP_STEPS:
+            if plant == "eps":
+                plant_stale_eps(dispatch, dev)
+        elif plant == "draws" and i > WARMUP_STEPS:
             rng.set_state(out["start"]["rng"])
         out["losses"].append({k: float(v) for k, v in dispatch.step().items()})
         if i == WARMUP_STEPS:
@@ -903,6 +955,27 @@ def dispatch_run(dev, args, graphed, sync, start=None, plant=False):
     out["launches"] = dict(kernels.LAUNCHES)
     out["routes"] = {**kernels.ROUTE_LAUNCHES, **ssm.ROUTE_LAUNCHES}
     return out
+
+
+def plant_stale_eps(dispatch, dev) -> None:
+    """The planted fault of ``dispatch_run``'s 'eps': ``dispatch``'s draws
+    made while a capture runs hand on, in place of the penalty's weights
+    they draw, a buffer filled now with the weights the next step will
+    draw (a copy of the generator's state draws them ahead)."""
+    import torch
+
+    peek = torch.Generator(device=dev)
+    peek.set_state(dispatch.rng.get_state())
+    stale = [d.eps.clone() for d in dispatch.draw(peek)[1]]
+    draw = dispatch.draw
+
+    def planted(rng=None):
+        real, draws = draw(rng)
+        if torch.cuda.is_current_stream_capturing():
+            draws = [d._replace(eps=e) for d, e in zip(draws, stale)]
+        return real, draws
+
+    dispatch.draw = planted
 
 
 def graph_parity_gap(ref, got, lo, hi, grads):
@@ -931,7 +1004,11 @@ def graph_parity_gap(ref, got, lo, hi, grads):
     return loss_rel, worst, bad, bits
 
 
-def graph_parity(dev, label, argv, sync, plant: bool, f32_held: bool = True) -> None:
+PLANTS = {"draws": "every replay draws the first replay's crops and latents",
+          "eps": "every replay reuses the first replay's penalty weights"}
+
+
+def graph_parity(dev, label, argv, sync, plant=None, f32_held: bool = True) -> None:
     """The train loop's dispatched step, eagerly and as the train loop runs
     it (WARMUP_STEPS eager warm-up steps, then CUDA graph replays), from one
     state and one generator state, GRAPH_STEPS steps each, every run
@@ -945,9 +1022,11 @@ def graph_parity(dev, label, argv, sync, plant: bool, f32_held: bool = True) -> 
       the training amplifies their order from step to step;
     - bfloat16 (the recipes' dtype, whose kernels sum in a fixed order):
       every loss, the last step's gradients and every parameter and buffer
-      bit-equal; with ``plant``, replays that all draw the first replay's
-      crops and latents must break that and fail the gates;
+      bit-equal; with ``plant`` (a key of PLANTS, ``dispatch_run``'s
+      faults) the planted run must break that and fail the gates;
     - both: the same launches by kernel and by entry point.
+
+    Returns the eager bf16 run's launches over its GRAPH_STEPS steps.
 
     ``f32_held=False`` reports the float32 comparison without holding it:
     the zeros path's float32 steps are cuDNN's throughout, whose weight
@@ -966,8 +1045,8 @@ def graph_parity(dev, label, argv, sync, plant: bool, f32_held: bool = True) -> 
         if dtype == "float32":
             runs["eager again"] = dispatch_run(dev, args, False, sync, start)
         elif plant:
-            runs["planted fault (every replay draws the first replay's crops and latents)"] = \
-                dispatch_run(dev, args, True, sync, start, plant=True)
+            runs[f"planted fault ({PLANTS[plant]})"] = dispatch_run(dev, args, True, sync, start,
+                                                                    plant=plant)
         for what, run in runs.items():
             if run["launches"] != eager["launches"] or run["routes"] != eager["routes"]:
                 fail(f"{label} {dtype}: {what} launches {run['launches']} {run['routes']} != "
@@ -984,7 +1063,7 @@ def graph_parity(dev, label, argv, sync, plant: bool, f32_held: bool = True) -> 
             passed = first[0] <= STEP_LOSS_TOL and not first[2]
             if what.startswith("planted"):
                 if last[3] or (passed and last[0] <= STEP_LOSS_TOL and not last[2]):
-                    fail(f"{label}: the planted fault (replays on the first replay's draws) passed")
+                    fail(f"{label}: the planted fault ({PLANTS[plant]}) passed")
             elif dtype == "bfloat16" and not last[3]:
                 fail(f"{label}: the bf16 graphed steps are not bit-equal to the eager ones")
             elif not passed and f32_held:
@@ -995,6 +1074,7 @@ def graph_parity(dev, label, argv, sync, plant: bool, f32_held: bool = True) -> 
                       f"(f32_held=False): leaves over step parity's limits {first[2]}")
     print(f"[graph parity] {label}: launches in {GRAPH_STEPS} bf16 steps, graphed as eager: "
           f"{json.dumps(eager['launches'])}")
+    return eager["launches"]
 
 
 def training_run(dev, argv, steps, want_launches, sync, card, out_dir, spd, render=True):
@@ -1031,7 +1111,7 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir, spd, rend
         "--steps_per_dispatch", spd])
     form = "graphed" if spd == "0" else "eager"
     zeros = " --padding_mode zeros" if args.padding_mode == "zeros" else ""
-    label = f"{args.type_norm_G} --fuse_up {args.fuse_up}{zeros}, {form}"
+    label = f"{args.type_norm_G} --fuse_up {args.fuse_up}{zeros}{option_flags(args)}, {form}"
     step_log = []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     traced = []
@@ -1648,7 +1728,7 @@ def zeros_phase(dev, sync, card) -> None:
             fail(f"{what} launched the port's kernels {got}; the zeros path runs none")
 
     reset()
-    graph_parity(dev, "train zeros", ZEROS_ARGS, sync, plant=False, f32_held=False)
+    graph_parity(dev, "train zeros", ZEROS_ARGS, sync, f32_held=False)
     no_launches("graph parity (f32 and bf16, eager and graphed)")
     out_dir = ROOT / "build" / "smoke_train_zeros"
     reset()
@@ -1720,6 +1800,110 @@ def zeros_phase(dev, sync, card) -> None:
           f"max abs err {float((one - tiled).abs().max()):.3e} (the tiles' seams)")
     if not over <= TILE_TOL:
         fail(f"the tiled {ZEROS_F32}^2 canvas's first tile differs from the one pass by {err}")
+
+
+def option_launches(disc_iters: int, wire: bool) -> dict:
+    """The exact kernel launches of one Experiment-1 ``--fuse_up auto`` step
+    with ``disc_iters`` D iterations: G's forward kernels (K1 at conv2 and
+    the final conv, K9, the half-res shortcut K3, K10) once per D
+    iteration, its backward once; with the channels-major G->D wire (not
+    under ``--loss wgan``) K13's forward once per D iteration and once for
+    the G pass, its dW once per D iteration and its dx once."""
+    want = dict(STEP_LAUNCHES["auto"])
+    for name, per_forward in (("conv3x3_chw", 3), ("upconv3x3_chw", 2), ("conv1x1_chw", 2),
+                              ("upsample2_chw_add", 2)):
+        want[name] += (disc_iters - 1) * per_forward
+    want.update(stem_fwd=disc_iters + 1, stem_dw=disc_iters, stem_dx=1) if wire else want.update(
+        stem_fwd=0, stem_dw=0, stem_dx=0)
+    return want
+
+
+def options_phase(dev, sync, card) -> None:
+    """Phase 10: the training options (OPTION_RECIPES) at full Experiment-1
+    width under ``--fuse_up auto``. Each recipe's graphed steps against eager
+    ones (``graph_parity``: bf16 bit-equal, the launches of GRAPH_STEPS
+    steps held to ``option_launches``; f32 held to step parity's gates but
+    for F32_REPORTED), with a planted fault under WGAN-GP (every replay reuses
+    the first replay's penalty weights). The f32 WGAN-GP step against its
+    plain versions (``step_parity`` at WGAN_STEP_LOSS_TOL and
+    WGAN_STEP_GRAD_TOL; the CUDA-core routes
+    only, no K13). TRAIN_STEPS graphed bf16 steps through ``train`` for
+    WGAN-GP and SN in G: exact launches per step (the tensor-core routes
+    only), warm step wall, busy share, peak memory. The SN run's EMA
+    checkpoint, rebuilt SN off as the reference rebuilds it, rendered by
+    the sample CLI to an OPTION_CANVAS^2 PNG, its launches held to phase
+    4's per canvas."""
+    from infinite_texture_gans_torch import sample
+    from infinite_texture_gans_torch.ops import kernels, ssm
+    from infinite_texture_gans_torch.sampling.stream import read_png
+
+    base = EXP1_ARGS + ["--fuse_up", "auto"]
+    wants = {"wgan": option_launches(5, wire=False), "batch": option_launches(2, wire=True),
+             "instance": option_launches(1, wire=True), "sn": dict.fromkeys(KERNELS, 0)}
+    counters = (kernels.LAUNCHES, kernels.ROUTE_LAUNCHES, ssm.ROUTE_LAUNCHES)
+
+    def reset():
+        for c in counters:
+            c.update(dict.fromkeys(c, 0))
+
+    for name, argv in OPTION_RECIPES.items():
+        label = f"train {' '.join(argv)}"
+        got = graph_parity(dev, label, base + argv, sync, plant="eps" if name == "wgan" else None,
+                           f32_held=name not in F32_REPORTED)
+        want = {k: GRAPH_STEPS * v for k, v in wants[name].items()}
+        if got != want:
+            fail(f"{label}: {GRAPH_STEPS} steps launched {got}, not {want}")
+        print(f"[options] {label}: launches per step {json.dumps(wants[name])}")
+
+    reset()
+    argv = base + OPTION_RECIPES["wgan"]
+    step_parity(dev, argv + ["--compute_dtype", "float32"], wants["wgan"], sync,
+                WGAN_STEP_LOSS_TOL, WGAN_STEP_GRAD_TOL)
+    want = route_want(wants["wgan"], tc=False)
+    if dict(kernels.ROUTE_LAUNCHES) != {**dict.fromkeys(kernels.ROUTE_LAUNCHES, 0), **want}:
+        fail(f"the f32 WGAN-GP step parity took the routed kernels' launches "
+             f"{dict(kernels.ROUTE_LAUNCHES)}, not {want}")
+    print(f"[route] f32 step parity, train {' '.join(OPTION_RECIPES['wgan'])}: the routed "
+          f"kernels' launches by entry point {dict(kernels.ROUTE_LAUNCHES)}")
+
+    for name in ("wgan", "sn"):
+        reset()
+        out_dir = ROOT / "build" / f"smoke_train_{name}"
+        _, warm, busy, routed, peak = training_run(dev, base + OPTION_RECIPES[name], TRAIN_STEPS,
+                                                   wants[name], sync, card, out_dir, "0",
+                                                   render=False)
+        want = route_want({k: TRAIN_STEPS * v for k, v in wants[name].items()}, tc=True)
+        if routed != {**dict.fromkeys(routed, 0), **want}:
+            fail(f"the bf16 {name} run took the routed kernels' launches {routed}, not {want}")
+        share = f"{busy:.2f} ms, {100 * busy / (warm * 1e3):.1f}%" if busy else "not measured"
+        print(f"[options] train {' '.join(OPTION_RECIPES[name])}, graphed: warm step "
+              f"{warm * 1e3:.2f} ms ({1.0 / warm:.3f} steps/s), device busy per traced step "
+              f"{share}, peak device memory {peak / 2**30:.3f} GiB [{card}]")
+
+    ema = ROOT / "build" / "smoke_train_sn" / "1__ema.ckpt"
+    png = ema.parent / f"sn_{OPTION_CANVAS}.png"
+    reset()
+    sync()
+    t = time.perf_counter()
+    sample.main(["--model_path", str(ema), "--output_resolution_height", str(OPTION_CANVAS),
+                 "--output_resolution_width", str(OPTION_CANVAS), "--output_name", png.name,
+                 "--seed", "1", "--device", dev.type])
+    sync()
+    wall = time.perf_counter() - t
+    img = read_png(str(png))
+    if img.shape != (OPTION_CANVAS, OPTION_CANVAS, 3) or not img.std() > 0:
+        fail(f"the SN checkpoint's canvas: {img.shape}, std {img.std()}")
+    want = {**dict.fromkeys(KERNELS, 0), **{k: 16 * v for k, v in GEN_PER_SUB["flagship"].items()}}
+    if dict(kernels.LAUNCHES) != want:
+        fail(f"the SN checkpoint's {OPTION_CANVAS}^2 canvas launched {dict(kernels.LAUNCHES)}, "
+             f"not {want}")
+    print(f"[options] the SN run's {ema.name} (rebuilt SN off) through the sample CLI: a "
+          f"{OPTION_CANVAS}^2 PNG, std {img.std():.3f}, {wall:.4f} s wall (load and PNG included); "
+          f"launches {json.dumps(want)}, phase 4's per canvas [{card}]")
+    fwd_route(f"the SN checkpoint's {OPTION_CANVAS}^2 canvas", tc=True,
+              want=16 * GEN_PER_SUB["flagship"]["chw_halo_step"],
+              k3_want=16 * GEN_PER_SUB["flagship"]["conv1x1_chw"])
+    png.unlink()
 
 
 def main() -> int:
@@ -3406,7 +3590,7 @@ def main() -> int:
     print(f"[route] f32 SSM step parity: K15 launches by entry point {f32_route}")
     for tail, argv in (("auto", EXP1_ARGS + ["--fuse_up", "auto"]),
                        ("off", EXP1_ARGS + ["--fuse_up", "off"]), ("ssm", SSM_ARGS)):
-        graph_parity(dev, TRAIN_PATHS[tail][0], argv, sync, plant=tail == "auto")
+        graph_parity(dev, TRAIN_PATHS[tail][0], argv, sync, plant="draws" if tail == "auto" else None)
     print(f"[phase 5] step parity in {time.perf_counter() - t0:.1f} s")
 
     # -- 6. training runs: the train CLI's loop, bf16, graphed (the CLI
@@ -3480,7 +3664,12 @@ def main() -> int:
     zeros_phase(dev, sync, card)
     print(f"[phase 9] zeros padding in {time.perf_counter() - t0:.1f} s")
 
-    # -- 10. report -----------------------------------------------------------
+    # -- 10. the training options: WGAN-GP, disc_iters, D norms, SN in G ----
+    t0 = time.perf_counter()
+    options_phase(dev, sync, card)
+    print(f"[phase 10] training options in {time.perf_counter() - t0:.1f} s")
+
+    # -- 11. report -----------------------------------------------------------
     # K1 (and under --fuse_up all K9) runs on the one pass, the other
     # generation kernels on the raster
     gen_launches = {label: {k: (one if k in ("conv3x3_chw", "upconv3x3_chw") else raster)[k]

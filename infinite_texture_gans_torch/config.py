@@ -66,7 +66,9 @@ def prepare_parser() -> argparse.ArgumentParser:
     a("--spec_norm_G", default=False, action="store_true", help="spectral normalization in G")
     a("--n_layers_D", type=int, default=4, help="number of layers in D")
     a("--n_layers_G", type=int, default=6, help="number of layers in G")
-    a("--norm_layer_D", type=str, default=None, help="normalization layer in D (None only)")
+    a("--norm_layer_D", type=str, default=None,
+      help="normalization layer in D after conv1 ... conv{n_layers_D-1}: batch or instance "
+           "(default none)")
     a("--base_res", type=int, default=4, help="base resolution for G")
     a("--padding_mode", type=str, default="zeros",
       help="padding in G: zeros (pad-1 convs, one patch per image) or local")
@@ -79,8 +81,12 @@ def prepare_parser() -> argparse.ArgumentParser:
     a("--beta2", type=float, default=0.999, help="Adam beta2")
     a("--batch_size", type=int, default=64, help="discriminator batch size")
     # training
-    a("--loss", type=str, default="standard", help="standard or hinge")
-    a("--disc_iters", type=int, default=1, help="D updates per G update (1)")
+    a("--loss", type=str, default="standard",
+      help="loss function: standard (BCE), hinge or wgan (WGAN-GP: the critic loss plus "
+           "gp_weight x the gradient penalty on real/fake interpolates)")
+    a("--gp_weight", type=float, default=10.0,
+      help="WGAN-GP gradient-penalty weight (only with --loss wgan)")
+    a("--disc_iters", type=int, default=1, help="D updates per G update")
     a("--epochs", type=int, default=1, help="number of epochs")
     a("--saving_rate", type=int, default=30, help="save a checkpoint every saving_rate epochs")
     a("--ema", action="store_true", default=False, help="keep an EMA of G's weights")
@@ -127,16 +133,20 @@ def prepare_parser() -> argparse.ArgumentParser:
 
 
 def check_train_args(args: argparse.Namespace) -> None:
-    """Refuse the training options the port does not implement yet, and
-    ``--chw_tail off`` (a CPU reference path) on the card."""
-    unported = {
-        "data": ("single_image",), "D_model": ("patch_GAN",), "loss": ("standard", "hinge"),
-        "disc_iters": (1,), "padding_mode": ("local", "zeros"), "type_norm_G": ("BN", "SSM"),
-        "norm_layer_D": (None,), "spec_norm_G": (False,),
-    }
+    """Refuse the training options the port does not implement yet
+    (multi-image data, the other discriminators), flag values no model
+    takes, and ``--chw_tail off`` (a CPU reference path) on the card."""
+    unported = {"data": ("single_image",), "D_model": ("patch_GAN",)}
     for flag, allowed in unported.items():
         if getattr(args, flag) not in allowed:
             raise NotImplementedError(f"--{flag} {getattr(args, flag)!r}: the port trains with {allowed}")
+    valid = {"loss": ("standard", "hinge", "wgan"), "padding_mode": ("local", "zeros"),
+             "type_norm_G": ("BN", "SSM"), "norm_layer_D": (None, "batch", "instance")}
+    for flag, allowed in valid.items():
+        if getattr(args, flag) not in allowed:
+            raise ValueError(f"--{flag} {getattr(args, flag)!r}: one of {allowed}")
+    if args.disc_iters < 1:
+        raise ValueError(f"--disc_iters {args.disc_iters}: at least 1")
     if args.num_gpus > 1 or len(args.gpu_list or ()) > 1:
         raise NotImplementedError(
             f"--num_gpus {args.num_gpus} / --gpu_list {args.gpu_list}: data-parallel training "

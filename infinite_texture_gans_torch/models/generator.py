@@ -23,7 +23,10 @@ takes one random map per block (``maps``, see
 reference's default) every block runs NHWC with pad-1 convs, one patch per
 image, attention on a 1x1 grid: the channels-major gate needs local padding
 and no spectral norm, as the reference's does, so that path launches none of
-the port's kernels. Not ported yet (raises): spectral norm.
+the port's kernels. So does a spectrally normalised generator (``SN``,
+the reference's :214-222 and the ``update_sn`` of its blocks): every conv
+normalised by its power-iteration vectors, which a train forward called
+with ``update_sn`` refreshes, all NHWC on ``F.conv2d``.
 """
 
 from __future__ import annotations
@@ -92,9 +95,10 @@ class ResidualPatchGenerator(nn.Module):
     does; neither does SSM (the reference fuses BN only).
     ``type_norm``: 'BN' or 'SSM' (the stochastic spatial modulation, whose
     ``map_dim``-channel random maps the caller passes); an SSM generator has
-    no final norm.
+    no final norm. ``SN``: spectral norm on every conv, NHWC throughout.
 
-    ``forward(z, maps=None, halo=None, pos=None, grid=None, out_chw=False)``:
+    ``forward(z, maps=None, halo=None, pos=None, grid=None, out_chw=False,
+    update_sn=False)``:
     z merged (N, gh*base_res+2, gw*base_res+2, z_dim) in local mode; for SSM
     ``maps`` is a list of n_layers_G NHWC maps, maps[i] (N, gh*r+4, gw*r+4,
     map_dim) with r = 2^i * base_res (block i+1 reads maps[i]); returns
@@ -115,8 +119,6 @@ class ResidualPatchGenerator(nn.Module):
         super().__init__()
         if type_norm not in ("BN", "SSM"):
             raise ValueError(f"type_norm must be 'BN' or 'SSM', got {type_norm!r}")
-        if SN:
-            raise NotImplementedError("spectral norm is not ported yet; rebuild with SN=False")
         if chw_tail not in ("auto", "off"):
             raise ValueError(f"chw_tail must be 'auto' or 'off', got {chw_tail!r}")
         if fuse_up not in ("auto", "all", "off"):
@@ -134,15 +136,16 @@ class ResidualPatchGenerator(nn.Module):
         self.dtype, self.chw_tail, self.fuse_up = dtype, chw_tail, fuse_up
 
         self.start = ConvLP(z_dim, G_ch * 8, outer_padding, pre_padded=True,
-                            padding_mode=padding_mode)
+                            padding_mode=padding_mode, sn=SN)
         self.plan = generator_channel_plan(G_ch, n_layers_G)
         for i, (cin, cout) in enumerate(self.plan, start=1):
             self.add_module(f"block{i}", ResBlockGenerator(cin, cout, leak, outer_padding,
-                                                           type_norm, map_dim, padding_mode))
-        self.attention = PatchAttention(G_ch * 2) if attention else None
+                                                           type_norm, map_dim, padding_mode, SN))
+        self.attention = PatchAttention(G_ch * 2, SN) if attention else None
         # SSM mode has no final norm (reference generator.py:339-351, :376-381)
         self.bn = BNFold(self.plan[-1][1]) if type_norm == "BN" else None
-        self.final = ConvLP(self.plan[-1][1], img_ch, outer_padding, padding_mode=padding_mode)
+        self.final = ConvLP(self.plan[-1][1], img_ch, outer_padding, padding_mode=padding_mode,
+                            sn=SN)
 
     def chw_gate(self, i: int, cin: int, wide: bool = True) -> bool:
         """Block ``i`` (input channels ``cin``) runs channels-major iff True:
@@ -189,7 +192,8 @@ class ResidualPatchGenerator(nn.Module):
             raise ValueError(f"an SSM generator takes a list of {self.n_layers_G} maps")
         return list(maps)
 
-    def _final(self, h: torch.Tensor, is_chw: bool, grid, halo=None, pos=None, stats=None):
+    def _final(self, h: torch.Tensor, is_chw: bool, grid, halo=None, pos=None, stats=None,
+               update_sn: bool = False):
         """The final norm (BN; none for SSM), the activation and the final
         conv. Channels-major, the BN fold (in training from the last block's
         ``stats``) and the ReLU run in the conv kernel."""
@@ -202,14 +206,18 @@ class ResidualPatchGenerator(nn.Module):
                 fold = (*self.bn.fold(), True)
             return self.final(h, halo, pos, grid=grid, chw_fold=fold)
         act = activation_fn(self.leak)
-        return self.final(act(h if self.bn is None else self.bn(h)), halo, pos, grid=grid)
+        return self.final(act(h if self.bn is None else self.bn(h)), halo, pos, grid=grid,
+                          update_sn=update_sn)
 
     def forward(self, z: torch.Tensor, maps: Optional[Sequence[torch.Tensor]] = None, *,
                 halo: Optional[Dict[str, SiteState]] = None, pos: Optional[GridPos] = None,
-                grid: Optional[tuple[int, int]] = None, out_chw: bool = False):
+                grid: Optional[tuple[int, int]] = None, out_chw: bool = False,
+                update_sn: bool = False):
         """``grid`` overrides (num_patches_h, num_patches_w), e.g. to run the
         whole canvas as one grid (the one-pass oracle); in zeros mode each
-        image is one patch, so the attention's grid is 1x1."""
+        image is one patch, so the attention's grid is 1x1. ``update_sn``
+        (train mode) refreshes the spectral-norm vectors of every conv, once
+        each, before the conv uses them."""
         if self.chw_tail == "off" and z.is_cuda:
             raise ValueError("chw_tail='off' is a CPU reference path; a CUDA generator runs the tail kernels")
         if self.padding_mode == "zeros":
@@ -221,7 +229,7 @@ class ResidualPatchGenerator(nn.Module):
         if self.training:
             if halo is not None:
                 raise ValueError("the halo engine is eval-only; call .eval() first")
-            return self._forward_train(z, block_maps, grid, out_chw), None
+            return self._forward_train(z, block_maps, grid, out_chw, update_sn), None
         halo_out: Dict[str, SiteState] = {}
 
         def site(name):
@@ -258,11 +266,12 @@ class ResidualPatchGenerator(nn.Module):
             halo_out["final"] = hf
         return out, (halo_out if halo is not None else None)
 
-    def _forward_train(self, z: torch.Tensor, block_maps, grid: tuple[int, int], out_chw: bool):
+    def _forward_train(self, z: torch.Tensor, block_maps, grid: tuple[int, int], out_chw: bool,
+                       update_sn: bool = False):
         """The reference's ``train=True`` forward. A channels-major BN block
         ``i > 1`` fuses with its upsample unless ``fuse_up`` is 'off' (the
         reference's ``fuse``, :276-289, with stats and no halo)."""
-        h, _ = self.start(z.to(self.dtype), grid=grid)
+        h, _ = self.start(z.to(self.dtype), grid=grid, update_sn=update_sn)
         is_chw = False
         stats = None  # producer-kernel BN moments threaded block to block
         for i, (cin, _) in enumerate(self.plan, start=1):
@@ -279,11 +288,11 @@ class ResidualPatchGenerator(nn.Module):
                 h = kernels.upsample2_chw(h) if is_chw else upsample_nearest(h, 2)
             h, out_stats = getattr(self, f"block{i}").forward_train(
                 h, grid=grid, chw=is_chw, in_stats=stats if is_chw else None, fuse_up=fuse,
-                maps=block_maps[i - 1])
+                maps=block_maps[i - 1], update_sn=update_sn)
             stats = out_stats if is_chw else None
             if i == 3 and self.attention is not None:
-                h = self.attention(h, grid)
-        h, _ = self._final(h, is_chw, grid, stats=stats)
+                h = self.attention(h, grid, update_sn)
+        h, _ = self._final(h, is_chw, grid, stats=stats, update_sn=update_sn)
         if is_chw:
             return torch.tanh(h if out_chw else h.permute(0, 2, 3, 1))
         out = torch.tanh(h)

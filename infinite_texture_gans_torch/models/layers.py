@@ -3,12 +3,17 @@
 Port of ``infinite_texture_gans_tpu/models/layers.py`` for the BN and SSM
 generators, eval and train: ``activation_fn``, ``StatsBN`` (the
 parameter-free BatchNorm), ``BNFold`` (which also serves as the NHWC
-``nn.BatchNorm``), ``StochasticSpatialModulation``, ``ConvLP``,
-``Attention``, ``PatchAttention`` and ``ResBlockGenerator`` (BN and SSM
-branches, and the subpixel-fused up-conv branch of BN blocks: in training
-under ``--fuse_up auto``, at eval under ``all``). Submodule and parameter names follow the
-reference's flax paths (``conv1.conv.weight``, ``bn1.scale``, ``bn1.mean``,
-``bn1.bn.mean``, ``bn1.mlp_shared.weight`` ...), so
+``nn.BatchNorm``, the discriminator's among them), ``InstanceNorm``,
+``StochasticSpatialModulation``, ``ConvLP``, ``Attention``,
+``PatchAttention`` and ``ResBlockGenerator`` (BN and SSM branches, and the
+subpixel-fused up-conv branch of BN blocks: in training under ``--fuse_up
+auto``, at eval under ``all``). With ``sn`` every conv of the NHWC
+branches is spectrally normalised (``ops/conv.py``), its vectors refreshed
+when the caller passes ``update_sn``; the channels-major branches take the
+raw weights, and the generator's gate keeps a spectrally normalised model
+off them, as the reference's does. Submodule and parameter names follow
+the reference's flax paths (``conv1.conv.weight``, ``bn1.scale``,
+``bn1.mean``, ``bn1.bn.mean``, ``bn1.mlp_shared.weight`` ...), so
 ``weights.from_jax_variables`` maps a flax tree onto them leaf by leaf.
 
 ``padding_mode='zeros'`` (the reference's default, :189, :264, :313, :350,
@@ -89,8 +94,8 @@ class StatsBN(nn.Module):
         self._update_running(m, v)
         return m, v
 
-    def _nhwc_moments(self, x: torch.Tensor):
-        if not self.training:
+    def _nhwc_moments(self, x: torch.Tensor, train: Optional[bool] = None):
+        if not (self.training if train is None else train):
             return self.mean.float(), self.var.float()
         xf = x.float()
         m = xf.mean(dim=(0, 1, 2))
@@ -119,8 +124,10 @@ class BNFold(StatsBN):
     as buffers.
 
     ``forward`` normalises NHWC activations like flax's ``nn.BatchNorm``:
-    batch moments (variance clipped at 0) and a running-stat update in train
-    mode, the running statistics in eval. :meth:`fold` (eval) and
+    batch moments (variance clipped at 0, the biased one kept as the running
+    ``var``) and a running-stat update in train mode, the running statistics
+    in eval; ``train`` overrides the module's mode (the discriminator's
+    norms under the gradient penalty's frozen critic). :meth:`fold` (eval) and
     :meth:`train_fold` (train, the reference's ``BNFold`` :121-170) return
     the per-channel float32 ``(scale, shift)`` that the channels-major conv
     kernels apply themselves."""
@@ -142,11 +149,26 @@ class BNFold(StatsBN):
         :meth:`StatsBN.train_moments`); updates the running statistics."""
         return self._affine(*self.train_moments(x_chw, stats))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        m, v = self._nhwc_moments(x)
+    def forward(self, x: torch.Tensor, train: Optional[bool] = None) -> torch.Tensor:
+        m, v = self._nhwc_moments(x, train)
         mul = torch.rsqrt(v + self.epsilon) * self.scale.float()
         y = (x.float() - m) * mul + self.bias.float()
         return y.to(x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """InstanceNorm without affine parameters (the reference's
+    ``InstanceNorm``, :780-789): each image's channels normalised over H
+    and W of NHWC x with the biased variance, epsilon 1e-5; in float32,
+    rounded to x's dtype. No variables."""
+
+    epsilon = 1e-5
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        m = xf.mean(dim=(1, 2), keepdim=True)
+        v = (xf - m).square().mean(dim=(1, 2), keepdim=True)
+        return ((xf - m) * torch.rsqrt(v + self.epsilon)).to(x.dtype)
 
 
 class StochasticSpatialModulation(nn.Module):
@@ -162,22 +184,24 @@ class StochasticSpatialModulation(nn.Module):
     W+4, md); the reference's convs cast its float32 maps to the compute
     dtype, and so do these (x's dtype). :meth:`chw` is the channels-major
     branch (:339, :374-379): x (N, C, H, W), the maps permuted to (N, md,
-    H+4, W+4) and cast to x's dtype, through K15 (``ops/ssm.py``)."""
+    H+4, W+4) and cast to x's dtype, through K15 (``ops/ssm.py``). With
+    ``sn`` both convs are spectrally normalised in the NHWC branch
+    (:380-394)."""
 
     def __init__(self, channels: int, map_dim: int, hidden: int = 128,
-                 padding_mode: str = "local"):
+                 padding_mode: str = "local", sn: bool = False):
         super().__init__()
         self.channels = channels
         self.bn = StatsBN(channels)
         p = 1 if padding_mode == "zeros" else 0
-        self.mlp_shared = conv3x3(map_dim, hidden, padding=p)
-        self.embed = conv3x3(hidden, 2 * channels, padding=p)
+        self.mlp_shared = conv3x3(map_dim, hidden, padding=p, sn=sn)
+        self.embed = conv3x3(hidden, 2 * channels, padding=p, sn=sn)
         ssm_embed_init_(self.embed.weight, channels)
 
-    def forward(self, x: torch.Tensor, maps: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, maps: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
         out = self.bn(x)
-        actv = torch.relu(self.mlp_shared(maps.to(x.dtype)))
-        gamma, beta = self.embed(actv).split(self.channels, dim=-1)
+        actv = torch.relu(self.mlp_shared(maps.to(x.dtype), update_sn))
+        gamma, beta = self.embed(actv, update_sn).split(self.channels, dim=-1)
         return (1 + gamma) * out + beta
 
     def chw(self, x: torch.Tensor, maps: torch.Tensor, stats: Optional[Stats] = None) -> torch.Tensor:
@@ -204,21 +228,22 @@ class ConvLP(nn.Module):
     (the reference's ``fuse_up_w_true``, :215-234) the channels-major input
     is at half resolution and the nearest-2x upsample runs inside the
     kernel: K14 at a raster step (the site's cache is at half resolution),
-    K9 without a halo site.
+    K9 without a halo site. ``sn``: the NHWC conv spectrally normalised,
+    its vectors refreshed under ``update_sn``.
     """
 
     def __init__(self, in_features: int, features: int,
                  outer_padding: str = "replicate", pre_padded: bool = False,
-                 padding_mode: str = "local"):
+                 padding_mode: str = "local", sn: bool = False):
         super().__init__()
         self.outer_padding = outer_padding
         self.pre_padded = pre_padded
         self.zeros = padding_mode == "zeros"
-        self.conv = conv3x3(in_features, features, padding=1 if self.zeros else 0)
+        self.conv = conv3x3(in_features, features, padding=1 if self.zeros else 0, sn=sn)
 
     def forward(self, x: torch.Tensor, halo: Optional[SiteState] = None,
                 pos: Optional[GridPos] = None, *, grid: tuple[int, int] = (3, 3),
-                chw_fold=None, fuse_up: bool = False):
+                chw_fold=None, fuse_up: bool = False, update_sn: bool = False):
         gh, gw = grid
         if chw_fold is not None:
             scale, shift, relu = chw_fold
@@ -235,14 +260,14 @@ class ConvLP(nn.Module):
                 )
             return kernels.conv3x3_chw(x, w, b, scale, shift, relu, self.outer_padding), halo
         if self.zeros:
-            return self.conv(x), halo
+            return self.conv(x, update_sn), halo
         if self.pre_padded:
             padded = x
         elif halo is None:
             padded = local_pad(x, 1, self.outer_padding)
         else:
             padded, halo = halo_pad_step(x, halo, pos, gh, gw, self.outer_padding)
-        return self.conv(padded), halo
+        return self.conv(padded, update_sn), halo
 
 
 def _max_pool2_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -252,24 +277,25 @@ def _max_pool2_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class Attention(nn.Module):
     """SAGAN self-attention on NHWC patches (reference ``Attention``): 2x2
-    max-pooled keys/values, learnable scalar gate ``gamma``."""
+    max-pooled keys/values, learnable scalar gate ``gamma``; ``sn``
+    normalises its four 1x1 convs."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, sn: bool = False):
         super().__init__()
         c = channels
-        self.theta = conv1x1(c, c // 8)
-        self.phi = conv1x1(c, c // 8)
-        self.g = conv1x1(c, c // 2)
-        self.o = conv1x1(c // 2, c)
+        self.theta = conv1x1(c, c // 8, sn)
+        self.phi = conv1x1(c, c // 8, sn)
+        self.g = conv1x1(c, c // 2, sn)
+        self.o = conv1x1(c // 2, c, sn)
         self.gamma = nn.Parameter(torch.zeros(()))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
         b, h, w, c = x.shape
-        theta = self.theta(x).reshape(b, h * w, c // 8)
-        phi = _max_pool2_nhwc(self.phi(x)).reshape(b, (h * w) // 4, c // 8)
-        g = _max_pool2_nhwc(self.g(x)).reshape(b, (h * w) // 4, c // 2)
+        theta = self.theta(x, update_sn).reshape(b, h * w, c // 8)
+        phi = _max_pool2_nhwc(self.phi(x, update_sn)).reshape(b, (h * w) // 4, c // 8)
+        g = _max_pool2_nhwc(self.g(x, update_sn)).reshape(b, (h * w) // 4, c // 2)
         beta = torch.softmax(theta @ phi.transpose(1, 2), dim=-1)
-        o = self.o((beta @ g).reshape(b, h, w, c // 2))
+        o = self.o((beta @ g).reshape(b, h, w, c // 2), update_sn)
         return (self.gamma.to(x.dtype) * o + x).to(x.dtype)
 
 
@@ -277,13 +303,13 @@ class PatchAttention(nn.Module):
     """Attention on a merged grid: split into patches, attend per patch,
     merge back."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, sn: bool = False):
         super().__init__()
-        self.attn = Attention(channels)
+        self.attn = Attention(channels, sn)
 
-    def forward(self, x: torch.Tensor, grid: tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, grid: tuple[int, int], update_sn: bool = False) -> torch.Tensor:
         gh, gw = grid
-        return patches_to_grid(self.attn(grid_to_patches(x, gh, gw)), gh, gw)
+        return patches_to_grid(self.attn(grid_to_patches(x, gh, gw), update_sn), gh, gw)
 
 
 def identity_fold(x: torch.Tensor):
@@ -300,46 +326,52 @@ class ResBlockGenerator(nn.Module):
     1x1 shortcut when the channel count changes. The norm is BN
     (:class:`BNFold`) or SSM (:class:`StochasticSpatialModulation`, which
     also gives the shortcut its own ``bn3`` and takes the layer's ``maps``).
+    ``sn`` normalises every conv (NHWC only), refreshed under ``update_sn``.
     ``forward`` is the eval block (with the raster engine's halo sites);
     :meth:`forward_train` the train block."""
 
     def __init__(self, in_features: int, features: int, leak: float = 0.0,
                  outer_padding: str = "replicate", type_norm: str = "BN", map_dim: int = 1,
-                 padding_mode: str = "local"):
+                 padding_mode: str = "local", sn: bool = False):
         super().__init__()
         self.leak = leak
         self.ssm = type_norm == "SSM"
         learnable_sc = in_features != features
         if self.ssm:
-            ssm_ = lambda c: StochasticSpatialModulation(c, map_dim, padding_mode=padding_mode)  # noqa: E731
+            ssm_ = lambda c: StochasticSpatialModulation(c, map_dim, padding_mode=padding_mode,  # noqa: E731
+                                                         sn=sn)
             self.bn1 = ssm_(in_features)
             self.bn2 = ssm_(features)
             self.bn3 = ssm_(in_features) if learnable_sc else None
         else:
             self.bn1 = BNFold(in_features)
             self.bn2 = BNFold(features)
-        self.conv1 = ConvLP(in_features, features, outer_padding, padding_mode=padding_mode)
-        self.conv2 = ConvLP(features, features, outer_padding, padding_mode=padding_mode)
-        self.conv3 = conv1x1(in_features, features) if learnable_sc else None
+        self.conv1 = ConvLP(in_features, features, outer_padding, padding_mode=padding_mode, sn=sn)
+        self.conv2 = ConvLP(features, features, outer_padding, padding_mode=padding_mode, sn=sn)
+        self.conv3 = conv1x1(in_features, features, sn) if learnable_sc else None
 
-    def _norm(self, bn: nn.Module, x: torch.Tensor, maps: Optional[torch.Tensor]) -> torch.Tensor:
-        return bn(x, maps) if self.ssm else bn(x)
+    def _norm(self, bn: nn.Module, x: torch.Tensor, maps: Optional[torch.Tensor],
+              update_sn: bool) -> torch.Tensor:
+        return bn(x, maps, update_sn) if self.ssm else bn(x)
 
-    def _forward_nhwc(self, x, maps, halo1, halo2, pos, grid):
+    def _forward_nhwc(self, x, maps, halo1, halo2, pos, grid, update_sn=False):
         act = activation_fn(self.leak)
-        out, halo1 = self.conv1(act(self._norm(self.bn1, x, maps)), halo1, pos, grid=grid)
-        out, halo2 = self.conv2(act(self._norm(self.bn2, out, maps)), halo2, pos, grid=grid)
+        out, halo1 = self.conv1(act(self._norm(self.bn1, x, maps, update_sn)), halo1, pos,
+                                grid=grid, update_sn=update_sn)
+        out, halo2 = self.conv2(act(self._norm(self.bn2, out, maps, update_sn)), halo2, pos,
+                                grid=grid, update_sn=update_sn)
         sc = x
         if self.conv3 is not None:
-            sc = self.conv3(self.bn3(x, maps) if self.ssm else x)
+            sc = self.conv3(self.bn3(x, maps, update_sn) if self.ssm else x, update_sn)
         return out + sc, halo1, halo2
 
     def forward(self, x: torch.Tensor, halo1: Optional[SiteState] = None,
                 halo2: Optional[SiteState] = None, pos: Optional[GridPos] = None, *,
                 grid: tuple[int, int] = (3, 3), chw: bool = False,
-                maps: Optional[torch.Tensor] = None, fuse_up: bool = False):
+                maps: Optional[torch.Tensor] = None, fuse_up: bool = False,
+                update_sn: bool = False):
         if not chw:
-            return self._forward_nhwc(x, maps, halo1, halo2, pos, grid)
+            return self._forward_nhwc(x, maps, halo1, halo2, pos, grid, update_sn)
         # channels-major tail (the generator gates it to leak 0). BN: the
         # folds and ReLUs run inside the conv kernels. SSM (:562-585): the
         # modulation runs outside them (its gamma|beta from K15), the conv
@@ -374,7 +406,8 @@ class ResBlockGenerator(nn.Module):
 
     def forward_train(self, x: torch.Tensor, *, grid: tuple[int, int] = (3, 3),
                       chw: bool = False, in_stats: Optional[Stats] = None,
-                      fuse_up: bool = False, maps: Optional[torch.Tensor] = None):
+                      fuse_up: bool = False, maps: Optional[torch.Tensor] = None,
+                      update_sn: bool = False):
         """Train-mode block (batch statistics, running-stat updates).
         Returns (y, stats of y or None).
 
@@ -388,10 +421,10 @@ class ResBlockGenerator(nn.Module):
         resolution: upsample -> bn1 -> ReLU -> conv1 run as one K9 launch,
         the 1x1 shortcut runs at half resolution (it commutes with the
         upsample) and K10 joins its upsample with the residual. NHWC
-        (:676-719): flax-style train-mode norms and XLA-style convs; no
-        stats."""
+        (:676-719): flax-style train-mode norms and XLA-style convs (the
+        SN vectors refreshed under ``update_sn``); no stats."""
         if not chw:
-            return self._forward_nhwc(x, maps, None, None, None, grid)[0], None
+            return self._forward_nhwc(x, maps, None, None, None, grid, update_sn)[0], None
         n = x.shape[0]
         outer = self.conv1.outer_padding
         w1, b1 = self.conv1.conv.weight, self.conv1.conv.bias

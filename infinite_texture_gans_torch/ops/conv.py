@@ -111,9 +111,9 @@ def ssm_embed_init_(weight: torch.Tensor, in_channel: int) -> torch.Tensor:
     return weight
 
 
-def conv3x3(in_features: int, features: int, padding: int = 1) -> Conv:
-    return Conv(in_features, features, 3, padding)
+def conv3x3(in_features: int, features: int, padding: int = 1, sn: bool = False) -> Conv:
+    return Conv(in_features, features, 3, padding, sn=sn)
 
 
-def conv1x1(in_features: int, features: int) -> Conv:
-    return Conv(in_features, features, 1, 0)
+def conv1x1(in_features: int, features: int, sn: bool = False) -> Conv:
+    return Conv(in_features, features, 1, 0, sn=sn)

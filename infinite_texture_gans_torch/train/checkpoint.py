@@ -160,7 +160,8 @@ def restore_train_state(state, ckpt: Dict[str, Any], steps_per_epoch: int = 0) -
     ``state`` is a fresh ``train_step.TrainState``; every tensor of it is
     overwritten with ``copy_`` / ``fill_`` into its own storage, since a
     captured step reads those storages. G and D take the stored variables
-    (parameters, G's BN statistics, D's SN vectors); each Adam state takes
+    (parameters, BN statistics: G's and those of a ``--norm_layer_D batch``
+    D; SN vectors: D's and those of a ``--spec_norm_G`` G); each Adam state takes
     the stored ``mu`` and ``nu`` as ``exp_avg`` and ``exp_avg_sq`` and the
     stored ``count`` as every parameter's ``step`` (the inverse of
     ``train_step.optimizer_tree``), so the bias correction continues; the
@@ -207,7 +208,9 @@ def load_generator_from_checkpoint(
     ckpt: Optional[Dict[str, Any]] = None, fuse_up: Optional[str] = None,
 ):
     """Rebuild the eval generator from a checkpoint's stored config (SN off,
-    3x3 grid, as the reference does) and load its weights.
+    3x3 grid, as the reference does) and load its weights: a
+    ``--spec_norm_G`` checkpoint's raw weights, its ``spectral`` vectors
+    left out, as the reference's SN-off module ignores them.
 
     ``ema``: use the stored EMA snapshot when the checkpoint has one.
     ``fuse_up`` overrides the stored one ('all': the fused eval tail, as

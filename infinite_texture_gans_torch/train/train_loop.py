@@ -3,12 +3,15 @@
 
 Port of ``infinite_texture_gans_tpu/train/train_loop.py: train``: epochs of
 ``ceil(--sampling / --batch_size)`` steps, each step a batch of random
-crops, the latents (and an SSM generator's maps) drawn on the device and
-one fused G + D step (``train_step.py``), the epoch's mean losses printed
-and kept, and a ``.ckpt`` every ``--saving_rate`` epochs and at the end
-(plus ``<epochs>__ema.ckpt`` with ``--ema``), in the reference's format,
-written by one ``AsyncCheckpointer`` while the steps go on, and
-``<epochs>_losses.png`` at the end (where matplotlib is installed).
+crops, the latents (and an SSM generator's maps, and the WGAN-GP
+penalty's weights) of its ``--disc_iters`` D iterations drawn on the device
+and one fused G + D step (``train_step.py``), the epoch's mean losses
+printed and kept (a step's D losses summed over its D iterations, as the
+reference's loop sums them), and a ``.ckpt`` every ``--saving_rate``
+epochs and at the end (plus ``<epochs>__ema.ckpt`` with ``--ema``), in the
+reference's format, written by one ``AsyncCheckpointer`` while the steps
+go on, and ``<epochs>_losses.png`` at the end (where matplotlib is
+installed).
 Crops, latents and maps come from one ``torch.Generator``, reseeded in
 place at the start of every epoch from (seed, epoch) (:func:`reseed_epoch`,
 the reference's ``fold_in(root_key(seed), epoch)``; other numbers than its
@@ -96,7 +99,8 @@ def checkpoint_payload(state: TrainState, args: argparse.Namespace, epoch: int, 
         "netG_variables": jax_tree(state.G.state_dict()),
         "netD_variables": jax_tree(state.D.state_dict()),
         "opt_G": optimizer_tree(state.G, state.opt_G, state.step, scheduled),
-        "opt_D": optimizer_tree(state.D, state.opt_D, state.step, scheduled),
+        # D's count is its updates, disc_iters a step (optax's count)
+        "opt_D": optimizer_tree(state.D, state.opt_D, state.step * args.disc_iters, scheduled),
         "ema": jax_tree(state.ema) if state.ema is not None else {},
     }
 

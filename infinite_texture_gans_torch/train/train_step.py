@@ -2,20 +2,30 @@
 
 Port of ``infinite_texture_gans_tpu/train/train_step.py`` (``lr_schedule``,
 ``make_optimizers``, ``create_train_state`` and ``_make_step_impl``
-:189-395) for ``disc_iters`` 1 and the standard or hinge loss:
+:189-395), every loss and ``disc_iters``:
 
-* one G forward in train mode (batch statistics, running-stat updates),
-  whose autograd graph the G update reuses;
-* D on the real crops and on the detached fake (spectral-norm vectors
-  updated on each call), one Adam step on D;
-* the UPDATED D on the stored fake (SN vectors updated once more), and one
-  G backward through the saved forward, no second G forward; one Adam step
-  on G;
-* an EMA of G's parameters and BN running statistics.
+* k = ``disc_iters`` D iterations on one batch of real crops, each with
+  its own latent (and maps): a G forward in train mode (batch statistics,
+  running-stat updates, G's spectral-norm vectors refreshed), the first
+  k - 1 without a graph, the last one keeping the graph the G update
+  reuses; D on the real crops and on the detached fake (SN vectors and
+  D's BatchNorm statistics updated on each call), under ``--loss wgan``
+  plus ``gp_weight`` times the gradient penalty on its own ``eps``, taken
+  through the critic frozen as the fake pass left it (SN vectors not
+  refreshed, BatchNorms on their running averages); one Adam step on D;
+  the D losses summed over the k iterations;
+* the UPDATED D on the stored fake (SN vectors and BN statistics updated
+  once more), and one G backward through the saved forward, no second G
+  forward; one Adam step on G;
+* an EMA of G's parameters and BN running statistics (not of its SN
+  vectors, as the reference keeps none).
 
 When the generator's tail runs channels-major the fake image stays
 (N, 3, H, W) from G's last kernel into D's stem kernel, and its gradient
-comes back the same way (the reference's ``chw_wire``).
+comes back the same way (the reference's ``chw_wire``); not under
+``--loss wgan``, whose penalty mixes the fake with the NHWC real crops and
+differentiates D twice, which ``F.conv2d`` does and the stem kernel's
+autograd Function does not.
 
 ``torch.optim.Adam`` with betas (beta1, beta2) and eps 1e-8 computes the
 update of ``optax.adam``: -lr * m̂ / (sqrt(v̂) + eps). Its learning rate is
@@ -33,7 +43,7 @@ from __future__ import annotations
 import argparse
 import warnings
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -105,8 +115,23 @@ class TrainState:
     opt_D: torch.optim.Adam
     sched_G: Schedule
     sched_D: Schedule
-    ema: Optional[Dict[str, torch.Tensor]]  # G's state dict: params and BN statistics
+    ema: Optional[Dict[str, torch.Tensor]]  # G's params and BN statistics (ema_state)
     step: int = 0
+
+
+class Draw(NamedTuple):
+    """One D iteration's draws: the latent, an SSM generator's maps, and
+    under ``--loss wgan`` the penalty's interpolation weights (n, 1, 1, 1)."""
+    z: torch.Tensor
+    maps: Optional[List[torch.Tensor]] = None
+    eps: Optional[torch.Tensor] = None
+
+
+def ema_state(G: ResidualPatchGenerator) -> Dict[str, torch.Tensor]:
+    """The entries of G's state dict that the EMA blends: parameters and BN
+    statistics, not the spectral-norm vectors (the reference's EMA tree is
+    ``{'params', 'batch_stats'}``)."""
+    return {k: v for k, v in G.state_dict().items() if k.rsplit(".", 1)[-1] not in ("u", "v")}
 
 
 def init_adam_state(opt: torch.optim.Adam) -> None:
@@ -152,7 +177,7 @@ def create_train_state(args: argparse.Namespace, steps_per_epoch: int, device,
     opt_G, opt_D = make_optimizers(G, D, args)
     ema = None
     if args.ema:
-        ema = {k: v.detach().clone() for k, v in G.state_dict().items()}
+        ema = {k: v.detach().clone() for k, v in ema_state(G).items()}
     return TrainState(G, D, opt_G, opt_D,
                       lr_schedule(args.lr_G, args.decay_lr, steps_per_epoch),
                       lr_schedule(args.lr_D, args.decay_lr, steps_per_epoch), ema)
@@ -172,27 +197,39 @@ def _adam_step(opt: torch.optim.Adam) -> None:
         opt.step()
 
 
-def fused_step(state: TrainState, real_x: torch.Tensor, z: torch.Tensor,
-               maps: Optional[List[torch.Tensor]] = None, *, loss_type: str = "standard",
-               smooth: bool = False, ema_decay: float = 0.999,
-               use_ema: bool = False) -> Dict[str, torch.Tensor]:
+def fused_step(state: TrainState, real_x: torch.Tensor, draws: Sequence[Draw], *,
+               loss_type: str = "standard", smooth: bool = False, gp_weight: float = 10.0,
+               ema_decay: float = 0.999, use_ema: bool = False) -> Dict[str, torch.Tensor]:
     """The device work of one step (:func:`train_step` without the
-    learning-rate write and the step count): what a captured step holds."""
+    learning-rate write and the step count): what a captured step holds.
+    One D iteration per entry of ``draws``."""
     G, D = state.G, state.D
     label_t = 0.9 if smooth else 1.0
-    wire = G.emits_chw() and G.img_ch == 3
+    wire = G.emits_chw() and G.img_ch == 3 and loss_type != "wgan"
+    penalty = loss_type == "wgan" and gp_weight > 0
     G.train()
     D.train()
 
-    fake, _ = G(z, maps, out_chw=wire)
-
-    rl = D(real_x, update_sn=True)
-    fl = D(fake.detach(), update_sn=True, chw_in=wire)
-    loss_real = L.d_loss_real(loss_type, rl, label_t)
-    loss_fake = L.d_loss_fake(loss_type, fl, 0.0)
-    state.opt_D.zero_grad(set_to_none=True)
-    (loss_real + loss_fake).backward()
-    _adam_step(state.opt_D)
+    loss_real = loss_fake = None
+    for it, d in enumerate(draws):
+        last = it == len(draws) - 1
+        with torch.set_grad_enabled(last):
+            fake, _ = G(d.z, d.maps, out_chw=wire, update_sn=True)
+        rl = D(real_x, update_sn=True)
+        fl = D(fake.detach(), update_sn=True, chw_in=wire)
+        lr_ = L.d_loss_real(loss_type, rl, label_t)
+        lf_ = L.d_loss_fake(loss_type, fl, 0.0)
+        total = lr_ + lf_
+        if penalty:
+            # the critic frozen as the fake pass left it: no SN refresh,
+            # BatchNorms on their running averages
+            gp = L.gradient_penalty(lambda x: D(x, train=False), real_x, fake.detach(), d.eps)
+            total = total + gp_weight * gp
+        state.opt_D.zero_grad(set_to_none=True)
+        total.backward()
+        _adam_step(state.opt_D)
+        loss_real = lr_.detach() if loss_real is None else loss_real + lr_.detach()
+        loss_fake = lf_.detach() if loss_fake is None else loss_fake + lf_.detach()
 
     # the updated D on the stored fake: gradients for the image only
     D.requires_grad_(False)
@@ -207,35 +244,66 @@ def fused_step(state: TrainState, real_x: torch.Tensor, z: torch.Tensor,
 
     if use_ema:
         with torch.no_grad():
-            for k, v in G.state_dict().items():
+            for k, v in ema_state(G).items():
                 state.ema[k].copy_(state.ema[k] * ema_decay + v * (1.0 - ema_decay))
-    return {"d_loss_real": loss_real.detach(), "d_loss_fake": loss_fake.detach(),
-            "g_loss": loss_g.detach()}
+    return {"d_loss_real": loss_real, "d_loss_fake": loss_fake, "g_loss": loss_g.detach()}
 
 
-def train_step(state: TrainState, real_x: torch.Tensor, z: torch.Tensor,
-               maps: Optional[List[torch.Tensor]] = None, *, loss_type: str = "standard",
-               smooth: bool = False, ema_decay: float = 0.999,
-               use_ema: bool = False) -> Dict[str, torch.Tensor]:
-    """One fused step on ``real_x`` (B, H, W, C) in [-1, 1], the latent
-    ``z`` (the reference's ``build_train_z``) and, for an SSM generator, its
-    maps (``build_train_maps``). Updates ``state`` in place; returns the
-    three losses (0-d float32 tensors on the device). The parameters keep
-    this step's gradients in ``.grad``."""
+def train_step(state: TrainState, real_x: torch.Tensor, z, maps=None, *, eps=None,
+               loss_type: str = "standard", smooth: bool = False, gp_weight: float = 10.0,
+               ema_decay: float = 0.999, use_ema: bool = False) -> Dict[str, torch.Tensor]:
+    """One fused step on ``real_x`` (B, H, W, C) in [-1, 1]. ``z`` is the
+    latent (the reference's ``build_train_z``), ``maps`` an SSM generator's
+    maps (``build_train_maps``) and ``eps`` the gradient penalty's weights
+    (n, 1, 1, 1) for ``--loss wgan``; for ``disc_iters`` k > 1 each is a
+    list of k, one per D iteration (``maps`` and ``eps`` may be None).
+    Updates ``state`` in place; returns the three losses (0-d float32
+    tensors on the device, the D losses summed over the D iterations). The
+    parameters keep this step's gradients in ``.grad``: D's from its last
+    iteration."""
+    if isinstance(z, torch.Tensor):
+        draws = [Draw(z, maps, eps)]
+    else:
+        n = len(z)
+        draws = [Draw(z[i], None if maps is None else maps[i], None if eps is None else eps[i])
+                 for i in range(n)]
     set_lr(state)
-    m = fused_step(state, real_x, z, maps, loss_type=loss_type, smooth=smooth,
+    m = fused_step(state, real_x, draws, loss_type=loss_type, smooth=smooth, gp_weight=gp_weight,
                    ema_decay=ema_decay, use_ema=use_ema)
     state.step += 1
     return m
 
 
+def draw_iterations(rng: torch.Generator, args: argparse.Namespace, device) -> List[Draw]:
+    """Each of the ``args.disc_iters`` D iterations' draws from ``rng``, in
+    order: the latent, an SSM generator's maps, and under ``--loss wgan``
+    the penalty's weights (one per interpolate: the smaller of the real and
+    fake batches)."""
+    kw = dict(device=device, padding_mode=args.padding_mode)
+    grid = (args.base_res, args.num_patches_height, args.num_patches_width)
+    draws = []
+    for _ in range(args.disc_iters):
+        z = build_train_z(rng, args.num_images, args.z_dim, *grid, **kw)
+        maps = None
+        if args.type_norm_G == "SSM":
+            maps = build_train_maps(rng, args.num_images, args.map_dim, args.n_layers_G, *grid,
+                                    **kw)
+        eps = None
+        if args.loss == "wgan" and args.gp_weight > 0:
+            n = min(args.batch_size, args.num_images)
+            eps = torch.rand((n, 1, 1, 1), generator=rng, device=device)
+        draws.append(Draw(z, maps, eps))
+    return draws
+
+
 class StepDispatch:
     """The train loop's step with its draws: a batch of crops from
-    ``sampler``, the latent and an SSM generator's maps, all drawn from
-    ``rng`` in the eager loop's order, then :func:`fused_step`, and the
-    epoch's loss sums ``d_sum`` and ``g_sum`` added on the device: the
-    reference's superstep body (``make_train_superstep``, crops sampled
-    in-jit).
+    ``sampler``, then for each of the ``disc_iters`` D iterations the
+    latent, an SSM generator's maps and under ``--loss wgan`` the penalty's
+    weights, all drawn from ``rng`` in that order (:meth:`draw`), then
+    :func:`fused_step`, and the epoch's loss sums ``d_sum`` and ``g_sum``
+    added on the device: the reference's superstep body
+    (``make_train_superstep``, crops sampled in-jit).
 
     ``graphed`` (a state on the card): the first ``WARMUP_STEPS`` steps
     run eagerly on a side stream, the next is captured as a CUDA graph with
@@ -265,21 +333,20 @@ class StepDispatch:
     def set_lr(self) -> None:
         set_lr(self.state)
 
+    def draw(self, rng: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, List[Draw]]:
+        """The step's draws from ``rng`` (the run's generator by default):
+        the real crops, then :func:`draw_iterations`."""
+        rng = self.rng if rng is None else rng
+        real = self.sampler.sample(rng, self.args.batch_size)
+        return real, draw_iterations(rng, self.args, real.device)
+
     def body(self) -> Dict[str, torch.Tensor]:
-        """The step's device work (draws, :func:`fused_step`, the loss sums)
-        without the step count: what a capture holds."""
-        a, G = self.args, self.state.G
-        real = self.sampler.sample(self.rng, a.batch_size)
-        dev = real.device
-        z = build_train_z(self.rng, a.num_images, G.z_dim, G.base_res, G.num_patches_h,
-                          G.num_patches_w, device=dev, padding_mode=G.padding_mode)
-        maps = None
-        if G.type_norm == "SSM":
-            maps = build_train_maps(self.rng, a.num_images, G.map_dim, G.n_layers_G, G.base_res,
-                                    G.num_patches_h, G.num_patches_w, device=dev,
-                                    padding_mode=G.padding_mode)
-        m = fused_step(self.state, real, z, maps, loss_type=a.loss, smooth=a.smooth,
-                       ema_decay=a.ema_decay, use_ema=a.ema)
+        """The step's device work (:meth:`draw`, :func:`fused_step`, the loss
+        sums) without the step count: what a capture holds."""
+        a = self.args
+        real, draws = self.draw()
+        m = fused_step(self.state, real, draws, loss_type=a.loss, smooth=a.smooth,
+                       gp_weight=a.gp_weight, ema_decay=a.ema_decay, use_ema=a.ema)
         self.d_sum.add_(m["d_loss_fake"] * a.num_images).add_(m["d_loss_real"] * a.batch_size)
         self.g_sum.add_(m["g_loss"] * a.num_images)
         return m

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Step parity's spread, and its power to catch a wrong kernel, on one card.
 
-Run from the root of a checkout: ``python3 step_parity_study.py``. For the
-SSM recipe and the Experiment-1 step under ``--fuse_up off`` (full width,
-float32 with TF32 off; ``chip_smoke.py``'s flags, inputs and state) it runs
-one train step
+Run from the root of a checkout: ``python3 step_parity_study.py [RECIPE
+...]`` (all recipes by default). For the SSM recipe, the Experiment-1 step
+under ``--fuse_up off`` and the WGAN-GP recipe of ``chip_smoke.py``'s phase
+10 (``--fuse_up auto --loss wgan --gp_weight 10 --disc_iters 5``; full
+width, float32 with TF32 off; ``chip_smoke.py``'s flags, inputs and state)
+it runs one train step
 
 - with the kernels, twice (the atomics' order varies);
 - with the kernels' plain versions (step parity's comparison run);
@@ -16,7 +18,7 @@ one train step
 and prints, for pairs of these runs, each model's largest per-leaf
 deviation as step parity measures it (max |diff| over the leaf's largest
 value) and the largest norm-relative one, with their leaves, and whether
-``chip_smoke.py``'s limits pass the pair. The per-leaf table goes to
+``chip_smoke.py``'s limits for the recipe pass the pair. The per-leaf table goes to
 ``build/step_parity_study.json``.
 """
 
@@ -97,17 +99,30 @@ def main() -> int:
                  "dW1 x (1 + 3e-3)": lambda: patched(ssm, "ssm_embed_bwd", scale_dw1(1 + 3e-3))}),
         "BN off": (cs.EXP1_ARGS + ["--compute_dtype", "float32", "--fuse_up", "off"],
                    {"K6 top fold dropped": k6_fault}),
+        "WGAN": (cs.EXP1_ARGS + ["--compute_dtype", "float32", "--fuse_up", "auto"]
+                 + cs.OPTION_RECIPES["wgan"], {"K6 top fold dropped": k6_fault}),
     }
-    table = {"card": card, "limits": {"loss": cs.STEP_LOSS_TOL, "grad": cs.STEP_GRAD_TOL,
-                                      "noise": cs.NOISE_TOL}, "recipes": {}}
+    unknown = set(sys.argv[1:]) - set(recipes)
+    if unknown:
+        print(f"step_parity_study: no recipe {sorted(unknown)}; recipes {sorted(recipes)}",
+              file=sys.stderr)
+        return 2
+    recipes = {k: v for k, v in recipes.items() if not sys.argv[1:] or k in sys.argv[1:]}
+    # chip_smoke's gates by recipe: (losses, a leaf's largest deviation)
+    limits = {r: (cs.STEP_LOSS_TOL, cs.STEP_GRAD_TOL) for r in recipes}
+    if "WGAN" in limits:
+        limits["WGAN"] = (cs.WGAN_STEP_LOSS_TOL, cs.WGAN_STEP_GRAD_TOL)
+    table = {"card": card, "limits": {r: {"loss": lo, "grad": gr, "noise": cs.NOISE_TOL}
+                                      for r, (lo, gr) in limits.items()}, "recipes": {}}
     for recipe, (argv, faults) in recipes.items():
-        args, real, z, maps = cs.parity_inputs(dev, argv)
+        loss_tol, grad_tol = limits[recipe]
+        args, real, draws = cs.parity_inputs(dev, argv)
         runs = {}
         for name, kw in (("kernels", {}), ("kernels again", {}),
                          ("plain", dict(patch=cs.plain_tail)), ("float64", dict(reference=True)),
                          *((f, dict(patch=p)) for f, p in faults.items())):
             t0 = time.perf_counter()
-            runs[name] = cs.run_step(dev, args, real, z, maps, sync, **kw)
+            runs[name] = cs.run_step(dev, args, real, draws, sync, **kw)
             print(f"[{recipe}] {name}: losses {runs[name][0]} ({time.perf_counter() - t0:.1f} s)")
         pairs = [("kernels again", "kernels"), ("kernels", "plain"), ("plain", "float64"),
                  ("kernels", "float64")]
@@ -116,14 +131,14 @@ def main() -> int:
         for got, want in pairs:
             (lg, gg, dg, _), (lw, gw, dw, _) = runs[got], runs[want]
             loss = max(abs(lg[k] - v) / max(abs(v), 1e-30) for k, v in lw.items())
-            row = {"loss_rel": loss, "passes": loss <= cs.STEP_LOSS_TOL}
+            row = {"loss_rel": loss, "passes": loss <= loss_tol}
             for model, a, b in (("G", gg, gw), ("D", dg, dw)):
                 devs = cs.leaf_deviations(a, b)
                 signal = {k: v for k, v in devs.items() if not v[2]}
                 noise = [v[0] for v in devs.values() if v[2]]
                 worst = max(signal, key=lambda k: signal[k][0])
                 worst_n = max(signal, key=lambda k: signal[k][1])
-                ok = all(v[0] <= (cs.NOISE_TOL if v[2] else cs.STEP_GRAD_TOL) for v in devs.values())
+                ok = all(v[0] <= (cs.NOISE_TOL if v[2] else grad_tol) for v in devs.values())
                 row["passes"] = row["passes"] and ok
                 row[model] = {"worst": worst, "share": signal[worst][0], "worst_norm": worst_n,
                               "norm_rel": signal[worst_n][1], "noise_share": max(noise, default=0.0),

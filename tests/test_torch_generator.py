@@ -104,8 +104,11 @@ def test_one_pass_matches_jax(small_tree, jax_tail, port_tail):
 
 
 def test_rejects_unported_options():
-    with pytest.raises(NotImplementedError):  # spectral norm in G (zeros padding is ported)
-        ResidualPatchGenerator(**SMALL, SN=True)
+    # spectral norm in G is ported: every conv normalised, the model NHWC
+    # throughout (the reference's channels-major gate excludes SN)
+    sn = ResidualPatchGenerator(**SMALL, SN=True)
+    assert not sn.emits_chw() and sn.eval_fuse_blocks() == frozenset()
+    assert {"start.conv.u", "final.conv.v", "block4.conv1.conv.u"} <= set(sn.state_dict())
     with pytest.raises(ValueError):
         ResidualPatchGenerator(**SMALL, padding_mode="reflect")
     # zeros padding runs every block NHWC, as the reference's gate has it

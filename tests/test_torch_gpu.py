@@ -2122,8 +2122,11 @@ def _graph_args(tmp_path, recipe):
     tex = tmp_path / "tex.png"
     rng = np.random.default_rng(3)
     Image.fromarray(rng.integers(0, 256, (56, 64, 3), dtype=np.uint8)).save(tex)
-    flags = {"auto": [], "off": ["--fuse_up", "off"], "SSM": ["--type_norm_G", "SSM",
-                                                              "--map_dim", "2"]}[recipe]
+    flags = {"auto": [], "off": ["--fuse_up", "off"],
+             "SSM": ["--type_norm_G", "SSM", "--map_dim", "2"],
+             "wgan": ["--loss", "wgan", "--gp_weight", "10", "--disc_iters", "2"],
+             "batch_di2": ["--norm_layer_D", "batch", "--disc_iters", "2"],
+             "spec_norm_G": ["--spec_norm_G"]}[recipe]
     return prepare_parser().parse_args(
         ["--G_ch", "8", "--D_ch", "8", "--z_dim", "16", "--n_layers_G", "4", "--n_layers_D", "2",
          "--padding_mode", "local", "--attention", "--spec_norm_D", "--ema", "--smooth",
@@ -2132,14 +2135,16 @@ def _graph_args(tmp_path, recipe):
          "--seed", "2", "--fname", str(tmp_path / "cp"), "--device", "cuda"] + flags)
 
 
-@pytest.mark.parametrize("recipe", ["auto", "off", "SSM"])
+@pytest.mark.parametrize("recipe", ["auto", "off", "SSM", "wgan", "batch_di2", "spec_norm_G"])
 def test_graphed_train_equals_eager(cuda, tmp_path, recipe):
     """The train loop with its default dispatch (6 steps: two eager warm-up
     steps, a capture, replays) against one step per dispatch, from one
     seed, in bf16 (whose kernels sum in a fixed order): every step's
     losses, the last step's gradients and every parameter and buffer
     bit-equal; the same launches in every step, by kernel and by entry
-    point."""
+    point. The training options too: WGAN-GP (its penalty's weights drawn
+    in the captured step, its double backward captured), D's BatchNorms
+    with 2 D updates a step, SN in G."""
     from infinite_texture_gans_torch.ops import ssm
     from infinite_texture_gans_torch.train import train_loop
 
