@@ -214,7 +214,30 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    graphed bf16 steps through ``train`` for WGAN-GP and for SN in G (warm
    wall, busy share, peak memory), and the SN run's EMA checkpoint through
    the sample CLI to a 1024^2 PNG with phase 4's launches per canvas.
-11. Prints the ``kernels`` JSON line (``:gen_all`` rows for K1, K9, K14, K2,
+11. Multi-image training (``multi_phase``): the README's multi-image recipe
+   (``--data multiple_images --data_path datasets/multi``: the three bundled
+   textures stacked on the card, crops drawn in the step) at full Exp-1
+   width, 30 graphed bf16 steps through ``train`` with every step's launches
+   held to ``auto``'s, its warm wall, busy share and peak memory beside
+   phase 6's single-image ``auto`` run; its graphed steps bit-equal to eager
+   ones (``graph_parity``, bf16); a stack of the textures raised to >= 1
+   from which no drawn batch holds an exact -1 (padding never read); then
+   MULTI8 images cut from the textures under a cap that keeps 2 resident
+   (``RotatingMultiImageSampler``): 30 graphed steps in chunks of MULTI8_SPD
+   against the same images all resident, the windows each chunk used, each
+   swap's host time, the epoch's residency spread (at most one window), and
+   a 2 + 2-epoch resume bit-equal to 4 uninterrupted epochs.
+12. The batched-diagonal engine (``diag_phase``) on the flagship: f32
+   768^2 (TF32 off) against the raster within CANVAS_TOL, bf16 1024^2 u8
+   at lanes 1 byte-equal to the raster with its launches and at lanes 4
+   byte-equal to the raster at batch 4 (cuDNN's algorithms at batch 4
+   against batch 1 reported in u8 levels); at 1024^2 lanes
+   DIAG_LANES and at DIAG_BIG^2 lanes 8, beside the raster graphed and
+   eager: warm walls, traced device busy per canvas, generator calls, K2 /
+   K3 / K4 launches and K2's device ms per launch; ``--fuse_up all`` and
+   the SSM run's checkpoint through the same gates at lanes 4; ``sample
+   --diag_lanes 4`` writing a 1024^2 PNG.
+13. Prints the ``kernels`` JSON line (``:gen_all`` rows for K1, K9, K14, K2,
    K3 and K10 per 384^2 sub-image under ``--fuse_up all``, ``:gen_ssm`` rows
    for K15, K1, K2, K3 and K4 per 192^2 SSM sub-image, and a ``:train_ssm``
    row for every kernel
@@ -465,6 +488,24 @@ F32_REPORTED = ("batch", "instance")
 # 1, n_layers_G 5 (64^2 patches, 192^2 grids), n_layers_D 3, 128^2 crops of
 # datasets/12.jpg. The train gate runs block 5 (52 -> 26 at 192^2) channels-
 # major; at eval blocks 4 (104 -> 52 at 96^2) and 5.
+# Phase 11: the README's multi-image recipe (the three bundled textures,
+# 600x450 to 614x440, stacked on the card) at the Exp-1 widths; the padding
+# check's batches; MULTI8 images of MULTI8_SIZE cut from the textures for the
+# rotating subset, trained in chunks of MULTI8_SPD steps (a window swap
+# before each) and resumed in chunks of MULTI_RESUME_SPD
+MULTI_ARGS = ["--data", "multiple_images", "--data_path", str(ROOT / "datasets" / "multi")] + \
+    EXP1_ARGS[2:]
+MULTI_PAD_DRAWS = 50
+MULTI8 = 8
+MULTI8_SIZE = (400, 440)
+MULTI8_SPD = "5"
+MULTI_RESUME_SPD = "2"
+# Phase 12: the batched-diagonal engine's lanes timed at 1024^2 (at most
+# steps_h = 4 run), and lanes 8 at DIAG_BIG^2
+DIAG_LANES = (1, 2, 4, 8)
+DIAG_BIG = 4096
+DIAG_GATE_LANES = 4
+DIAG_TOP = 8  # kernels by device time printed for each traced diagonal canvas
 SSM_N = 8
 SSM_ARGS = ["--data_path", str(ROOT / "datasets" / "12.jpg"), "--random_crop", "128",
             "--G_ch", "52", "--D_ch", "64", "--z_dim", "128", "--n_layers_G", "5",
@@ -905,8 +946,9 @@ def dispatch_run(dev, args, graphed, sync, start=None, plant=None):
     launches, 'routes': the routed kernels' launches by entry point}."""
     import torch
 
-    from infinite_texture_gans_torch.data.datasets import DeviceCropSampler, SingleImageDataset
+    from infinite_texture_gans_torch.data.datasets import prepare_data
     from infinite_texture_gans_torch.ops import kernels, ssm
+    from infinite_texture_gans_torch.train.train_loop import make_sampler
     from infinite_texture_gans_torch.train.train_step import (
         WARMUP_STEPS,
         StepDispatch,
@@ -914,8 +956,7 @@ def dispatch_run(dev, args, graphed, sync, start=None, plant=None):
     )
 
     st = create_train_state(args, GRAPH_STEPS, dev, seed=11)
-    sampler = DeviceCropSampler(SingleImageDataset(args.data_path, args.data_ext, None,
-                                                   args.random_crop, 64), dev)
+    sampler = make_sampler(prepare_data(args), args, dev, 7, GRAPH_STEPS)
     rng = torch.Generator(device=dev).manual_seed(7)
     dispatch = StepDispatch(st, sampler, rng, args, graphed=graphed)
     dispatch.set_lr()
@@ -1008,7 +1049,8 @@ PLANTS = {"draws": "every replay draws the first replay's crops and latents",
           "eps": "every replay reuses the first replay's penalty weights"}
 
 
-def graph_parity(dev, label, argv, sync, plant=None, f32_held: bool = True) -> None:
+def graph_parity(dev, label, argv, sync, plant=None, f32_held: bool = True,
+                 dtypes=("float32", "bfloat16")) -> None:
     """The train loop's dispatched step, eagerly and as the train loop runs
     it (WARMUP_STEPS eager warm-up steps, then CUDA graph replays), from one
     state and one generator state, GRAPH_STEPS steps each, every run
@@ -1032,12 +1074,13 @@ def graph_parity(dev, label, argv, sync, plant=None, f32_held: bool = True) -> N
     the zeros path's float32 steps are cuDNN's throughout, whose weight
     gradients two eager runs do not reproduce to step parity's gates at the
     biases of block 3 (on an H100 80GB HBM3 at 700 W, this script's phase 9
-    read 4.9e-3 of the leaf's largest value eager against eager)."""
+    read 4.9e-3 of the leaf's largest value eager against eager).
+    ``dtypes``: the dtypes run (phase 11 runs bf16 only)."""
     from infinite_texture_gans_torch.config import prepare_parser
     from infinite_texture_gans_torch.train.train_step import WARMUP_STEPS
 
     first_replay = WARMUP_STEPS + 1
-    for dtype in ("float32", "bfloat16"):
+    for dtype in dtypes:
         args = prepare_parser().parse_args(argv + ["--compute_dtype", dtype, "--device", "cuda"])
         eager = dispatch_run(dev, args, False, sync)
         start = eager["start"]
@@ -1080,7 +1123,8 @@ def graph_parity(dev, label, argv, sync, plant=None, f32_held: bool = True) -> N
 def training_run(dev, argv, steps, want_launches, sync, card, out_dir, spd, render=True):
     """``steps`` steps of the train CLI's loop (one epoch) under
     ``--steps_per_dispatch spd`` ('0': the CLI default, on the card replays
-    of a captured CUDA graph of the step; '1': eager per-step dispatch),
+    of a captured CUDA graph of the step, as under any K > 1; '1': eager
+    per-step dispatch),
     with the exact kernel launches of every step held to ``want_launches``,
     finite losses, moved parameters, the warm step time (the median of the
     WARM_STEPS steps before the traced window), the device busy share of
@@ -1109,9 +1153,11 @@ def training_run(dev, argv, steps, want_launches, sync, card, out_dir, spd, rend
         "--sampling", str(int(argv[argv.index("--batch_size") + 1]) * steps), "--epochs", "1",
         "--saving_rate", "1", "--seed", "5", "--fname", str(out_dir), "--device", dev.type,
         "--steps_per_dispatch", spd])
-    form = "graphed" if spd == "0" else "eager"
+    form = {"0": "graphed", "1": "eager"}.get(spd, f"graphed, chunks of {spd}")
     zeros = " --padding_mode zeros" if args.padding_mode == "zeros" else ""
-    label = f"{args.type_norm_G} --fuse_up {args.fuse_up}{zeros}{option_flags(args)}, {form}"
+    multi = (f" --data multiple_images ({Path(args.data_path).name})"
+             if args.data != "single_image" else "")
+    label = f"{args.type_norm_G} --fuse_up {args.fuse_up}{zeros}{option_flags(args)}{multi}, {form}"
     step_log = []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     traced = []
@@ -1904,6 +1950,365 @@ def options_phase(dev, sync, card) -> None:
               want=16 * GEN_PER_SUB["flagship"]["chw_halo_step"],
               k3_want=16 * GEN_PER_SUB["flagship"]["conv1x1_chw"])
     png.unlink()
+
+
+def multi_phase(dev, sync, card, auto) -> None:
+    """Phase 11: multi-image training. ``auto``: phase 6's graphed Exp-1
+    ``auto`` run in this call, (launches, warm s, busy ms, peak bytes),
+    printed beside the multi-image run.
+
+    - The README's multi-image recipe (MULTI_ARGS: ``datasets/multi``, the
+      three bundled textures stacked on the card) at full Exp-1 width, 30
+      graphed bf16 steps through ``train``: every step's launches held to
+      ``auto``'s, the tensor-core routes, the warm step wall, the traced
+      busy share and the peak memory.
+    - The same recipe's steps as the loop runs them (``graph_parity``, bf16:
+      graphed bit-equal to eager).
+    - The stack of the three textures with every value raised to >= 1: no
+      drawn batch holds an exact -1 (padding is never read).
+    - MULTI8 images cut from the textures (crops and flips) with a cap that
+      keeps 2 resident: 30 graphed steps in chunks of MULTI8_SPD (a window
+      swapped before each chunk) against the same images all resident, the
+      windows each chunk used, each swap's host time and the epoch's
+      residency spread (at most one window, the reference's
+      tests/test_train.py:1104); then a 2 + 2-epoch resume in chunks of 2
+      bit-equal to 4 uninterrupted epochs."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from infinite_texture_gans_torch.config import prepare_parser
+    from infinite_texture_gans_torch.data import datasets as D
+    from infinite_texture_gans_torch.train import train_loop
+
+    root = ROOT / "build" / "smoke_multi"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    recipe = MULTI_ARGS + ["--fuse_up", "auto"]
+    auto_launches = STEP_LAUNCHES["auto"]
+    _, warm, busy, routed, peak = training_run(
+        dev, recipe, TRAIN_STEPS, auto_launches, sync, card, root / "recipe", "0", render=False)
+    want = route_want({k: TRAIN_STEPS * v for k, v in STEP_LAUNCHES["auto"].items()}, tc=True)
+    if routed != want:
+        fail(f"the multi-image run took the routed kernels' launches {routed}, not {want}")
+    share = lambda b, w: f"{b:.2f} ms ({100 * b / (w * 1e3):.1f}%)" if b else "not measured"  # noqa: E731
+    print(f"[multi] README recipe, datasets/multi (3 images stacked on the card), 30 graphed bf16 "
+          f"steps: warm step {warm * 1e3:.2f} ms, busy {share(busy, warm)}, peak "
+          f"{peak / 2**30:.3f} GiB; the single-image Exp-1 auto run of phase 6 in this call: "
+          f"{auto[1] * 1e3:.2f} ms, busy {share(auto[2], auto[1])}, peak {auto[3] / 2**30:.3f} GiB; "
+          f"multi / single warm step {warm / auto[1]:.4f} [{card}] (the JAX package reports its "
+          "two steps within 0.1% of each other on a TPU, docs/PERF.md:622-633)")
+    graph_parity(dev, "multi-image --fuse_up auto", recipe, sync, dtypes=("bfloat16",))
+
+    srcs = {f.name: np.asarray(Image.open(f).convert("RGB"))
+            for f in sorted((ROOT / "datasets" / "multi").iterdir())}
+    bright = root / "bright"
+    bright.mkdir()
+    for f, a in srcs.items():
+        Image.fromarray(np.maximum(a, 1)).save(bright / f"{Path(f).stem}.png")
+    sampler = D.DeviceMultiImageSampler(D.MultipleImagesDataset(str(bright), "png",
+                                                                random_crop=192), dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    lows = torch.stack([sampler.sample(g, EXP1_BATCH).min() for _ in range(MULTI_PAD_DRAWS)])
+    low = float(lows.min())
+    print(f"[multi] the stack of the three textures raised to >= 1: {tuple(sampler.imgs.shape)} "
+          f"uint8, valid extents h {sampler.h_valid.tolist()} w {sampler.w_valid.tolist()}; "
+          f"{MULTI_PAD_DRAWS} batches of {EXP1_BATCH} 192^2 crops, lowest value {low:.6f} (an "
+          "exact -1 would be padding)")
+    if not low > -1.0:
+        fail("a drawn multi-image batch read the stack's zero padding")
+
+    eight = root / "eight"
+    eight.mkdir()
+    h, w = MULTI8_SIZE
+    for i in range(MULTI8):
+        a = list(srcs.values())[i % 3]
+        top, left = (i * 23) % (a.shape[0] - h + 1), (i * 61) % (a.shape[1] - w + 1)
+        c = a[top : top + h, left : left + w]
+        c = c[:, ::-1] if i >= 3 else c
+        c = c[::-1] if i >= 6 else c
+        Image.fromarray(np.ascontiguousarray(c)).save(eight / f"{i}.png")
+    cap = h * w * 3 / 2**20 * 4.5  # two windows of two images fit
+    argv8 = ["--data", "multiple_images", "--data_path", str(eight), "--data_ext", "png"] + \
+        recipe[4:]
+    resident = training_run(dev, argv8, TRAIN_STEPS, auto_launches, sync, card,
+                            root / "resident8", MULTI8_SPD, render=False)
+    windows, swaps = [], []
+    swap = D.RotatingMultiImageSampler.next_window
+
+    def timed(self):
+        t = time.perf_counter()
+        out = swap(self)
+        swaps.append(time.perf_counter() - t)
+        windows.append(out.tolist())
+        return out
+
+    keep = D.DeviceMultiImageSampler.MAX_DEVICE_MB
+    D.DeviceMultiImageSampler.MAX_DEVICE_MB = cap
+    D.RotatingMultiImageSampler.next_window = timed
+    try:
+        rotating = training_run(dev, argv8, TRAIN_STEPS, auto_launches, sync, card,
+                                root / "rotating8", MULTI8_SPD, render=False)
+        counts = np.bincount(np.concatenate(windows), minlength=MULTI8)
+        print(f"[multi] rotating subset: {MULTI8} images of {h}x{w}, cap {cap:.3f} MB (2 "
+              f"resident), {len(windows)} chunks of {MULTI8_SPD} steps, windows {windows}; "
+              f"residency per image {counts.tolist()} (spread {counts.max() - counts.min()}, "
+              f"limit 1); swap host time per chunk {', '.join(f'{t * 1e3:.3f}' for t in swaps)} ms "
+              f"[{card}]")
+        print(f"[multi] rotating vs all resident, the same {MULTI8} images, chunks of "
+              f"{MULTI8_SPD}: warm step {rotating[1] * 1e3:.2f} ms vs {resident[1] * 1e3:.2f} ms, "
+              f"busy {share(rotating[2], rotating[1])} vs {share(resident[2], resident[1])}, peak "
+              f"{rotating[4] / 2**30:.3f} vs {resident[4] / 2**30:.3f} GiB [{card}]")
+        if len(windows) != TRAIN_STEPS // int(MULTI8_SPD) or counts.max() - counts.min() > 1:
+            fail(f"the rotating windows {windows} break the epoch's residency bound")
+
+        def run(name, epochs, resume=None):
+            argv = argv8 + ["--sampling", str(EXP1_BATCH * RESUME_STEPS), "--saving_rate", "2",
+                            "--epochs", str(epochs), "--device", dev.type, "--seed", "17",
+                            "--fname", str(root / name), "--steps_per_dispatch",
+                            MULTI_RESUME_SPD] + (["--resume", resume] if resume else [])
+            windows.clear()
+            state, gl, dl = train_loop.train(prepare_parser().parse_args(argv))
+            sync()
+            return train_tensors(state), (gl, dl), list(windows)
+
+        full = run("full", RESUME_EPOCHS)
+        run("half", RESUME_EPOCHS // 2)
+        resumed = run("resumed", RESUME_EPOCHS, str(root / "half" / "2_2.ckpt"))
+    finally:
+        D.DeviceMultiImageSampler.MAX_DEVICE_MB = keep
+        D.RotatingMultiImageSampler.next_window = swap
+    bits = full[1] == resumed[1] and all(torch.equal(resumed[0][k], v) for k, v in full[0].items())
+    print(f"[multi] rotating resume, {RESUME_EPOCHS // 2} + {RESUME_EPOCHS // 2} epochs of "
+          f"{RESUME_STEPS} steps in chunks of {MULTI_RESUME_SPD} against {RESUME_EPOCHS} "
+          f"uninterrupted: windows {resumed[2]} against the last {len(resumed[2])} of "
+          f"{full[2]}; losses and every tensor bit-equal: {bits}")
+    if not bits or resumed[2] != full[2][-len(resumed[2]):]:
+        fail("the resumed rotating-subset run differs from the uninterrupted one")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def traced_canvas(fn, sync):
+    """``fn()`` (a canvas) under torch.profiler: (wall s, device busy ms,
+    {kernel name: (ms, calls)})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t
+    by_name, busy = device_busy_ms(prof)
+    return wall, busy, by_name
+
+
+def diag_gates(dev, gen, args, label, sync, path_kernels) -> None:
+    """The batched-diagonal engine against the raster for one checkpoint's
+    bf16 generator ``gen`` (DIAG_GATE_LANES lanes, one canvas: N = lanes):
+
+    - f32 768^2 (TF32 off, lanes None) within CANVAS_TOL of the raster;
+    - bf16 1024^2 u8 at lanes 1 byte-equal to the raster, with the raster's
+      launches;
+    - bf16 1024^2 u8 at DIAG_GATE_LANES byte-equal to canvas 0 of the
+      raster run with DIAG_GATE_LANES canvases (canvas 0 on the same
+      latents): every call at the same batch, so cuDNN picks the same
+      algorithms; against the one-canvas raster reported, beside that
+      raster's own canvas 0 against it (cuDNN's choices at batch 4 alone:
+      on an H100 80GB HBM3 at 700 W the first run of this phase read 8 u8
+      levels on 4.07% of the flagship's values at lanes 4, from block 2's
+      first cuDNN conv on, which rounds one bf16 ulp apart at batch 4);
+    - ``path_kernels`` launched in the lanes-4 canvas."""
+    import numpy as np
+    import torch
+
+    from infinite_texture_gans_torch.config import generator_kwargs
+    from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
+    from infinite_texture_gans_torch.ops import kernels
+    from infinite_texture_gans_torch.sampling.diag import generate_canvas_diag
+    from infinite_texture_gans_torch.sampling.infinite import (
+        canvas_geometry,
+        canvas_latents,
+        generate_canvas,
+    )
+
+    kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
+    gen32 = ResidualPatchGenerator(**{**generator_kwargs(args), "dtype": torch.float32})
+    gen32.load_state_dict(gen.state_dict(), strict=True)
+    gen32 = gen32.to(dev).eval()
+    rng = lambda seed=0: torch.Generator(device=dev).manual_seed(seed)  # noqa: E731
+    ref = generate_canvas(gen32, rng(), 768, 768)
+    err = float(np.abs(generate_canvas_diag(gen32, rng(), 768, 768) - ref).max())
+    steps_h = canvas_geometry(768, 768, gen.patch_resolution, GRID, GRID)[0]
+    print(f"[diag] {label} f32 768^2 (TF32 off, lanes {min(steps_h, 8)}): diagonal vs raster max "
+          f"abs {err:.3e}, limit {CANVAS_TOL:.0e}")
+    if not err <= CANVAS_TOL:
+        fail(f"{label}: the f32 diagonal canvas differs from the raster by {err}")
+    fwd_route(f"{label} f32 768^2 diagonal and raster canvases", False)
+    del gen32
+    # canvas 0's latents (drawn as generate_canvas draws them) and more canvases'
+    lat = [canvas_latents(gen, rng(seed), 1024, 1024)[1:] for seed in range(DIAG_GATE_LANES)]
+    z = [z for z, _ in lat]
+    maps = None if lat[0][1] is None else [torch.cat(m) for m in zip(*(m for _, m in lat))]
+    kw = dict(wire="u8")
+    sync()
+    kernels.reset_launches()
+    raster = generate_canvas(gen, None, 1024, 1024, z_full=z[0], maps_full=lat[0][1],
+                             graphs=False, **kw)
+    want = dict(kernels.LAUNCHES)
+    batched = generate_canvas(gen, None, 1024, 1024, z_full=torch.cat(z), maps_full=maps,
+                              graphs=False, **kw)[:1]
+    out = {}
+    for lanes in (1, DIAG_GATE_LANES):
+        sync()
+        kernels.reset_launches()
+        out[lanes] = generate_canvas_diag(gen, None, 1024, 1024, lanes=lanes, z_full=z[0],
+                                          maps_full=lat[0][1], **kw)
+        sync()
+        out[lanes, "launches"] = dict(kernels.LAUNCHES)
+
+    def levels(a, b):
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        return (f"max {int(d.max())} levels, {np.count_nonzero(d)} of {d.size} values differ "
+                f"({100 * np.count_nonzero(d) / d.size:.2f}%)")
+
+    same = {lanes: bool(np.array_equal(out[lanes], ref_)) for lanes, ref_ in
+            ((1, raster), (DIAG_GATE_LANES, batched))}
+    print(f"[diag] {label} bf16 1024^2 u8: lanes 1 vs the raster byte-equal {same[1]}, launches "
+          f"{json.dumps(out[1, 'launches'])} (raster {json.dumps(want)}); lanes {DIAG_GATE_LANES} "
+          f"vs canvas 0 of the raster at batch {DIAG_GATE_LANES} byte-equal "
+          f"{same[DIAG_GATE_LANES]}, launches {json.dumps(out[DIAG_GATE_LANES, 'launches'])}")
+    print(f"[diag] {label} bf16 1024^2 u8, reported (cuDNN's algorithms at batch "
+          f"{DIAG_GATE_LANES} against batch 1): lanes {DIAG_GATE_LANES} vs the one-canvas raster "
+          f"{levels(out[DIAG_GATE_LANES], raster)}; the batch-{DIAG_GATE_LANES} raster's canvas 0 "
+          f"vs it {levels(batched, raster)}")
+    if not all(same.values()):
+        fail(f"{label}: the bf16 diagonal canvas is not byte-equal to the raster at its batch "
+             f"({same})")
+    if out[1, "launches"] != want:
+        fail(f"{label}: the diagonal engine at lanes 1 launched {out[1, 'launches']}, not {want}")
+    missing = [k for k in path_kernels if not out[DIAG_GATE_LANES, "launches"][k]]
+    if missing:
+        fail(f"{label}: the diagonal canvas launched none of {missing}")
+    fwd_route(f"{label} diagonal canvases, bf16", True)
+
+
+def diag_phase(dev, sync, card) -> None:
+    """Phase 12: the batched-diagonal engine on the flagship
+    (``diag_gates``), its walls, traced busy per canvas, generator calls,
+    K2/K3/K4 launches and K2's device ms per launch at lanes DIAG_LANES at
+    1024^2 and lanes 8 at DIAG_BIG^2, beside the sequential raster graphed
+    and eager in the same call; ``--fuse_up all`` and the SSM run's
+    checkpoint through the same gates at lanes 4; ``sample --diag_lanes 4``
+    end to end."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from infinite_texture_gans_torch import sample
+    from infinite_texture_gans_torch.ops import kernels
+    from infinite_texture_gans_torch.sampling.diag import generate_canvas_diag, schedule_constants
+    from infinite_texture_gans_torch.sampling.infinite import canvas_geometry, generate_canvas
+    from infinite_texture_gans_torch.train.checkpoint import (
+        load_checkpoint,
+        load_generator_from_checkpoint,
+    )
+
+    ckpt = load_checkpoint(str(CKPT))
+    gen, args = load_generator_from_checkpoint(str(CKPT), device=dev, ckpt=ckpt)
+    diag_gates(dev, gen, args, "flagship", sync, ("chw_halo_step", "conv1x1_chw", "upsample2_chw"))
+    P = gen.patch_resolution
+
+    def k2_ms(by_name, n):
+        ms = sum(v[0] for k, v in by_name.items() if "chw_fwd_tc_kernel" in k)
+        return ms / n if n else float("nan")
+
+    def measure(label, fn, size, calls, trace=True):
+        """A cold canvas, then three warm ones (the median wall; launches
+        per canvas counted over them), then, with ``trace``, a traced one
+        (busy per canvas, K2's device ms per launch, the top kernels)."""
+        fn(0)
+        walls = []
+        kernels.reset_launches()
+        for seed in (1, 2, 3):
+            sync()
+            t = time.perf_counter()
+            fn(seed)
+            sync()
+            walls.append(time.perf_counter() - t)
+        n = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+        if not (n["chw_halo_step"] and n["conv1x1_chw"] and n["upsample2_chw"]):
+            fail(f"{label} {size}^2 launched {n}: a kernel of the path none")
+        busy, traced_s = None, "not traced (the same device work as the graphed raster's)"
+        if trace:
+            traced, busy, by_name = traced_canvas(lambda: fn(4), sync)
+            traced_s = (f"traced {traced:.4f} s, device busy {busy:.2f} ms per canvas "
+                        f"({100 * busy / 1e3 / traced:.1f}%), K2 "
+                        f"{k2_ms(by_name, n['chw_halo_step']):.4f} ms per launch")
+        print(f"[diag time] {label} {size}^2 bf16 u8: warm wall median "
+              f"{statistics.median(walls):.4f} s ({', '.join(f'{w:.4f}' for w in walls)}); "
+              f"{traced_s}; generator calls {calls}; K2/K3/K4 launches "
+              f"{n['chw_halo_step']}/{n['conv1x1_chw']}/{n['upsample2_chw']} [{card}]")
+        if trace and "diagonal" in label:
+            for name, (ms_, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:DIAG_TOP]:
+                print(f"[diag trace]   {ms_:9.3f} ms {k:6d}x  {name[:100]}")
+        return busy
+
+    for size, lane_set in ((1024, DIAG_LANES), (DIAG_BIG, (8,))):
+        steps_h, steps_w, _, _ = canvas_geometry(size, size, P, GRID, GRID)
+        busy = {}
+        for lanes in lane_set:
+            used = min(lanes, steps_h)
+            calls = f"{schedule_constants(steps_w, steps_h, used)[1]} against {steps_h * steps_w}"
+            busy[f"lanes {lanes}"] = measure(
+                f"diagonal lanes {lanes}" + (f" (runs {used}: steps_h {steps_h})" if used != lanes
+                                             else ""),
+                lambda seed, lanes=lanes, size=size: generate_canvas_diag(
+                    gen, torch.Generator(device=dev).manual_seed(seed), size, size, lanes=lanes,
+                    wire="u8"), size, calls)
+        for form in ("graphed", "eager"):
+            fn = lambda seed, size=size, form=form: generate_canvas(  # noqa: E731
+                gen, torch.Generator(device=dev).manual_seed(seed), size, size, wire="u8",
+                graphs=form == "graphed")
+            if form == "graphed":
+                fn(0)  # with measure's cold canvas, every kind of row captured
+            busy[f"raster {form}"] = measure(f"raster, {form}", fn, size,
+                                             f"{steps_h * steps_w} (sequential)",
+                                             trace=form == "graphed" or size == 1024)
+        per = json.dumps({k: round(v, 3) for k, v in busy.items() if v is not None})
+        print(f"[diag] {size}^2: device busy per canvas {per} ms [{card}]")
+    del gen
+
+    gen_all, args_all = load_generator_from_checkpoint(str(CKPT), device=dev, ckpt=ckpt,
+                                                       fuse_up="all")
+    diag_gates(dev, gen_all, args_all, "flagship --fuse_up all", sync,
+               ("chw_upconv_halo_step", "chw_halo_step", "conv1x1_chw", "upsample2_chw_add"))
+    del gen_all
+    ssm_ckpt = ROOT / "build" / "smoke_train_ssm" / "1__ema.ckpt"
+    gen_ssm, args_ssm = load_generator_from_checkpoint(str(ssm_ckpt), device=dev)
+    diag_gates(dev, gen_ssm, args_ssm, "SSM", sync,
+               ("ssm_embed", "chw_halo_step", "conv1x1_chw", "upsample2_chw"))
+    del gen_ssm
+
+    out = ROOT / "build" / "smoke_diag"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    shutil.copy(CKPT, out / CKPT.name)
+    t = time.perf_counter()
+    sample.main(["--model_path", str(out / CKPT.name), "--output_resolution_height", "1024",
+                 "--output_resolution_width", "1024", "--output_name", "diag.png", "--seed", "1",
+                 "--diag_lanes", "4", "--device", dev.type])
+    wall = time.perf_counter() - t
+    img = np.asarray(Image.open(out / "diag.png"))
+    print(f"[sample diag] sample --diag_lanes 4 wrote diag.png {img.shape} (std {img.std():.2f}) in "
+          f"{wall:.4f} s (load and PNG included) [{card}]")
+    if img.shape != (1024, 1024, 3) or not img.std() > 1:
+        fail(f"sample --diag_lanes 4 wrote {img.shape}, std {img.std()}")
+    shutil.rmtree(out, ignore_errors=True)
 
 
 def main() -> int:
@@ -3669,7 +4074,17 @@ def main() -> int:
     options_phase(dev, sync, card)
     print(f"[phase 10] training options in {time.perf_counter() - t0:.1f} s")
 
-    # -- 11. report -----------------------------------------------------------
+    # -- 11. multi-image training: the README's recipe, the rotating subset ---
+    t0 = time.perf_counter()
+    multi_phase(dev, sync, card, runs["auto"])
+    print(f"[phase 11] multi-image training in {time.perf_counter() - t0:.1f} s")
+
+    # -- 12. the batched-diagonal engine ---------------------------------------
+    t0 = time.perf_counter()
+    diag_phase(dev, sync, card)
+    print(f"[phase 12] batched-diagonal engine in {time.perf_counter() - t0:.1f} s")
+
+    # -- 13. report -----------------------------------------------------------
     # K1 (and under --fuse_up all K9) runs on the one pass, the other
     # generation kernels on the raster
     gen_launches = {label: {k: (one if k in ("conv3x3_chw", "upconv3x3_chw") else raster)[k]

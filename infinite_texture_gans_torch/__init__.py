@@ -9,10 +9,11 @@ convolutions and the hand-written CUDA kernels of ``csrc/``), ``models/``,
 This package ports the generation path (a trained checkpoint is loaded,
 rebuilt as an eval-mode generator and run through the halo-cache raster
 engine, in memory or streamed into a PNG, fused under the sample CLI's
-``--fuse_up all``) and the training step (``train/train_loop.py``, which
-writes checkpoints in the reference's format), whose train CLI defaults to
-the reference's ``--fuse_up auto`` (the subpixel-fused up-conv tail) and
-also takes ``off``. On the card both paths issue CUDA graphs
+``--fuse_up all``, or several canvas rows at a time by the batched-diagonal
+engine) and the training step (``train/train_loop.py``, on one texture or a
+directory of them, which writes checkpoints in the reference's format),
+whose train CLI defaults to the reference's ``--fuse_up auto`` (the
+subpixel-fused up-conv tail) and also takes ``off``. On the card both paths issue CUDA graphs
 (``ops/graphs.py``): the train loop replays a captured step, the raster
 engine a captured canvas row of each kind met more than once. Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; on the CPU every kernel wrapper takes its

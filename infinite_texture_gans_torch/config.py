@@ -46,12 +46,17 @@ def prepare_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train the texture GAN (PyTorch port).")
     a = p.add_argument
     # data
-    a("--data", type=str, default="single_image", help="type of data (single_image)")
+    a("--data", type=str, default="single_image",
+      help="type of data: single_image, or multiple_images (a directory)")
     a("--data_path", type=str, default="datasets/241.jpg", help="data path")
     a("--data_ext", type=str, default="jpg", help="data extension: jpg, png or txt")
     a("--center_crop", type=int, default=None, help="center cropping")
     a("--random_crop", type=int, default=None, help="random cropping")
-    a("--sampling", type=int, default=8000, help="virtual dataset length per epoch")
+    a("--resize_h", type=int, default=None, help="resize for h (multiple_images; with --resize_w)")
+    a("--resize_w", type=int, default=None, help="resize for w (multiple_images; with --resize_h)")
+    a("--sampling", type=int, default=8000,
+      help="virtual dataset length per epoch; multiple_images: also draws that many files "
+           "where the directory holds more")
     # models
     a("--D_model", type=str, default="patch_GAN", help="discriminator model (patch_GAN)")
     a("--attention", action="store_true", default=False, help="attention in the generator")
@@ -133,14 +138,13 @@ def prepare_parser() -> argparse.ArgumentParser:
 
 
 def check_train_args(args: argparse.Namespace) -> None:
-    """Refuse the training options the port does not implement yet
-    (multi-image data, the other discriminators), flag values no model
-    takes, and ``--chw_tail off`` (a CPU reference path) on the card."""
-    unported = {"data": ("single_image",), "D_model": ("patch_GAN",)}
-    for flag, allowed in unported.items():
-        if getattr(args, flag) not in allowed:
-            raise NotImplementedError(f"--{flag} {getattr(args, flag)!r}: the port trains with {allowed}")
-    valid = {"loss": ("standard", "hinge", "wgan"), "padding_mode": ("local", "zeros"),
+    """Refuse the training options the port does not implement yet (the
+    other discriminators), flag values no model or dataset takes, and
+    ``--chw_tail off`` (a CPU reference path) on the card."""
+    if args.D_model != "patch_GAN":
+        raise NotImplementedError(f"--D_model {args.D_model!r}: the port trains with patch_GAN")
+    valid = {"data": ("single_image", "multiple_images"),
+             "loss": ("standard", "hinge", "wgan"), "padding_mode": ("local", "zeros"),
              "type_norm_G": ("BN", "SSM"), "norm_layer_D": (None, "batch", "instance")}
     for flag, allowed in valid.items():
         if getattr(args, flag) not in allowed:

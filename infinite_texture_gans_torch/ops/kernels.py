@@ -125,7 +125,13 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from infinite_texture_gans_torch.ops.padding import GridPos, SiteState
+from infinite_texture_gans_torch.ops.padding import (
+    GridPos,
+    LanePos,
+    SiteState,
+    lane_read_row,
+    lane_write_row,
+)
 
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES = {
@@ -536,7 +542,8 @@ def conv3x3_chw_halo_tc_plain(x, w, b, scale, shift, relu: bool, outer_padding: 
 def halo_borders(x: torch.Tensor, site: SiteState, pos: GridPos, gw: int):
     """The cached post-norm (top, left) borders of one raster step,
     channels-major in x's dtype; None on the first row / column, where the
-    kernel uses the own edge."""
+    kernel uses the own edge (:func:`lane_halo_borders` for a
+    :class:`LanePos`)."""
     wm = x.shape[3]
     offset = (gw - 1) * (wm // gw) * pos.col
     top = None
@@ -549,6 +556,37 @@ def halo_borders(x: torch.Tensor, site: SiteState, pos: GridPos, gw: int):
     return top, left
 
 
+def lane_halo_borders(x: torch.Tensor, scale, shift, relu: bool, outer_padding: str,
+                      site: SiteState, pos: LanePos, gw: int):
+    """:func:`halo_borders` with one position per batch element (the
+    batched-diagonal engine): (top (N, C, Wm+2), left (N, C, Hm)) for every
+    element, each from its own window of the cache or, on its first row or
+    column, its own edge as the kernel would border it (post-norm x's edge
+    for replicate, zeros for constant; a first row's top corners from its
+    left column and its last value), so one kernel call borders each
+    element as its own raster step would."""
+    wm = x.shape[3]
+    zeros = outer_padding == "constant"
+    own_left = x.new_zeros(x.shape[:3]) if zeros else prenorm(x[..., 0], scale, shift, relu)
+    cached_left = site.v[:, :, 0, :].permute(0, 2, 1).to(x.dtype)
+    left = torch.where(pos.first_col[:, None, None], own_left, cached_left)
+    if zeros:
+        own_top = x.new_zeros(x.shape[:2] + (wm + 2,))
+    else:
+        row = prenorm(x[:, :, 0, :], scale, shift, relu)  # (N, C, Wm)
+        own_top = torch.cat([left[:, :, :1], row, row[:, :, -1:]], dim=2)
+    cached_top = lane_read_row(site.row_read, pos, (gw - 1) * (wm // gw), wm + 2)
+    top = torch.where(pos.first_row[:, None, None], own_top,
+                      cached_top.permute(0, 2, 1).to(x.dtype))
+    return top.contiguous(), left.contiguous()
+
+
+def _borders(x, scale, shift, relu: bool, outer_padding: str, site: SiteState, pos, gw: int):
+    if isinstance(pos, LanePos):
+        return lane_halo_borders(x, scale, shift, relu, outer_padding, site, pos, gw)
+    return halo_borders(x, site, pos, gw)
+
+
 def chw_halo_step(x, w, b, scale, shift, relu: bool, outer_padding: str,
                   site: SiteState, pos: GridPos, gh: int, gw: int):
     """K2: one raster step of a channels-major local-padded conv.
@@ -556,8 +594,9 @@ def chw_halo_step(x, w, b, scale, shift, relu: bool, outer_padding: str,
     ``x`` (N, C, Hm, Wm) is the raw conv input (BN fold and ReLU run in the
     kernel); ``site`` is the engine's NHWC-format halo cache and holds
     post-norm values, as the NHWC path's (ops/padding.py) does. Returns
-    (y, updated SiteState); ``row_write`` is updated in place."""
-    top, left = halo_borders(x, site, pos, gw)
+    (y, updated SiteState); ``row_write`` is updated in place. ``pos`` may be
+    a :class:`LanePos` (one position per batch element)."""
+    top, left = _borders(x, scale, shift, relu, outer_padding, site, pos, gw)
     y = conv3x3_chw_halo(x, w, b, scale, shift, relu, outer_padding, top, left)
     return y, _halo_update(x, scale, shift, relu, site, pos, gh, gw)
 
@@ -566,13 +605,18 @@ def _halo_update(x, scale, shift, relu: bool, site: SiteState, pos: GridPos, gh:
                  gw: int) -> SiteState:
     """The cache update of one raster step (post-norm, NHWC buffer format):
     ``v`` from merged column (gw-1)*Wp - 1 of ``x`` (N, C, Hm, Wm), and merged
-    row (gh-1)*Hp - 1 written into ``row_write`` in place."""
+    row (gh-1)*Hp - 1 written into ``row_write`` in place; for a
+    :class:`LanePos`, each active element's at its own column."""
     hm, wm = x.shape[2:]
     hp, wp = hm // gh, wm // gw
     col = x[:, :, :, (gw - 1) * wp - 1 : (gw - 1) * wp]  # (N, C, Hm, 1)
     v_new = prenorm(col, scale, shift, relu).permute(0, 2, 3, 1).to(site.v.dtype)
     row = x[:, :, (gh - 1) * hp - 1, :]  # (N, C, Wm)
     row_pn = prenorm(row, scale, shift, relu).permute(0, 2, 1)  # (N, Wm, C)
+    if isinstance(pos, LanePos):
+        v_new = torch.where(pos.active[:, None, None, None], v_new, site.v)
+        lane_write_row(site.row_write, pos, (gw - 1) * wp, row_pn)
+        return SiteState(v=v_new, row_read=site.row_read, row_write=site.row_write)
     offset = (gw - 1) * wp * pos.col
     site.row_write[:, 0, offset + 1 : offset + 1 + wm, :] = row_pn.to(site.row_write.dtype)
     return SiteState(v=v_new, row_read=site.row_read, row_write=site.row_write)
@@ -1474,8 +1518,8 @@ def chw_upconv_halo_step(x, w, b, scale, shift, relu: bool, outer_padding: str,
     site's full-res halo row and column are these doubled, so the borders
     and the cache update are :func:`chw_halo_step`'s on the half-res grid.
     Returns (y (N, Co, 2Hm, 2Wm), updated SiteState); ``row_write`` is
-    updated in place."""
-    top, left = halo_borders(x, site, pos, gw)
+    updated in place. ``pos`` may be a :class:`LanePos`."""
+    top, left = _borders(x, scale, shift, relu, outer_padding, site, pos, gw)
     y = upconv3x3_chw_halo(x, w, b, scale, shift, relu, outer_padding, top, left)
     return y, _halo_update(x, scale, shift, relu, site, pos, gh, gw)
 

@@ -19,6 +19,12 @@ patches instead of zeros, so patches tile seamlessly.
 Unlike the reference, :class:`GridPos` holds plain Python values (there is
 no tracing), so position tests are ``if`` statements, and ``row_write`` is
 updated in place: the engine never reads a site's earlier state again.
+
+The batched-diagonal engine (``sampling/diag.py``) runs several canvas rows
+(lanes) in one generator call, each at its own sub-image: it passes a
+:class:`LanePos`, one position per batch element, and every lane reads its
+own window of its own row buffer and writes its own back (none where the
+lane is inactive), with tensor gathers and scatters in place of ``if``s.
 """
 
 from __future__ import annotations
@@ -52,6 +58,40 @@ class GridPos(NamedTuple):
     first_col: bool
 
 
+class LanePos(NamedTuple):
+    """Positions of a batched-diagonal step, one per batch element (a lane's
+    images share its position), on the activations' device."""
+
+    col: torch.Tensor  # (N,) int64: sub-image column index c
+    first_row: torch.Tensor  # (N,) bool
+    first_col: torch.Tensor  # (N,) bool
+    active: torch.Tensor  # (N,) bool: False leaves the element's cache as it was
+
+
+def _per_elem(mask: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A (N,) mask shaped to broadcast over (N, ...) of ``ndim`` dims."""
+    return mask.view((-1,) + (1,) * (ndim - 1))
+
+
+def lane_read_row(row_read: torch.Tensor, pos: LanePos, step: int, width: int) -> torch.Tensor:
+    """Each element's window of its row buffer (N, 1, Wtot+2, C): columns
+    ``col * step`` to ``col * step + width - 1`` -> (N, width, C)."""
+    buf = row_read[:, 0]
+    idx = pos.col[:, None] * step + torch.arange(width, device=buf.device)
+    return buf.gather(1, idx[:, :, None].expand(-1, -1, buf.shape[-1]))
+
+
+def lane_write_row(row_write: torch.Tensor, pos: LanePos, step: int, vals: torch.Tensor) -> None:
+    """Write ``vals`` (N, width, C) into each active element's row buffer
+    (N, 1, Wtot+2, C) in place, at columns ``col * step + 1`` on; an inactive
+    element's buffer keeps its values."""
+    buf = row_write[:, 0]
+    idx = pos.col[:, None] * step + 1 + torch.arange(vals.shape[1], device=buf.device)
+    idx = idx[:, :, None].expand(-1, -1, buf.shape[-1])
+    vals = vals.to(buf.dtype)
+    buf.scatter_(1, idx, torch.where(_per_elem(pos.active, 3), vals, buf.gather(1, idx)))
+
+
 def _edge_pad_nhwc(x: torch.Tensor, pad: int) -> torch.Tensor:
     x = torch.cat([x[:, :1]] * pad + [x] + [x[:, -1:]] * pad, dim=1)
     return torch.cat([x[:, :, :1]] * pad + [x] + [x[:, :, -1:]] * pad, dim=2)
@@ -80,8 +120,11 @@ def halo_pad_step(
     """Assemble the padded input for one sub-image step and update the cache.
 
     x: merged activation (N, gh*H, gw*W, C) of the current sub-image.
-    Returns (padded (N, gh*H+2, gw*W+2, C), updated SiteState).
+    Returns (padded (N, gh*H+2, gw*W+2, C), updated SiteState). ``pos`` may
+    be a :class:`LanePos` (:func:`lane_halo_pad_step`).
     """
+    if isinstance(pos, LanePos):
+        return lane_halo_pad_step(x, site, pos, gh, gw, outer_padding)
     n, hm, wm, c = x.shape
     h, w = hm // gh, wm // gw
 
@@ -98,6 +141,28 @@ def halo_pad_step(
 
     v_new = x[:, :, (gw - 1) * w - 1 : (gw - 1) * w]
     site.row_write[:, :, offset + 1 : offset + 1 + wm] = x[:, (gh - 1) * h - 1 : (gh - 1) * h]
+    return padded, SiteState(v=v_new, row_read=site.row_read, row_write=site.row_write)
+
+
+def lane_halo_pad_step(x: torch.Tensor, site: SiteState, pos: LanePos, gh: int, gw: int,
+                       outer_padding: str = "replicate") -> tuple[torch.Tensor, SiteState]:
+    """:func:`halo_pad_step` with one position per batch element: each
+    element's left column from the cache or its own edge, its top row from
+    its own window of its row buffer or its own edge, and the cache update
+    for the active elements only."""
+    n, hm, wm, c = x.shape
+    h, w = hm // gh, wm // gw
+    first_col, first_row = _per_elem(pos.first_col, 4), _per_elem(pos.first_row, 4)
+    left = torch.where(first_col, _outer(x[:, :, :1], outer_padding), site.v.to(x.dtype))
+    tmp = torch.cat([left, x, _outer(x[:, :, -1:], outer_padding)], dim=2)
+    bottom = _outer(tmp[:, -1:], outer_padding)
+    cached = lane_read_row(site.row_read, pos, (gw - 1) * w, wm + 2).unsqueeze(1).to(x.dtype)
+    top = torch.where(first_row, _outer(tmp[:, :1], outer_padding), cached)
+    padded = torch.cat([top, tmp, bottom], dim=1)
+
+    v_new = torch.where(_per_elem(pos.active, 4), x[:, :, (gw - 1) * w - 1 : (gw - 1) * w],
+                        site.v)
+    lane_write_row(site.row_write, pos, (gw - 1) * w, x[:, (gh - 1) * h - 1])
     return padded, SiteState(v=v_new, row_read=site.row_read, row_write=site.row_write)
 
 

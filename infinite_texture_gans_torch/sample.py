@@ -9,7 +9,9 @@ name given (a ``.png`` through the port's PNG writer, any other suffix
 through PIL, as the reference saves); ``--stream`` writes one canvas straight into a PNG
 (``sampling/stream.py``; ``.png`` is added to a name without it), and
 ``--fuse_up all`` runs the fused eval tail (K9 on the one pass, K14 in the
-raster engine). A zeros-padding checkpoint (the reference's branch,
+raster engine); ``--diag_lanes L`` generates the canvas L rows at a time
+(``sampling/diag.py``, the batched-diagonal engine; eager), the ``--batch``
+canvases in one batch. A zeros-padding checkpoint (the reference's branch,
 :196-214) runs one pass on a latent of ``output_resolution_height / S``
 squared (S = 2^(n_layers_G-1)), or ``--tiles`` (``sampling/tiled.py``);
 ``--stream`` then renders in memory. Runs on ``cuda`` unless ``--device
@@ -25,13 +27,14 @@ import numpy as np
 import torch
 
 from infinite_texture_gans_torch import resolve_device
+from infinite_texture_gans_torch.sampling.diag import generate_canvas_diag
 from infinite_texture_gans_torch.sampling.infinite import _to_uint8, generate_canvas
 from infinite_texture_gans_torch.sampling.stream import StreamingPNGWriter, generate_canvas_streamed
 from infinite_texture_gans_torch.sampling.tiled import sample_from_gen
 from infinite_texture_gans_torch.train.checkpoint import load_generator_from_checkpoint
 
 # Flags of the reference CLI whose engines are not ported yet.
-NOT_PORTED = ("mesh", "diag_lanes", "export_pth")
+NOT_PORTED = ("mesh", "export_pth")
 
 
 def prepare_sample_parser() -> argparse.ArgumentParser:
@@ -56,7 +59,9 @@ def prepare_sample_parser() -> argparse.ArgumentParser:
     p.add_argument("--tiles", action="store_true",
                    help="zeros-padding checkpoints: tiled inference (tile 32, pad 16)")
     p.add_argument("--mesh", type=str, default=None, help="not ported yet")
-    p.add_argument("--diag_lanes", type=int, default=None, help="not ported yet")
+    p.add_argument("--diag_lanes", type=int, default=None,
+                   help="local-padding checkpoints: generate this many canvas rows per "
+                        "generator call (the batched-diagonal engine; needs 3+ patch columns)")
     p.add_argument("--export_pth", type=str, default=None, help="not ported yet")
     return p
 
@@ -125,16 +130,13 @@ def main(argv=None) -> None:
         )
         print("The image is saved as:", path)
         return
-    img_u8 = generate_canvas(
-        gen,
-        rng,
-        output_resolution_height=args_sample.output_resolution_height,
-        output_resolution_width=args_sample.output_resolution_width,
-        num_images=args_sample.batch,
-        progress=True,
-        row_group=args_sample.row_group,
-        wire="u8",
-    )
+    size = dict(output_resolution_height=args_sample.output_resolution_height,
+                output_resolution_width=args_sample.output_resolution_width,
+                num_images=args_sample.batch, progress=True, wire="u8")
+    if args_sample.diag_lanes:
+        img_u8 = generate_canvas_diag(gen, rng, lanes=args_sample.diag_lanes, **size)
+    else:
+        img_u8 = generate_canvas(gen, rng, row_group=args_sample.row_group, **size)
     save_batch(img_u8, path)
 
 

@@ -307,3 +307,24 @@ def generate_one_pass(
     maps = None if maps_full is None else [m.to(device) for m in maps_full]
     out, _ = gen(z_full.to(device), maps, grid=(total_patches_h, total_patches_w))
     return out
+
+
+@torch.no_grad()
+def sample_from_gen_patch_by_patch_train(gen: ResidualPatchGenerator,
+                                         generator: Optional[torch.Generator] = None,
+                                         num_images: int = 8) -> torch.Tensor:
+    """Training-time fake sampling: one eval-mode forward of the (gh x gw)
+    training grid on ``build_train_z`` (and, for an SSM generator,
+    ``build_train_maps``) drawn from ``generator`` in that order, on the
+    generator's device (one patch per image for a zeros-padding generator);
+    returns the merged fakes (N, gh*P, gw*P, C)."""
+    device = next(gen.parameters()).device
+    gh, gw, base = gen.num_patches_h, gen.num_patches_w, gen.base_res
+    kw = dict(device=device, padding_mode=gen.padding_mode)
+    z = latents.build_train_z(generator, num_images, gen.z_dim, base, gh, gw, **kw)
+    maps = None
+    if gen.type_norm == "SSM":
+        maps = latents.build_train_maps(generator, num_images, gen.map_dim, gen.n_layers_G, base,
+                                        gh, gw, **kw)
+    out, _ = gen(z, maps)
+    return out

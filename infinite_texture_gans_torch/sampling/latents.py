@@ -14,6 +14,7 @@ in.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import torch
@@ -115,3 +116,17 @@ def row_strips(z_full: torch.Tensor, maps_full, r: int, base_res: int, gh: int):
         res = (2**i) * base_res
         maps_strips.append(m[:, r * (gh - 1) * res : r * (gh - 1) * res + gh * res + MAP_PAD])
     return z_strip, maps_strips
+
+
+def truncated_normal_z(generator: Optional[torch.Generator], truncated: float, z_dim: int,
+                       b_size: int, device="cuda") -> torch.Tensor:
+    """(b_size, z_dim) float32 latents from the standard normal truncated to
+    [-truncated, truncated], exactly, by inverting the CDF: a uniform draw
+    between erf(-t/sqrt 2) and erf(t/sqrt 2) from ``generator`` (on
+    ``device``), mapped through sqrt(2) erfinv and clamped to the bounds
+    (the reference's ``truncated_normal_z``; other numbers than
+    ``jax.random.truncated_normal``'s)."""
+    lo, hi = math.erf(-truncated / math.sqrt(2)), math.erf(truncated / math.sqrt(2))
+    u = torch.rand((b_size, z_dim), generator=generator, device=device, dtype=torch.float64)
+    z = math.sqrt(2) * torch.erfinv(lo + (hi - lo) * u)
+    return z.clamp(-truncated, truncated).to(torch.float32)

@@ -31,8 +31,19 @@ never crosses an epoch, so the learning rates are written between chunks.
 ``--profile_dir`` writes a ``torch.profiler`` trace of the first epoch's
 steps 0-4, dispatched one by one.
 
-Not ported yet: meshes and multi-image data. Runs on ``cuda``
-(``cuda:<dev_num>``) unless ``--device cpu`` is given.
+``--data multiple_images`` trains on a directory of images
+(``data/datasets.py``): its padded stack on the device with crops drawn in
+the step (and in its graph), or, over ``DeviceMultiImageSampler
+.MAX_DEVICE_MB``, a resident window of the images swapped before every
+chunk (``RotatingMultiImageSampler``: windows from (seed, epoch), the next
+one copied in ahead on a side stream), or, where neither fits (or
+``--batch_size 1`` meets images of different sizes), host batches from a
+``Prefetcher``, stepped eagerly. ``Training samples`` and the steps of an
+epoch count ``len(dataset)``, and G's and D's image channels are the
+stack's.
+
+Not ported yet: meshes. Runs on ``cuda`` (``cuda:<dev_num>``) unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -49,7 +60,14 @@ import torch
 
 from infinite_texture_gans_torch import resolve_device
 from infinite_texture_gans_torch.config import check_train_args, prepare_parser, train_device
-from infinite_texture_gans_torch.data.datasets import DeviceCropSampler, SingleImageDataset
+from infinite_texture_gans_torch.data.datasets import (
+    DeviceCropSampler,
+    DeviceMultiImageSampler,
+    HostBatches,
+    RotatingMultiImageSampler,
+    SingleImageDataset,
+    prepare_data,
+)
 from infinite_texture_gans_torch.train.checkpoint import (
     AsyncCheckpointer,
     load_checkpoint,
@@ -84,6 +102,29 @@ def reseed_epoch(rng: torch.Generator, seed: int, epoch: int) -> None:
     and a replay reads its seed and offset when it runs."""
     rng.manual_seed(int(np.random.SeedSequence([seed % 2**64, epoch]).generate_state(
         1, np.uint64)[0]))
+
+
+def make_sampler(dataset, args: argparse.Namespace, device, seed: int, steps_per_epoch: int):
+    """The step's sampler for ``dataset``, built as the reference builds it,
+    with its notice: the single image's crops on the device; a directory's
+    stack on the device, a rotating window of it (over the cap; windows
+    drawn from the run's ``seed``), or, where ``maybe_build`` finds neither,
+    :class:`HostBatches` from a prefetcher."""
+    if isinstance(dataset, SingleImageDataset):
+        return DeviceCropSampler(dataset, device)
+    sampler, why_not = DeviceMultiImageSampler.maybe_build(
+        dataset, device, batch_size=args.batch_size, seed=seed)
+    if sampler is None:
+        print(f"on-device multi-image sampling disabled ({why_not}); falling back to the host "
+              "prefetcher")
+        return HostBatches(dataset, args.batch_size, steps_per_epoch, device)
+    if isinstance(sampler, RotatingMultiImageSampler):
+        print(f"multi-image dataset exceeds the device cap: rotating HBM subset of "
+              f"{sampler.subset_size}/{sampler.n_images} images per dispatch (next window's H2D "
+              "overlaps compute)")
+    else:
+        print(f"multi-image batches sampled on device ({len(dataset.files)} images stacked in HBM)")
+    return sampler
 
 
 def checkpoint_payload(state: TrainState, args: argparse.Namespace, epoch: int, seed: int,
@@ -145,7 +186,8 @@ def train(args: argparse.Namespace,
     check_train_args(args)
     device = resolve_device(train_device(args))
     if args.num_workers:
-        print("Warning: --num_workers is ignored: single-image batches are sampled on the device")
+        print("Warning: --num_workers is ignored: batches are sampled on the device, and the "
+              "host prefetcher is one thread")
     # a resumed run draws the uninterrupted run's epochs only with its seed
     resume_ckpt = None
     if getattr(args, "resume", None):
@@ -158,13 +200,19 @@ def train(args: argparse.Namespace,
     seed = args.seed if args.seed is not None else random.randint(1, 10000)
     print("Random Seed: ", seed)
     print(args)
-    dataset = SingleImageDataset(args.data_path, args.data_ext, args.center_crop,
-                                 args.random_crop, args.sampling)
+    dataset = prepare_data(args)
     print("Training samples: ", len(dataset))
     steps_per_epoch = max(1, math.ceil(len(dataset) / args.batch_size))
-    spd = 1 if args.profile_dir else args.steps_per_dispatch
+    sampler = make_sampler(dataset, args, device, seed, steps_per_epoch)
+    if dataset.img_ch != args.img_ch:
+        print(f"--img_ch {args.img_ch}: the images have {dataset.img_ch} channels; G and D "
+              f"take {dataset.img_ch}")
+        args.img_ch = dataset.img_ch
+    host = isinstance(sampler, HostBatches)  # batches may change shape: eager steps
+    spd = 1 if args.profile_dir or host else args.steps_per_dispatch
     plan = dispatch_plan(steps_per_epoch, 128 if spd == 0 else spd)
     chunks = dispatch_chunks(steps_per_epoch, plan)
+    rotating = isinstance(sampler, RotatingMultiImageSampler)
     state = create_train_state(args, steps_per_epoch, device, seed)
     G_losses, D_losses = [], []
     start_epoch = 0
@@ -182,7 +230,7 @@ def train(args: argparse.Namespace,
               + (f" (+ one {plan[1]}-step remainder chunk)" if plan[1] else "")
               + (", replays of a captured CUDA graph of the step" if graphed else ""))
     rng = torch.Generator(device=device)
-    dispatch = StepDispatch(state, DeviceCropSampler(dataset, device), rng, args, graphed=graphed)
+    dispatch = StepDispatch(state, sampler, rng, args, graphed=graphed)
     saver = saver if saver is not None else AsyncCheckpointer()
     filename = prepare_filename(args)
     profiler = None
@@ -197,6 +245,10 @@ def train(args: argparse.Namespace,
     try:
         for epoch in range(start_epoch, args.epochs):
             reseed_epoch(rng, seed, epoch)
+            if rotating:  # the epoch's windows from (seed, epoch)
+                sampler.prepare_epoch(epoch)
+            elif host:
+                sampler.start_epoch([seed, epoch])
             # the epoch's losses stay on the device until its end (no per-step sync)
             dispatch.begin_epoch()
             if profiler is not None:  # the first epoch run: stopped at its step 4 or end
@@ -204,6 +256,8 @@ def train(args: argparse.Namespace,
             i = 0
             for k in chunks:
                 dispatch.set_lr()
+                if rotating:
+                    sampler.next_window()
                 for _ in range(k):
                     m = dispatch.step()
                     if step_callback is not None:
@@ -241,6 +295,9 @@ def train(args: argparse.Namespace,
         except Exception:
             pass
         raise
+    finally:
+        if host:
+            sampler.close()
     saver.wait()
     return state, G_losses, D_losses
 

@@ -33,7 +33,10 @@ README_RECIPE = ["--data_path", "datasets/241.jpg", "--random_crop", "192", "--n
 # the reference's flags the port's parser lacked, at values other than their defaults
 REFERENCE_FLAGS = {"leak_D": ("0.2", 0.2), "padding_size": ("2", 2),
                    "conv_reduction": ("3", 3), "num_gpus": ("1", 1), "dev_num": ("1", 1),
-                   "gpu_list": ("1", [1]), "num_workers": ("2", 2), "chw_tail": ("on", "on")}
+                   "gpu_list": ("1", [1]), "num_workers": ("2", 2), "chw_tail": ("on", "on"),
+                   "resize_h": ("40", 40), "resize_w": ("48", 48)}
+# the README's multi-image recipe (all three bundled textures)
+MULTI_RECIPE = ["--data", "multiple_images", "--data_path", "datasets/multi"] + README_RECIPE[2:]
 
 
 @pytest.fixture(scope="module")
@@ -77,16 +80,21 @@ def test_sample_cli_names_and_formats(tmp_path):
 
 
 def test_train_cli_takes_reference_flags(texture, tmp_path, capsys):
-    """The README's recipe with each of the reference's eight flags parses;
-    a one-step run stores them in the checkpoint's ``meta.args``; more than
-    one device refuses; ``--dev_num`` picks the card; ``--num_workers``
-    warns."""
+    """The README's recipe with each of the reference's ten flags parses
+    (``--resize_h/--resize_w`` too: a single image takes no resize, as in
+    the reference); a one-step run stores them in the checkpoint's
+    ``meta.args``; more than one device refuses; ``--dev_num`` picks the
+    card; ``--num_workers`` warns; the multi-image recipe passes the
+    checks."""
     extra = [x for flag, (v, _) in REFERENCE_FLAGS.items() for x in (f"--{flag}", v)]
     args = prepare_parser().parse_args(README_RECIPE + extra)
     assert {f: getattr(args, f) for f in REFERENCE_FLAGS} == {
         f: want for f, (_, want) in REFERENCE_FLAGS.items()}
     assert args.type_norm_G == "BN" and args.steps_per_dispatch == 0 and args.profile_dir is None
     check_train_args(args)
+    multi = prepare_parser().parse_args(MULTI_RECIPE + ["--resize_h", "450", "--resize_w", "600"])
+    check_train_args(multi)
+    assert (multi.data, multi.resize_h, multi.resize_w) == ("multiple_images", 450, 600)
     assert train_device(args) == "cuda:1" and generator_kwargs(args)["chw_tail"] == "auto"
     for bad in (["--num_gpus", "2"], ["--gpu_list", "0", "1"]):
         with pytest.raises(NotImplementedError):

@@ -2289,3 +2289,137 @@ def test_save_in_flight_during_capture(cuda, tmp_path, monkeypatch):
         for name in ("G", "D"):
             for k, v in from_jax_variables(ck[f"net{name}_variables"], spectral=True).items():
                 assert torch.equal(v, snaps[epoch][f"{name}.{k}"]), (epoch, name, k)
+
+
+def _multi_dir(tmp_path, n=6, size=64):
+    """n constant images of one value 15 + 30 i each (a drawn pixel names
+    its image; every value >= 1, so padding would read -1)."""
+    from PIL import Image
+
+    d = tmp_path / "multi"
+    d.mkdir(exist_ok=True)
+    for i in range(n):
+        Image.fromarray(np.full((size + 4 * i, size, 3), 15 + 30 * i, np.uint8)).save(d / f"{i}.png")
+    return str(d)
+
+
+@pytest.mark.parametrize("over_cap", [False, True])
+def test_multi_image_graphed_train_equals_eager(cuda, tmp_path, monkeypatch, over_cap):
+    """``--data multiple_images`` in bf16: the train loop's graphed dispatch
+    (the crops drawn in the captured step from the stack on the card)
+    against eager steps, from one seed: every step's losses, launches and
+    every parameter and buffer bit-equal. Over the cap (``over_cap``), a
+    rotating window of 2 of 6 images swaps before every chunk of 3 steps
+    into the storages the captured step reads, in both runs alike, and the
+    eager run's batches come from the chunk's window only."""
+    from infinite_texture_gans_torch.data import datasets as D
+    from infinite_texture_gans_torch.train import train_loop
+    from infinite_texture_gans_torch.train.train_step import StepDispatch
+
+    if over_cap:
+        monkeypatch.setattr(D.DeviceMultiImageSampler, "MAX_DEVICE_MB",
+                            (64 + 20) * 64 * 3 * 4.5 / 2**20)
+    d = _multi_dir(tmp_path)
+    seen = []
+    sample = D.sample_multi_crops
+
+    def watched(imgs, *a, **k):
+        out = sample(imgs, *a, **k)
+        if not torch.cuda.is_current_stream_capturing():
+            seen.append((imgs[:, 0, 0, 0].tolist(), out[:, 0, 0, 0].tolist()))
+        return out
+
+    monkeypatch.setattr(D, "sample_multi_crops", watched)
+    runs = {}
+    for form in ("eager", "graphed"):
+        args = _graph_args(tmp_path, "auto")
+        args.data, args.data_path, args.sampling = "multiple_images", d, 24
+        args.compute_dtype = "bfloat16"
+        args.steps_per_dispatch = 3 if over_cap else (1 if form == "eager" else 0)
+        log = []
+        _reset_counts()
+        with monkeypatch.context() as mp:
+            if form == "eager" and over_cap:  # chunks of 3, stepped eagerly
+                mp.setattr(train_loop, "StepDispatch",
+                           lambda *a, graphed, **k: StepDispatch(*a, graphed=False, **k))
+            state, _, _ = train_loop.train(args, step_callback=lambda e, i, m: log.append(
+                ({k: float(v) for k, v in m.items()}, dict(tk.LAUNCHES))))
+        torch.cuda.synchronize()
+        runs[form] = (log, {f"{m}.{k}": v for m, module in (("G", state.G), ("D", state.D))
+                            for k, v in module.state_dict().items()})
+    assert len(runs["eager"][0]) == 6 and runs["eager"][0] == runs["graphed"][0]
+    for name, ref in runs["eager"][1].items():
+        assert torch.equal(runs["graphed"][1][name], ref), name
+    assert seen
+    for window, drawn in seen:
+        assert {round((v + 1) * 127.5) for v in drawn} <= {round(v) for v in window}
+
+
+def test_rotating_swap_during_captured_run(cuda, tmp_path):
+    """A window swap between replays of a captured sampler: each replay
+    draws from the window swapped in before it (its staged copy came from
+    pinned memory on a side stream), never from the last one."""
+    from infinite_texture_gans_torch.data import datasets as D
+    from infinite_texture_gans_torch.ops.graphs import CountedGraph, on_side_stream
+
+    d = _multi_dir(tmp_path, n=5, size=48)
+    cap = (48 + 16) * 48 * 3 * 4.5 / 2**20
+    s, why = D.DeviceMultiImageSampler.maybe_build(
+        D.MultipleImagesDataset(d, "png", random_crop=32), cuda, max_mb=cap, seed=4)
+    assert isinstance(s, D.RotatingMultiImageSampler), why
+    rng = torch.Generator(device=cuda).manual_seed(1)
+    s.prepare_epoch(0)
+    s.next_window()
+    on_side_stream(lambda: s.sample(rng, 16))
+    graph = CountedGraph()
+    with torch.cuda.device(cuda):
+        out = graph.capture(lambda: s.sample(rng, 16), generators=(rng,))
+    for _ in range(8):
+        window = s.next_window()
+        graph.replay()
+        ids = ((out[:, 0, 0, 0].float().cpu() + 1) * 127.5).round().long()
+        assert set(((ids - 15) // 30).tolist()) <= set(window.tolist()), window
+
+
+@pytest.mark.parametrize("kind", ["BN", "all", "SSM"])
+def test_diag_canvas_equals_raster_on_card(cuda, kind):
+    """The batched-diagonal engine (K2 / K14 given per-lane borders) against
+    the raster on the card: f32 (TF32 off) within 1e-4 at lanes 1-3; bf16
+    u8 at lanes 1 byte-equal to the raster with its launches, and at lanes
+    2 and 3 byte-equal to canvas 0 of the raster at the same batch (cuDNN
+    picks its algorithms by batch size, so only a raster at the diagonal's
+    batch shares its roundings)."""
+    from infinite_texture_gans_torch.sampling.diag import generate_canvas_diag
+    from infinite_texture_gans_torch.sampling.infinite import canvas_latents
+
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = ResidualPatchGenerator(z_dim=16, G_ch=8, n_layers_G=4, attention=True, dtype=dtype,
+                                     type_norm="SSM" if kind == "SSM" else "BN", map_dim=2,
+                                     fuse_up="all" if kind == "all" else "auto")
+        g = torch.Generator(device="cpu").manual_seed(4)
+        with torch.no_grad():
+            for p in gen.parameters():
+                p.copy_(0.2 * torch.randn(p.shape, generator=g))
+        gen = gen.to(cuda).eval()
+        lat = [canvas_latents(gen, torch.Generator(device=cuda).manual_seed(5 + k), 290, 230)[1:]
+               for k in range(3)]
+        wire = "f32" if dtype == torch.float32 else "u8"
+        _reset_counts()
+        ref = generate_canvas(gen, None, 290, 230, z_full=lat[0][0], maps_full=lat[0][1],
+                              wire=wire, graphs=False)
+        want = _launch_counts()
+        for lanes in (1, 2, 3):
+            _reset_counts()
+            out = generate_canvas_diag(gen, None, 290, 230, lanes=lanes, z_full=lat[0][0],
+                                       maps_full=lat[0][1], wire=wire)
+            if lanes == 1:
+                assert _launch_counts() == want
+            if wire == "f32":
+                assert float(np.abs(out - ref).max()) <= 1e-4, lanes
+                continue
+            maps = None if kind != "SSM" else [torch.cat(m) for m in
+                                               zip(*(m for _, m in lat[:lanes]))]
+            batched = generate_canvas(gen, None, 290, 230,
+                                      z_full=torch.cat([z for z, _ in lat[:lanes]]),
+                                      maps_full=maps, wire=wire, graphs=False)[:1]
+            np.testing.assert_array_equal(out, batched, err_msg=str(lanes))

@@ -340,18 +340,19 @@ def test_wgan_losses_match_jax():
 
 
 def test_train_args_accept_the_options_and_refuse_the_rest():
-    """``check_train_args`` takes every option of this file; it refuses
-    multi-image data and the other discriminators (not ported), and flag
-    values no model takes. ``--gp_weight`` parses with the reference's
+    """``check_train_args`` takes every option of this file and multi-image
+    data; it refuses the other discriminators (not ported), and flag values
+    no model or dataset takes. ``--gp_weight`` parses with the reference's
     default."""
     for flags in CASES.values():
         check_train_args(prepare_parser().parse_args(TINY + flags))
+    check_train_args(prepare_parser().parse_args(TINY + ["--data", "multiple_images"]))
     args = prepare_parser().parse_args(TINY)
     assert args.gp_weight == 10.0 == jax_parser().parse_args([]).gp_weight
-    for flag, value in (("--data", "multiple_images"), ("--D_model", "residual_GAN")):
-        with pytest.raises(NotImplementedError):
-            check_train_args(prepare_parser().parse_args(TINY + [flag, value]))
-    for bad in (["--loss", "ralsgan"], ["--norm_layer_D", "layer"], ["--disc_iters", "0"]):
+    with pytest.raises(NotImplementedError):
+        check_train_args(prepare_parser().parse_args(TINY + ["--D_model", "residual_GAN"]))
+    for bad in (["--loss", "ralsgan"], ["--norm_layer_D", "layer"], ["--disc_iters", "0"],
+                ["--data", "video"]):
         with pytest.raises(ValueError):
             check_train_args(prepare_parser().parse_args(TINY + bad))
     with pytest.raises(ValueError):
