@@ -210,7 +210,8 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    ``--spec_norm_G --spec_norm_D``: graphed steps against eager ones
    (``graph_parity``; bf16 bit-equal, the exact launches of each step, a
    planted fault under WGAN-GP: every replay reusing the first replay's
-   penalty weights), the f32 WGAN-GP step against its plain versions, 30
+   penalty weights; f32 at step parity's gates, WGAN-GP's losses at
+   WGAN_STEP_LOSS_TOL), the f32 WGAN-GP step against its plain versions, 30
    graphed bf16 steps through ``train`` for WGAN-GP and for SN in G (warm
    wall, busy share, peak memory), and the SN run's EMA checkpoint through
    the sample CLI to a 1024^2 PNG with phase 4's launches per canvas.
@@ -237,7 +238,26 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    K3 / K4 launches and K2's device ms per launch; ``--fuse_up all`` and
    the SSM run's checkpoint through the same gates at lanes 4; ``sample
    --diag_lanes 4`` writing a 1024^2 PNG.
-13. Prints the ``kernels`` JSON line (``:gen_all`` rows for K1, K9, K14, K2,
+13. Interop (``pth_phase``, ``mfu_phase``, ``quality_phase``,
+   ``zoo_phase``): the flagship ``.ckpt`` through ``sample --export_pth``
+   to a reference ``.pth``, both loaded (timed) and rendered to a 1024^2
+   bf16 u8 canvas byte-equal with phase 4's launches; ``.pth -> .pth``
+   bit-equal (BN counters set nonzero); phase 10's SN-in-G checkpoint
+   exported and imported back to its tree with ``u``/``v``; phase 6's
+   runs' stall watchdogs (one beat an epoch, stopped, thread joined);
+   ``[mfu]``: model TFLOP (``utils/flops.py``) per graphed Exp-1 ``auto``
+   / ``off`` and SSM step and per BN / ``all`` / SSM 1024^2 canvas over the
+   walls phases 4-7 measured, against ``peak_flops``; ``[quality]``: the
+   flagship canvas's ``texture_quality_report`` against
+   ``datasets/241.jpg`` on the card and on the CPU within QUALITY_REL;
+   ``[zoo]``: the three discriminators (``ResDiscriminator`` unconditional
+   with attention and with each conditioning method, ``DCDiscriminator``,
+   ``SNDiscriminator``) at the JAX package's default widths, a forward with
+   an SN refresh and a backward on the card: float64 held to the CPU within
+   ZOO_TOL, float32 (TF32 off) to the CPU's float64 within ZOO_F32_TOL by
+   the gradients' median over ZOO_DRAWS input draws, beside the CPU's own
+   float32 and a TF32 control.
+14. Prints the ``kernels`` JSON line (``:gen_all`` rows for K1, K9, K14, K2,
    K3 and K10 per 384^2 sub-image under ``--fuse_up all``, ``:gen_ssm`` rows
    for K15, K1, K2, K3 and K4 per 192^2 SSM sub-image, and a ``:train_ssm``
    row for every kernel
@@ -261,12 +281,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "examples" / "241_300ep_ema.ckpt"
-
-# NVIDIA H100 SXM data sheet: HBM rate, dense bf16 tensor-core rate and the
-# float32 rate outside the tensor cores (the bound of K15's f32 route).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOP_PER_S = 989e12
-PEAK_F32_FLOP_PER_S = 67e12
 
 # float32 with TF32 off: kernel and cuDNN sum up to 9 * 104 = 936 products
 # in other orders, and cuDNN may pick Winograd transforms (~1e-5 relative);
@@ -580,7 +594,10 @@ NOISE_TOL = 1e-3
 # float64 step; K6 without the top border's fold reads 1.21e-1. This
 # script's phase 10 then read 5.3e-4 and 2.55e-2 kernels against plain. The
 # gates sit at about twice the largest of those readings, the planted fault
-# 2.4x over the gradients' gate.
+# 2.4x over the gradients' gate. The loss gate also holds this recipe's f32
+# graph parity (the first replay against eager, and a second eager run
+# against the first), which at STEP_LOSS_TOL sat below the kernels' own
+# 5.0e-4 spread and failed one run of four at 1.373e-4 (H100 80GB HBM3, 700 W).
 WGAN_STEP_LOSS_TOL = 1e-3
 WGAN_STEP_GRAD_TOL = 5e-2
 NOISE_SHARE = 1e-6
@@ -704,8 +721,8 @@ def to_u8(x):
     return torch.clamp((x.float() * 0.5 + 0.5) * 255.0 + 0.5, 0, 255).to(torch.uint8).cpu().numpy()
 
 
-def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOP_PER_S) -> float:
-    return max(nbytes / PEAK_BYTES_PER_S, flops / peak) * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float, bytes_per_s: float) -> float:
+    return max(nbytes / bytes_per_s, flops / peak) * 1e3
 
 
 def k3_limits(x, wt, b, res, ref):
@@ -1050,13 +1067,13 @@ PLANTS = {"draws": "every replay draws the first replay's crops and latents",
 
 
 def graph_parity(dev, label, argv, sync, plant=None, f32_held: bool = True,
-                 dtypes=("float32", "bfloat16")) -> None:
+                 dtypes=("float32", "bfloat16"), loss_tol: float = STEP_LOSS_TOL) -> None:
     """The train loop's dispatched step, eagerly and as the train loop runs
     it (WARMUP_STEPS eager warm-up steps, then CUDA graph replays), from one
     state and one generator state, GRAPH_STEPS steps each, every run
     starting the first replayed step from the eager run's state:
 
-    - float32, TF32 off: that step's losses within STEP_LOSS_TOL and its
+    - float32, TF32 off: that step's losses within ``loss_tol`` and its
       gradients within step parity's limits (STEP_GRAD_TOL of the
       leaf's largest value; a rounding-noise leaf NOISE_TOL of the model's
       largest gradient); the later steps are reported beside a second
@@ -1098,14 +1115,14 @@ def graph_parity(dev, label, argv, sync, plant=None, f32_held: bool = True,
             last = graph_parity_gap(eager, run, WARMUP_STEPS, GRAPH_STEPS, "grads")
             print(f"[graph parity] {label}, {dtype}, {what} vs eager: step {first_replay} (the "
                   f"first replay, from one state) losses max rel {first[0]:.3e} (limit "
-                  f"{STEP_LOSS_TOL:g}), gradients largest deviation {first[1][1]:.3e} "
+                  f"{loss_tol:g}), gradients largest deviation {first[1][1]:.3e} "
                   f"({first[1][2]}), {len(first[2])} leaves over their limits; steps "
                   f"{first_replay}-{GRAPH_STEPS} ({GRAPH_STEPS - WARMUP_STEPS} replays) losses "
                   f"{last[0]:.3e}, last gradients {last[1][1]:.3e} ({last[1][2]}); bit-equal "
                   f"over all {GRAPH_STEPS} steps: {last[3]}")
-            passed = first[0] <= STEP_LOSS_TOL and not first[2]
+            passed = first[0] <= loss_tol and not first[2]
             if what.startswith("planted"):
-                if last[3] or (passed and last[0] <= STEP_LOSS_TOL and not last[2]):
+                if last[3] or (passed and last[0] <= loss_tol and not last[2]):
                     fail(f"{label}: the planted fault ({PLANTS[plant]}) passed")
             elif dtype == "bfloat16" and not last[3]:
                 fail(f"{label}: the bf16 graphed steps are not bit-equal to the eager ones")
@@ -1895,7 +1912,8 @@ def options_phase(dev, sync, card) -> None:
     for name, argv in OPTION_RECIPES.items():
         label = f"train {' '.join(argv)}"
         got = graph_parity(dev, label, base + argv, sync, plant="eps" if name == "wgan" else None,
-                           f32_held=name not in F32_REPORTED)
+                           f32_held=name not in F32_REPORTED,
+                           loss_tol=WGAN_STEP_LOSS_TOL if name == "wgan" else STEP_LOSS_TOL)
         want = {k: GRAPH_STEPS * v for k, v in wants[name].items()}
         if got != want:
             fail(f"{label}: {GRAPH_STEPS} steps launched {got}, not {want}")
@@ -2311,6 +2329,395 @@ def diag_phase(dev, sync, card) -> None:
     shutil.rmtree(out, ignore_errors=True)
 
 
+# Phase 13 (interop): the zoo's cases at the JAX package's default widths,
+# 64^2 inputs, batch ZOO_BATCH. In float64 the card is held to the CPU within
+# ZOO_TOL of each output's, gradient's and state tensor's largest value (a
+# gradient leaf below ZOO_NOISE_SHARE of the model's largest is rounding
+# noise, zero in exact arithmetic: the attention's phi bias; it is held to
+# ZOO_TOL of that largest). Float32 (TF32 off) is held to the CPU's float64
+# by the median gradient, and that median by its median over ZOO_DRAWS input
+# draws, since the largest leaf, and for SNDiscriminator the median too,
+# swings with the draw: on the CPU (zoo_precision_study.py) its float32
+# gradients' median reads 2.3e-6 to 4.8e-3 over ten draws (cancellation in
+# its backward; its gradients move 2e-7 for a 1e-7 change of the inputs or
+# weights). ZOO_F32_TOL sits between the CPU's own float32 and a TF32
+# control on the card, both printed beside it: on an H100 80GB HBM3 at 700 W
+# the phase read the card's float32 at 6.5e-7 to 2.4e-6 over the cases, the
+# CPU's at 1.3e-6 to 6.2e-6 and the TF32 control at 1.2e-2 to 9.3e-2; the
+# limit is 16x over the CPU's largest and 122x under the control's smallest.
+ZOO_BATCH = 8
+ZOO_TOL = 1e-4
+ZOO_NOISE_SHARE = 1e-6
+ZOO_DRAWS = 5
+ZOO_F32_TOL = 1e-4
+ZOO_CLASSES = 10
+ZOO_CASES = {
+    "ResDiscriminator att": ("ResDiscriminator", dict(att=True)),
+    **{f"ResDiscriminator {m}": ("ResDiscriminator", dict(n_classes=ZOO_CLASSES, cond_method=m))
+       for m in ("concat", "proj", "conv1x1", "conv3x3")},
+    "DCDiscriminator": ("DCDiscriminator", {}),
+    "SNDiscriminator SN": ("SNDiscriminator", dict(SN=True)),
+}
+# the quality metrics of one canvas on the card against the CPU (f32, TF32 off)
+QUALITY_REL = 1e-3
+
+
+class WatchdogSpy:
+    """Patches ``train_loop.StallWatchdog`` with a subclass that records each
+    instance's beats, stops and thread (the reference's test spies the same
+    way, tests/test_watchdog.py)."""
+
+    def __init__(self):
+        self.made = []
+
+    def __enter__(self):
+        from infinite_texture_gans_torch.train import train_loop
+        from infinite_texture_gans_torch.utils.watchdog import StallWatchdog
+
+        made = self.made
+
+        class Spy(StallWatchdog):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.beats, self.stops, self.thread = 0, 0, None
+                made.append(self)
+
+            def start(self):
+                out = super().start()
+                self.thread = self._thread
+                return out
+
+            def beat(self):
+                self.beats += 1
+                super().beat()
+
+            def stop(self):
+                self.stops += 1
+                super().stop()
+
+        self._module, self._saved = train_loop, train_loop.StallWatchdog
+        train_loop.StallWatchdog = Spy
+        return self
+
+    def __exit__(self, *exc):
+        self._module.StallWatchdog = self._saved
+        return False
+
+
+def read_pth(path):
+    import argparse
+
+    import torch
+
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def flat_tree(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat_tree(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def pth_phase(dev, sync, card) -> dict:
+    """The flagship ``.ckpt`` through ``sample --export_pth`` to a ``.pth``;
+    both loaded (timed) and rendered to a 1024^2 bf16 u8 canvas at one
+    seed: byte-equal, with phase 4's launches; the ``.pth`` (its BN counters
+    set nonzero) re-exported bit-equal; phase 10's SN-in-G checkpoint
+    exported and imported back to its own tree, ``u``/``v`` included.
+    Returns the flagship's 1024^2 canvas (u8) for the quality check."""
+    import numpy as np
+    import torch
+
+    from infinite_texture_gans_torch import sample
+    from infinite_texture_gans_torch.ops import kernels
+    from infinite_texture_gans_torch.sampling.infinite import generate_canvas
+    from infinite_texture_gans_torch.train.checkpoint import (
+        load_checkpoint,
+        load_generator_from_checkpoint,
+    )
+
+    out = ROOT / "build" / "smoke_interop"
+    out.mkdir(parents=True, exist_ok=True)
+    pth = out / "241_300ep_ema.pth"
+    t = time.perf_counter()
+    sample.main(["--model_path", str(CKPT), "--export_pth", str(pth), "--device", dev.type])
+    print(f"[interop] sample --export_pth wrote {pth.name} ({pth.stat().st_size} bytes) from "
+          f"{CKPT.name} in {time.perf_counter() - t:.3f} s")
+    want = {**dict.fromkeys(KERNELS, 0), **{k: 16 * v for k, v in GEN_PER_SUB["flagship"].items()}}
+    canvases = {}
+    for path in (CKPT, pth):
+        sync()
+        t = time.perf_counter()
+        ckpt = load_checkpoint(str(path))
+        t_read = time.perf_counter() - t
+        gen, args = load_generator_from_checkpoint(str(path), device=dev, ckpt=ckpt)
+        sync()
+        t_load = time.perf_counter() - t
+        if gen.dtype != torch.bfloat16 or (args.G_ch, args.n_layers_G, args.attention) != (
+                52, 6, True):
+            fail(f"{path.name} builds {gen.dtype} G_ch {args.G_ch} n_layers_G {args.n_layers_G}, "
+                 "not the flagship")
+        kernels.reset_launches()
+        canvases[path.suffix] = generate_canvas(gen, torch.Generator(device=dev).manual_seed(21),
+                                                1024, 1024, wire="u8")
+        sync()
+        launches = dict(kernels.LAUNCHES)
+        print(f"[interop] load {path.name}: file read {t_read:.3f} s, generator on the card "
+              f"{t_load:.3f} s (read included); 1024^2 bf16 u8 canvas (seed 21) launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})} [{card}]")
+        if launches != want:
+            fail(f"the {path.name} canvas launched {launches}, not {want}")
+        del gen
+    n_diff = int(np.count_nonzero(canvases[".ckpt"] != canvases[".pth"]))
+    print(f"[interop] .pth canvas vs .ckpt canvas, 1024^2 bf16 u8, seed 21: {n_diff} of "
+          f"{canvases['.pth'].size} values differ (want 0)")
+    if n_diff:
+        fail("the .pth's canvas differs from the .ckpt's")
+
+    # .pth -> .pth, the BN counters set nonzero first
+    raw = read_pth(pth)
+    nbt = [k for k in raw["netG_state_dict"] if k.endswith("num_batches_tracked")]
+    for i, k in enumerate(nbt):
+        raw["netG_state_dict"][k] = torch.tensor(1000 + i, dtype=torch.int64)
+    counted = out / "counted.pth"
+    torch.save(raw, counted)
+    again = out / "again.pth"
+    sample.main(["--model_path", str(counted), "--export_pth", str(again), "--device", dev.type])
+    a, b = raw["netG_state_dict"], read_pth(again)["netG_state_dict"]
+    same = a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and torch.equal(a[k], b[k])
+        for k in a)
+    print(f"[interop] .pth -> .pth: {len(a)} tensors ({len(nbt)} BN counters set to 1000+), "
+          f"{'bit-equal' if same else 'DIFFERENT'}")
+    if not same or not nbt:
+        fail(".pth -> .pth did not keep the state dict bit for bit")
+
+    # phase 10's SN-in-G checkpoint: its raw tree with the SN vectors
+    sn_ckpt = ROOT / "build" / "smoke_train_sn" / "1_1.ckpt"
+    sn_pth = out / "sn.pth"
+    sample.main(["--model_path", str(sn_ckpt), "--export_pth", str(sn_pth), "--device", dev.type])
+    src = load_checkpoint(str(sn_ckpt))["netG_variables"]
+    _, _, back = load_generator_from_checkpoint(str(sn_pth), device=dev, with_variables=True)
+    got = dict(flat_tree({c: back[c] for c in ("params", "batch_stats", "spectral")}))
+    want_t = dict(flat_tree(src))
+    n_sn = sum(1 for k in want_t if k[0] == "spectral")
+    bad = sorted(k for k in want_t if k not in got or not np.array_equal(
+        np.asarray(got[k]), np.asarray(want_t[k], dtype=np.float32)))
+    print(f"[interop] SN-in-G {sn_ckpt.name} -> sample --export_pth -> import: {len(want_t)} "
+          f"leaves ({n_sn} SN vectors), {len(bad)} differ, {len(got) - len(want_t)} extra")
+    if bad or got.keys() != want_t.keys() or not n_sn:
+        fail(f"the SN checkpoint's tree did not come back through the .pth: {bad[:5]}")
+    return canvases[".ckpt"]
+
+
+def quality_phase(dev, canvas_u8, card) -> None:
+    """``texture_quality_report`` of the flagship's 1024^2 canvas against
+    its source texture with the default pyramid, on the card and on the
+    CPU: each metric within QUALITY_REL."""
+    import numpy as np
+
+    from infinite_texture_gans_torch.utils import quality
+
+    src = quality.load_image(str(ROOT / "datasets" / "241.jpg"))
+    img = canvas_u8[0].astype(np.float32) / 127.5 - 1.0
+    reports = {}
+    for where in (dev.type, "cpu"):
+        features = quality.random_conv_features(device=where)
+        features(img[None])  # the first call's set-up
+        t = time.perf_counter()
+        reports[where] = quality.texture_quality_report(src, img, features)
+        print(f"[quality] flagship 1024^2 canvas vs datasets/241.jpg on {where}: "
+              f"{json.dumps(reports[where])} in {time.perf_counter() - t:.3f} s"
+              + (f" [{card}]" if where != "cpu" else ""))
+    for k, v in reports["cpu"].items():
+        rel = abs(reports[dev.type][k] - v) / max(abs(v), 1e-12)
+        print(f"[quality] {k}: card vs CPU relative {rel:.2e} (limit {QUALITY_REL:g})")
+        if not rel <= QUALITY_REL:
+            fail(f"the quality metric {k} on the card is {rel:.2e} from the CPU's")
+
+
+def zoo_inputs(kw, draw: int):
+    """Input draw ``draw`` of a zoo case (``kw`` its constructor's keywords):
+    images (ZOO_BATCH, 64, 64, 3) and, for a conditional case, labels (one-hot
+    for concat / proj, a 16-vector for conv1x1 / conv3x3) or None."""
+    import torch
+
+    g = torch.Generator().manual_seed(1 + draw)
+    x = torch.randn(ZOO_BATCH, 64, 64, 3, generator=g)
+    y = None
+    if kw.get("n_classes"):
+        y = (torch.eye(ZOO_CLASSES)[torch.randint(ZOO_CLASSES, (ZOO_BATCH,), generator=g)]
+             if kw["cond_method"] in ("concat", "proj")
+             else torch.randn(ZOO_BATCH, 16, generator=g))
+    return x, y
+
+
+def zoo_models(cls: str, kw) -> dict:
+    """A zoo case's module on the CPU in float64 and float32 from one
+    initialisation, its attention gate opened: {dtype: module}."""
+    import torch
+
+    from infinite_texture_gans_torch.models import discriminator
+
+    models = {}
+    for dt in (torch.float64, torch.float32):
+        torch.manual_seed(0)
+        m = getattr(discriminator, cls)(**kw, dtype=dt).to(dt).train()
+        for name, p in m.named_parameters():
+            if name.endswith("gamma"):
+                p.data.fill_(0.5)
+        models[dt] = m
+    return models
+
+
+def zoo_run(model, x, y, dev):
+    """A train-mode forward with an SN refresh and a backward of ``model``
+    on ``dev``: (output, dx, gradients by name, state dict), on the CPU."""
+    import torch
+
+    dt = model.dtype
+    xt = x.to(dev, dt, copy=True).requires_grad_()
+    out = model(xt, *([y.to(dev, dt)] if y is not None else []), update_sn=True)
+    (out * torch.linspace(-1, 1, out.numel(), dtype=dt, device=dev).reshape(out.shape)).sum().backward()
+    return (out.detach().cpu(), xt.grad.cpu(),
+            {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: t.cpu() for n, t in model.state_dict().items()})
+
+
+def zoo_errors(got, ref) -> dict:
+    """{tensor: the largest deviation of ``got`` from ``ref`` (zoo_run
+    results) over that tensor's largest value in ``ref``, or over the
+    model's largest gradient for a rounding-noise leaf}; gradients are
+    named 'd <parameter>'."""
+    o0, dx0, g0, s0 = ref
+    o1, dx1, g1, s1 = got
+    top = max(float(v.abs().max()) for v in g0.values())
+    pairs = [("output", o1, o0, 0.0), ("dx", dx1, dx0, 0.0)]
+    pairs += [(f"d {n}", g1[n], g0[n], top) for n in g0]
+    pairs += [(n, s1[n], s0[n], 0.0) for n in s0 if n.split(".")[-1] in ("u", "v", "mean", "var")]
+    errs = {}
+    for name, a, b, model_top in pairs:
+        scale = float(b.abs().max())
+        if scale < ZOO_NOISE_SHARE * model_top:
+            scale = model_top
+        errs[name] = float((a.double() - b.double()).abs().max()) / max(scale, 1e-30)
+    return errs
+
+
+def zoo_gap(got, ref) -> tuple:
+    """``zoo_errors`` summed up: (the largest, the tensor it is at, the
+    median over the gradients, the number of tensors)."""
+    errs = zoo_errors(got, ref)
+    at = max(errs, key=errs.get)
+    return errs[at], at, statistics.median(v for k, v in errs.items() if k.startswith("d ")), \
+        len(errs)
+
+
+def zoo_phase(dev, card) -> None:
+    """Each discriminator of the zoo at the JAX package's default widths on
+    the card and on the CPU (the same weights and inputs): a train-mode
+    forward with an SN refresh and a backward. Float64 on the card is held
+    to the CPU's float64 (ZOO_TOL); float32 on the card (TF32 off) to the
+    CPU's float64 by its gradients' median over ZOO_DRAWS input draws
+    (ZOO_F32_TOL), beside the CPU's own float32 and a TF32 control on the
+    card. Every case is printed before a failure ends the phase."""
+    import copy
+
+    import torch
+
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    failed = []
+    for label, (cls, kw) in ZOO_CASES.items():
+        models = zoo_models(cls, kw)
+        times = {}
+
+        def run(dt, d, draw, tf32=False):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                t = time.perf_counter()
+                out = zoo_run(copy.deepcopy(models[dt]).to(d), *zoo_inputs(kw, draw), d)
+                times[d.type, dt, tf32] = time.perf_counter() - t  # .cpu() copies synchronise
+            finally:
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            return out
+
+        exact = run(f64, cpu, 0)
+        held, at, _, n = zoo_gap(run(f64, dev, 0), exact)
+        medians = {"float32 card": [], "the CPU's float32": [], "TF32 card (control)": []}
+        for draw in range(ZOO_DRAWS):
+            if draw:
+                exact = run(f64, cpu, draw)
+            for what, (d, tf32) in zip(medians, ((dev, False), (cpu, False), (dev, True))):
+                gap = zoo_gap(run(f32, d, draw, tf32), exact)
+                medians[what].append(gap[2])
+                if draw == 0 and what == "float32 card":
+                    worst, worst_at = gap[:2]
+        stats = {what: statistics.median(v) for what, v in medians.items()}
+        print(f"[zoo] {label} (64^2, batch {ZOO_BATCH}): {n} tensors (output, dx, gradients, "
+              f"SN/BN state), each's deviation over its largest value. float64 card vs CPU: "
+              f"largest {held:.2e} at {at} (limit {ZOO_TOL:g}). Gradients' median against the "
+              f"CPU's float64, median over {ZOO_DRAWS} input draws: "
+              + "; ".join(f"{what} {stats[what]:.2e} (draws "
+                          + " ".join(f"{v:.1e}" for v in medians[what]) + ")"
+                          for what in medians)
+              + f"; float32 card limit {ZOO_F32_TOL:g}. Float32 card, draw 0: largest "
+              f"{worst:.2e} at {worst_at} (reported); forward + backward f32 card "
+              f"{times[dev.type, f32, False]:.3f} s, CPU {times['cpu', f32, False]:.3f} s "
+              f"[{card}]")
+        if not held <= ZOO_TOL:
+            failed.append(f"{label}: float64 {at} on the card is {held:.2e} of its largest "
+                          "value from the CPU's")
+        if not stats["float32 card"] <= ZOO_F32_TOL:
+            failed.append(f"{label}: float32 on the card, gradients' median "
+                          f"{stats['float32 card']:.2e} from the CPU's float64 "
+                          f"(limit {ZOO_F32_TOL:g})")
+    if failed:
+        fail("[zoo] " + "; ".join(failed))
+
+
+def mfu_phase(dev, walls, card) -> None:
+    """Model TFLOP per step and per 1024^2 canvas (``utils/flops.py``) over
+    the walls phases 4-7 measured, against the card's bf16 peak."""
+    import torch
+
+    from infinite_texture_gans_torch.config import (
+        discriminator_kwargs,
+        generator_kwargs,
+        prepare_parser,
+    )
+    from infinite_texture_gans_torch.models.discriminator import PatchDiscriminator
+    from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
+    from infinite_texture_gans_torch.utils import flops
+
+    peak = flops.peak_flops(dev, "bfloat16")
+    recipes = {"auto": EXP1_ARGS + ["--fuse_up", "auto"], "off": EXP1_ARGS + ["--fuse_up", "off"],
+               "ssm": SSM_ARGS}
+    with torch.device("meta"):
+        models = {}
+        for tail, argv in recipes.items():
+            args = prepare_parser().parse_args(argv)
+            models[tail] = (ResidualPatchGenerator(**generator_kwargs(args)),
+                            PatchDiscriminator(**discriminator_kwargs(args)), args)
+    work = {}
+    for tail in ("auto", "off", "ssm"):
+        G, D, args = models[tail]
+        work[f"train step {TRAIN_PATHS[tail][0]}"] = (flops.train_step_flops(
+            G, D, batch_size=args.batch_size, crop=args.random_crop, num_images=args.num_images,
+            disc_iters=args.disc_iters), walls[f"step {tail}"])
+    for label, tail in (("BN", "auto"), ("--fuse_up all", "auto"), ("SSM", "ssm")):
+        work[f"1024^2 canvas {label}"] = (flops.canvas_flops(models[tail][0], 1024, 1024),
+                                          walls[f"canvas {label}"])
+    for label, (f, wall) in work.items():
+        rate = f / wall
+        share = f"{100 * rate / peak:.2f}% of {peak / 1e12:.0f} TFLOP/s bf16" if peak else (
+            "MFU not measured (no peak for this card)")
+        print(f"[mfu] {label}: {f / 1e12:.4f} model TFLOP over the warm graphed wall "
+              f"{wall * 1e3:.2f} ms = {rate / 1e12:.2f} TFLOP/s, {share} [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -2323,6 +2730,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import torch.nn.functional as F
+
+    from infinite_texture_gans_torch.utils.flops import CARD_PEAKS, H100_SXM
+
+    # NVIDIA H100 SXM data sheet (the port's one table, utils/flops.py):
+    # HBM rate, dense bf16 tensor-core rate and the float32 rate outside the
+    # tensor cores (the bound of K15's f32 route)
+    PEAK_BYTES_PER_S, PEAK_BF16_FLOP_PER_S, PEAK_F32_FLOP_PER_S = CARD_PEAKS[H100_SXM]
 
     from infinite_texture_gans_torch.models.generator import generator_channel_plan
     from infinite_texture_gans_torch.ops import _build, kernels, ssm
@@ -2462,7 +2876,7 @@ def main() -> int:
         ms, plain, lib = device_ms(kernel_fn), device_ms(plain_fn), device_ms(lib_fn)
         old = device_ms(old_fn) if old_fn is not None else 0.0
         eager = eager_ms(kernel_fn)
-        b = bound_ms(nbytes, flops, peak)
+        b = bound_ms(nbytes, flops, peak, PEAK_BYTES_PER_S)
         targets = [(dstats if f32_route else tstats)[t][name] for t in tails] or [(into or stats)[name]]
         for s in targets + ([also[name]] if also is not None else []):
             s["ms"] += count * ms
@@ -3942,7 +4356,8 @@ def main() -> int:
           f"attention {args.attention} dtype {gen.dtype} patch {gen.patch_resolution}")
     if (gen.plan, gen.base_res, gen.num_patches_h, gen.num_patches_w) != (plan, base, GRID, GRID):
         fail("the checkpoint's generator is not the flagship the kernel checks were sized for")
-    one_pass_launches, raster_launches, _ = generation_phase(
+    walls = {}  # the warm graphed walls of phases 4-7, for phase 13's [mfu]
+    one_pass_launches, raster_launches, walls["canvas BN"] = generation_phase(
         dev, gen, args, "flagship", {"conv3x3_chw": 7, "conv1x1_chw": 3, "upsample2_chw": 3},
         GEN_PER_SUB["flagship"], 16, card, sync, plant_faults=True)
     print(f"[phase 4] checkpoint phases in {time.perf_counter() - t0:.1f} s")
@@ -3955,7 +4370,7 @@ def main() -> int:
     gen, args = load_generator_from_checkpoint(str(CKPT), device=dev, ckpt=ckpt, fuse_up="all")
     if args.fuse_up != "all" or gen.eval_fuse_blocks() != {4, 5, 6}:
         fail(f"--fuse_up all fuses blocks {sorted(gen.eval_fuse_blocks())}, not 4-6")
-    all_one_pass, all_raster, _ = generation_phase(
+    all_one_pass, all_raster, walls["canvas --fuse_up all"] = generation_phase(
         dev, gen, args, "flagship --fuse_up all", ALL_ONE_PASS, GEN_PER_SUB["all"], 16, card, sync)
     fuse_all_vs_unfused(dev, gen, args, load_generator_from_checkpoint(
         str(CKPT), device=dev, ckpt=ckpt)[0], sync)
@@ -4006,12 +4421,13 @@ def main() -> int:
     forms = {"graphed": ("0", ""), "eager": ("1", "_eager")}
     ssm.ROUTE_LAUNCHES.update(dict.fromkeys(ssm.ROUTE_LAUNCHES, 0))
     runs, dx_bf16 = {}, {}
-    for tail, argv in recipes.items():
-        for form, (spd, suffix) in forms.items():
-            kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
-            out = training_run(dev, argv, TRAIN_STEPS, STEP_LAUNCHES[tail], sync, card,
-                               ROOT / "build" / f"smoke_train_{tail}{suffix}", spd)
-            runs[tail, form], dx_bf16[tail, form] = out[:3] + out[4:], out[3]
+    with WatchdogSpy() as spy:  # each run's stall watchdog (phase 13 reads it)
+        for tail, argv in recipes.items():
+            for form, (spd, suffix) in forms.items():
+                kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
+                out = training_run(dev, argv, TRAIN_STEPS, STEP_LAUNCHES[tail], sync, card,
+                                   ROOT / "build" / f"smoke_train_{tail}{suffix}", spd)
+                runs[tail, form], dx_bf16[tail, form] = out[:3] + out[4:], out[3]
     bf16_route = dict(ssm.ROUTE_LAUNCHES)
     for (tail, form), counts in dx_bf16.items():
         want = route_want({k: TRAIN_STEPS * v for k, v in STEP_LAUNCHES[tail].items()}, tc=True)
@@ -4031,6 +4447,7 @@ def main() -> int:
               f"({1.0 / warm:.3f} steps/s), device busy per traced step {share}, peak device "
               f"memory {peak / 2**30:.3f} GiB [{card}]")
     runs = {tail: runs[tail, "graphed"] for tail in recipes}  # the main path's launches
+    walls.update({f"step {tail}": run[1] for tail, run in runs.items()})
     print(f"[phase 6] training runs in {time.perf_counter() - t0:.1f} s")
 
     # -- 7. SSM generation from the SSM run's EMA checkpoint ----------------
@@ -4042,7 +4459,7 @@ def main() -> int:
     if (gen.type_norm, gen.plan, gen.base_res, gen.num_patches_h, gen.dtype) != (
             "SSM", ssm_plan, base, GRID, torch.bfloat16):
         fail("the SSM run's generator is not the recipe the kernel checks were sized for")
-    ssm_one_pass, ssm_raster, _ = generation_phase(
+    ssm_one_pass, ssm_raster, walls["canvas SSM"] = generation_phase(
         dev, gen, args, "SSM", {"ssm_embed": 6, "conv3x3_chw": 5, "conv1x1_chw": 2,
                                 "upsample2_chw": 2}, GEN_PER_SUB["SSM"], 64, card, sync,
         u8_tol=None)
@@ -4084,7 +4501,21 @@ def main() -> int:
     diag_phase(dev, sync, card)
     print(f"[phase 12] batched-diagonal engine in {time.perf_counter() - t0:.1f} s")
 
-    # -- 13. report -----------------------------------------------------------
+    # -- 13. interop: reference .pth in and out, the utilities, the zoo ------
+    t0 = time.perf_counter()
+    canvas = pth_phase(dev, sync, card)
+    watch = [(w.beats, w.stops, w.thread is not None and not w.thread.is_alive())
+             for w in spy.made]
+    print(f"[interop] watchdog: phase 6's {len(watch)} one-epoch training runs, (beats, stops, "
+          f"thread joined) each: {watch}")
+    if len(watch) != len(runs) * len(forms) or any(w != (1, 1, True) for w in watch):
+        fail(f"the train loop's watchdog: {watch}, not one beat an epoch, stopped and joined")
+    mfu_phase(dev, walls, card)
+    quality_phase(dev, canvas, card)
+    zoo_phase(dev, card)
+    print(f"[phase 13] interop in {time.perf_counter() - t0:.1f} s")
+
+    # -- 14. report -----------------------------------------------------------
     # K1 (and under --fuse_up all K9) runs on the one pass, the other
     # generation kernels on the raster
     gen_launches = {label: {k: (one if k in ("conv3x3_chw", "upconv3x3_chw") else raster)[k]

@@ -13,7 +13,12 @@ engine, in memory or streamed into a PNG, fused under the sample CLI's
 engine) and the training step (``train/train_loop.py``, on one texture or a
 directory of them, which writes checkpoints in the reference's format),
 whose train CLI defaults to the reference's ``--fuse_up auto`` (the
-subpixel-fused up-conv tail) and also takes ``off``. On the card both paths issue CUDA graphs
+subpixel-fused up-conv tail) and also takes ``off``. Checkpoints are the
+framework's ``.ckpt`` or the reference's PyTorch ``.pth``, read safely and
+written back by ``sample --export_pth`` (``utils/torch_import.py``,
+``utils/torch_export.py``); ``utils/`` also holds the FLOP count, the stall
+watchdog and the texture-quality metrics, and ``models/discriminator.py``
+the reference's discriminator zoo. On the card both paths issue CUDA graphs
 (``ops/graphs.py``): the train loop replays a captured step, the raster
 engine a captured canvas row of each kind met more than once. Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; on the CPU every kernel wrapper takes its

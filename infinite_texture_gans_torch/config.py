@@ -138,11 +138,15 @@ def prepare_parser() -> argparse.ArgumentParser:
 
 
 def check_train_args(args: argparse.Namespace) -> None:
-    """Refuse the training options the port does not implement yet (the
-    other discriminators), flag values no model or dataset takes, and
-    ``--chw_tail off`` (a CPU reference path) on the card."""
+    """Refuse the training options the port does not implement yet (several
+    devices), flag values no model or dataset takes, and ``--chw_tail off``
+    (a CPU reference path) on the card. ``--D_model`` other than
+    ``patch_GAN`` gets the reference's refusal: the other discriminators
+    (``models/discriminator.py``) are a model zoo that the training
+    pipeline does not wire."""
     if args.D_model != "patch_GAN":
-        raise NotImplementedError(f"--D_model {args.D_model!r}: the port trains with patch_GAN")
+        raise ValueError(f"--D_model {args.D_model}: only patch_GAN is wired into the training "
+                         "pipeline (reference utils.py:205-208)")
     valid = {"data": ("single_image", "multiple_images"),
              "loss": ("standard", "hinge", "wgan"), "padding_mode": ("local", "zeros"),
              "type_norm_G": ("BN", "SSM"), "norm_layer_D": (None, "batch", "instance")}

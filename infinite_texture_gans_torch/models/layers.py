@@ -5,9 +5,10 @@ generators, eval and train: ``activation_fn``, ``StatsBN`` (the
 parameter-free BatchNorm), ``BNFold`` (which also serves as the NHWC
 ``nn.BatchNorm``, the discriminator's among them), ``InstanceNorm``,
 ``StochasticSpatialModulation``, ``ConvLP``, ``Attention``,
-``PatchAttention`` and ``ResBlockGenerator`` (BN and SSM branches, and the
+``PatchAttention``, ``ResBlockGenerator`` (BN and SSM branches, and the
 subpixel-fused up-conv branch of BN blocks: in training under ``--fuse_up
-auto``, at eval under ``all``). With ``sn`` every conv of the NHWC
+auto``, at eval under ``all``), and the discriminator zoo's NHWC blocks
+``ResBlockDiscriminator`` and ``OptimizedBlock``. With ``sn`` every conv of the NHWC
 branches is spectrally normalised (``ops/conv.py``), its vectors refreshed
 when the caller passes ``update_sn``; the channels-major branches take the
 raw weights, and the generator's gate keeps a spectrally normalised model
@@ -452,3 +453,61 @@ class ResBlockGenerator(nn.Module):
         y, s1, s2 = kernels.conv1x1_chw_add(sc, self.conv3.weight, self.conv3.bias, out,
                                             want_stats=True)
         return y, (s1, s2, n * y.shape[2] * y.shape[3])
+
+
+def avg_pool2_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """2x2 / stride-2 average pool of NHWC x (odd edges dropped, as flax's
+    ``avg_pool`` with VALID padding)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+class ResBlockDiscriminator(nn.Module):
+    """SNGAN discriminator residual block (the reference's
+    ``ResBlockDiscriminator``, :722-757), NHWC: [BN] act conv3x3 [BN] act
+    conv3x3 [avg-pool], plus a 1x1 shortcut (then pooled) when the width
+    changes or the block downsamples. ``bn`` adds flax-style BatchNorms
+    (:class:`BNFold`); ``sn`` normalises every conv."""
+
+    def __init__(self, in_features: int, features: int, downsample: bool = False,
+                 leak: float = 0.0, sn: bool = True, bn: bool = False):
+        super().__init__()
+        self.act, self.downsample = activation_fn(leak), downsample
+        self.bn1 = BNFold(in_features) if bn else None
+        self.conv1 = conv3x3(in_features, features, sn=sn)
+        self.bn2 = BNFold(features) if bn else None
+        self.conv2 = conv3x3(features, features, sn=sn)
+        learnable_sc = in_features != features or downsample
+        self.conv3 = conv1x1(in_features, features, sn) if learnable_sc else None
+
+    def forward(self, x: torch.Tensor, update_sn: bool = False,
+                train: Optional[bool] = None) -> torch.Tensor:
+        h = x if self.bn1 is None else self.bn1(x, train)
+        h = self.conv1(self.act(h), update_sn)
+        if self.bn2 is not None:
+            h = self.bn2(h, train)
+        h = self.conv2(self.act(h), update_sn)
+        if self.downsample:
+            h = avg_pool2_nhwc(h)
+        sc = x
+        if self.conv3 is not None:
+            sc = self.conv3(sc, update_sn)
+            if self.downsample:
+                sc = avg_pool2_nhwc(sc)
+        return h + sc
+
+
+class OptimizedBlock(nn.Module):
+    """The SNGAN discriminator's first block (the reference's
+    ``OptimizedBlock``, :760-777), NHWC: conv3x3 act conv3x3 avg-pool, plus
+    avg-pool then a 1x1 conv on the shortcut."""
+
+    def __init__(self, in_features: int, features: int, leak: float = 0.0, sn: bool = True):
+        super().__init__()
+        self.act = activation_fn(leak)
+        self.conv1 = conv3x3(in_features, features, sn=sn)
+        self.conv2 = conv3x3(features, features, sn=sn)
+        self.conv3 = conv1x1(in_features, features, sn)
+
+    def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
+        h = self.conv2(self.act(self.conv1(x, update_sn)), update_sn)
+        return avg_pool2_nhwc(h) + self.conv3(avg_pool2_nhwc(x), update_sn)

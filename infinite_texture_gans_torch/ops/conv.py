@@ -1,7 +1,7 @@
 """Convolution primitive on NHWC tensors, with spectral normalisation.
 
 Port of ``infinite_texture_gans_tpu/ops/conv.py``: ``spectral_normalize``,
-``sn_kernel`` and ``Conv`` (:33-163), and the SSM embed's init
+``sn_kernel``, ``Conv`` and ``Dense`` (:33-163), and the SSM embed's init
 (``models/layers.py:283-299``). The reference stores HWIO kernels;
 here the weight is a PyTorch OIHW parameter (``weights.from_jax_variables``
 transposes), and the NHWC activation is viewed as channels-last NCHW, so
@@ -12,7 +12,9 @@ leaves them to XLA.
 Spectral norm keeps the power-iteration vectors ``u`` (O,) and ``v``
 (kh*kw*I,) as buffers, updated only when the caller passes ``update_sn``
 (train mode). ``v`` is indexed in the reference's HWIO order, so the
-buffers load from and save to its ``spectral`` collection unchanged.
+buffers load from and save to its ``spectral`` collection unchanged. A
+``Dense`` weight is PyTorch's (out, in), the transpose of the reference's
+(in, out) kernel; its ``v`` has the in-features' order.
 """
 
 from __future__ import annotations
@@ -26,7 +28,10 @@ SN_EPS = 1e-12
 
 def sn_matrix(weight: torch.Tensor) -> torch.Tensor:
     """OIHW weight -> (O, kh*kw*I), the reference's ``kernel.reshape(-1,
-    O).T`` of the HWIO kernel."""
+    O).T`` of the HWIO kernel; a Dense (O, I) weight is that matrix already
+    (the reference's (I, O) kernel transposed)."""
+    if weight.dim() == 2:
+        return weight
     return weight.permute(0, 2, 3, 1).reshape(weight.shape[0], -1)
 
 
@@ -58,27 +63,25 @@ def unit_normal(n: int, generator: torch.Generator = None) -> torch.Tensor:
     return u / (torch.linalg.vector_norm(u) + SN_EPS)
 
 
-class Conv(nn.Module):
-    """NHWC conv with bias, stride and a symmetric zero ``padding``, as in
-    the reference; with ``sn`` the weight is spectrally normalised on every
-    call (:func:`spectral_normalize`), its vectors held in the buffers
-    ``u``/``v``. Initialised orthogonally on the (O, I*kh*kw) view, as the
-    reference's ``orthogonal(column_axis=-1)`` draws (other random numbers:
-    tests carry the reference's weights over)."""
+class _SNWeight(nn.Module):
+    """A weight with an optional bias and optional spectral norm: the
+    power-iteration vectors in the buffers ``u`` (O,) and ``v`` (the
+    weight's other elements), initialised orthogonally on the (O, -1) view,
+    as the reference's ``orthogonal(column_axis=-1)`` draws (other random
+    numbers: tests carry the reference's weights over)."""
 
-    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 padding: int = 1, strides: int = 1, sn: bool = False):
+    def __init__(self, shape, use_bias: bool, sn: bool):
         super().__init__()
-        self.padding, self.strides, self.sn = padding, strides, sn
-        self.weight = nn.Parameter(torch.empty(features, in_features, kernel_size, kernel_size))
+        self.sn = sn
+        self.weight = nn.Parameter(torch.empty(*shape))
         nn.init.orthogonal_(self.weight)
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(shape[0])) if use_bias else None
         if sn:
-            self.register_buffer("u", unit_normal(features))
-            self.register_buffer("v", unit_normal(in_features * kernel_size * kernel_size))
+            self.register_buffer("u", unit_normal(shape[0]))
+            self.register_buffer("v", unit_normal(self.weight[0].numel()))
 
     def kernel(self, update_sn: bool = False) -> torch.Tensor:
-        """The float32 OIHW weight the conv uses: spectrally normalised when
+        """The float32 weight the layer uses: spectrally normalised when
         ``sn``, refreshing ``u``/``v`` in place when ``update_sn``."""
         if not self.sn:
             return self.weight
@@ -88,12 +91,36 @@ class Conv(nn.Module):
             self.v.copy_(v)
         return w
 
+
+class Conv(_SNWeight):
+    """NHWC conv with a bias (unless ``use_bias`` is False), stride and a
+    symmetric zero ``padding``, as in the reference; with ``sn`` the weight
+    is spectrally normalised on every call (:func:`spectral_normalize`)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 padding: int = 1, strides: int = 1, sn: bool = False, use_bias: bool = True):
+        super().__init__((features, in_features, kernel_size, kernel_size), use_bias, sn)
+        self.padding, self.strides = padding, strides
+
     def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
         """x (N, H, W, Cin) -> (N, H', W', Cout) in x's dtype."""
         w = self.kernel(update_sn).to(x.dtype)
-        b = self.bias.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.strides, self.padding)
         return y.permute(0, 2, 3, 1)
+
+
+class Dense(_SNWeight):
+    """Linear layer with orthogonal init and optional spectral norm (the
+    reference's ``Dense``): x (..., in) -> (..., features) in x's dtype."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 sn: bool = False):
+        super().__init__((features, in_features), use_bias, sn)
+
+    def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
+        w = self.kernel(update_sn).to(x.dtype)
+        return F.linear(x, w, None if self.bias is None else self.bias.to(x.dtype))
 
 
 def ssm_embed_init_(weight: torch.Tensor, in_channel: int) -> torch.Tensor:

@@ -11,10 +11,16 @@ Python when they call their C entry point, and a capture calls each once
 while the device runs nothing. :class:`CountedGraph` takes back what the
 capture counted and adds it again at every replay, so the counts stay the
 launches the device ran, as in an eager run.
+
+Python's cyclic collector is held off while a capture runs: an earlier
+graph left in a reference cycle (an object whose method a closure wraps) is
+freed whenever the collector next runs, and freeing it inside another
+capture invalidates that capture (``cudaErrorStreamCaptureInvalidated``).
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Iterable, List, TypeVar
 
 import torch
@@ -60,7 +66,8 @@ class CountedGraph:
         with the graph, so that each replay draws what an eager call from
         the generator's current state would draw, and advances it as that
         call would. Capture errors raise; nothing falls back to an eager
-        run."""
+        run. The cyclic collector does not run during the capture (see the
+        module's docstring); what it would have freed goes at its next run."""
         for g in generators:
             if not hasattr(self.graph, "register_generator_state"):
                 raise RuntimeError(
@@ -68,6 +75,8 @@ class CountedGraph:
                     "(CUDAGraph.register_generator_state); run one step per dispatch")
             self.graph.register_generator_state(g)
         before = _snapshot()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # a capture stream of the current device; thread_local: another
             # thread's host calls (the streamed engine's encoder waits on
@@ -76,6 +85,8 @@ class CountedGraph:
                                   capture_error_mode="thread_local"):
                 out = fn()
         finally:
+            if collecting:
+                gc.enable()
             after = _snapshot()
             for counter, was in zip(_COUNTERS, before):
                 counter.update(was)

@@ -1,7 +1,11 @@
 """Inference CLI: ``python -m infinite_texture_gans_torch.sample``.
 
 Port of ``infinite_texture_gans_tpu/sample.py``: loads a framework
-``.ckpt``, rebuilds the generator from the config stored in it. A
+``.ckpt`` or a reference ``.pth``, rebuilds the generator from the config
+stored in it. ``--export_pth PATH`` writes the checkpoint's generator (and
+a ``.ckpt``'s discriminator) as a reference ``.pth`` instead of sampling
+(``utils/torch_export.py``; a ``.pth`` input re-exports its imported tree,
+so ``.pth -> .pth`` keeps the state dict bit for bit). A
 local-padding checkpoint generates the canvas with the halo-cache raster engine
 (uint8 wire; on the card a canvas row whose kind came up before is one
 CUDA graph replay) and writes the images next to the checkpoint under the
@@ -31,10 +35,14 @@ from infinite_texture_gans_torch.sampling.diag import generate_canvas_diag
 from infinite_texture_gans_torch.sampling.infinite import _to_uint8, generate_canvas
 from infinite_texture_gans_torch.sampling.stream import StreamingPNGWriter, generate_canvas_streamed
 from infinite_texture_gans_torch.sampling.tiled import sample_from_gen
-from infinite_texture_gans_torch.train.checkpoint import load_generator_from_checkpoint
+from infinite_texture_gans_torch.train.checkpoint import (
+    load_checkpoint,
+    load_generator_from_checkpoint,
+)
+from infinite_texture_gans_torch.utils.torch_export import export_generator_pth
 
 # Flags of the reference CLI whose engines are not ported yet.
-NOT_PORTED = ("mesh", "export_pth")
+NOT_PORTED = ("mesh",)
 
 
 def prepare_sample_parser() -> argparse.ArgumentParser:
@@ -62,7 +70,9 @@ def prepare_sample_parser() -> argparse.ArgumentParser:
     p.add_argument("--diag_lanes", type=int, default=None,
                    help="local-padding checkpoints: generate this many canvas rows per "
                         "generator call (the batched-diagonal engine; needs 3+ patch columns)")
-    p.add_argument("--export_pth", type=str, default=None, help="not ported yet")
+    p.add_argument("--export_pth", type=str, default=None,
+                   help="write the checkpoint as a reference-format .pth at this path and exit "
+                        "(no sampling)")
     return p
 
 
@@ -103,9 +113,20 @@ def main(argv=None) -> None:
         if getattr(args_sample, flag):
             raise SystemExit(f"--{flag} is not ported to the PyTorch package yet")
     device = resolve_device(args_sample.device)
-    gen, args = load_generator_from_checkpoint(args_sample.model_path, device=device,
-                                               fuse_up=args_sample.fuse_up)
+    ckpt = load_checkpoint(args_sample.model_path)
+    # an export keeps the stored flags as they are
+    gen, args, variables = load_generator_from_checkpoint(
+        args_sample.model_path, device=device, ckpt=ckpt,
+        fuse_up=None if args_sample.export_pth else args_sample.fuse_up, with_variables=True)
     print(args)
+    if args_sample.export_pth:
+        meta = ckpt["meta"]
+        export_generator_pth(args_sample.export_pth, variables, args, epoch=meta.get("epoch"),
+                             gloss=meta.get("Gloss"), dloss=meta.get("Dloss"),
+                             seed=meta.get("seed"), d_variables=ckpt.get("netD_variables"),
+                             d_norm_layer=getattr(args, "norm_layer_D", None))
+        print("Exported reference .pth checkpoint:", args_sample.export_pth)
+        return
     seed = args_sample.seed if args_sample.seed is not None else 0
     rng = torch.Generator(device=device).manual_seed(seed)
     path = os.path.join(os.path.dirname(args_sample.model_path), args_sample.output_name)

@@ -9,7 +9,9 @@ Port of ``save_checkpoint`` (:35-56), ``AsyncCheckpointer`` (:64-130),
 metadata (``meta.args`` holds the training flags), then the flax msgpack
 body, written and read by the port's own encoder and decoder
 (``train/msgpack.py``), so checkpoints cross between the two packages in
-both directions. The reference ``.pth`` import is not ported yet.
+both directions. A file without ``MAGIC`` is read as a reference ``.pth``
+(``utils/torch_import.py``: a safe ``torch.load``), whose generator the
+loader imports from its ``netG_state_dict``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from infinite_texture_gans_torch import resolve_device
 from infinite_texture_gans_torch.config import dict_to_args, generator_kwargs
 from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
 from infinite_texture_gans_torch.train import msgpack
+from infinite_texture_gans_torch.utils.torch_import import import_generator, load_torch_checkpoint
 from infinite_texture_gans_torch.weights import from_jax_variables, map_leaves
 
 MAGIC = b"ITGTPU1\n"
@@ -140,18 +143,27 @@ class AsyncCheckpointer:
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """The stored trees (numpy arrays; bfloat16 as torch tensors) plus the
-    metadata under 'meta'."""
+    """A framework ``.ckpt``: the stored trees (numpy arrays; bfloat16 as
+    torch tensors) plus the metadata under 'meta'. A reference ``.pth``:
+    ``{'meta': {args, epoch, seed, Gloss, Dloss}, 'torch_state_dicts':
+    {netG_state_dict, netD_state_dict}}`` (whichever the file holds), for
+    the callers to import with ``utils/torch_import.py``."""
     with open(path, "rb") as f:
-        if f.read(len(MAGIC)) != MAGIC:
-            raise ValueError(
-                f"{path}: not a framework .ckpt (reference .pth import is not ported yet)"
-            )
-        (meta_len,) = struct.unpack("<Q", f.read(8))
-        meta = json.loads(f.read(meta_len).decode())
-        tree = msgpack.unpackb(f.read())
-    tree["meta"] = meta
-    return tree
+        if f.read(len(MAGIC)) == MAGIC:
+            (meta_len,) = struct.unpack("<Q", f.read(8))
+            meta = json.loads(f.read(meta_len).decode())
+            tree = msgpack.unpackb(f.read())
+            tree["meta"] = meta
+            return tree
+    ckpt = load_torch_checkpoint(path)
+    meta: Dict[str, Any] = {}
+    if ckpt.get("args") is not None:
+        meta["args"] = dict(vars(ckpt["args"]))
+    for k in ("epoch", "seed", "Gloss", "Dloss"):
+        if k in ckpt:
+            meta[k] = ckpt[k]
+    return {"meta": meta, "torch_state_dicts": {
+        k: ckpt[k] for k in ("netG_state_dict", "netD_state_dict") if k in ckpt}}
 
 
 def restore_train_state(state, ckpt: Dict[str, Any], steps_per_epoch: int = 0) -> int:
@@ -203,19 +215,32 @@ def restore_train_state(state, ckpt: Dict[str, Any], steps_per_epoch: int = 0) -
     return epoch
 
 
+def load_netG(path: str, ema: Optional[bool] = None, **kwargs):
+    """The reference's name for :func:`load_generator_from_checkpoint`."""
+    return load_generator_from_checkpoint(path, ema, **kwargs)
+
+
 def load_generator_from_checkpoint(
     path: str, ema: Optional[bool] = None, *, device="cuda",
     ckpt: Optional[Dict[str, Any]] = None, fuse_up: Optional[str] = None,
+    with_variables: bool = False,
 ):
     """Rebuild the eval generator from a checkpoint's stored config (SN off,
     3x3 grid, as the reference does) and load its weights: a
     ``--spec_norm_G`` checkpoint's raw weights, its ``spectral`` vectors
-    left out, as the reference's SN-off module ignores them.
+    left out, as the reference's SN-off module ignores them. A reference
+    ``.pth`` builds the generator from the Namespace stored in it and
+    imports its ``netG_state_dict`` (``utils/torch_import.py``).
 
     ``ema``: use the stored EMA snapshot when the checkpoint has one.
     ``fuse_up`` overrides the stored one ('all': the fused eval tail, as
     the reference's sample CLI clones the generator with its flag).
-    Returns (generator in eval mode on ``device``, args namespace)."""
+    Returns (generator in eval mode on ``device``, args namespace), and with
+    ``with_variables`` also the variables tree it loaded: a ``.ckpt``'s raw
+    ``netG_variables`` (or EMA snapshot), or the imported tree with its
+    ``spectral`` and ``torch_extras`` collections, which ``sample
+    --export_pth`` writes back (the SN-off module's state dict has lost the
+    SN vectors)."""
     dev = resolve_device(device)
     if ckpt is None:
         ckpt = load_checkpoint(path)
@@ -228,9 +253,15 @@ def load_generator_from_checkpoint(
     # refuse the card
     kwargs.update(SN=False, num_patches_h=3, num_patches_w=3, chw_tail="auto")
     gen = ResidualPatchGenerator(**kwargs)
-    if ema and ckpt.get("ema"):
+    if "torch_state_dicts" in ckpt:
+        variables = import_generator(ckpt["torch_state_dicts"]["netG_state_dict"],
+                                     n_layers_G=args.n_layers_G, type_norm=args.type_norm_G,
+                                     attention=args.attention)
+    elif ema and ckpt.get("ema"):
         variables = {"params": ckpt["ema"]["params"], "batch_stats": ckpt["ema"]["batch_stats"]}
     else:
         variables = ckpt["netG_variables"]
     gen.load_state_dict(from_jax_variables(variables), strict=True)
+    if with_variables:
+        return gen.to(dev).eval(), args, variables
     return gen.to(dev).eval(), args

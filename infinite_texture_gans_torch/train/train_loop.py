@@ -29,7 +29,10 @@ on the card a chunk of K > 1 is K replays of one captured CUDA graph of
 the step (``StepDispatch``); on the CPU every step runs eagerly. A chunk
 never crosses an epoch, so the learning rates are written between chunks.
 ``--profile_dir`` writes a ``torch.profiler`` trace of the first epoch's
-steps 0-4, dispatched one by one.
+steps 0-4, dispatched one by one. A ``StallWatchdog`` (``utils/watchdog.py``)
+beats at every epoch's read of its loss sums and warns when the epochs stop
+completing; it is stopped, its thread joined, when ``train`` returns or
+raises.
 
 ``--data multiple_images`` trains on a directory of images
 (``data/datasets.py``): its padded stack on the device with crops drawn in
@@ -81,6 +84,7 @@ from infinite_texture_gans_torch.train.train_step import (
     dispatch_plan,
     optimizer_tree,
 )
+from infinite_texture_gans_torch.utils.watchdog import StallWatchdog
 from infinite_texture_gans_torch.weights import jax_tree
 
 PROFILED_STEPS = 5  # --profile_dir traces the first epoch's steps 0-4
@@ -242,6 +246,8 @@ def train(args: argparse.Namespace,
         profiler = torch.profiler.profile(activities=acts)
     start = time.time()
     print("Starting Training Loop...")
+    # warns (stderr, once per stall) when the epochs stop completing
+    watchdog = StallWatchdog().start()
     try:
         for epoch in range(start_epoch, args.epochs):
             reseed_epoch(rng, seed, epoch)
@@ -273,6 +279,7 @@ def train(args: argparse.Namespace,
                         profiler = None
             d_run = float(dispatch.d_sum) / (args.batch_size * steps_per_epoch)
             g_run = float(dispatch.g_sum) / (args.num_images * steps_per_epoch)
+            watchdog.beat()  # the sums' read waited for the epoch's steps: real progress
             elapsed = time.time() - start
             print("[%d/%d]\tLoss_D: %.4f\tLoss_G: %.4f, elapsed_time = %.4f min (%.2f steps/s)"
                   % (epoch + 1, args.epochs, d_run, g_run, elapsed / 60,
@@ -287,6 +294,7 @@ def train(args: argparse.Namespace,
                 if args.ema:
                     saver.submit(filename + "_ema.ckpt", ema_payload(state, args))
                 plot_losses(G_losses, D_losses, filename)
+        saver.wait()
     except BaseException:
         # drain the saves in flight so no file is left half written; the
         # drain's own error never masks the first one
@@ -298,7 +306,7 @@ def train(args: argparse.Namespace,
     finally:
         if host:
             sampler.close()
-    saver.wait()
+        watchdog.stop()
     return state, G_losses, D_losses
 
 

@@ -44,10 +44,12 @@ def from_jax_variables(variables: Mapping[str, Mapping], *, spectral: bool = Fal
     arrays or tensors) -> a state dict for the port's module. Each leaf
     yields exactly one entry. ``spectral``: keep the SN vectors (a
     discriminator, or a generator trained with SN); without it they are
-    dropped, as for a generator rebuilt with SN off."""
+    dropped, as for a generator rebuilt with SN off. An imported reference
+    tree's ``torch_extras`` (BN ``num_batches_tracked``, which no module
+    holds) is left to the tree, for ``utils/torch_export.py``."""
     state: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
-        if collection == "spectral" and not spectral:
+        if (collection == "spectral" and not spectral) or collection == "torch_extras":
             continue
         if collection not in ("params", "batch_stats", "spectral"):
             raise ValueError(f"unexpected variable collection {collection!r}")

@@ -2291,6 +2291,73 @@ def test_save_in_flight_during_capture(cuda, tmp_path, monkeypatch):
                 assert torch.equal(v, snaps[epoch][f"{name}.{k}"]), (epoch, name, k)
 
 
+def test_capture_holds_off_the_cyclic_collector(cuda):
+    """A captured graph left in a reference cycle (as a dispatch whose
+    method a closure wraps) is freed when Python's cyclic collector next
+    runs. Freed inside another capture, it invalidates that capture;
+    ``CountedGraph.capture`` keeps the collector from running while it
+    captures (here it would run at every allocation), so the capture
+    replays and the garbage goes after it."""
+    import gc
+    import weakref
+
+    from infinite_texture_gans_torch.ops.graphs import CountedGraph
+
+    x = torch.ones(1 << 20, device=cuda)
+
+    def garbage():
+        old = CountedGraph()
+        with torch.cuda.device(cuda):
+            old.capture(lambda: x * 2)
+        cycle = {"graph": old}
+        cycle["self"] = cycle
+        return weakref.ref(old)
+
+    gc.disable()
+    try:  # the mechanism: the collector run by hand inside a capture
+        freed = garbage()
+        with pytest.raises(RuntimeError, match="capture"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=torch.cuda.Stream(),
+                                  capture_error_mode="thread_local"):
+                y = x + 1
+                gc.collect()
+                y = y + 1
+        assert freed() is None
+    finally:
+        gc.enable()
+    torch.cuda.synchronize()
+
+    during = []
+
+    def spy(phase, info):
+        if phase == "start":
+            during.append(torch.cuda.is_current_stream_capturing())
+
+    thresholds = gc.get_threshold()
+    gc.callbacks.append(spy)
+    gc.set_threshold(1, 1, 1)
+    try:
+        freed = garbage()
+        graph = CountedGraph()
+
+        def body():
+            junk = [[i] for i in range(1000)]  # a collection per allocation, were it on
+            return x + len(junk)
+
+        with torch.cuda.device(cuda):
+            y = graph.capture(body)
+        gc.collect()
+    finally:
+        gc.callbacks.remove(spy)
+        gc.set_threshold(*thresholds)
+    assert during and not any(during)
+    assert freed() is None
+    x.fill_(2.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.full_like(x, 1002.0))
+
+
 def _multi_dir(tmp_path, n=6, size=64):
     """n constant images of one value 15 + 30 i each (a drawn pixel names
     its image; every value >= 1, so padding would read -1)."""
@@ -2423,3 +2490,121 @@ def test_diag_canvas_equals_raster_on_card(cuda, kind):
                                       z_full=torch.cat([z for z, _ in lat[:lanes]]),
                                       maps_full=maps, wire=wire, graphs=False)[:1]
             np.testing.assert_array_equal(out, batched, err_msg=str(lanes))
+
+
+# --- reference .pth files, the utilities and the zoo on the card -------------
+
+
+def test_pth_canvas_equals_ckpt_canvas_on_card(cuda, tmp_path):
+    """A bf16 port ``.ckpt`` through ``sample --export_pth`` on the card: the
+    ``.pth`` renders the ``.ckpt``'s u8 canvas byte for byte, with the same
+    launches, and re-exports bit for bit."""
+    import argparse
+
+    from infinite_texture_gans_torch import sample
+    from infinite_texture_gans_torch.train.checkpoint import (
+        load_generator_from_checkpoint,
+        save_checkpoint,
+    )
+    from infinite_texture_gans_torch.weights import to_jax_variables
+
+    torch.manual_seed(0)
+    gen = ResidualPatchGenerator(z_dim=16, G_ch=8, n_layers_G=4, attention=True,
+                                 padding_mode="local")
+    with torch.no_grad():
+        gen.attention.attn.gamma.fill_(0.3)
+    args = dict(z_dim=16, G_ch=8, n_layers_G=4, attention=True, padding_mode="local",
+                compute_dtype="bfloat16")
+    ckpt, pth, again = (str(tmp_path / n) for n in ("g.ckpt", "g.pth", "again.pth"))
+    save_checkpoint(ckpt, {"meta": {"args": args},
+                           "netG_variables": to_jax_variables(gen.state_dict())})
+    sample.main(["--model_path", ckpt, "--export_pth", pth])
+    sample.main(["--model_path", pth, "--export_pth", again])
+    canvases = []
+    for path in (ckpt, pth):
+        g, _ = load_generator_from_checkpoint(path, device=cuda)
+        tk.reset_launches()
+        canvases.append(generate_canvas(g, torch.Generator(device=cuda).manual_seed(3), 290, 230,
+                                        wire="u8"))
+        canvases.append(dict(tk.LAUNCHES))
+    np.testing.assert_array_equal(canvases[0], canvases[2])
+    assert canvases[1] == canvases[3] and canvases[1]["chw_halo_step"] > 0
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        a, b = (torch.load(p, weights_only=True)["netG_state_dict"] for p in (pth, again))
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_quality_report_on_card_matches_cpu(cuda):
+    """The default pyramid's report on the card within 1e-3 of the CPU's
+    (f32, TF32 off)."""
+    from infinite_texture_gans_torch.utils import quality
+
+    rng = np.random.default_rng(0)
+    src = rng.uniform(-1, 1, (160, 200, 3)).astype(np.float32)
+    gen = rng.uniform(-1, 1, (256, 192, 3)).astype(np.float32)
+    got = quality.texture_quality_report(src, gen, quality.random_conv_features(device=cuda))
+    want = quality.texture_quality_report(src, gen, quality.random_conv_features(device="cpu"))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, rel=1e-3), k
+
+
+@pytest.mark.parametrize("cls,kw", [
+    ("ResDiscriminator", dict(base_ch=8, att=True)),
+    ("ResDiscriminator", dict(base_ch=8, n_classes=5, cond_method="concat")),
+    ("ResDiscriminator", dict(base_ch=8, n_classes=5, cond_method="proj", SN_y=True)),
+    ("ResDiscriminator", dict(base_ch=8, n_classes=5, cond_method="conv1x1")),
+    ("ResDiscriminator", dict(base_ch=8, n_classes=5, cond_method="conv3x3", att=True)),
+    ("DCDiscriminator", dict(base_ch=8)),
+    ("SNDiscriminator", dict(base_ch=8, SN=True)),
+])
+def test_zoo_on_card_matches_cpu(cuda, cls, kw):
+    """A train-mode forward with an SN refresh and a backward on the card,
+    float64: the output, every gradient and the updated SN / BN state within
+    1e-4 of each tensor's largest value of the CPU's (a gradient leaf of
+    rounding noise, below 1e-6 of the largest gradient, within 1e-4 of
+    that). Float64, as ``chip_smoke.py``'s zoo phase holds each tensor: a
+    float32 tensor's deviation swings with the input draw (cancellation in
+    the backward), so the phase holds float32 by the gradients' median over
+    several draws."""
+    import copy
+
+    from infinite_texture_gans_torch.models import discriminator
+
+    torch.manual_seed(0)
+    cpu = getattr(discriminator, cls)(**kw, dtype=torch.float64).double().train()
+    for name, p in cpu.named_parameters():
+        if name.endswith("gamma"):
+            p.data.fill_(0.5)
+    card = copy.deepcopy(cpu).to(cuda)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 64, 64, 3, generator=g, dtype=torch.float64)
+    y = None
+    if kw.get("n_classes"):
+        y = (torch.eye(5, dtype=torch.float64)[[1, 3]] if kw["cond_method"] in ("concat", "proj")
+             else torch.randn(2, 16, generator=g, dtype=torch.float64))
+    res = []
+    for model, dev in ((cpu, torch.device("cpu")), (card, cuda)):
+        xt = x.to(dev, copy=True).requires_grad_()
+        out = model(xt, *([y.to(dev)] if y is not None else []), update_sn=True)
+        (out * torch.linspace(-1, 1, out.numel(), device=dev, dtype=out.dtype).reshape(
+            out.shape)).sum().backward()
+        res.append((out.detach().cpu(), xt.grad.cpu(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()},
+                    {n: t.cpu() for n, t in model.state_dict().items()}))
+    (o0, dx0, g0, s0), (o1, dx1, g1, s1) = res
+    top = max(float(v.abs().max()) for v in g0.values())
+    pairs = [(o1, o0, 0.0), (dx1, dx0, 0.0)] + [(g1[n], g0[n], top) for n in g0]
+    pairs += [(s1[n], s0[n], 0.0) for n in s0]
+    for got, ref, model_top in pairs:
+        scale = float(ref.abs().max())
+        scale = model_top if scale < 1e-6 * model_top else scale
+        assert float((got - ref).abs().max()) <= 1e-4 * scale
+
+
+def test_peak_flops_on_card(cuda):
+    from infinite_texture_gans_torch.utils import flops
+
+    peaks = flops.CARD_PEAKS.get(torch.cuda.get_device_name(cuda))
+    assert flops.peak_flops(cuda) == (peaks.bf16_flop_per_s if peaks else None)
+    assert flops.peak_flops("cpu") is None

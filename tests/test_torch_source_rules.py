@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "infinite_texture_gans_tpu")
 def _port_sources():
     return sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "step_parity_study.py",
                                             ROOT / "k10_plan_study.py",
-                                            ROOT / "graph_chunk_study.py"]
+                                            ROOT / "graph_chunk_study.py",
+                                            ROOT / "zoo_precision_study.py"]
 
 
 def _imported_roots(path: Path):
@@ -47,6 +48,7 @@ def test_package_imports_without_cuda_or_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, step_parity_study, k10_plan_study, graph_chunk_study\n"
+        "import zoo_precision_study\n"
         f"bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "from infinite_texture_gans_torch.ops import _build\n"

@@ -341,7 +341,8 @@ def test_wgan_losses_match_jax():
 
 def test_train_args_accept_the_options_and_refuse_the_rest():
     """``check_train_args`` takes every option of this file and multi-image
-    data; it refuses the other discriminators (not ported), and flag values
+    data; it refuses the other discriminators with the reference's
+    ``ValueError`` (the zoo is not wired into training), and flag values
     no model or dataset takes. ``--gp_weight`` parses with the reference's
     default."""
     for flags in CASES.values():
@@ -349,7 +350,7 @@ def test_train_args_accept_the_options_and_refuse_the_rest():
     check_train_args(prepare_parser().parse_args(TINY + ["--data", "multiple_images"]))
     args = prepare_parser().parse_args(TINY)
     assert args.gp_weight == 10.0 == jax_parser().parse_args([]).gp_weight
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="only patch_GAN is wired"):
         check_train_args(prepare_parser().parse_args(TINY + ["--D_model", "residual_GAN"]))
     for bad in (["--loss", "ralsgan"], ["--norm_layer_D", "layer"], ["--disc_iters", "0"],
                 ["--data", "video"]):
