@@ -257,12 +257,24 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    ZOO_TOL, float32 (TF32 off) to the CPU's float64 within ZOO_F32_TOL by
    the gradients' median over ZOO_DRAWS input draws, beside the CPU's own
    float32 and a TF32 control.
-14. Prints the ``kernels`` JSON line (``:gen_all`` rows for K1, K9, K14, K2,
+14. ``parallel/`` on the one card (``parallel_phase``): the data-parallel
+   Experiment-1 ``auto`` bf16 step at world size 1 through NCCL, its
+   all-reduces captured in the step's CUDA graph, GRAPH_STEPS steps
+   bit-equal to the undistributed step with the same launches (both walls
+   printed); GLOO_RANKS gloo ranks on the one card, one eager f32 step held
+   to the 1-rank step at step parity's gates; the wavefront and its
+   slab-streamed PNG at world size 1 on the flagship at 1024^2 bf16 u8
+   byte-equal to the graphed raster with its K2/K3/K4 launches (walls
+   beside the raster's); one graphed bf16 step at ``--D_ch 640`` with no
+   stem launch and finite losses.
+15. Prints the ``kernels`` JSON line (``:gen_all`` rows for K1, K9, K14, K2,
    K3 and K10 per 384^2 sub-image under ``--fuse_up all``, ``:gen_ssm`` rows
    for K15, K1, K2, K3 and K4 per 192^2 SSM sub-image, and a ``:train_ssm``
    row for every kernel
-   of the SSM step among them), the card line, and last ``{"ok": true,
-   "device": {...}}``.
+   of the SSM step among them; ``:mesh_step`` and ``:wavefront`` rows for
+   phase 14's paths, the times of the ``:train_auto`` and generation rows
+   at their shapes and the path's own launches), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line; so does a machine without
 a card, or a directory that holds this file and nothing else of the repo.
@@ -520,6 +532,27 @@ DIAG_LANES = (1, 2, 4, 8)
 DIAG_BIG = 4096
 DIAG_GATE_LANES = 4
 DIAG_TOP = 8  # kernels by device time printed for each traced diagonal canvas
+# Phase 14 (parallel/, one card): the data-parallel Experiment-1 --fuse_up
+# auto step at world size 1 through NCCL, graphed as the train loop runs it
+# (GRAPH_STEPS steps), bit-equal to the undistributed step; GLOO_RANKS gloo
+# ranks on the one card, one eager float32 step, held to the 1-rank step at
+# step parity's gates (STEP_LOSS_TOL, STEP_GRAD_TOL, NOISE_TOL); the
+# wavefront and its slab-streamed form (slabs of PARALLEL_SLAB canvas rows)
+# at world size 1 on the flagship at PARALLEL_CANVAS^2 bf16 u8, byte-equal
+# to the graphed raster; one graphed bf16 step at --D_ch WIDE_D_CH, past the
+# tensor-core stem's 512 output channels (conv0 NHWC, no stem launch)
+# The gloo step is held with cuDNN off on both sides: cuDNN picks other
+# float32 algorithms for G's NHWC blocks at batch 4 (a rank's fakes) than
+# at 8, and on an H100 80GB HBM3 at 700 W that put G's block-2 conv1
+# weight gradient (GLOO_LEAF, upstream of a train-mode BatchNorm) 1.17e-2
+# of its largest value from the 1-rank step, over step parity's 5e-3;
+# with cuDNN off it sat where the 1-rank step on the same batch in another
+# order sits (the control, reported with the cuDNN-on gap)
+GLOO_RANKS = 2
+GLOO_LEAF = "G.block2.conv1.conv.weight"
+PARALLEL_CANVAS = 1024
+PARALLEL_SLAB = 2
+WIDE_D_CH = 640
 SSM_N = 8
 SSM_ARGS = ["--data_path", str(ROOT / "datasets" / "12.jpg"), "--random_crop", "128",
             "--G_ch", "52", "--D_ch", "64", "--z_dim", "128", "--n_layers_G", "5",
@@ -944,7 +977,8 @@ def train_tensors(st):
     return out
 
 
-def dispatch_run(dev, args, graphed, sync, start=None, plant=None):
+def dispatch_run(dev, args, graphed, sync, start=None, plant=None, axis=None, steps=GRAPH_STEPS,
+                 reorder=False):
     """GRAPH_STEPS steps of the train loop's ``StepDispatch`` from the fixed
     state (seed 11) and crop / latent generator (seed 7): eager, or
     ``graphed`` as the train loop runs it (WARMUP_STEPS eager warm-up
@@ -956,11 +990,16 @@ def dispatch_run(dev, args, graphed, sync, start=None, plant=None):
     crops and latents; 'eps': the captured step reads the penalty's weights
     from a buffer filled before the capture with the first replay's (its
     draws still made, so the crops and latents stay fresh), so every replay
-    reuses them. Returns {'start': the state and generator state before
-    that step, 'losses': per step, 'grads1' / 'grads': that step's / the
-    last step's gradients by model ({'G': {leaf: grad}, 'D': ...}),
-    'state': parameters and buffers after the run, 'launches': kernel
-    launches, 'routes': the routed kernels' launches by entry point}."""
+    reuses them. ``axis``: a rank's data axis (``parallel/mesh.py``): the
+    data-parallel step. ``steps``: the steps run. ``reorder``: each step
+    takes its crops and latents with the two halves of each batch swapped
+    (the same batch in another order). Returns {'start': the
+    state and generator state before that step, 'losses': per step,
+    'walls': each step's wall in s (its losses read), 'grads1' / 'grads':
+    that step's / the last step's gradients by model ({'G': {leaf: grad},
+    'D': ...}), 'state': parameters and buffers after the run, 'launches':
+    kernel launches, 'routes': the routed kernels' launches by entry
+    point}."""
     import torch
 
     from infinite_texture_gans_torch.data.datasets import prepare_data
@@ -972,10 +1011,21 @@ def dispatch_run(dev, args, graphed, sync, start=None, plant=None):
         create_train_state,
     )
 
-    st = create_train_state(args, GRAPH_STEPS, dev, seed=11)
+    st = create_train_state(args, GRAPH_STEPS, dev, seed=11, axis=axis)
     sampler = make_sampler(prepare_data(args), args, dev, 7, GRAPH_STEPS)
     rng = torch.Generator(device=dev).manual_seed(7)
     dispatch = StepDispatch(st, sampler, rng, args, graphed=graphed)
+    if reorder:
+        draw = dispatch.draw
+
+        def swap(x):
+            return None if x is None else torch.cat([x[len(x) // 2:], x[:len(x) // 2]])
+
+        def swapped(rng=None):
+            real, draws = draw(rng)
+            return swap(real), [d._replace(z=swap(d.z), eps=swap(d.eps)) for d in draws]
+
+        dispatch.draw = swapped
     dispatch.set_lr()
     sync()
     kernels.reset_launches()
@@ -987,8 +1037,8 @@ def dispatch_run(dev, args, graphed, sync, start=None, plant=None):
                         for n, p in module.named_parameters()}
                 for model, module in (("G", st.G), ("D", st.D))}
 
-    out = {"losses": []}
-    for i in range(GRAPH_STEPS):
+    out = {"losses": [], "walls": []}
+    for i in range(steps):
         if i == WARMUP_STEPS:
             sync()
             if start is not None:
@@ -1002,7 +1052,9 @@ def dispatch_run(dev, args, graphed, sync, start=None, plant=None):
                 plant_stale_eps(dispatch, dev)
         elif plant == "draws" and i > WARMUP_STEPS:
             rng.set_state(out["start"]["rng"])
+        t = time.perf_counter()
         out["losses"].append({k: float(v) for k, v in dispatch.step().items()})
+        out["walls"].append(time.perf_counter() - t)
         if i == WARMUP_STEPS:
             out["grads1"] = grads()
     sync()
@@ -2676,6 +2728,235 @@ def zoo_phase(dev, card) -> None:
                           f"(limit {ZOO_F32_TOL:g})")
     if failed:
         fail("[zoo] " + "; ".join(failed))
+
+
+def gloo_rank_step(argv) -> dict:
+    """One eager float32 step of the train loop's ``StepDispatch`` (seed 11,
+    crops and latents seed 7) in a rank of phase 14's gloo run on the card,
+    from the same state each time: with cuDNN off ('step'), then with the
+    BatchNorm moments' all-reduce removed too ('planted': each rank
+    normalises by its own slice), then with cuDNN on and the all-reduce
+    back ('cudnn'): each the global losses, the averaged gradients (on the
+    host) and the rank's launches."""
+    import torch
+
+    from infinite_texture_gans_torch.config import prepare_parser
+    from infinite_texture_gans_torch.ops import collectives
+    from infinite_texture_gans_torch.parallel.mesh import current_axis
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    axis = current_axis()
+    global_sums = collectives.global_sums
+    out = {}
+    for what in ("step", "planted", "cudnn"):
+        torch.backends.cudnn.enabled = what == "cudnn"
+        collectives.global_sums = (global_sums if what != "planted"
+                                   else lambda s1, s2, count: (s1, s2, count))
+        run = dispatch_run(axis.device, prepare_parser().parse_args(argv), False,
+                           torch.cuda.synchronize, axis=axis, steps=1)
+        out[what] = {"losses": run["losses"], "launches": run["launches"],
+                     "grads": {m: {k: v.cpu() for k, v in g.items()}
+                               for m, g in run["grads"].items()}}
+    return out
+
+
+def parallel_phase(dev, sync, card) -> dict:
+    """Phase 14: ``parallel/`` on the one card (NCCL will not put two ranks
+    on one device, so several NCCL ranks are not run here).
+
+    - world size 1, NCCL, graphed: the data-parallel Experiment-1 ``auto``
+      bf16 step (every BatchNorm moment and gradient bucket through an
+      all-reduce captured in the step's CUDA graph), GRAPH_STEPS steps as
+      the train loop runs them, held bit-equal to the undistributed step
+      (losses, gradients, parameters, buffers) with the same launches; both
+      replays' median walls printed (the all-reduces' cost at world size 1);
+    - GLOO_RANKS ranks on the one card through gloo (it all-reduces CUDA
+      tensors), eagerly: one float32 step against the 1-rank step with
+      cuDNN off on both sides, held to step parity's gates, both ranks'
+      gradients bit-equal, a planted fault (the moments' all-reduce
+      removed) caught; reported: with cuDNN on, and the control (the
+      1-rank step on the same batch in another order): the only run in
+      which the kernels' own statistics (K5, K10) pass through the global
+      sums;
+    - the wavefront and its streamed form at world size 1 on the flagship
+      (PARALLEL_CANVAS^2, bf16, u8): byte-equal to the graphed raster, with
+      the raster's K2/K3/K4 launches, walls beside the raster's;
+    - one graphed bf16 step at ``--D_ch`` WIDE_D_CH: no stem launch, finite
+      losses.
+
+    Returns {'mesh': the data-parallel step's launches over its run,
+    'wavefront': the wavefront canvas's launches}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from infinite_texture_gans_torch.config import prepare_parser
+    from infinite_texture_gans_torch.ops import kernels
+    from infinite_texture_gans_torch.parallel.mesh import Mesh, data_axis, run_ranks
+    from infinite_texture_gans_torch.parallel.wavefront import (
+        generate_canvas_wavefront,
+        generate_canvas_wavefront_streamed,
+    )
+    from infinite_texture_gans_torch.sampling.infinite import canvas_geometry, generate_canvas
+    from infinite_texture_gans_torch.sampling.stream import generate_canvas_streamed, read_png
+    from infinite_texture_gans_torch.train.checkpoint import load_generator_from_checkpoint
+    from infinite_texture_gans_torch.train.train_step import WARMUP_STEPS
+
+    out = {}
+    card_dev = f"cuda:{torch.cuda.current_device()}"
+    argv = EXP1_ARGS + ["--fuse_up", "auto", "--device", "cuda"]
+    args = prepare_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    plain = dispatch_run(dev, args, True, sync)
+    with tempfile.TemporaryDirectory() as tmp, \
+            data_axis(Mesh(1, (card_dev,), "nccl"), 0, f"file://{tmp}/rendezvous") as axis:
+        mesh = dispatch_run(dev, args, True, sync, axis=axis)
+    gap = graph_parity_gap(plain, mesh, 0, GRAPH_STEPS, "grads")
+    replays = slice(WARMUP_STEPS + 1, GRAPH_STEPS)
+    walls = [statistics.median(r["walls"][replays]) for r in (mesh, plain)]
+    print(f"[parallel] data:1 NCCL, the data-parallel Experiment-1 --fuse_up auto bf16 step, "
+          f"{GRAPH_STEPS} steps graphed as the train loop runs them: bit-equal to the "
+          f"undistributed step (losses, gradients, parameters, buffers): {gap[3]}; launches "
+          f"{json.dumps(mesh['launches'])} (undistributed {json.dumps(plain['launches'])}); "
+          f"median wall of the {GRAPH_STEPS - WARMUP_STEPS - 1} later replays {walls[0]:.4f} s "
+          f"against {walls[1]:.4f} s undistributed ({walls[0] / walls[1]:.3f}x: the all-reduces "
+          f"at world size 1) [{card}]")
+    if not gap[3] or mesh["launches"] != plain["launches"] or mesh["routes"] != plain["routes"]:
+        fail("the data-parallel step at world size 1 differs from the undistributed step")
+    if any(mesh["launches"][k] != GRAPH_STEPS * v for k, v in STEP_LAUNCHES["auto"].items()):
+        fail(f"the data-parallel step's launches {mesh['launches']} are not {GRAPH_STEPS} steps' "
+             f"{STEP_LAUNCHES['auto']}")
+    out["mesh"] = mesh["launches"]
+    del plain, mesh
+    print(f"[phase 14] data:1 NCCL step in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    f32_argv = argv + ["--compute_dtype", "float32"]
+    f32 = prepare_parser().parse_args(f32_argv)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = {}
+    for cudnn, reorder in ((False, False), (False, True), (True, False)):
+        torch.backends.cudnn.enabled = cudnn
+        run = dispatch_run(dev, f32, False, sync, steps=1, reorder=reorder)
+        one["control" if reorder else cudnn] = {
+            "losses": run["losses"], "launches": run["launches"],
+            "grads": {m: {k: v.cpu() for k, v in g.items()} for m, g in run["grads"].items()}}
+    two = run_ranks(gloo_rank_step, Mesh(GLOO_RANKS, (card_dev,) * GLOO_RANKS, "gloo"),
+                    (f32_argv,), timeout=600)
+    for what in ("control", "step", "planted", "cudnn"):
+        ref, run = one[what == "cudnn"], one["control"] if what == "control" else two[0][what]
+        loss_rel = max(abs(run["losses"][0][k] - v) / max(abs(v), 1e-30)
+                       for k, v in ref["losses"][0].items())
+        worst, bad = (0.0, 0.0, ""), []
+        for model in ("G", "D"):
+            for name, (share, _, noise) in leaf_deviations(run["grads"][model],
+                                                           ref["grads"][model]).items():
+                limit = NOISE_TOL if noise else STEP_GRAD_TOL
+                worst = max(worst, (share / limit, share, name))
+                if not share <= limit:
+                    bad.append(name)
+        ranks_equal = what == "control" or all(
+            torch.equal(v, two[1][what]["grads"][m][k]) for m in run["grads"]
+            for k, v in run["grads"][m].items())
+        at_leaf = leaf_deviations({GLOO_LEAF: run["grads"]["G"][GLOO_LEAF]},
+                                  {GLOO_LEAF: ref["grads"]["G"][GLOO_LEAF]})[GLOO_LEAF][0]
+        label = {"control": "the control: the 1-rank step on the same batch with its halves "
+                 "swapped, cuDNN off, reported", "step": f"data:{GLOO_RANKS} gloo on one card, "
+                 "cuDNN off", "planted": f"data:{GLOO_RANKS} gloo on one card, cuDNN off, the "
+                 "planted fault (the moments' all-reduce removed)",
+                 "cudnn": f"data:{GLOO_RANKS} gloo on one card, cuDNN on, reported"}[what]
+        print(f"[parallel] {label}: one eager f32 Experiment-1 step (each rank 4 of the 8 fakes "
+              f"and 32 of the 64 crops, the kernels' statistics through the global sums) against "
+              f"the 1-rank step: losses max rel {loss_rel:.3e} (limit {STEP_LOSS_TOL:g}), "
+              f"gradients largest deviation {worst[1]:.3e} ({worst[2]}), at {GLOO_LEAF} "
+              f"{at_leaf:.3e}, {len(bad)} leaves over step parity's limits"
+              + ("" if what == "control" else f"; the ranks' gradients bit-equal: {ranks_equal}")
+              + f"; launches {json.dumps(run['launches'])} [{card}]")
+        passed = loss_rel <= STEP_LOSS_TOL and not bad and ranks_equal
+        if what == "step" and not passed:
+            fail(f"the {GLOO_RANKS}-rank gloo step differs from the 1-rank step (losses "
+                 f"{loss_rel}, leaves {bad}, ranks equal {ranks_equal})")
+        if what == "planted" and passed:
+            fail("the gloo step's check passes a step without the moments' all-reduce")
+        if what not in ("planted", "control") and run["launches"] != {
+                **dict.fromkeys(kernels.LAUNCHES, 0),
+                **STEP_LAUNCHES["auto"]}:
+            fail(f"the gloo step's launches {run['launches']} are not one step's "
+                 f"{STEP_LAUNCHES['auto']}")
+    torch.backends.cudnn.enabled = True
+    del one, two
+    print(f"[phase 14] data:{GLOO_RANKS} gloo step in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    gen, _ = load_generator_from_checkpoint(str(CKPT), device=dev)
+    if gen.dtype != torch.bfloat16:
+        fail(f"the flagship generator runs {gen.dtype}, not bfloat16")
+    steps_h, steps_w, _, _ = canvas_geometry(PARALLEL_CANVAS, PARALLEL_CANVAS,
+                                             gen.patch_resolution, GRID, GRID)
+    want = {**dict.fromkeys(kernels.LAUNCHES, 0),
+            **{k: v * steps_h * steps_w for k, v in GEN_PER_SUB["flagship"].items()}}
+    size = (PARALLEL_CANVAS, PARALLEL_CANVAS)
+
+    def timed(fn):
+        sync()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        img = fn()
+        sync()
+        return img, time.perf_counter() - t, dict(kernels.LAUNCHES)
+
+    def rng():
+        return torch.Generator(device=dev).manual_seed(31)
+
+    for _ in range(3):  # the raster's rows: warm-up, captures, then replays only
+        raster, raster_s, raster_launches = timed(
+            lambda: generate_canvas(gen, rng(), *size, wire="u8"))
+    wave, wave_s, wave_launches = timed(
+        lambda: generate_canvas_wavefront(gen, rng(), *size, wire="u8"))
+    with tempfile.TemporaryDirectory() as tmp:
+        seq, slab = f"{tmp}/raster.png", f"{tmp}/wavefront.png"
+        _, seq_s, _ = timed(lambda: generate_canvas_streamed(gen, rng(), *size, seq,
+                                                             row_group=PARALLEL_SLAB))
+        _, slab_s, slab_launches = timed(lambda: generate_canvas_wavefront_streamed(
+            gen, rng(), *size, slab, slab_rows=PARALLEL_SLAB))
+        with open(seq, "rb") as a, open(slab, "rb") as b:
+            files_equal = a.read() == b.read()
+        slab_img = read_png(slab)
+    n_diff = int(np.count_nonzero(wave != raster))
+    print(f"[parallel] wavefront data:1, flagship {PARALLEL_CANVAS}^2 bf16 u8: {n_diff} of "
+          f"{raster.size} values differ from the graphed raster (want 0); launches "
+          f"{json.dumps(wave_launches)} (raster {json.dumps(raster_launches)}); wall "
+          f"{wave_s:.3f} s eager against the graphed raster's warm {raster_s:.3f} s [{card}]")
+    print(f"[parallel] wavefront streamed data:1, slabs of {PARALLEL_SLAB} rows: the PNG "
+          f"byte-equal to the raster stream's (row_group {PARALLEL_SLAB}): {files_equal}, "
+          f"pixels equal to the raster canvas: {np.array_equal(slab_img, raster[0])}; launches "
+          f"{json.dumps(slab_launches)}; wall {slab_s:.3f} s against the raster stream's "
+          f"{seq_s:.3f} s [{card}]")
+    if n_diff or wave_launches != want or raster_launches != want or slab_launches != want:
+        fail(f"the wavefront canvas or its launches {wave_launches} differ from the raster's "
+             f"({want})")
+    if not files_equal or not np.array_equal(slab_img, raster[0]):
+        fail("the slab-streamed wavefront PNG differs from the raster stream's")
+    out["wavefront"] = wave_launches
+    del gen
+    print(f"[phase 14] wavefront in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    wide = prepare_parser().parse_args(argv + ["--D_ch", str(WIDE_D_CH)])
+    run = dispatch_run(dev, wide, True, sync, steps=WARMUP_STEPS + 1)
+    stem = {k: run["launches"][k] for k in ("stem_fwd", "stem_dw", "stem_dx")}
+    finite = all(math.isfinite(v) for step in run["losses"] for v in step.values())
+    print(f"[parallel] --D_ch {WIDE_D_CH} bf16, graphed ({WARMUP_STEPS} eager warm-up steps, a "
+          f"captured one): stem launches {json.dumps(stem)} (want 0: conv0 NHWC past "
+          f"{kernels.STEM_TC_MAX_CO} channels), losses {json.dumps(run['losses'][-1])}, "
+          f"finite {finite} [{card}]")
+    if any(stem.values()) or not finite:
+        fail(f"--D_ch {WIDE_D_CH}: stem launches {stem}, losses finite {finite}")
+    print(f"[phase 14] --D_ch {WIDE_D_CH} step in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def mfu_phase(dev, walls, card) -> None:
@@ -4515,7 +4796,12 @@ def main() -> int:
     zoo_phase(dev, card)
     print(f"[phase 13] interop in {time.perf_counter() - t0:.1f} s")
 
-    # -- 14. report -----------------------------------------------------------
+    # -- 14. parallel/: the data-parallel step and the wavefront on one card --
+    t0 = time.perf_counter()
+    parallel = parallel_phase(dev, sync, card)
+    print(f"[phase 14] parallel in {time.perf_counter() - t0:.1f} s")
+
+    # -- 15. report -----------------------------------------------------------
     # K1 (and under --fuse_up all K9) runs on the one pass, the other
     # generation kernels on the raster
     gen_launches = {label: {k: (one if k in ("conv3x3_chw", "upconv3x3_chw") else raster)[k]
@@ -4533,6 +4819,14 @@ def main() -> int:
     paths += [(TRAIN_PATHS[tail][0], f":train_{tail}", [k for k, v in want.items() if v],
                tstats[tail], runs[tail][0], TRAIN_PATHS[tail][1])
               for tail, want in STEP_LAUNCHES.items()]
+    # phase 14's paths run the shapes of the train_auto and raster rows:
+    # their times, with the path's own launches
+    paths += [("mesh step data:1 (NCCL, graphed)", ":mesh_step",
+               [k for k, v in STEP_LAUNCHES["auto"].items() if v], tstats["auto"],
+               parallel["mesh"], TRAIN_PATHS["auto"][1] + " (world size 1)"),
+              ("wavefront data:1", ":wavefront", [k for k, v in GEN_PER_SUB["flagship"].items()
+                                                  if v], stats, parallel["wavefront"],
+               "per 384^2 sub-image")]
     for path, suffix, names, table_, counts, per in paths:
         for name in names:
             tag, src, site = KERNELS[name]

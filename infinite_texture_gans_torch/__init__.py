@@ -4,7 +4,8 @@ A second package beside ``infinite_texture_gans_tpu`` (the JAX reference,
 which this package never imports). The module layout mirrors the reference
 so each module's counterpart is easy to find: ``ops/`` (grid, padding,
 convolutions and the hand-written CUDA kernels of ``csrc/``), ``models/``,
-``sampling/``, ``data/``, ``train/``, ``config.py`` and ``sample.py``.
+``sampling/``, ``data/``, ``train/``, ``parallel/``, ``config.py`` and
+``sample.py``.
 
 This package ports the generation path (a trained checkpoint is loaded,
 rebuilt as an eval-mode generator and run through the halo-cache raster
@@ -20,7 +21,11 @@ written back by ``sample --export_pth`` (``utils/torch_import.py``,
 watchdog and the texture-quality metrics, and ``models/discriminator.py``
 the reference's discriminator zoo. On the card both paths issue CUDA graphs
 (``ops/graphs.py``): the train loop replays a captured step, the raster
-engine a captured canvas row of each kind met more than once. Entry points run on ``cuda`` unless the
+engine a captured canvas row of each kind met more than once. ``parallel/``
+runs both on several devices (one process per device on
+``torch.distributed``): data-parallel training with global BatchNorm
+statistics, and one canvas's rows pipelined across devices (the
+wavefront) or its width split over them. Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; on the CPU every kernel wrapper takes its
 plain PyTorch version, and both paths run eagerly.
 """

@@ -111,10 +111,15 @@ def prepare_parser() -> argparse.ArgumentParser:
     a("--conv_reduction", type=int, default=2,
       help="spatial reduction after the convolution (stored)")
     # devices
-    a("--num_gpus", type=int, default=1, help="number of devices (1)")
-    a("--dev_num", type=int, default=0, help="card index: --device cuda runs on cuda:<dev_num>")
+    a("--num_gpus", type=int, default=1,
+      help="number of devices: > 1 trains data-parallel, one process per device")
+    a("--dev_num", type=int, default=0,
+      help="card index of a one-device run: --device cuda runs on cuda:<dev_num>")
     a("--gpu_list", nargs="+", default=None, type=int,
-      help="device indices when num_gpus > 1 (one device)")
+      help="device indices used when num_gpus > 1")
+    a("--mesh", type=str, default=None,
+      help="device mesh spec, e.g. 'data:8' (overrides --num_gpus): data-parallel over "
+           "that many devices")
     a("--num_workers", type=int, default=0,
       help="data loader workers (ignored: crops are drawn on the device)")
     a("--fname", type=str, default="models_cp", help="folder to save checkpoints")
@@ -138,8 +143,7 @@ def prepare_parser() -> argparse.ArgumentParser:
 
 
 def check_train_args(args: argparse.Namespace) -> None:
-    """Refuse the training options the port does not implement yet (several
-    devices), flag values no model or dataset takes, and ``--chw_tail off``
+    """Refuse flag values no model or dataset takes, and ``--chw_tail off``
     (a CPU reference path) on the card. ``--D_model`` other than
     ``patch_GAN`` gets the reference's refusal: the other discriminators
     (``models/discriminator.py``) are a model zoo that the training
@@ -155,10 +159,6 @@ def check_train_args(args: argparse.Namespace) -> None:
             raise ValueError(f"--{flag} {getattr(args, flag)!r}: one of {allowed}")
     if args.disc_iters < 1:
         raise ValueError(f"--disc_iters {args.disc_iters}: at least 1")
-    if args.num_gpus > 1 or len(args.gpu_list or ()) > 1:
-        raise NotImplementedError(
-            f"--num_gpus {args.num_gpus} / --gpu_list {args.gpu_list}: data-parallel training "
-            "(the reference's parallel/) is not ported yet; the port trains on one device")
     if args.chw_tail == "off" and args.device != "cpu":
         raise ValueError(f"--chw_tail off is a CPU reference path; a {args.device} generator "
                          "runs the tail kernels")

@@ -78,8 +78,13 @@ class PatchDiscriminator(nn.Module):
         self.conv_out = Conv(nf, 1, 4, padding=1, strides=1, sn=SN)
 
     def stem_takes_chw(self, x: torch.Tensor) -> bool:
-        """The reference's ``_stem_ok_chw``: a 3-channel image of even size."""
-        return x.shape[1] == 3 and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
+        """The reference's ``_stem_ok_chw``: a 3-channel image of even size,
+        and an output width that the stem kernel's route for the compute
+        type takes (bf16's tensor cores take up to
+        ``kernels.STEM_TC_MAX_CO`` = 512 channels: a wider ``--D_ch`` runs
+        conv0 NHWC, as the reference falls back there)."""
+        return (x.shape[1] == 3 and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
+                and kernels.stem_chw_takes(self.dtype, self.conv0.weight.shape[0]))
 
     def forward(self, x: torch.Tensor, update_sn: bool = False, chw_in: bool = False,
                 train: Optional[bool] = None):

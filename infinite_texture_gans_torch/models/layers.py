@@ -26,7 +26,11 @@ channels-major (N, C, H, W) for the small-channel tail, where the BN fold
 and ReLU run inside the conv kernels of ``ops/kernels.py`` and the SSM
 gamma|beta come from K15 (``ops/ssm.py``). In training the tail's norms
 take their batch moments from the producing kernel's per-channel sums
-(``stats`` = (Σy, Σy², count)), as the reference's do.
+(``stats`` = (Σy, Σy², count)), as the reference's do; every train-mode
+BatchNorm takes its moments from such sums, which a data-parallel step
+all-reduces over its ranks (``ops/collectives.py: global_stats``). Under
+``collectives.width_halo`` (the width-sharded one pass) every 3x3
+:class:`ConvLP` reads one column of each neighbouring rank's slab.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from infinite_texture_gans_torch.ops import kernels, ssm
+from infinite_texture_gans_torch.ops import collectives, kernels, ssm
 from infinite_texture_gans_torch.ops.conv import conv1x1, conv3x3, ssm_embed_init_
 from infinite_texture_gans_torch.ops.grid import grid_to_patches, patches_to_grid
 from infinite_texture_gans_torch.ops.padding import GridPos, SiteState, halo_pad_step, local_pad
@@ -53,6 +57,18 @@ def activation_fn(leak: float) -> Callable[[torch.Tensor], torch.Tensor]:
 
 # (Σy, Σy², count) of a producer's stored output: a BatchNorm's batch moments
 Stats = Tuple[torch.Tensor, torch.Tensor, int]
+
+
+def _sums(x: torch.Tensor, dims) -> Stats:
+    """(Σx, Σx², count) per channel over ``dims``, in float32: the form a
+    BatchNorm's moments take on every path, so that the data axis's
+    all-reduce of them (``ops/collectives.py``) is the only difference
+    between one device and several."""
+    xf = x.float()
+    cnt = 1
+    for d in dims:
+        cnt *= x.shape[d]
+    return xf.sum(dim=dims), (xf * xf).sum(dim=dims), cnt
 
 
 class StatsBN(nn.Module):
@@ -83,24 +99,22 @@ class StatsBN(nn.Module):
         """Train-mode (mean, var) of a channels-major input, float32: from the
         producer's ``stats`` (which may come from before a nearest-2x
         upsample: mean and E[x²] are unchanged by it) or, without them, from
-        ``x_chw`` itself; updates the running statistics."""
-        if stats is not None:
-            s1, s2, cnt = stats
-            m = s1 / cnt
-            v = s2 / cnt - m * m
-        else:
-            xf = x_chw.float()
-            m = xf.mean(dim=(0, 2, 3))
-            v = (xf * xf).mean(dim=(0, 2, 3)) - m * m
+        ``x_chw``'s own sums; over every rank under
+        ``collectives.global_stats``. Updates the running statistics."""
+        if stats is None:
+            stats = _sums(x_chw, (0, 2, 3))
+        s1, s2, cnt = collectives.global_sums(*stats)
+        m = s1 / cnt
+        v = s2 / cnt - m * m
         self._update_running(m, v)
         return m, v
 
     def _nhwc_moments(self, x: torch.Tensor, train: Optional[bool] = None):
         if not (self.training if train is None else train):
             return self.mean.float(), self.var.float()
-        xf = x.float()
-        m = xf.mean(dim=(0, 1, 2))
-        v = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - m * m, min=0.0)
+        s1, s2, cnt = collectives.global_sums(*_sums(x, (0, 1, 2)))
+        m = s1 / cnt
+        v = torch.clamp(s2 / cnt - m * m, min=0.0)
         self._update_running(m, v)
         return m, v
 
@@ -245,6 +259,13 @@ class ConvLP(nn.Module):
     def forward(self, x: torch.Tensor, halo: Optional[SiteState] = None,
                 pos: Optional[GridPos] = None, *, grid: tuple[int, int] = (3, 3),
                 chw_fold=None, fuse_up: bool = False, update_sn: bool = False):
+        if halo is None and not self.pre_padded and collectives.current_width_halo() is not None:
+            if self.zeros:
+                raise ValueError("the width-sharded one pass needs padding_mode='local'")
+            body = lambda t: self.forward(t, grid=grid, chw_fold=chw_fold,  # noqa: E731
+                                          fuse_up=fuse_up, update_sn=update_sn)[0]
+            dim = 3 if chw_fold is not None else 2
+            return collectives.halo_exchanged(body, x, dim, scale=2 if fuse_up else 1), halo
         gh, gw = grid
         if chw_fold is not None:
             scale, shift, relu = chw_fold

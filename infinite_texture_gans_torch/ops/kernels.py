@@ -1809,6 +1809,14 @@ def _check_stem(x, w):
 STEM_TC_MAX_CO = 512
 
 
+def stem_chw_takes(dtype: torch.dtype, co: int) -> bool:
+    """Whether K13's route for ``dtype`` takes ``co`` output channels: the
+    bf16 tensor-core route up to STEM_TC_MAX_CO, the float32 CUDA-core route
+    any. The discriminator sends a stem that no route takes down its NHWC
+    path (``models/discriminator.py: stem_takes_chw``)."""
+    return dtype != torch.bfloat16 or co <= STEM_TC_MAX_CO
+
+
 def stem_tc_plan(c: int, co: int) -> int:
     """The number of 8-channel groups (NO, Co padded up to 8 NO) of the
     tensor-core stem forward for C input and Co output channels. Raises for

@@ -18,8 +18,12 @@ raster engine); ``--diag_lanes L`` generates the canvas L rows at a time
 canvases in one batch. A zeros-padding checkpoint (the reference's branch,
 :196-214) runs one pass on a latent of ``output_resolution_height / S``
 squared (S = 2^(n_layers_G-1)), or ``--tiles`` (``sampling/tiled.py``);
-``--stream`` then renders in memory. Runs on ``cuda`` unless ``--device
-cpu`` is given.
+``--stream`` then renders in memory. ``--mesh data:N`` generates one
+local-padding canvas with its rows pipelined over N devices
+(``parallel/wavefront.py``: one process per device, started here), in
+memory or, with ``--stream``, in slabs of ``--slab_rows`` canvas rows
+written by rank 0: the single-device canvas byte for byte. Runs on
+``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -31,6 +35,11 @@ import numpy as np
 import torch
 
 from infinite_texture_gans_torch import resolve_device
+from infinite_texture_gans_torch.parallel.mesh import current_axis, make_mesh, run_ranks
+from infinite_texture_gans_torch.parallel.wavefront import (
+    generate_canvas_wavefront,
+    generate_canvas_wavefront_streamed,
+)
 from infinite_texture_gans_torch.sampling.diag import generate_canvas_diag
 from infinite_texture_gans_torch.sampling.infinite import _to_uint8, generate_canvas
 from infinite_texture_gans_torch.sampling.stream import StreamingPNGWriter, generate_canvas_streamed
@@ -40,10 +49,6 @@ from infinite_texture_gans_torch.train.checkpoint import (
     load_generator_from_checkpoint,
 )
 from infinite_texture_gans_torch.utils.torch_export import export_generator_pth
-
-# Flags of the reference CLI whose engines are not ported yet.
-NOT_PORTED = ("mesh",)
-
 
 def prepare_sample_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -66,7 +71,12 @@ def prepare_sample_parser() -> argparse.ArgumentParser:
                         "unfused eval tail")
     p.add_argument("--tiles", action="store_true",
                    help="zeros-padding checkpoints: tiled inference (tile 32, pad 16)")
-    p.add_argument("--mesh", type=str, default=None, help="not ported yet")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="device mesh, e.g. 'data:8': the wavefront engine, the canvas's rows "
+                        "pipelined over that many devices (local-padding checkpoints, one image)")
+    p.add_argument("--slab_rows", type=int, default=8,
+                   help="--mesh with --stream: canvas rows per wavefront slab (O(slab) memory "
+                        "on every device)")
     p.add_argument("--diag_lanes", type=int, default=None,
                    help="local-padding checkpoints: generate this many canvas rows per "
                         "generator call (the batched-diagonal engine; needs 3+ patch columns)")
@@ -107,11 +117,31 @@ def save_batch(imgs: np.ndarray, saving_path: str) -> None:
         print("The image is saved as:", path)
 
 
+def _mesh_rank(args_sample: argparse.Namespace) -> None:
+    """One rank of ``--mesh``: the checkpoint's generator on the rank's
+    device and the latents of the single-device run (the same seed), the
+    wavefront canvas; rank 0 writes it."""
+    device = current_axis().device
+    gen = load_generator_from_checkpoint(args_sample.model_path, device=device,
+                                         fuse_up=args_sample.fuse_up)[0]
+    rng = torch.Generator(device=device).manual_seed(
+        args_sample.seed if args_sample.seed is not None else 0)
+    path = os.path.join(os.path.dirname(args_sample.model_path), args_sample.output_name)
+    size = (args_sample.output_resolution_height, args_sample.output_resolution_width)
+    if args_sample.stream:
+        if not path.endswith(".png"):
+            path += ".png"
+        generate_canvas_wavefront_streamed(gen, rng, *size, path, slab_rows=args_sample.slab_rows,
+                                           progress=True)
+        print("The image is saved as:", path)
+        return
+    img_u8 = generate_canvas_wavefront(gen, rng, *size, wire="u8", progress=True)
+    if img_u8 is not None:
+        save_batch(img_u8, path)
+
+
 def main(argv=None) -> None:
     args_sample = prepare_sample_parser().parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args_sample, flag):
-            raise SystemExit(f"--{flag} is not ported to the PyTorch package yet")
     device = resolve_device(args_sample.device)
     ckpt = load_checkpoint(args_sample.model_path)
     # an export keeps the stored flags as they are
@@ -126,6 +156,22 @@ def main(argv=None) -> None:
                              seed=meta.get("seed"), d_variables=ckpt.get("netD_variables"),
                              d_norm_layer=getattr(args, "norm_layer_D", None))
         print("Exported reference .pth checkpoint:", args_sample.export_pth)
+        return
+    mesh = None
+    if args_sample.mesh:
+        if args.padding_mode != "local":
+            print("Warning: --mesh requires a local-padding checkpoint (the wavefront pipelines "
+                  "the halo protocol); generating single-device")
+        else:
+            mesh = make_mesh(args_sample.mesh, device=device.type)
+            if mesh is None:
+                print(f"Warning: --mesh {args_sample.mesh} resolves to a single device; "
+                      "generating with the single-device engine")
+    if mesh is not None:
+        if args_sample.batch > 1:
+            print("Warning: --mesh generates a single image; ignoring --batch")
+        print(f"mesh: data:{mesh.size} on {', '.join(mesh.devices)} ({mesh.backend})")
+        run_ranks(_mesh_rank, mesh, (args_sample,))
         return
     seed = args_sample.seed if args_sample.seed is not None else 0
     rng = torch.Generator(device=device).manual_seed(seed)

@@ -3,8 +3,9 @@
 Port of ``infinite_texture_gans_tpu/sampling/diag.py``. Sub-image (r, c)
 of the raster needs the halo written by (r, c-1) and, two steps ahead of
 it, by row r-1, so rows can advance together on a staggered schedule: the
-v3 cyclic wavefront of the reference's multi-device engine
-(:func:`schedule_constants`), here with its devices as ``lanes`` of one
+v3 cyclic wavefront of the multi-device engine
+(``parallel/wavefront.py``: :func:`schedule_constants` and
+:func:`lane_schedule`, shared), here with its devices as ``lanes`` of one
 batch. Each generator call runs L canvas rows at once, N = L x
 ``num_images``, so the convolutions of a canvas run at batch N where the
 raster runs them at ``num_images``, in about ceil(steps_h / L) x steps_w
@@ -28,7 +29,6 @@ in float32 (``tests/test_torch_diag.py``). The engine runs eagerly.
 
 from __future__ import annotations
 
-from math import ceil
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -36,48 +36,9 @@ import torch
 
 from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
 from infinite_texture_gans_torch.ops.padding import LanePos, finalize_row, init_halo_state
+from infinite_texture_gans_torch.parallel.wavefront import lane_schedule, schedule_constants  # noqa: F401
 from infinite_texture_gans_torch.sampling import latents
 from infinite_texture_gans_torch.sampling.infinite import _paint_row, canvas_latents
-
-
-def schedule_constants(steps_w: int, steps_h: int, lanes: int):
-    """(row_stride, total_T, n_rows_max) of the v3 cyclic wavefront
-    schedule (the reference's ``parallel/wavefront.py: schedule_constants``):
-    row r starts at step ``2 * (r % lanes) + (r // lanes) * row_stride``,
-    and lane r % lanes runs it."""
-    row_stride = max(2 * lanes, steps_w)
-    last = steps_h - 1
-    total_T = 2 * (last % lanes) + (last // lanes) * row_stride + steps_w
-    return row_stride, total_T, ceil(steps_h / lanes)
-
-
-def lane_schedule(steps_w: int, steps_h: int, lanes: int) -> Dict[str, np.ndarray]:
-    """The whole schedule as (total_T, lanes) arrays: each lane's row ``r``
-    and column ``c`` (clipped to the canvas: ``rr``, ``cc``), ``active``
-    (a real sub-image), ``start`` (its row's first column), and
-    ``accept_cur`` / ``accept_pend``: after the step, the lane takes the
-    upstream lane's finished row buffer into its current row's
-    ``row_read`` / into ``pending`` for its next row."""
-    stride, total_T, n_rows = schedule_constants(steps_w, steps_h, lanes)
-    t = np.arange(total_T)[:, None]
-    d = np.arange(lanes)[None, :]
-
-    def at(lane):
-        u = t - 2 * lane
-        i = np.floor_divide(u, stride)
-        c = u - i * stride
-        r = i * lanes + lane
-        return i, c, r, (i >= 0) & (c < steps_w) & (r < steps_h)
-
-    i, c, r, active = at(d)
-    _, _, r_s, sender_active = at((d - 1) % lanes)  # the upstream lane
-    return {
-        "r": r, "c": c, "active": active, "start": active & (c == 0),
-        "rr": np.minimum(np.clip(i, 0, n_rows - 1) * lanes + d, steps_h - 1),
-        "cc": np.clip(c, 0, steps_w - 1),
-        "accept_cur": sender_active & active & (r_s == r - 1),
-        "accept_pend": sender_active & (r_s == (i + 1) * lanes + d - 1),
-    }
 
 
 @torch.no_grad()

@@ -174,20 +174,27 @@ class RasterRow:
             site.row_read.copy_(s.row_write)
             site.row_write.zero_()
 
+    def sub_image(self, c: int, first_row: bool, halo):
+        """Sub-image ``c`` of the loaded row from the cache ``halo``:
+        (its image, the updated cache). The wavefront engine
+        (``parallel/wavefront.py``) steps a row through it one sub-image at
+        a time."""
+        gen, gw, base = self.gen, self.gen.num_patches_w, self.gen.base_res
+        c0 = c * (gw - 1) * base
+        z_sub = self.z[:, :, c0 : c0 + gw * base + latents.Z_PAD]
+        maps_sub = None
+        if self.maps is not None:
+            maps_sub = [m[:, :, c * (gw - 1) * (2**i) * base :
+                          c * (gw - 1) * (2**i) * base + gw * (2**i) * base + latents.MAP_PAD]
+                        for i, m in enumerate(self.maps)]
+        return gen(z_sub, maps_sub, halo=halo, pos=GridPos(c, first_row, c == 0))
+
     @torch.no_grad()
     def run(self, first_row: bool) -> torch.Tensor:
-        gen, gw, base = self.gen, self.gen.num_patches_w, self.gen.base_res
         halo = dict(self.halo)
         subs = []
         for c in range(self.steps_w):
-            c0 = c * (gw - 1) * base
-            z_sub = self.z[:, :, c0 : c0 + gw * base + latents.Z_PAD]
-            maps_sub = None
-            if self.maps is not None:
-                maps_sub = [m[:, :, c * (gw - 1) * (2**i) * base :
-                              c * (gw - 1) * (2**i) * base + gw * (2**i) * base + latents.MAP_PAD]
-                            for i, m in enumerate(self.maps)]
-            out, halo = gen(z_sub, maps_sub, halo=halo, pos=GridPos(c, first_row, c == 0))
+            out, halo = self.sub_image(c, first_row, halo)
             subs.append(out)
         self._store_halo(halo)
         return torch.stack(subs)

@@ -45,8 +45,17 @@ one copied in ahead on a side stream), or, where neither fits (or
 epoch count ``len(dataset)``, and G's and D's image channels are the
 stack's.
 
-Not ported yet: meshes. Runs on ``cuda`` (``cuda:<dev_num>``) unless
-``--device cpu`` is given.
+``--mesh data:N`` (or ``--num_gpus N``, on the cards of ``--gpu_list``)
+trains data-parallel (``parallel/mesh.py``): ``train`` starts one process
+per device (NCCL between cards, gloo between CPU processes), each rank
+draws the global batch from the same generator and takes its slice, and
+the step (``train_step.fused_step``) equals the step on the global batch:
+global BatchNorm moments, gradients averaged before each Adam step, the
+global losses. Rank 0 alone prints, plots and saves; the seed is rank 0's.
+A gloo group on the card steps eagerly; an NCCL group captures its
+collectives in the step's CUDA graph.
+
+Runs on ``cuda`` (``cuda:<dev_num>``) unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from infinite_texture_gans_torch import resolve_device
 from infinite_texture_gans_torch.config import check_train_args, prepare_parser, train_device
@@ -71,6 +81,7 @@ from infinite_texture_gans_torch.data.datasets import (
     SingleImageDataset,
     prepare_data,
 )
+from infinite_texture_gans_torch.parallel.mesh import current_axis, make_mesh, run_ranks
 from infinite_texture_gans_torch.train.checkpoint import (
     AsyncCheckpointer,
     load_checkpoint,
@@ -79,6 +90,7 @@ from infinite_texture_gans_torch.train.checkpoint import (
 from infinite_texture_gans_torch.train.train_step import (
     StepDispatch,
     TrainState,
+    check_data_parallel,
     create_train_state,
     dispatch_chunks,
     dispatch_plan,
@@ -179,6 +191,13 @@ def plot_losses(G_losses, D_losses, filename: str) -> None:
     plt.close(fig)
 
 
+def _train_rank(args: argparse.Namespace):
+    """One rank of a data-parallel run: its losses (every rank's are the
+    same global ones)."""
+    _, G_losses, D_losses = train(args)
+    return G_losses, D_losses
+
+
 def train(args: argparse.Namespace,
           step_callback: Optional[Callable[[int, int, Dict[str, torch.Tensor]], None]] = None,
           saver: Optional[AsyncCheckpointer] = None):
@@ -186,9 +205,28 @@ def train(args: argparse.Namespace,
     ``step_callback(epoch, i, metrics)`` runs after every step; ``metrics``
     holds the step's losses until the next step overwrites them. ``saver``
     writes the checkpoints (a new ``AsyncCheckpointer`` by default); every
-    save is on disk when ``train`` returns or raises."""
+    save is on disk when ``train`` returns or raises. A data-parallel run
+    (``--mesh`` / ``--num_gpus`` > 1) called outside its ranks starts them
+    (:func:`parallel.mesh.run_ranks`), takes neither ``step_callback`` nor
+    ``saver``, and returns (None, G_losses, D_losses): the state lives in
+    the ranks, and its checkpoints on disk."""
     check_train_args(args)
-    device = resolve_device(train_device(args))
+    mesh = make_mesh(getattr(args, "mesh", None), args.num_gpus, args.gpu_list,
+                     device=args.device)
+    axis = current_axis() if mesh is not None else None
+    if mesh is not None:
+        check_data_parallel(args, mesh.size)
+        if axis is None:
+            if step_callback is not None or saver is not None:
+                raise ValueError("a data-parallel run takes no step_callback or saver: its "
+                                 "ranks are processes of their own")
+            print(f"mesh: data:{mesh.size} on {', '.join(mesh.devices)} ({mesh.backend})")
+            G_losses, D_losses = run_ranks(_train_rank, mesh, (args,))[0]
+            return None, G_losses, D_losses
+        device = axis.device
+    else:
+        device = resolve_device(train_device(args))
+    lead = axis is None or axis.rank == 0  # the rank that saves and plots
     if args.num_workers:
         print("Warning: --num_workers is ignored: batches are sampled on the device, and the "
               "host prefetcher is one thread")
@@ -202,6 +240,8 @@ def train(args: argparse.Namespace,
             print(f"--resume: restored the run's seed {args.seed} from the checkpoint "
                   "(deterministic resume; pass --seed to override)")
     seed = args.seed if args.seed is not None else random.randint(1, 10000)
+    if axis is not None:
+        seed = axis.broadcast_object(seed)
     print("Random Seed: ", seed)
     print(args)
     dataset = prepare_data(args)
@@ -217,7 +257,7 @@ def train(args: argparse.Namespace,
     plan = dispatch_plan(steps_per_epoch, 128 if spd == 0 else spd)
     chunks = dispatch_chunks(steps_per_epoch, plan)
     rotating = isinstance(sampler, RotatingMultiImageSampler)
-    state = create_train_state(args, steps_per_epoch, device, seed)
+    state = create_train_state(args, steps_per_epoch, device, seed, axis=axis)
     G_losses, D_losses = [], []
     start_epoch = 0
     if resume_ckpt is not None:
@@ -228,7 +268,9 @@ def train(args: argparse.Namespace,
         print(f"Resumed from {args.resume} at epoch {start_epoch}")
     print("# Params. G: ", sum(p.numel() for p in state.G.parameters()))
     print("# Params. D: ", sum(p.numel() for p in state.D.parameters()))
-    graphed = device.type == "cuda" and plan[0] > 1
+    # a gloo group's collectives cannot be captured: it steps eagerly
+    graphed = device.type == "cuda" and plan[0] > 1 and (
+        axis is None or dist.get_backend(axis.group) == "nccl")
     if plan[0] > 1:
         print(f"steps per dispatch: {plan[0]}"
               + (f" (+ one {plan[1]}-step remainder chunk)" if plan[1] else "")
@@ -238,7 +280,7 @@ def train(args: argparse.Namespace,
     saver = saver if saver is not None else AsyncCheckpointer()
     filename = prepare_filename(args)
     profiler = None
-    if args.profile_dir:
+    if args.profile_dir and lead:
         os.makedirs(args.profile_dir, exist_ok=True)
         acts = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
@@ -287,6 +329,8 @@ def train(args: argparse.Namespace,
             G_losses.append(g_run)
             D_losses.append(d_run)
             last = epoch + 1 == args.epochs
+            if not lead:
+                continue
             if args.saving_rate is not None and ((epoch + 1) % args.saving_rate == 0 or last):
                 saver.submit(filename + f"{epoch + 1}.ckpt",
                              checkpoint_payload(state, args, epoch + 1, seed, G_losses, D_losses))

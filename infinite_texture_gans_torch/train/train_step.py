@@ -36,6 +36,14 @@ an eager step and a replay of a captured one run the same arithmetic.
 The train loop dispatches steps in chunks of K (``dispatch_plan``, the
 reference's superstep, :406-530): :class:`StepDispatch` runs one step
 with its draws, eagerly or as a replay of a captured CUDA graph.
+
+Data-parallel (a :class:`TrainState` with an ``axis``, the reference's
+mesh step :234-252): every rank draws the global batch, takes its slice,
+normalises with the global batch's BatchNorm moments, averages the
+gradients before each Adam step and returns the global losses, so the
+ranks stay equal and the step equals the one-device step on the global
+batch (:func:`fused_step`; :func:`check_data_parallel` refuses the flags
+that cannot be split so).
 """
 
 from __future__ import annotations
@@ -51,7 +59,9 @@ import torch
 from infinite_texture_gans_torch.config import discriminator_kwargs, generator_kwargs
 from infinite_texture_gans_torch.models.discriminator import PatchDiscriminator
 from infinite_texture_gans_torch.models.generator import ResidualPatchGenerator
+from infinite_texture_gans_torch.ops import collectives
 from infinite_texture_gans_torch.ops.graphs import CountedGraph, on_side_stream
+from infinite_texture_gans_torch.parallel.mesh import DataAxis, replicate
 from infinite_texture_gans_torch.sampling.latents import build_train_maps, build_train_z
 from infinite_texture_gans_torch.train import losses as L
 from infinite_texture_gans_torch.weights import jax_tree
@@ -117,6 +127,7 @@ class TrainState:
     sched_D: Schedule
     ema: Optional[Dict[str, torch.Tensor]]  # G's params and BN statistics (ema_state)
     step: int = 0
+    axis: Optional[DataAxis] = None  # the data axis of a data-parallel run (parallel/mesh.py)
 
 
 class Draw(NamedTuple):
@@ -165,10 +176,13 @@ def make_optimizers(G, D, args: argparse.Namespace):
 
 
 def create_train_state(args: argparse.Namespace, steps_per_epoch: int, device,
-                       seed: int = 0) -> TrainState:
+                       seed: int = 0, axis: Optional[DataAxis] = None) -> TrainState:
     """Models from the training flags, initialised from ``seed`` on the CPU
     (the reference's initializers, other random numbers) and moved to
-    ``device`` in train mode; Adam states; an EMA snapshot when ``--ema``."""
+    ``device`` in train mode; Adam states; an EMA snapshot when ``--ema``.
+    With ``axis`` (a rank of a data-parallel run) the state is rank 0's on
+    every rank (:func:`replicate_state`) and its steps are data-parallel
+    (:func:`fused_step`)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         G = ResidualPatchGenerator(**generator_kwargs(args))
@@ -178,9 +192,47 @@ def create_train_state(args: argparse.Namespace, steps_per_epoch: int, device,
     ema = None
     if args.ema:
         ema = {k: v.detach().clone() for k, v in ema_state(G).items()}
-    return TrainState(G, D, opt_G, opt_D,
-                      lr_schedule(args.lr_G, args.decay_lr, steps_per_epoch),
-                      lr_schedule(args.lr_D, args.decay_lr, steps_per_epoch), ema)
+    state = TrainState(G, D, opt_G, opt_D,
+                       lr_schedule(args.lr_G, args.decay_lr, steps_per_epoch),
+                       lr_schedule(args.lr_D, args.decay_lr, steps_per_epoch), ema, axis=axis)
+    replicate_state(state)
+    return state
+
+
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor a step reads and writes: both models' parameters and
+    buffers, both Adam states and the EMA, in a fixed order."""
+    out = [*state.G.state_dict().values(), *state.D.state_dict().values()]
+    for module, opt in ((state.G, state.opt_G), (state.D, state.opt_D)):
+        for p in module.parameters():
+            out += [opt.state[p][k] for k in sorted(opt.state[p])]
+    return out + list((state.ema or {}).values())
+
+
+def replicate_state(state: TrainState) -> None:
+    """Rank 0's parameters, statistics, Adam states and EMA on every rank of
+    ``state.axis`` (a broadcast; nothing without an axis). The ranks then
+    stay equal: every rank applies the same averaged gradients."""
+    if state.axis is not None:
+        replicate(state_tensors(state), state.axis)
+
+
+def check_data_parallel(args: argparse.Namespace, size: int) -> None:
+    """Refuse the flags whose step cannot be split over ``size`` ranks so
+    that it equals the step on the global batch: a ``--batch_size`` the
+    ranks do not divide, and the WGAN-GP penalty unless its interpolates
+    pair each rank's own real and fake images (the penalty pairs the first
+    min(batch_size, num_images) of each global batch: equal batches, split
+    alike)."""
+    if args.batch_size % size:
+        raise ValueError(f"--batch_size {args.batch_size} does not split over {size} ranks")
+    if args.loss == "wgan" and args.gp_weight > 0 and not (
+            args.num_images == args.batch_size and args.num_images % size == 0):
+        raise ValueError(
+            f"--gp_weight {args.gp_weight} on {size} ranks: the gradient penalty pairs the first "
+            f"min(--batch_size, --num_images) real and fake images of the global batch, which "
+            f"splits over the ranks only with --num_images equal to --batch_size "
+            f"({args.num_images} vs {args.batch_size})")
 
 
 def set_lr(state: TrainState) -> None:
@@ -202,21 +254,47 @@ def fused_step(state: TrainState, real_x: torch.Tensor, draws: Sequence[Draw], *
                ema_decay: float = 0.999, use_ema: bool = False) -> Dict[str, torch.Tensor]:
     """The device work of one step (:func:`train_step` without the
     learning-rate write and the step count): what a captured step holds.
-    One D iteration per entry of ``draws``."""
+    One D iteration per entry of ``draws``.
+
+    Data-parallel (``state.axis``): ``real_x`` and ``draws`` are the global
+    batch's, and each rank takes its slice of the crops and, where
+    ``num_images`` splits (``DataAxis.shards``), of the latents, maps and
+    penalty weights; otherwise every rank computes every fake. The
+    BatchNorms of a sharded batch take global moments
+    (``collectives.global_stats``), each Adam step follows a mean of the
+    ranks' gradients (``collectives.average_grads``: each rank's backward
+    already carries the other ranks' BatchNorm terms through the moments'
+    all-reduce), and the losses returned are the global batch's."""
     G, D = state.G, state.D
     label_t = 0.9 if smooth else 1.0
     wire = G.emits_chw() and G.img_ch == 3 and loss_type != "wgan"
     penalty = loss_type == "wgan" and gp_weight > 0
     G.train()
     D.train()
+    axis = state.axis
+    group = g_group = None
+    if axis is not None:
+        group = axis.group
+        real_x = axis.shard(real_x)
+        if axis.shards(draws[0].z.shape[0]):
+            g_group = group
+            draws = [Draw(axis.shard(d.z),
+                          None if d.maps is None else [axis.shard(m) for m in d.maps],
+                          None if d.eps is None else axis.shard(d.eps)) for d in draws]
+
+    def reduce_grads(module):
+        if group is not None:
+            collectives.average_grads(module.parameters(), group)
 
     loss_real = loss_fake = None
     for it, d in enumerate(draws):
         last = it == len(draws) - 1
-        with torch.set_grad_enabled(last):
+        with torch.set_grad_enabled(last), collectives.global_stats(g_group):
             fake, _ = G(d.z, d.maps, out_chw=wire, update_sn=True)
-        rl = D(real_x, update_sn=True)
-        fl = D(fake.detach(), update_sn=True, chw_in=wire)
+        with collectives.global_stats(group):
+            rl = D(real_x, update_sn=True)
+        with collectives.global_stats(g_group):
+            fl = D(fake.detach(), update_sn=True, chw_in=wire)
         lr_ = L.d_loss_real(loss_type, rl, label_t)
         lf_ = L.d_loss_fake(loss_type, fl, 0.0)
         total = lr_ + lf_
@@ -227,6 +305,7 @@ def fused_step(state: TrainState, real_x: torch.Tensor, draws: Sequence[Draw], *
             total = total + gp_weight * gp
         state.opt_D.zero_grad(set_to_none=True)
         total.backward()
+        reduce_grads(D)
         _adam_step(state.opt_D)
         loss_real = lr_.detach() if loss_real is None else loss_real + lr_.detach()
         loss_fake = lf_.detach() if loss_fake is None else loss_fake + lf_.detach()
@@ -234,19 +313,26 @@ def fused_step(state: TrainState, real_x: torch.Tensor, draws: Sequence[Draw], *
     # the updated D on the stored fake: gradients for the image only
     D.requires_grad_(False)
     try:
-        logit = D(fake, update_sn=True, chw_in=wire)
+        with collectives.global_stats(g_group):
+            logit = D(fake, update_sn=True, chw_in=wire)
     finally:
         D.requires_grad_(True)
     loss_g = L.g_loss(loss_type, logit, label_t)
     state.opt_G.zero_grad(set_to_none=True)
     loss_g.backward()
+    reduce_grads(G)
     _adam_step(state.opt_G)
 
     if use_ema:
         with torch.no_grad():
             for k, v in ema_state(G).items():
                 state.ema[k].copy_(state.ema[k] * ema_decay + v * (1.0 - ema_decay))
-    return {"d_loss_real": loss_real, "d_loss_fake": loss_fake, "g_loss": loss_g.detach()}
+    losses = {"d_loss_real": loss_real, "d_loss_fake": loss_fake, "g_loss": loss_g.detach()}
+    if group is not None:  # the global batch's: the mean of the ranks' equal slices
+        summed = torch.stack(list(losses.values()))
+        torch.distributed.all_reduce(summed, group=group)
+        losses = dict(zip(losses, (summed / axis.size).unbind()))
+    return losses
 
 
 def train_step(state: TrainState, real_x: torch.Tensor, z, maps=None, *, eps=None,

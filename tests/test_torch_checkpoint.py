@@ -126,5 +126,5 @@ def test_sample_cli_writes_png(tmp_path):
                            num_images=2, wire="u8")
     for k, img in enumerate(imgs):
         np.testing.assert_array_equal(img, want[k])
-    with pytest.raises(SystemExit):  # not ported: the multi-card wavefront
+    with pytest.raises(ValueError, match="unsupported mesh axis"):  # the reference's error
         sample.main(["--model_path", ckpt, "--device", "cpu", "--mesh", "1"])

@@ -15,6 +15,7 @@ from infinite_texture_gans_torch.config import (
     prepare_parser,
     train_device,
 )
+from infinite_texture_gans_torch.parallel import make_mesh
 from infinite_texture_gans_torch.sampling.infinite import generate_canvas
 from infinite_texture_gans_torch.sampling.stream import read_png
 from infinite_texture_gans_torch.train import checkpoint, train_loop
@@ -83,7 +84,10 @@ def test_train_cli_takes_reference_flags(texture, tmp_path, capsys):
     """The README's recipe with each of the reference's ten flags parses
     (``--resize_h/--resize_w`` too: a single image takes no resize, as in
     the reference); a one-step run stores them in the checkpoint's
-    ``meta.args``; more than one device refuses; ``--dev_num`` picks the
+    ``meta.args``; more than one device passes the checks and makes a
+    data-parallel mesh (``--num_gpus 2``; ``--gpu_list`` alone keeps one
+    device, as the reference's does: tests/test_torch_parallel.py runs
+    them); ``--dev_num`` picks the
     card; ``--num_workers`` warns; the multi-image recipe passes the
     checks."""
     extra = [x for flag, (v, _) in REFERENCE_FLAGS.items() for x in (f"--{flag}", v)]
@@ -96,9 +100,12 @@ def test_train_cli_takes_reference_flags(texture, tmp_path, capsys):
     check_train_args(multi)
     assert (multi.data, multi.resize_h, multi.resize_w) == ("multiple_images", 450, 600)
     assert train_device(args) == "cuda:1" and generator_kwargs(args)["chw_tail"] == "auto"
-    for bad in (["--num_gpus", "2"], ["--gpu_list", "0", "1"]):
-        with pytest.raises(NotImplementedError):
-            check_train_args(prepare_parser().parse_args(README_RECIPE + bad))
+    for several, size in ((["--num_gpus", "2"], 2), (["--gpu_list", "0", "1"], None),
+                          (["--num_gpus", "2", "--gpu_list", "0", "1"], 2)):
+        a = prepare_parser().parse_args(README_RECIPE + several)
+        check_train_args(a)
+        mesh = make_mesh(a.mesh, a.num_gpus, a.gpu_list, device="cpu")
+        assert (mesh.size if mesh else None) == size
     out = tmp_path / "run"
     train_loop.main(TINY + extra + ["--data_path", texture, "--data_ext", "png", "--sampling", "2",
                                     "--seed", "1", "--saving_rate", "1", "--fname", str(out)])

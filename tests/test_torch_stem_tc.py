@@ -139,6 +139,28 @@ def test_stem_tc_max_co_matches_kernel():
     assert found and int(found.group(1)) == tk.STEM_TC_MAX_CO
 
 
+@pytest.mark.parametrize("dtype, d_ch, chw", [(torch.bfloat16, 512, True),
+                                               (torch.bfloat16, 640, False),
+                                               (torch.float32, 640, True)])
+def test_discriminator_stem_gate_takes_the_route_limit(dtype, d_ch, chw):
+    """The discriminator sends a channels-major fake to K13 only where the
+    stem's route for its compute type takes conv0's width: bf16's tensor
+    cores up to STEM_TC_MAX_CO (so ``train --D_ch 640 --compute_dtype
+    bfloat16`` runs conv0 NHWC through one transpose, as the reference's
+    ``_stem_ok_chw`` falls back), float32's CUDA cores any. Where the gate
+    says NHWC, D on the channels-major fake equals D on its NHWC
+    transpose."""
+    from infinite_texture_gans_torch.models.discriminator import PatchDiscriminator
+
+    D = PatchDiscriminator(base_ch=d_ch, n_layers_D=2, dtype=dtype)
+    x = torch.from_numpy(_case(9, 2, 3, 16, 16, 8)[0])
+    assert D.stem_takes_chw(x) == chw
+    assert tk.stem_chw_takes(dtype, d_ch) == chw
+    if not chw:
+        with torch.no_grad():
+            assert torch.equal(D(x, chw_in=True), D(x.permute(0, 2, 3, 1)))
+
+
 def test_stem_fwd_on_cpu_takes_plain_version():
     """A CPU tensor runs the plain version, in either dtype, and counts no
     launch on either route."""

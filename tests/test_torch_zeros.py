@@ -99,8 +99,10 @@ def test_generator_eval_matches_jax(g_case):
 
 def test_generator_train_forward_matches_jax(g_case):
     """Train mode (batch statistics): the image and the updated running
-    statistics, for BN and SSM."""
-    norm, gen, v, port, rng = g_case
+    statistics, for BN and SSM. The inputs are the test's own draw, so they
+    do not depend on which tests of the module ran before it."""
+    norm, gen, v, port, _ = g_case
+    rng = np.random.default_rng(5)
     z = rng.standard_normal((2, 4, 4, 16)).astype(np.float32)
     maps = _maps(rng, 2, 4, 4, 4) if norm == "SSM" else None
     (img, _), new = gen.apply(v, jnp.asarray(z),
