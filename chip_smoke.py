@@ -256,7 +256,12 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    an SN refresh and a backward on the card: float64 held to the CPU within
    ZOO_TOL, float32 (TF32 off) to the CPU's float64 within ZOO_F32_TOL by
    the gradients' median over ZOO_DRAWS input draws, beside the CPU's own
-   float32 and a TF32 control.
+   float32 and a TF32 control. ``[api]`` (``api_phase``): every name of
+   the port's subpackage ``__all__``s imported (no JAX loaded);
+   ``crop_images`` of the flagship's 1024^2 canvas in bf16 on the card,
+   bit for bit the CPU's, windows of 256 at strides 256 and 192, the first
+   merged back by ``merge_patches_into_image`` to the canvas exactly;
+   ``calc_ralsloss_G`` on the card within API_LOSS_REL of the CPU.
 14. ``parallel/`` on the one card (``parallel_phase``): the data-parallel
    Experiment-1 ``auto`` bf16 step at world size 1 through NCCL, its
    all-reduces captured in the step's CUDA graph, GRAPH_STEPS steps
@@ -826,14 +831,15 @@ def parity_inputs(dev, argv):
     return args, real, draw_iterations(gen, args, dev)
 
 
-def run_step(dev, args, real, draws, sync, patch=contextlib.nullcontext, reference=False):
+def run_step(dev, args, real, draws, sync, patch=contextlib.nullcontext, reference=None):
     """One train step from the fixed state (seed 11) on the given inputs
     (``parity_inputs``), under the context ``patch`` (``plain_tail`` for the
     plain versions).
-    ``reference``: the step in float64 on the CPU with every block NHWC
-    (``chw_tail='off'``; the kernels' plain versions compute in float32),
-    the exact arithmetic the others are measured against. Returns (losses,
-    G grads, D grads, launches), the gradients as float32 on ``dev``."""
+    ``reference``: a dtype, the step in it on the CPU with every block NHWC
+    (``chw_tail='off'``; the kernels' plain versions compute in float32):
+    float64 is the exact arithmetic the others are measured against,
+    float32 the recipe's own rounding. Returns (losses, G grads, D grads,
+    launches), the gradients as float32 on ``dev``."""
     import torch
 
     from infinite_texture_gans_torch.ops import kernels
@@ -845,13 +851,13 @@ def run_step(dev, args, real, draws, sync, patch=contextlib.nullcontext, referen
 
     st = create_train_state(args, 1, "cpu" if reference else dev, seed=11)
     if reference:
-        st.G.double()
-        st.D.double()
-        st.G.dtype = st.D.dtype = torch.float64
+        st.G.to(reference)
+        st.D.to(reference)
+        st.G.dtype = st.D.dtype = reference
         st.G.chw_tail = "off"
         st.opt_G, st.opt_D = make_optimizers(st.G, st.D, args)
         st.ema = {k: v.detach().clone() for k, v in st.G.state_dict().items()}
-        cpu = lambda t: None if t is None else t.detach().to("cpu", torch.float64)  # noqa: E731
+        cpu = lambda t: None if t is None else t.detach().to("cpu", reference)  # noqa: E731
         real = cpu(real)
         draws = [d._replace(z=cpu(d.z), maps=None if d.maps is None else [cpu(m) for m in d.maps],
                             eps=cpu(d.eps)) for d in draws]
@@ -2666,6 +2672,62 @@ def zoo_gap(got, ref) -> tuple:
     at = max(errs, key=errs.get)
     return errs[at], at, statistics.median(v for k, v in errs.items() if k.startswith("d ")), \
         len(errs)
+
+
+API_LOSS_REL = 1e-6
+API_SUBPACKAGES = ("ops", "models", "sampling", "data", "train", "utils", "parallel")
+
+
+def api_phase(dev, canvas_u8, card) -> None:
+    """The port's public surface on the card: every subpackage's exports
+    import, ``crop_images`` / ``merge_patches_into_image`` on the flagship's
+    1024^2 canvas (bf16 on [-1, 1]) and ``calc_ralsloss_G`` against the same
+    calls on the CPU."""
+    import importlib
+
+    import torch
+
+    from infinite_texture_gans_torch.ops.grid import crop_images, merge_patches_into_image
+    from infinite_texture_gans_torch.train.losses import calc_ralsloss_G
+
+    names = 0
+    for sub in API_SUBPACKAGES:
+        pkg = importlib.import_module(f"infinite_texture_gans_torch.{sub}")
+        for name in pkg.__all__:
+            getattr(pkg, name)
+        names += len(pkg.__all__)
+    jax_mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "infinite_texture_gans_tpu"))
+    if jax_mods:
+        fail(f"[api] the port's exports loaded {jax_mods[:5]}")
+    print(f"[api] {names} names of {len(API_SUBPACKAGES)} subpackages' __all__ imported; no JAX")
+    x = torch.from_numpy(canvas_u8).to(dev).to(torch.bfloat16) / 127.5 - 1.0
+    if tuple(x.shape) != (1, 1024, 1024, 3):
+        fail(f"[api] the flagship canvas is {tuple(x.shape)}")
+    for stride, n_win in ((256, 16), (192, 25)):
+        got = crop_images(x, 256, 256, stride)
+        want = crop_images(x.cpu(), 256, 256, stride)
+        same = got.is_cuda and tuple(got.shape) == (n_win, 256, 256, 3) and torch.equal(
+            got.cpu(), want)
+        print(f"[api] crop_images(1024^2 bf16 canvas, 256, 256, {stride}): {tuple(got.shape)} "
+              f"on {got.device}, bit-equal to the CPU's {same}")
+        if not same:
+            fail(f"[api] crop_images at stride {stride} differs from the CPU's")
+        if stride == 256:
+            back = merge_patches_into_image(got, 4, 4)
+            if not torch.equal(back, x):
+                fail("[api] merge_patches_into_image(crop_images(x, 256, 256, 256), 4, 4) != x")
+            print("[api] merge_patches_into_image(crop_images(x, 256, 256, 256), 4, 4) == x")
+    gen = torch.Generator().manual_seed(5)
+    real, fake = (torch.randn(8, 1, 24, 24, generator=gen) for _ in range(2))
+    want = float(calc_ralsloss_G(real, fake))
+    got_t = calc_ralsloss_G(real.to(dev), fake.to(dev))
+    got = float(got_t)
+    rel = abs(got - want) / abs(want)
+    print(f"[api] calc_ralsloss_G (8, 1, 24, 24) f32 on {got_t.device}: {got:.8f}, CPU "
+          f"{want:.8f}, rel {rel:.3e} (limit {API_LOSS_REL:g}) [{card}]")
+    if not (got_t.is_cuda and rel <= API_LOSS_REL):
+        fail(f"[api] calc_ralsloss_G on the card {got} vs CPU {want}")
 
 
 def zoo_phase(dev, card) -> None:
@@ -4794,6 +4856,7 @@ def main() -> int:
     mfu_phase(dev, walls, card)
     quality_phase(dev, canvas, card)
     zoo_phase(dev, card)
+    api_phase(dev, canvas, card)
     print(f"[phase 13] interop in {time.perf_counter() - t0:.1f} s")
 
     # -- 14. parallel/: the data-parallel step and the wavefront on one card --

@@ -45,3 +45,21 @@ def resolve_device(device) -> torch.device:
             "False; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+#: the models, as the reference package exports them (imported at first use,
+#: so that importing the package builds no model module)
+_MODELS = {"ResidualPatchGenerator": "generator", "PatchDiscriminator": "discriminator",
+           "ResDiscriminator": "discriminator", "DCDiscriminator": "discriminator",
+           "SNDiscriminator": "discriminator"}
+
+__all__ = ["resolve_device", *_MODELS]
+
+
+def __getattr__(name):
+    if name in _MODELS:
+        import importlib
+
+        module = importlib.import_module(f"{__name__}.models.{_MODELS[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

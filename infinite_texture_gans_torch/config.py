@@ -170,6 +170,10 @@ def train_device(args: argparse.Namespace) -> str:
     return f"cuda:{args.dev_num}" if args.device == "cuda" else args.device
 
 
+def args_to_dict(args: argparse.Namespace) -> Dict[str, Any]:
+    return dict(vars(args))
+
+
 def dict_to_args(d: Dict[str, Any]) -> argparse.Namespace:
     """Namespace from a checkpoint-stored config, defaults filled in."""
     return argparse.Namespace(**{**GENERATOR_DEFAULTS, **d})

@@ -26,6 +26,30 @@ def grid_to_patches(x: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
     return x.reshape(n * gh * gw, h, w, c)
 
 
+def merge_patches_into_image(patches: torch.Tensor, num_rows: int = 3,
+                             num_cols: int = 3) -> torch.Tensor:
+    """The reference's name for :func:`patches_to_grid`."""
+    return patches_to_grid(patches, num_rows, num_cols)
+
+
+def crop_images(img: torch.Tensor, cropping_size_h: int, cropping_size_w: int,
+                stride: int) -> torch.Tensor:
+    """Sliding-window crops of (N, H, W, C) into (N*P, ch, cw, C), the
+    windows row-major within each image and allowed to overlap
+    (``stride`` below the size): one strided view of ``img``, copied once by
+    the reshape."""
+    n, _, _, c = img.shape
+    win = img.unfold(1, cropping_size_h, stride).unfold(2, cropping_size_w, stride)
+    # (N, rows, cols, C, ch, cw) -> (N, rows, cols, ch, cw, C)
+    return win.permute(0, 1, 2, 4, 5, 3).reshape(-1, cropping_size_h, cropping_size_w, c)
+
+
+def crop_image(img: torch.Tensor, cropping_size_h: int, cropping_size_w: int,
+               stride: int) -> torch.Tensor:
+    """:func:`crop_images` of one (H, W, C) image: (P, ch, cw, C)."""
+    return crop_images(img[None], cropping_size_h, cropping_size_w, stride)
+
+
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Nearest-neighbour upsample of merged NHWC activations."""
     n, h, w, c = x.shape

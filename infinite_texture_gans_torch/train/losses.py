@@ -1,7 +1,7 @@
-"""GAN losses: standard (BCE with logits), hinge and WGAN, and the WGAN-GP
-gradient penalty.
+"""GAN losses: standard (BCE with logits), hinge and WGAN, the WGAN-GP
+gradient penalty, and the relativistic-average LS loss.
 
-Port of ``infinite_texture_gans_tpu/train/losses.py`` (:17-80). Labels
+Port of ``infinite_texture_gans_tpu/train/losses.py``. Labels
 support one-sided smoothing (``--smooth``: real label 0.9, also the G
 target). The losses are taken in float32 whatever the logits' compute type.
 """
@@ -78,3 +78,9 @@ def gradient_penalty(critic: Callable[[torch.Tensor], torch.Tensor], real: torch
     (g,) = torch.autograd.grad(critic(x_hat).sum(), x_hat, create_graph=True)
     norms = torch.sqrt(g.float().square().sum(dim=(1, 2, 3)) + 1e-12)
     return (norms - 1.0).square().mean()
+
+
+def calc_ralsloss_G(real: torch.Tensor, fake: torch.Tensor, margin: float = 1.0) -> torch.Tensor:
+    """The reference's relativistic-average LS loss for G (unused by its
+    training loop; kept for parity of the components)."""
+    return ((real - fake.mean() + margin) ** 2).mean() + ((fake - real.mean() - margin) ** 2).mean()

@@ -72,7 +72,12 @@ import torch
 import torch.distributed as dist
 
 from infinite_texture_gans_torch import resolve_device
-from infinite_texture_gans_torch.config import check_train_args, prepare_parser, train_device
+from infinite_texture_gans_torch.config import (
+    args_to_dict,
+    check_train_args,
+    prepare_parser,
+    train_device,
+)
 from infinite_texture_gans_torch.data.datasets import (
     DeviceCropSampler,
     DeviceMultiImageSampler,
@@ -81,7 +86,7 @@ from infinite_texture_gans_torch.data.datasets import (
     SingleImageDataset,
     prepare_data,
 )
-from infinite_texture_gans_torch.parallel.mesh import current_axis, make_mesh, run_ranks
+from infinite_texture_gans_torch.parallel.mesh import DataAxis, current_axis, make_mesh, run_ranks
 from infinite_texture_gans_torch.train.checkpoint import (
     AsyncCheckpointer,
     load_checkpoint,
@@ -109,6 +114,19 @@ def prepare_filename(args: argparse.Namespace) -> str:
         os.makedirs(args.fname, exist_ok=True)
         filename = f"{args.fname}/{filename}"
     return filename
+
+
+def prepare_seed(args: argparse.Namespace, axis: Optional[DataAxis] = None) -> int:
+    """``--seed``, else a random one (every rank of ``axis`` takes rank 0's)."""
+    seed = args.seed if args.seed is not None else random.randint(1, 10000)
+    if axis is not None:
+        seed = axis.broadcast_object(seed)
+    print("Random Seed: ", seed)
+    return seed
+
+
+def param_count(module: torch.nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
 
 
 def reseed_epoch(rng: torch.Generator, seed: int, epoch: int) -> None:
@@ -151,7 +169,7 @@ def checkpoint_payload(state: TrainState, args: argparse.Namespace, epoch: int, 
     ``save_checkpoint`` takes them as they are)."""
     scheduled = args.decay_lr in ("exp", "step")
     return {
-        "meta": {"epoch": epoch, "args": dict(vars(args)), "seed": seed,
+        "meta": {"epoch": epoch, "args": args_to_dict(args), "seed": seed,
                  "Gloss": list(G_losses), "Dloss": list(D_losses)},
         "netG_variables": jax_tree(state.G.state_dict()),
         "netD_variables": jax_tree(state.D.state_dict()),
@@ -166,7 +184,7 @@ def ema_payload(state: TrainState, args: argparse.Namespace) -> Dict:
     """``<epochs>__ema.ckpt``: the EMA generator alone, as the reference
     writes it."""
     ema = jax_tree(state.ema)
-    return {"meta": {"args": dict(vars(args))},
+    return {"meta": {"args": args_to_dict(args)},
             "netG_variables": {"params": ema["params"], "batch_stats": ema["batch_stats"]}}
 
 
@@ -239,10 +257,7 @@ def train(args: argparse.Namespace,
             args.seed = int(ckpt_seed)
             print(f"--resume: restored the run's seed {args.seed} from the checkpoint "
                   "(deterministic resume; pass --seed to override)")
-    seed = args.seed if args.seed is not None else random.randint(1, 10000)
-    if axis is not None:
-        seed = axis.broadcast_object(seed)
-    print("Random Seed: ", seed)
+    seed = prepare_seed(args, axis)
     print(args)
     dataset = prepare_data(args)
     print("Training samples: ", len(dataset))
@@ -266,8 +281,8 @@ def train(args: argparse.Namespace,
         D_losses = list(resume_ckpt["meta"].get("Dloss", []))
         del resume_ckpt
         print(f"Resumed from {args.resume} at epoch {start_epoch}")
-    print("# Params. G: ", sum(p.numel() for p in state.G.parameters()))
-    print("# Params. D: ", sum(p.numel() for p in state.D.parameters()))
+    print("# Params. G: ", param_count(state.G))
+    print("# Params. D: ", param_count(state.D))
     # a gloo group's collectives cannot be captured: it steps eagerly
     graphed = device.type == "cuda" and plan[0] > 1 and (
         axis is None or dist.get_backend(axis.group) == "nccl")
