@@ -97,7 +97,16 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    those checks (``check_up2add_edges``). The f32 routes (K1, K6, K7,
    K9 dx, K9 dW, K13's forward, dW and dx, K3, K3-dW) run on the CUDA-core kernels, timed into
    rows of their own (``:f32_<path>``), and each CUDA-core kernel is timed in
-   bf16 beside the tensor-core one. Times
+   bf16 beside the tensor-core one. K9 dx's and K13's forward's f32 routes
+   (``csrc/upconv_dx_f32.cu``, ``csrc/stem_fwd_f32.cu``) are also held to
+   their plain versions with the ReLU off, at an odd C and W, with zeros
+   padding, with K9 dx's last channel group and its tiles padded (C = 11 on
+   13 x 45 and 13 x 46, both paddings), at the STEM_ANY_CO widths and ``--D_ch`` WIDE_D_CH, and in bf16
+   through the same entry points; two calls give the same bits; a planted
+   fault each (K9 dx's top border fold dropped, K13's bottom row of taps
+   dropped) must read at least F32_PLANT times its limit; and their times
+   are printed beside the recorded times of the bodies they replaced
+   (K9DX_F32_PARENT_MS, STEM_F32_PARENT_MS). Times
    each (CUDA-graph replay) beside its bound, its plain version and one
    PyTorch library call, summed per
    step for each tail, and holds the timed calls per step to the tail's
@@ -181,7 +190,13 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    written ``.ckpt`` reloaded through the sampling loader and rendered to
    a 384^2 canvas. Each bf16 run launches
    K1/K2, K6, K7, K9's forward, dx and dW, K13's forward, dW and dx, K3
-   and K3-dW on their tensor-core entry points only (``[route]``).
+   and K3-dW on their tensor-core entry points only (``[route]``). Then
+   the Experiment-1 recipe at ``--compute_dtype float32`` (the train CLI's
+   default; cuDNN's TF32 as PyTorch leaves it), graphed, under ``auto`` and
+   ``off``: the warm step and its device busy time beside the recorded
+   parent tree's (F32_STEP_PARENT_MS), and every routed kernel on its
+   CUDA-core entry point only (``[route]``: ``itg_upconv3x3_chw_dx`` 2 and
+   ``itg_stem_fwd`` 2 a step under ``auto``).
 7. SSM generation from the SSM run's EMA checkpoint through the same
    generation phase (one-pass launches K15 6, K1 5, K3 2, K4 2; per 1024^2
    canvas K15 384, K2 320, K3 128, K4 128; the bf16 raster against the
@@ -407,9 +422,9 @@ F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
              "ssm_embed_bwd": ("itg_ssm_embed_bwd", "ssm_embed_chw.cu"),
              "conv3x3_chw_dx": ("itg_conv3x3_chw_dx", "conv3x3_chw_bwd.cu"),
              "conv3x3_chw_dw": ("itg_conv3x3_chw_dw", "conv3x3_chw_bwd.cu"),
-             "upconv3x3_chw_dx": ("itg_upconv3x3_chw_dx", "upconv3x3_chw.cu"),
+             "upconv3x3_chw_dx": ("itg_upconv3x3_chw_dx", "upconv_dx_f32.cu"),
              "upconv3x3_chw_dw": ("itg_upconv3x3_chw_dw", "upconv3x3_chw.cu"),
-             "stem_fwd": ("itg_stem_fwd", "stem4x4s2.cu"),
+             "stem_fwd": ("itg_stem_fwd", "stem_fwd_f32.cu"),
              "stem_dw": ("itg_stem_dw", "stem4x4s2.cu"),
              "stem_dx": ("itg_stem_dx", "stem4x4s2.cu"),
              "upconv3x3_chw": ("itg_upconv3x3_chw", "upconv3x3_chw.cu"),
@@ -671,6 +686,21 @@ STEM_PLANT = 10.0
 # K13's forward, dW and dx at output widths that are no multiple of 8 or
 # above 128 (--D_ch), held to their plain versions beside the flagship's 64
 STEM_ANY_CO = (4, 12, 100, 136, 256)
+# K9 dx's and K13's forward's float32 routes: each planted fault must read at
+# least this many times the check's limit
+F32_PLANT = 10.0
+# The float32 bodies that K9 dx's and K13's forward's redesigns replaced
+# (csrc/upconv3x3_chw.cu: upconv_dx_kernel, csrc/stem4x4s2.cu:
+# stem_fwd_kernel), CUDA-graph replay, per call at each timed shape, and the
+# graphed float32 Experiment-1 steps that ran them (warm wall and device
+# busy, ms; cuDNN's TF32 as the train CLI leaves it): the mean of two runs
+# of f32_route_study.py on the parent tree, taken in turns with this tree's
+# in one call on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6)
+K9DX_F32_PARENT_MS = {"(8, 52->26, 96x96 -> 192x192)": 0.4037,
+                      "(8, 26->13, 192x192 -> 384x384)": 0.4117}
+STEM_F32_PARENT_MS = {"(8, 3, 384x384) -> (8, 192, 192, 64)": 0.3110,
+                      "ssm (8, 3, 192x192) -> (8, 96, 96, 64)": 0.0824}
+F32_STEP_PARENT_MS = {"auto": (25.262, 24.319), "off": (28.184, 27.131)}
 # K9/K14's bf16 forward: the same for its planted faults
 UP_PLANT = 10.0
 # K3's and K3-dW's bf16 routes: the same for their planted faults, each
@@ -761,6 +791,50 @@ def to_u8(x):
 
 def bound_ms(nbytes: float, flops: float, peak: float, bytes_per_s: float) -> float:
     return max(nbytes / bytes_per_s, flops / peak) * 1e3
+
+
+def upconv_dx_work(n: int, c: int, co: int, h: int, w: int, es: int) -> tuple[float, float]:
+    """K9 dx's (bytes, FLOPs) for x (N, C, H, W) at half resolution, Co
+    output channels and ``es``-byte activations: x and g read and dx written
+    once, the float32 weights, scale, shift and sums; four phases of 2 x 2
+    taps (K9's forward and dW do the same FLOPs)."""
+    act = n * h * w
+    return (act * (2 * c + 4 * co) * es + (co * c * 9 + co + 2 * c) * 4 + 2 * c * 4,
+            2.0 * act * co * c * 16)
+
+
+def stem_fwd_work(n: int, c: int, h: int, w: int, co: int, es: int) -> tuple[float, float]:
+    """K13's forward's (bytes, FLOPs) for x (N, C, H, W) to Co channels in
+    ``es``-byte activations: x read and y written once, the float32 weights
+    and bias."""
+    act = n * (h // 2) * (w // 2)
+    return (n * c * h * w + act * co) * es + (co * 16 * c + co) * 4, 2.0 * act * co * 16 * c
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Per call, replayed from a CUDA graph of ``iters`` calls: device time
+    alone."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def k3_limits(x, wt, b, res, ref):
@@ -3126,28 +3200,6 @@ def main() -> int:
         sync()
         return start.elapsed_time(end) / iters
 
-    def device_ms(fn, iters=20):
-        """Per call, replayed from a CUDA graph: device time alone."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                fn()
-        graph.replay()
-        sync()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        sync()
-        return start.elapsed_time(end) / iters
-
     def table():
         return {k: dict(err=None, sum_err=0.0, ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0,
                         library_ms=0.0, cuda_cores_ms=0.0, nbytes=0.0, flops=0.0, calls=0)
@@ -3291,6 +3343,51 @@ def main() -> int:
                   f"{r_:.2f} (must exceed 1)")
             if not r_ > 1.0:
                 fail(f"{name} {tag}: the check passes a planted {fault}")
+
+    def check_updx_f32(tag, x, gy, wt, sc, sh, outer):
+        """K9 dx's float32 route (CUDA cores) beyond check_dx: the ReLU off
+        against the plain version, two calls bit-equal (dx, d(scale),
+        d(shift): fixed-order partial sums), and with replicate padding a
+        planted fault (the top border fold dropped) must read at least
+        F32_PLANT times the check's limit."""
+        k = kernels.upconv3x3_chw_dx
+        tag = f"{tag} {outer} [CUDA cores]"
+        off = k(x, gy, wt, sc, sh, False, outer)
+        ref = kernels.upconv3x3_chw_dx_plain(x, gy, wt, sc, sh, False, outer)
+        compare("upconv3x3_chw_dx", f"ReLU off {tag}", off[0], ref[0])
+        compare_sum("upconv3x3_chw_dx", f"d(scale) ReLU off {tag}", off[1], ref[1])
+        compare_sum("upconv3x3_chw_dx", f"d(shift) ReLU off {tag}", off[2], ref[2])
+        got = k(x, gy, wt, sc, sh, True, outer)
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, k(x, gy, wt, sc, sh, True, outer)))
+        print(f"[check] upconv3x3_chw_dx {tag}: two calls {'bit-equal' if same else 'differ'} "
+              "(dx, d(scale), d(shift))")
+        if not same:
+            fail(f"upconv3x3_chw_dx {tag}: two f32 calls differ")
+        if outer != "replicate":
+            return
+        ref = kernels.upconv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, outer)
+        no_top = got[0].clone()
+        no_top[..., 0, 1:-1] = k(x, gy, wt, sc, sh, True, "constant")[0][..., 0, 1:-1]
+        r_ = float((no_top - ref[0]).abs().max()) / (F32_TOL * max(1.0, float(ref[0].abs().max())))
+        print(f"[check] upconv3x3_chw_dx {tag}: planted the top fold dropped: max abs err / limit "
+              f"{r_:.2f} (must reach {F32_PLANT:g})")
+        if not r_ >= F32_PLANT:
+            fail(f"upconv3x3_chw_dx {tag}: a planted dropped fold reads only {r_:.2f}x the limit")
+
+    def check_f32_entry_bf16(tag, x, gy, wt, sc, sh, xs, ws, bs):
+        """The CUDA-core entry points of K9 dx and K13's forward take bf16
+        too (the bf16 rows time them beside the tensor-core kernels): each
+        held to its plain version in bf16 within the bf16 limit."""
+        got = kernels._upconv_dx_cuda_cores(x, gy, wt, sc, sh, True, False)
+        ref = kernels.upconv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate")
+        compare("upconv3x3_chw_dx", f"{tag} through itg_upconv3x3_chw_dx [CUDA cores]", got[0],
+                ref[0])
+        compare_sum("upconv3x3_chw_dx", f"d(scale) {tag} through itg_upconv3x3_chw_dx", got[1],
+                    ref[1])
+        compare_sum("upconv3x3_chw_dx", f"d(shift) {tag} through itg_upconv3x3_chw_dx", got[2],
+                    ref[2])
+        compare("stem_fwd", f"{tag} through itg_stem_fwd [CUDA cores]",
+                kernels._stem_fwd_cuda_cores(xs, ws, bs), kernels.stem_fwd_plain(xs, ws, bs))
 
     def check_dw(tag, x, gy, sc, sh, outer, plant=False):
         """K7 against its plain version: dW and db within SUM_TOL of the
@@ -3473,13 +3570,27 @@ def main() -> int:
         b rounded to bf16 (``stem_fwd_tc_plain``), the unrounded one's
         distance reported, two calls bit-equal, and four planted faults must
         read at least STEM_PLANT times that limit. f32 runs the CUDA cores,
-        held to the plain version."""
+        held to the plain version, two calls bit-equal, and a planted fault
+        (the bottom row of taps, ky = 3, dropped) must read at least
+        F32_PLANT times that limit."""
         tc = x.dtype == torch.bfloat16
         tag = f"{tag} [{'tensor cores' if tc else 'CUDA cores'}]"
         y = kernels.stem_fwd(x, wt, b)
         ref = (kernels.stem_fwd_tc_plain if tc else kernels.stem_fwd_plain)(x, wt, b)
         compare("stem_fwd", tag, y, ref, floor=0.0 if tc else 1.0)
         if not tc:
+            same = torch.equal(y, kernels.stem_fwd(x, wt, b))
+            print(f"[check] stem_fwd {tag}: two calls {'bit-equal' if same else 'differ'}")
+            if not same:
+                fail(f"stem_fwd {tag}: two f32 calls differ")
+            no_row = wt.clone()
+            no_row[:, :, 3] = 0.0
+            limit = F32_TOL * max(1.0, float(ref.abs().max()))
+            r_ = float((kernels.stem_fwd(x, no_row, b) - ref).abs().max()) / limit
+            print(f"[check] stem_fwd {tag}: planted the bottom row of taps dropped: max abs err / "
+                  f"limit {r_:.2f} (must reach {F32_PLANT:g})")
+            if not r_ >= F32_PLANT:
+                fail(f"stem_fwd {tag}: a planted dropped tap row reads only {r_:.2f}x the limit")
             return
         unrounded = kernels.stem_fwd_plain(x, wt, b).float()
         moved = float((y.float() - unrounded).abs().max() / unrounded.abs().max())
@@ -3801,13 +3912,14 @@ def main() -> int:
         if not (err > 0 and min(r1, r2) >= UP2ADD_PLANT):
             fail(f"{name} {dt}: a planted fault passes (y err {err}, sums {r1:.2f}x, {r2:.2f}x)")
 
-    def time_stem(shape_s, x, wt, b, nbytes, flops, tails):
+    def time_stem(shape_s, x, wt, b, nbytes, flops, tails, parent_ms=None):
         """K13's forward, twice per step of each tail in ``tails``: bf16 on
         the tensor cores (its CUDA-core kernel in bf16 timed beside it),
         float32 on the CUDA cores into the f32 route's rows. library_ms is
         F.conv2d with the weights channels_last, so that cuDNN writes NHWC as
         K13 does; F.conv2d writing NCHW, and the same then permuted to NHWC,
-        are printed beside it."""
+        are printed beside it. ``parent_ms``: the f32 body the route's
+        redesign replaced, recorded (STEM_F32_PARENT_MS)."""
         tc = x.dtype == torch.bfloat16
         wl, bl = wt.to(x.dtype), b.to(x.dtype)
         wcl = wl.contiguous(memory_format=torch.channels_last)
@@ -3824,7 +3936,7 @@ def main() -> int:
         else:
             account("stem_fwd", f"{shape_s} [CUDA cores, f32]", lambda: kernels.stem_fwd(x, wt, b),
                     lambda: kernels.stem_fwd_plain(x, wt, b), nhwc, nbytes, flops, tails=tails,
-                    count=2, peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                    count=2, peak=PEAK_F32_FLOP_PER_S, f32_route=True, parent_ms=parent_ms)
         nchw = device_ms(lambda: F.conv2d(x, wl, bl, stride=2, padding=1))
         permuted = device_ms(lambda: F.conv2d(x, wl, bl, stride=2, padding=1)
                              .permute(0, 2, 3, 1).contiguous())
@@ -4122,8 +4234,7 @@ def main() -> int:
                     lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
                     lambda: torch.nn.grad.conv2d_input(x.shape, wl, gy, padding=1),
                     dx_bytes, flops, tails=tails,
-                    old_fn=lambda: kernels._dx_cuda_cores("itg_conv3x3_chw_dx", x, gy, w32, sc, sh,
-                                                          True, False))
+                    old_fn=lambda: kernels._dx_cuda_cores(x, gy, w32, sc, sh, True, False))
             account("conv3x3_chw_dw", f"{shape_s} [tensor cores]",
                     lambda: kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
                     lambda: kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
@@ -4221,12 +4332,17 @@ def main() -> int:
                           x[:2], gy_s)
             check_stem_dx(f"--D_ch {co_}: (2, {hs // 2}, {hs // 2}, {co_}) -> (2, 3, {hs}x{hs})",
                           gy_s, w_s)
+        for co_ in () if timed else STEM_ANY_CO + (WIDE_D_CH,):  # the f32 route takes any Co
+            g_s = torch.Generator(device=dev).manual_seed(610 + co_)
+            w_s, b_s = randn(g_s, co_, 3, 4, 4) * 48 ** -0.5, randn(g_s, co_)
+            compare("stem_fwd", f"--D_ch {co_}: (2, 3, {hs}x{hs}) -> (2, {hs // 2}, {hs // 2}, {co_}) "
+                    "[CUDA cores]", kernels.stem_fwd(x[:2], w_s, b_s),
+                    kernels.stem_fwd_plain(x[:2], w_s, b_s))
         check_stem_dx(f"train {shape_s}", gy, wt, plant=True)
         check_stem_dw(f"train {shape_s}", x, gy, plant=True)
-        act = n * (hs // 2) ** 2
-        flops = 2.0 * act * co * 48
-        nbytes = (n * 3 * hs * hs + act * co) * es + (co * 48 + co) * 4
-        time_stem(shape_s, x, wt, b, nbytes, flops, ("auto", "off"))
+        nbytes, flops = stem_fwd_work(n, 3, hs, hs, co, es)
+        time_stem(shape_s, x, wt, b, nbytes, flops, ("auto", "off"),
+                  None if timed else STEM_F32_PARENT_MS.get(shape_s))
         wl = wt.to(dtype)
         g_nchw = gy.permute(0, 3, 1, 2)
         if not timed:  # K13 dW's and dx's f32 routes (CUDA cores), in rows of their own
@@ -4289,6 +4405,8 @@ def main() -> int:
                 check_up("train", shape_s, x, wt, b, sc, sh, None, None, outer, halo=False,
                          with_stats=True, plant=i == 0)
                 check_dx("upconv3x3_chw_dx", tag, x, gy, wt, sc, sh, outer, plant=True)
+                if not timed:
+                    check_updx_f32(shape_s, x, gy, wt, sc, sh, outer)
                 check_updw(tag, x, gy, sc, sh, outer, plant=True)
             k10_s = f"({n}, {co}, {h}x{w}) + ({n}, {co}, {2 * h}x{2 * w})"
             y_ref = kernels.upsample2_chw_add_plain(s_half, res)
@@ -4301,8 +4419,7 @@ def main() -> int:
             del y_ref, y
             act = n * h * w  # half-res pixels
             wbytes = (co * c * 9 + co + 2 * c) * 4
-            flops = 2.0 * act * co * c * 16  # four phases of 2x2 taps
-            dx_bytes = act * (2 * c + 4 * co) * es + wbytes + 2 * c * 4
+            dx_bytes, flops = upconv_dx_work(n, c, co, h, w, es)
             wt4 = kernels._upconv_dx_weights(wt)
             a_half = kernels.prenorm(x, sc, sh, True)
             a_up = F.pad(kernels.upsample2_chw_plain(a_half), (1, 1, 1, 1), mode="replicate")
@@ -4335,7 +4452,7 @@ def main() -> int:
                         lambda: kernels.upconv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: F.conv2d(gy, wt4.transpose(0, 1).contiguous(), stride=2, padding=1),
                         dx_bytes, flops, tails=("auto",), peak=PEAK_F32_FLOP_PER_S,
-                        f32_route=True)
+                        f32_route=True, parent_ms=K9DX_F32_PARENT_MS.get(shape_s))
                 account("upconv3x3_chw_dw", f"{shape_s} [CUDA cores, f32]",
                         lambda: kernels.upconv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
                         lambda: kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
@@ -4358,8 +4475,7 @@ def main() -> int:
                     lambda: kernels.upconv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
                     lambda: F.conv2d(gy, wt4l, stride=2, padding=1), dx_bytes, flops,
                     tails=("auto",),
-                    old_fn=lambda: kernels._dx_cuda_cores("itg_upconv3x3_chw_dx", x, gy, wt4, sc, sh,
-                                                          True, False))
+                    old_fn=lambda: kernels._upconv_dx_cuda_cores(x, gy, wt, sc, sh, True, False))
             account("upconv3x3_chw_dw", f"{shape_s} [tensor cores]",
                     lambda: kernels.upconv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
                     lambda: kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
@@ -4396,6 +4512,30 @@ def main() -> int:
                     lambda: kernels.upsample2_chw_bwd_plain(gy),
                     lambda: F.avg_pool2d(gy, 2, divisor_override=1), 5.0 * act * co * es,
                     3.0 * act * co, tails=("auto",))
+    # K9 dx's f32 route at an odd C and odd W (element-loaded g), and with
+    # zeros padding at another C; at C = 11 (13 channels a thread, two past
+    # C) on a 13 x 45 and a 13 x 46 image (tiles padded on both axes; g by
+    # element loads, then by TMA boxes past g's edges), both paddings; both
+    # f32 entry points in bf16
+    for i, (n_, c_, co_, h_, w_, outer) in enumerate(((2, 13, 7, 17, 19, "replicate"),
+                                                       (2, 5, 3, 24, 40, "constant"),
+                                                       (2, 11, 19, 13, 45, "replicate"),
+                                                       (2, 11, 19, 13, 45, "constant"),
+                                                       (2, 11, 19, 13, 46, "replicate"))):
+        g_ = torch.Generator(device=dev).manual_seed(760 + i)
+        x = randn(g_, n_, c_, h_, w_)
+        wt = randn(g_, co_, c_, 3, 3) * (9 * c_) ** -0.5
+        sc, sh = 1 + 0.1 * randn(g_, c_), 0.1 * randn(g_, c_)
+        gy = randn(g_, n_, co_, 2 * h_, 2 * w_)
+        tag = f"({n_}, {c_}->{co_}, {h_}x{w_} -> {2 * h_}x{2 * w_})"
+        check_dx("upconv3x3_chw_dx", f"{tag} {outer}", x, gy, wt, sc, sh, outer)
+        check_updx_f32(tag, x, gy, wt, sc, sh, outer)
+    g_ = torch.Generator(device=dev).manual_seed(770)
+    check_f32_entry_bf16("bf16 (2, 52->26, 24x24)", randn(g_, 2, 52, 24, 24).bfloat16(),
+                         randn(g_, 2, 26, 48, 48).bfloat16(), randn(g_, 26, 52, 3, 3) * 468 ** -0.5,
+                         1 + 0.1 * randn(g_, 52), 0.1 * randn(g_, 52),
+                         randn(g_, 2, 3, 34, 30).bfloat16(), randn(g_, 100, 3, 4, 4) * 48 ** -0.5,
+                         randn(g_, 100))
     print("[library] K9 forward: F.interpolate then F.conv2d (two calls, zero padding); K9 dx: "
           "F.conv2d of g with the 4x4 phase-combined kernels at stride 2 (no border folds, no "
           "ReLU mask); K9 dW: conv2d_weight on the materialised padded upsample; K10: "
@@ -4569,8 +4709,7 @@ def main() -> int:
                     lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
                     lambda: torch.nn.grad.conv2d_input(x.shape, wl, gy, padding=1),
                     dx_bytes, flops, tails=("ssm",),
-                    old_fn=lambda: kernels._dx_cuda_cores("itg_conv3x3_chw_dx", x, gy, w32, sc, sh,
-                                                          True, False))
+                    old_fn=lambda: kernels._dx_cuda_cores(x, gy, w32, sc, sh, True, False))
             account("conv3x3_chw_dw", f"{shape_s} [tensor cores]",
                     lambda: kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
                     lambda: kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
@@ -4614,10 +4753,9 @@ def main() -> int:
         check_stem(stem_s, xs, ws, bs)
         check_stem_dx(stem_s, gs, ws, plant=True)
         check_stem_dw(stem_s, xs, gs, plant=True)
-        sact = n * (h // 2) ** 2
-        sflops = 2.0 * sact * 64 * 48
-        sbytes = (n * 3 * h * h + sact * 64) * es + (64 * 48 + 64) * 4
-        time_stem(stem_s, xs, ws, bs, sbytes, sflops, ("ssm",))
+        sbytes, sflops = stem_fwd_work(n, 3, h, h, 64, es)
+        time_stem(stem_s, xs, ws, bs, sbytes, sflops, ("ssm",),
+                  None if timed else STEM_F32_PARENT_MS.get(stem_s))
         act = n * h * h
         wl, bl, wTl = wt.to(dtype), b.to(dtype), wT.reshape(c, co, 1, 1).to(dtype)
         shape_s = f"({n}, {c}->{co}, {h}x{h})"
@@ -4789,6 +4927,29 @@ def main() -> int:
         print(f"[train] {TRAIN_PATHS[tail][0]}, {form}: warm step {warm * 1e3:.2f} ms "
               f"({1.0 / warm:.3f} steps/s), device busy per traced step {share}, peak device "
               f"memory {peak / 2**30:.3f} GiB [{card}]")
+    # the graphed float32 Experiment-1 steps as the train CLI runs them: its
+    # default --compute_dtype, cuDNN's TF32 as PyTorch leaves it
+    torch.backends.cudnn.allow_tf32 = True
+    for tail in ("auto", "off"):
+        argv32 = [a if a != "bfloat16" else "float32" for a in recipes[tail]]
+        kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
+        _, warm, busy, routed, _ = training_run(
+            dev, argv32, TRAIN_STEPS, STEP_LAUNCHES[tail], sync, card,
+            ROOT / "build" / f"smoke_train_f32_{tail}", "0", render=False)
+        want = route_want({k: TRAIN_STEPS * v for k, v in STEP_LAUNCHES[tail].items()}, tc=False)
+        if routed != want:
+            fail(f"the f32 training run ({TRAIN_PATHS[tail][0]}) took the routed kernels' "
+                 f"launches {routed}, not {want}")
+        print(f"[route] f32 training run, {TRAIN_PATHS[tail][0]}, graphed: the routed kernels' "
+              f"launches by entry point {routed} (tensor-core kernels: 0)")
+        parent = F32_STEP_PARENT_MS.get(tail)
+        was = (f"; the parent tree's {parent[0]:.2f} ms and {parent[1]:.2f} ms busy (recorded)"
+               if parent else "")
+        share = "not measured" if busy is None else f"{busy:.2f} ms"
+        print(f"[train] f32 {TRAIN_PATHS[tail][0]}, graphed (cuDNN TF32 on, the train CLI's "
+              f"setting): warm step {warm * 1e3:.2f} ms, device busy per traced step "
+              f"{share}{was} [{card}]")
+    torch.backends.cudnn.allow_tf32 = False
     runs = {tail: runs[tail, "graphed"] for tail in recipes}  # the main path's launches
     walls.update({f"step {tail}": run[1] for tail, run in runs.items()})
     print(f"[phase 6] training runs in {time.perf_counter() - t0:.1f} s")

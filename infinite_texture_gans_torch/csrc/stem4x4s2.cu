@@ -1,12 +1,10 @@
 // The discriminator's stem: a 4x4 / stride-2 / zero-pad-1 convolution of a
 // channels-major (N, C, H, W) image (C <= 4, the 3-channel fake) into NHWC
-// (N, H/2, W/2, Co), with its weight and input gradients.
+// (N, H/2, W/2, Co): its weight and input gradients on the CUDA cores (the
+// forward is stem_fwd_f32.cu).
 //
-// Replaces three TPU kernels of infinite_texture_gans_tpu/ops/pallas_conv.py,
+// Replaces two TPU kernels of infinite_texture_gans_tpu/ops/pallas_conv.py,
 // reached through conv4x4s2_stem_chw (:3086):
-//   K13 forward _stem_fwd_call (:2769, kernel _stem_kernel :2683):
-//       y[n, i, j, o] = b[o] + sum_{c, ky, kx} w[o, c, ky, kx] *
-//       x[n, c, 2i + ky - 1, 2j + kx - 1] (zero outside the image);
 //   K13 dW _stem_dw_call (:2840, kernel _stem_dw_kernel :2788): dW[o, c, ky,
 //       kx] = sum g[n, i, j, o] x[n, c, 2i + ky - 1, 2j + kx - 1] and
 //       db[o] = sum g[n, i, j, o];
@@ -19,15 +17,11 @@
 //
 // What bounds them on the H100: 2 * 16 * C * Co FLOPs per output pixel
 // against 4 * C input and 2 * Co output bytes in bf16 (about 16 FLOP/byte
-// at C = 3, Co = 64): bytes at the dense bound, for all three.
-// What the designs do about it:
-//   forward: a block takes 32 output pixels of one row for 64 output
-//       channels; the 4 input rows under them are staged once in shared
-//       memory (zero border), each thread keeps its output channel's
-//       16 * C weights in registers and writes NHWC with neighbouring
-//       threads on neighbouring channels (coalesced stores).
-//   dW (the float32 route; bf16 runs on the tensor cores in stem_dw_tc.cu):
-//       each thread owns one output channel and one column tap kx, so its
+// at C = 3, Co = 64): bytes at the dense bound. These are the float32
+// routes (bf16 runs on the tensor cores in stem_dw_tc.cu and
+// stem_dx_tc.cu), and in float32 the FFMAs (67 TFLOP/s) bound them about as
+// much as the bytes. What the designs do about it:
+//   dW: each thread owns one output channel and one column tap kx, so its
 //       4 * C accumulators (ky, c) stay in registers over all the row
 //       segments its block visits; g's NHWC rows load coalesced along the
 //       channels, the staged image values are read as warp broadcasts, and
@@ -67,40 +61,6 @@ __device__ __forceinline__ void stage_rows(float (*s_x)[4][kXW], const T* x, int
     const int ky = (idx / kXW) % 4;
     const int s = idx % kXW;
     s_x[c][ky][s] = pixel(x, n, c, C, H, W, 2 * i + ky - 1, 2 * j0 + s - 1);
-  }
-}
-
-template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-stem_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ bias, T* __restrict__ y, int H, int W, int Co) {
-  __shared__ float s_x[C][4][kXW];
-  const int H2 = H / 2;
-  const int W2 = W / 2;
-  const int jtiles = (W2 + kTJ - 1) / kTJ;
-  const int j0 = (blockIdx.x % jtiles) * kTJ;
-  const int o = (blockIdx.x / jtiles) * kTO + threadIdx.x % kTO;
-  const int lane_px = threadIdx.x / kTO;
-  const int i = blockIdx.y;
-  const int n = blockIdx.z;
-  stage_rows<T, C>(s_x, x, n, H, W, i, j0, threadIdx.x);
-  float wr[C * 16];
-#pragma unroll
-  for (int k = 0; k < C * 16; ++k) wr[k] = o < Co ? w[static_cast<size_t>(o) * C * 16 + k] : 0.f;
-  __syncthreads();
-  if (o >= Co) return;
-  const float b = bias[o];
-  for (int jj = lane_px; jj < kTJ && j0 + jj < W2; jj += kThreads / kTO) {
-    float acc = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-#pragma unroll
-      for (int ky = 0; ky < 4; ++ky) {
-#pragma unroll
-        for (int kx = 0; kx < 4; ++kx) acc = fmaf(wr[c * 16 + ky * 4 + kx], s_x[c][ky][2 * jj + kx], acc);
-      }
-    }
-    y[((static_cast<size_t>(n) * H2 + i) * W2 + j0 + jj) * Co + o] = from_f32<T>(acc + b);
   }
 }
 
@@ -227,17 +187,12 @@ stem_dx_kernel(const T* __restrict__ g, const float* __restrict__ w, T* __restri
 }
 
 template <typename T, int C>
-int launch_all(int which, const void* a, const void* b, const void* c3, void* out, void* out2,
-               int n, int h, int width, int co, cudaStream_t stream) {
+int launch_all(int which, const void* a, const void* b, void* out, void* out2, int n, int h,
+               int width, int co, cudaStream_t stream) {
   const int h2 = h / 2;
   const int w2 = width / 2;
   const int otiles = (co + kTO - 1) / kTO;
-  if (which == 0) {  // forward: a = x, b = w, c3 = bias, out = y
-    const int jtiles = (w2 + kTJ - 1) / kTJ;
-    stem_fwd_kernel<T, C><<<dim3(jtiles * otiles, h2, n), kThreads, 0, stream>>>(
-        static_cast<const T*>(a), static_cast<const float*>(b), static_cast<const float*>(c3),
-        static_cast<T*>(out), h, width, co);
-  } else if (which == 1) {  // dW: a = x, b = g, out = dw, out2 = db
+  if (which == 1) {  // dW: a = x, b = g, out = dw, out2 = db
     const long long segs = static_cast<long long>(n) * h2 * ((w2 + kTJ - 1) / kTJ);
     const int blocks = static_cast<int>(segs < 4 * 132 ? segs : 4 * 132);
     stem_dw_kernel<T, C><<<dim3(blocks, otiles), kThreads, 0, stream>>>(
@@ -253,45 +208,37 @@ int launch_all(int which, const void* a, const void* b, const void* c3, void* ou
 }
 
 template <typename T>
-int dispatch(int which, int c, const void* a, const void* b, const void* c3, void* out,
-             void* out2, int n, int h, int width, int co, cudaStream_t stream) {
+int dispatch(int which, int c, const void* a, const void* b, void* out, void* out2, int n,
+             int h, int width, int co, cudaStream_t stream) {
   switch (c) {
-    case 1: return launch_all<T, 1>(which, a, b, c3, out, out2, n, h, width, co, stream);
-    case 2: return launch_all<T, 2>(which, a, b, c3, out, out2, n, h, width, co, stream);
-    case 3: return launch_all<T, 3>(which, a, b, c3, out, out2, n, h, width, co, stream);
-    case 4: return launch_all<T, 4>(which, a, b, c3, out, out2, n, h, width, co, stream);
+    case 1: return launch_all<T, 1>(which, a, b, out, out2, n, h, width, co, stream);
+    case 2: return launch_all<T, 2>(which, a, b, out, out2, n, h, width, co, stream);
+    case 3: return launch_all<T, 3>(which, a, b, out, out2, n, h, width, co, stream);
+    case 4: return launch_all<T, 4>(which, a, b, out, out2, n, h, width, co, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int run(int which, int bf16, int c, const void* a, const void* b, const void* c3, void* out,
-        void* out2, int n, int h, int width, int co, void* stream) {
+int run(int which, int bf16, int c, const void* a, const void* b, void* out, void* out2, int n,
+        int h, int width, int co, void* stream) {
   if (h % 2 || width % 2) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  if (bf16) return dispatch<__nv_bfloat16>(which, c, a, b, c3, out, out2, n, h, width, co, st);
-  return dispatch<float>(which, c, a, b, c3, out, out2, n, h, width, co, st);
+  if (bf16) return dispatch<__nv_bfloat16>(which, c, a, b, out, out2, n, h, width, co, st);
+  return dispatch<float>(which, c, a, b, out, out2, n, h, width, co, st);
 }
 
 }  // namespace
-
-// x (N, C, H, W) activation type (float32, or bfloat16 when bf16 != 0),
-// 1 <= C <= 4, H and W even; w (Co, C, 4, 4) and b (Co) float32; y (N, H/2,
-// W/2, Co) activation type. Returns cudaGetLastError() after the launch.
-extern "C" int itg_stem_fwd(const void* x, const void* w, const void* b, void* y, int n, int c,
-                            int h, int width, int co, int bf16, void* stream) {
-  return run(0, bf16, c, x, w, b, y, nullptr, n, h, width, co, stream);
-}
 
 // x (N, C, H, W), g (N, H/2, W/2, Co): activation type. dw (Co, C, 4, 4) and
 // db (Co): float32, zeroed by the caller; the kernel adds into them.
 extern "C" int itg_stem_dw(const void* x, const void* g, void* dw, void* db, int n, int c, int h,
                            int width, int co, int bf16, void* stream) {
-  return run(1, bf16, c, x, g, nullptr, dw, db, n, h, width, co, stream);
+  return run(1, bf16, c, x, g, dw, db, n, h, width, co, stream);
 }
 
 // g (N, H/2, W/2, Co) activation type, w (Co, C, 4, 4) float32 -> dx (N, C,
 // H, W) activation type.
 extern "C" int itg_stem_dx(const void* g, const void* w, void* dx, int n, int c, int h, int width,
                            int co, int bf16, void* stream) {
-  return run(2, bf16, c, g, w, nullptr, dx, nullptr, n, h, width, co, stream);
+  return run(2, bf16, c, g, w, dx, nullptr, n, h, width, co, stream);
 }

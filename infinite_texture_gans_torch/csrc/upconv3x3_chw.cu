@@ -16,9 +16,9 @@
 //      kernel body serves K9 and K14: every output sums its (channel, phase
 //      tap) products in one order wherever its tile lies, so the raster
 //      gives the one pass's bits;
-//   dx _upconv3x3_dx (:1642, kernel _updx_kernel :1491): dx, d(scale),
-//      d(shift) of the forward;
 //   dW _upconv3x3_dw (:1777, kernel _updw_kernel :1673): dW and db.
+// (K9 dx, _upconv3x3_dx :1642, is upconv_dx_f32.cu on the CUDA cores and
+// chw_dx_tc.cu on the tensor cores.)
 // Nearest-2x commutes with the per-channel affine and the ReLU, and a
 // replicate (or zeros) pad of the full-resolution upsample equals a
 // replicate (or zeros) pad of the half-resolution normed slab A. So each
@@ -26,9 +26,8 @@
 // at rows i - 1 + di + r, columns j - 1 + dj + s (r, s in {0, 1}), whose
 // combined kernels fold the 3 x 3 taps (row taps {K0 | K1 + K2} for di = 0,
 // {K0 + K1 | K2} for di = 1; the same on columns). The wrapper builds them in
-// float32 from w (ops/kernels.py: _upconv_phase_weights), and for the
-// backward the 4 x 4 stride-2 transposed form (_upconv_dx_weights); dW is
-// returned per phase tap and folded back to 3 x 3 by the wrapper
+// float32 from w (ops/kernels.py: _upconv_phase_weights); dW is returned
+// per phase tap and folded back to 3 x 3 by the wrapper
 // (_upconv_unpack_dw). The phase form does 4/9 of the unfused upsample +
 // conv's multiply-adds and never stores the 4x upsampled activation.
 //
@@ -36,8 +35,11 @@
 // 96^2 half resolution, 26 -> 13 at 192^2, N = 8) and the flagship's eval
 // shapes (104 -> 52 at 48^2 ... 26 -> 13 at 192^2, N = 1) the work is
 // 2 * 16 * C * Co FLOPs per half-res pixel against 2 * (C + 4 Co) bytes in
-// bf16, so the dense bound is bytes. These first kernels run on the CUDA
-// cores in float32 and are bound by FMA issue and shared-memory traffic.
+// bf16, so the dense bound of the bf16 routes (tensor cores) is bytes. These
+// kernels are the float32 routes (and run bf16 when a caller asks): at 67
+// TFLOP/s of FFMA and 4 * (C + 4 Co) bytes the bound is FMA issue (about
+// 0.048 ms against the forward's 0.014 ms of bytes at the first
+// Experiment-1 shape).
 // What the designs do about it:
 //   forward (K9 and K14): K1's scheme at half resolution. A block normalises
 //      a 32 x 8 half-res tile of 8 input channels, with its one-pixel border
@@ -47,13 +49,6 @@
 //      window) from float4 weight broadcasts; it writes its 2 x 2 output
 //      block and, with stats, adds the block's sums with one atomicAdd per
 //      block and channel.
-//   dx: a 4 x 4 stride-2 gather of g: the half-res padded cell p takes full-
-//      res g rows 2p - 1 .. 2p + 2 (and the same columns), so a block stages
-//      the (2 * 8 + 2) x (2 * 32 + 2) g tile of 4 output channels per pass.
-//      The replicate folds are K6's, on the half-res slab: a thread on the
-//      slab's edge also adds the cells of the padded border that copy it
-//      (corners twice), whose g rows lie in the same staged tile. The ReLU
-//      mask is recomputed from scale * x + shift with the forward's rounding.
 //   dW (the float32 route; bf16 runs on the tensor cores in
 //      upconv_dw_tc.cu): K7's scheme with 16 phase taps: one thread owns
 //      one (o, c) pair; a block stages the post-norm half-res slab of 32
@@ -71,7 +66,7 @@ using itg::from_f32;
 using itg::to_f32;
 
 constexpr int kThreads = 256;
-constexpr int kTileW = 32;  // half-res tile of the forward and dx
+constexpr int kTileW = 32;  // half-res tile of the forward
 constexpr int kTileH = 8;
 
 // The half-res input of one image and its border.
@@ -240,157 +235,6 @@ int dispatch_fwd(const void* x, const float* wc, const float* b, const float* sc
 }
 
 // ---------------------------------------------------------------------------
-// dx, d(scale), d(shift)
-
-constexpr int kDxChunk = 4;                 // output channels of g staged per pass
-constexpr int kGRows = 2 * kTileH + 2;      // full-res g rows 2 * ty0 - 1 .. 2 * ty0 + 16
-constexpr int kGCols = 2 * kTileW + 2;
-constexpr int kNone = -(1 << 20);           // no fold
-
-template <typename T, int TC>
-__global__ void __launch_bounds__(kThreads)
-upconv_dx_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ wt,
-                 const float* __restrict__ scale, const float* __restrict__ shift,
-                 T* __restrict__ dx, float* __restrict__ dsc, float* __restrict__ dsh, int C,
-                 int H, int W, int Co, int relu, int zeros) {
-  __shared__ float s_g[kDxChunk][kGRows][kGCols];
-  __shared__ __align__(16) float s_w[kDxChunk][16][TC];
-  __shared__ float s_red[kThreads / 32][2 * TC];
-
-  const int n = blockIdx.z;
-  const int tiles_w = (W + kTileW - 1) / kTileW;
-  const int ty0 = (blockIdx.x / tiles_w) * kTileH;
-  const int tx0 = (blockIdx.x % tiles_w) * kTileW;
-  const int c0 = blockIdx.y * TC;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kTileW + tx;
-  const int i = ty0 + ty;
-  const int j = tx0 + tx;
-  const bool inside = i < H && j < W;
-  const int H2 = 2 * H;
-  const int W2 = 2 * W;
-  const int gr0 = 2 * ty0 - 1;  // full-res row of staged row 0
-  const int gc0 = 2 * tx0 - 1;
-  // replicate padding: the padded half-res rows/columns this pixel feeds
-  // besides its own (i, j)
-  const int rx = (!zeros && inside && i == 0) ? -1 : kNone;
-  const int ry = (!zeros && inside && i == H - 1) ? H : kNone;
-  const int sx = (!zeros && inside && j == 0) ? -1 : kNone;
-  const int sy = (!zeros && inside && j == W - 1) ? W : kNone;
-  const bool edge = rx != kNone || ry != kNone || sx != kNone || sy != kNone;
-
-  float acc[TC];
-#pragma unroll
-  for (int k = 0; k < TC; ++k) acc[k] = 0.f;
-
-  const T* gn = g + static_cast<size_t>(n) * Co * H2 * W2;
-  constexpr int kCells = kGRows * kGCols;
-  for (int o0 = 0; o0 < Co; o0 += kDxChunk) {
-    for (int idx = tid; idx < kDxChunk * kCells; idx += kThreads) {
-      const int oc = idx / kCells;
-      const int r = (idx % kCells) / kGCols;
-      const int s = (idx % kCells) % kGCols;
-      const int o = o0 + oc;
-      const int gi = gr0 + r;
-      const int gj = gc0 + s;
-      const bool ok = o < Co && gi >= 0 && gi < H2 && gj >= 0 && gj < W2;
-      s_g[oc][r][s] = ok ? to_f32<T>(gn[(static_cast<size_t>(o) * H2 + gi) * W2 + gj]) : 0.f;
-    }
-    for (int idx = tid; idx < kDxChunk * 16 * TC; idx += kThreads) {
-      const int oc = idx / (16 * TC);
-      const int tap = (idx / TC) % 16;
-      const int k = idx % TC;
-      const int o = o0 + oc;
-      const int c = c0 + k;
-      s_w[oc][tap][k] = (o < Co && c < C) ? wt[(static_cast<size_t>(o) * C + c) * 16 + tap] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int oc = 0; oc < kDxChunk; ++oc) {
-#pragma unroll
-      for (int tap = 0; tap < 16; ++tap) {
-        // dA[i, j] takes g[2i - 1 + u, 2j - 1 + v] through tap (u, v)
-        const float gv = s_g[oc][2 * ty + tap / 4][2 * tx + tap % 4];
-#pragma unroll
-        for (int k = 0; k < TC; k += 4) {
-          const float4 wv = *reinterpret_cast<const float4*>(&s_w[oc][tap][k]);
-          acc[k] = fmaf(gv, wv.x, acc[k]);
-          acc[k + 1] = fmaf(gv, wv.y, acc[k + 1]);
-          acc[k + 2] = fmaf(gv, wv.z, acc[k + 2]);
-          acc[k + 3] = fmaf(gv, wv.w, acc[k + 3]);
-        }
-      }
-    }
-    if (edge) {
-      // the border folds: every padded cell (pr, pc) that replicates (i, j),
-      // other than (i, j) itself, adds its dA[pr, pc]
-      const int rows[3] = {i, rx, ry};
-      const int cols[3] = {j, sx, sy};
-      for (int a = 0; a < 3; ++a) {
-        for (int b = 0; b < 3; ++b) {
-          const int pr = rows[a];
-          const int pc = cols[b];
-          if (pr == kNone || pc == kNone || (a == 0 && b == 0)) continue;
-          for (int oc = 0; oc < kDxChunk; ++oc) {
-            for (int tap = 0; tap < 16; ++tap) {
-              const int gi = 2 * pr - 1 + tap / 4;
-              const int gj = 2 * pc - 1 + tap % 4;
-              if (gi < 0 || gi >= H2 || gj < 0 || gj >= W2) continue;
-              const float gv = s_g[oc][gi - gr0][gj - gc0];
-#pragma unroll
-              for (int k = 0; k < TC; ++k) acc[k] = fmaf(gv, s_w[oc][tap][k], acc[k]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  float v[2 * TC];
-#pragma unroll
-  for (int k = 0; k < TC; ++k) {
-    const int c = c0 + k;
-    float da = 0.f;
-    float xv = 0.f;
-    if (inside && c < C) {
-      const size_t off = ((static_cast<size_t>(n) * C + c) * H + i) * W + j;
-      xv = to_f32<T>(x[off]);
-      const float sc = scale[c];
-      da = acc[k];
-      if (relu && !(__fadd_rn(__fmul_rn(xv, sc), shift[c]) > 0.f)) da = 0.f;
-      dx[off] = from_f32<T>(da * sc);
-    }
-    v[k] = da * xv;
-    v[TC + k] = da;
-  }
-  itg::block_sum2_atomic<TC>(v, &s_red[0][0], dsc + c0, dsh + c0, min(TC, C - c0));
-}
-
-template <typename T, int TC>
-int launch_dx(const void* x, const void* g, const float* wt, const float* scale,
-              const float* shift, void* dx, float* dsc, float* dsh, int n, int c, int h,
-              int width, int co, int relu, int zeros, cudaStream_t stream) {
-  const int tiles = ((width + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH);
-  const dim3 grid(tiles, (c + TC - 1) / TC, n);
-  const dim3 block(kTileW, kTileH);
-  upconv_dx_kernel<T, TC><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), wt, scale, shift, static_cast<T*>(dx),
-      dsc, dsh, c, h, width, co, relu, zeros);
-  return itg::last_error();
-}
-
-template <typename T>
-int dispatch_dx(const void* x, const void* g, const float* wt, const float* scale,
-                const float* shift, void* dx, float* dsc, float* dsh, int n, int c, int h,
-                int width, int co, int relu, int zeros, cudaStream_t stream) {
-  if (c <= 4) return launch_dx<T, 4>(x, g, wt, scale, shift, dx, dsc, dsh, n, c, h, width, co, relu, zeros, stream);
-  if (c <= 8) return launch_dx<T, 8>(x, g, wt, scale, shift, dx, dsc, dsh, n, c, h, width, co, relu, zeros, stream);
-  return launch_dx<T, 16>(x, g, wt, scale, shift, dx, dsc, dsh, n, c, h, width, co, relu, zeros, stream);
-}
-
-// ---------------------------------------------------------------------------
 // dW per phase tap, db
 
 constexpr int kDwTH = 8;   // half-res tile
@@ -541,24 +385,6 @@ extern "C" int itg_upconv3x3_chw(const void* x, const void* wc, const void* b, c
     return dispatch_fwd<__nv_bfloat16>(x, w, bf, sc, sh, top, left, y, a, q, n, c, h, width, co, relu, zeros, st);
   }
   return dispatch_fwd<float>(x, w, bf, sc, sh, top, left, y, a, q, n, c, h, width, co, relu, zeros, st);
-}
-
-// x (N, C, H, W), g (N, Co, 2H, 2W), dx (N, C, H, W): activation type.
-// wt (Co, C, 4, 4): the stride-2 transposed kernels, float32; scale/shift
-// (C) float32; dsc/dsh (C) float32, zeroed by the caller. Returns
-// cudaGetLastError() after the launch.
-extern "C" int itg_upconv3x3_chw_dx(const void* x, const void* g, const void* wt,
-                                    const void* scale, const void* shift, void* dx, void* dsc,
-                                    void* dsh, int n, int c, int h, int width, int co, int relu,
-                                    int zeros, int bf16, void* stream) {
-  const auto* w = static_cast<const float*>(wt);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* sh = static_cast<const float*>(shift);
-  auto* a = static_cast<float*>(dsc);
-  auto* b = static_cast<float*>(dsh);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (bf16) return dispatch_dx<__nv_bfloat16>(x, g, w, sc, sh, dx, a, b, n, c, h, width, co, relu, zeros, st);
-  return dispatch_dx<float>(x, g, w, sc, sh, dx, a, b, n, c, h, width, co, relu, zeros, st);
 }
 
 // x (N, C, H, W), g (N, Co, 2H, 2W): activation type. scale/shift (C):

@@ -74,15 +74,16 @@ SIGNATURES = {
     # x, w, b, scale, shift, top, left, wp, y, part, s1, s2, n, c, h, w (of x), co, relu, zeros,
     # nc, no, stream (bf16 only)
     "itg_upconv3x3_chw_tc": [_P] * 12 + [_I] * 9 + [_P],
-    # x, g, wt, scale, shift, dx, dscale, dshift, n, c, h, w (of x), co, relu, zeros, bf16, stream
-    "itg_upconv3x3_chw_dx": [_P] * 8 + [_I] * 8 + [_P],
+    # x, g, w, scale, shift, wq, dx, part, dscale, dshift, n, c, h, w (of x), co, relu, zeros,
+    # bf16, cc, groups, tiles_h, tiles_w, stream
+    "itg_upconv3x3_chw_dx": [_P] * 10 + [_I] * 12 + [_P],
     # x, g, scale, shift, dwc, db, n, c, h, w (of x), co, relu, zeros, bf16, stream
     "itg_upconv3x3_chw_dw": [_P] * 6 + [_I] * 8 + [_P],
     # x, g, scale, shift, part, dwc, db, n, c, h, w (of x), co, relu, zeros, mt, no, cap,
     # stream (bf16 only)
     "itg_upconv3x3_chw_dw_tc": [_P] * 7 + [_I] * 10 + [_P],
-    # x, w, b, y, n, c, h, w, co, bf16, stream
-    "itg_stem_fwd": [_P] * 4 + [_I] * 6 + [_P],
+    # x, w, b, y, n, c, h, w, co, bf16, blocks, stream
+    "itg_stem_fwd": [_P] * 4 + [_I] * 7 + [_P],
     # x, w, b, y, n, c, h, w, co, stream (bf16 only)
     "itg_stem_fwd_tc": [_P] * 4 + [_I] * 5 + [_P],
     # x, g, dw, db, n, c, h, w, co, bf16, stream

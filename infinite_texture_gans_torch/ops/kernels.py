@@ -25,9 +25,9 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
 - K9 ``upconv3x3_chw``, the subpixel-fused upsample -> BN fold -> ReLU ->
   3x3 conv of ``upconv3x3_chw_p`` (optionally with stats): forward :1457
   ``_upconv3x3_fwd``, ``upconv3x3_chw_dx`` :1642 ``_upconv3x3_dx``,
-  ``upconv3x3_chw_dw`` :1777 ``_upconv3x3_dw`` (csrc/upconv3x3_chw.cu; the
-  forward in bf16: csrc/upconv_fwd_tc.cu; the dx in bf16:
-  csrc/chw_dx_tc.cu; the dW in bf16: csrc/upconv_dw_tc.cu);
+  ``upconv3x3_chw_dw`` :1777 ``_upconv3x3_dw`` (csrc/upconv3x3_chw.cu, the
+  dx in csrc/upconv_dx_f32.cu; the forward in bf16: csrc/upconv_fwd_tc.cu;
+  the dx in bf16: csrc/chw_dx_tc.cu; the dW in bf16: csrc/upconv_dw_tc.cu);
 - K14 ``chw_upconv_halo_step``, whose kernel wrapper is
   ``upconv3x3_chw_halo``: K9's forward in the raster engine under
   ``--fuse_up all``, replaces :2019 ``_upconv3x3_fwd_halo`` (the same two
@@ -36,9 +36,9 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
   block's up2(shortcut) + residual (+ stats) (csrc/upsample2_chw.cu);
 - K13 ``conv4x4s2_stem_chw``: the discriminator's conv0, forward
   ``stem_fwd`` :2769 ``_stem_fwd_call``, ``stem_dw`` :2840 ``_stem_dw_call``,
-  ``stem_dx`` :2977 ``_stem_dx_call`` (csrc/stem4x4s2.cu; the forward in
-  bf16: csrc/stem_fwd_tc.cu; the dW in bf16: csrc/stem_dw_tc.cu; the dx in
-  bf16: csrc/stem_dx_tc.cu).
+  ``stem_dx`` :2977 ``_stem_dx_call`` (csrc/stem4x4s2.cu, the forward in
+  csrc/stem_fwd_f32.cu; the forward in bf16: csrc/stem_fwd_tc.cu; the dW in
+  bf16: csrc/stem_dw_tc.cu; the dx in bf16: csrc/stem_dx_tc.cu).
 
 The SSM embed chain K15 (``pallas_ssm.py:343/:392``) lives in
 ``ops/ssm.py`` (csrc/ssm_embed_chw.cu); its launches count here too, under
@@ -674,22 +674,87 @@ def pack_dx_weights(w: torch.Tensor, up: bool) -> torch.Tensor:
     return w4.permute(1, 2, 3, 0).to(torch.bfloat16, memory_format=torch.contiguous_format)
 
 
-def _dx_cuda_cores(entry: str, x, g, wf, scale, shift, relu: bool, zeros: bool):
-    """K6 (``itg_conv3x3_chw_dx``, wf (Co, C, 3, 3)) or K9 dx
-    (``itg_upconv3x3_chw_dx``, wf (Co, C, 4, 4)) on the CUDA cores: the
-    float32 route (the C functions take bf16 too)."""
+def _dx_cuda_cores(x, g, wf, scale, shift, relu: bool, zeros: bool):
+    """K6 on the CUDA cores (``itg_conv3x3_chw_dx``; wf (Co, C, 3, 3)): the
+    float32 route (the C function takes bf16 too)."""
     n, c, h, wd = x.shape
     dx = torch.empty_like(x)
     dsc, dsh = _zeros_f32(c, x), _zeros_f32(c, x)
     sc, sh = _f32(scale), _f32(shift)
     with torch.cuda.device(x.device):
-        rc = getattr(_lib(), entry)(
+        rc = _lib().itg_conv3x3_chw_dx(
             x.data_ptr(), g.data_ptr(), wf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
             dx.data_ptr(), dsc.data_ptr(), dsh.data_ptr(),
             n, c, h, wd, wf.shape[0], int(relu), int(zeros), _bf16(x), _stream(x),
         )
-    _raise_on(rc, entry)
-    ROUTE_LAUNCHES[entry] += 1
+    _raise_on(rc, "itg_conv3x3_chw_dx")
+    ROUTE_LAUNCHES["itg_conv3x3_chw_dx"] += 1
+    return dx, dsc, dsh
+
+
+# K9 dx's float32 route (csrc/upconv_dx_f32.cu): a thread owns 2 x 2 half-res
+# pixels x CC input channels (CC one of UPCONV_DX_F32_CC; 13 divides the
+# flagship's 26 and 52), a block of two warps an 8 x 32 half-res tile and one
+# group of CC input channels; the groups are a grid axis, and the channels
+# past C in the last group are zero weights. UPCONV_DX_F32_COST: the kernel's
+# time per input channel of each CC relative to CC 8's, as
+# f32_route_study.py's plan table reads them on an H100 at the Experiment-1
+# shapes (CC 13 about 1.2x: more registers a thread).
+UPCONV_DX_F32_CC = (8, 13)
+UPCONV_DX_F32_COST = {8: 1.0, 13: 1.2}
+UPCONV_DX_F32_TILE = (8, 32)
+
+
+class UpconvDxF32Plan(NamedTuple):
+    cc: int  # input channels of a thread
+    groups: int  # ceil(C / cc): the input-channel split, the grid's first axis
+    tiles_h: int  # ceil(H / 8) x ceil(W / 32) tiles an image
+    tiles_w: int
+    part_rows: int  # N x tiles: rows of the (part_rows, 2C) float32 partials
+    wq_numel: int  # Co x groups x 16 x cc rounded up to 4: the packed weights
+
+
+def upconv_dx_f32_plan(n: int, c: int, co: int, h: int, w: int) -> UpconvDxF32Plan:
+    """The float32 K9 dx kernel's launch for x (N, C, H, W) at half
+    resolution and Co output channels: CC, the one of UPCONV_DX_F32_CC with
+    the least UPCONV_DX_F32_COST over the padded channels (ties to the
+    larger), the input-channel groups, the 8 x 32 tiles and the scratch
+    sizes; the entry point launches this grid. Raises for an empty shape or
+    N > 65535 (the grid's second axis)."""
+    if min(n, c, co, h, w) < 1 or n > 65535:
+        raise ValueError(f"upconv3x3_chw_dx (float32) takes 1 <= N <= 65535 and 1 <= C, Co, H, "
+                         f"W, got N={n}, C={c}, Co={co}, H={h}, W={w}")
+    cc = min(UPCONV_DX_F32_CC, key=lambda k: (-(-c // k) * k * UPCONV_DX_F32_COST[k], -k))
+    groups = -(-c // cc)
+    tiles_h, tiles_w = -(-h // UPCONV_DX_F32_TILE[0]), -(-w // UPCONV_DX_F32_TILE[1])
+    return UpconvDxF32Plan(cc, groups, tiles_h, tiles_w, n * tiles_h * tiles_w,
+                           co * groups * 16 * (-(-cc // 4) * 4))
+
+
+def _upconv_dx_cuda_cores(x, g, w, scale, shift, relu: bool, zeros: bool):
+    """K9 dx on the CUDA cores (``itg_upconv3x3_chw_dx``): the float32 route
+    (the C function takes bf16 too). The entry point packs the stride-2
+    weights of :func:`_upconv_dx_weights` per channel group, runs the kernel
+    on :func:`upconv_dx_f32_plan`'s grid and adds its per-block partial sums
+    in a fixed order."""
+    n, c, h, wd = x.shape
+    co = w.shape[0]
+    plan = upconv_dx_f32_plan(n, c, co, h, wd)
+    dx = torch.empty_like(x)
+    wq = torch.empty(plan.wq_numel, dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.part_rows, 2 * c), dtype=torch.float32, device=x.device)
+    dsc = torch.empty(c, dtype=torch.float32, device=x.device)
+    dsh = torch.empty_like(dsc)
+    wf, sc, sh = _f32(w), _f32(scale), _f32(shift)
+    with torch.cuda.device(x.device):
+        rc = _lib().itg_upconv3x3_chw_dx(
+            x.data_ptr(), g.data_ptr(), wf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+            wq.data_ptr(), dx.data_ptr(), part.data_ptr(), dsc.data_ptr(), dsh.data_ptr(),
+            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), plan.cc, plan.groups,
+            plan.tiles_h, plan.tiles_w, _stream(x),
+        )
+    _raise_on(rc, "itg_upconv3x3_chw_dx")
+    ROUTE_LAUNCHES["itg_upconv3x3_chw_dx"] += 1
     return dx, dsc, dsh
 
 
@@ -738,7 +803,7 @@ def conv3x3_chw_dx(x, g, w, scale, shift, relu: bool, outer_padding: str):
     if x.dtype == torch.bfloat16:
         out = _dx_tensor_cores("itg_conv3x3_chw_dx_tc", x, g, w, scale, shift, relu, zeros)
     else:
-        out = _dx_cuda_cores("itg_conv3x3_chw_dx", x, g, _f32(w), scale, shift, relu, zeros)
+        out = _dx_cuda_cores(x, g, _f32(w), scale, shift, relu, zeros)
     LAUNCHES["conv3x3_chw_dx"] += 1
     return out
 
@@ -1542,8 +1607,7 @@ def upconv3x3_chw_dx(x, g, w, scale, shift, relu: bool, outer_padding: str):
     if x.dtype == torch.bfloat16:
         out = _dx_tensor_cores("itg_upconv3x3_chw_dx_tc", x, g, w, scale, shift, relu, zeros)
     else:
-        out = _dx_cuda_cores("itg_upconv3x3_chw_dx", x, g, _upconv_dx_weights(w), scale, shift,
-                             relu, zeros)
+        out = _upconv_dx_cuda_cores(x, g, w, scale, shift, relu, zeros)
     LAUNCHES["upconv3x3_chw_dx"] += 1
     return out
 
@@ -1839,16 +1903,46 @@ def pack_stem_weights(w: torch.Tensor) -> torch.Tensor:
     return wp.to(torch.bfloat16)
 
 
+# K13's float32 forward (csrc/stem_fwd_f32.cu): a tile is 8 output rows x 32
+# columns x 64 output channels of one image; the kernel's blocks stay on the
+# card, STEM_F32_BLOCKS_PER_SM an SM (its __launch_bounds__), and walk the
+# tiles of one channel chunk.
+STEM_F32_TILE = (8, 32, 64)
+STEM_F32_BLOCKS_PER_SM = 3
+
+
+class StemF32Plan(NamedTuple):
+    tiles: int  # N x row bands x column tiles
+    chunks: int  # ceil(Co / 64): the grid's second axis
+    blocks: int  # the grid's first axis: min(tiles, the blocks of a chunk the card holds)
+
+
+def stem_f32_plan(n: int, c: int, co: int, h: int, w: int, sms: int = 132) -> StemF32Plan:
+    """The float32 stem forward's grid for x (N, C, H, W) and Co output
+    channels on a card of ``sms`` SMs: its tiles, channel chunks and the
+    blocks of a chunk, as many as the card holds at once beside the other
+    chunks' and no more than there are tiles. Raises for C outside 1..4, an
+    odd or empty H or W, Co < 1 or N < 1."""
+    if not 1 <= c <= 4 or h < 2 or w < 2 or h % 2 or w % 2 or co < 1 or n < 1:
+        raise ValueError(f"the float32 stem forward takes 1 <= C <= 4, even H, W >= 2, Co >= 1 "
+                         f"and N >= 1, got N={n}, C={c}, Co={co}, H={h}, W={w}")
+    rows, cols, width = STEM_F32_TILE
+    tiles = n * -(-(h // 2) // rows) * -(-(w // 2) // cols)
+    chunks = -(-co // width)
+    return StemF32Plan(tiles, chunks, min(tiles, -(-STEM_F32_BLOCKS_PER_SM * sms // chunks)))
+
+
 def _stem_fwd_cuda_cores(x, w, b):
     """K13's forward on the CUDA cores (``itg_stem_fwd``): the float32 route
-    (the C function takes bf16 too)."""
+    (the C function takes bf16 too), on :func:`stem_f32_plan`'s grid."""
     n, c, h, wd = x.shape
     co = w.shape[0]
+    plan = stem_f32_plan(n, c, co, h, wd, _sm_count(x.device.index))
     y = torch.empty((n, h // 2, wd // 2, co), dtype=x.dtype, device=x.device)
     wf, bf = _f32(w), _f32(b)
     with torch.cuda.device(x.device):
         rc = _lib().itg_stem_fwd(x.data_ptr(), wf.data_ptr(), bf.data_ptr(), y.data_ptr(),
-                                 n, c, h, wd, co, _bf16(x), _stream(x))
+                                 n, c, h, wd, co, _bf16(x), plan.blocks, _stream(x))
     _raise_on(rc, "itg_stem_fwd")
     ROUTE_LAUNCHES["itg_stem_fwd"] += 1
     return y

@@ -1,0 +1,100 @@
+"""The host planners of the float32 routes of K9 dx and K13's forward
+(ops/kernels.py: upconv_dx_f32_plan, stem_f32_plan): the tiles and splits
+they choose at the Experiment-1, SSM and ``--D_ch 640`` shapes, and the
+shapes they refuse. The kernels themselves run only on the card
+(chip_smoke.py, tests/test_torch_gpu.py); on the CPU the wrappers take the
+plain versions, which tests/test_torch_upconv.py and
+tests/test_torch_stem_tc.py hold to the JAX package."""
+
+import pytest
+import torch
+from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
+
+from infinite_texture_gans_torch.ops import kernels as tk
+
+# (N, C, Co, H, W) of x at half resolution: the Experiment-1 step's two fused
+# up-convs (tail blocks 5 and 6, --fuse_up auto)
+EXP1_DX = [(8, 52, 26, 96, 96), (8, 26, 13, 192, 192)]
+
+
+@pytest.mark.parametrize("shape, cc, groups, tiles", [
+    (EXP1_DX[0], 8, 7, (12, 3)),
+    (EXP1_DX[1], 13, 2, (24, 6)),
+])
+def test_upconv_dx_f32_plan_at_exp1(shape, cc, groups, tiles):
+    """52 input channels in 7 groups of 8 (56: 13's 1.2x cost a channel
+    outweighs 4 padded ones), 26 in 2 groups of 13; 8 x 32 tiles cover
+    96^2 and 192^2 exactly; the partials have a row per tile."""
+    n, c, co, h, w = shape
+    plan = tk.upconv_dx_f32_plan(n, c, co, h, w)
+    assert (plan.cc, plan.groups, (plan.tiles_h, plan.tiles_w)) == (cc, groups, tiles)
+    assert plan.part_rows == n * (h // 8) * (w // 32)
+    assert plan.wq_numel == co * groups * 16 * (-(-cc // 4) * 4)
+
+
+@pytest.mark.parametrize("c, cc", [(1, 8), (3, 8), (4, 8), (7, 8), (8, 8), (11, 13), (13, 13),
+                                   (16, 8), (26, 13), (52, 8), (64, 8), (100, 8), (104, 8)])
+def test_upconv_dx_f32_plan_channel_split(c, cc):
+    """The least UPCONV_DX_F32_COST over the padded channels: 13 channels a
+    thread where that pads least (11, 13, 26), else 8, the last group's
+    channels past C zero weights."""
+    plan = tk.upconv_dx_f32_plan(2, c, 5, 20, 20)
+    assert plan.cc == cc
+    assert plan.groups == -(-c // cc) and plan.groups * plan.cc >= c
+
+
+@pytest.mark.parametrize("h, w, tiles", [(64, 16, (8, 1)), (16, 64, (2, 2)), (1, 1, (1, 1)),
+                                         (13, 45, (2, 2)), (17, 19, (3, 1))])
+def test_upconv_dx_f32_plan_tiles_cover_the_image(h, w, tiles):
+    """Every shape takes 8 x 32 half-res tiles, the last row and column of
+    tiles padded; the partials have a row per tile of each image."""
+    plan = tk.upconv_dx_f32_plan(3, 13, 3, h, w)
+    assert (plan.tiles_h, plan.tiles_w) == tiles
+    assert plan.part_rows == 3 * tiles[0] * tiles[1]
+
+
+@pytest.mark.parametrize("shape", [(0, 5, 3, 8, 8), (1, 0, 3, 8, 8), (1, 5, 0, 8, 8),
+                                   (1, 5, 3, 0, 8), (1, 5, 3, 8, 0), (65536, 5, 3, 8, 8)])
+def test_upconv_dx_f32_plan_refuses(shape):
+    with pytest.raises(ValueError, match="upconv3x3_chw_dx"):
+        tk.upconv_dx_f32_plan(*shape)
+
+
+@pytest.mark.parametrize("shape, tiles, chunks, blocks", [
+    ((8, 3, 64, 384, 384), 8 * 24 * 6, 1, 396),  # Experiment-1: 8 fake 384^2 grids
+    ((8, 3, 64, 192, 192), 8 * 12 * 3, 1, 288),  # the SSM recipe's 192^2 fakes
+    ((8, 3, 640, 384, 384), 8 * 24 * 6, 10, 40),  # --D_ch 640
+    ((1, 4, 100, 8, 8), 1, 2, 1),  # fewer tiles than the card holds blocks
+])
+def test_stem_f32_plan(shape, tiles, chunks, blocks):
+    """8 x 32 output pixels x 64 channels a tile; three blocks an SM of 132,
+    shared among the channel chunks, and no more blocks than tiles."""
+    n, c, co, h, w = shape
+    plan = tk.stem_f32_plan(n, c, co, h, w)
+    assert (plan.tiles, plan.chunks, plan.blocks) == (tiles, chunks, blocks)
+
+
+@pytest.mark.parametrize("shape", [(8, 5, 64, 32, 32), (8, 0, 64, 32, 32), (8, 3, 64, 33, 32),
+                                   (8, 3, 64, 32, 31), (8, 3, 0, 32, 32), (0, 3, 64, 32, 32),
+                                   (8, 3, 64, 0, 32)])
+def test_stem_f32_plan_refuses(shape):
+    with pytest.raises(ValueError, match="float32 stem forward"):
+        tk.stem_f32_plan(*shape)
+
+
+@pytest.mark.parametrize("fn, args", [
+    ("upconv3x3_chw_dx", lambda: (torch.zeros(1, 3, 4, 4), torch.zeros(1, 2, 8, 8),
+                                  torch.zeros(2, 3, 3, 3), torch.ones(3), torch.zeros(3), True,
+                                  "replicate")),
+    ("stem_fwd", lambda: (torch.zeros(1, 3, 8, 8), torch.zeros(4, 3, 4, 4), torch.zeros(4))),
+])
+def test_cpu_tensors_take_the_plain_versions(fn, args):
+    """On CPU tensors the wrappers run their plain versions: no kernel is
+    built or launched and no route is counted."""
+    before = dict(tk.ROUTE_LAUNCHES)
+    out = getattr(tk, fn)(*args())
+    plain = getattr(tk, fn + "_plain")(*args())
+    for a, b in zip(out if isinstance(out, tuple) else (out,),
+                    plain if isinstance(plain, tuple) else (plain,)):
+        assert torch.equal(a, b)
+    assert tk.ROUTE_LAUNCHES == before

@@ -20,7 +20,8 @@ def _port_sources():
     return sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "step_parity_study.py",
                                             ROOT / "k10_plan_study.py",
                                             ROOT / "graph_chunk_study.py",
-                                            ROOT / "zoo_precision_study.py"]
+                                            ROOT / "zoo_precision_study.py",
+                                            ROOT / "f32_route_study.py"]
 
 
 def _imported_roots(path: Path):
@@ -48,7 +49,7 @@ def test_package_imports_without_cuda_or_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, step_parity_study, k10_plan_study, graph_chunk_study\n"
-        "import zoo_precision_study\n"
+        "import zoo_precision_study, f32_route_study\n"
         f"bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "from infinite_texture_gans_torch.ops import _build\n"
@@ -70,7 +71,7 @@ def test_cuda_sources_target_sm90a():
     assert names == {"conv3x3_chw", "conv3x3_chw_bwd", "conv1x1_chw", "upsample2_chw", "stem4x4s2",
                      "upconv3x3_chw", "ssm_embed_chw", "ssm_embed_tc", "chw_dx_tc", "chw_dw_tc",
                      "chw_fwd_tc", "stem_fwd_tc", "upconv_fwd_tc", "conv1x1_tc", "upconv_dw_tc",
-                     "stem_dw_tc", "stem_dx_tc"}
+                     "stem_dw_tc", "stem_dx_tc", "upconv_dx_f32", "stem_fwd_f32"}
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
         site = "pallas_ssm.py" if src.stem.startswith("ssm_embed") else "pallas_conv.py"
@@ -81,4 +82,39 @@ def test_upsample2_source_has_no_atomics():
     """K4, K4's adjoint and K10 sum in fixed orders: two calls give the same
     bits (K10's statistics by per-block partials and a last launch)."""
     text = (PACKAGE / "csrc" / "upsample2_chw.cu").read_text()
+    assert "atomicAdd" not in text and "block_sum2_atomic" not in text
+
+
+# The float32 routes redesigned for the H100: K9 dx and K13's forward, each
+# in a source of its own; (source, C entry point, the source that held the
+# old body, pallas_call site)
+F32_REDESIGNED = [
+    ("upconv_dx_f32", "itg_upconv3x3_chw_dx", "upconv3x3_chw", "pallas_conv.py:1642"),
+    ("stem_fwd_f32", "itg_stem_fwd", "stem4x4s2", "pallas_conv.py:2769"),
+]
+
+
+@pytest.mark.parametrize("src, entry, old, site", F32_REDESIGNED,
+                         ids=[r[0] for r in F32_REDESIGNED])
+def test_f32_redesigned_sources_target_sm90a(src, entry, old, site):
+    """Each redesigned float32 kernel is its own source, built with the rest
+    for sm_90a, names the TPU kernel it replaces and its bound on the H100,
+    and defines its C entry point; the old body's source no longer does."""
+    from infinite_texture_gans_torch.ops import _build
+
+    path = _build.CSRC / f"{src}.cu"
+    assert path in set(_build.CSRC.glob("*.cu"))
+    assert "-gencode=arch=compute_90a,code=sm_90a" in _build.FLAGS
+    text = path.read_text()
+    assert site in text and "What bounds it on the H100" in text
+    assert f'extern "C" int {entry}(' in text
+    assert f'extern "C" int {entry}(' not in (_build.CSRC / f"{old}.cu").read_text()
+
+
+@pytest.mark.parametrize("src", [r[0] for r in F32_REDESIGNED])
+def test_f32_redesigned_sources_have_no_atomics(src):
+    """K9 dx's float32 sums (d(scale), d(shift)) are per-block partials added
+    in a fixed order, and K13's forward sums each output in one order: two
+    calls give the same bits."""
+    text = (PACKAGE / "csrc" / f"{src}.cu").read_text()
     assert "atomicAdd" not in text and "block_sum2_atomic" not in text
