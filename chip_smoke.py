@@ -17,7 +17,10 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    two calls bit-equal, and at the flagship sub-image's first and last conv
    four planted faults (ky and kx swapped, the replicate ring as zeros, K2
    ignoring its cached top row, one channel's Σy² x 1.01) must fail those
-   checks; f32 on the CUDA-core kernel of ``csrc/conv3x3_chw.cu``. K3 routes the
+   checks; f32 on the CUDA-core kernel of ``csrc/conv3x3_fwd_f32.cu``, two
+   calls bit-equal and, at the same two convs, a planted fault (the
+   weights' bottom row of taps dropped) at least F32_PLANT times its limit
+   (``check_fwd_f32``). K3 routes the
    same way: bf16 on the tensor-core kernel of ``csrc/conv1x1_tc.cu``, held
    to ``conv1x1_chw_tc_plain`` (W and b rounded to bf16; each y also within
    its own limit, ``k3_limits``), two calls bit-equal, and at each sub-image's
@@ -106,7 +109,17 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    fault each (K9 dx's top border fold dropped, K13's bottom row of taps
    dropped) must read at least F32_PLANT times its limit; and their times
    are printed beside the recorded times of the bodies they replaced
-   (K9DX_F32_PARENT_MS, STEM_F32_PARENT_MS). Times
+   (K9DX_F32_PARENT_MS, STEM_F32_PARENT_MS). K1's and K3-dW's f32 routes
+   (``csrc/conv3x3_fwd_f32.cu``, ``csrc/conv1x1_dw_f32.cu``) are held the same
+   way: two calls bit-equal at every path shape (K1's y, Σy, Σy²; K3-dW's dW
+   and db), a planted fault each (K1's bottom row of taps dropped at block
+   5's shapes; K3-dW's last 64-pixel chunk of each image dropped at the
+   first shortcut of each path) at least F32_PLANT times its limit, and off
+   the path's shapes (``check_f32_edges``): K1 with K5's sums at odd H and
+   W, zeros padding, the ReLU off and an odd Co, K2 in its four border
+   cases; K3-dW at an odd HW, its widest thread grid and one-channel sides;
+   both C entry points in bf16; their times beside the recorded times of
+   the bodies they replaced (K1_F32_PARENT_MS, K3DW_F32_PARENT_MS). Times
    each (CUDA-graph replay) beside its bound, its plain version and one
    PyTorch library call, summed per
    step for each tail, and holds the timed calls per step to the tail's
@@ -193,10 +206,11 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    and K3-dW on their tensor-core entry points only (``[route]``). Then
    the Experiment-1 recipe at ``--compute_dtype float32`` (the train CLI's
    default; cuDNN's TF32 as PyTorch leaves it), graphed, under ``auto`` and
-   ``off``: the warm step and its device busy time beside the recorded
-   parent tree's (F32_STEP_PARENT_MS), and every routed kernel on its
-   CUDA-core entry point only (``[route]``: ``itg_upconv3x3_chw_dx`` 2 and
-   ``itg_stem_fwd`` 2 a step under ``auto``).
+   ``off``, and the SSM recipe the same way: the warm step and its device
+   busy time beside the recorded parent tree's (F32_STEP_PARENT_MS), and
+   every routed kernel on its CUDA-core entry point only (``[route]``:
+   ``itg_upconv3x3_chw_dx`` 2, ``itg_stem_fwd`` 2, ``itg_conv3x3_chw`` 3
+   and ``itg_conv1x1_chw_dw`` 2 a step under ``auto``).
 7. SSM generation from the SSM run's EMA checkpoint through the same
    generation phase (one-pass launches K15 6, K1 5, K3 2, K4 2; per 1024^2
    canvas K15 384, K2 320, K3 128, K4 128; the bf16 raster against the
@@ -416,8 +430,8 @@ KERNELS = {
 # the tensor-core kernels above;
 # float32 (step parity, the f32 raster) keeps the CUDA-core kernels, reported
 # in rows of their own: kernel -> (C entry point, source)
-F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
-             "chw_halo_step": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
+F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_fwd_f32.cu"),
+             "chw_halo_step": ("itg_conv3x3_chw", "conv3x3_fwd_f32.cu"),
              "ssm_embed": ("itg_ssm_embed_fwd", "ssm_embed_chw.cu"),
              "ssm_embed_bwd": ("itg_ssm_embed_bwd", "ssm_embed_chw.cu"),
              "conv3x3_chw_dx": ("itg_conv3x3_chw_dx", "conv3x3_chw_bwd.cu"),
@@ -430,7 +444,7 @@ F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_chw.cu"),
              "upconv3x3_chw": ("itg_upconv3x3_chw", "upconv3x3_chw.cu"),
              "chw_upconv_halo_step": ("itg_upconv3x3_chw", "upconv3x3_chw.cu"),
              "conv1x1_chw": ("itg_conv1x1_chw", "conv1x1_chw.cu"),
-             "conv1x1_chw_dw": ("itg_conv1x1_chw_dw", "conv1x1_chw.cu")}
+             "conv1x1_chw_dw": ("itg_conv1x1_chw_dw", "conv1x1_dw_f32.cu")}
 TC_ENTRY = {"conv3x3_chw": "itg_conv3x3_chw_tc", "chw_halo_step": "itg_conv3x3_chw_tc",
             "ssm_embed": "itg_ssm_embed_tc_fwd", "ssm_embed_bwd": "itg_ssm_embed_tc_bwd",
             "conv3x3_chw_dx": "itg_conv3x3_chw_dx_tc", "conv3x3_chw_dw": "itg_conv3x3_chw_dw_tc",
@@ -686,21 +700,30 @@ STEM_PLANT = 10.0
 # K13's forward, dW and dx at output widths that are no multiple of 8 or
 # above 128 (--D_ch), held to their plain versions beside the flagship's 64
 STEM_ANY_CO = (4, 12, 100, 136, 256)
-# K9 dx's and K13's forward's float32 routes: each planted fault must read at
-# least this many times the check's limit
+# K9 dx's, K13's forward's, K1's and K3-dW's float32 routes: each planted
+# fault must read at least this many times the check's limit
 F32_PLANT = 10.0
 # The float32 bodies that K9 dx's and K13's forward's redesigns replaced
 # (csrc/upconv3x3_chw.cu: upconv_dx_kernel, csrc/stem4x4s2.cu:
-# stem_fwd_kernel), CUDA-graph replay, per call at each timed shape, and the
-# graphed float32 Experiment-1 steps that ran them (warm wall and device
-# busy, ms; cuDNN's TF32 as the train CLI leaves it): the mean of two runs
-# of f32_route_study.py on the parent tree, taken in turns with this tree's
-# in one call on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6)
+# stem_fwd_kernel), CUDA-graph replay, per call at each timed shape: the
+# mean of two runs of f32_route_study.py on that parent tree, taken in turns
+# with the redesign's in one call on one NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 6)
 K9DX_F32_PARENT_MS = {"(8, 52->26, 96x96 -> 192x192)": 0.4037,
                       "(8, 26->13, 192x192 -> 384x384)": 0.4117}
 STEM_F32_PARENT_MS = {"(8, 3, 384x384) -> (8, 192, 192, 64)": 0.3110,
                       "ssm (8, 3, 192x192) -> (8, 96, 96, 64)": 0.0824}
-F32_STEP_PARENT_MS = {"auto": (25.262, 24.319), "off": (28.184, 27.131)}
+# The float32 bodies that K1's and K3-dW's redesigns replaced (the old
+# csrc/conv3x3_chw.cu, csrc/conv1x1_chw.cu: conv1x1_dw_kernel), the same
+# way (K1 with K5's sums where the path takes them), and the graphed float32
+# steps that ran them (warm wall and device busy, ms; cuDNN's TF32 as the
+# train CLI leaves it)
+K1_F32_PARENT_MS = {"(8, 26->26, 192x192)": 0.2779, "(8, 13->13, 384x384)": 0.2754,
+                    "(8, 13->3, 384x384)": 0.1425, "(8, 52->26, 192x192)": 0.5053,
+                    "(8, 26->13, 384x384)": 0.5576, "(8, 26->3, 192x192)": 0.0844}
+K3DW_F32_PARENT_MS = {"(8, 52->26, 96x96)": 0.0546, "(8, 26->13, 192x192)": 0.0879,
+                      "(8, 52->26, 192x192)": 0.2234, "(8, 26->13, 384x384)": 0.3333}
+F32_STEP_PARENT_MS = {"auto": (24.158, 23.271), "off": (27.633, 26.706), "ssm": (55.853, 55.105)}
 # K9/K14's bf16 forward: the same for its planted faults
 UP_PLANT = 10.0
 # K3's and K3-dW's bf16 routes: the same for their planted faults, each
@@ -3428,7 +3451,35 @@ def main() -> int:
             if not r_ > 1.0:
                 fail(f"conv3x3_chw_dw {tag}: the check passes a planted {fault}")
 
-    def check_fwd(where, shape_s, x, wt, b, sc, sh, top, left, outer, halo=True, plant=False):
+    def check_fwd_f32(tag, x, wt, b, sc, sh, top, left, outer, halo, got, ref, plant):
+        """K1/K2's float32 route beyond check_fwd: two calls bit-equal (y, Σy,
+        Σy² and, with ``halo``, K2 with both borders: fixed-order sums), and
+        with ``plant`` (replicate padding) a planted fault (the weights'
+        bottom row of taps dropped, as a kernel skipping it would) must read
+        at least F32_PLANT times the check's limit."""
+        again = kernels.conv3x3_chw(x, wt, b, sc, sh, True, outer, want_stats=True)
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        if halo:
+            same = same and torch.equal(
+                kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, outer, top, left),
+                kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, outer, top, left))
+        print(f"[check] conv3x3_chw {tag}: two calls {'bit-equal' if same else 'differ'}"
+              f"{' (y, Σy, Σy² and K2 with both borders)' if halo else ' (y, Σy, Σy²)'}")
+        if not same:
+            fail(f"conv3x3_chw {tag}: two f32 calls differ")
+        if not plant or outer != "replicate":
+            return
+        w_bad = wt.clone()
+        w_bad[:, :, 2] = 0.0
+        bad = kernels.conv3x3_chw(x, w_bad, b, sc, sh, True, outer).float()
+        r_ = float((bad - ref.float()).abs().max()) / (F32_TOL * max(1.0, float(ref.abs().max())))
+        print(f"[check] conv3x3_chw {tag}: planted the bottom row of taps dropped: max abs err / "
+              f"limit {r_:.2f} (must reach {F32_PLANT:g})")
+        if not r_ >= F32_PLANT:
+            fail(f"conv3x3_chw {tag}: a planted dropped tap row reads only {r_:.2f}x the limit")
+
+    def check_fwd(where, shape_s, x, wt, b, sc, sh, top, left, outer, halo=True, plant=False,
+                  f32_plant=None):
         """K1 with K5's sums and, with ``halo``, K2 in its four border cases
         against their plain versions; returns K1's y. bf16 runs the tensor
         cores: y within BF16_TOL of max|ref| of the plain version with the
@@ -3436,7 +3487,9 @@ def main() -> int:
         distance reported, the sums within SUM_TOL of the plain sums of the
         stored y, two calls bit-equal, and with ``plant`` (replicate padding)
         four planted faults must fail those checks. f32 runs the CUDA
-        cores, held to the plain versions."""
+        cores, held to the plain versions, two calls bit-equal, and with
+        ``f32_plant`` (``plant`` where not given) a planted fault
+        (``check_fwd_f32``)."""
         tc = x.dtype == torch.bfloat16
         tag = f"{where} {shape_s} {outer} [{'tensor cores' if tc else 'CUDA cores'}]"
         plain = kernels.conv3x3_chw_tc_plain if tc else kernels.conv3x3_chw_plain
@@ -3454,6 +3507,8 @@ def main() -> int:
                     kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, outer, tb, lb),
                     halo_plain(x, wt, b, sc, sh, True, outer, tb, lb), floor=floor)
         if not tc:
+            check_fwd_f32(tag, x, wt, b, sc, sh, top, left, outer, halo, (y, s1, s2), ref,
+                          plant if f32_plant is None else f32_plant)
             return y
         unrounded = kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True, outer).float()
         moved = float((y.float() - unrounded).abs().max() / unrounded.abs().max())
@@ -3684,6 +3739,91 @@ def main() -> int:
             if not r_ >= K3_PLANT:
                 fail(f"conv1x1_chw {tag}: a planted {fault} reads only {r_:.2f}x the limit")
 
+    def check_1x1_dw_f32(tag, x, gy, got, ref, plant):
+        """K3-dW's float32 route beyond check_1x1_dw: two calls bit-equal (dW,
+        db: fixed-order partial sums), and with ``plant`` a planted fault
+        (the last pixel chunk of each image dropped, as a kernel skipping
+        it would) must read at least F32_PLANT times the limit."""
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, kernels.conv1x1_chw_dw(x, gy)))
+        print(f"[check] conv1x1_chw_dw {tag}: two calls {'bit-equal' if same else 'differ'} "
+              "(dW, db)")
+        if not same:
+            fail(f"conv1x1_chw_dw {tag}: two f32 calls differ")
+        if not plant:
+            return
+        chunk = kernels.CONV1X1_DW_F32_CHUNK
+        keep = (x.shape[2] * x.shape[3] - 1) // chunk * chunk
+        x_bad, g_bad = x.clone(), gy.clone()
+        x_bad.flatten(2)[..., keep:] = 0.0
+        g_bad.flatten(2)[..., keep:] = 0.0
+        bad = kernels.conv1x1_chw_dw(x_bad, g_bad)
+        r_ = max(float((a - r).abs().max()) / (SUM_TOL * float(r.abs().max()))
+                 for a, r in zip(bad, ref))
+        print(f"[check] conv1x1_chw_dw {tag}: planted the last {chunk}-pixel chunk of each image "
+              f"dropped: max abs err / limit {r_:.2f} (must reach {F32_PLANT:g})")
+        if not r_ >= F32_PLANT:
+            fail(f"conv1x1_chw_dw {tag}: a planted dropped chunk reads only {r_:.2f}x the limit")
+
+    def check_f32_edges(seed):
+        """K1/K2's and K3-dW's float32 routes off the path's shapes: K1 with
+        K5's sums at odd H and W (ragged tiles, element copies), zeros
+        padding, the ReLU off and odd Co, K2 in its four border cases, two
+        calls bit-equal; K3-dW at an odd HW (element copies), its widest
+        thread grid (C = 53, Co = 43) and one-channel sides, two calls
+        bit-equal; both C entry points in bf16."""
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        for n_, c_, co_, h_, w_, outer, relu in ((2, 11, 7, 13, 45, "constant", False),
+                                                 (2, 5, 3, 17, 33, "replicate", False),
+                                                 (1, 13, 13, 9, 7, "constant", True),
+                                                 (3, 26, 3, 40, 64, "replicate", True)):
+            x = randn(g_, n_, c_, h_, w_)
+            wt = randn(g_, co_, c_, 3, 3) * (9 * c_) ** -0.5
+            b, sc, sh = 0.1 * randn(g_, co_), 1 + 0.1 * randn(g_, c_), 0.1 * randn(g_, c_)
+            top = torch.relu(randn(g_, n_, c_, w_ + 2))
+            left = torch.relu(randn(g_, n_, c_, h_))
+            tag = f"({n_}, {c_}->{co_}, {h_}x{w_}) {outer} ReLU {'on' if relu else 'off'} [CUDA cores]"
+            got = kernels.conv3x3_chw(x, wt, b, sc, sh, relu, outer, want_stats=True)
+            compare("conv3x3_chw", tag, got[0], kernels.conv3x3_chw_plain(x, wt, b, sc, sh, relu,
+                                                                          outer))
+            compare_sum("conv3x3_chw", f"Σy {tag}", got[1], got[0].sum(dim=(0, 2, 3)))
+            compare_sum("conv3x3_chw", f"Σy² {tag}", got[2], (got[0] ** 2).sum(dim=(0, 2, 3)))
+            same = all(torch.equal(a, b_) for a, b_ in zip(
+                got, kernels.conv3x3_chw(x, wt, b, sc, sh, relu, outer, want_stats=True)))
+            for case, (t_, l_) in BORDERS.items():
+                tb, lb = (top if t_ else None), (left if l_ else None)
+                y2 = kernels.conv3x3_chw_halo(x, wt, b, sc, sh, relu, outer, tb, lb)
+                compare("chw_halo_step", f"{tag} {case}", y2,
+                        kernels.conv3x3_chw_halo_plain(x, wt, b, sc, sh, relu, outer, tb, lb))
+                same = same and torch.equal(
+                    y2, kernels.conv3x3_chw_halo(x, wt, b, sc, sh, relu, outer, tb, lb))
+            print(f"[check] conv3x3_chw {tag}: two calls {'bit-equal' if same else 'differ'} "
+                  "(y, Σy, Σy², K2 in its four border cases)")
+            if not same:
+                fail(f"conv3x3_chw {tag}: two f32 calls differ")
+        for n_, c_, co_, h_, w_ in ((3, 52, 26, 13, 45), (2, 53, 43, 10, 10), (2, 1, 95, 8, 8),
+                                    (2, 95, 1, 9, 9)):
+            x, gy = randn(g_, n_, c_, h_, w_), randn(g_, n_, co_, h_, w_)
+            tag = f"({n_}, {c_}->{co_}, {h_}x{w_}) [CUDA cores]"
+            got = kernels.conv1x1_chw_dw(x, gy)
+            ref = kernels.conv1x1_chw_dw_plain(x, gy)
+            compare_sum("conv1x1_chw_dw", f"dW {tag}", got[0], ref[0])
+            compare_sum("conv1x1_chw_dw", f"db {tag}", got[1], ref[1])
+            check_1x1_dw_f32(tag, x, gy, got, ref, False)
+        # the CUDA-core entry points take bf16 too (timed beside the tensor cores)
+        x = randn(g_, 2, 26, 24, 40).bfloat16()
+        wt = randn(g_, 13, 26, 3, 3) * 234 ** -0.5
+        b, sc, sh = 0.1 * randn(g_, 13), 1 + 0.1 * randn(g_, 26), 0.1 * randn(g_, 26)
+        compare("conv3x3_chw", "bf16 (2, 26->13, 24x40) through itg_conv3x3_chw [CUDA cores]",
+                kernels._fwd_cuda_cores(x, wt, b, sc, sh, True, False, None, None)[0],
+                kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True, "replicate"))
+        gy = randn(g_, 2, 13, 24, 40).bfloat16()
+        dw_ = kernels._conv1x1_dw_cuda_cores(x, gy)
+        ref = kernels.conv1x1_chw_dw_plain(x, gy)
+        compare_sum("conv1x1_chw_dw", "dW bf16 (2, 26->13, 24x40) through itg_conv1x1_chw_dw",
+                    dw_[0], ref[0])
+        compare_sum("conv1x1_chw_dw", "db bf16 (2, 26->13, 24x40) through itg_conv1x1_chw_dw",
+                    dw_[1], ref[1])
+
     def check_1x1_dw(tag, x, gy, plant=False):
         """K3-dW against its plain version: dW and db within SUM_TOL of the
         plain version on both routes (bf16 on the tensor cores: its operands
@@ -3691,7 +3831,8 @@ def main() -> int:
         two calls bit-equal and, with ``plant``, three planted faults (one
         input channel's dW x 1.01, the last pixel tile of each image dropped,
         db taken from one image only) must read at least K3_PLANT times the
-        limit."""
+        limit; f32 two calls bit-equal and, with ``plant``, a planted fault
+        (``check_1x1_dw_f32``)."""
         tc = x.dtype == torch.bfloat16
         tag = f"{tag} [{'tensor cores' if tc else 'CUDA cores'}]"
         got = kernels.conv1x1_chw_dw(x, gy)
@@ -3699,6 +3840,7 @@ def main() -> int:
         compare_sum("conv1x1_chw_dw", f"dW {tag}", got[0], ref[0])
         compare_sum("conv1x1_chw_dw", f"db {tag}", got[1], ref[1])
         if not tc:
+            check_1x1_dw_f32(tag, x, gy, got, ref, plant)
             return
         same = all(torch.equal(a, b_) for a, b_ in zip(got, kernels.conv1x1_chw_dw(x, gy)))
         print(f"[check] conv1x1_chw_dw {tag}: two calls {'bit-equal' if same else 'differ'}")
@@ -4185,7 +4327,8 @@ def main() -> int:
             shape_s = f"({n}, {c}->{co}, {h}x{w})"
             for outer in ("replicate", "constant"):
                 tag = f"{shape_s} {outer}"
-                y = check_fwd("train", shape_s, x, wt, b, sc, sh, None, None, outer, halo=False)
+                y = check_fwd("train", shape_s, x, wt, b, sc, sh, None, None, outer, halo=False,
+                              f32_plant=i < 2)
                 # planted faults at the block's two 192^2 shapes
                 check_dx("conv3x3_chw_dx", tag, x, gy, wt, sc, sh, outer, plant=i < 2)
                 check_dw(tag, x, gy, sc, sh, outer, plant=i < 2)
@@ -4206,7 +4349,8 @@ def main() -> int:
                         lambda: kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True,
                                                           want_stats=with_stats),
                         lambda: F.conv2d(a_pad, wt, b), act * (c + co) * es + pbytes + 2 * c * 4,
-                        flops, tails=tails, peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                        flops, tails=tails, peak=PEAK_F32_FLOP_PER_S, f32_route=True,
+                        parent_ms=K1_F32_PARENT_MS.get(shape_s))
                 account("conv3x3_chw_dx", f"{shape_s} [CUDA cores, f32]",
                         lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
@@ -4291,7 +4435,8 @@ def main() -> int:
                     lambda: kernels.conv1x1_chw_dw_plain(x, gy),
                     lambda: torch.nn.grad.conv2d_weight(x, wl.shape, gy),
                     act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("off",),
-                    **f32, old_fn=(lambda: kernels._conv1x1_dw_cuda_cores(x, gy)) if timed else None)
+                    **f32, old_fn=(lambda: kernels._conv1x1_dw_cuda_cores(x, gy)) if timed else None,
+                    parent_ms=None if timed else K3DW_F32_PARENT_MS.get(shape_s))
         for i, (c, h, w) in enumerate(up2_t):
             g_ = torch.Generator(device=dev).manual_seed(500 + i)
             x = randn(g_, n, c, h, w).to(dtype)
@@ -4439,7 +4584,8 @@ def main() -> int:
                         lambda: kernels.conv1x1_chw_dw(x, s_half),
                         lambda: kernels.conv1x1_chw_dw_plain(x, s_half),
                         lambda: torch.nn.grad.conv2d_weight(x, w3l.shape, s_half),
-                        act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, **f32)
+                        act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, **f32,
+                        parent_ms=K3DW_F32_PARENT_MS.get(half_s))
                 account("upconv3x3_chw", f"{shape_s} +stats [CUDA cores, f32]",
                         lambda: kernels.upconv3x3_chw(x, wt, b, sc, sh, True, want_stats=True),
                         lambda: kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, want_stats=True),
@@ -4530,6 +4676,7 @@ def main() -> int:
         tag = f"({n_}, {c_}->{co_}, {h_}x{w_} -> {2 * h_}x{2 * w_})"
         check_dx("upconv3x3_chw_dx", f"{tag} {outer}", x, gy, wt, sc, sh, outer)
         check_updx_f32(tag, x, gy, wt, sc, sh, outer)
+    check_f32_edges(790)
     g_ = torch.Generator(device=dev).manual_seed(770)
     check_f32_entry_bf16("bf16 (2, 52->26, 24x24)", randn(g_, 2, 52, 24, 24).bfloat16(),
                          randn(g_, 2, 26, 48, 48).bfloat16(), randn(g_, 26, 52, 3, 3) * 468 ** -0.5,
@@ -4663,7 +4810,7 @@ def main() -> int:
             alpha, beta2 = 1e-3 * randn(g_, co), 1e-4 * randn(g_, co)
             tag = f"ssm ({n}, {c}->{co}, {h}x{w}) identity fold"
             y = check_fwd("ssm", f"({n}, {c}->{co}, {h}x{w}) identity fold", x, wt, b, sc, sh,
-                          None, None, "replicate", halo=False)
+                          None, None, "replicate", halo=False, f32_plant=i == 0)
             check_dx("conv3x3_chw_dx", tag, x, gy, wt, sc, sh, "replicate")
             check_dw(tag, x, gy, sc, sh, "replicate")
             if with_stats:
@@ -4681,7 +4828,8 @@ def main() -> int:
                         lambda: kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True,
                                                           want_stats=with_stats),
                         lambda: F.conv2d(a_pad, wt, b), act * (c + co) * es + pbytes + 2 * c * 4,
-                        flops, tails=("ssm",), peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                        flops, tails=("ssm",), peak=PEAK_F32_FLOP_PER_S, f32_route=True,
+                        parent_ms=K1_F32_PARENT_MS.get(shape_s))
                 account("conv3x3_chw_dx", f"{shape_s} [CUDA cores, f32]",
                         lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
@@ -4781,7 +4929,8 @@ def main() -> int:
                 lambda: kernels.conv1x1_chw_dw_plain(x, gy),
                 lambda: torch.nn.grad.conv2d_weight(x, wl.shape, gy),
                 act * (c + co) * es + (co * c + co) * 4, 2.0 * act * co * c, tails=("ssm",), **f32,
-                old_fn=(lambda: kernels._conv1x1_dw_cuda_cores(x, gy)) if timed else None)
+                old_fn=(lambda: kernels._conv1x1_dw_cuda_cores(x, gy)) if timed else None,
+                parent_ms=None if timed else K3DW_F32_PARENT_MS.get(shape_s))
         wsl, gs_nchw = ws.to(dtype), gs.permute(0, 3, 1, 2)
         if not timed:  # K13 dW's and dx's f32 routes (CUDA cores), in rows of their own
             account("stem_dw", f"{stem_s} [CUDA cores, f32]", lambda: kernels.stem_dw(xs, gs),
@@ -4927,10 +5076,11 @@ def main() -> int:
         print(f"[train] {TRAIN_PATHS[tail][0]}, {form}: warm step {warm * 1e3:.2f} ms "
               f"({1.0 / warm:.3f} steps/s), device busy per traced step {share}, peak device "
               f"memory {peak / 2**30:.3f} GiB [{card}]")
-    # the graphed float32 Experiment-1 steps as the train CLI runs them: its
-    # default --compute_dtype, cuDNN's TF32 as PyTorch leaves it
+    # the graphed float32 steps (Experiment-1 auto and off, SSM) as the train
+    # CLI runs them: its default --compute_dtype, cuDNN's TF32 as PyTorch
+    # leaves it
     torch.backends.cudnn.allow_tf32 = True
-    for tail in ("auto", "off"):
+    for tail in ("auto", "off", "ssm"):
         argv32 = [a if a != "bfloat16" else "float32" for a in recipes[tail]]
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
         _, warm, busy, routed, _ = training_run(

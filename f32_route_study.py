@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The float32 route of K9 dx (``upconv3x3_chw_dx``) and K13's forward
-(``stem_fwd``) on one CUDA card, with the graphed float32 Experiment-1 steps
-they run in, for one tree of the repository.
+"""The float32 route of K9 dx (``upconv3x3_chw_dx``), K13's forward
+(``stem_fwd``), K3-dW (``conv1x1_chw_dw``) and K1/K2 (``conv3x3_chw``,
+``conv3x3_chw_halo``) on one CUDA card, with the graphed float32 steps they
+run in, for one tree of the repository.
 
 Run from the root of a checkout on a machine with a card:
 ``python3 f32_route_study.py [--tree DIR] [--out FILE]``. It
@@ -10,7 +11,8 @@ checkout), with that tree's ``chip_smoke.py`` for the train loop's run;
 the kernels are built from that tree's sources into its own ``build/``.
 The yardstick is this checkout's ``chip_smoke.py`` whatever the tree: its
 graph-replay timer (``device_ms``), its bounds (``bound_ms`` of
-``upconv_dx_work`` and ``stem_fwd_work``) and ``card_line``. So another
+``upconv_dx_work``, ``stem_fwd_work`` and the byte and FFMA counts of K3-dW
+and K1) and ``card_line``. So another
 tree, such as a parent commit unpacked with ``git archive`` into an ignored
 directory, is timed by the same code; to compare two trees, run them in
 turns in one call on one card (parent, this, this, parent).
@@ -25,9 +27,17 @@ mask; K13: ``F.conv2d`` writing NHWC) and the largest deviation from the
 plain version. Where the tree has the float32 K9 dx planner
 (``kernels.upconv_dx_f32_plan``), it also times the C entry point at each
 CC of UPCONV_DX_F32_CC: the plan table UPCONV_DX_F32_COST is read from.
-Then it runs the train loop's graphed float32 Experiment-1 steps
-(``--fuse_up auto`` and ``off``, ``--compute_dtype float32``, cuDNN's TF32
-as PyTorch leaves it, which is how the train CLI runs them) through
+K3-dW at the shortcuts of the Experiment-1 steps (``auto``: 52 -> 26 at
+96^2 and 26 -> 13 at 192^2; ``off``: 52 -> 26 at 192^2, also the SSM step's,
+and 26 -> 13 at 384^2; N = 8) beside ``conv2d_weight``; K1 at every float32
+training shape (N = 8; K5's sums where the path takes them) beside
+``F.conv2d`` of the post-norm input padded beforehand, and, where the tree has
+``kernels.conv3x3_f32_plan``, the C entry point at each (TO, G) plan; K1
+and K2 (both cached borders) at the flagship's 384^2 sub-image at eval
+(blocks 4-6, N = 1), the float32 canvases' shapes. Then it runs the train
+loop's graphed float32 steps (Experiment-1 ``--fuse_up auto`` and ``off``,
+and the SSM recipe; ``--compute_dtype float32``, cuDNN's TF32 as PyTorch
+leaves it, which is how the train CLI runs them) through
 ``chip_smoke.py: training_run`` (the warm step: the median of the steps
 before the traced window; the device busy time per traced step). The
 card's name and power limit head the output; the last line is one JSON
@@ -51,6 +61,21 @@ HERE = Path(__file__).resolve().parent
 DX_SHAPES = ((8, 52, 26, 96, 96), (8, 26, 13, 192, 192))
 STEM_SHAPES = {"Exp-1": (8, 3, 384, 384, 64), "--D_ch 640": (8, 3, 384, 384, 640),
                "SSM": (8, 3, 192, 192, 64)}
+# K3-dW: (N, C, Co, H, W) and the paths that run it once a step
+DW_SHAPES = {(8, 52, 26, 96, 96): ("auto",), (8, 26, 13, 192, 192): ("auto",),
+             (8, 52, 26, 192, 192): ("off", "ssm"), (8, 26, 13, 384, 384): ("off",)}
+# K1 in training: (N, C, Co, H, W, with K5's sums) and the paths that run it
+# once a step
+K1_SHAPES = {(8, 26, 26, 192, 192, False): ("auto", "off", "ssm"),
+             (8, 13, 13, 384, 384, False): ("auto", "off"),
+             (8, 13, 3, 384, 384, False): ("auto", "off"),
+             (8, 52, 26, 192, 192, True): ("off", "ssm"),
+             (8, 26, 13, 384, 384, True): ("off",),
+             (8, 26, 3, 192, 192, False): ("ssm",)}
+# K1 / K2 at eval: the flagship's 384^2 sub-image, blocks 4-6 (N = 1)
+EVAL_SHAPES = ((1, 104, 52, 96, 96), (1, 52, 52, 96, 96), (1, 52, 26, 192, 192),
+               (1, 26, 26, 192, 192), (1, 26, 13, 384, 384), (1, 13, 13, 384, 384),
+               (1, 13, 3, 384, 384))
 
 
 def tree_chip_smoke(tree: Path):
@@ -100,7 +125,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"tree": str(tree), "card": card, "upconv3x3_chw_dx": {}, "stem_fwd": {}, "steps": {},
+    out = {"tree": str(tree), "card": card, "upconv3x3_chw_dx": {}, "stem_fwd": {},
+           "conv1x1_chw_dw": {}, "conv3x3_chw": {}, "eval": {}, "per_step": {}, "steps": {},
            "plans": {}}
     plans = hasattr(kernels, "upconv_dx_f32_plan")
 
@@ -171,22 +197,129 @@ def main(argv=None) -> int:
               f"{row['max_abs_err']:.3e} (max|ref| {row['max_ref']:.3e})  [{card}]")
         del x, got, ref
 
+    def per_step(name, paths, ms, lib, bound):
+        for path in paths:
+            row = out["per_step"].setdefault(f"{name} {path}", dict(ms=0.0, library_ms=0.0,
+                                                                    bound_ms=0.0))
+            row["ms"] += ms
+            row["library_ms"] += lib
+            row["bound_ms"] += bound
+
+    for i, ((n, c, co, h, w), paths) in enumerate(DW_SHAPES.items()):
+        g_ = torch.Generator(device=dev).manual_seed(800 + i)
+        x = torch.randn(n, c, h, w, device=dev, generator=g_)
+        gy = torch.randn(n, co, h, w, device=dev, generator=g_)
+        got = kernels.conv1x1_chw_dw(x, gy)
+        ref = kernels.conv1x1_chw_dw_plain(x, gy)
+        act = n * h * w
+        row = {"ms": yard.device_ms(lambda: kernels.conv1x1_chw_dw(x, gy)),
+               "library_ms": yard.device_ms(lambda: torch.nn.grad.conv2d_weight(
+                   x, (co, c, 1, 1), gy)),
+               "bound_ms": yard.bound_ms(act * (c + co) * 4 + (co * c + co) * 4,
+                                         2.0 * act * co * c, f32_flop_per_s, bytes_per_s),
+               "max_abs_err": err(got, ref), "max_ref": float(ref[0].abs().max())}
+        key = f"({n}, {c}->{co}, {h}x{w})"
+        out["conv1x1_chw_dw"][key] = row
+        per_step("conv1x1_chw_dw", paths, row["ms"], row["library_ms"], row["bound_ms"])
+        print(f"[time] conv1x1_chw_dw f32 {key}: kernel {row['ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, max abs err "
+              f"{row['max_abs_err']:.3e} (max|ref| {row['max_ref']:.3e})  [{card}]")
+        del x, gy
+
+    k1_plans = hasattr(kernels, "conv3x3_f32_plan")
+
+    def k1_inputs(seed, n, c, co, h, w):
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(n, c, h, w, device=dev, generator=g_)
+        wt = torch.randn(co, c, 3, 3, device=dev, generator=g_) * (9 * c) ** -0.5
+        b = 0.1 * torch.randn(co, device=dev, generator=g_)
+        sc = 1 + 0.1 * torch.randn(c, device=dev, generator=g_)
+        sh = 0.1 * torch.randn(c, device=dev, generator=g_)
+        top = torch.relu(torch.randn(n, c, w + 2, device=dev, generator=g_))
+        left = torch.relu(torch.randn(n, c, h, device=dev, generator=g_))
+        a_pad = F.pad(kernels.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
+        return x, wt, b, sc, sh, top, left, a_pad
+
+    def k1_plan_table(key, x, wt, b, sc, sh):
+        """The C entry point at each (TO, G) the kernel takes."""
+        n, c, h, w = x.shape
+        co = wt.shape[0]
+        y = torch.empty(n, co, h, w, device=dev)
+        for to in kernels.CONV3X3_F32_TO:
+            for g in kernels.CONV3X3_F32_G:
+                if g > -(-co // to) and g > 1:
+                    continue
+
+                def entry():
+                    rc = kernels._lib().itg_conv3x3_chw(
+                        x.data_ptr(), wt.data_ptr(), b.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+                        None, None, y.data_ptr(), None, None, None, n, c, h, w, co, 1, 0, 0, to,
+                        g, kernels._stream(x))
+                    if rc:
+                        raise RuntimeError(f"itg_conv3x3_chw: CUDA error {rc}")
+
+                plan_ms = yard.device_ms(entry)
+                out["plans"][f"conv3x3_chw {key} to {to} g {g}"] = plan_ms
+                print(f"[plan] conv3x3_chw f32 {key}: to {to} g {g}: {plan_ms:.4f} ms  [{card}]")
+
+    for i, ((n, c, co, h, w, stats), paths) in enumerate(K1_SHAPES.items()):
+        x, wt, b, sc, sh, _, _, a_pad = k1_inputs(820 + i, n, c, co, h, w)
+        got = kernels.conv3x3_chw(x, wt, b, sc, sh, True)
+        ref = kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True)
+        act = n * h * w
+        row = {"ms": yard.device_ms(lambda: kernels.conv3x3_chw(x, wt, b, sc, sh, True,
+                                                                want_stats=stats)),
+               "library_ms": yard.device_ms(lambda: F.conv2d(a_pad, wt, b)),
+               "bound_ms": yard.bound_ms(act * (c + co) * 4 + (co * c * 9 + co + 2 * c) * 4,
+                                         2.0 * act * co * c * 9, f32_flop_per_s, bytes_per_s),
+               "max_abs_err": err((got,), (ref,)), "max_ref": float(ref.abs().max())}
+        key = f"({n}, {c}->{co}, {h}x{w}){' +stats' if stats else ''}"
+        out["conv3x3_chw"][key] = row
+        per_step("conv3x3_chw", paths, row["ms"], row["library_ms"], row["bound_ms"])
+        print(f"[time] conv3x3_chw f32 {key}: kernel {row['ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, max abs err "
+              f"{row['max_abs_err']:.3e} (max|ref| {row['max_ref']:.3e})  [{card}]")
+        if k1_plans:
+            k1_plan_table(key, x, wt, b, sc, sh)
+        del x, got, ref, a_pad
+    for i, (n, c, co, h, w) in enumerate(EVAL_SHAPES):
+        x, wt, b, sc, sh, top, left, a_pad = k1_inputs(840 + i, n, c, co, h, w)
+        got = kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate", top, left)
+        ref = kernels.conv3x3_chw_halo_plain(x, wt, b, sc, sh, True, "replicate", top, left)
+        row = {"k1_ms": yard.device_ms(lambda: kernels.conv3x3_chw(x, wt, b, sc, sh, True)),
+               "k2_ms": yard.device_ms(lambda: kernels.conv3x3_chw_halo(
+                   x, wt, b, sc, sh, True, "replicate", top, left)),
+               "library_ms": yard.device_ms(lambda: F.conv2d(a_pad, wt, b)),
+               "k2_max_abs_err": err((got,), (ref,))}
+        key = f"({n}, {c}->{co}, {h}x{w})"
+        out["eval"][key] = row
+        print(f"[time] eval f32 {key}: K1 {row['k1_ms']:.4f} ms, K2 (both borders) "
+              f"{row['k2_ms']:.4f} ms, library {row['library_ms']:.4f} ms, K2 max abs err "
+              f"{row['k2_max_abs_err']:.3e}  [{card}]")
+        if k1_plans:
+            k1_plan_table(key, x, wt, b, sc, sh)
+        del x, got, ref, a_pad
+    for name, row in out["per_step"].items():
+        print(f"[step sum] {name}: kernel {row['ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms a step  [{card}]")
+
     # the graphed float32 steps, as the train CLI runs them (cuDNN's TF32 on:
     # PyTorch's default, which the port leaves alone)
     torch.backends.cudnn.allow_tf32 = True
-    argv32 = [a if a != "bfloat16" else "float32" for a in cs.EXP1_ARGS]
-    for tail in ("auto", "off"):
+    recipes = {"auto": cs.EXP1_ARGS + ["--fuse_up", "auto"],
+               "off": cs.EXP1_ARGS + ["--fuse_up", "off"], "ssm": cs.SSM_ARGS}
+    entries = ("itg_upconv3x3_chw_dx", "itg_stem_fwd", "itg_conv1x1_chw_dw", "itg_conv3x3_chw")
+    for tail, argv in recipes.items():
+        argv32 = [a if a != "bfloat16" else "float32" for a in argv]
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
         launches, warm, busy, routed, peak = cs.training_run(
-            dev, argv32 + ["--fuse_up", tail], cs.TRAIN_STEPS, cs.STEP_LAUNCHES[tail],
-            torch.cuda.synchronize, card, tree / "build" / f"f32_study_{tail}", "0", render=False)
+            dev, argv32, cs.TRAIN_STEPS, cs.STEP_LAUNCHES[tail], torch.cuda.synchronize, card,
+            tree / "build" / f"f32_study_{tail}", "0", render=False)
         out["steps"][tail] = {"wall_ms": warm * 1e3, "busy_ms": busy, "peak_gib": peak / 2**30,
-                              "itg_upconv3x3_chw_dx": routed["itg_upconv3x3_chw_dx"],
-                              "itg_stem_fwd": routed["itg_stem_fwd"]}
-        print(f"[step] float32 --fuse_up {tail}, graphed: warm step {warm * 1e3:.2f} ms, busy "
+                              **{e: routed[e] for e in entries}}
+        print(f"[step] float32 {tail}, graphed: warm step {warm * 1e3:.2f} ms, busy "
               f"{busy if busy is None else round(busy, 3)} ms per traced step; routed launches "
-              f"itg_upconv3x3_chw_dx {routed['itg_upconv3x3_chw_dx']}, itg_stem_fwd "
-              f"{routed['itg_stem_fwd']}  [{card}]")
+              + ", ".join(f"{e} {routed[e]}" for e in entries) + f"  [{card}]")
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))
     print(json.dumps(out))

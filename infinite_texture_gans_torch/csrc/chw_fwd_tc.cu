@@ -18,7 +18,7 @@
 // rounds them on this path (pallas_conv.py:615, :949, :999, :1093), the bias
 // (float32) is added to the float32 sum before y's one rounding to bf16, and
 // with stats (K5) the kernel gives the float32 per-channel sums of the STORED
-// y and y^2. Float32 activations keep the CUDA-core kernel of conv3x3_chw.cu.
+// y and y^2. Float32 activations take the CUDA-core kernel of conv3x3_fwd_f32.cu.
 //
 // What bounds it on the H100: 2 * 9 * C * Co FLOPs per output pixel against
 // 2 (C + Co) bytes of x and y; at the tail's shapes (C -> Co of 104 -> 52 down

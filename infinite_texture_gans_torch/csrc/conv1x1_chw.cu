@@ -1,39 +1,31 @@
 // 1x1 convolution (+ bias, + optional residual, + optional output stats) on
-// channels-major (N, C, H, W) activations, and its weight gradient: the
-// generator ResBlock's shortcut fused with the residual add.
+// channels-major (N, C, H, W) activations: the generator ResBlock's
+// shortcut fused with the residual add. (Its weight gradient, K3-dW, is in
+// conv1x1_dw_f32.cu on the float32 route and conv1x1_tc.cu in bf16.)
 //
-// Replaces two TPU kernels:
-//   K3 infinite_texture_gans_tpu/ops/pallas_conv.py:_conv1x1_chw_fwd (:2311,
-//      kernel _conv1x1_kernel :2243), called through conv1x1_chw (:2381),
-//      conv1x1_chw_add (:2412) and, with the per-channel sums of the stored
-//      output, conv1x1_chw_add_stats (:2435) / conv1x1_chw_add_p (:1140).
-//      y = W x + b (+ res), per pixel. Its dx is this kernel again with the
-//      transposed weights and a zero bias, as the reference's
-//      _conv1x1_bwd_rule (:2397) does.
-//   K3-dW pallas_conv.py:_conv1x1_chw_dw (:2361, kernel _dw1x1_kernel :2326):
-//      dW[o, c] = sum g[o] x[c] and db[o] = sum g[o] over (N, H, W).
+// Replaces K3 infinite_texture_gans_tpu/ops/pallas_conv.py:_conv1x1_chw_fwd
+// (:2311, kernel _conv1x1_kernel :2243), called through conv1x1_chw (:2381),
+// conv1x1_chw_add (:2412) and, with the per-channel sums of the stored
+// output, conv1x1_chw_add_stats (:2435) / conv1x1_chw_add_p (:1140).
+// y = W x + b (+ res), per pixel. Its dx is this kernel again with the
+// transposed weights and a zero bias, as the reference's _conv1x1_bwd_rule
+// (:2397) does.
 //
-// What bounds them on the H100: the forward does 2 * C * Co FLOPs per pixel
-// against 2 * (C + 2 Co) bytes in bf16 (x, res, y), about 23 FLOP/byte at
-// the flagship 104 -> 52: well under the ridge, so the bound is bytes. The
-// dW reduction reads x and g once (2 * (C + Co) bytes per pixel) for
-// 2 * C * Co FLOPs: bytes again at these widths.
+// What bounds it on the H100: 2 * C * Co FLOPs per pixel against
+// 2 * (C + 2 Co) bytes in bf16 (x, res, y), about 23 FLOP/byte at the
+// flagship 104 -> 52: well under the ridge, so the bound is bytes.
 // Since the tensor-core redesign (conv1x1_tc.cu), bfloat16 activations take
-// that file's kernels and this one is the float32 route: step parity's
+// that file's kernel and this one is the float32 route: step parity's
 // exactness route, which sums in float32 with float32 weights. Its C
-// functions still take bf16 (the design the tensor-core kernels replaced,
-// timed beside them by chip_smoke.py).
+// function still takes bf16 (the design the tensor-core kernel replaced,
+// timed beside it by chip_smoke.py).
 // What the design does about it: the forward runs one thread per pixel,
 // walks the C input channels with coalesced loads along the pixel axis,
 // reads the block's (C, TCO) weight slice from shared memory as float4
 // broadcasts and writes y once; the stats epilogue reduces each block's
 // stored values in registers and shared memory and adds them with one
-// atomicAdd per block and channel. The dW kernel stages a 64-pixel chunk of
-// x and g in shared memory (rows padded to an odd stride, so the threads of
-// a warp, which own neighbouring input channels, hit distinct banks), keeps
-// each thread's (o, c) pairs in registers across all the chunks it visits,
-// and adds them to the zeroed output once per block. The TPU kernels' lane
-// padding and fill matrices have no counterpart.
+// atomicAdd per block and channel. The TPU kernel's lane padding and fill
+// matrices have no counterpart.
 #include "common.cuh"
 
 namespace {
@@ -122,79 +114,6 @@ int dispatch(const void* x, const float* w, const float* b, const void* res, voi
   return launch<T, 16>(x, w, b, res, y, s1, s2, n, c, hw, co, stream);
 }
 
-// ---------------------------------------------------------------------------
-// dW: (o, c) pairs in registers, 64-pixel chunks of x and g in shared memory.
-
-constexpr int kChunkPx = 64;
-constexpr int kStride = kChunkPx + 1;   // odd row stride: conflict-free columns
-constexpr int kMaxPairs = 16;           // pairs per thread: Co * C <= 4096
-constexpr int kMaxRows = 96;            // C + Co staged rows
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv1x1_dw_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ dw,
-                  float* __restrict__ db, int C, int HW, int Co, long long total) {
-  __shared__ float s_x[kMaxRows * kStride];  // rows 0..C-1: x, rows C..C+Co-1: g
-  const int tid = threadIdx.x;
-  const int pairs = C * Co;
-  float acc[kMaxPairs];
-  float dbacc = 0.f;
-#pragma unroll
-  for (int k = 0; k < kMaxPairs; ++k) acc[k] = 0.f;
-  const float* s_g = s_x + C * kStride;
-
-  for (long long q0 = static_cast<long long>(blockIdx.x) * kChunkPx; q0 < total;
-       q0 += static_cast<long long>(gridDim.x) * kChunkPx) {
-    for (int i = tid; i < (C + Co) * kChunkPx; i += kThreads) {
-      const int row = i / kChunkPx;
-      const int j = i % kChunkPx;
-      const long long q = q0 + j;
-      float v = 0.f;
-      if (q < total) {
-        const int nimg = static_cast<int>(q / HW);
-        const int p = static_cast<int>(q - static_cast<long long>(nimg) * HW);
-        v = row < C ? to_f32<T>(x[(static_cast<size_t>(nimg) * C + row) * HW + p])
-                    : to_f32<T>(g[(static_cast<size_t>(nimg) * Co + (row - C)) * HW + p]);
-      }
-      s_x[row * kStride + j] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kMaxPairs; ++k) {
-      const int pr = tid + k * kThreads;
-      if (pr < pairs) {
-        const float* xr = s_x + (pr % C) * kStride;
-        const float* gr = s_g + (pr / C) * kStride;
-        float a = acc[k];
-        for (int j = 0; j < kChunkPx; ++j) a = fmaf(gr[j], xr[j], a);
-        acc[k] = a;
-      }
-    }
-    if (tid < Co) {
-      const float* gr = s_g + tid * kStride;
-      for (int j = 0; j < kChunkPx; ++j) dbacc += gr[j];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int k = 0; k < kMaxPairs; ++k) {
-    const int pr = tid + k * kThreads;
-    if (pr < pairs) atomicAdd(dw + pr, acc[k]);  // dw (Co, C): pr = o * C + c
-  }
-  if (tid < Co) atomicAdd(db + tid, dbacc);
-}
-
-template <typename T>
-int launch_dw(const void* x, const void* g, float* dw, float* db, int n, int c, int hw, int co,
-              cudaStream_t stream) {
-  const long long total = static_cast<long long>(n) * hw;
-  const long long chunks = (total + kChunkPx - 1) / kChunkPx;
-  const int blocks = static_cast<int>(chunks < 4 * 132 ? chunks : 4 * 132);
-  conv1x1_dw_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), dw, db, c, hw, co, total);
-  return itg::last_error();
-}
-
 }  // namespace
 
 // x (N, C, HW), res and y (N, Co, HW): activation type (float32, or bfloat16
@@ -212,17 +131,4 @@ extern "C" int itg_conv1x1_chw(const void* x, const void* w, const void* b, cons
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16) return dispatch<__nv_bfloat16>(x, wf, bf, res, y, a, q, n, c, hw, co, st);
   return dispatch<float>(x, wf, bf, res, y, a, q, n, c, hw, co, st);
-}
-
-// x (N, C, HW), g (N, Co, HW): activation type. dw (Co, C) and db (Co):
-// float32, zeroed by the caller; the kernel adds into them. Needs
-// C * Co <= 4096 and C + Co <= 96. Returns cudaGetLastError().
-extern "C" int itg_conv1x1_chw_dw(const void* x, const void* g, void* dw, void* db, int n, int c,
-                                  int hw, int co, int bf16, void* stream) {
-  if (c * co > kMaxPairs * kThreads || c + co > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
-  auto* w = static_cast<float*>(dw);
-  auto* b = static_cast<float*>(db);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch_dw<__nv_bfloat16>(x, g, w, b, n, c, hw, co, st);
-  return launch_dw<float>(x, g, w, b, n, c, hw, co, st);
 }

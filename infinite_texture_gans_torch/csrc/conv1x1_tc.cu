@@ -15,7 +15,8 @@
 //      in float32 and the kernel computes the plain version's function
 //      (ops/kernels.py: conv1x1_chw_dw_plain); only the order of the sums
 //      differs.
-// Float32 activations keep the CUDA-core kernels of conv1x1_chw.cu.
+// Float32 activations take the CUDA-core kernels of conv1x1_chw.cu (K3) and
+// conv1x1_dw_f32.cu (K3-dW).
 //
 // What bounds them on the H100: the forward does 2 C Co operations per pixel
 // against 2 (C + 2 Co) bytes (x, res, y): at most 35 per byte on the main

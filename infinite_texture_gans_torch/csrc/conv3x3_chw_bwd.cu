@@ -1,5 +1,5 @@
 // Backward of the fused BN-fold -> ReLU -> border -> 3x3 convolution of
-// conv3x3_chw.cu, on channels-major (N, C, H, W) activations.
+// conv3x3_fwd_f32.cu, on channels-major (N, C, H, W) activations.
 //
 // Replaces three TPU kernels of infinite_texture_gans_tpu/ops/pallas_conv.py:
 //   K6 _conv3x3_chw_dx (:775, kernel _dx_kernel :644): da = conv3x3^T(g) on

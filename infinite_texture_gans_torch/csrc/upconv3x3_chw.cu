@@ -12,7 +12,7 @@
 //      half-res top row (C, W + 2, corners included) and left column (C, H)
 //      come post-norm from the halo cache. The full-res halo row of the
 //      unfused site is the half-res one doubled, so the border is assembled
-//      on the half-res slab exactly as K2 assembles it (conv3x3_chw.cu). One
+//      on the half-res slab exactly as K2 assembles it (conv3x3_fwd_f32.cu). One
 //      kernel body serves K9 and K14: every output sums its (channel, phase
 //      tap) products in one order wherever its tile lies, so the raster
 //      gives the one pass's bits;
@@ -81,7 +81,7 @@ struct Slab {
 };
 
 // Post-norm value of the padded half-res slab at row r in [-1, H], column j
-// in [-1, W]: K2's border (conv3x3_chw.cu: padded). Row -1 comes from `top`
+// in [-1, W]: K2's border (conv3x3_fwd_f32.cu). Row -1 comes from `top`
 // and column -1 from `left` where given; every other border cell is the own
 // edge (replicate) or zero. Rows and columns past those (ragged tiles) are
 // clamped and only feed outputs that are never stored.

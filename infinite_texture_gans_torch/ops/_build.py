@@ -36,8 +36,9 @@ FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
-    # x, w, b, scale, shift, top, left, y, s1, s2, n, c, h, w, co, relu, zeros, bf16, stream
-    "itg_conv3x3_chw": [_P] * 10 + [_I] * 8 + [_P],
+    # x, w, b, scale, shift, top, left, y, part, s1, s2, n, c, h, w, co, relu, zeros, bf16, to,
+    # g, stream
+    "itg_conv3x3_chw": [_P] * 11 + [_I] * 10 + [_P],
     # x, w, b, scale, shift, top, left, wp, y, part, s1, s2, n, c, h, w, co, relu, zeros, nc, no,
     # stream (bf16 only)
     "itg_conv3x3_chw_tc": [_P] * 12 + [_I] * 9 + [_P],
@@ -56,8 +57,8 @@ SIGNATURES = {
     "itg_bn_corr": [_P] * 5 + [_I] * 4 + [_P],
     # x, w, b, res, y, s1, s2, n, c, hw, co, bf16, stream
     "itg_conv1x1_chw": [_P] * 7 + [_I] * 5 + [_P],
-    # x, g, dw, db, n, c, hw, co, bf16, stream
-    "itg_conv1x1_chw_dw": [_P] * 4 + [_I] * 5 + [_P],
+    # x, g, part, dw, db, n, c, hw, co, bf16, blocks, stream
+    "itg_conv1x1_chw_dw": [_P] * 5 + [_I] * 6 + [_P],
     # x, w, b, res, wp, y, part, s1, s2, n, c, hw, co, stream (bf16 only)
     "itg_conv1x1_chw_tc": [_P] * 9 + [_I] * 4 + [_P],
     # x, g, part, dw, db, n, c, hw, co, mt, no, cap, stream (bf16 only)

@@ -7,7 +7,7 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
 
 - K1/K5 ``conv3x3_chw`` (forward, with the optional per-channel Σy, Σy²
   of ``conv3x3_chw_stats`` / ``conv3x3_chw_p``): replaces pallas_conv.py:395
-  ``_conv3x3_chw_fwd`` (csrc/conv3x3_chw.cu; in bf16: csrc/chw_fwd_tc.cu);
+  ``_conv3x3_chw_fwd`` (csrc/conv3x3_fwd_f32.cu; in bf16: csrc/chw_fwd_tc.cu);
 - K2 ``chw_halo_step``, whose kernel wrapper is ``conv3x3_chw_halo``:
   replaces pallas_conv.py:539 ``_conv3x3_chw_fwd_halo`` (the same two
   sources, given the cached borders);
@@ -18,8 +18,8 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
 - K3 ``conv1x1_chw`` / ``conv1x1_chw_add`` (optionally with stats, the
   ``conv1x1_chw_add_stats`` / ``conv1x1_chw_add_p`` forms, and the dx form
   with Wᵀ): replaces pallas_conv.py:2311 ``_conv1x1_chw_fwd``; its dW
-  ``conv1x1_chw_dw``: :2361 ``_conv1x1_chw_dw`` (csrc/conv1x1_chw.cu; both
-  in bf16: csrc/conv1x1_tc.cu);
+  ``conv1x1_chw_dw``: :2361 ``_conv1x1_chw_dw`` (csrc/conv1x1_chw.cu, the
+  dW in csrc/conv1x1_dw_f32.cu; both in bf16: csrc/conv1x1_tc.cu);
 - K4 ``upsample2_chw``: pallas_conv.py:2540 ``_up2_fwd_call``; its adjoint
   ``upsample2_chw_bwd``: :2560 ``_up2_bwd_call`` (csrc/upsample2_chw.cu);
 - K9 ``upconv3x3_chw``, the subpixel-fused upsample -> BN fold -> ReLU ->
@@ -50,8 +50,9 @@ one tensor-core kernel body for both (``csrc/chw_fwd_tc.cu``, entry point
 channel in one block, the weights rounded to bf16 as the reference rounds
 them, pallas_conv.py:615/:949/:999/:1093, K5's sums in a fixed order; its
 plain versions ``conv3x3_chw_tc_plain`` and ``conv3x3_chw_halo_tc_plain``
-apply the same rounding), float32 keeps the CUDA-core kernel
-(``itg_conv3x3_chw``). K9's forward and K14 route the same way: bfloat16
+apply the same rounding), float32 the CUDA-core kernel
+(``itg_conv3x3_chw``, on :func:`conv3x3_f32_plan`'s grid). K9's forward
+and K14 route the same way: bfloat16
 takes one tensor-core body for both (``csrc/upconv_fwd_tc.cu``, entry point
 ``itg_upconv3x3_chw_tc``: K1's implicit GEMM at half resolution, four phase
 B operands with the combined 2x2 weights rounded to bf16 as the reference
@@ -97,8 +98,9 @@ pallas_conv.py:2389-2390; its plain version ``conv1x1_chw_tc_plain``) and
 ``itg_conv1x1_chw_dw_tc`` (mma.sync on channels-major x and g tiles as they
 lie in device memory, fixed-order partial sums; its operands are bf16
 values, so its plain version is ``conv1x1_chw_dw_plain`` itself), float32
-``itg_conv1x1_chw`` and ``itg_conv1x1_chw_dw``, the exactness route of step
-parity. :data:`ROUTE_LAUNCHES` counts the launches of each entry point.
+``itg_conv1x1_chw`` and ``itg_conv1x1_chw_dw`` (persistent blocks on
+:func:`conv1x1_dw_f32_plan`'s grid, fixed-order partial sums), the exactness
+route of step parity. :data:`ROUTE_LAUNCHES` counts the launches of each entry point.
 
 The port carries no lane padding, so the reference's padded-carry forms
 (K11 ``conv1x1_chw_add_p``, ``conv1x1_chw_p``, K12 ``upsample2_chw_p``,
@@ -285,7 +287,7 @@ def _with_stats_ct(g: torch.Tensor, y: torch.Tensor, gs1, gs2) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # K1 / K2 / K5: BN fold -> ReLU -> border -> 3x3 conv (+ stats)
-# (bf16: csrc/chw_fwd_tc.cu; f32: csrc/conv3x3_chw.cu)
+# (bf16: csrc/chw_fwd_tc.cu; f32: csrc/conv3x3_fwd_f32.cu)
 
 
 def _check_conv3x3(x, w, b, scale, shift) -> None:
@@ -352,21 +354,70 @@ def pack_fwd_weights(w: torch.Tensor) -> torch.Tensor:
     return wp.permute(0, 2, 3, 1).to(torch.bfloat16, memory_format=torch.contiguous_format)
 
 
+# K1/K2's float32 route (csrc/conv3x3_fwd_f32.cu): a thread computes 16
+# pixels of a row x TO output channels (TO one of CONV3X3_F32_TO), a warp
+# (a group) a 16 x 32 tile's TO channels, a block G groups (G one of
+# CONV3X3_F32_G) over one tile; a tile's channel chunks, its tiles and the
+# images are the grid's axes. TO is 7, or 3 where Co <= 3 or where 7 would
+# leave fewer than CONV3X3_F32_MIN_WARPS_PER_SM warps an SM (the wide eval
+# layers at N = 1); a block takes as many groups as it can, so the input
+# tile is staged and folded for as many channels at once as possible.
+CONV3X3_F32_TO = (7, 3)
+CONV3X3_F32_G = (4, 2, 1)
+CONV3X3_F32_TILE = (16, 32)
+CONV3X3_F32_MIN_WARPS_PER_SM = 4
+
+
+class Conv3x3F32Plan(NamedTuple):
+    to: int  # output channels of a thread
+    groups: int  # ceil(Co / to)
+    g: int  # groups a block
+    chunks: int  # ceil(groups / g): the grid's second axis
+    tiles_h: int  # ceil(H / 16) x ceil(W / 32) tiles an image
+    tiles_w: int
+    part_rows: int  # N x tiles: rows of the (part_rows, 2, Co) float32 partials of K5's sums
+
+
+def conv3x3_f32_plan(n: int, c: int, co: int, h: int, w: int, sms: int = 132) -> Conv3x3F32Plan:
+    """The float32 K1/K2 kernel's launch for x (N, C, H, W) and Co output
+    channels on a card of ``sms`` SMs: TO (7; 3 where Co <= 3 or where 7
+    leaves fewer than CONV3X3_F32_MIN_WARPS_PER_SM warps an SM), the groups
+    a block (the most of CONV3X3_F32_G no larger than the groups), the tiles
+    and the partials' rows. Raises for an empty shape, N > 65535 (the grid's
+    third axis) or a plane of 2^31 pixels or more."""
+    if min(n, c, co, h, w) < 1 or n > 65535 or h * w >= 2**31:
+        raise ValueError(f"conv3x3_chw (float32) takes 1 <= N <= 65535, 1 <= C, Co, H, W and "
+                         f"H W < 2^31, got N={n}, C={c}, Co={co}, H={h}, W={w}")
+    tiles_h, tiles_w = -(-h // CONV3X3_F32_TILE[0]), -(-w // CONV3X3_F32_TILE[1])
+    tiles = n * tiles_h * tiles_w
+    to = CONV3X3_F32_TO[0]
+    if co <= CONV3X3_F32_TO[1] or tiles * -(-co // to) < CONV3X3_F32_MIN_WARPS_PER_SM * sms:
+        to = CONV3X3_F32_TO[1]
+    groups = -(-co // to)
+    g = next(g for g in CONV3X3_F32_G if g <= groups or g == 1)
+    return Conv3x3F32Plan(to, groups, g, -(-groups // g), tiles_h, tiles_w, tiles)
+
+
 def _fwd_cuda_cores(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
     """K1/K2 (/K5) on the CUDA cores (``itg_conv3x3_chw``): the float32 route
-    (the C function takes bf16 too)."""
+    (the C function takes bf16 too), on :func:`conv3x3_f32_plan`'s grid; with
+    stats, the tiles' partial sums added in one fixed order by a second
+    launch."""
     n, c, h, wd = x.shape
     co = w.shape[0]
+    plan = conv3x3_f32_plan(n, c, co, h, wd, _sm_count(x.device.index))
     y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
-    s1 = s2 = None
+    part = s1 = s2 = None
     if want_stats:
-        s1, s2 = _zeros_f32(co, x), _zeros_f32(co, x)
+        part = torch.empty((plan.part_rows, 2, co), dtype=torch.float32, device=x.device)
+        s1 = torch.empty(co, dtype=torch.float32, device=x.device)
+        s2 = torch.empty_like(s1)
     wf, bf, sc, sh = _f32(w), _f32(b), _f32(scale), _f32(shift)
     with torch.cuda.device(x.device):
         rc = _lib().itg_conv3x3_chw(
             x.data_ptr(), wf.data_ptr(), bf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
-            _ptr(top), _ptr(left), y.data_ptr(), _ptr(s1), _ptr(s2),
-            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
+            _ptr(top), _ptr(left), y.data_ptr(), _ptr(part), _ptr(s1), _ptr(s2),
+            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), plan.to, plan.g, _stream(x),
         )
     _raise_on(rc, "itg_conv3x3_chw")
     ROUTE_LAUNCHES["itg_conv3x3_chw"] += 1
@@ -1184,17 +1235,48 @@ def conv1x1_dw_tc_plan(c: int, co: int) -> tuple[int, int]:
     return mt, no
 
 
+# K3-dW's float32 route (csrc/conv1x1_dw_f32.cu): persistent blocks,
+# CONV1X1_DW_F32_BLOCKS_PER_SM an SM (256 threads with 7 x 13 register
+# tiles), each walking a contiguous range of 64-pixel chunks; a block's
+# partial is one row of Co C + Co floats (dW, then db).
+CONV1X1_DW_F32_CHUNK = 64
+CONV1X1_DW_F32_BLOCKS_PER_SM = 1
+
+
+class Conv1x1DwF32Plan(NamedTuple):
+    chunks: int  # N x ceil(HW / 64)
+    blocks: int  # the grid: min(chunks, the blocks the card holds)
+    part_entries: int  # Co C + Co: a block's partial row
+
+
+def conv1x1_dw_f32_plan(n: int, c: int, co: int, hw: int, sms: int = 132) -> Conv1x1DwF32Plan:
+    """The float32 K3-dW kernel's grid for x (N, C, HW) and g (N, Co, HW) on a
+    card of ``sms`` SMs: the 64-pixel chunks, the blocks (as many as the
+    card holds, no more than the chunks) and a partial row's entries.
+    Raises outside C * Co <= 4096 and C + Co <= 96, or for an empty shape."""
+    if min(n, c, co, hw) < 1 or c * co > 4096 or c + co > 96:
+        raise ValueError(f"conv1x1_chw_dw: N={n}, C={c}, Co={co}, HW={hw} exceed the kernel's "
+                         "limits (C*Co <= 4096, C+Co <= 96, none empty)")
+    chunks = n * -(-hw // CONV1X1_DW_F32_CHUNK)
+    return Conv1x1DwF32Plan(chunks, min(chunks, CONV1X1_DW_F32_BLOCKS_PER_SM * sms),
+                            co * c + co)
+
+
 def _conv1x1_dw_cuda_cores(x, g):
     """K3-dW on the CUDA cores (``itg_conv1x1_chw_dw``): the float32 route
-    (the C function takes bf16 too)."""
+    (the C function takes bf16 too): persistent blocks on
+    :func:`conv1x1_dw_f32_plan`'s grid write float32 partials, a second
+    launch sums them in one order."""
     n, c, h, wd = x.shape
     co = g.shape[1]
-    dw = torch.zeros((co, c), dtype=torch.float32, device=x.device)
-    db = _zeros_f32(co, x)
+    plan = conv1x1_dw_f32_plan(n, c, co, h * wd, _sm_count(x.device.index))
+    dw = torch.empty((co, c), dtype=torch.float32, device=x.device)
+    db = torch.empty(co, dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.blocks, plan.part_entries), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = _lib().itg_conv1x1_chw_dw(
-            x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            n, c, h * wd, co, _bf16(x), _stream(x),
+            x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            n, c, h * wd, co, _bf16(x), plan.blocks, _stream(x),
         )
     _raise_on(rc, "itg_conv1x1_chw_dw")
     ROUTE_LAUNCHES["itg_conv1x1_chw_dw"] += 1

@@ -1,10 +1,12 @@
-"""The host planners of the float32 routes of K9 dx and K13's forward
-(ops/kernels.py: upconv_dx_f32_plan, stem_f32_plan): the tiles and splits
-they choose at the Experiment-1, SSM and ``--D_ch 640`` shapes, and the
-shapes they refuse. The kernels themselves run only on the card
-(chip_smoke.py, tests/test_torch_gpu.py); on the CPU the wrappers take the
-plain versions, which tests/test_torch_upconv.py and
-tests/test_torch_stem_tc.py hold to the JAX package."""
+"""The host planners of the float32 routes of K9 dx, K13's forward, K3-dW
+and K1/K2 (ops/kernels.py: upconv_dx_f32_plan, stem_f32_plan,
+conv1x1_dw_f32_plan, conv3x3_f32_plan): the tiles and splits they choose
+at the Experiment-1, SSM, eval and ``--D_ch 640`` shapes, and the shapes
+they refuse. The kernels themselves run only on the card (chip_smoke.py,
+tests/test_torch_gpu.py); on the CPU the wrappers take the plain versions,
+which tests/test_torch_upconv.py, tests/test_torch_stem_tc.py,
+tests/test_torch_conv1x1_tc.py and tests/test_torch_kernels.py hold to the
+JAX package."""
 
 import pytest
 import torch
@@ -82,11 +84,98 @@ def test_stem_f32_plan_refuses(shape):
         tk.stem_f32_plan(*shape)
 
 
+# (N, C, Co, H, W) of K1's float32 route, and the plan (TO, groups a block,
+# channel chunks, tiles (rows, columns)): the Experiment-1 step's `auto`
+# shapes, `off`'s two more, the SSM step's, and the flagship's 384^2
+# sub-image at eval (N = 1)
+K1_PLANS = [
+    ((8, 26, 26, 192, 192), 7, 4, 1, (12, 6)),  # auto, off, SSM: the four groups in a block
+    ((8, 13, 13, 384, 384), 7, 2, 1, (24, 12)),  # auto, off
+    ((8, 13, 3, 384, 384), 3, 1, 1, (24, 12)),  # auto, off: the final conv
+    ((8, 52, 26, 192, 192), 7, 4, 1, (12, 6)),  # off, SSM
+    ((8, 26, 13, 384, 384), 7, 2, 1, (24, 12)),  # off
+    ((8, 26, 3, 192, 192), 3, 1, 1, (12, 6)),  # SSM: the final conv
+    ((1, 104, 52, 96, 96), 3, 4, 5, (6, 3)),  # eval: 7 a thread would leave 144 warps
+    ((1, 52, 52, 96, 96), 3, 4, 5, (6, 3)),
+    ((1, 52, 26, 192, 192), 3, 4, 3, (12, 6)),  # eval: 288 warps at 7 a thread
+    ((1, 26, 26, 192, 192), 3, 4, 3, (12, 6)),
+    ((1, 26, 13, 384, 384), 7, 2, 1, (24, 12)),  # eval: 576 warps
+    ((1, 13, 13, 384, 384), 7, 2, 1, (24, 12)),
+    ((1, 13, 3, 384, 384), 3, 1, 1, (24, 12)),
+]
+
+
+@pytest.mark.parametrize("shape, to, g, chunks, tiles", K1_PLANS, ids=lambda v: str(v))
+def test_conv3x3_f32_plan(shape, to, g, chunks, tiles):
+    """7 output channels a thread, 3 at Co = 3 and where 7 would leave under
+    four warps an SM (the N = 1 layers at 96^2 and 192^2); as many groups a
+    block as there are, up to 4; 16 x 32 tiles, one partial row a tile."""
+    n, c, co, h, w = shape
+    plan = tk.conv3x3_f32_plan(n, c, co, h, w)
+    assert (plan.to, plan.g, plan.chunks, (plan.tiles_h, plan.tiles_w)) == (to, g, chunks, tiles)
+    assert plan.groups == -(-co // to) and plan.chunks * plan.g >= plan.groups
+    assert plan.part_rows == n * tiles[0] * tiles[1]
+
+
+@pytest.mark.parametrize("co, to, g", [(1, 3, 1), (2, 3, 1), (3, 3, 1), (4, 7, 1), (7, 7, 1),
+                                       (8, 7, 2), (13, 7, 2), (26, 7, 4), (52, 7, 4),
+                                       (64, 7, 4)])
+def test_conv3x3_f32_plan_channel_split(co, to, g):
+    """On a grid with warps to spare, TO is 7 unless Co <= 3; a block holds
+    the most groups of (4, 2, 1) that the channels fill."""
+    plan = tk.conv3x3_f32_plan(8, 16, co, 192, 192)
+    assert (plan.to, plan.g) == (to, g) and plan.groups * plan.to >= co
+
+
+@pytest.mark.parametrize("shape", [(0, 5, 3, 8, 8), (1, 0, 3, 8, 8), (1, 5, 0, 8, 8),
+                                   (1, 5, 3, 0, 8), (1, 5, 3, 8, 0), (65536, 5, 3, 8, 8),
+                                   (1, 5, 3, 65536, 32768)])
+def test_conv3x3_f32_plan_refuses(shape):
+    with pytest.raises(ValueError, match="conv3x3_chw"):
+        tk.conv3x3_f32_plan(*shape)
+
+
+@pytest.mark.parametrize("shape, chunks, blocks", [
+    ((8, 52, 26, 96 * 96), 8 * 144, 132),  # auto: the half-res shortcut of block 5
+    ((8, 26, 13, 192 * 192), 8 * 576, 132),  # auto: block 6's
+    ((8, 52, 26, 192 * 192), 8 * 576, 132),  # off and SSM: block 5's
+    ((8, 26, 13, 384 * 384), 8 * 2304, 132),  # off: block 6's
+    ((2, 3, 5, 7 * 7), 2, 2),  # fewer chunks than SMs: a block each
+    ((3, 52, 26, 13 * 45), 3 * 10, 30),  # an odd HW: the last chunk of an image padded
+])
+def test_conv1x1_dw_f32_plan(shape, chunks, blocks):
+    """64-pixel chunks that never leave their image; one block of 256
+    threads an SM, no more blocks than chunks; a partial row of Co C + Co."""
+    n, c, co, hw = shape
+    plan = tk.conv1x1_dw_f32_plan(n, c, co, hw)
+    assert (plan.chunks, plan.blocks, plan.part_entries) == (chunks, blocks, co * c + co)
+
+
+@pytest.mark.parametrize("shape", [(8, 65, 64, 100), (8, 90, 7, 100), (8, 7, 90, 100),
+                                   (8, 0, 3, 100), (8, 3, 0, 100), (0, 3, 5, 100),
+                                   (8, 3, 5, 0)])
+def test_conv1x1_dw_f32_plan_refuses(shape):
+    """Outside C * Co <= 4096 and C + Co <= 96 (the bf16 route's limits too),
+    or an empty shape."""
+    with pytest.raises(ValueError, match=r"C\*Co <= 4096, C\+Co <= 96"):
+        tk.conv1x1_dw_f32_plan(*shape)
+
+
 @pytest.mark.parametrize("fn, args", [
     ("upconv3x3_chw_dx", lambda: (torch.zeros(1, 3, 4, 4), torch.zeros(1, 2, 8, 8),
                                   torch.zeros(2, 3, 3, 3), torch.ones(3), torch.zeros(3), True,
                                   "replicate")),
     ("stem_fwd", lambda: (torch.zeros(1, 3, 8, 8), torch.zeros(4, 3, 4, 4), torch.zeros(4))),
+    ("conv1x1_chw_dw", lambda: (torch.randn(2, 5, 3, 4, generator=torch.Generator().manual_seed(1)),
+                                torch.randn(2, 3, 3, 4, generator=torch.Generator().manual_seed(2)))),
+    ("conv3x3_chw", lambda: (torch.randn(2, 4, 5, 6, generator=torch.Generator().manual_seed(3)),
+                             torch.randn(3, 4, 3, 3, generator=torch.Generator().manual_seed(4)),
+                             torch.zeros(3), torch.ones(4), torch.zeros(4), True, "replicate",
+                             True)),
+    ("conv3x3_chw_halo", lambda: (torch.randn(1, 4, 5, 6, generator=torch.Generator().manual_seed(5)),
+                                  torch.randn(3, 4, 3, 3, generator=torch.Generator().manual_seed(6)),
+                                  torch.zeros(3), torch.ones(4), torch.zeros(4), True, "constant",
+                                  torch.ones(1, 4, 8), torch.ones(1, 4, 5))),
 ])
 def test_cpu_tensors_take_the_plain_versions(fn, args):
     """On CPU tensors the wrappers run their plain versions: no kernel is

@@ -68,10 +68,11 @@ def test_cuda_sources_target_sm90a():
 
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.FLAGS
     names = {p.stem for p in _build.CSRC.glob("*.cu")}
-    assert names == {"conv3x3_chw", "conv3x3_chw_bwd", "conv1x1_chw", "upsample2_chw", "stem4x4s2",
-                     "upconv3x3_chw", "ssm_embed_chw", "ssm_embed_tc", "chw_dx_tc", "chw_dw_tc",
-                     "chw_fwd_tc", "stem_fwd_tc", "upconv_fwd_tc", "conv1x1_tc", "upconv_dw_tc",
-                     "stem_dw_tc", "stem_dx_tc", "upconv_dx_f32", "stem_fwd_f32"}
+    assert names == {"conv3x3_fwd_f32", "conv3x3_chw_bwd", "conv1x1_chw", "conv1x1_dw_f32",
+                     "upsample2_chw", "stem4x4s2", "upconv3x3_chw", "ssm_embed_chw", "ssm_embed_tc",
+                     "chw_dx_tc", "chw_dw_tc", "chw_fwd_tc", "stem_fwd_tc", "upconv_fwd_tc",
+                     "conv1x1_tc", "upconv_dw_tc", "stem_dw_tc", "stem_dx_tc", "upconv_dx_f32",
+                     "stem_fwd_f32"}
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
         site = "pallas_ssm.py" if src.stem.startswith("ssm_embed") else "pallas_conv.py"
@@ -85,13 +86,17 @@ def test_upsample2_source_has_no_atomics():
     assert "atomicAdd" not in text and "block_sum2_atomic" not in text
 
 
-# The float32 routes redesigned for the H100: K9 dx and K13's forward, each
-# in a source of its own; (source, C entry point, the source that held the
-# old body, pallas_call site)
+# The float32 routes redesigned for the H100: K9 dx and K13's forward, K3-dW
+# and K1/K2 (with K5's sums), each in a source of its own; (source, C entry
+# point, the source that held the old body, pallas_call site)
 F32_REDESIGNED = [
     ("upconv_dx_f32", "itg_upconv3x3_chw_dx", "upconv3x3_chw", "pallas_conv.py:1642"),
     ("stem_fwd_f32", "itg_stem_fwd", "stem4x4s2", "pallas_conv.py:2769"),
+    ("conv1x1_dw_f32", "itg_conv1x1_chw_dw", "conv1x1_chw", "pallas_conv.py:2361"),
+    ("conv3x3_fwd_f32", "itg_conv3x3_chw", "conv3x3_chw", "pallas_conv.py:395"),
 ]
+# old sources that held nothing but the replaced body, deleted with it
+F32_OLD_DELETED = {"conv3x3_chw"}
 
 
 @pytest.mark.parametrize("src, entry, old, site", F32_REDESIGNED,
@@ -99,7 +104,8 @@ F32_REDESIGNED = [
 def test_f32_redesigned_sources_target_sm90a(src, entry, old, site):
     """Each redesigned float32 kernel is its own source, built with the rest
     for sm_90a, names the TPU kernel it replaces and its bound on the H100,
-    and defines its C entry point; the old body's source no longer does."""
+    and defines its C entry point; the old body's source no longer does, or
+    is gone where it held nothing else."""
     from infinite_texture_gans_torch.ops import _build
 
     path = _build.CSRC / f"{src}.cu"
@@ -108,13 +114,18 @@ def test_f32_redesigned_sources_target_sm90a(src, entry, old, site):
     text = path.read_text()
     assert site in text and "What bounds it on the H100" in text
     assert f'extern "C" int {entry}(' in text
-    assert f'extern "C" int {entry}(' not in (_build.CSRC / f"{old}.cu").read_text()
+    old_path = _build.CSRC / f"{old}.cu"
+    if old in F32_OLD_DELETED:
+        assert not old_path.exists()
+    else:
+        assert f'extern "C" int {entry}(' not in old_path.read_text()
 
 
 @pytest.mark.parametrize("src", [r[0] for r in F32_REDESIGNED])
 def test_f32_redesigned_sources_have_no_atomics(src):
-    """K9 dx's float32 sums (d(scale), d(shift)) are per-block partials added
-    in a fixed order, and K13's forward sums each output in one order: two
-    calls give the same bits."""
+    """K9 dx's float32 sums (d(scale), d(shift)), K3-dW's dW and db and K5's
+    Σy and Σy² are per-block partials added in a fixed order, and K13's and
+    K1's forwards sum each output in one order: two calls give the same
+    bits."""
     text = (PACKAGE / "csrc" / f"{src}.cu").read_text()
     assert "atomicAdd" not in text and "block_sum2_atomic" not in text
