@@ -119,7 +119,16 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    W, zeros padding, the ReLU off and an odd Co, K2 in its four border
    cases; K3-dW at an odd HW, its widest thread grid and one-channel sides;
    both C entry points in bf16; their times beside the recorded times of
-   the bodies they replaced (K1_F32_PARENT_MS, K3DW_F32_PARENT_MS). Times
+   the bodies they replaced (K1_F32_PARENT_MS, K3DW_F32_PARENT_MS). K6's
+   and K7's f32 routes (``csrc/conv3x3_dx_f32.cu``,
+   ``csrc/conv3x3_dw_f32.cu``) likewise: two calls bit-equal at every path
+   shape (dx, d(scale), d(shift); dW, db), planted faults at the block's
+   two 192^2 shapes (K6: the top fold dropped, the bottom row of taps
+   dropped; K7: one input channel's dW x 1.01, ky and kx swapped, one pixel
+   chunk dropped) at least F32_PLANT times their limits
+   (``check_dx_f32``, ``check_dw_f32``), odd shapes, both paddings and the
+   ReLU off in ``check_f32_edges``, and their times beside the recorded
+   times of the bodies they replaced (K6_F32_PARENT_MS, K7_F32_PARENT_MS). Times
    each (CUDA-graph replay) beside its bound, its plain version and one
    PyTorch library call, summed per
    step for each tail, and holds the timed calls per step to the tail's
@@ -434,8 +443,8 @@ F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_fwd_f32.cu"),
              "chw_halo_step": ("itg_conv3x3_chw", "conv3x3_fwd_f32.cu"),
              "ssm_embed": ("itg_ssm_embed_fwd", "ssm_embed_chw.cu"),
              "ssm_embed_bwd": ("itg_ssm_embed_bwd", "ssm_embed_chw.cu"),
-             "conv3x3_chw_dx": ("itg_conv3x3_chw_dx", "conv3x3_chw_bwd.cu"),
-             "conv3x3_chw_dw": ("itg_conv3x3_chw_dw", "conv3x3_chw_bwd.cu"),
+             "conv3x3_chw_dx": ("itg_conv3x3_chw_dx", "conv3x3_dx_f32.cu"),
+             "conv3x3_chw_dw": ("itg_conv3x3_chw_dw", "conv3x3_dw_f32.cu"),
              "upconv3x3_chw_dx": ("itg_upconv3x3_chw_dx", "upconv_dx_f32.cu"),
              "upconv3x3_chw_dw": ("itg_upconv3x3_chw_dw", "upconv3x3_chw.cu"),
              "stem_fwd": ("itg_stem_fwd", "stem_fwd_f32.cu"),
@@ -628,8 +637,9 @@ STEP_LAUNCHES = {
 TRAIN_PATHS = {"auto": ("train --fuse_up auto", "per Experiment-1 step"),
                "off": ("train --fuse_up off", "per Experiment-1 step"),
                "ssm": ("train SSM", "per SSM-recipe step")}
-# float32 reductions (Σy, Σy², d(scale), d(shift), dW, db) in another order,
-# partly by atomics: 1e-4 of the largest reference entry
+# float32 reductions (Σy, Σy², d(scale), d(shift), dW, db) in another order
+# (K3's sums and K9's and K13's f32 dW by atomics; K5, K6, K7, K9 dx and K3-dW
+# by fixed-order partials): 1e-4 of the largest reference entry
 SUM_TOL = 1e-4
 # K15's bf16 dW1 and db1 sum d_pre, which the route rounds to bf16: where the
 # kernel's float32 d_act and the plain version's float64 one straddle a
@@ -700,8 +710,8 @@ STEM_PLANT = 10.0
 # K13's forward, dW and dx at output widths that are no multiple of 8 or
 # above 128 (--D_ch), held to their plain versions beside the flagship's 64
 STEM_ANY_CO = (4, 12, 100, 136, 256)
-# K9 dx's, K13's forward's, K1's and K3-dW's float32 routes: each planted
-# fault must read at least this many times the check's limit
+# K9 dx's, K13's forward's, K1's, K3-dW's, K6's and K7's float32 routes:
+# each planted fault must read at least this many times the check's limit
 F32_PLANT = 10.0
 # The float32 bodies that K9 dx's and K13's forward's redesigns replaced
 # (csrc/upconv3x3_chw.cu: upconv_dx_kernel, csrc/stem4x4s2.cu:
@@ -715,15 +725,23 @@ STEM_F32_PARENT_MS = {"(8, 3, 384x384) -> (8, 192, 192, 64)": 0.3110,
                       "ssm (8, 3, 192x192) -> (8, 96, 96, 64)": 0.0824}
 # The float32 bodies that K1's and K3-dW's redesigns replaced (the old
 # csrc/conv3x3_chw.cu, csrc/conv1x1_chw.cu: conv1x1_dw_kernel), the same
-# way (K1 with K5's sums where the path takes them), and the graphed float32
-# steps that ran them (warm wall and device busy, ms; cuDNN's TF32 as the
-# train CLI leaves it)
+# way (K1 with K5's sums where the path takes them)
 K1_F32_PARENT_MS = {"(8, 26->26, 192x192)": 0.2779, "(8, 13->13, 384x384)": 0.2754,
                     "(8, 13->3, 384x384)": 0.1425, "(8, 52->26, 192x192)": 0.5053,
                     "(8, 26->13, 384x384)": 0.5576, "(8, 26->3, 192x192)": 0.0844}
 K3DW_F32_PARENT_MS = {"(8, 52->26, 96x96)": 0.0546, "(8, 26->13, 192x192)": 0.0879,
                       "(8, 52->26, 192x192)": 0.2234, "(8, 26->13, 384x384)": 0.3333}
-F32_STEP_PARENT_MS = {"auto": (24.158, 23.271), "off": (27.633, 26.706), "ssm": (55.853, 55.105)}
+# The float32 bodies that K6's and K7's redesigns replaced (the old
+# csrc/conv3x3_chw_bwd.cu: conv3x3_dx_kernel, conv3x3_dw_kernel), the same
+# way, and the graphed float32 steps that ran them (warm wall and device
+# busy, ms; cuDNN's TF32 as the train CLI leaves it)
+K6_F32_PARENT_MS = {"(8, 26->26, 192x192)": 0.5114, "(8, 13->13, 384x384)": 0.5188,
+                    "(8, 13->3, 384x384)": 0.3020, "(8, 52->26, 192x192)": 0.9247,
+                    "(8, 26->13, 384x384)": 0.9588, "(8, 26->3, 192x192)": 0.1740}
+K7_F32_PARENT_MS = {"(8, 26->26, 192x192)": 0.3453, "(8, 13->13, 384x384)": 0.5649,
+                    "(8, 13->3, 384x384)": 0.2485, "(8, 52->26, 192x192)": 0.6657,
+                    "(8, 26->13, 384x384)": 0.6912, "(8, 26->3, 192x192)": 0.1332}
+F32_STEP_PARENT_MS = {"auto": (23.362, 22.914), "off": (26.370, 25.424), "ssm": (55.267, 54.475)}
 # K9/K14's bf16 forward: the same for its planted faults
 UP_PLANT = 10.0
 # K3's and K3-dW's bf16 routes: the same for their planted faults, each
@@ -3333,6 +3351,8 @@ def main() -> int:
         compare_sum(name, f"d(scale) {tag} [{route}]", got[1], ref[1])
         compare_sum(name, f"d(shift) {tag} [{route}]", got[2], ref[2])
         if not tc:
+            if name == "conv3x3_chw_dx":
+                check_dx_f32(tag, x, gy, wt, sc, sh, outer, got, ref, plant)
             return
         unrounded = getattr(kernels, name + "_plain")(x, gy, wt, sc, sh, True, outer)
         moved = [float((a.float() - r.float()).abs().max() / r.float().abs().max())
@@ -3366,6 +3386,79 @@ def main() -> int:
                   f"{r_:.2f} (must exceed 1)")
             if not r_ > 1.0:
                 fail(f"{name} {tag}: the check passes a planted {fault}")
+
+    def check_dx_f32(tag, x, gy, wt, sc, sh, outer, got, ref, plant):
+        """K6's float32 route (CUDA cores, csrc/conv3x3_dx_f32.cu) beyond the
+        check against its plain version: two calls bit-equal (dx, d(scale),
+        d(shift): fixed-order partial sums), and with ``plant`` (replicate
+        padding) two planted faults (the top border fold dropped; the
+        weights' bottom row of taps dropped, as a kernel skipping a tap row
+        would) must read at least F32_PLANT times the check's limit."""
+        k = kernels.conv3x3_chw_dx
+        tag = f"{tag} [CUDA cores]"
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, k(x, gy, wt, sc, sh, True, outer)))
+        print(f"[check] conv3x3_chw_dx {tag}: two calls {'bit-equal' if same else 'differ'} "
+              "(dx, d(scale), d(shift))")
+        if not same:
+            fail(f"conv3x3_chw_dx {tag}: two f32 calls differ")
+        if not plant or outer != "replicate":
+            return
+
+        def ratio(bad):  # the worst of the check's three errors over their limits
+            lims = (F32_TOL * max(1.0, float(ref[0].abs().max())),
+                    SUM_TOL * float(ref[1].abs().max()), SUM_TOL * float(ref[2].abs().max()))
+            return max(float((a - r).abs().max()) / t for a, r, t in zip(bad, ref, lims))
+
+        no_top = got[0].clone()
+        no_top[..., 0, 1:-1] = k(x, gy, wt, sc, sh, True, "constant")[0][..., 0, 1:-1]
+        w_bad = wt.clone()
+        w_bad[:, :, 2] = 0.0
+        for fault, bad in (("the top fold dropped", (no_top, got[1], got[2])),
+                           ("the bottom row of taps dropped", k(x, gy, w_bad, sc, sh, True, outer))):
+            r_ = ratio(bad)
+            print(f"[check] conv3x3_chw_dx {tag}: planted {fault}: max abs err / limit {r_:.2f} "
+                  f"(must reach {F32_PLANT:g})")
+            if not r_ >= F32_PLANT:
+                fail(f"conv3x3_chw_dx {tag}: a planted fault ({fault}) reads only {r_:.2f}x the "
+                     "limit")
+
+    def check_dw_f32(tag, x, gy, sc, sh, outer, got, ref, plant):
+        """K7's float32 route (CUDA cores, csrc/conv3x3_dw_f32.cu) beyond the
+        check against its plain version: two calls bit-equal (dW, db:
+        fixed-order partial sums), and with ``plant`` (replicate padding)
+        three planted faults (one input channel's dW x 1.01; ky and kx
+        swapped; the first pixel chunk of the last image dropped, as a block
+        skipping it would: g zeroed over the plan's rows x 32 pixels there)
+        must read at least F32_PLANT times the check's limit."""
+        k = kernels.conv3x3_chw_dw
+        tag = f"{tag} [CUDA cores]"
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, k(x, gy, sc, sh, True, outer)))
+        print(f"[check] conv3x3_chw_dw {tag}: two calls {'bit-equal' if same else 'differ'} "
+              "(dW, db)")
+        if not same:
+            fail(f"conv3x3_chw_dw {tag}: two f32 calls differ")
+        if not plant or outer != "replicate":
+            return
+
+        def ratio(bad):  # the worse of the check's two errors over their limits
+            return max(float((a - r).abs().max()) / (SUM_TOL * float(r.abs().max()))
+                       for a, r in zip(bad, ref))
+
+        one = got[0].clone()
+        one[:, int(ref[0].abs().amax(dim=(0, 2, 3)).argmax())] *= 1.01
+        rows = kernels.conv3x3_dw_f32_plan(*x.shape[:2], gy.shape[1], *x.shape[2:]).rows
+        g_bad = gy.clone()
+        g_bad[-1, :, :rows, :kernels.CONV3X3_DW_F32_COLS] = 0.0
+        for fault, bad in (("one input channel's dW x 1.01", (one, got[1])),
+                           ("ky<->kx", (got[0].transpose(2, 3), got[1])),
+                           (f"a {rows} x {kernels.CONV3X3_DW_F32_COLS} pixel chunk dropped",
+                            k(x, g_bad, sc, sh, True, outer))):
+            r_ = ratio(bad)
+            print(f"[check] conv3x3_chw_dw {tag}: planted {fault}: max abs err / limit {r_:.2f} "
+                  f"(must reach {F32_PLANT:g})")
+            if not r_ >= F32_PLANT:
+                fail(f"conv3x3_chw_dw {tag}: a planted fault ({fault}) reads only {r_:.2f}x the "
+                     "limit")
 
     def check_updx_f32(tag, x, gy, wt, sc, sh, outer):
         """K9 dx's float32 route (CUDA cores) beyond check_dx: the ReLU off
@@ -3425,6 +3518,7 @@ def main() -> int:
         compare_sum("conv3x3_chw_dw", f"dW {tag} [{route}]", got[0], ref[0])
         compare_sum("conv3x3_chw_dw", f"db {tag} [{route}]", got[1], ref[1])
         if not tc:
+            check_dw_f32(tag, x, gy, sc, sh, outer, got, ref, plant)
             return
         again = kernels.conv3x3_chw_dw(x, gy, sc, sh, True, outer)
         same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
@@ -3770,7 +3864,9 @@ def main() -> int:
         padding, the ReLU off and odd Co, K2 in its four border cases, two
         calls bit-equal; K3-dW at an odd HW (element copies), its widest
         thread grid (C = 53, Co = 43) and one-channel sides, two calls
-        bit-equal; both C entry points in bf16."""
+        bit-equal; K6 and K7 at odd H and W, one row, channels split over
+        K7's grid, both paddings and the ReLU off, two calls bit-equal; all
+        four C entry points in bf16."""
         g_ = torch.Generator(device=dev).manual_seed(seed)
         for n_, c_, co_, h_, w_, outer, relu in ((2, 11, 7, 13, 45, "constant", False),
                                                  (2, 5, 3, 17, 33, "replicate", False),
@@ -3823,6 +3919,50 @@ def main() -> int:
                     dw_[0], ref[0])
         compare_sum("conv1x1_chw_dw", "db bf16 (2, 26->13, 24x40) through itg_conv1x1_chw_dw",
                     dw_[1], ref[1])
+        # K6 and K7: odd H and W, one row, channels split over K7's grid (C >
+        # 52, Co > 27), both paddings, the ReLU off; then bf16 through the
+        # C entry points
+        for n_, c_, co_, h_, w_, outer, relu in ((2, 5, 7, 33, 47, "constant", False),
+                                                 (1, 13, 3, 1, 5, "replicate", True),
+                                                 (3, 26, 13, 17, 64, "replicate", False),
+                                                 (1, 60, 30, 9, 40, "constant", True)):
+            x, gy = randn(g_, n_, c_, h_, w_), randn(g_, n_, co_, h_, w_)
+            wt = randn(g_, co_, c_, 3, 3) * (9 * c_) ** -0.5
+            sc, sh = 1 + 0.1 * randn(g_, c_), 0.1 * randn(g_, c_)
+            tag = f"({n_}, {c_}->{co_}, {h_}x{w_}) {outer} ReLU {'on' if relu else 'off'} [CUDA cores]"
+            got = kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, relu, outer)
+            ref = kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, relu, outer)
+            compare("conv3x3_chw_dx", tag, got[0], ref[0])
+            compare_sum("conv3x3_chw_dx", f"d(scale) {tag}", got[1], ref[1])
+            compare_sum("conv3x3_chw_dx", f"d(shift) {tag}", got[2], ref[2])
+            got_w = kernels.conv3x3_chw_dw(x, gy, sc, sh, relu, outer)
+            ref_w = kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, relu, outer)
+            compare_sum("conv3x3_chw_dw", f"dW {tag}", got_w[0], ref_w[0])
+            compare_sum("conv3x3_chw_dw", f"db {tag}", got_w[1], ref_w[1])
+            same = all(torch.equal(a, b_) for a, b_ in zip(
+                got + got_w, kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, relu, outer)
+                + kernels.conv3x3_chw_dw(x, gy, sc, sh, relu, outer)))
+            print(f"[check] conv3x3_chw_dx / conv3x3_chw_dw {tag}: two calls "
+                  f"{'bit-equal' if same else 'differ'} (dx, d(scale), d(shift), dW, db)")
+            if not same:
+                fail(f"conv3x3_chw_dx / conv3x3_chw_dw {tag}: two f32 calls differ")
+        x, gy = randn(g_, 2, 26, 24, 40).bfloat16(), randn(g_, 2, 13, 24, 40).bfloat16()
+        wt = randn(g_, 13, 26, 3, 3) * 234 ** -0.5
+        sc, sh = 1 + 0.1 * randn(g_, 26), 0.1 * randn(g_, 26)
+        got = kernels._dx_cuda_cores(x, gy, wt, sc, sh, True, False)
+        ref = kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate")
+        compare("conv3x3_chw_dx", "bf16 (2, 26->13, 24x40) through itg_conv3x3_chw_dx [CUDA cores]",
+                got[0], ref[0])
+        compare_sum("conv3x3_chw_dx", "d(scale) bf16 (2, 26->13, 24x40) through itg_conv3x3_chw_dx",
+                    got[1], ref[1])
+        compare_sum("conv3x3_chw_dx", "d(shift) bf16 (2, 26->13, 24x40) through itg_conv3x3_chw_dx",
+                    got[2], ref[2])
+        got = kernels._dw_cuda_cores(x, gy, sc, sh, True, False)
+        ref = kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate")
+        compare_sum("conv3x3_chw_dw", "dW bf16 (2, 26->13, 24x40) through itg_conv3x3_chw_dw",
+                    got[0], ref[0])
+        compare_sum("conv3x3_chw_dw", "db bf16 (2, 26->13, 24x40) through itg_conv3x3_chw_dw",
+                    got[1], ref[1])
 
     def check_1x1_dw(tag, x, gy, plant=False):
         """K3-dW against its plain version: dW and db within SUM_TOL of the
@@ -4292,7 +4432,9 @@ def main() -> int:
     conv3_t, conv1_t, up2_t = exp1_shapes(plan, base)
     n = EXP1_N
     print(f"[tolerance] sums (Σy, Σy², d(scale), d(shift), dW, db): max abs err <= {SUM_TOL:g} * "
-          "max|ref|: float32 reductions in another order, partly by atomics; K5's sums are held "
+          "max|ref|: float32 reductions in another order (K3's sums and K9's and K13's f32 dW by "
+          "atomics; K6's and K7's f32 sums by fixed-order partials: two calls bit-equal, planted "
+          f"faults >= {F32_PLANT:g}x the limits at the 192^2 shapes); K5's sums are held "
           "to the sums of the kernel's own stored y; K4's adjoint bit-equal")
     print(f"[tolerance] K13 dx, bf16 (tensor cores, which round w to bf16): dx max abs err <= "
           f"{BF16_TOL:g} * max|ref| of the plain version with that rounding (stem_dx_tc_plain); two "
@@ -4355,13 +4497,15 @@ def main() -> int:
                         lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: torch.nn.grad.conv2d_input(x.shape, wt, gy, padding=1),
-                        dx_bytes, flops, tails=tails, peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                        dx_bytes, flops, tails=tails, peak=PEAK_F32_FLOP_PER_S, f32_route=True,
+                        parent_ms=K6_F32_PARENT_MS.get(shape_s))
                 account("conv3x3_chw_dw", f"{shape_s} [CUDA cores, f32]",
                         lambda: kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
                         lambda: kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
                         lambda: torch.nn.grad.conv2d_weight(a_pad, wt.shape, gy),
                         act * (c + co) * es + pbytes + 2 * c * 4, flops, tails=tails,
-                        peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                        peak=PEAK_F32_FLOP_PER_S, f32_route=True,
+                        parent_ms=K7_F32_PARENT_MS.get(shape_s))
                 continue
             wl, bl = wt.to(dtype), b.to(dtype)
             w32 = kernels._f32(wt)
@@ -4834,13 +4978,15 @@ def main() -> int:
                         lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: torch.nn.grad.conv2d_input(x.shape, wt, gy, padding=1),
-                        dx_bytes, flops, tails=("ssm",), peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                        dx_bytes, flops, tails=("ssm",), peak=PEAK_F32_FLOP_PER_S, f32_route=True,
+                        parent_ms=K6_F32_PARENT_MS.get(shape_s))
                 account("conv3x3_chw_dw", f"{shape_s} [CUDA cores, f32]",
                         lambda: kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate"),
                         lambda: kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
                         lambda: torch.nn.grad.conv2d_weight(a_pad, wt.shape, gy),
                         act * (c + co) * es + pbytes + 2 * c * 4, flops, tails=("ssm",),
-                        peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                        peak=PEAK_F32_FLOP_PER_S, f32_route=True,
+                        parent_ms=K7_F32_PARENT_MS.get(shape_s))
                 continue
             wl, bl = wt.to(dtype), b.to(dtype)
             w32 = kernels._f32(wt)

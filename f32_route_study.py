@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The float32 route of K9 dx (``upconv3x3_chw_dx``), K13's forward
-(``stem_fwd``), K3-dW (``conv1x1_chw_dw``) and K1/K2 (``conv3x3_chw``,
-``conv3x3_chw_halo``) on one CUDA card, with the graphed float32 steps they
-run in, for one tree of the repository.
+(``stem_fwd``), K3-dW (``conv1x1_chw_dw``), K1/K2 (``conv3x3_chw``,
+``conv3x3_chw_halo``), K6 (``conv3x3_chw_dx``) and K7 (``conv3x3_chw_dw``)
+on one CUDA card, with the graphed float32 steps they run in, for one tree
+of the repository.
 
 Run from the root of a checkout on a machine with a card:
 ``python3 f32_route_study.py [--tree DIR] [--out FILE]``. It
@@ -34,7 +35,13 @@ training shape (N = 8; K5's sums where the path takes them) beside
 ``F.conv2d`` of the post-norm input padded beforehand, and, where the tree has
 ``kernels.conv3x3_f32_plan``, the C entry point at each (TO, G) plan; K1
 and K2 (both cached borders) at the flagship's 384^2 sub-image at eval
-(blocks 4-6, N = 1), the float32 canvases' shapes. Then it runs the train
+(blocks 4-6, N = 1), the float32 canvases' shapes. K6 and K7 at every
+float32 training shape (K1's, replicate padding, ReLU) beside
+``torch.nn.grad.conv2d_input`` and ``conv2d_weight`` (TF32 off; K7's on the
+post-norm input padded beforehand), each row with its largest deviation
+from the plain version; where the tree has ``kernels.conv3x3_dx_f32_plan``
+and ``conv3x3_dw_f32_plan``, the C entry points at each plan (K6's (CC, G);
+K7's chunk heights). Then it runs the train
 loop's graphed float32 steps (Experiment-1 ``--fuse_up auto`` and ``off``,
 and the SSM recipe; ``--compute_dtype float32``, cuDNN's TF32 as PyTorch
 leaves it, which is how the train CLI runs them) through
@@ -126,8 +133,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"tree": str(tree), "card": card, "upconv3x3_chw_dx": {}, "stem_fwd": {},
-           "conv1x1_chw_dw": {}, "conv3x3_chw": {}, "eval": {}, "per_step": {}, "steps": {},
-           "plans": {}}
+           "conv1x1_chw_dw": {}, "conv3x3_chw": {}, "eval": {}, "conv3x3_chw_dx": {},
+           "conv3x3_chw_dw": {}, "per_step": {}, "steps": {}, "plans": {}}
     plans = hasattr(kernels, "upconv_dx_f32_plan")
 
     def err(got, ref):
@@ -299,6 +306,103 @@ def main(argv=None) -> int:
         if k1_plans:
             k1_plan_table(key, x, wt, b, sc, sh)
         del x, got, ref, a_pad
+    bwd_plans = hasattr(kernels, "conv3x3_dx_f32_plan")
+
+    def k6_plan_table(key, x, gy, wt, sc, sh):
+        """K6's C entry point at each (CC, G) it takes."""
+        n, c, h, w = x.shape
+        co = wt.shape[0]
+        dx = torch.empty_like(x)
+        dsc, dsh = torch.empty(c, device=dev), torch.empty(c, device=dev)
+        part = torch.empty(kernels.conv3x3_dx_f32_plan(n, c, co, h, w).part_rows, 2 * c,
+                           device=dev)
+        for cc in kernels.CONV3X3_F32_TO:
+            for g in kernels.CONV3X3_F32_G:
+                if g > -(-c // cc) and g > 1:
+                    continue
+
+                def entry():
+                    rc = kernels._lib().itg_conv3x3_chw_dx(
+                        x.data_ptr(), gy.data_ptr(), wt.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+                        dx.data_ptr(), part.data_ptr(), dsc.data_ptr(), dsh.data_ptr(), n, c, h, w,
+                        co, 1, 0, 0, cc, g, kernels._stream(x))
+                    if rc:
+                        raise RuntimeError(f"itg_conv3x3_chw_dx: CUDA error {rc}")
+
+                plan_ms = yard.device_ms(entry)
+                out["plans"][f"conv3x3_chw_dx {key} cc {cc} g {g}"] = plan_ms
+                print(f"[plan] conv3x3_chw_dx f32 {key}: cc {cc} g {g}: {plan_ms:.4f} ms  [{card}]")
+
+    def k7_plan_table(key, x, gy, sc, sh):
+        """K7's C entry point at the planned pixel slots and each chunk height
+        of CONV3X3_DW_F32_ROWS that gives every slot a run and whose two
+        stages fit the shared memory: the table CONV3X3_DW_F32_CHUNK_COST is
+        read from."""
+        n, c, h, w = x.shape
+        co = gy.shape[1]
+        plan = kernels.conv3x3_dw_f32_plan(n, c, co, h, w, kernels._sm_count(dev.index or 0))
+        dw, db = torch.empty(co, c, 3, 3, device=dev), torch.empty(co, device=dev)
+        part = torch.empty(plan.blocks, plan.part_entries, device=dev)
+        cols = kernels.CONV3X3_DW_F32_COLS
+        for rows in kernels.CONV3X3_DW_F32_ROWS:
+            stage = 4 * ((rows + 2) * 13 * plan.tiles_c * (cols + 3)
+                         + rows * 3 * plan.tiles_o * (cols + 1))
+            if (plan.slots * kernels.CONV3X3_DW_F32_RUN > rows * cols
+                    or 2 * stage + 8 * 13 * 4 > kernels.CONV3X3_DW_F32_SMEM):
+                continue
+
+            def entry():
+                rc = kernels._lib().itg_conv3x3_chw_dw(
+                    x.data_ptr(), gy.data_ptr(), sc.data_ptr(), sh.data_ptr(), part.data_ptr(),
+                    dw.data_ptr(), db.data_ptr(), n, c, h, w, co, 1, 0, 0, plan.blocks,
+                    plan.slots, rows, kernels._stream(x))
+                if rc:
+                    raise RuntimeError(f"itg_conv3x3_chw_dw: CUDA error {rc}")
+
+            plan_ms = yard.device_ms(entry)
+            out["plans"][f"conv3x3_chw_dw {key} rows {rows}"] = plan_ms
+            print(f"[plan] conv3x3_chw_dw f32 {key}: slots {plan.slots} rows {rows}"
+                  f"{' (planned)' if rows == plan.rows else ''}: {plan_ms:.4f} ms  [{card}]")
+
+    for i, ((n, c, co, h, w, _), paths) in enumerate(K1_SHAPES.items()):
+        x, wt, _, sc, sh, _, _, a_pad = k1_inputs(860 + i, n, c, co, h, w)
+        gy = torch.randn(n, co, h, w, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            880 + i))
+        act, weights = n * h * w, (co * c * 9 + co) * 4
+        key = f"({n}, {c}->{co}, {h}x{w})"
+        got = kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate")
+        ref = kernels.conv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate")
+        row = {"ms": yard.device_ms(lambda: kernels.conv3x3_chw_dx(x, gy, wt, sc, sh, True,
+                                                                   "replicate")),
+               "library_ms": yard.device_ms(lambda: torch.nn.grad.conv2d_input(
+                   x.shape, wt, gy, padding=1)),
+               "bound_ms": yard.bound_ms(act * (2 * c + co) * 4 + weights + 4 * c * 4,
+                                         2.0 * act * co * c * 9, f32_flop_per_s, bytes_per_s),
+               "max_abs_err": err(got, ref), "max_ref": float(ref[0].abs().max())}
+        out["conv3x3_chw_dx"][key] = row
+        per_step("conv3x3_chw_dx", paths, row["ms"], row["library_ms"], row["bound_ms"])
+        print(f"[time] conv3x3_chw_dx f32 {key}: kernel {row['ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, max abs err "
+              f"{row['max_abs_err']:.3e} (max|ref| {row['max_ref']:.3e})  [{card}]")
+        if bwd_plans:
+            k6_plan_table(key, x, gy, wt, sc, sh)
+        got = kernels.conv3x3_chw_dw(x, gy, sc, sh, True, "replicate")
+        ref = kernels.conv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate")
+        row = {"ms": yard.device_ms(lambda: kernels.conv3x3_chw_dw(x, gy, sc, sh, True,
+                                                                   "replicate")),
+               "library_ms": yard.device_ms(lambda: torch.nn.grad.conv2d_weight(
+                   a_pad, wt.shape, gy)),
+               "bound_ms": yard.bound_ms(act * (c + co) * 4 + weights + 2 * c * 4,
+                                         2.0 * act * co * c * 9, f32_flop_per_s, bytes_per_s),
+               "max_abs_err": err(got, ref), "max_ref": float(ref[0].abs().max())}
+        out["conv3x3_chw_dw"][key] = row
+        per_step("conv3x3_chw_dw", paths, row["ms"], row["library_ms"], row["bound_ms"])
+        print(f"[time] conv3x3_chw_dw f32 {key}: kernel {row['ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, max abs err "
+              f"{row['max_abs_err']:.3e} (max|ref| {row['max_ref']:.3e})  [{card}]")
+        if bwd_plans:
+            k7_plan_table(key, x, gy, sc, sh)
+        del x, gy, got, ref, a_pad
     for name, row in out["per_step"].items():
         print(f"[step sum] {name}: kernel {row['ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
               f"bound {row['bound_ms']:.4f} ms a step  [{card}]")
@@ -308,7 +412,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = True
     recipes = {"auto": cs.EXP1_ARGS + ["--fuse_up", "auto"],
                "off": cs.EXP1_ARGS + ["--fuse_up", "off"], "ssm": cs.SSM_ARGS}
-    entries = ("itg_upconv3x3_chw_dx", "itg_stem_fwd", "itg_conv1x1_chw_dw", "itg_conv3x3_chw")
+    entries = ("itg_upconv3x3_chw_dx", "itg_stem_fwd", "itg_conv1x1_chw_dw", "itg_conv3x3_chw",
+               "itg_conv3x3_chw_dx", "itg_conv3x3_chw_dw")
     for tail, argv in recipes.items():
         argv32 = [a if a != "bfloat16" else "float32" for a in argv]
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))

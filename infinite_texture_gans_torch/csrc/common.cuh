@@ -78,6 +78,48 @@ __device__ __forceinline__ uint4 pack_vec(const float (&f)[4]) {
                     __float_as_uint(f[3]));
 }
 
+// R values of a row from p, as float32: 16-byte loads where vec and all R
+// are valid, else element by element up to `valid` (zeros past it).
+template <typename T, int R>
+__device__ __forceinline__ void load_run(const T* p, float (&v)[R], int valid, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  static_assert(R % V == 0, "a run is whole 16-byte vectors");
+  if (vec && valid >= R) {
+#pragma unroll
+    for (int i = 0; i < R; i += V) {
+      float f[V];
+      unpack_vec(*reinterpret_cast<const uint4*>(p + i), f);
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[i + e] = f[e];
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) v[i] = i < valid ? to_f32<T>(p[i]) : 0.f;
+}
+
+// R values of a row to p in T: 16-byte stores where vec and all R are valid,
+// else element by element up to `valid`.
+template <typename T, int R>
+__device__ __forceinline__ void store_run(T* p, const float (&v)[R], int valid, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  static_assert(R % V == 0, "a run is whole 16-byte vectors");
+  if (vec && valid >= R) {
+#pragma unroll
+    for (int i = 0; i < R; i += V) {
+      float f[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) f[e] = v[i + e];
+      *reinterpret_cast<uint4*>(p + i) = pack_vec(f);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (i < valid) p[i] = from_f32<T>(v[i]);
+  }
+}
+
 inline int last_error() { return static_cast<int>(cudaGetLastError()); }
 
 // The current device's SM count (read per call: the caller may switch cards).

@@ -42,6 +42,8 @@
 
 namespace {
 
+using itg::cp_async16z;
+using itg::cp_async4;
 using itg::to_f32;
 
 constexpr int kThreads = 256;
@@ -63,18 +65,6 @@ struct DwArgs {
   long long chunks;      // N ceil(HW / kP)
   int vec;               // 16-byte copies (float32, HW % 4 == 0, aligned rows)
 };
-
-// One 4-byte element into shared memory by cp.async (zeros where !ok).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(itg::smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-// 16 bytes into shared memory by cp.async (zeros where !ok).
-__device__ __forceinline__ void cp_async16z(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(itg::smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
 
 // Chunk q (image q / per_image, pixels kP (q % per_image) ..) into stage s:
 // the C rows of x, then the Co rows of g (rows Cp .. of the stage).

@@ -66,7 +66,10 @@
 
 namespace {
 
+using itg::cp_async16z;
+using itg::cp_async4;
 using itg::from_f32;
+using itg::store_run;
 using itg::to_f32;
 
 constexpr int kR = 16;             // output pixels of a thread, along a row
@@ -92,16 +95,6 @@ struct FwdArgs {
   float* part;       // (N tiles, 2 Co) or null
   int N, C, H, W, Co, relu, zeros, tiles_w, xvec, yvec;
 };
-
-// 4 or 16 bytes into shared memory by cp.async (zeros where !ok).
-__device__ __forceinline__ void cp_async4(float* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(itg::smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async16z(float* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(itg::smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
 
 // Where staged row r of the tile at (ty0, tx0) comes from: the cached top
 // row, zeros, or x row `xr` (the border of ops/kernels.py: _halo_padded).
@@ -136,32 +129,6 @@ __device__ __forceinline__ CellSrc cell_src(const FwdArgs& a, int xr, int j) {
     return {xr * a.W + a.W - 1, true, true, false};
   }
   return {xr * a.W + j, true, true, false};
-}
-
-// R values of a row from p: 16-byte stores where vec, else element by
-// element up to `valid`.
-template <typename T>
-__device__ __forceinline__ void store_run(T* p, const float (&v)[kR], int valid, bool vec) {
-  if (vec && valid >= kR) {
-    if constexpr (sizeof(T) == 4) {
-#pragma unroll
-      for (int i = 0; i < kR; i += 4) {
-        *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kR; i += 8) {
-        const float f[8] = {v[i], v[i + 1], v[i + 2], v[i + 3], v[i + 4], v[i + 5], v[i + 6],
-                            v[i + 7]};
-        *reinterpret_cast<uint4*>(p + i) = itg::pack_vec(f);
-      }
-    }
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    if (i < valid) p[i] = from_f32<T>(v[i]);
-  }
 }
 
 // Grid (tiles of an image, channel chunks, N), 32 G threads: group g (warp

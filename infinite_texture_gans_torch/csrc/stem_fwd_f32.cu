@@ -40,6 +40,7 @@
 
 namespace {
 
+using itg::cp_async4;
 using itg::from_f32;
 using itg::to_f32;
 
@@ -69,12 +70,6 @@ __device__ __forceinline__ void store4(T* p, const float (&v)[4], int valid, boo
   for (int e = 0; e < 4; ++e) {
     if (e < valid) p[e] = from_f32<T>(v[e]);
   }
-}
-
-// One 4-byte element into shared memory by cp.async (zeros where !ok).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(itg::smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
 }
 
 // Grid (blocks, ceil(Co / 64)): block (bx, chunk) takes the tiles bx, bx +

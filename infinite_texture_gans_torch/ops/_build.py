@@ -42,10 +42,12 @@ SIGNATURES = {
     # x, w, b, scale, shift, top, left, wp, y, part, s1, s2, n, c, h, w, co, relu, zeros, nc, no,
     # stream (bf16 only)
     "itg_conv3x3_chw_tc": [_P] * 12 + [_I] * 9 + [_P],
-    # x, g, w, scale, shift, dx, dscale, dshift, n, c, h, w, co, relu, zeros, bf16, stream
-    "itg_conv3x3_chw_dx": [_P] * 8 + [_I] * 8 + [_P],
-    # x, g, scale, shift, dw, db, n, c, h, w, co, relu, zeros, bf16, stream
-    "itg_conv3x3_chw_dw": [_P] * 6 + [_I] * 8 + [_P],
+    # x, g, w, scale, shift, dx, part, dscale, dshift, n, c, h, w, co, relu, zeros, bf16, cc,
+    # groups, stream
+    "itg_conv3x3_chw_dx": [_P] * 9 + [_I] * 10 + [_P],
+    # x, g, scale, shift, part, dw, db, n, c, h, w, co, relu, zeros, bf16, blocks, slots, rows,
+    # stream
+    "itg_conv3x3_chw_dw": [_P] * 7 + [_I] * 11 + [_P],
     # x, g, scale, shift, part, dw, db, n, c, h, w, co, relu, zeros, mt, no, cap, stream (bf16
     # only)
     "itg_conv3x3_chw_dw_tc": [_P] * 7 + [_I] * 10 + [_P],

@@ -11,10 +11,12 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
 - K2 ``chw_halo_step``, whose kernel wrapper is ``conv3x3_chw_halo``:
   replaces pallas_conv.py:539 ``_conv3x3_chw_fwd_halo`` (the same two
   sources, given the cached borders);
-- K6 ``conv3x3_chw_dx``: pallas_conv.py:775 ``_conv3x3_chw_dx``; K7
-  ``conv3x3_chw_dw``: :888 ``_conv3x3_chw_dw``; K8 ``bn_corr``: :1061
-  ``_bn_corr`` (csrc/conv3x3_chw_bwd.cu; K6 in bf16: csrc/chw_dx_tc.cu, K7
-  in bf16: csrc/chw_dw_tc.cu);
+- K6 ``conv3x3_chw_dx``: pallas_conv.py:775 ``_conv3x3_chw_dx``
+  (csrc/conv3x3_dx_f32.cu, on :func:`conv3x3_dx_f32_plan`'s grid; in bf16:
+  csrc/chw_dx_tc.cu); K7 ``conv3x3_chw_dw``: :888 ``_conv3x3_chw_dw``
+  (csrc/conv3x3_dw_f32.cu, on :func:`conv3x3_dw_f32_plan`'s grid; in bf16:
+  csrc/chw_dw_tc.cu); K8 ``bn_corr``: :1061 ``_bn_corr``
+  (csrc/conv3x3_chw_bwd.cu);
 - K3 ``conv1x1_chw`` / ``conv1x1_chw_add`` (optionally with stats, the
   ``conv1x1_chw_add_stats`` / ``conv1x1_chw_add_p`` forms, and the dx form
   with Wᵀ): replaces pallas_conv.py:2311 ``_conv1x1_chw_fwd``; its dW
@@ -65,12 +67,16 @@ the activations' dtype the same way: bfloat16 takes one tensor-core kernel body
 ``itg_upconv3x3_chw_dx_tc``: implicit GEMMs on mma.sync, the weights rounded
 to bf16 as the reference rounds them, pallas_conv.py:971 and :1637-1639;
 their plain versions ``conv3x3_chw_dx_tc_plain`` and
-``upconv3x3_chw_dx_tc_plain`` apply the same rounding), float32 keeps the
-CUDA-core kernels (``itg_conv3x3_chw_dx``, ``itg_upconv3x3_chw_dx``). K7
-routes the same way: bfloat16 takes ``itg_conv3x3_chw_dw_tc`` (mma.sync on
-pixel-major staged post-norm tiles, fixed-order partial sums; its operands
-are bf16 values, so it needs no rounded plain version), float32
-``itg_conv3x3_chw_dw``. K13's forward routes the same way: bfloat16 takes
+``upconv3x3_chw_dx_tc_plain`` apply the same rounding), float32 the
+CUDA-core kernels (``itg_conv3x3_chw_dx``: 16-pixel runs x 7 input channels
+a thread, on :func:`conv3x3_dx_f32_plan`'s grid, the border folds on the g
+values in registers; ``itg_upconv3x3_chw_dx``), both with fixed-order
+partial sums. K7 routes the same way: bfloat16 takes
+``itg_conv3x3_chw_dw_tc`` (mma.sync on pixel-major staged post-norm tiles,
+fixed-order partial sums; its operands are bf16 values, so it needs no
+rounded plain version), float32 ``itg_conv3x3_chw_dw`` (persistent blocks
+on :func:`conv3x3_dw_f32_plan`'s grid, chunks through a cp.async ring, 3 x
+13 channel tiles a row tap, fixed-order partial sums). K13's forward routes the same way: bfloat16 takes
 ``itg_stem_fwd_tc`` (an implicit GEMM on mma.sync straight from the staged
 image rows, NHWC rows written 16 bytes a lane; the weights and bias rounded
 to bf16 as the reference rounds them, pallas_conv.py:3041/:3045, its plain
@@ -388,14 +394,22 @@ def conv3x3_f32_plan(n: int, c: int, co: int, h: int, w: int, sms: int = 132) ->
     if min(n, c, co, h, w) < 1 or n > 65535 or h * w >= 2**31:
         raise ValueError(f"conv3x3_chw (float32) takes 1 <= N <= 65535, 1 <= C, Co, H, W and "
                          f"H W < 2^31, got N={n}, C={c}, Co={co}, H={h}, W={w}")
+    return Conv3x3F32Plan(*_row_run_split(n, co, h, w, sms))
+
+
+def _row_run_split(n: int, split: int, h: int, w: int, sms: int) -> tuple:
+    """K1's and K6's split of ``split`` channels (K1's output, K6's input)
+    over 16-pixel runs: the channels a thread (7; 3 where split <= 3 or where
+    7 leaves fewer than CONV3X3_F32_MIN_WARPS_PER_SM warps an SM), the groups,
+    the groups a block, the chunks, the 16 x 32 tiles and their count."""
     tiles_h, tiles_w = -(-h // CONV3X3_F32_TILE[0]), -(-w // CONV3X3_F32_TILE[1])
     tiles = n * tiles_h * tiles_w
-    to = CONV3X3_F32_TO[0]
-    if co <= CONV3X3_F32_TO[1] or tiles * -(-co // to) < CONV3X3_F32_MIN_WARPS_PER_SM * sms:
-        to = CONV3X3_F32_TO[1]
-    groups = -(-co // to)
+    per = CONV3X3_F32_TO[0]
+    if split <= CONV3X3_F32_TO[1] or tiles * -(-split // per) < CONV3X3_F32_MIN_WARPS_PER_SM * sms:
+        per = CONV3X3_F32_TO[1]
+    groups = -(-split // per)
     g = next(g for g in CONV3X3_F32_G if g <= groups or g == 1)
-    return Conv3x3F32Plan(to, groups, g, -(-groups // g), tiles_h, tiles_w, tiles)
+    return per, groups, g, -(-groups // g), tiles_h, tiles_w, tiles
 
 
 def _fwd_cuda_cores(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
@@ -674,7 +688,9 @@ def _halo_update(x, scale, shift, relu: bool, site: SiteState, pos: GridPos, gh:
 
 
 # ---------------------------------------------------------------------------
-# K6 / K7 / K8: the 3x3 conv's backward (csrc/conv3x3_chw_bwd.cu)
+# K6 / K7 / K8: the 3x3 conv's backward (csrc/conv3x3_dx_f32.cu,
+# csrc/conv3x3_dw_f32.cu, csrc/conv3x3_chw_bwd.cu; bf16: csrc/chw_dx_tc.cu,
+# csrc/chw_dw_tc.cu)
 
 
 def _check_bwd(x, g, co, scale, shift, up: int = 1):
@@ -725,18 +741,58 @@ def pack_dx_weights(w: torch.Tensor, up: bool) -> torch.Tensor:
     return w4.permute(1, 2, 3, 0).to(torch.bfloat16, memory_format=torch.contiguous_format)
 
 
+# K6's float32 route (csrc/conv3x3_dx_f32.cu): K1's tiling with the roles of
+# C and Co swapped (_row_run_split). A thread owns 16 pixels of a row x CC
+# input channels (CC one of CONV3X3_F32_TO: 7, or 3 where C <= 3 or where 7
+# would leave fewer than CONV3X3_F32_MIN_WARPS_PER_SM warps an SM), a warp (a
+# group) a 16 x 32 tile of da and CC channels, a block the most of
+# CONV3X3_F32_G groups no larger than the groups, so g is staged once for all
+# of them; a tile's channel chunks, its tiles and the images are the grid's
+# axes. The loop over output channels runs exactly Co times.
+
+
+class Conv3x3DxF32Plan(NamedTuple):
+    cc: int  # input channels of a thread
+    groups: int  # ceil(C / cc)
+    g: int  # groups a block
+    chunks: int  # ceil(groups / g): the grid's second axis
+    tiles_h: int  # ceil(H / 16) x ceil(W / 32) tiles an image
+    tiles_w: int
+    part_rows: int  # N x tiles: rows of the (part_rows, 2C) float32 partials of d(scale), d(shift)
+
+
+def conv3x3_dx_f32_plan(n: int, c: int, co: int, h: int, w: int, sms: int = 132) -> Conv3x3DxF32Plan:
+    """The float32 K6 kernel's launch for x (N, C, H, W) and Co output
+    channels on a card of ``sms`` SMs: CC (7; 3 where C <= 3 or where 7
+    leaves fewer than CONV3X3_F32_MIN_WARPS_PER_SM warps an SM), the groups a
+    block (the most of CONV3X3_F32_G no larger than the groups), the tiles
+    and the partials' rows; the entry point launches this grid. Raises for an
+    empty shape, N > 65535 (the grid's third axis) or a plane of 2^31 pixels
+    or more."""
+    if min(n, c, co, h, w) < 1 or n > 65535 or h * w >= 2**31:
+        raise ValueError(f"conv3x3_chw_dx (float32) takes 1 <= N <= 65535, 1 <= C, Co, H, W and "
+                         f"H W < 2^31, got N={n}, C={c}, Co={co}, H={h}, W={w}")
+    return Conv3x3DxF32Plan(*_row_run_split(n, c, h, w, sms))
+
+
 def _dx_cuda_cores(x, g, wf, scale, shift, relu: bool, zeros: bool):
     """K6 on the CUDA cores (``itg_conv3x3_chw_dx``; wf (Co, C, 3, 3)): the
-    float32 route (the C function takes bf16 too)."""
+    float32 route (the C function takes bf16 too), on
+    :func:`conv3x3_dx_f32_plan`'s grid; the tiles' partial sums of d(scale)
+    and d(shift) are added in one fixed order by a second launch."""
     n, c, h, wd = x.shape
+    co = wf.shape[0]
+    plan = conv3x3_dx_f32_plan(n, c, co, h, wd, _sm_count(x.device.index))
     dx = torch.empty_like(x)
-    dsc, dsh = _zeros_f32(c, x), _zeros_f32(c, x)
+    part = torch.empty((plan.part_rows, 2 * c), dtype=torch.float32, device=x.device)
+    dsc = torch.empty(c, dtype=torch.float32, device=x.device)
+    dsh = torch.empty_like(dsc)
     sc, sh = _f32(scale), _f32(shift)
     with torch.cuda.device(x.device):
         rc = _lib().itg_conv3x3_chw_dx(
             x.data_ptr(), g.data_ptr(), wf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
-            dx.data_ptr(), dsc.data_ptr(), dsh.data_ptr(),
-            n, c, h, wd, wf.shape[0], int(relu), int(zeros), _bf16(x), _stream(x),
+            dx.data_ptr(), part.data_ptr(), dsc.data_ptr(), dsh.data_ptr(),
+            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), plan.cc, plan.g, _stream(x),
         )
     _raise_on(rc, "itg_conv3x3_chw_dx")
     ROUTE_LAUNCHES["itg_conv3x3_chw_dx"] += 1
@@ -933,18 +989,93 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# K7's float32 route (csrc/conv3x3_dw_f32.cu): persistent blocks, one an SM,
+# each walking a contiguous range of chunks (rows output rows x 32 columns of
+# one image) through a double buffer of cp.async stages. A thread owns
+# CONV3X3_DW_F32_TILE (3 output x 13 input channels) at one row tap; a block
+# holds up to CONV3X3_DW_F32_MAX_TILES of them (27 output x 52 input
+# channels: every training shape of the tail) in each of its pixel slots, a
+# power of two of them, as many as CONV3X3_DW_F32_THREADS threads hold.
+# Wider layers split the channels over the grid's second axis. The chunk's
+# rows are the one of CONV3X3_DW_F32_ROWS (whose two stages fit the shared
+# memory, with a run of 8 pixels for every slot) with the least
+# ceil(chunks / blocks) x (rows + CONV3X3_DW_F32_CHUNK_COST): the busiest
+# block's chunks, each costing its rows and a fixed part (staging, the BN
+# fold, two barriers) worth about two rows, as f32_route_study.py's plan
+# table reads them on an H100 at the float32 training shapes. A block's
+# partial is one row of Co C 9 + Co floats (dW, then db).
+CONV3X3_DW_F32_TILE = (3, 13)
+CONV3X3_DW_F32_MAX_TILES = (9, 4)
+CONV3X3_DW_F32_COLS = 32
+CONV3X3_DW_F32_RUN = 8
+CONV3X3_DW_F32_ROWS = (8, 12, 16, 24, 32)
+CONV3X3_DW_F32_CHUNK_COST = 2
+CONV3X3_DW_F32_THREADS = 256
+CONV3X3_DW_F32_SMEM = 232448  # bytes of shared memory a block may take on an H100
+CONV3X3_DW_F32_STAGES = 2
+
+
+class Conv3x3DwF32Plan(NamedTuple):
+    tiles_o: int  # a block's output tiles of 3 channels
+    tiles_c: int  # its input tiles of 13
+    slots: int  # pixel slots a block: a power of two, slots x tiles_o x tiles_c x 3 <= 256
+    threads: int  # slots x tiles_o x tiles_c x 3, rounded up to a warp
+    rows: int  # output rows a chunk
+    chunks: int  # N x ceil(H / rows) x ceil(W / 32)
+    channel_blocks: int  # ceil(C / 52) x ceil(Co / 27): the grid's second axis
+    blocks: int  # the grid's first axis: min(chunks, SMs / channel blocks), at least 1
+    part_entries: int  # Co C 9 + Co: a block's partial row
+
+
+def conv3x3_dw_f32_plan(n: int, c: int, co: int, h: int, w: int, sms: int = 132) -> Conv3x3DwF32Plan:
+    """The float32 K7 kernel's launch for x (N, C, H, W) and g (N, Co, H, W) on
+    a card of ``sms`` SMs: the block's channel tiles, its pixel slots and
+    threads, the chunk's rows, the chunks and the grid; the entry point
+    launches this grid. Raises for an empty shape, N > 65535
+    (as K6's grid) or a plane of 2^31 pixels or more."""
+    if min(n, c, co, h, w) < 1 or n > 65535 or h * w >= 2**31:
+        raise ValueError(f"conv3x3_chw_dw (float32) takes 1 <= N <= 65535, 1 <= C, Co, H, W and "
+                         f"H W < 2^31, got N={n}, C={c}, Co={co}, H={h}, W={w}")
+    (to, tc), (mo, mc) = CONV3X3_DW_F32_TILE, CONV3X3_DW_F32_MAX_TILES
+    tiles_o, tiles_c = min(-(-co // to), mo), min(-(-c // tc), mc)
+    per_slot = tiles_o * tiles_c * 3
+    slots = 1 << (CONV3X3_DW_F32_THREADS // per_slot).bit_length() - 1
+    channel_blocks = -(-c // (tc * mc)) * -(-co // (to * mo))
+    cols, stages = CONV3X3_DW_F32_COLS, CONV3X3_DW_F32_STAGES
+
+    def layout(rows):  # (chunks, blocks, the stages' and the scales' bytes)
+        chunks = n * -(-h // rows) * -(-w // cols)
+        # a stage: rows + 2 rows of x (its ring) and rows rows of g, each row
+        # its channels side by side, 35 (x) and 33 (g) floats apart
+        stage = 4 * ((rows + 2) * tc * tiles_c * (cols + 3) + rows * to * tiles_o * (cols + 1))
+        return chunks, max(1, min(chunks, sms // channel_blocks)), stages * stage + 8 * tc * mc
+
+    fits = [r for r in CONV3X3_DW_F32_ROWS
+            if slots * CONV3X3_DW_F32_RUN <= r * cols and layout(r)[2] <= CONV3X3_DW_F32_SMEM]
+    rows = min(fits or CONV3X3_DW_F32_ROWS[:1],
+               key=lambda r: (-(-layout(r)[0] // layout(r)[1]) * (r + CONV3X3_DW_F32_CHUNK_COST), r))
+    chunks, blocks, _ = layout(rows)
+    return Conv3x3DwF32Plan(tiles_o, tiles_c, slots, -(-slots * per_slot // 32) * 32, rows,
+                            chunks, channel_blocks, blocks, co * c * 9 + co)
+
+
 def _dw_cuda_cores(x, g, scale, shift, relu: bool, zeros: bool):
     """K7 on the CUDA cores (``itg_conv3x3_chw_dw``): the float32 route (the
-    C function takes bf16 too)."""
+    C function takes bf16 too): persistent blocks on
+    :func:`conv3x3_dw_f32_plan`'s grid write float32 partials of dW and db, a
+    second launch sums them in one order."""
     n, c, h, wd = x.shape
     co = g.shape[1]
-    dw = torch.zeros((co, c, 3, 3), dtype=torch.float32, device=x.device)
-    db = _zeros_f32(co, x)
+    plan = conv3x3_dw_f32_plan(n, c, co, h, wd, _sm_count(x.device.index))
+    dw = torch.empty((co, c, 3, 3), dtype=torch.float32, device=x.device)
+    db = torch.empty(co, dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.blocks, plan.part_entries), dtype=torch.float32, device=x.device)
     sc, sh = _f32(scale), _f32(shift)
     with torch.cuda.device(x.device):
         rc = _lib().itg_conv3x3_chw_dw(
-            x.data_ptr(), g.data_ptr(), sc.data_ptr(), sh.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
+            x.data_ptr(), g.data_ptr(), sc.data_ptr(), sh.data_ptr(), part.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), n, c, h, wd, co, int(relu), int(zeros), _bf16(x),
+            plan.blocks, plan.slots, plan.rows, _stream(x),
         )
     _raise_on(rc, "itg_conv3x3_chw_dw")
     ROUTE_LAUNCHES["itg_conv3x3_chw_dw"] += 1

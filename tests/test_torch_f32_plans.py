@@ -1,12 +1,13 @@
-"""The host planners of the float32 routes of K9 dx, K13's forward, K3-dW
-and K1/K2 (ops/kernels.py: upconv_dx_f32_plan, stem_f32_plan,
-conv1x1_dw_f32_plan, conv3x3_f32_plan): the tiles and splits they choose
-at the Experiment-1, SSM, eval and ``--D_ch 640`` shapes, and the shapes
-they refuse. The kernels themselves run only on the card (chip_smoke.py,
-tests/test_torch_gpu.py); on the CPU the wrappers take the plain versions,
-which tests/test_torch_upconv.py, tests/test_torch_stem_tc.py,
-tests/test_torch_conv1x1_tc.py and tests/test_torch_kernels.py hold to the
-JAX package."""
+"""The host planners of the float32 routes of K9 dx, K13's forward, K3-dW,
+K1/K2, K6 and K7 (ops/kernels.py: upconv_dx_f32_plan, stem_f32_plan,
+conv1x1_dw_f32_plan, conv3x3_f32_plan, conv3x3_dx_f32_plan,
+conv3x3_dw_f32_plan): the tiles and splits they choose at the Experiment-1,
+SSM, eval and ``--D_ch 640`` shapes, and the shapes they refuse. The kernels
+themselves run only on the card (chip_smoke.py, tests/test_torch_gpu.py); on
+the CPU the wrappers take the plain versions, which
+tests/test_torch_upconv.py, tests/test_torch_stem_tc.py,
+tests/test_torch_conv1x1_tc.py, tests/test_torch_kernels.py and
+tests/test_torch_train_kernels.py hold to the JAX package."""
 
 import pytest
 import torch
@@ -161,6 +162,79 @@ def test_conv1x1_dw_f32_plan_refuses(shape):
         tk.conv1x1_dw_f32_plan(*shape)
 
 
+# (N, C, Co, H, W) of K6's and K7's float32 routes at every float32 training
+# shape (the convs K1 runs: K1_PLANS' first six), K6's plan (CC, groups,
+# groups a block, channel chunks, tiles) and K7's (output and input tiles a
+# block, pixel slots, threads, rows a chunk, chunks)
+BWD_PLANS = [
+    ((8, 26, 26, 192, 192), (7, 4, 4, 1, (12, 6)), (9, 2, 4, 224, 12, 8 * 16 * 6)),
+    ((8, 13, 13, 384, 384), (7, 2, 2, 1, (24, 12)), (5, 1, 16, 256, 24, 8 * 16 * 12)),
+    ((8, 13, 3, 384, 384), (7, 2, 2, 1, (24, 12)), (1, 1, 64, 192, 32, 8 * 12 * 12)),
+    ((8, 52, 26, 192, 192), (7, 8, 4, 2, (12, 6)), (9, 4, 2, 224, 8, 8 * 24 * 6)),
+    ((8, 26, 13, 384, 384), (7, 4, 4, 1, (24, 12)), (5, 2, 8, 256, 16, 8 * 24 * 12)),
+    ((8, 26, 3, 192, 192), (7, 4, 4, 1, (12, 6)), (1, 2, 32, 192, 24, 8 * 8 * 6)),
+]
+
+
+@pytest.mark.parametrize("shape, dx, dw", BWD_PLANS, ids=lambda v: str(v))
+def test_conv3x3_bwd_f32_plans_at_exp1(shape, dx, dw):
+    """K6: 7 input channels a thread (13 -> 14, 26 -> 28, 52 -> 56: at most
+    one partial group), every group of a tile in one block up to 4, 16 x 32
+    tiles, a partial row a tile. K7: 3 x 13 channel tiles a row tap, every
+    channel in one block (Co = 3 in one output tile: no padded output
+    channel), the most pixel slots a power of two that 256 threads hold, the
+    chunk's rows with the least (chunks of the busiest block) x (rows + 2)
+    among those whose two stages fit 227 KB (52 -> 26 only 8: its stage is
+    99 KB), one block an SM of 132."""
+    n, c, co, h, w = shape
+    p6 = tk.conv3x3_dx_f32_plan(n, c, co, h, w)
+    assert (p6.cc, p6.groups, p6.g, p6.chunks, (p6.tiles_h, p6.tiles_w)) == dx
+    assert p6.groups * p6.cc - c < p6.cc and p6.chunks * p6.g >= p6.groups
+    assert p6.part_rows == n * p6.tiles_h * p6.tiles_w
+    p7 = tk.conv3x3_dw_f32_plan(n, c, co, h, w)
+    assert (p7.tiles_o, p7.tiles_c, p7.slots, p7.threads, p7.rows, p7.chunks) == dw
+    assert p7.tiles_o * 3 - co < 3 and p7.tiles_c * 13 - c < 13
+    assert (p7.channel_blocks, p7.blocks) == (1, 132)
+    assert p7.slots * p7.tiles_o * p7.tiles_c * 3 <= 256 and p7.slots <= 4 * p7.rows
+    assert p7.rows in tk.CONV3X3_DW_F32_ROWS
+    assert p7.part_entries == co * c * 9 + co
+
+
+@pytest.mark.parametrize("h, w", [(1, 1), (13, 45), (17, 19), (16, 32), (33, 47), (384, 384)])
+def test_conv3x3_bwd_f32_plans_tiles_cover_the_image(h, w):
+    """K6's 16 x 32 tiles and K7's chunks (rows x 32 columns) cover every
+    shape, the last row and column of them padded."""
+    p6 = tk.conv3x3_dx_f32_plan(2, 5, 7, h, w)
+    assert (p6.tiles_h - 1) * 16 < h <= p6.tiles_h * 16
+    assert (p6.tiles_w - 1) * 32 < w <= p6.tiles_w * 32
+    p7 = tk.conv3x3_dw_f32_plan(2, 5, 7, h, w)
+    assert p7.chunks == 2 * -(-h // p7.rows) * -(-w // 32)
+    assert p7.blocks == min(p7.chunks, 132)
+
+
+@pytest.mark.parametrize("c, co, cc, blocks", [(3, 5, 3, (1, 132)), (1, 1, 3, (1, 132)),
+                                               (60, 30, 7, (4, 33)), (200, 3, 7, (4, 33)),
+                                               (5, 100, 7, (4, 33))])
+def test_conv3x3_bwd_f32_plans_channel_split(c, co, cc, blocks):
+    """K6 takes 3 input channels a thread where C <= 3; K7 splits the
+    channels past 52 input or 27 output over its grid's second axis, and
+    shares the card's SMs among those channel blocks."""
+    p6 = tk.conv3x3_dx_f32_plan(8, c, co, 192, 192)
+    assert p6.cc == cc and p6.groups == -(-c // cc)
+    p7 = tk.conv3x3_dw_f32_plan(8, c, co, 192, 192)
+    assert (p7.channel_blocks, p7.blocks) == blocks
+    assert p7.tiles_c == min(-(-c // 13), 4) and p7.tiles_o == min(-(-co // 3), 9)
+
+
+@pytest.mark.parametrize("plan", ["conv3x3_dx_f32_plan", "conv3x3_dw_f32_plan"])
+@pytest.mark.parametrize("shape", [(0, 5, 3, 8, 8), (1, 0, 3, 8, 8), (1, 5, 0, 8, 8),
+                                   (1, 5, 3, 0, 8), (1, 5, 3, 8, 0), (65536, 5, 3, 8, 8),
+                                   (1, 5, 3, 65536, 32768)])
+def test_conv3x3_bwd_f32_plans_refuse(plan, shape):
+    with pytest.raises(ValueError, match=r"conv3x3_chw_d[xw] \(float32\)"):
+        getattr(tk, plan)(*shape)
+
+
 @pytest.mark.parametrize("fn, args", [
     ("upconv3x3_chw_dx", lambda: (torch.zeros(1, 3, 4, 4), torch.zeros(1, 2, 8, 8),
                                   torch.zeros(2, 3, 3, 3), torch.ones(3), torch.zeros(3), True,
@@ -172,6 +246,13 @@ def test_conv1x1_dw_f32_plan_refuses(shape):
                              torch.randn(3, 4, 3, 3, generator=torch.Generator().manual_seed(4)),
                              torch.zeros(3), torch.ones(4), torch.zeros(4), True, "replicate",
                              True)),
+    ("conv3x3_chw_dx", lambda: (torch.randn(2, 4, 5, 6, generator=torch.Generator().manual_seed(7)),
+                                torch.randn(2, 3, 5, 6, generator=torch.Generator().manual_seed(8)),
+                                torch.randn(3, 4, 3, 3, generator=torch.Generator().manual_seed(9)),
+                                torch.ones(4), torch.zeros(4), True, "replicate")),
+    ("conv3x3_chw_dw", lambda: (torch.randn(2, 4, 5, 6, generator=torch.Generator().manual_seed(10)),
+                                torch.randn(2, 3, 5, 6, generator=torch.Generator().manual_seed(11)),
+                                torch.ones(4), torch.zeros(4), True, "constant")),
     ("conv3x3_chw_halo", lambda: (torch.randn(1, 4, 5, 6, generator=torch.Generator().manual_seed(5)),
                                   torch.randn(3, 4, 3, 3, generator=torch.Generator().manual_seed(6)),
                                   torch.zeros(3), torch.ones(4), torch.zeros(4), True, "constant",

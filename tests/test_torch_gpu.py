@@ -642,6 +642,58 @@ def test_dw_tc_refuses_wider(cuda):
     assert tk.ROUTE_LAUNCHES["itg_conv3x3_chw_dw"] == 0
 
 
+# --- K6 and K7 on the CUDA cores, float32 -------------------------------------
+# n, c, co, h, w off the training path: odd H and W (element copies), a
+# partial channel group, one row with both column rings on one run, an aligned
+# width with a ragged last tile, and K7's channels split over its grid (C > 52,
+# Co > 27)
+F32_BWD_SHAPES = [(2, 5, 7, 33, 47), (1, 13, 3, 1, 5), (3, 26, 13, 17, 64), (1, 60, 30, 9, 40)]
+
+
+def _f32_bwd_case(cuda, shape, dtype=torch.float32, seed=41):
+    n, c, co, h, w = shape
+    x, wt, _, sc, sh = _inputs(cuda, dtype, n=n, c=c, co=co, h=h, w=w, seed=seed)
+    g = torch.randn(n, co, h, w, generator=torch.Generator().manual_seed(seed)).to(cuda, dtype)
+    return x, g, wt, sc, sh
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("shape", F32_BWD_SHAPES)
+def test_conv3x3_bwd_f32_matches_plain(cuda, relu, outer, shape):
+    """K6 and K7 in float32 launch the CUDA-core entry points once a call,
+    held to their plain versions (dx within F32_TOL, the sums within
+    SUM_TOL); fixed-order partial sums and no atomics: two calls give the
+    same bits (dx, d(scale), d(shift), dW, db)."""
+    x, g, wt, sc, sh = _f32_bwd_case(cuda, shape)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    dx = tk.conv3x3_chw_dx(x, g, wt, sc, sh, relu, outer)
+    dw = tk.conv3x3_chw_dw(x, g, sc, sh, relu, outer)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_conv3x3_chw_dx"], tk.ROUTE_LAUNCHES["itg_conv3x3_chw_dw"]) == (1, 1)
+    _assert_dx_close(dx, tk.conv3x3_chw_dx_plain(x, g, wt, sc, sh, relu, outer))
+    dw_ref, db_ref = tk.conv3x3_chw_dw_plain(x, g, sc, sh, relu, outer)
+    _assert_sum_close(dw[0], dw_ref)
+    _assert_sum_close(dw[1], db_ref)
+    again = tk.conv3x3_chw_dx(x, g, wt, sc, sh, relu, outer) + tk.conv3x3_chw_dw(x, g, sc, sh, relu,
+                                                                                  outer)
+    assert all(torch.equal(a, b_) for a, b_ in zip(dx + dw, again))
+
+
+@pytest.mark.parametrize("shape", [F32_BWD_SHAPES[0], F32_BWD_SHAPES[2]])
+def test_conv3x3_bwd_f32_entries_take_bf16(cuda, shape):
+    """The CUDA-core entry points of K6 and K7 take bf16 too (the bf16 rows
+    of chip_smoke.py time them beside the tensor-core kernels): each held to
+    its plain version in bf16."""
+    x, g, wt, sc, sh = _f32_bwd_case(cuda, shape, torch.bfloat16)
+    _assert_dx_close(tk._dx_cuda_cores(x, g, wt, sc, sh, True, False),
+                     tk.conv3x3_chw_dx_plain(x, g, wt, sc, sh, True, "replicate"))
+    dw, db = tk._dw_cuda_cores(x, g, sc, sh, True, False)
+    dw_ref, db_ref = tk.conv3x3_chw_dw_plain(x, g, sc, sh, True, "replicate")
+    _assert_sum_close(dw, dw_ref)
+    _assert_sum_close(db, db_ref)
+
+
 # --- K9 dW and K13 dW on the tensor cores, bf16 ------------------------------
 # K9 dW, half-res n, c, co, h, w: the Experiment-1 `auto` step's two fused
 # blocks (N = 8, 52 -> 26 at 96^2, 26 -> 13 at 192^2), then ragged ones (W
