@@ -128,7 +128,19 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    chunk dropped) at least F32_PLANT times their limits
    (``check_dx_f32``, ``check_dw_f32``), odd shapes, both paddings and the
    ReLU off in ``check_f32_edges``, and their times beside the recorded
-   times of the bodies they replaced (K6_F32_PARENT_MS, K7_F32_PARENT_MS). Times
+   times of the bodies they replaced (K6_F32_PARENT_MS, K7_F32_PARENT_MS).
+   K9's forward (with K14) and K9 dW's f32 routes (``csrc/upconv_fwd_f32.cu``,
+   ``csrc/upconv_dw_f32.cu``) likewise: two calls bit-equal at every path
+   shape (y, Σy, Σy², K14 with both borders at the eval shapes; dW, db), K9's
+   sums also against float64 sums (K9_SUM_TOL), planted faults at both
+   training shapes (the forward: slot (1, 1) of phase (0, 0) skipped, ky and
+   kx swapped, the first tile's Σy partial dropped, K14 reading its cached
+   top row as the own edge; dW: one phase tap's dW x 1.01, ky and kx
+   swapped, one pixel chunk dropped) at least F32_PLANT times their limits
+   (``check_up_f32``, ``check_updw_f32``), odd shapes, both paddings, the
+   ReLU off, channels past the planner's tiles, one-channel sides and
+   ``--G_ch`` 64 in ``check_f32_edges``, and their times beside the recorded
+   times of the bodies they replaced (K9_F32_PARENT_MS, K9DW_F32_PARENT_MS). Times
    each (CUDA-graph replay) beside its bound, its plain version and one
    PyTorch library call, summed per
    step for each tail, and holds the timed calls per step to the tail's
@@ -446,12 +458,12 @@ F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_fwd_f32.cu"),
              "conv3x3_chw_dx": ("itg_conv3x3_chw_dx", "conv3x3_dx_f32.cu"),
              "conv3x3_chw_dw": ("itg_conv3x3_chw_dw", "conv3x3_dw_f32.cu"),
              "upconv3x3_chw_dx": ("itg_upconv3x3_chw_dx", "upconv_dx_f32.cu"),
-             "upconv3x3_chw_dw": ("itg_upconv3x3_chw_dw", "upconv3x3_chw.cu"),
+             "upconv3x3_chw_dw": ("itg_upconv3x3_chw_dw", "upconv_dw_f32.cu"),
              "stem_fwd": ("itg_stem_fwd", "stem_fwd_f32.cu"),
              "stem_dw": ("itg_stem_dw", "stem4x4s2.cu"),
              "stem_dx": ("itg_stem_dx", "stem4x4s2.cu"),
-             "upconv3x3_chw": ("itg_upconv3x3_chw", "upconv3x3_chw.cu"),
-             "chw_upconv_halo_step": ("itg_upconv3x3_chw", "upconv3x3_chw.cu"),
+             "upconv3x3_chw": ("itg_upconv3x3_chw", "upconv_fwd_f32.cu"),
+             "chw_upconv_halo_step": ("itg_upconv3x3_chw", "upconv_fwd_f32.cu"),
              "conv1x1_chw": ("itg_conv1x1_chw", "conv1x1_chw.cu"),
              "conv1x1_chw_dw": ("itg_conv1x1_chw_dw", "conv1x1_dw_f32.cu")}
 TC_ENTRY = {"conv3x3_chw": "itg_conv3x3_chw_tc", "chw_halo_step": "itg_conv3x3_chw_tc",
@@ -638,8 +650,8 @@ TRAIN_PATHS = {"auto": ("train --fuse_up auto", "per Experiment-1 step"),
                "off": ("train --fuse_up off", "per Experiment-1 step"),
                "ssm": ("train SSM", "per SSM-recipe step")}
 # float32 reductions (Σy, Σy², d(scale), d(shift), dW, db) in another order
-# (K3's sums and K9's and K13's f32 dW by atomics; K5, K6, K7, K9 dx and K3-dW
-# by fixed-order partials): 1e-4 of the largest reference entry
+# (K3's sums and K13's f32 dW by atomics; K5, K6, K7, K9's sums, K9 dx, K9 dW
+# and K3-dW by fixed-order partials): 1e-4 of the largest reference entry
 SUM_TOL = 1e-4
 # K15's bf16 dW1 and db1 sum d_pre, which the route rounds to bf16: where the
 # kernel's float32 d_act and the plain version's float64 one straddle a
@@ -710,11 +722,19 @@ STEM_PLANT = 10.0
 # K13's forward, dW and dx at output widths that are no multiple of 8 or
 # above 128 (--D_ch), held to their plain versions beside the flagship's 64
 STEM_ANY_CO = (4, 12, 100, 136, 256)
-# K9 dx's, K13's forward's, K1's, K3-dW's, K6's and K7's float32 routes:
-# each planted fault must read at least this many times the check's limit
+# K9 dx's, K13's forward's, K1's, K3-dW's, K6's, K7's, K9's forward's (with
+# K14) and K9 dW's float32 routes: each planted fault must read at least this
+# many times the check's limit
 F32_PLANT = 10.0
+# K9's float32 Σy and Σy² against float64 sums of the stored y: float32 adds
+# in one fixed order, about 55 deep (a thread's 32 outputs, a warp's shuffle
+# tree, then the N x tiles partials: 256 threads, a shuffle tree, 8 warps),
+# so each sits within 55 x 2^-24 ~ 3.3e-6 of Σ|y| (Σy² for the squares) of
+# the exact sum; 1e-5 leaves a factor of three, and a dropped tile's partial
+# (1 of 288 or 1152 at the Experiment-1 shapes) reads tens of times it.
+K9_SUM_TOL = 1e-5
 # The float32 bodies that K9 dx's and K13's forward's redesigns replaced
-# (csrc/upconv3x3_chw.cu: upconv_dx_kernel, csrc/stem4x4s2.cu:
+# (the old csrc/upconv3x3_chw.cu: upconv_dx_kernel, csrc/stem4x4s2.cu:
 # stem_fwd_kernel), CUDA-graph replay, per call at each timed shape: the
 # mean of two runs of f32_route_study.py on that parent tree, taken in turns
 # with the redesign's in one call on one NVIDIA H100 80GB HBM3 at 700 W
@@ -733,15 +753,23 @@ K3DW_F32_PARENT_MS = {"(8, 52->26, 96x96)": 0.0546, "(8, 26->13, 192x192)": 0.08
                       "(8, 52->26, 192x192)": 0.2234, "(8, 26->13, 384x384)": 0.3333}
 # The float32 bodies that K6's and K7's redesigns replaced (the old
 # csrc/conv3x3_chw_bwd.cu: conv3x3_dx_kernel, conv3x3_dw_kernel), the same
-# way, and the graphed float32 steps that ran them (warm wall and device
-# busy, ms; cuDNN's TF32 as the train CLI leaves it)
+# way
 K6_F32_PARENT_MS = {"(8, 26->26, 192x192)": 0.5114, "(8, 13->13, 384x384)": 0.5188,
                     "(8, 13->3, 384x384)": 0.3020, "(8, 52->26, 192x192)": 0.9247,
                     "(8, 26->13, 384x384)": 0.9588, "(8, 26->3, 192x192)": 0.1740}
 K7_F32_PARENT_MS = {"(8, 26->26, 192x192)": 0.3453, "(8, 13->13, 384x384)": 0.5649,
                     "(8, 13->3, 384x384)": 0.2485, "(8, 52->26, 192x192)": 0.6657,
                     "(8, 26->13, 384x384)": 0.6912, "(8, 26->3, 192x192)": 0.1332}
-F32_STEP_PARENT_MS = {"auto": (23.362, 22.914), "off": (26.370, 25.424), "ssm": (55.267, 54.475)}
+# The float32 bodies that K9's forward's and K9 dW's redesigns replaced (the
+# old csrc/upconv3x3_chw.cu: upconv_fwd_kernel with its atomic sums,
+# upconv_dw_kernel with its atomics and the wrapper's fold to 3 x 3), the
+# same way, and the graphed float32 steps that ran them (warm wall and device
+# busy, ms; cuDNN's TF32 as the train CLI leaves it)
+K9_F32_PARENT_MS = {"(8, 52->26, 96x96 -> 192x192)": 0.3973,
+                    "(8, 26->13, 192x192 -> 384x384)": 0.4180}
+K9DW_F32_PARENT_MS = {"(8, 52->26, 96x96 -> 192x192)": 0.3121,
+                      "(8, 26->13, 192x192 -> 384x384)": 0.3926}
+F32_STEP_PARENT_MS = {"auto": (22.205, 21.227), "off": (22.881, 22.006), "ssm": (53.546, 52.563)}
 # K9/K14's bf16 forward: the same for its planted faults
 UP_PLANT = 10.0
 # K3's and K3-dW's bf16 routes: the same for their planted faults, each
@@ -3644,8 +3672,77 @@ def main() -> int:
                 fail(f"conv3x3_chw {tag}: the check passes a planted {fault}")
         return y
 
+    def k9_sums_ratio(y, s1, s2):
+        """K9's float32 Σy and Σy² against float64 sums of the stored y: the
+        worse of the two errors over its limit (K9_SUM_TOL of Σ|y| or Σy²),
+        channel by channel."""
+        yd = y.double()
+        return max(float(((got.double() - v.sum(dim=(0, 2, 3))).abs()
+                          / (K9_SUM_TOL * v.abs().sum(dim=(0, 2, 3)))).max())
+                   for got, v in ((s1, yd), (s2, yd * yd)))
+
+    def check_up_f32(tag, x, wt, b, sc, sh, top, left, outer, halo, got, ref, plant):
+        """K9/K14's float32 route (CUDA cores, csrc/upconv_fwd_f32.cu) beyond
+        the check against its plain version: Σy and Σy² against float64 sums
+        of the stored y (k9_sums_ratio), two calls bit-equal (y, Σy, Σy², y
+        without the sums and, with ``halo``, K14 with both borders:
+        fixed-order sums), and with ``plant`` (replicate padding) four planted
+        faults (slot (1, 1) of phase (0, 0) skipped; ky and kx swapped; the
+        first tile's Σy partial dropped; K14 reading its cached top row as
+        the own edge, on borders drawn here where the path has none) must
+        read at least F32_PLANT times the check's limit."""
+        y, s1, s2 = got
+        k = kernels.upconv3x3_chw
+        r_sum = k9_sums_ratio(y, s1, s2)
+        print(f"[check] upconv3x3_chw {tag}: Σy, Σy² against float64 sums of the stored y: max "
+              f"abs err / limit {r_sum:.3f} (limit {K9_SUM_TOL:g} of Σ|y|, Σy²)")
+        if not r_sum <= 1.0:
+            fail(f"upconv3x3_chw {tag}: f32 sums {r_sum:.3f}x their float64 limit")
+        again = k(x, wt, b, sc, sh, True, outer, want_stats=True)
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        same = same and torch.equal(y, k(x, wt, b, sc, sh, True, outer))
+        if halo:
+            same = same and torch.equal(
+                kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, top, left),
+                kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, top, left))
+        print(f"[check] upconv3x3_chw {tag}: two calls {'bit-equal' if same else 'differ'} (y, "
+              f"Σy, Σy², y without the sums{', K14 with both borders' if halo else ''})")
+        if not same:
+            fail(f"upconv3x3_chw {tag}: two f32 calls differ")
+        if not plant or outer != "replicate":
+            return
+
+        def ratio(bad, r):  # max abs err over the f32 check's limit
+            return float((bad - r).abs().max()) / (F32_TOL * max(1.0, float(r.abs().max())))
+
+        n_, c, h, w = x.shape
+        co = wt.shape[0]
+        if top is None:
+            g_ = torch.Generator(device=dev).manual_seed(977)
+            top, left = torch.relu(randn(g_, n_, c, w + 2)), torch.relu(randn(g_, n_, c, h))
+        a_pad = F.pad(kernels.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
+        wc = kernels._upconv_phase_weights(wt).reshape(co, c, 2, 2, 2, 2)
+        skipped = y.clone()
+        skipped[..., 0::2, 0::2] -= F.conv2d(a_pad[:, :, 1 : h + 1, 1 : w + 1],
+                                             wc[:, :, 0, 0, 1, 1, None, None])
+        # the first tile: 8 x 32 half-res pixels of image 0, 16 x 64 of y
+        s1_bad = s1.double() - y[0, :, :16, :64].double().sum(dim=(1, 2))
+        for fault, r_ in (
+                ("slot (1, 1) of phase (0, 0) skipped", ratio(skipped, ref)),
+                ("ky<->kx (phases (0, 1) and (1, 0) swap taps)",
+                 ratio(k(x, wt.transpose(2, 3).contiguous(), b, sc, sh, True, outer), ref)),
+                ("the first tile's Σy partial dropped", k9_sums_ratio(y, s1_bad, s2)),
+                ("K14 reading its cached top row as the own edge",
+                 ratio(kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, None, left),
+                       kernels.upconv3x3_chw_halo_plain(x, wt, b, sc, sh, True, outer, top,
+                                                        left)))):
+            print(f"[check] upconv3x3_chw {tag}: planted {fault}: max abs err / limit {r_:.2f} "
+                  f"(must reach {F32_PLANT:g})")
+            if not r_ >= F32_PLANT:
+                fail(f"upconv3x3_chw {tag}: a planted {fault} reads only {r_:.2f}x the limit")
+
     def check_up(where, shape_s, x, wt, b, sc, sh, top, left, outer, halo=True, with_stats=False,
-                 plant=False):
+                 plant=False, f32_plant=None):
         """K9's forward (with its sums where ``with_stats``) and, with
         ``halo``, K14 in its four border cases against their plain versions.
         bf16 runs the tensor cores: y within BF16_TOL of max|ref| of the plain
@@ -3654,7 +3751,9 @@ def main() -> int:
         sums of the stored y, two calls bit-equal (y, the sums, the call
         without sums, K14), and with ``plant`` (replicate padding) four planted
         faults (three without ``halo``) must read at least UP_PLANT times the
-        limit. f32 runs the CUDA cores, held to the plain versions."""
+        limit. f32 runs the CUDA cores, held to the plain versions, the sums
+        to float64 ones, two calls bit-equal, and with ``f32_plant``
+        (``plant`` where not given) four planted faults (``check_up_f32``)."""
         tc = x.dtype == torch.bfloat16
         tag = f"{where} {shape_s} {outer} [{'tensor cores' if tc else 'CUDA cores'}]"
         plain = kernels.upconv3x3_chw_tc_plain if tc else kernels.upconv3x3_chw_plain
@@ -3672,6 +3771,8 @@ def main() -> int:
                     kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, tb, lb),
                     halo_plain(x, wt, b, sc, sh, True, outer, tb, lb), floor=floor)
         if not tc:
+            check_up_f32(tag, x, wt, b, sc, sh, top, left, outer, halo, (y, s1, s2), ref,
+                         plant if f32_plant is None else f32_plant)
             return
         unrounded = kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, outer).float()
         moved = float((y.float() - unrounded).abs().max() / unrounded.abs().max())
@@ -3866,7 +3967,12 @@ def main() -> int:
         thread grid (C = 53, Co = 43) and one-channel sides, two calls
         bit-equal; K6 and K7 at odd H and W, one row, channels split over
         K7's grid, both paddings and the ReLU off, two calls bit-equal; all
-        four C entry points in bf16."""
+        four C entry points in bf16. K9's forward (with its sums and K14 in
+        its four border cases) and K9 dW at odd H, W, C and Co, both
+        paddings, the ReLU off, channels just past the planner's tiles (more
+        than 4 groups a block; past 52 input and 32 output channels on dW),
+        one-channel sides and a --G_ch of 64 (its fused tail), two calls
+        bit-equal; both C entry points in bf16."""
         g_ = torch.Generator(device=dev).manual_seed(seed)
         for n_, c_, co_, h_, w_, outer, relu in ((2, 11, 7, 13, 45, "constant", False),
                                                  (2, 5, 3, 17, 33, "replicate", False),
@@ -3963,6 +4069,78 @@ def main() -> int:
                     got[0], ref[0])
         compare_sum("conv3x3_chw_dw", "db bf16 (2, 26->13, 24x40) through itg_conv3x3_chw_dw",
                     got[1], ref[1])
+        # K9's forward (with its sums and K14) and K9 dW: odd H, W, C and Co,
+        # both paddings, the ReLU off, Co 37 (19 groups of 2: five chunks) and
+        # C 53 / Co 33 (dW's channel blocks), one-channel sides, then --G_ch
+        # 64's fused tail (64 -> 32 at 96^2 and 32 -> 16 at 192^2 in training,
+        # 128 -> 64 at 48^2 at eval); half-res shapes
+        for n_, c_, co_, h_, w_, outer, relu in ((2, 11, 7, 13, 45, "constant", False),
+                                                 (1, 5, 3, 17, 33, "replicate", False),
+                                                 (8, 17, 37, 40, 64, "replicate", True),
+                                                 (2, 53, 33, 10, 40, "constant", True),
+                                                 (2, 1, 5, 6, 33, "replicate", True),
+                                                 (2, 6, 1, 7, 8, "constant", False),
+                                                 (8, 64, 32, 96, 96, "replicate", True),
+                                                 (8, 32, 16, 192, 192, "replicate", True),
+                                                 (1, 128, 64, 48, 48, "constant", True)):
+            x = randn(g_, n_, c_, h_, w_)
+            wt = randn(g_, co_, c_, 3, 3) * (9 * c_) ** -0.5
+            b, sc, sh = 0.1 * randn(g_, co_), 1 + 0.1 * randn(g_, c_), 0.1 * randn(g_, c_)
+            top = torch.relu(randn(g_, n_, c_, w_ + 2))
+            left = torch.relu(randn(g_, n_, c_, h_))
+            gy = randn(g_, n_, co_, 2 * h_, 2 * w_)
+            tag = (f"({n_}, {c_}->{co_}, {h_}x{w_} -> {2 * h_}x{2 * w_}) {outer} ReLU "
+                   f"{'on' if relu else 'off'} [CUDA cores]")
+            got = kernels.upconv3x3_chw(x, wt, b, sc, sh, relu, outer, want_stats=True)
+            compare("upconv3x3_chw", tag, got[0],
+                    kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, relu, outer))
+            r_sum = k9_sums_ratio(*got)
+            print(f"[check] upconv3x3_chw {tag}: Σy, Σy² against float64 sums of the stored y: "
+                  f"max abs err / limit {r_sum:.3f}")
+            if not r_sum <= 1.0:
+                fail(f"upconv3x3_chw {tag}: f32 sums {r_sum:.3f}x their float64 limit")
+            again = list(kernels.upconv3x3_chw(x, wt, b, sc, sh, relu, outer, want_stats=True))
+            for case, (t_, l_) in BORDERS.items():
+                tb, lb = (top if t_ else None), (left if l_ else None)
+                y14 = kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, relu, outer, tb, lb)
+                compare("chw_upconv_halo_step", f"{tag} {case}", y14,
+                        kernels.upconv3x3_chw_halo_plain(x, wt, b, sc, sh, relu, outer, tb, lb))
+                got += (y14,)
+                again.append(kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, relu, outer, tb, lb))
+            got_w = kernels.upconv3x3_chw_dw(x, gy, sc, sh, relu, outer)
+            ref_w = kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, relu, outer)
+            compare_sum("upconv3x3_chw_dw", f"dW {tag}", got_w[0], ref_w[0])
+            compare_sum("upconv3x3_chw_dw", f"db {tag}", got_w[1], ref_w[1])
+            again += kernels.upconv3x3_chw_dw(x, gy, sc, sh, relu, outer)
+            same = all(torch.equal(a, b_) for a, b_ in zip(got + got_w, again))
+            print(f"[check] upconv3x3_chw / upconv3x3_chw_dw {tag}: two calls "
+                  f"{'bit-equal' if same else 'differ'} (y, Σy, Σy², K14 in its four border "
+                  "cases, dW, db)")
+            if not same:
+                fail(f"upconv3x3_chw / upconv3x3_chw_dw {tag}: two f32 calls differ")
+            del x, gy, got, again, got_w, ref_w
+        x, gy = randn(g_, 2, 26, 24, 40).bfloat16(), randn(g_, 2, 13, 48, 80).bfloat16()
+        wt = randn(g_, 13, 26, 3, 3) * 234 ** -0.5
+        b, sc, sh = 0.1 * randn(g_, 13), 1 + 0.1 * randn(g_, 26), 0.1 * randn(g_, 26)
+        top = torch.relu(randn(g_, 2, 26, 42)).bfloat16()
+        left = torch.relu(randn(g_, 2, 26, 24)).bfloat16()
+        got = kernels._upconv_cuda_cores(x, wt, b, sc, sh, True, False, None, None, True)
+        compare("upconv3x3_chw", "bf16 (2, 26->13, 24x40) through itg_upconv3x3_chw [CUDA cores]",
+                got[0], kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, "replicate"))
+        compare_sum("upconv3x3_chw", "Σy bf16 (2, 26->13, 24x40) through itg_upconv3x3_chw",
+                    got[1], got[0].float().sum(dim=(0, 2, 3)))
+        compare_sum("upconv3x3_chw", "Σy² bf16 (2, 26->13, 24x40) through itg_upconv3x3_chw",
+                    got[2], (got[0].float() ** 2).sum(dim=(0, 2, 3)))
+        compare("chw_upconv_halo_step",
+                "bf16 (2, 26->13, 24x40) both borders through itg_upconv3x3_chw [CUDA cores]",
+                kernels._upconv_cuda_cores(x, wt, b, sc, sh, True, False, top, left)[0],
+                kernels.upconv3x3_chw_halo_plain(x, wt, b, sc, sh, True, "replicate", top, left))
+        got = kernels._upconv_dw_cuda_cores(x, gy, sc, sh, True, False)
+        ref = kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate")
+        compare_sum("upconv3x3_chw_dw", "dW bf16 (2, 26->13, 24x40) through itg_upconv3x3_chw_dw",
+                    got[0], ref[0])
+        compare_sum("upconv3x3_chw_dw", "db bf16 (2, 26->13, 24x40) through itg_upconv3x3_chw_dw",
+                    got[1], ref[1])
 
     def check_1x1_dw(tag, x, gy, plant=False):
         """K3-dW against its plain version: dW and db within SUM_TOL of the
@@ -4042,17 +4220,68 @@ def main() -> int:
             if not r_ >= DW_PLANT:
                 fail(f"{name} {tag}: a planted {fault} reads only {r_:.2f}x the limit")
 
+    def check_updw_f32(tag, x, gy, sc, sh, outer, got, ref, plant):
+        """K9 dW's float32 route (CUDA cores, csrc/upconv_dw_f32.cu) beyond
+        the check against its plain version: two calls bit-equal (dW, db:
+        fixed-order partials, folded to 3 x 3 in the last launch), and with
+        ``plant`` (replicate padding) three planted faults (one phase tap's
+        dW x 1.01: tap (0, 0) of phase (0, 0), which reaches dW[..., 0, 0]
+        alone; ky and kx swapped; the first pixel chunk of the last image
+        dropped, as a block skipping it would: g zeroed over the plan's rows
+        x 32 half-res pixels there) must read at least F32_PLANT times the
+        check's limit."""
+        k = kernels.upconv3x3_chw_dw
+        tag = f"{tag} [CUDA cores]"
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, k(x, gy, sc, sh, True, outer)))
+        print(f"[check] upconv3x3_chw_dw {tag}: two calls {'bit-equal' if same else 'differ'} "
+              "(dW, db)")
+        if not same:
+            fail(f"upconv3x3_chw_dw {tag}: two f32 calls differ")
+        if not plant or outer != "replicate":
+            return
+
+        def ratio(bad):  # the worse of the check's two errors over their limits
+            return max(float((a - r).abs().max()) / (SUM_TOL * float(r.abs().max()))
+                       for a, r in zip(bad, ref))
+
+        n_, c, h, w = x.shape
+        co = gy.shape[1]
+        a_pad = F.pad(kernels.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
+        d00 = torch.nn.grad.conv2d_weight(a_pad[:, :, :h, :w], (co, c, 1, 1),
+                                          gy[:, :, 0::2, 0::2])[..., 0, 0]
+        one = got[0].clone()
+        one[:, :, 0, 0] += 0.01 * d00
+        rows = kernels.upconv_dw_f32_plan(n_, c, co, h, w).rows
+        cols = kernels.UPCONV_DW_F32_COLS
+        g_bad = gy.clone()
+        g_bad[-1, :, :2 * rows, :2 * cols] = 0.0
+        for fault, bad in (("phase (0, 0) tap (0, 0)'s dW x 1.01", (one, got[1])),
+                           ("ky<->kx", (got[0].transpose(2, 3), got[1])),
+                           (f"a {rows} x {cols} half-res pixel chunk dropped",
+                            k(x, g_bad, sc, sh, True, outer))):
+            r_ = ratio(bad)
+            print(f"[check] upconv3x3_chw_dw {tag}: planted {fault}: max abs err / limit "
+                  f"{r_:.2f} (must reach {F32_PLANT:g})")
+            if not r_ >= F32_PLANT:
+                fail(f"upconv3x3_chw_dw {tag}: a planted fault ({fault}) reads only {r_:.2f}x "
+                     "the limit")
+
     def check_updw(tag, x, gy, sc, sh, outer, plant=False):
         """K9 dW (check_wgrad); with ``plant`` (replicate padding) also the
-        replicate ring taken as zeros and db from the even full-res rows."""
+        replicate ring taken as zeros and db from the even full-res rows; f32
+        also ``check_updw_f32``."""
         def faults(got, ref):
             return {"replicate ring as zeros":
                     kernels.upconv3x3_chw_dw(x, gy, sc, sh, True, "constant"),
                     "db from the even full-res rows only":
                     (got[0], gy[:, :, ::2].float().sum(dim=(0, 2, 3)))}
 
-        check_wgrad("upconv3x3_chw_dw", tag, (x, gy, sc, sh, True, outer),
+        args = (x, gy, sc, sh, True, outer)
+        check_wgrad("upconv3x3_chw_dw", tag, args,
                     faults if plant and outer == "replicate" else None)
+        if x.dtype == torch.float32:
+            check_updw_f32(tag, x, gy, sc, sh, outer, kernels.upconv3x3_chw_dw(*args),
+                           kernels.upconv3x3_chw_dw_plain(*args), plant)
 
     def check_stem_dw(tag, x, gy, plant=False):
         """K13 dW (check_wgrad); with ``plant`` also the zero border read as
@@ -4372,7 +4601,7 @@ def main() -> int:
                 # sub-image's first and last fused site
                 for outer in ("replicate", "constant"):
                     check_up(f"all {where}", shape_s, x, wt, b, sc, sh, top, left, outer, halo=timed,
-                             plant=timed and i in (0, len(shapes) - 1))
+                             plant=timed and i in (0, len(shapes) - 1), f32_plant=False)
                 check_1x1(f"all {where} shortcut", f"{c}->{co} @{h}x{w}", x, w3, b3,
                           plant=timed and i == 0)
                 k10_s = f"(1, {co}, {h}x{w}) + (1, {co}, {2 * h}x{2 * w})"
@@ -4432,9 +4661,10 @@ def main() -> int:
     conv3_t, conv1_t, up2_t = exp1_shapes(plan, base)
     n = EXP1_N
     print(f"[tolerance] sums (Σy, Σy², d(scale), d(shift), dW, db): max abs err <= {SUM_TOL:g} * "
-          "max|ref|: float32 reductions in another order (K3's sums and K9's and K13's f32 dW by "
-          "atomics; K6's and K7's f32 sums by fixed-order partials: two calls bit-equal, planted "
-          f"faults >= {F32_PLANT:g}x the limits at the 192^2 shapes); K5's sums are held "
+          "max|ref|: float32 reductions in another order (K3's sums and K13's f32 dW by "
+          "atomics; K6's, K7's and K9's f32 sums by fixed-order partials: two calls bit-equal, "
+          f"planted faults >= {F32_PLANT:g}x the limits at the 192^2 shapes; K9's f32 Σy, Σy² "
+          f"also within {K9_SUM_TOL:g} of float64 sums of Σ|y|, Σy²); K5's sums are held "
           "to the sums of the kernel's own stored y; K4's adjoint bit-equal")
     print(f"[tolerance] K13 dx, bf16 (tensor cores, which round w to bf16): dx max abs err <= "
           f"{BF16_TOL:g} * max|ref| of the plain version with that rounding (stem_dx_tc_plain); two "
@@ -4692,7 +4922,7 @@ def main() -> int:
             for outer in ("replicate", "constant"):
                 tag = f"{shape_s} {outer}"
                 check_up("train", shape_s, x, wt, b, sc, sh, None, None, outer, halo=False,
-                         with_stats=True, plant=i == 0)
+                         with_stats=True, plant=i == 0, f32_plant=True)
                 check_dx("upconv3x3_chw_dx", tag, x, gy, wt, sc, sh, outer, plant=True)
                 if not timed:
                     check_updx_f32(shape_s, x, gy, wt, sc, sh, outer)
@@ -4736,7 +4966,8 @@ def main() -> int:
                         lambda: F.conv2d(F.interpolate(a_half, scale_factor=2, mode="nearest"), wt,
                                          b, padding=1),
                         act * (c + 4 * co) * es + wbytes + 2 * co * 4, flops, tails=("auto",),
-                        peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                        peak=PEAK_F32_FLOP_PER_S, f32_route=True,
+                        parent_ms=K9_F32_PARENT_MS.get(shape_s))
                 account("upconv3x3_chw_dx", f"{shape_s} [CUDA cores, f32]",
                         lambda: kernels.upconv3x3_chw_dx(x, gy, wt, sc, sh, True, "replicate"),
                         lambda: kernels.upconv3x3_chw_dx_plain(x, gy, wt, sc, sh, True, "replicate"),
@@ -4748,7 +4979,8 @@ def main() -> int:
                         lambda: kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate"),
                         lambda: torch.nn.grad.conv2d_weight(a_up, wt.shape, gy),
                         act * (c + 4 * co) * es + wbytes, flops, tails=("auto",),
-                        peak=PEAK_F32_FLOP_PER_S, f32_route=True)
+                        peak=PEAK_F32_FLOP_PER_S, f32_route=True,
+                        parent_ms=K9DW_F32_PARENT_MS.get(shape_s))
                 continue
             wl, bl = wt.to(dtype), b.to(dtype)
             wt4l = wt4.transpose(0, 1).contiguous().to(dtype)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The float32 route of K9 dx (``upconv3x3_chw_dx``), K13's forward
 (``stem_fwd``), K3-dW (``conv1x1_chw_dw``), K1/K2 (``conv3x3_chw``,
-``conv3x3_chw_halo``), K6 (``conv3x3_chw_dx``) and K7 (``conv3x3_chw_dw``)
-on one CUDA card, with the graphed float32 steps they run in, for one tree
+``conv3x3_chw_halo``), K6 (``conv3x3_chw_dx``), K7 (``conv3x3_chw_dw``),
+K9's forward and K14 (``upconv3x3_chw``, ``upconv3x3_chw_halo``) and K9 dW
+(``upconv3x3_chw_dw``) on one CUDA card, with the graphed float32 steps they run in, for one tree
 of the repository.
 
 Run from the root of a checkout on a machine with a card:
@@ -41,7 +42,17 @@ float32 training shape (K1's, replicate padding, ReLU) beside
 post-norm input padded beforehand), each row with its largest deviation
 from the plain version; where the tree has ``kernels.conv3x3_dx_f32_plan``
 and ``conv3x3_dw_f32_plan``, the C entry points at each plan (K6's (CC, G);
-K7's chunk heights). Then it runs the train
+K7's chunk heights). K9's forward with its sums and K9 dW at the
+Experiment-1 ``auto`` step's two fused up-convs (N = 8, 52 -> 26 at 96^2 and
+26 -> 13 at 192^2 half resolution) beside ``F.interpolate`` + ``F.conv2d``
+and ``conv2d_weight`` of the upsampled post-norm input (TF32 off), and K9
+(one pass) and K14 in its four border cases at the ``--fuse_up all``
+sub-image's three fused conv1 sites (N = 1, 104 -> 52 at 48^2 ... 26 -> 13
+at 192^2) beside ``F.interpolate`` of the bordered slab + ``F.conv2d``;
+each row with its bound (``bound_ms`` of ``upconv_dx_work``'s FLOPs and the
+kernel's own bytes) and its largest deviation from the plain version; where
+the tree has ``kernels.upconv_f32_plan`` and ``upconv_dw_f32_plan``, the C
+entry points at each plan (the forward's (TO, G); dW's chunk heights). Then it runs the train
 loop's graphed float32 steps (Experiment-1 ``--fuse_up auto`` and ``off``,
 and the SSM recipe; ``--compute_dtype float32``, cuDNN's TF32 as PyTorch
 leaves it, which is how the train CLI runs them) through
@@ -79,6 +90,13 @@ K1_SHAPES = {(8, 26, 26, 192, 192, False): ("auto", "off", "ssm"),
              (8, 52, 26, 192, 192, True): ("off", "ssm"),
              (8, 26, 13, 384, 384, True): ("off",),
              (8, 26, 3, 192, 192, False): ("ssm",)}
+# K9 (forward with its sums, dW) in the Experiment-1 `auto` step: (N, C, Co,
+# H, W) of x at half resolution; K9 / K14 at eval: the `--fuse_up all`
+# sub-image's fused conv1 sites (N = 1)
+K9_SHAPES = ((8, 52, 26, 96, 96), (8, 26, 13, 192, 192))
+K14_SHAPES = ((1, 104, 52, 48, 48), (1, 52, 26, 96, 96), (1, 26, 13, 192, 192))
+K14_BORDERS = {"no cache": (False, False), "top only": (True, False), "left only": (False, True),
+               "top and left": (True, True)}
 # K1 / K2 at eval: the flagship's 384^2 sub-image, blocks 4-6 (N = 1)
 EVAL_SHAPES = ((1, 104, 52, 96, 96), (1, 52, 52, 96, 96), (1, 52, 26, 192, 192),
                (1, 26, 26, 192, 192), (1, 26, 13, 384, 384), (1, 13, 13, 384, 384),
@@ -134,7 +152,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"tree": str(tree), "card": card, "upconv3x3_chw_dx": {}, "stem_fwd": {},
            "conv1x1_chw_dw": {}, "conv3x3_chw": {}, "eval": {}, "conv3x3_chw_dx": {},
-           "conv3x3_chw_dw": {}, "per_step": {}, "steps": {}, "plans": {}}
+           "conv3x3_chw_dw": {}, "upconv3x3_chw": {}, "upconv3x3_chw_dw": {}, "k14": {},
+           "per_step": {}, "steps": {}, "plans": {}}
     plans = hasattr(kernels, "upconv_dx_f32_plan")
 
     def err(got, ref):
@@ -403,6 +422,142 @@ def main(argv=None) -> int:
         if bwd_plans:
             k7_plan_table(key, x, gy, sc, sh)
         del x, gy, got, ref, a_pad
+    up_plans = hasattr(kernels, "upconv_f32_plan")
+
+    def k9_plan_table(key, x, wt, b, sc, sh):
+        """K9's C entry point (no sums) at each (TO, G) of UPCONV_F32_TO and
+        UPCONV_F32_G that its groups fill: the table the planner is read
+        from."""
+        n, c, h, w = x.shape
+        co = wt.shape[0]
+        y = torch.empty(n, co, 2 * h, 2 * w, device=dev)
+        planned = kernels.upconv_f32_plan(n, c, co, h, w, kernels._sm_count(dev.index or 0))
+        for to in kernels.UPCONV_F32_TO:
+            groups = -(-co // to)
+            for g in kernels.UPCONV_F32_G:
+                if g > groups and g > 1:
+                    continue
+                wp = torch.empty(-(-groups // g) * c * 16 * g * to, device=dev)
+
+                def entry():
+                    rc = kernels._lib().itg_upconv3x3_chw(
+                        x.data_ptr(), wt.data_ptr(), b.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+                        None, None, wp.data_ptr(), y.data_ptr(), None, None, None, n, c, h, w, co,
+                        1, 0, 0, to, g, kernels._stream(x))
+                    if rc:
+                        raise RuntimeError(f"itg_upconv3x3_chw: CUDA error {rc}")
+
+                plan_ms = yard.device_ms(entry)
+                out["plans"][f"upconv3x3_chw {key} to {to} g {g}"] = plan_ms
+                mark = " (planned)" if (to, g) == (planned.to, planned.g) else ""
+                print(f"[plan] upconv3x3_chw f32 {key}: to {to} g {g}{mark}: {plan_ms:.4f} ms  "
+                      f"[{card}]")
+
+    def k9dw_plan_table(key, x, gy, sc, sh):
+        """K9 dW's C entry point at the planned pixel slots and each chunk
+        height of UPCONV_DW_F32_ROWS that gives every slot a run and whose two
+        stages fit the shared memory: the table UPCONV_DW_F32_CHUNK_COST is
+        read from."""
+        n, c, h, w = x.shape
+        co = gy.shape[1]
+        plan = kernels.upconv_dw_f32_plan(n, c, co, h, w, kernels._sm_count(dev.index or 0))
+        dw, db = torch.empty(co, c, 3, 3, device=dev), torch.empty(co, device=dev)
+        part = torch.empty(plan.blocks, plan.part_entries, device=dev)
+        for rows in kernels.UPCONV_DW_F32_ROWS:
+            stage = kernels.upconv_dw_stage_bytes(rows, plan.tiles_o, plan.tiles_c)
+            if (plan.slots * kernels.UPCONV_DW_F32_RUN > rows * kernels.UPCONV_DW_F32_COLS
+                    or 2 * stage > kernels.CONV3X3_DW_F32_SMEM):
+                continue
+
+            def entry():
+                rc = kernels._lib().itg_upconv3x3_chw_dw(
+                    x.data_ptr(), gy.data_ptr(), sc.data_ptr(), sh.data_ptr(), part.data_ptr(),
+                    dw.data_ptr(), db.data_ptr(), n, c, h, w, co, 1, 0, 0, plan.blocks,
+                    plan.slots, rows, kernels._stream(x))
+                if rc:
+                    raise RuntimeError(f"itg_upconv3x3_chw_dw: CUDA error {rc}")
+
+            plan_ms = yard.device_ms(entry)
+            out["plans"][f"upconv3x3_chw_dw {key} rows {rows}"] = plan_ms
+            print(f"[plan] upconv3x3_chw_dw f32 {key}: slots {plan.slots} rows {rows}"
+                  f"{' (planned)' if rows == plan.rows else ''}: {plan_ms:.4f} ms  [{card}]")
+
+    def k9_inputs(seed, n, c, co, h, w):
+        x, wt, b, sc, sh, top, left, _ = k1_inputs(seed, n, c, co, h, w)
+        a_half = kernels.prenorm(x, sc, sh, True)
+        return x, wt, b, sc, sh, top, left, a_half
+
+    for i, (n, c, co, h, w) in enumerate(K9_SHAPES):
+        x, wt, b, sc, sh, _, _, a_half = k9_inputs(900 + i, n, c, co, h, w)
+        gy = torch.randn(n, co, 2 * h, 2 * w, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(920 + i))
+        a_up = F.pad(kernels.upsample2_chw_plain(a_half), (1, 1, 1, 1), mode="replicate")
+        nbytes, flops = yard.upconv_dx_work(n, c, co, h, w, 4)
+        act, weights = n * h * w, (co * c * 9 + co + 2 * c) * 4
+        key = f"({n}, {c}->{co}, {h}x{w} -> {2 * h}x{2 * w})"
+        got = kernels.upconv3x3_chw(x, wt, b, sc, sh, True, want_stats=True)
+        ref = kernels.upconv3x3_chw_plain(x, wt, b, sc, sh, True, want_stats=True)
+        row = {"ms": yard.device_ms(lambda: kernels.upconv3x3_chw(x, wt, b, sc, sh, True,
+                                                                  want_stats=True)),
+               "library_ms": yard.device_ms(lambda: F.conv2d(
+                   F.interpolate(a_half, scale_factor=2, mode="nearest"), wt, b, padding=1)),
+               "bound_ms": yard.bound_ms(act * (c + 4 * co) * 4 + weights + 2 * co * 4, flops,
+                                         f32_flop_per_s, bytes_per_s),
+               "max_abs_err": err(got[:1], ref[:1]), "max_ref": float(ref[0].abs().max())}
+        out["upconv3x3_chw"][key] = row
+        per_step("upconv3x3_chw", ("auto",), row["ms"], row["library_ms"], row["bound_ms"])
+        print(f"[time] upconv3x3_chw f32 {key} +stats: kernel {row['ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, max abs err "
+              f"{row['max_abs_err']:.3e} (max|ref| {row['max_ref']:.3e})  [{card}]")
+        if up_plans:
+            k9_plan_table(key, x, wt, b, sc, sh)
+        got = kernels.upconv3x3_chw_dw(x, gy, sc, sh, True, "replicate")
+        ref = kernels.upconv3x3_chw_dw_plain(x, gy, sc, sh, True, "replicate")
+        row = {"ms": yard.device_ms(lambda: kernels.upconv3x3_chw_dw(x, gy, sc, sh, True,
+                                                                     "replicate")),
+               "library_ms": yard.device_ms(lambda: torch.nn.grad.conv2d_weight(
+                   a_up, wt.shape, gy)),
+               "bound_ms": yard.bound_ms(act * (c + 4 * co) * 4 + weights, flops,
+                                         f32_flop_per_s, bytes_per_s),
+               "max_abs_err": err(got, ref), "max_ref": float(ref[0].abs().max())}
+        out["upconv3x3_chw_dw"][key] = row
+        per_step("upconv3x3_chw_dw", ("auto",), row["ms"], row["library_ms"], row["bound_ms"])
+        print(f"[time] upconv3x3_chw_dw f32 {key}: kernel {row['ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, max abs err "
+              f"{row['max_abs_err']:.3e} (max|ref| {row['max_ref']:.3e})  [{card}]")
+        if up_plans:
+            k9dw_plan_table(key, x, gy, sc, sh)
+        del x, gy, got, ref, a_half, a_up
+    for i, (n, c, co, h, w) in enumerate(K14_SHAPES):
+        x, wt, b, sc, sh, top, left, a_half = k9_inputs(940 + i, n, c, co, h, w)
+        _, flops = yard.upconv_dx_work(n, c, co, h, w, 4)
+        io, weights = n * h * w * (c + 4 * co) * 4, (co * c * 9 + co + 2 * c) * 4
+        key = f"({n}, {c}->{co}, {h}x{w} -> {2 * h}x{2 * w})"
+        row = {"k9_ms": yard.device_ms(lambda: kernels.upconv3x3_chw(x, wt, b, sc, sh, True)),
+               "k9_library_ms": yard.device_ms(lambda: F.conv2d(
+                   F.interpolate(a_half, scale_factor=2, mode="nearest"), wt, b, padding=1)),
+               "bound_ms": yard.bound_ms(io + (h + w + 2) * c * 4 * n + weights, flops,
+                                         f32_flop_per_s, bytes_per_s)}
+        for case, (t_, l_) in K14_BORDERS.items():
+            tb, lb = (top if t_ else None), (left if l_ else None)
+            got = kernels.upconv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate", tb, lb)
+            ref = kernels.upconv3x3_chw_halo_plain(x, wt, b, sc, sh, True, "replicate", tb, lb)
+            slab = kernels._halo_padded(x, sc, sh, True, "replicate", tb, lb)
+            row[case] = {
+                "ms": yard.device_ms(lambda: kernels.upconv3x3_chw_halo(
+                    x, wt, b, sc, sh, True, "replicate", tb, lb)),
+                "library_ms": yard.device_ms(lambda: F.conv2d(
+                    F.interpolate(slab, scale_factor=2, mode="nearest")[..., 1:-1, 1:-1], wt, b)),
+                "max_abs_err": err((got,), (ref,))}
+            print(f"[time] upconv3x3_chw_halo (K14) f32 {key} {case}: kernel "
+                  f"{row[case]['ms']:.4f} ms, library {row[case]['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms, max abs err {row[case]['max_abs_err']:.3e}  [{card}]")
+        out["k14"][key] = row
+        print(f"[time] upconv3x3_chw (K9, one pass) f32 {key}: kernel {row['k9_ms']:.4f} ms, "
+              f"library {row['k9_library_ms']:.4f} ms  [{card}]")
+        if up_plans:
+            k9_plan_table(key, x, wt, b, sc, sh)
+        del x, got, ref, a_half
     for name, row in out["per_step"].items():
         print(f"[step sum] {name}: kernel {row['ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
               f"bound {row['bound_ms']:.4f} ms a step  [{card}]")
@@ -413,7 +568,8 @@ def main(argv=None) -> int:
     recipes = {"auto": cs.EXP1_ARGS + ["--fuse_up", "auto"],
                "off": cs.EXP1_ARGS + ["--fuse_up", "off"], "ssm": cs.SSM_ARGS}
     entries = ("itg_upconv3x3_chw_dx", "itg_stem_fwd", "itg_conv1x1_chw_dw", "itg_conv3x3_chw",
-               "itg_conv3x3_chw_dx", "itg_conv3x3_chw_dw")
+               "itg_conv3x3_chw_dx", "itg_conv3x3_chw_dw", "itg_upconv3x3_chw",
+               "itg_upconv3x3_chw_dw")
     for tail, argv in recipes.items():
         argv32 = [a if a != "bfloat16" else "float32" for a in argv]
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))

@@ -16,8 +16,8 @@
 //   da = 0 where the forward's ReLU was off (scale * x + shift <= 0, with no
 //        FMA contraction, as the forward computes it);
 //   dx = bf16(da * scale), d(scale) = sum da * x, d(shift) = sum da.
-// Float32 activations keep the CUDA-core kernels of conv3x3_chw_bwd.cu and
-// upconv3x3_chw.cu.
+// Float32 activations take the CUDA-core kernels of conv3x3_dx_f32.cu and
+// upconv_dx_f32.cu.
 //
 // What bounds it on the H100: the transposed conv is 2 * T^2 * C * Co FLOPs
 // per (padded) cell against about 2 * (2C + S^2 Co) bytes; at the training

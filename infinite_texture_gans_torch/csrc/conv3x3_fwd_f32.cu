@@ -44,16 +44,10 @@
 // - Overlapped staging. Input channels come in chunks of kCC: the next
 //   chunk's raw x (18 rows of 32 columns and the ring cells a channel) and
 //   its weights land by cp.async in the other half of a double buffer
-//   while this chunk's FMAs run. A staged row is 36 floats: its 32 interior
-//   columns arrive as eight 16-byte copies wherever the tile lies inside an
-//   aligned image, and the 16 row lanes of a warp read their windows as
-//   16-byte loads from distinct banks. The tile's copy units (where each
-//   comes from: x, the cached top row or left column, or zeros, the
-//   _halo_padded border of ops/kernels.py) are planned once a tile into
-//   shared memory, so a unit costs one 8-byte load and a copy a channel.
-//   When its copies are in, a thread applies the BN fold, ReLU and
-//   rounding to the x cells it copied (__fmul_rn then __fadd_rn, no
-//   contraction: the halo cache holds exactly those bits), four at a time.
+//   while this chunk's FMAs run; the 16 row lanes of a warp read their
+//   windows as 16-byte loads from distinct banks. The tile's staging (its
+//   copy plan, the border, the BN fold on the copied cells) is
+//   chw_stage_f32.cuh's, which K9's float32 forward shares.
 // - Each output sums (c, ky, kx) in one fixed order from zero and adds the
 //   bias last, wherever its tile lies: the raster (K2) gives the one
 //   pass's bits.
@@ -62,26 +56,20 @@
 //   the tile's partial; a last launch adds the partials in one fixed order
 //   (chw_fwd_tc.cuh: sum_partials). No atomics: two calls give the same
 //   bits.
-#include "chw_fwd_tc.cuh"  // sum_partials; common.cuh, cp.async groups
+#include "chw_fwd_tc.cuh"    // sum_partials; common.cuh, cp.async groups
+#include "chw_stage_f32.cuh"  // the input tile's staging
 
 namespace {
 
-using itg::cp_async16z;
 using itg::cp_async4;
 using itg::from_f32;
 using itg::store_run;
 using itg::to_f32;
 
-constexpr int kR = 16;             // output pixels of a thread, along a row
-constexpr int kTH = 16;            // output rows of a tile: 16 row lanes of a warp
-constexpr int kTW = 32;            // output columns of a tile: 2 runs of kR
-constexpr int kXR = kTH + 2;       // staged rows
-constexpr int kXS = 36;            // floats a staged row: 16-byte aligned, 9 units apart
-constexpr int kXC = 4 + kXR * kXS; // floats a staged channel
-constexpr int kUnits = 10;         // copy units a staged row: 8 interior vectors, 2 ring cells
-constexpr int kCC = 4;             // input channels a chunk
-// how a copy unit is staged: 16 bytes, one cell, or cell by cell
-enum Mode : int { kVec = 1, kCell = 2, kSlow = 3 };
+constexpr int kR = 16;   // output pixels of a thread, along a row
+constexpr int kTH = 16;  // output rows of a tile: 16 row lanes of a warp
+using Geom = itg::TileGeom32<kTH>;  // 32 columns: 2 runs of kR
+constexpr int kTW = Geom::kTW, kXS = Geom::kXS, kXC = Geom::kXC, kCC = Geom::kCC;
 
 struct FwdArgs {
   const void* x;     // (N, C, H, W)
@@ -96,48 +84,13 @@ struct FwdArgs {
   int N, C, H, W, Co, relu, zeros, tiles_w, xvec, yvec;
 };
 
-// Where staged row r of the tile at (ty0, tx0) comes from: the cached top
-// row, zeros, or x row `xr` (the border of ops/kernels.py: _halo_padded).
-struct RowSrc {
-  bool top, zero;
-  int xr;
-};
-
-__device__ __forceinline__ RowSrc row_src(const FwdArgs& a, int ty0, int r) {
-  const int p = min(ty0 - 1 + r, a.H);
-  const bool top = p < 0 && a.top;
-  return {top, !top && a.zeros && (p < 0 || p >= a.H), min(max(p, 0), a.H - 1)};
-}
-
-// The source of one ring or ragged cell of an x row: image column j (-1 <=
-// j <= W, clamped), `fold` where it is an x value, `left` where it is the
-// cached left column, else zero when !ok.
-struct CellSrc {
-  int off;  // into the channel's plane (x) or its left column
-  bool ok, fold, left;
-};
-
-__device__ __forceinline__ CellSrc cell_src(const FwdArgs& a, int xr, int j) {
-  j = min(j, a.W);
-  if (j < 0) {
-    if (a.left) return {xr, true, false, true};
-    if (a.zeros) return {0, false, false, false};
-    return {xr * a.W, true, true, false};
-  }
-  if (j >= a.W) {
-    if (a.zeros) return {0, false, false, false};
-    return {xr * a.W + a.W - 1, true, true, false};
-  }
-  return {xr * a.W + j, true, true, false};
-}
-
 // Grid (tiles of an image, channel chunks, N), 32 G threads: group g (warp
 // g) computes output channels co0 + TO g .. of the 16 x 32 tile; lane (ty,
 // q) the 16 pixels 16 q .. of row ty. Dynamic shared memory: two stages of
 // [x: kCC channels of kXC][w: kCC x 9 taps x G TO channels] floats; staged
 // row r of a channel holds image columns tx0 .. tx0 + 31 at 4 + kXS r ..,
 // its ring cells at 3 + kXS r (column tx0 - 1) and 36 + kXS r (tx0 + 32);
-// then the tile's copy plan, kXR kUnits int2.
+// then the tile's copy plan, Geom::kPlan int2.
 template <typename T, int TO, int G>
 __global__ void __launch_bounds__(32 * G, 12 / G) conv3x3_fwd_f32_kernel(const FwdArgs a) {
   constexpr int kThreads = 32 * G, OB = G * TO;
@@ -149,152 +102,23 @@ __global__ void __launch_bounds__(32 * G, 12 / G) conv3x3_fwd_f32_kernel(const F
   const int co0 = blockIdx.y * OB;
   const int C = a.C, W = a.W;
   const size_t plane = static_cast<size_t>(a.H) * W;
-  const T* xn = static_cast<const T*>(a.x) + static_cast<size_t>(n) * C * plane;
-  const T* topn = a.top ? static_cast<const T*>(a.top) + static_cast<size_t>(n) * C * (W + 2) : xn;
-  const T* leftn = a.left ? static_cast<const T*>(a.left) + static_cast<size_t>(n) * C * a.H : xn;
-  // interior units copy 16 bytes where the tile's 32 columns lie in the image
-  const bool vec_tile = a.xvec && tx0 + kTW <= W;
-
-  // the fold of one staged value
-  auto fold1 = [&](float v, float sc, float sh) { return itg::prenorm<T>(v, sc, sh, a.relu); };
-
-  // -- the tile's copy units, planned once into shared memory: unit t is
-  // (staged row t / kUnits, unit t % kUnits); .x its source offset, .y its
-  // destination in a channel | mode << 16 | kind << 18 (kind 0 zero, 1 x,
-  // 2 the cached top row, 3 the cached left column)
-  int2* s_plan = reinterpret_cast<int2*>(smem + 2 * kStage);
-  for (int t = tid; t < kXR * kUnits; t += kThreads) {
-    const int r = t / kUnits, u = t % kUnits;
-    const RowSrc rs = row_src(a, ty0, r);
-    const int j0 = u < 8 ? tx0 + 4 * u : u == 8 ? tx0 - 1 : tx0 + kTW;
-    int mode = kSlow, kind = 0, so = 0;
-    if (u < 8) {  // four interior cells
-      if (rs.zero) {
-        mode = kVec;
-      } else if (!rs.top && vec_tile) {
-        mode = kVec, kind = 1, so = rs.xr * W + j0;
-      }
-    } else if (rs.top || rs.zero) {  // a ring cell of the cached top row or a zero row
-      mode = kCell, kind = rs.top ? 2 : 0, so = rs.top ? min(j0, W) + 1 : 0;
-    } else {  // a ring cell of an x row
-      const CellSrc cs = cell_src(a, rs.xr, j0);
-      mode = kCell, kind = !cs.ok ? 0 : cs.left ? 3 : 1, so = cs.off;
-    }
-    const int d = 4 + r * kXS + (u < 8 ? 4 * u : u == 8 ? -1 : kTW);
-    s_plan[t] = make_int2(so, d | mode << 16 | kind << 18);
-  }
+  const itg::StageSrc32 in{a.x, a.top, a.left, a.scale, a.shift, C, a.H, W, a.relu, a.zeros,
+                           a.xvec};
+  const itg::TileStage32<T, kTH> tile(in, n, ty0, tx0,
+                                      reinterpret_cast<int2*>(smem + 2 * kStage), kThreads);
+  tile.make_plan();
   __syncthreads();
 
-  // input channels c0 .. c0 + kCC - 1 (zeros past C) into stage s, unit by
-  // unit; bf16 values are folded on the way in
+  // input channels c0 .. c0 + kCC - 1 (zeros past C) into stage s, then
+  // their weights: s_w[(cc 9 + tap) OB + ob] = w[co0 + ob, c0 + cc, tap]
   auto stage = [&](int c0, float* s) {
-    for (int t = tid; t < kXR * kUnits; t += kThreads) {
-      const int2 pl = s_plan[t];
-      const int d = pl.y & 0xffff, mode = (pl.y >> 16) & 3, kind = pl.y >> 18;
-      if (mode == kSlow) {  // interior cells of a ragged or cached row, one by one
-        const int r = t / kUnits, j0 = tx0 + 4 * (t % kUnits);
-        const RowSrc rs = row_src(a, ty0, r);
-#pragma unroll 1
-        for (int cc = 0; cc < kCC; ++cc) {
-          const int c = c0 + cc;
-          const bool live = c < C;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            CellSrc cs{min(j0 + e, W) + 1, rs.top, false, false};
-            if (!rs.top) cs = cell_src(a, rs.xr, j0 + e);
-            const bool ok = live && cs.ok;
-            const T* p = !ok ? xn
-                       : rs.top ? topn + static_cast<size_t>(c) * (W + 2) + cs.off
-                                : xn + c * plane + cs.off;
-            float* dst = s + cc * kXC + d + e;
-            if constexpr (sizeof(T) == 4) {
-              cp_async4(dst, p, ok);
-            } else {
-              const float v = ok ? to_f32<T>(*p) : 0.f;
-              *dst = ok && cs.fold ? fold1(v, a.scale[c], a.shift[c]) : v;
-            }
-          }
-        }
-        continue;
-      }
-      // the channel strides of the unit's source: x plane, top row, left column
-      const size_t stride = kind == 1 ? plane : kind == 2 ? static_cast<size_t>(W + 2) : a.H;
-      const T* base = kind == 1 ? xn : kind == 2 ? topn : leftn;
-#pragma unroll
-      for (int cc = 0; cc < kCC; ++cc) {
-        const int c = c0 + cc;
-        const bool ok = c < C && kind != 0;
-        const T* p = ok ? base + c * stride + pl.x : xn;
-        float* dst = s + cc * kXC + d;
-        if constexpr (sizeof(T) == 4) {
-          if (mode == kVec) {
-            cp_async16z(dst, p, ok);
-          } else {
-            cp_async4(dst, p, ok);
-          }
-        } else {
-          for (int e = 0; e < (mode == kVec ? 4 : 1); ++e) {
-            const float v = ok ? to_f32<T>(p[e]) : 0.f;
-            dst[e] = ok && kind == 1 ? fold1(v, a.scale[c], a.shift[c]) : v;
-          }
-        }
-      }
-    }
-    // weights: s_w[(cc 9 + tap) OB + ob] = w[co0 + ob, c0 + cc, tap]
+    tile.copy(c0, s);
     float* s_w = s + kCC * kXC;
     for (int i = tid; i < kCC * 9 * OB; i += kThreads) {
       const int ob = i / (kCC * 9), k = i % (kCC * 9);
       const bool ok = c0 + k / 9 < C && co0 + ob < a.Co;
-      const float* src = ok ? a.w + (static_cast<size_t>(co0 + ob) * C + c0) * 9 + k : a.w;
-      cp_async4(s_w + k * OB + ob, src, ok);
-    }
-  };
-
-  // the BN fold, ReLU and rounding on the x cells of the units this thread
-  // copied (float32: the copies land raw)
-  auto fold = [&](int c0, float* s) {
-    const int nc = min(kCC, C - c0);
-    float sc[kCC], sh[kCC];
-#pragma unroll
-    for (int cc = 0; cc < kCC; ++cc) {
-      sc[cc] = cc < nc ? __ldg(a.scale + c0 + cc) : 0.f;
-      sh[cc] = cc < nc ? __ldg(a.shift + c0 + cc) : 0.f;
-    }
-    for (int t = tid; t < kXR * kUnits; t += kThreads) {
-      const int2 pl = s_plan[t];
-      const int d = pl.y & 0xffff, mode = (pl.y >> 16) & 3, kind = pl.y >> 18;
-      if (mode == kSlow) {
-        const RowSrc rs = row_src(a, ty0, t / kUnits);
-        const int j0 = tx0 + 4 * (t % kUnits);
-        if (rs.top) continue;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const CellSrc cs = cell_src(a, rs.xr, j0 + e);
-          if (!(cs.ok && cs.fold)) continue;
-#pragma unroll
-          for (int cc = 0; cc < kCC; ++cc) {
-            if (cc < nc) s[cc * kXC + d + e] = fold1(s[cc * kXC + d + e], sc[cc], sh[cc]);
-          }
-        }
-        continue;
-      }
-      if (kind != 1) continue;
-      if (mode == kVec) {
-#pragma unroll
-        for (int cc = 0; cc < kCC; ++cc) {
-          if (cc >= nc) break;
-          float4* q = reinterpret_cast<float4*>(s + cc * kXC + d);
-          float4 v = *q;
-          v.x = fold1(v.x, sc[cc], sh[cc]), v.y = fold1(v.y, sc[cc], sh[cc]);
-          v.z = fold1(v.z, sc[cc], sh[cc]), v.w = fold1(v.w, sc[cc], sh[cc]);
-          *q = v;
-        }
-      } else {
-#pragma unroll
-        for (int cc = 0; cc < kCC; ++cc) {
-          if (cc < nc) s[cc * kXC + d] = fold1(s[cc * kXC + d], sc[cc], sh[cc]);
-        }
-      }
+      const float* wk = ok ? a.w + (static_cast<size_t>(co0 + ob) * C + c0) * 9 + k : a.w;
+      cp_async4(s_w + k * OB + ob, wk, ok);
     }
   };
 
@@ -313,7 +137,7 @@ __global__ void __launch_bounds__(32 * G, 12 / G) conv3x3_fwd_f32_kernel(const F
   for (int k = 0; k < chunks; ++k) {
     float* cur = smem + (k & 1) * kStage;
     itg::cp_async_wait_all();
-    if constexpr (sizeof(T) == 4) fold(k * kCC, cur);
+    if constexpr (sizeof(T) == 4) tile.fold(k * kCC, cur);
     __syncthreads();  // chunk k is in and folded; every thread is done with the other stage
     if (k + 1 < chunks) stage((k + 1) * kCC, smem + ((k + 1) & 1) * kStage);
     itg::cp_async_commit();
@@ -391,7 +215,7 @@ int launch(const FwdArgs& a, float* s1, float* s2, cudaStream_t st) {
   constexpr int OB = G * TO;
   const int tiles_h = (a.H + kTH - 1) / kTH;
   const dim3 grid(tiles_h * a.tiles_w, (a.Co + OB - 1) / OB, a.N);
-  const size_t smem = sizeof(float) * 2 * (kCC * kXC + kCC * 9 * OB) + sizeof(int2) * kXR * kUnits;
+  const size_t smem = sizeof(float) * 2 * (kCC * kXC + kCC * 9 * OB) + sizeof(int2) * Geom::kPlan;
   const auto kernel = conv3x3_fwd_f32_kernel<T, TO, G>;
   if (smem > 48 * 1024) {
     if (cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -2,7 +2,7 @@
 // for bfloat16 activations:
 //   K9 dW _upconv3x3_dw (infinite_texture_gans_tpu/ops/pallas_conv.py:1777,
 //      kernel _updw_kernel :1673), per phase tap of the half-res phase form
-//      (csrc/upconv3x3_chw.cu's header has the algebra):
+//      (csrc/upconv_fwd_f32.cu's header has the algebra):
 //   dwc[o, c, ((di * 2 + dj) * 2 + r) * 2 + s] =
 //       sum_{n, i, j} g[n, o, 2i + di, 2j + dj] * A[n, c, i + di + r, j + dj + s],
 //   db[o] = sum g,
@@ -12,8 +12,8 @@
 // is exact in float32 and the kernel computes the plain version's function
 // (ops/kernels.py: upconv3x3_chw_dw_plain, the 3 x 3 dW of the upsampled
 // slab); only the order of the float32 sums differs. The wrapper folds dwc
-// back to 3 x 3 in float32 (_upconv_unpack_dw). Float32 activations keep the
-// CUDA-core kernel of upconv3x3_chw.cu.
+// back to 3 x 3 in float32 (_upconv_unpack_dw). Float32 activations take the
+// CUDA-core kernel of upconv_dw_f32.cu.
 //
 // What bounds it on the H100: 2 * 16 * C * Co FLOPs per half-res pixel
 // against 2 (C + 4 Co) bytes of x and g (at 52 -> 26: 43k FLOPs for 312

@@ -22,8 +22,8 @@
 // weights are formed in float32 and rounded to bf16, as the reference
 // rounds them on this path (_pack_w_upconv(w).astype(x.dtype), :1819 and
 // :2094); the bias (float32) is added to the float32 sum before y's one
-// rounding to bf16. Float32 activations keep the CUDA-core kernel of
-// upconv3x3_chw.cu.
+// rounding to bf16. Float32 activations take the CUDA-core kernel of
+// upconv_fwd_f32.cu.
 //
 // What bounds it on the H100: 2 * 16 * C * Co FLOPs per half-res pixel
 // against 2 (C + 4 Co) bytes of x and y. At the tail's shapes (104 -> 52

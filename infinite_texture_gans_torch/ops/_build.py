@@ -71,17 +71,18 @@ SIGNATURES = {
     "itg_upsample2_chw_bwd": [_P, _P] + [_I] * 4 + [_P],
     # x, res, y, part, s1, s2, planes, c, h, w (of x), bx, by, rows, chunk, bf16, stream
     "itg_upsample2_chw_add": [_P] * 6 + [_I] * 9 + [_P],
-    # x, wc, b, scale, shift, top, left, y, s1, s2, n, c, h, w (of x), co, relu, zeros, bf16,
-    # stream
-    "itg_upconv3x3_chw": [_P] * 10 + [_I] * 8 + [_P],
+    # x, w, b, scale, shift, top, left, wp, y, part, s1, s2, n, c, h, w (of x), co, relu, zeros,
+    # bf16, to, g, stream
+    "itg_upconv3x3_chw": [_P] * 12 + [_I] * 10 + [_P],
     # x, w, b, scale, shift, top, left, wp, y, part, s1, s2, n, c, h, w (of x), co, relu, zeros,
     # nc, no, stream (bf16 only)
     "itg_upconv3x3_chw_tc": [_P] * 12 + [_I] * 9 + [_P],
     # x, g, w, scale, shift, wq, dx, part, dscale, dshift, n, c, h, w (of x), co, relu, zeros,
     # bf16, cc, groups, tiles_h, tiles_w, stream
     "itg_upconv3x3_chw_dx": [_P] * 10 + [_I] * 12 + [_P],
-    # x, g, scale, shift, dwc, db, n, c, h, w (of x), co, relu, zeros, bf16, stream
-    "itg_upconv3x3_chw_dw": [_P] * 6 + [_I] * 8 + [_P],
+    # x, g, scale, shift, part, dw, db, n, c, h, w (of x), co, relu, zeros, bf16, blocks, slots,
+    # rows, stream
+    "itg_upconv3x3_chw_dw": [_P] * 7 + [_I] * 11 + [_P],
     # x, g, scale, shift, part, dwc, db, n, c, h, w (of x), co, relu, zeros, mt, no, cap,
     # stream (bf16 only)
     "itg_upconv3x3_chw_dw_tc": [_P] * 7 + [_I] * 10 + [_P],

@@ -27,9 +27,11 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
 - K9 ``upconv3x3_chw``, the subpixel-fused upsample -> BN fold -> ReLU ->
   3x3 conv of ``upconv3x3_chw_p`` (optionally with stats): forward :1457
   ``_upconv3x3_fwd``, ``upconv3x3_chw_dx`` :1642 ``_upconv3x3_dx``,
-  ``upconv3x3_chw_dw`` :1777 ``_upconv3x3_dw`` (csrc/upconv3x3_chw.cu, the
-  dx in csrc/upconv_dx_f32.cu; the forward in bf16: csrc/upconv_fwd_tc.cu;
-  the dx in bf16: csrc/chw_dx_tc.cu; the dW in bf16: csrc/upconv_dw_tc.cu);
+  ``upconv3x3_chw_dw`` :1777 ``_upconv3x3_dw`` (csrc/upconv_fwd_f32.cu, on
+  :func:`upconv_f32_plan`'s grid, the dx in csrc/upconv_dx_f32.cu, the dW in
+  csrc/upconv_dw_f32.cu, on :func:`upconv_dw_f32_plan`'s grid; the forward in
+  bf16: csrc/upconv_fwd_tc.cu; the dx in bf16: csrc/chw_dx_tc.cu; the dW in
+  bf16: csrc/upconv_dw_tc.cu);
 - K14 ``chw_upconv_halo_step``, whose kernel wrapper is
   ``upconv3x3_chw_halo``: K9's forward in the raster engine under
   ``--fuse_up all``, replaces :2019 ``_upconv3x3_fwd_halo`` (the same two
@@ -61,7 +63,9 @@ B operands with the combined 2x2 weights rounded to bf16 as the reference
 rounds them, pallas_conv.py:1819/:2094, the phase row a grid axis, whole
 full-res rows stored, the sums in a fixed order; plain versions
 ``upconv3x3_chw_tc_plain`` and ``upconv3x3_chw_halo_tc_plain``), float32
-``itg_upconv3x3_chw``. The two input-side gradients K6 and K9 dx route by
+``itg_upconv3x3_chw`` (K1's scheme at half resolution: 8 half-res pixels x
+TO output channels x 4 phases a thread, on :func:`upconv_f32_plan`'s grid,
+the sums in a fixed order). The two input-side gradients K6 and K9 dx route by
 the activations' dtype the same way: bfloat16 takes one tensor-core kernel body
 (``csrc/chw_dx_tc.cu``, entry points ``itg_conv3x3_chw_dx_tc`` and
 ``itg_upconv3x3_chw_dx_tc``: implicit GEMMs on mma.sync, the weights rounded
@@ -90,7 +94,10 @@ output channels over the pixels, B straight from g's NHWC rows, A from
 stride-2 shifted copies of the image rows), both with fixed-order
 per-block partials and no atomics; their operands are bf16 values, so
 their plain versions are ``upconv3x3_chw_dw_plain`` and ``stem_dw_plain``
-themselves; float32 ``itg_upconv3x3_chw_dw`` and ``itg_stem_dw``. K13 dx
+themselves; float32 ``itg_upconv3x3_chw_dw`` (K7's scheme with the 16 phase
+taps: persistent blocks on :func:`upconv_dw_f32_plan`'s grid, 2 x 4 channel
+tiles a phase row, fixed-order partials folded to 3 x 3 by the last launch)
+and ``itg_stem_dw``. K13 dx
 routes the same way: bfloat16 takes ``itg_stem_dx_tc`` (csrc/stem_dx_tc.cu:
 one mma.sync accumulator for the four sub-pixel phases of dx, each of the 9
 shifts of g a row address of one staged tile, the weights rounded to bf16 as
@@ -1534,7 +1541,8 @@ def upsample2_chw_bwd_plain(g: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # K9: nearest-2x -> BN fold -> ReLU -> border -> 3x3 conv as one
-# half-resolution pass, and its backward (csrc/upconv3x3_chw.cu); K10: the
+# half-resolution pass, and its backward (float32: csrc/upconv_fwd_f32.cu,
+# csrc/upconv_dx_f32.cu, csrc/upconv_dw_f32.cu); K10: the
 # fused block's up2(shortcut) + residual (+ stats) (csrc/upsample2_chw.cu)
 
 # The phase algebra (the reference's _upconv_selectors, pallas_conv.py:1254):
@@ -1614,21 +1622,79 @@ def pack_upconv_weights(w: torch.Tensor) -> torch.Tensor:
     return wc.permute(2, 0, 3, 1).to(torch.bfloat16, memory_format=torch.contiguous_format)
 
 
+# K9/K14's float32 route (csrc/upconv_fwd_f32.cu): K1's scheme at half
+# resolution. A thread owns 8 half-res pixels of a row x TO output channels x
+# the 4 phases; a warp (a group) an 8 x 32 half-res tile and TO channels; a
+# block G groups over one tile (the most of UPCONV_F32_G that the groups
+# fill), which share one staged, normalised slab. TO is 2 unless that leaves
+# fewer than UPCONV_F32_MIN_WARPS_PER_SM warps an SM (the N = 1 eval layers
+# at 48^2 and 96^2 take 1). On an H100, f32_route_study.py's plan table read
+# (TO, G) = (2, 4) the fastest at every Experiment-1 and eval shape but 52 ->
+# 26 at 96^2 N = 1, where the planned (1, 4) is; at 104 -> 52 at 48^2 (N = 1)
+# the four-warp rule's (1, 4) reads 11% over (2, 4). Four channels a thread
+# (221 registers against 128) read 11-12% slower at the Experiment-1 shapes.
+UPCONV_F32_TO = (2, 1)
+UPCONV_F32_G = (4, 2, 1)
+UPCONV_F32_TILE = (8, 32)
+UPCONV_F32_MIN_WARPS_PER_SM = 4
+
+
+class UpconvF32Plan(NamedTuple):
+    to: int  # output channels of a thread
+    groups: int  # ceil(Co / to)
+    g: int  # groups a block
+    chunks: int  # ceil(groups / g): the grid's second axis
+    tiles_h: int  # ceil(H / 8) x ceil(W / 32) half-res tiles an image
+    tiles_w: int
+    part_rows: int  # N x tiles: rows of the (part_rows, 2, Co) float32 partials of the sums
+    wp_numel: int  # chunks x C x 16 x g x to: the packed combined weights
+
+
+def upconv_f32_plan(n: int, c: int, co: int, h: int, w: int, sms: int = 132) -> UpconvF32Plan:
+    """The float32 K9/K14 kernel's launch for x (N, C, H, W) at half
+    resolution and Co output channels on a card of ``sms`` SMs: TO (2, or 1
+    where 2 leaves fewer than UPCONV_F32_MIN_WARPS_PER_SM warps an SM), the
+    groups a block (the most of UPCONV_F32_G no larger than the groups), the
+    tiles, the partials' rows and the packed weights' size. Raises for an
+    empty shape, N > 65535 (the grid's third axis), a plane of 2^31 pixels or
+    more, or more than 65535 channel chunks (the grid's second axis)."""
+    if min(n, c, co, h, w) < 1 or n > 65535 or h * w >= 2**31:
+        raise ValueError(f"upconv3x3_chw (float32) takes 1 <= N <= 65535, 1 <= C, Co, H, W and "
+                         f"H W < 2^31, got N={n}, C={c}, Co={co}, H={h}, W={w}")
+    tiles_h, tiles_w = -(-h // UPCONV_F32_TILE[0]), -(-w // UPCONV_F32_TILE[1])
+    tiles = n * tiles_h * tiles_w
+    to = next((t for t in UPCONV_F32_TO
+               if tiles * -(-co // t) >= UPCONV_F32_MIN_WARPS_PER_SM * sms), UPCONV_F32_TO[-1])
+    groups = -(-co // to)
+    g = next(g for g in UPCONV_F32_G if g <= groups or g == 1)
+    chunks = -(-groups // g)
+    if chunks > 65535:
+        raise ValueError(f"upconv3x3_chw (float32) takes at most {65535 * g * to} output "
+                         f"channels here, got Co={co}")
+    return UpconvF32Plan(to, groups, g, chunks, tiles_h, tiles_w, tiles, chunks * c * 16 * g * to)
+
+
 def _upconv_cuda_cores(x, w, b, scale, shift, relu, zeros, top, left, want_stats=False):
     """K9/K14 on the CUDA cores (``itg_upconv3x3_chw``): the float32 route
-    (the C function takes bf16 too)."""
+    (the C function takes bf16 too), on :func:`upconv_f32_plan`'s grid: a
+    pack launch combines the phase kernels, then the kernel; with stats, the
+    tiles' partial sums added in one fixed order by a last launch."""
     n, c, h, wd = x.shape
     co = w.shape[0]
+    plan = upconv_f32_plan(n, c, co, h, wd, _sm_count(x.device.index))
     y = torch.empty((n, co, 2 * h, 2 * wd), dtype=x.dtype, device=x.device)
-    s1 = s2 = None
+    part = s1 = s2 = None
     if want_stats:
-        s1, s2 = _zeros_f32(co, x), _zeros_f32(co, x)
-    wc, bf, sc, sh = _upconv_phase_weights(w), _f32(b), _f32(scale), _f32(shift)
+        part = torch.empty((plan.part_rows, 2, co), dtype=torch.float32, device=x.device)
+        s1 = torch.empty(co, dtype=torch.float32, device=x.device)
+        s2 = torch.empty_like(s1)
+    wp = torch.empty(plan.wp_numel, dtype=torch.float32, device=x.device)
+    wf, bf, sc, sh = _f32(w), _f32(b), _f32(scale), _f32(shift)
     with torch.cuda.device(x.device):
         rc = _lib().itg_upconv3x3_chw(
-            x.data_ptr(), wc.data_ptr(), bf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
-            _ptr(top), _ptr(left), y.data_ptr(), _ptr(s1), _ptr(s2),
-            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
+            x.data_ptr(), wf.data_ptr(), bf.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+            _ptr(top), _ptr(left), wp.data_ptr(), y.data_ptr(), _ptr(part), _ptr(s1), _ptr(s2),
+            n, c, h, wd, co, int(relu), int(zeros), _bf16(x), plan.to, plan.g, _stream(x),
         )
     _raise_on(rc, "itg_upconv3x3_chw")
     ROUTE_LAUNCHES["itg_upconv3x3_chw"] += 1
@@ -1871,22 +1937,110 @@ def upconv_dw_tc_part_entries(mt: int, no: int, ph: int) -> int:
     return 2 * ph * mt * 4 * no * 128 + 8 * no
 
 
+# K9 dW's float32 route (csrc/upconv_dw_f32.cu): K7's scheme with the 16
+# phase taps. Persistent blocks, one an SM, each walking a contiguous range
+# of chunks (rows half-res rows x 32 columns of one image) through a double
+# buffer of cp.async stages. A thread owns UPCONV_DW_F32_TILE (2 output x 4
+# input channels) at one phase row di (8 taps); a block holds up to
+# UPCONV_DW_F32_MAX_TILES of them (32 output x 52 input channels: every
+# training shape of the fused up-conv) for both phase rows in each of its
+# pixel slots, a power of two of them, as many as UPCONV_DW_F32_THREADS
+# threads hold and at most the 32 runs of an 8-row chunk. (4 output channels
+# a thread, 256 threads a block, read 17% slower at 52 -> 26 on an H100:
+# f32_route_study.py.) Wider layers split the channels over the grid's
+# second axis. The chunk's rows are the one of UPCONV_DW_F32_ROWS (whose two
+# stages fit the shared memory, with a run of 8 pixels for every slot) with
+# the least ceil(chunks / blocks) x (rows + UPCONV_DW_F32_CHUNK_COST): the
+# busiest block's chunks, each costing its rows and a fixed part (staging,
+# the BN fold, two barriers) worth about one row, as f32_route_study.py's
+# plan table reads them on an H100 at the Experiment-1 shapes. A block's
+# partial is one row of Co C 16 + Co floats (dW per phase tap, then db); the
+# last launch folds the taps to 3 x 3.
+UPCONV_DW_F32_TILE = (2, 4)
+UPCONV_DW_F32_MAX_TILES = (16, 13)
+UPCONV_DW_F32_COLS = 32
+UPCONV_DW_F32_RUN = 8
+UPCONV_DW_F32_ROWS = (1, 2, 4, 8)
+UPCONV_DW_F32_CHUNK_COST = 1
+UPCONV_DW_F32_THREADS = 512
+UPCONV_DW_F32_STAGES = 2
+
+
+class UpconvDwF32Plan(NamedTuple):
+    tiles_o: int  # a block's output tiles of 2 channels
+    tiles_c: int  # its input tiles of 4
+    slots: int  # pixel slots a block: a power of two, slots x tiles_o x tiles_c x 2 <= 512,
+    # at most the 32 runs of an 8-row chunk
+    threads: int  # slots x tiles_o x tiles_c x 2, rounded up to a warp
+    rows: int  # half-res rows a chunk
+    chunks: int  # N x ceil(H / rows) x ceil(W / 32)
+    channel_blocks: int  # ceil(C / 52) x ceil(Co / 32): the grid's second axis
+    blocks: int  # the grid's first axis: min(chunks, SMs / channel blocks), at least 1
+    part_entries: int  # Co C 16 + Co: a block's partial row
+
+
+def upconv_dw_stage_bytes(rows: int, tiles_o: int, tiles_c: int) -> int:
+    """Bytes of one cp.async stage of the float32 K9 dW kernel: rows + 2
+    half-res rows of x (its ring) and 2 rows full-res rows of g, each row its
+    channels side by side, 35 (x) and 65 (g) floats apart."""
+    (to, tc), cols = UPCONV_DW_F32_TILE, UPCONV_DW_F32_COLS
+    return 4 * ((rows + 2) * tc * tiles_c * (cols + 3) + 2 * rows * to * tiles_o * (2 * cols + 1))
+
+
+def upconv_dw_f32_plan(n: int, c: int, co: int, h: int, w: int, sms: int = 132) -> UpconvDwF32Plan:
+    """The float32 K9 dW kernel's launch for x (N, C, H, W) at half
+    resolution and g (N, Co, 2H, 2W) on a card of ``sms`` SMs: the block's
+    channel tiles, its pixel slots and threads, the chunk's rows, the chunks
+    and the grid; the entry point launches this grid. Raises for an empty
+    shape, N > 65535 or a half-res plane of 2^31 pixels or more."""
+    if min(n, c, co, h, w) < 1 or n > 65535 or h * w >= 2**31:
+        raise ValueError(f"upconv3x3_chw_dw (float32) takes 1 <= N <= 65535, 1 <= C, Co, H, W "
+                         f"and H W < 2^31, got N={n}, C={c}, Co={co}, H={h}, W={w}")
+    (to, tc), (mo, mc) = UPCONV_DW_F32_TILE, UPCONV_DW_F32_MAX_TILES
+    tiles_o, tiles_c = min(-(-co // to), mo), min(-(-c // tc), mc)
+    per_slot = tiles_o * tiles_c * 2
+    cols = UPCONV_DW_F32_COLS
+    slots = min(1 << (UPCONV_DW_F32_THREADS // per_slot).bit_length() - 1,
+                max(UPCONV_DW_F32_ROWS) * cols // UPCONV_DW_F32_RUN)
+    channel_blocks = -(-c // (tc * mc)) * -(-co // (to * mo))
+    extra = 4 * (2 * tc * mc + to * mo)  # the scales and shifts, phase row 1's db
+
+    def layout(rows):  # (chunks, blocks, the stages' and the extras' bytes)
+        chunks = n * -(-h // rows) * -(-w // cols)
+        return (chunks, max(1, min(chunks, sms // channel_blocks)),
+                UPCONV_DW_F32_STAGES * upconv_dw_stage_bytes(rows, tiles_o, tiles_c) + extra)
+
+    fits = [r for r in UPCONV_DW_F32_ROWS
+            if slots * UPCONV_DW_F32_RUN <= r * cols and layout(r)[2] <= CONV3X3_DW_F32_SMEM]
+    rows = min(fits or UPCONV_DW_F32_ROWS[:1],
+               key=lambda r: (-(-layout(r)[0] // layout(r)[1]) * (r + UPCONV_DW_F32_CHUNK_COST), r))
+    chunks, blocks, _ = layout(rows)
+    return UpconvDwF32Plan(tiles_o, tiles_c, slots, -(-slots * per_slot // 32) * 32, rows,
+                           chunks, channel_blocks, blocks, co * c * 16 + co)
+
+
 def _upconv_dw_cuda_cores(x, g, scale, shift, relu: bool, zeros: bool):
     """K9 dW on the CUDA cores (``itg_upconv3x3_chw_dw``): the float32 route
-    (the C function takes bf16 too); dwc (Co, C, 16) per phase tap, db."""
+    (the C function takes bf16 too): persistent blocks on
+    :func:`upconv_dw_f32_plan`'s grid write float32 partials per phase tap
+    and db, a second launch sums them in one order and folds the taps; dW
+    (Co, C, 3, 3), db."""
     n, c, h, wd = x.shape
     co = g.shape[1]
-    dwc = torch.zeros((co, c, 16), dtype=torch.float32, device=x.device)
-    db = _zeros_f32(co, x)
+    plan = upconv_dw_f32_plan(n, c, co, h, wd, _sm_count(x.device.index))
+    dw = torch.empty((co, c, 3, 3), dtype=torch.float32, device=x.device)
+    db = torch.empty(co, dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.blocks, plan.part_entries), dtype=torch.float32, device=x.device)
     sc, sh = _f32(scale), _f32(shift)
     with torch.cuda.device(x.device):
         rc = _lib().itg_upconv3x3_chw_dw(
-            x.data_ptr(), g.data_ptr(), sc.data_ptr(), sh.data_ptr(), dwc.data_ptr(),
-            db.data_ptr(), n, c, h, wd, co, int(relu), int(zeros), _bf16(x), _stream(x),
+            x.data_ptr(), g.data_ptr(), sc.data_ptr(), sh.data_ptr(), part.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), n, c, h, wd, co, int(relu), int(zeros), _bf16(x),
+            plan.blocks, plan.slots, plan.rows, _stream(x),
         )
     _raise_on(rc, "itg_upconv3x3_chw_dw")
     ROUTE_LAUNCHES["itg_upconv3x3_chw_dw"] += 1
-    return dwc, db
+    return dw, db
 
 
 def _upconv_dw_tensor_cores(x, g, scale, shift, relu: bool, zeros: bool):
@@ -1915,20 +2069,23 @@ def _upconv_dw_tensor_cores(x, g, scale, shift, relu: bool, zeros: bool):
 
 def upconv3x3_chw_dw(x, g, scale, shift, relu: bool, outer_padding: str):
     """K9 dW: dW (Co, C, 3, 3) and db (Co,) of :func:`upconv3x3_chw`, float32
-    sums over (N, 2H, 2W). The kernel sums per phase tap (Co, C, 16) from the
-    half-res slab; the wrapper folds them back to the 3x3 taps. On the card
-    bf16 takes the tensor-core kernel (both operands are bf16 values, so its
-    plain version is :func:`upconv3x3_chw_dw_plain` itself), float32 the
-    CUDA-core one."""
+    sums over (N, 2H, 2W). The kernels sum per phase tap from the half-res
+    slab. On the card bf16 takes the tensor-core kernel (both operands are
+    bf16 values, so its plain version is :func:`upconv3x3_chw_dw_plain`
+    itself), whose (Co, C, 16) taps the wrapper folds back to 3x3; float32
+    the CUDA-core one, which folds them in its last launch."""
     zeros = _check_padding(outer_padding)
     co = g.shape[1]
     _check_bwd(x, g, co, scale, shift, up=2)
     if not _on_cuda(x, g, scale, shift):
         return upconv3x3_chw_dw_plain(x, g, scale, shift, relu, outer_padding)
-    route = _upconv_dw_tensor_cores if x.dtype == torch.bfloat16 else _upconv_dw_cuda_cores
-    dwc, db = route(x, g, scale, shift, relu, zeros)
+    if x.dtype == torch.bfloat16:
+        dwc, db = _upconv_dw_tensor_cores(x, g, scale, shift, relu, zeros)
+        dw = _upconv_unpack_dw(dwc)
+    else:
+        dw, db = _upconv_dw_cuda_cores(x, g, scale, shift, relu, zeros)
     LAUNCHES["upconv3x3_chw_dw"] += 1
-    return _upconv_unpack_dw(dwc), db
+    return dw, db
 
 
 def upconv3x3_chw_dw_plain(x, g, scale, shift, relu: bool, outer_padding: str):

@@ -1,7 +1,8 @@
 """The host planners of the float32 routes of K9 dx, K13's forward, K3-dW,
-K1/K2, K6 and K7 (ops/kernels.py: upconv_dx_f32_plan, stem_f32_plan,
-conv1x1_dw_f32_plan, conv3x3_f32_plan, conv3x3_dx_f32_plan,
-conv3x3_dw_f32_plan): the tiles and splits they choose at the Experiment-1,
+K1/K2, K6, K7, K9's forward (with K14) and K9 dW (ops/kernels.py:
+upconv_dx_f32_plan, stem_f32_plan, conv1x1_dw_f32_plan, conv3x3_f32_plan,
+conv3x3_dx_f32_plan, conv3x3_dw_f32_plan, upconv_f32_plan,
+upconv_dw_f32_plan): the tiles and splits they choose at the Experiment-1,
 SSM, eval and ``--D_ch 640`` shapes, and the shapes they refuse. The kernels
 themselves run only on the card (chip_smoke.py, tests/test_torch_gpu.py); on
 the CPU the wrappers take the plain versions, which
@@ -235,6 +236,129 @@ def test_conv3x3_bwd_f32_plans_refuse(plan, shape):
         getattr(tk, plan)(*shape)
 
 
+# (N, C, Co, H, W) of x at half resolution for K9's float32 forward (with
+# K14 at eval), and its plan (TO, groups, groups a block, channel chunks,
+# tiles): the Experiment-1 step's two fused up-convs, then the flagship's
+# three fused conv1 sites of the --fuse_up all one pass and sub-image (N = 1)
+UPCONV_PLANS = [
+    ((8, 52, 26, 96, 96), (2, 13, 4, 4, (12, 3))),  # auto, block 5
+    ((8, 26, 13, 192, 192), (2, 7, 4, 2, (24, 6))),  # auto, block 6
+    ((1, 104, 52, 48, 48), (1, 52, 4, 13, (6, 2))),  # eval: 2 a thread would leave 312 warps
+    ((1, 52, 26, 96, 96), (1, 26, 4, 7, (12, 3))),  # eval: 2 a thread would leave 468
+    ((1, 26, 13, 192, 192), (2, 7, 4, 2, (24, 6))),  # eval: 1008 warps at 2 a thread
+]
+
+
+@pytest.mark.parametrize("shape, plan", UPCONV_PLANS, ids=lambda v: str(v))
+def test_upconv_f32_plan(shape, plan):
+    """2 output channels a thread where that leaves four warps an SM of 132
+    (every training shape, the N = 1 layer at 192^2), else 1 (the N = 1
+    layers at 48^2 and 96^2); 4 groups a block; 8 x 32 half-res tiles, a
+    partial row a tile; the packed weights chunks x C x 16 x G TO floats."""
+    n, c, co, h, w = shape
+    p = tk.upconv_f32_plan(n, c, co, h, w)
+    assert (p.to, p.groups, p.g, p.chunks, (p.tiles_h, p.tiles_w)) == plan
+    assert p.groups == -(-co // p.to) and p.chunks * p.g >= p.groups > (p.chunks - 1) * p.g
+    assert p.part_rows == n * p.tiles_h * p.tiles_w
+    assert p.wp_numel == p.chunks * c * 16 * p.g * p.to
+    assert p.tiles_h * p.tiles_w * n * p.groups >= 4 * 132
+
+
+@pytest.mark.parametrize("co, to, g, chunks", [(1, 1, 1, 1), (3, 2, 2, 1), (5, 2, 2, 2),
+                                               (13, 2, 4, 2), (26, 2, 4, 4), (32, 2, 4, 4),
+                                               (33, 2, 4, 5), (52, 2, 4, 7), (64, 2, 4, 8),
+                                               (100, 2, 4, 13), (256, 2, 4, 32)])
+def test_upconv_f32_plan_channel_split(co, to, g, chunks):
+    """On N = 8 at 96^2 (288 tiles) TO is 2 from Co = 3 on (two groups fill
+    four warps an SM; Co = 1 takes one channel a thread); a block holds the
+    most of (4, 2, 1) groups that the channels fill, and wider layers (a
+    --G_ch past 52) split their groups over the grid's second axis."""
+    p = tk.upconv_f32_plan(8, 16, co, 96, 96)
+    assert (p.to, p.g, p.chunks) == (to, g, chunks)
+    assert p.g in tk.UPCONV_F32_G and p.chunks * p.g * p.to >= co
+
+
+@pytest.mark.parametrize("h, w, tiles", [(1, 1, (1, 1)), (13, 45, (2, 2)), (17, 33, (3, 2)),
+                                         (8, 32, (1, 1)), (9, 31, (2, 1)), (48, 48, (6, 2))])
+def test_upconv_f32_plan_tiles_cover_the_image(h, w, tiles):
+    """8 x 32 half-res tiles, the last row and column of them padded."""
+    p = tk.upconv_f32_plan(3, 5, 7, h, w)
+    assert (p.tiles_h, p.tiles_w) == tiles
+    assert (p.tiles_h - 1) * 8 < h <= p.tiles_h * 8 and (p.tiles_w - 1) * 32 < w <= p.tiles_w * 32
+    assert p.part_rows == 3 * tiles[0] * tiles[1]
+
+
+# K9 dW's float32 plan at the Experiment-1 shapes: (output and input tiles a
+# block, pixel slots, threads, rows a chunk, chunks)
+UPDW_PLANS = [
+    ((8, 52, 26, 96, 96), (13, 13, 1, 352, 4, 8 * 24 * 3)),
+    ((8, 26, 13, 192, 192), (7, 7, 4, 416, 8, 8 * 24 * 6)),
+]
+
+
+@pytest.mark.parametrize("shape, plan", UPDW_PLANS, ids=lambda v: str(v))
+def test_upconv_dw_f32_plan_at_exp1(shape, plan):
+    """2 x 4 channel tiles a phase row, every channel in one block, the most
+    pixel slots a power of two that 512 threads hold (52 -> 26 one: 338
+    threads a slot), the chunk's rows with the least (chunks of the busiest
+    block) x (rows + 1) among those whose two stages fit 227 KB (52 -> 26
+    at most 4: its stage is 100 KB), one block an SM of 132, a partial row
+    of Co C 16 + Co."""
+    n, c, co, h, w = shape
+    p = tk.upconv_dw_f32_plan(n, c, co, h, w)
+    assert (p.tiles_o, p.tiles_c, p.slots, p.threads, p.rows, p.chunks) == plan
+    assert (p.channel_blocks, p.blocks) == (1, 132)
+    assert p.slots * p.tiles_o * p.tiles_c * 2 <= 512 and p.slots <= 4 * p.rows
+    assert p.rows in tk.UPCONV_DW_F32_ROWS
+    assert p.part_entries == co * c * 16 + co
+    assert 2 * tk.upconv_dw_stage_bytes(p.rows, p.tiles_o, p.tiles_c) <= tk.CONV3X3_DW_F32_SMEM
+
+
+@pytest.mark.parametrize("c, co, slots, rows", [(1, 1, 32, 8), (4, 4, 32, 8), (1, 5, 32, 8),
+                                                (8, 8, 32, 8), (16, 16, 8, 4), (26, 13, 4, 4)])
+def test_upconv_dw_f32_plan_slots_have_runs(c, co, slots, rows):
+    """Narrow layers hold more slots than 512 threads would allow tiles for:
+    the slots stop at the 32 runs of an 8-row chunk, whose rows the plan then
+    takes, so that every slot has a run (the entry point refuses a plan
+    where one would not)."""
+    p = tk.upconv_dw_f32_plan(8, c, co, 96, 96)
+    assert (p.slots, p.rows) == (slots, rows)
+    assert p.slots * tk.UPCONV_DW_F32_RUN <= p.rows * tk.UPCONV_DW_F32_COLS
+
+
+@pytest.mark.parametrize("h, w", [(1, 1), (13, 45), (17, 19), (8, 32), (33, 47), (192, 192)])
+def test_upconv_dw_f32_plan_tiles_cover_the_image(h, w):
+    """The chunks (rows x 32 half-res columns) cover every shape, the last
+    row and column of them padded, a block each up to the card's 132."""
+    p = tk.upconv_dw_f32_plan(2, 5, 7, h, w)
+    assert p.chunks == 2 * -(-h // p.rows) * -(-w // 32)
+    assert p.blocks == min(p.chunks, 132)
+
+
+@pytest.mark.parametrize("c, co, channel_blocks, blocks", [(3, 5, 1, 132), (1, 1, 1, 132),
+                                                            (52, 32, 1, 132), (53, 26, 2, 66),
+                                                            (60, 30, 2, 66), (64, 32, 2, 66),
+                                                            (104, 52, 4, 33), (5, 100, 4, 33)])
+def test_upconv_dw_f32_plan_channel_split(c, co, channel_blocks, blocks):
+    """Channels past 52 input or 32 output (a --G_ch past 52) split over the
+    grid's second axis, the card's SMs shared among those channel blocks;
+    the largest block's two stages still fit."""
+    p = tk.upconv_dw_f32_plan(8, c, co, 96, 96)
+    assert (p.channel_blocks, p.blocks) == (channel_blocks, blocks)
+    assert p.tiles_c == min(-(-c // 4), 13) and p.tiles_o == min(-(-co // 2), 16)
+    assert 2 * tk.upconv_dw_stage_bytes(p.rows, p.tiles_o, p.tiles_c) <= tk.CONV3X3_DW_F32_SMEM
+
+
+@pytest.mark.parametrize("plan, name", [("upconv_f32_plan", r"upconv3x3_chw \(float32\)"),
+                                        ("upconv_dw_f32_plan", r"upconv3x3_chw_dw \(float32\)")])
+@pytest.mark.parametrize("shape", [(0, 5, 3, 8, 8), (1, 0, 3, 8, 8), (1, 5, 0, 8, 8),
+                                   (1, 5, 3, 0, 8), (1, 5, 3, 8, 0), (65536, 5, 3, 8, 8),
+                                   (1, 5, 3, 65536, 32768)])
+def test_upconv_f32_plans_refuse(plan, name, shape):
+    with pytest.raises(ValueError, match=name):
+        getattr(tk, plan)(*shape)
+
+
 @pytest.mark.parametrize("fn, args", [
     ("upconv3x3_chw_dx", lambda: (torch.zeros(1, 3, 4, 4), torch.zeros(1, 2, 8, 8),
                                   torch.zeros(2, 3, 3, 3), torch.ones(3), torch.zeros(3), True,
@@ -253,6 +377,17 @@ def test_conv3x3_bwd_f32_plans_refuse(plan, shape):
     ("conv3x3_chw_dw", lambda: (torch.randn(2, 4, 5, 6, generator=torch.Generator().manual_seed(10)),
                                 torch.randn(2, 3, 5, 6, generator=torch.Generator().manual_seed(11)),
                                 torch.ones(4), torch.zeros(4), True, "constant")),
+    ("upconv3x3_chw", lambda: (torch.randn(2, 4, 5, 6, generator=torch.Generator().manual_seed(12)),
+                               torch.randn(3, 4, 3, 3, generator=torch.Generator().manual_seed(13)),
+                               torch.zeros(3), torch.ones(4), torch.zeros(4), True, "replicate",
+                               True)),
+    ("upconv3x3_chw_dw", lambda: (torch.randn(2, 4, 5, 6, generator=torch.Generator().manual_seed(14)),
+                                  torch.randn(2, 3, 10, 12, generator=torch.Generator().manual_seed(15)),
+                                  torch.ones(4), torch.zeros(4), True, "constant")),
+    ("upconv3x3_chw_halo", lambda: (torch.randn(1, 4, 5, 6, generator=torch.Generator().manual_seed(16)),
+                                    torch.randn(3, 4, 3, 3, generator=torch.Generator().manual_seed(17)),
+                                    torch.zeros(3), torch.ones(4), torch.zeros(4), True, "constant",
+                                    torch.ones(1, 4, 8), torch.ones(1, 4, 5))),
     ("conv3x3_chw_halo", lambda: (torch.randn(1, 4, 5, 6, generator=torch.Generator().manual_seed(5)),
                                   torch.randn(3, 4, 3, 3, generator=torch.Generator().manual_seed(6)),
                                   torch.zeros(3), torch.ones(4), torch.zeros(4), True, "constant",

@@ -1584,6 +1584,137 @@ def test_upconv_tc_refuses_wider(cuda):
     assert tk.ROUTE_LAUNCHES["itg_upconv3x3_chw"] == 0
 
 
+# --- K9's forward (with K14) and K9 dW on the CUDA cores, float32 --------
+# half-res n, c, co, h, w: the Experiment-1 step's two fused up-convs, the
+# flagship's three fused conv1 sites at eval (N = 1, TO 1 and 2), then odd
+# shapes (W no multiple of 4 or of the 32-column tile, h = 1), channels past
+# the planner's tiles (Co 40: several chunks of 4 groups; C past 52 and Co
+# past 32 on dW: channel blocks) and one-channel sides
+UPF32_SHAPES = [(8, 52, 26, 96, 96), (8, 26, 13, 192, 192), (1, 104, 52, 48, 48),
+                (1, 52, 26, 96, 96), (1, 26, 13, 192, 192), (2, 11, 19, 13, 45), (1, 3, 2, 1, 3),
+                (2, 13, 7, 17, 19), (1, 60, 40, 9, 40), (2, 1, 5, 6, 33), (2, 6, 1, 7, 8)]
+
+
+def _upf32_case(cuda, shape, dtype=torch.float32, seed=51):
+    """x (half-res), unit-variance weights, the cached half-res borders and
+    g (full-res) of K9/K14 and K9 dW at ``shape`` (n, c, co, h, w)."""
+    n, c, co, h, w = shape
+    x, wt, b, sc, sh = _inputs(cuda, dtype, n=n, c=c, co=co, h=h, w=w, seed=seed)
+    wt = wt * (9 * c) ** -0.5 / 0.3
+    gen = torch.Generator().manual_seed(seed + 1)
+    top = torch.relu(torch.randn(n, c, w + 2, generator=gen)).to(cuda, dtype)
+    left = torch.relu(torch.randn(n, c, h, generator=gen)).to(cuda, dtype)
+    g = torch.randn(n, co, 2 * h, 2 * w, generator=gen).to(cuda, dtype)
+    return x, wt, b, sc, sh, top, left, g
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("shape", UPF32_SHAPES)
+def test_upconv_f32_matches_plain(cuda, relu, outer, shape):
+    """float32 K9 (with its sums) and K9 dW launch their CUDA-core entry
+    points once a call, held to their plain versions (y within F32_TOL, the
+    sums within SUM_TOL); fixed-order sums and no atomics: two calls give the
+    same bits (y, Σy, Σy², dW, db)."""
+    x, wt, b, sc, sh, _, _, g = _upf32_case(cuda, shape)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    y, s1, s2 = tk.upconv3x3_chw(x, wt, b, sc, sh, relu, outer, want_stats=True)
+    dw, db = tk.upconv3x3_chw_dw(x, g, sc, sh, relu, outer)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_upconv3x3_chw"], tk.ROUTE_LAUNCHES["itg_upconv3x3_chw_dw"],
+            tk.ROUTE_LAUNCHES["itg_upconv3x3_chw_tc"],
+            tk.ROUTE_LAUNCHES["itg_upconv3x3_chw_dw_tc"]) == (1, 1, 0, 0)
+    _assert_close(y, tk.upconv3x3_chw_plain(x, wt, b, sc, sh, relu, outer))
+    _assert_stats_close(y, s1, s2)
+    dw_ref, db_ref = tk.upconv3x3_chw_dw_plain(x, g, sc, sh, relu, outer)
+    _assert_sum_close(dw, dw_ref)
+    _assert_sum_close(db, db_ref)
+    again = (*tk.upconv3x3_chw(x, wt, b, sc, sh, relu, outer, want_stats=True),
+             *tk.upconv3x3_chw_dw(x, g, sc, sh, relu, outer))
+    assert all(torch.equal(a, b_) for a, b_ in zip((y, s1, s2, dw, db), again))
+    assert torch.equal(y, tk.upconv3x3_chw(x, wt, b, sc, sh, relu, outer))
+
+
+@pytest.mark.parametrize("outer", ["replicate", "constant"])
+@pytest.mark.parametrize("borders", list(FWD_BORDERS))
+@pytest.mark.parametrize("shape", [UPF32_SHAPES[i] for i in (2, 3, 4, 5, 6)])
+def test_upconv_f32_halo_matches_plain(cuda, outer, borders, shape):
+    """float32 K14 (K9's body given the cached half-res top row and left
+    column) in its four border cases, held to its plain version, two calls
+    bit-equal; with no cache it gives K9's bits."""
+    x, wt, b, sc, sh, top, left, _ = _upf32_case(cuda, shape)
+    t_, l_ = FWD_BORDERS[borders]
+    tb, lb = (top if t_ else None), (left if l_ else None)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    y = tk.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, tb, lb)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_upconv3x3_chw"], tk.ROUTE_LAUNCHES["itg_upconv3x3_chw_tc"]) == (1, 0)
+    _assert_close(y, tk.upconv3x3_chw_halo_plain(x, wt, b, sc, sh, True, outer, tb, lb))
+    assert torch.equal(y, tk.upconv3x3_chw_halo(x, wt, b, sc, sh, True, outer, tb, lb))
+    if borders == "none":
+        assert torch.equal(y, tk.upconv3x3_chw(x, wt, b, sc, sh, True, outer))
+
+
+@pytest.mark.parametrize("shape", [(1, 52, 26, 40, 72), (1, 104, 52, 30, 70), (1, 13, 3, 37, 45)])
+def test_upconv_f32_window_bit_equal(cuda, shape):
+    """float32 K14 on an interior half-res window of x, given the top row and
+    left column that K9's padded post-norm input holds there, equals K9's
+    output bit for bit away from the window's bottom row and right column,
+    though the two calls may plan other channels a thread: the raster gives
+    the one pass's bits."""
+    x, wt, b, sc, sh, _, _, _ = _upf32_case(cuda, shape)
+    r0, c0, hw, ww = 5, 16, 17, 24
+    y = tk.upconv3x3_chw(x, wt, b, sc, sh, True, "replicate")
+    padded = torch.nn.functional.pad(tk.prenorm(x, sc, sh, True), (1, 1, 1, 1), mode="replicate")
+    top = padded[:, :, r0, c0 : c0 + ww + 2].contiguous()
+    left = padded[:, :, r0 + 1 : r0 + 1 + hw, c0].contiguous()
+    win = x[:, :, r0 : r0 + hw, c0 : c0 + ww].contiguous()
+    y_win = tk.upconv3x3_chw_halo(win, wt, b, sc, sh, True, "replicate", top, left)
+    assert torch.equal(y_win[..., :-2, :-2],
+                       y[..., 2 * r0 : 2 * (r0 + hw) - 2, 2 * c0 : 2 * (c0 + ww) - 2])
+
+
+@pytest.mark.parametrize("shape", [UPF32_SHAPES[0], UPF32_SHAPES[5]])
+def test_upconv_f32_on_offset_view(cuda, shape):
+    """x and g one element into their storage (not 16-byte aligned): the
+    forward stages element by element, and both give the aligned copies'
+    bits."""
+    x, wt, b, sc, sh, top, left, g = _upf32_case(cuda, shape)
+
+    def offset(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    xv, gv = offset(x), offset(g)
+    assert xv.data_ptr() % 16 and gv.data_ptr() % 16
+    assert torch.equal(tk.upconv3x3_chw(xv, wt, b, sc, sh, True, "replicate"),
+                       tk.upconv3x3_chw(x, wt, b, sc, sh, True, "replicate"))
+    assert torch.equal(tk.upconv3x3_chw_halo(xv, wt, b, sc, sh, True, "constant", top, left),
+                       tk.upconv3x3_chw_halo(x, wt, b, sc, sh, True, "constant", top, left))
+    for a, b_ in zip(tk.upconv3x3_chw_dw(xv, gv, sc, sh, True, "replicate"),
+                     tk.upconv3x3_chw_dw(x, g, sc, sh, True, "replicate")):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("shape", [UPF32_SHAPES[0], UPF32_SHAPES[5], UPF32_SHAPES[8]])
+def test_upconv_f32_entries_take_bf16(cuda, shape):
+    """The CUDA-core entry points of K9's forward and K9 dW take bf16 too
+    (chip_smoke.py times them beside the tensor-core kernels): each held to
+    its plain version in bf16."""
+    x, wt, b, sc, sh, top, left, g = _upf32_case(cuda, shape, torch.bfloat16)
+    y, s1, s2 = tk._upconv_cuda_cores(x, wt, b, sc, sh, True, False, None, None, True)
+    _assert_close(y, tk.upconv3x3_chw_plain(x, wt, b, sc, sh, True, "replicate"))
+    _assert_stats_close(y, s1, s2)
+    _assert_close(tk._upconv_cuda_cores(x, wt, b, sc, sh, True, False, top, left)[0],
+                  tk.upconv3x3_chw_halo_plain(x, wt, b, sc, sh, True, "replicate", top, left))
+    dw, db = tk._upconv_dw_cuda_cores(x, g, sc, sh, True, False)
+    dw_ref, db_ref = tk.upconv3x3_chw_dw_plain(x, g, sc, sh, True, "replicate")
+    _assert_sum_close(dw, dw_ref)
+    _assert_sum_close(db, db_ref)
+
+
 def _fuse_all_gen(cuda, dtype=torch.float32):
     gen = ResidualPatchGenerator(z_dim=16, G_ch=8, n_layers_G=4, attention=True, fuse_up="all",
                                  dtype=dtype)

@@ -69,10 +69,11 @@ def test_cuda_sources_target_sm90a():
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.FLAGS
     names = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert names == {"conv3x3_fwd_f32", "conv3x3_chw_bwd", "conv1x1_chw", "conv1x1_dw_f32",
-                     "upsample2_chw", "stem4x4s2", "upconv3x3_chw", "ssm_embed_chw", "ssm_embed_tc",
+                     "upsample2_chw", "stem4x4s2", "ssm_embed_chw", "ssm_embed_tc",
                      "chw_dx_tc", "chw_dw_tc", "chw_fwd_tc", "stem_fwd_tc", "upconv_fwd_tc",
                      "conv1x1_tc", "upconv_dw_tc", "stem_dw_tc", "stem_dx_tc", "upconv_dx_f32",
-                     "stem_fwd_f32", "conv3x3_dx_f32", "conv3x3_dw_f32"}
+                     "stem_fwd_f32", "conv3x3_dx_f32", "conv3x3_dw_f32", "upconv_fwd_f32",
+                     "upconv_dw_f32"}
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
         site = "pallas_ssm.py" if src.stem.startswith("ssm_embed") else "pallas_conv.py"
@@ -87,7 +88,8 @@ def test_upsample2_source_has_no_atomics():
 
 
 # The float32 routes redesigned for the H100: K9 dx and K13's forward, K3-dW
-# and K1/K2 (with K5's sums), K6 and K7, each in a source of its own;
+# and K1/K2 (with K5's sums), K6 and K7, K9's forward (with K14) and K9 dW,
+# each in a source of its own;
 # (source, C entry point, the source that held the old body, pallas_call site)
 F32_REDESIGNED = [
     ("upconv_dx_f32", "itg_upconv3x3_chw_dx", "upconv3x3_chw", "pallas_conv.py:1642"),
@@ -96,9 +98,11 @@ F32_REDESIGNED = [
     ("conv3x3_fwd_f32", "itg_conv3x3_chw", "conv3x3_chw", "pallas_conv.py:395"),
     ("conv3x3_dx_f32", "itg_conv3x3_chw_dx", "conv3x3_chw_bwd", "pallas_conv.py:775"),
     ("conv3x3_dw_f32", "itg_conv3x3_chw_dw", "conv3x3_chw_bwd", "pallas_conv.py:888"),
+    ("upconv_fwd_f32", "itg_upconv3x3_chw", "upconv3x3_chw", "pallas_conv.py:1457"),
+    ("upconv_dw_f32", "itg_upconv3x3_chw_dw", "upconv3x3_chw", "pallas_conv.py:1777"),
 ]
-# old sources that held nothing but the replaced body, deleted with it
-F32_OLD_DELETED = {"conv3x3_chw"}
+# old sources that held nothing but the replaced bodies, deleted with them
+F32_OLD_DELETED = {"conv3x3_chw", "upconv3x3_chw"}
 
 
 @pytest.mark.parametrize("src, entry, old, site", F32_REDESIGNED,
@@ -125,10 +129,10 @@ def test_f32_redesigned_sources_target_sm90a(src, entry, old, site):
 
 @pytest.mark.parametrize("src", [r[0] for r in F32_REDESIGNED])
 def test_f32_redesigned_sources_have_no_atomics(src):
-    """K9 dx's and K6's float32 sums (d(scale), d(shift)), K3-dW's and K7's dW
-    and db and K5's Σy and Σy² are per-block partials added in a fixed order,
-    and K13's and K1's forwards sum each output in one order: two calls give
-    the same bits."""
+    """K9 dx's and K6's float32 sums (d(scale), d(shift)), K3-dW's, K7's and
+    K9's dW and db and K5's and K9's Σy and Σy² are per-block partials added
+    in a fixed order, and K13's, K1's and K9's forwards sum each output in
+    one order: two calls give the same bits."""
     text = (PACKAGE / "csrc" / f"{src}.cu").read_text()
     assert "atomicAdd" not in text and "block_sum2_atomic" not in text
 
@@ -141,3 +145,12 @@ def test_bwd_source_keeps_only_bn_corr():
     assert "conv3x3_dx_kernel" not in text and "conv3x3_dw_kernel" not in text
     assert "atomicAdd" not in text and "block_sum2_atomic" not in text
     assert "pallas_conv.py:1061" in text and "pallas_conv.py:775" not in text
+
+
+def test_upconv_fwd_f32_source_serves_k14():
+    """K9's float32 forward and K14 (the raster form, given the cached
+    half-res borders) are one body: the source names both TPU kernels, and
+    the old source of both (with K9 dW) is gone."""
+    text = (PACKAGE / "csrc" / "upconv_fwd_f32.cu").read_text()
+    assert "pallas_conv.py:1457" in text and "pallas_conv.py:2019" in text
+    assert not (PACKAGE / "csrc" / "upconv3x3_chw.cu").exists()
