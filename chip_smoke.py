@@ -140,7 +140,12 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    (``check_up_f32``, ``check_updw_f32``), odd shapes, both paddings, the
    ReLU off, channels past the planner's tiles, one-channel sides and
    ``--G_ch`` 64 in ``check_f32_edges``, and their times beside the recorded
-   times of the bodies they replaced (K9_F32_PARENT_MS, K9DW_F32_PARENT_MS). Times
+   times of the bodies they replaced (K9_F32_PARENT_MS, K9DW_F32_PARENT_MS).
+   K13 dW's f32 route (``csrc/stem_dw_f32.cu``) likewise: two calls bit-equal
+   at every shape it is checked at, planted faults at both training shapes
+   (ky and kx swapped, one chunk of pixels dropped) at least F32_PLANT times
+   its limit (``check_stem_dw_f32``); the parent's times come from
+   ``f32_route_study.py --tree`` in turns, not from a recorded table. Times
    each (CUDA-graph replay) beside its bound, its plain version and one
    PyTorch library call, summed per
    step for each tail, and holds the timed calls per step to the tail's
@@ -153,11 +158,15 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    bf16 on the tensor-core kernels (the forward within the bf16 limit, the
    backward's sums within the sums' limit of the plain version that applies
    the route's roundings, which planted faults must fail, two backward
-   calls bit-equal) and f32 on the CUDA-core kernels (the f32 limits), the window
+   calls bit-equal) and f32 on the CUDA-core kernels (the f32 limits; the
+   backward's two calls bit-equal and a dropped chunk's partials at least
+   F32_PLANT times the dW2 and dW1 limits), the window
    compare bit-equal on both; timed beside its bound (operations: it is the
    compute-bound kernel), its plain version and the cuDNN calls for the
-   same chain, the f32 route at the training shapes into rows of its own
-   (``:f32_parity``, launches from the f32 SSM step parity); and K1/K5, K6, K7 (the
+   same chain, each of the backward's launches also on its own
+   (``[launch]``, torch.profiler), the f32 route at the training shapes into rows of its own
+   (``:f32_parity``, launches from the f32 SSM step parity; the backward's
+   ``:f32_ssm``, launches from the graphed f32 SSM training run); and K1/K5, K6, K7 (the
    identity fold), K8, K3 (+ its dx form), K3-dW, K4, K4-bwd and the stem
    at the SSM step's own shapes, summed per SSM step (K1, K6 and K7 on both
    routes, as in phase 3; K3 and K3-dW checked with planted faults as there).
@@ -209,8 +218,8 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    replays of the captured step), under ``auto``, ``off`` and SSM
    (``graph_parity``): both runs start the first replayed step from the
    eager run's state; in f32 that step is held to step parity's gates and
-   the last reported beside a second eager run (the f32 CUDA-core kernels
-   sum with atomics); in bf16 every loss, gradient, parameter and buffer
+   the last reported beside a second eager run (K3's f32 sums add with
+   atomics); in bf16 every loss, gradient, parameter and buffer
    bit-equal; the same launches; under ``auto`` a planted fault (every
    replay draws the first replay's crops and latents) must break them.
 6. Training runs: 30 bf16 steps each through the train CLI's ``train``:
@@ -231,7 +240,9 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    busy time beside the recorded parent tree's (F32_STEP_PARENT_MS), and
    every routed kernel on its CUDA-core entry point only (``[route]``:
    ``itg_upconv3x3_chw_dx`` 2, ``itg_stem_fwd`` 2, ``itg_conv3x3_chw`` 3
-   and ``itg_conv1x1_chw_dw`` 2 a step under ``auto``).
+   and ``itg_conv1x1_chw_dw`` 2 a step under ``auto``; K15's
+   ``itg_ssm_embed_fwd`` and ``itg_ssm_embed_bwd`` at least 3 a step under
+   SSM, the kernels line's ``ssm_embed_bwd:f32_ssm`` row).
 7. SSM generation from the SSM run's EMA checkpoint through the same
    generation phase (one-pass launches K15 6, K1 5, K3 2, K4 2; per 1024^2
    canvas K15 384, K2 320, K3 128, K4 128; the bf16 raster against the
@@ -460,8 +471,8 @@ F32_ROUTE = {"conv3x3_chw": ("itg_conv3x3_chw", "conv3x3_fwd_f32.cu"),
              "upconv3x3_chw_dx": ("itg_upconv3x3_chw_dx", "upconv_dx_f32.cu"),
              "upconv3x3_chw_dw": ("itg_upconv3x3_chw_dw", "upconv_dw_f32.cu"),
              "stem_fwd": ("itg_stem_fwd", "stem_fwd_f32.cu"),
-             "stem_dw": ("itg_stem_dw", "stem4x4s2.cu"),
-             "stem_dx": ("itg_stem_dx", "stem4x4s2.cu"),
+             "stem_dw": ("itg_stem_dw", "stem_dw_f32.cu"),
+             "stem_dx": ("itg_stem_dx", "stem_dx_f32.cu"),
              "upconv3x3_chw": ("itg_upconv3x3_chw", "upconv_fwd_f32.cu"),
              "chw_upconv_halo_step": ("itg_upconv3x3_chw", "upconv_fwd_f32.cu"),
              "conv1x1_chw": ("itg_conv1x1_chw", "conv1x1_chw.cu"),
@@ -650,8 +661,9 @@ TRAIN_PATHS = {"auto": ("train --fuse_up auto", "per Experiment-1 step"),
                "off": ("train --fuse_up off", "per Experiment-1 step"),
                "ssm": ("train SSM", "per SSM-recipe step")}
 # float32 reductions (Σy, Σy², d(scale), d(shift), dW, db) in another order
-# (K3's sums and K13's f32 dW by atomics; K5, K6, K7, K9's sums, K9 dx, K9 dW
-# and K3-dW by fixed-order partials): 1e-4 of the largest reference entry
+# (K3's sums by atomics; K5, K6, K7, K9's sums, K9 dx, K9 dW, K3-dW, K13 dW
+# and K15's backward by fixed-order partials): 1e-4 of the largest reference
+# entry
 SUM_TOL = 1e-4
 # K15's bf16 dW1 and db1 sum d_pre, which the route rounds to bf16: where the
 # kernel's float32 d_act and the plain version's float64 one straddle a
@@ -734,8 +746,8 @@ F32_PLANT = 10.0
 # (1 of 288 or 1152 at the Experiment-1 shapes) reads tens of times it.
 K9_SUM_TOL = 1e-5
 # The float32 bodies that K9 dx's and K13's forward's redesigns replaced
-# (the old csrc/upconv3x3_chw.cu: upconv_dx_kernel, csrc/stem4x4s2.cu:
-# stem_fwd_kernel), CUDA-graph replay, per call at each timed shape: the
+# (the old csrc/upconv3x3_chw.cu: upconv_dx_kernel, and stem_fwd_kernel of
+# the stem's old float32 source), CUDA-graph replay, per call at each timed shape: the
 # mean of two runs of f32_route_study.py on that parent tree, taken in turns
 # with the redesign's in one call on one NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md section 6)
@@ -922,6 +934,13 @@ def k3_limits(x, wt, b, res, ref):
     if res is not None:
         mag = mag + res.float().abs()
     return 2.0**-7 * ref.float().abs() + 4 * (c + 2) * 2.0**-24 * mag
+
+
+def kernel_name(name: str) -> str:
+    """A profiler event's kernel name without its return type, namespace and
+    argument list (``ssm_dw2_f32_kernel``)."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0]
 
 
 def device_busy_ms(prof):
@@ -4283,9 +4302,41 @@ def main() -> int:
             check_updw_f32(tag, x, gy, sc, sh, outer, kernels.upconv3x3_chw_dw(*args),
                            kernels.upconv3x3_chw_dw_plain(*args), plant)
 
+    def check_stem_dw_f32(tag, x, gy, plant):
+        """K13 dW's float32 route (CUDA cores, csrc/stem_dw_f32.cu) beyond
+        the check against its plain version: two calls bit-equal (dW, db:
+        fixed-order partials), and with ``plant`` two planted faults (ky and
+        kx swapped; the first chunk of the last image dropped, as a block
+        skipping it would: g zeroed over the plan's rows x 32 output pixels
+        there) must read at least F32_PLANT times the check's limit."""
+        k = kernels.stem_dw
+        tag = f"{tag} [CUDA cores]"
+        got = k(x, gy)
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, k(x, gy)))
+        print(f"[check] stem_dw {tag}: two calls {'bit-equal' if same else 'differ'} (dW, db)")
+        if not same:
+            fail(f"stem_dw {tag}: two f32 calls differ")
+        if not plant:
+            return
+        ref = kernels.stem_dw_plain(x, gy)
+        n_, c, h, w = x.shape
+        rows = kernels.stem_dw_f32_plan(n_, c, gy.shape[-1], h, w).rows
+        g_bad = gy.clone()
+        g_bad[-1, :rows, :kernels.STEM_DW_F32_COLS] = 0.0
+        for fault, bad in (("ky<->kx", (got[0].transpose(2, 3), got[1])),
+                           (f"a {rows} x {kernels.STEM_DW_F32_COLS} pixel chunk dropped",
+                            k(x, g_bad))):
+            r_ = max(float((a - r).abs().max()) / (SUM_TOL * float(r.abs().max()))
+                     for a, r in zip(bad, ref))
+            print(f"[check] stem_dw {tag}: planted {fault}: max abs err / limit {r_:.2f} (must "
+                  f"reach {F32_PLANT:g})")
+            if not r_ >= F32_PLANT:
+                fail(f"stem_dw {tag}: a planted fault ({fault}) reads only {r_:.2f}x the limit")
+
     def check_stem_dw(tag, x, gy, plant=False):
         """K13 dW (check_wgrad); with ``plant`` also the zero border read as
-        the edge pixel and db from one image only."""
+        the edge pixel and db from one image only; f32 also
+        ``check_stem_dw_f32``."""
         def faults(got, ref):
             edge = kernels.stem_dw(F.pad(x, (2, 2, 2, 2), mode="replicate"),
                                    F.pad(gy, (0, 0, 1, 1, 1, 1)))
@@ -4293,6 +4344,8 @@ def main() -> int:
                     "db from one image only": (got[0], gy[:1].float().sum(dim=(0, 1, 2)))}
 
         check_wgrad("stem_dw", tag, (x, gy), faults if plant else None)
+        if x.dtype == torch.float32:
+            check_stem_dw_f32(tag, x, gy, plant)
 
     def check_stem_dx(tag, gy, wt, plant=False):
         """K13 dx against its plain version. bf16 runs the tensor cores: dx
@@ -4661,8 +4714,8 @@ def main() -> int:
     conv3_t, conv1_t, up2_t = exp1_shapes(plan, base)
     n = EXP1_N
     print(f"[tolerance] sums (Σy, Σy², d(scale), d(shift), dW, db): max abs err <= {SUM_TOL:g} * "
-          "max|ref|: float32 reductions in another order (K3's sums and K13's f32 dW by "
-          "atomics; K6's, K7's and K9's f32 sums by fixed-order partials: two calls bit-equal, "
+          "max|ref|: float32 reductions in another order (K3's sums by atomics; K6's, K7's, "
+          "K9's and K13 dW's f32 sums by fixed-order partials: two calls bit-equal, "
           f"planted faults >= {F32_PLANT:g}x the limits at the 192^2 shapes; K9's f32 Σy, Σy² "
           f"also within {K9_SUM_TOL:g} of float64 sums of Σ|y|, Σy²); K5's sums are held "
           "to the sums of the kernel's own stored y; K4's adjoint bit-equal")
@@ -4857,6 +4910,8 @@ def main() -> int:
             compare("stem_fwd", f"--D_ch {co_}: (2, 3, {hs}x{hs}) -> (2, {hs // 2}, {hs // 2}, {co_}) "
                     "[CUDA cores]", kernels.stem_fwd(x[:2], w_s, b_s),
                     kernels.stem_fwd_plain(x[:2], w_s, b_s))
+            check_stem_dw(f"--D_ch {co_}: (2, 3, {hs}x{hs}) -> (2, {hs // 2}, {hs // 2}, {co_})",
+                          x[:2], randn(g_s, 2, hs // 2, hs // 2, co_))
         check_stem_dx(f"train {shape_s}", gy, wt, plant=True)
         check_stem_dw(f"train {shape_s}", x, gy, plant=True)
         nbytes, flops = stem_fwd_work(n, 3, hs, hs, co, es)
@@ -5080,8 +5135,9 @@ def main() -> int:
           "d_pre to bf16), but dW1 and "
           f"db1 within {DPRE_TOL:g} x max|ref| (d_pre entries a bf16 step apart where float32 and "
           "float64 sums straddle a rounding midpoint), and a planted "
-          "dW1 x 1.01 and dW1/dW2 with dy and dx swapped must fail it; two bf16 calls bit-equal "
-          "(fixed-order partial sums)")
+          "dW1 x 1.01 and dW1/dW2 with dy and dx swapped must fail it; two calls bit-equal on "
+          "both routes (fixed-order partial sums); f32: a dropped chunk's partials (g zeroed over "
+          f"one dW2 chunk) must read >= {F32_PLANT:g}x the dW2 and dW1 limits")
     hid, n = 128, SSM_N
     # (N, C, H = W, path, calls per step or sub-image): bn1 and the shortcut's
     # bn3 modulate C channels, bn2 C/2
@@ -5135,12 +5191,29 @@ def main() -> int:
                               f"max abs err / limit {ratio:.2f} (must exceed 1)")
                         if not ratio > 1.0:
                             fail(f"ssm_embed_bwd {shape_s}: the check passes a planted {fault}")
-                    again = ssm.ssm_embed_bwd(maps, w1, b1, w2, gy)
-                    same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
-                    print(f"[check] ssm_embed_bwd {shape_s} [tensor cores]: two calls "
-                          f"{'bit-equal' if same else 'differ'}")
-                    if not same:
-                        fail(f"ssm_embed_bwd {shape_s}: two bf16 calls differ")
+                again = ssm.ssm_embed_bwd(maps, w1, b1, w2, gy)
+                same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+                print(f"[check] ssm_embed_bwd {shape_s} [{route}]: two calls "
+                      f"{'bit-equal' if same else 'differ'}")
+                if not same:
+                    fail(f"ssm_embed_bwd {shape_s}: two {route} calls differ")
+                if not tc:
+                    # a block's partials dropped: g zeroed over one dW2 chunk
+                    # (the plan's rows x 32 output pixels of the last image),
+                    # whose hidden tile's dW1 partial goes with it
+                    rows2 = ssm.bwd_f32_plan(nk, 1, hid, h, h, 2 * c).rows2
+                    g_bad = gy.clone()
+                    g_bad[-1, :, :rows2, :ssm.F32_COLS2] = 0.0
+                    dropped = ssm.ssm_embed_bwd(maps, w1, b1, w2, g_bad)
+                    for part, k_ in (("dW2", 0), ("dW1", 2)):
+                        r_ = float((dropped[k_] - ref[k_]).abs().max()) / (
+                            SUM_TOL * float(ref[k_].abs().max()))
+                        print(f"[check] ssm_embed_bwd {shape_s} [CUDA cores]: planted a {rows2} x "
+                              f"{ssm.F32_COLS2} pixel chunk dropped: {part} max abs err / limit "
+                              f"{r_:.2f} (must reach {F32_PLANT:g})")
+                        if not r_ >= F32_PLANT:
+                            fail(f"ssm_embed_bwd {shape_s}: a dropped chunk reads only {r_:.2f}x "
+                                 f"the {part} limit")
             if not (tc or train):
                 continue
             pix, hpix = nk * h * h, nk * (h + 2) ** 2
@@ -5168,6 +5241,17 @@ def main() -> int:
                         lambda: ssm.ssm_embed_bwd(maps, w1, b1, w2, gy),
                         lambda: ssm.ssm_embed_bwd_plain(maps, w1, b1, w2, gy), lib_bwd,
                         io_bytes + 2 * wbytes, 2 * fl1 + 2 * fl2, count=count, **where)
+                # each of the backward's launches on its own: device time by
+                # kernel name over ten calls
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        ssm.ssm_embed_bwd(maps, w1, b1, w2, gy)
+                    sync()
+                by_name, _ = device_busy_ms(prof)
+                for kname, (kms, _) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+                    print(f"[launch] ssm_embed_bwd {shape_s} [{route}]: {kernel_name(kname)}: "
+                          f"{kms / 10:.4f} ms a call (profiler), x{count} per SSM step  [{card}]")
     print("[library] K15 forward: F.conv2d -> ReLU -> F.conv2d (three calls); K15 backward: "
           "conv2d_weight (dW2, on a precomputed hidden) + conv2d_input + conv2d_weight (dW1), "
           "no ReLU mask, no biases' sums")
@@ -5461,6 +5545,7 @@ def main() -> int:
     for tail in ("auto", "off", "ssm"):
         argv32 = [a if a != "bfloat16" else "float32" for a in recipes[tail]]
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
+        ssm.ROUTE_LAUNCHES.update(dict.fromkeys(ssm.ROUTE_LAUNCHES, 0))
         _, warm, busy, routed, _ = training_run(
             dev, argv32, TRAIN_STEPS, STEP_LAUNCHES[tail], sync, card,
             ROOT / "build" / f"smoke_train_f32_{tail}", "0", render=False)
@@ -5470,6 +5555,15 @@ def main() -> int:
                  f"launches {routed}, not {want}")
         print(f"[route] f32 training run, {TRAIN_PATHS[tail][0]}, graphed: the routed kernels' "
               f"launches by entry point {routed} (tensor-core kernels: 0)")
+        if tail == "ssm":  # K15's launches in the graphed f32 SSM run: its kernels line row
+            f32_ssm_run = dict(ssm.ROUTE_LAUNCHES)
+            if f32_ssm_run["itg_ssm_embed_tc_fwd"] or f32_ssm_run["itg_ssm_embed_tc_bwd"] or (
+                    f32_ssm_run["itg_ssm_embed_bwd"]
+                    < TRAIN_STEPS * STEP_LAUNCHES["ssm"]["ssm_embed_bwd"]):
+                fail(f"the f32 SSM training run took K15's launches {f32_ssm_run}, not the "
+                     "CUDA-core route's once a site a step")
+            print(f"[route] f32 training run, train SSM, graphed: K15 launches by entry point "
+                  f"{f32_ssm_run}")
         parent = F32_STEP_PARENT_MS.get(tail)
         was = (f"; the parent tree's {parent[0]:.2f} ms and {parent[1]:.2f} ms busy (recorded)"
                if parent else "")
@@ -5611,6 +5705,8 @@ def main() -> int:
     # dx's launches in each path's f32 step parity and their times per step
     f32_rows = [(name, ":f32_parity", "step parity SSM (float32)", fstats[name], f32_route,
                  "per SSM step") for name in ("ssm_embed", "ssm_embed_bwd")]
+    f32_rows += [("ssm_embed_bwd", ":f32_ssm", "train SSM (float32, graphed)",
+                  fstats["ssm_embed_bwd"], f32_ssm_run, "per SSM step")]
     f32_rows += [(name, f":f32_{tail}", f"step parity {TRAIN_PATHS[tail][0]} (float32)",
                   dstats[tail][name], dx_f32[tail], TRAIN_PATHS[tail][1])
                  for name in ROUTED for tail, want in STEP_LAUNCHES.items() if want[name]]

@@ -3,11 +3,15 @@
 (``stem_fwd``), K3-dW (``conv1x1_chw_dw``), K1/K2 (``conv3x3_chw``,
 ``conv3x3_chw_halo``), K6 (``conv3x3_chw_dx``), K7 (``conv3x3_chw_dw``),
 K9's forward and K14 (``upconv3x3_chw``, ``upconv3x3_chw_halo``) and K9 dW
-(``upconv3x3_chw_dw``) on one CUDA card, with the graphed float32 steps they run in, for one tree
-of the repository.
+(``upconv3x3_chw_dw``), K13 dW (``stem_dw``) and K15's backward
+(``ssm.ssm_embed_bwd``) on one CUDA card, with the graphed float32 steps
+they run in, for one tree of the repository.
 
 Run from the root of a checkout on a machine with a card:
-``python3 f32_route_study.py [--tree DIR] [--out FILE]``. It
+``python3 f32_route_study.py [--tree DIR] [--out FILE] [--only NAMES]``
+(``--only``: a comma-separated subset of the sections ``k9dx``, ``k13``,
+``k3dw``, ``k1``, ``k6k7``, ``k9``, ``k14``, ``k13dw``, ``k15bwd``,
+``steps``; all by default). It
 imports only the PyTorch package, from ``DIR`` where given (default: this
 checkout), with that tree's ``chip_smoke.py`` for the train loop's run;
 the kernels are built from that tree's sources into its own ``build/``.
@@ -52,7 +56,18 @@ at 192^2) beside ``F.interpolate`` of the bordered slab + ``F.conv2d``;
 each row with its bound (``bound_ms`` of ``upconv_dx_work``'s FLOPs and the
 kernel's own bytes) and its largest deviation from the plain version; where
 the tree has ``kernels.upconv_f32_plan`` and ``upconv_dw_f32_plan``, the C
-entry points at each plan (the forward's (TO, G); dW's chunk heights). Then it runs the train
+entry points at each plan (the forward's (TO, G); dW's chunk heights). K13 dW
+at the Experiment-1 fakes (N = 8, 3 x 384^2 -> 64), the same to ``--D_ch``
+512 and the SSM recipe's 3 x 192^2, beside ``conv2d_weight`` at stride 2
+(TF32 off), with its bound (``stem_fwd_work``: the same bytes and FLOPs);
+K15's backward at the SSM step's three sites (N = 8, map_dim 1, 128 hidden
+channels, 192^2: Co 104 at bn1 and the shortcut's bn3, 52 at bn2) beside
+``conv2d_weight`` + ``conv2d_input`` + ``conv2d_weight`` (no ReLU mask, no
+biases' sums), with its bound (FFMA at 67 TFLOP/s) and each of its launches
+on its own (device time by kernel name from a ``torch.profiler`` trace of
+ten calls, ``chip_smoke.py: device_busy_ms``); where the tree has
+``kernels.stem_dw_f32_plan`` and ``ssm.bwd_f32_plan``, the C entry points at
+each plan they choose from. Then it runs the train
 loop's graphed float32 steps (Experiment-1 ``--fuse_up auto`` and ``off``,
 and the SSM recipe; ``--compute_dtype float32``, cuDNN's TF32 as PyTorch
 leaves it, which is how the train CLI runs them) through
@@ -79,6 +94,14 @@ HERE = Path(__file__).resolve().parent
 DX_SHAPES = ((8, 52, 26, 96, 96), (8, 26, 13, 192, 192))
 STEM_SHAPES = {"Exp-1": (8, 3, 384, 384, 64), "--D_ch 640": (8, 3, 384, 384, 640),
                "SSM": (8, 3, 192, 192, 64)}
+# K13 dW: (N, C, H, W, Co) and the paths that run it once a step
+STEM_DW_SHAPES = {"Exp-1": ((8, 3, 384, 384, 64), ("auto", "off")),
+                  "--D_ch 512": ((8, 3, 384, 384, 512), ()),
+                  "SSM": ((8, 3, 192, 192, 64), ("ssm",))}
+# K15's backward: (N, md, hid, H, W, Co) and its calls a SSM step (bn1 and
+# the shortcut's bn3 modulate 52 channels, bn2 26: Co = 2C gamma|beta)
+K15_SHAPES = {(8, 1, 128, 192, 192, 104): 2, (8, 1, 128, 192, 192, 52): 1}
+SECTIONS = ("k9dx", "k13", "k3dw", "k1", "k6k7", "k9", "k14", "k13dw", "k15bwd", "steps")
 # K3-dW: (N, C, Co, H, W) and the paths that run it once a step
 DW_SHAPES = {(8, 52, 26, 96, 96): ("auto",), (8, 26, 13, 192, 192): ("auto",),
              (8, 52, 26, 192, 192): ("off", "ssm"), (8, 26, 13, 384, 384): ("off",)}
@@ -119,7 +142,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", type=Path, default=HERE)
     parser.add_argument("--out", type=Path, default=HERE / "build" / "f32_route_study.json")
+    parser.add_argument("--only", default=",".join(SECTIONS),
+                        help="comma-separated sections to run: " + ", ".join(SECTIONS))
     args = parser.parse_args(argv)
+    only = set(args.only.split(","))
+    if only - set(SECTIONS):
+        parser.error(f"--only: unknown sections {sorted(only - set(SECTIONS))}")
     if not torch.cuda.is_available():
         print("f32_route_study: needs a CUDA card", file=sys.stderr)
         return 2
@@ -153,13 +181,13 @@ def main(argv=None) -> int:
     out = {"tree": str(tree), "card": card, "upconv3x3_chw_dx": {}, "stem_fwd": {},
            "conv1x1_chw_dw": {}, "conv3x3_chw": {}, "eval": {}, "conv3x3_chw_dx": {},
            "conv3x3_chw_dw": {}, "upconv3x3_chw": {}, "upconv3x3_chw_dw": {}, "k14": {},
-           "per_step": {}, "steps": {}, "plans": {}}
+           "stem_dw": {}, "ssm_embed_bwd": {}, "per_step": {}, "steps": {}, "plans": {}}
     plans = hasattr(kernels, "upconv_dx_f32_plan")
 
     def err(got, ref):
         return max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref))
 
-    for i, (n, c, co, h, w) in enumerate(DX_SHAPES):
+    for i, (n, c, co, h, w) in enumerate(DX_SHAPES if "k9dx" in only else ()):
         g_ = torch.Generator(device=dev).manual_seed(700 + i)
         x = torch.randn(n, c, h, w, device=dev, generator=g_)
         wt = torch.randn(co, c, 3, 3, device=dev, generator=g_) * (9 * c) ** -0.5
@@ -203,7 +231,7 @@ def main(argv=None) -> int:
         print(f"[time] upconv3x3_chw_dx f32 {key}: kernel {row['ms']:.4f} ms, library "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, max abs err "
               f"{row['max_abs_err']:.3e} (max|ref| {row['max_ref']:.3e})  [{card}]")
-    for label, (n, c, h, w, co) in STEM_SHAPES.items():
+    for label, (n, c, h, w, co) in (STEM_SHAPES if "k13" in only else {}).items():
         g_ = torch.Generator(device=dev).manual_seed(600)
         x = torch.randn(n, c, h, w, device=dev, generator=g_)
         wt = torch.randn(co, c, 4, 4, device=dev, generator=g_) * (16 * c) ** -0.5
@@ -231,7 +259,7 @@ def main(argv=None) -> int:
             row["library_ms"] += lib
             row["bound_ms"] += bound
 
-    for i, ((n, c, co, h, w), paths) in enumerate(DW_SHAPES.items()):
+    for i, ((n, c, co, h, w), paths) in enumerate((DW_SHAPES if "k3dw" in only else {}).items()):
         g_ = torch.Generator(device=dev).manual_seed(800 + i)
         x = torch.randn(n, c, h, w, device=dev, generator=g_)
         gy = torch.randn(n, co, h, w, device=dev, generator=g_)
@@ -288,7 +316,7 @@ def main(argv=None) -> int:
                 out["plans"][f"conv3x3_chw {key} to {to} g {g}"] = plan_ms
                 print(f"[plan] conv3x3_chw f32 {key}: to {to} g {g}: {plan_ms:.4f} ms  [{card}]")
 
-    for i, ((n, c, co, h, w, stats), paths) in enumerate(K1_SHAPES.items()):
+    for i, ((n, c, co, h, w, stats), paths) in enumerate((K1_SHAPES if "k1" in only else {}).items()):
         x, wt, b, sc, sh, _, _, a_pad = k1_inputs(820 + i, n, c, co, h, w)
         got = kernels.conv3x3_chw(x, wt, b, sc, sh, True)
         ref = kernels.conv3x3_chw_plain(x, wt, b, sc, sh, True)
@@ -308,7 +336,7 @@ def main(argv=None) -> int:
         if k1_plans:
             k1_plan_table(key, x, wt, b, sc, sh)
         del x, got, ref, a_pad
-    for i, (n, c, co, h, w) in enumerate(EVAL_SHAPES):
+    for i, (n, c, co, h, w) in enumerate(EVAL_SHAPES if "k1" in only else ()):
         x, wt, b, sc, sh, top, left, a_pad = k1_inputs(840 + i, n, c, co, h, w)
         got = kernels.conv3x3_chw_halo(x, wt, b, sc, sh, True, "replicate", top, left)
         ref = kernels.conv3x3_chw_halo_plain(x, wt, b, sc, sh, True, "replicate", top, left)
@@ -383,7 +411,7 @@ def main(argv=None) -> int:
             print(f"[plan] conv3x3_chw_dw f32 {key}: slots {plan.slots} rows {rows}"
                   f"{' (planned)' if rows == plan.rows else ''}: {plan_ms:.4f} ms  [{card}]")
 
-    for i, ((n, c, co, h, w, _), paths) in enumerate(K1_SHAPES.items()):
+    for i, ((n, c, co, h, w, _), paths) in enumerate((K1_SHAPES if "k6k7" in only else {}).items()):
         x, wt, _, sc, sh, _, _, a_pad = k1_inputs(860 + i, n, c, co, h, w)
         gy = torch.randn(n, co, h, w, device=dev, generator=torch.Generator(device=dev).manual_seed(
             880 + i))
@@ -487,7 +515,7 @@ def main(argv=None) -> int:
         a_half = kernels.prenorm(x, sc, sh, True)
         return x, wt, b, sc, sh, top, left, a_half
 
-    for i, (n, c, co, h, w) in enumerate(K9_SHAPES):
+    for i, (n, c, co, h, w) in enumerate(K9_SHAPES if "k9" in only else ()):
         x, wt, b, sc, sh, _, _, a_half = k9_inputs(900 + i, n, c, co, h, w)
         gy = torch.randn(n, co, 2 * h, 2 * w, device=dev,
                          generator=torch.Generator(device=dev).manual_seed(920 + i))
@@ -528,7 +556,7 @@ def main(argv=None) -> int:
         if up_plans:
             k9dw_plan_table(key, x, gy, sc, sh)
         del x, gy, got, ref, a_half, a_up
-    for i, (n, c, co, h, w) in enumerate(K14_SHAPES):
+    for i, (n, c, co, h, w) in enumerate(K14_SHAPES if "k14" in only else ()):
         x, wt, b, sc, sh, top, left, a_half = k9_inputs(940 + i, n, c, co, h, w)
         _, flops = yard.upconv_dx_work(n, c, co, h, w, 4)
         io, weights = n * h * w * (c + 4 * co) * 4, (co * c * 9 + co + 2 * c) * 4
@@ -558,6 +586,123 @@ def main(argv=None) -> int:
         if up_plans:
             k9_plan_table(key, x, wt, b, sc, sh)
         del x, got, ref, a_half
+    stem_dw_plans = hasattr(kernels, "stem_dw_f32_plan")
+    for label, ((n, c, h, w, co), paths) in (STEM_DW_SHAPES if "k13dw" in only else {}).items():
+        g_ = torch.Generator(device=dev).manual_seed(960)
+        x = torch.randn(n, c, h, w, device=dev, generator=g_)
+        gy = torch.randn(n, h // 2, w // 2, co, device=dev, generator=g_)
+        g_nchw = gy.permute(0, 3, 1, 2)
+        got = kernels.stem_dw(x, gy)
+        ref = kernels.stem_dw_plain(x, gy)
+        row = {"ms": yard.device_ms(lambda: kernels.stem_dw(x, gy)),
+               "library_ms": yard.device_ms(lambda: torch.nn.grad.conv2d_weight(
+                   x, (co, c, 4, 4), g_nchw, stride=2, padding=1)),
+               "bound_ms": yard.bound_ms(*yard.stem_fwd_work(n, c, h, w, co, 4), f32_flop_per_s,
+                                         bytes_per_s),
+               "max_abs_err": err(got, ref), "max_ref": float(ref[0].abs().max()),
+               "bit_equal": all(torch.equal(a, b_) for a, b_ in zip(got, kernels.stem_dw(x, gy)))}
+        key = f"{label} ({n}, {c}, {h}x{w}) -> ({n}, {h // 2}, {w // 2}, {co})"
+        out["stem_dw"][key] = row
+        per_step("stem_dw", paths, row["ms"], row["library_ms"], row["bound_ms"])
+        print(f"[time] stem_dw f32 {key}: kernel {row['ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, max abs err "
+              f"{row['max_abs_err']:.3e} (max|ref| {row['max_ref']:.3e}), two calls "
+              f"{'bit-equal' if row['bit_equal'] else 'differ'}  [{card}]")
+        if stem_dw_plans:
+            planned = kernels.stem_dw_f32_plan(n, c, co, h, w, kernels._sm_count(dev.index or 0))
+            dw, db = torch.empty(co, c, 4, 4, device=dev), torch.empty(co, device=dev)
+            for plan in kernels.stem_dw_f32_plans(n, c, co, h, w,
+                                                  kernels._sm_count(dev.index or 0)):
+                part = torch.empty(plan.blocks, plan.part_entries, device=dev)
+
+                def entry():
+                    rc = kernels._lib().itg_stem_dw(
+                        x.data_ptr(), gy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                        db.data_ptr(), n, c, h, w, co, 0, plan.blocks, plan.slots, plan.rows,
+                        kernels._stream(x))
+                    if rc:
+                        raise RuntimeError(f"itg_stem_dw: CUDA error {rc}")
+
+                plan_ms = yard.device_ms(entry)
+                out["plans"][f"stem_dw {key} slots {plan.slots} rows {plan.rows}"] = plan_ms
+                mark = " (planned)" if plan == planned else ""
+                print(f"[plan] stem_dw f32 {key}: slots {plan.slots} rows {plan.rows} blocks "
+                      f"{plan.blocks}{mark}: {plan_ms:.4f} ms  [{card}]")
+        del x, gy, g_nchw, got, ref
+    if "k15bwd" in only:
+        from infinite_texture_gans_torch.ops import ssm
+    for i, ((n, md, hid, h, w, co), calls) in enumerate(
+            (K15_SHAPES if "k15bwd" in only else {}).items()):
+        g_ = torch.Generator(device=dev).manual_seed(980 + i)
+        maps = torch.randn(n, md, h + 4, w + 4, device=dev, generator=g_)
+        w1 = torch.randn(hid, md, 3, 3, device=dev, generator=g_) / 3
+        b1 = 0.1 * torch.randn(hid, device=dev, generator=g_)
+        w2 = torch.randn(co, hid, 3, 3, device=dev, generator=g_) * (9 * hid) ** -0.5
+        gy = torch.randn(n, co, h, w, device=dev, generator=g_)
+        a_lib = torch.relu(torch.nn.functional.conv2d(maps, w1, b1))
+
+        def lib_bwd():
+            torch.nn.grad.conv2d_weight(a_lib, w2.shape, gy)
+            d_act = torch.nn.grad.conv2d_input(a_lib.shape, w2, gy)
+            torch.nn.grad.conv2d_weight(maps, w1.shape, d_act)
+
+        got = ssm.ssm_embed_bwd(maps, w1, b1, w2, gy)
+        ref = ssm.ssm_embed_bwd_plain(maps, w1, b1, w2, gy)
+        pix, hpix = n * h * w, n * (h + 2) * (w + 2)
+        flops = 2 * 2.0 * hpix * hid * 9 * md + 2 * 2.0 * pix * co * hid * 9
+        nbytes = n * md * (h + 4) * (w + 4) * 4 + pix * co * 4 + 2 * (
+            hid * md * 9 + hid + co * hid * 9 + co) * 4
+        row = {"ms": yard.device_ms(lambda: ssm.ssm_embed_bwd(maps, w1, b1, w2, gy)),
+               "library_ms": yard.device_ms(lib_bwd),
+               "bound_ms": yard.bound_ms(nbytes, flops, f32_flop_per_s, bytes_per_s),
+               "max_rel_err": max(float((a - r).abs().max() / r.abs().max())
+                                  for a, r in zip(got, ref)),
+               "bit_equal": all(torch.equal(a, b_) for a, b_ in
+                                zip(got, ssm.ssm_embed_bwd(maps, w1, b1, w2, gy)))}
+        # each launch on its own: device time by kernel name over ten calls
+        for _ in range(3):
+            ssm.ssm_embed_bwd(maps, w1, b1, w2, gy)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                ssm.ssm_embed_bwd(maps, w1, b1, w2, gy)
+            torch.cuda.synchronize()
+        by_name, _ = yard.device_busy_ms(prof)
+        row["launches"] = {yard.kernel_name(name): ms_ / 10 for name, (ms_, _) in by_name.items()}
+        key = f"({n}, {md} -> {hid} -> {co}, {h}x{w})"
+        out["ssm_embed_bwd"][key] = row
+        for _ in range(calls):
+            per_step("ssm_embed_bwd", ("ssm",), row["ms"], row["library_ms"], row["bound_ms"])
+        print(f"[time] ssm_embed_bwd f32 {key}: kernel {row['ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, max abs err / "
+              f"max|ref| {row['max_rel_err']:.3e}, two calls "
+              f"{'bit-equal' if row['bit_equal'] else 'differ'}, x{calls} a SSM step  [{card}]")
+        for name, ms_ in sorted(row["launches"].items(), key=lambda kv: -kv[1]):
+            print(f"[launch] ssm_embed_bwd f32 {key}: {name}: {ms_:.4f} ms a call (profiler)  "
+                  f"[{card}]")
+        if hasattr(ssm, "bwd_f32_plan"):
+            planned = ssm.bwd_f32_plan(n, md, hid, h, w, co, kernels._sm_count(dev.index or 0))
+            outs = [torch.empty_like(t) for t in got]
+            for plan in ssm.bwd_f32_plans(n, md, hid, h, w, co, kernels._sm_count(dev.index or 0)):
+                part1 = torch.empty(plan.s1, hid, 9 * md + 1, device=dev)
+                part2 = torch.empty(plan.s2, co, hid, 9, device=dev)
+                partb2 = torch.empty(plan.s2, co, device=dev)
+
+                def entry():
+                    rc = kernels._lib().itg_ssm_embed_bwd(
+                        maps.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                        gy.data_ptr(), part1.data_ptr(), part2.data_ptr(), partb2.data_ptr(),
+                        *(t.data_ptr() for t in outs), n, md, hid, h, w, co, plan.s2,
+                        plan.rows2, kernels._stream(maps))
+                    if rc:
+                        raise RuntimeError(f"itg_ssm_embed_bwd: CUDA error {rc}")
+
+                plan_ms = yard.device_ms(entry)
+                out["plans"][f"ssm_embed_bwd {key} s2 {plan.s2} rows2 {plan.rows2}"] = plan_ms
+                mark = " (planned)" if plan == planned else ""
+                print(f"[plan] ssm_embed_bwd f32 {key}: s2 {plan.s2} rows2 {plan.rows2}{mark}: "
+                      f"{plan_ms:.4f} ms  [{card}]")
+        del maps, gy, a_lib, got, ref
     for name, row in out["per_step"].items():
         print(f"[step sum] {name}: kernel {row['ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
               f"bound {row['bound_ms']:.4f} ms a step  [{card}]")
@@ -569,8 +714,8 @@ def main(argv=None) -> int:
                "off": cs.EXP1_ARGS + ["--fuse_up", "off"], "ssm": cs.SSM_ARGS}
     entries = ("itg_upconv3x3_chw_dx", "itg_stem_fwd", "itg_conv1x1_chw_dw", "itg_conv3x3_chw",
                "itg_conv3x3_chw_dx", "itg_conv3x3_chw_dw", "itg_upconv3x3_chw",
-               "itg_upconv3x3_chw_dw")
-    for tail, argv in recipes.items():
+               "itg_upconv3x3_chw_dw", "itg_stem_dw")
+    for tail, argv in (recipes if "steps" in only else {}).items():
         argv32 = [a if a != "bfloat16" else "float32" for a in argv]
         kernels.ROUTE_LAUNCHES.update(dict.fromkeys(kernels.ROUTE_LAUNCHES, 0))
         launches, warm, busy, routed, peak = cs.training_run(

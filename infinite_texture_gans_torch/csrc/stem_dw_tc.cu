@@ -11,8 +11,8 @@
 //
 // Replaces K13 dW infinite_texture_gans_tpu/ops/pallas_conv.py:
 // _stem_dw_call (:2840, kernel _stem_dw_kernel :2788), reached through
-// conv4x4s2_stem_chw (:3086). Float32 keeps the CUDA-core kernel of
-// stem4x4s2.cu.
+// conv4x4s2_stem_chw (:3086). Float32 takes the CUDA-core kernel of
+// stem_dw_f32.cu.
 //
 // What bounds it on the H100: 2 * 16 * C * Co FLOPs per output pixel against
 // 2 Co bytes of g and 8 C bytes of x (C = 3, Co = 64: 6,144 FLOPs for 152

@@ -13,8 +13,8 @@
 //
 // Replaces K13 dx infinite_texture_gans_tpu/ops/pallas_conv.py:
 // _stem_dx_call (:2972, pallas_call :2977, kernel _stem_dx_kernel :2877),
-// reached through conv4x4s2_stem_chw (:3086). Float32 keeps the CUDA-core
-// kernel of stem4x4s2.cu.
+// reached through conv4x4s2_stem_chw (:3086). Float32 takes the CUDA-core
+// kernel of stem_dx_f32.cu.
 //
 // What bounds it on the H100: 2 * 16 * C * Co FLOPs per g pixel against 2 Co
 // bytes of g read and 8 C bytes of dx written (C = 3, Co = 64: 6,144 FLOPs

@@ -1,6 +1,6 @@
 // The discriminator stem's forward (K13) on the CUDA cores: the float32
 // route (bf16 runs on the tensor cores in stem_fwd_tc.cu; this entry point
-// takes bf16 too). The stem's dW and dx keep stem4x4s2.cu.
+// takes bf16 too). The stem's dW is stem_dw_f32.cu, its dx stem_dx_f32.cu.
 //
 // Replaces infinite_texture_gans_tpu/ops/pallas_conv.py:2769 _stem_fwd_call
 // (kernel _stem_kernel :2683), reached through conv4x4s2_stem_chw (:3086):

@@ -10,8 +10,8 @@
 // Replaces K13's forward infinite_texture_gans_tpu/ops/pallas_conv.py:
 // _stem_fwd_call (:2761, pallas_call :2769, kernel _stem_kernel :2683),
 // reached through conv4x4s2_stem_chw (:3086) -> _stem_impl_chw (:3028).
-// Float32 keeps the CUDA-core kernel of stem4x4s2.cu, which also holds the
-// stem's dx and its float32 dW (bf16 dW: stem_dw_tc.cu).
+// Float32 takes the CUDA-core kernel of stem_fwd_f32.cu (the stem's f32 dx:
+// stem_dx_f32.cu, f32 dW: stem_dw_f32.cu, bf16 dW: stem_dw_tc.cu).
 //
 // What bounds it on the H100: 2 * 16 * C * Co FLOPs per output pixel against
 // 4 C input and 2 Co output bytes (Co = 64: 6,144 FLOPs for 140 bytes, 44

@@ -90,8 +90,8 @@ SIGNATURES = {
     "itg_stem_fwd": [_P] * 4 + [_I] * 7 + [_P],
     # x, w, b, y, n, c, h, w, co, stream (bf16 only)
     "itg_stem_fwd_tc": [_P] * 4 + [_I] * 5 + [_P],
-    # x, g, dw, db, n, c, h, w, co, bf16, stream
-    "itg_stem_dw": [_P] * 4 + [_I] * 6 + [_P],
+    # x, g, part, dw, db, n, c, h, w, co, bf16, blocks, slots, rows, stream
+    "itg_stem_dw": [_P] * 5 + [_I] * 9 + [_P],
     # x, g, part, dw, db, n, c, h, w, co, cap, stream (bf16 only)
     "itg_stem_dw_tc": [_P] * 5 + [_I] * 6 + [_P],
     # g, w, dx, n, c, h, w, co, bf16, stream
@@ -100,8 +100,9 @@ SIGNATURES = {
     "itg_stem_dx_tc": [_P] * 4 + [_I] * 5 + [_P],
     # maps, w1, b1, w2c, b2, y, n, md, hid, h, w, co, stream (float32 only)
     "itg_ssm_embed_fwd": [_P] * 6 + [_I] * 6 + [_P],
-    # maps, w1, b1, w2o, g, dw2, db2, dw1, db1, n, md, hid, h, w, co, stream (float32 only)
-    "itg_ssm_embed_bwd": [_P] * 9 + [_I] * 6 + [_P],
+    # maps, w1, b1, w2, g, part1, part2, partb2, dw2, db2, dw1, db1, n, md, hid, h, w, co, s2,
+    # rows2, stream (float32 only)
+    "itg_ssm_embed_bwd": [_P] * 12 + [_I] * 8 + [_P],
     # maps, w1, b1, w2p, b2, y, n, md, hid, h, w, co, nt, stream
     "itg_ssm_embed_tc_fwd": [_P] * 6 + [_I] * 7 + [_P],
     # maps, w1, b1, w2t, g, part1, part2, partb2, dw2, db2, dw1, db1, n, md, hid, h, w, co, s1,

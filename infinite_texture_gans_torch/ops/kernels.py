@@ -40,9 +40,9 @@ SSM) has a hand-written CUDA kernel in ``csrc/``:
   block's up2(shortcut) + residual (+ stats) (csrc/upsample2_chw.cu);
 - K13 ``conv4x4s2_stem_chw``: the discriminator's conv0, forward
   ``stem_fwd`` :2769 ``_stem_fwd_call``, ``stem_dw`` :2840 ``_stem_dw_call``,
-  ``stem_dx`` :2977 ``_stem_dx_call`` (csrc/stem4x4s2.cu, the forward in
-  csrc/stem_fwd_f32.cu; the forward in bf16: csrc/stem_fwd_tc.cu; the dW in
-  bf16: csrc/stem_dw_tc.cu; the dx in bf16: csrc/stem_dx_tc.cu).
+  ``stem_dx`` :2977 ``_stem_dx_call`` (in float32 csrc/stem_fwd_f32.cu,
+  csrc/stem_dw_f32.cu and csrc/stem_dx_f32.cu; in bf16 csrc/stem_fwd_tc.cu,
+  csrc/stem_dw_tc.cu and csrc/stem_dx_tc.cu).
 
 The SSM embed chain K15 (``pallas_ssm.py:343/:392``) lives in
 ``ops/ssm.py`` (csrc/ssm_embed_chw.cu); its launches count here too, under
@@ -97,7 +97,9 @@ their plain versions are ``upconv3x3_chw_dw_plain`` and ``stem_dw_plain``
 themselves; float32 ``itg_upconv3x3_chw_dw`` (K7's scheme with the 16 phase
 taps: persistent blocks on :func:`upconv_dw_f32_plan`'s grid, 2 x 4 channel
 tiles a phase row, fixed-order partials folded to 3 x 3 by the last launch)
-and ``itg_stem_dw``. K13 dx
+and ``itg_stem_dw`` (csrc/stem_dw_f32.cu: persistent blocks on
+:func:`stem_dw_f32_plan`'s grid, 8 output channels x 4 C taps a lane,
+fixed-order partials). K13 dx
 routes the same way: bfloat16 takes ``itg_stem_dx_tc`` (csrc/stem_dx_tc.cu:
 one mma.sync accumulator for the four sub-pixel phases of dx, each of the 9
 shifts of g a row address of one staged tile, the weights rounded to bf16 as
@@ -2218,8 +2220,9 @@ def upsample2_chw_add_plain(x, res, want_stats: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# K13: the discriminator stem, 4x4 / stride 2 / zero pad 1 (csrc/stem4x4s2.cu;
-# in bf16 the forward: csrc/stem_fwd_tc.cu, dW: csrc/stem_dw_tc.cu, dx:
+# K13: the discriminator stem, 4x4 / stride 2 / zero pad 1 (in float32 the
+# forward: csrc/stem_fwd_f32.cu, dW: csrc/stem_dw_f32.cu, dx:
+# csrc/stem_dx_f32.cu; in bf16 csrc/stem_fwd_tc.cu, csrc/stem_dw_tc.cu,
 # csrc/stem_dx_tc.cu)
 
 
@@ -2385,16 +2388,92 @@ def stem_dw_tc_plan(c: int, co: int) -> int:
     return -(-co // STEM_DW_TC_CO_BLOCK)
 
 
+# K13 dW's float32 route (csrc/stem_dw_f32.cu): persistent blocks, one an SM
+# for each chunk of STEM_DW_F32_CO output channels (the grid's second axis),
+# each walking a contiguous range of chunks (rows output rows x
+# STEM_DW_F32_COLS columns of one image) through a double buffer of
+# cp.async stages. A block's warps are its pixel slots, STEM_DW_F32_SLOTS
+# of them (8 at C = 4: 32 C + 8 sums a thread); a slot takes runs of
+# STEM_DW_F32_RUN pixels along a row. The chunk's rows are the one of
+# STEM_DW_F32_ROWS (whose two stages fit the shared memory, with a run for
+# every slot) with the least ceil(chunks / blocks) x (runs a slot a chunk x
+# STEM_DW_F32_RUN + STEM_DW_F32_CHUNK_COST): the busiest slot's pixels, each
+# chunk costing a fixed part (staging, two barriers, the window's first
+# columns) worth STEM_DW_F32_CHUNK_COST pixels, as f32_route_study.py's plan
+# table reads them on an H100 at the float32 training shapes. A block's
+# partial is one row of Co 16 C + Co floats (dW, then db).
+STEM_DW_F32_CO = 64
+STEM_DW_F32_COLS = 32
+STEM_DW_F32_RUN = 16
+STEM_DW_F32_SLOTS = 12
+STEM_DW_F32_ROWS = (2, 3, 4, 6, 8, 12)
+STEM_DW_F32_CHUNK_COST = 16
+STEM_DW_F32_XS = 68  # floats a staged x row
+
+
+class StemDwF32Plan(NamedTuple):
+    slots: int  # warps a block: its pixel slots
+    rows: int  # output rows a chunk
+    chunks: int  # N x ceil(H/2 / rows) x ceil(W/2 / 32)
+    channel_blocks: int  # ceil(Co / 64): the grid's second axis
+    blocks: int  # the grid's first axis: min(chunks, SMs / channel blocks), at least 1
+    part_entries: int  # Co 16 C + Co: a block's partial row
+
+
+def stem_dw_f32_plans(n: int, c: int, co: int, h: int, w: int, sms: int = 132) -> list:
+    """Every plan the float32 K13 dW planner chooses from for x (N, C, H, W)
+    and g (N, H/2, W/2, Co) on a card of ``sms`` SMs: one for each chunk
+    height of STEM_DW_F32_ROWS that gives every slot a run and whose two
+    stages fit the shared memory. Raises for C outside 1..4, an odd or empty
+    H or W, Co < 1, N < 1 or a plane of 2^31 pixels or more."""
+    if not 1 <= c <= 4 or h < 2 or w < 2 or h % 2 or w % 2 or co < 1 or n < 1 or h * w >= 2**31:
+        raise ValueError(f"the float32 stem dW takes 1 <= C <= 4, even H, W >= 2, H W < 2^31, "
+                         f"Co >= 1 and N >= 1, got N={n}, C={c}, Co={co}, H={h}, W={w}")
+    slots = 8 if c == 4 else STEM_DW_F32_SLOTS
+    runs = STEM_DW_F32_COLS // STEM_DW_F32_RUN
+    channel_blocks = -(-co // STEM_DW_F32_CO)
+    blocks_cap = max(1, sms // channel_blocks)
+    plans = []
+    for rows in STEM_DW_F32_ROWS:
+        stage = 4 * (c * (2 * rows + 2) * STEM_DW_F32_XS + rows * STEM_DW_F32_COLS * STEM_DW_F32_CO)
+        if slots > rows * runs or 2 * stage > CONV3X3_DW_F32_SMEM:
+            continue
+        chunks = n * -(-(h // 2) // rows) * -(-(w // 2) // STEM_DW_F32_COLS)
+        plans.append(StemDwF32Plan(slots, rows, chunks, channel_blocks, min(chunks, blocks_cap),
+                                   co * 16 * c + co))
+    return plans
+
+
+def stem_dw_f32_plan(n: int, c: int, co: int, h: int, w: int, sms: int = 132) -> StemDwF32Plan:
+    """The float32 K13 dW kernel's launch for x (N, C, H, W) and g (N, H/2,
+    W/2, Co) on a card of ``sms`` SMs: the block's slots, the chunk's rows,
+    the chunks and the grid (the least busy slot of :func:`stem_dw_f32_plans`;
+    the smaller chunk on a tie); the entry point launches this grid. Raises
+    as :func:`stem_dw_f32_plans`."""
+    runs = STEM_DW_F32_COLS // STEM_DW_F32_RUN
+
+    def cost(p):
+        per_slot = -(-p.rows * runs // p.slots) * STEM_DW_F32_RUN
+        return -(-p.chunks // p.blocks) * (per_slot + STEM_DW_F32_CHUNK_COST), p.rows
+
+    return min(stem_dw_f32_plans(n, c, co, h, w, sms), key=cost)
+
+
 def _stem_dw_cuda_cores(x, g):
     """K13 dW on the CUDA cores (``itg_stem_dw``): the float32 route (the C
-    function takes bf16 too)."""
+    function takes bf16 too): persistent blocks on
+    :func:`stem_dw_f32_plan`'s grid write float32 partials of dW and db, a
+    second launch sums them in one order."""
     n, c, h, wd = x.shape
     co = g.shape[-1]
-    dw = torch.zeros((co, c, 4, 4), dtype=torch.float32, device=x.device)
-    db = _zeros_f32(co, x)
+    plan = stem_dw_f32_plan(n, c, co, h, wd, _sm_count(x.device.index))
+    dw = torch.empty((co, c, 4, 4), dtype=torch.float32, device=x.device)
+    db = torch.empty(co, dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.blocks, plan.part_entries), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = _lib().itg_stem_dw(x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                                n, c, h, wd, co, _bf16(x), _stream(x))
+        rc = _lib().itg_stem_dw(x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                                db.data_ptr(), n, c, h, wd, co, _bf16(x), plan.blocks, plan.slots,
+                                plan.rows, _stream(x))
     _raise_on(rc, "itg_stem_dw")
     ROUTE_LAUNCHES["itg_stem_dw"] += 1
     return dw, db

@@ -26,7 +26,9 @@ The route on the card depends on the maps' dtype alone, with no fallback:
   roundings.
 - **float32** takes the CUDA-core kernels of ``csrc/ssm_embed_chw.cu``
   (``itg_ssm_embed_fwd``, ``itg_ssm_embed_bwd``), which round nothing but the
-  output: the exactness route of step parity and the f32 raster.
+  output: the exactness route of step parity and the f32 raster. The
+  backward runs on :func:`bwd_f32_plan`'s launches and sums its partials in
+  a fixed order too, so two calls give the same bits.
 - CPU tensors take the plain versions.
 
 ``ROUTE_LAUNCHES`` counts the launches of each C entry point. The maps are
@@ -41,17 +43,21 @@ launches count in ``kernels.LAUNCHES`` under ``ssm_embed`` and
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from infinite_texture_gans_torch.ops import kernels
 from infinite_texture_gans_torch.ops.kernels import (
+    CONV3X3_DW_F32_SMEM,
     _check_act,
     _check_param,
     _f32,
     _lib,
     _on_cuda,
     _raise_on,
+    _sm_count,
     _stream,
 )
 
@@ -118,6 +124,94 @@ def tc_shares(n: int, h: int, w: int, hid: int, co: int) -> tuple[int, int]:
     s1 = min(tiles1, max(1, TC_BLOCKS // _cdiv(hid, TC_HB)))
     s2 = min(tiles2, max(1, TC_BLOCKS // (_cdiv(hid, TC_WC) * oblocks)))
     return s1, s2
+
+
+# The float32 route's backward (csrc/ssm_embed_chw.cu), three launches. (1)
+# d_act, d_pre and the dW1 / db1 partials: a block per (16 x 32 tile of the
+# (H+2) x (W+2) hidden grid, F32_HB hidden channels, image), a partial row
+# per tile. (2) dW2 and db2: persistent blocks, F32_BLOCK2 (4 output x 8
+# hidden channels) register tiles at each row tap, up to F32_MAX_TILES2 of
+# them in a block (52 output x 32 hidden channels; more split over the
+# grid's second axis) in each of its pixel slots, a power of two of them, as
+# many as F32_THREADS2 threads hold and the chunk has runs of 8 pixels for;
+# s2 blocks for each channel block, one an SM, each walking a contiguous
+# range of chunks (rows2 output rows x 32 columns). The chunk's rows2 is the
+# one of F32_ROWS2 (whose two stages fit the shared memory) with the least
+# ceil(chunks / s2) x (rows2 + F32_CHUNK_COST2): the busiest block's
+# chunks, each costing its rows and a fixed part (its hidden activation's
+# two halo rows, staging, three barriers) worth about F32_CHUNK_COST2 rows.
+# (3) The partials summed in one fixed order.
+F32_HB = 32
+F32_TILE1 = (16, 32)
+F32_BLOCK2 = (4, 8)
+F32_MAX_TILES2 = (13, 4)
+F32_THREADS2 = 384
+F32_COLS2 = 32
+F32_RUN2 = 8
+F32_ROWS2 = (2, 4, 6, 8)
+F32_CHUNK_COST2 = 2
+
+
+class SsmBwdF32Plan(NamedTuple):
+    s1: int  # part1 rows: N x the hidden grid's tiles
+    slots2: int  # dW2's pixel slots a block
+    rows2: int  # output rows a dW2 chunk
+    chunks2: int  # N x ceil(H / rows2) x ceil(W / 32)
+    channel_blocks2: int  # dW2's grid second axis: hidden x output channel blocks
+    s2: int  # part2 rows: dW2's blocks for each channel block
+
+
+def _bwd1_smem(md: int) -> int:
+    """Bytes of shared memory of the backward's first launch: two stages of
+    4 output channels' g tiles (18 x 36 floats) and flipped w2 (9 x 32),
+    the maps tile (18 x 36 a map channel), w1 and b1."""
+    return 4 * (2 * (4 * 18 * 36 + 4 * 9 * F32_HB) + md * 18 * 36 + F32_HB * (9 * md + 1))
+
+
+def bwd_f32_plans(n: int, md: int, hid: int, h: int, w: int, co: int, sms: int = 132) -> list:
+    """Every plan the float32 K15 backward's planner chooses from for maps
+    (N, md, H+4, W+4), hid hidden and Co output channels on a card of
+    ``sms`` SMs: one for each dW2 chunk height of F32_ROWS2 whose two stages
+    fit the shared memory. Raises for an empty shape, N > 65535 or a map_dim
+    whose first launch's shared memory exceeds the card's."""
+    if min(n, md, hid, h, w, co) < 1 or n > 65535:
+        raise ValueError(f"ssm_embed_bwd (float32) takes 1 <= N <= 65535 and md, hid, H, W, Co "
+                         f">= 1, got N={n}, md={md}, hid={hid}, H={h}, W={w}, Co={co}")
+    if _bwd1_smem(md) > CONV3X3_DW_F32_SMEM:
+        raise ValueError(f"ssm_embed_bwd (float32): map_dim {md} exceeds the shared memory of "
+                         f"its first launch ({_bwd1_smem(md)} bytes)")
+    th, tw = F32_TILE1
+    s1 = n * _cdiv(h + 2, th) * _cdiv(w + 2, tw)
+    (to, tc), (mo, mc) = F32_BLOCK2, F32_MAX_TILES2
+    tiles_o, tiles_c = min(_cdiv(co, to), mo), min(_cdiv(hid, tc), mc)
+    channel_blocks = _cdiv(_cdiv(co, to), mo) * _cdiv(_cdiv(hid, tc), mc)
+    per_slot = tiles_o * tiles_c * 3
+    plans = []
+    for rows in F32_ROWS2:
+        slots = 1
+        while 2 * slots * per_slot <= F32_THREADS2 and 2 * slots <= rows * F32_COLS2 // F32_RUN2:
+            slots *= 2
+        ars, grs = tc * tiles_c * (F32_COLS2 + 3), to * tiles_o * (F32_COLS2 + 1)
+        stage = 4 * ((rows + 2) * ars + rows * grs + md * (rows + 4) * (F32_COLS2 + 4))
+        if 2 * stage > CONV3X3_DW_F32_SMEM:
+            continue
+        chunks = n * _cdiv(h, rows) * _cdiv(w, F32_COLS2)
+        plans.append(SsmBwdF32Plan(s1, slots, rows, chunks, channel_blocks,
+                                   max(1, min(chunks, sms // channel_blocks))))
+    if not plans:
+        raise ValueError(f"ssm_embed_bwd (float32): map_dim {md} leaves no dW2 chunk that fits "
+                         "the shared memory")
+    return plans
+
+
+def bwd_f32_plan(n: int, md: int, hid: int, h: int, w: int, co: int, sms: int = 132) -> SsmBwdF32Plan:
+    """The float32 K15 backward's launches for maps (N, md, H+4, W+4), hid
+    hidden and Co output channels on a card of ``sms`` SMs (the least
+    ceil(chunks / s2) x (rows2 + F32_CHUNK_COST2) of :func:`bwd_f32_plans`,
+    the smaller chunk on a tie): part1's and part2's rows and dW2's chunks
+    and grid. Raises as :func:`bwd_f32_plans`."""
+    return min(bwd_f32_plans(n, md, hid, h, w, co, sms),
+               key=lambda p: (_cdiv(p.chunks2, p.s2) * (p.rows2 + F32_CHUNK_COST2), p.rows2))
 
 
 def pack_w2_fwd(w2: torch.Tensor) -> torch.Tensor:
@@ -192,28 +286,34 @@ def ssm_embed_bwd(maps, w1, b1, w2, g):
     if not _on_cuda(maps, w1, b1, w2, g):
         return ssm_embed_bwd_plain(maps, w1, b1, w2, g)
     dev = maps.device
-    dw2 = torch.zeros((co, hid, 3, 3), dtype=torch.float32, device=dev)
-    db2 = torch.zeros(co, dtype=torch.float32, device=dev)
-    dw1 = torch.zeros((hid, md, 3, 3), dtype=torch.float32, device=dev)
-    db1 = torch.zeros(hid, dtype=torch.float32, device=dev)
+    dw2 = torch.empty((co, hid, 3, 3), dtype=torch.float32, device=dev)
+    db2 = torch.empty(co, dtype=torch.float32, device=dev)
+    dw1 = torch.empty((hid, md, 3, 3), dtype=torch.float32, device=dev)
+    db1 = torch.empty(hid, dtype=torch.float32, device=dev)
+    tc = maps.dtype == torch.bfloat16
+    if tc:
+        s1, s2 = tc_shares(n, h, w, hid, co)
+    else:
+        plan = bwd_f32_plan(n, md, hid, h, w, co, _sm_count(dev.index))
+        s1, s2 = plan.s1, plan.s2
+    # the launches' partial sums, added in a fixed order by their last launch
+    part1 = torch.empty((s1, hid, 9 * md + 1), dtype=torch.float32, device=dev)
+    part2 = torch.empty((s2, co, hid, 9), dtype=torch.float32, device=dev)
+    partb2 = torch.empty((s2, co), dtype=torch.float32, device=dev)
+    outs = (part1.data_ptr(), part2.data_ptr(), partb2.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
+            dw1.data_ptr(), db1.data_ptr())
     with torch.cuda.device(dev):
-        if maps.dtype == torch.bfloat16:
-            s1, s2 = tc_shares(n, h, w, hid, co)
-            part1 = torch.empty((s1, hid, 9 * md + 1), dtype=torch.float32, device=dev)
-            part2 = torch.empty((s2, co, hid, 9), dtype=torch.float32, device=dev)
-            partb2 = torch.empty((s2, co), dtype=torch.float32, device=dev)
+        if tc:
             rc = _launch(
                 "itg_ssm_embed_tc_bwd", maps.data_ptr(), _f32(w1).data_ptr(), _f32(b1).data_ptr(),
-                pack_w2_dact(w2).data_ptr(), g.data_ptr(), part1.data_ptr(), part2.data_ptr(),
-                partb2.data_ptr(), dw2.data_ptr(), db2.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-                n, md, hid, h, w, co, s1, s2, _stream(maps),
+                pack_w2_dact(w2).data_ptr(), g.data_ptr(), *outs, n, md, hid, h, w, co, s1, s2,
+                _stream(maps),
             )
         else:
-            w2o = w2.detach().float().permute(0, 2, 3, 1).contiguous()  # (Co, 3, 3, hid)
             rc = _launch(
                 "itg_ssm_embed_bwd", maps.data_ptr(), _f32(w1).data_ptr(), _f32(b1).data_ptr(),
-                w2o.data_ptr(), g.data_ptr(), dw2.data_ptr(), db2.data_ptr(), dw1.data_ptr(),
-                db1.data_ptr(), n, md, hid, h, w, co, _stream(maps),
+                _f32(w2).data_ptr(), g.data_ptr(), *outs, n, md, hid, h, w, co, s2, plan.rows2,
+                _stream(maps),
             )
     _raise_on(rc, "ssm_embed_bwd")
     kernels.LAUNCHES["ssm_embed_bwd"] += 1

@@ -1,8 +1,9 @@
 """The host planners of the float32 routes of K9 dx, K13's forward, K3-dW,
-K1/K2, K6, K7, K9's forward (with K14) and K9 dW (ops/kernels.py:
+K1/K2, K6, K7, K9's forward (with K14), K9 dW and K13 dW (ops/kernels.py:
 upconv_dx_f32_plan, stem_f32_plan, conv1x1_dw_f32_plan, conv3x3_f32_plan,
 conv3x3_dx_f32_plan, conv3x3_dw_f32_plan, upconv_f32_plan,
-upconv_dw_f32_plan): the tiles and splits they choose at the Experiment-1,
+upconv_dw_f32_plan, stem_dw_f32_plan) and of K15's backward (ops/ssm.py:
+bwd_f32_plan): the tiles and splits they choose at the Experiment-1,
 SSM, eval and ``--D_ch 640`` shapes, and the shapes they refuse. The kernels
 themselves run only on the card (chip_smoke.py, tests/test_torch_gpu.py); on
 the CPU the wrappers take the plain versions, which
@@ -15,6 +16,7 @@ import torch
 from _torch_threads import _few_torch_threads  # noqa: F401  (autouse)
 
 from infinite_texture_gans_torch.ops import kernels as tk
+from infinite_texture_gans_torch.ops import ssm
 
 # (N, C, Co, H, W) of x at half resolution: the Experiment-1 step's two fused
 # up-convs (tail blocks 5 and 6, --fuse_up auto)
@@ -84,6 +86,104 @@ def test_stem_f32_plan(shape, tiles, chunks, blocks):
 def test_stem_f32_plan_refuses(shape):
     with pytest.raises(ValueError, match="float32 stem forward"):
         tk.stem_f32_plan(*shape)
+
+
+# K13 dW's float32 route: (N, C, Co, H, W) and its plan (slots, rows,
+# chunks, channel blocks, blocks)
+STEM_DW_PLANS = [
+    ((8, 3, 64, 384, 384), (12, 6, 8 * 32 * 6, 1, 132)),  # Experiment-1: 8 fake 384^2 grids
+    ((8, 3, 64, 192, 192), (12, 6, 8 * 16 * 3, 1, 132)),  # the SSM recipe's 192^2 fakes
+    ((8, 3, 512, 384, 384), (12, 6, 8 * 32 * 6, 8, 16)),  # --D_ch 512: 8 channel blocks
+    ((2, 4, 5, 22, 70), (8, 4, 2 * 3 * 2, 1, 12)),  # C = 4: 8 warps; fewer chunks than SMs
+]
+
+
+@pytest.mark.parametrize("shape, plan", STEM_DW_PLANS, ids=lambda v: str(v))
+def test_stem_dw_f32_plan(shape, plan):
+    """12 warps a block (8 at C = 4), a run of 16 pixels for each in a chunk
+    of rows x 32 output pixels; one block an SM of 132 for each 64-channel
+    block, no more blocks than chunks; a partial row of Co 16 C + Co."""
+    n, c, co, h, w = shape
+    got = tk.stem_dw_f32_plan(n, c, co, h, w)
+    assert (got.slots, got.rows, got.chunks, got.channel_blocks, got.blocks) == plan
+    assert got.part_entries == co * 16 * c + co
+
+
+@pytest.mark.parametrize("shape", [(8, 3, 64, 384, 384), (8, 3, 64, 192, 192), (1, 1, 1, 2, 2),
+                                   (3, 4, 24, 10, 34), (2, 2, 130, 26, 66)])
+def test_stem_dw_f32_plans_cover_the_image(shape):
+    """Every plan the planner chooses from gives each slot a run and fits two
+    stages in the H100's shared memory; its chunks of rows x 32 output pixels
+    cover the H/2 x W/2 output of every image, and the chosen plan is one of
+    them."""
+    n, c, co, h, w = shape
+    plans = tk.stem_dw_f32_plans(n, c, co, h, w)
+    assert tk.stem_dw_f32_plan(n, c, co, h, w) in plans
+    for plan in plans:
+        assert plan.slots <= 2 * plan.rows
+        stage = 4 * (c * (2 * plan.rows + 2) * tk.STEM_DW_F32_XS + plan.rows * 32 * 64)
+        assert 2 * stage <= tk.CONV3X3_DW_F32_SMEM
+        assert plan.chunks == n * -(-(h // 2) // plan.rows) * -(-(w // 2) // 32)
+        assert plan.rows * -(-(h // 2) // plan.rows) >= h // 2
+        assert 1 <= plan.blocks <= plan.chunks
+
+
+@pytest.mark.parametrize("shape", [(8, 5, 64, 32, 32), (8, 0, 64, 32, 32), (8, 3, 64, 33, 32),
+                                   (8, 3, 64, 32, 31), (8, 3, 0, 32, 32), (0, 3, 64, 32, 32),
+                                   (8, 3, 64, 0, 32), (1, 3, 8, 65536, 32768)])
+def test_stem_dw_f32_plan_refuses(shape):
+    with pytest.raises(ValueError, match="float32 stem dW"):
+        tk.stem_dw_f32_plan(*shape)
+
+
+# K15's float32 backward: (N, md, hid, H, W, Co) and its plan (s1, slots2,
+# rows2, chunks2, channel blocks, s2)
+SSM_BWD_PLANS = [
+    # the SSM step's bn1 and shortcut bn3 (Co 104) and bn2 (Co 52) sites
+    ((8, 1, 128, 192, 192, 104), (8 * 13 * 7, 2, 8, 8 * 24 * 6, 8, 16)),
+    ((8, 1, 128, 192, 192, 52), (8 * 13 * 7, 2, 8, 8 * 24 * 6, 4, 33)),
+    # map_dim 3, hid and Co no multiple of the tiles, a plane of one tile
+    ((1, 3, 100, 20, 37, 57), (1 * 2 * 2, 2, 4, 5 * 2, 8, 10)),
+]
+
+
+@pytest.mark.parametrize("shape, plan", SSM_BWD_PLANS, ids=lambda v: str(v))
+def test_ssm_bwd_f32_plan(shape, plan):
+    """part1 has a row per 16 x 32 tile of each image's (H+2) x (W+2) hidden
+    grid; dW2's blocks hold up to 52 output x 32 hidden channels (more split
+    over the grid's second axis), two pixel slots of 156 threads at 52 x 32,
+    one block an SM of 132 for each channel block, chunks of rows2 x 32
+    output pixels."""
+    got = ssm.bwd_f32_plan(*shape)
+    assert (got.s1, got.slots2, got.rows2, got.chunks2, got.channel_blocks2, got.s2) == plan
+
+
+@pytest.mark.parametrize("shape", [(8, 1, 128, 192, 192, 104), (2, 2, 40, 17, 23, 19),
+                                   (1, 1, 16, 1, 3, 3), (4, 3, 128, 64, 80, 52)])
+def test_ssm_bwd_f32_plans_cover_the_grids(shape):
+    """Every plan: the hidden tiles cover each image's hidden grid, the dW2
+    chunks its output grid, each pixel slot has a run of 8 pixels, two
+    stages fit the H100's shared memory; the chosen plan is one of them."""
+    n, md, hid, h, w, co = shape
+    plans = ssm.bwd_f32_plans(*shape)
+    assert ssm.bwd_f32_plan(*shape) in plans
+    for plan in plans:
+        assert plan.s1 == n * -(-(h + 2) // 16) * -(-(w + 2) // 32)
+        assert plan.chunks2 == n * -(-h // plan.rows2) * -(-w // 32)
+        assert plan.slots2 <= 4 * plan.rows2 and plan.slots2 & (plan.slots2 - 1) == 0
+        assert 1 <= plan.s2 <= plan.chunks2
+
+
+@pytest.mark.parametrize("shape, match", [((0, 1, 128, 8, 8, 4), "float32"),
+                                          ((1, 0, 128, 8, 8, 4), "float32"),
+                                          ((1, 1, 128, 8, 8, 0), "float32"),
+                                          ((65536, 1, 8, 8, 8, 4), "float32"),
+                                          ((1, 64, 128, 8, 8, 4), "map_dim 64")])
+def test_ssm_bwd_f32_plan_refuses(shape, match):
+    """Empty shapes, N past 65535 and a map_dim whose first launch's shared
+    memory exceeds the card's raise, naming the kernel."""
+    with pytest.raises(ValueError, match=match):
+        ssm.bwd_f32_plan(*shape)
 
 
 # (N, C, Co, H, W) of K1's float32 route, and the plan (TO, groups a block,
@@ -364,6 +464,8 @@ def test_upconv_f32_plans_refuse(plan, name, shape):
                                   torch.zeros(2, 3, 3, 3), torch.ones(3), torch.zeros(3), True,
                                   "replicate")),
     ("stem_fwd", lambda: (torch.zeros(1, 3, 8, 8), torch.zeros(4, 3, 4, 4), torch.zeros(4))),
+    ("stem_dw", lambda: (torch.randn(2, 3, 6, 10, generator=torch.Generator().manual_seed(18)),
+                         torch.randn(2, 3, 5, 7, generator=torch.Generator().manual_seed(19)))),
     ("conv1x1_chw_dw", lambda: (torch.randn(2, 5, 3, 4, generator=torch.Generator().manual_seed(1)),
                                 torch.randn(2, 3, 3, 4, generator=torch.Generator().manual_seed(2)))),
     ("conv3x3_chw", lambda: (torch.randn(2, 4, 5, 6, generator=torch.Generator().manual_seed(3)),

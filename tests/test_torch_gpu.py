@@ -905,6 +905,62 @@ def test_stem_dw_tc_refuses_wider(cuda):
     assert tk.ROUTE_LAUNCHES["itg_stem_dw"] == 0
 
 
+# --- K13 dW on the CUDA cores, float32 (csrc/stem_dw_f32.cu) ---------------
+# STEMDW_SHAPES, then Co 1 and 5 (g copied element by element), H/2 and W/2
+# odd, C 1 and 4 with Co past one 64-channel block
+STEMDW_F32_SHAPES = STEMDW_SHAPES + [(2, 3, 14, 18, 1), (1, 2, 26, 42, 5), (2, 1, 10, 66, 70),
+                                     (1, 4, 18, 22, 130)]
+
+
+def _stemdw_f32_case(cuda, shape, dtype=torch.float32, seed=53):
+    n, c, h, w, co = shape
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, c, h, w, generator=gen).to(cuda, dtype)
+    g = torch.randn(n, h // 2, w // 2, co, generator=gen).to(cuda, dtype)
+    return x, g
+
+
+@pytest.mark.parametrize("shape", STEMDW_F32_SHAPES)
+def test_stem_dw_f32_matches_plain(cuda, shape):
+    """f32 K13 dW launches the CUDA-core entry point once a call, within
+    SUM_TOL of the plain version; fixed-order partial sums and no atomics:
+    two calls give the same bits (dW, db)."""
+    x, g = _stemdw_f32_case(cuda, shape)
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    got = tk.stem_dw(x, g)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_stem_dw_tc"], tk.ROUTE_LAUNCHES["itg_stem_dw"]) == (0, 1)
+    _assert_dw_close(got, tk.stem_dw_plain(x, g))
+    assert all(torch.equal(a, b) for a, b in zip(got, tk.stem_dw(x, g)))
+
+
+@pytest.mark.parametrize("case", [3, 9])
+def test_stem_dw_f32_entry_takes_bf16(cuda, case):
+    """The CUDA-core entry point takes bf16 too (the bf16 rows of
+    chip_smoke.py time it beside the tensor-core kernel): held to the plain
+    version within SUM_TOL."""
+    x, g = _stemdw_f32_case(cuda, STEMDW_F32_SHAPES[case], torch.bfloat16)
+    _assert_dw_close(tk._stem_dw_cuda_cores(x, g), tk.stem_dw_plain(x, g))
+
+
+@pytest.mark.parametrize("case", [1, 4])
+def test_stem_dw_f32_check_catches_planted_faults(cuda, case):
+    """The check fails on an f32 K13 dW that drops one chunk's partial (g
+    zeroed over the plan's rows x 32 output pixels of the last image, as a
+    block skipping that chunk would), or swaps ky and kx."""
+    x, g = _stemdw_f32_case(cuda, STEMDW_F32_SHAPES[case])
+    n, c, h, w = x.shape
+    ref = tk.stem_dw_plain(x, g)
+    dw, db = tk.stem_dw(x, g)
+    _assert_dw_close((dw, db), ref)
+    rows = tk.stem_dw_f32_plan(n, c, g.shape[-1], h, w).rows
+    g_bad = g.clone()
+    g_bad[-1, :rows, : tk.STEM_DW_F32_COLS] = 0.0
+    for bad in (tk.stem_dw(x, g_bad), (dw.transpose(2, 3), db)):
+        with pytest.raises(AssertionError):
+            _assert_dw_close(bad, ref)
+
+
 # K13 dx, n, c, h2, w2, co (g's NHWC shape; dx is (n, c, 2 h2, 2 w2)): the
 # Experiment-1 and SSM steps' stems (N = 8, 192^2 and 96^2 x 64), then
 # --D_ch 8, 128, 100 and 12 (no multiple of 8: g staged element by element),
@@ -1915,6 +1971,55 @@ def test_ssm_embed_bwd_bf16_bits_repeat(cuda, shape):
     second = ssm.ssm_embed_bwd(maps, w1, b1, w2, g)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# K15's f32 backward (three launches, fixed-order partials): SSM_SHAPES, then
+# map_dim 2 with hid and Co no multiple of 32 (or of the dW2 tiles), an odd
+# plane, and the SSM step's bn2 site
+SSM_F32_BWD_SHAPES = SSM_SHAPES + [(2, 2, 17, 23, 40, 19), (1, 2, 9, 70, 100, 57),
+                                   (8, 1, 192, 192, 128, 52)]
+
+
+@pytest.mark.parametrize("shape", SSM_F32_BWD_SHAPES)
+def test_ssm_embed_bwd_f32_matches_plain_and_repeats(cuda, shape):
+    """The float32 backward launches its CUDA-core entry point once a call,
+    its sums within SUM_TOL of the plain version; no atomics: two calls give
+    the same bits (dW2, db2, dW1, db1)."""
+    from infinite_texture_gans_torch.ops import ssm
+
+    maps, w1, b1, w2, _, g = _ssm_inputs(cuda, torch.float32, shape)
+    ssm.ROUTE_LAUNCHES.update(dict.fromkeys(ssm.ROUTE_LAUNCHES, 0))
+    got = ssm.ssm_embed_bwd(maps, w1, b1, w2, g)
+    torch.cuda.synchronize()
+    assert ssm.ROUTE_LAUNCHES["itg_ssm_embed_bwd"] == 1
+    for a, r in zip(got, ssm.ssm_embed_bwd_plain(maps, w1, b1, w2, g)):
+        _assert_sum_close(a, r)
+    for a, b in zip(got, ssm.ssm_embed_bwd(maps, w1, b1, w2, g)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [SSM_SHAPES[1], (4, 1, 64, 80, 128, 52)])
+def test_ssm_embed_bwd_f32_check_catches_planted_faults(cuda, shape):
+    """The check fails on a float32 backward that drops one block's
+    partials: g zeroed over one dW2 chunk (the plan's rows x 32 output
+    pixels of the last image), whose 16 x 32 hidden tile's dW1 partial goes
+    too; or dW1 x 1.01, or dW2 with dy and dx swapped."""
+    from infinite_texture_gans_torch.ops import ssm
+
+    maps, w1, b1, w2, _, g = _ssm_inputs(cuda, torch.float32, shape)
+    n, co, h, w = g.shape
+    ref = ssm.ssm_embed_bwd_plain(maps, w1, b1, w2, g)
+    got = ssm.ssm_embed_bwd(maps, w1, b1, w2, g)
+    for a, r in zip(got, ref):
+        _assert_sum_close(a, r)
+    rows = ssm.bwd_f32_plan(n, maps.shape[1], w1.shape[0], h, w, co).rows2
+    g_bad = g.clone()
+    g_bad[-1, :, :rows, : ssm.F32_COLS2] = 0.0
+    dropped = ssm.ssm_embed_bwd(maps, w1, b1, w2, g_bad)
+    for bad, r in ((dropped[0], ref[0]), (dropped[2], ref[2]), (got[2] * 1.01, ref[2]),
+                   (got[0].transpose(2, 3), ref[0])):
+        with pytest.raises(AssertionError):
+            _assert_sum_close(bad, r)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

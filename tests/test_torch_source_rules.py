@@ -69,11 +69,11 @@ def test_cuda_sources_target_sm90a():
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.FLAGS
     names = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert names == {"conv3x3_fwd_f32", "conv3x3_chw_bwd", "conv1x1_chw", "conv1x1_dw_f32",
-                     "upsample2_chw", "stem4x4s2", "ssm_embed_chw", "ssm_embed_tc",
+                     "upsample2_chw", "stem_dx_f32", "ssm_embed_chw", "ssm_embed_tc",
                      "chw_dx_tc", "chw_dw_tc", "chw_fwd_tc", "stem_fwd_tc", "upconv_fwd_tc",
                      "conv1x1_tc", "upconv_dw_tc", "stem_dw_tc", "stem_dx_tc", "upconv_dx_f32",
                      "stem_fwd_f32", "conv3x3_dx_f32", "conv3x3_dw_f32", "upconv_fwd_f32",
-                     "upconv_dw_f32"}
+                     "upconv_dw_f32", "stem_dw_f32"}
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
         site = "pallas_ssm.py" if src.stem.startswith("ssm_embed") else "pallas_conv.py"
@@ -89,29 +89,36 @@ def test_upsample2_source_has_no_atomics():
 
 # The float32 routes redesigned for the H100: K9 dx and K13's forward, K3-dW
 # and K1/K2 (with K5's sums), K6 and K7, K9's forward (with K14) and K9 dW,
-# each in a source of its own;
+# K13 dW, each in a source of its own (K15's backward stays in
+# ssm_embed_chw.cu beside its forward);
 # (source, C entry point, the source that held the old body, pallas_call site)
 F32_REDESIGNED = [
     ("upconv_dx_f32", "itg_upconv3x3_chw_dx", "upconv3x3_chw", "pallas_conv.py:1642"),
-    ("stem_fwd_f32", "itg_stem_fwd", "stem4x4s2", "pallas_conv.py:2769"),
+    ("stem_fwd_f32", "itg_stem_fwd", "stem_dx_f32", "pallas_conv.py:2769"),
     ("conv1x1_dw_f32", "itg_conv1x1_chw_dw", "conv1x1_chw", "pallas_conv.py:2361"),
     ("conv3x3_fwd_f32", "itg_conv3x3_chw", "conv3x3_chw", "pallas_conv.py:395"),
     ("conv3x3_dx_f32", "itg_conv3x3_chw_dx", "conv3x3_chw_bwd", "pallas_conv.py:775"),
     ("conv3x3_dw_f32", "itg_conv3x3_chw_dw", "conv3x3_chw_bwd", "pallas_conv.py:888"),
     ("upconv_fwd_f32", "itg_upconv3x3_chw", "upconv3x3_chw", "pallas_conv.py:1457"),
     ("upconv_dw_f32", "itg_upconv3x3_chw_dw", "upconv3x3_chw", "pallas_conv.py:1777"),
+    ("stem_dw_f32", "itg_stem_dw", "stem_dx_f32", "pallas_conv.py:2840"),
 ]
 # old sources that held nothing but the replaced bodies, deleted with them
 F32_OLD_DELETED = {"conv3x3_chw", "upconv3x3_chw"}
 
 
-@pytest.mark.parametrize("src, entry, old, site", F32_REDESIGNED,
-                         ids=[r[0] for r in F32_REDESIGNED])
+# K15's float32 backward, redesigned in place beside its forward
+K15_BWD = ("ssm_embed_chw", "itg_ssm_embed_bwd", None, "pallas_ssm.py:392")
+
+
+@pytest.mark.parametrize("src, entry, old, site", F32_REDESIGNED + [K15_BWD],
+                         ids=[r[0] for r in F32_REDESIGNED + [K15_BWD]])
 def test_f32_redesigned_sources_target_sm90a(src, entry, old, site):
-    """Each redesigned float32 kernel is its own source, built with the rest
-    for sm_90a, names the TPU kernel it replaces and its bound on the H100,
-    and defines its C entry point; the old body's source no longer does, or
-    is gone where it held nothing else."""
+    """Each redesigned float32 kernel is its own source (K15's backward
+    shares its forward's), built with the rest for sm_90a, names the TPU
+    kernel it replaces and its bound on the H100, and defines its C entry
+    point; the old body's source no longer does, or is gone where it held
+    nothing else."""
     from infinite_texture_gans_torch.ops import _build
 
     path = _build.CSRC / f"{src}.cu"
@@ -120,6 +127,8 @@ def test_f32_redesigned_sources_target_sm90a(src, entry, old, site):
     text = path.read_text()
     assert site in text and "What bounds it on the H100" in text
     assert f'extern "C" int {entry}(' in text
+    if old is None:
+        return
     old_path = _build.CSRC / f"{old}.cu"
     if old in F32_OLD_DELETED:
         assert not old_path.exists()
@@ -127,12 +136,13 @@ def test_f32_redesigned_sources_target_sm90a(src, entry, old, site):
         assert f'extern "C" int {entry}(' not in old_path.read_text()
 
 
-@pytest.mark.parametrize("src", [r[0] for r in F32_REDESIGNED])
+@pytest.mark.parametrize("src", [r[0] for r in F32_REDESIGNED] + ["ssm_embed_chw"])
 def test_f32_redesigned_sources_have_no_atomics(src):
-    """K9 dx's and K6's float32 sums (d(scale), d(shift)), K3-dW's, K7's and
-    K9's dW and db and K5's and K9's Σy and Σy² are per-block partials added
-    in a fixed order, and K13's, K1's and K9's forwards sum each output in
-    one order: two calls give the same bits."""
+    """K9 dx's and K6's float32 sums (d(scale), d(shift)), K3-dW's, K7's,
+    K9's and K13's dW and db, K15's dW2, db2, dW1 and db1 and K5's and K9's
+    Σy and Σy² are per-block partials added in a fixed order, and K13's,
+    K1's, K9's and K15's forwards sum each output in one order: two calls
+    give the same bits."""
     text = (PACKAGE / "csrc" / f"{src}.cu").read_text()
     assert "atomicAdd" not in text and "block_sum2_atomic" not in text
 
@@ -145,6 +155,17 @@ def test_bwd_source_keeps_only_bn_corr():
     assert "conv3x3_dx_kernel" not in text and "conv3x3_dw_kernel" not in text
     assert "atomicAdd" not in text and "block_sum2_atomic" not in text
     assert "pallas_conv.py:1061" in text and "pallas_conv.py:775" not in text
+
+
+def test_stem_dx_source_keeps_only_dx():
+    """K13 dW's float32 body left the stem's old source with its redesign,
+    which was renamed for what stays: csrc/stem_dx_f32.cu holds K13 dx alone,
+    its header speaks of dx's TPU kernel, and the old name is gone."""
+    text = (PACKAGE / "csrc" / "stem_dx_f32.cu").read_text()
+    assert 'extern "C" int itg_stem_dx(' in text and "itg_stem_dw" not in text
+    assert "stem_dw_kernel" not in text and "atomicAdd" not in text
+    assert "pallas_conv.py:2977" in text and "pallas_conv.py:2840" not in text
+    assert not (PACKAGE / "csrc" / "stem4x4s2.cu").exists()
 
 
 def test_upconv_fwd_f32_source_serves_k14():
