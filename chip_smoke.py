@@ -87,7 +87,12 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    SSM shapes and the STEM_ANY_CO widths, two calls bit-equal, and three
    planted faults (ky and kx swapped, one k16 step skipped, g's zero border
    read as the edge pixel) must read at least STEM_PLANT times that check's
-   limit (``check_stem_dx``). K8 (16-byte vectors) is held bit-equal to its
+   limit (``check_stem_dx``); its f32 route (``csrc/stem_dx_f32.cu``) is held
+   to ``stem_dx_plain`` at the same shapes and ``--D_ch`` WIDE_D_CH, two
+   calls bit-equal, and three planted faults (ky and kx swapped, output
+   channels 0-3 skipped, g's zero border read as the edge
+   pixel) must read at least F32_PLANT times the f32 limit. K8 (16-byte
+   vectors) is held bit-equal to its
    plain version at every path's shapes, at an odd HW and on a g one element
    into its storage, and a planted fault must break the equality
    (``check_bn_corr_edges``). K4 (one 16-byte vector body for both dtypes) is
@@ -158,15 +163,19 @@ the PyTorch package (``infinite_texture_gans_torch``), never JAX.
    bf16 on the tensor-core kernels (the forward within the bf16 limit, the
    backward's sums within the sums' limit of the plain version that applies
    the route's roundings, which planted faults must fail, two backward
-   calls bit-equal) and f32 on the CUDA-core kernels (the f32 limits; the
-   backward's two calls bit-equal and a dropped chunk's partials at least
-   F32_PLANT times the dW2 and dW1 limits), the window
-   compare bit-equal on both; timed beside its bound (operations: it is the
+   calls bit-equal) and f32 on the CUDA-core kernels (the f32 limits; two
+   forward calls bit-equal at every shape, w2's dy and dx swapped and one
+   hidden chunk skipped (its 8 channels' w2 zeroed) at least F32_PLANT times
+   the forward's limit; the backward's two calls bit-equal and a dropped
+   chunk's partials at least F32_PLANT times the dW2 and dW1 limits), the
+   window compare bit-equal on both; timed beside its bound (operations: it is the
    compute-bound kernel), its plain version and the cuDNN calls for the
    same chain, each of the backward's launches also on its own
    (``[launch]``, torch.profiler), the f32 route at the training shapes into rows of its own
    (``:f32_parity``, launches from the f32 SSM step parity; the backward's
-   ``:f32_ssm``, launches from the graphed f32 SSM training run); and K1/K5, K6, K7 (the
+   ``:f32_ssm``, launches from the graphed f32 SSM training run), the f32
+   forward at the eval shapes too (``:f32_gen_ssm``, per 192^2 sub-image,
+   launches from phase 7's f32 768^2 canvases); and K1/K5, K6, K7 (the
    identity fold), K8, K3 (+ its dx form), K3-dW, K4, K4-bwd and the stem
    at the SSM step's own shapes, summed per SSM step (K1, K6 and K7 on both
    routes, as in phase 3; K3 and K3-dW checked with planted faults as there).
@@ -3297,6 +3306,7 @@ def main() -> int:
     astats = table()  # per 384^2 sub-image (generation under --fuse_up all)
     gstats = table()  # per 192^2 SSM sub-image (SSM generation)
     fstats = table()  # K15's float32 route, per SSM step at the training shapes
+    estats = table()  # K15's float32 forward, per 192^2 SSM sub-image at eval
     tstats = {tail: table() for tail in STEP_LAUNCHES}  # per training step, each tail
     # the routed kernels' f32 routes (ROUTED), per step
     dstats = {tail: table() for tail in STEP_LAUNCHES}
@@ -4347,6 +4357,30 @@ def main() -> int:
         if x.dtype == torch.float32:
             check_stem_dw_f32(tag, x, gy, plant)
 
+    def check_ssm_fwd_f32(tag, maps, w1, b1, w2, b2, got, ref):
+        """K15's float32 forward (CUDA cores, csrc/ssm_embed_chw.cu) beyond
+        the check against its plain version: two calls bit-equal (each
+        output sums in one order), and two planted faults (w2's dy and dx
+        swapped; one hidden chunk skipped, its 8 channels' w2 zeroed) must
+        read at least F32_PLANT times the check's limit."""
+        same = torch.equal(got, ssm.ssm_embed(maps, w1, b1, w2, b2))
+        print(f"[check] ssm_embed {tag} [CUDA cores]: two calls "
+              f"{'bit-equal' if same else 'differ'}")
+        if not same:
+            fail(f"ssm_embed {tag}: two f32 calls differ")
+        limit = F32_TOL * max(1.0, float(ref.abs().max()))
+        skip = w2.clone()
+        skip[:, ssm.F32_FWD_KC : 2 * ssm.F32_FWD_KC] = 0
+        swapped = w2.transpose(2, 3).contiguous()
+        for fault, bad in (("w2 dy<->dx", ssm.ssm_embed(maps, w1, b1, swapped, b2)),
+                           (f"hidden chunk {ssm.F32_FWD_KC}..{2 * ssm.F32_FWD_KC - 1} skipped",
+                            ssm.ssm_embed(maps, w1, b1, skip, b2))):
+            r_ = float((bad - ref).abs().max()) / limit
+            print(f"[check] ssm_embed {tag} [CUDA cores]: planted {fault}: max abs err / limit "
+                  f"{r_:.2f} (must reach {F32_PLANT:g})")
+            if not r_ >= F32_PLANT:
+                fail(f"ssm_embed {tag}: a planted fault ({fault}) reads only {r_:.2f}x the limit")
+
     def check_stem_dx(tag, gy, wt, plant=False):
         """K13 dx against its plain version. bf16 runs the tensor cores: dx
         within BF16_TOL of max|ref| of the plain version with w rounded to
@@ -4354,10 +4388,35 @@ def main() -> int:
         two calls bit-equal, and with ``plant`` three planted faults (ky and
         kx swapped, one k16 step of output channels skipped, g's zero border
         read as the edge pixel) must read at least STEM_PLANT times that
-        limit. f32 runs the CUDA cores, held to the plain version."""
+        limit. f32 runs the CUDA cores, held to the plain version, two calls
+        bit-equal, and with ``plant`` ky and kx swapped, output channels 0-3
+        skipped and g's zero border read as the edge pixel
+        must read at least F32_PLANT times the f32 limit."""
         got = kernels.stem_dx(gy, wt)
+        g_edge = F.pad(gy.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate")
         if gy.dtype != torch.bfloat16:
-            compare("stem_dx", f"{tag} [CUDA cores]", got, kernels.stem_dx_plain(gy, wt))
+            ref = kernels.stem_dx_plain(gy, wt)
+            compare("stem_dx", f"{tag} [CUDA cores]", got, ref)
+            same = torch.equal(got, kernels.stem_dx(gy, wt))
+            print(f"[check] stem_dx {tag} [CUDA cores]: two calls "
+                  f"{'bit-equal' if same else 'differ'}")
+            if not same:
+                fail(f"stem_dx {tag}: two f32 calls differ")
+            if not plant:
+                return
+            limit = F32_TOL * max(1.0, float(ref.abs().max()))
+            skip = wt.clone()
+            skip[:4] = 0
+            planted = {"ky<->kx": kernels.stem_dx(gy, wt.transpose(2, 3).contiguous()),
+                       "output channels 0-3 skipped": kernels.stem_dx(gy, skip),
+                       "g's zero border read as the edge pixel": kernels.stem_dx(
+                           g_edge.permute(0, 2, 3, 1).contiguous(), wt)[:, :, 2:-2, 2:-2]}
+            for fault, bad in planted.items():
+                r_ = float((bad - ref).abs().max()) / limit
+                print(f"[check] stem_dx {tag} [CUDA cores]: planted {fault}: max abs err / limit "
+                      f"{r_:.2f} (must reach {F32_PLANT:g})")
+                if not r_ >= F32_PLANT:
+                    fail(f"stem_dx {tag}: a planted {fault} reads only {r_:.2f}x the f32 limit")
             return
         ref = kernels.stem_dx_tc_plain(gy, wt)
         compare("stem_dx", f"{tag} [tensor cores]", got, ref, floor=0.0)
@@ -4372,7 +4431,6 @@ def main() -> int:
         limit = BF16_TOL * float(ref.float().abs().max())
         skip = wt.clone()
         skip[:16] = 0
-        g_edge = F.pad(gy.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate")
         planted = {"ky<->kx": kernels.stem_dx(gy, wt.transpose(2, 3).contiguous()),
                    "one k16 step (16 output channels) skipped": kernels.stem_dx(gy, skip),
                    "g's zero border read as the edge pixel": kernels.stem_dx(
@@ -4910,8 +4968,11 @@ def main() -> int:
             compare("stem_fwd", f"--D_ch {co_}: (2, 3, {hs}x{hs}) -> (2, {hs // 2}, {hs // 2}, {co_}) "
                     "[CUDA cores]", kernels.stem_fwd(x[:2], w_s, b_s),
                     kernels.stem_fwd_plain(x[:2], w_s, b_s))
+            gy_s = randn(g_s, 2, hs // 2, hs // 2, co_)
             check_stem_dw(f"--D_ch {co_}: (2, 3, {hs}x{hs}) -> (2, {hs // 2}, {hs // 2}, {co_})",
-                          x[:2], randn(g_s, 2, hs // 2, hs // 2, co_))
+                          x[:2], gy_s)
+            check_stem_dx(f"--D_ch {co_}: (2, {hs // 2}, {hs // 2}, {co_}) -> (2, 3, {hs}x{hs})",
+                          gy_s, w_s)
         check_stem_dx(f"train {shape_s}", gy, wt, plant=True)
         check_stem_dw(f"train {shape_s}", x, gy, plant=True)
         nbytes, flops = stem_fwd_work(n, 3, hs, hs, co, es)
@@ -5159,8 +5220,10 @@ def main() -> int:
             gy = randn(g_, nk, 2 * c, h, h).to(dtype) if train else None
             y = ssm.ssm_embed(maps, w1, b1, w2, b2)
             y_ref = ssm.ssm_embed_plain(maps, w1, b1, w2, b2)
-            rt = None if tc else fstats  # the f32 route's errors go to its own rows
+            rt = None if tc else (fstats if train else estats)  # the f32 route's own rows
             compare("ssm_embed", f"{path} {shape_s} [{route}]", y, y_ref, into=rt)
+            if not tc:
+                check_ssm_fwd_f32(f"{path} {shape_s}", maps, w1, b1, w2, b2, y, y_ref)
             if not train:
                 # a raster sub-image's window of the maps: the one pass's bits
                 r0, c0 = h // 3, h // 2
@@ -5214,8 +5277,6 @@ def main() -> int:
                         if not r_ >= F32_PLANT:
                             fail(f"ssm_embed_bwd {shape_s}: a dropped chunk reads only {r_:.2f}x "
                                  f"the {part} limit")
-            if not (tc or train):
-                continue
             pix, hpix = nk * h * h, nk * (h + 2) ** 2
             fl1, fl2 = 2.0 * hpix * hid * 9, 2.0 * pix * 2 * c * hid * 9  # stage 1, stage 2
             wbytes = (hid * 9 + hid + 2 * c * hid * 9 + 2 * c) * 4
@@ -5223,8 +5284,8 @@ def main() -> int:
             w1l, b1l, w2l, b2l = w1.to(dtype), b1.to(dtype), w2.to(dtype), b2.to(dtype)
             if tc:
                 where = dict(tails=("ssm",)) if train else dict(into=gstats)
-            else:  # the f32 route, at the training shapes, per SSM step
-                where = dict(into=fstats, peak=PEAK_F32_FLOP_PER_S)
+            else:  # the f32 route: per SSM step at the training shapes, per sub-image at eval
+                where = dict(into=fstats if train else estats, peak=PEAK_F32_FLOP_PER_S)
             account("ssm_embed", f"{shape_s} [{route}]", lambda: ssm.ssm_embed(maps, w1, b1, w2, b2),
                     lambda: ssm.ssm_embed_plain(maps, w1, b1, w2, b2),
                     lambda: F.conv2d(torch.relu(F.conv2d(maps, w1l, b1l)), w2l, b2l),
@@ -5585,10 +5646,18 @@ def main() -> int:
     if (gen.type_norm, gen.plan, gen.base_res, gen.num_patches_h, gen.dtype) != (
             "SSM", ssm_plan, base, GRID, torch.bfloat16):
         fail("the SSM run's generator is not the recipe the kernel checks were sized for")
+    ssm.ROUTE_LAUNCHES.update(dict.fromkeys(ssm.ROUTE_LAUNCHES, 0))
     ssm_one_pass, ssm_raster, walls["canvas SSM"] = generation_phase(
         dev, gen, args, "SSM", {"ssm_embed": 6, "conv3x3_chw": 5, "conv1x1_chw": 2,
                                 "upsample2_chw": 2}, GEN_PER_SUB["SSM"], 64, card, sync,
         u8_tol=None)
+    # K15's launches in the SSM canvases: the f32 768^2 ones on the CUDA-core
+    # forward (its eval kernels line row), the bf16 ones on the tensor cores
+    f32_gen_ssm = dict(ssm.ROUTE_LAUNCHES)
+    print(f"[route] SSM canvases: K15 launches by entry point {f32_gen_ssm}")
+    if not (f32_gen_ssm["itg_ssm_embed_fwd"] and f32_gen_ssm["itg_ssm_embed_tc_fwd"]) or (
+            f32_gen_ssm["itg_ssm_embed_bwd"] or f32_gen_ssm["itg_ssm_embed_tc_bwd"]):
+        fail(f"the SSM canvases took K15's launches {f32_gen_ssm}, not both forwards only")
     del gen
     from infinite_texture_gans_torch import sample
 
@@ -5706,7 +5775,9 @@ def main() -> int:
     f32_rows = [(name, ":f32_parity", "step parity SSM (float32)", fstats[name], f32_route,
                  "per SSM step") for name in ("ssm_embed", "ssm_embed_bwd")]
     f32_rows += [("ssm_embed_bwd", ":f32_ssm", "train SSM (float32, graphed)",
-                  fstats["ssm_embed_bwd"], f32_ssm_run, "per SSM step")]
+                  fstats["ssm_embed_bwd"], f32_ssm_run, "per SSM step"),
+                 ("ssm_embed", ":f32_gen_ssm", "generation SSM (float32 768^2 canvases)",
+                  estats["ssm_embed"], f32_gen_ssm, "per 192^2 SSM sub-image")]
     f32_rows += [(name, f":f32_{tail}", f"step parity {TRAIN_PATHS[tail][0]} (float32)",
                   dstats[tail][name], dx_f32[tail], TRAIN_PATHS[tail][1])
                  for name in ROUTED for tail, want in STEP_LAUNCHES.items() if want[name]]

@@ -3,15 +3,16 @@
 (``stem_fwd``), K3-dW (``conv1x1_chw_dw``), K1/K2 (``conv3x3_chw``,
 ``conv3x3_chw_halo``), K6 (``conv3x3_chw_dx``), K7 (``conv3x3_chw_dw``),
 K9's forward and K14 (``upconv3x3_chw``, ``upconv3x3_chw_halo``) and K9 dW
-(``upconv3x3_chw_dw``), K13 dW (``stem_dw``) and K15's backward
-(``ssm.ssm_embed_bwd``) on one CUDA card, with the graphed float32 steps
-they run in, for one tree of the repository.
+(``upconv3x3_chw_dw``), K13 dW (``stem_dw``), K15's backward
+(``ssm.ssm_embed_bwd``), K15's forward (``ssm.ssm_embed``) and K13 dx
+(``stem_dx``) on one CUDA card, with the graphed float32 steps they run in,
+for one tree of the repository.
 
 Run from the root of a checkout on a machine with a card:
 ``python3 f32_route_study.py [--tree DIR] [--out FILE] [--only NAMES]``
 (``--only``: a comma-separated subset of the sections ``k9dx``, ``k13``,
 ``k3dw``, ``k1``, ``k6k7``, ``k9``, ``k14``, ``k13dw``, ``k15bwd``,
-``steps``; all by default). It
+``k15fwd``, ``k15hid``, ``k13dx``, ``steps``; all by default). It
 imports only the PyTorch package, from ``DIR`` where given (default: this
 checkout), with that tree's ``chip_smoke.py`` for the train loop's run;
 the kernels are built from that tree's sources into its own ``build/``.
@@ -67,7 +68,18 @@ biases' sums), with its bound (FFMA at 67 TFLOP/s) and each of its launches
 on its own (device time by kernel name from a ``torch.profiler`` trace of
 ten calls, ``chip_smoke.py: device_busy_ms``); where the tree has
 ``kernels.stem_dw_f32_plan`` and ``ssm.bwd_f32_plan``, the C entry points at
-each plan they choose from. Then it runs the train
+each plan they choose from. K15's forward at the SSM step's three sites
+and at the SSM eval sub-image's four (N = 1: Co 208 and 104 at 96^2, 104
+and 52 at 192^2) beside ``F.conv2d`` -> ReLU -> ``F.conv2d`` (TF32 off),
+with its bound (FFMA at 67 TFLOP/s), each of its launches at the training
+sites (profiler, ten calls) and, where the tree has ``ssm.fwd_f32_plan``,
+the C entry point at each plan (``k15hid``: at the planned one also a copy
+of this tree's forward without its later hidden chunks, built into
+``build/k15hid``, for the hidden activation's share of a call); K13 dx at
+the Experiment-1 fakes, the SSM recipe's and ``--D_ch`` 640 beside
+``conv2d_input`` at stride 2 (TF32 off), with its bound
+(``stem_fwd_work``); both with their largest deviation from the plain
+version and whether two calls give the same bits. Then it runs the train
 loop's graphed float32 steps (Experiment-1 ``--fuse_up auto`` and ``off``,
 and the SSM recipe; ``--compute_dtype float32``, cuDNN's TF32 as PyTorch
 leaves it, which is how the train CLI runs them) through
@@ -81,8 +93,10 @@ of this checkout).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -101,7 +115,19 @@ STEM_DW_SHAPES = {"Exp-1": ((8, 3, 384, 384, 64), ("auto", "off")),
 # K15's backward: (N, md, hid, H, W, Co) and its calls a SSM step (bn1 and
 # the shortcut's bn3 modulate 52 channels, bn2 26: Co = 2C gamma|beta)
 K15_SHAPES = {(8, 1, 128, 192, 192, 104): 2, (8, 1, 128, 192, 192, 52): 1}
-SECTIONS = ("k9dx", "k13", "k3dw", "k1", "k6k7", "k9", "k14", "k13dw", "k15bwd", "steps")
+# K15's forward at eval: the SSM sub-image's sites (N = 1) and their calls a
+# 192^2 sub-image
+K15_EVAL_SHAPES = {(1, 1, 128, 96, 96, 208): 2, (1, 1, 128, 96, 96, 104): 1,
+                   (1, 1, 128, 192, 192, 104): 2, (1, 1, 128, 192, 192, 52): 1}
+# K13 dx: (N, C, H, W, Co) of dx and the paths that run it once a step
+STEM_DX_SHAPES = {"Exp-1": ((8, 3, 384, 384, 64), ("auto", "off")),
+                  "--D_ch 640": ((8, 3, 384, 384, 640), ()),
+                  "SSM": ((8, 3, 192, 192, 64), ("ssm",))}
+SECTIONS = ("k9dx", "k13", "k3dw", "k1", "k6k7", "k9", "k14", "k13dw", "k15bwd", "k15fwd", "k15hid",
+            "k13dx", "steps")
+# the line of csrc/ssm_embed_chw.cu that computes K15's forward's next
+# hidden chunk; k15hid times the forward without it
+K15_HIDDEN_CALL = "      hidden((k + 1) * kKC, s_h + (cur ^ 1) * kKC * kFHC);\n"
 # K3-dW: (N, C, Co, H, W) and the paths that run it once a step
 DW_SHAPES = {(8, 52, 26, 96, 96): ("auto",), (8, 26, 13, 192, 192): ("auto",),
              (8, 52, 26, 192, 192): ("off", "ssm"), (8, 26, 13, 384, 384): ("off",)}
@@ -136,6 +162,27 @@ def tree_chip_smoke(tree: Path):
     return module
 
 
+def hidden_ablated_fwd(tree: Path, build):
+    """``itg_ssm_embed_fwd`` built from a copy of the tree's
+    ``csrc/ssm_embed_chw.cu`` without K15_HIDDEN_CALL, so that only chunk 0's
+    hidden activation is computed and the later chunks read stale stages:
+    the time it saves is the hidden activation's share of a call. Its
+    output is wrong; it is timed and never compared."""
+    csrc = tree / "infinite_texture_gans_torch" / "csrc"
+    text = (csrc / "ssm_embed_chw.cu").read_text()
+    if text.count(K15_HIDDEN_CALL) != 1:
+        raise SystemExit(f"k15hid: {csrc / 'ssm_embed_chw.cu'} has no single hidden() call to cut")
+    out = tree / "build" / "k15hid"
+    out.mkdir(parents=True, exist_ok=True)
+    src, so = out / "ssm_embed_chw_nohidden.cu", out / "libssm_embed_chw_nohidden.so"
+    src.write_text(text.replace(K15_HIDDEN_CALL, ""))
+    subprocess.run([build._nvcc(), *build.FLAGS, "-shared", "-I", str(csrc), str(src), "-o",
+                    str(so)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).itg_ssm_embed_fwd
+    fn.argtypes, fn.restype = build.SIGNATURES["itg_ssm_embed_fwd"], ctypes.c_int
+    return fn
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -155,7 +202,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(tree))
     import torch.nn.functional as F
 
-    from infinite_texture_gans_torch.ops import _build, kernels
+    from infinite_texture_gans_torch.ops import _build, kernels, ssm
     from infinite_texture_gans_torch.utils.flops import CARD_PEAKS, H100_SXM
 
     if Path(kernels.__file__).resolve().parents[2] != tree:
@@ -181,7 +228,8 @@ def main(argv=None) -> int:
     out = {"tree": str(tree), "card": card, "upconv3x3_chw_dx": {}, "stem_fwd": {},
            "conv1x1_chw_dw": {}, "conv3x3_chw": {}, "eval": {}, "conv3x3_chw_dx": {},
            "conv3x3_chw_dw": {}, "upconv3x3_chw": {}, "upconv3x3_chw_dw": {}, "k14": {},
-           "stem_dw": {}, "ssm_embed_bwd": {}, "per_step": {}, "steps": {}, "plans": {}}
+           "stem_dw": {}, "ssm_embed_bwd": {}, "ssm_embed": {}, "stem_dx": {}, "per_step": {},
+           "steps": {}, "plans": {}, "hidden": {}}
     plans = hasattr(kernels, "upconv_dx_f32_plan")
 
     def err(got, ref):
@@ -629,8 +677,6 @@ def main(argv=None) -> int:
                 print(f"[plan] stem_dw f32 {key}: slots {plan.slots} rows {plan.rows} blocks "
                       f"{plan.blocks}{mark}: {plan_ms:.4f} ms  [{card}]")
         del x, gy, g_nchw, got, ref
-    if "k15bwd" in only:
-        from infinite_texture_gans_torch.ops import ssm
     for i, ((n, md, hid, h, w, co), calls) in enumerate(
             (K15_SHAPES if "k15bwd" in only else {}).items()):
         g_ = torch.Generator(device=dev).manual_seed(980 + i)
@@ -703,6 +749,115 @@ def main(argv=None) -> int:
                 print(f"[plan] ssm_embed_bwd f32 {key}: s2 {plan.s2} rows2 {plan.rows2}{mark}: "
                       f"{plan_ms:.4f} ms  [{card}]")
         del maps, gy, a_lib, got, ref
+    k15_fwd = {**{k: (v, "train") for k, v in K15_SHAPES.items()},
+               **{k: (v, "eval") for k, v in K15_EVAL_SHAPES.items()}}
+    ablated = hidden_ablated_fwd(tree, _build) if "k15hid" in only else None
+    for i, ((n, md, hid, h, w, co), (calls, where)) in enumerate(
+            (k15_fwd if only & {"k15fwd", "k15hid"} else {}).items()):
+        g_ = torch.Generator(device=dev).manual_seed(990 + i)
+        maps = torch.randn(n, md, h + 4, w + 4, device=dev, generator=g_)
+        w1 = torch.randn(hid, md, 3, 3, device=dev, generator=g_) / 3
+        b1 = 0.1 * torch.randn(hid, device=dev, generator=g_)
+        w2 = torch.randn(co, hid, 3, 3, device=dev, generator=g_) * (9 * hid) ** -0.5
+        b2 = 0.1 * torch.randn(co, device=dev, generator=g_)
+        got = ssm.ssm_embed(maps, w1, b1, w2, b2)
+        ref = ssm.ssm_embed_plain(maps, w1, b1, w2, b2)
+        pix, hpix = n * h * w, n * (h + 2) * (w + 2)
+        flops = 2.0 * hpix * hid * 9 * md + 2.0 * pix * co * hid * 9
+        nbytes = n * md * (h + 4) * (w + 4) * 4 + pix * co * 4 + (
+            hid * md * 9 + hid + co * hid * 9 + co) * 4
+        row = {"ms": yard.device_ms(lambda: ssm.ssm_embed(maps, w1, b1, w2, b2)),
+               "library_ms": yard.device_ms(lambda: F.conv2d(torch.relu(F.conv2d(maps, w1, b1)),
+                                                             w2, b2)),
+               "bound_ms": yard.bound_ms(nbytes, flops, f32_flop_per_s, bytes_per_s),
+               "max_abs_err": err((got,), (ref,)), "max_ref": float(ref.abs().max()),
+               "bit_equal": torch.equal(got, ssm.ssm_embed(maps, w1, b1, w2, b2)),
+               "calls": calls, "where": where}
+        key = f"({n}, {md} -> {hid} -> {co}, {h}x{w})"
+        if where == "train":
+            # each launch of a call on its own: device time by kernel name
+            # over ten calls
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    ssm.ssm_embed(maps, w1, b1, w2, b2)
+                torch.cuda.synchronize()
+            by_name, _ = yard.device_busy_ms(prof)
+            row["launches"] = {yard.kernel_name(name): ms_ / 10
+                               for name, (ms_, _) in by_name.items()}
+            for _ in range(calls):
+                per_step("ssm_embed", ("ssm",), row["ms"], row["library_ms"], row["bound_ms"])
+        out["ssm_embed"][key] = row
+        per = "a SSM step" if where == "train" else "a 192^2 SSM sub-image (eval)"
+        print(f"[time] ssm_embed f32 {key}: kernel {row['ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({100 * row['bound_ms'] / row['ms']:.1f}% of it), max abs err "
+              f"{row['max_abs_err']:.3e} (max|ref| {row['max_ref']:.3e}), two calls "
+              f"{'bit-equal' if row['bit_equal'] else 'differ'}, x{calls} {per}  [{card}]")
+        for name, ms_ in sorted(row.get("launches", {}).items(), key=lambda kv: -kv[1]):
+            print(f"[launch] ssm_embed f32 {key}: {name}: {ms_:.4f} ms a call (profiler)  "
+                  f"[{card}]")
+        if hasattr(ssm, "fwd_f32_plan"):
+            sms = kernels._sm_count(dev.index or 0)
+            planned = ssm.fwd_f32_plan(n, md, hid, h, w, co, sms)
+            y = torch.empty_like(got)
+            for plan in ssm.fwd_f32_plans(n, md, hid, h, w, co, sms):
+                def entry():
+                    rc = kernels._lib().itg_ssm_embed_fwd(
+                        maps.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                        b2.data_ptr(), y.data_ptr(), n, md, hid, h, w, co, plan.warps,
+                        kernels._stream(maps))
+                    if rc:
+                        raise RuntimeError(f"itg_ssm_embed_fwd: CUDA error {rc}")
+
+                plan_ms = yard.device_ms(entry)
+                out["plans"][f"ssm_embed {key} warps {plan.warps}"] = plan_ms
+                mark = " (planned)" if plan == planned else ""
+                print(f"[plan] ssm_embed f32 {key}: warps {plan.warps} blocks {plan.blocks}{mark}: "
+                      f"{plan_ms:.4f} ms, bit-equal to the call {torch.equal(y, got)}  [{card}]")
+                if ablated is None or plan != planned:
+                    continue
+
+                def cut():
+                    rc = ablated(maps.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                                 b2.data_ptr(), y.data_ptr(), n, md, hid, h, w, co, plan.warps,
+                                 kernels._stream(maps))
+                    if rc:
+                        raise RuntimeError(f"itg_ssm_embed_fwd (hidden cut): CUDA error {rc}")
+
+                cut_ms = yard.device_ms(cut)
+                chunks = -(-hid // ssm.F32_FWD_KC)
+                share = (plan_ms - cut_ms) / plan_ms * chunks / (chunks - 1)
+                out["hidden"][key] = {"ms": plan_ms, "cut_ms": cut_ms, "share": share,
+                                      "channel_blocks": plan.channel_blocks}
+                print(f"[hidden] ssm_embed f32 {key}: planned {plan_ms:.4f} ms, without chunks "
+                      f"1.. of the hidden activation {cut_ms:.4f} ms: the hidden activation "
+                      f"{100 * share:.1f}% of a call, computed in each of "
+                      f"{plan.channel_blocks} channel blocks  [{card}]")
+        del maps, got, ref
+    for label, ((n, c, h, w, co), paths) in (STEM_DX_SHAPES if "k13dx" in only else {}).items():
+        g_ = torch.Generator(device=dev).manual_seed(970)
+        gy = torch.randn(n, h // 2, w // 2, co, device=dev, generator=g_)
+        wt = torch.randn(co, c, 4, 4, device=dev, generator=g_) * (16 * c) ** -0.5
+        g_nchw = gy.permute(0, 3, 1, 2)
+        got = kernels.stem_dx(gy, wt)
+        ref = kernels.stem_dx_plain(gy, wt)
+        row = {"ms": yard.device_ms(lambda: kernels.stem_dx(gy, wt)),
+               "library_ms": yard.device_ms(lambda: torch.nn.grad.conv2d_input(
+                   (n, c, h, w), wt, g_nchw, stride=2, padding=1)),
+               "bound_ms": yard.bound_ms(*yard.stem_fwd_work(n, c, h, w, co, 4), f32_flop_per_s,
+                                         bytes_per_s),
+               "max_abs_err": err((got,), (ref,)), "max_ref": float(ref.abs().max()),
+               "bit_equal": torch.equal(got, kernels.stem_dx(gy, wt))}
+        key = f"{label} ({n}, {h // 2}, {w // 2}, {co}) -> ({n}, {c}, {h}x{w})"
+        out["stem_dx"][key] = row
+        per_step("stem_dx", paths, row["ms"], row["library_ms"], row["bound_ms"])
+        print(f"[time] stem_dx f32 {key}: kernel {row['ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({100 * row['bound_ms'] / row['ms']:.1f}% of it), max abs err "
+              f"{row['max_abs_err']:.3e} (max|ref| {row['max_ref']:.3e}), two calls "
+              f"{'bit-equal' if row['bit_equal'] else 'differ'}  [{card}]")
+        del gy, g_nchw, got, ref
     for name, row in out["per_step"].items():
         print(f"[step sum] {name}: kernel {row['ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
               f"bound {row['bound_ms']:.4f} ms a step  [{card}]")

@@ -62,11 +62,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem));
 }
 
-// 4 or 16 bytes into shared memory by cp.async; where !ok nothing is read
+// 4, 8 or 16 bytes into shared memory by cp.async; where !ok nothing is read
 // (src need only be a valid address) and the bytes are zero-filled.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 8 : 0));
 }
 __device__ __forceinline__ void cp_async16z(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),

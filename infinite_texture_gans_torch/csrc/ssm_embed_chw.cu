@@ -25,14 +25,16 @@
 //   the maps (9 * md FMAs a value, a few per cent of stage 2's work) with
 //   `hidden_pre`'s arithmetic (the md x 9 fmaf in one order, then the bias),
 //   so the backward's ReLU mask has exactly the forward's rounding.
-// - Forward: a block computes a 32 x 16 output tile for up to 32 output
-//   channels; each chunk of 8 hidden channels is computed into shared memory
-//   (18 x 34 with its halo) beside the chunk's weights, and a thread keeps two
-//   pixels x TCO channels in registers, so each shared-memory read feeds 8 to
-//   16 FMAs. Each output sums its (hidden channel, tap) products in one fixed
-//   order (chunk, channel, tap) and then adds the bias, whatever the tile,
-//   the channel blocking or the canvas position: a raster sub-image and the
-//   one pass give the same bits for the same maps.
+// - Forward: a block computes a 16 x 32 output tile for up to 32 output
+//   channels (8 a warp); each chunk of 8 hidden channels is computed once for
+//   all of them into shared memory (18 x 34 with its halo), the next chunk
+//   and its w2 slice (read from w2 as it lies, by cp.async) filling the
+//   other half of a double buffer; a lane keeps 16 pixels of a row x 8
+//   channels in registers, so 42 loaded words feed 384 FMAs. Each output
+//   sums its (hidden channel, tap) products in one fixed order and then adds
+//   the bias, whatever the tile, the channel blocking or the canvas
+//   position: a raster sub-image and the one pass give the same bits for the
+//   same maps.
 // - Backward, three launches and no atomics. (1) d_act = conv3x3^T(g) on
 //   the hidden grid (H + 2) x (W + 2), K6's transposed conv with the roles
 //   of its channels taken by Co and hid: 16 pixels x 8 hidden channels a
@@ -56,24 +58,14 @@ namespace {
 
 using itg::cp_async16z;
 using itg::cp_async4;
-using itg::from_f32;
 using itg::to_f32;
-
-constexpr int kTileW = 32;
-constexpr int kThreadRows = 8;
-constexpr int kRows = 2;  // output rows per thread: ty and ty + kThreadRows
-constexpr int kTileH = kThreadRows * kRows;
-constexpr int kThreads = kTileW * kThreadRows;
-constexpr int kChunk = 8;  // source channels staged in shared memory per pass
-constexpr int kSrcH = kTileH + 2;
-constexpr int kSrcW = kTileW + 2;
-constexpr int kSrc = kSrcH * kSrcW;
 
 // The pre-activation hidden value at channel c, hidden row r and column j
 // (0 <= r < H + 2, 0 <= j < W + 2) of one image's maps: the md x 9 products
 // in one fixed order (map channel, then tap), then the bias. The forward
-// takes its hidden values from here; the backward's kernels repeat the same
-// fmaf chain on the maps they stage.
+// applies it to its staged maps tile (its md = 1 path slides the same chain
+// along a row); the backward's kernels repeat the same fmaf chain on the
+// maps they stage.
 template <typename T>
 __device__ __forceinline__ float hidden_pre(const T* __restrict__ maps, const float* __restrict__ w1,
                                             const float* __restrict__ b1, int md, int Hm, int Wm,
@@ -91,99 +83,225 @@ __device__ __forceinline__ float hidden_pre(const T* __restrict__ maps, const fl
   return __fadd_rn(acc, b1[c]);
 }
 
-// acc[q][k] += sum over the chunk's channels cc and taps of
-// src[cc][ty + q * kThreadRows + tap / 3][tx + tap % 3] * w[cc][tap][k],
-// in the order (cc, tap).
-template <int NC>
-__device__ __forceinline__ void accumulate_chunk(float (*src)[kSrcH][kSrcW],
-                                                 float (*w)[9][NC], int tx, int ty,
-                                                 float (&acc)[kRows][NC]) {
+// ---- forward: infinite_texture_gans_tpu/ops/pallas_ssm.py:343 ssm_embed_fwd_call
+//
+// A block owns a 16 x 32 output tile of one image and 8 output channels for
+// each of its warps (1, 2 or 4: ops/ssm.py fwd_f32_plan), warp w the 8
+// channels co0 + 8 w .., lane (tr, q) the 16 pixels 16 q .. of tile row tr.
+// Hidden channels come in chunks of kKC. The block computes a chunk's
+// hidden activation once for all its warps (18 rows of 36 floats a channel)
+// from the maps tile, staged once, through hidden_pre's fmaf chain: a
+// thread keeps one hidden channel and its 9 weights and takes items of 4
+// cells of a row (a 3 x 6 window of the maps, one 16-byte store), so the
+// items spread evenly over the block. The next chunk's hidden activation is
+// computed and its w2 slice lands by cp.async (read from w2 as it lies) in
+// the other half of a double buffer before this chunk's FMAs, one barrier
+// a chunk. Per hidden channel and row tap a lane loads its 18 hidden values
+// (four 16-byte loads and two words) and per tap its 8 weights (two 16-byte
+// broadcasts) for 128 FMAs: 384 FMAs for 42 loaded words. Each output sums
+// its (hidden channel, tap) products in that order, then adds b2, whatever
+// the plan or the canvas position.
+constexpr int kFR = 16;            // pixels of a lane, along a row
+constexpr int kFTH = 16;           // rows of a tile: the 16 row lanes of a warp
+constexpr int kFTW = 32;           // columns of a tile: 2 runs of kFR
+constexpr int kFHR = kFTH + 2;     // hidden rows a tile reads
+constexpr int kFHS = 36;           // floats a staged hidden row (34 cells), 9 16-byte units
+constexpr int kFHC = kFHR * kFHS;  // floats a staged hidden channel
+constexpr int kFMR = kFTH + 4;     // maps rows a tile reads
+constexpr int kFMS = kFTW + 4;     // floats a staged maps row: its 36 cells
+constexpr int kKC = 8;             // hidden channels a chunk
+constexpr int kFCO = 8;            // output channels a warp
+constexpr int kFMaxWarps = 4;
+
+struct FwdArgs {
+  const float* maps;  // (N, md, H + 4, W + 4)
+  const float* w1;    // (hid, md, 3, 3)
+  const float* b1;    // (hid)
+  const float* w2;    // (Co, hid, 3, 3)
+  const float* b2;    // (Co)
+  float* y;           // (N, Co, H, W)
+  int md, hid, H, W, Co, tiles_w, yvec;
+};
+
+// Floats between two rows (hidden channel, tap) of a staged w2 slice: the
+// block's 8 x warps output channels, padded to 8 or 24 modulo 32, so the
+// copies' lanes (8 output channels x 4 rows) write 32 banks.
+__host__ __device__ constexpr int fwd_wrow(int warps) {
+  return warps % 2 ? 8 * warps : 8 * warps + 8;
+}
+
+size_t fwd_smem(int md, int warps) {
+  return sizeof(float) * (2 * kKC * kFHC + 2 * kKC * 9 * fwd_wrow(warps) + md * kFMR * kFMS + 4);
+}
+
+// Grid (tiles of an image, ceil(Co / (8 WARPS)), N), 32 WARPS threads.
+// Dynamic shared memory (floats): two stages of a chunk's hidden activation
+// (channel cc, row r, column k at cc kFHC + r kFHS + k: hidden row ty0 + r,
+// column tx0 + k), two stages of its w2 (row 9 cc + tap, column k at (9 cc +
+// tap) wrow + k: w2[co0 + k, c0 + cc, tap]), then the maps tile (md x kFMR
+// rows of kFMS: maps row ty0 + r, column tx0 + k).
+template <int WARPS>
+__global__ void __launch_bounds__(32 * kFMaxWarps, 2) ssm_fwd_f32_kernel(const FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int nthr = 32 * WARPS, wrow = fwd_wrow(WARPS), wstage = kKC * 9 * wrow;
+  const int tid = threadIdx.x;
+  const int n = blockIdx.z;
+  const int ty0 = (blockIdx.x / a.tiles_w) * kFTH, tx0 = (blockIdx.x % a.tiles_w) * kFTW;
+  const int co0 = blockIdx.y * kFCO * WARPS;
+  const int H = a.H, W = a.W, md = a.md, hid = a.hid;
+  const int Hm = H + 4, Wm = W + 4;
+  float* s_h = smem;
+  float* s_w = s_h + 2 * kKC * kFHC;
+  float* s_m = s_w + 2 * wstage;
+
+  const float* mn = a.maps + static_cast<size_t>(n) * md * Hm * Wm;
+  for (int i = tid; i < md * kFMR * kFMS; i += nthr) {
+    const int m = i / (kFMR * kFMS), r = ty0 + (i / kFMS) % kFMR, k = tx0 + i % kFMS;
+    const bool ok = r < Hm && k < Wm;
+    cp_async4(s_m + i, mn + (ok ? (static_cast<size_t>(m) * Hm + r) * Wm + k : 0), ok);
+  }
+  // the w2 slice of hidden channels c0 .. c0 + kKC - 1 into stage s (zero
+  // past Co and hid): thread t copies column 8 (t / 32) + t % 8, rows (t /
+  // 8) % 4 + 4 i, so a warp's copies are 8 consecutive columns x 4 rows
+  constexpr int nrow = kKC * 9;
+  const int wk = 8 * (tid / 32) + tid % 8, wo = co0 + wk;
+  auto stage_w = [&](int c0, float* s) {
+    const int rows = wo < a.Co ? min(nrow, (hid - c0) * 9) : 0;
+    const float* src = a.w2 + (static_cast<size_t>(wo < a.Co ? wo : 0) * hid + c0) * 9;
+#pragma unroll 6
+    for (int r = (tid / 8) % 4; r < nrow; r += 4) {
+      cp_async4(s + r * wrow + wk, r < rows ? src + r : a.w2, r < rows);
+    }
+  };
+  // the hidden activation ReLU(hidden_pre) of channels c0 .. c0 + kKC - 1
+  // into stage s (zero past hid), each cell summed in hidden_pre's order
+  // (map channel, tap), then the bias. A thread keeps one channel (nthr is
+  // a multiple of kKC) and takes items of 4 cells of a row: for md = 1 a 3 x
+  // 6 window of the maps tile gives 4 cells, stored as one 16-byte vector
+  // (cells 34 and 35 of a row are never read)
+  constexpr int quads = (kFTW + 4) / 4;
+  auto hidden = [&](int c0, float* s) {
+    const int cc = tid % kKC, c = c0 + cc;
+    float* sc = s + cc * kFHC;
+    if (c >= hid) {
+      for (int it = tid / kKC; it < kFHR * quads; it += nthr / kKC) {
+        *reinterpret_cast<float4*>(sc + (it / quads) * kFHS + 4 * (it % quads)) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      return;
+    }
+    if (md == 1) {
+      const float* w = a.w1 + c * 9;
+      float wv[9];
 #pragma unroll
-  for (int cc = 0; cc < kChunk; ++cc) {
+      for (int t = 0; t < 9; ++t) wv[t] = __ldg(w + t);
+      const float bias = __ldg(a.b1 + c);
+      for (int it = tid / kKC; it < kFHR * quads; it += nthr / kKC) {
+        const int rr = it / quads, k0 = 4 * (it % quads);
+        float out[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      float v[kRows];
+        for (int dy = 0; dy < 3; ++dy) {
+          const float* mr = s_m + (rr + dy) * kFMS + k0;
+          const float4 f0 = *reinterpret_cast<const float4*>(mr);
+          const float2 f1 = *reinterpret_cast<const float2*>(mr + 4);
+          const float win[6] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y};
 #pragma unroll
-      for (int q = 0; q < kRows; ++q) v[q] = src[cc][ty + q * kThreadRows + tap / 3][tx + tap % 3];
+          for (int dx = 0; dx < 3; ++dx) {
 #pragma unroll
-      for (int k = 0; k < NC; k += 4) {
-        const float4 wv = *reinterpret_cast<const float4*>(&w[cc][tap][k]);
+            for (int e = 0; e < 4; ++e) out[e] = fmaf(win[e + dx], wv[dy * 3 + dx], out[e]);
+          }
+        }
+        *reinterpret_cast<float4*>(sc + rr * kFHS + k0) =
+            make_float4(fmaxf(__fadd_rn(out[0], bias), 0.f), fmaxf(__fadd_rn(out[1], bias), 0.f),
+                        fmaxf(__fadd_rn(out[2], bias), 0.f), fmaxf(__fadd_rn(out[3], bias), 0.f));
+      }
+      return;
+    }
+    for (int it = tid / kKC; it < kFHR * (kFTW + 2); it += nthr / kKC) {
+      const int rr = it / (kFTW + 2), k = it % (kFTW + 2);
+      sc[rr * kFHS + k] = fmaxf(hidden_pre(s_m, a.w1, a.b1, md, kFMR, kFMS, c, rr, k), 0.f);
+    }
+  };
+
+  const int grp = tid / 32, lane = tid % 32;
+  const int tr = lane / 2, q = lane % 2;
+  const bool active = co0 + kFCO * grp < a.Co;  // the same for the whole warp
+  float acc[kFR][kFCO];
 #pragma unroll
-        for (int q = 0; q < kRows; ++q) {
-          acc[q][k] = fmaf(v[q], wv.x, acc[q][k]);
-          acc[q][k + 1] = fmaf(v[q], wv.y, acc[q][k + 1]);
-          acc[q][k + 2] = fmaf(v[q], wv.z, acc[q][k + 2]);
-          acc[q][k + 3] = fmaf(v[q], wv.w, acc[q][k + 3]);
+  for (int p = 0; p < kFR; ++p) {
+#pragma unroll
+    for (int c = 0; c < kFCO; ++c) acc[p][c] = 0.f;
+  }
+
+  stage_w(0, s_w);
+  itg::cp_async_commit();
+  itg::cp_async_wait_all();
+  __syncthreads();  // the maps tile and chunk 0's w2 are in
+  hidden(0, s_h);
+  __syncthreads();
+  const int chunks = (hid + kKC - 1) / kKC;
+  for (int k = 0; k < chunks; ++k) {
+    const int cur = k & 1;
+    if (k + 1 < chunks) {  // the other stages were read before the last barrier
+      stage_w((k + 1) * kKC, s_w + (cur ^ 1) * wstage);
+      itg::cp_async_commit();
+      hidden((k + 1) * kKC, s_h + (cur ^ 1) * kKC * kFHC);
+    }
+    if (active) {
+      const float* hs = s_h + cur * kKC * kFHC + tr * kFHS + kFR * q;
+      const float* ws = s_w + cur * wstage + kFCO * grp;
+#pragma unroll 1
+      for (int cc = 0; cc < kKC; ++cc) {
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          // pixel p at tap dx reads hidden column 16 q + p + dx: v[p + dx]
+          const float* row = hs + cc * kFHC + dy * kFHS;
+          float v[kFR + 2];
+#pragma unroll
+          for (int e = 0; e < kFR; e += 4) {
+            const float4 f = *reinterpret_cast<const float4*>(row + e);
+            v[e] = f.x, v[e + 1] = f.y, v[e + 2] = f.z, v[e + 3] = f.w;
+          }
+          v[kFR] = row[kFR];
+          v[kFR + 1] = row[kFR + 1];
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const float* wp = ws + (cc * 9 + dy * 3 + dx) * wrow;
+            const float4 wa = *reinterpret_cast<const float4*>(wp);
+            const float4 wb = *reinterpret_cast<const float4*>(wp + 4);
+            const float wv[kFCO] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+            for (int c = 0; c < kFCO; ++c) {
+#pragma unroll
+              for (int p = 0; p < kFR; ++p) acc[p][c] = fmaf(v[p + dx], wv[c], acc[p][c]);
+            }
+          }
         }
       }
     }
-  }
-}
-
-// Forward. w2c is w2 as (hid, 9, Co). Grid (output tiles, Co / TCO, N).
-template <typename T, int TCO>
-__global__ void __launch_bounds__(kThreads)
-ssm_fwd_kernel(const T* __restrict__ maps, const float* __restrict__ w1,
-               const float* __restrict__ b1, const float* __restrict__ w2c,
-               const float* __restrict__ b2, T* __restrict__ y, int md, int hid, int H, int W,
-               int Co) {
-  __shared__ float s_src[kChunk][kSrcH][kSrcW];
-  __shared__ __align__(16) float s_w[kChunk][9][TCO];
-
-  const int n = blockIdx.z;
-  const int tiles_w = (W + kTileW - 1) / kTileW;
-  const int ty0 = (blockIdx.x / tiles_w) * kTileH;
-  const int tx0 = (blockIdx.x % tiles_w) * kTileW;
-  const int co0 = blockIdx.y * TCO;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kTileW + tx;
-  const int Hm = H + 4, Wm = W + 4;
-  const T* mp = maps + static_cast<size_t>(n) * md * Hm * Wm;
-
-  float acc[kRows][TCO];
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-#pragma unroll
-    for (int k = 0; k < TCO; ++k) acc[q][k] = 0.f;
+    itg::cp_async_wait_all();
+    __syncthreads();  // chunk k + 1 is in; every thread is done with chunk k's stages
   }
 
-  for (int c0 = 0; c0 < hid; c0 += kChunk) {
-    // output (oy, ox) reads hidden (oy + dy, ox + dx): rows ty0 .. ty0 + 17
-    for (int i = tid; i < kChunk * kSrc; i += kThreads) {
-      const int cc = i / kSrc;
-      const int r = ty0 + (i % kSrc) / kSrcW;
-      const int j = tx0 + (i % kSrc) % kSrcW;
-      const int c = c0 + cc;
-      s_src[cc][(i % kSrc) / kSrcW][(i % kSrc) % kSrcW] =
-          (c < hid && r < H + 2 && j < W + 2)
-              ? fmaxf(hidden_pre(mp, w1, b1, md, Hm, Wm, c, r, j), 0.f)
-              : 0.f;
-    }
-    for (int i = tid; i < kChunk * 9 * TCO; i += kThreads) {
-      const int cc = i / (9 * TCO);
-      const int tap = (i / TCO) % 9;
-      const int k = i % TCO;
-      const int c = c0 + cc;
-      const int co = co0 + k;
-      s_w[cc][tap][k] = (c < hid && co < Co) ? w2c[(static_cast<size_t>(c) * 9 + tap) * Co + co] : 0.f;
-    }
-    __syncthreads();
-    accumulate_chunk<TCO>(s_src, s_w, tx, ty, acc);
-    __syncthreads();
-  }
-
+  const int oy = ty0 + tr, ox0 = tx0 + kFR * q;
+  if (!active || oy >= H || ox0 >= W) return;
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int oy = ty0 + ty + q * kThreadRows;
-    const int ox = tx0 + tx;
-    if (oy >= H || ox >= W) continue;
+  for (int c = 0; c < kFCO; ++c) {
+    const int o = co0 + kFCO * grp + c;
+    if (o >= a.Co) break;
+    const float bias = __ldg(a.b2 + o);
+    float* yp = a.y + ((static_cast<size_t>(n) * a.Co + o) * H + oy) * W + ox0;
+    if (a.yvec && ox0 + kFR <= W) {
 #pragma unroll
-    for (int k = 0; k < TCO; ++k) {
-      const int co = co0 + k;
-      if (co < Co) {
-        y[((static_cast<size_t>(n) * Co + co) * H + oy) * W + ox] =
-            from_f32<T>(__fadd_rn(acc[q][k], b2[co]));
+      for (int p = 0; p < kFR; p += 4) {
+        *reinterpret_cast<float4*>(yp + p) =
+            make_float4(__fadd_rn(acc[p][c], bias), __fadd_rn(acc[p + 1][c], bias),
+                        __fadd_rn(acc[p + 2][c], bias), __fadd_rn(acc[p + 3][c], bias));
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < kFR; ++p) {
+        if (ox0 + p < W) yp[p] = __fadd_rn(acc[p][c], bias);
       }
     }
   }
@@ -806,60 +924,52 @@ int dispatch_bwd(const float* maps, const float* w1, const float* b1, const floa
   return itg::last_error();
 }
 
-template <typename T, int TCO>
-int launch_fwd(const void* maps, const float* w1, const float* b1, const float* w2c,
-               const float* b2, void* y, int n, int md, int hid, int h, int w, int co,
-               cudaStream_t stream) {
-  const int tiles = ((w + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH);
-  const dim3 grid(tiles, (co + TCO - 1) / TCO, n);
-  ssm_fwd_kernel<T, TCO><<<grid, dim3(kTileW, kThreadRows), 0, stream>>>(
-      static_cast<const T*>(maps), w1, b1, w2c, b2, static_cast<T*>(y), md, hid, h, w, co);
+template <int WARPS>
+int launch_fwd(const float* maps, const float* w1, const float* b1, const float* w2,
+               const float* b2, float* y, int n, int md, int hid, int h, int w, int co,
+               cudaStream_t st) {
+  const size_t smem = fwd_smem(md, WARPS);
+  if (cudaError_t e = cudaFuncSetAttribute(ssm_fwd_f32_kernel<WARPS>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem))) {
+    return static_cast<int>(e);
+  }
+  const int tiles_w = (w + kFTW - 1) / kFTW, tiles_h = (h + kFTH - 1) / kFTH;
+  const bool yvec = (reinterpret_cast<uintptr_t>(y) & 15) == 0 && w % 4 == 0;
+  const FwdArgs a{maps, w1, b1, w2, b2, y, md, hid, h, w, co, tiles_w, yvec};
+  const int cblocks = (co + kFCO * WARPS - 1) / (kFCO * WARPS);
+  ssm_fwd_f32_kernel<WARPS><<<dim3(tiles_h * tiles_w, cblocks, n), 32 * WARPS, smem, st>>>(a);
   return itg::last_error();
 }
 
-// The output-channel block: the widest that pads Co by at most 15% (wider
-// blocks reuse each staged hidden value more and recompute the hidden
-// activation for fewer blocks), else the one that pads least.
-int pick_tco(int co) {
-  const int cand[] = {32, 28, 24, 16, 8};
-  for (int t : cand) {
-    if ((co + t - 1) / t * t * 100 <= co * 115) return t;
-  }
-  int best = 8, best_cost = 1 << 30;
-  for (int t : cand) {
-    const int cost = (co + t - 1) / t * t;
-    if (cost < best_cost) {
-      best = t;
-      best_cost = cost;
-    }
-  }
-  return best;
-}
-
-template <typename T>
-int dispatch_fwd(const void* maps, const float* w1, const float* b1, const float* w2c,
-                 const float* b2, void* y, int n, int md, int hid, int h, int w, int co,
-                 cudaStream_t s) {
-  switch (pick_tco(co)) {
-    case 32: return launch_fwd<T, 32>(maps, w1, b1, w2c, b2, y, n, md, hid, h, w, co, s);
-    case 28: return launch_fwd<T, 28>(maps, w1, b1, w2c, b2, y, n, md, hid, h, w, co, s);
-    case 24: return launch_fwd<T, 24>(maps, w1, b1, w2c, b2, y, n, md, hid, h, w, co, s);
-    case 16: return launch_fwd<T, 16>(maps, w1, b1, w2c, b2, y, n, md, hid, h, w, co, s);
-    default: return launch_fwd<T, 8>(maps, w1, b1, w2c, b2, y, n, md, hid, h, w, co, s);
+int dispatch_fwd(const float* maps, const float* w1, const float* b1, const float* w2,
+                 const float* b2, float* y, int n, int md, int hid, int h, int w, int co,
+                 int warps, cudaStream_t st) {
+  switch (warps) {
+    case 1: return launch_fwd<1>(maps, w1, b1, w2, b2, y, n, md, hid, h, w, co, st);
+    case 2: return launch_fwd<2>(maps, w1, b1, w2, b2, y, n, md, hid, h, w, co, st);
+    case 4: return launch_fwd<4>(maps, w1, b1, w2, b2, y, n, md, hid, h, w, co, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
 // maps (N, md, h + 4, w + 4), y (N, co, h, w), w1 (hid, md, 3, 3), b1 (hid),
-// w2c (hid, 3, 3, co) = w2 permuted, b2 (co): float32. Returns
+// w2 (co, hid, 3, 3), b2 (co): float32. warps (1, 2 or 4: the block's
+// 8-channel groups) from ops/ssm.py fwd_f32_plan; any gives the same bits. md
+// is bounded by the shared memory (68 KB + 2.9 KB a map channel). Returns
 // cudaGetLastError() after the launch.
-extern "C" int itg_ssm_embed_fwd(const void* maps, const void* w1, const void* b1,
-                                 const void* w2c, const void* b2, void* y, int n, int md,
-                                 int hid, int h, int w, int co, void* stream) {
-  return dispatch_fwd<float>(maps, static_cast<const float*>(w1), static_cast<const float*>(b1),
-                             static_cast<const float*>(w2c), static_cast<const float*>(b2), y, n,
-                             md, hid, h, w, co, static_cast<cudaStream_t>(stream));
+extern "C" int itg_ssm_embed_fwd(const void* maps, const void* w1, const void* b1, const void* w2,
+                                 const void* b2, void* y, int n, int md, int hid, int h, int w,
+                                 int co, int warps, void* stream) {
+  if (n < 1 || md < 1 || hid < 1 || h < 1 || w < 1 || co < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch_fwd(static_cast<const float*>(maps), static_cast<const float*>(w1),
+                      static_cast<const float*>(b1), static_cast<const float*>(w2),
+                      static_cast<const float*>(b2), static_cast<float*>(y), n, md, hid, h, w, co,
+                      warps, static_cast<cudaStream_t>(stream));
 }
 
 // maps as the forward's, g (n, co, h, w), w1, b1 and w2 (co, hid, 3, 3):

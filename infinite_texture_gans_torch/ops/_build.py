@@ -98,8 +98,8 @@ SIGNATURES = {
     "itg_stem_dx": [_P] * 3 + [_I] * 6 + [_P],
     # g, w, wp, dx, n, c, h, w, co, stream (bf16 only)
     "itg_stem_dx_tc": [_P] * 4 + [_I] * 5 + [_P],
-    # maps, w1, b1, w2c, b2, y, n, md, hid, h, w, co, stream (float32 only)
-    "itg_ssm_embed_fwd": [_P] * 6 + [_I] * 6 + [_P],
+    # maps, w1, b1, w2, b2, y, n, md, hid, h, w, co, warps, stream (float32 only)
+    "itg_ssm_embed_fwd": [_P] * 6 + [_I] * 7 + [_P],
     # maps, w1, b1, w2, g, part1, part2, partb2, dw2, db2, dw1, db1, n, md, hid, h, w, co, s2,
     # rows2, stream (float32 only)
     "itg_ssm_embed_bwd": [_P] * 12 + [_I] * 8 + [_P],

@@ -27,8 +27,9 @@ The route on the card depends on the maps' dtype alone, with no fallback:
 - **float32** takes the CUDA-core kernels of ``csrc/ssm_embed_chw.cu``
   (``itg_ssm_embed_fwd``, ``itg_ssm_embed_bwd``), which round nothing but the
   output: the exactness route of step parity and the f32 raster. The
-  backward runs on :func:`bwd_f32_plan`'s launches and sums its partials in
-  a fixed order too, so two calls give the same bits.
+  forward runs on :func:`fwd_f32_plan`'s grid, the backward on
+  :func:`bwd_f32_plan`'s launches, whose partials are summed in a fixed
+  order too, so two calls give the same bits.
 - CPU tensors take the plain versions.
 
 ``ROUTE_LAUNCHES`` counts the launches of each C entry point. The maps are
@@ -43,6 +44,7 @@ launches count in ``kernels.LAUNCHES`` under ``ssm_embed`` and
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
@@ -150,6 +152,86 @@ F32_COLS2 = 32
 F32_RUN2 = 8
 F32_ROWS2 = (2, 4, 6, 8)
 F32_CHUNK_COST2 = 2
+
+
+# The float32 route's forward (csrc/ssm_embed_chw.cu): a block per (16 x 32
+# output tile, F32_FWD_CO x warps output channels, image), a warp per 8
+# channels; each chunk of F32_FWD_KC hidden channels is computed once a
+# block. The plan takes the block width of F32_FWD_WARPS with the least
+# cost: the busiest SM's blocks (all resident at once) x a block's work
+# (its active warps' FMAs plus F32_FWD_HIDDEN warps' worth of hidden
+# activation) over the warps that issue in parallel, at most F32_FWD_ISSUE
+# an SM. So a grid of fewer, wider blocks wins where each SM gets one
+# anyway (the eval sub-image's 96^2 sites), as the card reads it
+# (f32_route_study.py's plan table).
+F32_FWD_TILE = (16, 32)
+F32_FWD_CO = 8
+F32_FWD_KC = 8
+F32_FWD_WARPS = (4, 2, 1)
+F32_FWD_HIDDEN = 0.5
+F32_FWD_ISSUE = 4
+
+
+class SsmFwdF32Plan(NamedTuple):
+    warps: int  # warps a block: F32_FWD_CO output channels each
+    tiles: int  # N x the output's 16 x 32 tiles
+    channel_blocks: int  # the grid's second axis: ceil(Co / (8 warps))
+    blocks: int  # tiles x channel_blocks
+    smem: int  # bytes of dynamic shared memory a block
+
+
+def _fwd_smem(md: int, warps: int) -> int:
+    """Bytes of shared memory of a forward block: two stages of a chunk's
+    hidden activation (18 x 36 floats a channel) and of its w2 slice (9 rows
+    a channel of 8 x warps floats, padded to 8 or 24 modulo 32), the maps
+    tile (20 x 36 a map channel) and 4 floats of slack its last window
+    reads past."""
+    wrow = 8 * warps + (0 if warps % 2 else 8)
+    th, tw = F32_FWD_TILE
+    return 4 * (2 * F32_FWD_KC * (th + 2) * 36 + 2 * F32_FWD_KC * 9 * wrow
+                + md * (th + 4) * (tw + 4) + 4)
+
+
+def fwd_f32_plans(n: int, md: int, hid: int, h: int, w: int, co: int, sms: int = 132) -> list:
+    """Every plan the float32 K15 forward's planner chooses from for maps
+    (N, md, H+4, W+4), hid hidden and Co output channels on a card of
+    ``sms`` SMs: one for each block width of F32_FWD_WARPS whose shared
+    memory fits the card's. Raises for an empty shape, N > 65535 or a map_dim
+    whose shared memory exceeds the card's."""
+    if min(n, md, hid, h, w, co) < 1 or n > 65535:
+        raise ValueError(f"ssm_embed (float32) takes 1 <= N <= 65535 and md, hid, H, W, Co >= 1, "
+                         f"got N={n}, md={md}, hid={hid}, H={h}, W={w}, Co={co}")
+    th, tw = F32_FWD_TILE
+    tiles = n * _cdiv(h, th) * _cdiv(w, tw)
+    plans = []
+    for warps in F32_FWD_WARPS:
+        smem = _fwd_smem(md, warps)
+        if smem > CONV3X3_DW_F32_SMEM:
+            continue
+        cb = _cdiv(co, F32_FWD_CO * warps)
+        plans.append(SsmFwdF32Plan(warps, tiles, cb, tiles * cb, smem))
+    if not plans:
+        raise ValueError(f"ssm_embed (float32): map_dim {md} exceeds the shared memory of a block "
+                         f"({_fwd_smem(md, 1)} bytes)")
+    return plans
+
+
+@lru_cache(maxsize=64)
+def fwd_f32_plan(n: int, md: int, hid: int, h: int, w: int, co: int,
+                 sms: int = 132) -> SsmFwdF32Plan:
+    """The float32 K15 forward's grid for maps (N, md, H+4, W+4), hid hidden
+    and Co output channels on a card of ``sms`` SMs: the plan of
+    :func:`fwd_f32_plans` with the least cost (see F32_FWD_HIDDEN), the more
+    warps a block on a tie, kept for each shape. Every plan gives the same
+    bits. Raises as :func:`fwd_f32_plans`."""
+    groups = _cdiv(co, F32_FWD_CO)
+
+    def cost(p):
+        busiest = _cdiv(p.blocks, sms)
+        work = groups / p.channel_blocks + F32_FWD_HIDDEN
+        return busiest * work / min(F32_FWD_ISSUE, busiest * p.warps), -p.warps
+
+    return min(fwd_f32_plans(n, md, hid, h, w, co, sms), key=cost)
 
 
 class SsmBwdF32Plan(NamedTuple):
@@ -261,11 +343,11 @@ def _fwd(maps, w1, b1, w2, b2):
                 y.data_ptr(), n, md, hid, h, w, co, tc_plan(co)[0], _stream(maps),
             )
         else:
-            w2c = w2.detach().float().permute(1, 2, 3, 0).contiguous()  # (hid, 3, 3, Co)
+            plan = fwd_f32_plan(n, md, hid, h, w, co, _sm_count(maps.device.index))
             rc = _launch(
                 "itg_ssm_embed_fwd", maps.data_ptr(), _f32(w1).data_ptr(), _f32(b1).data_ptr(),
-                w2c.data_ptr(), _f32(b2).data_ptr(), y.data_ptr(), n, md, hid, h, w, co,
-                _stream(maps),
+                _f32(w2).data_ptr(), _f32(b2).data_ptr(), y.data_ptr(), n, md, hid, h, w, co,
+                plan.warps, _stream(maps),
             )
     _raise_on(rc, "ssm_embed")
     kernels.LAUNCHES["ssm_embed"] += 1

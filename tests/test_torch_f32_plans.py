@@ -2,8 +2,9 @@
 K1/K2, K6, K7, K9's forward (with K14), K9 dW and K13 dW (ops/kernels.py:
 upconv_dx_f32_plan, stem_f32_plan, conv1x1_dw_f32_plan, conv3x3_f32_plan,
 conv3x3_dx_f32_plan, conv3x3_dw_f32_plan, upconv_f32_plan,
-upconv_dw_f32_plan, stem_dw_f32_plan) and of K15's backward (ops/ssm.py:
-bwd_f32_plan): the tiles and splits they choose at the Experiment-1,
+upconv_dw_f32_plan, stem_dw_f32_plan) and of K15's
+forward and backward (ops/ssm.py: fwd_f32_plan, bwd_f32_plan): the tiles
+and splits they choose at the Experiment-1,
 SSM, eval and ``--D_ch 640`` shapes, and the shapes they refuse. The kernels
 themselves run only on the card (chip_smoke.py, tests/test_torch_gpu.py); on
 the CPU the wrappers take the plain versions, which
@@ -184,6 +185,74 @@ def test_ssm_bwd_f32_plan_refuses(shape, match):
     memory exceeds the card's raise, naming the kernel."""
     with pytest.raises(ValueError, match=match):
         ssm.bwd_f32_plan(*shape)
+
+
+# K15's float32 forward: (N, md, hid, H, W, Co) and its plan (warps, tiles,
+# channel blocks): the SSM step's sites (N = 8 at 192^2: Co 104 twice, 52
+# once) and the eval sub-image's (N = 1: Co 208 and 104 at 96^2, 104 and 52
+# at 192^2)
+SSM_FWD_PLANS = [
+    ((8, 1, 128, 192, 192, 104), (4, 8 * 12 * 6, 4)),  # 13 groups of 8: 4 blocks of 4 warps
+    ((8, 1, 128, 192, 192, 52), (4, 8 * 12 * 6, 2)),
+    ((1, 1, 128, 96, 96, 208), (4, 6 * 3, 7)),  # 126 blocks: one an SM, each 4 warps wide
+    ((1, 1, 128, 96, 96, 104), (4, 6 * 3, 4)),  # 72 blocks: narrower ones would share SMs
+    ((1, 1, 128, 192, 192, 104), (2, 12 * 6, 7)),  # 504 blocks of 2: 4 an SM, 8 warps
+    ((1, 1, 128, 192, 192, 52), (1, 12 * 6, 7)),  # 504 of 1: 4 warps a SM, no idle warp
+]
+
+
+def _ssm_fwd_cost(plan, co, sms=132):
+    """The planner's cost as ops/ssm.py states it: the busiest SM's blocks
+    x (a block's active warps + ssm.F32_FWD_HIDDEN) over the warps issuing
+    at once (at most ssm.F32_FWD_ISSUE)."""
+    busiest = -(-plan.blocks // sms)
+    work = -(-co // 8) / plan.channel_blocks + ssm.F32_FWD_HIDDEN
+    return busiest * work / min(ssm.F32_FWD_ISSUE, busiest * plan.warps)
+
+
+@pytest.mark.parametrize("shape, plan", SSM_FWD_PLANS, ids=lambda v: str(v))
+def test_ssm_fwd_f32_plan(shape, plan):
+    """A block per 16 x 32 output tile of an image and 8 output channels a
+    warp; 4 warps a block at the training shapes (the hidden chunk computed
+    for the most channels), and at eval the block width that loads the
+    H100's 132 SMs best, not the most blocks."""
+    got = ssm.fwd_f32_plan(*shape)
+    assert (got.warps, got.tiles, got.channel_blocks) == plan
+    assert got.blocks == got.tiles * got.channel_blocks
+
+
+@pytest.mark.parametrize("shape", [(8, 1, 128, 192, 192, 104), (1, 1, 128, 96, 96, 208),
+                                   (3, 2, 40, 33, 47, 210), (1, 1, 16, 5, 7, 1),
+                                   (2, 3, 100, 20, 37, 57), (1, 56, 8, 8, 8, 4)])
+def test_ssm_fwd_f32_plans_cover_the_output(shape):
+    """Every plan: the tiles cover each image's H x W output, the channel
+    blocks every output channel (8 a warp), the shared memory fits the
+    H100's; the chosen plan is one of them, with the least cost."""
+    n, md, hid, h, w, co = shape
+    plans = ssm.fwd_f32_plans(*shape)
+    chosen = ssm.fwd_f32_plan(*shape)
+    assert chosen in plans
+    assert {p.warps for p in plans} <= set(ssm.F32_FWD_WARPS)
+    for plan in plans:
+        assert plan.tiles == n * -(-h // 16) * -(-w // 32)
+        width = 8 * plan.warps
+        assert plan.channel_blocks * width >= co > (plan.channel_blocks - 1) * width
+        assert plan.smem <= tk.CONV3X3_DW_F32_SMEM
+        assert _ssm_fwd_cost(chosen, co) <= _ssm_fwd_cost(plan, co)
+
+
+@pytest.mark.parametrize("shape, match", [((0, 1, 128, 8, 8, 4), "float32"),
+                                          ((1, 0, 128, 8, 8, 4), "float32"),
+                                          ((1, 1, 0, 8, 8, 4), "float32"),
+                                          ((1, 1, 128, 8, 8, 0), "float32"),
+                                          ((1, 1, 128, 0, 8, 4), "float32"),
+                                          ((65536, 1, 8, 8, 8, 4), "float32"),
+                                          ((1, 80, 128, 8, 8, 4), "map_dim 80")])
+def test_ssm_fwd_f32_plan_refuses(shape, match):
+    """Empty shapes, N past 65535 and a map_dim whose maps tile overflows a
+    block's shared memory raise, naming the kernel."""
+    with pytest.raises(ValueError, match=match):
+        ssm.fwd_f32_plan(*shape)
 
 
 # (N, C, Co, H, W) of K1's float32 route, and the plan (TO, groups a block,

@@ -2040,6 +2040,150 @@ def test_ssm_embed_window_bit_equal(cuda, dtype):
         assert torch.equal(win, full[..., r0 : r0 + h, c0 : c0 + w]), (r0, c0)
 
 
+# K15's f32 forward (a block per 16 x 32 tile and 8 x warps output channels,
+# the hidden chunk computed once a block): odd H and W, map_dim 2, hid 40, Co
+# 1, 52, 104, 208 and 210 (no multiple of 8), N 1 and 3
+SSM_F32_FWD_SHAPES = [(3, 1, 13, 45, 128, 52), (1, 1, 96, 96, 128, 208), (1, 2, 17, 23, 40, 104),
+                      (3, 1, 33, 47, 40, 210), (1, 1, 5, 7, 16, 1), (1, 2, 64, 37, 128, 104)]
+
+
+@pytest.mark.parametrize("shape", SSM_F32_FWD_SHAPES)
+def test_ssm_embed_fwd_f32_matches_plain_and_repeats(cuda, shape):
+    """The float32 forward launches its CUDA-core entry point once a call,
+    within the f32 limit of the plain version; each output sums in one
+    order whatever the plan: two calls, and the entry point at every block
+    width of ssm.fwd_f32_plans, give the same bits, and a window of the
+    maps the same bits as that window of the whole output."""
+    from infinite_texture_gans_torch.ops import ssm
+
+    maps, w1, b1, w2, b2, _ = _ssm_inputs(cuda, torch.float32, shape)
+    n, md, h, w, hid, co = shape
+    ssm.ROUTE_LAUNCHES.update(dict.fromkeys(ssm.ROUTE_LAUNCHES, 0))
+    y = ssm.ssm_embed(maps, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert ssm.ROUTE_LAUNCHES["itg_ssm_embed_fwd"] == 1
+    _assert_close(y, ssm.ssm_embed_plain(maps, w1, b1, w2, b2))
+    assert torch.equal(y, ssm.ssm_embed(maps, w1, b1, w2, b2))
+    for plan in ssm.fwd_f32_plans(n, md, hid, h, w, co):
+        other = torch.full_like(y, float("nan"))
+        rc = tk._lib().itg_ssm_embed_fwd(maps.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                                         w2.data_ptr(), b2.data_ptr(), other.data_ptr(), n, md,
+                                         hid, h, w, co, plan.warps,
+                                         torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == 0 and torch.equal(other, y), plan
+    r0, c0, hw, ww = h // 3, w // 4, max(1, h // 2), max(1, w // 2)
+    win = ssm.ssm_embed(maps[..., r0 : r0 + hw + 4, c0 : c0 + ww + 4].contiguous(), w1, b1, w2, b2)
+    assert torch.equal(win, y[..., r0 : r0 + hw, c0 : c0 + ww])
+
+
+def test_ssm_embed_fwd_f32_on_offset_view(cuda):
+    """maps one element into its storage (its rows at no 16-byte boundary)
+    and an output width no multiple of 4 (element-wise stores): the
+    aligned copy's bits."""
+    from infinite_texture_gans_torch.ops import ssm
+
+    maps, w1, b1, w2, b2, _ = _ssm_inputs(cuda, torch.float32, (2, 1, 19, 31, 128, 104))
+    flat = torch.empty(maps.numel() + 1, device=cuda)
+    view = flat[1:].view(maps.shape)
+    view.copy_(maps)
+    assert view.data_ptr() % 16
+    assert torch.equal(ssm.ssm_embed(view, w1, b1, w2, b2), ssm.ssm_embed(maps, w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("shape", [SSM_F32_FWD_SHAPES[0], SSM_F32_FWD_SHAPES[2]])
+def test_ssm_embed_fwd_f32_check_catches_planted_faults(cuda, shape):
+    """The check fails on a float32 forward with w2's dy and dx swapped, or
+    one hidden chunk skipped (its 8 channels' w2 zeroed)."""
+    from infinite_texture_gans_torch.ops import ssm
+
+    maps, w1, b1, w2, b2, _ = _ssm_inputs(cuda, torch.float32, shape)
+    ref = ssm.ssm_embed_plain(maps, w1, b1, w2, b2)
+    _assert_close(ssm.ssm_embed(maps, w1, b1, w2, b2), ref)
+    skip = w2.clone()
+    skip[:, 8:16] = 0
+    for bad in (ssm.ssm_embed(maps, w1, b1, w2.transpose(2, 3).contiguous(), b2),
+                ssm.ssm_embed(maps, w1, b1, skip, b2)):
+        with pytest.raises(AssertionError):
+            _assert_close(bad, ref)
+
+
+# K13 dx's f32 route (4 x 4 pixels of one parity class a lane, g staged by
+# pairs of output channels): C 1 to 4, Co 1, 64, 100 and 640, odd g sizes, Co
+# odd (g staged element by element)
+STEMDX_F32_SHAPES = [(8, 3, 96, 96, 64), (2, 1, 11, 15, 1), (1, 2, 19, 35, 100), (3, 4, 5, 17, 64),
+                     (2, 3, 9, 13, 640), (1, 3, 33, 70, 7), (1, 4, 8, 40, 12)]
+
+
+def _stemdx_f32_case(cuda, shape, seed=67):
+    n, c, h2, w2, co = shape
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.randn(n, h2, w2, co, generator=gen).to(cuda)
+    wt = (torch.randn(co, c, 4, 4, generator=gen) * co ** -0.5).to(cuda)
+    return g, wt
+
+
+@pytest.mark.parametrize("shape", STEMDX_F32_SHAPES)
+def test_stem_dx_f32_matches_plain_and_repeats(cuda, shape):
+    """float32 K13 dx runs the CUDA-core kernel, within the f32 limit of the
+    plain version; each dx element sums in one order: two calls give the
+    same bits, and the entry point writes every element of a NaN-filled dx."""
+    g, wt = _stemdx_f32_case(cuda, shape)
+    n, c, h2, w2, co = shape
+    tk.ROUTE_LAUNCHES.update(dict.fromkeys(tk.ROUTE_LAUNCHES, 0))
+    dx = tk.stem_dx(g, wt)
+    torch.cuda.synchronize()
+    assert (tk.ROUTE_LAUNCHES["itg_stem_dx_tc"], tk.ROUTE_LAUNCHES["itg_stem_dx"]) == (0, 1)
+    assert dx.shape == (n, c, 2 * h2, 2 * w2)
+    _assert_close(dx, tk.stem_dx_plain(g, wt))
+    assert torch.equal(dx, tk.stem_dx(g, wt))
+    other = torch.full_like(dx, float("nan"))
+    rc = tk._lib().itg_stem_dx(g.data_ptr(), wt.data_ptr(), other.data_ptr(), n, c, 2 * h2,
+                               2 * w2, co, 0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and torch.equal(other, dx)
+
+
+def test_stem_dx_f32_on_offset_view(cuda):
+    """g one element into its storage (no pair of output channels at an
+    8-byte boundary): staged element by element, the aligned copy's bits."""
+    g, wt = _stemdx_f32_case(cuda, STEMDX_F32_SHAPES[2])
+    flat = torch.empty(g.numel() + 1, device=cuda)
+    view = flat[1:].view(g.shape)
+    view.copy_(g)
+    assert view.data_ptr() % 8
+    assert torch.equal(tk.stem_dx(view, wt), tk.stem_dx(g, wt))
+
+
+@pytest.mark.parametrize("case", [0, 3])
+def test_stem_dx_f32_check_catches_planted_faults(cuda, case):
+    """The check fails on a float32 K13 dx that is slightly wrong: ky and kx
+    swapped, 4 output channels skipped (half a chunk), or g's zero border read
+    as the edge pixel."""
+    g, wt = _stemdx_f32_case(cuda, STEMDX_F32_SHAPES[case])
+    ref = tk.stem_dx_plain(g, wt)
+    _assert_close(tk.stem_dx(g, wt), ref)
+    skip = wt.clone()
+    skip[4:8] = 0
+    g_edge = torch.nn.functional.pad(g.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate")
+    edge = tk.stem_dx(g_edge.permute(0, 2, 3, 1).contiguous(), wt)[:, :, 2:-2, 2:-2]
+    for bad in (tk.stem_dx(g, wt.transpose(2, 3).contiguous()), tk.stem_dx(g, skip), edge):
+        with pytest.raises(AssertionError):
+            _assert_close(bad, ref)
+
+
+@pytest.mark.parametrize("case", [0, 2])
+def test_stem_dx_f32_entry_takes_bf16(cuda, case):
+    """The CUDA-core entry point keeps its bf16 flag: bf16 g through the
+    float32 body (w unrounded) is the plain version rounded once."""
+    g, wt = _stemdx_f32_case(cuda, STEMDX_F32_SHAPES[case])
+    gb = g.to(torch.bfloat16)
+    got = tk._stem_dx_cuda_cores(gb, wt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    _assert_fwd_close(got, tk.stem_dx_plain(gb, wt))
+
+
 def _ssm_gen(cuda, gamma=0.0):
     gen = ResidualPatchGenerator(z_dim=16, G_ch=8, n_layers_G=4, attention=True, type_norm="SSM", map_dim=2)
     g = torch.Generator(device="cpu").manual_seed(2)

@@ -109,16 +109,21 @@ F32_OLD_DELETED = {"conv3x3_chw", "upconv3x3_chw"}
 
 # K15's float32 backward, redesigned in place beside its forward
 K15_BWD = ("ssm_embed_chw", "itg_ssm_embed_bwd", None, "pallas_ssm.py:392")
+# K15's float32 forward and K13 dx, redesigned in place in their sources
+K15_FWD = ("ssm_embed_chw", "itg_ssm_embed_fwd", None, "pallas_ssm.py:343")
+K13_DX = ("stem_dx_f32", "itg_stem_dx", None, "pallas_conv.py:2977")
+IN_PLACE = [K15_BWD, K15_FWD, K13_DX]
 
 
-@pytest.mark.parametrize("src, entry, old, site", F32_REDESIGNED + [K15_BWD],
-                         ids=[r[0] for r in F32_REDESIGNED + [K15_BWD]])
+@pytest.mark.parametrize("src, entry, old, site", F32_REDESIGNED + IN_PLACE,
+                         ids=[r[0] for r in F32_REDESIGNED]
+                         + ["ssm_embed_chw", "ssm_embed_chw_fwd", "stem_dx_f32"])
 def test_f32_redesigned_sources_target_sm90a(src, entry, old, site):
     """Each redesigned float32 kernel is its own source (K15's backward
-    shares its forward's), built with the rest for sm_90a, names the TPU
-    kernel it replaces and its bound on the H100, and defines its C entry
-    point; the old body's source no longer does, or is gone where it held
-    nothing else."""
+    and forward share one; K13 dx was redesigned in its own), built with the
+    rest for sm_90a, names the TPU kernel it replaces and its bound on the
+    H100, and defines its C entry point; the old body's source no longer
+    does, or is gone where it held nothing else."""
     from infinite_texture_gans_torch.ops import _build
 
     path = _build.CSRC / f"{src}.cu"
@@ -136,13 +141,13 @@ def test_f32_redesigned_sources_target_sm90a(src, entry, old, site):
         assert f'extern "C" int {entry}(' not in old_path.read_text()
 
 
-@pytest.mark.parametrize("src", [r[0] for r in F32_REDESIGNED] + ["ssm_embed_chw"])
+@pytest.mark.parametrize("src", [r[0] for r in F32_REDESIGNED] + ["ssm_embed_chw", "stem_dx_f32"])
 def test_f32_redesigned_sources_have_no_atomics(src):
     """K9 dx's and K6's float32 sums (d(scale), d(shift)), K3-dW's, K7's,
     K9's and K13's dW and db, K15's dW2, db2, dW1 and db1 and K5's and K9's
     Σy and Σy² are per-block partials added in a fixed order, and K13's,
-    K1's, K9's and K15's forwards sum each output in one order: two calls
-    give the same bits."""
+    K1's, K9's and K15's forwards and K13 dx sum each output in one order:
+    two calls give the same bits."""
     text = (PACKAGE / "csrc" / f"{src}.cu").read_text()
     assert "atomicAdd" not in text and "block_sum2_atomic" not in text
 
